@@ -1,0 +1,125 @@
+"""Config: a recursive namespace over the reference-compatible preset fields.
+
+A config is the defaults below merged with a JSON file (the checkpoint
+sidecar) or a YAML preset from ``configs/``, then with explicit overrides.
+Only the fields that sampling reads have defaults here; other fields of a
+preset or sidecar pass through unchanged.  PyYAML is imported only when a
+``.yml``/``.yaml`` path is given.
+"""
+from __future__ import annotations
+
+import copy
+import json
+from pathlib import Path
+from typing import Any, Dict, Optional
+
+
+class Config:
+    """Recursive attribute namespace over a dict."""
+
+    def __init__(self, d: Optional[Dict[str, Any]] = None):
+        if d:
+            for k, v in d.items():
+                setattr(self, k, Config(v) if isinstance(v, dict) else v)
+
+    def get(self, key, default=None):
+        return getattr(self, key, default)
+
+    def to_dict(self) -> Dict[str, Any]:
+        return {k: v.to_dict() if isinstance(v, Config) else v
+                for k, v in self.__dict__.items()}
+
+
+_DEFAULTS: Dict[str, Any] = {
+    "dataset": "crossdock",
+    "mode": "pocket_conditioning",
+    "pocket_representation": "CA",
+    "virtual_nodes": False,
+    "egnn_params": {
+        "edge_cutoff_ligand": None,
+        "edge_cutoff_pocket": None,
+        "edge_cutoff_interaction": None,
+        "reflection_equivariant": True,
+        "edge_embedding_dim": None,
+        "joint_nf": 32,
+        "hidden_nf": 128,
+        "n_layers": 5,
+        "attention": True,
+        "tanh": True,
+        "norm_constant": 1,
+        "inv_sublayers": 1,
+        "sin_embedding": False,
+        "aggregation_method": "sum",
+        "normalization_factor": 100,
+    },
+    "diffusion_params": {
+        "diffusion_steps": 500,
+        "diffusion_noise_schedule": "polynomial_2",
+        "diffusion_noise_precision": 5.0e-4,
+        "diffusion_loss_type": "l2",
+        "normalize_factors": [1, 4],
+    },
+    # padding granularity of the node axes (the presets keep these under the
+    # key "tpu"; the port reads the same fields)
+    "tpu": {
+        "lig_bucket": 8,
+        "pocket_bucket": 64,
+    },
+}
+
+
+def _merge(base: Dict[str, Any], override: Dict[str, Any]) -> Dict[str, Any]:
+    out = copy.deepcopy(base)
+    for k, v in (override or {}).items():
+        if isinstance(v, dict) and isinstance(out.get(k), dict):
+            out[k] = _merge(out[k], v)
+        else:
+            out[k] = v
+    return out
+
+
+def _read(path) -> Dict[str, Any]:
+    path = Path(path)
+    if path.suffix in (".yml", ".yaml"):
+        import yaml  # only presets need PyYAML
+        with open(path) as f:
+            return yaml.safe_load(f) or {}
+    return json.loads(path.read_text())
+
+
+def load_config(path=None, overrides: Optional[Dict[str, Any]] = None) -> Config:
+    """Defaults, then the file at ``path`` (JSON or YAML), then overrides."""
+    merged = _merge(_DEFAULTS, _read(path) if path is not None else {})
+    if overrides:
+        merged = _merge(merged, overrides)
+    return Config(merged)
+
+
+# What the JAX package's training scripts fix for every committed parameter
+# snapshot (benchmarks/synth_quality_r05.py:165-189,
+# benchmarks/overfit_chem_r04.py:100-122): full-atom pocket conditioning on
+# crossdock_full with the flagship EGNN options of
+# configs/crossdock_fullatom_cond.yml.
+_SNAPSHOT_FIXED: Dict[str, Any] = {
+    "dataset": "crossdock_full",
+    "mode": "pocket_conditioning",
+    "pocket_representation": "full-atom",
+    "egnn_params": {"attention": True, "tanh": True, "norm_constant": 1,
+                    "inv_sublayers": 1, "reflection_equivariant": False,
+                    "edge_cutoff_ligand": None, "edge_cutoff_pocket": 5.0,
+                    "edge_cutoff_interaction": 5.0},
+    "diffusion_params": {"normalize_factors": [1, 4]},
+}
+
+
+def snapshot_config(npz_path, overrides: Optional[Dict[str, Any]] = None
+                    ) -> Dict[str, Any]:
+    """The config overrides a committed JAX parameter snapshot
+    (``checkpoints/<name>.npz``) was trained with: widths, depth and T from
+    the metadata file beside it (``<name>.json``), the rest as the training
+    scripts fix it; then ``overrides``."""
+    meta = json.loads(Path(npz_path).with_suffix(".json").read_text())
+    trained = {"egnn_params": {k: meta[k] for k in ("joint_nf", "hidden_nf",
+                                                      "n_layers")},
+               "diffusion_params": {"diffusion_steps": meta["T"]}}
+    return _merge(_merge(_SNAPSHOT_FIXED, trained), overrides or {})

@@ -1,0 +1,107 @@
+"""Chemical constants and per-dataset parameters for sampling.
+
+The port's own copy of the parts of ``diffsbdd_tpu/constants.py`` that
+molecule building needs: bond-length tables (pm), the maximum valences, the
+bond-perception margins and the ``crossdock`` / ``crossdock_full`` type
+spaces with their bond matrices generated from the element tables.
+"""
+from __future__ import annotations
+
+import numpy as np
+
+# margins (pm) added to table bond lengths when perceiving bonds of order 1/2/3
+MARGINS = (3, 2, 1)
+
+# maximum valences used by the table-based validity check
+ALLOWED_BONDS = {
+    "H": 1, "C": 4, "N": 3, "O": 2, "F": 1, "B": 3, "Al": 3, "Si": 4,
+    "P": [3, 5], "S": 4, "Cl": 1, "As": 3, "Br": 1, "I": 1, "Hg": [1, 2],
+    "Bi": [3, 5],
+}
+
+# single-bond lengths in pm, symmetric access via bond_length()
+BONDS1 = {
+    "H": {"H": 74, "C": 109, "N": 101, "O": 96, "F": 92, "B": 119, "Si": 148,
+          "P": 144, "As": 152, "S": 134, "Cl": 127, "Br": 141, "I": 161},
+    "C": {"H": 109, "C": 154, "N": 147, "O": 143, "F": 135, "Si": 185,
+          "P": 184, "S": 182, "Cl": 177, "Br": 194, "I": 214},
+    "N": {"H": 101, "C": 147, "N": 145, "O": 140, "F": 136, "Cl": 175,
+          "Br": 214, "S": 168, "I": 222, "P": 177},
+    "O": {"H": 96, "C": 143, "N": 140, "O": 148, "F": 142, "Br": 172,
+          "S": 151, "P": 163, "Si": 163, "Cl": 164, "I": 194},
+    "F": {"H": 92, "C": 135, "N": 136, "O": 142, "F": 142, "S": 158,
+          "Si": 160, "Cl": 166, "Br": 178, "P": 156, "I": 187},
+    "B": {"H": 119, "Cl": 175},
+    "Si": {"Si": 233, "H": 148, "C": 185, "O": 163, "S": 200, "F": 160,
+           "Cl": 202, "Br": 215, "I": 243},
+    "Cl": {"Cl": 199, "H": 127, "C": 177, "N": 175, "O": 164, "P": 203,
+           "S": 207, "B": 175, "Si": 202, "F": 166, "Br": 214},
+    "S": {"H": 134, "C": 182, "N": 168, "O": 151, "S": 204, "F": 158,
+          "Cl": 207, "Br": 225, "Si": 200, "P": 210, "I": 234},
+    "Br": {"Br": 228, "H": 141, "C": 194, "O": 172, "N": 214, "Si": 215,
+           "S": 225, "F": 178, "Cl": 214, "P": 222},
+    "P": {"P": 221, "H": 144, "C": 184, "O": 163, "Cl": 203, "S": 210,
+          "F": 156, "N": 177, "Br": 222},
+    "I": {"H": 161, "C": 214, "Si": 243, "N": 222, "O": 194, "S": 234,
+          "F": 187, "I": 266},
+    "As": {"H": 152},
+}
+
+BONDS2 = {
+    "C": {"C": 134, "N": 129, "O": 120, "S": 160},
+    "N": {"C": 129, "N": 125, "O": 121},
+    "O": {"C": 120, "N": 121, "O": 121, "P": 150},
+    "P": {"O": 150, "S": 186},
+    "S": {"P": 186, "C": 160},
+}
+
+BONDS3 = {
+    "C": {"C": 120, "N": 116, "O": 113},
+    "N": {"C": 116, "N": 110},
+    "O": {"C": 113},
+}
+
+
+def bond_length(table: dict, a: str, b: str) -> float:
+    """Symmetric lookup; 0 when no bond of that order exists for the pair."""
+    if a in table and b in table[a]:
+        return float(table[a][b])
+    if b in table and a in table[b]:
+        return float(table[b][a])
+    return 0.0
+
+
+def build_bond_matrix(decoder, table) -> np.ndarray:
+    """(A, A) matrix of bond lengths (pm) for an atom-type decoder list."""
+    n = len(decoder)
+    out = np.zeros((n, n), dtype=np.float64)
+    for i, a in enumerate(decoder):
+        for j, b in enumerate(decoder):
+            out[i, j] = bond_length(table, a, b)
+    return out
+
+
+_LIG_ATOMS = ["C", "N", "O", "S", "B", "Br", "Cl", "P", "I", "F"]
+_AA20 = ["A", "C", "D", "E", "F", "G", "H", "I", "K", "L",
+         "M", "N", "P", "Q", "R", "S", "T", "V", "W", "Y"]
+
+
+def _dataset(atom_decoder, aa_decoder):
+    return {
+        "atom_encoder": {a: i for i, a in enumerate(atom_decoder)},
+        "atom_decoder": list(atom_decoder),
+        "aa_encoder": {a: i for i, a in enumerate(aa_decoder)},
+        "aa_decoder": list(aa_decoder),
+        "bonds1": build_bond_matrix(atom_decoder, BONDS1),
+        "bonds2": build_bond_matrix(atom_decoder, BONDS2),
+        "bonds3": build_bond_matrix(atom_decoder, BONDS3),
+    }
+
+
+dataset_params = {
+    # CA pocket representation: residues typed by amino acid
+    "crossdock": _dataset(_LIG_ATOMS, _AA20),
+    # full-atom pocket representation: pocket atoms typed like ligand atoms
+    "crossdock_full": _dataset(_LIG_ATOMS + ["others"],
+                               _LIG_ATOMS + ["others"]),
+}

@@ -1,0 +1,248 @@
+// Device code shared by gcl_agg.cu and coord_agg.cu, f32, for sm_90a.
+//
+// Both kernels tile the same way: one block per (batch, tile of TI rows below
+// update_rows).  A block first compacts the columns adjacent to any of its rows (cutoffs on
+// the EGNN input coordinates x0, ascending j), then walks them in chunks of TJ
+// columns = P pairs.  For each chunk it computes the pair geometry and the
+// first two layers of a pair MLP:
+//
+//   pre_ij = a_row_i + a_col_j + d2_ij*w_d2 + d20_ij*w_d20 [+ lig_i*lig_j*delta]
+//   acc_ij = silu(pre_ij) @ W2
+//
+// with silu(pre) of the chunk's P pairs in shared memory and W2 (256 KB at
+// F = 256, more than a block's shared memory) streamed in KC-row stages.
+// Each warp owns PPW pairs of one row and all F output features (F/32 per
+// lane), so a head dot over the features is a warp shuffle reduction.  The
+// kernels differ only in what they do with acc (their epilogues).
+#pragma once
+#include <cuda_runtime.h>
+
+namespace egnn {
+
+constexpr int TI = 4;               // rows per block
+constexpr int TJ = 16;              // compacted columns per chunk
+constexpr int P = TI * TJ;          // pairs per chunk
+constexpr int NT = 256;             // threads per block (8 warps x 8 pairs = P)
+constexpr int KC = 16;              // W2 rows per shared-memory stage
+constexpr int PPW = P / (NT / 32);  // pairs per warp
+static_assert(PPW == 8 && TJ % PPW == 0, "a warp's pairs share one row");
+
+__device__ __forceinline__ float sigmoidf_(float v) { return 1.0f / (1.0f + expf(-v)); }
+__device__ __forceinline__ float siluf_(float v) { return v / (1.0f + expf(-v)); }
+
+struct Cutoffs { float ll, pp, lp; };  // squared distance cutoffs, < 0 for none
+
+// Adjacency of one (row, col) pair: the product of the two validity masks and
+// the distance cutoff of the pair's type.
+__device__ __forceinline__ float pair_adj(float mi, float mj, float li, float lj,
+                                          float d20, const Cutoffs& c) {
+  float ll = li * lj;
+  float pp = (1.0f - li) * (1.0f - lj);
+  float cr = 1.0f - ll - pp;
+  float ok = ll * ((c.ll < 0.0f || d20 <= c.ll) ? 1.0f : 0.0f)
+           + pp * ((c.pp < 0.0f || d20 <= c.pp) ? 1.0f : 0.0f)
+           + cr * ((c.lp < 0.0f || d20 <= c.lp) ? 1.0f : 0.0f);
+  return mi * mj * ok;
+}
+
+// One pair MLP: its first layer split into row/column projections, its second
+// layer, and the head its kernel applies to silu(acc + b2).
+struct PairMlp {
+  const float* a_row;  // (B, N, F), first-layer bias and type terms folded in
+  const float* a_col;  // (B, N, F)
+  const float* w_d2;   // (F)
+  const float* w_d20;  // (F)
+  const float* delta;  // (F) or null: rank-1 ligand-ligand type term
+  const float* w2;     // (F, F) row-major, input-major (x @ w2)
+  const float* b2;     // (F)
+  const float* head;   // (F) attention weights (GCL, null without attention)
+                       // or the coordinate head
+};
+
+struct Rows {  // the block's TI rows
+  float x[TI][3], x0[TI][3], mask[TI], lig[TI];
+};
+
+struct Chunk {  // pair p: row p / TJ, compacted column p % TJ
+  float d2[P], d20[P], adj[P], ll[P];
+  int j[P];  // -1: no edge (past the last column, or adjacency 0)
+};
+
+// Threads t < TI load row i0 + t.  Rows >= min(N, update_rows) get mask 0 and
+// so no edges; their output is zero.
+__device__ __forceinline__ void load_rows(Rows& r, const float* x, const float* x0,
+                                          const float* mask, const float* is_lig,
+                                          size_t node0, int i0, int N,
+                                          int update_rows) {
+  const int t = threadIdx.x;
+  if (t >= TI) return;
+  const int i = i0 + t;
+  const bool live = i < N && i < update_rows;
+  for (int a = 0; a < 3; ++a) {
+    r.x[t][a] = live ? x[(node0 + i) * 3 + a] : 0.0f;
+    r.x0[t][a] = live ? x0[(node0 + i) * 3 + a] : 0.0f;
+  }
+  r.mask[t] = live ? mask[node0 + i] : 0.0f;
+  r.lig[t] = live ? is_lig[node0 + i] : 0.0f;
+}
+
+// Writes every column adjacent to any of the block's rows to cols, in
+// ascending order (a ballot and a prefix count per warp), and returns their
+// number.  The rows must be loaded and synced.
+__device__ __forceinline__ int compact_columns(const Rows& r, const float* x0,
+                                               const float* col_mask,
+                                               const float* is_lig, size_t node0,
+                                               int N, const Cutoffs& cut, int* cols) {
+  __shared__ int warp_tot[NT / 32];
+  __shared__ int n_active;
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  if (t == 0) n_active = 0;
+  __syncthreads();
+  for (int base = 0; base < N; base += NT) {
+    const int j = base + t;
+    bool act = false;
+    if (j < N) {
+      float mj = col_mask[node0 + j], lj = is_lig[node0 + j];
+      float xj0 = x0[(node0 + j) * 3], xj1 = x0[(node0 + j) * 3 + 1],
+            xj2 = x0[(node0 + j) * 3 + 2];
+      for (int k = 0; k < TI; ++k) {
+        float d0 = r.x0[k][0] - xj0, d1 = r.x0[k][1] - xj1, d2 = r.x0[k][2] - xj2;
+        act |= pair_adj(r.mask[k], mj, r.lig[k], lj, d0 * d0 + d1 * d1 + d2 * d2,
+                        cut) != 0.0f;
+      }
+    }
+    unsigned ballot = __ballot_sync(0xffffffffu, act);
+    if (lane == 0) warp_tot[warp] = __popc(ballot);
+    __syncthreads();
+    int off = n_active;
+    for (int w = 0; w < warp; ++w) off += warp_tot[w];
+    if (act) cols[off + __popc(ballot & ((1u << lane) - 1u))] = j;
+    __syncthreads();
+    if (t == 0) {
+      int tot = 0;
+      for (int w = 0; w < NT / 32; ++w) tot += warp_tot[w];
+      n_active += tot;
+    }
+    __syncthreads();
+  }
+  return n_active;
+}
+
+// Threads t < P fill pair t of the chunk that starts at compacted column c0:
+// d2 from the current coordinates x, d20 and the adjacency from x0.
+__device__ __forceinline__ void fill_chunk(Chunk& c, const Rows& r, const float* x,
+                                           const float* x0, const float* col_mask,
+                                           const float* is_lig, size_t node0,
+                                           const int* cols, int count, int c0,
+                                           const Cutoffs& cut) {
+  const int t = threadIdx.x;
+  if (t >= P) return;
+  const int k = t / TJ, idx = c0 + t % TJ;
+  int j = idx < count ? cols[idx] : -1;
+  float d2 = 0.0f, d20 = 0.0f, adj = 0.0f, ll = 0.0f;
+  if (j >= 0) {
+    const float* xj = x + (node0 + j) * 3;
+    const float* x0j = x0 + (node0 + j) * 3;
+    float e0 = r.x[k][0] - xj[0], e1 = r.x[k][1] - xj[1], e2 = r.x[k][2] - xj[2];
+    d2 = e0 * e0 + e1 * e1 + e2 * e2;
+    float f0 = r.x0[k][0] - x0j[0], f1 = r.x0[k][1] - x0j[1], f2 = r.x0[k][2] - x0j[2];
+    d20 = f0 * f0 + f1 * f1 + f2 * f2;
+    float lj = is_lig[node0 + j];
+    adj = pair_adj(r.mask[k], col_mask[node0 + j], r.lig[k], lj, d20, cut);
+    ll = r.lig[k] * lj;
+    // a column adjacent to another row of the tile, or a dead row
+    if (adj == 0.0f) j = -1;
+  }
+  c.d2[t] = d2; c.d20[t] = d20; c.adj[t] = adj; c.ll[t] = ll; c.j[t] = j;
+}
+
+// acc[r][n] = (silu(pre) @ W2) for pair warp*PPW + r and feature lane + 32n.
+// S (P*F floats) and Ws (KC*F floats) are shared-memory scratch.  The chunk
+// must be filled and synced; the caller syncs again before it rewrites the
+// chunk or S.
+template <int F>
+__device__ __forceinline__ void pair_product(const PairMlp& m, const Chunk& c,
+                                             size_t node0, int i0, float* S,
+                                             float* Ws, float (&acc)[PPW][F / 32]) {
+  static_assert(NT % F == 0, "a thread fills one feature of S");
+  constexpr int NC = F / 32;
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int kS = t % F;  // the feature this thread fills in S
+  const float wd2_k = m.w_d2[kS], wd20_k = m.w_d20[kS];
+  const float delta_k = m.delta ? m.delta[kS] : 0.0f;
+
+  // ---- first layer: S = silu(pre), zero for pairs without an edge
+  for (int e = t; e < P * F; e += NT) {
+    const int p = e / F, j = c.j[p];
+    float v = 0.0f;
+    if (j >= 0) {
+      const int i = i0 + p / TJ;
+      float pre = m.a_row[(node0 + i) * F + kS] + m.a_col[(node0 + j) * F + kS]
+                + c.d2[p] * wd2_k + c.d20[p] * wd20_k;
+      if (m.delta) pre += c.ll[p] * delta_k;
+      v = siluf_(pre);
+    }
+    S[e] = v;
+  }
+
+  // ---- second layer: S @ W2, W2 streamed in KC-row stages
+#pragma unroll
+  for (int r = 0; r < PPW; ++r)
+#pragma unroll
+    for (int n = 0; n < NC; ++n) acc[r][n] = 0.0f;
+
+  for (int kc = 0; kc < F; kc += KC) {
+    __syncthreads();  // S complete / previous stage consumed
+    for (int e = t * 4; e < KC * F; e += NT * 4)
+      *reinterpret_cast<float4*>(Ws + e) =
+          *reinterpret_cast<const float4*>(m.w2 + (size_t)kc * F + e);
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < KC; kk += 4) {
+      float4 s4[PPW];
+#pragma unroll
+      for (int r = 0; r < PPW; ++r)
+        s4[r] = *reinterpret_cast<const float4*>(S + (warp * PPW + r) * F + kc + kk);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        float wv[NC];
+#pragma unroll
+        for (int n = 0; n < NC; ++n) wv[n] = Ws[(kk + q) * F + lane + 32 * n];
+#pragma unroll
+        for (int r = 0; r < PPW; ++r) {
+          float sv = q == 0 ? s4[r].x : q == 1 ? s4[r].y : q == 2 ? s4[r].z : s4[r].w;
+#pragma unroll
+          for (int n = 0; n < NC; ++n) acc[r][n] = fmaf(sv, wv[n], acc[r][n]);
+        }
+      }
+    }
+  }
+}
+
+// Rows >= update_rows have no edges, so the grid covers only the row tiles
+// below update_rows (dead blocks would crowd the live ones onto fewer SMs);
+// the blocks share the zeroing of the rows past their tiles, W floats a row.
+inline dim3 row_tile_grid(int N, int update_rows, int B) {
+  const int rows = update_rows < N ? update_rows : N;
+  const int tiles = (rows + TI - 1) / TI;
+  return dim3(tiles > 0 ? tiles : 1, B);
+}
+
+__device__ __forceinline__ void zero_rows_past_grid(float* out, size_t node0, int N,
+                                                    int W) {
+  const int tail0 = gridDim.x * TI;
+  if (tail0 >= N) return;
+  float* tail = out + (node0 + tail0) * W;
+  const int n = (N - tail0) * W;
+  for (int e = blockIdx.x * NT + threadIdx.x; e < n; e += gridDim.x * NT)
+    tail[e] = 0.0f;
+}
+
+// Dynamic shared memory of either kernel: S, the W2 stage and the compacted
+// column list.
+template <int F>
+constexpr size_t dynamic_smem(int N) {
+  return sizeof(float) * ((size_t)P * F + (size_t)KC * F) + sizeof(int) * (size_t)N;
+}
+
+}  // namespace egnn

@@ -1,0 +1,27 @@
+"""Joint (n_ligand, n_pocket) size prior: a smoothed 2-D histogram over node
+counts with its conditionals.  Sampling decides shapes, so it is host-side
+numpy."""
+from __future__ import annotations
+
+import numpy as np
+
+
+class SizeDistribution:
+    def __init__(self, histogram):
+        # the raw histogram is what checkpoints persist: re-smoothing an
+        # already-normalized table would flatten the prior on every save/load
+        self.raw_histogram = np.asarray(histogram, dtype=np.float64)
+        if self.raw_histogram.ndim != 2:
+            raise ValueError("size histogram must be 2-D: (n_lig+1, n_pocket+1)")
+        histogram = self.raw_histogram + 1e-3
+        self.prob = histogram / histogram.sum()
+        self.n2_max = histogram.shape[1] - 1
+        self.prob_n1_given_n2 = self.prob / self.prob.sum(axis=0, keepdims=True)
+
+    def sample_conditional(self, n2, rng: np.random.Generator | None = None):
+        """Sample ligand sizes n1 ~ p(n1 | n2) for pocket sizes ``n2``."""
+        rng = rng or np.random.default_rng()
+        table = self.prob_n1_given_n2
+        out = [rng.choice(table.shape[0], p=table[:, c])
+               for c in np.clip(np.asarray(n2), 0, self.n2_max)]
+        return np.asarray(out, dtype=np.int32)

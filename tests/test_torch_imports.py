@@ -1,0 +1,39 @@
+"""The port stands alone: no module of ``diffsbdd_tpu_torch`` nor
+``chip_smoke.py`` imports JAX, flax, optax, orbax or the JAX package."""
+import pkgutil
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import diffsbdd_tpu_torch
+
+REPO = Path(__file__).resolve().parent.parent
+FORBIDDEN = re.compile(
+    r"^\s*(from|import)\s+(diffsbdd_tpu|jax|flax|optax|orbax)(\.|\s|$)", re.M)
+
+
+def _modules():
+    return sorted(m.name for m in pkgutil.walk_packages(
+        diffsbdd_tpu_torch.__path__, "diffsbdd_tpu_torch."))
+
+
+def test_every_module_imports_without_jax():
+    mods = _modules() + ["chip_smoke"]
+    assert len(mods) > 20
+    code = ("import sys\n"
+            "for m in ('jax', 'flax', 'optax', 'orbax', 'diffsbdd_tpu'):\n"
+            "    sys.modules[m] = None\n"
+            f"for m in {mods!r}:\n"
+            "    __import__(m)\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+
+
+def test_no_jax_package_imports_in_sources():
+    files = sorted((REPO / "diffsbdd_tpu_torch").rglob("*.py")) \
+        + [REPO / "chip_smoke.py"]
+    bad = [f"{p.relative_to(REPO)}: {m.group(0).strip()}"
+           for p in files for m in FORBIDDEN.finditer(p.read_text())]
+    assert not bad, bad
