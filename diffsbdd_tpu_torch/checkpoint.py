@@ -3,8 +3,10 @@
 A checkpoint named ``best`` in ``ckpt_dir`` is ``best.pt`` (the state_dict)
 and ``best.config.json`` (the config, with the raw ligand/pocket size
 histogram under ``node_histogram``, or null when the checkpoint carries no
-size prior).  ``import_jax_npz`` turns a JAX parameter snapshot
-(``checkpoints/*.npz``) into such a checkpoint.
+size prior).  A checkpoint written by the trainer also has ``best.train.pt``
+(optimizer state, gradient-norm history, step), which only resuming reads.
+``import_jax_npz`` turns a JAX parameter snapshot (``checkpoints/*.npz``)
+into a checkpoint without the training state.
 """
 from __future__ import annotations
 
@@ -22,16 +24,21 @@ from diffsbdd_tpu_torch.utils.device import resolve_device
 
 
 def save_model(ckpt_dir, module: LigandPocketDDPM, cfg: Config,
-               name: str = "last") -> None:
-    ckpt_dir = Path(ckpt_dir)
-    ckpt_dir.mkdir(parents=True, exist_ok=True)
+               name: str = "last", state=None) -> None:
+    """Write the checkpoint ``name``; with a trainer ``state`` (a
+    ``train.loop.TrainState`` over ``module``) also its training state, so
+    that the run can be resumed."""
     cfg_dict = cfg.to_dict()
     # the RAW histogram: SizeDistribution smooths and normalizes on load
     sizes = module.ddpm.size_distribution
     cfg_dict["node_histogram"] = None if sizes is None else \
         np.asarray(sizes.raw_histogram).tolist()
-    (ckpt_dir / f"{name}.config.json").write_text(json.dumps(cfg_dict))
+    ckpt_dir = Path(ckpt_dir)
+    ckpt_dir.mkdir(parents=True, exist_ok=True)
+    (ckpt_dir / f"{name}.config.json").write_text(json.dumps(cfg_dict, default=str))
     torch.save(module.state_dict(), ckpt_dir / f"{name}.pt")
+    if state is not None:
+        torch.save(state.train_state_dict(), ckpt_dir / f"{name}.train.pt")
 
 
 def load_model(ckpt_dir, name: str = "best", device="cuda"

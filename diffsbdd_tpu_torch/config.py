@@ -2,14 +2,15 @@
 
 A config is the defaults below merged with a JSON file (the checkpoint
 sidecar) or a YAML preset from ``configs/``, then with explicit overrides.
-Only the fields that sampling reads have defaults here; other fields of a
-preset or sidecar pass through unchanged.  PyYAML is imported only when a
+Only the fields that sampling and training read have defaults here; other
+fields of a preset or sidecar pass through unchanged.  PyYAML is imported only when a
 ``.yml``/``.yaml`` path is given.
 """
 from __future__ import annotations
 
 import copy
 import json
+import warnings
 from pathlib import Path
 from typing import Any, Dict, Optional
 
@@ -35,6 +36,21 @@ _DEFAULTS: Dict[str, Any] = {
     "mode": "pocket_conditioning",
     "pocket_representation": "CA",
     "virtual_nodes": False,
+    "run_name": "run",
+    "logdir": "runs",
+    "datadir": None,
+    "seed": 42,
+    "batch_size": 16,
+    "lr": 1.0e-3,
+    "n_epochs": 1,
+    "clip_grad": True,
+    "accumulate_grad_batches": 1,
+    "augment_noise": 0,
+    "augment_rotation": False,
+    "auxiliary_loss": False,
+    "loss_params": {"max_weight": 0.001, "schedule": "linear", "clamp_lj": 3.0},
+    "log_every_n_steps": 1,
+    "wandb_params": {"mode": "disabled", "entity": None, "group": None},
     "egnn_params": {
         "edge_cutoff_ligand": None,
         "edge_cutoff_pocket": None,
@@ -93,6 +109,18 @@ def load_config(path=None, overrides: Optional[Dict[str, Any]] = None) -> Config
     if overrides:
         merged = _merge(merged, overrides)
     return Config(merged)
+
+
+def merge_configs(config: Dict[str, Any], resume_config: Dict[str, Any]):
+    """The checkpoint's config takes precedence over ``config``, with
+    warnings."""
+    for key, value in resume_config.items():
+        if key in config and config[key] != value:
+            warnings.warn(
+                f"Config parameter '{key}' (value: {config[key]}) will be "
+                f"overwritten with value {value} from the checkpoint.")
+        config[key] = value
+    return config
 
 
 # What the JAX package's training scripts fix for every committed parameter

@@ -81,6 +81,29 @@ def build_bond_matrix(decoder, table) -> np.ndarray:
     return out
 
 
+COVALENT_RADII = {
+    "H": 32, "C": 60, "N": 54, "O": 53, "F": 53, "B": 73, "Al": 111,
+    "Si": 102, "P": 94, "S": 94, "Cl": 93, "As": 106, "Br": 109, "I": 125,
+    "Hg": 133, "Bi": 135,
+}
+
+
+def build_lennard_jones_rm(decoder) -> np.ndarray:
+    """(A, A) optimal LJ radii (pm): the shortest tabulated bond length, or
+    the sum of covalent radii for pairs that never bond."""
+    n = len(decoder)
+    out = np.zeros((n, n), dtype=np.float64)
+    for i, a in enumerate(decoder):
+        for j, b in enumerate(decoder):
+            candidates = [bond_length(t, a, b) for t in (BONDS1, BONDS2, BONDS3)]
+            candidates = [c for c in candidates if c > 0]
+            if candidates:
+                out[i, j] = min(candidates)
+            elif a in COVALENT_RADII and b in COVALENT_RADII:
+                out[i, j] = COVALENT_RADII[a] + COVALENT_RADII[b]
+    return out
+
+
 _LIG_ATOMS = ["C", "N", "O", "S", "B", "Br", "Cl", "P", "I", "F"]
 _AA20 = ["A", "C", "D", "E", "F", "G", "H", "I", "K", "L",
          "M", "N", "P", "Q", "R", "S", "T", "V", "W", "Y"]
@@ -95,6 +118,7 @@ def _dataset(atom_decoder, aa_decoder):
         "bonds1": build_bond_matrix(atom_decoder, BONDS1),
         "bonds2": build_bond_matrix(atom_decoder, BONDS2),
         "bonds3": build_bond_matrix(atom_decoder, BONDS3),
+        "lennard_jones_rm": build_lennard_jones_rm(atom_decoder),
     }
 
 

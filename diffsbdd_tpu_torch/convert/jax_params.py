@@ -1,4 +1,7 @@
-"""JAX (flax) parameter trees -> the port's state_dict.
+"""JAX (flax) parameter-shaped trees -> the port's state_dict names.
+
+The same map serves parameters, gradients (``jax.grad`` returns a tree shaped
+like the parameters) and the moment trees of optax's amsgrad state.
 
 A flax leaf path such as ``dynamics/params/egnn/e_block_0/gcl_0/edge_mlp_0_kernel``
 maps to ``ddpm.dynamics.egnn.e_block_0.gcl_0.edge_mlp.0.weight``; dense
@@ -43,6 +46,10 @@ def flatten(tree: Any, prefix: str = "") -> Dict[str, np.ndarray]:
 def _torch_key(path: str):
     """flax leaf path -> (torch state_dict key, transpose?)."""
     parts = path.split("/")
+    if parts[:2] == ["gamma", "params"]:
+        # the learned noise schedule: l1/kernel -> ddpm.gamma_net.l1.weight
+        leaf = {"kernel": "weight"}.get(parts[-1], parts[-1])
+        return "ddpm.gamma_net." + ".".join(parts[2:-1] + [leaf]), parts[-1] == "kernel"
     if parts[:2] != ["dynamics", "params"]:
         raise KeyError(f"not a dynamics parameter: {path}")
     parts = parts[2:]
@@ -66,8 +73,10 @@ def _torch_key(path: str):
 
 
 def state_dict_from_jax(params) -> Dict[str, np.ndarray]:
-    """Flax params (nested dict or flat '/'-joined paths, rooted at
-    ``dynamics/params``) -> state_dict arrays.  Every leaf is consumed."""
+    """Flax params, or a tree shaped like them (nested dict or flat
+    '/'-joined paths, rooted at ``dynamics/params`` and, with a learned
+    schedule, ``gamma/params``) -> state_dict arrays.  Every leaf is
+    consumed."""
     sd: Dict[str, np.ndarray] = {}
     for path, value in flatten(params).items():
         key, transpose = _torch_key(path)
@@ -85,3 +94,15 @@ def state_dict_from_jax(params) -> Dict[str, np.ndarray]:
 
 def state_dict_from_npz(path) -> Dict[str, np.ndarray]:
     return state_dict_from_jax(load_npz(path))
+
+
+def optimizer_state_from_jax(amsgrad_state, parameter_names) -> Dict[str, Any]:
+    """optax's ``ScaleByAmsgradState`` (``count`` and the parameter-shaped
+    trees ``mu``, ``nu``, ``nu_max``) -> the state dict of the port's
+    optimizer, its lists ordered as ``parameter_names`` (the module's
+    ``named_parameters()``)."""
+    out: Dict[str, Any] = {"count": int(amsgrad_state.count)}
+    for name in ("mu", "nu", "nu_max"):
+        sd = state_dict_from_jax(getattr(amsgrad_state, name))
+        out[name] = [sd[k] for k in parameter_names]
+    return out

@@ -1,6 +1,7 @@
-// Device code shared by gcl_agg.cu and coord_agg.cu, f32, for sm_90a.
+// Device code shared by the forward kernels gcl_agg.cu and coord_agg.cu and,
+// through egnn_bwd.cuh, by their backward kernels; f32, for sm_90a.
 //
-// Both kernels tile the same way: one block per (batch, tile of TI rows below
+// All kernels tile the same way: one block per (batch, tile of TI rows below
 // update_rows).  A block first compacts the columns adjacent to any of its rows (cutoffs on
 // the EGNN input coordinates x0, ascending j), then walks them in chunks of TJ
 // columns = P pairs.  For each chunk it computes the pair geometry and the
@@ -156,53 +157,52 @@ __device__ __forceinline__ void fill_chunk(Chunk& c, const Rows& r, const float*
   c.d2[t] = d2; c.d20[t] = d20; c.adj[t] = adj; c.ll[t] = ll; c.j[t] = j;
 }
 
-// acc[r][n] = (silu(pre) @ W2) for pair warp*PPW + r and feature lane + 32n.
-// S (P*F floats) and Ws (KC*F floats) are shared-memory scratch.  The chunk
-// must be filled and synced; the caller syncs again before it rewrites the
-// chunk or S.
+// Feature k's first-layer weights of the pair terms, held by the thread that
+// computes pre[.][k].
+struct PairWeights { float w_d2, w_d20, delta; };
+
+__device__ __forceinline__ PairWeights pair_weights(const PairMlp& m, int k) {
+  return PairWeights{m.w_d2[k], m.w_d20[k], m.delta ? m.delta[k] : 0.0f};
+}
+
+// pre_ij[k] of pair p of the chunk (which must have an edge: c.j[p] >= 0).
 template <int F>
-__device__ __forceinline__ void pair_product(const PairMlp& m, const Chunk& c,
-                                             size_t node0, int i0, float* S,
-                                             float* Ws, float (&acc)[PPW][F / 32]) {
-  static_assert(NT % F == 0, "a thread fills one feature of S");
+__device__ __forceinline__ float pre_value(const PairMlp& m, const PairWeights& w,
+                                           const Chunk& c, int p, int k, size_t node0,
+                                           int i0) {
+  const int i = i0 + p / TJ, j = c.j[p];
+  float pre = m.a_row[(node0 + i) * F + k] + m.a_col[(node0 + j) * F + k]
+            + c.d2[p] * w.w_d2 + c.d20[p] * w.w_d20;
+  if (m.delta) pre += c.ll[p] * w.delta;
+  return pre;
+}
+
+// acc[r][n] = (A @ W) for pair warp*PPW + r and feature lane + 32n: A (P x F)
+// in shared memory, W (F x F, row-major) in global memory, streamed through
+// the shared-memory stage Ws (KC*F floats).  Syncs before it first reads A;
+// the caller syncs again before it rewrites A or Ws.
+template <int F>
+__device__ __forceinline__ void tile_product(const float* A, const float* W, float* Ws,
+                                             float (&acc)[PPW][F / 32]) {
   constexpr int NC = F / 32;
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-  const int kS = t % F;  // the feature this thread fills in S
-  const float wd2_k = m.w_d2[kS], wd20_k = m.w_d20[kS];
-  const float delta_k = m.delta ? m.delta[kS] : 0.0f;
-
-  // ---- first layer: S = silu(pre), zero for pairs without an edge
-  for (int e = t; e < P * F; e += NT) {
-    const int p = e / F, j = c.j[p];
-    float v = 0.0f;
-    if (j >= 0) {
-      const int i = i0 + p / TJ;
-      float pre = m.a_row[(node0 + i) * F + kS] + m.a_col[(node0 + j) * F + kS]
-                + c.d2[p] * wd2_k + c.d20[p] * wd20_k;
-      if (m.delta) pre += c.ll[p] * delta_k;
-      v = siluf_(pre);
-    }
-    S[e] = v;
-  }
-
-  // ---- second layer: S @ W2, W2 streamed in KC-row stages
 #pragma unroll
   for (int r = 0; r < PPW; ++r)
 #pragma unroll
     for (int n = 0; n < NC; ++n) acc[r][n] = 0.0f;
 
   for (int kc = 0; kc < F; kc += KC) {
-    __syncthreads();  // S complete / previous stage consumed
+    __syncthreads();  // A complete / previous stage consumed
     for (int e = t * 4; e < KC * F; e += NT * 4)
       *reinterpret_cast<float4*>(Ws + e) =
-          *reinterpret_cast<const float4*>(m.w2 + (size_t)kc * F + e);
+          *reinterpret_cast<const float4*>(W + (size_t)kc * F + e);
     __syncthreads();
 #pragma unroll
     for (int kk = 0; kk < KC; kk += 4) {
       float4 s4[PPW];
 #pragma unroll
       for (int r = 0; r < PPW; ++r)
-        s4[r] = *reinterpret_cast<const float4*>(S + (warp * PPW + r) * F + kc + kk);
+        s4[r] = *reinterpret_cast<const float4*>(A + (warp * PPW + r) * F + kc + kk);
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
         float wv[NC];
@@ -217,6 +217,25 @@ __device__ __forceinline__ void pair_product(const PairMlp& m, const Chunk& c,
       }
     }
   }
+}
+
+// acc[r][n] = (silu(pre) @ W2) for pair warp*PPW + r and feature lane + 32n.
+// S (P*F floats) and Ws (KC*F floats) are shared-memory scratch; S is left
+// holding silu(pre), zero for pairs without an edge.  The chunk must be filled
+// and synced; the caller syncs again before it rewrites the chunk or S.
+template <int F>
+__device__ __forceinline__ void pair_product(const PairMlp& m, const Chunk& c,
+                                             size_t node0, int i0, float* S,
+                                             float* Ws, float (&acc)[PPW][F / 32]) {
+  static_assert(NT % F == 0, "a thread fills one feature of S");
+  const int t = threadIdx.x;
+  const int kS = t % F;  // the feature this thread fills in S
+  const PairWeights w = pair_weights(m, kS);
+  for (int e = t; e < P * F; e += NT) {
+    const int p = e / F;
+    S[e] = c.j[p] >= 0 ? siluf_(pre_value<F>(m, w, c, p, kS, node0, i0)) : 0.0f;
+  }
+  tile_product<F>(S, m.w2, Ws, acc);
 }
 
 // Rows >= update_rows have no edges, so the grid covers only the row tiles

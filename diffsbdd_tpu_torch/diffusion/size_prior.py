@@ -1,9 +1,11 @@
 """Joint (n_ligand, n_pocket) size prior: a smoothed 2-D histogram over node
 counts with its conditionals.  Sampling decides shapes, so it is host-side
-numpy."""
+numpy; the log-probabilities of the training loss are gathers from float32
+tables that follow the tensors they are asked about onto their device."""
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 
 class SizeDistribution:
@@ -17,6 +19,10 @@ class SizeDistribution:
         self.prob = histogram / histogram.sum()
         self.n2_max = histogram.shape[1] - 1
         self.prob_n1_given_n2 = self.prob / self.prob.sum(axis=0, keepdims=True)
+        self._log_tables = {
+            "joint": torch.as_tensor(np.log(self.prob), dtype=torch.float32),
+            "n1_given_n2": torch.as_tensor(np.log(self.prob_n1_given_n2),
+                                           dtype=torch.float32)}
 
     def sample_conditional(self, n2, rng: np.random.Generator | None = None):
         """Sample ligand sizes n1 ~ p(n1 | n2) for pocket sizes ``n2``."""
@@ -25,3 +31,17 @@ class SizeDistribution:
         out = [rng.choice(table.shape[0], p=table[:, c])
                for c in np.clip(np.asarray(n2), 0, self.n2_max)]
         return np.asarray(out, dtype=np.int32)
+
+    def _gather(self, name: str, n1: torch.Tensor, n2: torch.Tensor) -> torch.Tensor:
+        table = self._log_tables[name]
+        if table.device != n1.device:
+            table = self._log_tables[name] = table.to(n1.device)
+        return table[n1.long(), n2.long()]
+
+    def log_prob(self, n1: torch.Tensor, n2: torch.Tensor) -> torch.Tensor:
+        """log p(n1, n2) for integer tensors of node counts."""
+        return self._gather("joint", n1, n2)
+
+    def log_prob_n1_given_n2(self, n1: torch.Tensor, n2: torch.Tensor) -> torch.Tensor:
+        """log p(n1 | n2), the conditional model's log p(N)."""
+        return self._gather("n1_given_n2", n1, n2)

@@ -56,10 +56,13 @@ class EGNNDynamics(nn.Module):
             reflection_equiv=reflection_equivariant)
 
     def forward(self, xh_lig, xh_pkt, t, mask_lig, mask_pkt,
-                shared_pocket: bool = False):
+                shared_pocket: bool = False, zero_nan: bool = False):
         """``shared_pocket``: the batch holds one pocket replicated across
         samples and ``t`` is uniform over the batch, which lets the first GCL
-        compute its pocket-pocket aggregation once."""
+        compute its pocket-pocket aggregation once.  ``zero_nan``: the
+        training-time guard -- NaN velocities become zeros (and infinities the
+        largest finite values), so one numerical blow-up corrupts a step
+        instead of poisoning the parameters."""
         B, NL = mask_lig.shape
         NP = mask_pkt.shape[1]
         nd = 3
@@ -78,6 +81,8 @@ class EGNNDynamics(nn.Module):
                            type_table=type_table, n_lig=NL)
         h_final, x_final = self.egnn(h, x, ctx, shared_pocket=shared_pocket)
         vel = (x_final - x) * mask[..., None]
+        if zero_nan:
+            vel = torch.nan_to_num(vel)
 
         h_final = h_final[..., :-1]  # drop the time channel
         h_final_lig = self.atom_decoder(h_final[:, :NL])

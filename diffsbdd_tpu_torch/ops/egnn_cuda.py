@@ -1,6 +1,7 @@
-"""Hand-written CUDA kernels for the EGNN hot loop, with their plain twins.
+"""Hand-written CUDA kernels for the EGNN hot loop, with their plain versions.
 
-Two kernels carry the sampling path (sources in ``diffsbdd_tpu_torch/csrc``):
+Two forward kernels carry sampling and the forward half of a training step
+(sources in ``diffsbdd_tpu_torch/csrc``):
 
 * ``gcl_message_agg``  -- edge MLP + sigmoid attention + masked row sum of one
   GCL layer (``csrc/gcl_agg.cu``);
@@ -8,14 +9,25 @@ Two kernels carry the sampling path (sources in ``diffsbdd_tpu_torch/csrc``):
   tanh clamping + masked row sum of the relative-direction translations
   (``csrc/coord_agg.cu``).
 
-Both rebuild the adjacency from the EGNN input coordinates ``x0``, the node
-masks and the per-pair-type distance cutoffs, so the (B, N, N) adjacency and
-the (B, N, N, F) message tensors never exist in memory.
+Two backward kernels carry the other half of a training step:
 
-Each wrapper takes its plain PyTorch twin (``*_plain``) when its tensors lie on
-the CPU, and launches its kernel when they lie on a CUDA device; there is no
-fallback from one to the other.  The twins are the CPU path and the kernels'
-test oracle.  Each launch adds one to ``launch_counts[name]``.
+* ``gcl_agg_bwd``   -- every cotangent of ``gcl_message_agg``
+  (``csrc/gcl_agg_bwd.cu``);
+* ``coord_agg_bwd`` -- every cotangent of ``coord_update_agg``, the cross MLP's
+  and the graph mean's included (``csrc/coord_agg_bwd.cu``).
+
+All four rebuild the adjacency from the EGNN input coordinates ``x0``, the node
+masks and the per-pair-type distance cutoffs, so the (B, N, N) adjacency and
+the (B, N, N, F) message tensors never exist in memory; the backward kernels
+recompute the pair MLPs instead of reading saved activations.
+
+Each wrapper takes its plain PyTorch version (``*_plain``: the dense twins, and
+autograd through them) when its tensors lie on the CPU, and launches its kernel
+when they lie on a CUDA device; there is no fallback from one to the other.
+The plain versions are the CPU path and the kernels' test oracle.  On CUDA the
+public wrappers go through ``torch.autograd.Function``s, so a training step
+launches each kernel once per layer.  Each launch adds one to
+``launch_counts[name]``.
 
 The kernels are compiled with ``nvcc`` for ``sm_90a`` into plain-C shared
 libraries under ``csrc/build`` at first use (``build_kernels``) and loaded with
@@ -34,8 +46,9 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
-KERNELS = ("gcl_agg", "coord_agg")
-HEADERS = (CSRC / "egnn_common.cuh",)  # device code both kernels include
+KERNELS = ("gcl_agg", "coord_agg", "gcl_agg_bwd", "coord_agg_bwd")
+HEADERS = (CSRC / "egnn_common.cuh", CSRC / "egnn_bwd.cuh")  # shared device code
+ROW_TILE = 4  # rows per tile, TI in csrc/egnn_common.cuh
 SUPPORTED_F = (64, 256)  # the fixture checkpoint's width and the flagship's
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -51,6 +64,10 @@ _ARGTYPES = {
                 [_P] * 14 + [_F] * 4 + [_I] * 4 + [_P, _P]),
     "coord_agg": ("coord_agg_forward",
                   [_P] * 21 + [_I] + [_F] * 6 + [_I] * 4 + [_P, _P]),
+    "gcl_agg_bwd": ("gcl_agg_backward",
+                    [_P] * 16 + [_F] * 4 + [_I] * 5 + [_P] * 7 + [_P]),
+    "coord_agg_bwd": ("coord_agg_backward",
+                      [_P] * 24 + [_I] + [_F] * 6 + [_I] * 5 + [_P] * 14 + [_P]),
 }
 
 
@@ -266,7 +283,73 @@ def fold_type_bias(a_row, a_col, is_lig, type_bias):
 
 
 # ---------------------------------------------------------------------------
-# wrappers: plain twin on the CPU, kernel on CUDA
+# plain backward versions: autograd through the plain twins
+# ---------------------------------------------------------------------------
+
+def _delta_table(delta):
+    """The (2, 2, F) edge-type table whose fold is (0, 0, delta)."""
+    if delta is None:
+        return None
+    z = torch.zeros_like(delta)
+    return torch.stack([torch.stack([z, z]), torch.stack([z, delta])])
+
+
+def _leaves(tensors):
+    return [None if t is None else t.detach().requires_grad_(True) for t in tensors]
+
+
+def _grads(out, g, leaves):
+    """d(out . g)/d(leaf) for every leaf; None for a None or unused leaf."""
+    live = [t for t in leaves if t is not None]
+    found = iter(torch.autograd.grad(out, live, grad_outputs=g, allow_unused=True))
+    return [None if t is None else next(found) for t in leaves]
+
+
+def gcl_agg_bwd_plain(g, a_row, a_col, x, x0, mask, is_lig, w_d2, w_d20, delta,
+                      w2, b2, w_att, b_att, *, cutoffs, attention,
+                      normalization_factor, col_mask=None, update_rows=None):
+    """Plain version of ``gcl_agg_bwd``: autograd through the dense twin."""
+    with torch.enable_grad():
+        lv = _leaves([a_row, a_col, x, x0, w_d2, w_d20, delta, w2, b2, w_att, b_att])
+        out = gcl_message_agg_plain(
+            lv[0], lv[1], lv[2], lv[3], mask, is_lig, lv[4], lv[5],
+            _delta_table(lv[6]), lv[7], lv[8], lv[9], lv[10], cutoffs=cutoffs,
+            attention=attention, normalization_factor=normalization_factor,
+            col_mask=col_mask, update_rows=update_rows)
+        return tuple(_grads(out, g, lv))
+
+
+_MLP_KEYS = ("a_row", "a_col", "w_d2", "w_d20", "delta", "w2", "b2", "w3")
+
+
+def coord_agg_bwd_plain(g, a_row, a_col, x, x0, mask, is_lig, w_d2, w_d20, delta,
+                        w2, b2, w3, *, cutoffs, tanh, coords_range, norm_constant,
+                        normalization_factor, cross=None, graph_mean=None,
+                        update_rows=None):
+    """Plain version of ``coord_agg_bwd``: autograd through the dense twin."""
+    with torch.enable_grad():
+        lv = _leaves([a_row, a_col, x, x0, w_d2, w_d20, delta, w2, b2, w3])
+        cl, gm, cross_in = [], None, None
+        if cross is not None:
+            cl = _leaves([cross[k] for k in _MLP_KEYS])
+            gm = graph_mean.detach().requires_grad_(True)
+            cross_in = dict(zip(_MLP_KEYS, cl))
+            cross_in["type_bias"] = _delta_table(cross_in.pop("delta"))
+        out = coord_update_agg_plain(
+            lv[0], lv[1], lv[2], lv[3], mask, is_lig, lv[4], lv[5],
+            _delta_table(lv[6]), lv[7], lv[8], lv[9], cutoffs=cutoffs, tanh=tanh,
+            coords_range=coords_range, norm_constant=norm_constant,
+            normalization_factor=normalization_factor, cross=cross_in,
+            graph_mean=gm, update_rows=update_rows)
+        grads = _grads(out, g, lv + cl + [gm])
+    main = tuple(grads[:len(lv)])
+    if cross is None:
+        return main, None, None
+    return main, dict(zip(_MLP_KEYS, grads[len(lv):-1])), grads[-1]
+
+
+# ---------------------------------------------------------------------------
+# CUDA launches
 # ---------------------------------------------------------------------------
 
 def _rows(update_rows, N):
@@ -278,6 +361,296 @@ def _check_width(name, F):
         raise ValueError(f"{name}: feature width {F} not in {SUPPORTED_F}")
 
 
+def _mlp_shapes(B, N, F):
+    return dict(a_row=(B, N, F), a_col=(B, N, F), w_d2=(F,), w_d20=(F,), delta=(F,),
+                w2=(F, F), b2=(F,), w3=(F, 1))
+
+
+def _node_shapes(B, N):
+    return dict(x=(B, N, 3), x0=(B, N, 3), mask=(B, N), col_mask=(B, N),
+                is_lig=(B, N), graph_mean=(B, 3))
+
+
+def _check_mlp(name, prefix, mlp, B, N, F, device):
+    _check(name, {prefix + k: v for k, v in mlp.items()},
+           {prefix + k: v for k, v in _mlp_shapes(B, N, F).items()}, device)
+
+
+def _blocks_per_batch(B: int, rows: int, device) -> int:
+    """Blocks a backward kernel runs per batch element: enough to fill the
+    card's SMs (one block fits an SM), at most one per row tile."""
+    tiles = max(1, -(-rows // ROW_TILE))
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return max(1, min(tiles, sms // B))
+
+
+def _split_weight_slab(w_out, F):
+    """(dW2, [dw_d2, dw_d20, ddelta, db2, dhead, dhead_bias]) views of a slab."""
+    return w_out[:F * F].view(F, F), w_out[F * F:].view(6, F)
+
+
+def _gcl_forward_cuda(a_row, a_col, x, x0, mask, cm, is_lig, w_d2, w_d20, delta,
+                      w2, b2, w_att, b_att, cutoffs, nf, update_rows):
+    B, N, F = a_row.shape
+    watt = None if w_att is None else w_att.reshape(F)
+    _check_mlp("gcl_message_agg", "", dict(a_row=a_row, a_col=a_col, w_d2=w_d2,
+                                           w_d20=w_d20, delta=delta, w2=w2, b2=b2),
+               B, N, F, a_row.device)
+    _check("gcl_message_agg",
+           dict(x=x, x0=x0, mask=mask, col_mask=cm, is_lig=is_lig, w_att=watt,
+                b_att=b_att),
+           dict(_node_shapes(B, N), w_att=(F,), b_att=(1,)), a_row.device)
+    out = torch.empty((B, N, F), device=a_row.device, dtype=torch.float32)
+    _launch("gcl_agg",
+            _ptr(a_row), _ptr(a_col), _ptr(x), _ptr(x0), _ptr(mask), _ptr(cm),
+            _ptr(is_lig), _ptr(w_d2), _ptr(w_d20), _ptr(delta), _ptr(w2),
+            _ptr(b2), _ptr(watt), _ptr(b_att),
+            _cut2(cutoffs[0]), _cut2(cutoffs[1]), _cut2(cutoffs[2]),
+            float(nf), B, N, F, _rows(update_rows, N), out.data_ptr())
+    return out
+
+
+def gcl_agg_bwd(g, a_row, a_col, x, x0, mask, is_lig, w_d2, w_d20, delta, w2, b2,
+                w_att, b_att, *, cutoffs, attention, normalization_factor,
+                col_mask=None, update_rows=None):
+    """Cotangents of ``gcl_message_agg`` on folded operands (``delta`` (F,) or
+    None in place of the edge-type table) for the output cotangent ``g``
+    (B, N, F); rows of ``g`` past ``update_rows`` are ignored.
+
+    Returns (da_row, da_col, dx, dx0, dw_d2, dw_d20, ddelta, dw2, db2, dw_att,
+    db_att); ddelta is None without delta, dw_att and db_att without attention.
+    CPU tensors take the plain version, CUDA tensors the kernel.
+    """
+    kw = dict(cutoffs=cutoffs, attention=attention,
+              normalization_factor=normalization_factor, col_mask=col_mask,
+              update_rows=update_rows)
+    if a_row.device.type == "cpu":
+        return gcl_agg_bwd_plain(g, a_row, a_col, x, x0, mask, is_lig, w_d2, w_d20,
+                                 delta, w2, b2, w_att, b_att, **kw)
+    if a_row.device.type != "cuda":
+        raise ValueError(f"gcl_agg_bwd: unsupported device {a_row.device}")
+    B, N, F = a_row.shape
+    dev = a_row.device
+    _check_width("gcl_agg_bwd", F)
+    cm = mask if col_mask is None else col_mask
+    watt = w_att.reshape(F) if attention else None
+    batt = b_att.reshape(1) if attention else None
+    _check_mlp("gcl_agg_bwd", "", dict(a_row=a_row, a_col=a_col, w_d2=w_d2,
+                                       w_d20=w_d20, delta=delta, w2=w2, b2=b2),
+               B, N, F, dev)
+    _check("gcl_agg_bwd",
+           dict(g=g, x=x, x0=x0, mask=mask, col_mask=cm, is_lig=is_lig, w_att=watt,
+                b_att=batt),
+           dict(_node_shapes(B, N), g=(B, N, F), w_att=(F,), b_att=(1,)), dev)
+    rows = _rows(update_rows, N)
+    Q = _blocks_per_batch(B, min(rows, N), dev)
+    slab = F * F + 6 * F
+    zeros = lambda *shape: torch.zeros(shape, device=dev, dtype=torch.float32)
+    empty = lambda *shape: torch.empty(shape, device=dev, dtype=torch.float32)
+    da_row, acol_part = zeros(B, N, F), zeros(B, Q, N, F)
+    dx_part, w_part = zeros(B, Q, N, 6), zeros(B * Q, slab)
+    da_col, dxx0, w_out = empty(B, N, F), empty(B, N, 6), empty(slab)
+    w2t = w2.t().contiguous()
+    _launch("gcl_agg_bwd",
+            _ptr(g), _ptr(a_row), _ptr(a_col), _ptr(x), _ptr(x0), _ptr(mask),
+            _ptr(cm), _ptr(is_lig), _ptr(w_d2), _ptr(w_d20), _ptr(delta), _ptr(w2),
+            _ptr(w2t), _ptr(b2), _ptr(watt), _ptr(batt),
+            _cut2(cutoffs[0]), _cut2(cutoffs[1]), _cut2(cutoffs[2]),
+            float(normalization_factor), B, N, F, rows, Q,
+            _ptr(da_row), _ptr(acol_part), _ptr(dx_part), _ptr(w_part),
+            _ptr(da_col), _ptr(dxx0), _ptr(w_out))
+    dw2, vec = _split_weight_slab(w_out, F)
+    return (da_row, da_col, dxx0[..., :3], dxx0[..., 3:], vec[0], vec[1],
+            None if delta is None else vec[2], dw2, vec[3],
+            vec[4].reshape(F, 1) if attention else None,
+            vec[5, :1] if attention else None)
+
+
+def _coord_forward_cuda(main, c, x, x0, mask, is_lig, gm, cutoffs, tanh,
+                        coords_range, norm_constant, nf, update_rows):
+    B, N, F = main["a_row"].shape
+    dev = main["a_row"].device
+    _check_mlp("coord_update_agg", "", main, B, N, F, dev)
+    _check_mlp("coord_update_agg", "cross.", c, B, N, F, dev)
+    _check("coord_update_agg",
+           dict(x=x, x0=x0, mask=mask, is_lig=is_lig, graph_mean=gm),
+           _node_shapes(B, N), dev)
+    out = torch.empty((B, N, 3), device=dev, dtype=torch.float32)
+    _launch("coord_agg",
+            *(_ptr(main[k]) for k in _MLP_KEYS), *(_ptr(c[k]) for k in _MLP_KEYS),
+            _ptr(x), _ptr(x0), _ptr(mask), _ptr(is_lig), _ptr(gm),
+            int(bool(tanh)), float(coords_range), float(norm_constant), float(nf),
+            _cut2(cutoffs[0]), _cut2(cutoffs[1]), _cut2(cutoffs[2]),
+            B, N, F, _rows(update_rows, N), out.data_ptr())
+    return out
+
+
+_NO_MLP = dict.fromkeys(_MLP_KEYS)
+
+
+def coord_agg_bwd(g, a_row, a_col, x, x0, mask, is_lig, w_d2, w_d20, delta, w2, b2,
+                  w3, *, cutoffs, tanh, coords_range, norm_constant,
+                  normalization_factor, cross=None, graph_mean=None,
+                  update_rows=None):
+    """Cotangents of ``coord_update_agg`` on folded operands for the output
+    cotangent ``g`` (B, N, 3); rows of ``g`` past ``update_rows`` are ignored.
+    ``cross``: dict(a_row, a_col, w_d2, w_d20, delta, w2, b2, w3) or None.
+
+    Returns (main, cross, dmean): main = (da_row, da_col, dx, dx0, dw_d2,
+    dw_d20, ddelta, dw2, db2, dw3); cross the same cotangents of the cross MLP
+    as a dict keyed like ``cross`` (None without it); dmean (B, 3) or None.
+    The two w3 cotangents come back separately even where the heads are tied.
+    CPU tensors take the plain version, CUDA tensors the kernel.
+    """
+    kw = dict(cutoffs=cutoffs, tanh=tanh, coords_range=coords_range,
+              norm_constant=norm_constant,
+              normalization_factor=normalization_factor, cross=cross,
+              graph_mean=graph_mean, update_rows=update_rows)
+    if a_row.device.type == "cpu":
+        return coord_agg_bwd_plain(g, a_row, a_col, x, x0, mask, is_lig, w_d2,
+                                   w_d20, delta, w2, b2, w3, **kw)
+    if a_row.device.type != "cuda":
+        raise ValueError(f"coord_agg_bwd: unsupported device {a_row.device}")
+    B, N, F = a_row.shape
+    dev = a_row.device
+    _check_width("coord_agg_bwd", F)
+    main = dict(a_row=a_row, a_col=a_col, w_d2=w_d2, w_d20=w_d20, delta=delta,
+                w2=w2, b2=b2, w3=w3)
+    c = _NO_MLP if cross is None else {k: cross[k] for k in _MLP_KEYS}
+    if cross is not None and graph_mean is None:
+        raise ValueError("coord_agg_bwd: the cross branch needs graph_mean")
+    gm = None if cross is None else graph_mean
+    _check_mlp("coord_agg_bwd", "", main, B, N, F, dev)
+    _check_mlp("coord_agg_bwd", "cross.", c, B, N, F, dev)
+    _check("coord_agg_bwd",
+           dict(g=g, x=x, x0=x0, mask=mask, is_lig=is_lig, graph_mean=gm),
+           dict(_node_shapes(B, N), g=(B, N, 3)), dev)
+    rows = _rows(update_rows, N)
+    Q = _blocks_per_batch(B, min(rows, N), dev)
+    slab = F * F + 6 * F
+    zeros = lambda *shape: torch.zeros(shape, device=dev, dtype=torch.float32)
+    empty = lambda *shape: torch.empty(shape, device=dev, dtype=torch.float32)
+    out = dict(da_row=zeros(B, N, F), acol_part=zeros(B, Q, N, F),
+               dx_part=zeros(B, Q, N, 6), w_part=zeros(B * Q, slab),
+               da_col=empty(B, N, F), dxx0=empty(B, N, 6), w_out=empty(slab))
+    co = dict.fromkeys(("dc_row", "ccol_part", "mean_part", "cw_part", "dc_col",
+                        "dmean", "cw_out"))
+    if cross is not None:
+        co = dict(dc_row=zeros(B, N, F), ccol_part=zeros(B, Q, N, F),
+                  mean_part=zeros(B, Q, 3), cw_part=zeros(B * Q, slab),
+                  dc_col=empty(B, N, F), dmean=empty(B, 3), cw_out=empty(slab))
+    w2t = w2.t().contiguous()
+    cw2t = None if cross is None else c["w2"].t().contiguous()
+
+    def mlp_ptrs(m, wt):
+        return (_ptr(m["a_row"]), _ptr(m["a_col"]), _ptr(m["w_d2"]), _ptr(m["w_d20"]),
+                _ptr(m["delta"]), _ptr(m["w2"]), _ptr(wt), _ptr(m["b2"]),
+                _ptr(None if m["w3"] is None else m["w3"].reshape(F)))
+
+    _launch("coord_agg_bwd",
+            _ptr(g), *mlp_ptrs(main, w2t), *mlp_ptrs(c, cw2t),
+            _ptr(x), _ptr(x0), _ptr(mask), _ptr(is_lig), _ptr(gm),
+            int(bool(tanh)), float(coords_range), float(norm_constant),
+            float(normalization_factor),
+            _cut2(cutoffs[0]), _cut2(cutoffs[1]), _cut2(cutoffs[2]),
+            B, N, F, rows, Q,
+            _ptr(out["da_row"]), _ptr(co["dc_row"]), _ptr(out["acol_part"]),
+            _ptr(co["ccol_part"]), _ptr(out["dx_part"]), _ptr(co["mean_part"]),
+            _ptr(out["w_part"]), _ptr(co["cw_part"]),
+            _ptr(out["da_col"]), _ptr(co["dc_col"]), _ptr(out["dxx0"]),
+            _ptr(co["dmean"]), _ptr(out["w_out"]), _ptr(co["cw_out"]))
+
+    def cotangents(row, col, w_out, has_delta):
+        dw2, vec = _split_weight_slab(w_out, F)
+        return dict(a_row=row, a_col=col, w_d2=vec[0], w_d20=vec[1],
+                    delta=vec[2] if has_delta else None, w2=dw2, b2=vec[3],
+                    w3=vec[4].reshape(F, 1))
+
+    m = cotangents(out["da_row"], out["da_col"], out["w_out"], delta is not None)
+    main_cot = (m["a_row"], m["a_col"], out["dxx0"][..., :3], out["dxx0"][..., 3:],
+                m["w_d2"], m["w_d20"], m["delta"], m["w2"], m["b2"], m["w3"])
+    if cross is None:
+        return main_cot, None, None
+    return (main_cot, cotangents(co["dc_row"], co["dc_col"], co["cw_out"],
+                                 c["delta"] is not None), co["dmean"])
+
+
+# ---------------------------------------------------------------------------
+# autograd: kernel forward, kernel backward
+# ---------------------------------------------------------------------------
+
+class _GclAggFn(torch.autograd.Function):
+    """``gcl_message_agg`` on CUDA over folded operands.  Forward saves the
+    operands only; backward recomputes the pair MLP inside its kernel."""
+
+    @staticmethod
+    def forward(ctx, a_row, a_col, x, x0, w_d2, w_d20, delta, w2, b2, w_att, b_att,
+                mask, col_mask, is_lig, cfg):
+        cutoffs, attention, nf, update_rows = cfg
+        ctx.cfg = cfg
+        ctx.save_for_backward(a_row, a_col, x, x0, w_d2, w_d20, delta, w2, b2,
+                              w_att, b_att, mask, col_mask, is_lig)
+        return _gcl_forward_cuda(
+            a_row, a_col, x, x0, mask, mask if col_mask is None else col_mask,
+            is_lig, w_d2, w_d20, delta, w2, b2, w_att if attention else None,
+            b_att if attention else None, cutoffs, nf, update_rows)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        (a_row, a_col, x, x0, w_d2, w_d20, delta, w2, b2, w_att, b_att, mask,
+         col_mask, is_lig) = ctx.saved_tensors
+        cutoffs, attention, nf, update_rows = ctx.cfg
+        grads = gcl_agg_bwd(
+            g.contiguous(), a_row, a_col, x, x0, mask, is_lig, w_d2, w_d20, delta,
+            w2, b2, w_att, b_att, cutoffs=cutoffs, attention=attention,
+            normalization_factor=nf, col_mask=col_mask, update_rows=update_rows)
+        return (*grads, None, None, None, None)
+
+
+class _CoordAggFn(torch.autograd.Function):
+    """``coord_update_agg`` on CUDA over folded operands: 10 tensors of the
+    coordinate MLP and the coordinates, then (with the cross branch) the 8 of
+    the cross MLP and the graph mean."""
+
+    @staticmethod
+    def forward(ctx, cfg, mask, is_lig, a_row, a_col, x, x0, w_d2, w_d20, delta,
+                w2, b2, w3, *cross_ops):
+        cutoffs, tanh, coords_range, norm_constant, nf, update_rows = cfg
+        ctx.cfg = cfg
+        ctx.save_for_backward(mask, is_lig, a_row, a_col, x, x0, w_d2, w_d20, delta,
+                              w2, b2, w3, *cross_ops)
+        main = dict(a_row=a_row, a_col=a_col, w_d2=w_d2, w_d20=w_d20, delta=delta,
+                    w2=w2, b2=b2, w3=w3)
+        c, gm = _NO_MLP, None
+        if cross_ops:
+            c, gm = dict(zip(_MLP_KEYS, cross_ops[:-1])), cross_ops[-1]
+        return _coord_forward_cuda(main, c, x, x0, mask, is_lig, gm, cutoffs, tanh,
+                                   coords_range, norm_constant, nf, update_rows)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        mask, is_lig, *ops = ctx.saved_tensors
+        main_ops, cross_ops = ops[:10], ops[10:]
+        cutoffs, tanh, coords_range, norm_constant, nf, update_rows = ctx.cfg
+        cross = dict(zip(_MLP_KEYS, cross_ops[:-1])) if cross_ops else None
+        main_cot, cross_cot, dmean = coord_agg_bwd(
+            g.contiguous(), *main_ops[:4], mask, is_lig, *main_ops[4:],
+            cutoffs=cutoffs, tanh=tanh, coords_range=coords_range,
+            norm_constant=norm_constant, normalization_factor=nf, cross=cross,
+            graph_mean=cross_ops[-1] if cross_ops else None,
+            update_rows=update_rows)
+        grads = (None, None, None) + tuple(main_cot)
+        if cross_ops:
+            grads += tuple(cross_cot[k] for k in _MLP_KEYS) + (dmean,)
+        return grads
+
+
+# ---------------------------------------------------------------------------
+# public wrappers: plain twin on the CPU, kernels on CUDA
+# ---------------------------------------------------------------------------
+
 def gcl_message_agg(a_row, a_col, x, x0, mask, is_lig, w_d2, w_d20,
                     type_bias, w2, b2, w_att, b_att, *, cutoffs, attention,
                     normalization_factor, col_mask=None, update_rows=None):
@@ -288,41 +661,25 @@ def gcl_message_agg(a_row, a_col, x, x0, mask, is_lig, w_d2, w_d20,
     rows of the two distance features; type_bias: optional (2, 2, F)
     projected edge-type table; w2 (F, F) input-major, w_att (F, 1), b_att (1,).
     ``col_mask`` restricts the neighbour side; rows >= ``update_rows`` are
-    exact zeros.
+    exact zeros.  Differentiable on both devices: by plain autograd through
+    the twin on the CPU, through the forward and backward kernels on CUDA
+    (the edge-type fold stays outside them, so autograd chains through it).
     """
-    kw = dict(cutoffs=cutoffs, attention=attention,
-              normalization_factor=normalization_factor, col_mask=col_mask,
-              update_rows=update_rows)
     if a_row.device.type == "cpu":
-        return gcl_message_agg_plain(a_row, a_col, x, x0, mask, is_lig, w_d2,
-                                     w_d20, type_bias, w2, b2, w_att, b_att,
-                                     **kw)
+        return gcl_message_agg_plain(
+            a_row, a_col, x, x0, mask, is_lig, w_d2, w_d20, type_bias, w2, b2,
+            w_att, b_att, cutoffs=cutoffs, attention=attention,
+            normalization_factor=normalization_factor, col_mask=col_mask,
+            update_rows=update_rows)
     if a_row.device.type != "cuda":
         raise ValueError(f"gcl_message_agg: unsupported device {a_row.device}")
-    B, N, F = a_row.shape
-    _check_width("gcl_message_agg", F)
+    _check_width("gcl_message_agg", a_row.shape[-1])
     a_row, a_col, delta = fold_type_bias(a_row, a_col, is_lig, type_bias)
-    a_row, a_col = a_row.contiguous(), a_col.contiguous()
-    cm = mask if col_mask is None else col_mask
-    watt = w_att.reshape(F) if attention else None
-    batt = b_att.reshape(1) if attention else None
-    _check("gcl_message_agg",
-           dict(a_row=a_row, a_col=a_col, x=x, x0=x0, mask=mask, col_mask=cm,
-                is_lig=is_lig, w_d2=w_d2, w_d20=w_d20, delta=delta, w2=w2,
-                b2=b2, w_att=watt, b_att=batt),
-           dict(a_col=(B, N, F), x=(B, N, 3), x0=(B, N, 3), mask=(B, N),
-                col_mask=(B, N), is_lig=(B, N), w_d2=(F,), w_d20=(F,),
-                delta=(F,), w2=(F, F), b2=(F,), w_att=(F,), b_att=(1,)),
-           a_row.device)
-    out = torch.empty((B, N, F), device=a_row.device, dtype=torch.float32)
-    _launch("gcl_agg",
-            _ptr(a_row), _ptr(a_col), _ptr(x), _ptr(x0), _ptr(mask), _ptr(cm),
-            _ptr(is_lig), _ptr(w_d2), _ptr(w_d20), _ptr(delta), _ptr(w2),
-            _ptr(b2), _ptr(watt), _ptr(batt),
-            _cut2(cutoffs[0]), _cut2(cutoffs[1]), _cut2(cutoffs[2]),
-            float(normalization_factor), B, N, F, _rows(update_rows, N),
-            out.data_ptr())
-    return out
+    cfg = (tuple(cutoffs), bool(attention), float(normalization_factor),
+           None if update_rows is None else int(update_rows))
+    return _GclAggFn.apply(a_row.contiguous(), a_col.contiguous(), x, x0, w_d2,
+                           w_d20, delta, w2, b2, w_att, b_att, mask, col_mask,
+                           is_lig, cfg)
 
 
 def coord_update_agg(a_row, a_col, x, x0, mask, is_lig, w_d2, w_d20,
@@ -335,52 +692,31 @@ def coord_update_agg(a_row, a_col, x, x0, mask, is_lig, w_d2, w_d20,
     SE(3) cross-product MLP (None when reflection-equivariant), with
     ``graph_mean`` (B, 3) the masked mean of the current coordinates.  w3
     (F, 1) is the scalar head.  Rows >= ``update_rows`` are exact zeros.
+    Differentiable on both devices, as ``gcl_message_agg`` is.
     """
-    kw = dict(cutoffs=cutoffs, tanh=tanh, coords_range=coords_range,
-              norm_constant=norm_constant,
-              normalization_factor=normalization_factor, cross=cross,
-              graph_mean=graph_mean, update_rows=update_rows)
     if a_row.device.type == "cpu":
-        return coord_update_agg_plain(a_row, a_col, x, x0, mask, is_lig, w_d2,
-                                      w_d20, type_bias, w2, b2, w3, **kw)
+        return coord_update_agg_plain(
+            a_row, a_col, x, x0, mask, is_lig, w_d2, w_d20, type_bias, w2, b2, w3,
+            cutoffs=cutoffs, tanh=tanh, coords_range=coords_range,
+            norm_constant=norm_constant,
+            normalization_factor=normalization_factor, cross=cross,
+            graph_mean=graph_mean, update_rows=update_rows)
     if a_row.device.type != "cuda":
         raise ValueError(f"coord_update_agg: unsupported device {a_row.device}")
-    B, N, F = a_row.shape
-    _check_width("coord_update_agg", F)
+    _check_width("coord_update_agg", a_row.shape[-1])
     a_row, a_col, delta = fold_type_bias(a_row, a_col, is_lig, type_bias)
-    c = dict(a_row=None, a_col=None, w_d2=None, w_d20=None, delta=None,
-             w2=None, b2=None, w3=None)
+    cross_ops = ()
     if cross is not None:
-        c_row, c_col, c_delta = fold_type_bias(cross["a_row"], cross["a_col"],
-                                               is_lig, cross["type_bias"])
-        c = dict(a_row=c_row.contiguous(), a_col=c_col.contiguous(),
-                 w_d2=cross["w_d2"], w_d20=cross["w_d20"], delta=c_delta,
-                 w2=cross["w2"], b2=cross["b2"], w3=cross["w3"].reshape(F))
         if graph_mean is None:
             raise ValueError("coord_update_agg: the cross branch needs graph_mean")
-    main = dict(a_row=a_row.contiguous(), a_col=a_col.contiguous(),
-                w_d2=w_d2, w_d20=w_d20, delta=delta, w2=w2, b2=b2,
-                w3=w3.reshape(F))
-    shapes = dict(a_row=(B, N, F), a_col=(B, N, F), w_d2=(F,), w_d20=(F,),
-                  delta=(F,), w2=(F, F), b2=(F,), w3=(F,))
-    for prefix, d in (("", main), ("cross.", c)):
-        _check("coord_update_agg", {prefix + k: v for k, v in d.items()},
-               {prefix + k: v for k, v in shapes.items()}, a_row.device)
-    gm = None if cross is None else graph_mean
-    _check("coord_update_agg",
-           dict(x=x, x0=x0, mask=mask, is_lig=is_lig, graph_mean=gm),
-           dict(x=(B, N, 3), x0=(B, N, 3), mask=(B, N), is_lig=(B, N),
-                graph_mean=(B, 3)),
-           a_row.device)
-    out = torch.empty((B, N, 3), device=a_row.device, dtype=torch.float32)
-    _launch("coord_agg",
-            *(_ptr(main[k]) for k in ("a_row", "a_col", "w_d2", "w_d20",
-                                      "delta", "w2", "b2", "w3")),
-            *(_ptr(c[k]) for k in ("a_row", "a_col", "w_d2", "w_d20",
-                                   "delta", "w2", "b2", "w3")),
-            _ptr(x), _ptr(x0), _ptr(mask), _ptr(is_lig), _ptr(gm),
-            int(bool(tanh)), float(coords_range), float(norm_constant),
-            float(normalization_factor),
-            _cut2(cutoffs[0]), _cut2(cutoffs[1]), _cut2(cutoffs[2]),
-            B, N, F, _rows(update_rows, N), out.data_ptr())
-    return out
+        c_row, c_col, c_delta = fold_type_bias(cross["a_row"], cross["a_col"],
+                                               is_lig, cross["type_bias"])
+        cross_ops = (c_row.contiguous(), c_col.contiguous(), cross["w_d2"],
+                     cross["w_d20"], c_delta, cross["w2"], cross["b2"],
+                     cross["w3"], graph_mean)
+    cfg = (tuple(cutoffs), bool(tanh), float(coords_range), float(norm_constant),
+           float(normalization_factor),
+           None if update_rows is None else int(update_rows))
+    return _CoordAggFn.apply(cfg, mask, is_lig, a_row.contiguous(),
+                             a_col.contiguous(), x, x0, w_d2, w_d20, delta, w2, b2,
+                             w3, *cross_ops)

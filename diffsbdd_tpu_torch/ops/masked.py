@@ -16,3 +16,9 @@ def masked_mean(x: torch.Tensor, mask: torch.Tensor, dim: int = 1,
     count = mask.sum(dim)
     return masked_sum(x, mask, dim) / torch.clamp(count, min=eps)[..., None]
 
+
+
+def sum_except_batch(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Sum over every axis but the batch axis, ignoring padded nodes:
+    ``x`` (B, N, D), ``mask`` (B, N) -> (B,)."""
+    return (x.sum(-1) * mask).sum(-1)

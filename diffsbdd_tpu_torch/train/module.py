@@ -1,9 +1,10 @@
-"""Model wrapper: config -> (dynamics + DDPM), pocket preparation and the
-``generate_ligands`` inference API of the pocket-conditional model.
+"""Model wrapper: config -> (dynamics + DDPM), the training loss, pocket
+preparation and the ``generate_ligands`` inference API of the
+pocket-conditional model.
 
 ``LigandPocketDDPM`` is an ``nn.Module`` whose state_dict keys are the
-reference's (``ddpm.dynamics....``).  Training, evaluation and the joint model
-are not ported yet.
+reference's (``ddpm.dynamics....``).  The joint model and the sampling-quality
+evaluation are not ported yet.
 """
 from __future__ import annotations
 
@@ -22,6 +23,8 @@ from diffsbdd_tpu_torch.diffusion.ddpm import ConditionalDDPM, num_nodes_to_mask
 from diffsbdd_tpu_torch.diffusion.size_prior import SizeDistribution
 from diffsbdd_tpu_torch.models.dynamics import EGNNDynamics
 from diffsbdd_tpu_torch.ops.masked import masked_mean
+from diffsbdd_tpu_torch.train.augment import augment_batch
+from diffsbdd_tpu_torch.train.lj import WeightSchedule, lj_potential
 from diffsbdd_tpu_torch.utils.misc import shift_to_pocket_frame
 
 
@@ -29,13 +32,13 @@ class LigandPocketDDPM(nn.Module):
     def __init__(self, dataset: str, mode: str, egnn_params: Config,
                  diffusion_params: Config, node_histogram,
                  pocket_representation: str = "CA", virtual_nodes: bool = False,
+                 auxiliary_loss: bool = False, loss_params: Optional[Config] = None,
+                 augment_noise: float = 0.0, augment_rotation: bool = False,
                  lig_bucket: int = 8, pocket_bucket: int = 64):
         super().__init__()
         if mode != "pocket_conditioning":
             raise NotImplementedError(f"mode {mode!r}: only pocket_conditioning "
                                       "is ported")
-        if virtual_nodes:
-            raise NotImplementedError("virtual nodes are not ported")
         if egnn_params.sin_embedding or egnn_params.aggregation_method != "sum":
             raise NotImplementedError("the port runs sum aggregation without "
                                       "sinusoidal distance embeddings")
@@ -45,10 +48,42 @@ class LigandPocketDDPM(nn.Module):
         self.dataset_info = dataset_params[dataset]
         self.lig_bucket = lig_bucket
         self.pocket_bucket = pocket_bucket
+        self.T = diffusion_params.diffusion_steps
+        self.loss_type = diffusion_params.diffusion_loss_type
+        self.virtual_nodes = virtual_nodes
+        self.augment_noise = float(augment_noise or 0.0)
+        self.augment_rotation = bool(augment_rotation)
+        self.x_dims = 3
         key = "aa" if pocket_representation == "CA" else "atom"
         self.pocket_type_encoder = self.dataset_info[f"{key}_encoder"]
-        self.atom_nf = len(self.dataset_info["atom_decoder"])
         self.residue_nf = len(self.dataset_info[f"{key}_decoder"])
+
+        self.lig_type_encoder = dict(self.dataset_info["atom_encoder"])
+        self.lig_type_decoder = list(self.dataset_info["atom_decoder"])
+        self.max_num_nodes = None if node_histogram is None \
+            else len(node_histogram) - 1
+        self.virtual_atom = None
+        if virtual_nodes:
+            symbol = "Ne"  # virtual atoms are written out as neon
+            self.virtual_atom = self.lig_type_encoder[symbol] = len(self.lig_type_encoder)
+            self.lig_type_decoder.append(symbol)
+            self.dataset_info = dict(self.dataset_info,
+                                     atom_encoder=self.lig_type_encoder,
+                                     atom_decoder=self.lig_type_decoder)
+        self.atom_nf = len(self.lig_type_decoder)
+
+        self.auxiliary_loss = auxiliary_loss
+        self.lj_rm = np.asarray(self.dataset_info["lennard_jones_rm"])
+        if virtual_nodes and self.lj_rm.shape[0] < self.atom_nf:
+            # virtual atoms never contribute LJ terms
+            padded = np.zeros((self.atom_nf, self.atom_nf))
+            padded[:self.lj_rm.shape[0], :self.lj_rm.shape[1]] = self.lj_rm
+            self.lj_rm = padded
+        if auxiliary_loss:
+            self.clamp_lj = loss_params.clamp_lj
+            self.auxiliary_weight_schedule = WeightSchedule(
+                T=self.T, max_weight=loss_params.max_weight,
+                mode=loss_params.schedule)
 
         dynamics = EGNNDynamics(
             atom_nf=self.atom_nf, residue_nf=self.residue_nf,
@@ -67,13 +102,78 @@ class LigandPocketDDPM(nn.Module):
             n_dims=3, timesteps=diffusion_params.diffusion_steps,
             noise_schedule=diffusion_params.diffusion_noise_schedule,
             noise_precision=diffusion_params.diffusion_noise_precision,
+            loss_type=diffusion_params.diffusion_loss_type,
             norm_values=tuple(diffusion_params.normalize_factors),
             size_distribution=(None if node_histogram is None
-                               else SizeDistribution(node_histogram)))
+                               else SizeDistribution(node_histogram)),
+            virtual_node_idx=self.virtual_atom)
 
     @property
     def device(self) -> torch.device:
-        return self.ddpm.gamma_table.device
+        return self.ddpm.device
+
+    # ------------------------------------------------------------------- loss
+    def loss_fn(self, generator: torch.Generator, ligand: Dict, pocket: Dict,
+                training: bool = True):
+        """Scalar loss and a dict of metrics.  ``generator`` drives every
+        random draw: the augmentation, the timesteps, the noise."""
+        if training and (self.augment_noise > 0 or self.augment_rotation):
+            ligand, pocket = augment_batch(generator, ligand, pocket,
+                                           self.augment_noise, self.augment_rotation)
+        terms = self.ddpm.loss_terms(generator, ligand, pocket, training)
+        info = dict(terms.pop("info"))
+
+        lig_size = ligand["size"].float()
+        pkt_size = pocket["size"].float()
+        actual_lig_size = lig_size
+        if self.virtual_nodes:
+            # a missing key is an error, not a fallback: the padded ligand
+            # size would mis-normalize the x-term of the l2 loss
+            actual_lig_size = lig_size - ligand["num_virtual_atoms"].float()
+
+        error_t_lig = terms["error_t_lig"]
+        error_t_pocket = terms["error_t_pocket"]
+        l2_training = self.loss_type == "l2" and training
+        if l2_training:
+            error_t_lig = error_t_lig / (self.x_dims * actual_lig_size
+                                         + self.ddpm.atom_nf * lig_size)
+            error_t_pocket = error_t_pocket / (
+                (self.x_dims + self.ddpm.residue_nf) * pkt_size)
+            loss_t = 0.5 * (error_t_lig + error_t_pocket)
+            loss_0 = (terms["loss_0_x_ligand"] / (self.x_dims * actual_lig_size)
+                      + terms["loss_0_x_pocket"] / (self.x_dims * pkt_size)
+                      + terms["loss_0_h"])
+        else:
+            loss_t = -self.T * 0.5 * terms["SNR_weight"] * (
+                error_t_lig + error_t_pocket)
+            loss_0 = (terms["loss_0_x_ligand"] + terms["loss_0_x_pocket"]
+                      + terms["loss_0_h"] + terms["neg_log_constants"])
+
+        nll = loss_t + loss_0 + terms["kl_prior"]
+        if not l2_training:
+            nll = nll - terms["delta_log_px"]
+            if not self.virtual_nodes:
+                nll = nll - terms["log_pN"]
+
+        if self.auxiliary_loss and l2_training:
+            xh_hat = terms["xh_lig_hat"]
+            weighted_lj = self.auxiliary_weight_schedule(terms["t_int"]) * lj_potential(
+                xh_hat[..., :self.x_dims], xh_hat[..., self.x_dims:],
+                ligand["mask"], self.lj_rm, self.ddpm.norm_values[0],
+                clamp=self.clamp_lj)
+            nll = nll + weighted_lj
+            info["weighted_lj"] = weighted_lj.mean()
+
+        info.update(
+            error_t_lig=error_t_lig.mean(), error_t_pocket=error_t_pocket.mean(),
+            SNR_weight=terms["SNR_weight"].mean(), loss_0=loss_0.mean(),
+            kl_prior=terms["kl_prior"].mean(),
+            delta_log_px=terms["delta_log_px"].mean(),
+            neg_log_const_0=terms["neg_log_constants"].mean(),
+            log_pN=terms["log_pN"].mean())
+        loss = nll.mean()
+        info["loss"] = loss
+        return loss, info
 
     # ---------------------------------------------------------- pocket prep
     def prepare_pocket(self, residues: Sequence[pdbmod.Residue],
@@ -186,4 +286,6 @@ def build_module_from_config(cfg: Config, node_histogram) -> LigandPocketDDPM:
         diffusion_params=cfg.diffusion_params, node_histogram=node_histogram,
         pocket_representation=cfg.pocket_representation,
         virtual_nodes=cfg.virtual_nodes,
+        auxiliary_loss=cfg.auxiliary_loss, loss_params=cfg.get("loss_params"),
+        augment_noise=cfg.augment_noise, augment_rotation=cfg.augment_rotation,
         lig_bucket=cfg.tpu.lig_bucket, pocket_bucket=cfg.tpu.pocket_bucket)

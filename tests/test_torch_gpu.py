@@ -108,3 +108,160 @@ def test_wrapper_rejects_noncontiguous_weight():
         ec.gcl_message_agg(*main.values(), extra["w_att"], extra["b_att"],
                            cutoffs=CUTOFFS, attention=True,
                            normalization_factor=100.0)
+
+
+# ---------------------------------------------------------------------------
+# backward kernels against autograd through the plain twins
+# ---------------------------------------------------------------------------
+
+GCL_COT = ("da_row", "da_col", "dx", "dx0", "dw_d2", "dw_d20", "ddelta", "dw2",
+           "db2", "dw_att", "db_att")
+COORD_COT = GCL_COT[:9] + ("dw3",)
+
+
+def _folded(main, with_delta=True):
+    """The operands the backward wrappers take: the edge-type table folded
+    into the projections, delta (F,) in its place."""
+    a_row, a_col, delta = ec.fold_type_bias(
+        main["a_row"], main["a_col"], main["is_lig"],
+        main["type_bias"] if with_delta else None)
+    out = dict(main, a_row=a_row.contiguous(), a_col=a_col.contiguous())
+    out["type_bias"] = delta  # same slot, now (F,) or None
+    return out
+
+
+def _assert_cotangents(got, ref):
+    """Every cotangent within 1e-4 of its plain version, relative to that
+    cotangent's largest entry: float32 on both sides, but the kernel sums
+    thousands of pairs per entry in another order (weights: every pair of the
+    batch), so the error scales with the sum, not with the entry."""
+    assert got.keys() == ref.keys()
+    for name in ref:
+        if ref[name] is None:
+            assert got[name] is None, name
+            continue
+        scale = float(ref[name].abs().max())
+        err = float((got[name] - ref[name]).abs().max())
+        assert torch.isfinite(got[name]).all(), name
+        assert err <= 1e-4 * scale + 1e-7, (name, err, scale)
+
+
+@pytest.mark.parametrize("attention", [True, False])
+@pytest.mark.parametrize("variant", ["full", "lig_cols", "lig_rows", "no_delta"])
+def test_gcl_bwd_kernel_matches_plain(attention, variant):
+    main, extra = _inputs(4)
+    ops = _folded(main, with_delta=variant != "no_delta")
+    kw = dict(cutoffs=CUTOFFS, attention=attention, normalization_factor=100.0)
+    if variant == "lig_cols":
+        kw["col_mask"] = main["mask"] * main["is_lig"]
+    elif variant == "lig_rows":
+        kw.update(col_mask=main["mask"], update_rows=12)
+    att = (extra["w_att"], extra["b_att"]) if attention else (None, None)
+    g = torch.randn(B, N, F, generator=torch.Generator().manual_seed(5)).cuda()
+    ec.reset_launch_counts()
+    got = ec.gcl_agg_bwd(g, *ops.values(), *att, **kw)
+    assert ec.launch_counts["gcl_agg_bwd"] == 1
+    ref = ec.gcl_agg_bwd_plain(g, *ops.values(), *att, **kw)
+    _assert_cotangents(dict(zip(GCL_COT, got)), dict(zip(GCL_COT, ref)))
+
+
+def _coord_cot(result):
+    main, cross, dmean = result
+    out = dict(zip(COORD_COT, main))
+    if cross is not None:
+        out.update({f"cross.{k}": v for k, v in cross.items()})
+    out["dmean"] = dmean
+    return out
+
+
+def _coord_bwd_case(seed, N, with_cross, tanh, update_rows, with_delta=True):
+    main, extra = _inputs(seed, N=N)
+    ops = _folded(main, with_delta)
+    cross = graph_mean = None
+    if with_cross:
+        c = _folded(dict(extra["cross"], is_lig=main["is_lig"]), with_delta)
+        cross = dict(a_row=c["a_row"], a_col=c["a_col"], w_d2=c["w_d2"],
+                     w_d20=c["w_d20"], delta=c["type_bias"], w2=c["w2"],
+                     b2=c["b2"], w3=extra["w3"])
+        m = main["mask"]
+        graph_mean = (main["x"] * m[..., None]).sum(1) / m.sum(1)[:, None]
+    kw = dict(cutoffs=CUTOFFS, tanh=tanh, coords_range=15.0, norm_constant=1.0,
+              normalization_factor=100.0, cross=cross, graph_mean=graph_mean,
+              update_rows=update_rows)
+    g = torch.randn(B, N, 3, generator=torch.Generator().manual_seed(6)).cuda()
+    ec.reset_launch_counts()
+    got = ec.coord_agg_bwd(g, *ops.values(), extra["w3"], **kw)
+    assert ec.launch_counts["coord_agg_bwd"] == 1
+    ref = ec.coord_agg_bwd_plain(g, *ops.values(), extra["w3"], **kw)
+    _assert_cotangents(_coord_cot(got), _coord_cot(ref))
+
+
+@pytest.mark.parametrize("with_cross", [False, True])
+@pytest.mark.parametrize("tanh", [True, False])
+@pytest.mark.parametrize("update_rows", [None, 12])
+def test_coord_bwd_kernel_matches_plain(with_cross, tanh, update_rows):
+    _coord_bwd_case(7, N, with_cross, tanh, update_rows)
+
+
+@pytest.mark.parametrize("update_rows", [None, 11])
+def test_bwd_kernels_on_a_partial_row_tile(update_rows):
+    main, extra = _inputs(8, N=45)
+    ops = _folded(main)
+    kw = dict(cutoffs=CUTOFFS, attention=True, normalization_factor=100.0,
+              update_rows=update_rows)
+    g = torch.randn(B, 45, F, generator=torch.Generator().manual_seed(9)).cuda()
+    att = (extra["w_att"], extra["b_att"])
+    got = ec.gcl_agg_bwd(g, *ops.values(), *att, **kw)
+    ref = ec.gcl_agg_bwd_plain(g, *ops.values(), *att, **kw)
+    _assert_cotangents(dict(zip(GCL_COT, got)), dict(zip(GCL_COT, ref)))
+    _coord_bwd_case(8, 45, True, True, update_rows, with_delta=False)
+
+
+def test_bwd_kernel_is_deterministic():
+    """No atomics: two launches on the same inputs give the same bits."""
+    main, extra = _inputs(10)
+    ops = _folded(main)
+    g = torch.randn(B, N, F, generator=torch.Generator().manual_seed(11)).cuda()
+    kw = dict(cutoffs=CUTOFFS, attention=True, normalization_factor=100.0)
+    a = ec.gcl_agg_bwd(g, *ops.values(), extra["w_att"], extra["b_att"], **kw)
+    b = ec.gcl_agg_bwd(g, *ops.values(), extra["w_att"], extra["b_att"], **kw)
+    for u, v in zip(a, b):
+        assert torch.equal(u, v)
+
+
+def test_autograd_through_kernels_matches_twins():
+    """Gradients of a scalar of both public wrappers, type table and tied head
+    included, on the card (Functions) against the CPU (plain autograd)."""
+    main, extra = _inputs(12)
+    m = main["mask"]
+    names = ("a_row", "a_col", "x", "x0", "w_d2", "w_d20", "type_bias", "w2", "b2")
+
+    def run(device):
+        mv = {k: v.to(device) for k, v in main.items()}
+        ex = {k: v.to(device) for k, v in extra.items() if k != "cross"}
+        cr = {k: v.to(device) for k, v in extra["cross"].items()}
+        leaves = {k: mv[k].clone().requires_grad_(True) for k in names}
+        leaves.update({k: ex[k].clone().requires_grad_(True) for k in ex})
+        leaves.update({f"cross.{k}": v.clone().requires_grad_(True)
+                       for k, v in cr.items()})
+        ops = dict(mv, **{k: leaves[k] for k in names})
+        agg = ec.gcl_message_agg(*ops.values(), leaves["w_att"], leaves["b_att"],
+                                 cutoffs=CUTOFFS, attention=True,
+                                 normalization_factor=100.0)
+        x = leaves["x"]
+        mean = (x * mv["mask"][..., None]).sum(1) / mv["mask"].sum(1)[:, None]
+        cross = {k: leaves[f"cross.{k}"] for k in cr}
+        cross["w3"] = leaves["w3"]  # the tied head
+        upd = ec.coord_update_agg(*ops.values(), leaves["w3"], cutoffs=CUTOFFS,
+                                  tanh=True, coords_range=15.0, norm_constant=1.0,
+                                  normalization_factor=100.0, cross=cross,
+                                  graph_mean=mean, update_rows=12)
+        loss = (agg ** 2).sum() + (upd ** 2).sum()
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        return {k: g.cpu() for k, g in zip(leaves, grads)}
+
+    ec.reset_launch_counts()
+    got = run("cuda")
+    assert ec.launch_counts == {"gcl_agg": 1, "coord_agg": 1, "gcl_agg_bwd": 1,
+                                "coord_agg_bwd": 1}
+    _assert_cotangents(got, run("cpu"))
