@@ -5,7 +5,7 @@
 
 Phases (any failure ends the run with a non-zero exit code):
   1. the card's name and power limit (nvidia-smi);
-  2. build the four CUDA kernels from csrc/ (one nvcc per source, in parallel);
+  2. build the five CUDA kernels from csrc/ (one nvcc per source, in parallel);
   3. each forward kernel against its plain PyTorch twin at the flagship shapes
      (B=16, NL=24, NP=300 padded to 320, F=256, cutoffs None/5/5, attention
      and the cross branch on) and at the shared-pocket variants (col_mask,
@@ -15,6 +15,15 @@ Phases (any failure ends the run with a non-zero exit code):
      to 32, update_rows = NL for the coordinate kernel) and at the variants (no
      attention, no tanh, cross off, col_mask, an edge-type delta, odd N and odd
      update_rows), every cotangent, with CUDA-event times;
+  3c. the whole-block kernel against its plain version at the joint shapes
+     (B=16, N=344, every row moves), the conditional shapes (24 rows move), the
+     batch that phase 10 launches it at (B=8: another grid and other rows a
+     block) on a clean and on a collapsed complex (every pair within the
+     cutoffs, as the joint chain has it at large t), and at the variants (cross off, attention off, tanh off, an edge-type
+     table, odd N with odd update_rows), both outputs, two launches bit for
+     bit, with CUDA-event times of the kernel, the plain version and the split
+     pair it replaces (GCL kernel + node MLP and projections in PyTorch +
+     coordinate kernel);
   4. import checkpoints/synth_quality_r05c_best.npz (hidden 256, 6 layers,
      joint_nf 128) into a port checkpoint;
   5. write a seeded synthetic full-atom pocket PDB;
@@ -22,9 +31,10 @@ Phases (any failure ends the run with a non-zero exit code):
      T=500 -- the launch counters must show every kernel on that path;
      then a profile of a 5-step chain on the same inputs (device time by
      kernel, device idle share);
-  7. correctness of the sampler end to end on a small input: the fixture
-     checkpoint sampled on the card (kernels) and on the CPU (plain twins)
-     with the same injected noise must agree;
+  7. correctness of the samplers end to end on a small input: the fixture
+     checkpoint sampled on the card (split kernels, and the whole-block
+     kernel) and on the CPU (plain twins) with the same injected noise must
+     agree, as a conditional and as a joint model;
   8. the training main path: a seeded synthetic processed dataset (96 + 16
      complexes, ligands of 16-32 atoms, full-atom pockets of 250-320 atoms),
      the port's cli.train at the flagship widths for one epoch (6 optimizer
@@ -32,9 +42,26 @@ Phases (any failure ends the run with a non-zero exit code):
      kernels per train step and forward launches only in validation, finite
      losses and gradient norms, moved parameters, `last` and `best`
      checkpoints, and the trained checkpoint sampled through
-     cli.generate_ligands with its own size prior; then a profile of one step;
+     cli.generate_ligands with its own size prior; a profile of one step;
   9. the loss and every parameter's gradient of one fixture batch on the card
-     (kernels) against the CPU (plain twins), same timesteps and noise.
+     (kernels) against the CPU (plain twins), same timesteps and noise;
+  10. the joint main path: cli.train with mode joint at the flagship widths
+     (3 steps of batch 16: the split kernels and their backward kernels, the
+     whole-block kernel never), then cli.generate_ligands on that checkpoint
+     with tpu.kernel_block_fuse on, T=500: a joint checkpoint inpaints with the
+     whole pocket fixed (8 samples: the noised pocket is a dense graph, about
+     eight times the pairs of the conditional path), every block of every pass
+     is one launch of the whole-block kernel and the split kernels are not
+     launched; a profile of one joint train step;
+  10b. a 5-step joint chain on the same inputs profiled with block fusing on
+     and off (device time by kernel, idle share, ms per pass);
+  11. conditional inpainting: cli.inpaint on the imported flagship checkpoint
+     with block fusing on, 6 atoms of the pocket's reference ligand fixed and
+     18 added, T=50 with 3 resamplings -- per pass of the chain 3 + 1 launches
+     of the split kernels (block 0, the shared pocket) and 5 of the whole-block
+     kernel, 6 of it in the decode pass; the fixed atoms come back where they
+     were put;
+  11b. the 5-step chain of phase 6 profiled with block fusing on and off.
 
 Prints a {"kernels": [...]} line and the card line, and as its last line
 {"ok": true, "device": {...}}.  The pocket, the samples and a summary.json go
@@ -61,6 +88,9 @@ REPO = Path(__file__).resolve().parent
 R05C_NPZ = REPO / "checkpoints" / "synth_quality_r05c_best.npz"
 FIXTURE_NPZ = REPO / "checkpoints" / "overfit_chem_fixture_best.npz"
 FIXTURE_T = 10
+# batch of the joint main path (phase 10), and of the whole-block kernel's
+# comparison that the kernels line carries (phase 3c)
+JOINT_SAMPLES = 8
 
 # H100 SXM data-sheet peaks: f32 on the CUDA cores, HBM3 bandwidth
 PEAK_F32_FLOPS = 67e12
@@ -192,11 +222,13 @@ def _cuda_ms(fn, reps: int) -> float:
 
 
 def kernel_inputs(torch, dev, flagship, B, NL, lig_sizes=None, np_pad=320,
-                  n_pocket=300, seed=0, with_delta=False):
+                  n_pocket=300, seed=0, with_delta=False, spread=None):
     """Operands of both kernels at the flagship width on a synthetic complex:
     one full-atom pocket of ``n_pocket`` atoms padded to ``np_pad``, ligands of
     ``lig_sizes`` atoms (all NL when None) within a few Angstrom of its centre.
-    Weight scales are those of a trained layer (fan-in normalized).  Returns a
+    With ``spread`` every atom is instead drawn from a Gaussian of that width:
+    the collapsed complex of the joint chain at large t, in which nearly every
+    pair passes the cutoffs.  Weight scales are those of a trained layer (fan-in normalized).  Returns a
     namespace-like dict."""
     F = flagship["egnn_params"]["hidden_nf"]
     N = NL + np_pad
@@ -210,6 +242,8 @@ def kernel_inputs(torch, dev, flagship, B, NL, lig_sizes=None, np_pad=320,
     x0 = torch.zeros(B, N, 3)
     x0[:, :NL] = torch.randn((B, NL, 3), generator=g) * 1.5
     x0[:, NL:NL + n_pocket] = torch.as_tensor(pk)
+    if spread is not None:
+        x0 = torch.randn((B, N, 3), generator=g) * spread
     mask = torch.zeros(B, N)
     mask[:, NL:NL + n_pocket] = 1.0
     for b in range(B):
@@ -317,6 +351,147 @@ def kernel_phase(ec, torch, dev, flagship):
               f"({bound_by}), {100 * bound_ms / ms:.1f}% of f32 peak")
         results[name] = dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
                              bound_ms=bound_ms, bound_by=bound_by)
+    return results, variant_ms
+
+
+def block_operands(inp, cross=True, attention=True, table=False):
+    """The operands of ``ec.block_fused`` on a ``kernel_inputs`` complex: h and
+    the node MLP's and the heads' weights at fan-in scale."""
+    r, B, N, F = inp["r"], inp["B"], inp["N"], inp["F"]
+    s = F ** -0.5
+    g = inp["gcl_w"]
+    gcl = dict(w_d2=g["w_d2"], w_d20=g["w_d20"],
+               type_delta=r(F, scale=0.2) if table else None, w2=g["w2"], b2=g["b2"],
+               w_att=g["w_att"] if attention else None,
+               b_att=g["b_att"] if attention else None)
+    node = dict(w_h=r(F, F, scale=s), w_a=r(F, F, scale=s), b0=r(F, scale=0.1),
+                w2=r(F, F, scale=s), b2=r(F, scale=0.1))
+    w3 = inp["coord_w"][5]
+
+    def head():
+        return dict(k_i=r(F, F, scale=s), k_j=r(F, F, scale=s), b0=r(F, scale=0.1),
+                    w_d2=r(F, scale=0.05), w_d20=r(F, scale=0.05),
+                    type_bias=r(2, 2, F, scale=0.2) if table else None,
+                    w1=r(F, F, scale=s), b1=r(F, scale=0.1), w3=w3)
+
+    coord = head()
+    return [r(B, N, F, scale=0.5), inp["a_row"], inp["a_col"], inp["x"], inp["x0"],
+            inp["mask"], inp["is_lig"], gcl, node, coord, head() if cross else None,
+            inp["graph_mean"] if cross else None]
+
+
+def split_pair(ec, torch, ops, **kw):
+    """What the whole-block kernel replaces: the GCL kernel, the node MLP and
+    the head projections in PyTorch, the coordinate kernel."""
+    h, a_row, a_col, x, x0, mask, is_lig, gcl, node, coord, cross, graph_mean = ops
+    _check(gcl["type_delta"] is None, "the split pair is timed without a type table")
+    agg = ec.gcl_message_agg(
+        a_row, a_col, x, x0, mask, is_lig, gcl["w_d2"], gcl["w_d20"], None,
+        gcl["w2"], gcl["b2"], gcl["w_att"], gcl["b_att"], cutoffs=kw["cutoffs"],
+        attention=kw["attention"], normalization_factor=kw["normalization_factor"])
+    pre = h @ node["w_h"] + agg @ node["w_a"] + node["b0"]
+    h_new = (h + torch.nn.functional.silu(pre) @ node["w2"] + node["b2"]) * mask[..., None]
+    cross_arg = None
+    if cross is not None:
+        cross_arg = dict(a_row=h_new @ cross["k_i"] + cross["b0"],
+                         a_col=h_new @ cross["k_j"], w_d2=cross["w_d2"],
+                         w_d20=cross["w_d20"], type_bias=cross["type_bias"],
+                         w2=cross["w1"], b2=cross["b1"], w3=cross["w3"])
+    dx = ec.coord_update_agg(
+        h_new @ coord["k_i"] + coord["b0"], h_new @ coord["k_j"], x, x0, mask, is_lig,
+        coord["w_d2"], coord["w_d20"], coord["type_bias"], coord["w1"], coord["b1"],
+        coord["w3"], cutoffs=kw["cutoffs"], tanh=kw["tanh"],
+        coords_range=kw["coords_range"], norm_constant=kw["norm_constant"],
+        normalization_factor=kw["normalization_factor"], cross=cross_arg,
+        graph_mean=graph_mean, update_rows=kw["update_rows"])
+    return h_new, dx
+
+
+def block_kernel_phase(ec, torch, dev, flagship, main_batch):
+    """Phase 3c: the whole-block kernel vs its plain version and the split
+    pair; ``main_batch`` is the batch the joint main path launches it at.
+    Tolerance: each output within 1e-5 + 1e-4 of the plain version's
+    largest entry -- float32 on both sides, but an entry of h_new is a sum of
+    F products of O(1) terms on top of the pair sums, taken in another order."""
+    results, variant_ms = {}, {}
+    base_kw = dict(attention=True, tanh=True, coords_range=15.0, norm_constant=1.0,
+                   normalization_factor=100.0)
+
+    def run(label, inp, update_rows, timed=False, **opts):
+        cross = opts.get("cross", True)
+        kw = dict(base_kw, cutoffs=inp["cut"], update_rows=update_rows,
+                  attention=opts.get("attention", True), tanh=opts.get("tanh", True))
+        ops = block_operands(inp, cross=cross, attention=kw["attention"],
+                             table=opts.get("table", False))
+        before = ec.launch_counts["block_fused"]
+        got = ec.block_fused(*ops, **kw)
+        again = ec.block_fused(*ops, **kw)
+        _check(ec.launch_counts["block_fused"] == before + 2, "launches not counted")
+        ref = ec.block_fused_plain(*ops, **kw)
+        torch.cuda.synchronize()
+        worst = 0.0
+        for name, g, a, r in zip(("h_new", "dx"), got, again, ref):
+            _check(bool(torch.isfinite(g).all()), f"block_fused[{label}] {name} not finite")
+            _check(torch.equal(g, a), f"block_fused[{label}] {name}: two launches differ")
+            err, scale = float((g - r).abs().max()), float(r.abs().max())
+            print(f"  block_fused[{label}] {name} shape={tuple(g.shape)} "
+                  f"max_abs_err={err:.3e} (1e-5 + 1e-4 of ref_max={scale:.3e})")
+            _check(err <= 1e-5 + 1e-4 * scale,
+                   f"block_fused[{label}] {name} disagrees with its plain version")
+            worst = max(worst, err)
+        rows = inp["N"] if update_rows is None else update_rows
+        _check(not bool(got[1][:, rows:].any()), f"block_fused[{label}] dx rows past "
+               "update_rows are not zero")
+        ms = _cuda_ms(lambda: ec.block_fused(*ops, **kw), 20 if timed else 5)
+        variant_ms[f"block_fused[{label}]"] = ms
+        if not timed:
+            print(f"  block_fused[{label}] kernel {ms:.4f} ms")
+            return
+        pair = split_pair(ec, torch, ops, **kw)
+        for name, g, r in zip(("h_new", "dx"), pair, ref):
+            _check(float((g - r).abs().max()) <= 1e-5 + 1e-4 * float(r.abs().max()),
+                   f"split pair [{label}] {name} disagrees with the plain version")
+        split_ms = _cuda_ms(lambda: split_pair(ec, torch, ops, **kw), 20)
+        plain_ms = _cuda_ms(lambda: ec.block_fused_plain(*ops, **kw), 2)
+        B, N, F = inp["B"], inp["N"], inp["F"]
+        pairs_a = active_pairs(ec, inp)
+        pairs_b = active_pairs(ec, inp, rows=rows)
+        n_heads = 2 if cross else 1
+        # phase A's pair MLP, the node MLP (3 products) and 2 projections per
+        # head on every node, phase B's pair MLPs on the rows that move
+        flops = pairs_a * (2 * F * F + 10 * F) + B * N * (3 + 2 * n_heads) * 2 * F * F \
+            + pairs_b * n_heads * (2 * F * F + 10 * F)
+        # h, a_row, a_col and the node data in, every weight once, h_new and dx out
+        bytes_ = 4 * (3 * B * N * F + B * N * 11 + (4 + 3 * n_heads) * F * F
+                      + (8 + 5 * n_heads) * F + B * N * F + B * N * 3)
+        bound_ms = 1e3 * max(flops / PEAK_F32_FLOPS, bytes_ / PEAK_BYTES)
+        bound_by = "operations" if flops / PEAK_F32_FLOPS >= bytes_ / PEAK_BYTES \
+            else "bytes"
+        print(f"  block_fused[{label}] kernel {ms:.4f} ms, split pair {split_ms:.4f} ms, "
+              f"plain version {plain_ms:.4f} ms; active pairs {pairs_a} (GCL) + {pairs_b} "
+              f"(coordinates), {flops / 1e9:.2f} GFLOP, bound {bound_ms:.4f} ms "
+              f"({bound_by}), {100 * bound_ms / ms:.1f}% of f32 peak")
+        results[label] = dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
+                              bound_ms=bound_ms, bound_by=bound_by,
+                              split_pair_ms=split_ms)
+
+    full = kernel_inputs(torch, dev, flagship, 16, 24, seed=4)
+    run("joint_all_rows", full, None, timed=True)
+    run("conditional_ligand_rows", full, 24, timed=True)
+    del full
+    main = kernel_inputs(torch, dev, flagship, main_batch, 24, seed=7)
+    run("joint_main_path", main, None, timed=True)
+    dense = kernel_inputs(torch, dev, flagship, main_batch, 24, seed=8, spread=1.0)
+    run("joint_main_path_dense", dense, None, timed=True)
+    del main, dense
+    small = kernel_inputs(torch, dev, flagship, 4, 24, seed=5)
+    run("no_cross", small, 24, cross=False)
+    run("no_attention", small, None, attention=False)
+    run("no_tanh", small, 24, tanh=False)
+    run("type_table", small, None, table=True)
+    odd = kernel_inputs(torch, dev, flagship, 3, 23, np_pad=302, n_pocket=290, seed=6)
+    run("odd_n_odd_rows", odd, 21, table=True)
+    run("odd_n_all_rows", odd, None)
     return results, variant_ms
 
 
@@ -477,18 +652,56 @@ def bwd_kernel_phase(ec, torch, dev, flagship):
 def profile_phase(torch, module, pocket_pdb, ref_lig, n_samples, steps=5):
     """Device time by kernel over a short chain (prior, ``steps`` denoise
     steps, decode) on the main path's inputs, and the device's idle share of
-    the wall time (under the profiler, which adds host overhead)."""
+    the wall time (under the profiler, which adds host overhead).  A joint
+    model runs the chain its main path runs: inpainting with the whole pocket
+    fixed."""
     from diffsbdd_tpu_torch.chem import pdb as pdbmod
+    from diffsbdd_tpu_torch.diffusion.ddpm import JointDDPM
     residues = pdbmod.get_pocket_from_ligand(pdbmod.parse_pdb(pocket_pdb), ref_lig)
     pocket = module.prepare_pocket(residues, repeats=n_samples)
-    lig_mask = torch.ones(n_samples, 24, device=pocket["x"].device)
-    gen = torch.Generator(device=pocket["x"].device).manual_seed(1)
-    module.ddpm.sample_given_pocket(gen, pocket, lig_mask, timesteps=2,
-                                    shared_pocket=True)  # warm-up
+    dev = pocket["x"].device
+    lig_mask = torch.ones(n_samples, 24, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    if isinstance(module.ddpm, JointDDPM):
+        ligand = {"x": torch.zeros(n_samples, 24, 3, device=dev),
+                  "one_hot": torch.zeros(n_samples, 24, module.atom_nf, device=dev),
+                  "mask": lig_mask}
+        chain = lambda n: module.ddpm.inpaint(
+            gen, ligand, pocket, lig_fixed=torch.zeros_like(lig_mask),
+            pocket_fixed=pocket["mask"], timesteps=n)
+    else:
+        chain = lambda n: module.ddpm.sample_given_pocket(
+            gen, pocket, lig_mask, timesteps=n, shared_pocket=True)
+    chain(2)  # warm-up
     torch.cuda.synchronize()
-    return _profile(torch, lambda: module.ddpm.sample_given_pocket(
-        gen, pocket, lig_mask, timesteps=steps, shared_pocket=True),
-        f"{steps} steps + prior + decode")
+    t = time.perf_counter()
+    chain(steps)
+    torch.cuda.synchronize()
+    pass_ms = 1e3 * (time.perf_counter() - t) / (steps + 1)
+    prof = _profile(torch, lambda: chain(steps), f"{steps} steps + prior + decode")
+    if prof is not None:
+        prof["pass_ms"] = pass_ms  # unprofiled, the decode pass counted
+    return prof
+
+
+def fuse_on_off_profiles(torch, ec, module, pocket_pdb, ref_lig, n_samples):
+    """``profile_phase`` with block fusing off, on, on, off (in turns, on one
+    card) -> {"off": [profile, profile], "on": [...]}, each with its launches."""
+    profiles = {}
+    for fuse in (False, True, True, False):
+        module.ddpm.dynamics.kernel_block_fuse = fuse
+        ec.reset_launch_counts()
+        print(f"  block fusing {'on' if fuse else 'off'}")
+        prof = profile_phase(torch, module, pocket_pdb, ref_lig, n_samples)
+        if prof is not None:
+            prof["launches"] = dict(ec.launch_counts)
+            profiles.setdefault("on" if fuse else "off", []).append(prof)
+    for key, runs in profiles.items():
+        print(f"  block fusing {key}: " + "; ".join(
+            f"{p['pass_ms']:.2f} ms per pass unprofiled; profiled wall "
+            f"{p['wall_ms']:.2f} ms, device busy {p['busy_ms']:.2f} ms, idle share "
+            f"{p['idle_share']:.3f}" for p in runs))
+    return profiles
 
 
 def _profile(torch, fn, what):
@@ -524,37 +737,62 @@ def _profile(torch, fn, what):
 
 def small_reference_phase(torch, dev, work):
     """Phase 7: the fixture model sampled on the card (kernels) and on the
-    CPU (plain twins) from the same injected noise must agree."""
+    CPU (plain twins) from the same injected noise must agree: as the
+    conditional model it is, with the split kernels and with the whole-block
+    kernel, and run as a joint model (every block the whole-block kernel, every
+    row moving)."""
     from diffsbdd_tpu_torch.checkpoint import import_jax_npz, load_model
     from diffsbdd_tpu_torch.chem import pdb as pdbmod
-    ckpt = import_jax_npz(FIXTURE_NPZ, work / "fixture",
-                          {"diffusion_params": {"diffusion_steps": FIXTURE_T}})
     pdb = work / "small.pdb"
     ref_lig = write_pocket_pdb(pdb, n_atoms=60, seed=1)
     B, NL, T = 2, 8, FIXTURE_T
-    rng = np.random.default_rng(0)
-    noise = [rng.standard_normal((B, NL, 3 + 11)).astype(np.float32)
-             for _ in range(T + 2)]
-    outs = {}
-    for d in (dev, torch.device("cpu")):
+    residues = pdbmod.get_pocket_from_ligand(pdbmod.parse_pdb(pdb), ref_lig)
+
+    def chain(mode, fuse, d, noise):
+        ckpt = import_jax_npz(
+            FIXTURE_NPZ, work / f"fixture_{mode}_{int(fuse)}",
+            {"diffusion_params": {"diffusion_steps": T}, "mode": mode,
+             "tpu": {"kernel_block_fuse": fuse}})
         module, _ = load_model(ckpt, device=d)
         queue = list(noise)
         module.ddpm.sample_gaussian = lambda g, shape, mask, q=queue: \
             torch.as_tensor(q.pop(0), device=mask.device) * mask[..., None]
-        residues = pdbmod.get_pocket_from_ligand(pdbmod.parse_pdb(pdb), ref_lig)
         pocket = module.prepare_pocket(residues, repeats=B)
         lig_mask = torch.ones(B, NL, device=d)
         lig_mask[1, 6:] = 0.0
-        xh, _ = module.ddpm.sample_given_pocket(None, pocket, lig_mask,
-                                                shared_pocket=True)
-        outs[d.type] = xh.cpu().numpy()
-    a, b = outs["cuda"], outs["cpu"]
-    dev_x = float(np.abs(a[..., :3] - b[..., :3]).max())
-    flips = int((a[..., 3:].argmax(-1) != b[..., 3:].argmax(-1)).sum())
-    print(f"  fixture T={T}: card vs CPU max coordinate deviation {dev_x:.3e} A, "
-          f"{flips} atom-type flips (limit 1e-3 A, 0 flips)")
-    _check(np.isfinite(a).all(), "non-finite samples on the card")
-    _check(dev_x <= 1e-3 and flips == 0, "card and CPU samplers disagree")
+        if mode == "joint":
+            xh, _ = module.ddpm.sample(None, (lig_mask, pocket["mask"]), timesteps=T)
+        else:
+            xh, _ = module.ddpm.sample_given_pocket(None, pocket, lig_mask,
+                                                    shared_pocket=True)
+        _check(not queue, "noise left over")
+        return xh.cpu().numpy()
+
+    rng = np.random.default_rng(0)
+    n_pocket = padded_pocket_size(residues)
+    for mode, fuse in (("pocket_conditioning", False), ("pocket_conditioning", True),
+                       ("joint", True)):
+        if mode == "joint":  # a joint draw: ligand x, pocket x, ligand h, pocket h
+            shapes = [(B, NL, 3), (B, n_pocket, 3), (B, NL, 11), (B, n_pocket, 11)]
+        else:
+            shapes = [(B, NL, 3 + 11)]
+        noise = [rng.standard_normal(sh).astype(np.float32)
+                 for _ in range(T + 2) for sh in shapes]
+        a = chain(mode, fuse, dev, noise)
+        b = chain(mode, False, torch.device("cpu"), noise)
+        dev_x = float(np.abs(a[..., :3] - b[..., :3]).max())
+        flips = int((a[..., 3:].argmax(-1) != b[..., 3:].argmax(-1)).sum())
+        print(f"  fixture T={T} {mode}, block fusing {'on' if fuse else 'off'}: card vs "
+              f"CPU max coordinate deviation {dev_x:.3e} A, {flips} atom-type flips "
+              f"(limit 1e-3 A, 0 flips)")
+        _check(np.isfinite(a).all(), "non-finite samples on the card")
+        _check(dev_x <= 1e-3 and flips == 0, "card and CPU samplers disagree")
+
+
+def padded_pocket_size(residues, bucket=64):
+    """Padded node count of a full-atom pocket made of ``residues``."""
+    n = sum(1 for res in residues for a in res.atoms if a.element.capitalize() != "H")
+    return -(-n // bucket) * bucket
 
 
 # the training fields of configs/crossdock_fullatom_cond.yml (the network and
@@ -566,11 +804,14 @@ TRAIN_FIELDS = dict(dataset="crossdock", batch_size=16, lr=1.0e-3, n_epochs=1,
 N_TRAIN, N_VAL = 96, 16
 
 
-def flagship_train_config(flagship, datadir, logdir):
-    """The config of the training run, checked against the YAML preset where
-    PyYAML is installed."""
-    cfg = {**flagship, **TRAIN_FIELDS, "run_name": "chip_smoke_train",
-           "datadir": str(datadir), "logdir": str(logdir)}
+def flagship_train_config(flagship, datadir, logdir, mode="pocket_conditioning",
+                          run_name="chip_smoke_train", block_fuse=False):
+    """The config of a training run, checked against the mode's YAML preset
+    where PyYAML is installed.  ``block_fuse`` goes into the checkpoint for the
+    samplers; training never reads it."""
+    cfg = {**flagship, **TRAIN_FIELDS, "mode": mode, "run_name": run_name,
+           "datadir": str(datadir), "logdir": str(logdir),
+           "tpu": {"kernel_block_fuse": block_fuse}}
     cfg["diffusion_params"] = dict(flagship["diffusion_params"],
                                    diffusion_noise_schedule="polynomial_2",
                                    diffusion_noise_precision=5.0e-4,
@@ -581,11 +822,15 @@ def flagship_train_config(flagship, datadir, logdir):
         print("  PyYAML not installed: the preset file is not cross-checked")
         return cfg
     from diffsbdd_tpu_torch.config import load_config
-    preset = yaml.safe_load((REPO / "configs" / "crossdock_fullatom_cond.yml").read_text())
+    name = "crossdock_fullatom_joint.yml" if mode == "joint" \
+        else "crossdock_fullatom_cond.yml"
+    preset = yaml.safe_load((REPO / "configs" / name).read_text())
     full = load_config(overrides=cfg).to_dict()
     for key in ("egnn_params", "diffusion_params", "mode", "pocket_representation",
                 *TRAIN_FIELDS):
-        if key == "seed" or key == "n_epochs":
+        # cuts: one epoch, one seed, and no gradient accumulation (the joint
+        # preset accumulates 4 batches), so that a few steps are a few updates
+        if key in ("seed", "n_epochs", "accumulate_grad_batches"):
             continue
         want = preset[key]
         got = {k: full[key][k] for k in want} if isinstance(want, dict) else full[key]
@@ -593,22 +838,28 @@ def flagship_train_config(flagship, datadir, logdir):
     return cfg
 
 
-def train_phase(torch, ec, dev, flagship, out, work, pdb, ref_lig):
-    """Phase 8: the port's cli.train at the flagship widths on a synthetic
-    dataset, then the trained checkpoint through cli.generate_ligands."""
+def train_phase(torch, ec, dev, flagship, out, work, pdb, ref_lig,
+                mode="pocket_conditioning", n_train=N_TRAIN, block_fuse=False):
+    """Phases 8 and 10: the port's cli.train at the flagship widths on a
+    synthetic dataset (``n_train`` + 16 complexes), in ``mode``;
+    for the conditional model also the trained checkpoint through
+    cli.generate_ligands; then a profile of one step.  The result holds the
+    checkpoint directory."""
     from diffsbdd_tpu_torch.checkpoint import load_model
     from diffsbdd_tpu_torch.cli import generate_ligands as gen_cli
     from diffsbdd_tpu_torch.cli import train as train_cli
     from diffsbdd_tpu_torch.train import loop
 
     n_pocket = sum(ln.startswith("ATOM") for ln in Path(pdb).read_text().splitlines())
-    data = work / "data"
+    run_name = f"chip_smoke_train_{mode}"
+    data = work / f"data_{mode}"
     # the sampled pocket's size is among the training sizes, so that the
     # checkpoint's size prior has seen it
-    write_synthetic_dataset(data, N_TRAIN, N_VAL, seed=0,
+    write_synthetic_dataset(data, n_train, N_VAL, seed=0,
                             pocket_sizes=(250, 265, 280, n_pocket, 310, 320))
-    cfg = flagship_train_config(flagship, data, work / "runs")
-    cfg_path = work / "train_config.json"
+    cfg = flagship_train_config(flagship, data, work / "runs", mode, run_name,
+                                block_fuse)
+    cfg_path = work / f"train_config_{mode}.json"
     cfg_path.write_text(json.dumps(cfg))
 
     records, captured = [], {}
@@ -637,25 +888,29 @@ def train_phase(torch, ec, dev, flagship, out, work, pdb, ref_lig):
 
     train = [r for r in records if r["split"] == "train"]
     val = [r for r in records if r["split"] == "val"]
-    n_steps, n_layers = N_TRAIN // 16, flagship["egnn_params"]["n_layers"]
+    n_steps, n_layers = n_train // 16, flagship["egnn_params"]["n_layers"]
     _check(len(train) == n_steps and len(val) == 1,
            f"{len(train)} train and {len(val)} val records")
     prev = dict.fromkeys(ec.KERNELS, 0)
+    # training keeps the split kernels and their backward kernels, whatever
+    # the block-fuse switch says
+    want_step = {k: 0 if k == "block_fused" else n_layers for k in ec.KERNELS}
     for r in train:
         per_step = {k: r["launches"][k] - prev[k] for k in ec.KERNELS}
-        _check(all(v == n_layers for v in per_step.values()),
-               f"step {r['step']}: launches {per_step}, expected {n_layers} of each")
+        _check(per_step == want_step,
+               f"step {r['step']}: launches {per_step}, expected {want_step}")
         _check(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"]),
                f"step {r['step']}: loss {r['loss']}, grad_norm {r['grad_norm']}")
         prev = r["launches"]
     # validation: two network passes per batch (t and t = 0), forward only
     in_val = {k: val[0]["launches"][k] - prev[k] for k in ec.KERNELS}
     want_val = {"gcl_agg": 2 * n_layers * (N_VAL // 16), "coord_agg": 2 * n_layers * (N_VAL // 16),
-                "gcl_agg_bwd": 0, "coord_agg_bwd": 0}
+                "gcl_agg_bwd": 0, "coord_agg_bwd": 0, "block_fused": 0}
     _check(in_val == want_val, f"validation launches {in_val}, expected {want_val}")
     _check(np.isfinite(val[0]["loss"]), f"validation loss {val[0]['loss']}")
-    print(f"  launches per train step {n_layers}/{n_layers}/{n_layers}/{n_layers} "
-          f"(gcl, coord, gcl bwd, coord bwd) over {n_steps} steps; validation {in_val}")
+    print(f"  launches per train step {n_layers}/{n_layers}/{n_layers}/{n_layers}/0 "
+          f"(gcl, coord, gcl bwd, coord bwd, whole block) over {n_steps} steps; "
+          f"validation {in_val}")
     print("  loss " + " ".join(f"{r['loss']:.4f}" for r in train)
           + f"; val {val[0]['loss']:.4f}")
     print("  grad_norm " + " ".join(f"{r['grad_norm']:.3f}" for r in train))
@@ -665,7 +920,7 @@ def train_phase(torch, ec, dev, flagship, out, work, pdb, ref_lig):
              for p, p0 in zip(state.module.parameters(), captured["initial"])]
     _check(np.isfinite(moved).all() and max(moved) > 0, "the parameters did not move")
     _check(state.step == n_steps, f"trainer step {state.step}")
-    ckpt = work / "runs" / "chip_smoke_train" / "checkpoints"
+    ckpt = work / "runs" / run_name / "checkpoints"
     for name in ("last", "best"):
         for suffix in (".pt", ".train.pt", ".config.json"):
             _check((ckpt / f"{name}{suffix}").exists(), f"no {name}{suffix}")
@@ -676,19 +931,25 @@ def train_phase(torch, ec, dev, flagship, out, work, pdb, ref_lig):
     print(f"  train step {step_ms:.2f} ms (median of {len(steps_ms)}; "
           + " ".join(f"{m:.1f}" for m in steps_ms) + f"), {16e3 / step_ms:.2f} "
           f"complexes/s; cli.train wall {wall:.2f} s")
+    result = dict(launches=launches, per_step=n_layers, step_ms=step_ms,
+                  steps_ms=steps_ms, complexes_per_s=16e3 / step_ms, cli_wall_s=wall,
+                  losses=[r["loss"] for r in train], val_loss=val[0]["loss"],
+                  grad_norms=[r["grad_norm"] for r in train], ckpt=str(ckpt))
 
-    print("  the trained checkpoint through load_model and cli.generate_ligands")
-    module, _ = load_model(ckpt, name="last", device=dev)
-    for p, q in zip(module.parameters(), state.module.parameters()):
-        _check(torch.equal(p, q), "the last checkpoint differs from the trained weights")
-    _check(module.ddpm.size_distribution is not None, "the checkpoint has no size prior")
-    sdf = out / "trained_samples.sdf"
-    gen_cli.main([str(ckpt), "--pdbfile", str(pdb), "--ref_ligand", ref_lig,
-                  "--outfile", str(sdf), "--n_samples", "4", "--all_frags",
-                  "--timesteps", "20"])
-    blocks = sdf.read_text().split("$$$$")[:-1]
-    _check(len(blocks) == 4, f"the trained checkpoint gave {len(blocks)} molecules")
+    if mode != "joint":
+        print("  the trained checkpoint through load_model and cli.generate_ligands")
+        module, _ = load_model(ckpt, name="last", device=dev)
+        for p, q in zip(module.parameters(), state.module.parameters()):
+            _check(torch.equal(p, q), "the last checkpoint differs from the trained weights")
+        _check(module.ddpm.size_distribution is not None, "the checkpoint has no size prior")
+        sdf = out / "trained_samples.sdf"
+        gen_cli.main([str(ckpt), "--pdbfile", str(pdb), "--ref_ligand", ref_lig,
+                      "--outfile", str(sdf), "--n_samples", "4", "--all_frags",
+                      "--timesteps", "20"])
+        blocks = sdf.read_text().split("$$$$")[:-1]
+        _check(len(blocks) == 4, f"the trained checkpoint gave {len(blocks)} molecules")
 
+    # last: the profiled steps move the weights away from the checkpoint's
     print("  device time by kernel over one train step")
     train_step = loop.make_train_step(state)
     batch = next(iter(train_cli.PaddedLoader(
@@ -698,11 +959,127 @@ def train_phase(torch, ec, dev, flagship, out, work, pdb, ref_lig):
     gen = torch.Generator(device=dev).manual_seed(2)
     train_step(gen, lig, pkt)  # warm-up
     torch.cuda.synchronize()
-    breakdown = _profile(torch, lambda: train_step(gen, lig, pkt), "one train step")
-    return dict(launches=launches, per_step=n_layers, step_ms=step_ms,
-                steps_ms=steps_ms, complexes_per_s=16e3 / step_ms, cli_wall_s=wall,
-                losses=[r["loss"] for r in train], val_loss=val[0]["loss"],
-                grad_norms=[r["grad_norm"] for r in train], breakdown=breakdown)
+    result["breakdown"] = _profile(torch, lambda: train_step(gen, lig, pkt),
+                                   "one train step")
+    return result
+
+
+def _sdf_molecules(path):
+    """[(symbols, coords (n, 3))] of the V2000 blocks of an SDF file."""
+    mols = []
+    for blk in Path(path).read_text().split("$$$$")[:-1]:
+        lines = blk.split("\n")
+        i = next(k for k, ln in enumerate(lines) if ln.endswith("V2000"))
+        n = int(lines[i][:3])
+        rows = lines[i + 1:i + 1 + n]
+        mols.append(([ln[31:34].strip() for ln in rows],
+                     np.array([[float(ln[0:10]), float(ln[10:20]), float(ln[20:30])]
+                               for ln in rows])))
+    return mols
+
+
+def _check_molecules(path, n_mols, n_atoms):
+    mols = _sdf_molecules(path)
+    _check(len(mols) == n_mols, f"{path.name} holds {len(mols)} molecules")
+    for symbols, coords in mols:
+        _check(len(symbols) == n_atoms, f"a molecule does not have {n_atoms} atoms")
+        _check(np.isfinite(coords).all(), "non-finite coordinates")
+    return mols
+
+
+def joint_phase(torch, ec, dev, flagship, out, work, pdb, ref_lig, n_samples):
+    """Phases 10 and 10b: cli.train in mode joint, then cli.generate_ligands
+    on that checkpoint with block fusing on: a joint checkpoint inpaints with
+    the whole pocket fixed, and every block of every pass is the whole-block
+    kernel; then a 5-step chain on the same inputs profiled with block fusing
+    on and off."""
+    from diffsbdd_tpu_torch.checkpoint import load_model
+    from diffsbdd_tpu_torch.cli import generate_ligands as gen_cli
+    from diffsbdd_tpu_torch.diffusion.ddpm import JointDDPM
+    training = train_phase(torch, ec, dev, flagship, out, work, pdb, ref_lig,
+                           mode="joint", n_train=48, block_fuse=True)
+    T = flagship["diffusion_params"]["diffusion_steps"]
+    n_layers = flagship["egnn_params"]["n_layers"]
+    # network passes: one per entry of the RePaint plan, and the decode
+    passes = len(JointDDPM._repaint_plan(1, 1, T)[0]) + 1
+    sdf = out / "joint_samples.sdf"
+    ec.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gen_cli.main([training["ckpt"], "--pdbfile", str(pdb),
+                  "--ref_ligand", ref_lig, "--outfile", str(sdf), "--n_samples",
+                  str(n_samples), "--num_nodes_lig", "24", "--all_frags",
+                  "--timesteps", str(T), "--resamplings", "1", "--jump_length", "1"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ec.launch_counts)
+    expected = {**dict.fromkeys(ec.KERNELS, 0), "block_fused": n_layers * passes}
+    print(f"  launches {launches}, expected {expected} ({passes} passes)")
+    _check(launches == expected, "launch counts differ from the joint path's")
+    _check_molecules(sdf, n_samples, 24)
+    pass_ms = 1e3 * wall / passes
+    print(f"  {n_samples} molecules, T={T}, N=24+320: CLI wall {wall:.2f} s "
+          f"({pass_ms:.2f} ms per pass, checkpoint load and host work included), "
+          f"{n_samples / wall:.3f} molecules/s")
+
+    print("[10b] a 5-step joint chain with block fusing on and off")
+    module, _ = load_model(training["ckpt"], device=dev)
+    profiles = fuse_on_off_profiles(torch, ec, module, pdb, ref_lig, n_samples)
+    return dict(training=training, launches=launches, passes=passes,
+                cli_wall_s=wall, pass_ms=pass_ms, molecules_per_s=n_samples / wall,
+                profiles=profiles)
+
+
+def inpaint_phase(torch, ec, dev, flagship, out, work, pdb, ref_lig, n_samples=16,
+                  T=50, R=3):
+    """Phases 11 and 11b: cli.inpaint on the imported flagship checkpoint with
+    block fusing on, then the 5-step chain profiled with it on and off."""
+    from diffsbdd_tpu_torch.checkpoint import import_jax_npz, load_model
+    from diffsbdd_tpu_torch.cli import inpaint as inpaint_cli
+    ckpt = import_jax_npz(R05C_NPZ, work / "r05c_fused",
+                          {"tpu": {"kernel_block_fuse": True}})
+    fixed = ["C0", "C1", "C2", "C3", "N8", "O10"]
+    n_layers = flagship["egnn_params"]["n_layers"]
+    passes = T * R + 1
+    sdf = out / "inpainted.sdf"
+    ec.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    inpaint_cli.main([str(ckpt), "--pdbfile", str(pdb), "--ref_ligand", ref_lig,
+                      "--fix_atoms", *fixed, "--add_n_nodes", "18", "--outfile",
+                      str(sdf), "--n_samples", str(n_samples), "--timesteps", str(T),
+                      "--resamplings", str(R)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ec.launch_counts)
+    # in the T * R passes of the chain block 0 keeps the shared-pocket split
+    # path (3 GCL launches, 1 coordinate launch) and blocks 1.. are the
+    # whole-block kernel; the decode pass shares no pocket: all blocks fused
+    chain = passes - 1
+    expected = {**dict.fromkeys(ec.KERNELS, 0), "gcl_agg": 3 * chain,
+                "coord_agg": chain, "block_fused": (n_layers - 1) * chain + n_layers}
+    print(f"  launches {launches}, expected {expected} ({passes} passes)")
+    _check(launches == expected, "launch counts differ from the inpainting path's")
+    mols = _check_molecules(sdf, n_samples, len(fixed) + 18)
+    # the fixed atoms lead each molecule; the frame is shifted back onto the
+    # pocket, so they must sit where the reference ligand has them, up to the
+    # noise of the last level (sigma_0 ~ 0.02 A) and of the CoM alignment
+    want = {ln[12:16].strip(): [float(ln[30:38]), float(ln[38:46]), float(ln[46:54])]
+            for ln in Path(pdb).read_text().splitlines() if ln.startswith("HETATM")}
+    want = np.array([want[name] for name in fixed])
+    off = max(float(np.abs(coords[:len(fixed)] - want).max()) for _, coords in mols)
+    for symbols, _ in mols:
+        _check(symbols[:len(fixed)] == [n[0] for n in fixed], "fixed atom types changed")
+    print(f"  {n_samples} molecules of {len(fixed)} fixed + 18 new atoms, T={T} x {R} "
+          f"resamplings: CLI wall {wall:.2f} s ({1e3 * wall / passes:.2f} ms per pass); "
+          f"fixed atoms within {off:.3f} A of their place (limit 0.5 A)")
+    _check(off <= 0.5, "the fixed atoms moved")
+
+    print("[11b] the 5-step chain with block fusing on and off")
+    module, _ = load_model(ckpt, device=dev)
+    profiles = fuse_on_off_profiles(torch, ec, module, pdb, ref_lig, n_samples)
+    return dict(launches=launches, passes=passes, cli_wall_s=wall,
+                pass_ms=1e3 * wall / passes, fixed_atoms_off=off, profiles=profiles)
 
 
 def gradient_phase(torch, dev, work):
@@ -795,6 +1172,21 @@ def main(argv=None) -> int:
     kres.update(bres)
     variant_ms.update(bwd_variant_ms)
 
+    print("[3c] whole-block kernel vs its plain version and the split pair")
+    block_res, block_variant_ms = block_kernel_phase(ec, torch, dev, flagship,
+                                                     JOINT_SAMPLES)
+    variant_ms.update(block_variant_ms)
+    # the kernels line carries the joint path's shapes and batch (every row
+    # moves: the path that launches it most) on the clean complex, the
+    # collapsed one's time and bound beside it; the other shapes stay in the
+    # summary
+    clean, dense = block_res["joint_main_path"], block_res["joint_main_path_dense"]
+    kres["block_fused"] = {
+        **{k: v for k, v in clean.items() if k != "split_pair_ms"},
+        "max_abs_err": max(clean["max_abs_err"], dense["max_abs_err"]),
+        "batch": JOINT_SAMPLES, "dense_ms": dense["ms"],
+        "dense_plain_ms": dense["plain_ms"], "dense_bound_ms": dense["bound_ms"]}
+
     with tempfile.TemporaryDirectory(dir=out) as tmp:
         work = Path(tmp)
         print("[4] import checkpoints/synth_quality_r05c_best.npz")
@@ -826,21 +1218,14 @@ def main(argv=None) -> int:
                   "--num_nodes_lig", "24", "--all_frags",
                   "--timesteps", str(T)])
         wall = time.perf_counter() - t0
-        launches = dict(ec.launch_counts)
+        sampling_launches = dict(ec.launch_counts)
         ConditionalDDPM.sample_given_pocket = sample
         expected = {"gcl_agg": 8 * T + 6, "coord_agg": 6 * T + 6,
-                    "gcl_agg_bwd": 0, "coord_agg_bwd": 0}
-        print(f"  launches {launches}, expected {expected}")
-        _check(launches == expected, "launch counts differ from the main path's")
-        blocks = sdf.read_text().split("$$$$")[:-1]
-        _check(len(blocks) == n_samples, f"SDF holds {len(blocks)} molecules")
-        for blk in blocks:
-            lines = blk.split("\n")
-            i = next(k for k, ln in enumerate(lines) if ln.endswith("V2000"))
-            _check(int(lines[i][:3]) == 24, "a molecule does not have 24 atoms")
-            coords = [[float(ln[0:10]), float(ln[10:20]), float(ln[20:30])]
-                      for ln in lines[i + 1:i + 25]]
-            _check(np.isfinite(coords).all(), "non-finite coordinates")
+                    "gcl_agg_bwd": 0, "coord_agg_bwd": 0, "block_fused": 0}
+        print(f"  launches {sampling_launches}, expected {expected}")
+        _check(sampling_launches == expected,
+               "launch counts differ from the main path's")
+        _check_molecules(sdf, n_samples, 24)
         step_ms = 1e3 * timing["sample_s"] / (T + 1)
         print(f"  {n_samples} molecules, T={T}: sampling {timing['sample_s']:.2f} s "
               f"({step_ms:.2f} ms per denoise step, decode pass included), CLI wall {wall:.2f} s, "
@@ -860,10 +1245,25 @@ def main(argv=None) -> int:
         print("[9] card vs CPU gradients on the fixture")
         gradient_phase(torch, dev, work)
 
+        print("[10] joint main path: cli.train (mode joint), then "
+              "cli.generate_ligands with block fusing on")
+        joint = joint_phase(torch, ec, dev, flagship, out, work, pdb, ref_lig,
+                            JOINT_SAMPLES)
+
+        print("[11] conditional inpainting: cli.inpaint with block fusing on")
+        inpainting = inpaint_phase(torch, ec, dev, flagship, out, work, pdb, ref_lig)
+
+    by_path = {"sampling": sampling_launches, "training": training["launches"],
+               "joint_training": joint["training"]["launches"],
+               "joint_sampling": joint["launches"], "inpainting": inpainting["launches"]}
     # a kernel's launches: those of the main path that runs it most
-    launches = {k: max(launches[k], training["launches"][k]) for k in ec.KERNELS}
-    summary = {"card": card, "launches": launches, "kernels": kres,
-               "sampling_launches": expected, "training": training,
+    launches = {k: max(path[k] for path in by_path.values()) for k in ec.KERNELS}
+    for k in ec.KERNELS:
+        _check(launches[k] > 0, f"no main path launched {k}")
+    summary = {"card": card, "launches": launches, "launches_by_path": by_path,
+               "kernels": kres, "block_fused": block_res,
+               "sampling_launches": sampling_launches, "training": training,
+               "joint": joint, "inpainting": inpainting,
                "variant_ms": variant_ms, "breakdown": breakdown,
                "sample_s": timing["sample_s"], "step_ms": step_ms,
                "cli_wall_s": wall, "molecules_per_s": n_samples / wall,
@@ -877,12 +1277,13 @@ def main(argv=None) -> int:
                "gcl_agg_bwd": ("diffsbdd_tpu_torch/csrc/gcl_agg_bwd.cu",
                                "diffsbdd_tpu/ops/egnn_pallas_bwd.py:385"),
                "coord_agg_bwd": ("diffsbdd_tpu_torch/csrc/coord_agg_bwd.cu",
-                                 "diffsbdd_tpu/ops/egnn_pallas_bwd.py:908")}
+                                 "diffsbdd_tpu/ops/egnn_pallas_bwd.py:908"),
+               "block_fused": ("diffsbdd_tpu_torch/csrc/block_fused.cu",
+                               "diffsbdd_tpu/ops/egnn_block_fused.py:295")}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": sources[name][0],
          "replaces": sources[name][1], "launches": launches[name],
-         "launches_by_path": {"sampling": expected[name],
-                              "training": training["launches"][name]},
+         "launches_by_path": {path: counts[name] for path, counts in by_path.items()},
          **kres[name], "library_ms": None} for name in ec.KERNELS]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

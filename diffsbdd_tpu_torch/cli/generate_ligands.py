@@ -4,7 +4,10 @@
         --pdbfile pocket.pdb --ref_ligand A:330 --outfile out.sdf \\
         --n_samples 20 [--device cpu]
 
-Runs on CUDA unless ``--device cpu`` is given.
+Runs on CUDA unless ``--device cpu`` is given.  A joint checkpoint generates
+by inpainting with the whole pocket fixed; ``--resamplings`` and
+``--jump_length`` set its RePaint schedule and a conditional checkpoint does
+not read them.
 """
 from __future__ import annotations
 
@@ -32,8 +35,6 @@ def main(argv=None):
     p.add_argument("--all_frags", action="store_true")
     p.add_argument("--sanitize", action="store_true")
     p.add_argument("--relax", action="store_true")
-    # inpainting options of the joint model, which is not ported yet; kept
-    # so command lines of the JAX CLI run unchanged
     p.add_argument("--resamplings", type=int, default=10)
     p.add_argument("--jump_length", type=int, default=1)
     p.add_argument("--timesteps", type=int, default=None)
@@ -63,7 +64,8 @@ def main(argv=None):
             num_nodes_lig=num_nodes, sanitize=args.sanitize,
             largest_frag=not args.all_frags,
             relax_iter=(200 if args.relax else 0),
-            timesteps=args.timesteps, size_rng=size_rng))
+            timesteps=args.timesteps, size_rng=size_rng,
+            resamplings=args.resamplings, jump_length=args.jump_length))
 
     if len(molecules) < args.n_samples:
         print(f"warning: only {len(molecules)}/{args.n_samples} molecules "

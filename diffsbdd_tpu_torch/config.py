@@ -75,11 +75,13 @@ _DEFAULTS: Dict[str, Any] = {
         "diffusion_loss_type": "l2",
         "normalize_factors": [1, 4],
     },
-    # padding granularity of the node axes (the presets keep these under the
-    # key "tpu"; the port reads the same fields)
+    # padding granularity of the node axes, and the switch that lets the
+    # samplers run one-GCL blocks as the whole-block kernel (the presets keep
+    # these under the key "tpu"; the port reads the same fields)
     "tpu": {
         "lig_bucket": 8,
         "pocket_bucket": 64,
+        "kernel_block_fuse": False,
     },
 }
 

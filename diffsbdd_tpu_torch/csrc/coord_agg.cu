@@ -24,117 +24,23 @@
 // row in a fixed order, so the result is deterministic.  Rows >= update_rows
 // are written as zeros (the conditional model updates ligand rows only, and
 // nodes are ligand-first).
-#include "egnn_common.cuh"
+#include "egnn_fwd.cuh"
 
 namespace {
 
 using namespace egnn;
 
-struct CoordArgs {
-  PairMlp coord, cross;    // head = w3; cross.a_row == null: reflection-equivariant
-  const float* x;          // (B, N, 3)
-  const float* x0;         // (B, N, 3)
-  const float* mask;       // (B, N)
-  const float* is_lig;     // (B, N)
-  const float* graph_mean; // (B, 3) or null
-  int use_tanh;
-  float coords_range, norm_constant, nf;
-  Cutoffs cut;
-  int N, update_rows;
-  float* out;              // (B, N, 3)
-};
-
-// silu(silu(pre) @ W2 + b2) . head for the chunk's P pairs -> phi[p].
-template <int F>
-__device__ void mlp_head(const PairMlp& m, const Chunk& c, size_t node0, int i0,
-                         float* S, float* Ws, float* phi) {
-  constexpr int NC = F / 32;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  float acc[PPW][NC];
-  pair_product<F>(m, c, node0, i0, S, Ws, acc);
-#pragma unroll
-  for (int r = 0; r < PPW; ++r) {
-    float part = 0.0f;
-#pragma unroll
-    for (int n = 0; n < NC; ++n) {
-      int k = lane + 32 * n;
-      part = fmaf(siluf_(acc[r][n] + m.b2[k]), m.head[k], part);
-    }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) part += __shfl_xor_sync(0xffffffffu, part, o);
-    if (lane == 0) phi[warp * PPW + r] = part;
-  }
-  __syncthreads();
-}
-
+// The row-tile body (coord_tile) is in egnn_fwd.cuh; the whole-block kernel
+// runs the same body.
 template <int F>
 __global__ void __launch_bounds__(NT) coord_agg_kernel(CoordArgs g) {
   extern __shared__ __align__(16) float smem[];
   float* S = smem;                                  // P * F
   float* Ws = S + P * F;                            // KC * F
   int* cols = reinterpret_cast<int*>(Ws + KC * F);  // N
-  __shared__ Rows rows;
-  __shared__ Chunk chunk;
-  __shared__ float phi[P], phic[P], trans[P][3], mean[3];
 
-  const int i0 = blockIdx.x * TI;
-  const int t = threadIdx.x;
-  const size_t node0 = (size_t)blockIdx.y * g.N;
-  const bool has_cross = g.cross.a_row != nullptr;
-
-  load_rows(rows, g.x, g.x0, g.mask, g.is_lig, node0, i0, g.N, g.update_rows);
-  if (t < 3) mean[t] = has_cross ? g.graph_mean[blockIdx.y * 3 + t] : 0.0f;
-  __syncthreads();
-  const int count = compact_columns(rows, g.x0, g.mask, g.is_lig, node0, g.N,
-                                    g.cut, cols);
-
-  float racc = 0.0f;  // row sum of component (t % 3) of row t / 3, t < 3*TI
-  for (int c0 = 0; c0 < count; c0 += TJ) {
-    fill_chunk(chunk, rows, g.x, g.x0, g.mask, g.is_lig, node0, cols, count, c0,
-               g.cut);
-    __syncthreads();
-    mlp_head<F>(g.coord, chunk, node0, i0, S, Ws, phi);
-    if (has_cross) mlp_head<F>(g.cross, chunk, node0, i0, S, Ws, phic);
-
-    if (t < P) {
-      const int k = t / TJ, j = chunk.j[t];
-      float tr[3] = {0.0f, 0.0f, 0.0f};
-      if (j >= 0) {
-        const float* xj = g.x + (node0 + j) * 3;
-        float ph = phi[t];
-        if (g.use_tanh) ph = tanhf(ph) * g.coords_range;
-        float norm = sqrtf(chunk.d2[t] + 1e-8f) + g.norm_constant;
-        float w = ph / norm * chunk.adj[t];
-        for (int a = 0; a < 3; ++a) tr[a] = w * (rows.x[k][a] - xj[a]);
-        if (has_cross) {
-          float phc = phic[t];
-          if (g.use_tanh) phc = tanhf(phc) * g.coords_range;
-          float xi0 = rows.x[k][0] - mean[0], xi1 = rows.x[k][1] - mean[1],
-                xi2 = rows.x[k][2] - mean[2];
-          float xj0 = xj[0] - mean[0], xj1 = xj[1] - mean[1], xj2 = xj[2] - mean[2];
-          float cx = xi1 * xj2 - xi2 * xj1;
-          float cy = xi2 * xj0 - xi0 * xj2;
-          float cz = xi0 * xj1 - xi1 * xj0;
-          float cnorm = sqrtf(cx * cx + cy * cy + cz * cz + 1e-8f) + g.norm_constant;
-          float wc = phc / cnorm * chunk.adj[t];
-          tr[0] += wc * cx; tr[1] += wc * cy; tr[2] += wc * cz;
-        }
-      }
-      for (int a = 0; a < 3; ++a) trans[t][a] = tr[a];
-    }
-    __syncthreads();
-    if (t < 3 * TI) {
-      const int k = t / 3, a = t % 3;
-      for (int jj = 0; jj < TJ; ++jj) racc += trans[k * TJ + jj][a];
-    }
-    __syncthreads();  // the chunk and phi are rewritten by the next chunk
-  }
-
-  if (t < 3 * TI) {
-    const int i = i0 + t / 3;
-    if (i < g.N) g.out[(node0 + i) * 3 + t % 3] = racc / g.nf;
-  }
-  zero_rows_past_grid(g.out, node0, g.N, 3);
+  coord_tile<F>(g, blockIdx.y, blockIdx.x * TI, S, Ws, cols);
+  zero_rows_past_grid(g.out, (size_t)blockIdx.y * g.N, g.N, 3);
 }
 
 template <int F>

@@ -1,5 +1,6 @@
-// Device code shared by the forward kernels gcl_agg.cu and coord_agg.cu and,
-// through egnn_bwd.cuh, by their backward kernels; f32, for sm_90a.
+// Device code shared by every kernel: the forward kernels gcl_agg.cu,
+// coord_agg.cu and block_fused.cu through egnn_fwd.cuh, the backward kernels
+// through egnn_bwd.cuh; f32, for sm_90a.
 //
 // All kernels tile the same way: one block per (batch, tile of TI rows below
 // update_rows).  A block first compacts the columns adjacent to any of its rows (cutoffs on
@@ -180,16 +181,19 @@ __device__ __forceinline__ float pre_value(const PairMlp& m, const PairWeights& 
 // acc[r][n] = (A @ W) for pair warp*PPW + r and feature lane + 32n: A (P x F)
 // in shared memory, W (F x F, row-major) in global memory, streamed through
 // the shared-memory stage Ws (KC*F floats).  Syncs before it first reads A;
-// the caller syncs again before it rewrites A or Ws.
-template <int F>
+// the caller syncs again before it rewrites A or Ws.  With ZERO false the
+// product is added to what acc holds.
+template <int F, bool ZERO = true>
 __device__ __forceinline__ void tile_product(const float* A, const float* W, float* Ws,
                                              float (&acc)[PPW][F / 32]) {
   constexpr int NC = F / 32;
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  if (ZERO) {
 #pragma unroll
-  for (int r = 0; r < PPW; ++r)
+    for (int r = 0; r < PPW; ++r)
 #pragma unroll
-    for (int n = 0; n < NC; ++n) acc[r][n] = 0.0f;
+      for (int n = 0; n < NC; ++n) acc[r][n] = 0.0f;
+  }
 
   for (int kc = 0; kc < F; kc += KC) {
     __syncthreads();  // A complete / previous stage consumed

@@ -26,97 +26,26 @@
 // * the epilogue applies silu and the attention gate (a warp shuffle dot) and
 //   keeps each thread's running row sums in registers across chunks;
 // * f32 FMAs on the CUDA cores.  TF32/bf16 tensor-core tiers are later work.
-#include "egnn_common.cuh"
+#include "egnn_fwd.cuh"
 
 namespace {
 
 using namespace egnn;
 
-struct GclArgs {
-  PairMlp mlp;            // head = w_att, null when attention is off
-  const float* b_att;     // (1) or null when attention is off
-  const float* x;         // (B, N, 3) current coordinates
-  const float* x0;        // (B, N, 3) EGNN input coordinates
-  const float* mask;      // (B, N) row validity
-  const float* col_mask;  // (B, N) column validity
-  const float* is_lig;    // (B, N)
-  Cutoffs cut;
-  float nf;               // normalization factor
-  int N;
-  int update_rows;        // rows >= update_rows are written as zeros
-  float* out;             // (B, N, F)
-};
-
+// The row-tile body (gcl_tile) is in egnn_fwd.cuh; the whole-block kernel
+// runs the same body.
 template <int F>
 __global__ void __launch_bounds__(NT) gcl_agg_kernel(GclArgs g) {
-  constexpr int NC = F / 32;  // output features per lane
   extern __shared__ __align__(16) float smem[];
   float* S = smem;                                  // P * F, then the row sums
   float* Ws = S + P * F;                            // KC * F
   int* cols = reinterpret_cast<int*>(Ws + KC * F);  // N
-  __shared__ Rows rows;
-  __shared__ Chunk chunk;
 
   const int i0 = blockIdx.x * TI;
-  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
   const size_t node0 = (size_t)blockIdx.y * g.N;
-  const bool attention = g.mlp.head != nullptr;
-
-  load_rows(rows, g.x, g.x0, g.mask, g.is_lig, node0, i0, g.N, g.update_rows);
-  __syncthreads();
-  const int count = compact_columns(rows, g.x0, g.col_mask, g.is_lig, node0, g.N,
-                                    g.cut, cols);
-
-  const float b_att = attention ? g.b_att[0] : 0.0f;
-  float b2c[NC], wattc[NC], msum[NC];
-#pragma unroll
-  for (int n = 0; n < NC; ++n) {
-    b2c[n] = g.mlp.b2[lane + 32 * n];
-    wattc[n] = attention ? g.mlp.head[lane + 32 * n] : 0.0f;
-    msum[n] = 0.0f;
-  }
-
-  for (int c0 = 0; c0 < count; c0 += TJ) {
-    fill_chunk(chunk, rows, g.x, g.x0, g.col_mask, g.is_lig, node0, cols, count,
-               c0, g.cut);
-    __syncthreads();
-    float acc[PPW][NC];
-    pair_product<F>(g.mlp, chunk, node0, i0, S, Ws, acc);
-
-    // ---- epilogue: silu, attention gate, gated row sum
-#pragma unroll
-    for (int r = 0; r < PPW; ++r) {
-      float part = 0.0f;
-#pragma unroll
-      for (int n = 0; n < NC; ++n) {
-        acc[r][n] = siluf_(acc[r][n] + b2c[n]);
-        part = fmaf(acc[r][n], wattc[n], part);
-      }
-      float gate = chunk.adj[warp * PPW + r];
-      if (attention) {
-#pragma unroll
-        for (int o = 16; o > 0; o >>= 1) part += __shfl_xor_sync(0xffffffffu, part, o);
-        gate *= sigmoidf_(part + b_att);
-      }
-#pragma unroll
-      for (int n = 0; n < NC; ++n) msum[n] = fmaf(gate, acc[r][n], msum[n]);
-    }
-    __syncthreads();  // the chunk and S are rewritten by the next chunk
-  }
-
-  // ---- combine the warps of each row and write the tile
-  float* red = S;  // (NT/32) * F
-#pragma unroll
-  for (int n = 0; n < NC; ++n) red[warp * F + lane + 32 * n] = msum[n];
-  __syncthreads();
-  constexpr int WPR = TJ / PPW;  // warps per row
-  for (int e = t; e < TI * F; e += NT) {
-    int r = e / F, n = e % F, i = i0 + r;
-    if (i >= g.N) continue;
-    float v = 0.0f;
-    for (int w = 0; w < WPR; ++w) v += red[(r * WPR + w) * F + n];
-    g.out[(node0 + i) * F + n] = v / g.nf;
-  }
+  const int left = g.N - i0;
+  gcl_tile<F>(g, node0, i0, S, Ws, cols, g.out + (node0 + i0) * F,
+              left < TI ? left : TI);
   zero_rows_past_grid(g.out, node0, g.N, F);
 }
 

@@ -1,4 +1,7 @@
-"""Centre-of-mass projections on padded ligand/pocket batches."""
+"""Centre-of-mass projections on padded ligand/pocket batches.  Three
+semantics that are easy to mix up, one function each: joint (the combined
+system's CoM leaves both parts), conditional (the ligand's CoM leaves both
+parts), simple (no projection)."""
 from __future__ import annotations
 
 from typing import Tuple
@@ -25,3 +28,8 @@ def remove_mean_joint(x_lig: torch.Tensor, x_pocket: torch.Tensor,
     count = mask_lig.sum(1) + mask_pocket.sum(1)
     mean = total / torch.clamp(count, min=1e-12)[..., None]
     return x_lig - mean[:, None, :], x_pocket - mean[:, None, :]
+
+
+def remove_mean_simple(x_lig, x_pocket, mask_lig, mask_pocket):
+    """Identity projection (``SimpleConditionalDDPM``)."""
+    return x_lig, x_pocket

@@ -1,7 +1,9 @@
 """The epsilon-network: encoders + EGNN over the joint ligand/pocket graph.
 
-The pocket-conditional network: pocket coordinates stay fixed, and the
-network is conditioned on time.  Inputs are padded per-domain tensors; the
+In the conditional models the pocket coordinates stay fixed
+(``update_pocket_coords=False``); in the joint model every node moves and the
+velocity field's centre of mass is removed.  The network is conditioned on
+time.  Inputs are padded per-domain tensors; the
 node axes are concatenated ligand-first inside:
   xh_lig: (B, NL, 3 + atom_nf)      mask_lig: (B, NL)
   xh_pkt: (B, NP, 3 + residue_nf)   mask_pkt: (B, NP)
@@ -16,6 +18,7 @@ import torch
 from torch import nn
 
 from diffsbdd_tpu_torch.models.egnn import EGNN, GraphContext
+from diffsbdd_tpu_torch.ops.masked import masked_mean
 
 
 def _mlp2(d_in: int, d_mid: int, d_out: int) -> nn.Sequential:
@@ -34,8 +37,15 @@ class EGNNDynamics(nn.Module):
                  edge_cutoff_pocket: Optional[float] = None,
                  edge_cutoff_interaction: Optional[float] = None,
                  reflection_equivariant: bool = True,
-                 edge_embedding_dim: Optional[int] = None):
+                 edge_embedding_dim: Optional[int] = None,
+                 update_pocket_coords: bool = False,
+                 kernel_block_fuse: bool = False):
         super().__init__()
+        self.update_pocket_coords = update_pocket_coords
+        # allow the whole-block kernel where a caller asks for it (the
+        # samplers do); False: always the split kernels
+        self.kernel_block_fuse = kernel_block_fuse
+        self.inv_sublayers = inv_sublayers
         self.cutoffs = (edge_cutoff_ligand, edge_cutoff_pocket,
                         edge_cutoff_interaction)
         self.atom_encoder = _mlp2(atom_nf, 2 * atom_nf, joint_nf)
@@ -56,13 +66,17 @@ class EGNNDynamics(nn.Module):
             reflection_equiv=reflection_equivariant)
 
     def forward(self, xh_lig, xh_pkt, t, mask_lig, mask_pkt,
-                shared_pocket: bool = False, zero_nan: bool = False):
-        """``shared_pocket``: the batch holds one pocket replicated across
+                shared_pocket: bool = False, zero_nan: bool = False,
+                block_fuse: bool = False):
+        """``block_fuse``: run one-GCL blocks as the whole-block kernel (the
+        samplers ask for it; it takes effect when ``kernel_block_fuse`` is
+        set).  ``shared_pocket``: the batch holds one pocket replicated across
         samples and ``t`` is uniform over the batch, which lets the first GCL
         compute its pocket-pocket aggregation once.  ``zero_nan``: the
         training-time guard -- NaN velocities become zeros (and infinities the
         largest finite values), so one numerical blow-up corrupts a step
-        instead of poisoning the parameters."""
+        instead of poisoning the parameters.  In the joint model no pocket
+        is shared: every node diffuses."""
         B, NL = mask_lig.shape
         NP = mask_pkt.shape[1]
         nd = 3
@@ -77,12 +91,21 @@ class EGNNDynamics(nn.Module):
 
         type_table = None if self.edge_embedding is None \
             else self.edge_embedding.weight
-        ctx = GraphContext(x0=x, mask=mask, is_lig=is_lig, cutoffs=self.cutoffs,
-                           type_table=type_table, n_lig=NL)
-        h_final, x_final = self.egnn(h, x, ctx, shared_pocket=shared_pocket)
+        ctx = GraphContext(
+            x0=x, mask=mask, is_lig=is_lig, cutoffs=self.cutoffs,
+            type_table=type_table, n_lig=NL,
+            update_rows=None if self.update_pocket_coords else NL,
+            block_fuse=bool(block_fuse) and self.kernel_block_fuse
+            and self.inv_sublayers == 1)
+        h_final, x_final = self.egnn(
+            h, x, ctx,
+            shared_pocket=bool(shared_pocket) and not self.update_pocket_coords)
         vel = (x_final - x) * mask[..., None]
         if zero_nan:
             vel = torch.nan_to_num(vel)
+        if self.update_pocket_coords:
+            # the joint model removes the velocity field's centre of mass
+            vel = (vel - masked_mean(vel, mask)[:, None, :]) * mask[..., None]
 
         h_final = h_final[..., :-1]  # drop the time channel
         h_final_lig = self.atom_decoder(h_final[:, :NL])

@@ -3,9 +3,12 @@
 Graphs are padded to ``(B, N, .)`` with a node mask; nodes are ligand-first.
 Every pairwise MLP's first layer is split into per-node row/column
 projections (``split_first_layer``), so only the genuinely pairwise F x F
-work runs at O(N^2), and that work runs in the two kernels of
+work runs at O(N^2), and that work runs in the kernels of
 ``ops/egnn_cuda.py`` (their plain twins on the CPU), which rebuild the
-adjacency from the EGNN input coordinates and the distance cutoffs.
+adjacency from the EGNN input coordinates and the distance cutoffs.  A block
+with one GCL can run as one whole-block kernel (``GraphContext.block_fuse``,
+set on the sampling path); training keeps the split kernels and their
+backward kernels.
 
 Module and parameter names follow the reference PyTorch state_dict
 (``egnn.e_block_0.gcl_0.edge_mlp.0.weight`` ...).  The sinusoidal distance
@@ -33,7 +36,15 @@ class GraphContext:
     is_lig: torch.Tensor    # (B, N)
     cutoffs: Tuple[Optional[float], Optional[float], Optional[float]]
     type_table: Optional[torch.Tensor]  # (3, E) edge-type embedding or None
-    n_lig: int  # ligand rows lead the node axis; only they move
+    n_lig: int  # ligand rows lead the node axis
+    # rows below update_rows move (the conditional models freeze the pocket:
+    # update_rows = n_lig); None in the joint model, where every node moves
+    update_rows: Optional[int] = None
+    block_fuse: bool = False  # one-GCL blocks run as the whole-block kernel
+
+    @property
+    def update_coords_mask(self) -> Optional[torch.Tensor]:
+        return None if self.update_rows is None else self.is_lig
 
 
 def split_first_layer(linear: nn.Linear, h: torch.Tensor):
@@ -116,6 +127,24 @@ class DenseGCL(nn.Module):
         upd = self.node_mlp(torch.cat([h, agg], dim=-1))
         return (h + upd) * mask[..., None]
 
+    def fused_pieces(self, h, ctx: GraphContext):
+        """The operands of the whole-block kernel that belong to this layer:
+        the folded first-layer projections of h, and the ``gcl`` and ``node``
+        parameter dicts of ``ops.egnn_cuda.block_fused``."""
+        H = h.shape[-1]
+        a_row, a_col, w_d2, w_d20, w_types = split_first_layer(self.edge_mlp[0], h)
+        a_row, a_col, type_delta = kernels.fold_type_bias(
+            a_row, a_col, ctx.is_lig, type_bias_table(ctx.type_table, w_types))
+        gcl = dict(w_d2=w_d2, w_d20=w_d20, type_delta=type_delta,
+                   w2=_input_major(self.edge_mlp[2]), b2=self.edge_mlp[2].bias,
+                   w_att=_input_major(self.att_mlp[0]) if self.attention else None,
+                   b_att=self.att_mlp[0].bias if self.attention else None)
+        w0 = self.node_mlp[0].weight  # (F, H + F)
+        node = dict(w_h=w0[:, :H].t().contiguous(), w_a=w0[:, H:].t().contiguous(),
+                    b0=self.node_mlp[0].bias, w2=_input_major(self.node_mlp[2]),
+                    b2=self.node_mlp[2].bias)
+        return a_row.contiguous(), a_col.contiguous(), gcl, node
+
 
 def coord_mlp(hidden_nf: int, edges_in_d: int, node_nf: int,
               head: Optional[nn.Linear] = None) -> nn.Sequential:
@@ -130,8 +159,8 @@ def coord_mlp(hidden_nf: int, edges_in_d: int, node_nf: int,
 
 
 class DenseEquivariantUpdate(nn.Module):
-    """Equivariant coordinate update with the optional SE(3) cross term; the
-    pocket is fixed, so only the ligand rows move."""
+    """Equivariant coordinate update with the optional SE(3) cross term, of
+    the rows the context lets move."""
 
     def __init__(self, hidden_nf: int, edges_in_d: int, node_nf: int,
                  normalization_factor: float = 100.0, tanh: bool = False,
@@ -166,8 +195,35 @@ class DenseEquivariantUpdate(nn.Module):
             cutoffs=ctx.cutoffs, tanh=self.tanh, coords_range=self.coords_range,
             norm_constant=self.norm_constant,
             normalization_factor=self.normalization_factor, cross=cross,
-            graph_mean=graph_mean, update_rows=ctx.n_lig)
-        return (x + agg * ctx.is_lig[..., None]) * ctx.mask[..., None]
+            graph_mean=graph_mean, update_rows=ctx.update_rows)
+        return self.apply_update(x, agg, ctx)
+
+    @staticmethod
+    def apply_update(x, agg, ctx: GraphContext):
+        if ctx.update_coords_mask is not None:
+            agg = agg * ctx.update_coords_mask[..., None]
+        return (x + agg) * ctx.mask[..., None]
+
+    def block_pieces(self, type_table, H: int):
+        """The ``coord`` and ``cross`` parameter dicts of the whole-block
+        kernel: each first layer split into its per-node, distance and type
+        rows (what ``split_first_layer`` and ``type_bias_table`` do outside
+        the kernel for the split path).  The cross head is the coordinate
+        head."""
+        w3 = _input_major(self.coord_mlp[4])
+
+        def pieces(mlp):
+            w = mlp[0].weight  # (F, 2H + 2 + E)
+            w_types = w[:, 2 * H + 2:].t() if w.shape[1] > 2 * H + 2 else None
+            return dict(k_i=w[:, :H].t().contiguous(),
+                        k_j=w[:, H:2 * H].t().contiguous(), b0=mlp[0].bias,
+                        w_d2=w[:, 2 * H].contiguous(),
+                        w_d20=w[:, 2 * H + 1].contiguous(),
+                        type_bias=type_bias_table(type_table, w_types),
+                        w1=_input_major(mlp[2]), b1=mlp[2].bias, w3=w3)
+
+        cross = None if self.reflection_equiv else pieces(self.cross_product_mlp)
+        return pieces(self.coord_mlp), cross
 
 
 class EquivariantBlock(nn.Module):
@@ -192,6 +248,8 @@ class EquivariantBlock(nn.Module):
             reflection_equiv=reflection_equiv)
 
     def forward(self, h, x, ctx: GraphContext, shared_pocket: bool = False):
+        if ctx.block_fuse and self.n_layers == 1 and not shared_pocket:
+            return self._block_fused(h, x, ctx)
         for i in range(self.n_layers):
             # the batch-invariant pocket factorization only holds for the
             # very first GCL (pocket h diverges per sample after it)
@@ -199,6 +257,21 @@ class EquivariantBlock(nn.Module):
                                           shared_pocket=shared_pocket and i == 0)
         x = self.gcl_equiv(h, x, ctx)
         return h * ctx.mask[..., None], x
+
+    def _block_fused(self, h, x, ctx: GraphContext):
+        """The whole block as one kernel (``ops.egnn_cuda.block_fused``)."""
+        equiv = self.gcl_equiv
+        a_row, a_col, gcl, node = self.gcl_0.fused_pieces(h, ctx)
+        coord, cross = equiv.block_pieces(ctx.type_table, h.shape[-1])
+        graph_mean = None if cross is None else masked_mean(x, ctx.mask)
+        h_new, dx = kernels.block_fused(
+            h, a_row, a_col, x, ctx.x0, ctx.mask, ctx.is_lig, gcl, node, coord,
+            cross, graph_mean, cutoffs=ctx.cutoffs, attention=self.gcl_0.attention,
+            tanh=equiv.tanh, coords_range=equiv.coords_range,
+            norm_constant=equiv.norm_constant,
+            normalization_factor=equiv.normalization_factor,
+            update_rows=ctx.update_rows)
+        return h_new * ctx.mask[..., None], equiv.apply_update(x, dx, ctx)
 
 
 class EGNN(nn.Module):

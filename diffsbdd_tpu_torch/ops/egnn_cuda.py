@@ -16,18 +16,25 @@ Two backward kernels carry the other half of a training step:
 * ``coord_agg_bwd`` -- every cotangent of ``coord_update_agg``, the cross MLP's
   and the graph mean's included (``csrc/coord_agg_bwd.cu``).
 
-All four rebuild the adjacency from the EGNN input coordinates ``x0``, the node
-masks and the per-pair-type distance cutoffs, so the (B, N, N) adjacency and
-the (B, N, N, F) message tensors never exist in memory; the backward kernels
-recompute the pair MLPs instead of reading saved activations.
+One kernel carries a whole EGNN block on the sampling path:
+
+* ``block_fused`` -- GCL aggregation, the node MLP, the first-layer
+  projections of the coordinate and cross heads, and the coordinate update of
+  one block behind one entry point (``csrc/block_fused.cu``).  Its gradient,
+  should one be taken, is autograd through its plain version.
+
+All of them rebuild the adjacency from the EGNN input coordinates ``x0``, the
+node masks and the per-pair-type distance cutoffs, so the (B, N, N) adjacency
+and the (B, N, N, F) message tensors never exist in memory; the backward
+kernels recompute the pair MLPs instead of reading saved activations.
 
 Each wrapper takes its plain PyTorch version (``*_plain``: the dense twins, and
 autograd through them) when its tensors lie on the CPU, and launches its kernel
 when they lie on a CUDA device; there is no fallback from one to the other.
 The plain versions are the CPU path and the kernels' test oracle.  On CUDA the
 public wrappers go through ``torch.autograd.Function``s, so a training step
-launches each kernel once per layer.  Each launch adds one to
-``launch_counts[name]``.
+launches each split kernel once per layer.  Each launch adds one to
+``launch_counts[name]`` (one for the two phases of ``block_fused``).
 
 The kernels are compiled with ``nvcc`` for ``sm_90a`` into plain-C shared
 libraries under ``csrc/build`` at first use (``build_kernels``) and loaded with
@@ -46,8 +53,9 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
-KERNELS = ("gcl_agg", "coord_agg", "gcl_agg_bwd", "coord_agg_bwd")
-HEADERS = (CSRC / "egnn_common.cuh", CSRC / "egnn_bwd.cuh")  # shared device code
+KERNELS = ("gcl_agg", "coord_agg", "gcl_agg_bwd", "coord_agg_bwd", "block_fused")
+HEADERS = (CSRC / "egnn_common.cuh", CSRC / "egnn_fwd.cuh",
+           CSRC / "egnn_bwd.cuh")  # shared device code
 ROW_TILE = 4  # rows per tile, TI in csrc/egnn_common.cuh
 SUPPORTED_F = (64, 256)  # the fixture checkpoint's width and the flagship's
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -68,6 +76,8 @@ _ARGTYPES = {
                     [_P] * 16 + [_F] * 4 + [_I] * 5 + [_P] * 7 + [_P]),
     "coord_agg_bwd": ("coord_agg_backward",
                       [_P] * 24 + [_I] + [_F] * 6 + [_I] * 5 + [_P] * 14 + [_P]),
+    "block_fused": ("block_fused_forward",
+                    [_P] * 39 + [_I] + [_F] * 6 + [_I] * 5 + [_P, _P] + [_P]),
 }
 
 
@@ -283,6 +293,52 @@ def fold_type_bias(a_row, a_col, is_lig, type_bias):
 
 
 # ---------------------------------------------------------------------------
+# the whole block, plain: GCL + node MLP + head projections + coordinate update
+# ---------------------------------------------------------------------------
+
+_GCL_KEYS = ("w_d2", "w_d20", "type_delta", "w2", "b2", "w_att", "b_att")
+_NODE_KEYS = ("w_h", "w_a", "b0", "w2", "b2")
+_HEAD_KEYS = ("k_i", "k_j", "b0", "w_d2", "w_d20", "type_bias", "w1", "b1", "w3")
+
+
+def block_fused_plain(h, a_row, a_col, x, x0, mask, is_lig, gcl, node, coord,
+                      cross=None, graph_mean=None, *, cutoffs, attention, tanh,
+                      coords_range, norm_constant, normalization_factor,
+                      update_rows=None):
+    """Plain version of ``block_fused`` (same math, O(N^2 F) in memory): the
+    dense GCL twin, the node MLP, the folded head projections of h', the dense
+    coordinate twin."""
+    silu = torch.nn.functional.silu
+    agg = gcl_message_agg_plain(
+        a_row, a_col, x, x0, mask, is_lig, gcl["w_d2"], gcl["w_d20"],
+        _delta_table(gcl.get("type_delta")), gcl["w2"], gcl["b2"],
+        gcl.get("w_att"), gcl.get("b_att"), cutoffs=cutoffs, attention=attention,
+        normalization_factor=normalization_factor)
+    pre_n = h @ node["w_h"] + agg @ node["w_a"] + node["b0"]
+    h_new = (h + silu(pre_n) @ node["w2"] + node["b2"]) * mask[..., None]
+
+    def head(p):
+        row, col, delta = fold_type_bias(h_new @ p["k_i"] + p["b0"], h_new @ p["k_j"],
+                                         is_lig, p.get("type_bias"))
+        return row, col, _delta_table(delta)
+
+    la_row, la_col, l_tb = head(coord)
+    cross_arg = None
+    if cross is not None:
+        c_row, c_col, c_tb = head(cross)
+        cross_arg = dict(a_row=c_row, a_col=c_col, w_d2=cross["w_d2"],
+                         w_d20=cross["w_d20"], type_bias=c_tb, w2=cross["w1"],
+                         b2=cross["b1"], w3=cross["w3"])
+    dx = coord_update_agg_plain(
+        la_row, la_col, x, x0, mask, is_lig, coord["w_d2"], coord["w_d20"], l_tb,
+        coord["w1"], coord["b1"], coord["w3"], cutoffs=cutoffs, tanh=tanh,
+        coords_range=coords_range, norm_constant=norm_constant,
+        normalization_factor=normalization_factor, cross=cross_arg,
+        graph_mean=graph_mean, update_rows=update_rows)
+    return h_new, dx
+
+
+# ---------------------------------------------------------------------------
 # plain backward versions: autograd through the plain twins
 # ---------------------------------------------------------------------------
 
@@ -382,6 +438,18 @@ def _blocks_per_batch(B: int, rows: int, device) -> int:
     tiles = max(1, -(-rows // ROW_TILE))
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     return max(1, min(tiles, sms // B))
+
+
+BLOCK_ROWS_MAX = 64  # RB in csrc/block_fused.cu
+
+
+def _block_rows(B: int, N: int, device) -> int:
+    """Rows a phase-A block of the whole-block kernel owns: the fewest row
+    tiles for which the grid still fits the card at once (one block fits an
+    SM), at most ``BLOCK_ROWS_MAX`` rows."""
+    tiles = -(-N // ROW_TILE)
+    per_block = -(-tiles // _blocks_per_batch(B, N, device))
+    return min(BLOCK_ROWS_MAX, ROW_TILE * per_block)
 
 
 def _split_weight_slab(w_out, F):
@@ -720,3 +788,153 @@ def coord_update_agg(a_row, a_col, x, x0, mask, is_lig, w_d2, w_d20,
     return _CoordAggFn.apply(cfg, mask, is_lig, a_row.contiguous(),
                              a_col.contiguous(), x, x0, w_d2, w_d20, delta, w2, b2,
                              w3, *cross_ops)
+
+
+# ---------------------------------------------------------------------------
+# the whole-block kernel
+# ---------------------------------------------------------------------------
+
+def _pack_block(gcl, node, coord, cross, graph_mean):
+    """The parameter dicts of ``block_fused`` as one flat tuple (None where a
+    piece is absent): gcl, node, coord, then cross and graph_mean if any."""
+    ops = tuple(gcl.get(k) for k in _GCL_KEYS) + tuple(node[k] for k in _NODE_KEYS) \
+        + tuple(coord.get(k) for k in _HEAD_KEYS)
+    if cross is not None:
+        ops += tuple(cross.get(k) for k in _HEAD_KEYS) + (graph_mean,)
+    return ops
+
+
+def _unpack_block(ops):
+    ng, nn_, nh = len(_GCL_KEYS), len(_NODE_KEYS), len(_HEAD_KEYS)
+    gcl = dict(zip(_GCL_KEYS, ops[:ng]))
+    node = dict(zip(_NODE_KEYS, ops[ng:ng + nn_]))
+    coord = dict(zip(_HEAD_KEYS, ops[ng + nn_:ng + nn_ + nh]))
+    rest = ops[ng + nn_ + nh:]
+    if not rest:
+        return gcl, node, coord, None, None
+    return gcl, node, coord, dict(zip(_HEAD_KEYS, rest[:nh])), rest[nh]
+
+
+def block_fused_bwd_plain(g_h, g_dx, h, a_row, a_col, x, x0, mask, is_lig, gcl, node,
+                          coord, cross=None, graph_mean=None, **kw):
+    """Cotangents of ``block_fused`` for the output cotangents ``g_h`` (B, N, H)
+    and ``g_dx`` (B, N, 3): autograd through the plain version.  Returns one
+    cotangent (or None) for each of h, a_row, a_col, x, x0 and then for each
+    entry of the flat parameter tuple (``_pack_block`` order)."""
+    with torch.enable_grad():
+        lv = _leaves([h, a_row, a_col, x, x0,
+                      *_pack_block(gcl, node, coord, cross, graph_mean)])
+        out = block_fused_plain(*lv[:5], mask, is_lig, *_unpack_block(lv[5:]), **kw)
+        live = [t for t in lv if t is not None]
+        found = iter(torch.autograd.grad(out, live, grad_outputs=(g_h, g_dx),
+                                         allow_unused=True))
+    return [None if t is None else next(found) for t in lv]
+
+
+def _block_forward_cuda(h, a_row, a_col, x, x0, mask, is_lig, gcl, node, coord,
+                        cross, graph_mean, cutoffs, attention, tanh, coords_range,
+                        norm_constant, nf, update_rows):
+    B, N, F = a_row.shape
+    dev = a_row.device
+    name = "block_fused"
+    if h.shape[-1] != F:
+        raise ValueError(f"{name}: node width {h.shape[-1]} != message width {F}")
+    watt = gcl["w_att"].reshape(F) if attention else None
+    batt = gcl["b_att"].reshape(1) if attention else None
+    _check(name, dict(h=h, a_row=a_row, a_col=a_col, x=x, x0=x0, mask=mask,
+                      is_lig=is_lig, graph_mean=graph_mean),
+           dict(_node_shapes(B, N), h=(B, N, F), a_row=(B, N, F), a_col=(B, N, F)), dev)
+    _check(name, {"gcl." + k: v for k, v in dict(gcl, w_att=watt, b_att=batt).items()},
+           {"gcl.w_d2": (F,), "gcl.w_d20": (F,), "gcl.type_delta": (F,),
+            "gcl.w2": (F, F), "gcl.b2": (F,), "gcl.w_att": (F,), "gcl.b_att": (1,)}, dev)
+    _check(name, {"node." + k: v for k, v in node.items()},
+           {"node.w_h": (F, F), "node.w_a": (F, F), "node.b0": (F,),
+            "node.w2": (F, F), "node.b2": (F,)}, dev)
+    head_shapes = dict(k_i=(F, F), k_j=(F, F), b0=(F,), w_d2=(F,), w_d20=(F,),
+                       type_bias=(2, 2, F), w1=(F, F), b1=(F,), w3=(F, 1))
+    c = dict.fromkeys(_HEAD_KEYS) if cross is None else cross
+    for prefix, hd in (("coord.", coord), ("cross.", c)):
+        _check(name, {prefix + k: hd.get(k) for k in _HEAD_KEYS},
+               {prefix + k: v for k, v in head_shapes.items()}, dev)
+    if cross is not None and graph_mean is None:
+        raise ValueError(f"{name}: the cross branch needs graph_mean")
+    out_h = torch.empty((B, N, F), device=dev, dtype=torch.float32)
+    out_dx = torch.empty((B, N, 3), device=dev, dtype=torch.float32)
+    scratch = torch.empty(4 * B * N * F + 2 * F, device=dev, dtype=torch.float32)
+    _launch(name,
+            _ptr(h), _ptr(a_row), _ptr(a_col), _ptr(x), _ptr(x0), _ptr(mask),
+            _ptr(is_lig),
+            _ptr(gcl["w_d2"]), _ptr(gcl["w_d20"]), _ptr(gcl.get("type_delta")),
+            _ptr(gcl["w2"]), _ptr(gcl["b2"]), _ptr(watt), _ptr(batt),
+            *(_ptr(node[k]) for k in _NODE_KEYS),
+            *(_ptr(coord.get(k)) for k in _HEAD_KEYS),
+            *(_ptr(c.get(k)) for k in _HEAD_KEYS),
+            _ptr(None if cross is None else graph_mean), _ptr(scratch),
+            int(bool(tanh)), float(coords_range), float(norm_constant), float(nf),
+            _cut2(cutoffs[0]), _cut2(cutoffs[1]), _cut2(cutoffs[2]),
+            B, N, F, _rows(update_rows, N), _block_rows(B, N, dev), _ptr(out_h),
+            _ptr(out_dx))
+    return out_h, out_dx
+
+
+class _BlockFusedFn(torch.autograd.Function):
+    """``block_fused`` on CUDA: the kernel forward; backward is autograd
+    through the plain version (sampling runs under ``no_grad`` and never
+    reaches it)."""
+
+    @staticmethod
+    def forward(ctx, cfg, mask, is_lig, *ops):
+        ctx.cfg = cfg
+        ctx.save_for_backward(mask, is_lig, *ops)
+        cutoffs, attention, tanh, coords_range, norm_constant, nf, update_rows = cfg
+        gcl, node, coord, cross, graph_mean = _unpack_block(ops[5:])
+        return _block_forward_cuda(*ops[:5], mask, is_lig, gcl, node, coord, cross,
+                                   graph_mean, cutoffs, attention, tanh,
+                                   coords_range, norm_constant, nf, update_rows)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g_h, g_dx):
+        mask, is_lig, *ops = ctx.saved_tensors
+        cutoffs, attention, tanh, coords_range, norm_constant, nf, update_rows = ctx.cfg
+        grads = block_fused_bwd_plain(
+            g_h, g_dx, *ops[:5], mask, is_lig, *_unpack_block(ops[5:]),
+            cutoffs=cutoffs, attention=attention, tanh=tanh,
+            coords_range=coords_range, norm_constant=norm_constant,
+            normalization_factor=nf, update_rows=update_rows)
+        return (None, None, None, *grads)
+
+
+def block_fused(h, a_row, a_col, x, x0, mask, is_lig, gcl, node, coord, cross=None,
+                graph_mean=None, *, cutoffs, attention, tanh, coords_range,
+                norm_constant, normalization_factor, update_rows=None):
+    """One EGNN block with one GCL -> (h_new (B, N, H), dx (B, N, 3)).
+
+    h: block-entry node features; a_row/a_col: the GCL's first-layer
+    projections of h with the edge-type table already folded
+    (``fold_type_bias``).  Parameter dicts, every matrix input-major:
+
+      gcl   = {w_d2, w_d20, type_delta (F,)|None, w2, b2, w_att|None, b_att|None}
+      node  = {w_h (H, F), w_a (F, F), b0 (F,), w2 (F, H), b2 (H,)}
+      coord = {k_i (H, F), k_j (H, F), b0 (F,), w_d2 (F,), w_d20 (F,),
+               type_bias (2, 2, F)|None, w1 (F, F), b1 (F,), w3 (F, 1)}
+      cross = the same fields as coord (needs graph_mean (B, 3)), or None
+
+    dx rows >= ``update_rows`` are exact zeros.  CPU tensors take the plain
+    version, CUDA tensors the kernel (H == F there); differentiable on both,
+    on CUDA by autograd through the plain version.
+    """
+    kw = dict(cutoffs=tuple(cutoffs), attention=bool(attention), tanh=bool(tanh),
+              coords_range=float(coords_range), norm_constant=float(norm_constant),
+              normalization_factor=float(normalization_factor),
+              update_rows=None if update_rows is None else int(update_rows))
+    if a_row.device.type == "cpu":
+        return block_fused_plain(h, a_row, a_col, x, x0, mask, is_lig, gcl, node,
+                                 coord, cross, graph_mean, **kw)
+    if a_row.device.type != "cuda":
+        raise ValueError(f"block_fused: unsupported device {a_row.device}")
+    _check_width("block_fused", a_row.shape[-1])
+    cfg = (kw["cutoffs"], kw["attention"], kw["tanh"], kw["coords_range"],
+           kw["norm_constant"], kw["normalization_factor"], kw["update_rows"])
+    return _BlockFusedFn.apply(cfg, mask, is_lig, h, a_row, a_col, x, x0,
+                               *_pack_block(gcl, node, coord, cross, graph_mean))

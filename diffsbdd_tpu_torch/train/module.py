@@ -1,10 +1,11 @@
 """Model wrapper: config -> (dynamics + DDPM), the training loss, pocket
-preparation and the ``generate_ligands`` inference API of the
-pocket-conditional model.
+preparation and the ``generate_ligands`` inference API, for the three modes
+``joint``, ``pocket_conditioning`` and ``pocket_conditioning_simple``.
 
 ``LigandPocketDDPM`` is an ``nn.Module`` whose state_dict keys are the
-reference's (``ddpm.dynamics....``).  The joint model and the sampling-quality
-evaluation are not ported yet.
+reference's (``ddpm.dynamics....``).  A joint checkpoint generates ligands as
+an inpainter with every pocket node fixed.  The sampling-quality evaluation is
+not ported yet.
 """
 from __future__ import annotations
 
@@ -19,7 +20,9 @@ from diffsbdd_tpu_torch.chem.molecule import SimpleMol, build_molecule, process_
 from diffsbdd_tpu_torch.config import Config
 from diffsbdd_tpu_torch.constants import dataset_params
 from diffsbdd_tpu_torch.data.dataset import round_to_bucket
-from diffsbdd_tpu_torch.diffusion.ddpm import ConditionalDDPM, num_nodes_to_mask
+from diffsbdd_tpu_torch.diffusion.ddpm import (ConditionalDDPM, JointDDPM,
+                                               SimpleConditionalDDPM,
+                                               num_nodes_to_mask)
 from diffsbdd_tpu_torch.diffusion.size_prior import SizeDistribution
 from diffsbdd_tpu_torch.models.dynamics import EGNNDynamics
 from diffsbdd_tpu_torch.ops.masked import masked_mean
@@ -28,17 +31,43 @@ from diffsbdd_tpu_torch.train.lj import WeightSchedule, lj_potential
 from diffsbdd_tpu_torch.utils.misc import shift_to_pocket_frame
 
 
+def molecules_from_samples(xh_lig: np.ndarray, lig_mask: np.ndarray, dataset_info,
+                           sanitize: bool = False, relax_iter: int = 0,
+                           largest_frag: bool = False) -> List[SimpleMol]:
+    """One molecule per row of a sampled ligand batch (coordinates and one-hot
+    types under the mask), bonds perceived, filters applied; rows that fail a
+    filter are dropped."""
+    molecules = []
+    for b in range(len(xh_lig)):
+        sel = lig_mask[b] > 0
+        mol = build_molecule(xh_lig[b, sel, :3], xh_lig[b, sel, 3:].argmax(-1),
+                             dataset_info)
+        mol = process_molecule(mol, sanitize=sanitize, relax_iter=relax_iter,
+                               largest_frag=largest_frag)
+        if mol is not None:
+            molecules.append(mol)
+    return molecules
+
+
+DDPM_MODELS = {
+    "joint": JointDDPM,
+    "pocket_conditioning": ConditionalDDPM,
+    "pocket_conditioning_simple": SimpleConditionalDDPM,
+}
+
+
 class LigandPocketDDPM(nn.Module):
     def __init__(self, dataset: str, mode: str, egnn_params: Config,
                  diffusion_params: Config, node_histogram,
                  pocket_representation: str = "CA", virtual_nodes: bool = False,
                  auxiliary_loss: bool = False, loss_params: Optional[Config] = None,
                  augment_noise: float = 0.0, augment_rotation: bool = False,
-                 lig_bucket: int = 8, pocket_bucket: int = 64):
+                 lig_bucket: int = 8, pocket_bucket: int = 64,
+                 kernel_block_fuse: bool = False):
         super().__init__()
-        if mode != "pocket_conditioning":
-            raise NotImplementedError(f"mode {mode!r}: only pocket_conditioning "
-                                      "is ported")
+        if mode not in DDPM_MODELS:
+            raise ValueError(f"mode {mode!r} not in {sorted(DDPM_MODELS)}")
+        self.mode = mode
         if egnn_params.sin_embedding or egnn_params.aggregation_method != "sum":
             raise NotImplementedError("the port runs sum aggregation without "
                                       "sinusoidal distance embeddings")
@@ -96,8 +125,10 @@ class LigandPocketDDPM(nn.Module):
             edge_cutoff_pocket=egnn_params.get("edge_cutoff_pocket"),
             edge_cutoff_interaction=egnn_params.get("edge_cutoff_interaction"),
             reflection_equivariant=egnn_params.reflection_equivariant,
-            edge_embedding_dim=egnn_params.get("edge_embedding_dim"))
-        self.ddpm = ConditionalDDPM(
+            edge_embedding_dim=egnn_params.get("edge_embedding_dim"),
+            update_pocket_coords=(mode == "joint"),
+            kernel_block_fuse=kernel_block_fuse)
+        self.ddpm = DDPM_MODELS[mode](
             dynamics=dynamics, atom_nf=self.atom_nf, residue_nf=self.residue_nf,
             n_dims=3, timesteps=diffusion_params.diffusion_steps,
             noise_schedule=diffusion_params.diffusion_noise_schedule,
@@ -230,10 +261,14 @@ class LigandPocketDDPM(nn.Module):
         sanitize: bool = False, largest_frag: bool = False,
         relax_iter: int = 0, timesteps: Optional[int] = None,
         size_rng: Optional[np.random.Generator] = None,
+        resamplings: int = 1, jump_length: int = 1,
     ) -> List[SimpleMol]:
         """Generate ligands for one pocket given by residue ids or by a
         reference ligand residue ('<chain>:<resi>').  ``generator`` lives on
-        the module's device and drives every Gaussian draw."""
+        the module's device and drives every Gaussian draw.  A conditional
+        model samples directly; a joint model inpaints with every pocket node
+        fixed, following the RePaint schedule of ``resamplings`` and
+        ``jump_length`` (which a conditional model does not read)."""
         if (pocket_ids is None) == (ref_ligand is None):
             raise ValueError("give exactly one of pocket_ids and ref_ligand")
         struct = pdbmod.parse_pdb(pdb_file)
@@ -257,27 +292,34 @@ class LigandPocketDDPM(nn.Module):
         lig_mask = torch.as_tensor(num_nodes_to_mask(num_nodes_lig, n_lig_pad),
                                    device=self.device)
 
-        # shared_pocket: prepare_pocket replicated ONE pocket across the
-        # batch, so the batch-invariant first-layer factorization applies
-        xh_lig, xh_pocket = self.ddpm.sample_given_pocket(
-            generator, pocket, lig_mask, timesteps=timesteps,
-            shared_pocket=True)
+        if isinstance(self.ddpm, JointDDPM):
+            ligand = {
+                "x": torch.zeros((n_samples, n_lig_pad, 3), device=self.device),
+                "one_hot": torch.zeros((n_samples, n_lig_pad, self.atom_nf),
+                                       device=self.device),
+                "mask": lig_mask,
+                "size": torch.as_tensor(num_nodes_lig, dtype=torch.int32,
+                                        device=self.device),
+            }
+            xh_lig, xh_pocket = self.ddpm.inpaint(
+                generator, ligand, pocket, lig_fixed=torch.zeros_like(lig_mask),
+                pocket_fixed=pocket["mask"], resamplings=resamplings,
+                jump_length=jump_length, timesteps=timesteps)
+        else:
+            # shared_pocket: prepare_pocket replicated ONE pocket across the
+            # batch, so the batch-invariant first-layer factorization applies
+            xh_lig, xh_pocket = self.ddpm.sample_given_pocket(
+                generator, pocket, lig_mask, timesteps=timesteps,
+                shared_pocket=True)
 
         lig_m = lig_mask.cpu().numpy()
         xh_lig, xh_pocket = shift_to_pocket_frame(
             xh_lig.cpu().numpy(), xh_pocket.cpu().numpy(), lig_m,
             pocket["mask"].cpu().numpy(), pocket_com_before)
 
-        molecules = []
-        for b in range(n_samples):
-            sel = lig_m[b] > 0
-            mol = build_molecule(xh_lig[b, sel, :3], xh_lig[b, sel, 3:].argmax(-1),
-                                 self.dataset_info)
-            mol = process_molecule(mol, sanitize=sanitize, relax_iter=relax_iter,
-                                   largest_frag=largest_frag)
-            if mol is not None:
-                molecules.append(mol)
-        return molecules
+        return molecules_from_samples(xh_lig, lig_m, self.dataset_info,
+                                      sanitize=sanitize, relax_iter=relax_iter,
+                                      largest_frag=largest_frag)
 
 
 def build_module_from_config(cfg: Config, node_histogram) -> LigandPocketDDPM:
@@ -288,4 +330,5 @@ def build_module_from_config(cfg: Config, node_histogram) -> LigandPocketDDPM:
         virtual_nodes=cfg.virtual_nodes,
         auxiliary_loss=cfg.auxiliary_loss, loss_params=cfg.get("loss_params"),
         augment_noise=cfg.augment_noise, augment_rotation=cfg.augment_rotation,
-        lig_bucket=cfg.tpu.lig_bucket, pocket_bucket=cfg.tpu.pocket_bucket)
+        lig_bucket=cfg.tpu.lig_bucket, pocket_bucket=cfg.tpu.pocket_bucket,
+        kernel_block_fuse=cfg.tpu.get("kernel_block_fuse", False))

@@ -3,7 +3,8 @@
 Imports neither JAX nor the JAX package, so it runs where only PyTorch is
 installed: ``python -m pytest --noconftest tests/test_torch_gpu.py``.  Without
 a card every test skips.  Tolerance atol 1e-5, rtol 1e-4: float32 on both
-sides, pairs summed in another order.
+sides, pairs summed in another order (the whole-block kernel's is stated at
+``assert_block_close``).
 """
 import pytest
 import torch
@@ -263,5 +264,131 @@ def test_autograd_through_kernels_matches_twins():
     ec.reset_launch_counts()
     got = run("cuda")
     assert ec.launch_counts == {"gcl_agg": 1, "coord_agg": 1, "gcl_agg_bwd": 1,
-                                "coord_agg_bwd": 1}
+                                "coord_agg_bwd": 1, "block_fused": 0}
+    _assert_cotangents(got, run("cpu"))
+
+
+# ---------------------------------------------------------------------------
+# the whole-block kernel against its plain version
+# ---------------------------------------------------------------------------
+
+def block_inputs(seed, B=B, N=N, F=F, n_lig=12, cross=True, attention=True,
+                 table=True, device="cuda", spread=3.0):
+    """The operands of ``ec.block_fused`` from a seed: coordinates with
+    standard deviation ``spread`` (so the 5 A cutoffs bite), a mask with
+    holes, ligand rows first."""
+    g = torch.Generator().manual_seed(seed)
+    r = lambda *s, scale=0.3: (torch.randn(s, generator=g) * scale).to(device)
+    x = r(B, N, 3, scale=spread)
+    mask = (torch.rand((B, N), generator=g) > 0.1).float().to(device)
+    is_lig = (torch.arange(N) < n_lig).float().expand(B, N).contiguous().to(device)
+    # weights at 1/sqrt(F), so that the width does not set the activations' scale
+    w = lambda *s: r(*s, scale=s[0] ** -0.5)
+    gcl = dict(w_d2=r(F, scale=0.1), w_d20=r(F, scale=0.1),
+               type_delta=r(F, scale=0.2) if table else None, w2=w(F, F),
+               b2=r(F, scale=0.1), w_att=w(F, 1) if attention else None,
+               b_att=r(1, scale=0.1) if attention else None)
+    node = dict(w_h=w(F, F), w_a=w(F, F), b0=r(F, scale=0.1), w2=w(F, F),
+                b2=r(F, scale=0.1))
+    w3 = w(F, 1)
+
+    def head():
+        return dict(k_i=w(F, F), k_j=w(F, F), b0=r(F, scale=0.1),
+                    w_d2=r(F, scale=0.1), w_d20=r(F, scale=0.1),
+                    type_bias=r(2, 2, F, scale=0.2) if table else None,
+                    w1=w(F, F), b1=r(F, scale=0.1), w3=w3)
+
+    coord = head()
+    cross_d = head() if cross else None
+    graph_mean = None
+    if cross:
+        graph_mean = (x * mask[..., None]).sum(1) / mask.sum(1)[:, None]
+    return [r(B, N, F), r(B, N, F), r(B, N, F), x, x + r(B, N, 3, scale=0.1), mask,
+            is_lig, gcl, node, coord, cross_d, graph_mean]
+
+
+BLOCK_KW = dict(cutoffs=CUTOFFS, attention=True, tanh=True, coords_range=15.0,
+                norm_constant=1.0, normalization_factor=100.0)
+
+
+def assert_block_close(got, ref, update_rows=None):
+    """h_new and dx within atol 1e-5 + 1e-4 of the plain version's largest
+    entry (the node MLP sums F products of O(1) terms); dx rows at and above
+    ``update_rows`` exact zeros."""
+    for name, g, r in zip(("h_new", "dx"), got, ref):
+        assert torch.isfinite(g).all(), name
+        err = float((g - r).abs().max())
+        assert err <= 1e-5 + 1e-4 * float(r.abs().max()), (name, err)
+    if update_rows is not None:
+        assert not got[1][:, update_rows:].any()
+
+
+@pytest.mark.parametrize("update_rows", [None, 12])
+@pytest.mark.parametrize("variant", ["full", "no_cross", "no_attention", "no_tanh",
+                                     "no_table"])
+def test_block_kernel_matches_plain(variant, update_rows):
+    ins = block_inputs(20, cross=variant != "no_cross",
+                       attention=variant != "no_attention",
+                       table=variant != "no_table")
+    kw = dict(BLOCK_KW, attention=variant != "no_attention",
+              tanh=variant != "no_tanh", update_rows=update_rows)
+    ec.reset_launch_counts()
+    got = ec.block_fused(*ins, **kw)
+    assert ec.launch_counts == {"gcl_agg": 0, "coord_agg": 0, "gcl_agg_bwd": 0,
+                                "coord_agg_bwd": 0, "block_fused": 1}
+    assert_block_close(got, ec.block_fused_plain(*ins, **kw), update_rows)
+
+
+@pytest.mark.parametrize("N,update_rows", [(45, None), (45, 11), (325, 23),
+                                            (130, None)])
+def test_block_kernel_on_partial_tiles(N, update_rows):
+    """N that is no multiple of the 4-row tile or of the 64 rows a phase-A
+    block owns, with ``update_rows`` odd."""
+    ins = block_inputs(21, N=N, spread=4.0)
+    kw = dict(BLOCK_KW, update_rows=update_rows)
+    assert_block_close(ec.block_fused(*ins, **kw),
+                       ec.block_fused_plain(*ins, **kw), update_rows)
+
+
+def test_block_kernel_at_full_width():
+    ins = block_inputs(22, B=2, N=90, F=256, n_lig=10, spread=4.0)
+    kw = dict(BLOCK_KW, update_rows=10)
+    assert_block_close(ec.block_fused(*ins, **kw),
+                       ec.block_fused_plain(*ins, **kw), 10)
+
+
+@pytest.mark.parametrize("B", [8, 16])
+@pytest.mark.parametrize("spread", [1.0, 4.0])
+def test_block_kernel_at_joint_shapes(B, spread):
+    """Every row moves at N = 344, F = 256: 24 rows a phase-A block at B = 8
+    and 44 at B = 16 on 132 SMs; at ``spread`` 1 nearly every pair passes the
+    cutoffs (the collapsed complex of the joint chain at large t)."""
+    ins = block_inputs(25, B=B, N=344, F=256, n_lig=24, table=False, spread=spread)
+    assert_block_close(ec.block_fused(*ins, **BLOCK_KW),
+                       ec.block_fused_plain(*ins, **BLOCK_KW))
+
+
+def test_block_kernel_is_deterministic():
+    ins = block_inputs(23)
+    a = ec.block_fused(*ins, **BLOCK_KW)
+    b = ec.block_fused(*ins, **BLOCK_KW)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+def test_block_kernel_gradient_is_plain_autograd():
+    """The Function's backward (autograd through the plain version) on the
+    card against plain autograd on the CPU."""
+    def run(device):
+        ins = block_inputs(24, device=device)
+        leaves = [ins[0].requires_grad_(True), ins[1].requires_grad_(True),
+                  ins[9]["k_i"].requires_grad_(True),
+                  ins[8]["w_a"].requires_grad_(True)]
+        h_new, dx = ec.block_fused(*ins, **BLOCK_KW, update_rows=12)
+        loss = (h_new ** 2).sum() + (dx ** 2).sum()
+        return dict(zip("h a_row k_i w_a".split(),
+                        (g.cpu() for g in torch.autograd.grad(loss, leaves))))
+
+    ec.reset_launch_counts()
+    got = run("cuda")
+    assert ec.launch_counts["block_fused"] == 1
     _assert_cotangents(got, run("cpu"))

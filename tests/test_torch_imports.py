@@ -21,6 +21,8 @@ def _modules():
 def test_every_module_imports_without_jax():
     mods = _modules() + ["chip_smoke"]
     assert len(mods) > 20
+    assert {"diffsbdd_tpu_torch.cli.inpaint", "diffsbdd_tpu_torch.cli.generate_ligands",
+            "diffsbdd_tpu_torch.diffusion.ddpm"} <= set(mods)
     code = ("import sys\n"
             "for m in ('jax', 'flax', 'optax', 'orbax', 'diffsbdd_tpu'):\n"
             "    sys.modules[m] = None\n"
@@ -37,3 +39,17 @@ def test_no_jax_package_imports_in_sources():
     bad = [f"{p.relative_to(REPO)}: {m.group(0).strip()}"
            for p in files for m in FORBIDDEN.finditer(p.read_text())]
     assert not bad, bad
+
+
+def test_every_kernel_has_a_plain_c_source():
+    """Each kernel the wrappers can launch has its ``csrc/<name>.cu`` with an
+    ``extern "C"`` entry point of the registered name, and no source pulls in
+    PyTorch's headers (they are built by nvcc alone and bound with ctypes)."""
+    from diffsbdd_tpu_torch.ops import egnn_cuda as ec
+    assert "block_fused" in ec.KERNELS and set(ec.launch_counts) == set(ec.KERNELS)
+    for name in ec.KERNELS:
+        text = (ec.CSRC / f"{name}.cu").read_text()
+        assert f'extern "C" int {ec._ARGTYPES[name][0]}(' in text, name
+    for path in list(ec.CSRC.glob("*.cu")) + list(ec.CSRC.glob("*.cuh")):
+        assert "torch/" not in path.read_text(), path.name
+    assert all(h.exists() for h in ec.HEADERS)

@@ -186,4 +186,4 @@ def test_wrapper_counts_no_launch_on_cpu():
     ec.reset_launch_counts()
     _port_gcl(gcl_args(make_inputs(6)))
     assert ec.launch_counts == {"gcl_agg": 0, "coord_agg": 0, "gcl_agg_bwd": 0,
-                                "coord_agg_bwd": 0}
+                                "coord_agg_bwd": 0, "block_fused": 0}
