@@ -5,11 +5,16 @@
 
 Phases (any failure ends the run with a non-zero exit code):
   1. the card's name and power limit (nvidia-smi);
-  2. build the five CUDA kernels from csrc/ (one nvcc per source, in parallel);
+  2. build the five CUDA kernels from csrc/ (one nvcc per source, in parallel),
+     and count the GCL kernel's tensor-core (HMMA) and cp.async (LDGSTS)
+     instructions in its SASS;
   3. each forward kernel against its plain PyTorch twin at the flagship shapes
      (B=16, NL=24, NP=300 padded to 320, F=256, cutoffs None/5/5, attention
      and the cross branch on) and at the shared-pocket variants (col_mask,
-     update_rows, B=1), with CUDA-event times of kernel and twin;
+     update_rows, B=1), the GCL kernel also on a collapsed complex (every
+     pair within the cutoffs), two launches bit for bit, with CUDA-event times
+     of kernel and twin and each GCL variant's bounds (f32 CUDA cores, 3xTF32
+     tensor cores);
   3b. each backward kernel against its plain version (autograd through the
      twin) at the flagship training shapes (B=16, ligands of 24-32 atoms padded
      to 32, update_rows = NL for the coordinate kernel) and at the variants (no
@@ -72,6 +77,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 import sys
 import tempfile
@@ -92,8 +98,10 @@ FIXTURE_T = 10
 # comparison that the kernels line carries (phase 3c)
 JOINT_SAMPLES = 8
 
-# H100 SXM data-sheet peaks: f32 on the CUDA cores, HBM3 bandwidth
+# H100 SXM data-sheet peaks: f32 on the CUDA cores, TF32 on the tensor cores
+# (dense), HBM3 bandwidth
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES = 3.35e12
 
 # residue templates: (name, [(atom name, element), ...])
@@ -202,6 +210,15 @@ def _card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def sass_counts(ec, name, opcodes):
+    """Instructions of each opcode in kernel ``name``'s library, from
+    ``cuobjdump --dump-sass`` (beside nvcc in the CUDA toolkit)."""
+    cuobjdump = Path(ec._nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "--dump-sass", str(ec._lib_path(name))],
+                          capture_output=True, text=True, check=True, timeout=300).stdout
+    return {op: len(re.findall(rf"\b{op}\b", sass)) for op in opcodes}
+
+
 def _check(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(msg)
@@ -280,10 +297,30 @@ def active_pairs(ec, inp, rows=None, col_mask=None):
     return int((adj[:, :rows] > 0).sum())
 
 
+def work_bounds(pairs, B, N, F, n_mlp, rows_out, width_out):
+    """Operations and bytes of a forward pair-MLP kernel on these inputs, and
+    the bounds they give: f32 on the CUDA cores, and 3xTF32 on the tensor
+    cores (three passes of every operation at the TF32 rate)."""
+    flops = pairs * n_mlp * (2 * F * F + 10 * F)
+    # projections, W2 and the vectors once, the node data once, the output once
+    bytes_ = 4 * (n_mlp * (2 * B * N * F + F * F + 4 * F) + B * N * 11
+                  + B * rows_out * width_out)
+    t_f32, t_tc, t_bytes = flops / PEAK_F32_FLOPS, 3 * flops / PEAK_TF32_FLOPS, \
+        bytes_ / PEAK_BYTES
+    return dict(pairs=pairs, flops=flops, bytes=bytes_,
+                bound_ms=1e3 * max(t_f32, t_bytes),
+                bound_by="operations" if t_f32 >= t_bytes else "bytes",
+                bound_tc_ms=1e3 * max(t_tc, t_bytes),
+                bound_tc_by="operations" if t_tc >= t_bytes else "bytes")
+
+
 def kernel_phase(ec, torch, dev, flagship):
-    """Phase 3: kernels vs plain twins at the flagship shapes."""
+    """Phase 3: kernels vs plain twins at the flagship shapes; the GCL kernel
+    also on a collapsed complex (every pair within the cutoffs, full chunks),
+    and two launches of it bit for bit."""
     B, NL = 16, 24
     inp = kernel_inputs(torch, dev, flagship, B, NL)
+    dense = kernel_inputs(torch, dev, flagship, B, NL, seed=9, spread=1.0)
     F, N, cut = inp["F"], inp["N"], inp["cut"]
     x, x0, mask, is_lig = inp["x"], inp["x0"], inp["mask"], inp["is_lig"]
     a_row, a_col, gcl_w = inp["a_row"], inp["a_col"], inp["gcl_w"]
@@ -294,6 +331,10 @@ def kernel_phase(ec, torch, dev, flagship):
         kw = dict(cutoffs=cut, attention=True, normalization_factor=100.0)
         if variant == "full":
             return fn(a_row, a_col, x, x0, mask, is_lig, *gcl_w.values(), **kw)
+        if variant == "full_collapsed":
+            d = dense
+            return fn(d["a_row"], d["a_col"], d["x"], d["x0"], d["mask"], d["is_lig"],
+                      *d["gcl_w"].values(), **kw)
         if variant == "pocket_pocket_b1":
             return fn(a_row[:1], a_col[:1], x[:1], x0[:1], pkt[:1], is_lig[:1],
                       *gcl_w.values(), col_mask=pkt[:1], **kw)
@@ -303,6 +344,21 @@ def kernel_phase(ec, torch, dev, flagship):
         return fn(a_row, a_col, x, x0, lig, is_lig, *gcl_w.values(),
                   col_mask=mask, update_rows=NL, **kw)
 
+    def gcl_work(variant):
+        """The bounds of a GCL variant: its active pairs and its batch."""
+        if variant == "full":
+            return work_bounds(active_pairs(ec, inp), B, N, F, 1, N, F)
+        if variant == "full_collapsed":
+            return work_bounds(active_pairs(ec, dense), B, N, F, 1, N, F)
+        if variant == "pocket_pocket_b1":
+            one = dict(inp, x0=x0[:1], mask=pkt[:1], is_lig=is_lig[:1])
+            return work_bounds(active_pairs(ec, one, col_mask=pkt[:1]), 1, N, F, 1, N, F)
+        if variant == "pocket_ligand":
+            return work_bounds(active_pairs(ec, dict(inp, mask=pkt), col_mask=lig),
+                               B, N, F, 1, N, F)
+        return work_bounds(active_pairs(ec, dict(inp, mask=lig), rows=NL, col_mask=mask),
+                           B, N, F, 1, N, F)
+
     def coord_call(fn, variant):
         kw = dict(cutoffs=cut, tanh=True, coords_range=15.0, norm_constant=1.0,
                   normalization_factor=100.0, update_rows=NL)
@@ -311,17 +367,20 @@ def kernel_phase(ec, torch, dev, flagship):
                       graph_mean=graph_mean, **kw)
         return fn(a_row, a_col, x, x0, mask, is_lig, *coord_w, **kw)
 
-    # tolerance: float32 both sides, pairs summed in another order
+    # tolerance: float32 both sides (the GCL kernel's product in 3xTF32,
+    # float32-grade), pairs summed in another order
     tol = dict(atol=1e-5, rtol=1e-4)
     results, variant_ms = {}, {}
     for name, call, plain, kern, variants in (
             ("gcl_agg", gcl_call, ec.gcl_message_agg_plain, ec.gcl_message_agg,
-             ["full", "pocket_pocket_b1", "pocket_ligand", "ligand_rows"]),
+             ["full", "full_collapsed", "pocket_pocket_b1", "pocket_ligand",
+              "ligand_rows"]),
             ("coord_agg", coord_call, ec.coord_update_agg_plain,
              ec.coord_update_agg, ["ligand_rows_cross", "ligand_rows_nocross"])):
-        worst = 0.0
+        worst, work = 0.0, {}
         for v in variants:
             got = call(kern, v)
+            again = call(kern, v)
             ref = call(plain, v)
             torch.cuda.synchronize()
             err = float((got - ref).abs().max())
@@ -330,27 +389,33 @@ def kernel_phase(ec, torch, dev, flagship):
                   f"(atol {tol['atol']} + rtol {tol['rtol']}) "
                   f"ref_max={float(ref.abs().max()):.3e}")
             _check(bad <= 0.0, f"{name}[{v}] disagrees with its plain twin")
+            _check(torch.equal(got, again), f"{name}[{v}]: two launches differ")
             worst = max(worst, err)
-            variant_ms[f"{name}[{v}]"] = _cuda_ms(lambda: call(kern, v), 20)
-            print(f"  {name}[{v}] kernel {variant_ms[f'{name}[{v}]']:.4f} ms")
+            ms = variant_ms[f"{name}[{v}]"] = _cuda_ms(lambda: call(kern, v), 20)
+            if name != "gcl_agg":
+                print(f"  {name}[{v}] kernel {ms:.4f} ms")
+                continue
+            w = work[v] = dict(gcl_work(v), ms=ms)
+            print(f"  {name}[{v}] kernel {ms:.4f} ms, two launches bit for bit; "
+                  f"active pairs {w['pairs']}, {w['flops'] / 1e9:.2f} GFLOP; bound "
+                  f"{w['bound_ms']:.4f} ms f32 ({100 * w['bound_ms'] / ms:.1f}%), "
+                  f"{w['bound_tc_ms']:.4f} ms 3xTF32 ({100 * w['bound_tc_ms'] / ms:.1f}%)")
         v = variants[0]
         ms = _cuda_ms(lambda: call(kern, v), 50)
         plain_ms = _cuda_ms(lambda: call(plain, v), 3)
-        # the bound: operations and bytes this input needs
-        pairs = active_pairs(ec, inp, rows=NL if name == "coord_agg" else None)
-        n_mlp = 1 if name == "gcl_agg" else 2
-        rows_out = N if name == "gcl_agg" else NL
-        flops = pairs * n_mlp * (2 * F * F + 10 * F)
-        bytes_ = 4 * (n_mlp * (2 * B * N * F + F * F + 4 * F) + B * N * 11
-                      + B * rows_out * (F if name == "gcl_agg" else 3))
-        bound_ms = 1e3 * max(flops / PEAK_F32_FLOPS, bytes_ / PEAK_BYTES)
-        bound_by = "operations" if flops / PEAK_F32_FLOPS >= bytes_ / PEAK_BYTES \
-            else "bytes"
+        if name == "gcl_agg":
+            w = work[v]
+        else:  # the two pair MLPs of the ligand rows
+            w = work_bounds(active_pairs(ec, inp, rows=NL), B, N, F, 2, NL, 3)
         print(f"  {name}[{v}] kernel {ms:.4f} ms, plain twin {plain_ms:.4f} ms, "
-              f"active pairs {pairs}, {flops / 1e9:.2f} GFLOP, bound {bound_ms:.4f} ms "
-              f"({bound_by}), {100 * bound_ms / ms:.1f}% of f32 peak")
+              f"active pairs {w['pairs']}, {w['flops'] / 1e9:.2f} GFLOP, bound "
+              f"{w['bound_ms']:.4f} ms ({w['bound_by']}), "
+              f"{100 * w['bound_ms'] / ms:.1f}% of f32 peak")
         results[name] = dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
-                             bound_ms=bound_ms, bound_by=bound_by)
+                             bound_ms=w["bound_ms"], bound_by=w["bound_by"])
+        if name == "gcl_agg":
+            results[name].update(bound_tc_ms=w["bound_tc_ms"],
+                                 bound_tc_by=w["bound_tc_by"], variants=work)
     return results, variant_ms
 
 
@@ -1162,6 +1227,12 @@ def main(argv=None) -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
+    # the GCL kernel's product runs on the tensor cores (HMMA) through
+    # cp.async stages (LDGSTS)
+    sass = sass_counts(ec, "gcl_agg", ("HMMA", "LDGSTS"))
+    print(f"  gcl_agg SASS: {sass['HMMA']} HMMA, {sass['LDGSTS']} LDGSTS instructions")
+    _check(sass["HMMA"] > 0 and sass["LDGSTS"] > 0,
+           "the GCL kernel has no tensor-core or cp.async instructions")
 
     print("[3] kernels vs plain twins at the flagship shapes")
     flagship = snapshot_config(R05C_NPZ)

@@ -1,0 +1,384 @@
+// The per-pair product on Hopper's tensor cores, and the GCL row-tile body
+// that runs on it (gcl_agg.cu); f32-grade, for sm_90a.
+//
+// Product: silu(pre) (P x F, shared memory) @ W2 (F x F, global memory) with
+// warp-level mma.sync.m16n8k8 in TF32, each operand split into hi + lo TF32
+// parts (round to nearest, ties away: cvt.rna's rounding) and accumulated in
+// f32 as lo*hi + hi*lo + hi*hi, small terms first, lo*lo dropped ("3xTF32":
+// ~22 significant bits against TF32's 11).
+//
+// Warp layout (8 warps = 2 row groups x 4 feature slices): a chunk's TJ = 16
+// columns make one m-tile a row, and warp w owns the WM = 2 m-tiles (rows) of
+// row group w % 2 and the F/4 features of slice w / 2: 2 x F/32 n-tiles of 8,
+// 4 f32 accumulators each.  The gated row sums stay in the warp's registers
+// across chunks; the attention dot is a lane-quad shuffle plus one exchange
+// of the four slices through shared memory.  (One row and F/2 a warp loads
+// and splits each W2 element in four warps, two rows and F/4 in two.)
+//
+// W2 streams through a ring of NS shared-memory stages of KC rows filled with
+// cp.async (16 B, commit/wait groups): the copy of the next stage is in
+// flight while the tensor cores work on this one, one block sync a stage.
+// The ring runs on across chunks (W2's rows are the same for every chunk),
+// so the next chunk's first stage loads during the epilogue and the fill.
+// Row strides are padded (S: F + 4, stages: F + 8 floats) so that the A and B
+// fragment loads are free of bank conflicts.
+#pragma once
+#include <cstdint>
+#include "egnn_fwd.cuh"
+
+namespace egnn {
+namespace mma {
+
+constexpr int KC = 32;  // W2 rows per stage (4 k-steps of 8)
+constexpr int NS = 2;   // stages in the ring
+constexpr int M_TILES = P / 16;             // one m-tile a row (TJ = 16)
+constexpr int WM = 2;                       // m-tiles (rows) a warp owns
+constexpr int ROW_GROUPS = M_TILES / WM;
+constexpr int SLICES = (NT / 32) / ROW_GROUPS;  // feature slices
+static_assert(TJ == 16 && M_TILES % WM == 0 && (NT / 32) % ROW_GROUPS == 0,
+              "warps = row groups x feature slices");
+
+template <int F> struct Layout {
+  static constexpr int SS = F + 4;       // S row stride (floats)
+  static constexpr int WS = F + 8;       // stage row stride (floats)
+  static constexpr int KS = F / KC;      // stages per chunk
+  static constexpr int FW = F / SLICES;  // features a warp owns
+  static constexpr int NTN = FW / 8;     // its n-tiles of 8
+  static constexpr int NG = NTN < 8 ? NTN : 8;  // n-tiles split at a time
+  static constexpr int COLS = TJ * F / NT;  // a_col entries a thread fills
+  static constexpr int STAGE = KC * WS;  // floats per stage
+};
+
+// Dynamic shared memory of gcl_tile_tc: S, the W2 ring, the column list.
+template <int F>
+constexpr size_t dynamic_smem(int N) {
+  return sizeof(float) * ((size_t)P * Layout<F>::SS + (size_t)NS * Layout<F>::STAGE)
+       + sizeof(int) * (size_t)N;
+}
+
+// The nearest TF32 value, ties away from zero: what cvt.rna.tf32.f32 gives
+// for finite x, in two integer operations (cvt.rna compiles to more).
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+}
+
+// x = hi + lo, both TF32
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int PENDING>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING) : "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// The ring of W2 stages.  Stage g (counted over the block's tile) holds W2
+// rows (g % KS) * KC .. + KC in buffer g % NS.  W2 must be 16-byte aligned.
+template <int F>
+struct W2Ring {
+  using L = Layout<F>;
+  const float* w2;
+  float* buf;  // NS * STAGE floats
+  int next;    // next stage to issue
+
+  // Issues stage `next` (one commit group per call, so the wait counts hold).
+  __device__ __forceinline__ void issue() {
+    constexpr int V = F / 4;  // 16-byte vectors per row
+    float* dst = buf + (next % NS) * L::STAGE;
+    const float* src = w2 + (size_t)(next % L::KS) * KC * F;
+    for (int e = threadIdx.x; e < KC * V; e += NT) {
+      const int r = e / V, v = e % V;
+      cp_async16(dst + r * L::WS + 4 * v, src + (size_t)r * F + 4 * v);
+    }
+    cp_async_commit();
+    ++next;
+  }
+
+  // Stage s = next - (NS - 1) has landed for every thread, and every thread
+  // is done with stage s - 1, whose buffer the next issue refills.
+  __device__ __forceinline__ const float* acquire() {
+    cp_async_wait<NS - 2>();
+    __syncthreads();
+    const float* stage = buf + ((next - (NS - 1)) % NS) * L::STAGE;
+    issue();
+    return stage;
+  }
+};
+
+// acc[m][n][.] (+)= (S @ W2) for the C fragment of the warp's m-tile m and
+// n-tile n: pairs 16*(rg*WM + m) + (gid, gid, gid+8, gid+8) and features
+// slice*FW + 8n + 2*tig + (0, 1, 0, 1), where warp = slice*ROW_GROUPS + rg.
+// S must be complete before the first acquire's sync.
+template <int F>
+__device__ __forceinline__ void product_tc(const float* S, W2Ring<F>& ring,
+                                           float (&acc)[WM][Layout<F>::NTN][4]) {
+  using L = Layout<F>;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int rg = warp % ROW_GROUPS, slice = warp / ROW_GROUPS;
+#pragma unroll
+  for (int m = 0; m < WM; ++m)
+#pragma unroll
+    for (int n = 0; n < L::NTN; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[m][n][e] = 0.0f;
+
+  const float* a_base = S + (rg * WM * 16 + gid) * L::SS + tig;
+  for (int ks = 0; ks < L::KS; ++ks) {
+    const float* stage = ring.acquire();
+    const float* b_base = stage + tig * L::WS + slice * L::FW + gid;
+#pragma unroll
+    for (int kk = 0; kk < KC; kk += 8) {
+      uint32_t a_hi[WM][4], a_lo[WM][4];
+#pragma unroll
+      for (int m = 0; m < WM; ++m) {
+        const float* a = a_base + m * 16 * L::SS + ks * KC + kk;
+        split(a[0], a_hi[m][0], a_lo[m][0]);
+        split(a[8 * L::SS], a_hi[m][1], a_lo[m][1]);
+        split(a[4], a_hi[m][2], a_lo[m][2]);
+        split(a[8 * L::SS + 4], a_hi[m][3], a_lo[m][3]);
+      }
+      const float* b = b_base + kk * L::WS;
+      // NG n-tiles at a time, each of the three passes over all of them
+      // before the next, so that an accumulator's products are WM*NG issues
+      // apart
+#pragma unroll
+      for (int n0 = 0; n0 < L::NTN; n0 += L::NG) {
+        uint32_t b_hi[L::NG][2], b_lo[L::NG][2];
+#pragma unroll
+        for (int n = 0; n < L::NG; ++n) {
+          split(b[8 * (n0 + n)], b_hi[n][0], b_lo[n][0]);
+          split(b[4 * L::WS + 8 * (n0 + n)], b_hi[n][1], b_lo[n][1]);
+        }
+#pragma unroll
+        for (int m = 0; m < WM; ++m)
+#pragma unroll
+          for (int n = 0; n < L::NG; ++n)
+            mma_tf32(acc[m][n0 + n], a_lo[m], b_hi[n][0], b_hi[n][1]);
+#pragma unroll
+        for (int m = 0; m < WM; ++m)
+#pragma unroll
+          for (int n = 0; n < L::NG; ++n)
+            mma_tf32(acc[m][n0 + n], a_hi[m], b_lo[n][0], b_lo[n][1]);
+#pragma unroll
+        for (int m = 0; m < WM; ++m)
+#pragma unroll
+          for (int n = 0; n < L::NG; ++n)
+            mma_tf32(acc[m][n0 + n], a_hi[m], b_hi[n][0], b_hi[n][1]);
+      }
+    }
+  }
+}
+
+// silu and sigmoid on the SFU (ex2, rcp): ~1e-7 relative error, a few
+// instructions where expf and an IEEE division take some twenty
+__device__ __forceinline__ float exp_neg(float v) {  // e^-v
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(-1.4426950408889634f * v));
+  return y;
+}
+__device__ __forceinline__ float silu_fast(float v) {
+  return __fdividef(v, 1.0f + exp_neg(v));
+}
+__device__ __forceinline__ float sigmoid_fast(float v) {
+  return __fdividef(1.0f, 1.0f + exp_neg(v));
+}
+
+// Thread t fills feature t % F of the chunk's columns t / F + u * NT/F: loads
+// the a_col entries of the chunk at compacted column c0 (all issued before any
+// is used; 0 past the last column).
+template <int F>
+__device__ __forceinline__ void load_a_col(const PairMlp& m, const int* cols, int count,
+                                           int c0, size_t node0,
+                                           float (&a_col)[Layout<F>::COLS]) {
+  const int k = threadIdx.x % F, q = threadIdx.x / F;
+#pragma unroll
+  for (int u = 0; u < Layout<F>::COLS; ++u) {
+    const int idx = c0 + q + u * (NT / F);
+    a_col[u] = idx < count ? __ldg(m.a_col + (node0 + cols[idx]) * F + k) : 0.0f;
+  }
+}
+
+// S[p][k] = silu(pre_p[k]) of the chunk's P pairs (0 for pairs without an
+// edge), from a_col of load_a_col and a_row in registers: each a_col entry
+// serves the TI rows.  Branch-free (w.delta is 0 without a delta, and a pair
+// without an edge has finite operands), so that the pair loads batch.
+template <int F>
+__device__ __forceinline__ void fill_s(const PairWeights& w, const Chunk& c,
+                                       const float (&a_row)[TI],
+                                       const float (&a_col)[Layout<F>::COLS], float* S) {
+  static_assert(NT % F == 0 && TJ % (NT / F) == 0, "column groups");
+  const int k = threadIdx.x % F, q = threadIdx.x / F;
+#pragma unroll
+  for (int u = 0; u < Layout<F>::COLS; ++u) {
+#pragma unroll
+    for (int r = 0; r < TI; ++r) {
+      const int p = r * TJ + q + u * (NT / F);
+      const float pre = fmaf(c.ll[p], w.delta, a_row[r] + a_col[u] + c.d2[p] * w.w_d2
+                                                   + c.d20[p] * w.w_d20);
+      const float v = silu_fast(pre);
+      S[p * Layout<F>::SS + k] = c.j[p] >= 0 ? v : 0.0f;
+    }
+  }
+}
+
+// gcl_tile on the tensor cores: the aggregated messages of rows i0 ..
+// i0+TI-1 of the batch item at node0 -> dst[r * F + n] for r < dst_rows
+// (global memory).  smem: dynamic_smem<F>(N) bytes.
+template <int F>
+__device__ void gcl_tile_tc(const GclArgs& g, size_t node0, int i0, float* smem,
+                            float* dst, int dst_rows) {
+  using L = Layout<F>;
+  __shared__ Rows rows;
+  __shared__ Chunk chunk;
+  __shared__ float b2s[F], watt[F];
+  __shared__ float att_part[SLICES][P];  // the slices' attention dots
+  float* S = smem;
+  W2Ring<F> ring{g.mlp.w2, S + P * L::SS, 0};
+  int* cols = reinterpret_cast<int*>(ring.buf + NS * L::STAGE);
+
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int rg = warp % ROW_GROUPS, slice = warp / ROW_GROUPS;
+  const bool attention = g.mlp.head != nullptr;
+
+  // W2 needs nothing else: the first stage loads during the compaction
+  for (int s = 0; s < NS - 1; ++s) ring.issue();
+  load_rows(rows, g.x, g.x0, g.mask, g.is_lig, node0, i0, g.N, g.update_rows);
+  for (int k = t; k < F; k += NT) {
+    b2s[k] = g.mlp.b2[k];
+    watt[k] = attention ? g.mlp.head[k] : 0.0f;
+  }
+  const int kS = t % F;  // the feature this thread fills in S
+  const PairWeights w = pair_weights(g.mlp, kS);
+  float a_row[TI];
+#pragma unroll
+  for (int r = 0; r < TI; ++r)
+    a_row[r] = i0 + r < g.N ? g.mlp.a_row[(node0 + i0 + r) * F + kS] : 0.0f;
+  __syncthreads();
+  const int count = compact_columns(rows, g.x0, g.col_mask, g.is_lig, node0, g.N,
+                                    g.cut, cols);
+  const float b_att = attention ? g.b_att[0] : 0.0f;
+
+  // msum[m][n][c]: this lane's share of the row sum of row rg*WM + m,
+  // feature column c of n-tile n, over pairs gid and gid + 8 of every chunk
+  float msum[WM][L::NTN][2];
+#pragma unroll
+  for (int m = 0; m < WM; ++m)
+#pragma unroll
+    for (int n = 0; n < L::NTN; ++n) msum[m][n][0] = msum[m][n][1] = 0.0f;
+
+  // a_col of the chunk to fill: loaded one chunk ahead, so that the loads
+  // are in flight during the product
+  float a_col[L::COLS];
+  load_a_col<F>(g.mlp, cols, count, 0, node0, a_col);
+  for (int c0 = 0; c0 < count; c0 += TJ) {
+    fill_chunk(chunk, rows, g.x, g.x0, g.col_mask, g.is_lig, node0, cols, count,
+               c0, g.cut);
+    __syncthreads();
+    fill_s<F>(w, chunk, a_row, a_col, S);
+    load_a_col<F>(g.mlp, cols, count, c0 + TJ, node0, a_col);
+    float acc[WM][L::NTN][4];
+    product_tc<F>(S, ring, acc);
+
+    // ---- epilogue: silu, attention gate, gated row sum
+    float part[WM][2];  // attention dots of pairs gid, gid + 8 of each m-tile
+#pragma unroll
+    for (int m = 0; m < WM; ++m) {
+      part[m][0] = part[m][1] = 0.0f;
+#pragma unroll
+      for (int n = 0; n < L::NTN; ++n) {
+        const int f = slice * L::FW + 8 * n + 2 * tig;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          acc[m][n][e] = silu_fast(acc[m][n][e] + b2s[f + (e & 1)]);
+          part[m][e >> 1] = fmaf(acc[m][n][e], watt[f + (e & 1)], part[m][e >> 1]);
+        }
+      }
+    }
+    float gate[WM][2];
+#pragma unroll
+    for (int m = 0; m < WM; ++m) {
+      const int p0 = (rg * WM + m) * 16 + gid;
+      gate[m][0] = chunk.adj[p0];
+      gate[m][1] = chunk.adj[p0 + 8];
+    }
+    if (attention) {
+#pragma unroll
+      for (int m = 0; m < WM; ++m)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          part[m][h] += __shfl_xor_sync(0xffffffffu, part[m][h], 1);
+          part[m][h] += __shfl_xor_sync(0xffffffffu, part[m][h], 2);
+          if (tig == 0) att_part[slice][(rg * WM + m) * 16 + gid + 8 * h] = part[m][h];
+        }
+      __syncthreads();
+#pragma unroll
+      for (int m = 0; m < WM; ++m)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int p = (rg * WM + m) * 16 + gid + 8 * h;
+          float dot = b_att;
+#pragma unroll
+          for (int sl = 0; sl < SLICES; ++sl) dot += att_part[sl][p];
+          gate[m][h] *= sigmoid_fast(dot);
+        }
+    }
+#pragma unroll
+    for (int m = 0; m < WM; ++m)
+#pragma unroll
+      for (int n = 0; n < L::NTN; ++n)
+#pragma unroll
+        for (int c = 0; c < 2; ++c)
+          msum[m][n][c] = fmaf(gate[m][1], acc[m][n][2 + c],
+                               fmaf(gate[m][0], acc[m][n][c], msum[m][n][c]));
+    __syncthreads();  // the chunk, S and att_part are rewritten by the next chunk
+  }
+  cp_async_wait_all();  // the ring's look-ahead stages
+
+  // ---- the warp's rows: add the 8 lane groups, lanes 0..3 write
+#pragma unroll
+  for (int m = 0; m < WM; ++m)
+#pragma unroll
+    for (int n = 0; n < L::NTN; ++n)
+#pragma unroll
+      for (int c = 0; c < 2; ++c)
+#pragma unroll
+        for (int o = 4; o < 32; o <<= 1)
+          msum[m][n][c] += __shfl_xor_sync(0xffffffffu, msum[m][n][c], o);
+#pragma unroll
+  for (int m = 0; m < WM; ++m) {
+    const int r = rg * WM + m;
+    if (gid != 0 || r >= dst_rows) continue;
+#pragma unroll
+    for (int n = 0; n < L::NTN; ++n) {
+      const int f = slice * L::FW + 8 * n + 2 * tig;
+      dst[r * F + f] = msum[m][n][0] / g.nf;
+      dst[r * F + f + 1] = msum[m][n][1] / g.nf;
+    }
+  }
+}
+
+}  // namespace mma
+}  // namespace egnn

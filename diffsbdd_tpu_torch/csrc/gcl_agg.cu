@@ -1,4 +1,4 @@
-// GCL message aggregation for one EGNN layer, f32, for sm_90a.
+// GCL message aggregation for one EGNN layer, f32-grade, for sm_90a.
 //
 // Replaces the Pallas TPU kernels `gcl_message_agg_pallas` and its compact-skip
 // launch `_gcl_agg_pallas_compact` (diffsbdd_tpu/ops/egnn_pallas.py:589, :511).
@@ -13,45 +13,54 @@
 // per-pair-type distance cutoffs, self-edges kept) from the EGNN input
 // coordinates x0.  The (B, N, N, F) message tensor never exists in memory.
 //
-// What bounds it on an H100: the per-pair F x F product.  At F = 256 that is
-// 2*F^2 = 131k f32 operations per active pair against ~1 KB of row/column
-// projections, so the kernel is bound by operations, not bytes.
+// What bounds it on an H100: the per-pair F x F product, 2*F^2 of the 2*F^2 +
+// 10*F operations a pair, against ~1 KB of row/column projections a pair.  It
+// runs on the tensor cores in 3xTF32 (egnn_mma.cuh): 3 * 2*F^2 tensor-core
+// operations a pair at 495 TFLOP/s (mma.sync reaches about half of that rate;
+// wgmma the rest).  The bytes that compete with them are not HBM's but L2's
+// and shared memory's: every chunk of P = 64 pairs streams all of W2 (256 KB
+// at F = 256, 4 KB a pair) from L2, every warp loads its A and B fragments
+// from shared memory, and the fill of S reads a 16 x F tile of a_col a chunk.
 //
-// Design (simple and exact first), on the tiling of egnn_common.cuh:
+// Design, on the tiling of egnn_common.cuh:
 // * one block per (batch, tile of TI rows below update_rows); the block owns
 //   its rows, so the row sums need no atomics and are deterministic;
 // * only the compacted active columns are visited -- inactive pairs cost
 //   nothing, which replaces the TPU kernels' block-activity bits and
 //   prefetched index lists;
-// * the epilogue applies silu and the attention gate (a warp shuffle dot) and
-//   keeps each thread's running row sums in registers across chunks;
-// * f32 FMAs on the CUDA cores.  TF32/bf16 tensor-core tiers are later work.
-#include "egnn_fwd.cuh"
+// * silu(pre) @ W2 on the tensor cores, mma.sync.m16n8k8 TF32 with each
+//   operand split into hi + lo TF32 parts (the TPU kernel's bf16_3x tier,
+//   _dot at diffsbdd_tpu/ops/egnn_pallas.py:283, in Hopper's format), so the
+//   result stays f32-grade; W2 is split in registers as its fragments load:
+//   no extra bytes, where a split hoisted into the wrapper (W2_hi, W2_lo)
+//   doubles the L2 stream and the shared-memory loads (measured slower);
+// * W2 through a ring of 2 cp.async stages of 32 rows, the next in flight
+//   while the tensor cores work on one, one block sync a stage;
+// * a warp owns two rows' 32 pairs and a quarter of the features: the gated
+//   row sums stay in registers across chunks;
+// * the fill of S is branch-free, takes a_row from registers and a_col
+//   loaded a chunk ahead, and silu and sigmoid run on the SFU (ex2, rcp).
+#include "egnn_mma.cuh"
 
 namespace {
 
 using namespace egnn;
 
-// The row-tile body (gcl_tile) is in egnn_fwd.cuh; the whole-block kernel
-// runs the same body.
+// The row-tile body (gcl_tile_tc) is in egnn_mma.cuh.
 template <int F>
 __global__ void __launch_bounds__(NT) gcl_agg_kernel(GclArgs g) {
   extern __shared__ __align__(16) float smem[];
-  float* S = smem;                                  // P * F, then the row sums
-  float* Ws = S + P * F;                            // KC * F
-  int* cols = reinterpret_cast<int*>(Ws + KC * F);  // N
-
   const int i0 = blockIdx.x * TI;
   const size_t node0 = (size_t)blockIdx.y * g.N;
   const int left = g.N - i0;
-  gcl_tile<F>(g, node0, i0, S, Ws, cols, g.out + (node0 + i0) * F,
-              left < TI ? left : TI);
+  mma::gcl_tile_tc<F>(g, node0, i0, smem, g.out + (node0 + i0) * F,
+                      left < TI ? left : TI);
   zero_rows_past_grid(g.out, node0, g.N, F);
 }
 
 template <int F>
 int launch(const GclArgs& g, int B, cudaStream_t stream) {
-  const size_t smem = dynamic_smem<F>(g.N);
+  const size_t smem = mma::dynamic_smem<F>(g.N);
   cudaError_t err = cudaFuncSetAttribute(
       gcl_agg_kernel<F>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;

@@ -4,7 +4,8 @@ Two forward kernels carry sampling and the forward half of a training step
 (sources in ``diffsbdd_tpu_torch/csrc``):
 
 * ``gcl_message_agg``  -- edge MLP + sigmoid attention + masked row sum of one
-  GCL layer (``csrc/gcl_agg.cu``);
+  GCL layer (``csrc/gcl_agg.cu``; its F x F product on the tensor cores in
+  3xTF32, ``csrc/egnn_mma.cuh``, emulated on the CPU by ``matmul_3xtf32``);
 * ``coord_update_agg`` -- coordinate MLP (+ the SE(3) cross-product MLP) +
   tanh clamping + masked row sum of the relative-direction translations
   (``csrc/coord_agg.cu``).
@@ -55,7 +56,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
 KERNELS = ("gcl_agg", "coord_agg", "gcl_agg_bwd", "coord_agg_bwd", "block_fused")
 HEADERS = (CSRC / "egnn_common.cuh", CSRC / "egnn_fwd.cuh",
-           CSRC / "egnn_bwd.cuh")  # shared device code
+           CSRC / "egnn_bwd.cuh", CSRC / "egnn_mma.cuh")  # shared device code
 ROW_TILE = 4  # rows per tile, TI in csrc/egnn_common.cuh
 SUPPORTED_F = (64, 256)  # the fixture checkpoint's width and the flagship's
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -221,14 +222,16 @@ def _keep_rows(agg, update_rows):
 def gcl_message_agg_plain(a_row, a_col, x, x0, mask, is_lig, w_d2, w_d20,
                           type_bias, w2, b2, w_att, b_att, *, cutoffs,
                           attention, normalization_factor, col_mask=None,
-                          update_rows=None):
-    """Dense twin of the GCL kernel (same math, O(N^2 F) in memory)."""
+                          update_rows=None, matmul=torch.matmul):
+    """Dense twin of the GCL kernel (same math, O(N^2 F) in memory).
+    ``matmul`` computes silu(pre) @ w2 (``matmul_3xtf32``: as the kernel's
+    tensor cores do)."""
     silu = torch.nn.functional.silu
     d2 = _pair_d2(x)
     d2_0 = _pair_d2(x0)
     pre = a_row[:, :, None, :] + a_col[:, None, :, :] + _edge_bias_dense(
         d2, d2_0, w_d2, w_d20, is_lig, type_bias)
-    m = silu(silu(pre) @ w2 + b2)
+    m = silu(matmul(silu(pre), w2) + b2)
     if attention:
         m = m * torch.sigmoid(m @ w_att + b_att)
     adj = adjacency_dense(d2_0, mask, is_lig, cutoffs, col_mask=col_mask)
@@ -269,6 +272,29 @@ def coord_update_agg_plain(a_row, a_col, x, x0, mask, is_lig, w_d2, w_d20,
         trans = trans + cr / cnorm * phi_c[..., None]
     agg = (trans * adj[..., None]).sum(2) / normalization_factor
     return _keep_rows(agg, update_rows)
+
+
+# ---------------------------------------------------------------------------
+# the GCL kernel's tensor-core product, emulated (tests only)
+# ---------------------------------------------------------------------------
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """float32 -> the nearest TF32 value (10 explicit mantissa bits), ties
+    away from zero, as ``cvt.rna.tf32.f32``: half a TF32 ulp added to the
+    magnitude's bits, the low 13 bits cleared."""
+    bits = x.to(torch.float32).contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def matmul_3xtf32(a: torch.Tensor, b: torch.Tensor, passes: int = 3) -> torch.Tensor:
+    """a @ b as ``csrc/egnn_mma.cuh`` computes it: each operand split into
+    TF32 parts hi + lo, summed as lo*hi + hi*lo + hi*hi in float32 (lo*lo
+    dropped).  ``passes=1`` is plain TF32 (hi*hi only)."""
+    a_hi, b_hi = tf32_round(a), tf32_round(b)
+    if passes == 1:
+        return a_hi @ b_hi
+    a_lo, b_lo = tf32_round(a - a_hi), tf32_round(b - b_hi)
+    return a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi
 
 
 # ---------------------------------------------------------------------------
@@ -468,6 +494,8 @@ def _gcl_forward_cuda(a_row, a_col, x, x0, mask, cm, is_lig, w_d2, w_d20, delta,
            dict(x=x, x0=x0, mask=mask, col_mask=cm, is_lig=is_lig, w_att=watt,
                 b_att=b_att),
            dict(_node_shapes(B, N), w_att=(F,), b_att=(1,)), a_row.device)
+    if w2.data_ptr() % 16:
+        raise ValueError("gcl_message_agg: w2 must be 16-byte aligned (cp.async)")
     out = torch.empty((B, N, F), device=a_row.device, dtype=torch.float32)
     _launch("gcl_agg",
             _ptr(a_row), _ptr(a_col), _ptr(x), _ptr(x0), _ptr(mask), _ptr(cm),

@@ -392,3 +392,39 @@ def test_block_kernel_gradient_is_plain_autograd():
     got = run("cuda")
     assert ec.launch_counts["block_fused"] == 1
     _assert_cotangents(got, run("cpu"))
+
+
+# ---------------------------------------------------------------------------
+# the GCL kernel (3xTF32 on the tensor cores) at the main path's shapes
+# ---------------------------------------------------------------------------
+
+def _gcl_ops(ins):
+    """``gcl_message_agg``'s operands out of ``block_inputs``: the GCL part,
+    its edge-type delta as a (2, 2, F) table."""
+    _, a_row, a_col, x, x0, mask, is_lig, gcl = ins[:8]
+    return (a_row, a_col, x, x0, mask, is_lig, gcl["w_d2"], gcl["w_d20"],
+            ec._delta_table(gcl["type_delta"]), gcl["w2"], gcl["b2"], gcl["w_att"],
+            gcl["b_att"])
+
+
+GCL_KW = dict(cutoffs=CUTOFFS, attention=True, normalization_factor=100.0)
+
+
+@pytest.mark.parametrize("width", [64, 256])
+@pytest.mark.parametrize("spread", [4.0, 1.0], ids=["clean", "collapsed"])
+def test_gcl_kernel_at_flagship_shapes(width, spread):
+    """B = 16, N = 344 (24 ligand atoms): 1376 row tiles on 132 SMs; at
+    ``spread`` 1 every pair passes the cutoffs, so every chunk is full."""
+    ops = _gcl_ops(block_inputs(26, B=16, N=344, F=width, n_lig=24, spread=spread))
+    ec.reset_launch_counts()
+    got = ec.gcl_message_agg(*ops, **GCL_KW)
+    assert ec.launch_counts["gcl_agg"] == 1
+    torch.testing.assert_close(got, ec.gcl_message_agg_plain(*ops, **GCL_KW), **TOL)
+
+
+def test_gcl_kernel_is_deterministic():
+    """The row sums are owned by one warp each, in a fixed order: two
+    launches give the same bits."""
+    ops = _gcl_ops(block_inputs(27, B=4, N=344, F=256, n_lig=24, spread=1.0))
+    assert torch.equal(ec.gcl_message_agg(*ops, **GCL_KW),
+                       ec.gcl_message_agg(*ops, **GCL_KW))

@@ -1,0 +1,106 @@
+"""The GCL kernel's tensor-core product, rehearsed on the CPU.
+
+``csrc/egnn_mma.cuh`` computes silu(pre) @ W2 in 3xTF32: each operand split
+into TF32 parts hi + lo (``cvt.rna``), summed as lo*hi + hi*lo + hi*hi.  Here
+``ec.matmul_3xtf32`` emulates that product and the dense GCL twin runs through
+it at the flagship width F = 256; the result must stay within a tenth of the
+gate the card holds the kernel to (atol 1e-5 + rtol 1e-4 against the float32
+plain version), so that the rounding alone cannot fail it there.  The one-pass
+TF32 error at the same point is printed (``pytest -s``), not asserted.
+"""
+import numpy as np
+import pytest
+import torch
+
+from diffsbdd_tpu_torch.ops import egnn_cuda as ec
+
+F = 256
+CUTOFFS = (None, 5.0, 5.0)
+GATE = dict(atol=1e-5, rtol=1e-4)  # the card's: tests/test_torch_gpu.py, chip_smoke.py
+
+
+def _tf32_values(rng, n):
+    """Finite float32 values that TF32 represents: the low 13 bits zero."""
+    bits = rng.integers(0, 2 ** 32, n, dtype=np.uint64).astype(np.uint32)
+    bits &= np.uint32(0xFFFFE000)
+    vals = bits.view(np.float32)
+    return vals[np.isfinite(vals)]
+
+
+def test_tf32_round_is_exact_on_tf32_values():
+    vals = np.concatenate([_tf32_values(np.random.default_rng(0), 20000),
+                           np.array([0.0, -0.0, 1.0, -2.5, 2.0 ** -130], np.float32)])
+    got = ec.tf32_round(torch.as_tensor(vals)).numpy()
+    np.testing.assert_array_equal(got.view(np.uint32), vals.view(np.uint32))
+
+
+def test_tf32_round_to_nearest_ties_away_from_zero():
+    ulp = 2.0 ** -10  # TF32's spacing in [1, 2)
+    x = np.array([1 + ulp / 2, -(1 + ulp / 2), 1 + ulp / 4, 1 + 3 * ulp / 4,
+                  1 + 1.5 * ulp, 2 - ulp / 2], np.float32)
+    want = np.array([1 + ulp, -(1 + ulp), 1, 1 + ulp, 1 + 2 * ulp, 2], np.float32)
+    np.testing.assert_array_equal(ec.tf32_round(torch.as_tensor(x)).numpy(), want)
+    # on random values: the nearest, within half a TF32 ulp of the magnitude
+    v = np.random.default_rng(1).standard_normal(10000).astype(np.float32)
+    r = ec.tf32_round(torch.as_tensor(v)).numpy()
+    assert (r.view(np.uint32) & 0x1FFF == 0).all()
+    assert (np.abs(r - v) <= np.abs(v) * 2.0 ** -11).all()
+
+
+def test_3xtf32_product_is_float32_grade():
+    """Against float64: the 3xTF32 product errs about as float32 does, the
+    one-pass TF32 product some hundred times more."""
+    rng = np.random.default_rng(2)
+    a = rng.standard_normal((64, F)).astype(np.float32)
+    b = (rng.standard_normal((F, F)) * F ** -0.5).astype(np.float32)
+    exact = a.astype(np.float64) @ b.astype(np.float64)
+    at, bt = torch.as_tensor(a), torch.as_tensor(b)
+    err = lambda got: float(np.abs(got.numpy() - exact).max())
+    e32, e3, e1 = err(at @ bt), err(ec.matmul_3xtf32(at, bt)), err(
+        ec.matmul_3xtf32(at, bt, passes=1))
+    assert e3 <= 4 * e32 + 1e-7, (e3, e32)
+    assert e1 >= 100 * e3, (e1, e3)
+
+
+def gcl_operands(seed, spread):
+    """A complex of 8 ligand and 40 pocket atoms at the flagship width with
+    fan-in-scaled weights; atoms from N(0, spread^2): at spread 1 every pair
+    is within the 5 A cutoffs (the collapsed complex)."""
+    rng = np.random.default_rng(seed)
+    B, NL, N = 2, 8, 48
+    f = lambda *s, scale=1.0: torch.as_tensor((rng.standard_normal(s) * scale)
+                                              .astype(np.float32))
+    x0 = f(B, N, 3, scale=spread)
+    mask = torch.ones(B, N)
+    mask[1, NL - 2:NL] = 0.0
+    is_lig = (torch.arange(N) < NL).float().expand(B, N).contiguous()
+    return dict(a_row=f(B, N, F, scale=0.5), a_col=f(B, N, F, scale=0.5),
+                x=x0 + f(B, N, 3, scale=0.2), x0=x0, mask=mask, is_lig=is_lig,
+                w_d2=f(F, scale=0.05), w_d20=f(F, scale=0.05),
+                type_bias=f(2, 2, F, scale=0.2), w2=f(F, F, scale=F ** -0.5),
+                b2=f(F, scale=0.1), w_att=f(F, 1, scale=F ** -0.5),
+                b_att=f(1, scale=0.1))
+
+
+def gate_share(got, ref):
+    """The largest error as a share of the card's gate atol + rtol * |ref|."""
+    return float(((got - ref).abs() / (GATE["atol"] + GATE["rtol"] * ref.abs())).max())
+
+
+@pytest.mark.parametrize("spread", [4.0, 1.0], ids=["clean", "collapsed"])
+def test_gcl_3xtf32_within_a_tenth_of_the_card_gate(spread):
+    ops = gcl_operands(3, spread)
+    kw = dict(cutoffs=CUTOFFS, attention=True, normalization_factor=100.0)
+    ref = ec.gcl_message_agg_plain(*ops.values(), **kw)
+    pairs = int((ec.adjacency_dense(((ops["x0"][:, :, None] - ops["x0"][:, None]) ** 2)
+                                    .sum(-1), ops["mask"], ops["is_lig"], CUTOFFS)
+                 > 0).sum())
+    three = ec.gcl_message_agg_plain(*ops.values(), **kw, matmul=ec.matmul_3xtf32)
+    one = ec.gcl_message_agg_plain(
+        *ops.values(), **kw, matmul=lambda a, b: ec.matmul_3xtf32(a, b, passes=1))
+    print(f"\nF={F} spread {spread}: {pairs} active pairs, |ref| max "
+          f"{float(ref.abs().max()):.3e}; 3xTF32 max_abs_err "
+          f"{float((three - ref).abs().max()):.3e} = {gate_share(three, ref):.4f} of "
+          f"the gate; 1-pass TF32 {float((one - ref).abs().max()):.3e} = "
+          f"{gate_share(one, ref):.4f} of the gate")
+    assert gate_share(three, ref) <= 0.1
