@@ -6,15 +6,16 @@
 Phases (any failure ends the run with a non-zero exit code):
   1. the card's name and power limit (nvidia-smi);
   2. build the five CUDA kernels from csrc/ (one nvcc per source, in parallel),
-     and count the GCL kernel's tensor-core (HMMA) and cp.async (LDGSTS)
-     instructions in its SASS;
+     and count the two forward kernels' tensor-core (HMMA) and cp.async
+     (LDGSTS) instructions in their SASS;
   3. each forward kernel against its plain PyTorch twin at the flagship shapes
      (B=16, NL=24, NP=300 padded to 320, F=256, cutoffs None/5/5, attention
      and the cross branch on) and at the shared-pocket variants (col_mask,
-     update_rows, B=1), the GCL kernel also on a collapsed complex (every
-     pair within the cutoffs), two launches bit for bit, with CUDA-event times
-     of kernel and twin and each GCL variant's bounds (f32 CUDA cores, 3xTF32
-     tensor cores);
+     update_rows, B=1), both also on a collapsed complex (every pair within
+     the cutoffs), the coordinate kernel also without the cross branch and at
+     the joint chain's launch (B=8, every row moves), two launches bit for
+     bit, with CUDA-event times of kernel and twin and each variant's bounds
+     (f32 CUDA cores, 3xTF32 tensor cores);
   3b. each backward kernel against its plain version (autograd through the
      twin) at the flagship training shapes (B=16, ligands of 24-32 atoms padded
      to 32, update_rows = NL for the coordinate kernel) and at the variants (no
@@ -315,16 +316,20 @@ def work_bounds(pairs, B, N, F, n_mlp, rows_out, width_out):
 
 
 def kernel_phase(ec, torch, dev, flagship):
-    """Phase 3: kernels vs plain twins at the flagship shapes; the GCL kernel
-    also on a collapsed complex (every pair within the cutoffs, full chunks),
-    and two launches of it bit for bit."""
+    """Phase 3: kernels vs plain twins at the flagship shapes; both also on a
+    collapsed complex (every pair within the cutoffs, full chunks), the
+    coordinate kernel also at the joint chain's batch with every row moving,
+    two launches of each variant bit for bit."""
     B, NL = 16, 24
     inp = kernel_inputs(torch, dev, flagship, B, NL)
     dense = kernel_inputs(torch, dev, flagship, B, NL, seed=9, spread=1.0)
+    # the joint chain's coordinate launch with block fusing off: B = 8, every
+    # row moves, on a clean and on a collapsed complex
+    all8 = kernel_inputs(torch, dev, flagship, JOINT_SAMPLES, NL, seed=10)
+    dense8 = kernel_inputs(torch, dev, flagship, JOINT_SAMPLES, NL, seed=11, spread=1.0)
     F, N, cut = inp["F"], inp["N"], inp["cut"]
     x, x0, mask, is_lig = inp["x"], inp["x0"], inp["mask"], inp["is_lig"]
     a_row, a_col, gcl_w = inp["a_row"], inp["a_col"], inp["gcl_w"]
-    cross, graph_mean, coord_w = inp["cross"], inp["graph_mean"], inp["coord_w"]
     pkt, lig = mask * (1 - is_lig), mask * is_lig
 
     def gcl_call(fn, variant):
@@ -359,24 +364,43 @@ def kernel_phase(ec, torch, dev, flagship):
         return work_bounds(active_pairs(ec, dict(inp, mask=lig), rows=NL, col_mask=mask),
                            B, N, F, 1, N, F)
 
-    def coord_call(fn, variant):
-        kw = dict(cutoffs=cut, tanh=True, coords_range=15.0, norm_constant=1.0,
-                  normalization_factor=100.0, update_rows=NL)
-        if variant == "ligand_rows_cross":
-            return fn(a_row, a_col, x, x0, mask, is_lig, *coord_w, cross=cross,
-                      graph_mean=graph_mean, **kw)
-        return fn(a_row, a_col, x, x0, mask, is_lig, *coord_w, **kw)
+    def coord_inputs(variant):
+        if variant.endswith("_b8_collapsed"):
+            return dense8
+        if variant.endswith("_b8"):
+            return all8
+        return dense if variant.endswith("_collapsed") else inp
 
-    # tolerance: float32 both sides (the GCL kernel's product in 3xTF32,
-    # float32-grade), pairs summed in another order
+    def coord_call(fn, variant):
+        d = coord_inputs(variant)
+        rows = None if variant.startswith("all_rows") else NL
+        kw = dict(cutoffs=cut, tanh=True, coords_range=15.0, norm_constant=1.0,
+                  normalization_factor=100.0, update_rows=rows)
+        if "nocross" not in variant:
+            kw.update(cross=d["cross"], graph_mean=d["graph_mean"])
+        return fn(d["a_row"], d["a_col"], d["x"], d["x0"], d["mask"], d["is_lig"],
+                  *d["coord_w"], **kw)
+
+    def coord_work(variant):
+        """The bounds of a coordinate variant: its active pairs (of the rows
+        that move), its batch, one or two pair MLPs."""
+        d = coord_inputs(variant)
+        rows = d["N"] if variant.startswith("all_rows") else NL
+        return work_bounds(active_pairs(ec, d, rows=rows), d["B"], N, F,
+                           1 if "nocross" in variant else 2, rows, 3)
+
+    # tolerance: float32 both sides (the products in 3xTF32, float32-grade),
+    # pairs summed in another order
     tol = dict(atol=1e-5, rtol=1e-4)
     results, variant_ms = {}, {}
-    for name, call, plain, kern, variants in (
+    for name, call, plain, kern, work_of, variants in (
             ("gcl_agg", gcl_call, ec.gcl_message_agg_plain, ec.gcl_message_agg,
-             ["full", "full_collapsed", "pocket_pocket_b1", "pocket_ligand",
-              "ligand_rows"]),
+             gcl_work, ["full", "full_collapsed", "pocket_pocket_b1", "pocket_ligand",
+                        "ligand_rows"]),
             ("coord_agg", coord_call, ec.coord_update_agg_plain,
-             ec.coord_update_agg, ["ligand_rows_cross", "ligand_rows_nocross"])):
+             ec.coord_update_agg, coord_work,
+             ["ligand_rows_cross", "ligand_rows_nocross", "ligand_rows_cross_collapsed",
+              "all_rows_cross_b8", "all_rows_cross_b8_collapsed"])):
         worst, work = 0.0, {}
         for v in variants:
             got = call(kern, v)
@@ -392,10 +416,7 @@ def kernel_phase(ec, torch, dev, flagship):
             _check(torch.equal(got, again), f"{name}[{v}]: two launches differ")
             worst = max(worst, err)
             ms = variant_ms[f"{name}[{v}]"] = _cuda_ms(lambda: call(kern, v), 20)
-            if name != "gcl_agg":
-                print(f"  {name}[{v}] kernel {ms:.4f} ms")
-                continue
-            w = work[v] = dict(gcl_work(v), ms=ms)
+            w = work[v] = dict(work_of(v), ms=ms)
             print(f"  {name}[{v}] kernel {ms:.4f} ms, two launches bit for bit; "
                   f"active pairs {w['pairs']}, {w['flops'] / 1e9:.2f} GFLOP; bound "
                   f"{w['bound_ms']:.4f} ms f32 ({100 * w['bound_ms'] / ms:.1f}%), "
@@ -403,19 +424,15 @@ def kernel_phase(ec, torch, dev, flagship):
         v = variants[0]
         ms = _cuda_ms(lambda: call(kern, v), 50)
         plain_ms = _cuda_ms(lambda: call(plain, v), 3)
-        if name == "gcl_agg":
-            w = work[v]
-        else:  # the two pair MLPs of the ligand rows
-            w = work_bounds(active_pairs(ec, inp, rows=NL), B, N, F, 2, NL, 3)
+        w = work[v]
         print(f"  {name}[{v}] kernel {ms:.4f} ms, plain twin {plain_ms:.4f} ms, "
               f"active pairs {w['pairs']}, {w['flops'] / 1e9:.2f} GFLOP, bound "
               f"{w['bound_ms']:.4f} ms ({w['bound_by']}), "
               f"{100 * w['bound_ms'] / ms:.1f}% of f32 peak")
         results[name] = dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
-                             bound_ms=w["bound_ms"], bound_by=w["bound_by"])
-        if name == "gcl_agg":
-            results[name].update(bound_tc_ms=w["bound_tc_ms"],
-                                 bound_tc_by=w["bound_tc_by"], variants=work)
+                             bound_ms=w["bound_ms"], bound_by=w["bound_by"],
+                             bound_tc_ms=w["bound_tc_ms"], bound_tc_by=w["bound_tc_by"],
+                             variants=work)
     return results, variant_ms
 
 
@@ -1227,12 +1244,13 @@ def main(argv=None) -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
-    # the GCL kernel's product runs on the tensor cores (HMMA) through
+    # the forward kernels' products run on the tensor cores (HMMA) through
     # cp.async stages (LDGSTS)
-    sass = sass_counts(ec, "gcl_agg", ("HMMA", "LDGSTS"))
-    print(f"  gcl_agg SASS: {sass['HMMA']} HMMA, {sass['LDGSTS']} LDGSTS instructions")
-    _check(sass["HMMA"] > 0 and sass["LDGSTS"] > 0,
-           "the GCL kernel has no tensor-core or cp.async instructions")
+    for name in ("gcl_agg", "coord_agg"):
+        sass = sass_counts(ec, name, ("HMMA", "LDGSTS"))
+        print(f"  {name} SASS: {sass['HMMA']} HMMA, {sass['LDGSTS']} LDGSTS instructions")
+        _check(sass["HMMA"] > 0 and sass["LDGSTS"] > 0,
+               f"{name} has no tensor-core or cp.async instructions")
 
     print("[3] kernels vs plain twins at the flagship shapes")
     flagship = snapshot_config(R05C_NPZ)

@@ -7,6 +7,8 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from diffsbdd_tpu_torch.chem.sdfio import read_sdf
+
 # three-letter -> one-letter codes for the 20 standard amino acids
 THREE_TO_ONE = {
     "ALA": "A", "ARG": "R", "ASN": "N", "ASP": "D", "CYS": "C",
@@ -176,11 +178,13 @@ def get_pocket_from_ligand(structure: Structure, ref_ligand: str,
                            dist_cutoff: float = 8.0) -> List[Residue]:
     """Pocket residues from a reference ligand.
 
-    ``ref_ligand`` is '<chain>:<resi>', a ligand residue inside the PDB.
+    ``ref_ligand`` is either '<chain>:<resi>', a ligand residue inside the PDB
+    (which is then left out of the pocket), or the path of an SDF file whose
+    first molecule gives the ligand atoms (no residue is left out).
     """
     if str(ref_ligand).endswith(".sdf"):
-        raise NotImplementedError("reference ligands from SDF files are not "
-                                  "supported yet; give '<chain>:<resi>'")
+        mol = read_sdf(ref_ligand)[0]
+        return get_pocket_residues_from_coords(structure, mol.coords, dist_cutoff)
     chain, resi = str(ref_ligand).split(":")
     lig_res = structure.residue(chain, int(resi))
     lig_coords = np.array([a.coord for a in lig_res.atoms], dtype=np.float32)

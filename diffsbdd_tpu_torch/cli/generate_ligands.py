@@ -4,6 +4,8 @@
         --pdbfile pocket.pdb --ref_ligand A:330 --outfile out.sdf \\
         --n_samples 20 [--device cpu]
 
+The pocket is the residues near ``--ref_ligand`` (a ligand residue
+'<chain>:<resi>' of the PDB, or an SDF file) or the ``--resi_list``.
 Runs on CUDA unless ``--device cpu`` is given.  A joint checkpoint generates
 by inpainting with the whole pocket fixed; ``--resamplings`` and
 ``--jump_length`` set its RePaint schedule and a conditional checkpoint does

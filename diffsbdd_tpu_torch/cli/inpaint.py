@@ -3,10 +3,13 @@
     python -m diffsbdd_tpu_torch.cli.inpaint <ckpt_dir> --pdbfile 5ndu.pdb \\
         --ref_ligand C:8V2 --fix_atoms C1 N6 C5 C12 --outfile out.sdf
     python -m diffsbdd_tpu_torch.cli.inpaint <ckpt_dir> --pdbfile 5ndu.pdb \\
-        --ref_ligand C:8V2 --fix_atoms fragments.sdf --outfile linked.sdf
+        --ref_ligand 5ndu_C_8V2.sdf --fix_atoms fragments.sdf --outfile linked.sdf
 
-The fixed atoms are named atoms of the reference ligand residue, or every atom
-of one or more SDF files.  Runs on CUDA unless ``--device cpu`` is given.
+The pocket is the residues near the reference ligand, a residue of the PDB or
+an SDF file.  The fixed atoms are named atoms of the reference ligand residue,
+or every atom of one or more SDF files; atom names need a residue reference,
+so an SDF reference takes SDF fixed atoms.  Runs on CUDA unless ``--device cpu``
+is given.
 """
 from __future__ import annotations
 
@@ -42,6 +45,10 @@ def prepare_substructure(ref_ligand, fix_atoms, struct, atom_encoder):
             one_hot.append(oh)
         return np.concatenate(coords), np.concatenate(one_hot)
 
+    if ref_ligand.endswith(".sdf"):
+        raise ValueError("atom names in --fix_atoms need a reference ligand residue "
+                         "'<chain>:<resi>'; with an SDF --ref_ligand give the fixed "
+                         "atoms as SDF files")
     chain, resi = ref_ligand.split(":")
     wanted = set(fix_atoms)
     atoms = [a for a in struct.residue(chain, int(resi)).atoms if a.name in wanted]

@@ -1,4 +1,4 @@
-// Equivariant coordinate update aggregation, f32, for sm_90a.
+// Equivariant coordinate update aggregation, f32-grade, for sm_90a.
 //
 // Replaces the Pallas TPU kernels `coord_update_agg_pallas` and its
 // compact-skip launch `_coord_agg_pallas_compact`
@@ -15,42 +15,90 @@
 // d2 comes from the current coordinates x; d20 and the adjacency from the EGNN
 // input coordinates x0.
 //
-// What bounds it on an H100: two per-pair F x F products (coordinate and cross
-// MLPs), 2 * 2*F^2 f32 operations per active pair -- bound by operations.
+// The C entry point takes `partial`, 2 * B * N * 3 floats of scratch that the
+// caller allocates (null without the cross branch).
 //
-// Design: the tiling of egnn_common.cuh, as in gcl_agg.cu.  The two MLPs run
-// one after the other on the same shared-memory tile; the per-pair head values
-// are reduced across the warp and the 3-vector contributions are summed per
-// row in a fixed order, so the result is deterministic.  Rows >= update_rows
-// are written as zeros (the conditional model updates ligand rows only, and
-// nodes are ligand-first).
-#include "egnn_fwd.cuh"
+// What bounds it on an H100: two per-pair F x F products (coordinate and cross
+// MLPs), 2 * 2*F^2 of the 2 * (2*F^2 + 10*F) operations an active pair.  They
+// run on the tensor cores in 3xTF32 (egnn_mma.cuh), 3 * 2 * 2*F^2 tensor-core
+// operations a pair at 495 TFLOP/s; the f32 CUDA-core body before it ran at
+// 8% of its 67 TFLOP/s bound.  As in gcl_agg.cu, the bytes that compete are
+// L2's and shared memory's: every chunk of P = 64 pairs streams W2 (256 KB at
+// F = 256) from L2 an MLP, and the fill of S reads a 16 x F tile of a_col.
+//
+// Design (mma::coord_tile_tc, on the tiling of egnn_common.cuh):
+// * one block per (batch, tile of TI rows below update_rows, pair MLP): the
+//   coordinate MLP's blocks (blockIdx.z = 0) and the cross MLP's (z = 1) each
+//   write the row sums of their own term to a partial (B, N, 3) slab, and a
+//   second kernel adds the two slabs in a fixed order; a block owns its rows,
+//   so nothing needs atomics and the result is deterministic.  At the main
+//   path's shape (24 ligand rows, B = 16) this is 192 blocks on 132 SMs
+//   (one block, ~150 KB of shared memory, an SM), against 96 blocks with both
+//   MLPs in one block, whose longest tiles left SMs idle: 0.47 against 0.60
+//   ms on an H100 80GB HBM3 at 700 W (PERF.md);
+// * per chunk of compacted columns the block fills the geometry, then S
+//   (branch-free, a_row in registers, a_col loaded a chunk ahead), runs
+//   silu(pre) @ W2 as mma.sync TF32 with hi + lo operand splits and W2
+//   through a cp.async ring, and a head epilogue silu(acc + b2) . w3
+//   (lane-quad shuffles, one exchange of the feature slices through shared
+//   memory) in place of the GCL's gated row sum;
+// * the per-pair terms (tanh, norms, cross product) and the fixed-order row
+//   sums are coord_tile's (egnn_fwd.cuh, which block_fused.cu still runs).
+// Rows >= update_rows are written as zeros (the conditional model updates
+// ligand rows only, and nodes are ligand-first).
+#include "egnn_mma.cuh"
 
 namespace {
 
 using namespace egnn;
 
-// The row-tile body (coord_tile) is in egnn_fwd.cuh; the whole-block kernel
-// runs the same body.
-template <int F>
-__global__ void __launch_bounds__(NT) coord_agg_kernel(CoordArgs g) {
+// The row-tile body (coord_tile_tc) is in egnn_mma.cuh.  With the cross
+// branch, blockIdx.z picks the MLP and its slab of `partial`.
+template <int F, bool CROSS>
+__global__ void __launch_bounds__(NT) coord_agg_kernel(CoordArgs g, float* partial) {
   extern __shared__ __align__(16) float smem[];
-  float* S = smem;                                  // P * F
-  float* Ws = S + P * F;                            // KC * F
-  int* cols = reinterpret_cast<int*>(Ws + KC * F);  // N
-
-  coord_tile<F>(g, blockIdx.y, blockIdx.x * TI, S, Ws, cols);
+  const int i0 = blockIdx.x * TI;
+  if constexpr (CROSS) {
+    g.out = partial + (size_t)blockIdx.z * gridDim.y * g.N * 3;
+    if (blockIdx.z == 0)
+      mma::coord_tile_tc<F, false>(g, blockIdx.y, i0, smem);
+    else
+      mma::coord_tile_tc<F, true>(g, blockIdx.y, i0, smem);
+  } else {
+    mma::coord_tile_tc<F, false>(g, blockIdx.y, i0, smem);
+  }
   zero_rows_past_grid(g.out, (size_t)blockIdx.y * g.N, g.N, 3);
 }
 
-template <int F>
-int launch(const CoordArgs& g, int B, cudaStream_t stream) {
-  const size_t smem = dynamic_smem<F>(g.N);
+// out = partial[0] + partial[1], n floats each
+__global__ void add_partials(const float* partial, size_t n, float* out) {
+  for (size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x; e < n;
+       e += (size_t)gridDim.x * blockDim.x)
+    out[e] = partial[e] + partial[n + e];
+}
+
+template <int F, bool CROSS>
+int launch(const CoordArgs& g, int B, float* partial, cudaStream_t stream) {
+  const size_t smem = mma::dynamic_smem<F>(g.N);
   cudaError_t err = cudaFuncSetAttribute(
-      coord_agg_kernel<F>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      coord_agg_kernel<F, CROSS>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  coord_agg_kernel<F><<<row_tile_grid(g.N, g.update_rows, B), NT, smem, stream>>>(g);
+  dim3 grid = row_tile_grid(g.N, g.update_rows, B);
+  grid.z = CROSS ? 2 : 1;
+  coord_agg_kernel<F, CROSS><<<grid, NT, smem, stream>>>(g, partial);
+  if constexpr (CROSS) {
+    const size_t n = (size_t)B * g.N * 3;
+    const int blocks = (int)((n + NT - 1) / NT < 1024 ? (n + NT - 1) / NT : 1024);
+    add_partials<<<blocks, NT, 0, stream>>>(partial, n, g.out);
+  }
   return (int)cudaGetLastError();
+}
+
+template <int F>
+int launch(const CoordArgs& g, int B, float* partial, cudaStream_t stream) {
+  if (g.cross.a_row == nullptr) return launch<F, false>(g, B, partial, stream);
+  if (partial == nullptr) return (int)cudaErrorInvalidValue;
+  return launch<F, true>(g, B, partial, stream);
 }
 
 }  // namespace
@@ -63,7 +111,7 @@ extern "C" int coord_agg_forward(
     const float* x, const float* x0, const float* mask, const float* is_lig,
     const float* graph_mean, int use_tanh, float coords_range,
     float norm_constant, float nf, float cut_ll, float cut_pp, float cut_lp,
-    int B, int N, int F, int update_rows, float* out, void* stream) {
+    int B, int N, int F, int update_rows, float* partial, float* out, void* stream) {
   CoordArgs g;
   g.coord = PairMlp{a_row, a_col, w_d2, w_d20, delta, w2, b2, w3};
   g.cross = PairMlp{c_row, c_col, cw_d2, cw_d20, c_delta, cw2, cb2, cw3};
@@ -74,8 +122,8 @@ extern "C" int coord_agg_forward(
   g.N = N; g.update_rows = update_rows; g.out = out;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (F) {
-    case 64: return launch<64>(g, B, s);
-    case 256: return launch<256>(g, B, s);
+    case 64: return launch<64>(g, B, partial, s);
+    case 256: return launch<256>(g, B, partial, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

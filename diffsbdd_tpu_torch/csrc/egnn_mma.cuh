@@ -1,5 +1,6 @@
-// The per-pair product on Hopper's tensor cores, and the GCL row-tile body
-// that runs on it (gcl_agg.cu); f32-grade, for sm_90a.
+// The per-pair product on Hopper's tensor cores, and the two row-tile bodies
+// that run on it, GCL (gcl_agg.cu) and coordinate update (coord_agg.cu);
+// f32-grade, for sm_90a.
 //
 // Product: silu(pre) (P x F, shared memory) @ W2 (F x F, global memory) with
 // warp-level mma.sync.m16n8k8 in TF32, each operand split into hi + lo TF32
@@ -377,6 +378,140 @@ __device__ void gcl_tile_tc(const GclArgs& g, size_t node0, int i0, float* smem,
       dst[r * F + f] = msum[m][n][0] / g.nf;
       dst[r * F + f + 1] = msum[m][n][1] / g.nf;
     }
+  }
+}
+
+// The head of a pair MLP on the warp's C fragments: its share of
+// phi_p = sum_f silu(acc_pf + b2_f) * w3_f over its FW features, added over
+// the lane quad and written to part[slice][p]; the reader adds the slices.
+template <int F>
+__device__ __forceinline__ void head_parts(float (&acc)[WM][Layout<F>::NTN][4],
+                                           const float* b2s, const float* w3s,
+                                           float (*part)[P]) {
+  using L = Layout<F>;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int rg = warp % ROW_GROUPS, slice = warp / ROW_GROUPS;
+#pragma unroll
+  for (int m = 0; m < WM; ++m) {
+    float dot[2] = {0.0f, 0.0f};  // pairs gid, gid + 8 of m-tile m
+#pragma unroll
+    for (int n = 0; n < L::NTN; ++n) {
+      const int f = slice * L::FW + 8 * n + 2 * tig;
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        dot[e >> 1] = fmaf(silu_fast(acc[m][n][e] + b2s[f + (e & 1)]), w3s[f + (e & 1)],
+                           dot[e >> 1]);
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      dot[h] += __shfl_xor_sync(0xffffffffu, dot[h], 1);
+      dot[h] += __shfl_xor_sync(0xffffffffu, dot[h], 2);
+      if (tig == 0) part[slice][(rg * WM + m) * 16 + gid + 8 * h] = dot[h];
+    }
+  }
+}
+
+// coord_tile on the tensor cores, one pair MLP a call: the term of the
+// coordinate MLP (CROSS false) or of the SE(3) cross MLP (CROSS true) in the
+// coordinate update of rows i0 .. i0+TI-1 of batch item `batch` -> g.out
+// (coord_agg.cu runs the two over blockIdx.z and adds their terms in a
+// second kernel).  Per chunk: the geometry, S from the MLP's projections
+// (a_col loaded a chunk ahead), product_tc and the head; then the per-pair
+// term and the fixed-order row sums of coord_tile.
+// smem: dynamic_smem<F>(N) bytes.
+template <int F, bool CROSS>
+__device__ void coord_tile_tc(const CoordArgs& g, int batch, int i0, float* smem) {
+  using L = Layout<F>;
+  const PairMlp& mlp = CROSS ? g.cross : g.coord;
+  __shared__ Rows rows;
+  __shared__ Chunk chunk;
+  __shared__ float b2s[F], w3s[F];
+  __shared__ float phi_part[SLICES][P];  // the slices' head dots
+  __shared__ float trans[P][3], mean[3];
+  float* S = smem;
+  W2Ring<F> ring{mlp.w2, S + P * L::SS, 0};
+  int* cols = reinterpret_cast<int*>(ring.buf + NS * L::STAGE);
+
+  const int t = threadIdx.x;
+  const size_t node0 = (size_t)batch * g.N;
+
+  // W2 needs nothing else: the first stage loads during the compaction
+  for (int s = 0; s < NS - 1; ++s) ring.issue();
+  load_rows(rows, g.x, g.x0, g.mask, g.is_lig, node0, i0, g.N, g.update_rows);
+  if (CROSS && t < 3) mean[t] = g.graph_mean[batch * 3 + t];
+  for (int k = t; k < F; k += NT) {
+    b2s[k] = mlp.b2[k];
+    w3s[k] = mlp.head[k];
+  }
+  const int kS = t % F;  // the feature this thread fills in S
+  const PairWeights w = pair_weights(mlp, kS);
+  float a_row[TI];
+#pragma unroll
+  for (int r = 0; r < TI; ++r)
+    a_row[r] = i0 + r < g.N ? mlp.a_row[(node0 + i0 + r) * F + kS] : 0.0f;
+  __syncthreads();
+  const int count = compact_columns(rows, g.x0, g.mask, g.is_lig, node0, g.N,
+                                    g.cut, cols);
+
+  // a_col of the chunk to fill: loaded one chunk ahead, so that the loads
+  // are in flight during the product
+  float a_col[L::COLS];
+  load_a_col<F>(mlp, cols, count, 0, node0, a_col);
+  float racc = 0.0f;  // row sum of component (t % 3) of row t / 3, t < 3*TI
+  for (int c0 = 0; c0 < count; c0 += TJ) {
+    fill_chunk(chunk, rows, g.x, g.x0, g.mask, g.is_lig, node0, cols, count, c0,
+               g.cut);
+    __syncthreads();
+    fill_s<F>(w, chunk, a_row, a_col, S);
+    load_a_col<F>(mlp, cols, count, c0 + TJ, node0, a_col);
+    float acc[WM][L::NTN][4];
+    product_tc<F>(S, ring, acc);
+    head_parts<F>(acc, b2s, w3s, phi_part);
+    __syncthreads();  // the head dots are complete
+
+    if (t < P) {
+      const int k = t / TJ, j = chunk.j[t];
+      float tr[3] = {0.0f, 0.0f, 0.0f};
+      if (j >= 0) {
+        const float* xj = g.x + (node0 + j) * 3;
+        float phi = 0.0f;
+#pragma unroll
+        for (int sl = 0; sl < SLICES; ++sl) phi += phi_part[sl][t];
+        if (g.use_tanh) phi = tanhf(phi) * g.coords_range;
+        if constexpr (CROSS) {
+          const float xi0 = rows.x[k][0] - mean[0], xi1 = rows.x[k][1] - mean[1],
+                      xi2 = rows.x[k][2] - mean[2];
+          const float xj0 = xj[0] - mean[0], xj1 = xj[1] - mean[1],
+                      xj2 = xj[2] - mean[2];
+          tr[0] = xi1 * xj2 - xi2 * xj1;
+          tr[1] = xi2 * xj0 - xi0 * xj2;
+          tr[2] = xi0 * xj1 - xi1 * xj0;
+          const float cnorm =
+              sqrtf(tr[0] * tr[0] + tr[1] * tr[1] + tr[2] * tr[2] + 1e-8f) + g.norm_constant;
+          const float wt = phi / cnorm * chunk.adj[t];
+          for (int a = 0; a < 3; ++a) tr[a] *= wt;
+        } else {
+          const float norm = sqrtf(chunk.d2[t] + 1e-8f) + g.norm_constant;
+          const float wt = phi / norm * chunk.adj[t];
+          for (int a = 0; a < 3; ++a) tr[a] = wt * (rows.x[k][a] - xj[a]);
+        }
+      }
+      for (int a = 0; a < 3; ++a) trans[t][a] = tr[a];
+    }
+    __syncthreads();
+    if (t < 3 * TI) {
+      const int k = t / 3, a = t % 3;
+      for (int jj = 0; jj < TJ; ++jj) racc += trans[k * TJ + jj][a];
+    }
+    // no sync: the next chunk rewrites the chunk, S, phi_part and trans only
+    // after its fill_chunk sync
+  }
+  cp_async_wait_all();  // the ring's look-ahead stages
+
+  if (t < 3 * TI) {
+    const int i = i0 + t / 3;
+    if (i < g.N) g.out[(node0 + i) * 3 + t % 3] = racc / g.nf;
   }
 }
 

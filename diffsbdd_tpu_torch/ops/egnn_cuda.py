@@ -8,7 +8,8 @@ Two forward kernels carry sampling and the forward half of a training step
   3xTF32, ``csrc/egnn_mma.cuh``, emulated on the CPU by ``matmul_3xtf32``);
 * ``coord_update_agg`` -- coordinate MLP (+ the SE(3) cross-product MLP) +
   tanh clamping + masked row sum of the relative-direction translations
-  (``csrc/coord_agg.cu``).
+  (``csrc/coord_agg.cu``; both MLPs' F x F products on the tensor cores in
+  3xTF32, as the GCL kernel's).
 
 Two backward kernels carry the other half of a training step:
 
@@ -35,7 +36,8 @@ when they lie on a CUDA device; there is no fallback from one to the other.
 The plain versions are the CPU path and the kernels' test oracle.  On CUDA the
 public wrappers go through ``torch.autograd.Function``s, so a training step
 launches each split kernel once per layer.  Each launch adds one to
-``launch_counts[name]`` (one for the two phases of ``block_fused``).
+``launch_counts[name]`` (one for the two phases of ``block_fused``, one for
+the coordinate kernel's two MLPs and the sum of their terms).
 
 The kernels are compiled with ``nvcc`` for ``sm_90a`` into plain-C shared
 libraries under ``csrc/build`` at first use (``build_kernels``) and loaded with
@@ -72,7 +74,7 @@ _ARGTYPES = {
     "gcl_agg": ("gcl_agg_forward",
                 [_P] * 14 + [_F] * 4 + [_I] * 4 + [_P, _P]),
     "coord_agg": ("coord_agg_forward",
-                  [_P] * 21 + [_I] + [_F] * 6 + [_I] * 4 + [_P, _P]),
+                  [_P] * 21 + [_I] + [_F] * 6 + [_I] * 4 + [_P] * 3),
     "gcl_agg_bwd": ("gcl_agg_backward",
                     [_P] * 16 + [_F] * 4 + [_I] * 5 + [_P] * 7 + [_P]),
     "coord_agg_bwd": ("coord_agg_backward",
@@ -242,8 +244,11 @@ def gcl_message_agg_plain(a_row, a_col, x, x0, mask, is_lig, w_d2, w_d20,
 def coord_update_agg_plain(a_row, a_col, x, x0, mask, is_lig, w_d2, w_d20,
                            type_bias, w2, b2, w3, *, cutoffs, tanh,
                            coords_range, norm_constant, normalization_factor,
-                           cross=None, graph_mean=None, update_rows=None):
-    """Dense twin of the coordinate-update kernel."""
+                           cross=None, graph_mean=None, update_rows=None,
+                           matmul=torch.matmul):
+    """Dense twin of the coordinate-update kernel.  ``matmul`` computes
+    silu(pre) @ w2 of both MLPs (``matmul_3xtf32``: as the kernel's tensor
+    cores do)."""
     silu = torch.nn.functional.silu
     d2 = _pair_d2(x)
     d2_0 = _pair_d2(x0)
@@ -252,7 +257,7 @@ def coord_update_agg_plain(a_row, a_col, x, x0, mask, is_lig, w_d2, w_d20,
     def head(r, c, wd2, wd20, tb, w2_, b2_, w3_):
         pre = r[:, :, None, :] + c[:, None, :, :] + _edge_bias_dense(
             d2, d2_0, wd2, wd20, is_lig, tb)
-        phi = (silu(silu(pre) @ w2_ + b2_) @ w3_)[..., 0]
+        phi = (silu(matmul(silu(pre), w2_) + b2_) @ w3_)[..., 0]
         return torch.tanh(phi) * coords_range if tanh else phi
 
     phi = head(a_row, a_col, w_d2, w_d20, type_bias, w2, b2, w3)
@@ -275,7 +280,7 @@ def coord_update_agg_plain(a_row, a_col, x, x0, mask, is_lig, w_d2, w_d20,
 
 
 # ---------------------------------------------------------------------------
-# the GCL kernel's tensor-core product, emulated (tests only)
+# the forward kernels' tensor-core product, emulated (tests only)
 # ---------------------------------------------------------------------------
 
 def tf32_round(x: torch.Tensor) -> torch.Tensor:
@@ -571,13 +576,19 @@ def _coord_forward_cuda(main, c, x, x0, mask, is_lig, gm, cutoffs, tanh,
     _check("coord_update_agg",
            dict(x=x, x0=x0, mask=mask, is_lig=is_lig, graph_mean=gm),
            _node_shapes(B, N), dev)
+    for key, w2 in (("w2", main["w2"]), ("cross.w2", c["w2"])):
+        if w2 is not None and w2.data_ptr() % 16:
+            raise ValueError(f"coord_update_agg: {key} must be 16-byte aligned (cp.async)")
     out = torch.empty((B, N, 3), device=dev, dtype=torch.float32)
+    # the two MLPs' terms, summed into out by the kernel's second launch
+    partial = None if c["a_row"] is None else \
+        torch.empty((2, B, N, 3), device=dev, dtype=torch.float32)
     _launch("coord_agg",
             *(_ptr(main[k]) for k in _MLP_KEYS), *(_ptr(c[k]) for k in _MLP_KEYS),
             _ptr(x), _ptr(x0), _ptr(mask), _ptr(is_lig), _ptr(gm),
             int(bool(tanh)), float(coords_range), float(norm_constant), float(nf),
             _cut2(cutoffs[0]), _cut2(cutoffs[1]), _cut2(cutoffs[2]),
-            B, N, F, _rows(update_rows, N), out.data_ptr())
+            B, N, F, _rows(update_rows, N), _ptr(partial), out.data_ptr())
     return out
 
 

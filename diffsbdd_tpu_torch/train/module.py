@@ -282,11 +282,15 @@ class LigandPocketDDPM(nn.Module):
         pocket_com_before = masked_mean(pocket["x"], pocket["mask"]).cpu().numpy()
 
         if num_nodes_lig is None:
-            if self.ddpm.size_distribution is None:
+            if self.virtual_nodes:
+                # a virtual-node model always generates at the padded maximum
+                num_nodes_lig = np.full(n_samples, self.max_num_nodes)
+            elif self.ddpm.size_distribution is None:
                 raise ValueError("this model has no ligand size prior: give "
                                  "num_nodes_lig")
-            num_nodes_lig = self.ddpm.size_distribution.sample_conditional(
-                n2=pocket["size"].cpu().numpy(), rng=size_rng)
+            else:
+                num_nodes_lig = self.ddpm.size_distribution.sample_conditional(
+                    n2=pocket["size"].cpu().numpy(), rng=size_rng)
         num_nodes_lig = np.asarray(num_nodes_lig)
         n_lig_pad = round_to_bucket(int(num_nodes_lig.max()), self.lig_bucket)
         lig_mask = torch.as_tensor(num_nodes_to_mask(num_nodes_lig, n_lig_pad),

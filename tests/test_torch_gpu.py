@@ -102,6 +102,34 @@ def test_kernels_on_a_partial_row_tile(update_rows):
         ec.coord_update_agg_plain(*main.values(), extra["w3"], **coord_kw), **TOL)
 
 
+@pytest.mark.parametrize("kernel", ["gcl", "coord_main", "coord_cross"])
+def test_wrappers_reject_a_misaligned_w2(kernel):
+    """W2 streams through cp.async in 16-byte pieces: a contiguous W2 that
+    starts 4 bytes past an aligned address is refused before any launch."""
+    main, extra = _inputs(4)
+    misaligned = lambda w: torch.empty(w.numel() + 1, device=w.device)[1:] \
+        .copy_(w.reshape(-1)).view_as(w)
+    ec.reset_launch_counts()
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        if kernel == "gcl":
+            ec.gcl_message_agg(*dict(main, w2=misaligned(main["w2"])).values(),
+                               extra["w_att"], extra["b_att"], cutoffs=CUTOFFS,
+                               attention=True, normalization_factor=100.0)
+        else:
+            cross = dict(extra["cross"], w3=extra["w3"])
+            if kernel == "coord_main":
+                main["w2"] = misaligned(main["w2"])
+            else:
+                cross["w2"] = misaligned(cross["w2"])
+            m = main["mask"]
+            ec.coord_update_agg(*main.values(), extra["w3"], cutoffs=CUTOFFS, tanh=True,
+                                coords_range=15.0, norm_constant=1.0,
+                                normalization_factor=100.0, cross=cross,
+                                graph_mean=(main["x"] * m[..., None]).sum(1)
+                                / m.sum(1)[:, None])
+    assert sum(ec.launch_counts.values()) == 0
+
+
 def test_wrapper_rejects_noncontiguous_weight():
     main, extra = _inputs(2)
     main["w2"] = main["w2"].t()
@@ -428,3 +456,61 @@ def test_gcl_kernel_is_deterministic():
     ops = _gcl_ops(block_inputs(27, B=4, N=344, F=256, n_lig=24, spread=1.0))
     assert torch.equal(ec.gcl_message_agg(*ops, **GCL_KW),
                        ec.gcl_message_agg(*ops, **GCL_KW))
+
+
+# ---------------------------------------------------------------------------
+# the coordinate kernel (3xTF32 on the tensor cores) at the main path's shapes
+# ---------------------------------------------------------------------------
+
+def coord_inputs(seed, B, N=344, F=256, n_lig=24, spread=4.0, cross=True):
+    """``coord_update_agg``'s operands out of ``block_inputs``: each head's
+    projections of h, its edge-type table and W2; the cross head (with the
+    graph mean) or None."""
+    ins = block_inputs(seed, B=B, N=N, F=F, n_lig=n_lig, cross=cross, spread=spread)
+    h, _, _, x, x0, mask, is_lig = ins[:7]
+
+    def mlp(hd):
+        return dict(a_row=h @ hd["k_i"] + hd["b0"], a_col=h @ hd["k_j"],
+                    w_d2=hd["w_d2"], w_d20=hd["w_d20"], type_bias=hd["type_bias"],
+                    w2=hd["w1"], b2=hd["b1"], w3=hd["w3"])
+
+    main = mlp(ins[9])
+    main = (main["a_row"], main["a_col"], x, x0, mask, is_lig, main["w_d2"],
+            main["w_d20"], main["type_bias"], main["w2"], main["b2"], main["w3"])
+    return main, (mlp(ins[10]) if cross else None), ins[11]
+
+
+COORD_KW = dict(cutoffs=CUTOFFS, tanh=True, coords_range=15.0, norm_constant=1.0,
+                normalization_factor=100.0)
+
+
+def _coord_case(seed, B, width, spread, update_rows, cross):
+    main, cross_d, graph_mean = coord_inputs(seed, B, F=width, spread=spread,
+                                             cross=cross)
+    kw = dict(COORD_KW, cross=cross_d, graph_mean=graph_mean, update_rows=update_rows)
+    ec.reset_launch_counts()
+    got = ec.coord_update_agg(*main, **kw)
+    again = ec.coord_update_agg(*main, **kw)
+    assert ec.launch_counts["coord_agg"] == 2
+    assert torch.equal(got, again)  # fixed-order row sums: the same bits
+    torch.testing.assert_close(got, ec.coord_update_agg_plain(*main, **kw), **TOL)
+    if update_rows is not None:
+        assert not got[:, update_rows:].any()
+
+
+@pytest.mark.parametrize("width", [64, 256])
+@pytest.mark.parametrize("spread", [4.0, 1.0], ids=["clean", "collapsed"])
+@pytest.mark.parametrize("update_rows", [24, None], ids=["ligand_rows", "all_rows"])
+@pytest.mark.parametrize("cross", [True, False], ids=["cross", "no_cross"])
+def test_coord_kernel_at_flagship_shapes(width, spread, update_rows, cross):
+    """B = 16, N = 344 (24 ligand atoms): the main path's 96 row tiles of
+    ligand rows, or all 1376; at ``spread`` 1 every pair passes the cutoffs,
+    so every chunk is full.  Two launches agree bit for bit."""
+    _coord_case(28, 16, width, spread, update_rows, cross)
+
+
+@pytest.mark.parametrize("spread", [4.0, 1.0], ids=["clean", "collapsed"])
+def test_coord_kernel_at_the_joint_chain_batch(spread):
+    """B = 8, every row moves, cross branch on: the launch of the joint chain
+    with block fusing off."""
+    _coord_case(29, 8, 256, spread, None, True)

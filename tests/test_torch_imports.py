@@ -53,3 +53,20 @@ def test_every_kernel_has_a_plain_c_source():
     for path in list(ec.CSRC.glob("*.cu")) + list(ec.CSRC.glob("*.cuh")):
         assert "torch/" not in path.read_text(), path.name
     assert all(h.exists() for h in ec.HEADERS)
+
+
+def test_argtypes_match_the_c_signatures():
+    """ctypes passes what ``argtypes`` lists: one entry for each parameter of
+    the ``extern "C"`` entry point, a pointer for each pointer, a float for
+    each float and an int for each int (an int where a pointer is due cuts it
+    to 32 bits)."""
+    import ctypes
+    import re
+    from diffsbdd_tpu_torch.ops import egnn_cuda as ec
+    kinds = {ctypes.c_void_p: "ptr", ctypes.c_float: "float", ctypes.c_int: "int"}
+    for name in ec.KERNELS:
+        fn_name, argtypes = ec._ARGTYPES[name]
+        text = (ec.CSRC / f"{name}.cu").read_text()
+        params = re.search(rf'extern "C" int {fn_name}\((.*?)\)\s*{{', text, re.S).group(1)
+        want = ["ptr" if "*" in p else p.split()[0] for p in params.split(",")]
+        assert [kinds[t] for t in argtypes] == want, name

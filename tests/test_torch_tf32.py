@@ -1,10 +1,11 @@
-"""The GCL kernel's tensor-core product, rehearsed on the CPU.
+"""The forward kernels' tensor-core product, rehearsed on the CPU.
 
-``csrc/egnn_mma.cuh`` computes silu(pre) @ W2 in 3xTF32: each operand split
-into TF32 parts hi + lo (``cvt.rna``), summed as lo*hi + hi*lo + hi*hi.  Here
-``ec.matmul_3xtf32`` emulates that product and the dense GCL twin runs through
-it at the flagship width F = 256; the result must stay within a tenth of the
-gate the card holds the kernel to (atol 1e-5 + rtol 1e-4 against the float32
+``csrc/egnn_mma.cuh`` computes silu(pre) @ W2 in 3xTF32 for the GCL kernel and
+for both MLPs of the coordinate kernel: each operand split into TF32 parts
+hi + lo (``cvt.rna``), summed as lo*hi + hi*lo + hi*hi.  Here
+``ec.matmul_3xtf32`` emulates that product and the dense twins run through it
+at the flagship width F = 256; the result must stay within a tenth of the gate
+the card holds the kernels to (atol 1e-5 + rtol 1e-4 against the float32
 plain version), so that the rounding alone cannot fail it there.  The one-pass
 TF32 error at the same point is printed (``pytest -s``), not asserted.
 """
@@ -99,6 +100,46 @@ def test_gcl_3xtf32_within_a_tenth_of_the_card_gate(spread):
     one = ec.gcl_message_agg_plain(
         *ops.values(), **kw, matmul=lambda a, b: ec.matmul_3xtf32(a, b, passes=1))
     print(f"\nF={F} spread {spread}: {pairs} active pairs, |ref| max "
+          f"{float(ref.abs().max()):.3e}; 3xTF32 max_abs_err "
+          f"{float((three - ref).abs().max()):.3e} = {gate_share(three, ref):.4f} of "
+          f"the gate; 1-pass TF32 {float((one - ref).abs().max()):.3e} = "
+          f"{gate_share(one, ref):.4f} of the gate")
+    assert gate_share(three, ref) <= 0.1
+
+
+def coord_operands(seed, spread):
+    """``gcl_operands``' complex with the coordinate MLP's operands, the cross
+    MLP's (its head tied to the coordinate head, as in the model) and the
+    graph mean of the current coordinates."""
+    ops = gcl_operands(seed, spread)
+    rng = np.random.default_rng(seed + 100)
+    f = lambda *s, scale=1.0: torch.as_tensor((rng.standard_normal(s) * scale)
+                                              .astype(np.float32))
+    w3 = f(F, 1, scale=F ** -0.5)
+    main = {k: ops[k] for k in ("a_row", "a_col", "x", "x0", "mask", "is_lig",
+                                "w_d2", "w_d20", "type_bias", "w2", "b2")}
+    main["w3"] = w3
+    cross = dict(a_row=f(2, 48, F, scale=0.5), a_col=f(2, 48, F, scale=0.5),
+                 w_d2=f(F, scale=0.05), w_d20=f(F, scale=0.05),
+                 type_bias=f(2, 2, F, scale=0.2), w2=f(F, F, scale=F ** -0.5),
+                 b2=f(F, scale=0.1), w3=w3)
+    m = ops["mask"]
+    graph_mean = (ops["x"] * m[..., None]).sum(1) / m.sum(1)[:, None]
+    return main, cross, graph_mean
+
+
+@pytest.mark.parametrize("spread", [4.0, 1.0], ids=["clean", "collapsed"])
+def test_coord_3xtf32_within_a_tenth_of_the_card_gate(spread):
+    """Both MLPs of the coordinate update through the emulated product, cross
+    branch and tanh on, every row updated."""
+    main, cross, graph_mean = coord_operands(4, spread)
+    kw = dict(cutoffs=CUTOFFS, tanh=True, coords_range=15.0, norm_constant=1.0,
+              normalization_factor=100.0, cross=cross, graph_mean=graph_mean)
+    ref = ec.coord_update_agg_plain(*main.values(), **kw)
+    three = ec.coord_update_agg_plain(*main.values(), **kw, matmul=ec.matmul_3xtf32)
+    one = ec.coord_update_agg_plain(
+        *main.values(), **kw, matmul=lambda a, b: ec.matmul_3xtf32(a, b, passes=1))
+    print(f"\nF={F} spread {spread}: coordinate update, |ref| max "
           f"{float(ref.abs().max()):.3e}; 3xTF32 max_abs_err "
           f"{float((three - ref).abs().max()):.3e} = {gate_share(three, ref):.4f} of "
           f"the gate; 1-pass TF32 {float((one - ref).abs().max()):.3e} = "
