@@ -6,8 +6,9 @@
 Phases (any failure ends the run with a non-zero exit code):
   1. the card's name and power limit (nvidia-smi);
   2. build the five CUDA kernels from csrc/ (one nvcc per source, in parallel),
-     and count the two forward kernels' tensor-core (HMMA) and cp.async
-     (LDGSTS) instructions in their SASS;
+     and count the tensor-core (HMMA) and cp.async (LDGSTS) instructions in
+     the SASS of the three kernels that run their products in 3xTF32 (the two
+     forward kernels and the GCL backward kernel);
   3. each forward kernel against its plain PyTorch twin at the flagship shapes
      (B=16, NL=24, NP=300 padded to 320, F=256, cutoffs None/5/5, attention
      and the cross branch on) and at the shared-pocket variants (col_mask,
@@ -20,7 +21,9 @@ Phases (any failure ends the run with a non-zero exit code):
      twin) at the flagship training shapes (B=16, ligands of 24-32 atoms padded
      to 32, update_rows = NL for the coordinate kernel) and at the variants (no
      attention, no tanh, cross off, col_mask, an edge-type delta, odd N and odd
-     update_rows), every cotangent, with CUDA-event times;
+     update_rows), the GCL kernel also on a collapsed complex at the training
+     shapes (every pair within the cutoffs), every cotangent, with CUDA-event
+     times;
   3c. the whole-block kernel against its plain version at the joint shapes
      (B=16, N=344, every row moves), the conditional shapes (24 rows move), the
      batch that phase 10 launches it at (B=8: another grid and other rows a
@@ -680,6 +683,14 @@ def bwd_kernel_phase(ec, torch, dev, flagship):
               f"({bound_by}), {100 * bound_ms / ms:.1f}% of f32 peak")
         results[name] = dict(max_abs_err=worst_abs, ms=ms, plain_ms=plain_ms,
                              bound_ms=bound_ms, bound_by=bound_by)
+        if name == "gcl_agg_bwd":  # its three products run in 3xTF32
+            t_tc = 3 * flops / PEAK_TF32_FLOPS
+            bound_tc_ms = 1e3 * max(t_tc, bytes_ / PEAK_BYTES)
+            print(f"  {name}[{label}] 3xTF32 bound {bound_tc_ms:.4f} ms, "
+                  f"{100 * bound_tc_ms / ms:.1f}% of it")
+            results[name].update(
+                bound_tc_ms=bound_tc_ms,
+                bound_tc_by="operations" if t_tc >= bytes_ / PEAK_BYTES else "bytes")
 
     def gcl_case(label, inp, attention=True, col_mask=None, update_rows=None,
                  plain_step=4, timed=False):
@@ -719,6 +730,11 @@ def bwd_kernel_phase(ec, torch, dev, flagship):
     full = kernel_inputs(torch, dev, flagship, 16, 32, lig_sizes=sizes, seed=1)
     gcl_case("train_full", full, timed=True)
     coord_case("train_ligand_rows_cross", full, update_rows=32, timed=True)
+    # the GCL kernel on a collapsed complex at the training shapes: full chunks
+    dense = kernel_inputs(torch, dev, flagship, 16, 32, lig_sizes=sizes, seed=4,
+                          spread=1.0)
+    gcl_case("train_full_collapsed", dense)
+    del dense
     # the variants, at a smaller batch
     small = kernel_inputs(torch, dev, flagship, 4, 24, seed=2, with_delta=True)
     lig = small["mask"] * small["is_lig"]
@@ -1244,9 +1260,9 @@ def main(argv=None) -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
-    # the forward kernels' products run on the tensor cores (HMMA) through
+    # the 3xTF32 kernels' products run on the tensor cores (HMMA) through
     # cp.async stages (LDGSTS)
-    for name in ("gcl_agg", "coord_agg"):
+    for name in ("gcl_agg", "coord_agg", "gcl_agg_bwd"):
         sass = sass_counts(ec, name, ("HMMA", "LDGSTS"))
         print(f"  {name} SASS: {sass['HMMA']} HMMA, {sass['LDGSTS']} LDGSTS instructions")
         _check(sass["HMMA"] > 0 and sass["LDGSTS"] > 0,

@@ -1,4 +1,4 @@
-// Backward of the GCL message aggregation (gcl_agg.cu), f32, for sm_90a.
+// Backward of the GCL message aggregation (gcl_agg.cu), f32-grade, for sm_90a.
 //
 // Replaces the Pallas TPU kernel `gcl_agg_bwd_pallas`
 // (diffsbdd_tpu/ops/egnn_pallas_bwd.py:385).  Given g = dL/d(agg) it returns
@@ -13,156 +13,62 @@
 //   dm2   = g_i * adj * att + dattz * w_att
 //   dw_att += m2 * dattz,   db_att += dattz
 //
-// then the MLP runs backwards (egnn_bwd.cuh), and the squared-distance
-// cotangents chain to the coordinates: dx_i += 2 dd2 (x_i - x_j), dx_j -= the
-// same, and likewise dx0 from dd20.  The adjacency is piecewise constant in
-// x0, so it carries no gradient; pairs with adjacency 0 give exact zeros.
-// Rows >= update_rows are not visited, and g there is ignored.
+// then the MLP runs backwards (egnn_bwd.cuh states the chain), and the
+// squared-distance cotangents chain to the coordinates: dx_i += 2 dd2 (x_i -
+// x_j), dx_j -= the same, and likewise dx0 from dd20.  The adjacency is
+// piecewise constant in x0, so it carries no gradient; pairs with adjacency 0
+// give exact zeros.  Rows >= update_rows are not visited, and g there is
+// ignored.
 //
 // What bounds it on an H100: three F x F products per active pair (forward
-// recompute, dW2, dm1), 6*F^2 f32 operations against ~1 KB of projections --
-// bound by operations.
+// recompute, dW2, dm1), 6*F^2 operations against ~1 KB of projections --
+// bound by operations.  They run on the tensor cores in 3xTF32
+// (egnn_mma_bwd.cuh: mma.sync TF32, each operand split hi + lo), 3 * 6*F^2
+// tensor-core operations a pair at 495 TFLOP/s.  Beside them: the fills and
+// epilogues on the CUDA cores and the SFU, and the block's F x F dW2 slab,
+// read and written through L2 once a chunk.
 //
-// Design: see egnn_bwd.cuh -- the forward's tiling, per-block slabs of global
-// scratch plus a second summing kernel for everything that crosses row tiles
-// (da_col, column-side dx/dx0, all weight cotangents), no atomics, so the
-// result is deterministic.  da_row is written by the block that owns the rows.
-#include "egnn_bwd.cuh"
+// Design: egnn_mma_bwd.cuh::gcl_bwd_tile_tc on the forward's tiling, S and D
+// XOR-swizzled so that every fragment load of the three products is free of
+// bank conflicts, W2 and W2^T through one cp.async ring; per-block slabs of
+// global scratch plus a second summing kernel for everything that crosses row
+// tiles (da_col, column-side dx/dx0, all weight cotangents), no atomics, so
+// the result is deterministic.  da_row is written by the block that owns the
+// rows.
+#include "egnn_mma_bwd.cuh"
 
 namespace {
 
 using namespace egnn;
 
-struct GclBwdArgs {
-  PairMlp mlp;            // head = w_att, null when attention is off
-  const float* b_att;     // (1) or null
-  const float* w2t;       // (F, F) transpose of w2
-  const float* g;         // (B, N, F) cotangent of the aggregate
-  const float* x;         // (B, N, 3)
-  const float* x0;        // (B, N, 3)
-  const float* mask;      // (B, N)
-  const float* col_mask;  // (B, N)
-  const float* is_lig;    // (B, N)
-  Cutoffs cut;
-  float inv_nf;
-  int N, update_rows;
-  int tiles;              // row tiles below update_rows
-  float* da_row;          // (B, N, F), zero-initialised; live rows written here
-  float* acol_part;       // (B, Q, N, F) zero-initialised slabs
-  float* dx_part;         // (B, Q, N, 6) zero-initialised slabs [dx, dx0]
-  float* w_part;          // (B, Q, weight_slab) zero-initialised slabs
-};
-
+// The row-tile body (gcl_bwd_tile_tc) is in egnn_mma_bwd.cuh.  Block (q, b)
+// walks the row tiles q, q + Q, ... of batch b with one ring, one set of
+// sums and slab q of its batch.
 template <int F>
 __global__ void __launch_bounds__(NT) gcl_agg_bwd_kernel(GclBwdArgs g) {
-  constexpr int NC = F / 32;
+  using L = mma::Layout<F>;
   extern __shared__ __align__(16) float smem[];
-  float* S = smem;                                  // P * F
-  float* D = S + P * F;                             // P * F
-  float* Ws = D + P * F;                            // KC * F
-  int* cols = reinterpret_cast<int*>(Ws + KC * F);  // N
-  __shared__ Rows rows;
-  __shared__ Chunk chunk;
-  __shared__ PairD2 dd;
-  __shared__ float rowc[P][6], colc[P][6];
-  __shared__ float warp_dbatt[NT / 32];
-
-  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-  const int Q = gridDim.x;
+  float* S = smem;         // P * F
+  float* D = S + P * F;    // P * F
+  mma::W2BwdRing<F> ring{g.mlp.w2, g.w2t, D + P * F, 0};
+  int* cols = reinterpret_cast<int*>(ring.buf + mma::NS * L::STAGE);  // N
   const size_t node0 = (size_t)blockIdx.y * g.N;
-  const size_t slab = (size_t)blockIdx.y * Q + blockIdx.x;
-  const bool attention = g.mlp.head != nullptr;
-  const float b_att = attention ? g.b_att[0] : 0.0f;
-  const MlpBwd mb{g.w2t, g.w_part + slab * weight_slab(F),
-                  g.acol_part + slab * (size_t)g.N * F};
-  float* dx_part = g.dx_part + slab * (size_t)g.N * 6;
+  const size_t slab = (size_t)blockIdx.y * gridDim.x + blockIdx.x;
 
-  FeatAcc fa{0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-  float dbatt = 0.0f;  // the warp's sum, the same in every lane
-
-  for (int tile = blockIdx.x; tile < g.tiles; tile += Q) {
-    const int i0 = tile * TI;
-    __syncthreads();  // the previous tile's rows are no longer read
-    load_rows(rows, g.x, g.x0, g.mask, g.is_lig, node0, i0, g.N, g.update_rows);
-    __syncthreads();
-    const int count = compact_columns(rows, g.x0, g.col_mask, g.is_lig, node0, g.N,
-                                      g.cut, cols);
-    float arow[TI];
-#pragma unroll
-    for (int r = 0; r < TI; ++r) arow[r] = 0.0f;
-
-    for (int c0 = 0; c0 < count; c0 += TJ) {
-      fill_chunk(chunk, rows, g.x, g.x0, g.col_mask, g.is_lig, node0, cols, count,
-                 c0, g.cut);
-      if (t < P) { dd.dd2[t] = 0.0f; dd.dd20[t] = 0.0f; }
-      __syncthreads();
-
-      auto epi = [&](int p, const float (&m2)[NC], float (&dm2)[NC]) -> float {
-        const float* gi = g.g + (node0 + i0 + p / TJ) * F;
-        float gv[NC], wa[NC], pa = 0.0f, pg = 0.0f;
-#pragma unroll
-        for (int n = 0; n < NC; ++n) {
-          gv[n] = gi[lane + 32 * n] * g.inv_nf;
-          wa[n] = attention ? g.mlp.head[lane + 32 * n] : 0.0f;
-          pa = fmaf(m2[n], wa[n], pa);
-          pg = fmaf(gv[n], m2[n], pg);
-        }
-        const float adj = chunk.adj[p];
-        float att = 1.0f, dattz = 0.0f;
-        if (attention) {
-          att = sigmoidf_(warp_sum(pa) + b_att);
-          dattz = warp_sum(pg) * adj * att * (1.0f - att);
-          dbatt += dattz;
-        }
-        const float gate = adj * att;
-#pragma unroll
-        for (int n = 0; n < NC; ++n) dm2[n] = fmaf(gv[n], gate, dattz * wa[n]);
-        return dattz;
-      };
-      mlp_backward<F>(g.mlp, mb, chunk, cols, count, c0, node0, i0, S, D, Ws, dd, fa,
-                      arow, epi);
-
-      // ---- squared-distance cotangents -> coordinates
-      if (t < P) {
-        const int j = chunk.j[t], k = t / TJ;
-        for (int a = 0; a < 6; ++a) { rowc[t][a] = 0.0f; colc[t][a] = 0.0f; }
-        if (j >= 0) {
-          const float* xj = g.x + (node0 + j) * 3;
-          const float* x0j = g.x0 + (node0 + j) * 3;
-          for (int a = 0; a < 3; ++a) {
-            const float v = 2.0f * dd.dd2[t] * (rows.x[k][a] - xj[a]);
-            const float v0 = 2.0f * dd.dd20[t] * (rows.x0[k][a] - x0j[a]);
-            rowc[t][a] = v; colc[t][a] = -v;
-            rowc[t][3 + a] = v0; colc[t][3 + a] = -v0;
-          }
-        }
-      }
-      __syncthreads();
-      scatter_dx(rowc, colc, cols, count, c0, i0, g.N, dx_part);
-    }
-
-    if (t < F) {
-      for (int r = 0; r < TI; ++r) {
-        const int i = i0 + r;
-        if (i < g.N && i < g.update_rows) g.da_row[(node0 + i) * F + t] = arow[r];
-      }
-    }
-  }
-
-  store_feat_acc<F>(fa, mb.w_part);
-  if (lane == 0) warp_dbatt[warp] = dbatt;
-  __syncthreads();
-  if (t == 0) {
-    float s = 0.0f;
-    for (int w = 0; w < NT / 32; ++w) s += warp_dbatt[w];
-    mb.w_part[(size_t)F * F + 5 * F] = s;
-  }
+  __shared__ float hvs[mma::ROW_GROUPS * F];
+  for (int e = threadIdx.x; e < mma::ROW_GROUPS * F; e += NT) hvs[e] = 0.0f;
+  mma::GclBwdState st{FeatAcc{0.0f, 0.0f, 0.0f, 0.0f, 0.0f}, hvs, 0.0f};
+  for (int s = 0; s < mma::NS - 1; ++s) ring.issue();
+  for (int tile = blockIdx.x; tile < g.tiles; tile += gridDim.x)
+    mma::gcl_bwd_tile_tc<F>(g, node0, slab, tile * TI, S, D, cols, ring, st);
+  mma::cp_async_wait_all();  // the ring's look-ahead stage
+  mma::store_gcl_bwd_state<F>(st, g.w_part + slab * weight_slab(F), S);
 }
 
 template <int F>
 int launch(const GclBwdArgs& g, int B, int Q, float* da_col, float* dxx0, float* w_out,
            cudaStream_t stream) {
-  const size_t smem = dynamic_smem_bwd<F>(g.N);
+  const size_t smem = mma::dynamic_smem_bwd_tc<F>(g.N);
   cudaError_t err = cudaFuncSetAttribute(
       gcl_agg_bwd_kernel<F>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;

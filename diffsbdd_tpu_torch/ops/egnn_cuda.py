@@ -14,7 +14,8 @@ Two forward kernels carry sampling and the forward half of a training step
 Two backward kernels carry the other half of a training step:
 
 * ``gcl_agg_bwd``   -- every cotangent of ``gcl_message_agg``
-  (``csrc/gcl_agg_bwd.cu``);
+  (``csrc/gcl_agg_bwd.cu``; its three F x F products, the forward recompute,
+  dm1 and dW2, on the tensor cores in 3xTF32, ``csrc/egnn_mma_bwd.cuh``);
 * ``coord_agg_bwd`` -- every cotangent of ``coord_update_agg``, the cross MLP's
   and the graph mean's included (``csrc/coord_agg_bwd.cu``).
 
@@ -58,7 +59,8 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
 KERNELS = ("gcl_agg", "coord_agg", "gcl_agg_bwd", "coord_agg_bwd", "block_fused")
 HEADERS = (CSRC / "egnn_common.cuh", CSRC / "egnn_fwd.cuh",
-           CSRC / "egnn_bwd.cuh", CSRC / "egnn_mma.cuh")  # shared device code
+           CSRC / "egnn_bwd.cuh", CSRC / "egnn_mma.cuh",
+           CSRC / "egnn_mma_bwd.cuh")  # shared device code
 ROW_TILE = 4  # rows per tile, TI in csrc/egnn_common.cuh
 SUPPORTED_F = (64, 256)  # the fixture checkpoint's width and the flagship's
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -394,15 +396,18 @@ def _grads(out, g, leaves):
 
 def gcl_agg_bwd_plain(g, a_row, a_col, x, x0, mask, is_lig, w_d2, w_d20, delta,
                       w2, b2, w_att, b_att, *, cutoffs, attention,
-                      normalization_factor, col_mask=None, update_rows=None):
-    """Plain version of ``gcl_agg_bwd``: autograd through the dense twin."""
+                      normalization_factor, col_mask=None, update_rows=None,
+                      matmul=torch.matmul):
+    """Plain version of ``gcl_agg_bwd``: autograd through the dense twin.
+    ``matmul`` computes silu(pre) @ w2, and through its backward the dm1 and
+    dW2 products (tests: the kernel's 3xTF32 products, emulated)."""
     with torch.enable_grad():
         lv = _leaves([a_row, a_col, x, x0, w_d2, w_d20, delta, w2, b2, w_att, b_att])
         out = gcl_message_agg_plain(
             lv[0], lv[1], lv[2], lv[3], mask, is_lig, lv[4], lv[5],
             _delta_table(lv[6]), lv[7], lv[8], lv[9], lv[10], cutoffs=cutoffs,
             attention=attention, normalization_factor=normalization_factor,
-            col_mask=col_mask, update_rows=update_rows)
+            col_mask=col_mask, update_rows=update_rows, matmul=matmul)
         return tuple(_grads(out, g, lv))
 
 
@@ -543,6 +548,8 @@ def gcl_agg_bwd(g, a_row, a_col, x, x0, mask, is_lig, w_d2, w_d20, delta, w2, b2
            dict(g=g, x=x, x0=x0, mask=mask, col_mask=cm, is_lig=is_lig, w_att=watt,
                 b_att=batt),
            dict(_node_shapes(B, N), g=(B, N, F), w_att=(F,), b_att=(1,)), dev)
+    if w2.data_ptr() % 16:
+        raise ValueError("gcl_agg_bwd: w2 must be 16-byte aligned (cp.async)")
     rows = _rows(update_rows, N)
     Q = _blocks_per_batch(B, min(rows, N), dev)
     slab = F * F + 6 * F

@@ -25,7 +25,7 @@ def _needs_card():
         pytest.skip("needs a CUDA card")
 
 
-def _inputs(seed, N=N):
+def _inputs(seed, N=N, F=F):
     g = torch.Generator().manual_seed(seed)
     r = lambda *s, scale=1.0: (torch.randn(s, generator=g) * scale).cuda()
     x = r(B, N, 3, scale=3.0)
@@ -102,7 +102,7 @@ def test_kernels_on_a_partial_row_tile(update_rows):
         ec.coord_update_agg_plain(*main.values(), extra["w3"], **coord_kw), **TOL)
 
 
-@pytest.mark.parametrize("kernel", ["gcl", "coord_main", "coord_cross"])
+@pytest.mark.parametrize("kernel", ["gcl", "coord_main", "coord_cross", "gcl_bwd"])
 def test_wrappers_reject_a_misaligned_w2(kernel):
     """W2 streams through cp.async in 16-byte pieces: a contiguous W2 that
     starts 4 bytes past an aligned address is refused before any launch."""
@@ -115,6 +115,11 @@ def test_wrappers_reject_a_misaligned_w2(kernel):
             ec.gcl_message_agg(*dict(main, w2=misaligned(main["w2"])).values(),
                                extra["w_att"], extra["b_att"], cutoffs=CUTOFFS,
                                attention=True, normalization_factor=100.0)
+        elif kernel == "gcl_bwd":
+            ops = _folded(dict(main, w2=misaligned(main["w2"])))
+            ec.gcl_agg_bwd(torch.ones_like(main["a_row"]), *ops.values(),
+                           extra["w_att"], extra["b_att"], cutoffs=CUTOFFS,
+                           attention=True, normalization_factor=100.0)
         else:
             cross = dict(extra["cross"], w3=extra["w3"])
             if kernel == "coord_main":
@@ -203,8 +208,8 @@ def _coord_cot(result):
     return out
 
 
-def _coord_bwd_case(seed, N, with_cross, tanh, update_rows, with_delta=True):
-    main, extra = _inputs(seed, N=N)
+def _coord_bwd_case(seed, N, with_cross, tanh, update_rows, with_delta=True, F=F):
+    main, extra = _inputs(seed, N=N, F=F)
     ops = _folded(main, with_delta)
     cross = graph_mean = None
     if with_cross:
@@ -232,25 +237,27 @@ def test_coord_bwd_kernel_matches_plain(with_cross, tanh, update_rows):
     _coord_bwd_case(7, N, with_cross, tanh, update_rows)
 
 
+@pytest.mark.parametrize("width", [64, 256])
 @pytest.mark.parametrize("update_rows", [None, 11])
-def test_bwd_kernels_on_a_partial_row_tile(update_rows):
-    main, extra = _inputs(8, N=45)
+def test_bwd_kernels_on_a_partial_row_tile(update_rows, width):
+    main, extra = _inputs(8, N=45, F=width)
     ops = _folded(main)
     kw = dict(cutoffs=CUTOFFS, attention=True, normalization_factor=100.0,
               update_rows=update_rows)
-    g = torch.randn(B, 45, F, generator=torch.Generator().manual_seed(9)).cuda()
+    g = torch.randn(B, 45, width, generator=torch.Generator().manual_seed(9)).cuda()
     att = (extra["w_att"], extra["b_att"])
     got = ec.gcl_agg_bwd(g, *ops.values(), *att, **kw)
     ref = ec.gcl_agg_bwd_plain(g, *ops.values(), *att, **kw)
     _assert_cotangents(dict(zip(GCL_COT, got)), dict(zip(GCL_COT, ref)))
-    _coord_bwd_case(8, 45, True, True, update_rows, with_delta=False)
+    _coord_bwd_case(8, 45, True, True, update_rows, with_delta=False, F=width)
 
 
-def test_bwd_kernel_is_deterministic():
+@pytest.mark.parametrize("width", [64, 256])
+def test_bwd_kernel_is_deterministic(width):
     """No atomics: two launches on the same inputs give the same bits."""
-    main, extra = _inputs(10)
+    main, extra = _inputs(10, F=width)
     ops = _folded(main)
-    g = torch.randn(B, N, F, generator=torch.Generator().manual_seed(11)).cuda()
+    g = torch.randn(B, N, width, generator=torch.Generator().manual_seed(11)).cuda()
     kw = dict(cutoffs=CUTOFFS, attention=True, normalization_factor=100.0)
     a = ec.gcl_agg_bwd(g, *ops.values(), extra["w_att"], extra["b_att"], **kw)
     b = ec.gcl_agg_bwd(g, *ops.values(), extra["w_att"], extra["b_att"], **kw)
@@ -456,6 +463,29 @@ def test_gcl_kernel_is_deterministic():
     ops = _gcl_ops(block_inputs(27, B=4, N=344, F=256, n_lig=24, spread=1.0))
     assert torch.equal(ec.gcl_message_agg(*ops, **GCL_KW),
                        ec.gcl_message_agg(*ops, **GCL_KW))
+
+
+@pytest.mark.parametrize("width", [64, 256])
+@pytest.mark.parametrize("spread", [4.0, 1.0], ids=["clean", "collapsed"])
+def test_gcl_bwd_kernel_at_flagship_shapes(width, spread):
+    """The GCL backward kernel (3xTF32 on the tensor cores) at N = 344 (24
+    ligand atoms), B = 4, attention and an edge-type delta on: every
+    cotangent against autograd through the plain twin; at ``spread`` 1 every
+    pair passes the cutoffs, so every chunk is full.  Two launches agree bit
+    for bit."""
+    ins = block_inputs(30, B=4, N=344, F=width, n_lig=24, spread=spread)
+    _, a_row, a_col, x, x0, mask, is_lig, gcl = ins[:8]
+    ops = (a_row, a_col, x, x0, mask, is_lig, gcl["w_d2"], gcl["w_d20"],
+           gcl["type_delta"], gcl["w2"], gcl["b2"], gcl["w_att"], gcl["b_att"])
+    g = torch.randn(4, 344, width, generator=torch.Generator().manual_seed(31)).cuda()
+    ec.reset_launch_counts()
+    got = ec.gcl_agg_bwd(g, *ops, **GCL_KW)
+    again = ec.gcl_agg_bwd(g, *ops, **GCL_KW)
+    assert ec.launch_counts["gcl_agg_bwd"] == 2
+    for u, v in zip(got, again):
+        assert torch.equal(u, v)
+    ref = ec.gcl_agg_bwd_plain(g, *ops, **GCL_KW)
+    _assert_cotangents(dict(zip(GCL_COT, got)), dict(zip(GCL_COT, ref)))
 
 
 # ---------------------------------------------------------------------------

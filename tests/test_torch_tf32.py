@@ -1,4 +1,4 @@
-"""The forward kernels' tensor-core product, rehearsed on the CPU.
+"""The kernels' tensor-core products, rehearsed on the CPU.
 
 ``csrc/egnn_mma.cuh`` computes silu(pre) @ W2 in 3xTF32 for the GCL kernel and
 for both MLPs of the coordinate kernel: each operand split into TF32 parts
@@ -6,7 +6,11 @@ hi + lo (``cvt.rna``), summed as lo*hi + hi*lo + hi*hi.  Here
 ``ec.matmul_3xtf32`` emulates that product and the dense twins run through it
 at the flagship width F = 256; the result must stay within a tenth of the gate
 the card holds the kernels to (atol 1e-5 + rtol 1e-4 against the float32
-plain version), so that the rounding alone cannot fail it there.  The one-pass
+plain version), so that the rounding alone cannot fail it there.  The GCL
+backward kernel (``csrc/egnn_mma_bwd.cuh``) runs three products in 3xTF32,
+the forward recompute, dm1 = dz2 @ W2^T and dW2 = m1^T dz2: its rehearsal
+runs autograd through the twin with all three emulated, against the gate on
+each cotangent (a tenth of BWD_RTOL of its largest entry).  The one-pass
 TF32 error at the same point is printed (``pytest -s``), not asserted.
 """
 import numpy as np
@@ -145,3 +149,75 @@ def test_coord_3xtf32_within_a_tenth_of_the_card_gate(spread):
           f"the gate; 1-pass TF32 {float((one - ref).abs().max()):.3e} = "
           f"{gate_share(one, ref):.4f} of the gate")
     assert gate_share(three, ref) <= 0.1
+
+
+# ---------------------------------------------------------------------------
+# the GCL backward kernel's three products (csrc/egnn_mma_bwd.cuh)
+# ---------------------------------------------------------------------------
+
+BWD_RTOL = 5e-5  # the card's gate on a cotangent: chip_smoke.py BWD_RTOL
+
+
+class _Matmul3xTF32(torch.autograd.Function):
+    """a @ b in emulated 3xTF32, and its backward as the backward kernel runs
+    it: dm1 = g @ b^T and dW2 = a^T g, each in 3xTF32 too (``passes=1``:
+    plain TF32)."""
+
+    @staticmethod
+    def forward(ctx, a, b, passes):
+        ctx.save_for_backward(a, b)
+        ctx.passes = passes
+        return ec.matmul_3xtf32(a, b, passes)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        f = b.shape[0]
+        da = ec.matmul_3xtf32(g, b.t(), ctx.passes)
+        db = ec.matmul_3xtf32(a.reshape(-1, f).t(), g.reshape(-1, f), ctx.passes)
+        return da, db, None
+
+
+GCL_COT = ("da_row", "da_col", "dx", "dx0", "dw_d2", "dw_d20", "ddelta", "dw2",
+           "db2", "dw_att", "db_att")
+
+
+def bwd_gate_share(got, ref):
+    """The largest error of each cotangent as a share of the card's gate
+    BWD_RTOL * (its largest entry) + 1e-7: the worst share and its name."""
+    worst, name = 0.0, ""
+    for cname, u, v in zip(GCL_COT, got, ref):
+        assert (u is None) == (v is None), cname
+        if v is None:
+            continue
+        limit = BWD_RTOL * float(v.abs().max()) + 1e-7
+        share = float((u - v).abs().max()) / limit
+        if share >= worst:
+            worst, name = share, cname
+    return worst, name
+
+
+@pytest.mark.parametrize("spread", [4.0, 1.0], ids=["clean", "collapsed"])
+def test_gcl_bwd_3xtf32_within_a_tenth_of_the_card_gate(spread):
+    """Every cotangent of the GCL aggregation, attention and an edge-type
+    delta on, with the forward recompute, dm1 and dW2 products in emulated
+    3xTF32, against float32."""
+    ops = gcl_operands(5, spread)
+    a_row, a_col, delta = ec.fold_type_bias(ops["a_row"], ops["a_col"],
+                                            ops["is_lig"], ops["type_bias"])
+    args = (a_row, a_col, ops["x"], ops["x0"], ops["mask"], ops["is_lig"],
+            ops["w_d2"], ops["w_d20"], delta, ops["w2"], ops["b2"], ops["w_att"],
+            ops["b_att"])
+    rng = np.random.default_rng(6)
+    g = torch.as_tensor(rng.standard_normal(ops["a_row"].shape).astype(np.float32))
+    kw = dict(cutoffs=CUTOFFS, attention=True, normalization_factor=100.0)
+    ref = ec.gcl_agg_bwd_plain(g, *args, **kw)
+    three = ec.gcl_agg_bwd_plain(
+        g, *args, **kw, matmul=lambda a, b: _Matmul3xTF32.apply(a, b, 3))
+    one = ec.gcl_agg_bwd_plain(
+        g, *args, **kw, matmul=lambda a, b: _Matmul3xTF32.apply(a, b, 1))
+    share3, name3 = bwd_gate_share(three, ref)
+    share1, name1 = bwd_gate_share(one, ref)
+    print(f"\nF={F} spread {spread}: GCL backward, 3xTF32 worst cotangent {name3} "
+          f"{share3:.4f} of the gate; 1-pass TF32 {name1} {share1:.4f} of the gate")
+    assert share3 <= 0.1
