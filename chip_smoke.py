@@ -7,8 +7,8 @@ Phases (any failure ends the run with a non-zero exit code):
   1. the card's name and power limit (nvidia-smi);
   2. build the five CUDA kernels from csrc/ (one nvcc per source, in parallel),
      and count the tensor-core (HMMA) and cp.async (LDGSTS) instructions in
-     the SASS of the three kernels that run their products in 3xTF32 (the two
-     forward kernels and the GCL backward kernel);
+     the SASS of the four kernels that run their products in 3xTF32 (the two
+     forward kernels and the two backward kernels);
   3. each forward kernel against its plain PyTorch twin at the flagship shapes
      (B=16, NL=24, NP=300 padded to 320, F=256, cutoffs None/5/5, attention
      and the cross branch on) and at the shared-pocket variants (col_mask,
@@ -22,8 +22,10 @@ Phases (any failure ends the run with a non-zero exit code):
      to 32, update_rows = NL for the coordinate kernel) and at the variants (no
      attention, no tanh, cross off, col_mask, an edge-type delta, odd N and odd
      update_rows), the GCL kernel also on a collapsed complex at the training
-     shapes (every pair within the cutoffs), every cotangent, with CUDA-event
-     times;
+     shapes (every pair within the cutoffs), the coordinate kernel also at
+     the joint train step's launch (B=16, N=352, every row moves, collapsed
+     complex, cross and tanh on), every cotangent, with CUDA-event times and
+     each timed case's bounds (f32 CUDA cores, 3xTF32 tensor cores);
   3c. the whole-block kernel against its plain version at the joint shapes
      (B=16, N=344, every row moves), the conditional shapes (24 rows move), the
      batch that phase 10 launches it at (B=8: another grid and other rows a
@@ -629,8 +631,11 @@ def bwd_kernel_phase(ec, torch, dev, flagship):
     def sl_mlp(d, sl):  # batch slice of a pair MLP's operands
         return {k: (v[sl] if k in ("a_row", "a_col") else v) for k, v in d.items()}
 
-    def run(name, label, inp, call, plain_step, timed):
-        """``call(fn, sl)`` runs wrapper ``fn`` on batch slice ``sl``."""
+    def run(name, label, inp, call, plain_step, timed, update_rows=None,
+            plain_timed=True):
+        """``call(fn, sl)`` runs wrapper ``fn`` on batch slice ``sl``.  A timed
+        case returns its time, error and bounds, and the plain version's time
+        with ``plain_timed``."""
         B = inp["B"]
         names = GCL_COT if name == "gcl_agg_bwd" else COORD_COT
         kern = ec.gcl_agg_bwd if name == "gcl_agg_bwd" else ec.coord_agg_bwd
@@ -661,10 +666,7 @@ def bwd_kernel_phase(ec, torch, dev, flagship):
         if not timed:
             print(f"  {name}[{label}] kernel {ms:.4f} ms")
             return
-        plain_ms = _cuda_ms(lambda: _plain_in_slices(
-            torch, lambda sl: _name_cotangents(call(plain, sl), names), B, plain_step), 2)
-        rows = inp["NL"] if name == "coord_agg_bwd" else None
-        pairs = active_pairs(ec, inp, rows=rows)
+        pairs = active_pairs(ec, inp, rows=update_rows)
         F, N = inp["F"], inp["N"]
         n_mlp = 1 if name == "gcl_agg_bwd" else 2
         # per active pair and MLP: three F x F products (forward, dW2, dm1) and
@@ -675,22 +677,25 @@ def bwd_kernel_phase(ec, torch, dev, flagship):
         # and outputs once (da_row, da_col per MLP, dx, dx0, weight cotangents)
         bytes_ = 4 * (n_mlp * (4 * B * N * F + 3 * F * F + 12 * F) + B * N * 17
                       + B * N * width_g)
-        bound_ms = 1e3 * max(flops / PEAK_F32_FLOPS, bytes_ / PEAK_BYTES)
-        bound_by = "operations" if flops / PEAK_F32_FLOPS >= bytes_ / PEAK_BYTES \
-            else "bytes"
-        print(f"  {name}[{label}] kernel {ms:.4f} ms, plain version {plain_ms:.4f} ms, "
-              f"active pairs {pairs}, {flops / 1e9:.2f} GFLOP, bound {bound_ms:.4f} ms "
-              f"({bound_by}), {100 * bound_ms / ms:.1f}% of f32 peak")
-        results[name] = dict(max_abs_err=worst_abs, ms=ms, plain_ms=plain_ms,
-                             bound_ms=bound_ms, bound_by=bound_by)
-        if name == "gcl_agg_bwd":  # its three products run in 3xTF32
-            t_tc = 3 * flops / PEAK_TF32_FLOPS
-            bound_tc_ms = 1e3 * max(t_tc, bytes_ / PEAK_BYTES)
-            print(f"  {name}[{label}] 3xTF32 bound {bound_tc_ms:.4f} ms, "
-                  f"{100 * bound_tc_ms / ms:.1f}% of it")
-            results[name].update(
-                bound_tc_ms=bound_tc_ms,
-                bound_tc_by="operations" if t_tc >= bytes_ / PEAK_BYTES else "bytes")
+        t_f32, t_tc, t_bytes = flops / PEAK_F32_FLOPS, 3 * flops / PEAK_TF32_FLOPS, \
+            bytes_ / PEAK_BYTES
+        res = dict(max_abs_err=worst_abs, ms=ms,
+                   bound_ms=1e3 * max(t_f32, t_bytes),
+                   bound_by="operations" if t_f32 >= t_bytes else "bytes",
+                   # every product of both kernels runs in 3xTF32
+                   bound_tc_ms=1e3 * max(t_tc, t_bytes),
+                   bound_tc_by="operations" if t_tc >= t_bytes else "bytes")
+        print(f"  {name}[{label}] kernel {ms:.4f} ms, active pairs {pairs}, "
+              f"{flops / 1e9:.2f} GFLOP; f32 bound {res['bound_ms']:.4f} ms "
+              f"({res['bound_by']}), {100 * res['bound_ms'] / ms:.1f}% of it; 3xTF32 "
+              f"bound {res['bound_tc_ms']:.4f} ms ({res['bound_tc_by']}), "
+              f"{100 * res['bound_tc_ms'] / ms:.1f}% of it")
+        if plain_timed:
+            res["plain_ms"] = _cuda_ms(lambda: _plain_in_slices(
+                torch, lambda sl: _name_cotangents(call(plain, sl), names), B,
+                plain_step), 2)
+            print(f"  {name}[{label}] plain version {res['plain_ms']:.4f} ms")
+        return res
 
     def gcl_case(label, inp, attention=True, col_mask=None, update_rows=None,
                  plain_step=4, timed=False):
@@ -706,10 +711,10 @@ def bwd_kernel_phase(ec, torch, dev, flagship):
                       normalization_factor=100.0,
                       col_mask=None if col_mask is None else col_mask[sl],
                       update_rows=update_rows)
-        run("gcl_agg_bwd", label, inp, call, plain_step, timed)
+        return run("gcl_agg_bwd", label, inp, call, plain_step, timed)
 
     def coord_case(label, inp, cross=True, tanh=True, update_rows=None,
-                   plain_step=2, timed=False):
+                   plain_step=2, timed=False, plain_timed=True):
         g = inp["r"](inp["B"], inp["N"], 3)
         w_d2, w_d20, _, w2, b2, w3 = inp["coord_w"]
         c = {k: v for k, v in inp["cross"].items() if k != "type_bias"}
@@ -723,13 +728,23 @@ def bwd_kernel_phase(ec, torch, dev, flagship):
                       cross=sl_mlp(c, sl) if cross else None,
                       graph_mean=inp["graph_mean"][sl] if cross else None,
                       update_rows=update_rows)
-        run("coord_agg_bwd", label, inp, call, plain_step, timed)
+        return run("coord_agg_bwd", label, inp, call, plain_step, timed, update_rows,
+                   plain_timed)
 
     # the flagship training step: B = 16, ligands of 24-32 atoms padded to 32
     sizes = np.random.default_rng(0).integers(24, 33, 16)
     full = kernel_inputs(torch, dev, flagship, 16, 32, lig_sizes=sizes, seed=1)
-    gcl_case("train_full", full, timed=True)
-    coord_case("train_ligand_rows_cross", full, update_rows=32, timed=True)
+    results["gcl_agg_bwd"] = gcl_case("train_full", full, timed=True)
+    coord = coord_case("train_ligand_rows_cross", full, update_rows=32, timed=True)
+    # the joint train step's coordinate launch: every row moves, and the noised
+    # pocket is a dense graph (collapsed complex); the plain version untimed
+    joint = kernel_inputs(torch, dev, flagship, 16, 32, lig_sizes=sizes, seed=5,
+                          spread=1.0)
+    jres = coord_case("joint_train_all_rows_collapsed", joint, timed=True,
+                      plain_timed=False)
+    del joint
+    coord["max_abs_err"] = max(coord["max_abs_err"], jres.pop("max_abs_err"))
+    results["coord_agg_bwd"] = {**coord, **{f"joint_{k}": v for k, v in jres.items()}}
     # the GCL kernel on a collapsed complex at the training shapes: full chunks
     dense = kernel_inputs(torch, dev, flagship, 16, 32, lig_sizes=sizes, seed=4,
                           spread=1.0)
@@ -1262,7 +1277,7 @@ def main(argv=None) -> int:
                 print(f"  {name}: {line.strip()}")
     # the 3xTF32 kernels' products run on the tensor cores (HMMA) through
     # cp.async stages (LDGSTS)
-    for name in ("gcl_agg", "coord_agg", "gcl_agg_bwd"):
+    for name in ("gcl_agg", "coord_agg", "gcl_agg_bwd", "coord_agg_bwd"):
         sass = sass_counts(ec, name, ("HMMA", "LDGSTS"))
         print(f"  {name} SASS: {sass['HMMA']} HMMA, {sass['LDGSTS']} LDGSTS instructions")
         _check(sass["HMMA"] > 0 and sass["LDGSTS"] > 0,

@@ -1,5 +1,5 @@
 // Backward of the equivariant coordinate update aggregation (coord_agg.cu),
-// f32, for sm_90a.
+// f32-grade, for sm_90a.
 //
 // Replaces the Pallas TPU kernel `coord_agg_bwd_pallas`
 // (diffsbdd_tpu/ops/egnn_pallas_bwd.py:908).  Given g = dL/d(out) (B, N, 3) it
@@ -29,14 +29,26 @@
 // Pairs with adjacency 0 give exact zeros; rows >= update_rows are not
 // visited, and g there is ignored.
 //
-// What bounds it on an H100: three F x F products per active pair and MLP,
-// 2 * 6*F^2 f32 operations with the cross branch -- bound by operations.
+// What bounds it on an H100: three F x F products per active pair and MLP
+// (forward recompute, dW2, dm1), 2 * 6*F^2 operations with the cross branch --
+// bound by operations.  They run on the tensor cores in 3xTF32
+// (egnn_mma_bwd.cuh: mma.sync TF32, each operand split hi + lo), 3 * 6*F^2
+// tensor-core operations a pair and MLP at 495 TFLOP/s.
 //
-// Design: see egnn_bwd.cuh.  The two MLPs run one after the other on the same
-// shared-memory tiles; everything that crosses row tiles (da_col of both MLPs,
-// dx/dx0, dmean, the weight cotangents) goes through per-block slabs and the
-// summing kernel, without atomics, so the result is deterministic.
-#include "egnn_bwd.cuh"
+// Design: the MLP part of each chunk is egnn_mma_bwd.cuh's, piece for piece
+// (fill_m1, product_sw, dw2_tc, fill_dsilu, dpre_fragments, dpre_sums, the
+// swizzled S and D, W2 then W2^T through one W2BwdRing); only the epilogue of
+// the forward recompute is the coordinate head's.  The block runs the two
+// MLPs one after the other, each over all of its row tiles (two passes), so
+// that only one MLP's state is live at a time.  Everything after the MLPs is
+// linear in them: each pass scatters its own share of the coordinate
+// cotangents -- 2 dd2 (x_i - x_j) and 2 dd20 (x0_i - x0_j) of its first
+// layer; the g_i phi q and norm terms in the coordinate pass; the cross
+// product's terms and dmean in the cross pass.  Everything that crosses row
+// tiles (da_col of both MLPs, dx/dx0, dmean, the weight cotangents) goes
+// through per-block slabs and the summing kernel, without atomics, so the
+// result is deterministic.
+#include "egnn_mma_bwd.cuh"
 
 namespace {
 
@@ -66,194 +78,310 @@ struct CoordBwdArgs {
   float* cw_part;          // (B, Q, weight_slab) or null
 };
 
-// Per-pair geometry of the chunk that the epilogues and the final stage share.
-struct PairGeo {
-  float q[P], dw[P];    // adj / norm, g_i . (x_i - x_j)
-  float qc[P], dwc[P];  // adj / cnorm, g_i . c
-  float phi[P], phic[P];
+// The row tile's and the chunk's shared state, one copy for both passes.
+template <int F>
+struct CoordBwdShared {
+  Chunk chunk;
+  Rows rows;
+  PairD2 dd;
+  float q[P], dw[P];      // adj / norm, g_i . (x_i - x_j); cross: adj / cnorm, g_i . c
+  float phi[P];           // the pair's head output
+  float rowc[P][6], colc[P][6], meanc[P][3];
+  float b2s[F], w3s[F], wd2s[F], wd20s[F];
+  float xpart[2][mma::SLICES][P];  // the slices' shares of the pair dots
+  float grow[TI][3], mean[3];      // g / nf of the tile's rows, 0 past update_rows
 };
 
-template <int F>
-__global__ void __launch_bounds__(NT) coord_agg_bwd_kernel(CoordBwdArgs g) {
-  constexpr int NC = F / 32;
-  extern __shared__ __align__(16) float smem[];
-  float* S = smem;
-  float* D = S + P * F;
-  float* Ws = D + P * F;
-  int* cols = reinterpret_cast<int*>(Ws + KC * F);
-  __shared__ Rows rows;
-  __shared__ Chunk chunk;
-  __shared__ PairD2 dd;
-  __shared__ PairGeo geo;
-  __shared__ float rowc[P][6], colc[P][6], meanc[P][3];
-  __shared__ float grow[TI][3], mean[3];
-
-  const int t = threadIdx.x, lane = t & 31;
-  const int Q = gridDim.x;
-  const size_t node0 = (size_t)blockIdx.y * g.N;
-  const size_t slab = (size_t)blockIdx.y * Q + blockIdx.x;
-  const bool has_cross = g.cross.a_row != nullptr;
+// One row tile of one MLP (the cross MLP when CROSS): rows i0 .. i0+TI-1 of
+// the batch item at node0, slab `slab` of the per-block scratch; the body of
+// egnn_mma_bwd.cuh::gcl_bwd_tile_tc with the coordinate head's epilogue.
+template <int F, bool CROSS>
+__device__ void coord_bwd_tile_tc(const CoordBwdArgs& g, size_t node0, size_t slab, int i0,
+                                  float* S, float* D, int* cols, mma::W2BwdRing<F>& ring,
+                                  mma::GclBwdState& st, CoordBwdShared<F>& sh,
+                                  float& dmean) {
+  using L = mma::Layout<F>;
+  using mma::WM;
+  const PairMlp& m = CROSS ? g.cross : g.coord;
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int rg = warp % mma::ROW_GROUPS, slice = warp / mma::ROW_GROUPS;
+  const int k = t % F, q = t / F;  // the fill layout's feature and column group
   const float nc = g.norm_constant;
-  const MlpBwd mb{g.w2t, g.w_part + slab * weight_slab(F),
-                  g.acol_part + slab * (size_t)g.N * F};
-  const MlpBwd cmb{g.cw2t, has_cross ? g.cw_part + slab * weight_slab(F) : nullptr,
-                   has_cross ? g.ccol_part + slab * (size_t)g.N * F : nullptr};
+  const Chunk& chunk = sh.chunk;
+  const Rows& rows = sh.rows;
+  float* acol_part = (CROSS ? g.ccol_part : g.acol_part) + slab * (size_t)g.N * F;
   float* dx_part = g.dx_part + slab * (size_t)g.N * 6;
+  float* dw2 = (CROSS ? g.cw_part : g.w_part) + slab * weight_slab(F);
 
-  FeatAcc fa{0.0f, 0.0f, 0.0f, 0.0f, 0.0f}, cfa{0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-  float dmean = 0.0f;  // thread t < 3: component t
-  if (t < 3) mean[t] = has_cross ? g.graph_mean[blockIdx.y * 3 + t] : 0.0f;
+  __syncthreads();  // the previous tile is no longer read
+  load_rows(sh.rows, g.x, g.x0, g.mask, g.is_lig, node0, i0, g.N, g.update_rows);
+  if (t < TI * 3) {
+    const int i = i0 + t / 3;
+    sh.grow[t / 3][t % 3] =
+        i < g.N && i < g.update_rows ? g.g[(node0 + i) * 3 + t % 3] * g.inv_nf : 0.0f;
+  }
+  if (CROSS && t < 3) sh.mean[t] = g.graph_mean[blockIdx.y * 3 + t];
+  for (int e = t; e < F; e += NT) {
+    sh.b2s[e] = m.b2[e];
+    sh.w3s[e] = m.head[e];
+    sh.wd2s[e] = m.w_d2[e];
+    sh.wd20s[e] = m.w_d20[e];
+  }
+  const PairWeights w = pair_weights(m, k);
+  float a_row[TI], arow[TI];
+#pragma unroll
+  for (int r = 0; r < TI; ++r) {
+    a_row[r] = i0 + r < g.N ? m.a_row[(node0 + i0 + r) * F + k] : 0.0f;
+    arow[r] = 0.0f;
+  }
+  __syncthreads();
+  const int count = compact_columns(rows, g.x0, g.mask, g.is_lig, node0, g.N, g.cut, cols);
+  float a_col[L::COLS];
+  mma::load_a_col<F>(m, cols, count, 0, node0, a_col);
+  const int ce = (2 * tig) ^ mma::swz(gid);  // C-fragment columns in rows gid, gid + 8
 
-  for (int tile = blockIdx.x; tile < g.tiles; tile += Q) {
-    const int i0 = tile * TI;
-    __syncthreads();  // the previous tile's rows are no longer read
-    load_rows(rows, g.x, g.x0, g.mask, g.is_lig, node0, i0, g.N, g.update_rows);
-    if (t < TI * 3) {
-      const int i = i0 + t / 3;
-      const bool live = i < g.N && i < g.update_rows;
-      grow[t / 3][t % 3] = live ? g.g[(node0 + i) * 3 + t % 3] * g.inv_nf : 0.0f;
-    }
+  for (int c0 = 0; c0 < count; c0 += TJ) {
+    fill_chunk(sh.chunk, rows, g.x, g.x0, g.mask, g.is_lig, node0, cols, count, c0, g.cut);
     __syncthreads();
-    const int count = compact_columns(rows, g.x0, g.mask, g.is_lig, node0, g.N,
-                                      g.cut, cols);
-    float arow[TI], crow[TI];
+    // the chunk's k-steps of 8 pairs that hold an edge
+    static_assert(P == 64, "two ballots cover the chunk");
+    const unsigned e0 = __ballot_sync(0xffffffffu, chunk.j[lane] >= 0),
+                   e1 = __ballot_sync(0xffffffffu, chunk.j[lane + 32] >= 0);
+    unsigned kmask = 0;
 #pragma unroll
-    for (int r = 0; r < TI; ++r) { arow[r] = 0.0f; crow[r] = 0.0f; }
-
-    for (int c0 = 0; c0 < count; c0 += TJ) {
-      fill_chunk(chunk, rows, g.x, g.x0, g.mask, g.is_lig, node0, cols, count, c0,
-                 g.cut);
-      __syncthreads();
-      // ---- pair geometry
-      if (t < P) {
-        const int j = chunk.j[t], k = t / TJ;
-        float q = 0.0f, dw = 0.0f, qc = 0.0f, dwc = 0.0f;
-        if (j >= 0) {
-          const float* xj = g.x + (node0 + j) * 3;
-          q = chunk.adj[t] / (sqrtf(chunk.d2[t] + 1e-8f) + nc);
-          for (int a = 0; a < 3; ++a) dw = fmaf(grow[k][a], rows.x[k][a] - xj[a], dw);
-          if (has_cross) {
-            const float u0 = rows.x[k][0] - mean[0], u1 = rows.x[k][1] - mean[1],
-                        u2 = rows.x[k][2] - mean[2];
-            const float v0 = xj[0] - mean[0], v1 = xj[1] - mean[1], v2 = xj[2] - mean[2];
-            const float cx = u1 * v2 - u2 * v1, cy = u2 * v0 - u0 * v2,
-                        cz = u0 * v1 - u1 * v0;
-            qc = chunk.adj[t] / (sqrtf(cx * cx + cy * cy + cz * cz + 1e-8f) + nc);
-            dwc = grow[k][0] * cx + grow[k][1] * cy + grow[k][2] * cz;
-          }
+    for (int s = 0; s < 4; ++s)
+      kmask |= (((e0 >> (8 * s)) & 0xffu) ? 1u : 0u) << s
+             | (((e1 >> (8 * s)) & 0xffu) ? 1u : 0u) << (s + 4);
+    // ---- pair geometry (read after product 1's first sync)
+    if (t < P) {
+      const int j = chunk.j[t], r = t / TJ;
+      float qv = 0.0f, dw = 0.0f;
+      if (j >= 0) {
+        const float* xj = g.x + (node0 + j) * 3;
+        if (CROSS) {
+          const float u0 = rows.x[r][0] - sh.mean[0], u1 = rows.x[r][1] - sh.mean[1],
+                      u2 = rows.x[r][2] - sh.mean[2];
+          const float v0 = xj[0] - sh.mean[0], v1 = xj[1] - sh.mean[1],
+                      v2 = xj[2] - sh.mean[2];
+          const float cx = u1 * v2 - u2 * v1, cy = u2 * v0 - u0 * v2, cz = u0 * v1 - u1 * v0;
+          qv = chunk.adj[t] / (sqrtf(cx * cx + cy * cy + cz * cz + 1e-8f) + nc);
+          dw = sh.grow[r][0] * cx + sh.grow[r][1] * cy + sh.grow[r][2] * cz;
+        } else {
+          qv = chunk.adj[t] / (sqrtf(chunk.d2[t] + 1e-8f) + nc);
+          for (int a = 0; a < 3; ++a) dw = fmaf(sh.grow[r][a], rows.x[r][a] - xj[a], dw);
         }
-        geo.q[t] = q; geo.dw[t] = dw; geo.qc[t] = qc; geo.dwc[t] = dwc;
-        geo.phi[t] = 0.0f; geo.phic[t] = 0.0f;
-        dd.dd2[t] = 0.0f; dd.dd20[t] = 0.0f;
       }
-      __syncthreads();
+      sh.q[t] = qv;
+      sh.dw[t] = dw;
+    }
+    mma::fill_m1<F>(w, chunk, a_row, a_col, S);
+    float acc[WM][L::NTN][4];
+    mma::product_sw<F>(S, ring, acc);  // z2 - b2 = m1 @ W2
 
-      // dm2 = draw * w3 for the head value raw = m2 . w3 of a pair whose
-      // output weight has the cotangent dphi
-      auto head_epi = [&](const PairMlp& m, float dphi, float* phi_out, int p,
-                          const float (&m2)[NC], float (&dm2)[NC]) -> float {
-        float w3[NC], raw = 0.0f;
+    // ---- epilogue: z2, the head raw = m2 . w3 (a lane-quad shuffle and one
+    // exchange of the slices), phi, draw, dz2 -> D
 #pragma unroll
-        for (int n = 0; n < NC; ++n) {
-          w3[n] = m.head[lane + 32 * n];
-          raw = fmaf(m2[n], w3[n], raw);
+    for (int m_ = 0; m_ < WM; ++m_) {
+      float pr[2] = {0.0f, 0.0f};
+#pragma unroll
+      for (int n = 0; n < L::NTN; ++n) {
+        const int f = slice * L::FW + 8 * n + 2 * tig;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float z = acc[m_][n][e] + sh.b2s[f + (e & 1)];
+          acc[m_][n][e] = z;
+          pr[e >> 1] = fmaf(mma::silu_fast(z), sh.w3s[f + (e & 1)], pr[e >> 1]);
         }
-        raw = warp_sum(raw);
-        float phi = raw, draw = dphi;
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        pr[h] += __shfl_xor_sync(0xffffffffu, pr[h], 1);
+        pr[h] += __shfl_xor_sync(0xffffffffu, pr[h], 2);
+        if (tig == 0) sh.xpart[0][slice][(rg * WM + m_) * 16 + gid + 8 * h] = pr[h];
+      }
+    }
+    __syncthreads();  // the slices' dots are complete
+    float draw[WM][2];  // dL/d(raw) of pairs gid, gid + 8 of each m-tile
+#pragma unroll
+    for (int m_ = 0; m_ < WM; ++m_)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int p = (rg * WM + m_) * 16 + gid + 8 * h;
+        float raw = 0.0f;
+#pragma unroll
+        for (int sl = 0; sl < mma::SLICES; ++sl) raw += sh.xpart[0][sl][p];
+        float phi = raw, d = sh.dw[p] * sh.q[p];  // dphi
         if (g.use_tanh) {
           const float th = tanhf(raw);
           phi = th * g.coords_range;
-          draw = dphi * (1.0f - th * th) * g.coords_range;
+          d *= (1.0f - th * th) * g.coords_range;
         }
-        if (lane == 0) phi_out[p] = phi;
+        draw[m_][h] = d;
+        if (slice == 0 && tig == 0) sh.phi[p] = phi;
+      }
+    float hv[L::NTN][2];  // the lane's share of dw3 over the chunk
 #pragma unroll
-        for (int n = 0; n < NC; ++n) dm2[n] = draw * w3[n];
-        return draw;
-      };
+    for (int n = 0; n < L::NTN; ++n) hv[n][0] = hv[n][1] = 0.0f;
+#pragma unroll
+    for (int m_ = 0; m_ < WM; ++m_)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int p = (rg * WM + m_) * 16 + gid + 8 * h;
+#pragma unroll
+        for (int n = 0; n < L::NTN; ++n) {
+          const int f = slice * L::FW + 8 * n + 2 * tig;
+          float dz2[2];
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const float z = acc[m_][n][2 * h + c];
+            const float s = mma::sigmoid_fast(z);
+            dz2[c] = draw[m_][h] * sh.w3s[f + c] * s * fmaf(z, 1.0f - s, 1.0f);
+            hv[n][c] = fmaf(z * s, draw[m_][h], hv[n][c]);
+          }
+          *reinterpret_cast<float2*>(D + p * F + ((slice * L::FW + 8 * n) ^ ce)) =
+              make_float2(dz2[0], dz2[1]);
+        }
+      }
+    // the 8 lane groups' shares of dw3, added by lanes 0..3
+#pragma unroll
+    for (int n = 0; n < L::NTN; ++n)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        float v = hv[n][c];
+#pragma unroll
+        for (int o = 4; o < 32; o <<= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+        if (gid == 0) st.hvs[rg * F + slice * L::FW + 8 * n + 2 * tig + c] += v;
+      }
+    __syncthreads();  // D complete
+    mma::dw2_tc<F>(S, D, kmask, dw2);
+    __syncthreads();  // S is no longer read
+    mma::fill_dsilu<F>(w, chunk, a_row, a_col, D, S, st.fa.b2);
+    // the next chunk's a_col, or the next tile's first: loaded during product 3
+    mma::load_a_col<F>(m, cols, count, c0 + TJ, node0, a_col);
+    mma::product_sw<F>(D, ring, acc);  // dm1 = dz2 @ W2^T
+    mma::dpre_fragments<F>(acc, S, sh.wd2s, sh.wd20s, sh.xpart);
+    __syncthreads();  // dpre and the pair dots complete
+    if (t < P) {
+      float a = 0.0f, b = 0.0f;
+#pragma unroll
+      for (int sl = 0; sl < mma::SLICES; ++sl) {
+        a += sh.xpart[0][sl][t];
+        b += sh.xpart[1][sl][t];
+      }
+      sh.dd.dd2[t] = a;
+      sh.dd.dd20[t] = b;
+    }
+    mma::dpre_sums<F>(S, chunk, cols, count, c0, arow, st.fa, acol_part);
+    __syncthreads();  // dd complete
 
-      mlp_backward<F>(g.coord, mb, chunk, cols, count, c0, node0, i0, S, D, Ws, dd, fa,
-                      arow,
-                      [&](int p, const float (&m2)[NC], float (&dm2)[NC]) -> float {
-                        return head_epi(g.coord, geo.dw[p] * geo.q[p], geo.phi, p, m2,
-                                        dm2);
-                      });
-      if (has_cross)
-        mlp_backward<F>(g.cross, cmb, chunk, cols, count, c0, node0, i0, S, D, Ws, dd,
-                        cfa, crow,
-                        [&](int p, const float (&m2)[NC], float (&dm2)[NC]) -> float {
-                          return head_epi(g.cross, geo.dwc[p] * geo.qc[p], geo.phic, p,
-                                          m2, dm2);
-                        });
-
-      // ---- per-pair coordinate cotangents
-      if (t < P) {
-        const int j = chunk.j[t], k = t / TJ;
-        for (int a = 0; a < 6; ++a) { rowc[t][a] = 0.0f; colc[t][a] = 0.0f; }
-        for (int a = 0; a < 3; ++a) meanc[t][a] = 0.0f;
-        if (j >= 0) {
-          const float* xj = g.x + (node0 + j) * 3;
-          const float* x0j = g.x0 + (node0 + j) * 3;
+    // ---- this MLP's share of the per-pair coordinate cotangents
+    if (t < P) {
+      const int j = chunk.j[t], r = t / TJ;
+      for (int a = 0; a < 6; ++a) { sh.rowc[t][a] = 0.0f; sh.colc[t][a] = 0.0f; }
+      if (CROSS)
+        for (int a = 0; a < 3; ++a) sh.meanc[t][a] = 0.0f;
+      if (j >= 0) {
+        const float* xj = g.x + (node0 + j) * 3;
+        const float* x0j = g.x0 + (node0 + j) * 3;
+        float dd2 = sh.dd.dd2[t];
+        const float w_ = sh.phi[t] * sh.q[t];
+        if (!CROSS) {
           const float sq = sqrtf(chunk.d2[t] + 1e-8f), norm = sq + nc;
-          const float w = geo.phi[t] * geo.q[t];
-          const float dd2 = dd.dd2[t] - (w / norm) * geo.dw[t] * (0.5f / sq);
+          dd2 -= (w_ / norm) * sh.dw[t] * (0.5f / sq);
+        }
+        for (int a = 0; a < 3; ++a) {
+          float v = 2.0f * dd2 * (rows.x[r][a] - xj[a]);
+          if (!CROSS) v = fmaf(sh.grow[r][a], w_, v);
+          const float v0 = 2.0f * sh.dd.dd20[t] * (rows.x0[r][a] - x0j[a]);
+          sh.rowc[t][a] = v; sh.colc[t][a] = -v;
+          sh.rowc[t][3 + a] = v0; sh.colc[t][3 + a] = -v0;
+        }
+        if (CROSS) {
+          const float u[3] = {rows.x[r][0] - sh.mean[0], rows.x[r][1] - sh.mean[1],
+                              rows.x[r][2] - sh.mean[2]};
+          const float v[3] = {xj[0] - sh.mean[0], xj[1] - sh.mean[1], xj[2] - sh.mean[2]};
+          const float c[3] = {u[1] * v[2] - u[2] * v[1], u[2] * v[0] - u[0] * v[2],
+                              u[0] * v[1] - u[1] * v[0]};
+          const float cn = sqrtf(c[0] * c[0] + c[1] * c[1] + c[2] * c[2] + 1e-8f);
+          const float dcnorm = -(w_ / (cn + nc)) * sh.dw[t];
+          float dc[3];
+          for (int a = 0; a < 3; ++a) dc[a] = w_ * sh.grow[r][a] + dcnorm * c[a] / cn;
+          const float du[3] = {v[1] * dc[2] - v[2] * dc[1], v[2] * dc[0] - v[0] * dc[2],
+                               v[0] * dc[1] - v[1] * dc[0]};
+          const float dv[3] = {dc[1] * u[2] - dc[2] * u[1], dc[2] * u[0] - dc[0] * u[2],
+                               dc[0] * u[1] - dc[1] * u[0]};
           for (int a = 0; a < 3; ++a) {
-            const float v = grow[k][a] * w + 2.0f * dd2 * (rows.x[k][a] - xj[a]);
-            const float v0 = 2.0f * dd.dd20[t] * (rows.x0[k][a] - x0j[a]);
-            rowc[t][a] = v; colc[t][a] = -v;
-            rowc[t][3 + a] = v0; colc[t][3 + a] = -v0;
-          }
-          if (has_cross) {
-            const float u[3] = {rows.x[k][0] - mean[0], rows.x[k][1] - mean[1],
-                                rows.x[k][2] - mean[2]};
-            const float v[3] = {xj[0] - mean[0], xj[1] - mean[1], xj[2] - mean[2]};
-            const float c[3] = {u[1] * v[2] - u[2] * v[1], u[2] * v[0] - u[0] * v[2],
-                                u[0] * v[1] - u[1] * v[0]};
-            const float cn = sqrtf(c[0] * c[0] + c[1] * c[1] + c[2] * c[2] + 1e-8f);
-            const float cnorm = cn + nc;
-            const float wc = geo.phic[t] * geo.qc[t];
-            const float dcnorm = -(wc / cnorm) * geo.dwc[t];
-            float dc[3];
-            for (int a = 0; a < 3; ++a) dc[a] = wc * grow[k][a] + dcnorm * c[a] / cn;
-            const float du[3] = {v[1] * dc[2] - v[2] * dc[1], v[2] * dc[0] - v[0] * dc[2],
-                                 v[0] * dc[1] - v[1] * dc[0]};
-            const float dv[3] = {dc[1] * u[2] - dc[2] * u[1], dc[2] * u[0] - dc[0] * u[2],
-                                 dc[0] * u[1] - dc[1] * u[0]};
-            for (int a = 0; a < 3; ++a) {
-              rowc[t][a] += du[a];
-              colc[t][a] += dv[a];
-              meanc[t][a] = -(du[a] + dv[a]);
-            }
+            sh.rowc[t][a] += du[a];
+            sh.colc[t][a] += dv[a];
+            sh.meanc[t][a] = -(du[a] + dv[a]);
           }
         }
       }
-      __syncthreads();
-      if (t < 3 && has_cross)
-        for (int p = 0; p < P; ++p) dmean += meanc[p][t];
-      scatter_dx(rowc, colc, cols, count, c0, i0, g.N, dx_part);
     }
-
-    if (t < F) {
-      for (int r = 0; r < TI; ++r) {
-        const int i = i0 + r;
-        if (i < g.N && i < g.update_rows) {
-          g.da_row[(node0 + i) * F + t] = arow[r];
-          if (has_cross) g.dc_row[(node0 + i) * F + t] = crow[r];
-        }
-      }
-    }
+    __syncthreads();
+    if (CROSS && t < 3)
+      for (int p = 0; p < P; ++p) dmean += sh.meanc[p][t];
+    scatter_dx(sh.rowc, sh.colc, cols, count, c0, i0, g.N, dx_part);  // ends with a sync
   }
 
-  store_feat_acc<F>(fa, mb.w_part);
-  if (has_cross) {
-    store_feat_acc<F>(cfa, cmb.w_part);
-    if (t < 3) g.mean_part[slab * 3 + t] = dmean;
+  // ---- da_row of the tile's rows: the column groups' row sums, in order
+  float* red = S;  // free: the last chunk ended with a sync
+#pragma unroll
+  for (int r = 0; r < TI; ++r) red[(q * TI + r) * F + k] = arow[r];
+  __syncthreads();
+  if (t < F) {
+    float* da_row = CROSS ? g.dc_row : g.da_row;
+    for (int r = 0; r < TI; ++r) {
+      const int i = i0 + r;
+      if (i >= g.N || i >= g.update_rows) continue;
+      float s = 0.0f;
+      for (int qq = 0; qq < NT / F; ++qq) s += red[(qq * TI + r) * F + t];
+      da_row[(node0 + i) * F + t] = s;
+    }
   }
+}
+
+// One MLP over every row tile of the block (q, b): tiles q, q + Q, ... of
+// batch b, with one ring and one set of sums, stored into the MLP's slab.
+template <int F, bool CROSS>
+__device__ void coord_bwd_pass(const CoordBwdArgs& g, float* S, float* D, float* ring_buf,
+                               int* cols, CoordBwdShared<F>& sh, float* hvs) {
+  const PairMlp& m = CROSS ? g.cross : g.coord;
+  const size_t node0 = (size_t)blockIdx.y * g.N;
+  const size_t slab = (size_t)blockIdx.y * gridDim.x + blockIdx.x;
+  __syncthreads();  // the previous pass has stored its sums
+  for (int e = threadIdx.x; e < mma::ROW_GROUPS * F; e += NT) hvs[e] = 0.0f;
+  mma::GclBwdState st{FeatAcc{0.0f, 0.0f, 0.0f, 0.0f, 0.0f}, hvs, 0.0f};
+  mma::W2BwdRing<F> ring{m.w2, CROSS ? g.cw2t : g.w2t, ring_buf, 0};
+  for (int s = 0; s < mma::NS - 1; ++s) ring.issue();
+  float dmean = 0.0f;  // thread t < 3: component t
+  for (int tile = blockIdx.x; tile < g.tiles; tile += gridDim.x)
+    coord_bwd_tile_tc<F, CROSS>(g, node0, slab, tile * TI, S, D, cols, ring, st, sh, dmean);
+  mma::cp_async_wait_all();  // the ring's look-ahead stage
+  // [dW2][w_d2][w_d20][delta][b2][w3][0]: the GCL's slab layout, no head bias
+  mma::store_gcl_bwd_state<F>(st, (CROSS ? g.cw_part : g.w_part) + slab * weight_slab(F), S);
+  if (CROSS && threadIdx.x < 3) g.mean_part[slab * 3 + threadIdx.x] = dmean;
+}
+
+template <int F>
+__global__ void __launch_bounds__(NT) coord_agg_bwd_kernel(CoordBwdArgs g) {
+  using L = mma::Layout<F>;
+  extern __shared__ __align__(16) float smem[];
+  float* S = smem;                     // P * F
+  float* D = S + P * F;                // P * F
+  float* ring_buf = D + P * F;         // NS * STAGE
+  int* cols = reinterpret_cast<int*>(ring_buf + mma::NS * L::STAGE);  // N
+  __shared__ __align__(16) CoordBwdShared<F> sh;  // 16 B: the fill passes' loads vectorise
+  __shared__ float hvs[mma::ROW_GROUPS * F];
+  coord_bwd_pass<F, false>(g, S, D, ring_buf, cols, sh, hvs);
+  if (g.cross.a_row != nullptr) coord_bwd_pass<F, true>(g, S, D, ring_buf, cols, sh, hvs);
 }
 
 template <int F>
 int launch(const CoordBwdArgs& g, int B, int Q, float* da_col, float* dc_col,
            float* dxx0, float* dmean, float* w_out, float* cw_out, cudaStream_t stream) {
-  const size_t smem = dynamic_smem_bwd<F>(g.N);
+  const size_t smem = mma::dynamic_smem_bwd_tc<F>(g.N);
   cudaError_t err = cudaFuncSetAttribute(
       coord_agg_bwd_kernel<F>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -277,6 +405,8 @@ int launch(const CoordBwdArgs& g, int B, int Q, float* da_col, float* dc_col,
 // *_part buffers, da_row and dc_row must be zero on entry; da_col, dc_col
 // (B, N, F), dxx0 (B, N, 6), dmean (B, 3), w_out and cw_out (weight_slab) are
 // written in full.  Without the cross branch every cross pointer is null.
+// w2 and cw2 (and their transposes) must be 16-byte aligned: they stream
+// through cp.async.
 extern "C" int coord_agg_backward(
     const float* g_out,
     const float* a_row, const float* a_col, const float* w_d2, const float* w_d20,

@@ -61,7 +61,7 @@
 //    sums, in the fill layout.
 //
 // Everything but gcl_bwd_tile_tc's epilogue is the pair MLP's and not the
-// GCL's, so that coord_agg_bwd can run the same pieces once per MLP.
+// GCL's: coord_agg_bwd.cu runs the same pieces once per MLP.
 // W2BwdRing and product_sw repeat egnn_mma.cuh's W2Ring and product_tc with
 // a second matrix and the swizzle: changing those would change the forward
 // kernels' code.

@@ -17,7 +17,8 @@ Two backward kernels carry the other half of a training step:
   (``csrc/gcl_agg_bwd.cu``; its three F x F products, the forward recompute,
   dm1 and dW2, on the tensor cores in 3xTF32, ``csrc/egnn_mma_bwd.cuh``);
 * ``coord_agg_bwd`` -- every cotangent of ``coord_update_agg``, the cross MLP's
-  and the graph mean's included (``csrc/coord_agg_bwd.cu``).
+  and the graph mean's included (``csrc/coord_agg_bwd.cu``; the same three
+  products of each MLP in 3xTF32, on the GCL backward's pieces).
 
 One kernel carries a whole EGNN block on the sampling path:
 
@@ -417,8 +418,11 @@ _MLP_KEYS = ("a_row", "a_col", "w_d2", "w_d20", "delta", "w2", "b2", "w3")
 def coord_agg_bwd_plain(g, a_row, a_col, x, x0, mask, is_lig, w_d2, w_d20, delta,
                         w2, b2, w3, *, cutoffs, tanh, coords_range, norm_constant,
                         normalization_factor, cross=None, graph_mean=None,
-                        update_rows=None):
-    """Plain version of ``coord_agg_bwd``: autograd through the dense twin."""
+                        update_rows=None, matmul=torch.matmul):
+    """Plain version of ``coord_agg_bwd``: autograd through the dense twin.
+    ``matmul`` computes silu(pre) @ w2 of both MLPs, and through its backward
+    their dm1 and dW2 products (tests: the kernel's 3xTF32 products,
+    emulated)."""
     with torch.enable_grad():
         lv = _leaves([a_row, a_col, x, x0, w_d2, w_d20, delta, w2, b2, w3])
         cl, gm, cross_in = [], None, None
@@ -432,7 +436,7 @@ def coord_agg_bwd_plain(g, a_row, a_col, x, x0, mask, is_lig, w_d2, w_d20, delta
             _delta_table(lv[6]), lv[7], lv[8], lv[9], cutoffs=cutoffs, tanh=tanh,
             coords_range=coords_range, norm_constant=norm_constant,
             normalization_factor=normalization_factor, cross=cross_in,
-            graph_mean=gm, update_rows=update_rows)
+            graph_mean=gm, update_rows=update_rows, matmul=matmul)
         grads = _grads(out, g, lv + cl + [gm])
     main = tuple(grads[:len(lv)])
     if cross is None:
@@ -639,6 +643,9 @@ def coord_agg_bwd(g, a_row, a_col, x, x0, mask, is_lig, w_d2, w_d20, delta, w2, 
     _check("coord_agg_bwd",
            dict(g=g, x=x, x0=x0, mask=mask, is_lig=is_lig, graph_mean=gm),
            dict(_node_shapes(B, N), g=(B, N, 3)), dev)
+    for key, w in (("w2", w2), ("cross.w2", c["w2"])):
+        if w is not None and w.data_ptr() % 16:
+            raise ValueError(f"coord_agg_bwd: {key} must be 16-byte aligned (cp.async)")
     rows = _rows(update_rows, N)
     Q = _blocks_per_batch(B, min(rows, N), dev)
     slab = F * F + 6 * F

@@ -102,7 +102,8 @@ def test_kernels_on_a_partial_row_tile(update_rows):
         ec.coord_update_agg_plain(*main.values(), extra["w3"], **coord_kw), **TOL)
 
 
-@pytest.mark.parametrize("kernel", ["gcl", "coord_main", "coord_cross", "gcl_bwd"])
+@pytest.mark.parametrize("kernel", ["gcl", "coord_main", "coord_cross", "gcl_bwd",
+                                    "coord_bwd_main", "coord_bwd_cross"])
 def test_wrappers_reject_a_misaligned_w2(kernel):
     """W2 streams through cp.async in 16-byte pieces: a contiguous W2 that
     starts 4 bytes past an aligned address is refused before any launch."""
@@ -120,6 +121,19 @@ def test_wrappers_reject_a_misaligned_w2(kernel):
             ec.gcl_agg_bwd(torch.ones_like(main["a_row"]), *ops.values(),
                            extra["w_att"], extra["b_att"], cutoffs=CUTOFFS,
                            attention=True, normalization_factor=100.0)
+        elif kernel.startswith("coord_bwd"):
+            ops = _folded(main)
+            cross = _folded_cross(extra["cross"], main["is_lig"], extra["w3"])
+            if kernel == "coord_bwd_main":
+                ops["w2"] = misaligned(ops["w2"])
+            else:
+                cross["w2"] = misaligned(cross["w2"])
+            m = main["mask"]
+            ec.coord_agg_bwd(torch.ones_like(main["x"]), *ops.values(), extra["w3"],
+                             cutoffs=CUTOFFS, tanh=True, coords_range=15.0,
+                             norm_constant=1.0, normalization_factor=100.0, cross=cross,
+                             graph_mean=(main["x"] * m[..., None]).sum(1)
+                             / m.sum(1)[:, None])
         else:
             cross = dict(extra["cross"], w3=extra["w3"])
             if kernel == "coord_main":
@@ -162,6 +176,14 @@ def _folded(main, with_delta=True):
     out = dict(main, a_row=a_row.contiguous(), a_col=a_col.contiguous())
     out["type_bias"] = delta  # same slot, now (F,) or None
     return out
+
+
+def _folded_cross(cross, is_lig, w3, with_delta=True):
+    """The cross MLP's operands as ``coord_agg_bwd`` takes them: its
+    edge-type table folded (``_folded``), delta (F,) or None in its place."""
+    c = _folded(dict(cross, is_lig=is_lig), with_delta)
+    return dict(a_row=c["a_row"], a_col=c["a_col"], w_d2=c["w_d2"], w_d20=c["w_d20"],
+                delta=c["type_bias"], w2=c["w2"], b2=c["b2"], w3=w3)
 
 
 def _assert_cotangents(got, ref):
@@ -213,10 +235,7 @@ def _coord_bwd_case(seed, N, with_cross, tanh, update_rows, with_delta=True, F=F
     ops = _folded(main, with_delta)
     cross = graph_mean = None
     if with_cross:
-        c = _folded(dict(extra["cross"], is_lig=main["is_lig"]), with_delta)
-        cross = dict(a_row=c["a_row"], a_col=c["a_col"], w_d2=c["w_d2"],
-                     w_d20=c["w_d20"], delta=c["type_bias"], w2=c["w2"],
-                     b2=c["b2"], w3=extra["w3"])
+        cross = _folded_cross(extra["cross"], main["is_lig"], extra["w3"], with_delta)
         m = main["mask"]
         graph_mean = (main["x"] * m[..., None]).sum(1) / m.sum(1)[:, None]
     kw = dict(cutoffs=CUTOFFS, tanh=tanh, coords_range=15.0, norm_constant=1.0,
@@ -544,3 +563,31 @@ def test_coord_kernel_at_the_joint_chain_batch(spread):
     """B = 8, every row moves, cross branch on: the launch of the joint chain
     with block fusing off."""
     _coord_case(29, 8, 256, spread, None, True)
+
+
+@pytest.mark.parametrize("width", [64, 256])
+@pytest.mark.parametrize("spread", [4.0, 1.0], ids=["clean", "collapsed"])
+@pytest.mark.parametrize("update_rows", [24, None], ids=["ligand_rows", "all_rows"])
+def test_coord_bwd_kernel_at_flagship_shapes(width, spread, update_rows):
+    """The coordinate backward kernel (3xTF32 on the tensor cores) at N = 344
+    (24 ligand atoms), B = 4, cross branch, tanh and edge-type deltas on: the
+    conditional train step's launch (ligand rows) and the joint one's (every
+    row), every cotangent against autograd through the plain twin; at
+    ``spread`` 1 every pair passes the cutoffs, so every chunk is full.  Two
+    launches agree bit for bit."""
+    main, cross_d, graph_mean = coord_inputs(32, 4, F=width, spread=spread)
+    a_row, a_col, x, x0, mask, is_lig, w_d2, w_d20, table, w2, b2, w3 = main
+    a_row, a_col, delta = ec.fold_type_bias(a_row, a_col, is_lig, table)
+    cross = _folded_cross(cross_d, is_lig, cross_d["w3"])
+    ops = (a_row.contiguous(), a_col.contiguous(), x, x0, mask, is_lig, w_d2, w_d20,
+           delta, w2, b2, w3)
+    kw = dict(COORD_KW, cross=cross, graph_mean=graph_mean, update_rows=update_rows)
+    g = torch.randn(4, 344, 3, generator=torch.Generator().manual_seed(33)).cuda()
+    ec.reset_launch_counts()
+    got = ec.coord_agg_bwd(g, *ops, **kw)
+    again = ec.coord_agg_bwd(g, *ops, **kw)
+    assert ec.launch_counts["coord_agg_bwd"] == 2
+    got, again = _coord_cot(got), _coord_cot(again)
+    for name in got:
+        assert torch.equal(got[name], again[name]), name
+    _assert_cotangents(got, _coord_cot(ec.coord_agg_bwd_plain(g, *ops, **kw)))

@@ -10,8 +10,10 @@ plain version), so that the rounding alone cannot fail it there.  The GCL
 backward kernel (``csrc/egnn_mma_bwd.cuh``) runs three products in 3xTF32,
 the forward recompute, dm1 = dz2 @ W2^T and dW2 = m1^T dz2: its rehearsal
 runs autograd through the twin with all three emulated, against the gate on
-each cotangent (a tenth of BWD_RTOL of its largest entry).  The one-pass
-TF32 error at the same point is printed (``pytest -s``), not asserted.
+each cotangent (a tenth of BWD_RTOL of its largest entry); so does the
+coordinate backward kernel (``csrc/coord_agg_bwd.cu``), the same three
+products for each of its two MLPs.  The one-pass TF32 error at the same
+point is printed (``pytest -s``), not asserted.
 """
 import numpy as np
 import pytest
@@ -180,13 +182,15 @@ class _Matmul3xTF32(torch.autograd.Function):
 
 GCL_COT = ("da_row", "da_col", "dx", "dx0", "dw_d2", "dw_d20", "ddelta", "dw2",
            "db2", "dw_att", "db_att")
+COORD_COT = GCL_COT[:9] + ("dw3",)
 
 
-def bwd_gate_share(got, ref):
-    """The largest error of each cotangent as a share of the card's gate
-    BWD_RTOL * (its largest entry) + 1e-7: the worst share and its name."""
+def bwd_gate_share(got, ref, names=GCL_COT):
+    """The largest error of each cotangent (named by ``names``, in order) as a
+    share of the card's gate BWD_RTOL * (its largest entry) + 1e-7: the worst
+    share and its name."""
     worst, name = 0.0, ""
-    for cname, u, v in zip(GCL_COT, got, ref):
+    for cname, u, v in zip(names, got, ref):
         assert (u is None) == (v is None), cname
         if v is None:
             continue
@@ -220,4 +224,45 @@ def test_gcl_bwd_3xtf32_within_a_tenth_of_the_card_gate(spread):
     share1, name1 = bwd_gate_share(one, ref)
     print(f"\nF={F} spread {spread}: GCL backward, 3xTF32 worst cotangent {name3} "
           f"{share3:.4f} of the gate; 1-pass TF32 {name1} {share1:.4f} of the gate")
+    assert share3 <= 0.1
+
+
+def coord_bwd_cotangents(result):
+    """``coord_agg_bwd_plain``'s (main, cross, dmean) as a flat tuple, with
+    the names ``bwd_gate_share`` takes."""
+    main, cross, dmean = result
+    names = COORD_COT + tuple(f"cross.{k}" for k in cross) + ("dmean",)
+    return names, tuple(main) + tuple(cross.values()) + (dmean,)
+
+
+@pytest.mark.parametrize("spread", [4.0, 1.0], ids=["clean", "collapsed"])
+def test_coord_bwd_3xtf32_within_a_tenth_of_the_card_gate(spread):
+    """Every cotangent of the coordinate update, cross branch, tanh and an
+    edge-type delta on, the ligand rows updated (the conditional train
+    step's launch), with both MLPs' forward recompute, dm1 and dW2 products
+    in emulated 3xTF32, against float32."""
+    main, cross, graph_mean = coord_operands(7, spread)
+    a_row, a_col, delta = ec.fold_type_bias(main["a_row"], main["a_col"],
+                                            main["is_lig"], main["type_bias"])
+    c_row, c_col, c_delta = ec.fold_type_bias(cross["a_row"], cross["a_col"],
+                                              main["is_lig"], cross["type_bias"])
+    args = (a_row, a_col, main["x"], main["x0"], main["mask"], main["is_lig"],
+            main["w_d2"], main["w_d20"], delta, main["w2"], main["b2"], main["w3"])
+    c = dict(a_row=c_row, a_col=c_col, w_d2=cross["w_d2"], w_d20=cross["w_d20"],
+             delta=c_delta, w2=cross["w2"], b2=cross["b2"], w3=cross["w3"])
+    rng = np.random.default_rng(8)
+    g = torch.as_tensor(rng.standard_normal(main["x"].shape).astype(np.float32))
+    kw = dict(cutoffs=CUTOFFS, tanh=True, coords_range=15.0, norm_constant=1.0,
+              normalization_factor=100.0, cross=c, graph_mean=graph_mean,
+              update_rows=8)
+    names, ref = coord_bwd_cotangents(ec.coord_agg_bwd_plain(g, *args, **kw))
+    _, three = coord_bwd_cotangents(ec.coord_agg_bwd_plain(
+        g, *args, **kw, matmul=lambda a, b: _Matmul3xTF32.apply(a, b, 3)))
+    _, one = coord_bwd_cotangents(ec.coord_agg_bwd_plain(
+        g, *args, **kw, matmul=lambda a, b: _Matmul3xTF32.apply(a, b, 1)))
+    share3, name3 = bwd_gate_share(three, ref, names)
+    share1, name1 = bwd_gate_share(one, ref, names)
+    print(f"\nF={F} spread {spread}: coordinate backward, 3xTF32 worst cotangent "
+          f"{name3} {share3:.4f} of the gate; 1-pass TF32 {name1} {share1:.4f} of "
+          f"the gate")
     assert share3 <= 0.1
