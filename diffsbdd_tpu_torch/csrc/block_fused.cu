@@ -1,5 +1,5 @@
 // One whole EGNN block (one GCL, its node MLP, the coordinate update) behind
-// one entry point, f32, for sm_90a.
+// one entry point, f32-grade, for sm_90a.
 //
 // Replaces the Pallas TPU kernel `block_fused_pallas`
 // (diffsbdd_tpu/ops/egnn_block_fused.py:295).  For every node i of every batch
@@ -18,6 +18,13 @@
 // (B, N, F) aggregate never leaves the chip's shared memory, and h' is read
 // back only as the projections phase B needs.
 //
+// What bounds it on an H100: the per-pair F x F products, phase A's GCL MLP
+// on every active pair and phase B's coordinate and cross MLPs on the pairs
+// of the rows that move, as in gcl_agg.cu and coord_agg.cu; the node MLP and
+// the projections add 7 products of B*N x F x F.  Every product runs on the
+// tensor cores in 3xTF32 (egnn_mma.cuh: mma.sync TF32, each operand split
+// hi + lo), with its weights streamed from L2 through cp.async stages.
+//
 // The barrier.  Phase B of a batch item reads la_col / lc_col of all its rows,
 // so it may start only when phase A of that item is complete.  A CUDA grid has
 // no order; the barrier here is the stream: one phase-A kernel and one phase-B
@@ -28,28 +35,44 @@
 // phase B; two ordered launches keep phase B's grid of row tiles, which is
 // what fills the SMs when only the ligand rows move.
 //
-// Phase A.  Grid (ceil(N / rb), B): a block owns rb <= RB = 64 consecutive rows
-// (a multiple of TI).  It runs the GCL row-tile body (gcl_tile, egnn_fwd.cuh)
-// for its rb/TI tiles, the aggregates going to a RB x F shared-memory tile, and
-// then does the node MLP and the projections for all its rows at once: seven
-// RB x F x F products, each weight matrix streamed once per block through the
-// KC-row stage (not once per row tile, which would re-read ~1.75 MB of weights
-// from L2 for every 4 rows).  RB equals P, so the products reuse tile_product
-// unchanged: warp w owns rows 8w .. 8w+7 and every lane F/32 features of each;
-// rows past rb are zeros that nothing reads back.  One block fits an SM (its
-// registers), and a block's time is its tiles' plus the products', which do
-// not depend on rb; so the caller picks the smallest rb whose grid still fits
-// the card at once, and the blocks finish together.
+// Phase A.  A 1-D grid of G blocks (one an SM, ~207 KB of shared memory
+// each) over the B*T row tiles of TI rows, taken in tile-major order (tile u
+// of batch item b is tile u*B + b): block k owns tiles k, k + G, k + 2G, ...,
+// at most RB/TI = 16 of them.  Dealt so, a block's tiles lie far apart in
+// their graphs, and the costly ones (the ligand's rows, which see every
+// ligand atom) and the free ones (the padding at each graph's end) spread
+// over all blocks instead of piling up in the few that own a graph's first
+// or last rows: under one wave the longest block sets the time.  A block
+// runs the GCL row-tile body (mma::gcl_tile_tc) for each of its tiles, the
+// aggregates going to a shared-memory tile of up to RB rows, and then the
+// node MLP and the projections for all its rows at once (a product does not
+// care which graph a row comes from): seven rows x F x F products (five
+// without the cross head) with mma::product_tc in its one-row-group layout --
+// every warp all rows and F/8 features, so that no warp idles at 24 rows --
+// skipping the m-tiles of 16 rows wholly past the block's rows.  The weight
+// matrices stream once per block, in product order, through one cp.async
+// ring (WeightChain): each product's first stage loads during the one
+// before.  h, silu(pre) and h' stay in two shared-memory tiles at the
+// products' row stride, and the epilogues (silu + b0; residual, mask and
+// the write of h'; head bias and type fold) work on the accumulators' C
+// fragments, each row scattered to its node.
 //
-// Phase B.  Grid of row tiles below update_rows, the body of coord_agg.cu
-// (coord_tile).  dx rows at and above update_rows are written as zeros.
-#include "egnn_fwd.cuh"
+// Phase B.  The coordinate update of coord_agg.cu (egnn_coord.cuh): a grid of
+// row tiles below update_rows, with the cross head times its 2 pair MLPs, each
+// writing its own partial slab, and a third launch that adds the slabs.  dx
+// rows at and above update_rows are written as zeros.
+#include "egnn_coord.cuh"
 
 namespace {
 
 using namespace egnn;
 
-constexpr int RB = P;  // most rows a phase-A block owns
+constexpr int RB = P;  // most rows a phase-A block owns: 4 m-tiles of 16
+constexpr int RB_TILES = RB / TI;
+constexpr int RG = 1;  // row groups of the node products' warp layout
+template <int F> using NodeLayout = mma::Layout<F, RG>;
+template <int F>
+using Acc = float[NodeLayout<F>::WM][NodeLayout<F>::NTN][4];
 
 struct Head {          // first layer of a coordinate-type head, split
   const float* k_i;    // (F, F) row part, input-major; null: head absent
@@ -70,59 +93,125 @@ struct PhaseA {
   const float* nw2;    // (F, F)
   const float* nb2;    // (F)
   Head coord, cross;
-  int rb;              // rows a block owns: a multiple of TI, at most RB
+  int B;
   float* out_h;        // (B, N, F)
 };
 
-// (S @ k_i + b0 [+ type fold]) -> head.row, (S @ k_j [+ type fold]) -> head.col
-// for the block's rows; S holds h'.
+// Phase A's dynamic shared memory before its second tile: gcl_tile_tc's (S,
+// which is the first tile, the ring and the column list, N rounded up to 16
+// bytes); the second tile takes RB * SS floats more.
 template <int F>
-__device__ void project_head(const Head& hd, const float* S, float* Ws,
-                             const float* is_lig, size_t node0, int r0, int r1) {
-  constexpr int NC = F / 32;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  float acc[PPW][NC];
-  for (int side = 0; side < 2; ++side) {
-    tile_product<F>(S, side == 0 ? hd.k_i : hd.k_j, Ws, acc);
-    float* dst = side == 0 ? hd.row : hd.col;
-#pragma unroll
-    for (int r = 0; r < PPW; ++r) {
-      const int i = r0 + warp * PPW + r;
-      if (i >= r1) continue;
-      const float lig = is_lig[node0 + i];
-#pragma unroll
-      for (int n = 0; n < NC; ++n) {
-        const int k = lane + 32 * n;
-        float v = acc[r][n];
-        if (side == 0) {
-          v += hd.b0[k];
-          if (hd.tb) v += hd.tb[k] + lig * (hd.tb[2 * F + k] - hd.tb[k]);
-        } else if (hd.tb) {
-          v += lig * (hd.tb[F + k] - hd.tb[k]);
-        }
-        dst[(node0 + i) * F + k] = v;
+__host__ __device__ constexpr size_t second_tile(int N) {
+  return mma::dynamic_smem<F>((N + 3) / 4 * 4) / sizeof(float);
+}
+
+// The weight matrices of phase A's products through one cp.async ring, in
+// the order the products run: stage g holds rows (g % KS) * KC .. + KC of
+// matrix g / KS, so each product's look-ahead stage is the next product's
+// first.  Issue and acquire as mma::W2Ring's; the matrices must be 16-byte
+// aligned.
+template <int F>
+struct WeightChain {
+  using L = NodeLayout<F>;
+  const float* const* mats;  // shared memory: the matrices in product order
+  int count;
+  float* buf;                // NS * STAGE floats
+  int next;                  // next stage to issue
+
+  __device__ __forceinline__ void issue() {
+    constexpr int V = F / 4;  // 16-byte vectors per row
+    if (next / L::KS < count) {
+      float* dst = buf + (next % mma::NS) * L::STAGE;
+      const float* src = mats[next / L::KS] + (size_t)(next % L::KS) * mma::KC * F;
+      for (int e = threadIdx.x; e < mma::KC * V; e += NT) {
+        const int r = e / V, v = e % V;
+        mma::cp_async16(dst + r * L::WS + 4 * v, src + (size_t)r * F + 4 * v);
       }
     }
+    mma::cp_async_commit();  // an empty group past the last matrix
+    ++next;
+  }
+
+  __device__ __forceinline__ const float* acquire() {
+    mma::cp_async_wait<mma::NS - 2>();
+    __syncthreads();
+    const float* stage = buf + ((next - (mma::NS - 1)) % mma::NS) * L::STAGE;
+    issue();
+    return stage;
+  }
+};
+
+// fn(r, f, v) for every accumulator of the warp's m-tiles below `rows`: block
+// row r = 16m + gid (+8), feature f = slice*FW + 8n + 2*tig (+1).  Rows from
+// `rows` to the end of the last m-tile come too.
+template <int F, class Fn>
+__device__ __forceinline__ void for_fragments(const Acc<F>& acc, int rows, Fn fn) {
+  using L = NodeLayout<F>;
+  const int lane = threadIdx.x & 31, slice = threadIdx.x >> 5;
+  const int gid = lane >> 2, tig = lane & 3;
+#pragma unroll
+  for (int m = 0; m < L::WM; ++m) {
+    if (16 * m >= rows) continue;
+#pragma unroll
+    for (int n = 0; n < L::NTN; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        fn(16 * m + gid + 8 * (e >> 1), slice * L::FW + 8 * n + 2 * tig + (e & 1),
+           acc[m][n][e]);
+  }
+}
+
+// (A @ k_i + b0 [+ type fold]) -> head.row, (A @ k_j [+ type fold]) -> head.col
+// for the block's rows (row r is node node_of[r], none if < 0); A holds h',
+// the ring's next two matrices are k_i, k_j.
+template <int F>
+__device__ __forceinline__ void project_head(const Head& hd, const float* A,
+                                             WeightChain<F>& ring, Acc<F>& acc,
+                                             const float* is_lig, const int* node_of,
+                                             int rows) {
+  for (int side = 0; side < 2; ++side) {
+    mma::product_tc<F, RG, true, true>(A, ring, acc, rows);
+    float* dst = side == 0 ? hd.row : hd.col;
+    for_fragments<F>(acc, rows, [&](int r, int f, float v) {
+      const int node = node_of[r];
+      if (node < 0) return;
+      const float lig = is_lig[node];
+      if (side == 0) {
+        v += hd.b0[f];
+        if (hd.tb) v += hd.tb[f] + lig * (hd.tb[2 * F + f] - hd.tb[f]);
+      } else if (hd.tb) {
+        v += lig * (hd.tb[F + f] - hd.tb[f]);
+      }
+      dst[(size_t)node * F + f] = v;
+    });
   }
 }
 
 template <int F>
 __global__ void __launch_bounds__(NT) block_phase_a(PhaseA g) {
-  constexpr int NC = F / 32;
+  using L = NodeLayout<F>;
   extern __shared__ __align__(16) float smem[];
-  float* S = smem;                                   // P * F
-  float* Ws = S + P * F;                             // KC * F
-  float* AGG = Ws + KC * F;                          // RB * F
-  int* cols = reinterpret_cast<int*>(AGG + RB * F);  // N
-
-  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  __shared__ const float* mats[7];
+  __shared__ int node_of[RB];  // node b*N + i of each block row, -1: none
   const int N = g.gcl.N;
-  const int r0 = blockIdx.x * g.rb;              // the block's rows: r0 .. r1-1
-  const int r1 = r0 + g.rb < N ? r0 + g.rb : N;
-  const size_t node0 = (size_t)blockIdx.y * N;
+  float* S = smem;                            // P x SS: gcl_tile_tc's, then h, silu(pre)
+  float* ring_buf = S + P * L::SS;            // gcl_tile_tc's ring, then the chain's
+  float* AGG = smem + second_tile<F>(N);      // RB x SS: the aggregates, then h'
+
+  // the block's row tiles: global tile k + s*G for slot s < slots is tile
+  // (k + s*G) / B of batch item (k + s*G) % B, rows TI*s .. TI*s + TI-1
+  const int t = threadIdx.x;
+  const int tiles = g.B * ((N + TI - 1) / TI);
+  const int slots = (tiles - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;
+  const int rows = slots * TI;
+  if (t < RB) {
+    const int s = t / TI, tile = blockIdx.x + s * gridDim.x;
+    const int i = tile / g.B * TI + t % TI;
+    node_of[t] = s < slots && i < N ? tile % g.B * N + i : -1;
+  }
 
   // the rank-1 terms of the heads' type tables, for phase B
-  if (blockIdx.x == 0 && blockIdx.y == 0 && t < F) {
+  if (blockIdx.x == 0 && t < F) {
     if (g.coord.tb)
       g.coord.delta[t] = g.coord.tb[3 * F + t] - g.coord.tb[2 * F + t]
                        - g.coord.tb[F + t] + g.coord.tb[t];
@@ -132,90 +221,87 @@ __global__ void __launch_bounds__(NT) block_phase_a(PhaseA g) {
   }
 
   // ---- GCL: aggregates of the block's rows -> AGG
-  for (int tile = 0; tile < RB / TI; ++tile) {
-    const int i0 = r0 + tile * TI;
-    float* dst = AGG + tile * TI * F;
-    if (i0 < r1) {
-      gcl_tile<F>(g.gcl, node0, i0, S, Ws, cols, dst, TI);
-    } else {
-      for (int e = t; e < TI * F; e += NT) dst[e] = 0.0f;
-    }
+  for (int s = 0; s < slots; ++s) {
+    const int tile = blockIdx.x + s * gridDim.x, i0 = tile / g.B * TI;
+    mma::gcl_tile_tc<F, L::SS>(g.gcl, (size_t)(tile % g.B) * N, i0, smem,
+                               AGG + s * TI * L::SS, N - i0 < TI ? N - i0 : TI);
   }
 
-  // ---- node MLP on all RB rows: pre = h @ W_h + agg @ W_a + b0
-  for (int e = t; e < RB * F; e += NT) {
-    const int i = r0 + e / F;
-    S[e] = i < r1 ? g.h[(node0 + i) * F + e % F] : 0.0f;
+  // ---- S <- h; the rows of no node, to the end of the last m-tile, are
+  // zeros in both tiles (node_of is visible since the tiles' syncs)
+  const int live = (rows + 15) / 16 * 16;
+  for (int e = t; e < live * F; e += NT) {
+    const int r = e / F, k = e % F, node = node_of[r];
+    S[r * L::SS + k] = node >= 0 ? g.h[(size_t)node * F + k] : 0.0f;
+    if (node < 0) AGG[r * L::SS + k] = 0.0f;
   }
-  float acc[PPW][NC];
-  tile_product<F>(S, g.w_h, Ws, acc);
-  tile_product<F, false>(AGG, g.w_a, Ws, acc);
-  // a warp reads only its own rows of S, and tile_product syncs the block
-  // before its first read, so each warp may rewrite its rows right away
-#pragma unroll
-  for (int r = 0; r < PPW; ++r)
-#pragma unroll
-    for (int n = 0; n < NC; ++n) {
-      const int k = lane + 32 * n;
-      S[(warp * PPW + r) * F + k] = siluf_(acc[r][n] + g.nb0[k]);
-    }
-  tile_product<F>(S, g.nw2, Ws, acc);
-  // h' = (h + upd) * mask -> out_h and S
-#pragma unroll
-  for (int r = 0; r < PPW; ++r) {
-    const int i = r0 + warp * PPW + r;
-    const float m = i < r1 ? g.gcl.mask[node0 + i] : 0.0f;
-#pragma unroll
-    for (int n = 0; n < NC; ++n) {
-      const int k = lane + 32 * n;
-      float v = 0.0f;
-      if (i < r1) {
-        v = (g.h[(node0 + i) * F + k] + acc[r][n] + g.nb2[k]) * m;
-        g.out_h[(node0 + i) * F + k] = v;
-      }
-      S[(warp * PPW + r) * F + k] = v;
-    }
+  if (t == 0) {
+    mats[0] = g.w_h; mats[1] = g.w_a; mats[2] = g.nw2;
+    mats[3] = g.coord.k_i; mats[4] = g.coord.k_j;
+    mats[5] = g.cross.k_i; mats[6] = g.cross.k_j;
   }
+  __syncthreads();  // mats; the GCL tiles' ring reads are done
+  WeightChain<F> ring{mats, g.cross.k_i ? 7 : 5, ring_buf, 0};
+  for (int s = 0; s < mma::NS - 1; ++s) ring.issue();
+
+  // ---- node MLP: pre = h @ W_h + agg @ W_a
+  Acc<F> acc;
+  mma::product_tc<F, RG, true, true>(S, ring, acc, rows);
+  mma::product_tc<F, RG, false, true>(AGG, ring, acc, rows);
+  // S <- silu(pre + b0): every warp is done with S, having passed the second
+  // product's first sync
+  for_fragments<F>(acc, rows, [&](int r, int f, float v) {
+    S[r * L::SS + f] = mma::silu_fast(v + g.nb0[f]);
+  });
+  mma::product_tc<F, RG, true, true>(S, ring, acc, rows);
+  // h' = (h + upd + b2n) * mask -> out_h and AGG, which every warp is done
+  // with since the third product's first sync
+  for_fragments<F>(acc, rows, [&](int r, int f, float v) {
+    const int node = node_of[r];
+    if (node < 0) return;
+    const size_t i = node;
+    v = (g.h[i * F + f] + v + g.nb2[f]) * g.gcl.mask[i];
+    g.out_h[i * F + f] = v;
+    AGG[r * L::SS + f] = v;
+  });
 
   // ---- first-layer projections of the coordinate and cross heads
-  project_head<F>(g.coord, S, Ws, g.gcl.is_lig, node0, r0, r1);
-  if (g.cross.k_i) project_head<F>(g.cross, S, Ws, g.gcl.is_lig, node0, r0, r1);
+  project_head<F>(g.coord, AGG, ring, acc, g.gcl.is_lig, node_of, rows);
+  if (g.cross.k_i) project_head<F>(g.cross, AGG, ring, acc, g.gcl.is_lig, node_of, rows);
+  mma::cp_async_wait_all();  // the ring's empty look-ahead group
 }
 
-template <int F>
-__global__ void __launch_bounds__(NT) block_phase_b(CoordArgs g) {
+// The body (coord_update_block) is coord_agg.cu's, in egnn_coord.cuh.
+template <int F, bool CROSS>
+__global__ void __launch_bounds__(NT) block_phase_b(CoordArgs g, float* partial) {
   extern __shared__ __align__(16) float smem[];
-  float* S = smem;                                  // P * F
-  float* Ws = S + P * F;                            // KC * F
-  int* cols = reinterpret_cast<int*>(Ws + KC * F);  // N
-
-  coord_tile<F>(g, blockIdx.y, blockIdx.x * TI, S, Ws, cols);
-  zero_rows_past_grid(g.out, (size_t)blockIdx.y * g.N, g.N, 3);
+  coord_update_block<F, CROSS>(g, partial, smem);
 }
 
 template <int F>
-int launch(const PhaseA& a, const CoordArgs& b, int B, cudaStream_t stream) {
-  const int N = a.gcl.N;
-  const size_t smem_a = dynamic_smem<F>(N) + sizeof(float) * (size_t)RB * F;
-  const size_t smem_b = dynamic_smem<F>(N);
+int launch(const PhaseA& a, const CoordArgs& b, int blocks, float* partial,
+           cudaStream_t stream) {
+  const int N = a.gcl.N, B = a.B;
+  const int tiles = B * ((N + TI - 1) / TI);
+  if (blocks <= 0 || blocks > tiles || (tiles + blocks - 1) / blocks > RB_TILES)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem_a = sizeof(float) * (second_tile<F>(N) + (size_t)RB * NodeLayout<F>::SS);
   cudaError_t err = cudaFuncSetAttribute(
       block_phase_a<F>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_a);
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(
-      block_phase_b<F>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_b);
-  if (err != cudaSuccess) return (int)err;
-  if (a.rb <= 0 || a.rb > RB || a.rb % TI != 0) return (int)cudaErrorInvalidValue;
-  block_phase_a<F><<<dim3((N + a.rb - 1) / a.rb, B), NT, smem_a, stream>>>(a);
+  block_phase_a<F><<<blocks, NT, smem_a, stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   // same stream: phase B starts when every block of phase A has finished
-  block_phase_b<F><<<row_tile_grid(N, b.update_rows, B), NT, smem_b, stream>>>(b);
-  return (int)cudaGetLastError();
+  if (b.cross.a_row == nullptr)
+    return launch_coord_update<F, false>(block_phase_b<F, false>, b, B, partial, stream);
+  return launch_coord_update<F, true>(block_phase_b<F, true>, b, B, partial, stream);
 }
 
 }  // namespace
 
-// scratch: 4*B*N*F + 2*F floats (la_row, la_col, lc_row, lc_col, the two deltas).
+// scratch: 4*B*N*F + 2*F + 2*B*N*3 floats (la_row, la_col, lc_row, lc_col, the
+// two deltas, phase B's two partial slabs).
 extern "C" int block_fused_forward(
     const float* h, const float* a_row, const float* a_col, const float* x,
     const float* x0, const float* mask, const float* is_lig,
@@ -232,7 +318,7 @@ extern "C" int block_fused_forward(
     const float* graph_mean, float* scratch,
     int use_tanh, float coords_range, float norm_constant, float nf,
     float cut_ll, float cut_pp, float cut_lp,
-    int B, int N, int F, int update_rows, int rows_per_block, float* out_h,
+    int B, int N, int F, int update_rows, int blocks, float* out_h,
     float* out_dx, void* stream) {
   const size_t plane = (size_t)B * N * F;
   float* la_row = scratch;
@@ -241,6 +327,7 @@ extern "C" int block_fused_forward(
   float* lc_col = scratch + 3 * plane;
   float* l_delta = scratch + 4 * plane;
   float* c_delta = l_delta + F;
+  float* partial = c_delta + F;
   const Cutoffs cut{cut_ll, cut_pp, cut_lp};
   const bool has_cross = ck_i != nullptr;
 
@@ -250,7 +337,7 @@ extern "C" int block_fused_forward(
   a.h = h; a.w_h = nw_h; a.w_a = nw_a; a.nb0 = nb0; a.nw2 = nw2; a.nb2 = nb2;
   a.coord = Head{lk_i, lk_j, lb0, ltb, la_row, la_col, l_delta};
   a.cross = Head{ck_i, ck_j, cb0, ctb, lc_row, lc_col, c_delta};
-  a.rb = rows_per_block;
+  a.B = B;
   a.out_h = out_h;
 
   CoordArgs b;
@@ -265,8 +352,8 @@ extern "C" int block_fused_forward(
 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (F) {
-    case 64: return launch<64>(a, b, B, s);
-    case 256: return launch<256>(a, b, B, s);
+    case 64: return launch<64>(a, b, blocks, partial, s);
+    case 256: return launch<256>(a, b, blocks, partial, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

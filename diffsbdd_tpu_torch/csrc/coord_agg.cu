@@ -42,63 +42,30 @@
 //   through a cp.async ring, and a head epilogue silu(acc + b2) . w3
 //   (lane-quad shuffles, one exchange of the feature slices through shared
 //   memory) in place of the GCL's gated row sum;
-// * the per-pair terms (tanh, norms, cross product) and the fixed-order row
-//   sums are coord_tile's (egnn_fwd.cuh, which block_fused.cu still runs).
+// * the per-pair terms (tanh, norms, cross product) and the row sums in a
+//   fixed order close each chunk.
 // Rows >= update_rows are written as zeros (the conditional model updates
 // ligand rows only, and nodes are ligand-first).
-#include "egnn_mma.cuh"
+#include "egnn_coord.cuh"
 
 namespace {
 
 using namespace egnn;
 
-// The row-tile body (coord_tile_tc) is in egnn_mma.cuh.  With the cross
-// branch, blockIdx.z picks the MLP and its slab of `partial`.
+// The block body (coord_update_block, on mma::coord_tile_tc), the launch and
+// the sum of the partial slabs are in egnn_coord.cuh.
 template <int F, bool CROSS>
 __global__ void __launch_bounds__(NT) coord_agg_kernel(CoordArgs g, float* partial) {
   extern __shared__ __align__(16) float smem[];
-  const int i0 = blockIdx.x * TI;
-  if constexpr (CROSS) {
-    g.out = partial + (size_t)blockIdx.z * gridDim.y * g.N * 3;
-    if (blockIdx.z == 0)
-      mma::coord_tile_tc<F, false>(g, blockIdx.y, i0, smem);
-    else
-      mma::coord_tile_tc<F, true>(g, blockIdx.y, i0, smem);
-  } else {
-    mma::coord_tile_tc<F, false>(g, blockIdx.y, i0, smem);
-  }
-  zero_rows_past_grid(g.out, (size_t)blockIdx.y * g.N, g.N, 3);
-}
-
-// out = partial[0] + partial[1], n floats each
-__global__ void add_partials(const float* partial, size_t n, float* out) {
-  for (size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x; e < n;
-       e += (size_t)gridDim.x * blockDim.x)
-    out[e] = partial[e] + partial[n + e];
-}
-
-template <int F, bool CROSS>
-int launch(const CoordArgs& g, int B, float* partial, cudaStream_t stream) {
-  const size_t smem = mma::dynamic_smem<F>(g.N);
-  cudaError_t err = cudaFuncSetAttribute(
-      coord_agg_kernel<F, CROSS>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid = row_tile_grid(g.N, g.update_rows, B);
-  grid.z = CROSS ? 2 : 1;
-  coord_agg_kernel<F, CROSS><<<grid, NT, smem, stream>>>(g, partial);
-  if constexpr (CROSS) {
-    const size_t n = (size_t)B * g.N * 3;
-    const int blocks = (int)((n + NT - 1) / NT < 1024 ? (n + NT - 1) / NT : 1024);
-    add_partials<<<blocks, NT, 0, stream>>>(partial, n, g.out);
-  }
-  return (int)cudaGetLastError();
+  coord_update_block<F, CROSS>(g, partial, smem);
 }
 
 template <int F>
 int launch(const CoordArgs& g, int B, float* partial, cudaStream_t stream) {
-  if (g.cross.a_row == nullptr) return launch<F, false>(g, B, partial, stream);
+  if (g.cross.a_row == nullptr)
+    return launch_coord_update<F, false>(coord_agg_kernel<F, false>, g, B, partial, stream);
   if (partial == nullptr) return (int)cudaErrorInvalidValue;
-  return launch<F, true>(g, B, partial, stream);
+  return launch_coord_update<F, true>(coord_agg_kernel<F, true>, g, B, partial, stream);
 }
 
 }  // namespace

@@ -1,21 +1,20 @@
 // Device code shared by every kernel: the forward kernels gcl_agg.cu,
-// coord_agg.cu and block_fused.cu through egnn_fwd.cuh, the backward kernels
-// through egnn_bwd.cuh; f32, for sm_90a.
+// coord_agg.cu and block_fused.cu through egnn_mma.cuh, the backward kernels
+// through egnn_bwd.cuh; for sm_90a.
 //
-// All kernels tile the same way: one block per (batch, tile of TI rows below
-// update_rows).  A block first compacts the columns adjacent to any of its rows (cutoffs on
-// the EGNN input coordinates x0, ascending j), then walks them in chunks of TJ
-// columns = P pairs.  For each chunk it computes the pair geometry and the
+// All kernels tile the same way: a block works on one tile of TI rows (below
+// update_rows) of one batch item at a time.  It first compacts the columns
+// adjacent to any of its rows (cutoffs on the EGNN input coordinates x0,
+// ascending j), then walks them in chunks of TJ columns = P pairs.  For each chunk it computes the pair geometry and the
 // first two layers of a pair MLP:
 //
 //   pre_ij = a_row_i + a_col_j + d2_ij*w_d2 + d20_ij*w_d20 [+ lig_i*lig_j*delta]
 //   acc_ij = silu(pre_ij) @ W2
 //
 // with silu(pre) of the chunk's P pairs in shared memory and W2 (256 KB at
-// F = 256, more than a block's shared memory) streamed in KC-row stages.
-// Each warp owns PPW pairs of one row and all F output features (F/32 per
-// lane), so a head dot over the features is a warp shuffle reduction.  The
-// kernels differ only in what they do with acc (their epilogues).
+// F = 256, more than a block's shared memory) streamed in stages; the
+// product runs on the tensor cores (egnn_mma.cuh, egnn_mma_bwd.cuh).  The
+// kernels differ in what they do with acc (their epilogues).
 #pragma once
 #include <cuda_runtime.h>
 
@@ -24,13 +23,7 @@ namespace egnn {
 constexpr int TI = 4;               // rows per block
 constexpr int TJ = 16;              // compacted columns per chunk
 constexpr int P = TI * TJ;          // pairs per chunk
-constexpr int NT = 256;             // threads per block (8 warps x 8 pairs = P)
-constexpr int KC = 16;              // W2 rows per shared-memory stage
-constexpr int PPW = P / (NT / 32);  // pairs per warp
-static_assert(PPW == 8 && TJ % PPW == 0, "a warp's pairs share one row");
-
-__device__ __forceinline__ float sigmoidf_(float v) { return 1.0f / (1.0f + expf(-v)); }
-__device__ __forceinline__ float siluf_(float v) { return v / (1.0f + expf(-v)); }
+constexpr int NT = 256;             // threads per block (8 warps)
 
 struct Cutoffs { float ll, pp, lp; };  // squared distance cutoffs, < 0 for none
 
@@ -166,82 +159,6 @@ __device__ __forceinline__ PairWeights pair_weights(const PairMlp& m, int k) {
   return PairWeights{m.w_d2[k], m.w_d20[k], m.delta ? m.delta[k] : 0.0f};
 }
 
-// pre_ij[k] of pair p of the chunk (which must have an edge: c.j[p] >= 0).
-template <int F>
-__device__ __forceinline__ float pre_value(const PairMlp& m, const PairWeights& w,
-                                           const Chunk& c, int p, int k, size_t node0,
-                                           int i0) {
-  const int i = i0 + p / TJ, j = c.j[p];
-  float pre = m.a_row[(node0 + i) * F + k] + m.a_col[(node0 + j) * F + k]
-            + c.d2[p] * w.w_d2 + c.d20[p] * w.w_d20;
-  if (m.delta) pre += c.ll[p] * w.delta;
-  return pre;
-}
-
-// acc[r][n] = (A @ W) for pair warp*PPW + r and feature lane + 32n: A (P x F)
-// in shared memory, W (F x F, row-major) in global memory, streamed through
-// the shared-memory stage Ws (KC*F floats).  Syncs before it first reads A;
-// the caller syncs again before it rewrites A or Ws.  With ZERO false the
-// product is added to what acc holds.
-template <int F, bool ZERO = true>
-__device__ __forceinline__ void tile_product(const float* A, const float* W, float* Ws,
-                                             float (&acc)[PPW][F / 32]) {
-  constexpr int NC = F / 32;
-  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-  if (ZERO) {
-#pragma unroll
-    for (int r = 0; r < PPW; ++r)
-#pragma unroll
-      for (int n = 0; n < NC; ++n) acc[r][n] = 0.0f;
-  }
-
-  for (int kc = 0; kc < F; kc += KC) {
-    __syncthreads();  // A complete / previous stage consumed
-    for (int e = t * 4; e < KC * F; e += NT * 4)
-      *reinterpret_cast<float4*>(Ws + e) =
-          *reinterpret_cast<const float4*>(W + (size_t)kc * F + e);
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < KC; kk += 4) {
-      float4 s4[PPW];
-#pragma unroll
-      for (int r = 0; r < PPW; ++r)
-        s4[r] = *reinterpret_cast<const float4*>(A + (warp * PPW + r) * F + kc + kk);
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        float wv[NC];
-#pragma unroll
-        for (int n = 0; n < NC; ++n) wv[n] = Ws[(kk + q) * F + lane + 32 * n];
-#pragma unroll
-        for (int r = 0; r < PPW; ++r) {
-          float sv = q == 0 ? s4[r].x : q == 1 ? s4[r].y : q == 2 ? s4[r].z : s4[r].w;
-#pragma unroll
-          for (int n = 0; n < NC; ++n) acc[r][n] = fmaf(sv, wv[n], acc[r][n]);
-        }
-      }
-    }
-  }
-}
-
-// acc[r][n] = (silu(pre) @ W2) for pair warp*PPW + r and feature lane + 32n.
-// S (P*F floats) and Ws (KC*F floats) are shared-memory scratch; S is left
-// holding silu(pre), zero for pairs without an edge.  The chunk must be filled
-// and synced; the caller syncs again before it rewrites the chunk or S.
-template <int F>
-__device__ __forceinline__ void pair_product(const PairMlp& m, const Chunk& c,
-                                             size_t node0, int i0, float* S,
-                                             float* Ws, float (&acc)[PPW][F / 32]) {
-  static_assert(NT % F == 0, "a thread fills one feature of S");
-  const int t = threadIdx.x;
-  const int kS = t % F;  // the feature this thread fills in S
-  const PairWeights w = pair_weights(m, kS);
-  for (int e = t; e < P * F; e += NT) {
-    const int p = e / F;
-    S[e] = c.j[p] >= 0 ? siluf_(pre_value<F>(m, w, c, p, kS, node0, i0)) : 0.0f;
-  }
-  tile_product<F>(S, m.w2, Ws, acc);
-}
-
 // Rows >= update_rows have no edges, so the grid covers only the row tiles
 // below update_rows (dead blocks would crowd the live ones onto fewer SMs);
 // the blocks share the zeroing of the rows past their tiles, W floats a row.
@@ -259,13 +176,6 @@ __device__ __forceinline__ void zero_rows_past_grid(float* out, size_t node0, in
   const int n = (N - tail0) * W;
   for (int e = blockIdx.x * NT + threadIdx.x; e < n; e += gridDim.x * NT)
     tail[e] = 0.0f;
-}
-
-// Dynamic shared memory of either kernel: S, the W2 stage and the compacted
-// column list.
-template <int F>
-constexpr size_t dynamic_smem(int N) {
-  return sizeof(float) * ((size_t)P * F + (size_t)KC * F) + sizeof(int) * (size_t)N;
 }
 
 }  // namespace egnn

@@ -1,0 +1,63 @@
+// The coordinate update over blockIdx.z, shared by coord_agg.cu and
+// block_fused.cu's phase B; f32-grade, for sm_90a.
+//
+// With the cross branch, block (x, y, z) runs pair MLP z (0: coordinate, 1:
+// cross; mma::coord_tile_tc) on row tile x of batch item y and writes the row
+// sums of its term to slab z of `partial` (2 x (B, N, 3) floats), and a
+// second kernel adds the two slabs in a fixed order.  Without it the grid has
+// one z and writes the output directly.  A block owns its rows, so nothing
+// needs atomics and the result is deterministic.
+#pragma once
+#include "egnn_mma.cuh"
+
+namespace egnn {
+
+// One block of the update: row tile blockIdx.x of batch item blockIdx.y, the
+// pair MLP of blockIdx.z, and the block's share of the zeros of the rows past
+// the grid.  g is the kernel's own argument (its out is set to the slab).
+// smem: mma::dynamic_smem<F>(N) bytes.
+template <int F, bool CROSS>
+__device__ __forceinline__ void coord_update_block(CoordArgs& g, float* partial,
+                                                   float* smem) {
+  const int i0 = blockIdx.x * TI;
+  if constexpr (CROSS) {
+    g.out = partial + (size_t)blockIdx.z * gridDim.y * g.N * 3;
+    if (blockIdx.z == 0)
+      mma::coord_tile_tc<F, false>(g, blockIdx.y, i0, smem);
+    else
+      mma::coord_tile_tc<F, true>(g, blockIdx.y, i0, smem);
+  } else {
+    mma::coord_tile_tc<F, false>(g, blockIdx.y, i0, smem);
+  }
+  zero_rows_past_grid(g.out, (size_t)blockIdx.y * g.N, g.N, 3);
+}
+
+// out = partial[0] + partial[1], n floats each
+__global__ void add_partials(const float* partial, size_t n, float* out) {
+  for (size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x; e < n;
+       e += (size_t)gridDim.x * blockDim.x)
+    out[e] = partial[e] + partial[n + e];
+}
+
+// Launches `kernel`, whose blocks are coord_update_block<F, CROSS>, on the row
+// tiles below update_rows (times the 2 pair MLPs with CROSS), then with CROSS
+// the sum of the two slabs into g.out.  Returns the CUDA error code.
+template <int F, bool CROSS>
+int launch_coord_update(void (*kernel)(CoordArgs, float*), const CoordArgs& g, int B,
+                        float* partial, cudaStream_t stream) {
+  const size_t smem = mma::dynamic_smem<F>(g.N);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid = row_tile_grid(g.N, g.update_rows, B);
+  grid.z = CROSS ? 2 : 1;
+  kernel<<<grid, NT, smem, stream>>>(g, partial);
+  if constexpr (CROSS) {
+    const size_t n = (size_t)B * g.N * 3;
+    const int blocks = (int)((n + NT - 1) / NT < 1024 ? (n + NT - 1) / NT : 1024);
+    add_partials<<<blocks, NT, 0, stream>>>(partial, n, g.out);
+  }
+  return (int)cudaGetLastError();
+}
+
+}  // namespace egnn

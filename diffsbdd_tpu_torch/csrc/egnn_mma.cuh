@@ -1,6 +1,6 @@
 // The per-pair product on Hopper's tensor cores, and the two row-tile bodies
-// that run on it, GCL (gcl_agg.cu) and coordinate update (coord_agg.cu);
-// f32-grade, for sm_90a.
+// that run on it, GCL (gcl_agg.cu, block_fused.cu's phase A) and coordinate
+// update (coord_agg.cu, block_fused.cu's phase B); f32-grade, for sm_90a.
 //
 // Product: silu(pre) (P x F, shared memory) @ W2 (F x F, global memory) with
 // warp-level mma.sync.m16n8k8 in TF32, each operand split into hi + lo TF32
@@ -14,7 +14,10 @@
 // 4 f32 accumulators each.  The gated row sums stay in the warp's registers
 // across chunks; the attention dot is a lane-quad shuffle plus one exchange
 // of the four slices through shared memory.  (One row and F/2 a warp loads
-// and splits each W2 element in four warps, two rows and F/4 in two.)
+// and splits each W2 element in four warps, two rows and F/4 in two.)  The
+// node products of block_fused.cu take the other layout of product_tc, one
+// row group x 8 slices (every warp all rows, F/8 features), and skip the
+// m-tiles past the rows a block owns.
 //
 // W2 streams through a ring of NS shared-memory stages of KC rows filled with
 // cp.async (16 B, commit/wait groups): the copy of the next stage is in
@@ -25,9 +28,40 @@
 // fragment loads are free of bank conflicts.
 #pragma once
 #include <cstdint>
-#include "egnn_fwd.cuh"
+#include "egnn_common.cuh"
 
 namespace egnn {
+
+// The arguments of the two row-tile bodies below.
+struct GclArgs {
+  PairMlp mlp;            // head = w_att, null when attention is off
+  const float* b_att;     // (1) or null when attention is off
+  const float* x;         // (B, N, 3) current coordinates
+  const float* x0;        // (B, N, 3) EGNN input coordinates
+  const float* mask;      // (B, N) row validity
+  const float* col_mask;  // (B, N) column validity
+  const float* is_lig;    // (B, N)
+  Cutoffs cut;
+  float nf;               // normalization factor
+  int N;
+  int update_rows;        // rows >= update_rows have no edges: zeros
+  float* out;             // (B, N, F), the split kernel's output
+};
+
+struct CoordArgs {
+  PairMlp coord, cross;    // head = w3; cross.a_row == null: reflection-equivariant
+  const float* x;          // (B, N, 3)
+  const float* x0;         // (B, N, 3)
+  const float* mask;       // (B, N)
+  const float* is_lig;     // (B, N)
+  const float* graph_mean; // (B, 3) or null
+  int use_tanh;
+  float coords_range, norm_constant, nf;
+  Cutoffs cut;
+  int N, update_rows;
+  float* out;              // (B, N, 3)
+};
+
 namespace mma {
 
 constexpr int KC = 32;  // W2 rows per stage (4 k-steps of 8)
@@ -39,11 +73,14 @@ constexpr int SLICES = (NT / 32) / ROW_GROUPS;  // feature slices
 static_assert(TJ == 16 && M_TILES % WM == 0 && (NT / 32) % ROW_GROUPS == 0,
               "warps = row groups x feature slices");
 
-template <int F> struct Layout {
+// RG: row groups of the products' warp layout (the pair MLPs' 2 above, or 1
+// for block_fused.cu's node products: every warp all rows, F/8 features).
+template <int F, int RG = ROW_GROUPS> struct Layout {
   static constexpr int SS = F + 4;       // S row stride (floats)
   static constexpr int WS = F + 8;       // stage row stride (floats)
   static constexpr int KS = F / KC;      // stages per chunk
-  static constexpr int FW = F / SLICES;  // features a warp owns
+  static constexpr int WM = M_TILES / RG;          // m-tiles a warp owns
+  static constexpr int FW = F / ((NT / 32) / RG);  // features a warp owns
   static constexpr int NTN = FW / 8;     // its n-tiles of 8
   static constexpr int NG = NTN < 8 ? NTN : 8;  // n-tiles split at a time
   static constexpr int COLS = TJ * F / NT;  // a_col entries a thread fills
@@ -52,7 +89,7 @@ template <int F> struct Layout {
 
 // Dynamic shared memory of gcl_tile_tc: S, the W2 ring, the column list.
 template <int F>
-constexpr size_t dynamic_smem(int N) {
+__host__ __device__ constexpr size_t dynamic_smem(int N) {
   return sizeof(float) * ((size_t)P * Layout<F>::SS + (size_t)NS * Layout<F>::STAGE)
        + sizeof(int) * (size_t)N;
 }
@@ -127,23 +164,34 @@ struct W2Ring {
   }
 };
 
-// acc[m][n][.] (+)= (S @ W2) for the C fragment of the warp's m-tile m and
-// n-tile n: pairs 16*(rg*WM + m) + (gid, gid, gid+8, gid+8) and features
-// slice*FW + 8n + 2*tig + (0, 1, 0, 1), where warp = slice*ROW_GROUPS + rg.
-// S must be complete before the first acquire's sync.
-template <int F>
-__device__ __forceinline__ void product_tc(const float* S, W2Ring<F>& ring,
-                                           float (&acc)[WM][Layout<F>::NTN][4]) {
-  using L = Layout<F>;
+// acc[m][n][.] = S @ W2 (ZERO; else +=) for the C fragment of the warp's
+// m-tile m and n-tile n in Layout<F, RG>: rows 16*(rg*WM + m) + (gid, gid,
+// gid+8, gid+8) and features slice*FW + 8n + 2*tig + (0, 1, 0, 1), where
+// warp = slice*RG + rg.  S (rows at stride SS) must be complete before the
+// first acquire's sync.  With PARTIAL only the m-tiles that start below
+// `rows` are computed; the others' accumulators are left as they are.  Ring:
+// W2Ring, or any ring with its acquire().
+template <int F, int RG = ROW_GROUPS, bool ZERO = true, bool PARTIAL = false,
+          class Ring>
+__device__ __forceinline__ void product_tc(
+    const float* S, Ring& ring, float (&acc)[Layout<F, RG>::WM][Layout<F, RG>::NTN][4],
+    int rows = P) {
+  using L = Layout<F, RG>;
+  constexpr int WM = L::WM;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int gid = lane >> 2, tig = lane & 3;
-  const int rg = warp % ROW_GROUPS, slice = warp / ROW_GROUPS;
+  const int rg = warp % RG, slice = warp / RG;
+  bool live[WM];
 #pragma unroll
-  for (int m = 0; m < WM; ++m)
+  for (int m = 0; m < WM; ++m) live[m] = !PARTIAL || (rg * WM + m) * 16 < rows;
+  if (ZERO) {
 #pragma unroll
-    for (int n = 0; n < L::NTN; ++n)
+    for (int m = 0; m < WM; ++m)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[m][n][e] = 0.0f;
+      for (int n = 0; n < L::NTN; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[m][n][e] = 0.0f;
+  }
 
   const float* a_base = S + (rg * WM * 16 + gid) * L::SS + tig;
   for (int ks = 0; ks < L::KS; ++ks) {
@@ -154,6 +202,7 @@ __device__ __forceinline__ void product_tc(const float* S, W2Ring<F>& ring,
       uint32_t a_hi[WM][4], a_lo[WM][4];
 #pragma unroll
       for (int m = 0; m < WM; ++m) {
+        if (!live[m]) continue;
         const float* a = a_base + m * 16 * L::SS + ks * KC + kk;
         split(a[0], a_hi[m][0], a_lo[m][0]);
         split(a[8 * L::SS], a_hi[m][1], a_lo[m][1]);
@@ -176,17 +225,17 @@ __device__ __forceinline__ void product_tc(const float* S, W2Ring<F>& ring,
         for (int m = 0; m < WM; ++m)
 #pragma unroll
           for (int n = 0; n < L::NG; ++n)
-            mma_tf32(acc[m][n0 + n], a_lo[m], b_hi[n][0], b_hi[n][1]);
+            if (live[m]) mma_tf32(acc[m][n0 + n], a_lo[m], b_hi[n][0], b_hi[n][1]);
 #pragma unroll
         for (int m = 0; m < WM; ++m)
 #pragma unroll
           for (int n = 0; n < L::NG; ++n)
-            mma_tf32(acc[m][n0 + n], a_hi[m], b_lo[n][0], b_lo[n][1]);
+            if (live[m]) mma_tf32(acc[m][n0 + n], a_hi[m], b_lo[n][0], b_lo[n][1]);
 #pragma unroll
         for (int m = 0; m < WM; ++m)
 #pragma unroll
           for (int n = 0; n < L::NG; ++n)
-            mma_tf32(acc[m][n0 + n], a_hi[m], b_hi[n][0], b_hi[n][1]);
+            if (live[m]) mma_tf32(acc[m][n0 + n], a_hi[m], b_hi[n][0], b_hi[n][1]);
       }
     }
   }
@@ -244,10 +293,10 @@ __device__ __forceinline__ void fill_s(const PairWeights& w, const Chunk& c,
   }
 }
 
-// gcl_tile on the tensor cores: the aggregated messages of rows i0 ..
-// i0+TI-1 of the batch item at node0 -> dst[r * F + n] for r < dst_rows
-// (global memory).  smem: dynamic_smem<F>(N) bytes.
-template <int F>
+// The GCL row-tile body on the tensor cores: the aggregated messages of rows
+// i0 .. i0+TI-1 of the batch item at node0 -> dst[r * DS + n] for r <
+// dst_rows (global or shared memory).  smem: dynamic_smem<F>(N) bytes.
+template <int F, int DS = F>
 __device__ void gcl_tile_tc(const GclArgs& g, size_t node0, int i0, float* smem,
                             float* dst, int dst_rows) {
   using L = Layout<F>;
@@ -375,8 +424,8 @@ __device__ void gcl_tile_tc(const GclArgs& g, size_t node0, int i0, float* smem,
 #pragma unroll
     for (int n = 0; n < L::NTN; ++n) {
       const int f = slice * L::FW + 8 * n + 2 * tig;
-      dst[r * F + f] = msum[m][n][0] / g.nf;
-      dst[r * F + f + 1] = msum[m][n][1] / g.nf;
+      dst[r * DS + f] = msum[m][n][0] / g.nf;
+      dst[r * DS + f + 1] = msum[m][n][1] / g.nf;
     }
   }
 }
@@ -412,13 +461,14 @@ __device__ __forceinline__ void head_parts(float (&acc)[WM][Layout<F>::NTN][4],
   }
 }
 
-// coord_tile on the tensor cores, one pair MLP a call: the term of the
-// coordinate MLP (CROSS false) or of the SE(3) cross MLP (CROSS true) in the
-// coordinate update of rows i0 .. i0+TI-1 of batch item `batch` -> g.out
-// (coord_agg.cu runs the two over blockIdx.z and adds their terms in a
-// second kernel).  Per chunk: the geometry, S from the MLP's projections
-// (a_col loaded a chunk ahead), product_tc and the head; then the per-pair
-// term and the fixed-order row sums of coord_tile.
+// The coordinate row-tile body on the tensor cores, one pair MLP a call: the
+// term of the coordinate MLP (CROSS false) or of the SE(3) cross MLP (CROSS
+// true) in the coordinate update of rows i0 .. i0+TI-1 of batch item `batch`
+// -> g.out (egnn_coord.cuh runs the two over blockIdx.z and adds their terms
+// in a second kernel).  Per chunk: the geometry, S from the MLP's
+// projections (a_col loaded a chunk ahead), product_tc and the head; then the
+// per-pair term (tanh, norm, cross product) and the row sums in a fixed
+// order.
 // smem: dynamic_smem<F>(N) bytes.
 template <int F, bool CROSS>
 __device__ void coord_tile_tc(const CoordArgs& g, int batch, int i0, float* smem) {

@@ -24,8 +24,9 @@ One kernel carries a whole EGNN block on the sampling path:
 
 * ``block_fused`` -- GCL aggregation, the node MLP, the first-layer
   projections of the coordinate and cross heads, and the coordinate update of
-  one block behind one entry point (``csrc/block_fused.cu``).  Its gradient,
-  should one be taken, is autograd through its plain version.
+  one block behind one entry point (``csrc/block_fused.cu``; every product,
+  pair MLPs and node MLP alike, on the tensor cores in 3xTF32).  Its
+  gradient, should one be taken, is autograd through its plain version.
 
 All of them rebuild the adjacency from the EGNN input coordinates ``x0``, the
 node masks and the per-pair-type distance cutoffs, so the (B, N, N) adjacency
@@ -59,8 +60,8 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
 KERNELS = ("gcl_agg", "coord_agg", "gcl_agg_bwd", "coord_agg_bwd", "block_fused")
-HEADERS = (CSRC / "egnn_common.cuh", CSRC / "egnn_fwd.cuh",
-           CSRC / "egnn_bwd.cuh", CSRC / "egnn_mma.cuh",
+HEADERS = (CSRC / "egnn_common.cuh", CSRC / "egnn_mma.cuh",
+           CSRC / "egnn_coord.cuh", CSRC / "egnn_bwd.cuh",
            CSRC / "egnn_mma_bwd.cuh")  # shared device code
 ROW_TILE = 4  # rows per tile, TI in csrc/egnn_common.cuh
 SUPPORTED_F = (64, 256)  # the fixture checkpoint's width and the flagship's
@@ -338,22 +339,26 @@ _HEAD_KEYS = ("k_i", "k_j", "b0", "w_d2", "w_d20", "type_bias", "w1", "b1", "w3"
 def block_fused_plain(h, a_row, a_col, x, x0, mask, is_lig, gcl, node, coord,
                       cross=None, graph_mean=None, *, cutoffs, attention, tanh,
                       coords_range, norm_constant, normalization_factor,
-                      update_rows=None):
+                      update_rows=None, matmul=torch.matmul):
     """Plain version of ``block_fused`` (same math, O(N^2 F) in memory): the
     dense GCL twin, the node MLP, the folded head projections of h', the dense
-    coordinate twin."""
+    coordinate twin.  ``matmul`` computes every product the kernel runs on
+    its tensor cores: the GCL's and both coordinate MLPs' silu(pre) @ W2, the
+    node MLP's three and the heads' projections (``matmul_3xtf32``: as the
+    kernel does)."""
     silu = torch.nn.functional.silu
     agg = gcl_message_agg_plain(
         a_row, a_col, x, x0, mask, is_lig, gcl["w_d2"], gcl["w_d20"],
         _delta_table(gcl.get("type_delta")), gcl["w2"], gcl["b2"],
         gcl.get("w_att"), gcl.get("b_att"), cutoffs=cutoffs, attention=attention,
-        normalization_factor=normalization_factor)
-    pre_n = h @ node["w_h"] + agg @ node["w_a"] + node["b0"]
-    h_new = (h + silu(pre_n) @ node["w2"] + node["b2"]) * mask[..., None]
+        normalization_factor=normalization_factor, matmul=matmul)
+    pre_n = matmul(h, node["w_h"]) + matmul(agg, node["w_a"]) + node["b0"]
+    h_new = (h + matmul(silu(pre_n), node["w2"]) + node["b2"]) * mask[..., None]
 
     def head(p):
-        row, col, delta = fold_type_bias(h_new @ p["k_i"] + p["b0"], h_new @ p["k_j"],
-                                         is_lig, p.get("type_bias"))
+        row, col, delta = fold_type_bias(matmul(h_new, p["k_i"]) + p["b0"],
+                                         matmul(h_new, p["k_j"]), is_lig,
+                                         p.get("type_bias"))
         return row, col, _delta_table(delta)
 
     la_row, la_col, l_tb = head(coord)
@@ -368,7 +373,7 @@ def block_fused_plain(h, a_row, a_col, x, x0, mask, is_lig, gcl, node, coord,
         coord["w1"], coord["b1"], coord["w3"], cutoffs=cutoffs, tanh=tanh,
         coords_range=coords_range, norm_constant=norm_constant,
         normalization_factor=normalization_factor, cross=cross_arg,
-        graph_mean=graph_mean, update_rows=update_rows)
+        graph_mean=graph_mean, update_rows=update_rows, matmul=matmul)
     return h_new, dx
 
 
@@ -480,16 +485,20 @@ def _blocks_per_batch(B: int, rows: int, device) -> int:
     return max(1, min(tiles, sms // B))
 
 
-BLOCK_ROWS_MAX = 64  # RB in csrc/block_fused.cu
+BLOCK_TILES_MAX = 16  # RB_TILES in csrc/block_fused.cu
 
 
-def _block_rows(B: int, N: int, device) -> int:
-    """Rows a phase-A block of the whole-block kernel owns: the fewest row
-    tiles for which the grid still fits the card at once (one block fits an
-    SM), at most ``BLOCK_ROWS_MAX`` rows."""
-    tiles = -(-N // ROW_TILE)
-    per_block = -(-tiles // _blocks_per_batch(B, N, device))
-    return min(BLOCK_ROWS_MAX, ROW_TILE * per_block)
+def _block_grid(B: int, N: int, device) -> int:
+    """Blocks of the whole-block kernel's phase A: one an SM (one fits an SM),
+    so that the B * ceil(N / 4) row tiles, dealt round-robin, spread as
+    thinly as one wave allows; more only where a block would own more than
+    ``BLOCK_TILES_MAX`` tiles, fewer where there are fewer tiles.  A block's
+    time is its tiles' GCL work plus its node products (one pass over the
+    weights, growing with its m-tiles of 16 rows), and under one wave the
+    longest block sets the time."""
+    tiles = B * -(-N // ROW_TILE)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return max(min(sms, tiles), -(-tiles // BLOCK_TILES_MAX))
 
 
 def _split_weight_slab(w_out, F):
@@ -911,9 +920,17 @@ def _block_forward_cuda(h, a_row, a_col, x, x0, mask, is_lig, gcl, node, coord,
                {prefix + k: v for k, v in head_shapes.items()}, dev)
     if cross is not None and graph_mean is None:
         raise ValueError(f"{name}: the cross branch needs graph_mean")
+    mats = {"gcl.w2": gcl["w2"], **{f"node.{k}": node[k] for k in ("w_h", "w_a", "w2")},
+            **{f"{p}.{k}": hd.get(k) for p, hd in (("coord", coord), ("cross", c))
+               for k in ("k_i", "k_j", "w1")}}
+    for key, w in mats.items():
+        if w is not None and w.data_ptr() % 16:
+            raise ValueError(f"{name}: {key} must be 16-byte aligned (cp.async)")
     out_h = torch.empty((B, N, F), device=dev, dtype=torch.float32)
     out_dx = torch.empty((B, N, 3), device=dev, dtype=torch.float32)
-    scratch = torch.empty(4 * B * N * F + 2 * F, device=dev, dtype=torch.float32)
+    # the heads' projections, their type deltas and phase B's two partial slabs
+    scratch = torch.empty(4 * B * N * F + 2 * F + 2 * B * N * 3, device=dev,
+                          dtype=torch.float32)
     _launch(name,
             _ptr(h), _ptr(a_row), _ptr(a_col), _ptr(x), _ptr(x0), _ptr(mask),
             _ptr(is_lig),
@@ -925,7 +942,7 @@ def _block_forward_cuda(h, a_row, a_col, x, x0, mask, is_lig, gcl, node, coord,
             _ptr(None if cross is None else graph_mean), _ptr(scratch),
             int(bool(tanh)), float(coords_range), float(norm_constant), float(nf),
             _cut2(cutoffs[0]), _cut2(cutoffs[1]), _cut2(cutoffs[2]),
-            B, N, F, _rows(update_rows, N), _block_rows(B, N, dev), _ptr(out_h),
+            B, N, F, _rows(update_rows, N), _block_grid(B, N, dev), _ptr(out_h),
             _ptr(out_dx))
     return out_h, out_dx
 

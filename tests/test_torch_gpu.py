@@ -396,8 +396,7 @@ def test_block_kernel_matches_plain(variant, update_rows):
 @pytest.mark.parametrize("N,update_rows", [(45, None), (45, 11), (325, 23),
                                             (130, None)])
 def test_block_kernel_on_partial_tiles(N, update_rows):
-    """N that is no multiple of the 4-row tile or of the 64 rows a phase-A
-    block owns, with ``update_rows`` odd."""
+    """N that is no multiple of the 4-row tile, with ``update_rows`` odd."""
     ins = block_inputs(21, N=N, spread=4.0)
     kw = dict(BLOCK_KW, update_rows=update_rows)
     assert_block_close(ec.block_fused(*ins, **kw),
@@ -414,12 +413,52 @@ def test_block_kernel_at_full_width():
 @pytest.mark.parametrize("B", [8, 16])
 @pytest.mark.parametrize("spread", [1.0, 4.0])
 def test_block_kernel_at_joint_shapes(B, spread):
-    """Every row moves at N = 344, F = 256: 24 rows a phase-A block at B = 8
-    and 44 at B = 16 on 132 SMs; at ``spread`` 1 nearly every pair passes the
-    cutoffs (the collapsed complex of the joint chain at large t)."""
+    """Every row moves at N = 344, F = 256: 6 row tiles a phase-A block at
+    B = 8 and 11 at B = 16 on 132 SMs; at ``spread`` 1 nearly every pair
+    passes the cutoffs (the collapsed complex of the joint chain at large
+    t)."""
     ins = block_inputs(25, B=B, N=344, F=256, n_lig=24, table=False, spread=spread)
     assert_block_close(ec.block_fused(*ins, **BLOCK_KW),
                        ec.block_fused_plain(*ins, **BLOCK_KW))
+
+
+@pytest.mark.parametrize("width", [64, 256])
+@pytest.mark.parametrize("cross", [True, False], ids=["cross", "no_cross"])
+@pytest.mark.parametrize("N,blocks", [(130, 132), (130, 22), (130, 12), (130, 9),
+                                      (128, 8)],
+                         ids=["rows4", "rows24", "rows44", "rows60", "rows64"])
+def test_block_kernel_at_each_block_size(N, blocks, cross, width, monkeypatch):
+    """Phase A at the rows a block owns: B = 4 graphs of ceil(N / 4) row
+    tiles dealt round-robin over ``blocks`` blocks give at most 1, 6, 11, 15
+    and 16 tiles a block (4 rows, one m-tile; 24 and 44, as the wrapper
+    picks at B = 8 and B = 16 for N = 344 on 132 SMs, and 60, each with a
+    partial m-tile of 16 rows; and the most, 64), N = 130 a short last tile
+    in every graph, and blocks with fewer tiles than others; phase B (the
+    pair MLPs over blockIdx.z and the sum of their slabs, or the coordinate
+    MLP alone) with the cross head on and off; every row moves."""
+    monkeypatch.setattr(ec, "_block_grid", lambda B, N, device: blocks)
+    ins = block_inputs(28, B=4, N=N, F=width, n_lig=20, cross=cross, spread=4.0)
+    ec.reset_launch_counts()
+    got = ec.block_fused(*ins, **BLOCK_KW)
+    assert ec.launch_counts["block_fused"] == 1
+    assert_block_close(got, ec.block_fused_plain(*ins, **BLOCK_KW))
+
+
+@pytest.mark.parametrize("group,name", [("gcl", "w2"), ("node", "w_a"),
+                                        ("coord", "w1"), ("cross", "k_j")])
+def test_block_wrapper_rejects_a_misaligned_weight(group, name):
+    """Every weight matrix of the whole-block kernel streams through cp.async
+    in 16-byte pieces: one that starts 4 bytes past an aligned address is
+    refused before any launch."""
+    ins = block_inputs(29)
+    d = ins[{"gcl": 7, "node": 8, "coord": 9, "cross": 10}[group]]
+    w = d[name]
+    d[name] = torch.empty(w.numel() + 1, device=w.device)[1:].copy_(w.reshape(-1)) \
+        .view_as(w)
+    ec.reset_launch_counts()
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        ec.block_fused(*ins, **BLOCK_KW)
+    assert ec.launch_counts["block_fused"] == 0
 
 
 def test_block_kernel_is_deterministic():

@@ -12,8 +12,13 @@ the forward recompute, dm1 = dz2 @ W2^T and dW2 = m1^T dz2: its rehearsal
 runs autograd through the twin with all three emulated, against the gate on
 each cotangent (a tenth of BWD_RTOL of its largest entry); so does the
 coordinate backward kernel (``csrc/coord_agg_bwd.cu``), the same three
-products for each of its two MLPs.  The one-pass TF32 error at the same
-point is printed (``pytest -s``), not asserted.
+products for each of its two MLPs.  The whole-block kernel
+(``csrc/block_fused.cu``) runs every product it has in 3xTF32, the GCL's and
+both coordinate MLPs' per-pair products and the node MLP's and the heads'
+projections of every node: its rehearsal runs the plain version with all of
+them emulated, against the gate on each output (1e-5 + 1e-4 of its largest
+entry).  The one-pass TF32 error at the same point is printed (``pytest
+-s``), not asserted.
 """
 import numpy as np
 import pytest
@@ -151,6 +156,62 @@ def test_coord_3xtf32_within_a_tenth_of_the_card_gate(spread):
           f"the gate; 1-pass TF32 {float((one - ref).abs().max()):.3e} = "
           f"{gate_share(one, ref):.4f} of the gate")
     assert gate_share(three, ref) <= 0.1
+
+
+def block_operands(seed, spread):
+    """``gcl_operands``' complex as the whole-block kernel takes it: h, the
+    GCL's operands with its edge-type table folded, and the node MLP's and
+    both heads' weights at fan-in scale (the cross head's w3 tied to the
+    coordinate head's, as in the model), each head with an edge-type table."""
+    ops = gcl_operands(seed, spread)
+    rng = np.random.default_rng(seed + 200)
+    f = lambda *s, scale=1.0: torch.as_tensor((rng.standard_normal(s) * scale)
+                                              .astype(np.float32))
+    a_row, a_col, delta = ec.fold_type_bias(ops["a_row"], ops["a_col"],
+                                            ops["is_lig"], ops["type_bias"])
+    gcl = dict(w_d2=ops["w_d2"], w_d20=ops["w_d20"], type_delta=delta, w2=ops["w2"],
+               b2=ops["b2"], w_att=ops["w_att"], b_att=ops["b_att"])
+    s = F ** -0.5
+    node = dict(w_h=f(F, F, scale=s), w_a=f(F, F, scale=s), b0=f(F, scale=0.1),
+                w2=f(F, F, scale=s), b2=f(F, scale=0.1))
+    w3 = f(F, 1, scale=s)
+
+    def head():
+        return dict(k_i=f(F, F, scale=s), k_j=f(F, F, scale=s), b0=f(F, scale=0.1),
+                    w_d2=f(F, scale=0.05), w_d20=f(F, scale=0.05),
+                    type_bias=f(2, 2, F, scale=0.2), w1=f(F, F, scale=s),
+                    b1=f(F, scale=0.1), w3=w3)
+
+    h = f(*ops["a_row"].shape, scale=0.5)
+    m = ops["mask"]
+    graph_mean = (ops["x"] * m[..., None]).sum(1) / m.sum(1)[:, None]
+    return (h, a_row, a_col, ops["x"], ops["x0"], m, ops["is_lig"], gcl, node, head(),
+            head(), graph_mean)
+
+
+@pytest.mark.parametrize("spread", [4.0, 1.0], ids=["clean", "collapsed"])
+def test_block_fused_3xtf32_within_a_tenth_of_the_card_gate(spread):
+    """The whole block with every product the kernel runs on its tensor cores
+    emulated, every row moving (the joint chain's launch), attention, tanh,
+    the cross head and edge-type tables on; each output against the gate
+    ``chip_smoke.py`` phase 3c holds the kernel to."""
+    ins = block_operands(9, spread)
+    kw = dict(cutoffs=CUTOFFS, attention=True, tanh=True, coords_range=15.0,
+              norm_constant=1.0, normalization_factor=100.0)
+    ref = ec.block_fused_plain(*ins, **kw)
+    three = ec.block_fused_plain(*ins, **kw, matmul=ec.matmul_3xtf32)
+    one = ec.block_fused_plain(
+        *ins, **kw, matmul=lambda a, b: ec.matmul_3xtf32(a, b, passes=1))
+
+    def share(got):  # the worst output's error as a share of its gate
+        return max(float((g - r).abs().max()) / (1e-5 + 1e-4 * float(r.abs().max()))
+                   for g, r in zip(got, ref))
+
+    print(f"\nF={F} spread {spread}: whole block, |h_new| max "
+          f"{float(ref[0].abs().max()):.3e}, |dx| max {float(ref[1].abs().max()):.3e}; "
+          f"3xTF32 {share(three):.4f} of the gate; 1-pass TF32 {share(one):.4f} of "
+          f"the gate")
+    assert share(three) <= 0.1
 
 
 # ---------------------------------------------------------------------------
