@@ -74,7 +74,26 @@ Phases (any failure ends the run with a non-zero exit code):
      of the split kernels (block 0, the shared pocket) and 5 of the whole-block
      kernel, 6 of it in the decode pass; the fixed atoms come back where they
      were put;
-  11b. the 5-step chain of phase 6 profiled with block fusing on and off.
+  11b. the 5-step chain of phase 6 profiled with block fusing on and off;
+  12. the test-set workflow: the port's cli.test_set on the flagship
+     checkpoint over a synthetic test directory of 2 pockets (seeds 0 and 1,
+     ~300 atoms, each with phase 6's first molecule as its 24-atom ligand),
+     16 samples a pocket in one batch, --fix_n_nodes --all_frags, T=500 --
+     the file layout, 16 molecules in each processed SDF, one sampling chain
+     of launches a pocket; seconds per pocket and per molecule, sampling and
+     host apart;
+  13. molecule optimization: the port's cli.optimize on phase 5's pocket with
+     that ligand, objective SA, population 16, 2 generations of 100 noising
+     steps, top 4 -- the CSV (the reference row and one row for each built
+     molecule), the output SDF, one diversify chain of launches a
+     generation; seconds per generation;
+  14. serving: a SamplingServer on the flagship checkpoint driven through its
+     JSON-lines loop (ping, info, warmup, two generates with one seed, one
+     without, a malformed line, shutdown; 16 molecules of 24 atoms, 100
+     steps) -- every reply, the two seeded replies identical, the launches of
+     each request; the cold (warmup) and warm request wall;
+  and a quality readout: analyze_samples on phase 6's molecules under EDM
+  and covalent bond perception (the card's own figures; they gate nothing).
 
 Prints a {"kernels": [...]} line and the card line, and as its last line
 {"ok": true, "device": {...}}.  The pocket, the samples and a summary.json go
@@ -1214,6 +1233,240 @@ def inpaint_phase(torch, ec, dev, flagship, out, work, pdb, ref_lig, n_samples=1
                 pass_ms=1e3 * wall / passes, fixed_atoms_off=off, profiles=profiles)
 
 
+def chain_launches(ec, n_layers: int, shared_passes: int) -> dict:
+    """Launches of a conditional chain of ``shared_passes`` shared-pocket
+    passes and one decode pass: a shared pass runs the GCL kernel 3 times in
+    the first layer and once in each later one, the coordinate kernel once a
+    layer; the decode pass shares no pocket."""
+    return {**dict.fromkeys(ec.KERNELS, 0),
+            "gcl_agg": (n_layers + 2) * shared_passes + n_layers,
+            "coord_agg": n_layers * (shared_passes + 1)}
+
+
+def _scaled(counts: dict, k: int) -> dict:
+    return {name: k * n for name, n in counts.items()}
+
+
+def _type_indices(encoder, symbols):
+    """Type indices of SDF atom symbols; the SDF cuts the type "others" to
+    its first three letters."""
+    return np.array([encoder["others" if s == "oth" else s] for s in symbols])
+
+
+def first_molecule_sdf(sdf, out, encoder):
+    """The first molecule of ``sdf`` whose atoms are all of ligand types
+    other than "others" (which an SDF cannot spell), alone in ``out``."""
+    from diffsbdd_tpu_torch.chem.sdfio import read_sdf, write_sdf_file
+    mol = next(m for m in read_sdf(sdf) if set(m.symbols) <= set(encoder) - {"others"})
+    write_sdf_file(out, [mol])
+    return out
+
+
+def test_set_phase(torch, ec, flagship, ckpt, work, ligand_sdf, n_samples=16):
+    """Phase 12: cli.test_set over 2 synthetic pockets, one batch each."""
+    from diffsbdd_tpu_torch.chem import pdb as pdbmod
+    from diffsbdd_tpu_torch.cli import test_set as test_set_cli
+    from diffsbdd_tpu_torch.diffusion.ddpm import ConditionalDDPM
+    T = flagship["diffusion_params"]["diffusion_steps"]
+    n_layers = flagship["egnn_params"]["n_layers"]
+    test_dir, outdir = work / "test_set", work / "test_set_out"
+    test_dir.mkdir()
+    names = []
+    for seed in (0, 1):
+        pdb = test_dir / f"pkt{seed}.pdb"
+        ref = write_pocket_pdb(pdb, n_atoms=300, seed=seed)
+        name = f"pkt{seed}_A_LIG"
+        (test_dir / f"{name}.sdf").write_text(Path(ligand_sdf).read_text())
+        residues = pdbmod.get_pocket_from_ligand(pdbmod.parse_pdb(pdb), ref)
+        (test_dir / f"{name}.txt").write_text(
+            " ".join(f"{r.chain_id}:{r.resseq}" for r in residues))
+        names.append(name)
+    sample, sample_s = ConditionalDDPM.sample_given_pocket, []
+
+    def timed_sample(self, *a, **k):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        result = sample(self, *a, **k)
+        torch.cuda.synchronize()
+        sample_s.append(time.perf_counter() - t)
+        return result
+
+    ConditionalDDPM.sample_given_pocket = timed_sample
+    ec.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        test_set_cli.main([str(ckpt), "--test_dir", str(test_dir), "--outdir", str(outdir),
+                           "--n_samples", str(n_samples), "--batch_size", str(n_samples),
+                           "--fix_n_nodes", "--all_frags", "--timesteps", str(T)])
+    finally:
+        ConditionalDDPM.sample_given_pocket = sample
+    wall = time.perf_counter() - t0
+    launches = dict(ec.launch_counts)
+    expected = _scaled(chain_launches(ec, n_layers, T), len(names))
+    print(f"  launches {launches}, expected {expected} (one chain of {T} shared-pocket "
+          f"passes and a decode pass for each of {len(names)} pockets)")
+    _check(launches == expected, "launch counts differ from the test-set path's")
+    layout = sorted(p.relative_to(outdir).as_posix() for p in outdir.rglob("*"))
+    want = sorted(["raw", "processed", "pocket_times", "pocket_times.txt"]
+                  + [f"{d}/{n}_gen.sdf" for d in ("raw", "processed") for n in names]
+                  + [f"pocket_times/{n}.txt" for n in names])
+    _check(layout == want, f"test-set output layout {layout}")
+    for name in names:
+        _check_molecules(outdir / "processed" / f"{name}_gen.sdf", n_samples, 24)
+        _check_molecules(outdir / "raw" / f"{name}_gen.sdf", n_samples, 24)
+    per_pocket = [float(ln.split()[-1]) for ln in
+                  (outdir / "pocket_times.txt").read_text().splitlines()]
+    _check(len(per_pocket) == len(names), "pocket_times.txt lines")
+    _check(len(sample_s) == len(names), f"{len(sample_s)} sampling chains")
+    sample_s = sum(sample_s) / len(names)
+    pocket_s = sum(per_pocket) / len(names)
+    print(f"  {len(names)} pockets x {n_samples} molecules, T={T}: "
+          f"{', '.join(f'{t:.2f}' for t in per_pocket)} s per pocket "
+          f"({pocket_s / n_samples:.3f} s per molecule): sampling {sample_s:.2f} s, "
+          f"host {pocket_s - sample_s:.2f} s a pocket; CLI wall {wall:.2f} s")
+    return dict(launches=launches, pocket_s=per_pocket, sample_s_per_pocket=sample_s,
+                host_s_per_pocket=pocket_s - sample_s, s_per_molecule=pocket_s / n_samples,
+                cli_wall_s=wall)
+
+
+def optimize_phase(torch, ec, flagship, ckpt, out, pdb, ligand_sdf, population=16,
+                   generations=2, steps=100):
+    """Phase 13: cli.optimize, objective SA, on phase 5's pocket."""
+    import csv
+    from diffsbdd_tpu_torch.cli import optimize as opt_cli
+    n_layers = flagship["egnn_params"]["n_layers"]
+    built, seconds = [], []
+    diversify = opt_cli.diversify_ligands
+
+    def counted(*a, **k):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        mols = diversify(*a, **k)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t)
+        built.append(len(mols))
+        return mols
+
+    sdf = out / "optimized.sdf"
+    opt_cli.diversify_ligands = counted
+    ec.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        opt_cli.main([str(ckpt), "--pdbfile", str(pdb), "--ref_ligand", str(ligand_sdf),
+                      "--objective", "sa", "--population_size", str(population),
+                      "--evolution_steps", str(generations), "--timesteps", str(steps),
+                      "--top_k", "4", "--outfile", str(sdf)])
+    finally:
+        opt_cli.diversify_ligands = diversify
+    wall = time.perf_counter() - t0
+    launches = dict(ec.launch_counts)
+    expected = _scaled(chain_launches(ec, n_layers, steps), generations)
+    print(f"  launches {launches}, expected {expected} (a diversify chain of {steps} "
+          f"shared-pocket passes and a decode pass for each of {generations} generations)")
+    _check(launches == expected, "launch counts differ from the optimization path's")
+    with open(sdf.with_suffix(".csv")) as f:
+        rows = list(csv.reader(f))
+    _check(rows[0] == ["", "generation", "score", "fate", "smiles"], f"CSV header {rows[0]}")
+    _check(len(rows) == 2 + sum(built), f"{len(rows) - 1} CSV rows for {sum(built)} "
+           "built molecules and the reference")
+    _check(rows[1][1] == "0" and rows[1][3] == "initial", "CSV reference row")
+    _check([int(r[1]) for r in rows[2:]] == [g + 1 for g, n in enumerate(built)
+                                             for _ in range(n)], "CSV generations")
+    _check(all(np.isfinite(float(r[2])) for r in rows[1:]), "non-finite score")
+    mols = _sdf_molecules(sdf)
+    _check(len(mols) == built[-1], f"{sdf.name} holds {len(mols)} molecules")
+    for _, coords in mols:
+        _check(np.isfinite(coords).all(), "non-finite coordinates")
+    best = max(float(r[2]) for r in rows[2:]) if len(rows) > 2 else float("nan")
+    print(f"  population {population}, {generations} generations of {steps} steps: "
+          f"molecules kept {built}, reference SA {float(rows[1][2]):.2f}, best {best:.2f}; "
+          f"{', '.join(f'{t:.2f}' for t in seconds)} s per generation in diversify, "
+          f"CLI wall {wall:.2f} s ({wall / generations:.2f} s per generation)")
+    return dict(launches=launches, built=built, diversify_s=seconds, cli_wall_s=wall,
+                s_per_generation=wall / generations)
+
+
+def serving_phase(torch, ec, flagship, ckpt, pdb, ref_lig, n_samples=16, steps=100):
+    """Phase 14: a SamplingServer through its JSON-lines loop."""
+    import io
+    from diffsbdd_tpu_torch.cli.serve import SamplingServer
+    n_layers = flagship["egnn_params"]["n_layers"]
+    server = SamplingServer(ckpt)
+    shape = {"pdbfile": str(pdb), "ref_ligand": ref_lig, "n_samples": n_samples,
+             "num_nodes_lig": 24, "timesteps": steps}
+    requests = [{"op": "ping", "id": 0}, {"op": "info", "id": 1},
+                {"op": "warmup", "id": 2, **shape},
+                {"op": "generate", "id": 3, "seed": 11, **shape},
+                {"op": "generate", "id": 4, "seed": 11, **shape},
+                {"op": "generate", "id": 5, **shape}]
+    lines = [json.dumps(r) for r in requests] + ["{not json", json.dumps({"op": "shutdown"}),
+                                                 json.dumps({"op": "ping", "id": 9})]
+    per_request, handle = [], server.handle
+
+    def measured(req):
+        ec.reset_launch_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        reply = handle(req)
+        torch.cuda.synchronize()
+        per_request.append((req.get("op"), time.perf_counter() - t, dict(ec.launch_counts)))
+        return reply
+
+    server.handle = measured
+    out = io.StringIO()
+    server.serve_forever(io.StringIO("\n".join(lines) + "\n"), out)
+    replies = [json.loads(ln) for ln in out.getvalue().splitlines()]
+    _check(len(replies) == 8, f"{len(replies)} replies to 8 requests before shutdown")
+    ping, info, warm, gen_a, gen_b, gen_c, bad, stop = replies
+    _check(ping == {"ok": True, "id": 0}, f"ping reply {ping}")
+    _check(info.get("ok") and info["id"] == 1 and info["T"] ==
+           flagship["diffusion_params"]["diffusion_steps"] and info["requests"] == 0,
+           f"info reply {info}")
+    _check(warm.get("ok") and warm["n_molecules"] == n_samples, f"warmup reply {warm}")
+    for rep in (gen_a, gen_b, gen_c):
+        _check(rep.get("ok") and rep["n_molecules"] == n_samples
+               and len(rep["smiles"]) == n_samples, f"generate reply {rep}")
+    _check((gen_a["smiles"], gen_a["n_atoms"]) == (gen_b["smiles"], gen_b["n_atoms"]),
+           "two generates with one seed differ")
+    _check(bad["error"].startswith("bad request"), f"malformed-line reply {bad}")
+    _check(stop == {"ok": True, "shutdown": True}, f"shutdown reply {stop}")
+    chain = chain_launches(ec, n_layers, steps)
+    idle = dict.fromkeys(ec.KERNELS, 0)
+    want = {"ping": idle, "info": idle, "warmup": chain, "generate": chain,
+            "shutdown": idle}
+    for op, _, counts in per_request:
+        _check(counts == want[op], f"{op} launched {counts}, expected {want[op]}")
+    walls = {f"{op}[{k}]": s for k, (op, s, _) in enumerate(per_request)}
+    cold = per_request[2][1]
+    warm_s = [s for op, s, _ in per_request[3:6]]
+    print(f"  {len(replies)} replies; launches per generate and warmup {chain}; "
+          f"the seeded replies identical ({len(set(gen_a['smiles']))} distinct keys of "
+          f"{n_samples}); cold (warmup) request {cold:.2f} s, warm requests "
+          f"{', '.join(f'{s:.2f}' for s in warm_s)} s ({n_samples} molecules of 24 atoms, "
+          f"{steps} steps)")
+    totals = {k: sum(c[k] for _, _, c in per_request) for k in ec.KERNELS}
+    return dict(launches=totals, walls=walls, cold_s=cold, warm_s=warm_s)
+
+
+def quality_readout(dev, ckpt, sdf):
+    """analyze_samples on the molecules of ``sdf`` rebuilt under EDM and
+    covalent bond perception."""
+    from diffsbdd_tpu_torch.checkpoint import load_model
+    from diffsbdd_tpu_torch.chem.molecule import build_molecule
+    from diffsbdd_tpu_torch.chem.sdfio import read_sdf
+    module, _ = load_model(ckpt, device=dev)
+    enc = module.lig_type_encoder
+    mols = read_sdf(sdf)
+    types = [_type_indices(enc, m.symbols) for m in mols]
+    out = {}
+    for perception in ("edm", "covalent"):
+        built = [build_molecule(m.coords, t, module.dataset_info, perception=perception)
+                 for m, t in zip(mols, types)]
+        out[perception] = module.analyze_samples(built, np.concatenate(types), [])
+    print("  " + json.dumps({"quality": out, "molecules": len(mols)}))
+    return out
+
+
 def gradient_phase(torch, dev, work):
     """Phase 9: loss and every parameter's gradient of one fixture batch on
     the card (kernels) against the CPU (plain twins), from the same timesteps
@@ -1397,9 +1650,26 @@ def main(argv=None) -> int:
         print("[11] conditional inpainting: cli.inpaint with block fusing on")
         inpainting = inpaint_phase(torch, ec, dev, flagship, out, work, pdb, ref_lig)
 
+        from diffsbdd_tpu_torch.constants import dataset_params
+        ligand_sdf = first_molecule_sdf(
+            sdf, out / "ligand.sdf", dataset_params[flagship["dataset"]]["atom_encoder"])
+        print("[12] test-set workflow: cli.test_set")
+        test_set = test_set_phase(torch, ec, flagship, ckpt, work, ligand_sdf)
+
+        print("[13] molecule optimization: cli.optimize")
+        optimize = optimize_phase(torch, ec, flagship, ckpt, out, pdb, ligand_sdf)
+
+        print("[14] serving: SamplingServer's JSON-lines loop")
+        serving = serving_phase(torch, ec, flagship, ckpt, pdb, ref_lig)
+
+        print("[quality] analyze_samples on phase 6's molecules")
+        quality = quality_readout(dev, ckpt, sdf)
+
     by_path = {"sampling": sampling_launches, "training": training["launches"],
                "joint_training": joint["training"]["launches"],
-               "joint_sampling": joint["launches"], "inpainting": inpainting["launches"]}
+               "joint_sampling": joint["launches"], "inpainting": inpainting["launches"],
+               "test_set": test_set["launches"], "optimize": optimize["launches"],
+               "serving": serving["launches"]}
     # a kernel's launches: those of the main path that runs it most
     launches = {k: max(path[k] for path in by_path.values()) for k in ec.KERNELS}
     for k in ec.KERNELS:
@@ -1407,7 +1677,8 @@ def main(argv=None) -> int:
     summary = {"card": card, "launches": launches, "launches_by_path": by_path,
                "kernels": kres, "block_fused": block_res,
                "sampling_launches": sampling_launches, "training": training,
-               "joint": joint, "inpainting": inpainting,
+               "joint": joint, "inpainting": inpainting, "test_set": test_set,
+               "optimize": optimize, "serving": serving, "quality": quality,
                "variant_ms": variant_ms, "breakdown": breakdown,
                "sample_s": timing["sample_s"], "step_ms": step_ms,
                "cli_wall_s": wall, "molecules_per_s": n_samples / wall,

@@ -109,7 +109,7 @@ _AA20 = ["A", "C", "D", "E", "F", "G", "H", "I", "K", "L",
          "M", "N", "P", "Q", "R", "S", "T", "V", "W", "Y"]
 
 
-def _dataset(atom_decoder, aa_decoder):
+def _dataset(atom_decoder, aa_decoder, atom_hist, aa_hist):
     return {
         "atom_encoder": {a: i for i, a in enumerate(atom_decoder)},
         "atom_decoder": list(atom_decoder),
@@ -119,13 +119,31 @@ def _dataset(atom_decoder, aa_decoder):
         "bonds2": build_bond_matrix(atom_decoder, BONDS2),
         "bonds3": build_bond_matrix(atom_decoder, BONDS3),
         "lennard_jones_rm": build_lennard_jones_rm(atom_decoder),
+        "atom_hist": dict(atom_hist),
+        "aa_hist": dict(aa_hist),
     }
 
 
+# the type histograms are dataset statistics (atom types of the ligands,
+# residue or atom types of the pockets), the priors of the atom-type KL metric
 dataset_params = {
     # CA pocket representation: residues typed by amino acid
-    "crossdock": _dataset(_LIG_ATOMS, _AA20),
+    "crossdock": _dataset(
+        _LIG_ATOMS, _AA20,
+        atom_hist={"C": 1570032, "N": 273792, "O": 396623, "S": 26339, "B": 0,
+                   "Br": 0, "Cl": 15055, "P": 25975, "I": 0, "F": 30673},
+        aa_hist={"A": 277175, "C": 92406, "D": 254046, "E": 201833,
+                 "F": 234995, "G": 376966, "H": 147704, "I": 290683,
+                 "K": 173210, "L": 421883, "M": 157813, "N": 174241,
+                 "P": 148581, "Q": 120232, "R": 173848, "S": 274430,
+                 "T": 247605, "V": 326134, "W": 88552, "Y": 226668}),
     # full-atom pocket representation: pocket atoms typed like ligand atoms
-    "crossdock_full": _dataset(_LIG_ATOMS + ["others"],
-                               _LIG_ATOMS + ["others"]),
+    "crossdock_full": _dataset(
+        _LIG_ATOMS + ["others"], _LIG_ATOMS + ["others"],
+        atom_hist={"C": 1570767, "N": 273858, "O": 396837, "S": 26352, "B": 0,
+                   "Br": 0, "Cl": 15058, "P": 25994, "I": 0, "F": 30687,
+                   "others": 0},
+        aa_hist={"C": 23302704, "N": 6093090, "O": 6701210, "S": 276805,
+                 "B": 0, "Br": 0, "Cl": 0, "P": 0, "I": 0, "F": 0,
+                 "others": 0}),
 }

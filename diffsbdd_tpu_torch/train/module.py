@@ -4,8 +4,8 @@ preparation and the ``generate_ligands`` inference API, for the three modes
 
 ``LigandPocketDDPM`` is an ``nn.Module`` whose state_dict keys are the
 reference's (``ddpm.dynamics....``).  A joint checkpoint generates ligands as
-an inpainter with every pocket node fixed.  The sampling-quality evaluation is
-not ported yet.
+an inpainter with every pocket node fixed.  ``analyze_samples`` gives the
+sampling-quality metrics, without docking.
 """
 from __future__ import annotations
 
@@ -16,6 +16,9 @@ import torch
 from torch import nn
 
 from diffsbdd_tpu_torch.chem import pdb as pdbmod
+from diffsbdd_tpu_torch.chem.metrics import (BasicMolecularMetrics,
+                                             CategoricalDistribution,
+                                             MoleculeProperties)
 from diffsbdd_tpu_torch.chem.molecule import SimpleMol, build_molecule, process_molecule
 from diffsbdd_tpu_torch.config import Config
 from diffsbdd_tpu_torch.constants import dataset_params
@@ -33,20 +36,22 @@ from diffsbdd_tpu_torch.utils.misc import shift_to_pocket_frame
 
 def molecules_from_samples(xh_lig: np.ndarray, lig_mask: np.ndarray, dataset_info,
                            sanitize: bool = False, relax_iter: int = 0,
-                           largest_frag: bool = False) -> List[SimpleMol]:
+                           largest_frag: bool = False, return_raw: bool = False):
     """One molecule per row of a sampled ligand batch (coordinates and one-hot
     types under the mask), bonds perceived, filters applied; rows that fail a
-    filter are dropped."""
-    molecules = []
+    filter are dropped.  With ``return_raw`` also every built molecule before
+    the filters: (molecules, raw)."""
+    molecules, raw = [], []
     for b in range(len(xh_lig)):
         sel = lig_mask[b] > 0
         mol = build_molecule(xh_lig[b, sel, :3], xh_lig[b, sel, 3:].argmax(-1),
                              dataset_info)
+        raw.append(mol)
         mol = process_molecule(mol, sanitize=sanitize, relax_iter=relax_iter,
                                largest_frag=largest_frag)
         if mol is not None:
             molecules.append(mol)
-    return molecules
+    return (molecules, raw) if return_raw else molecules
 
 
 DDPM_MODELS = {
@@ -262,13 +267,18 @@ class LigandPocketDDPM(nn.Module):
         relax_iter: int = 0, timesteps: Optional[int] = None,
         size_rng: Optional[np.random.Generator] = None,
         resamplings: int = 1, jump_length: int = 1,
-    ) -> List[SimpleMol]:
+        n_nodes_bias: int = 0, n_nodes_min: int = 0, return_raw: bool = False,
+    ):
         """Generate ligands for one pocket given by residue ids or by a
         reference ligand residue ('<chain>:<resi>').  ``generator`` lives on
         the module's device and drives every Gaussian draw.  A conditional
         model samples directly; a joint model inpaints with every pocket node
         fixed, following the RePaint schedule of ``resamplings`` and
-        ``jump_length`` (which a conditional model does not read)."""
+        ``jump_length`` (which a conditional model does not read).  The
+        ligand sizes, drawn or given, get ``n_nodes_bias`` added and are
+        clipped below at ``n_nodes_min``.  Returns the molecules that pass
+        the filters, and with ``return_raw`` also every built molecule:
+        (molecules, raw)."""
         if (pocket_ids is None) == (ref_ligand is None):
             raise ValueError("give exactly one of pocket_ids and ref_ligand")
         struct = pdbmod.parse_pdb(pdb_file)
@@ -291,7 +301,8 @@ class LigandPocketDDPM(nn.Module):
             else:
                 num_nodes_lig = self.ddpm.size_distribution.sample_conditional(
                     n2=pocket["size"].cpu().numpy(), rng=size_rng)
-        num_nodes_lig = np.asarray(num_nodes_lig)
+        num_nodes_lig = np.clip(np.asarray(num_nodes_lig) + n_nodes_bias,
+                                n_nodes_min, None)
         n_lig_pad = round_to_bucket(int(num_nodes_lig.max()), self.lig_bucket)
         lig_mask = torch.as_tensor(num_nodes_to_mask(num_nodes_lig, n_lig_pad),
                                    device=self.device)
@@ -323,7 +334,43 @@ class LigandPocketDDPM(nn.Module):
 
         return molecules_from_samples(xh_lig, lig_m, self.dataset_info,
                                       sanitize=sanitize, relax_iter=relax_iter,
-                                      largest_frag=largest_frag)
+                                      largest_frag=largest_frag,
+                                      return_raw=return_raw)
+
+    # ------------------------------------------------------------------ eval
+    def analyze_samples(self, molecules: List[SimpleMol], atom_types, aa_types,
+                        receptors=None, dataset_smiles=None) -> Dict[str, float]:
+        """Sampling-quality metrics: the atom- and residue-type KL divergences
+        from the dataset histograms (-1.0 where not computed), validity,
+        connectivity, uniqueness, novelty, and the mean QED, SA, logP,
+        Lipinski and diversity of the connected molecules.  Docking scores
+        (``receptors``) are not ported yet."""
+        if receptors is not None:
+            raise NotImplementedError(
+                "docking scores (smina) are not ported yet: the tooling item of "
+                "ROADMAP.md's module queue")
+        lig_dist = None if self.virtual_nodes else CategoricalDistribution(
+            self.dataset_info["atom_hist"], self.lig_type_encoder)
+        kl_atom = lig_dist.kl_divergence(atom_types) if lig_dist else -1.0
+        if self.pocket_representation == "CA":
+            kl_aa = CategoricalDistribution(
+                self.dataset_info["aa_hist"],
+                self.pocket_type_encoder).kl_divergence(aa_types)
+        else:
+            kl_aa = -1.0
+
+        metrics = BasicMolecularMetrics(self.dataset_info, dataset_smiles)
+        (validity, connectivity, uniqueness, novelty), (_, connected) = \
+            metrics.evaluate_mols(molecules)
+        qed, sa, logp, lipinski, diversity = \
+            MoleculeProperties().evaluate_mean(connected)
+        return {
+            "kl_div_atom_types": kl_atom, "kl_div_residue_types": kl_aa,
+            "Validity": validity, "Connectivity": connectivity,
+            "Uniqueness": uniqueness, "Novelty": novelty,
+            "QED": qed, "SA": sa, "LogP": logp, "Lipinski": lipinski,
+            "Diversity": diversity,
+        }
 
 
 def build_module_from_config(cfg: Config, node_histogram) -> LigandPocketDDPM:

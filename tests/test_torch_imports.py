@@ -1,5 +1,6 @@
 """The port stands alone: no module of ``diffsbdd_tpu_torch`` nor
-``chip_smoke.py`` imports JAX, flax, optax, orbax or the JAX package."""
+``chip_smoke.py`` imports JAX, flax, optax, orbax or the JAX package, nor
+networkx, pandas, RDKit or OpenBabel, which the machine with the card lacks."""
 import pkgutil
 import re
 import subprocess
@@ -9,8 +10,10 @@ from pathlib import Path
 import diffsbdd_tpu_torch
 
 REPO = Path(__file__).resolve().parent.parent
+BANNED = ("jax", "flax", "optax", "orbax", "diffsbdd_tpu", "networkx", "pandas",
+          "rdkit", "openbabel")
 FORBIDDEN = re.compile(
-    r"^\s*(from|import)\s+(diffsbdd_tpu|jax|flax|optax|orbax)(\.|\s|$)", re.M)
+    rf"^\s*(from|import)\s+({'|'.join(BANNED)})(\.|\s|$)", re.M)
 
 
 def _modules():
@@ -22,9 +25,13 @@ def test_every_module_imports_without_jax():
     mods = _modules() + ["chip_smoke"]
     assert len(mods) > 20
     assert {"diffsbdd_tpu_torch.cli.inpaint", "diffsbdd_tpu_torch.cli.generate_ligands",
+            "diffsbdd_tpu_torch.cli.test_set", "diffsbdd_tpu_torch.cli.optimize",
+            "diffsbdd_tpu_torch.cli.serve", "diffsbdd_tpu_torch.chem.graphs",
+            "diffsbdd_tpu_torch.chem.descriptors", "diffsbdd_tpu_torch.chem.sascore",
+            "diffsbdd_tpu_torch.chem.metrics",
             "diffsbdd_tpu_torch.diffusion.ddpm"} <= set(mods)
     code = ("import sys\n"
-            "for m in ('jax', 'flax', 'optax', 'orbax', 'diffsbdd_tpu'):\n"
+            f"for m in {BANNED!r}:\n"
             "    sys.modules[m] = None\n"
             f"for m in {mods!r}:\n"
             "    __import__(m)\n")
