@@ -93,7 +93,26 @@ Phases (any failure ends the run with a non-zero exit code):
      steps) -- every reply, the two seeded replies identical, the launches of
      each request; the cold (warmup) and warm request wall;
   and a quality readout: analyze_samples on phase 6's molecules under EDM
-  and covalent bond perception (the card's own figures; they gate nothing).
+  and covalent bond perception (the card's own figures; they gate nothing);
+  15. Lightning import: phase 4's checkpoint written as a reference-format
+     Lightning .ckpt (reference names, the schedule's table, Namespace
+     hyper-parameters, phase 8's size histogram), imported by `python -m
+     diffsbdd_tpu_torch.convert.torch_ckpt`: bitwise-equal weights, and one
+     seeded cli.generate_ligands run of 4 molecules (T=500) from each gives
+     identical SDFs;
+  16. evaluation during training: the port's SamplingEvaluator on phase 8's
+     checkpoint and validation pockets (sample_and_analyze of 16 samples in
+     one batch, sample_and_save's xyz of 4, a chain of keep_frames 10 as xyz
+     frames) and on phase 10's joint checkpoint with block fusing on
+     (sample_and_analyze of 8, a chain of keep_frames 10), then cli.train for
+     one epoch with eval_epochs 1 (the evaluator through Trainer.fit) --
+     6(T+1) launches of gcl_agg and of coord_agg per conditional chain,
+     6(T+1) of block_fused and nothing else per joint chain, finite metrics
+     (-1 where JAX leaves one uncomputed); nothing is rendered: the card's
+     machine is not promised matplotlib or imageio;
+  17. processing (host only): a raw CrossDocked layout of 6 synthetic pairs
+     through the port's proc_crossdock, full-atom and CA, each split loaded
+     with LigandPocketDataset, the size histogram and the smiles checked.
 
 Prints a {"kernels": [...]} line and the card line, and as its last line
 {"ok": true, "device": {...}}.  The pocket, the samples and a summary.json go
@@ -1085,7 +1104,8 @@ def train_phase(torch, ec, dev, flagship, out, work, pdb, ref_lig,
     result = dict(launches=launches, per_step=n_layers, step_ms=step_ms,
                   steps_ms=steps_ms, complexes_per_s=16e3 / step_ms, cli_wall_s=wall,
                   losses=[r["loss"] for r in train], val_loss=val[0]["loss"],
-                  grad_norms=[r["grad_norm"] for r in train], ckpt=str(ckpt))
+                  grad_norms=[r["grad_norm"] for r in train], ckpt=str(ckpt),
+                  datadir=str(data))
 
     if mode != "joint":
         print("  the trained checkpoint through load_model and cli.generate_ligands")
@@ -1448,6 +1468,236 @@ def serving_phase(torch, ec, flagship, ckpt, pdb, ref_lig, n_samples=16, steps=1
     return dict(launches=totals, walls=walls, cold_s=cold, warm_s=warm_s)
 
 
+# the config fields a Lightning checkpoint's hyper-parameters hold, besides
+# the four nested namespaces and the size histogram
+LIGHTNING_FIELDS = ("dataset", "mode", "pocket_representation", "virtual_nodes",
+                    "batch_size", "lr", "clip_grad", "augment_noise", "augment_rotation",
+                    "auxiliary_loss", "eval_epochs", "visualize_sample_epoch",
+                    "visualize_chain_epoch")
+
+
+def write_lightning_ckpt(torch, ckpt, path, node_histogram):
+    """The port checkpoint ``ckpt`` (``best``) as a reference-format Lightning
+    file: the state_dict in the reference's names with the schedule's table
+    ``ddpm.gamma.gamma`` (the tied cross head is under both keys already),
+    and hyper-parameters of ``argparse.Namespace`` values with the size
+    histogram."""
+    from argparse import Namespace
+    from diffsbdd_tpu_torch.checkpoint import load_model
+    module, cfg = load_model(ckpt, device="cpu")
+    cfg = cfg.to_dict()
+    state_dict = {k.replace("ddpm.gamma_net.", "ddpm.gamma."): v
+                  for k, v in module.state_dict().items()}
+    state_dict["ddpm.gamma.gamma"] = module.ddpm.gamma_table.clone()
+    hparams = {k: cfg[k] for k in LIGHTNING_FIELDS}
+    hparams.update({k: Namespace(**cfg[k]) for k in ("egnn_params", "diffusion_params",
+                                                       "loss_params", "eval_params")})
+    hparams["node_histogram"] = node_histogram
+    torch.save({"state_dict": state_dict, "hyper_parameters": hparams, "epoch": 0,
+                "global_step": 0}, path)
+    return path
+
+
+def lightning_phase(torch, ec, dev, flagship, ckpt, work, out, pdb, ref_lig,
+                    node_histogram, n_samples=4):
+    """Phase 15: phase 4's r05c checkpoint written as a reference Lightning
+    file, imported by ``python -m diffsbdd_tpu_torch.convert.torch_ckpt``;
+    both load to bitwise-equal weights and sample identical SDFs from one
+    seed."""
+    from diffsbdd_tpu_torch.checkpoint import load_model
+    from diffsbdd_tpu_torch.cli import generate_ligands as gen_cli
+    T = flagship["diffusion_params"]["diffusion_steps"]
+    n_layers = flagship["egnn_params"]["n_layers"]
+    path = write_lightning_ckpt(torch, ckpt, work / "r05c.ckpt", node_histogram)
+    imported = work / "r05c_lightning"
+    t0 = time.perf_counter()
+    subprocess.run([sys.executable, "-m", "diffsbdd_tpu_torch.convert.torch_ckpt",
+                    str(path), "--outdir", str(imported)], cwd=REPO, check=True)
+    import_s = time.perf_counter() - t0
+    (a, _), (b, cfg) = load_model(ckpt, device=dev), load_model(imported, device=dev)
+    sd_a, sd_b = a.state_dict(), b.state_dict()
+    _check(sd_a.keys() == sd_b.keys() and all(torch.equal(sd_a[k], sd_b[k]) for k in sd_a),
+           "the imported weights differ from the checkpoint's")
+    _check(b.ddpm.size_distribution is not None, "the import lost the size histogram")
+    del a, b
+    sdfs, launches, walls = [], [], []
+    for name, d in (("r05c", ckpt), ("imported", imported)):
+        sdf = out / f"lightning_{name}.sdf"
+        ec.reset_launch_counts()
+        t0 = time.perf_counter()
+        gen_cli.main([str(d), "--pdbfile", str(pdb), "--ref_ligand", ref_lig,
+                      "--outfile", str(sdf), "--n_samples", str(n_samples),
+                      "--num_nodes_lig", "24", "--all_frags", "--timesteps", str(T),
+                      "--seed", "3"])
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        launches.append(dict(ec.launch_counts))
+        _check_molecules(sdf, n_samples, 24)
+        sdfs.append(sdf.read_text())
+    _check(sdfs[0] == sdfs[1], "the imported checkpoint samples other molecules")
+    expected = chain_launches(ec, n_layers, T)
+    _check(launches == [expected, expected], f"launches {launches}, expected {expected}")
+    print(f"  {len(sd_a)} tensors bitwise equal; import (a process of its own) "
+          f"{import_s:.2f} s; seeded cli.generate_ligands, {n_samples} molecules, T={T}: "
+          f"identical SDFs, CLI wall {walls[0]:.2f} s (r05c), {walls[1]:.2f} s (imported); "
+          f"launches each {expected}; imported config "
+          f"{cfg.dataset}/{cfg.mode}/{cfg.pocket_representation}")
+    return dict(launches=launches[1], import_s=import_s, cli_wall_s=walls,
+                tensors=len(sd_a))
+
+
+def _check_metrics(metrics, minus_one):
+    """Every metric finite; those JAX leaves uncomputed at exactly -1."""
+    print("  " + json.dumps(metrics))
+    for k, v in metrics.items():
+        _check(np.isfinite(v), f"metric {k} = {v}")
+    for k in minus_one:
+        _check(metrics[k] == -1.0, f"metric {k} = {metrics[k]}, expected -1")
+
+
+def evaluation_phase(torch, ec, dev, flagship, work, out, training, joint):
+    """Phase 16: the port's SamplingEvaluator on the card -- phase 8's
+    conditional checkpoint on its validation pockets, phase 10's joint
+    checkpoint with block fusing on -- and cli.train with eval_epochs 1, so
+    that the evaluator runs through Trainer.fit.  Nothing is rendered: the
+    chains and samples are written as xyz files only."""
+    from diffsbdd_tpu_torch.checkpoint import load_model
+    from diffsbdd_tpu_torch.cli import train as train_cli
+    from diffsbdd_tpu_torch.data.dataset import LigandPocketDataset
+    from diffsbdd_tpu_torch.train import loop
+    from diffsbdd_tpu_torch.train.evaluation import SamplingEvaluator
+    T = flagship["diffusion_params"]["diffusion_steps"]
+    L = flagship["egnn_params"]["n_layers"]
+    idle = dict.fromkeys(ec.KERNELS, 0)
+    # no shared pocket: one GCL and one coordinate launch a layer and pass
+    split_chain = {**idle, "gcl_agg": L * (T + 1), "coord_agg": L * (T + 1)}
+    fused_chain = {**idle, "block_fused": L * (T + 1)}
+    gen = torch.Generator(device=dev).manual_seed(0)
+    calls = {}
+
+    def run(what, expected, fn):
+        ec.reset_launch_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t
+        launches = dict(ec.launch_counts)
+        print(f"  {what}: {seconds:.2f} s, launches {launches}")
+        _check(launches == expected, f"{what}: launches {launches}, expected {expected}")
+        calls[what] = dict(s=seconds, launches=launches)
+        return result
+
+    def chain_files(ev, n):
+        files = sorted((ev.outdir / "epoch_0" / "chain").glob("chain_*.txt"))
+        _check(len(files) == n, f"{len(files)} chain frames, expected {n}")
+
+    module, _ = load_model(training["ckpt"], name="last", device=dev)
+    ev = SamplingEvaluator(module, outdir=out / "evaluation" / "cond",
+                           dataset=LigandPocketDataset(Path(training["datadir"]) / "val.npz"))
+    cond = run("conditional sample_and_analyze, 16 samples in one batch", split_chain,
+               lambda: ev.sample_and_analyze(gen, 16, batch_size=16))
+    # full-atom pockets: no residue-type KL; no training keys: no novelty
+    _check_metrics(cond, minus_one={"kl_div_residue_types", "Novelty"})
+    run("conditional sample_and_save, 4 samples", split_chain,
+        lambda: ev.sample_and_save(gen, 4, render=False))
+    _check(len(list((ev.outdir / "epoch_0").glob("molecule_*.txt"))) == 4, "xyz samples")
+    # keep_frames 10 of T = 500: a frame every 50 steps, the decoded sample last
+    run("conditional chain, keep_frames 10, B = 1", split_chain,
+        lambda: ev.sample_chain_and_save(gen, 10, render=False))
+    chain_files(ev, 10)
+    del module, ev
+
+    module, _ = load_model(joint["training"]["ckpt"], name="last", device=dev)
+    ev = SamplingEvaluator(module, outdir=out / "evaluation" / "joint")
+    joint_metrics = run("joint sample_and_analyze, 8 samples (block fusing on)",
+                        fused_chain, lambda: ev.sample_and_analyze(gen, JOINT_SAMPLES))
+    _check_metrics(joint_metrics, minus_one={"kl_div_residue_types", "Novelty"})
+    run("joint chain, keep_frames 10, B = 1", fused_chain,
+        lambda: ev.sample_chain_and_save(gen, 10, render=False))
+    chain_files(ev, 10)
+    del module, ev
+
+    print("  cli.train, one epoch with eval_epochs 1")
+    run_name = "chip_smoke_train_eval"
+    cfg = flagship_train_config(flagship, training["datadir"], work / "runs",
+                                run_name=run_name)
+    cfg.update(eval_epochs=1, visualize_sample_epoch=2, visualize_chain_epoch=2,
+               eval_params=dict(n_eval_samples=4, eval_batch_size=4,
+                                n_visualize_samples=1, keep_frames=10))
+    cfg_path = work / "train_eval_config.json"
+    cfg_path.write_text(json.dumps(cfg))
+    logged, trainer_log = [], loop.Trainer.log
+    loop.Trainer.log = lambda self, metrics, split, step: logged.append(
+        {f"{k}/{split}": float(v) for k, v in metrics.items()})
+    n_steps = N_TRAIN // 16
+    try:
+        run("cli.train, 1 epoch + validation + evaluation of 4 samples",
+            {**idle, "gcl_agg": L * (n_steps + 2 + T + 1),
+             "coord_agg": L * (n_steps + 2 + T + 1), "gcl_agg_bwd": L * n_steps,
+             "coord_agg_bwd": L * n_steps},
+            lambda: train_cli.main(["--config", str(cfg_path)]))
+    finally:
+        loop.Trainer.log = trainer_log
+    evals = [m for m in logged if "Validity/val" in m]
+    _check(len(evals) == 1, f"{len(evals)} evaluations logged, expected 1")
+    _check_metrics(evals[0], minus_one={"kl_div_residue_types/val", "Novelty/val"})
+    _check(not (work / "runs" / run_name / "eval").exists(), "the run rendered")
+    return dict(calls=calls, cond=cond, joint=joint_metrics, trainer=evals[0],
+                launches={k: max(c["launches"][k] for c in calls.values())
+                          for k in ec.KERNELS})
+
+
+def processing_phase(work, ligand_sdf):
+    """Phase 17: a raw CrossDocked layout of 6 pairs (synthetic pockets at
+    seeds 0-5, each with phase 6's first molecule as its ligand, a .json
+    split of 4/1/1) through the port's proc_crossdock, full-atom and CA;
+    host only."""
+    import shutil
+    from diffsbdd_tpu_torch.chem.sdfio import read_sdf
+    from diffsbdd_tpu_torch.data import proc_crossdock
+    from diffsbdd_tpu_torch.data.dataset import LigandPocketDataset
+    raw = work / "crossdocked"
+    pockets = raw / "crossdocked_pocket10"
+    pockets.mkdir(parents=True)
+    pairs = []
+    for seed in range(6):
+        write_pocket_pdb(pockets / f"pocket{seed}.pdb", n_atoms=300, seed=seed)
+        shutil.copy(ligand_sdf, pockets / f"pocket{seed}_lig.sdf")
+        pairs.append([f"pocket{seed}.pdb", f"pocket{seed}_lig.sdf"])
+    (raw / "split.json").write_text(json.dumps(
+        {"train": pairs[:4], "val": pairs[4:5], "test": pairs[5:]}))
+    n_lig = len(read_sdf(ligand_sdf)[0].symbols)
+    result = {}
+    for rep, widths in (("full-atom", (11, 11)), ("CA", (10, 20))):
+        outdir = work / f"processed_{rep}"
+        t0 = time.perf_counter()
+        proc_crossdock.main([str(raw), "--outdir", str(outdir), "--split_file",
+                             str(raw / "split.json")] + (["--ca_only"] if rep == "CA" else []))
+        host_s = time.perf_counter() - t0
+        sizes = []
+        for split, n in (("train", 4), ("val", 1), ("test", 1)):
+            ds = LigandPocketDataset(outdir / f"{split}.npz")
+            _check(len(ds) == n, f"{rep} {split}: {len(ds)} complexes, expected {n}")
+            for item in (ds[i] for i in range(n)):
+                _check(item["lig_coords"].shape == (n_lig, 3)
+                       and item["lig_one_hot"].shape[1] == widths[0]
+                       and item["pocket_one_hot"].shape[1] == widths[1]
+                       and len(item["pocket_coords"]) > 0, f"{rep} {split}: shapes")
+                if split == "train":
+                    sizes.append(len(item["pocket_coords"]))
+        hist = np.load(outdir / "size_distribution.npy")
+        _check(hist.shape == (n_lig + 1, max(sizes) + 1)
+               and all(hist[n_lig, s] > 0 for s in sizes), f"{rep}: size histogram {hist.shape}")
+        smiles = np.load(outdir / "train_smiles.npy", allow_pickle=True)
+        _check(len(smiles) == 4, f"{rep}: {len(smiles)} training smiles")
+        print(f"  {rep}: 4/1/1 complexes of {n_lig} ligand atoms, training pockets of "
+              f"{sizes} nodes, size histogram {hist.shape}, {len(smiles)} smiles; "
+              f"host {host_s:.2f} s")
+        result[rep] = dict(host_s=host_s, pocket_sizes=sizes, hist_shape=list(hist.shape))
+    return result
+
+
 def quality_readout(dev, ckpt, sdf):
     """analyze_samples on the molecules of ``sdf`` rebuilt under EDM and
     covalent bond perception."""
@@ -1665,11 +1915,23 @@ def main(argv=None) -> int:
         print("[quality] analyze_samples on phase 6's molecules")
         quality = quality_readout(dev, ckpt, sdf)
 
+        print("[15] Lightning import: a reference-format .ckpt of the r05c weights")
+        lightning = lightning_phase(
+            torch, ec, dev, flagship, ckpt, work, out, pdb, ref_lig,
+            np.load(Path(training["datadir"]) / "size_distribution.npy"))
+
+        print("[16] evaluation during training: SamplingEvaluator on the card")
+        evaluation = evaluation_phase(torch, ec, dev, flagship, work, out, training, joint)
+
+        print("[17] processing: proc_crossdock on a raw CrossDocked layout (host)")
+        processing = processing_phase(work, ligand_sdf)
+
     by_path = {"sampling": sampling_launches, "training": training["launches"],
                "joint_training": joint["training"]["launches"],
                "joint_sampling": joint["launches"], "inpainting": inpainting["launches"],
                "test_set": test_set["launches"], "optimize": optimize["launches"],
-               "serving": serving["launches"]}
+               "serving": serving["launches"], "lightning_import": lightning["launches"],
+               "evaluation": evaluation["launches"]}
     # a kernel's launches: those of the main path that runs it most
     launches = {k: max(path[k] for path in by_path.values()) for k in ec.KERNELS}
     for k in ec.KERNELS:
@@ -1679,6 +1941,7 @@ def main(argv=None) -> int:
                "sampling_launches": sampling_launches, "training": training,
                "joint": joint, "inpainting": inpainting, "test_set": test_set,
                "optimize": optimize, "serving": serving, "quality": quality,
+               "lightning": lightning, "evaluation": evaluation, "processing": processing,
                "variant_ms": variant_ms, "breakdown": breakdown,
                "sample_s": timing["sample_s"], "step_ms": step_ms,
                "cli_wall_s": wall, "molecules_per_s": n_samples / wall,

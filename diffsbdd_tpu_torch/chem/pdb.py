@@ -1,5 +1,6 @@
 """Minimal PDB parsing: residues, atoms and coordinates of the first model,
-and pocket selection around a reference ligand."""
+pocket selection around a reference ligand, and receptor files without their
+ligands."""
 from __future__ import annotations
 
 import dataclasses
@@ -49,6 +50,10 @@ class Residue:
                 return a
         return None
 
+    def coords(self, heavy_only: bool = True) -> np.ndarray:
+        atoms = [a for a in self.atoms if not (heavy_only and a.element == "H")]
+        return np.array([a.coord for a in atoms], dtype=np.float32)
+
 
 class Structure:
     """First model of a PDB file: residues indexed by (chain, resseq)."""
@@ -61,6 +66,9 @@ class Structure:
 
     def get_residues(self) -> List[Residue]:
         return self.residues
+
+    def residues_of_chain(self, chain_id: str) -> List[Residue]:
+        return [r for r in self.residues if r.chain_id == chain_id]
 
     def residue(self, chain_id: str, resseq: int) -> Residue:
         """The unique residue at (chain, resseq).
@@ -190,3 +198,25 @@ def get_pocket_from_ligand(structure: Structure, ref_ligand: str,
     lig_coords = np.array([a.coord for a in lig_res.atoms], dtype=np.float32)
     return get_pocket_residues_from_coords(
         structure, lig_coords, dist_cutoff, skip_residue=lig_res)
+
+
+def write_receptor_pdb(src_path, dst_path, exclude_hetero=()):
+    """Copy the first model of ``src_path`` to ``dst_path`` without the
+    HETATM records of the ligands ``exclude_hetero`` ((resname, chain,
+    resseq) triples): the receptor a processed complex is docked against.
+    CONECT and MASTER records are dropped (they may name removed serials);
+    the other records pass through verbatim."""
+    exclude = {(str(n).strip(), str(c), int(r)) for n, c, r in exclude_hetero}
+    with open(src_path) as f_in, open(dst_path, "w") as f_out:
+        for line in f_in:
+            rec = line[:6]
+            if rec == "ENDMDL":
+                f_out.write("END\n")
+                break
+            if rec in ("CONECT", "MASTER"):
+                continue
+            if rec == "HETATM" and len(line) >= 27:
+                key = (line[17:20].strip(), line[21], int(line[22:26]))
+                if key in exclude:
+                    continue
+            f_out.write(line)

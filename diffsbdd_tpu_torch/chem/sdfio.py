@@ -1,10 +1,48 @@
-"""SDF (MDL molfile V2000) reading and writing without external chemistry
-libraries."""
+"""SDF (MDL molfile V2000) and xyz reading and writing without external
+chemistry libraries."""
 from __future__ import annotations
 
+import random
+from pathlib import Path
 from typing import List
 
 import numpy as np
+
+
+def write_xyz_file(coords, atom_types, filename):
+    """One molecule as an xyz file: the atom count, a blank line, then
+    '<symbol> x y z' rows with three decimals."""
+    coords = np.asarray(coords)
+    if len(coords) != len(atom_types):
+        raise ValueError(f"{len(coords)} coordinates, {len(atom_types)} types")
+    rows = [f"{len(coords)}\n\n"]
+    rows += [f"{t} {x:.3f} {y:.3f} {z:.3f}\n"
+             for t, (x, y, z) in zip(atom_types, coords)]
+    with open(filename, "w") as f:
+        f.write("".join(rows))
+
+
+def load_xyz_files(path, shuffle=True):
+    """The ``*.txt`` then ``*.xyz`` files of a directory, each group sorted;
+    shuffled (``random.shuffle``) unless ``shuffle`` is False."""
+    files = sorted(Path(path).glob("*.txt")) + sorted(Path(path).glob("*.xyz"))
+    if shuffle:
+        random.shuffle(files)
+    return files
+
+
+def load_molecule_xyz(file, atom_encoder):
+    """One xyz file -> (coords (N, 3), one_hot (N, A)) float32 arrays."""
+    with open(file) as f:
+        n_atoms = int(f.readline())
+        f.readline()
+        coords = np.zeros((n_atoms, 3), dtype=np.float32)
+        one_hot = np.zeros((n_atoms, len(atom_encoder)), dtype=np.float32)
+        for i in range(n_atoms):
+            parts = f.readline().split()
+            coords[i] = [float(v) for v in parts[1:4]]
+            one_hot[i, atom_encoder[parts[0]]] = 1.0
+    return coords, one_hot
 
 
 def _mol_block(mol, name="") -> str:
@@ -33,9 +71,11 @@ def write_sdf_file(sdf_path, molecules):
             f.write("\n$$$$\n")
 
 
-def read_sdf(path) -> List["SimpleMol"]:
-    """Every V2000 molblock of an SDF file as a SimpleMol; blocks that do not
-    parse are skipped."""
+def read_sdf(path, keep_invalid: bool = False) -> List["SimpleMol"]:
+    """Every V2000 molblock of an SDF file as a SimpleMol.  A block that does
+    not parse is skipped, or with ``keep_invalid`` stands as None, so that
+    the list's indices stay those of the file (obabel's -f/-l count blocks
+    so)."""
     from diffsbdd_tpu_torch.chem.molecule import SimpleMol
 
     mols = []
@@ -60,8 +100,10 @@ def read_sdf(path) -> List["SimpleMol"]:
             for ln in lines[first_bond:first_bond + n_bonds]:
                 bonds.append((int(ln[0:3]) - 1, int(ln[3:6]) - 1, int(ln[6:9])))
             if len(symbols) != n_atoms or len(bonds) != n_bonds:
-                continue
+                raise IndexError("truncated molblock")
         except (ValueError, IndexError):
+            if keep_invalid:
+                mols.append(None)
             continue
         mols.append(SimpleMol(symbols=symbols,
                               coords=np.array(coords, dtype=np.float32),

@@ -6,8 +6,13 @@
 The YAML presets are those of the JAX package.  ``--resume`` restores weights,
 optimizer state and the checkpoint's hyperparameters (the checkpoint's config
 takes precedence, with warnings).  Runs on CUDA unless ``--device cpu`` is
-given.  The periodic sampling-quality evaluation is not ported: the run
-trains, validates and checkpoints.
+given.  Besides training, validating and checkpointing, the run samples
+from the model on the config's schedules (``eval_epochs``,
+``visualize_sample_epoch``, ``visualize_chain_epoch``, ``eval_params``): the
+quality metrics of ``analyze_samples`` on validation pockets (novelty against
+``train_smiles.npy`` where the data directory has it), and xyz dumps of
+samples and of a denoising chain with their renders under
+``<logdir>/<run_name>/eval``.
 """
 from __future__ import annotations
 
@@ -21,6 +26,7 @@ import torch
 from diffsbdd_tpu_torch.config import load_config, merge_configs
 from diffsbdd_tpu_torch.data.dataset import (AppendVirtualNodes, LigandPocketDataset,
                                              PaddedLoader, load_size_histogram)
+from diffsbdd_tpu_torch.train.evaluation import SamplingEvaluator
 from diffsbdd_tpu_torch.train.loop import (Trainer, create_train_state,
                                            restore_checkpoint)
 from diffsbdd_tpu_torch.train.module import build_module_from_config
@@ -85,8 +91,21 @@ def main(argv=None):
         state, _ = restore_checkpoint(args.resume, state, name="last")
         print(f"resumed from {args.resume} at step {state.step}")
 
+    logger = WandbLogger(cfg)
+    smiles_file = Path(cfg.datadir, "train_smiles.npy")
+    train_smiles = np.load(smiles_file, allow_pickle=True) \
+        if smiles_file.exists() else None
+    wandb_mod = None
+    if logger.run is not None:
+        import wandb as wandb_mod  # the module, for its Image and Video
+    evaluator = SamplingEvaluator(
+        module, dataset=val_ds, dataset_smiles=train_smiles,
+        outdir=Path(cfg.logdir) / cfg.run_name / "eval", wandb=wandb_mod,
+        datadir=cfg.datadir)
+
     generator = torch.Generator(device=device).manual_seed(cfg.seed)
-    trainer = Trainer(module, cfg, train_loader, val_loader, logger=WandbLogger(cfg))
+    trainer = Trainer(module, cfg, train_loader, val_loader, logger=logger,
+                      evaluator=evaluator)
     trainer.fit(state, generator, n_epochs=cfg.n_epochs)
 
 

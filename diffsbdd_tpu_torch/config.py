@@ -2,9 +2,9 @@
 
 A config is the defaults below merged with a JSON file (the checkpoint
 sidecar) or a YAML preset from ``configs/``, then with explicit overrides.
-Only the fields that sampling and training read have defaults here; other
-fields of a preset or sidecar pass through unchanged.  PyYAML is imported only when a
-``.yml``/``.yaml`` path is given.
+Only the fields that sampling, training and its evaluation read have
+defaults here; other fields of a preset or sidecar pass through unchanged.
+PyYAML is imported only when a ``.yml``/``.yaml`` path is given.
 """
 from __future__ import annotations
 
@@ -50,6 +50,18 @@ _DEFAULTS: Dict[str, Any] = {
     "auxiliary_loss": False,
     "loss_params": {"max_weight": 0.001, "schedule": "linear", "clamp_lj": 3.0},
     "log_every_n_steps": 1,
+    # the sampling evaluation during training: metrics every eval_epochs,
+    # rendered samples and a denoising chain on their own schedules
+    "eval_epochs": 50,
+    "visualize_sample_epoch": 50,
+    "visualize_chain_epoch": 50,
+    "eval_params": {
+        "n_eval_samples": 100,
+        "eval_batch_size": 100,
+        "smiles_file": None,
+        "n_visualize_samples": 5,
+        "keep_frames": 100,
+    },
     "wandb_params": {"mode": "disabled", "entity": None, "group": None},
     "egnn_params": {
         "edge_cutoff_ligand": None,

@@ -1,9 +1,11 @@
-"""Chemical constants and per-dataset parameters for sampling.
+"""Chemical constants and per-dataset parameters.
 
 The port's own copy of the parts of ``diffsbdd_tpu/constants.py`` that
-molecule building needs: bond-length tables (pm), the maximum valences, the
-bond-perception margins and the ``crossdock`` / ``crossdock_full`` type
-spaces with their bond matrices generated from the element tables.
+molecule building, rendering and data processing need: bond-length tables
+(pm), the maximum valences, the bond-perception margins, the idealized
+backbone geometry and the ``bindingmoad`` / ``crossdock`` /
+``crossdock_full`` type spaces with their bond matrices generated from the
+element tables and their rendering colours and radii.
 """
 from __future__ import annotations
 
@@ -87,6 +89,12 @@ COVALENT_RADII = {
     "Hg": 133, "Bi": 135,
 }
 
+# idealized backbone geometry (Bhagavan & Ha, Essentials of Medical
+# Biochemistry 2015, ch. 4)
+N_CA_DIST = 1.47
+CA_C_DIST = 1.53
+N_CA_C_ANGLE = 110 * np.pi / 180
+
 
 def build_lennard_jones_rm(decoder) -> np.ndarray:
     """(A, A) optimal LJ radii (pm): the shortest tabulated bond length, or
@@ -107,14 +115,21 @@ def build_lennard_jones_rm(decoder) -> np.ndarray:
 _LIG_ATOMS = ["C", "N", "O", "S", "B", "Br", "Cl", "P", "I", "F"]
 _AA20 = ["A", "C", "D", "E", "F", "G", "H", "I", "K", "L",
          "M", "N", "P", "Q", "R", "S", "T", "V", "W", "Y"]
+# PyMOL element colours (pymolwiki.org Color_Values)
+_COLORS10 = ["#33ff33", "#3333ff", "#ff4d4d", "#e6c540", "#ffb5b5",
+             "#A62929", "#1FF01F", "#ff8000", "#940094", "#B3FFFF"]
 
 
-def _dataset(atom_decoder, aa_decoder, atom_hist, aa_hist):
+def _dataset(atom_decoder, aa_decoder, atom_hist, aa_hist, colors):
     return {
         "atom_encoder": {a: i for i, a in enumerate(atom_decoder)},
         "atom_decoder": list(atom_decoder),
         "aa_encoder": {a: i for i, a in enumerate(aa_decoder)},
         "aa_decoder": list(aa_decoder),
+        # the radii follow the colours, which bindingmoad has 11 of for its
+        # 10 atom types, as the reference has them
+        "colors_dic": list(colors),
+        "radius_dic": [0.3] * len(colors),
         "bonds1": build_bond_matrix(atom_decoder, BONDS1),
         "bonds2": build_bond_matrix(atom_decoder, BONDS2),
         "bonds3": build_bond_matrix(atom_decoder, BONDS3),
@@ -127,6 +142,17 @@ def _dataset(atom_decoder, aa_decoder, atom_hist, aa_hist):
 # the type histograms are dataset statistics (atom types of the ligands,
 # residue or atom types of the pockets), the priors of the atom-type KL metric
 dataset_params = {
+    # CA or full-atom pockets: residues typed by amino acid, or (full-atom)
+    # pocket atoms typed like ligand atoms
+    "bindingmoad": _dataset(
+        _LIG_ATOMS, _AA20,
+        atom_hist={"C": 545542, "N": 90205, "O": 132965, "S": 9342, "B": 109,
+                   "Br": 1424, "Cl": 5516, "P": 5154, "I": 445, "F": 9742},
+        aa_hist={"A": 109798, "C": 31556, "D": 83921, "E": 79405, "F": 97083,
+                 "G": 139319, "H": 62661, "I": 99008, "K": 62403, "L": 155105,
+                 "M": 59977, "N": 70437, "P": 58833, "Q": 48254, "R": 74215,
+                 "S": 103286, "T": 90972, "V": 119954, "W": 42017, "Y": 90596},
+        colors=_COLORS10 + ["#b3e3f5"]),
     # CA pocket representation: residues typed by amino acid
     "crossdock": _dataset(
         _LIG_ATOMS, _AA20,
@@ -136,7 +162,8 @@ dataset_params = {
                  "F": 234995, "G": 376966, "H": 147704, "I": 290683,
                  "K": 173210, "L": 421883, "M": 157813, "N": 174241,
                  "P": 148581, "Q": 120232, "R": 173848, "S": 274430,
-                 "T": 247605, "V": 326134, "W": 88552, "Y": 226668}),
+                 "T": 247605, "V": 326134, "W": 88552, "Y": 226668},
+        colors=_COLORS10),
     # full-atom pocket representation: pocket atoms typed like ligand atoms
     "crossdock_full": _dataset(
         _LIG_ATOMS + ["others"], _LIG_ATOMS + ["others"],
@@ -145,5 +172,6 @@ dataset_params = {
                    "others": 0},
         aa_hist={"C": 23302704, "N": 6093090, "O": 6701210, "S": 276805,
                  "B": 0, "Br": 0, "Cl": 0, "P": 0, "I": 0, "F": 0,
-                 "others": 0}),
+                 "others": 0},
+        colors=_COLORS10 + ["#ffb5b5"]),
 }

@@ -2,8 +2,9 @@
 (ligand and pocket diffuse together), ``ConditionalDDPM`` (only the ligand
 diffuses, the pocket is fixed context) and ``SimpleConditionalDDPM`` (the
 conditional model without the centre-of-mass subspace), each with its training
-loss terms, its sampler and its RePaint inpainting; the conditional models
-also ``diversify``.
+loss terms, its sampler, a chain sampler that keeps frames for visualization
+(``sample_chain``, ``sample_given_pocket_chain``) and its RePaint inpainting;
+the conditional models also ``diversify``.
 
 Batches are padded dicts ``{'x': (B,N,3), 'one_hot': (B,N,A), 'mask': (B,N),
 'size': (B,)}``.  Every Gaussian draw goes through ``sample_gaussian`` and the
@@ -49,6 +50,14 @@ def _shift_x(xh, delta, mask, nd):
     """``xh`` with ``delta`` (B, nd) added to the coordinates of valid nodes."""
     return torch.cat([xh[..., :nd] + delta[:, None, :] * mask[..., None],
                       xh[..., nd:]], -1)
+
+
+def _frame_stride(timesteps: int, return_frames: int) -> int:
+    """Steps between two kept frames of a chain."""
+    if not (0 < return_frames <= timesteps) or timesteps % return_frames:
+        raise ValueError(f"return_frames {return_frames} must divide "
+                         f"timesteps {timesteps}")
+    return timesteps // return_frames
 
 
 def _full(B, value, device, scale=1.0):
@@ -418,6 +427,30 @@ class JointDDPM(DDPMBase):
                 _full(B, s + 1, dev, timesteps))
         return self._decode(generator, z_lig, z_pkt, m_l, m_p)
 
+    @torch.no_grad()
+    def sample_chain(self, generator: torch.Generator, masks,
+                     timesteps: Optional[int] = None, return_frames: int = 1):
+        """``sample`` keeping ``return_frames`` states of the chain for
+        visualization: (frames_lig, frames_pkt), each (return_frames, B, N,
+        D), the unnormalized state after every ``timesteps / return_frames``-th
+        step, the last frame replaced by the decoded sample."""
+        timesteps = self.T if timesteps is None else timesteps
+        stride = _frame_stride(timesteps, return_frames)
+        m_l, m_p = masks
+        B, dev = m_l.shape[0], m_l.device
+        z_lig, z_pkt = self.sample_combined_noise(generator, m_l, m_p)
+        frames_lig, frames_pkt = [], []
+        for i, s in enumerate(range(timesteps - 1, -1, -1)):
+            z_lig, z_pkt = self._denoise_step(
+                generator, z_lig, z_pkt, m_l, m_p, _full(B, s, dev, timesteps),
+                _full(B, s + 1, dev, timesteps))
+            if (i + 1) % stride == 0:
+                frames_lig.append(self.unnormalize_z(z_lig))
+                frames_pkt.append(self.unnormalize_z(z_pkt))
+        frames_lig[-1], frames_pkt[-1] = self._decode(generator, z_lig, z_pkt,
+                                                      m_l, m_p)
+        return torch.stack(frames_lig), torch.stack(frames_pkt)
+
     # ------------------------------------------------------------- inpainting
     @staticmethod
     def get_repaint_schedule(resamplings: int, jump_length: int,
@@ -745,6 +778,34 @@ class ConditionalDDPM(DDPMBase):
         x_lig = x_lig * lig_mask[..., None]
         return torch.cat([x_lig, h_lig], -1), torch.cat([x_pkt, h_pkt], -1)
 
+    @torch.no_grad()
+    def sample_given_pocket_chain(self, generator: torch.Generator, pocket: Batch,
+                                 lig_mask, timesteps: Optional[int] = None,
+                                 return_frames: int = 1):
+        """``sample_given_pocket`` (no shared pocket) keeping
+        ``return_frames`` states for visualization, as
+        ``JointDDPM.sample_chain`` does; unlike the joint chain, the decoded
+        last frame is neither re-projected nor re-masked."""
+        timesteps = self.T if timesteps is None else timesteps
+        stride = _frame_stride(timesteps, return_frames)
+        pocket = self.normalize(pocket)
+        B, dev = lig_mask.shape[0], lig_mask.device
+        m_p = pocket["mask"]
+        z_lig, xh_pkt = self._prior_sample(generator, pocket, lig_mask)
+        frames_lig, frames_pkt = [], []
+        for i, s in enumerate(range(timesteps - 1, -1, -1)):
+            z_lig, xh_pkt = self._denoise_step(
+                generator, z_lig, xh_pkt, lig_mask, m_p,
+                _full(B, s, dev, timesteps), _full(B, s + 1, dev, timesteps))
+            if (i + 1) % stride == 0:
+                frames_lig.append(self.unnormalize_z(z_lig))
+                frames_pkt.append(self.unnormalize_z(xh_pkt))
+        x_lig, h_lig, x_pkt, h_pkt = self.sample_p_xh_given_z0(
+            generator, z_lig, xh_pkt, lig_mask, m_p)
+        frames_lig[-1] = torch.cat([x_lig, h_lig], -1)
+        frames_pkt[-1] = torch.cat([x_pkt, h_pkt], -1)
+        return torch.stack(frames_lig), torch.stack(frames_pkt)
+
     def _centered(self, ligand: Batch, pocket: Batch):
         """(xh0_lig, xh0_pkt) of normalized batches in this model's frame."""
         return self._project(_xh(ligand), _xh(pocket), ligand["mask"], pocket["mask"])
@@ -857,13 +918,10 @@ class ConditionalDDPM(DDPMBase):
         the decode last) and (frames_lig, frames_pkt), each (return_frames,
         B, N, D), come back instead of (xh_lig, xh_pkt)."""
         timesteps = self.T if timesteps is None else timesteps
-        if not (0 < return_frames <= timesteps) or timesteps % return_frames:
-            raise ValueError(f"return_frames {return_frames} must divide "
-                             f"timesteps {timesteps}")
+        stride = _frame_stride(timesteps, return_frames)
         ctx, z_lig, xh_pkt = self._cond_inpaint_prep(generator, ligand, pocket,
                                                      lig_fixed, center=center)
         m_l, m_p = ctx["ligand"]["mask"], ctx["m_p"]
-        stride = timesteps // return_frames
         frames_lig, frames_pkt = [], []
         for i, s in enumerate(range(timesteps - 1, -1, -1)):
             for u in range(resamplings):
@@ -919,6 +977,13 @@ class SimpleConditionalDDPM(ConditionalDDPM):
         return super().sample_given_pocket(generator, pocket, lig_mask,
                                            timesteps=timesteps,
                                            shared_pocket=shared_pocket)
+
+    def sample_given_pocket_chain(self, generator, pocket, lig_mask,
+                                  timesteps=None, return_frames: int = 1):
+        _, pocket = self._center_on_pocket(None, pocket)
+        return super().sample_given_pocket_chain(generator, pocket, lig_mask,
+                                                 timesteps=timesteps,
+                                                 return_frames=return_frames)
 
     def diversify(self, generator, ligand, pocket, noising_steps,
                   shared_pocket: bool = False):

@@ -24,6 +24,14 @@ class SizeDistribution:
             "n1_given_n2": torch.as_tensor(np.log(self.prob_n1_given_n2),
                                            dtype=torch.float32)}
 
+    def sample(self, n_samples: int = 1, rng: np.random.Generator | None = None):
+        """Sample (n_lig, n_pocket) pairs from the joint prior."""
+        rng = rng or np.random.default_rng()
+        flat = self.prob.reshape(-1)
+        idx = rng.choice(len(flat), size=n_samples, p=flat)
+        n1, n2 = np.unravel_index(idx, self.prob.shape)
+        return n1.astype(np.int32), n2.astype(np.int32)
+
     def sample_conditional(self, n2, rng: np.random.Generator | None = None):
         """Sample ligand sizes n1 ~ p(n1 | n2) for pocket sizes ``n2``."""
         rng = rng or np.random.default_rng()

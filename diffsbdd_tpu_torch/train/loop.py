@@ -232,8 +232,8 @@ def batch_to_device(part: Dict[str, np.ndarray], device) -> Dict[str, torch.Tens
 
 
 class Trainer:
-    """Epoch-driven trainer with periodic validation, best / last checkpoints
-    and optional metric logging.
+    """Epoch-driven trainer with periodic validation, best / last checkpoints,
+    an optional sampling evaluator and optional metric logging.
 
     Runs on the module's device, which the entry point picked through
     ``resolve_device``: the card unless the caller asked for the CPU, with
@@ -242,13 +242,16 @@ class Trainer:
     reference trains.
     """
 
-    def __init__(self, module, cfg, train_loader, val_loader, logger=None):
+    def __init__(self, module, cfg, train_loader, val_loader, logger=None,
+                 evaluator=None):
         self.module = module
         self.cfg = cfg
         self.device = resolve_device(str(module.device))
         self.train_loader = train_loader
         self.val_loader = val_loader
         self.logger = logger
+        # a train.evaluation.SamplingEvaluator, run on the eval schedules
+        self.evaluator = evaluator
         self.best_val = float("inf")
         self.log_every_n_steps = int(cfg.get("log_every_n_steps", 1))
         self.ckpt_dir = Path(cfg.logdir) / cfg.run_name / "checkpoints"
@@ -293,9 +296,31 @@ class Trainer:
                     save_model(self.ckpt_dir, self.module, self.cfg, name="best",
                                state=state)
 
+            if self.evaluator is not None:
+                self._evaluate(generator, epoch, state.step)
+
             if train_info is not None:
                 print(f"epoch {epoch}: {time.time() - t0:.1f}s "
                       f"loss={float(train_info['loss']):.4f}")
             else:
                 print(f"epoch {epoch}: {time.time() - t0:.1f}s (no batches)")
         return state
+
+    def _evaluate(self, generator, epoch: int, step: int):
+        """The sampling evaluation after ``epoch``: metrics every
+        ``eval_epochs`` epochs (logged under split 'val'), rendered samples
+        every ``visualize_sample_epoch``, a rendered chain every
+        ``visualize_chain_epoch``."""
+        cfg, ep = self.cfg, self.cfg.eval_params
+        if (epoch + 1) % cfg.eval_epochs == 0:
+            tic = time.time()
+            metrics = self.evaluator.sample_and_analyze(
+                generator, ep.n_eval_samples, batch_size=ep.get("eval_batch_size"))
+            self.log(metrics, "val", step)
+            print(f"Evaluation took {time.time() - tic:.2f} seconds")
+        if (epoch + 1) % cfg.visualize_sample_epoch == 0:
+            self.evaluator.sample_and_save(generator, ep.n_visualize_samples,
+                                           epoch=epoch)
+        if (epoch + 1) % cfg.visualize_chain_epoch == 0:
+            self.evaluator.sample_chain_and_save(generator, ep.keep_frames,
+                                                 epoch=epoch)

@@ -5,10 +5,13 @@ preparation and the ``generate_ligands`` inference API, for the three modes
 ``LigandPocketDDPM`` is an ``nn.Module`` whose state_dict keys are the
 reference's (``ddpm.dynamics....``).  A joint checkpoint generates ligands as
 an inpainter with every pocket node fixed.  ``analyze_samples`` gives the
-sampling-quality metrics, without docking.
+sampling-quality metrics, smina docking scores included where receptors are
+given.
 """
 from __future__ import annotations
 
+import warnings
+from pathlib import Path
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -16,6 +19,7 @@ import torch
 from torch import nn
 
 from diffsbdd_tpu_torch.chem import pdb as pdbmod
+from diffsbdd_tpu_torch.chem.docking import smina_score
 from diffsbdd_tpu_torch.chem.metrics import (BasicMolecularMetrics,
                                              CategoricalDistribution,
                                              MoleculeProperties)
@@ -343,12 +347,10 @@ class LigandPocketDDPM(nn.Module):
         """Sampling-quality metrics: the atom- and residue-type KL divergences
         from the dataset histograms (-1.0 where not computed), validity,
         connectivity, uniqueness, novelty, and the mean QED, SA, logP,
-        Lipinski and diversity of the connected molecules.  Docking scores
-        (``receptors``) are not ported yet."""
-        if receptors is not None:
-            raise NotImplementedError(
-                "docking scores (smina) are not ported yet: the tooling item of "
-                "ROADMAP.md's module queue")
+        Lipinski and diversity of the connected molecules.  With
+        ``receptors``, one receptor file a molecule, also ``smina_score``,
+        the mean of the finite smina scores, when every file exists; a
+        missing binary or a failed scoring skips it with a warning."""
         lig_dist = None if self.virtual_nodes else CategoricalDistribution(
             self.dataset_info["atom_hist"], self.lig_type_encoder)
         kl_atom = lig_dist.kl_divergence(atom_types) if lig_dist else -1.0
@@ -364,13 +366,27 @@ class LigandPocketDDPM(nn.Module):
             metrics.evaluate_mols(molecules)
         qed, sa, logp, lipinski, diversity = \
             MoleculeProperties().evaluate_mean(connected)
-        return {
+        out = {
             "kl_div_atom_types": kl_atom, "kl_div_residue_types": kl_aa,
             "Validity": validity, "Connectivity": connectivity,
             "Uniqueness": uniqueness, "Novelty": novelty,
             "QED": qed, "SA": sa, "LogP": logp, "Lipinski": lipinski,
             "Diversity": diversity,
         }
+        if receptors is not None and molecules \
+                and len(receptors) == len(molecules) \
+                and all(Path(r).exists() for r in receptors):
+            # scored 1:1, each molecule against its own pocket's receptor
+            try:
+                scores = smina_score(molecules, receptors)
+                finite = [s for s in scores if np.isfinite(s)]
+                if finite:
+                    out["smina_score"] = float(np.mean(finite))
+            except (FileNotFoundError, OSError, RuntimeError, ValueError) as e:
+                # a missing binary or a failed scoring never sinks the
+                # training run's evaluation
+                warnings.warn(f"smina scoring skipped: {e}")
+        return out
 
 
 def build_module_from_config(cfg: Config, node_histogram) -> LigandPocketDDPM:

@@ -341,5 +341,10 @@ def test_analyze_samples_matches_jax(config):
                               dataset_smiles=smiles)
     got = pm.analyze_samples(pmols, atom_types, aa_types, dataset_smiles=smiles)
     assert_same(got, want, config)
-    with pytest.raises(NotImplementedError, match="docking"):
-        pm.analyze_samples(pmols, atom_types, aa_types, receptors=["r.pdb"])
+    # receptor files that do not exist: no docking score, as in JAX
+    # (tests/test_torch_docking.py scores them with a stand-in smina)
+    receptors = ["r.pdb"] * len(pmols)
+    assert_same(pm.analyze_samples(pmols, atom_types, aa_types, receptors=receptors,
+                                   dataset_smiles=smiles),
+                jm.analyze_samples(jmols, atom_types, aa_types, receptors=receptors,
+                                   dataset_smiles=smiles), config)

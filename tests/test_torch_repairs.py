@@ -1,6 +1,11 @@
-"""Two port faults against the JAX package, repaired: a virtual-node model's
-ligand sizes, and a reference ligand given as an SDF file."""
+"""Three port faults against the JAX package, repaired: a virtual-node
+model's ligand sizes, a reference ligand given as an SDF file, and the
+``bindingmoad`` dataset (every preset of ``configs/`` builds, and a tiny MOAD
+model's loss terms match JAX with CA and with full-atom pockets)."""
+from pathlib import Path
+
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -12,13 +17,18 @@ import diffsbdd_tpu_torch.cli.inpaint as port_inpaint_cli
 import diffsbdd_tpu_torch.train.module as port_module_mod
 from diffsbdd_tpu.chem import pdb as jax_pdb
 from diffsbdd_tpu.config import load_config as jax_load_config
+from diffsbdd_tpu.constants import dataset_params as jax_dataset_params
 from diffsbdd_tpu_torch.checkpoint import import_jax_npz
 from diffsbdd_tpu_torch.chem import pdb as port_pdb
 from diffsbdd_tpu_torch.chem.molecule import SimpleMol
 from diffsbdd_tpu_torch.chem.sdfio import read_sdf, write_sdf_file
 from diffsbdd_tpu_torch.config import load_config
+from diffsbdd_tpu_torch.constants import dataset_params
 from test_torch_sampling import FIXTURE_NPZ
-from test_torch_train import tiny_overrides
+from test_torch_train import (LOSS_TOL, assert_tree_close, both_modules, jax_draws,
+                              tiny_overrides)
+
+PRESETS = sorted((Path(__file__).resolve().parent.parent / "configs").glob("*.yml"))
 
 T = 5
 
@@ -130,3 +140,68 @@ def test_virtual_node_model_samples_at_the_padded_maximum(tmp_path, monkeypatch)
     assert pm.max_num_nodes == 12
     np.testing.assert_array_equal(sizes["jax"], np.full(3, 12))
     np.testing.assert_array_equal(sizes["port"], sizes["jax"])
+
+
+def test_every_dataset_matches_jax():
+    """The three type spaces, with their histograms, bond and LJ tables and
+    rendering colours and radii (11 of each for MOAD's 10 atom types)."""
+    assert sorted(dataset_params) == sorted(jax_dataset_params) \
+        == ["bindingmoad", "crossdock", "crossdock_full"]
+    for name, want in jax_dataset_params.items():
+        got = dataset_params[name]
+        assert sorted(got) == sorted(want), name
+        for key in want:
+            np.testing.assert_array_equal(np.asarray(got[key]), np.asarray(want[key]),
+                                          err_msg=f"{name}/{key}")
+    assert len(dataset_params["bindingmoad"]["colors_dic"]) == 11
+    assert len(dataset_params["bindingmoad"]["radius_dic"]) == 11
+
+
+@pytest.mark.parametrize("preset", PRESETS, ids=[p.stem for p in PRESETS])
+def test_every_preset_builds_as_in_jax(preset):
+    jm = jax_module_mod.build_module_from_config(jax_load_config(preset),
+                                                 np.ones((17, 65)))
+    pm = port_module_mod.build_module_from_config(load_config(preset),
+                                                  np.ones((17, 65)))
+    assert type(pm.ddpm).__name__ == type(jm.ddpm).__name__
+    assert (pm.atom_nf, pm.residue_nf, pm.lig_type_decoder, pm.pocket_representation,
+            pm.ddpm.T) == (jm.atom_nf, jm.residue_nf, jm.lig_type_decoder,
+                           jm.pocket_representation, jm.ddpm.T)
+    assert pm.dataset_info["atom_decoder"] == jm.dataset_info["atom_decoder"]
+
+
+def moad_batch(rng, residue_nf, B=4, NL=8, NP=24):
+    """A padded numpy batch of MOAD complexes: ligands of 5-8 atoms of the 10
+    types, pockets of 14-24 nodes typed in ``residue_nf`` classes."""
+    def part(n_max, sizes, nf, scale):
+        mask = (np.arange(n_max)[None] < sizes[:, None]).astype(np.float32)
+        return {"x": (rng.standard_normal((B, n_max, 3)) * scale).astype(np.float32)
+                * mask[..., None],
+                "one_hot": np.eye(nf, dtype=np.float32)[rng.integers(0, nf, (B, n_max))]
+                * mask[..., None],
+                "mask": mask, "size": sizes.astype(np.int32)}
+    return (part(NL, rng.integers(5, NL + 1, B), 10, 1.5),
+            part(NP, rng.integers(14, NP + 1, B), residue_nf, 4.0))
+
+
+@pytest.mark.parametrize("representation,residue_nf,training",
+                         [("CA", 20, True), ("full-atom", 10, False)])
+def test_bindingmoad_loss_terms_match_jax(representation, residue_nf, training):
+    over = tiny_overrides(dataset="bindingmoad", pocket_representation=representation)
+    jm, params, pm = both_modules(over)
+    assert (pm.atom_nf, pm.residue_nf) == (10, residue_nf)
+    lig, pkt = moad_batch(np.random.default_rng(3), residue_nf)
+    rng = jax.random.PRNGKey(11)
+    jb = {k: jnp.asarray(v) for k, v in lig.items()}, {k: jnp.asarray(v) for k, v in pkt.items()}
+    want = jm.ddpm.loss_terms(params, rng, *jb, training)
+    t_int, noise = jax_draws(rng, lig, 10, training)
+    tq, nq = [t_int], list(noise)
+    pm.ddpm.sample_timesteps = lambda g, n, lowest: torch.as_tensor(tq.pop(0))
+    pm.ddpm.sample_gaussian = lambda g, shape, mask: \
+        torch.tensor(nq.pop(0)) * mask[..., None]
+    with torch.no_grad():
+        got = pm.ddpm.loss_terms(None, {k: torch.as_tensor(v) for k, v in lig.items()},
+                                 {k: torch.as_tensor(v) for k, v in pkt.items()}, training)
+    assert not tq and not nq
+    assert_tree_close(got.pop("info"), want.pop("info"), **LOSS_TOL)
+    assert_tree_close(got, want, **LOSS_TOL)
