@@ -112,7 +112,21 @@ Phases (any failure ends the run with a non-zero exit code):
      machine is not promised matplotlib or imageio;
   17. processing (host only): a raw CrossDocked layout of 6 synthetic pairs
      through the port's proc_crossdock, full-atom and CA, each split loaded
-     with LigandPocketDataset, the size histogram and the smiles checked.
+     with LigandPocketDataset, the size histogram and the smiles checked;
+  18. the multi-device paths (parallel/) on the one card.  18a: the two
+     coordinate kernels on the two column blocks of a two-rank edge split at
+     the flagship shapes (phase 3's and 3b's launches), each block against
+     its plain version, the blocks' sum against the whole-graph launch, each
+     block's time beside the whole graph's.  18b: two ranks spawned on the
+     card, joined by gloo over CUDA tensors (NCCL refuses two ranks on one
+     card), each check against one process on the card: the edge-sharded
+     flagship dynamics (forward and parameter gradients, on the kernels with
+     column-block masks), one data-parallel train step at global batch 16
+     with injected noise, the batch-sharded main path (2 x 8 molecules at
+     T=500, global noise contract); each rank's launches as each check's.
+     18c: cli.train for one epoch under a one-rank torchrun environment
+     (NCCL) with num_workers 2: the rank-0 checkpoints, the prefetch thread.
+     No time of phase 18 is a multi-card speed: two ranks share one card.
 
 Prints a {"kernels": [...]} line and the card line, and as its last line
 {"ok": true, "device": {...}}.  The pocket, the samples and a summary.json go
@@ -123,6 +137,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import re
 import subprocess
 import sys
@@ -1698,6 +1713,382 @@ def processing_phase(work, ligand_sdf):
     return result
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the multi-device paths (parallel/) on the one card
+# ---------------------------------------------------------------------------
+
+# the edge-sharded and data-parallel checks against one process on the card:
+# float32 on both sides, every sum of a pair MLP split into two column blocks
+# or two batch halves (another order, and another grid for the backward
+# kernels): values atol 1e-4 + rtol 1e-4 through the flagship's six layers;
+# every parameter gradient within PAR_GRAD_RTOL of its largest entry, phase
+# 9's gate for gradients through several layers summed in another order (the
+# sum-of-squares loss of unnormalized coordinates gives entries up to ~1e5,
+# so an elementwise gate would hold the small ones to the large ones'
+# rounding); the train step's metrics atol 1e-5 + rtol 1e-4
+PAR_VALUE_TOL = dict(atol=1e-4, rtol=1e-4)
+PAR_GRAD_RTOL = 1e-3
+PAR_INFO_TOL = dict(atol=1e-5, rtol=1e-4)
+PAR_SEED = 18
+
+
+def column_mask_phase(ec, torch, dev, flagship, variant_ms):
+    """Phase 18a: the two coordinate kernels on the two column blocks of a
+    two-rank edge split at the flagship shapes -- each block against its
+    plain version, the blocks' sum against the whole-graph launch -- with
+    each block's time beside the whole graph's."""
+    from diffsbdd_tpu_torch.parallel.edge_shard import ShardContext, column_range
+
+    def blocks(inp):
+        return [ShardContext(None, *column_range(inp["N"], r, 2)).col_mask(inp["mask"])
+                for r in range(2)]
+
+    # forward: phase 3's main-path launch (B = 16, 24 ligand rows, cross on)
+    inp = kernel_inputs(torch, dev, flagship, 16, 24)
+    kw = dict(cutoffs=inp["cut"], tanh=True, coords_range=15.0, norm_constant=1.0,
+              normalization_factor=100.0, update_rows=24, cross=inp["cross"],
+              graph_mean=inp["graph_mean"])
+
+    def fwd(fn, cm):
+        return fn(inp["a_row"], inp["a_col"], inp["x"], inp["x0"], inp["mask"],
+                  inp["is_lig"], *inp["coord_w"], col_mask=cm, **kw)
+
+    tol = dict(atol=1e-5, rtol=1e-4)
+
+    def close(what, got, ref):
+        err = float((got - ref).abs().max())
+        bad = float(((got - ref).abs() - (tol["atol"] + tol["rtol"] * ref.abs())).max())
+        _check(bad <= 0.0, f"{what}: error {err:.3e} over atol 1e-5 + rtol 1e-4")
+        return err
+
+    whole = fwd(ec.coord_update_agg, None)
+    res = {"coord_agg": {"whole_ms": _cuda_ms(lambda: fwd(ec.coord_update_agg, None), 20),
+                         "blocks": []}}
+    parts = []
+    for r, cm in enumerate(blocks(inp)):
+        got = fwd(ec.coord_update_agg, cm)
+        err = close(f"coord_agg column block {r}", got, fwd(ec.coord_update_agg_plain, cm))
+        parts.append(got)
+        res["coord_agg"]["blocks"].append(dict(
+            max_abs_err=err, ms=_cuda_ms(lambda: fwd(ec.coord_update_agg, cm), 20),
+            pairs=active_pairs(ec, inp, rows=24, col_mask=cm)))
+    res["coord_agg"]["sum_err"] = close("coord_agg block sum", parts[0] + parts[1], whole)
+
+    # backward: phase 3b's training launch (B = 16, ligands of 24-32 atoms
+    # padded to 32, cross and tanh on)
+    sizes = np.random.default_rng(0).integers(24, 33, 16)
+    full = kernel_inputs(torch, dev, flagship, 16, 32, lig_sizes=sizes, seed=1)
+    g = full["r"](16, full["N"], 3)
+    w_d2, w_d20, _, w2, b2, w3 = full["coord_w"]
+    c = {k: v for k, v in full["cross"].items() if k != "type_bias"}
+    c["delta"] = full["cross_delta"]
+
+    def bwd(fn, cm, sl=slice(0, 16)):
+        return _name_cotangents(fn(
+            g[sl], full["a_row"][sl], full["a_col"][sl], full["x"][sl], full["x0"][sl],
+            full["mask"][sl], full["is_lig"][sl], w_d2, w_d20, full["coord_delta"], w2,
+            b2, w3, cutoffs=full["cut"], tanh=True, coords_range=15.0,
+            norm_constant=1.0, normalization_factor=100.0,
+            cross={k: (v[sl] if k in ("a_row", "a_col") else v) for k, v in c.items()},
+            graph_mean=full["graph_mean"][sl], col_mask=None if cm is None else cm[sl],
+            update_rows=32), COORD_COT)
+
+    def bwd_close(what, got, ref):
+        worst = 0.0
+        for name, r in ref.items():
+            if r is None:
+                continue
+            scale, err = float(r.abs().max()), float((got[name] - r).abs().max())
+            _check(err <= BWD_RTOL * scale + 1e-7,
+                   f"{what} {name}: error {err:.3e} against scale {scale:.3e}")
+            worst = max(worst, err / (scale + 1e-30))
+        return worst
+
+    whole = bwd(ec.coord_agg_bwd, None)
+    res["coord_agg_bwd"] = {"whole_ms": _cuda_ms(lambda: bwd(ec.coord_agg_bwd, None), 20),
+                            "blocks": []}
+    parts = []
+    for r, cm in enumerate(blocks(full)):
+        got = bwd(ec.coord_agg_bwd, cm)
+        ref = _plain_in_slices(torch, lambda sl: bwd(ec.coord_agg_bwd_plain, cm, sl), 16, 2)
+        rel = bwd_close(f"coord_agg_bwd column block {r}", got, ref)
+        parts.append(got)
+        res["coord_agg_bwd"]["blocks"].append(dict(
+            worst_rel_err=rel, ms=_cuda_ms(lambda: bwd(ec.coord_agg_bwd, cm), 20),
+            pairs=active_pairs(ec, full, rows=32, col_mask=cm)))
+    summed = {k: None if v is None else v + parts[1][k] for k, v in parts[0].items()}
+    res["coord_agg_bwd"]["sum_worst_rel_err"] = bwd_close("coord_agg_bwd block sum",
+                                                          summed, whole)
+    for name, phase, label in (("coord_agg", "3", "coord_agg[ligand_rows_cross]"),
+                               ("coord_agg_bwd", "3b",
+                                "coord_agg_bwd[train_ligand_rows_cross]")):
+        r = res[name]
+        print(f"  {name}: blocks " + ", ".join(
+            f"{b['ms']:.4f} ms ({b['pairs']} pairs)" for b in r["blocks"])
+            + f"; whole graph {r['whole_ms']:.4f} ms here, {variant_ms[label]:.4f} ms "
+            f"in phase {phase}; each block within its gate of its plain version, "
+            f"the blocks' sum of the whole-graph launch")
+    return res
+
+
+def _grad_gate(what, names, got, want) -> float:
+    """Each gradient within PAR_GRAD_RTOL of its largest entry; returns the
+    worst error as a share of that entry."""
+    worst = 0.0
+    for n, g, w in zip(names, got, want):
+        scale, err = float(w.abs().max()), float((g - w).abs().max())
+        _check(err <= PAR_GRAD_RTOL * scale + 1e-7,
+               f"{what} d{n}: error {err:.3e} against scale {scale:.3e}")
+        worst = max(worst, err / (scale + 1e-30))
+    return worst
+
+
+def _parallel_model(job, dev):
+    """The flagship conditional module with the job's weights (r05c) on
+    ``dev``."""
+    import torch
+    from diffsbdd_tpu_torch.config import load_config
+    from diffsbdd_tpu_torch.convert.jax_params import state_dict_from_npz
+    from diffsbdd_tpu_torch.train.module import build_module_from_config
+    module = build_module_from_config(load_config(overrides=job["config"]),
+                                      job["histogram"])
+    module.load_state_dict({k: torch.tensor(v) for k, v in
+                            state_dict_from_npz(job["weights"]).items()}, strict=True)
+    return module.to(dev)
+
+
+def _parallel_checks(torch, job, dev, group):
+    """(i) the flagship dynamics forward and its parameter gradients, (iii)
+    the main path's chain at T = 500, (ii) one train step with injected
+    noise; with ``group`` each split over its ranks (the edge axis for (i),
+    the batch for (ii) and (iii)), without it on one process.  Returns the
+    results, each check's wall on the card and its kernel launches."""
+    from diffsbdd_tpu_torch.ops import egnn_cuda as ec
+    from diffsbdd_tpu_torch.parallel import mesh
+    from diffsbdd_tpu_torch.parallel.edge_shard import edge_sharded_dynamics
+    from diffsbdd_tpu_torch.parallel.sample_shard import sample_given_pocket_sharded
+    from diffsbdd_tpu_torch.train import loop
+    module = _parallel_model(job, dev)
+    walls, launches = {}, {}
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+
+    def timed(name, fn):
+        ec.reset_launch_counts()
+        sync()
+        t0 = time.perf_counter()
+        result = fn()
+        sync()
+        walls[name] = time.perf_counter() - t0
+        launches[name] = dict(ec.launch_counts)
+        return result
+
+    dyn = module.ddpm.dynamics
+    inputs = [torch.as_tensor(a, device=dev) for a in job["dynamics_inputs"]]
+    params = list(dyn.parameters())
+
+    def dynamics():
+        fn = dyn if group is None else edge_sharded_dynamics(dyn, group)
+        eps = fn(*inputs)
+        grads = torch.autograd.grad(sum((e ** 2).sum() for e in eps), params,
+                                    allow_unused=True)
+        return [e.detach() for e in eps], [torch.zeros_like(p) if gr is None else gr
+                                           for p, gr in zip(params, grads)]
+
+    eps, grads = timed("edge_dynamics", dynamics)
+
+    pocket = {k: torch.as_tensor(v, device=dev) for k, v in job["pocket"].items()}
+    lig_mask = torch.as_tensor(job["lig_mask"], device=dev)
+    gen = torch.Generator(device=dev).manual_seed(job["seed"])
+    kw = dict(timesteps=job["T"], shared_pocket=True)
+    ddpm = module.ddpm.eval()
+    if group is None:
+        samples = timed("sampling", lambda: ddpm.sample_given_pocket(
+            gen, pocket, lig_mask, **kw))
+    else:
+        samples = timed("sampling", lambda: sample_given_pocket_sharded(
+            ddpm, group, gen, pocket, lig_mask, **kw))
+
+    # the step last: it moves the weights
+    rank, n = mesh.group_rank_size(group)
+    t_int, noise = job["noise"]
+    rows = slice(rank * len(t_int) // n, (rank + 1) * len(t_int) // n)
+    module.ddpm.sample_timesteps = lambda g, n_, lowest: torch.as_tensor(
+        t_int[rows], device=dev)
+    module.ddpm.sample_gaussian = lambda g, shape, mask: torch.as_tensor(
+        noise[rows], device=dev) * mask[..., None]
+    state = loop.create_train_state(module.train(), lr=1e-3)
+    seen, optimizer_step = [], state.optimizer.step
+    state.optimizer.step = lambda grads: (seen.append([gr.clone() for gr in grads]),
+                                          optimizer_step(grads))
+    step = loop.make_train_step(state, clip_grad=True, group=group)
+    local = mesh.shard_batch(job["batch"], group)
+    info = timed("train_step", lambda: step(
+        None, loop.batch_to_device(local["ligand"], dev),
+        loop.batch_to_device(local["pocket"], dev)))
+    host = lambda ts: [t.cpu() for t in ts]  # noqa: E731
+    out = {"dynamics": (host(eps), host(grads)), "sampling": host(samples),
+           "train_step": ({k: float(v) for k, v in info.items()}, host(seen[0]))}
+    return out, walls, launches
+
+
+def _parallel_rank(rank, workdir, device_type):
+    """One of phase 18b's two ranks: gloo over CUDA tensors, both ranks on
+    the one card (NCCL refuses two ranks on one card)."""
+    import torch
+    import torch.distributed as dist
+    from diffsbdd_tpu_torch.parallel import mesh
+    from diffsbdd_tpu_torch.utils.device import resolve_device
+    workdir = Path(workdir)
+    mesh.init_distributed(device=device_type, init_method=f"file://{workdir}/rendezvous",
+                          rank=rank, world_size=2, backend="gloo")
+    try:
+        dev = resolve_device(f"cuda:{torch.cuda.current_device()}"
+                             if device_type == "cuda" else "cpu")
+        job = torch.load(workdir / "job.pt", weights_only=False)
+        torch.save(_parallel_checks(torch, job, dev, dist.group.WORLD),
+                   workdir / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def parallel_phase(torch, ec, dev, flagship, work, pdb, ref_lig):
+    """Phase 18b: two gloo ranks sharing the card (spawned; the kernels are
+    built) against one process on the card: (i) the edge-sharded flagship
+    dynamics, forward and parameter gradients; (ii) one data-parallel train
+    step at global batch 16 (8 a rank) with injected noise; (iii) the
+    batch-sharded main path, 2 x 8 molecules at T = 500, global noise
+    contract; each rank's kernel launches against each check's."""
+    import torch.multiprocessing as mp
+    from diffsbdd_tpu_torch.chem import pdb as pdbmod
+    from diffsbdd_tpu_torch.data.dataset import LigandPocketDataset, PaddedLoader
+
+    T = flagship["diffusion_params"]["diffusion_steps"]
+    par = work / "parallel"
+    # a training batch of the r05c model's atom types (phase 8's model has
+    # crossdock's 10, the r05c weights crossdock_full's 11)
+    write_synthetic_dataset(par / "data", 16, 1, seed=PAR_SEED, n_types=11)
+    hist = np.load(par / "data" / "size_distribution.npy")
+    job = dict(config=flagship, histogram=hist, T=T, seed=PAR_SEED,
+               weights=str(R05C_NPZ))
+    module = _parallel_model(job, dev)
+    residues = pdbmod.get_pocket_from_ligand(pdbmod.parse_pdb(pdb), ref_lig)
+    pocket = {k: v.cpu().numpy() for k, v in module.prepare_pocket(residues, repeats=16).items()}
+    rng = np.random.default_rng(PAR_SEED)
+    atom_nf = module.ddpm.atom_nf
+    # (i): 8 ligands of 24 atoms around the pocket's centre at t = 0.5
+    centre = (pocket["x"][0] * pocket["mask"][0, :, None]).sum(0) / pocket["mask"][0].sum()
+    xh_lig = np.concatenate([centre + rng.standard_normal((8, 24, 3)) * 1.5,
+                             np.eye(atom_nf)[rng.integers(0, atom_nf, (8, 24))]], -1)
+    xh_pkt = np.concatenate([pocket["x"][:8], pocket["one_hot"][:8]], -1)
+    job["dynamics_inputs"] = [np.ascontiguousarray(a, np.float32) for a in (
+        xh_lig, xh_pkt, np.full((8, 1), 0.5), np.ones((8, 24)), pocket["mask"][:8])]
+    # (iii): the main path's batch
+    job["pocket"], job["lig_mask"] = pocket, np.ones((16, 24), np.float32)
+    # (ii): a batch of 16 complexes and its timesteps and noise
+    batch = next(iter(PaddedLoader(LigandPocketDataset(par / "data" / "train.npz"),
+                                   16, shuffle=False)))
+    nl = batch["ligand"]["x"].shape[1]
+    job["batch"] = batch
+    job["noise"] = (rng.integers(0, T + 1, (16, 1)).astype(np.float32),
+                    rng.standard_normal((16, nl, 3 + atom_nf)).astype(np.float32))
+    dyn_names = [n for n, _ in module.ddpm.dynamics.named_parameters()]
+    names = [n for n, _ in module.named_parameters()]
+    del module
+    torch.save(job, par / "job.pt")
+
+    t0 = time.perf_counter()
+    mp.spawn(_parallel_rank, args=(str(par), dev.type), nprocs=2, join=True)
+    spawn_wall = time.perf_counter() - t0
+    ranks = [torch.load(par / f"rank{r}.pt", weights_only=False) for r in range(2)]
+    ref, ref_walls, ref_launches = _parallel_checks(torch, job, dev, None)
+
+    n_layers = flagship["egnn_params"]["n_layers"]
+    step_launches = {k: 0 if k == "block_fused" else n_layers for k in ec.KERNELS}
+    expected = {"edge_dynamics": step_launches, "train_step": step_launches,
+                "sampling": {"gcl_agg": 8 * T + 6, "coord_agg": 6 * T + 6,
+                             "gcl_agg_bwd": 0, "coord_agg_bwd": 0, "block_fused": 0}}
+    _check(ref_launches == expected, f"one process: launches {ref_launches}, "
+                                     f"expected {expected}")
+    report = {"spawn_wall_s": spawn_wall, "one_process_walls_s": ref_walls,
+              "ranks": []}
+    for r, (got, walls, launches) in enumerate(ranks):
+        print(f"  rank {r} launches {launches}")
+        _check(launches == expected, f"rank {r}: launches {launches}, expected {expected}")
+        # (i)
+        worst_v = max(float((g - w).abs().max())
+                      for g, w in zip(got["dynamics"][0], ref["dynamics"][0]))
+        for g, w in zip(got["dynamics"][0], ref["dynamics"][0]):
+            _check(torch.allclose(g, w, **PAR_VALUE_TOL), f"rank {r}: edge-sharded eps")
+        worst_g = _grad_gate(f"rank {r}: edge-sharded", dyn_names, got["dynamics"][1],
+                             ref["dynamics"][1])
+        # (iii)
+        lig = torch.as_tensor(job["lig_mask"]) > 0
+        dx = float((got["sampling"][0][..., :3] - ref["sampling"][0][..., :3])[lig].abs().max())
+        flips = int((got["sampling"][0][..., 3:].argmax(-1)
+                     != ref["sampling"][0][..., 3:].argmax(-1))[lig].sum())
+        _check(dx <= 1e-3 and flips == 0,
+               f"rank {r}: sharded chain {dx:.3e} A, {flips} flips from the unsharded")
+        # (ii)
+        info, grads = got["train_step"]
+        want_info, want_grads = ref["train_step"]
+        _check(info.keys() == want_info.keys(), f"rank {r}: train step info keys")
+        for k, v in want_info.items():
+            _check(abs(info[k] - v) <= PAR_INFO_TOL["atol"] + PAR_INFO_TOL["rtol"] * abs(v),
+                   f"rank {r}: train step {k} {info[k]} against {v}")
+        worst_s = _grad_gate(f"rank {r}: train step", names, grads, want_grads)
+        print(f"  rank {r}: (i) eps max_abs_err {worst_v:.3e} (atol 1e-4 + rtol 1e-4), "
+              f"worst gradient {worst_g:.2e} of its largest entry (limit "
+              f"{PAR_GRAD_RTOL:.0e}); (ii) loss {info['loss']:.6f} against "
+              f"{want_info['loss']:.6f}, grad_norm {info['grad_norm']:.4f} against "
+              f"{want_info['grad_norm']:.4f}, worst gradient {worst_s:.2e} of its "
+              f"largest entry (limit {PAR_GRAD_RTOL:.0e}); (iii) "
+              f"{int(lig.sum())} ligand atoms, max coordinate deviation {dx:.3e} A, "
+              f"{flips} flips (limit 1e-3 A, 0)")
+        report["ranks"].append(dict(walls_s=walls, launches=launches, eps_err=worst_v,
+                                    grad_err=worst_g, step_rel_err=worst_s,
+                                    chain_dx=dx, flips=flips))
+    print("  walls, s: " + "; ".join(
+        f"{k} two ranks sharing the card {ranks[0][1][k]:.2f}, {ranks[1][1][k]:.2f}, "
+        f"one process {ref_walls[k]:.2f}" for k in ref_walls)
+        + f"; the spawn {spawn_wall:.1f} (process start, imports, the checks)")
+    return report
+
+
+def nccl_phase(torch, flagship, work, training):
+    """Phase 18c: cli.train for one epoch under a torchrun environment of one
+    rank (NCCL at world size 1) with num_workers 2: the rank-0 checkpoint,
+    the prefetch thread."""
+    import socket
+    cfg = flagship_train_config(flagship, training["datadir"], work / "nccl_runs",
+                                run_name="chip_smoke_nccl")
+    cfg["num_workers"] = 2
+    cfg_path = work / "train_config_nccl.json"
+    cfg_path.write_text(json.dumps(cfg))
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ, RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+               MASTER_ADDR="localhost", MASTER_PORT=str(port))
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, "-m", "diffsbdd_tpu_torch.cli.train",
+                          "--config", str(cfg_path)], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    print("\n".join("  | " + ln for ln in run.stdout.strip().splitlines()[-4:]))
+    _check(run.returncode == 0, f"cli.train under torchrun's environment failed:\n"
+                                f"{run.stderr[-3000:]}")
+    _check("rank 0 of 1 in the data group (nccl)" in run.stdout,
+           "cli.train did not join an NCCL group")
+    _check("prefetching 2 training batches ahead" in run.stdout,
+           "cli.train did not prefetch")
+    ckpt = work / "nccl_runs" / "chip_smoke_nccl" / "checkpoints"
+    for name in ("last.pt", "last.train.pt", "best.pt"):
+        _check((ckpt / name).exists(), f"no {name} from the NCCL run")
+    print(f"  cli.train, 1 epoch of {N_TRAIN // 16} steps, NCCL at world size 1, "
+          f"prefetch depth 2: wall {wall:.2f} s (a process of its own)")
+    return dict(wall_s=wall)
+
+
 def quality_readout(dev, ckpt, sdf):
     """analyze_samples on the molecules of ``sdf`` rebuilt under EDM and
     covalent bond perception."""
@@ -1926,6 +2317,17 @@ def main(argv=None) -> int:
         print("[17] processing: proc_crossdock on a raw CrossDocked layout (host)")
         processing = processing_phase(work, ligand_sdf)
 
+        print("[18a] coordinate kernels on the column blocks of a two-rank edge split")
+        t18 = time.perf_counter()
+        parallel = {"column_blocks": column_mask_phase(ec, torch, dev, flagship,
+                                                       variant_ms)}
+        print("[18b] two gloo ranks sharing the card against one process")
+        parallel["ranks"] = parallel_phase(torch, ec, dev, flagship, work, pdb, ref_lig)
+        print("[18c] cli.train under a one-rank torchrun environment (NCCL)")
+        parallel["nccl"] = nccl_phase(torch, flagship, work, training)
+        parallel["phase_s"] = time.perf_counter() - t18
+        print(f"  phase 18 took {parallel['phase_s']:.1f} s")
+
     by_path = {"sampling": sampling_launches, "training": training["launches"],
                "joint_training": joint["training"]["launches"],
                "joint_sampling": joint["launches"], "inpainting": inpainting["launches"],
@@ -1942,6 +2344,7 @@ def main(argv=None) -> int:
                "joint": joint, "inpainting": inpainting, "test_set": test_set,
                "optimize": optimize, "serving": serving, "quality": quality,
                "lightning": lightning, "evaluation": evaluation, "processing": processing,
+               "parallel": parallel,
                "variant_ms": variant_ms, "breakdown": breakdown,
                "sample_s": timing["sample_s"], "step_ms": step_ms,
                "cli_wall_s": wall, "molecules_per_s": n_samples / wall,

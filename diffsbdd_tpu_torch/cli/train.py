@@ -13,6 +13,16 @@ quality metrics of ``analyze_samples`` on validation pockets (novelty against
 ``train_smiles.npy`` where the data directory has it), and xyz dumps of
 samples and of a denoising chain with their renders under
 ``<logdir>/<run_name>/eval``.
+
+On several cards, one process each:
+
+    torchrun --nproc_per_node=N -m diffsbdd_tpu_torch.cli.train --config ...
+
+joins the NCCL process group that torchrun's environment describes (gloo with
+``--device cpu``), splits every global batch of ``batch_size`` over the
+``tpu.mesh_data`` ranks of the data group (-1: all of them; it must hold
+every rank and divide the batch), averages each step's gradients over them,
+and leaves metrics, checkpoints and the sampling evaluation to rank 0.
 """
 from __future__ import annotations
 
@@ -26,6 +36,9 @@ import torch
 from diffsbdd_tpu_torch.config import load_config, merge_configs
 from diffsbdd_tpu_torch.data.dataset import (AppendVirtualNodes, LigandPocketDataset,
                                              PaddedLoader, load_size_histogram)
+from diffsbdd_tpu_torch.parallel.mesh import (broadcast_module, group_rank_size,
+                                              init_distributed, make_data_group,
+                                              rank_seed)
 from diffsbdd_tpu_torch.train.evaluation import SamplingEvaluator
 from diffsbdd_tpu_torch.train.loop import (Trainer, create_train_state,
                                            restore_checkpoint)
@@ -72,6 +85,18 @@ def main(argv=None):
             cfg = load_config(
                 args.config, overrides=merge_configs(cfg.to_dict(), resume_config))
 
+    # a multi-process run: join its group before anything is built; the
+    # process then owns card LOCAL_RANK
+    init_distributed(cfg, device)
+    if device.type == "cuda":
+        device = torch.device("cuda", torch.cuda.current_device())
+    group = make_data_group(cfg.tpu.get("mesh_data", -1)) \
+        if torch.distributed.is_initialized() else None
+    rank, n_ranks = group_rank_size(group)
+    if group is not None:
+        print(f"rank {rank} of {n_ranks} in the data group "
+              f"({torch.distributed.get_backend(group)})")
+
     histogram = load_size_histogram(cfg.datadir)
     torch.manual_seed(cfg.seed)  # the initial weights
     module = build_module_from_config(cfg, histogram).to(device)
@@ -81,7 +106,9 @@ def main(argv=None):
         transform = AppendVirtualNodes(module.max_num_nodes, module.lig_type_encoder, "Ne")
     train_ds = LigandPocketDataset(Path(cfg.datadir, "train.npz"), transform=transform)
     val_ds = LigandPocketDataset(Path(cfg.datadir, "val.npz"), transform=transform)
-    buckets = dict(lig_bucket=cfg.tpu.lig_bucket, pocket_bucket=cfg.tpu.pocket_bucket)
+    # same-seeded shuffles on every rank; each yields its slice of a batch
+    buckets = dict(lig_bucket=cfg.tpu.lig_bucket, pocket_bucket=cfg.tpu.pocket_bucket,
+                   process_index=rank, process_count=n_ranks)
     train_loader = PaddedLoader(train_ds, cfg.batch_size, shuffle=True,
                                 rng=np.random.default_rng(cfg.seed), **buckets)
     val_loader = PaddedLoader(val_ds, cfg.batch_size, shuffle=False, **buckets)
@@ -90,6 +117,7 @@ def main(argv=None):
     if args.resume is not None:
         state, _ = restore_checkpoint(args.resume, state, name="last")
         print(f"resumed from {args.resume} at step {state.step}")
+    broadcast_module(module, group)
 
     logger = WandbLogger(cfg)
     smiles_file = Path(cfg.datadir, "train_smiles.npy")
@@ -103,10 +131,15 @@ def main(argv=None):
         outdir=Path(cfg.logdir) / cfg.run_name / "eval", wandb=wandb_mod,
         datadir=cfg.datadir)
 
-    generator = torch.Generator(device=device).manual_seed(cfg.seed)
+    # each rank draws its own noise
+    generator = torch.Generator(device=device).manual_seed(rank_seed(cfg.seed, rank))
     trainer = Trainer(module, cfg, train_loader, val_loader, logger=logger,
-                      evaluator=evaluator)
-    trainer.fit(state, generator, n_epochs=cfg.n_epochs)
+                      evaluator=evaluator, group=group)
+    try:
+        trainer.fit(state, generator, n_epochs=cfg.n_epochs)
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -45,6 +45,9 @@ _DEFAULTS: Dict[str, Any] = {
     "n_epochs": 1,
     "clip_grad": True,
     "accumulate_grad_batches": 1,
+    # > 0: the training batches are assembled in a background thread, this
+    # many ahead (at least 2)
+    "num_workers": 0,
     "augment_noise": 0,
     "augment_rotation": False,
     "auxiliary_loss": False,
@@ -94,6 +97,10 @@ _DEFAULTS: Dict[str, Any] = {
         "lig_bucket": 8,
         "pocket_bucket": 64,
         "kernel_block_fuse": False,
+        # ranks of the data group; -1: every rank of the run
+        "mesh_data": -1,
+        # join a process group even without torchrun's environment
+        "multihost": False,
     },
 }
 

@@ -345,7 +345,7 @@ extern "C" int block_fused_forward(
                     lw3};
   b.cross = PairMlp{has_cross ? lc_row : nullptr, lc_col, cw_d2, cw_d20,
                     has_cross && ctb ? c_delta : nullptr, cw1, cb1, cw3};
-  b.x = x; b.x0 = x0; b.mask = mask; b.is_lig = is_lig; b.graph_mean = graph_mean;
+  b.x = x; b.x0 = x0; b.mask = mask; b.col_mask = mask; b.is_lig = is_lig; b.graph_mean = graph_mean;
   b.use_tanh = use_tanh; b.coords_range = coords_range;
   b.norm_constant = norm_constant; b.nf = nf; b.cut = cut;
   b.N = N; b.update_rows = update_rows; b.out = out_dx;

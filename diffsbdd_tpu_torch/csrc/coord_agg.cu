@@ -13,7 +13,10 @@
 // head.  The +1e-8 guards stay: the diagonal (self-edge) and coincident nodes
 // give diff = 0 and c = 0, and only the guard keeps those terms finite.
 // d2 comes from the current coordinates x; d20 and the adjacency from the EGNN
-// input coordinates x0.
+// input coordinates x0.  adj_ij = mask_i * col_mask_j * (cutoff test): a column
+// mask that keeps one block of the node axis gives that block's share of the
+// row sums, and only its columns are visited (edge-axis sharding); the
+// unsharded launch passes mask as col_mask.
 //
 // The C entry point takes `partial`, 2 * B * N * 3 floats of scratch that the
 // caller allocates (null without the cross branch).
@@ -75,14 +78,15 @@ extern "C" int coord_agg_forward(
     const float* delta, const float* w2, const float* b2, const float* w3,
     const float* c_row, const float* c_col, const float* cw_d2, const float* cw_d20,
     const float* c_delta, const float* cw2, const float* cb2, const float* cw3,
-    const float* x, const float* x0, const float* mask, const float* is_lig,
-    const float* graph_mean, int use_tanh, float coords_range,
+    const float* x, const float* x0, const float* mask, const float* col_mask,
+    const float* is_lig, const float* graph_mean, int use_tanh, float coords_range,
     float norm_constant, float nf, float cut_ll, float cut_pp, float cut_lp,
     int B, int N, int F, int update_rows, float* partial, float* out, void* stream) {
   CoordArgs g;
   g.coord = PairMlp{a_row, a_col, w_d2, w_d20, delta, w2, b2, w3};
   g.cross = PairMlp{c_row, c_col, cw_d2, cw_d20, c_delta, cw2, cb2, cw3};
-  g.x = x; g.x0 = x0; g.mask = mask; g.is_lig = is_lig; g.graph_mean = graph_mean;
+  g.x = x; g.x0 = x0; g.mask = mask; g.col_mask = col_mask; g.is_lig = is_lig;
+  g.graph_mean = graph_mean;
   g.use_tanh = use_tanh; g.coords_range = coords_range;
   g.norm_constant = norm_constant; g.nf = nf;
   g.cut = Cutoffs{cut_ll, cut_pp, cut_lp};

@@ -10,6 +10,7 @@
 //   phi   = tanh(m2 . w3) * coords_range  (tanh optional),   norm = sqrt(d2 + 1e-8) + nc
 //   c_ij  = (x_i - mean) x (x_j - mean),  cnorm = sqrt(|c|^2 + 1e-8) + nc   (optional)
 //
+// with adj_ij = mask_i * col_mask_j * (cutoff test), as in coord_agg.cu,
 // for the coordinate MLP and, when present, the cross-product MLP (its own
 // first layer and W2; the two heads come back separately, and the caller adds
 // them where they are tied).  Per pair, with g_i = g_i / nf and q = adj / norm:
@@ -61,7 +62,8 @@ struct CoordBwdArgs {
   const float* g;          // (B, N, 3) cotangent of the output
   const float* x;          // (B, N, 3)
   const float* x0;         // (B, N, 3)
-  const float* mask;       // (B, N)
+  const float* mask;       // (B, N) row validity
+  const float* col_mask;   // (B, N) column validity
   const float* is_lig;     // (B, N)
   const float* graph_mean; // (B, 3) or null
   int use_tanh;
@@ -136,13 +138,15 @@ __device__ void coord_bwd_tile_tc(const CoordBwdArgs& g, size_t node0, size_t sl
     arow[r] = 0.0f;
   }
   __syncthreads();
-  const int count = compact_columns(rows, g.x0, g.mask, g.is_lig, node0, g.N, g.cut, cols);
+  const int count = compact_columns(rows, g.x0, g.col_mask, g.is_lig, node0, g.N, g.cut,
+                                    cols);
   float a_col[L::COLS];
   mma::load_a_col<F>(m, cols, count, 0, node0, a_col);
   const int ce = (2 * tig) ^ mma::swz(gid);  // C-fragment columns in rows gid, gid + 8
 
   for (int c0 = 0; c0 < count; c0 += TJ) {
-    fill_chunk(sh.chunk, rows, g.x, g.x0, g.mask, g.is_lig, node0, cols, count, c0, g.cut);
+    fill_chunk(sh.chunk, rows, g.x, g.x0, g.col_mask, g.is_lig, node0, cols, count, c0,
+               g.cut);
     __syncthreads();
     // the chunk's k-steps of 8 pairs that hold an edge
     static_assert(P == 64, "two ballots cover the chunk");
@@ -415,8 +419,9 @@ extern "C" int coord_agg_backward(
     const float* c_row, const float* c_col, const float* cw_d2, const float* cw_d20,
     const float* c_delta, const float* cw2, const float* cw2t, const float* cb2,
     const float* cw3,
-    const float* x, const float* x0, const float* mask, const float* is_lig,
-    const float* graph_mean, int use_tanh, float coords_range, float norm_constant,
+    const float* x, const float* x0, const float* mask, const float* col_mask,
+    const float* is_lig, const float* graph_mean, int use_tanh, float coords_range,
+    float norm_constant,
     float nf, float cut_ll, float cut_pp, float cut_lp,
     int B, int N, int F, int update_rows, int Q,
     float* da_row, float* dc_row, float* acol_part, float* ccol_part, float* dx_part,
@@ -430,7 +435,8 @@ extern "C" int coord_agg_backward(
   g.coord = PairMlp{a_row, a_col, w_d2, w_d20, delta, w2, b2, w3};
   g.cross = PairMlp{c_row, c_col, cw_d2, cw_d20, c_delta, cw2, cb2, cw3};
   g.w2t = w2t; g.cw2t = cw2t; g.g = g_out;
-  g.x = x; g.x0 = x0; g.mask = mask; g.is_lig = is_lig; g.graph_mean = graph_mean;
+  g.x = x; g.x0 = x0; g.mask = mask; g.col_mask = col_mask; g.is_lig = is_lig;
+  g.graph_mean = graph_mean;
   g.use_tanh = use_tanh; g.coords_range = coords_range;
   g.norm_constant = norm_constant; g.inv_nf = 1.0f / nf;
   g.cut = Cutoffs{cut_ll, cut_pp, cut_lp};

@@ -52,7 +52,8 @@ struct CoordArgs {
   PairMlp coord, cross;    // head = w3; cross.a_row == null: reflection-equivariant
   const float* x;          // (B, N, 3)
   const float* x0;         // (B, N, 3)
-  const float* mask;       // (B, N)
+  const float* mask;       // (B, N) row validity
+  const float* col_mask;   // (B, N) column validity
   const float* is_lig;     // (B, N)
   const float* graph_mean; // (B, 3) or null
   int use_tanh;
@@ -501,7 +502,7 @@ __device__ void coord_tile_tc(const CoordArgs& g, int batch, int i0, float* smem
   for (int r = 0; r < TI; ++r)
     a_row[r] = i0 + r < g.N ? mlp.a_row[(node0 + i0 + r) * F + kS] : 0.0f;
   __syncthreads();
-  const int count = compact_columns(rows, g.x0, g.mask, g.is_lig, node0, g.N,
+  const int count = compact_columns(rows, g.x0, g.col_mask, g.is_lig, node0, g.N,
                                     g.cut, cols);
 
   // a_col of the chunk to fill: loaded one chunk ahead, so that the loads
@@ -510,7 +511,7 @@ __device__ void coord_tile_tc(const CoordArgs& g, int batch, int i0, float* smem
   load_a_col<F>(mlp, cols, count, 0, node0, a_col);
   float racc = 0.0f;  // row sum of component (t % 3) of row t / 3, t < 3*TI
   for (int c0 = 0; c0 < count; c0 += TJ) {
-    fill_chunk(chunk, rows, g.x, g.x0, g.mask, g.is_lig, node0, cols, count, c0,
+    fill_chunk(chunk, rows, g.x, g.x0, g.col_mask, g.is_lig, node0, cols, count, c0,
                g.cut);
     __syncthreads();
     fill_s<F>(w, chunk, a_row, a_col, S);

@@ -7,6 +7,8 @@ Batches are numpy; the trainer moves them to its device.
 from __future__ import annotations
 
 import math
+import queue
+import threading
 from pathlib import Path
 from typing import Callable, Dict, Iterator, List, Optional
 
@@ -138,13 +140,30 @@ class PaddedLoader:
     shape); otherwise each batch is padded to its own (lig, pocket) size
     buckets.  A short last batch is filled by repeating items, so the batch
     dimension is static, unless ``drop_last``.
+
+    Data parallelism (the reference's per-rank DistributedSampler):
+    ``batch_size`` is the global batch, and with ``process_index`` /
+    ``process_count`` (a rank and its data group's size) each rank yields its
+    contiguous ``batch_size // process_count`` slice of every global batch.
+    Every rank must build its loader with a same-seeded ``rng``, so that the
+    shuffle orders agree (the default rng(0) does), and keep
+    ``fixed_shape=True``, so that the ranks' padded shapes agree.
     """
 
     def __init__(self, dataset: LigandPocketDataset, batch_size: int,
                  lig_bucket: int = 8, pocket_bucket: int = 64,
                  shuffle: bool = True, drop_last: bool = False,
                  fixed_shape: bool = True,
-                 rng: Optional[np.random.Generator] = None):
+                 rng: Optional[np.random.Generator] = None,
+                 process_index: int = 0, process_count: int = 1):
+        if process_count < 1 or batch_size % process_count != 0:
+            raise ValueError(f"batch_size {batch_size} is not divisible by "
+                             f"process_count {process_count}")
+        if not 0 <= process_index < process_count:
+            raise ValueError(f"process_index {process_index} is not in "
+                             f"[0, {process_count})")
+        self.process_index = process_index
+        self.process_count = process_count
         self.dataset = dataset
         self.batch_size = batch_size
         self.lig_bucket = lig_bucket
@@ -181,6 +200,11 @@ class PaddedLoader:
                 # even when batch_size > 2 * len(dataset)
                 idx = np.concatenate(
                     [idx, np.resize(order, self.batch_size - len(idx))])
+            if self.process_count > 1:
+                # this rank's slice; the bucket shapes below come from the
+                # slice when fixed_shape is False
+                local = self.batch_size // self.process_count
+                idx = idx[self.process_index * local:(self.process_index + 1) * local]
             if self.fixed_shape:
                 n_lig, n_pocket = self.n_lig_max, self.n_pocket_max
             else:
@@ -198,3 +222,64 @@ class PaddedLoader:
 def load_size_histogram(datadir) -> np.ndarray:
     """``size_distribution.npy`` written by the processing scripts."""
     return np.load(Path(datadir, "size_distribution.npy"))
+
+
+class PrefetchLoader:
+    """Batches of any iterable assembled in a background thread, up to
+    ``depth`` ahead on a bounded queue: the counterpart of the reference
+    DataLoader's ``num_workers``.  The thread pads the next batches while
+    the consumer waits on the card (a wait that releases the interpreter
+    lock).  Yields the wrapped
+    loader's batches unchanged and in order; an error of the loader is raised
+    on the consumer, and a consumer that stops early (a ``break``, an error
+    in the step) leaves no thread blocked."""
+
+    _DONE = object()
+
+    def __init__(self, loader, depth: int = 2):
+        if depth < 1:
+            raise ValueError(f"prefetch depth must be >= 1, got {depth}")
+        self.loader = loader
+        self.depth = depth
+
+    def __len__(self):
+        return len(self.loader)
+
+    def __iter__(self):
+        q = queue.Queue(maxsize=self.depth)
+        stop = threading.Event()
+        err: list = []
+
+        def put(item) -> bool:
+            # a bounded put that gives up once the consumer has gone
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.1)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def work():
+            try:
+                for batch in self.loader:
+                    if not put(batch):
+                        return
+            except BaseException as e:  # raised again on the consumer
+                err.append(e)
+            finally:
+                put(self._DONE)
+
+        thread = threading.Thread(target=work, name="diffsbdd-prefetch", daemon=True)
+        thread.start()
+        try:
+            while True:
+                batch = q.get()
+                if batch is self._DONE:
+                    break
+                yield batch
+        finally:
+            stop.set()
+            thread.join()
+        if err:
+            raise err[0]

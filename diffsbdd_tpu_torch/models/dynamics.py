@@ -67,7 +67,7 @@ class EGNNDynamics(nn.Module):
 
     def forward(self, xh_lig, xh_pkt, t, mask_lig, mask_pkt,
                 shared_pocket: bool = False, zero_nan: bool = False,
-                block_fuse: bool = False):
+                block_fuse: bool = False, shard=None):
         """``block_fuse``: run one-GCL blocks as the whole-block kernel (the
         samplers ask for it; it takes effect when ``kernel_block_fuse`` is
         set).  ``shared_pocket``: the batch holds one pocket replicated across
@@ -76,7 +76,10 @@ class EGNNDynamics(nn.Module):
         training-time guard -- NaN velocities become zeros (and infinities the
         largest finite values), so one numerical blow-up corrupts a step
         instead of poisoning the parameters.  In the joint model no pocket
-        is shared: every node diffuses."""
+        is shared: every node diffuses.  ``shard``: this rank's column block
+        under edge-axis sharding (``parallel.edge_shard.ShardContext``; its
+        callers go through ``edge_sharded_dynamics``); it turns the shared
+        pocket and block fusing off, since both need every column at once."""
         B, NL = mask_lig.shape
         NP = mask_pkt.shape[1]
         nd = 3
@@ -96,10 +99,10 @@ class EGNNDynamics(nn.Module):
             type_table=type_table, n_lig=NL,
             update_rows=None if self.update_pocket_coords else NL,
             block_fuse=bool(block_fuse) and self.kernel_block_fuse
-            and self.inv_sublayers == 1)
+            and self.inv_sublayers == 1 and shard is None, shard=shard)
         h_final, x_final = self.egnn(
-            h, x, ctx,
-            shared_pocket=bool(shared_pocket) and not self.update_pocket_coords)
+            h, x, ctx, shared_pocket=bool(shared_pocket) and not self.update_pocket_coords
+            and shard is None)
         vel = (x_final - x) * mask[..., None]
         if zero_nan:
             vel = torch.nan_to_num(vel)

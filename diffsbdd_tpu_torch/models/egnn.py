@@ -8,7 +8,9 @@ work runs at O(N^2), and that work runs in the kernels of
 adjacency from the EGNN input coordinates and the distance cutoffs.  A block
 with one GCL can run as one whole-block kernel (``GraphContext.block_fuse``,
 set on the sampling path); training keeps the split kernels and their
-backward kernels.
+backward kernels.  Under edge-axis sharding (``GraphContext.shard``, see
+``parallel/edge_shard.py``) each aggregation runs its kernel on this rank's
+column block and sums the blocks over the rank's group.
 
 Module and parameter names follow the reference PyTorch state_dict
 (``egnn.e_block_0.gcl_0.edge_mlp.0.weight`` ...).  The sinusoidal distance
@@ -41,6 +43,9 @@ class GraphContext:
     # update_rows = n_lig); None in the joint model, where every node moves
     update_rows: Optional[int] = None
     block_fuse: bool = False  # one-GCL blocks run as the whole-block kernel
+    # edge-axis sharding: a parallel.edge_shard.ShardContext (this rank's
+    # column block and its group), or None
+    shard: Optional[object] = None
 
     @property
     def update_coords_mask(self) -> Optional[torch.Tensor]:
@@ -104,7 +109,11 @@ class DenseGCL(nn.Module):
         kw = dict(cutoffs=ctx.cutoffs, attention=self.attention,
                   normalization_factor=self.normalization_factor)
         mask, is_lig, x0 = ctx.mask, ctx.is_lig, ctx.x0
-        if shared_pocket:
+        if ctx.shard is not None:
+            agg = ctx.shard.aggregate(
+                kernels.gcl_message_agg, a_row, a_col, x, x0, mask, is_lig, *weights,
+                col_mask=ctx.shard.col_mask(mask), **kw)
+        elif shared_pocket:
             # one pocket replicated across the batch and a per-step-uniform
             # time channel make the pocket-row/pocket-col aggregation of the
             # first GCL identical for every sample: compute it once at B = 1
@@ -188,14 +197,20 @@ class DenseEquivariantUpdate(nn.Module):
                          type_bias=type_bias_table(ctx.type_table, cw_types),
                          w2=_input_major(mlp[2]), b2=mlp[2].bias, w3=w3)
             graph_mean = masked_mean(x, ctx.mask)
-        agg = kernels.coord_update_agg(
-            a_row, a_col, x, ctx.x0, ctx.mask, ctx.is_lig, w_d2, w_d20,
-            type_bias_table(ctx.type_table, w_types),
-            _input_major(self.coord_mlp[2]), self.coord_mlp[2].bias, w3,
-            cutoffs=ctx.cutoffs, tanh=self.tanh, coords_range=self.coords_range,
-            norm_constant=self.norm_constant,
-            normalization_factor=self.normalization_factor, cross=cross,
-            graph_mean=graph_mean, update_rows=ctx.update_rows)
+        args = (a_row, a_col, x, ctx.x0, ctx.mask, ctx.is_lig, w_d2, w_d20,
+                type_bias_table(ctx.type_table, w_types),
+                _input_major(self.coord_mlp[2]), self.coord_mlp[2].bias, w3)
+        kw = dict(cutoffs=ctx.cutoffs, tanh=self.tanh, coords_range=self.coords_range,
+                  norm_constant=self.norm_constant,
+                  normalization_factor=self.normalization_factor,
+                  graph_mean=graph_mean, update_rows=ctx.update_rows)
+        if ctx.shard is not None:
+            # the graph mean is of every node: computed before the split and
+            # replicated; its cotangent is summed over the blocks with the rest
+            agg = ctx.shard.aggregate(kernels.coord_update_agg, *args, cross=cross,
+                                      col_mask=ctx.shard.col_mask(ctx.mask), **kw)
+        else:
+            agg = kernels.coord_update_agg(*args, cross=cross, **kw)
         return self.apply_update(x, agg, ctx)
 
     @staticmethod

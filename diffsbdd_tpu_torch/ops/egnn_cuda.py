@@ -78,11 +78,11 @@ _ARGTYPES = {
     "gcl_agg": ("gcl_agg_forward",
                 [_P] * 14 + [_F] * 4 + [_I] * 4 + [_P, _P]),
     "coord_agg": ("coord_agg_forward",
-                  [_P] * 21 + [_I] + [_F] * 6 + [_I] * 4 + [_P] * 3),
+                  [_P] * 22 + [_I] + [_F] * 6 + [_I] * 4 + [_P] * 3),
     "gcl_agg_bwd": ("gcl_agg_backward",
                     [_P] * 16 + [_F] * 4 + [_I] * 5 + [_P] * 7 + [_P]),
     "coord_agg_bwd": ("coord_agg_backward",
-                      [_P] * 24 + [_I] + [_F] * 6 + [_I] * 5 + [_P] * 14 + [_P]),
+                      [_P] * 25 + [_I] + [_F] * 6 + [_I] * 5 + [_P] * 14 + [_P]),
     "block_fused": ("block_fused_forward",
                     [_P] * 39 + [_I] + [_F] * 6 + [_I] * 5 + [_P, _P] + [_P]),
 }
@@ -248,15 +248,15 @@ def gcl_message_agg_plain(a_row, a_col, x, x0, mask, is_lig, w_d2, w_d20,
 def coord_update_agg_plain(a_row, a_col, x, x0, mask, is_lig, w_d2, w_d20,
                            type_bias, w2, b2, w3, *, cutoffs, tanh,
                            coords_range, norm_constant, normalization_factor,
-                           cross=None, graph_mean=None, update_rows=None,
-                           matmul=torch.matmul):
+                           cross=None, graph_mean=None, col_mask=None,
+                           update_rows=None, matmul=torch.matmul):
     """Dense twin of the coordinate-update kernel.  ``matmul`` computes
     silu(pre) @ w2 of both MLPs (``matmul_3xtf32``: as the kernel's tensor
     cores do)."""
     silu = torch.nn.functional.silu
     d2 = _pair_d2(x)
     d2_0 = _pair_d2(x0)
-    adj = adjacency_dense(d2_0, mask, is_lig, cutoffs)
+    adj = adjacency_dense(d2_0, mask, is_lig, cutoffs, col_mask=col_mask)
 
     def head(r, c, wd2, wd20, tb, w2_, b2_, w3_):
         pre = r[:, :, None, :] + c[:, None, :, :] + _edge_bias_dense(
@@ -423,7 +423,7 @@ _MLP_KEYS = ("a_row", "a_col", "w_d2", "w_d20", "delta", "w2", "b2", "w3")
 def coord_agg_bwd_plain(g, a_row, a_col, x, x0, mask, is_lig, w_d2, w_d20, delta,
                         w2, b2, w3, *, cutoffs, tanh, coords_range, norm_constant,
                         normalization_factor, cross=None, graph_mean=None,
-                        update_rows=None, matmul=torch.matmul):
+                        col_mask=None, update_rows=None, matmul=torch.matmul):
     """Plain version of ``coord_agg_bwd``: autograd through the dense twin.
     ``matmul`` computes silu(pre) @ w2 of both MLPs, and through its backward
     their dm1 and dW2 products (tests: the kernel's 3xTF32 products,
@@ -441,7 +441,8 @@ def coord_agg_bwd_plain(g, a_row, a_col, x, x0, mask, is_lig, w_d2, w_d20, delta
             _delta_table(lv[6]), lv[7], lv[8], lv[9], cutoffs=cutoffs, tanh=tanh,
             coords_range=coords_range, norm_constant=norm_constant,
             normalization_factor=normalization_factor, cross=cross_in,
-            graph_mean=gm, update_rows=update_rows, matmul=matmul)
+            graph_mean=gm, col_mask=col_mask, update_rows=update_rows,
+            matmul=matmul)
         grads = _grads(out, g, lv + cl + [gm])
     main = tuple(grads[:len(lv)])
     if cross is None:
@@ -587,14 +588,14 @@ def gcl_agg_bwd(g, a_row, a_col, x, x0, mask, is_lig, w_d2, w_d20, delta, w2, b2
             vec[5, :1] if attention else None)
 
 
-def _coord_forward_cuda(main, c, x, x0, mask, is_lig, gm, cutoffs, tanh,
+def _coord_forward_cuda(main, c, x, x0, mask, cm, is_lig, gm, cutoffs, tanh,
                         coords_range, norm_constant, nf, update_rows):
     B, N, F = main["a_row"].shape
     dev = main["a_row"].device
     _check_mlp("coord_update_agg", "", main, B, N, F, dev)
     _check_mlp("coord_update_agg", "cross.", c, B, N, F, dev)
     _check("coord_update_agg",
-           dict(x=x, x0=x0, mask=mask, is_lig=is_lig, graph_mean=gm),
+           dict(x=x, x0=x0, mask=mask, col_mask=cm, is_lig=is_lig, graph_mean=gm),
            _node_shapes(B, N), dev)
     for key, w2 in (("w2", main["w2"]), ("cross.w2", c["w2"])):
         if w2 is not None and w2.data_ptr() % 16:
@@ -605,7 +606,7 @@ def _coord_forward_cuda(main, c, x, x0, mask, is_lig, gm, cutoffs, tanh,
         torch.empty((2, B, N, 3), device=dev, dtype=torch.float32)
     _launch("coord_agg",
             *(_ptr(main[k]) for k in _MLP_KEYS), *(_ptr(c[k]) for k in _MLP_KEYS),
-            _ptr(x), _ptr(x0), _ptr(mask), _ptr(is_lig), _ptr(gm),
+            _ptr(x), _ptr(x0), _ptr(mask), _ptr(cm), _ptr(is_lig), _ptr(gm),
             int(bool(tanh)), float(coords_range), float(norm_constant), float(nf),
             _cut2(cutoffs[0]), _cut2(cutoffs[1]), _cut2(cutoffs[2]),
             B, N, F, _rows(update_rows, N), _ptr(partial), out.data_ptr())
@@ -618,7 +619,7 @@ _NO_MLP = dict.fromkeys(_MLP_KEYS)
 def coord_agg_bwd(g, a_row, a_col, x, x0, mask, is_lig, w_d2, w_d20, delta, w2, b2,
                   w3, *, cutoffs, tanh, coords_range, norm_constant,
                   normalization_factor, cross=None, graph_mean=None,
-                  update_rows=None):
+                  col_mask=None, update_rows=None):
     """Cotangents of ``coord_update_agg`` on folded operands for the output
     cotangent ``g`` (B, N, 3); rows of ``g`` past ``update_rows`` are ignored.
     ``cross``: dict(a_row, a_col, w_d2, w_d20, delta, w2, b2, w3) or None.
@@ -632,7 +633,7 @@ def coord_agg_bwd(g, a_row, a_col, x, x0, mask, is_lig, w_d2, w_d20, delta, w2, 
     kw = dict(cutoffs=cutoffs, tanh=tanh, coords_range=coords_range,
               norm_constant=norm_constant,
               normalization_factor=normalization_factor, cross=cross,
-              graph_mean=graph_mean, update_rows=update_rows)
+              graph_mean=graph_mean, col_mask=col_mask, update_rows=update_rows)
     if a_row.device.type == "cpu":
         return coord_agg_bwd_plain(g, a_row, a_col, x, x0, mask, is_lig, w_d2,
                                    w_d20, delta, w2, b2, w3, **kw)
@@ -647,10 +648,11 @@ def coord_agg_bwd(g, a_row, a_col, x, x0, mask, is_lig, w_d2, w_d20, delta, w2, 
     if cross is not None and graph_mean is None:
         raise ValueError("coord_agg_bwd: the cross branch needs graph_mean")
     gm = None if cross is None else graph_mean
+    cm = mask if col_mask is None else col_mask
     _check_mlp("coord_agg_bwd", "", main, B, N, F, dev)
     _check_mlp("coord_agg_bwd", "cross.", c, B, N, F, dev)
     _check("coord_agg_bwd",
-           dict(g=g, x=x, x0=x0, mask=mask, is_lig=is_lig, graph_mean=gm),
+           dict(g=g, x=x, x0=x0, mask=mask, col_mask=cm, is_lig=is_lig, graph_mean=gm),
            dict(_node_shapes(B, N), g=(B, N, 3)), dev)
     for key, w in (("w2", w2), ("cross.w2", c["w2"])):
         if w is not None and w.data_ptr() % 16:
@@ -679,7 +681,7 @@ def coord_agg_bwd(g, a_row, a_col, x, x0, mask, is_lig, w_d2, w_d20, delta, w2, 
 
     _launch("coord_agg_bwd",
             _ptr(g), *mlp_ptrs(main, w2t), *mlp_ptrs(c, cw2t),
-            _ptr(x), _ptr(x0), _ptr(mask), _ptr(is_lig), _ptr(gm),
+            _ptr(x), _ptr(x0), _ptr(mask), _ptr(cm), _ptr(is_lig), _ptr(gm),
             int(bool(tanh)), float(coords_range), float(norm_constant),
             float(normalization_factor),
             _cut2(cutoffs[0]), _cut2(cutoffs[1]), _cut2(cutoffs[2]),
@@ -739,29 +741,31 @@ class _GclAggFn(torch.autograd.Function):
 
 
 class _CoordAggFn(torch.autograd.Function):
-    """``coord_update_agg`` on CUDA over folded operands: 10 tensors of the
-    coordinate MLP and the coordinates, then (with the cross branch) the 8 of
-    the cross MLP and the graph mean."""
+    """``coord_update_agg`` on CUDA over folded operands: the masks, 10
+    tensors of the coordinate MLP and the coordinates, then (with the cross
+    branch) the 8 of the cross MLP and the graph mean."""
 
     @staticmethod
-    def forward(ctx, cfg, mask, is_lig, a_row, a_col, x, x0, w_d2, w_d20, delta,
-                w2, b2, w3, *cross_ops):
+    def forward(ctx, cfg, mask, col_mask, is_lig, a_row, a_col, x, x0, w_d2, w_d20,
+                delta, w2, b2, w3, *cross_ops):
         cutoffs, tanh, coords_range, norm_constant, nf, update_rows = cfg
         ctx.cfg = cfg
-        ctx.save_for_backward(mask, is_lig, a_row, a_col, x, x0, w_d2, w_d20, delta,
-                              w2, b2, w3, *cross_ops)
+        ctx.save_for_backward(mask, col_mask, is_lig, a_row, a_col, x, x0, w_d2,
+                              w_d20, delta, w2, b2, w3, *cross_ops)
         main = dict(a_row=a_row, a_col=a_col, w_d2=w_d2, w_d20=w_d20, delta=delta,
                     w2=w2, b2=b2, w3=w3)
         c, gm = _NO_MLP, None
         if cross_ops:
             c, gm = dict(zip(_MLP_KEYS, cross_ops[:-1])), cross_ops[-1]
-        return _coord_forward_cuda(main, c, x, x0, mask, is_lig, gm, cutoffs, tanh,
-                                   coords_range, norm_constant, nf, update_rows)
+        return _coord_forward_cuda(main, c, x, x0, mask,
+                                   mask if col_mask is None else col_mask, is_lig, gm,
+                                   cutoffs, tanh, coords_range, norm_constant, nf,
+                                   update_rows)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, g):
-        mask, is_lig, *ops = ctx.saved_tensors
+        mask, col_mask, is_lig, *ops = ctx.saved_tensors
         main_ops, cross_ops = ops[:10], ops[10:]
         cutoffs, tanh, coords_range, norm_constant, nf, update_rows = ctx.cfg
         cross = dict(zip(_MLP_KEYS, cross_ops[:-1])) if cross_ops else None
@@ -769,9 +773,9 @@ class _CoordAggFn(torch.autograd.Function):
             g.contiguous(), *main_ops[:4], mask, is_lig, *main_ops[4:],
             cutoffs=cutoffs, tanh=tanh, coords_range=coords_range,
             norm_constant=norm_constant, normalization_factor=nf, cross=cross,
-            graph_mean=cross_ops[-1] if cross_ops else None,
+            graph_mean=cross_ops[-1] if cross_ops else None, col_mask=col_mask,
             update_rows=update_rows)
-        grads = (None, None, None) + tuple(main_cot)
+        grads = (None, None, None, None) + tuple(main_cot)
         if cross_ops:
             grads += tuple(cross_cot[k] for k in _MLP_KEYS) + (dmean,)
         return grads
@@ -815,14 +819,16 @@ def gcl_message_agg(a_row, a_col, x, x0, mask, is_lig, w_d2, w_d20,
 def coord_update_agg(a_row, a_col, x, x0, mask, is_lig, w_d2, w_d20,
                      type_bias, w2, b2, w3, *, cutoffs, tanh, coords_range,
                      norm_constant, normalization_factor, cross=None,
-                     graph_mean=None, update_rows=None):
+                     graph_mean=None, col_mask=None, update_rows=None):
     """Coordinate-update aggregation -> (B, N, 3).
 
     ``cross``: dict(a_row, a_col, w_d2, w_d20, type_bias, w2, b2, w3) of the
     SE(3) cross-product MLP (None when reflection-equivariant), with
     ``graph_mean`` (B, 3) the masked mean of the current coordinates.  w3
-    (F, 1) is the scalar head.  Rows >= ``update_rows`` are exact zeros.
-    Differentiable on both devices, as ``gcl_message_agg`` is.
+    (F, 1) is the scalar head.  ``col_mask`` restricts the neighbour side (a
+    column block under edge-axis sharding; ``mask`` when None).  Rows >=
+    ``update_rows`` are exact zeros.  Differentiable on both devices, as
+    ``gcl_message_agg`` is.
     """
     if a_row.device.type == "cpu":
         return coord_update_agg_plain(
@@ -830,7 +836,7 @@ def coord_update_agg(a_row, a_col, x, x0, mask, is_lig, w_d2, w_d20,
             cutoffs=cutoffs, tanh=tanh, coords_range=coords_range,
             norm_constant=norm_constant,
             normalization_factor=normalization_factor, cross=cross,
-            graph_mean=graph_mean, update_rows=update_rows)
+            graph_mean=graph_mean, col_mask=col_mask, update_rows=update_rows)
     if a_row.device.type != "cuda":
         raise ValueError(f"coord_update_agg: unsupported device {a_row.device}")
     _check_width("coord_update_agg", a_row.shape[-1])
@@ -847,7 +853,7 @@ def coord_update_agg(a_row, a_col, x, x0, mask, is_lig, w_d2, w_d20,
     cfg = (tuple(cutoffs), bool(tanh), float(coords_range), float(norm_constant),
            float(normalization_factor),
            None if update_rows is None else int(update_rows))
-    return _CoordAggFn.apply(cfg, mask, is_lig, a_row.contiguous(),
+    return _CoordAggFn.apply(cfg, mask, col_mask, is_lig, a_row.contiguous(),
                              a_col.contiguous(), x, x0, w_d2, w_d20, delta, w2, b2,
                              w3, *cross_ops)
 

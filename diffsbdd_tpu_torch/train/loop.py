@@ -7,7 +7,20 @@ optax composes it (weight decay 1e-12), gradient-norm clipping at
 micro-batches, best + last checkpoints on the validation loss, metric dicts
 with the reference's names.  Not ported: chaining several optimizer steps into
 one dispatch (``chain_steps`` / ``steps_per_dispatch``, which hid a remote
-device's dispatch latency) and the multi-device mesh tier.
+device's dispatch latency).
+
+Data parallelism, one process per card (``parallel/mesh.py``): every rank of
+a data group takes its slice of the global batch, and the step averages the
+gradients, the loss and the metrics over the group with one packed
+``all_reduce`` before the gradient-norm clipping, so that every rank clips by
+the same norm and takes the same optimizer step (the JAX package's ``pmean``
+on its data mesh).  The reduction is explicit rather than a
+``DistributedDataParallel`` wrapper: the step takes its gradients with
+``torch.autograd.grad``, and DDP's hooks fire on ``.backward()`` only.  One
+difference from the JAX package: it shrinks its data mesh until the mesh
+divides the batch, leaving devices idle; a rank here is a process that
+cannot sit idle, so ``Trainer`` raises when the data group's size does not
+divide ``batch_size``.
 
 The step never reads a value back from the device: the gradient-norm history
 and the clipping scale are device tensors, so the host runs ahead of the card
@@ -23,7 +36,10 @@ from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from diffsbdd_tpu_torch.data.dataset import PrefetchLoader
+from diffsbdd_tpu_torch.parallel.mesh import all_reduce_mean, group_rank_size
 from diffsbdd_tpu_torch.utils.device import resolve_device
 
 QUEUE_LEN = 50
@@ -141,12 +157,16 @@ def _split_batch(d: Dict[str, torch.Tensor], k: int) -> List[Dict[str, torch.Ten
 
 
 def make_train_step(state: TrainState, clip_grad: bool = True,
-                    accumulate_grad_batches: int = 1) -> Callable:
+                    accumulate_grad_batches: int = 1, group=None) -> Callable:
     """``step(generator, ligand, pocket) -> info``: one optimizer step on one
     batch.  ``accumulate_grad_batches`` > 1 splits the batch into that many
-    micro-batches and averages their gradients, losses and metrics."""
+    micro-batches and averages their gradients, losses and metrics.  With a
+    data ``group`` of more than one rank the batch is this rank's slice, and
+    the (accumulated) gradients, the loss and the metrics are averaged over
+    the group before the clipping (``generator`` is then the rank's own)."""
     module, k_acc = state.module, accumulate_grad_batches
     params = list(module.parameters())
+    n_ranks = group_rank_size(group)[1]
 
     def loss_and_grads(generator, ligand, pocket):
         loss, info = module.loss_fn(generator, ligand, pocket, training=True)
@@ -162,8 +182,12 @@ def make_train_step(state: TrainState, clip_grad: bool = True,
         else:
             B = ligand["x"].shape[0]
             if B % k_acc != 0:
-                raise ValueError(f"accumulate_grad_batches={k_acc} must divide "
-                                 f"the batch size {B}")
+                # with several ranks B is the rank's slice: the global batch
+                # must be divisible by ranks * k_acc
+                raise ValueError(
+                    f"accumulate_grad_batches={k_acc} must divide the "
+                    f"{'per-shard ' if n_ranks > 1 else ''}batch size {B}"
+                    + (f" (= global batch / {n_ranks} devices)" if n_ranks > 1 else ""))
             grads, infos = None, []
             for lig, pkt in zip(_split_batch(ligand, k_acc), _split_batch(pocket, k_acc)):
                 g, info = loss_and_grads(generator, lig, pkt)
@@ -173,6 +197,10 @@ def make_train_step(state: TrainState, clip_grad: bool = True,
             info = {k: torch.stack([i[k] for i in infos]).mean(0) for k in infos[0]}
 
         info = {k: v.detach() for k, v in info.items()}
+        if n_ranks > 1:
+            reduced = all_reduce_mean([*grads, *info.values()], group)
+            grads = reduced[:len(grads)]
+            info = dict(zip(info, reduced[len(grads):]))
         if clip_grad:
             # allow 150% + 2 standard deviations of the recent history
             mean, std = state.queue.stats()
@@ -190,11 +218,17 @@ def make_train_step(state: TrainState, clip_grad: bool = True,
     return step
 
 
-def make_eval_step(module) -> Callable:
-    """``step(generator, ligand, pocket) -> info`` of the validation loss."""
+def make_eval_step(module, group=None) -> Callable:
+    """``step(generator, ligand, pocket) -> info`` of the validation loss,
+    averaged over the ranks of ``group``."""
+    n_ranks = group_rank_size(group)[1]
+
     @torch.no_grad()
     def step(generator, ligand, pocket):
-        return module.loss_fn(generator, ligand, pocket, training=False)[1]
+        info = module.loss_fn(generator, ligand, pocket, training=False)[1]
+        if n_ranks > 1:
+            info = dict(zip(info, all_reduce_mean(list(info.values()), group)))
+        return info
     return step
 
 
@@ -240,25 +274,59 @@ class Trainer:
     float32 matrix products kept in full float32
     (``torch.backends.cuda.matmul.allow_tf32`` stays False), as the JAX
     reference trains.
+
+    ``group``: the data group of a multi-process run (``parallel.mesh``); the
+    loaders then yield this rank's slice of every global batch.  It must hold
+    every rank and its size must divide ``batch_size`` (and the slice
+    ``accumulate_grad_batches``): a rank outside it, or with nothing to do,
+    would sit idle, so this raises where the JAX package shrinks its mesh.
+    Metrics, checkpoints and the sampling evaluator run on rank 0 only.
+    ``num_workers`` > 0 assembles the next training batches in a background
+    thread, ``max(2, num_workers)`` ahead (``PrefetchLoader``).
     """
 
     def __init__(self, module, cfg, train_loader, val_loader, logger=None,
-                 evaluator=None):
+                 evaluator=None, group=None):
         self.module = module
         self.cfg = cfg
         self.device = resolve_device(str(module.device))
+        self.is_main_process = not dist.is_initialized() or dist.get_rank() == 0
+        n_prefetch = int(cfg.get("num_workers", 0) or 0)
+        if n_prefetch > 0 and train_loader is not None:
+            train_loader = PrefetchLoader(train_loader, depth=max(2, n_prefetch))
+            if self.is_main_process:
+                print(f"prefetching {train_loader.depth} training batches ahead")
         self.train_loader = train_loader
         self.val_loader = val_loader
         self.logger = logger
         # a train.evaluation.SamplingEvaluator, run on the eval schedules
         self.evaluator = evaluator
+        self.group = group
+        n_ranks = group_rank_size(group)[1]
+        world = dist.get_world_size() if dist.is_initialized() else 1
+        if n_ranks != world:
+            raise ValueError(f"the data group holds {n_ranks} of {world} ranks; "
+                             f"one process per card cannot leave a rank idle: "
+                             f"set tpu.mesh_data to {world} (or -1)")
+        k_acc = int(cfg.get("accumulate_grad_batches", 1))
+        if cfg.batch_size % n_ranks != 0:
+            raise ValueError(f"batch_size={cfg.batch_size} is not divisible by the "
+                             f"{n_ranks} ranks of the data group")
+        if n_ranks > 1 and (cfg.batch_size // n_ranks) % k_acc != 0:
+            raise ValueError(
+                f"batch_size={cfg.batch_size} over {n_ranks} devices gives per-shard "
+                f"batch {cfg.batch_size // n_ranks}, not divisible by "
+                f"accumulate_grad_batches={k_acc}; adjust batch_size or tpu.mesh_data")
         self.best_val = float("inf")
         self.log_every_n_steps = int(cfg.get("log_every_n_steps", 1))
         self.ckpt_dir = Path(cfg.logdir) / cfg.run_name / "checkpoints"
-        self.ckpt_dir.mkdir(parents=True, exist_ok=True)
-        self.eval_step = make_eval_step(module)
+        if self.is_main_process:
+            self.ckpt_dir.mkdir(parents=True, exist_ok=True)
+        self.eval_step = make_eval_step(module, group)
 
     def log(self, metrics: Dict, split: str, step: int):
+        if not self.is_main_process:
+            return
         named = {f"{k}/{split}": float(v) for k, v in metrics.items()}
         if self.logger is not None:
             self.logger.log(named, step=step)
@@ -269,7 +337,8 @@ class Trainer:
 
         train_step = make_train_step(
             state, self.cfg.clip_grad,
-            accumulate_grad_batches=self.cfg.get("accumulate_grad_batches", 1))
+            accumulate_grad_batches=self.cfg.get("accumulate_grad_batches", 1),
+            group=self.group)
         for epoch in range(n_epochs):
             t0 = time.time()
             train_info = None
@@ -289,16 +358,20 @@ class Trainer:
                     val_losses.append(float(info["loss"]))
                 val_loss = float(np.mean(val_losses))
                 self.log({"loss": val_loss}, "val", state.step)
-                save_model(self.ckpt_dir, self.module, self.cfg, name="last",
-                           state=state)
+                if self.is_main_process:
+                    save_model(self.ckpt_dir, self.module, self.cfg, name="last",
+                               state=state)
                 if val_loss < self.best_val:
                     self.best_val = val_loss
-                    save_model(self.ckpt_dir, self.module, self.cfg, name="best",
-                               state=state)
+                    if self.is_main_process:
+                        save_model(self.ckpt_dir, self.module, self.cfg, name="best",
+                                   state=state)
 
-            if self.evaluator is not None:
+            if self.evaluator is not None and self.is_main_process:
                 self._evaluate(generator, epoch, state.step)
 
+            if not self.is_main_process:
+                continue
             if train_info is not None:
                 print(f"epoch {epoch}: {time.time() - t0:.1f}s "
                       f"loss={float(train_info['loss']):.4f}")

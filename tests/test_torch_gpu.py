@@ -230,7 +230,17 @@ def _coord_cot(result):
     return out
 
 
-def _coord_bwd_case(seed, N, with_cross, tanh, update_rows, with_delta=True, F=F):
+def _column_block(mask, block, blocks=2):
+    """``mask`` on the columns of block ``block`` of ``blocks`` (a rank's
+    share of an edge split)."""
+    n = mask.shape[1]
+    keep = torch.zeros(n, device=mask.device)
+    keep[n * block // blocks:n * (block + 1) // blocks] = 1.0
+    return mask * keep
+
+
+def _coord_bwd_case(seed, N, with_cross, tanh, update_rows, with_delta=True, F=F,
+                    block=None):
     main, extra = _inputs(seed, N=N, F=F)
     ops = _folded(main, with_delta)
     cross = graph_mean = None
@@ -241,6 +251,8 @@ def _coord_bwd_case(seed, N, with_cross, tanh, update_rows, with_delta=True, F=F
     kw = dict(cutoffs=CUTOFFS, tanh=tanh, coords_range=15.0, norm_constant=1.0,
               normalization_factor=100.0, cross=cross, graph_mean=graph_mean,
               update_rows=update_rows)
+    if block is not None:
+        kw["col_mask"] = _column_block(main["mask"], block)
     g = torch.randn(B, N, 3, generator=torch.Generator().manual_seed(6)).cuda()
     ec.reset_launch_counts()
     got = ec.coord_agg_bwd(g, *ops.values(), extra["w3"], **kw)
@@ -254,6 +266,29 @@ def _coord_bwd_case(seed, N, with_cross, tanh, update_rows, with_delta=True, F=F
 @pytest.mark.parametrize("update_rows", [None, 12])
 def test_coord_bwd_kernel_matches_plain(with_cross, tanh, update_rows):
     _coord_bwd_case(7, N, with_cross, tanh, update_rows)
+
+
+@pytest.mark.parametrize("block", [0, 1])
+@pytest.mark.parametrize("update_rows", [None, 12])
+def test_coord_kernels_on_a_column_block(block, update_rows):
+    """A column block of a two-rank edge split as ``col_mask``: the forward
+    and the backward kernel against their plain versions, and the forward's
+    two blocks add up to the whole graph."""
+    main, extra = _inputs(1)
+    cross = dict(extra["cross"], w3=extra["w3"])
+    m = main["mask"]
+    kw = dict(cutoffs=CUTOFFS, tanh=True, coords_range=15.0, norm_constant=1.0,
+              normalization_factor=100.0, cross=cross,
+              graph_mean=(main["x"] * m[..., None]).sum(1) / m.sum(1)[:, None],
+              update_rows=update_rows)
+    parts = [ec.coord_update_agg(*main.values(), extra["w3"],
+                                 col_mask=_column_block(m, b), **kw) for b in (0, 1)]
+    ref = ec.coord_update_agg_plain(*main.values(), extra["w3"],
+                                    col_mask=_column_block(m, block), **kw)
+    torch.testing.assert_close(parts[block], ref, **TOL)
+    torch.testing.assert_close(parts[0] + parts[1],
+                               ec.coord_update_agg(*main.values(), extra["w3"], **kw), **TOL)
+    _coord_bwd_case(7, N, True, True, update_rows, block=block)
 
 
 @pytest.mark.parametrize("width", [64, 256])
