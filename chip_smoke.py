@@ -127,8 +127,29 @@ Phases (any failure ends the run with a non-zero exit code):
      18c: cli.train for one epoch under a one-rank torchrun environment
      (NCCL) with num_workers 2: the rank-0 checkpoints, the prefetch thread.
      No time of phase 18 is a multi-card speed: two ranks share one card.
+  19. hidden width 128, the dense variants, profiling and the synthetic
+     corpus.  19a: the five kernels at F=128 against their plain versions at
+     phases 3, 3b and 3c's shapes (two launches bit for bit, CUDA-event
+     times, both bounds) and their registers and spills.  19b: the config
+     defaults' model (hidden 128, joint_nf 32, 5 layers, full-atom
+     crossdock_full) from seeded random weights through cli.generate_ligands
+     (16 x 24 atoms, T=100) with the launches 5 layers make, cli.train for
+     2 steps (the backward kernels at F=128), the trained checkpoint sampled
+     with block fusing on (the whole-block kernel at F=128), and card vs CPU
+     chains from injected noise.  19c: the flagship config with sinusoidal
+     distance features and mean aggregation from seeded random weights (the
+     dense path): cli.generate_ligands (16 x 24, T=50) with no kernel
+     launched, ms per pass and peak memory; one dynamics forward at B=2 card
+     vs CPU for it and for gnn_dynamics at the same widths; cli.train for 2
+     steps of batch 4 (finite losses, peak memory); a chain with
+     tpu.nan_check on, and a NaN input that raises.  19d: utils.profiling's
+     device_trace around 3 passes of phase 6's main path (the trace file, the
+     top 5 device operations) and a StepTimer.  19e (host only):
+     synth_corpus.build_corpus on two seeded synthetic proteins (32 + 8 + 8
+     complexes) loaded through LigandPocketDataset and PaddedLoader.
 
-Prints a {"kernels": [...]} line and the card line, and as its last line
+Prints a {"kernels": [...]} line (the five kernels, then the same five at
+F=128 from phase 19) and the card line, and as its last line
 {"ok": true, "device": {...}}.  The pocket, the samples and a summary.json go
 to ``--out`` (default chip_smoke_out/ in the repository).  Needs a CUDA card:
 exits non-zero without one, and without the repository around it.
@@ -225,6 +246,31 @@ def write_pocket_pdb(path, n_atoms: int = 300, seed: int = 0) -> str:
         record("HETATM", name, "LIG", 900, xyz, el)
     Path(path).write_text("\n".join(lines + ["END"]) + "\n")
     return "A:900"
+
+
+def write_protein_pdb(path, n_atoms: int = 800, radius: float = 13.0,
+                      seed: int = 0) -> None:
+    """Write a synthetic globular protein (chain A, standard residues) as
+    PDB: residue centres drawn uniformly in a ball of ``radius`` A, atoms
+    within 1.5 A of their centre, until at least ``n_atoms`` atoms.  Dense
+    enough for ``synth_corpus.place_and_carve``'s 8 A pockets of 80-310
+    atoms at its surface."""
+    rng = np.random.default_rng(seed)
+    lines, serial, count, resseq = [], 1, 0, 1
+    while count < n_atoms:
+        name, atoms = _RESIDUES[rng.integers(len(_RESIDUES))]
+        d = rng.standard_normal(3)
+        centre = d / np.linalg.norm(d) * radius * rng.uniform() ** (1 / 3)
+        for a, el in atoms:
+            xyz = centre + rng.uniform(-1.5, 1.5, 3) / np.sqrt(3)
+            field = a if len(a) == 4 else f" {a:<3}"
+            lines.append(f"ATOM  {serial:5d} {field} {name:>3} A{resseq:4d}    "
+                         f"{xyz[0]:8.3f}{xyz[1]:8.3f}{xyz[2]:8.3f}  1.00  0.00"
+                         f"          {el:>2}")
+            serial += 1
+        count += len(atoms)
+        resseq += 1
+    Path(path).write_text("\n".join(lines + ["END"]) + "\n")
 
 
 def write_synthetic_dataset(datadir, n_train: int, n_val: int, seed: int = 0,
@@ -2154,6 +2200,482 @@ def gradient_phase(torch, dev, work):
           f"worst error {worst:.2e} of its largest entry ({worst_name}; limit 1e-3)")
 
 
+# ---------------------------------------------------------------------------
+# phase 19: hidden width 128, the dense variants, profiling, synthetic corpus
+# ---------------------------------------------------------------------------
+
+# the config defaults' model (load_config(): hidden 128, joint_nf 32, 5
+# layers, attention, tanh, no cutoffs, no cross branch) on full-atom pockets
+DEFAULT_WIDTH = 128
+DEFAULT_OVERRIDES = {"dataset": "crossdock_full", "pocket_representation": "full-atom",
+                     "mode": "pocket_conditioning"}
+DEFAULT_T = 100
+DENSE_T = 50
+DENSE_TRAIN_BATCH = 4
+
+
+def ptxas_usage(logs, width):
+    """Registers and spills of every entry function instantiated at
+    ``width``, from nvcc's ``-Xptxas -v`` output: {kernel: [{function,
+    registers, spill_stores, spill_loads}]}."""
+    usage = {}
+    for name, log in logs.items():
+        funcs = re.split(r"Compiling entry function '", log)[1:]
+        for body in funcs:
+            fn = body.split("'", 1)[0]
+            if f"ILi{width}E" not in fn:
+                continue
+            regs = re.search(r"Used (\d+) registers", body)
+            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", body)
+            short = re.sub(r"^_ZN\d+_GLOBAL__N__\w+?_cu_[0-9a-f]+\d+", "", fn)
+            usage.setdefault(name, []).append(dict(
+                function=short, registers=int(regs.group(1)),
+                spill_stores=int(spill.group(1)), spill_loads=int(spill.group(2))))
+    return usage
+
+
+def block_entry(block_res):
+    """The kernels line's entry of the whole-block kernel: the joint path's
+    shapes and batch on the clean complex, the collapsed one's beside it."""
+    clean, dense = block_res["joint_main_path"], block_res["joint_main_path_dense"]
+    return {**clean, "max_abs_err": max(clean["max_abs_err"], dense["max_abs_err"]),
+            "batch": JOINT_SAMPLES, "dense_ms": dense["ms"],
+            "dense_plain_ms": dense["plain_ms"], "dense_bound_ms": dense["bound_ms"],
+            "dense_bound_tc_ms": dense["bound_tc_ms"],
+            "dense_split_pair_ms": dense["split_pair_ms"]}
+
+
+def width_kernel_phase(ec, torch, dev, flagship, logs, width=DEFAULT_WIDTH):
+    """Phase 19a: the five kernels at hidden width ``width``, each against
+    its plain version at phases 3, 3b and 3c's shapes (every variant, two
+    launches bit for bit, CUDA-event times, the f32 and 3xTF32 bounds), and
+    the instantiations' registers and spills."""
+    cfg = dict(flagship, egnn_params=dict(flagship["egnn_params"], hidden_nf=width))
+    kres, variant_ms = kernel_phase(ec, torch, dev, cfg)
+    bres, bwd_ms = bwd_kernel_phase(ec, torch, dev, cfg)
+    block_res, block_ms = block_kernel_phase(ec, torch, dev, cfg, JOINT_SAMPLES)
+    kres.update(bres)
+    kres["block_fused"] = block_entry(block_res)
+    variant_ms.update(bwd_ms)
+    variant_ms.update(block_ms)
+    usage = ptxas_usage(logs, width)
+    for name in ec.KERNELS:
+        _check(name in usage, f"{name} has no instantiation at F = {width}")
+        for u in usage[name]:
+            print(f"  {name} F={width} {u['function'][:60]}: {u['registers']} registers, "
+                  f"spill stores {u['spill_stores']} B, loads {u['spill_loads']} B")
+        kres[name]["ptxas"] = usage[name]
+    return kres, {f"F{width}:{k}": v for k, v in variant_ms.items()}, block_res
+
+
+def _timed_generate(torch, ec, args, sampler_cls):
+    """cli.generate_ligands with ``args``: (CLI wall s, sampling s, launches),
+    the sampler's time on the host clock between two device syncs."""
+    from diffsbdd_tpu_torch.cli import generate_ligands as gen_cli
+    timing = {}
+    sample = sampler_cls.sample_given_pocket
+
+    def timed(self, *a, **k):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        result = sample(self, *a, **k)
+        torch.cuda.synchronize()
+        timing["sample_s"] = time.perf_counter() - t
+        return result
+
+    sampler_cls.sample_given_pocket = timed
+    ec.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        gen_cli.main([str(a) for a in args])
+    finally:
+        sampler_cls.sample_given_pocket = sample
+    return time.perf_counter() - t0, timing["sample_s"], dict(ec.launch_counts)
+
+
+def _random_checkpoint(torch, overrides, histogram, path, seed=0):
+    """A port checkpoint of the model ``overrides`` configure, its weights
+    drawn from ``seed``."""
+    from diffsbdd_tpu_torch.checkpoint import save_model
+    from diffsbdd_tpu_torch.config import load_config
+    from diffsbdd_tpu_torch.train.module import build_module_from_config
+    cfg = load_config(overrides=overrides)
+    torch.manual_seed(seed)
+    module = build_module_from_config(cfg, histogram)
+    save_model(path, module, cfg, name="best")
+    return path, cfg
+
+
+def card_vs_cpu_chain(torch, dev, ckpt, work, T, B=2, NL=8):
+    """One conditional chain of ``ckpt`` on the card (kernels) and on the
+    CPU (plain versions) from the same injected noise, on a 60-atom pocket:
+    (max coordinate deviation A, atom-type flips)."""
+    from diffsbdd_tpu_torch.checkpoint import load_model
+    from diffsbdd_tpu_torch.chem import pdb as pdbmod
+    pdb = work / "small19.pdb"
+    ref_lig = write_pocket_pdb(pdb, n_atoms=60, seed=1)
+    residues = pdbmod.get_pocket_from_ligand(pdbmod.parse_pdb(pdb), ref_lig)
+    out, nf = [], None
+    for d in (dev, torch.device("cpu")):
+        module, _ = load_model(ckpt, device=d)
+        nf = module.atom_nf
+        rng = np.random.default_rng(0)
+        queue = [rng.standard_normal((B, NL, 3 + nf)).astype(np.float32)
+                 for _ in range(T + 2)]
+        module.ddpm.sample_gaussian = lambda g, shape, mask, q=queue: \
+            torch.as_tensor(q.pop(0), device=mask.device) * mask[..., None]
+        pocket = module.prepare_pocket(residues, repeats=B)
+        lig_mask = torch.ones(B, NL, device=d)
+        lig_mask[1, 6:] = 0.0
+        with torch.no_grad():
+            xh, _ = module.ddpm.sample_given_pocket(None, pocket, lig_mask, timesteps=T,
+                                                    shared_pocket=True)
+        _check(not queue, "noise left over")
+        out.append(xh.cpu().numpy())
+    a, b = out
+    _check(np.isfinite(a).all(), "non-finite samples on the card")
+    return float(np.abs(a[..., :3] - b[..., :3]).max()), \
+        int((a[..., 3:].argmax(-1) != b[..., 3:].argmax(-1)).sum())
+
+
+def default_width_phase(torch, ec, dev, work, pdb, ref_lig, card):
+    """Phase 19b: the config defaults' model (hidden 128, 5 layers) from
+    seeded random weights: cli.generate_ligands (16 x 24 atoms, T = 100)
+    with the launches a 5-layer chain makes; cli.train for one short epoch
+    (the backward kernels at F = 128); the trained checkpoint sampled with
+    block fusing on (the whole-block kernel at F = 128); the card against the
+    CPU on a small input with injected noise."""
+    from diffsbdd_tpu_torch.cli import train as train_cli
+    from diffsbdd_tpu_torch.config import load_config
+    from diffsbdd_tpu_torch.diffusion.ddpm import ConditionalDDPM
+    cfg0 = load_config(overrides=DEFAULT_OVERRIDES)
+    p = cfg0.egnn_params
+    print(f"  config defaults: hidden {p.hidden_nf}, joint_nf {p.joint_nf}, {p.n_layers} "
+          f"layers, attention {p.attention}, tanh {p.tanh}, cutoffs "
+          f"{p.edge_cutoff_ligand}/{p.edge_cutoff_pocket}/{p.edge_cutoff_interaction}, "
+          f"reflection_equivariant {p.reflection_equivariant}")
+    _check(p.hidden_nf == DEFAULT_WIDTH and p.joint_nf == 32 and p.n_layers == 5,
+           "the config defaults moved")
+    L, T, n = p.n_layers, DEFAULT_T, 16
+    data = work / "data19"
+    n_pocket = sum(ln.startswith("ATOM") for ln in Path(pdb).read_text().splitlines())
+    write_synthetic_dataset(data, 32, 16, seed=19, pocket_sizes=(250, 280, n_pocket, 320),
+                            n_types=11)  # crossdock_full's 11 atom types
+    histogram = np.load(data / "size_distribution.npy")
+    ckpt, _ = _random_checkpoint(torch, DEFAULT_OVERRIDES, histogram, work / "default19")
+    res = {"card": card}
+
+    sdf = work / "default19.sdf"
+    wall, sample_s, launches = _timed_generate(
+        torch, ec, [ckpt, "--pdbfile", pdb, "--ref_ligand", ref_lig, "--outfile", sdf,
+                    "--n_samples", n, "--num_nodes_lig", 24, "--all_frags",
+                    "--timesteps", T], ConditionalDDPM)
+    want = chain_launches(ec, L, T)
+    print(f"  sampling: launches {launches}, expected {want}")
+    _check(launches == want, "the default-width chain's launches differ")
+    mols = _sdf_molecules(sdf)
+    _check(0 < len(mols) <= n and all(np.isfinite(c).all() for _, c in mols),
+           "default-width molecules")
+    res["sampling"] = dict(launches=launches, wall_s=wall, sample_s=sample_s,
+                           ms_per_pass=1e3 * sample_s / (T + 1), molecules=len(mols),
+                           molecules_per_s=n / wall)
+    print(f"  {card}: {n} x 24 atoms, T={T}: {res['sampling']['ms_per_pass']:.2f} ms per "
+          f"pass, sampling {sample_s:.2f} s, CLI wall {wall:.2f} s, {len(mols)} molecules")
+
+    # one short epoch: 32 complexes in batches of 16, then validation
+    cfg = dict(DEFAULT_OVERRIDES, **{k: v for k, v in TRAIN_FIELDS.items() if k != "dataset"},
+               run_name="chip_smoke_default19", datadir=str(data), logdir=str(work / "runs19"),
+               tpu={"kernel_block_fuse": True})
+    cfg_path = work / "default19.json"
+    cfg_path.write_text(json.dumps(cfg))
+    ec.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    train_cli.main(["--config", str(cfg_path)])
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    tl = dict(ec.launch_counts)
+    steps = 32 // 16
+    print(f"  cli.train ({steps} steps + validation): launches {tl}, {train_s:.2f} s")
+    _check(tl["gcl_agg_bwd"] == tl["coord_agg_bwd"] == L * steps,
+           "the default-width train steps' backward launches")
+    _check(tl["gcl_agg"] > 0 and tl["block_fused"] == 0, "the default-width training launches")
+    res["training"] = dict(launches=tl, wall_s=train_s, steps=steps)
+
+    trained = work / "runs19" / "chip_smoke_default19" / "checkpoints"
+    wall, sample_s, launches = _timed_generate(
+        torch, ec, [trained, "--pdbfile", pdb, "--ref_ligand", ref_lig, "--outfile",
+                    work / "default19_fused.sdf", "--n_samples", n, "--num_nodes_lig", 24,
+                    "--all_frags", "--timesteps", T], ConditionalDDPM)
+    want = {**dict.fromkeys(ec.KERNELS, 0), "gcl_agg": 3 * T, "coord_agg": T,
+            "block_fused": (L - 1) * T + L}
+    print(f"  sampling with block fusing: launches {launches}, expected {want}")
+    _check(launches == want, "the fused default-width chain's launches differ")
+    res["sampling_fused"] = dict(launches=launches, wall_s=wall, sample_s=sample_s,
+                                 ms_per_pass=1e3 * sample_s / (T + 1))
+    print(f"  {card}: fused {res['sampling_fused']['ms_per_pass']:.2f} ms per pass")
+
+    dx, flips = card_vs_cpu_chain(torch, dev, ckpt, work, T=10)
+    print(f"  card vs CPU, T=10: max coordinate deviation {dx:.3e} A, {flips} flips "
+          f"(limit 1e-3 A, 0 flips)")
+    _check(dx <= 1e-3 and flips == 0, "default-width card and CPU chains disagree")
+    res["card_vs_cpu"] = dict(max_dx=dx, flips=flips)
+    res["launches"] = {k: max(res[p]["launches"][k] for p in
+                              ("sampling", "training", "sampling_fused")) for k in ec.KERNELS}
+    return res
+
+
+DENSE_VARIANT = {"sin_embedding": True, "aggregation_method": "mean"}
+
+
+def dense_inputs(torch, module, B, NL, NP, seed, dev):
+    """A conditional batch for ``module``'s dynamics: a synthetic pocket of
+    ``NP`` atoms and ligands of ``NL`` atoms within a few A of its centre."""
+    residues, _ = pocket_atoms(NP, seed=seed)
+    pk = np.array([xyz for _, atoms in residues for _, _, xyz in atoms], np.float32)[:NP]
+    rng = np.random.default_rng(seed)
+    xh_l = np.concatenate([rng.standard_normal((B, NL, 3)) * 1.5,
+                           np.eye(module.atom_nf)[rng.integers(0, module.atom_nf, (B, NL))]], -1)
+    xh_p = np.concatenate([np.broadcast_to(pk, (B, NP, 3)),
+                           np.eye(module.residue_nf)[rng.integers(0, 4, (B, NP))]], -1)
+    t = np.full((B, 1), 0.5)
+    return [torch.as_tensor(np.ascontiguousarray(a, np.float32), device=dev)
+            for a in (xh_l, xh_p, t, np.ones((B, NL)), np.ones((B, NP)))]
+
+
+def dense_phase(torch, ec, dev, flagship, work, pdb, ref_lig, card):
+    """Phase 19c: the flagship config with sinusoidal distance features and
+    mean aggregation (the dense path, no kernel) from seeded random weights:
+    cli.generate_ligands (16 x 24 atoms, T = 50) with zero launches, ms per
+    pass and peak memory; one dynamics forward on the card against the CPU
+    for it and for gnn_dynamics at the same widths; cli.train for a few steps
+    at a batch that fits; one chain with tpu.nan_check on."""
+    import copy
+    from diffsbdd_tpu_torch.checkpoint import load_model
+    from diffsbdd_tpu_torch.chem import pdb as pdbmod
+    from diffsbdd_tpu_torch.cli import train as train_cli
+    from diffsbdd_tpu_torch.diffusion.ddpm import ConditionalDDPM
+    from diffsbdd_tpu_torch.models.dynamics import EGNNDynamics
+    from diffsbdd_tpu_torch.train import loop
+    over = dict(flagship, egnn_params=dict(flagship["egnn_params"], **DENSE_VARIANT))
+    data = work / "data19c"
+    n_pocket = sum(ln.startswith("ATOM") for ln in Path(pdb).read_text().splitlines())
+    write_synthetic_dataset(data, 8, 4, seed=20, pocket_sizes=(280, n_pocket, 320))
+    histogram = np.load(data / "size_distribution.npy")
+    ckpt, cfg = _random_checkpoint(torch, over, histogram, work / "dense19")
+    res = {"card": card}
+    n, T = 16, DENSE_T
+
+    torch.cuda.reset_peak_memory_stats()
+    sdf = work / "dense19.sdf"
+    wall, sample_s, launches = _timed_generate(
+        torch, ec, [ckpt, "--pdbfile", pdb, "--ref_ligand", ref_lig, "--outfile", sdf,
+                    "--n_samples", n, "--num_nodes_lig", 24, "--all_frags",
+                    "--timesteps", T], ConditionalDDPM)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"  sampling: launches {launches} (expected none)")
+    _check(not any(launches.values()), "the dense variant launched a kernel")
+    mols = _sdf_molecules(sdf)
+    _check(len(mols) <= n and all(np.isfinite(c).all() for _, c in mols), "dense molecules")
+    res["sampling"] = dict(launches=launches, wall_s=wall, sample_s=sample_s,
+                           ms_per_pass=1e3 * sample_s / (T + 1), peak_gib=peak,
+                           molecules=len(mols))
+    print(f"  {card}: sin/mean {n} x 24 atoms, T={T}: {res['sampling']['ms_per_pass']:.2f} "
+          f"ms per pass, sampling {sample_s:.2f} s, CLI wall {wall:.2f} s, peak "
+          f"{peak:.2f} GiB, {len(mols)} molecules")
+
+    # one forward at B = 2 on the card and on the CPU: this model and
+    # gnn_dynamics at the same widths
+    module, _ = load_model(ckpt, device=dev)
+    cpu_module, _ = load_model(ckpt, device="cpu")
+    e = cfg.egnn_params
+    torch.manual_seed(1)
+    gnn = EGNNDynamics(
+        atom_nf=module.atom_nf, residue_nf=module.residue_nf, joint_nf=e.joint_nf,
+        hidden_nf=e.hidden_nf, n_layers=e.n_layers, attention=e.attention,
+        normalization_factor=e.normalization_factor,
+        edge_cutoff_ligand=e.edge_cutoff_ligand, edge_cutoff_pocket=e.edge_cutoff_pocket,
+        edge_cutoff_interaction=e.edge_cutoff_interaction,
+        edge_embedding_dim=e.get("edge_embedding_dim"), mode="gnn_dynamics").eval()
+    res["forward"] = {}
+    for name, card_dyn, cpu_dyn in (
+            ("sin_mean", module.ddpm.dynamics, cpu_module.ddpm.dynamics),
+            ("gnn_dynamics", copy.deepcopy(gnn).to(dev), gnn)):
+        ec.reset_launch_counts()
+        with torch.no_grad():
+            got = card_dyn(*dense_inputs(torch, module, 2, 24, 120, 3, dev))
+            want = cpu_dyn(*dense_inputs(torch, module, 2, 24, 120, 3, torch.device("cpu")))
+        torch.cuda.synchronize()
+        errs = []
+        for g, w in zip(got, want):
+            g = g.cpu()
+            errs.append(float((g - w).abs().max()))
+            bad = float(((g - w).abs() - (1e-4 + 1e-4 * w.abs())).max())
+            _check(bad <= 0, f"dense {name} forward: card and CPU disagree")
+        _check(not any(ec.launch_counts.values()), f"dense {name} forward launched a kernel")
+        print(f"  {name} forward B=2, 24 + 120 atoms: card vs CPU max abs err "
+              f"{max(errs):.3e} (atol 1e-4 + rtol 1e-4)")
+        res["forward"][name] = max(errs)
+    del module, cpu_module, gnn
+
+    # training at a batch that fits: every block's (B, N, N, F) activations
+    # are kept for the backward pass
+    train_cfg = dict(flagship_train_config(flagship, data, work / "runs19c",
+                                           run_name="chip_smoke_dense19"),
+                     batch_size=DENSE_TRAIN_BATCH)
+    train_cfg["egnn_params"] = dict(train_cfg["egnn_params"], **DENSE_VARIANT)
+    cfg_path = work / "dense19_train.json"
+    cfg_path.write_text(json.dumps(train_cfg))
+    losses = []
+    trainer_log = loop.Trainer.log
+
+    def log(self, metrics, split, step):
+        losses.append((split, float(metrics["loss"])))
+        return trainer_log(self, metrics, split, step)
+
+    loop.Trainer.log = log
+    ec.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        train_cli.main(["--config", str(cfg_path)])
+    finally:
+        loop.Trainer.log = trainer_log
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    steps = 8 // DENSE_TRAIN_BATCH
+    _check(sum(s == "train" for s, _ in losses) >= steps and
+           all(np.isfinite(v) for _, v in losses), f"dense training losses {losses}")
+    _check(not any(ec.launch_counts.values()), "dense training launched a kernel")
+    res["training"] = dict(losses=losses, wall_s=train_s, peak_gib=peak,
+                           batch_size=DENSE_TRAIN_BATCH, steps=steps)
+    print(f"  {card}: cli.train {steps} steps of batch {DENSE_TRAIN_BATCH} + validation: "
+          f"{train_s:.2f} s, losses {[round(v, 4) for _, v in losses]}, peak {peak:.2f} GiB")
+
+    # a chain with tpu.nan_check on: finite, and a poisoned input raises
+    checked, _ = _random_checkpoint(torch, dict(over, tpu={"nan_check": True}), histogram,
+                                    work / "dense19_nan")
+    module, _ = load_model(checked, device=dev)
+    _check(module.ddpm.dynamics.nan_check, "tpu.nan_check did not reach the network")
+    residues = pdbmod.get_pocket_from_ligand(pdbmod.parse_pdb(pdb), ref_lig)
+    pocket = module.prepare_pocket(residues, repeats=4)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        xh, _ = module.ddpm.sample_given_pocket(
+            torch.Generator(device=dev).manual_seed(0), pocket,
+            torch.ones(4, 24, device=dev), timesteps=10, shared_pocket=True)
+    torch.cuda.synchronize()
+    nan_s = time.perf_counter() - t0
+    _check(bool(torch.isfinite(xh).all()), "nan_check chain")
+    poisoned = dense_inputs(torch, module, 1, 8, 40, 4, dev)
+    poisoned[0][0, 0, 0] = float("nan")
+    try:
+        with torch.no_grad():
+            module.ddpm.dynamics(*poisoned)
+        raised = ""
+    except ValueError as err:
+        raised = str(err)
+    _check(raised == "NaN detected in EGNN output", "nan_check did not raise on NaN")
+    print(f"  nan_check on: a T=10 chain of 4 finite in {nan_s:.2f} s; a NaN input raises "
+          f"'{raised}'")
+    res["nan_check"] = dict(chain_s=nan_s, raised=raised)
+    return res
+
+
+def profiling_phase(torch, ec, dev, ckpt, pdb, ref_lig, out, card, passes=3):
+    """Phase 19d: utils.profiling on the card: device_trace around 3 passes
+    of phase 6's main path (the flagship checkpoint, 16 x 24 atoms), the
+    trace file and the top 5 device operations; a StepTimer over the same
+    passes one by one."""
+    from diffsbdd_tpu_torch.checkpoint import load_model
+    from diffsbdd_tpu_torch.chem import pdb as pdbmod
+    from diffsbdd_tpu_torch.utils.profiling import StepTimer, device_trace
+    module, _ = load_model(ckpt, device=dev)
+    residues = pdbmod.get_pocket_from_ligand(pdbmod.parse_pdb(pdb), ref_lig)
+    pocket = module.prepare_pocket(residues, repeats=16)
+    lig_mask = torch.ones(16, 24, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    # passes - 1 denoise steps and the decode pass
+    chain = lambda: module.ddpm.sample_given_pocket(  # noqa: E731
+        gen, pocket, lig_mask, timesteps=passes - 1, shared_pocket=True)
+    with torch.no_grad():
+        chain()  # warm-up
+        with device_trace(out / "trace19") as prof:
+            chain()
+        trace = out / "trace19" / "trace.json"
+        _check(trace.exists() and trace.stat().st_size > 0, "no trace written")
+        events = sorted((e for e in prof.key_averages()
+                         if str(e.device_type).endswith("CUDA")
+                         and e.self_device_time_total > 0),
+                        key=lambda e: -e.self_device_time_total)
+        _check(len(events) > 0, "the trace holds no device time")
+        top = [dict(name=e.key, ms=e.self_device_time_total / 1e3, count=e.count)
+               for e in events[:5]]
+        print(f"  {card}: trace {trace.name} {trace.stat().st_size / 1e6:.1f} MB; top 5 "
+              "device operations:")
+        for t in top:
+            print(f"    {t['ms']:9.3f} ms x{t['count']:<4d} {t['name'][:70]}")
+        timer = StepTimer()
+        for _ in range(5):
+            timer.start()
+            timer.stop(chain())
+        summary = timer.summary()
+    print(f"  StepTimer over 5 chains of {passes} passes: {summary}")
+    return dict(trace_bytes=trace.stat().st_size, top=top, step_timer=summary,
+                card=card)
+
+
+def corpus_phase(work):
+    """Phase 19e (host only): synth_corpus.build_corpus on two seeded
+    synthetic proteins, 32 + 8 + 8 complexes, loaded through
+    LigandPocketDataset and PaddedLoader."""
+    from diffsbdd_tpu_torch.data import synth_corpus
+    from diffsbdd_tpu_torch.data.dataset import LigandPocketDataset, PaddedLoader
+    prot = [work / "protA19.pdb", work / "protB19.pdb"]
+    for seed, path in enumerate(prot):
+        write_protein_pdb(path, seed=seed)
+    t0 = time.perf_counter()
+    meta = synth_corpus.build_corpus(work / "corpus19", *prot, n_train=32, n_val=8,
+                                     n_test=8, seed=0)
+    build_s = time.perf_counter() - t0
+    sizes = {}
+    for split in ("train", "val", "test"):
+        ds = LigandPocketDataset(work / "corpus19" / f"{split}.npz")
+        batches = list(PaddedLoader(ds, 8, shuffle=False))
+        sizes[split] = len(ds)
+        _check(sum(b["ligand"]["x"].shape[0] for b in batches) == len(ds),
+               f"corpus {split} batches")
+    _check(sizes == {"train": 32, "val": 8, "test": 8}, f"corpus sizes {sizes}")
+    _check(80 <= meta["pocket_sizes"]["min"] and meta["pocket_sizes"]["max"] <= 310,
+           "corpus pocket sizes")
+    print(f"  corpus of {sizes} in {build_s:.2f} s (host); ligands {meta['lig_sizes']}, "
+          f"pockets {meta['pocket_sizes']}, {meta['unique_train_graphs']} unique graphs")
+    return dict(meta=meta, build_s=build_s, sizes=sizes)
+
+
+def phase19(torch, ec, dev, flagship, logs, work, out, pdb, ref_lig, ckpt, card):
+    """Phase 19 in order; returns its results."""
+    t19 = time.perf_counter()
+    print(f"[19a] the five kernels at hidden width {DEFAULT_WIDTH} ({card})")
+    kres, variant_ms, block_res = width_kernel_phase(ec, torch, dev, flagship, logs)
+    print(f"[19b] the config defaults' model (hidden {DEFAULT_WIDTH}, 5 layers)")
+    default = default_width_phase(torch, ec, dev, work, pdb, ref_lig, card)
+    print("[19c] the dense variants at the flagship widths (sin features, mean "
+          "aggregation; gnn_dynamics)")
+    dense = dense_phase(torch, ec, dev, flagship, work, pdb, ref_lig, card)
+    print("[19d] utils.profiling on the main path")
+    prof = profiling_phase(torch, ec, dev, ckpt, pdb, ref_lig, out, card)
+    print("[19e] synth_corpus.build_corpus (host)")
+    corpus = corpus_phase(work)
+    res = dict(kernels=kres, block_fused=block_res, variant_ms=variant_ms,
+               default=default, dense=dense, profiling=prof, corpus=corpus,
+               phase_s=time.perf_counter() - t19)
+    print(f"  phase 19 took {res['phase_s']:.1f} s")
+    return res
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", type=Path, default=REPO / "chip_smoke_out",
@@ -2217,13 +2739,7 @@ def main(argv=None) -> int:
     # collapsed one's times and bounds beside it, and the split pair's time
     # (the yardstick the kernel must beat); the other shapes stay in the
     # summary
-    clean, dense = block_res["joint_main_path"], block_res["joint_main_path_dense"]
-    kres["block_fused"] = {
-        **clean, "max_abs_err": max(clean["max_abs_err"], dense["max_abs_err"]),
-        "batch": JOINT_SAMPLES, "dense_ms": dense["ms"],
-        "dense_plain_ms": dense["plain_ms"], "dense_bound_ms": dense["bound_ms"],
-        "dense_bound_tc_ms": dense["bound_tc_ms"],
-        "dense_split_pair_ms": dense["split_pair_ms"]}
+    kres["block_fused"] = block_entry(block_res)
 
     with tempfile.TemporaryDirectory(dir=out) as tmp:
         work = Path(tmp)
@@ -2328,6 +2844,8 @@ def main(argv=None) -> int:
         parallel["phase_s"] = time.perf_counter() - t18
         print(f"  phase 18 took {parallel['phase_s']:.1f} s")
 
+        width = phase19(torch, ec, dev, flagship, logs, work, out, pdb, ref_lig, ckpt, card)
+
     by_path = {"sampling": sampling_launches, "training": training["launches"],
                "joint_training": joint["training"]["launches"],
                "joint_sampling": joint["launches"], "inpainting": inpainting["launches"],
@@ -2344,7 +2862,7 @@ def main(argv=None) -> int:
                "joint": joint, "inpainting": inpainting, "test_set": test_set,
                "optimize": optimize, "serving": serving, "quality": quality,
                "lightning": lightning, "evaluation": evaluation, "processing": processing,
-               "parallel": parallel,
+               "parallel": parallel, "phase19": width,
                "variant_ms": variant_ms, "breakdown": breakdown,
                "sample_s": timing["sample_s"], "step_ms": step_ms,
                "cli_wall_s": wall, "molecules_per_s": n_samples / wall,
@@ -2361,11 +2879,24 @@ def main(argv=None) -> int:
                                  "diffsbdd_tpu/ops/egnn_pallas_bwd.py:908"),
                "block_fused": ("diffsbdd_tpu_torch/csrc/block_fused.cu",
                                "diffsbdd_tpu/ops/egnn_block_fused.py:295")}
+    # the same five kernels at hidden width 128, their launches from phase
+    # 19b's default-width paths
+    by_path128 = {"default_width_sampling": width["default"]["sampling"]["launches"],
+                  "default_width_training": width["default"]["training"]["launches"],
+                  "default_width_fused_sampling":
+                      width["default"]["sampling_fused"]["launches"]}
+    for k in ec.KERNELS:
+        _check(width["default"]["launches"][k] > 0, f"no F = 128 path launched {k}")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": sources[name][0],
          "replaces": sources[name][1], "launches": launches[name],
          "launches_by_path": {path: counts[name] for path, counts in by_path.items()},
-         **kres[name], "library_ms": None} for name in ec.KERNELS]}))
+         **kres[name], "library_ms": None} for name in ec.KERNELS] + [
+        {"name": f"{name}[F={DEFAULT_WIDTH}]", "route": "cuda", "source": sources[name][0],
+         "replaces": sources[name][1], "launches": width["default"]["launches"][name],
+         "launches_by_path": {path: counts[name] for path, counts in by_path128.items()},
+         **width["kernels"][name], "library_ms": None} for name in ec.KERNELS]},
+        default=str))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

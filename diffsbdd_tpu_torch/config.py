@@ -101,6 +101,9 @@ _DEFAULTS: Dict[str, Any] = {
         "mesh_data": -1,
         # join a process group even without torchrun's environment
         "multihost": False,
+        # raise when the network's velocities are not all finite (one host
+        # sync a forward)
+        "nan_check": False,
     },
 }
 

@@ -353,6 +353,7 @@ extern "C" int block_fused_forward(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (F) {
     case 64: return launch<64>(a, b, blocks, partial, s);
+    case 128: return launch<128>(a, b, blocks, partial, s);
     case 256: return launch<256>(a, b, blocks, partial, s);
     default: return (int)cudaErrorInvalidValue;
   }

@@ -94,6 +94,7 @@ extern "C" int coord_agg_forward(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (F) {
     case 64: return launch<64>(g, B, partial, s);
+    case 128: return launch<128>(g, B, partial, s);
     case 256: return launch<256>(g, B, partial, s);
     default: return (int)cudaErrorInvalidValue;
   }

@@ -83,6 +83,7 @@ extern "C" int gcl_agg_forward(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (F) {
     case 64: return launch<64>(g, B, s);
+    case 128: return launch<128>(g, B, s);
     case 256: return launch<256>(g, B, s);
     default: return (int)cudaErrorInvalidValue;
   }

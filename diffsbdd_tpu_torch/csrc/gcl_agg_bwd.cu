@@ -104,6 +104,7 @@ extern "C" int gcl_agg_backward(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (F) {
     case 64: return launch<64>(g, B, Q, da_col, dxx0, w_out, s);
+    case 128: return launch<128>(g, B, Q, da_col, dxx0, w_out, s);
     case 256: return launch<256>(g, B, Q, da_col, dxx0, w_out, s);
     default: return (int)cudaErrorInvalidValue;
   }

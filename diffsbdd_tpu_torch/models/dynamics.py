@@ -9,6 +9,11 @@ node axes are concatenated ligand-first inside:
   xh_pkt: (B, NP, 3 + residue_nf)   mask_pkt: (B, NP)
   t:      (B, 1) normalized time
 Returns (eps_lig, eps_pkt) with the same leading shapes.
+
+The network takes the kernels' path unless its configuration asks for what
+they do not compute -- the sinusoidal distance embedding, mean aggregation
+or ``mode="gnn_dynamics"`` -- and then the dense path, as the JAX package's
+``_resolve_impl`` chooses its XLA path for exactly these.
 """
 from __future__ import annotations
 
@@ -17,8 +22,52 @@ from typing import Optional
 import torch
 from torch import nn
 
-from diffsbdd_tpu_torch.models.egnn import EGNN, GraphContext
+from diffsbdd_tpu_torch.models.egnn import EGNN, GNN, GraphContext
 from diffsbdd_tpu_torch.ops.masked import masked_mean
+
+
+def build_adjacency(x_lig, x_pkt, mask_lig, mask_pkt, cutoff_ligand=None,
+                    cutoff_pocket=None, cutoff_interaction=None) -> torch.Tensor:
+    """Dense (B, N, N) adjacency over the ligand-first node set: the masks
+    times each pair type's test d^2 <= cutoff^2 on these coordinates;
+    self-edges are kept."""
+    def pair_adj(xa, xb, ma, mb, cutoff):
+        adj = ma[:, :, None] * mb[:, None, :]
+        if cutoff is not None:
+            d2 = ((xa[:, :, None, :] - xb[:, None, :, :]) ** 2).sum(-1)
+            adj = adj * (d2 <= cutoff * cutoff).to(adj.dtype)
+        return adj
+
+    adj_ll = pair_adj(x_lig, x_lig, mask_lig, mask_lig, cutoff_ligand)
+    adj_pp = pair_adj(x_pkt, x_pkt, mask_pkt, mask_pkt, cutoff_pocket)
+    adj_lp = pair_adj(x_lig, x_pkt, mask_lig, mask_pkt, cutoff_interaction)
+    top = torch.cat([adj_ll, adj_lp], 2)
+    bottom = torch.cat([adj_lp.transpose(1, 2), adj_pp], 2)
+    return torch.cat([top, bottom], 1)
+
+
+def _type_edge_attr(is_lig, type_table, is_lig_cols=None) -> torch.Tensor:
+    """(B, N, Nc, E) edge-type embedding, 0 = cross, 1 = lig-lig, 2 =
+    pkt-pkt, of the columns ``is_lig_cols`` (all when None)."""
+    ilc = is_lig if is_lig_cols is None else is_lig_cols
+    both_lig = is_lig[:, :, None] * ilc[:, None, :]
+    both_pkt = (1 - is_lig[:, :, None]) * (1 - ilc[:, None, :])
+    return type_table[(both_lig + 2 * both_pkt).long()]
+
+
+def _col_adjacency(x, mask, is_lig, cutoffs, ctx: GraphContext):
+    """The (B, N, Nc) block of ``build_adjacency``'s output of ``ctx``'s
+    columns (all without a shard), built from the concatenated node set, and
+    the columns' ligand flags."""
+    x_cols, mask_cols, il_cols = ctx.cols(x), ctx.cols(mask), ctx.cols(is_lig)
+    d2 = ((x[:, :, None, :] - x_cols[:, None, :, :]) ** 2).sum(-1)
+    inf = float("inf")
+    c_ll, c_pp, c_lp = ((inf if c is None else c) ** 2 for c in cutoffs)
+    both_lig = is_lig[:, :, None] * il_cols[:, None, :]
+    both_pkt = (1 - is_lig[:, :, None]) * (1 - il_cols[:, None, :])
+    cut2 = torch.where(both_lig > 0, c_ll, torch.where(both_pkt > 0, c_pp, c_lp))
+    adj = mask[:, :, None] * mask_cols[:, None, :]
+    return adj * (d2 <= cut2).to(adj.dtype), il_cols
 
 
 def _mlp2(d_in: int, d_mid: int, d_out: int) -> nn.Sequential:
@@ -39,8 +88,20 @@ class EGNNDynamics(nn.Module):
                  reflection_equivariant: bool = True,
                  edge_embedding_dim: Optional[int] = None,
                  update_pocket_coords: bool = False,
-                 kernel_block_fuse: bool = False):
+                 kernel_block_fuse: bool = False, mode: str = "egnn_dynamics",
+                 sin_embedding: bool = False, aggregation_method: str = "sum",
+                 nan_check: bool = False):
         super().__init__()
+        if mode not in ("egnn_dynamics", "gnn_dynamics"):
+            raise ValueError(mode)
+        self.mode = mode
+        # the dense path, exactly where the JAX package's _resolve_impl takes
+        # its XLA path; otherwise the kernels
+        self.dense = sin_embedding or mode != "egnn_dynamics" \
+            or aggregation_method != "sum"
+        # the sampling-time check: raise on non-finite velocities (one host
+        # sync a forward, so off by default)
+        self.nan_check = nan_check
         self.update_pocket_coords = update_pocket_coords
         # allow the whole-block kernel where a caller asks for it (the
         # samplers do); False: always the split kernels
@@ -57,13 +118,22 @@ class EGNNDynamics(nn.Module):
         self.edge_embedding = nn.Embedding(3, edge_embedding_dim) \
             if edge_embedding_dim is not None else None
         dyn_nf = joint_nf + 1  # + the time channel
-        self.egnn = EGNN(
-            in_node_nf=dyn_nf, hidden_nf=hidden_nf, out_node_nf=dyn_nf,
-            in_edge_nf=edge_embedding_dim or 0, n_layers=n_layers,
-            attention=attention, tanh=tanh, norm_constant=norm_constant,
-            inv_sublayers=inv_sublayers,
-            normalization_factor=normalization_factor,
-            reflection_equiv=reflection_equivariant)
+        if mode == "gnn_dynamics":
+            # [x, h] in, [vel, h] out
+            self.gnn = GNN(
+                in_node_nf=3 + dyn_nf, in_edge_nf=edge_embedding_dim or 0,
+                hidden_nf=hidden_nf, out_node_nf=3 + dyn_nf, n_layers=n_layers,
+                attention=attention, normalization_factor=normalization_factor,
+                aggregation_method=aggregation_method)
+        else:
+            self.egnn = EGNN(
+                in_node_nf=dyn_nf, hidden_nf=hidden_nf, out_node_nf=dyn_nf,
+                in_edge_nf=edge_embedding_dim or 0, n_layers=n_layers,
+                attention=attention, tanh=tanh, norm_constant=norm_constant,
+                inv_sublayers=inv_sublayers,
+                normalization_factor=normalization_factor,
+                reflection_equiv=reflection_equivariant,
+                sin_embedding=sin_embedding, aggregation_method=aggregation_method)
 
     def forward(self, xh_lig, xh_pkt, t, mask_lig, mask_pkt,
                 shared_pocket: bool = False, zero_nan: bool = False,
@@ -79,7 +149,9 @@ class EGNNDynamics(nn.Module):
         is shared: every node diffuses.  ``shard``: this rank's column block
         under edge-axis sharding (``parallel.edge_shard.ShardContext``; its
         callers go through ``edge_sharded_dynamics``); it turns the shared
-        pocket and block fusing off, since both need every column at once."""
+        pocket and block fusing off, since both need every column at once.
+        The dense path uses neither; ``gnn_dynamics`` raises under a shard,
+        as in the JAX package."""
         B, NL = mask_lig.shape
         NP = mask_pkt.shape[1]
         nd = 3
@@ -94,18 +166,36 @@ class EGNNDynamics(nn.Module):
 
         type_table = None if self.edge_embedding is None \
             else self.edge_embedding.weight
-        ctx = GraphContext(
-            x0=x, mask=mask, is_lig=is_lig, cutoffs=self.cutoffs,
-            type_table=type_table, n_lig=NL,
-            update_rows=None if self.update_pocket_coords else NL,
-            block_fuse=bool(block_fuse) and self.kernel_block_fuse
-            and self.inv_sublayers == 1 and shard is None, shard=shard)
-        h_final, x_final = self.egnn(
-            h, x, ctx, shared_pocket=bool(shared_pocket) and not self.update_pocket_coords
-            and shard is None)
-        vel = (x_final - x) * mask[..., None]
+        if self.mode == "gnn_dynamics":
+            if shard is not None:
+                raise NotImplementedError(
+                    "edge-axis sharding supports egnn_dynamics only")
+            adj = build_adjacency(x_lig, x_pkt, mask_lig, mask_pkt, *self.cutoffs)
+            edge_attr = None if type_table is None else _type_edge_attr(is_lig, type_table)
+            out = self.gnn(torch.cat([x, h], -1), adj, mask, edge_attr)
+            vel = out[..., :nd] * mask[..., None]
+            h_final = out[..., nd:]
+        else:
+            ctx = GraphContext(
+                x0=x, mask=mask, is_lig=is_lig, cutoffs=self.cutoffs,
+                type_table=type_table, n_lig=NL,
+                update_rows=None if self.update_pocket_coords else NL,
+                block_fuse=bool(block_fuse) and self.kernel_block_fuse
+                and self.inv_sublayers == 1 and shard is None and not self.dense,
+                shard=shard, dense=self.dense)
+            if self.dense:
+                ctx.adj, il_cols = _col_adjacency(x, mask, is_lig, self.cutoffs, ctx)
+                if type_table is not None:
+                    (table,) = ctx.enter(type_table)
+                    ctx.edge_attr = _type_edge_attr(is_lig, table, il_cols)
+            h_final, x_final = self.egnn(
+                h, x, ctx, shared_pocket=bool(shared_pocket) and not self.update_pocket_coords
+                and shard is None and not self.dense)
+            vel = (x_final - x) * mask[..., None]
         if zero_nan:
             vel = torch.nan_to_num(vel)
+        elif self.nan_check and not bool(torch.isfinite(vel).all()):
+            raise ValueError("NaN detected in EGNN output")
         if self.update_pocket_coords:
             # the joint model removes the velocity field's centre of mass
             vel = (vel - masked_mean(vel, mask)[:, None, :]) * mask[..., None]

@@ -64,7 +64,11 @@ HEADERS = (CSRC / "egnn_common.cuh", CSRC / "egnn_mma.cuh",
            CSRC / "egnn_coord.cuh", CSRC / "egnn_bwd.cuh",
            CSRC / "egnn_mma_bwd.cuh")  # shared device code
 ROW_TILE = 4  # rows per tile, TI in csrc/egnn_common.cuh
-SUPPORTED_F = (64, 256)  # the fixture checkpoint's width and the flagship's
+# hidden widths the kernels are built for: the fixture checkpoint's, the
+# config default's and the flagship's.  The layouts need F to divide the
+# block's 256 threads and the dW2 warp layout F >= 64 (csrc/egnn_mma.cuh,
+# egnn_mma_bwd.cuh): 64, 128 and 256 are all the widths they admit.
+SUPPORTED_F = (64, 128, 256)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

@@ -19,6 +19,11 @@ How it composes with the model code (``models/egnn.py``,
   sums the blocks with one ``all_reduce``; the whole-block kernel is not used
   (its phase B needs the complete GCL sum), nor the shared-pocket first
   layer;
+* the dense path (the sinusoidal distance embedding, mean aggregation)
+  builds the adjacency and edge features of the block's columns only, and
+  each aggregation's numerator takes one ``all_reduce`` (``leave``), under
+  mean its denominator one more, as the JAX package's ``_psum_cols``;
+  ``gnn_dynamics`` raises under the split, as in JAX;
 * gradients: ``aggregate`` wraps the call in a conjugate pair -- identity
   forward and an ``all_reduce`` of every input cotangent backward on the way
   in, an ``all_reduce`` forward and identity backward on the way out -- so
@@ -26,8 +31,8 @@ How it composes with the model code (``models/egnn.py``,
   parameter, as if nothing were split.
 
 Node counts the shard count does not divide need no padding: the column
-blocks are uneven ranges.  Only sum aggregation is ported, so the sum over
-blocks is exact up to summation order.
+blocks are uneven ranges.  The sum over blocks is exact up to summation
+order.
 """
 from __future__ import annotations
 
@@ -108,6 +113,21 @@ class ShardContext:
         block[self.lo:self.hi] = 1.0
         return mask * block
 
+    def enter(self, *tensors):
+        """Replicated tensors about to feed this rank's share of a sum: the
+        ones that need a gradient go through the conjugate pair's way in."""
+        slots = [i for i, t in enumerate(tensors) if _needs_grad(t)]
+        if not slots:
+            return tensors
+        out = list(tensors)
+        for i, t in zip(slots, _EnterShard.apply(self.group, *(tensors[i] for i in slots))):
+            out[i] = t
+        return tuple(out)
+
+    def leave(self, share: torch.Tensor) -> torch.Tensor:
+        """This rank's share of a sum -> the sum over the group."""
+        return _LeaveShard.apply(self.group, share)
+
     def aggregate(self, fn, *args, **kw):
         """``fn(*args, **kw)`` -- an aggregation wrapper of ``ops.egnn_cuda``
         called with this block's ``col_mask`` in ``kw`` -- summed over the
@@ -122,11 +142,9 @@ class ShardContext:
                 slots += [(v, j) for j, t in v.items() if _needs_grad(t)]
             elif _needs_grad(v):
                 slots.append((kw, k))
-        if slots:
-            entered = _EnterShard.apply(self.group, *(c[k] for c, k in slots))
-            for (c, k), t in zip(slots, entered):
-                c[k] = t
-        return _LeaveShard.apply(self.group, fn(*args, **kw))
+        for (c, k), t in zip(slots, self.enter(*(c[k] for c, k in slots))):
+            c[k] = t
+        return self.leave(fn(*args, **kw))
 
 
 def _needs_grad(a) -> bool:

@@ -72,14 +72,11 @@ class LigandPocketDDPM(nn.Module):
                  auxiliary_loss: bool = False, loss_params: Optional[Config] = None,
                  augment_noise: float = 0.0, augment_rotation: bool = False,
                  lig_bucket: int = 8, pocket_bucket: int = 64,
-                 kernel_block_fuse: bool = False):
+                 kernel_block_fuse: bool = False, nan_check: bool = False):
         super().__init__()
         if mode not in DDPM_MODELS:
             raise ValueError(f"mode {mode!r} not in {sorted(DDPM_MODELS)}")
         self.mode = mode
-        if egnn_params.sin_embedding or egnn_params.aggregation_method != "sum":
-            raise NotImplementedError("the port runs sum aggregation without "
-                                      "sinusoidal distance embeddings")
         if pocket_representation not in ("CA", "full-atom"):
             raise ValueError(pocket_representation)
         self.pocket_representation = pocket_representation
@@ -136,7 +133,9 @@ class LigandPocketDDPM(nn.Module):
             reflection_equivariant=egnn_params.reflection_equivariant,
             edge_embedding_dim=egnn_params.get("edge_embedding_dim"),
             update_pocket_coords=(mode == "joint"),
-            kernel_block_fuse=kernel_block_fuse)
+            kernel_block_fuse=kernel_block_fuse,
+            sin_embedding=egnn_params.sin_embedding,
+            aggregation_method=egnn_params.aggregation_method, nan_check=nan_check)
         self.ddpm = DDPM_MODELS[mode](
             dynamics=dynamics, atom_nf=self.atom_nf, residue_nf=self.residue_nf,
             n_dims=3, timesteps=diffusion_params.diffusion_steps,
@@ -398,4 +397,5 @@ def build_module_from_config(cfg: Config, node_histogram) -> LigandPocketDDPM:
         auxiliary_loss=cfg.auxiliary_loss, loss_params=cfg.get("loss_params"),
         augment_noise=cfg.augment_noise, augment_rotation=cfg.augment_rotation,
         lig_bucket=cfg.tpu.lig_bucket, pocket_bucket=cfg.tpu.pocket_bucket,
-        kernel_block_fuse=cfg.tpu.get("kernel_block_fuse", False))
+        kernel_block_fuse=cfg.tpu.get("kernel_block_fuse", False),
+        nan_check=cfg.tpu.get("nan_check", False))

@@ -291,7 +291,7 @@ def test_coord_kernels_on_a_column_block(block, update_rows):
     _coord_bwd_case(7, N, True, True, update_rows, block=block)
 
 
-@pytest.mark.parametrize("width", [64, 256])
+@pytest.mark.parametrize("width", [64, 128, 256])
 @pytest.mark.parametrize("update_rows", [None, 11])
 def test_bwd_kernels_on_a_partial_row_tile(update_rows, width):
     main, extra = _inputs(8, N=45, F=width)
@@ -306,7 +306,7 @@ def test_bwd_kernels_on_a_partial_row_tile(update_rows, width):
     _coord_bwd_case(8, 45, True, True, update_rows, with_delta=False, F=width)
 
 
-@pytest.mark.parametrize("width", [64, 256])
+@pytest.mark.parametrize("width", [64, 128, 256])
 def test_bwd_kernel_is_deterministic(width):
     """No atomics: two launches on the same inputs give the same bits."""
     main, extra = _inputs(10, F=width)
@@ -457,7 +457,7 @@ def test_block_kernel_at_joint_shapes(B, spread):
                        ec.block_fused_plain(*ins, **BLOCK_KW))
 
 
-@pytest.mark.parametrize("width", [64, 256])
+@pytest.mark.parametrize("width", [64, 128, 256])
 @pytest.mark.parametrize("cross", [True, False], ids=["cross", "no_cross"])
 @pytest.mark.parametrize("N,blocks", [(130, 132), (130, 22), (130, 12), (130, 9),
                                       (128, 8)],
@@ -538,7 +538,7 @@ def _gcl_ops(ins):
 GCL_KW = dict(cutoffs=CUTOFFS, attention=True, normalization_factor=100.0)
 
 
-@pytest.mark.parametrize("width", [64, 256])
+@pytest.mark.parametrize("width", [64, 128, 256])
 @pytest.mark.parametrize("spread", [4.0, 1.0], ids=["clean", "collapsed"])
 def test_gcl_kernel_at_flagship_shapes(width, spread):
     """B = 16, N = 344 (24 ligand atoms): 1376 row tiles on 132 SMs; at
@@ -558,7 +558,7 @@ def test_gcl_kernel_is_deterministic():
                        ec.gcl_message_agg(*ops, **GCL_KW))
 
 
-@pytest.mark.parametrize("width", [64, 256])
+@pytest.mark.parametrize("width", [64, 128, 256])
 @pytest.mark.parametrize("spread", [4.0, 1.0], ids=["clean", "collapsed"])
 def test_gcl_bwd_kernel_at_flagship_shapes(width, spread):
     """The GCL backward kernel (3xTF32 on the tensor cores) at N = 344 (24
@@ -621,7 +621,7 @@ def _coord_case(seed, B, width, spread, update_rows, cross):
         assert not got[:, update_rows:].any()
 
 
-@pytest.mark.parametrize("width", [64, 256])
+@pytest.mark.parametrize("width", [64, 128, 256])
 @pytest.mark.parametrize("spread", [4.0, 1.0], ids=["clean", "collapsed"])
 @pytest.mark.parametrize("update_rows", [24, None], ids=["ligand_rows", "all_rows"])
 @pytest.mark.parametrize("cross", [True, False], ids=["cross", "no_cross"])
@@ -639,7 +639,7 @@ def test_coord_kernel_at_the_joint_chain_batch(spread):
     _coord_case(29, 8, 256, spread, None, True)
 
 
-@pytest.mark.parametrize("width", [64, 256])
+@pytest.mark.parametrize("width", [64, 128, 256])
 @pytest.mark.parametrize("spread", [4.0, 1.0], ids=["clean", "collapsed"])
 @pytest.mark.parametrize("update_rows", [24, None], ids=["ligand_rows", "all_rows"])
 def test_coord_bwd_kernel_at_flagship_shapes(width, spread, update_rows):

@@ -39,7 +39,9 @@ def test_every_module_imports_without_jax():
             "diffsbdd_tpu_torch.data.proc_bindingmoad",
             "diffsbdd_tpu_torch.data.prepare_crossdocked",
             "diffsbdd_tpu_torch.parallel.mesh", "diffsbdd_tpu_torch.parallel.edge_shard",
-            "diffsbdd_tpu_torch.parallel.sample_shard"} <= set(mods)
+            "diffsbdd_tpu_torch.parallel.sample_shard",
+            "diffsbdd_tpu_torch.utils.debug", "diffsbdd_tpu_torch.utils.profiling",
+            "diffsbdd_tpu_torch.data.synth_corpus"} <= set(mods)
     code = ("import sys\n"
             f"for m in {BANNED + LAZY!r}:\n"
             "    sys.modules[m] = None\n"

@@ -187,3 +187,19 @@ def test_wrapper_counts_no_launch_on_cpu():
     _port_gcl(gcl_args(make_inputs(6)))
     assert ec.launch_counts == {"gcl_agg": 0, "coord_agg": 0, "gcl_agg_bwd": 0,
                                 "coord_agg_bwd": 0, "block_fused": 0}
+
+
+@pytest.mark.parametrize("width", [32, 64, 96, 128, 160, 192, 224, 256, 512])
+def test_kernel_widths(width):
+    """The kernels are built for hidden widths 64, 128 (the config default)
+    and 256; every other width is refused before a launch, never run by the
+    plain version on the card."""
+    assert ec.SUPPORTED_F == (64, 128, 256)
+    for name in ec.KERNELS:
+        text = (ec.CSRC / f"{name}.cu").read_text()
+        assert all(f"case {f}: return launch<{f}>(" in text for f in ec.SUPPORTED_F), name
+    if width in ec.SUPPORTED_F:
+        ec._check_width("gcl_message_agg", width)
+    else:
+        with pytest.raises(ValueError, match=f"feature width {width} not in"):
+            ec._check_width("gcl_message_agg", width)

@@ -8,7 +8,8 @@ data-parallel training and ``cli.train``; four for one 2 x 2 data-x-edge
 grid.  Sizes are tiny (hidden 16, 1-2 layers, T = 5).
 
 Tolerances: float32 on both sides with sums taken in another order.  Values
-atol 1e-5 + rtol 1e-4; parameter gradients of the edge split atol 5e-4 +
+atol 1e-5 + rtol 1e-4 (the dense path's sinusoidal features and mean
+aggregation: atol 1e-4 + rtol 1e-4, as ``tests/test_torch_dense.py``); parameter gradients of the edge split atol 5e-4 +
 rtol 5e-3 (the JAX package's own ``tests/test_edge_shard.py``), and against
 the unsharded port also 1e-4 of each gradient's largest entry; the
 data-parallel step against the single-process step atol 1e-5 + rtol 1e-4,
@@ -40,13 +41,23 @@ from test_torch_train import (A, HIST, both_modules, jax_draws, jnp_batch,
                               tiny_overrides, tiny_train_config)
 
 VALUE_TOL = dict(atol=1e-5, rtol=1e-4)
+# the dense cases' values: the gate of tests/test_torch_dense.py (the highest
+# sinusoid, 429 rad/A, turns a distance's float32 rounding into ~1e-5)
+DENSE_VALUE_TOL = dict(atol=1e-4, rtol=1e-4)
 GRAD_TOL = dict(atol=5e-4, rtol=5e-3)
 # sharded against unsharded, both the port's: besides GRAD_TOL, every
 # gradient within 1e-4 of its largest entry (the two differ in summation
 # order only; a cotangent share left unsummed gives ~1e-3)
 PORT_GRAD_RTOL = 1e-4
 CUTOFFS = (None, 2.5, 2.0)
-EDGE_CASES = ("conditional", "joint")  # update_pocket_coords False / True
+# update_pocket_coords False / True, on the kernels (sum, no sinusoidal
+# features) and on the dense path (sinusoidal features, mean aggregation)
+EDGE_CASES = ("conditional", "joint", "dense_conditional", "dense_joint")
+# the dense cases scale the coordinate head 30x, not 300x: under mean
+# aggregation a 300x head moves atoms by up to coords_range (15 A), and the
+# sinusoidal features of such distances take float32 gradients up to 8% of a
+# parameter's largest entry from float64, the split or no split
+DENSE = dict(sin_embedding=True, aggregation_method="mean", head_scale=30.0)
 PREFIX = "ddpm.dynamics."
 
 
@@ -154,16 +165,16 @@ def edge_inputs(seed, B=2, NL=7, NP=22, atom_nf=5, residue_nf=7):
     return [np.ascontiguousarray(a, np.float32) for a in (xh_l, xh_p, t, m_l, m_p)]
 
 
-def edge_case(update_pocket_coords, seed, B=2):
+def edge_case(update_pocket_coords, seed, B=2, head_scale=300.0, **variant):
     """A two-layer dynamics (SE(3) cross branch, attention, tanh, edge-type
-    embedding) initialized by JAX: (the JAX module, its variables, the
-    spec the ranks build the port's from)."""
+    embedding; ``variant``: further options) initialized by JAX: (the JAX
+    module, its variables, the spec the ranks build the port's from)."""
     kwargs = dict(atom_nf=5, residue_nf=7, joint_nf=8, hidden_nf=16, n_layers=2,
                   attention=True, tanh=True, norm_constant=1.0, inv_sublayers=1,
                   reflection_equivariant=False, edge_embedding_dim=8,
                   edge_cutoff_ligand=CUTOFFS[0], edge_cutoff_pocket=CUTOFFS[1],
                   edge_cutoff_interaction=CUTOFFS[2],
-                  update_pocket_coords=update_pocket_coords)
+                  update_pocket_coords=update_pocket_coords, **variant)
     inputs = edge_inputs(seed, B=B)
     jdyn = JaxDynamics(**kwargs, impl="xla")
     variables = jax.tree_util.tree_map(
@@ -172,7 +183,7 @@ def edge_case(update_pocket_coords, seed, B=2):
     # scaled to a trained head's size, so that the coordinates, and the graph
     # mean of the cross branch, carry gradient from block to block
     variables = jax.tree_util.tree_map_with_path(
-        lambda path, leaf: leaf * 300.0 if "coord_mlp/lin2" in jax.tree_util.keystr(
+        lambda path, leaf: leaf * head_scale if "coord_mlp/lin2" in jax.tree_util.keystr(
             path, simple=True, separator="/") else leaf, variables)
     state = {k[len(PREFIX):]: v for k, v in
              state_dict_from_jax({"dynamics": variables}).items()}
@@ -191,8 +202,13 @@ def jax_sum_sq_grads(apply_fn, variables, inputs):
 def two_rank_run(tmp_path_factory):
     """Everything the two ranks need, and what they returned."""
     work = tmp_path_factory.mktemp("two_ranks")
-    edge = {name: edge_case(upd, seed)
-            for name, upd, seed in (("conditional", False, 1), ("joint", True, 2))}
+    edge = {name: edge_case(upd, seed, **variant)
+            for name, upd, seed, variant in (
+                ("conditional", False, 1, {}), ("joint", True, 2, {}),
+                ("dense_conditional", False, 6, DENSE), ("dense_joint", True, 7, DENSE))}
+    # gnn_dynamics under the split raises, as in JAX
+    gnn = dict(edge["conditional"][2], state=None)
+    gnn["kwargs"] = dict(gnn["kwargs"], mode="gnn_dynamics")
 
     # sampling: a tiny conditional model at T = 5 on a 30-atom pocket shared
     # by a batch of 4
@@ -231,12 +247,16 @@ def two_rank_run(tmp_path_factory):
         config=tiny_train_config(datadir, work, batch_size=4))
 
     job = dict(workdir=str(work), sampling=sampling, training=training,
-               edge={name: spec for name, (_, _, spec) in edge.items()})
+               edge={name: spec for name, (_, _, spec) in edge.items()}, gnn=gnn)
     results = ranks.run(ranks.two_ranks, 2, work, job)
     return dict(job=job, results=results, edge=edge, jax_train=(jm, params, keys))
 
 
 # ---- the edge split -------------------------------------------------------
+
+def value_tol(name):
+    return DENSE_VALUE_TOL if name.startswith("dense") else VALUE_TOL
+
 
 @pytest.mark.parametrize("name", EDGE_CASES)
 def test_edge_sharded_dynamics_matches_unsharded_port(two_rank_run, name):
@@ -248,7 +268,7 @@ def test_edge_sharded_dynamics_matches_unsharded_port(two_rank_run, name):
         got = res["edge"][name]
         assert got["eps"][1].shape == want[1].shape  # no padding left on
         for g, w in zip(got["eps"], want):
-            torch.testing.assert_close(g, w.detach(), **VALUE_TOL)
+            torch.testing.assert_close(g, w.detach(), **value_tol(name))
         for (n, _), g, w in zip(model.named_parameters(), got["grads"], want_grads):
             torch.testing.assert_close(g, w, **GRAD_TOL, msg=n)
             assert float((g - w).abs().max()) <= PORT_GRAD_RTOL * float(w.abs().max()), n
@@ -266,9 +286,21 @@ def test_edge_sharded_dynamics_matches_jax(two_rank_run, name):
     for res in two_rank_run["results"]:
         got = res["edge"][name]
         for g, w in zip(got["eps"], want):
-            np.testing.assert_allclose(g.numpy(), np.asarray(w), **VALUE_TOL)
+            np.testing.assert_allclose(g.numpy(), np.asarray(w), **value_tol(name))
         for n, g in zip(names, got["grads"]):
             np.testing.assert_allclose(g.numpy(), want_grads[n], **GRAD_TOL, err_msg=n)
+
+
+def test_edge_split_refuses_gnn_dynamics(two_rank_run):
+    """``gnn_dynamics`` has no edge split, in the port as in JAX."""
+    jdyn, variables, spec = two_rank_run["edge"]["conditional"]
+    gnn = JaxDynamics(**dict(spec["kwargs"], mode="gnn_dynamics"), impl="xla")
+    with pytest.raises(NotImplementedError, match="egnn_dynamics only"):
+        jax_edge_sharded(gnn, make_edge_mesh(2))(
+            gnn.init(jax.random.PRNGKey(0), *map(jnp.asarray, spec["inputs"])),
+            *map(jnp.asarray, spec["inputs"]))
+    for res in two_rank_run["results"]:
+        assert res["gnn_error"] == "edge-axis sharding supports egnn_dynamics only"
 
 
 def test_dp_x_edge_grid_matches_jax(tmp_path):

@@ -148,6 +148,13 @@ def two_ranks(rank, job):
         eps = edge_sharded_dynamics(model, world)(*map(torch.as_tensor, spec["inputs"]))
         out["edge"][name] = dict(eps=[e.detach() for e in eps],
                                  grads=sum_sq_grads(model, eps))
+    try:
+        gnn = job["gnn"]
+        edge_sharded_dynamics(EGNNDynamics(**gnn["kwargs"]), world)(
+            *map(torch.as_tensor, gnn["inputs"]))
+        out["gnn_error"] = ""
+    except NotImplementedError as e:
+        out["gnn_error"] = str(e)
 
     s = job["sampling"]
     ddpm = build_module(s["module"]).ddpm.eval()
