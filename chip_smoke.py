@@ -5,10 +5,15 @@
 
 Phases (any failure ends the run with a non-zero exit code):
   1. the card's name and power limit (nvidia-smi);
-  2. build the five CUDA kernels from csrc/ (one nvcc per source, in parallel),
-     and count the tensor-core (HMMA) and cp.async (LDGSTS) instructions in
-     the SASS of each: all five run their products in 3xTF32, the whole-block
-     kernel in both of its phases (block_phase_a, block_phase_b);
+  2. build the five CUDA kernels from csrc/ and the four split kernels'
+     2xTF32 and bf16 libraries (one nvcc per library, in parallel), and
+     count the tensor-core (HMMA) and cp.async (LDGSTS) instructions in the
+     SASS of each: all five run their products in 3xTF32, the whole-block
+     kernel in both of its phases (block_phase_a, block_phase_b), and each
+     tier's library only its tier's HMMA (TF32 or bf16), as many as its
+     passes: 2xTF32 2/3 of 3xTF32's TF32 HMMA, bf16 1/6 of them in the
+     forward kernels (between 1/6 and 1/3 in the backward ones, whose dW2
+     loop is not unrolled);
   3. each forward kernel against its plain PyTorch twin at the flagship shapes
      (B=16, NL=24, NP=300 padded to 320, F=256, cutoffs None/5/5, attention
      and the cross branch on) and at the shared-pocket variants (col_mask,
@@ -147,9 +152,32 @@ Phases (any failure ends the run with a non-zero exit code):
      top 5 device operations) and a StepTimer.  19e (host only):
      synth_corpus.build_corpus on two seeded synthetic proteins (32 + 8 + 8
      complexes) loaded through LigandPocketDataset and PaddedLoader.
+  20. the precision policies.  20a: the four split kernels at 3xTF32, 2xTF32
+     and bf16, at F=256 and 128, at phases 3 and 3b's main shapes, each
+     against its plain version at that tier (ops.egnn_cuda.TIER_GATES: the
+     largest error, and the error's norm within a quarter of how far the tier
+     moves the output from the 3xTF32 kernel's), only that tier's library
+     launched, two launches bit for bit, CUDA-event times and the tier's
+     bound (bf16: operations / 989 TFLOP/s; 2xTF32: 2 x operations / 495
+     TFLOP/s; or bytes / 3.35 TB/s).  20b: phase 6's main path (same seed,
+     so the same noise) at matmul_precision bfloat16 from the flagship
+     checkpoint against phase 6, and at float32_x2 from the flagship weights
+     jittered below TF32's resolution (the r05c weights are float16 values,
+     from which 2xTF32 drops nothing) against float32 on the same weights:
+     every launch at the tier, ms per pass, molecules/s, the largest
+     coordinate deviation and the type flips, the quality readout.  20c: one
+     conditional train step of the jittered flagship weights at float32,
+     with kernel_bwd_precision bfloat16 and at float32_x2: launches by tier,
+     gradient deviation from float32's, ms a step.  20d: phase 19c's dense model at compute_dtype
+     bfloat16: ms per pass and peak memory, a forward against float32 and
+     the CPU (the first GCL's message sums: the card's bf16 within 1e-3 and
+     a quarter of float32's distance of the CPU's), and the largest training
+     batch that runs.  20e: block fusing with bfloat16, and egnn_impl or
+     kernel_bwd xla, raise.
 
 Prints a {"kernels": [...]} line (the five kernels, then the same five at
-F=128 from phase 19) and the card line, and as its last line
+F=128 from phase 19, then the four split kernels at 2xTF32 and bf16 from
+phase 20) and the card line, and as its last line
 {"ok": true, "device": {...}}.  The pocket, the samples and a summary.json go
 to ``--out`` (default chip_smoke_out/ in the repository).  Needs a CUDA card:
 exits non-zero without one, and without the repository around it.
@@ -317,17 +345,19 @@ def _card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def sass_counts(ec, name, opcodes, function=None):
-    """Instructions of each opcode in kernel ``name``'s library, from
-    ``cuobjdump --dump-sass`` (beside nvcc in the CUDA toolkit); with
-    ``function``, only in the device functions whose names contain it."""
+def sass_counts(ec, name, opcodes, function=None, tier="tf32x3"):
+    """Instructions of each opcode in the library of kernel ``name`` at
+    ``tier``, from ``cuobjdump --dump-sass`` (beside nvcc in the CUDA
+    toolkit); with ``function``, only in the device functions whose names
+    contain it.  An opcode matches with or without its modifiers (HMMA
+    counts HMMA.1688.F32.TF32)."""
     cuobjdump = Path(ec._nvcc()).parent / "cuobjdump"
-    sass = subprocess.run([str(cuobjdump), "--dump-sass", str(ec._lib_path(name))],
+    sass = subprocess.run([str(cuobjdump), "--dump-sass", str(ec._lib_path(name, tier))],
                           capture_output=True, text=True, check=True, timeout=300).stdout
     if function is not None:
         sections = re.split(r"^\s*Function : ", sass, flags=re.M)[1:]
         sass = "".join(sec for sec in sections if function in sec.split("\n", 1)[0])
-    return {op: len(re.findall(rf"\b{op}\b", sass)) for op in opcodes}
+    return {op: len(re.findall(rf"\b{re.escape(op)}\b", sass)) for op in opcodes}
 
 
 def _check(cond: bool, msg: str) -> None:
@@ -423,6 +453,17 @@ def work_bounds(pairs, B, N, F, n_mlp, rows_out, width_out):
                 bound_by="operations" if t_f32 >= t_bytes else "bytes",
                 bound_tc_ms=1e3 * max(t_tc, t_bytes),
                 bound_tc_by="operations" if t_tc >= t_bytes else "bytes")
+
+
+def bwd_work(pairs, B, N, F, n_mlp, width_g):
+    """Operations and bytes of a backward pair-MLP kernel on these inputs: per
+    active pair and MLP three F x F products (forward, dW2, dm1) and the
+    elementwise terms of both passes; the inputs once (projections, weights,
+    W2 and its transpose, node data, g of width ``width_g``) and the outputs
+    once (da_row, da_col per MLP, dx, dx0, weight cotangents)."""
+    return dict(pairs=pairs, flops=pairs * n_mlp * (6 * F * F + 30 * F),
+                bytes=4 * (n_mlp * (4 * B * N * F + 3 * F * F + 12 * F) + B * N * 17
+                           + B * N * width_g))
 
 
 def kernel_phase(ec, torch, dev, flagship):
@@ -777,17 +818,11 @@ def bwd_kernel_phase(ec, torch, dev, flagship):
             return
         pairs = active_pairs(ec, inp, rows=update_rows)
         F, N = inp["F"], inp["N"]
-        n_mlp = 1 if name == "gcl_agg_bwd" else 2
-        # per active pair and MLP: three F x F products (forward, dW2, dm1) and
-        # the elementwise terms of both passes
-        flops = pairs * n_mlp * (6 * F * F + 30 * F)
-        width_g = F if name == "gcl_agg_bwd" else 3
-        # inputs once (projections, weights, W2 and its transpose, node data, g)
-        # and outputs once (da_row, da_col per MLP, dx, dx0, weight cotangents)
-        bytes_ = 4 * (n_mlp * (4 * B * N * F + 3 * F * F + 12 * F) + B * N * 17
-                      + B * N * width_g)
+        work = bwd_work(pairs, B, N, F, 1 if name == "gcl_agg_bwd" else 2,
+                        F if name == "gcl_agg_bwd" else 3)
+        flops = work["flops"]
         t_f32, t_tc, t_bytes = flops / PEAK_F32_FLOPS, 3 * flops / PEAK_TF32_FLOPS, \
-            bytes_ / PEAK_BYTES
+            work["bytes"] / PEAK_BYTES
         res = dict(max_abs_err=worst_abs, ms=ms,
                    bound_ms=1e3 * max(t_f32, t_bytes),
                    bound_by="operations" if t_f32 >= t_bytes else "bytes",
@@ -2676,6 +2711,490 @@ def phase19(torch, ec, dev, flagship, logs, work, out, pdb, ref_lig, ckpt, card)
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the precision policies (matmul_precision, kernel_bwd_precision,
+# compute_dtype)
+# ---------------------------------------------------------------------------
+
+PEAK_BF16_FLOPS = 989e12
+# each tier's products: (passes, the tensor cores' rate for them)
+TIER_RATE = {"tf32x3": (3, PEAK_TF32_FLOPS), "tf32x2": (2, PEAK_TF32_FLOPS),
+             "bf16": (1, PEAK_BF16_FLOPS)}
+# the JAX names whose main paths phase 20 drives, by the tier they run
+TIER_NAME = {"tf32x2": "float32_x2", "bf16": "bfloat16"}
+TIER_WIDTHS = (256, DEFAULT_WIDTH)
+DENSE_BF16_BATCHES = (16, 8, 4)  # tried in order; the first that trains is kept
+
+
+def tier_bound(flops, bytes_, tier):
+    """(bound ms, "operations" or "bytes") of work at ``tier``: its passes of
+    ``flops`` at the tensor cores' rate, or the bytes at HBM's."""
+    passes, peak = TIER_RATE[tier]
+    t_ops, t_bytes = passes * flops / peak, bytes_ / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def tier_kernel_phase(ec, torch, dev, flagship, width):
+    """Phase 20a: the four split kernels at every tier (3xTF32 beside the two
+    reduced ones, in the same run) at phases 3 and 3b's main shapes and width
+    ``width``: each against its plain version at that tier within
+    ``ec.TIER_GATES``, only that tier's library launched, two launches bit for
+    bit, CUDA-event times of kernel and plain version, the tier's bound, and
+    how far the tier moves the output from the 3xTF32 kernel's."""
+    cfg = dict(flagship, egnn_params=dict(flagship["egnn_params"], hidden_nf=width))
+    fwd = kernel_inputs(torch, dev, cfg, 16, 24)
+    sizes = np.random.default_rng(0).integers(24, 33, 16)
+    bwd = kernel_inputs(torch, dev, cfg, 16, 32, lig_sizes=sizes, seed=1)
+    F, NL, B = fwd["F"], fwd["NL"], 16
+    g_gcl, g_coord = bwd["r"](B, bwd["N"], F), bwd["r"](B, bwd["N"], 3)
+    cross_b = {k: v for k, v in bwd["cross"].items() if k != "type_bias"}
+    cross_b["delta"] = bwd["cross_delta"]
+    node = ("a_row", "a_col", "x", "x0", "mask", "is_lig")
+
+    def gcl_fwd(fn, tier, sl=slice(None)):
+        return fn(*(fwd[k] for k in node), *fwd["gcl_w"].values(), cutoffs=fwd["cut"],
+                  attention=True, normalization_factor=100.0, precision=tier)
+
+    def coord_fwd(fn, tier, sl=slice(None)):
+        return fn(*(fwd[k] for k in node), *fwd["coord_w"], cutoffs=fwd["cut"], tanh=True,
+                  coords_range=15.0, norm_constant=1.0, normalization_factor=100.0,
+                  update_rows=NL, cross=fwd["cross"], graph_mean=fwd["graph_mean"],
+                  precision=tier)
+
+    def gcl_bwd(fn, tier, sl=slice(None)):
+        w = bwd["gcl_w"]
+        return _name_cotangents(fn(
+            g_gcl[sl], *(bwd[k][sl] for k in node), w["w_d2"], w["w_d20"], bwd["gcl_delta"],
+            w["w2"], w["b2"], w["w_att"], w["b_att"], cutoffs=bwd["cut"], attention=True,
+            normalization_factor=100.0, precision=tier), GCL_COT)
+
+    def coord_bwd(fn, tier, sl=slice(None)):
+        w_d2, w_d20, _, w2, b2, w3 = bwd["coord_w"]
+        c = {k: (v[sl] if k in ("a_row", "a_col") else v) for k, v in cross_b.items()}
+        return _name_cotangents(fn(
+            g_coord[sl], *(bwd[k][sl] for k in node), w_d2, w_d20, bwd["coord_delta"], w2,
+            b2, w3, cutoffs=bwd["cut"], tanh=True, coords_range=15.0, norm_constant=1.0,
+            normalization_factor=100.0, cross=c, graph_mean=bwd["graph_mean"][sl],
+            update_rows=32, precision=tier), COORD_COT)
+
+    cases = {  # kernel: (call, kernel wrapper, plain version, plain batch slice, work)
+        "gcl_agg": (gcl_fwd, ec.gcl_message_agg, ec.gcl_message_agg_plain, None,
+                    work_bounds(active_pairs(ec, fwd), B, fwd["N"], F, 1, fwd["N"], F)),
+        "coord_agg": (coord_fwd, ec.coord_update_agg, ec.coord_update_agg_plain, None,
+                      work_bounds(active_pairs(ec, fwd, rows=NL), B, fwd["N"], F, 2, NL, 3)),
+        "gcl_agg_bwd": (gcl_bwd, ec.gcl_agg_bwd, ec.gcl_agg_bwd_plain, 4,
+                        bwd_work(active_pairs(ec, bwd), B, bwd["N"], F, 1, F)),
+        "coord_agg_bwd": (coord_bwd, ec.coord_agg_bwd, ec.coord_agg_bwd_plain, 2,
+                          bwd_work(active_pairs(ec, bwd, rows=32), B, bwd["N"], F, 2, 3))}
+    results = {}
+    for name, (call, kern, plain, step, work) in cases.items():
+        base = None
+        for tier in ec.TIERS:
+            gate = ec.TIER_GATES[tier]
+            ec.reset_launch_counts()
+            got, again = call(kern, tier), call(kern, tier)
+            launched = {k: v for k, v in ec.tier_launch_counts.items() if v}
+            _check(launched == {f"{name}[{tier}]": 2},
+                   f"{name}[{tier}]: launched {launched}, not its tier's library")
+            # the reduced tiers' norm gate reads the tier's move from the
+            # 3xTF32 kernel's output (base: the first tier's, itself held to
+            # float32's plain version)
+            if step is None:
+                ref = call(plain, tier)
+                limit = 1e-5 + 1e-4 * ref.abs() + gate["share"] * float(ref.abs().max())
+                torch.cuda.synchronize()
+                err = float((got - ref).abs().max())
+                share = err / float(ref.abs().max())
+                _check(bool(torch.isfinite(got).all()) and bool(((got - ref).abs() <= limit).all()),
+                       f"{name}[{tier}] F={width}: error {err:.3e} over its gate")
+                _check(torch.equal(got, again), f"{name}[{tier}]: two launches differ")
+                moved, moved_share = (0.0, 0.0) if base is None else (
+                    float((got - base).abs().max() / base.abs().max()),
+                    ec.tier_moved_share(got, ref, base))
+                base = got if base is None else base
+            else:
+                ref = _plain_in_slices(torch, lambda sl: call(plain, tier, sl), B, step)
+                torch.cuda.synchronize()
+                err, share, moved, moved_share = 0.0, 0.0, 0.0, 0.0
+                for cname, r in ref.items():
+                    if r is None:
+                        continue
+                    e = float((got[cname] - r).abs().max())
+                    scale = float(r.abs().max())
+                    _check(bool(torch.isfinite(got[cname]).all()) and
+                           e <= gate["bwd"] * scale + 1e-7,
+                           f"{name}[{tier}] F={width} {cname}: error {e:.3e}, scale {scale:.3e}")
+                    _check(torch.equal(got[cname], again[cname]),
+                           f"{name}[{tier}] {cname}: two launches differ")
+                    err, share = max(err, e), max(share, e / (scale + 1e-30))
+                    if base is not None:
+                        moved = max(moved, float((got[cname] - base[cname]).abs().max()) /
+                                    float(base[cname].abs().max() + 1e-30))
+                        moved_share = max(moved_share, ec.tier_moved_share(
+                            got[cname], r, base[cname]))
+                base = got if base is None else base
+            if gate["moved"] is not None:
+                _check(moved_share <= gate["moved"],
+                       f"{name}[{tier}] F={width}: error norm {moved_share:.3f} of the "
+                       f"tier's move, gate {gate['moved']}")
+            ms = _cuda_ms(lambda: call(kern, tier), 20)
+            if step is None:
+                plain_ms = _cuda_ms(lambda: call(plain, tier), 2)
+            else:
+                plain_ms = _cuda_ms(lambda: _plain_in_slices(
+                    torch, lambda sl: call(plain, tier, sl), B, step), 1)
+            bound_ms, bound_by = tier_bound(work["flops"], work["bytes"], tier)
+            results[f"{name}[{tier}]"] = dict(
+                tier=tier, width=width, max_abs_err=err, gate_share=share, moved=moved,
+                moved_share=moved_share, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                pairs=work["pairs"], flops=work["flops"])
+            print(f"  {name}[{tier}] F={width}: {ms:.4f} ms (plain {plain_ms:.3f} ms), "
+                  f"bound {bound_ms:.4f} ms ({bound_by}, {100 * bound_ms / ms:.1f}%); "
+                  f"error {share:.2e} of the largest entry (gate "
+                  + (f"1e-5 + 1e-4 |ref| + {gate['share']:g} of it" if step is None
+                     else f"{gate['bwd']:g} of it") + f"), moved {moved:.2e} from 3xTF32"
+                  + ("" if gate["moved"] is None else
+                     f"; error norm {moved_share:.4f} of the move (gate {gate['moved']:g})"))
+    return results
+
+
+def _captured_generate(torch, ec, args):
+    """cli.generate_ligands with ``args``: (CLI wall s, sampling s, launches,
+    launches by tier, the sampled ligands (x and h) on the host)."""
+    from diffsbdd_tpu_torch.cli import generate_ligands as gen_cli
+    from diffsbdd_tpu_torch.diffusion.ddpm import ConditionalDDPM
+    out = {}
+    sample = ConditionalDDPM.sample_given_pocket
+
+    def timed(self, *a, **k):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        result = sample(self, *a, **k)
+        torch.cuda.synchronize()
+        out["sample_s"] = time.perf_counter() - t
+        out["xh"] = result[0].cpu()
+        return result
+
+    ConditionalDDPM.sample_given_pocket = timed
+    ec.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        gen_cli.main([str(a) for a in args])
+    finally:
+        ConditionalDDPM.sample_given_pocket = sample
+    return (time.perf_counter() - t0, out["sample_s"], dict(ec.launch_counts),
+            {k: v for k, v in ec.tier_launch_counts.items() if v}, out["xh"])
+
+
+def _jittered_checkpoints(torch, work, configs, node_histogram=None, seed=0):
+    """The flagship (r05c) weights, each times 1 + u 2^-11 with u uniform in
+    [-1, 1) from ``seed``, as one checkpoint for each entry of ``configs``
+    (label: its ``tpu`` fields).  The r05c weights are float16 values, which
+    TF32 holds exactly, so 2xTF32 drops no low part of them; the jitter gives
+    each weight a low part as a float32-trained weight has, and moves the
+    model by less than a bf16 rounding."""
+    from diffsbdd_tpu_torch.checkpoint import import_jax_npz, load_model, save_model
+    module, cfg = load_model(import_jax_npz(R05C_NPZ, work / "r05c_jitter",
+                                            node_histogram=node_histogram), device="cpu")
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for p in module.parameters():
+            p.mul_(1 + (2 * torch.rand(p.shape, generator=g) - 1) * 2 ** -11)
+    out = {}
+    for label, tpu in configs.items():
+        for key, value in {"matmul_precision": "float32", "kernel_bwd_precision": None,
+                           **tpu}.items():
+            setattr(cfg.tpu, key, value)
+        out[label] = work / f"r05c_jitter_{label}"
+        save_model(out[label], module, cfg, name="best")
+    return out
+
+
+def tier_sampling_phase(torch, ec, dev, work, pdb, ref_lig, base, card):
+    """Phase 20b: phase 6's main path (cli.generate_ligands, 16 x 24 atoms,
+    T = 500, seed 0: the same injected noise) at ``bfloat16`` from the
+    flagship checkpoint, against phase 6's float32 run (``base``), and at
+    ``float32_x2`` from the flagship weights jittered below TF32's resolution
+    (``_jittered_checkpoints``), against a float32 run of those: every launch
+    at the tier, the counts of phase 6; ms a pass, molecules/s, the
+    coordinates' largest deviation (A) and the atom types that flip against
+    float32, and the quality readout of both."""
+    from diffsbdd_tpu_torch.checkpoint import import_jax_npz
+    n, T = 16, 500
+    expected = {"gcl_agg": 8 * T + 6, "coord_agg": 6 * T + 6, "gcl_agg_bwd": 0,
+                "coord_agg_bwd": 0, "block_fused": 0}
+
+    def run(ckpt, label):
+        sdf = work / f"samples_{label}.sdf"
+        wall, sample_s, launches, by_tier, xh = _captured_generate(
+            torch, ec, [ckpt, "--pdbfile", pdb, "--ref_ligand", ref_lig, "--outfile", sdf,
+                        "--n_samples", n, "--num_nodes_lig", 24, "--all_frags",
+                        "--timesteps", T])
+        _check(launches == expected, f"{label}: launches {launches}, expected {expected}")
+        _check_molecules(sdf, n, 24)
+        _check(bool(torch.isfinite(xh).all()), f"{label}: non-finite samples")
+        return dict(launches=launches, launches_by_tier=by_tier, wall_s=wall,
+                    sample_s=sample_s, ms_per_pass=1e3 * sample_s / (T + 1),
+                    molecules_per_s=n / wall, xh=xh,
+                    quality=quality_readout(dev, ckpt, sdf))
+
+    jittered = _jittered_checkpoints(torch, work, {
+        name: {"matmul_precision": name} for name in ("float32", "float32_x2")})
+    jit_base = run(jittered["float32"], "jittered_float32")
+    _check(jit_base["launches_by_tier"] == {"gcl_agg[tf32x3]": 8 * T + 6,
+                                            "coord_agg[tf32x3]": 6 * T + 6},
+           f"jittered float32: launches by tier {jit_base['launches_by_tier']}")
+    res = {"float32_jittered": {k: v for k, v in jit_base.items() if k != "xh"}}
+    for tier, name in TIER_NAME.items():
+        if name == "float32_x2":
+            ckpt, ref, weights = jittered[name], jit_base, "r05c jittered"
+        else:
+            ckpt = import_jax_npz(R05C_NPZ, work / f"r05c_{name}",
+                                  overrides={"tpu": {"matmul_precision": name}})
+            ref, weights = base, "r05c"
+        r = run(ckpt, name)
+        _check(r["launches_by_tier"] == {f"gcl_agg[{tier}]": 8 * T + 6,
+                                         f"coord_agg[{tier}]": 6 * T + 6},
+               f"{name}: launches by tier {r['launches_by_tier']}")
+        xh, want = r.pop("xh"), ref["xh"]
+        r.update(tier=tier, weights=weights,
+                 max_dev_A=float((xh[..., :3] - want[..., :3]).abs().max()),
+                 type_flips=int((xh[..., 3:].argmax(-1) != want[..., 3:].argmax(-1)).sum()),
+                 atoms=int(want.shape[0] * want.shape[1]))
+        res[name] = r
+        print(f"  {card}: {name} ({tier}, {weights} weights): {r['ms_per_pass']:.2f} ms a "
+              f"pass, {r['molecules_per_s']:.3f} molecules/s (float32: "
+              f"{ref['ms_per_pass']:.2f} ms, {ref['molecules_per_s']:.3f}); against float32 "
+              f"with the same noise: {r['max_dev_A']:.3e} A at most, {r['type_flips']} of "
+              f"{r['atoms']} atom types flipped")
+    return res
+
+
+def tier_training_phase(torch, ec, dev, work, card):
+    """Phase 20c: the conditional train step of the flagship weights,
+    jittered below TF32's resolution (``_jittered_checkpoints``), on one batch
+    of 16 synthetic complexes (phase 8's sizes, the checkpoint's 11 atom
+    types; injected timesteps and noise) at float32, with
+    kernel_bwd_precision bfloat16, and at float32_x2: each
+    tier's launches, every parameter gradient's deviation from float32's (its
+    largest error over its largest entry) and the gradients' cosine, and ms a
+    train step (median of 5, after 2)."""
+    from diffsbdd_tpu_torch.checkpoint import load_model
+    from diffsbdd_tpu_torch.data.dataset import LigandPocketDataset, PaddedLoader
+    from diffsbdd_tpu_torch.train import loop
+    data = work / "data20c"
+    write_synthetic_dataset(data, 16, 1, seed=22, pocket_sizes=(250, 280, 310, 320),
+                            n_types=11)
+    batch = next(iter(PaddedLoader(LigandPocketDataset(data / "train.npz"), 16,
+                                   shuffle=False)))
+    lig = loop.batch_to_device(batch["ligand"], dev)
+    pkt = loop.batch_to_device(batch["pocket"], dev)
+    rng = np.random.default_rng(20)
+    t_int = torch.as_tensor(rng.integers(0, 501, (16, 1)).astype(np.float32), device=dev)
+    eps = torch.as_tensor(rng.standard_normal(
+        (16, lig["x"].shape[1], 3 + 11)).astype(np.float32), device=dev)
+    configs = {"float32": {}, "bwd_bfloat16": {"kernel_bwd_precision": "bfloat16"},
+               "float32_x2": {"matmul_precision": "float32_x2"}}
+    ckpts = _jittered_checkpoints(torch, work / "train20c", configs,
+                                  node_histogram=np.load(data / "size_distribution.npy"))
+    res, base = {}, None
+    for label in configs:
+        module, _ = load_model(ckpts[label], device=dev)
+        module.train()
+        module.ddpm.sample_timesteps = lambda g, B, lo: t_int
+        module.ddpm.sample_gaussian = lambda g, shape, mask: eps * mask[..., None]
+        ec.reset_launch_counts()
+        loss, _ = module.loss_fn(None, lig, pkt, training=True)
+        names, params = zip(*module.named_parameters())
+        grads = {n: g for n, g in zip(names, torch.autograd.grad(loss, params, allow_unused=True))
+                 if g is not None}
+        torch.cuda.synchronize()
+        by_tier = {k: v for k, v in ec.tier_launch_counts.items() if v}
+        fwd_tier = module.ddpm.dynamics.precision
+        bwd_tier = module.ddpm.dynamics.bwd_precision or fwd_tier
+        _check(by_tier == {f"gcl_agg[{fwd_tier}]": 6, f"coord_agg[{fwd_tier}]": 6,
+                           f"gcl_agg_bwd[{bwd_tier}]": 6, f"coord_agg_bwd[{bwd_tier}]": 6},
+               f"{label}: launches by tier {by_tier}")
+        _check(all(bool(torch.isfinite(g).all()) for g in grads.values()),
+               f"{label}: non-finite gradients")
+        if base is None:
+            base, dev_share, cosine = grads, 0.0, 1.0
+        else:
+            dev_share = max(float((grads[k] - base[k]).abs().max() / (base[k].abs().max() + 1e-30))
+                            for k in base)
+            a = torch.cat([grads[k].flatten() for k in base])
+            b = torch.cat([base[k].flatten() for k in base])
+            cosine = float((a * b).sum() / (a.norm() * b.norm()))
+        state = loop.create_train_state(module, lr=1e-4)
+        step = loop.make_train_step(state)
+        times = []
+        for i in range(7):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(None, lig, pkt)
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+        ms = float(np.median(times[2:]))
+        loss = float(loss.detach())
+        if label == "bwd_bfloat16":  # the forward kept 3xTF32: the same loss
+            _check(loss == res["float32"]["loss"], f"{label}: the forward's loss moved")
+        # JAX's gate on its bf16 backward's gradients (tests/test_pallas_bwd.py)
+        _check(cosine > 0.999, f"{label}: gradients' cosine {cosine} against float32")
+        res[label] = dict(loss=loss, launches_by_tier=by_tier, ms_per_step=ms,
+                          grad_dev_share=dev_share, grad_cosine=cosine)
+        print(f"  {card}: {label}: train step {ms:.2f} ms (median of 5), loss {loss:.6f}; "
+              f"gradients against float32: worst {dev_share:.3e} of a parameter's largest "
+              f"entry, cosine {cosine:.8f}; launches {by_tier}")
+        del module, state, grads
+    return res
+
+
+def dense_bf16_phase(torch, ec, dev, flagship, work, pdb, ref_lig, card):
+    """Phase 20d: phase 19c's dense model (sinusoidal features, mean
+    aggregation, seeded random weights) at compute_dtype bfloat16: sampling
+    (16 x 24, T = 50) ms a pass and peak memory, no launch; one forward
+    against float32's on the card and against the CPU's bfloat16; the largest
+    of DENSE_BF16_BATCHES that cli.train runs for an epoch, and its peak."""
+    from diffsbdd_tpu_torch.checkpoint import load_model
+    from diffsbdd_tpu_torch.cli import train as train_cli
+    from diffsbdd_tpu_torch.diffusion.ddpm import ConditionalDDPM
+    from diffsbdd_tpu_torch.models import egnn as egnn_mod
+    over = dict(flagship, egnn_params=dict(flagship["egnn_params"], **DENSE_VARIANT),
+                tpu={"compute_dtype": "bfloat16"})
+    data = work / "data20d"
+    n_pocket = sum(ln.startswith("ATOM") for ln in Path(pdb).read_text().splitlines())
+    write_synthetic_dataset(data, max(DENSE_BF16_BATCHES), 4, seed=21,
+                            pocket_sizes=(280, n_pocket, 320))
+    histogram = np.load(data / "size_distribution.npy")
+    ckpt, cfg = _random_checkpoint(torch, over, histogram, work / "dense20")
+    f32_ckpt, _ = _random_checkpoint(torch, dict(over, tpu={}), histogram, work / "dense20_f32")
+    res = {"card": card}
+    n, T = 16, DENSE_T
+    torch.cuda.reset_peak_memory_stats()
+    wall, sample_s, launches = _timed_generate(
+        torch, ec, [ckpt, "--pdbfile", pdb, "--ref_ligand", ref_lig, "--outfile",
+                    work / "dense20.sdf", "--n_samples", n, "--num_nodes_lig", 24,
+                    "--all_frags", "--timesteps", T], ConditionalDDPM)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    _check(not any(launches.values()), "the dense bf16 model launched a kernel")
+    res["sampling"] = dict(ms_per_pass=1e3 * sample_s / (T + 1), sample_s=sample_s,
+                           wall_s=wall, peak_gib=peak)
+    print(f"  {card}: bf16 sin/mean {n} x 24, T={T}: "
+          f"{res['sampling']['ms_per_pass']:.2f} ms a pass, peak {peak:.2f} GiB")
+    module, _ = load_model(ckpt, device=dev)
+    _check(module.ddpm.dynamics.compute_dtype == torch.bfloat16,
+           "compute_dtype did not reach the network")
+    f32, _ = load_model(f32_ckpt, device=dev)
+    cpu, _ = load_model(ckpt, device="cpu")
+
+    def forward(model, d):
+        """The network's outputs, and the first GCL's message sums (where
+        compute_dtype acts: bf16 messages summed in float32)."""
+        sums, real = [], egnn_mod.pair_sum
+
+        def captured(m, adj):
+            sums.append(real(m, adj))
+            return sums[-1]
+
+        egnn_mod.pair_sum = captured
+        try:
+            with torch.no_grad():
+                out = model.ddpm.dynamics(*dense_inputs(torch, module, 2, 24, 120, 3, d))
+        finally:
+            egnn_mod.pair_sum = real
+        return [o.cpu() for o in out], sums[0].cpu()
+
+    (got, got_m), (exact, exact_m), (host, host_m) = (
+        forward(module, dev), forward(f32, dev), forward(cpu, torch.device("cpu")))
+    rel = lambda a, b: float((a - b).abs().max() / b.abs().max())
+    vs_f32 = max(rel(g, e) for g, e in zip(got, exact))
+    vs_cpu = max(rel(g, h) for g, h in zip(got, host))
+    msg_f32, msg_cpu = rel(got_m, exact_m), rel(got_m, host_m)
+    # the card's bf16 messages are the CPU's (the same roundings; sums in
+    # another order, a rare rounding to the other neighbour), and not
+    # float32's: the card and the CPU within 1e-3 of the largest sum
+    # (measured 2.8e-4) and within a quarter of bf16's distance from float32
+    # (2.8e-3); the outputs within 1e-4 of the CPU's (3.7e-6)
+    _check(all(bool(torch.isfinite(g).all()) for g in got) and msg_cpu <= 1e-3
+           and msg_cpu <= 0.25 * msg_f32 and vs_cpu <= 1e-4,
+           f"dense bf16: messages card vs CPU {msg_cpu:.3e}, vs float32 {msg_f32:.3e}; "
+           f"outputs card vs CPU {vs_cpu:.3e}")
+    res["forward"] = dict(vs_float32=vs_f32, vs_cpu=vs_cpu, messages_vs_float32=msg_f32,
+                          messages_vs_cpu=msg_cpu)
+    print(f"  forward B=2: outputs {vs_f32:.3e} of the largest entry from float32's, "
+          f"{vs_cpu:.3e} from the CPU's bf16; the first GCL's message sums {msg_f32:.3e} "
+          f"from float32's, {msg_cpu:.3e} from the CPU's (limits: outputs 1e-4; messages "
+          f"1e-3 and a quarter of float32's)")
+    del module, f32, cpu
+    for bs in DENSE_BF16_BATCHES:
+        train_cfg = dict(flagship_train_config(flagship, data, work / f"runs20d_{bs}",
+                                               run_name=f"chip_smoke_dense20_{bs}"),
+                         batch_size=bs)
+        train_cfg["egnn_params"] = dict(train_cfg["egnn_params"], **DENSE_VARIANT)
+        train_cfg["tpu"] = dict(train_cfg.get("tpu", {}), compute_dtype="bfloat16")
+        cfg_path = work / f"dense20_train_{bs}.json"
+        cfg_path.write_text(json.dumps(train_cfg))
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        try:
+            train_cli.main(["--config", str(cfg_path)])
+        except torch.cuda.OutOfMemoryError:
+            print(f"  batch {bs}: out of memory")
+            continue
+        torch.cuda.synchronize()
+        res["training"] = dict(batch_size=bs, wall_s=time.perf_counter() - t0,
+                               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+        print(f"  {card}: cli.train bf16 at batch {bs}: {res['training']['wall_s']:.2f} s, "
+              f"peak {res['training']['peak_gib']:.2f} GiB")
+        break
+    _check("training" in res, f"no batch of {DENSE_BF16_BATCHES} trained")
+    return res
+
+
+def refusal_phase(flagship):
+    """Phase 20e: what the port does not run refuses: block fusing with a
+    tier other than 3xTF32 (ROADMAP.md section 2), and egnn_impl / kernel_bwd
+    xla (section 1)."""
+    from diffsbdd_tpu_torch.config import load_config
+    from diffsbdd_tpu_torch.train.module import build_module_from_config
+    cases = {"block_fuse_bfloat16": ({"matmul_precision": "bfloat16", "kernel_block_fuse": True},
+                                     "ROADMAP.md section 2"),
+             "egnn_impl_xla": ({"egnn_impl": "xla"}, "ROADMAP.md section 1"),
+             "kernel_bwd_xla": ({"kernel_bwd": "xla"}, "ROADMAP.md section 1")}
+    res = {}
+    for key, (tpu, names) in cases.items():
+        try:
+            build_module_from_config(load_config(overrides=dict(flagship, tpu=tpu)), None)
+            res[key] = ""
+        except ValueError as err:
+            res[key] = str(err)
+        _check(names in res[key], f"{key} did not raise naming {names}")
+        print(f"  {key}: raises '{res[key][:90]}...'")
+    return res
+
+
+def phase20(torch, ec, dev, flagship, work, pdb, ref_lig, base, card):
+    """Phase 20 in order; ``base``: phase 6's float32 run (its samples,
+    ms_per_pass and molecules_per_s)."""
+    t20 = time.perf_counter()
+    res = {"kernels": {}}
+    for width in TIER_WIDTHS:
+        print(f"[20a] the split kernels at each tier, F={width} ({card})")
+        res["kernels"][width] = tier_kernel_phase(ec, torch, dev, flagship, width)
+    print("[20b] the main path at bfloat16 and at float32_x2")
+    res["sampling"] = tier_sampling_phase(torch, ec, dev, work, pdb, ref_lig, base, card)
+    print("[20c] the train step with kernel_bwd_precision bfloat16, and at float32_x2")
+    res["training"] = tier_training_phase(torch, ec, dev, work, card)
+    print("[20d] the dense sin/mean model at compute_dtype bfloat16")
+    res["dense"] = dense_bf16_phase(torch, ec, dev, flagship, work, pdb, ref_lig, card)
+    print("[20e] refusals")
+    res["refusals"] = refusal_phase(flagship)
+    res["phase_s"] = time.perf_counter() - t20
+    print(f"  phase 20 took {res['phase_s']:.1f} s")
+    return res
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", type=Path, default=REPO / "chip_smoke_out",
@@ -2704,8 +3223,9 @@ def main(argv=None) -> int:
 
     print("[2] build")
     t0 = time.perf_counter()
-    logs = ec.build_kernels(force=True)
-    print(f"  built {', '.join(logs)} in {time.perf_counter() - t0:.1f} s")
+    logs = ec.build_kernels(force=True, tiers=tuple(ec.TIERS))
+    build_s = time.perf_counter() - t0
+    print(f"  built {', '.join(logs)} in {build_s:.1f} s")
     for name, log in logs.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
@@ -2720,6 +3240,31 @@ def main(argv=None) -> int:
         print(f"  {what} SASS: {sass['HMMA']} HMMA, {sass['LDGSTS']} LDGSTS instructions")
         _check(sass["HMMA"] > 0 and sass["LDGSTS"] > 0,
                f"{what} has no tensor-core or cp.async instructions")
+    # each tier's library runs its products as that tier's tensor-core
+    # instructions only: TF32 HMMA for 3xTF32 and 2xTF32, bf16 HMMA for bf16
+    tier_sass = {}
+    for name in ec.TIERED:
+        for tier in ec.TIERS:
+            sass = tier_sass[f"{name}[{tier}]"] = sass_counts(
+                ec, name, ("HMMA.1688.F32.TF32", "HMMA.16816.F32.BF16", "LDGSTS"), tier=tier)
+            tf32, bf16 = sass["HMMA.1688.F32.TF32"], sass["HMMA.16816.F32.BF16"]
+            print(f"  {name}[{tier}] SASS: {tf32} TF32 HMMA, {bf16} bf16 HMMA, "
+                  f"{sass['LDGSTS']} LDGSTS")
+            _check(sass["LDGSTS"] > 0 and (bf16 > 0 and tf32 == 0 if tier == "bf16"
+                                           else tf32 > 0 and bf16 == 0),
+                   f"{name}[{tier}] runs other tensor-core instructions than its tier's")
+        # as many products as the tier's passes: 2xTF32 two of 3xTF32's three
+        # m16n8k8 passes, exactly 2/3 of its HMMA; bf16 one m16n8k16 (twice
+        # the k) where 3xTF32 runs two k-steps of three, 1/6 of its HMMA in
+        # the forward kernels; in the backward kernels more than 1/6 and
+        # less than 1/3, as their dW2 loop (not unrolled) holds one k-step in
+        # either tier (measured 126 of 714 and 252 of 1428)
+        full = tier_sass[f"{name}[tf32x3]"]["HMMA.1688.F32.TF32"]
+        bf16 = tier_sass[f"{name}[bf16]"]["HMMA.16816.F32.BF16"]
+        _check(3 * tier_sass[f"{name}[tf32x2]"]["HMMA.1688.F32.TF32"] == 2 * full,
+               f"{name}: the 2xTF32 HMMA count is not 2/3 of 3xTF32's {full}")
+        _check(6 * bf16 == full if name.endswith("_agg") else full < 6 * bf16 < 2 * full,
+               f"{name}: {bf16} bf16 HMMA against 3xTF32's {full}")
 
     print("[3] kernels vs plain twins at the flagship shapes")
     flagship = snapshot_config(R05C_NPZ)
@@ -2762,6 +3307,7 @@ def main(argv=None) -> int:
             result = sample(self, *a, **k)
             torch.cuda.synchronize()
             timing["sample_s"] = time.perf_counter() - t
+            timing["xh"] = result[0].cpu()  # phase 20b's float32 reference
             return result
 
         ConditionalDDPM.sample_given_pocket = timed_sample
@@ -2846,6 +3392,10 @@ def main(argv=None) -> int:
 
         width = phase19(torch, ec, dev, flagship, logs, work, out, pdb, ref_lig, ckpt, card)
 
+        tiers = phase20(torch, ec, dev, flagship, work, pdb, ref_lig,
+                        dict(xh=timing["xh"], ms_per_pass=step_ms,
+                             molecules_per_s=n_samples / wall), card)
+
     by_path = {"sampling": sampling_launches, "training": training["launches"],
                "joint_training": joint["training"]["launches"],
                "joint_sampling": joint["launches"], "inpainting": inpainting["launches"],
@@ -2862,7 +3412,8 @@ def main(argv=None) -> int:
                "joint": joint, "inpainting": inpainting, "test_set": test_set,
                "optimize": optimize, "serving": serving, "quality": quality,
                "lightning": lightning, "evaluation": evaluation, "processing": processing,
-               "parallel": parallel, "phase19": width,
+               "parallel": parallel, "phase19": width, "phase20": tiers,
+               "build_s": build_s, "tier_sass": tier_sass,
                "variant_ms": variant_ms, "breakdown": breakdown,
                "sample_s": timing["sample_s"], "step_ms": step_ms,
                "cli_wall_s": wall, "molecules_per_s": n_samples / wall,
@@ -2887,6 +3438,23 @@ def main(argv=None) -> int:
                       width["default"]["sampling_fused"]["launches"]}
     for k in ec.KERNELS:
         _check(width["default"]["launches"][k] > 0, f"no F = 128 path launched {k}")
+    # the four split kernels at the reduced tiers, F = 256: their launches on
+    # phase 20b's main paths (forward) and 20c's train steps (backward)
+    by_tier_path = {f"sampling_{n}": tiers["sampling"][n]["launches_by_tier"]
+                    for n in TIER_NAME.values()}
+    by_tier_path.update({f"training_{n}": r["launches_by_tier"]
+                         for n, r in tiers["training"].items()})
+    tier_entries = []
+    for tier in TIER_NAME:
+        for name in ec.TIERED:
+            key = f"{name}[{tier}]"
+            counts = {path: c.get(key, 0) for path, c in by_tier_path.items()}
+            _check(max(counts.values()) > 0, f"no main path launched {key}")
+            tier_entries.append(
+                {"name": key, "route": "cuda", "source": sources[name][0],
+                 "replaces": sources[name][1], "launches": max(counts.values()),
+                 "launches_by_path": counts, **tiers["kernels"][256][key],
+                 "library_ms": None})
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": sources[name][0],
          "replaces": sources[name][1], "launches": launches[name],
@@ -2895,7 +3463,7 @@ def main(argv=None) -> int:
         {"name": f"{name}[F={DEFAULT_WIDTH}]", "route": "cuda", "source": sources[name][0],
          "replaces": sources[name][1], "launches": width["default"]["launches"][name],
          "launches_by_path": {path: counts[name] for path, counts in by_path128.items()},
-         **width["kernels"][name], "library_ms": None} for name in ec.KERNELS]},
+         **width["kernels"][name], "library_ms": None} for name in ec.KERNELS] + tier_entries},
         default=str))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -5,6 +5,48 @@ sidecar) or a YAML preset from ``configs/``, then with explicit overrides.
 Only the fields that sampling, training and its evaluation read have
 defaults here; other fields of a preset or sidecar pass through unchanged.
 PyYAML is imported only when a ``.yml``/``.yaml`` path is given.
+
+The JAX package's ``tpu`` fields, as the port reads them:
+
+* read: ``lig_bucket``, ``pocket_bucket`` (padding), ``kernel_block_fuse``
+  (the samplers' whole-block kernel), ``mesh_data``, ``multihost``
+  (``parallel/``), ``nan_check``, and the precision policies below;
+* ``egnn_impl``, ``kernel_bwd``: ``auto`` and ``pallas`` run the kernels
+  (their plain versions on the CPU); ``xla`` (the JAX package's dense path
+  for the kernels' model, at its ambient precision) raises a ``ValueError``:
+  it is not ported yet (ROADMAP.md section 1); any other value raises;
+* accepted without effect: ``n_lig_max``, ``n_pocket_max`` (TPU padding
+  ceilings; the port pads to each batch's buckets), ``kernel_tile_i``,
+  ``kernel_sub_j``, ``kernel_skip_mode``, ``kernel_bwd_sub_j`` (the Pallas
+  kernels' tiles and skip granularity; the CUDA kernels choose their own),
+  ``remat`` (read by nothing in the JAX package past its defaults) and
+  ``steps_per_dispatch`` (it hid a remote TPU's dispatch latency).
+
+Precision policies (JAX's names and defaults; ``PRECISIONS`` below, read by
+``models/dynamics.py``):
+
+=================  ===================  ==================================
+matmul_precision   split kernels' tier  glue products on CUDA (f32 on CPU)
+=================  ===================  ==================================
+float32 (default)  3xTF32               float32
+float32_x3         3xTF32               float32
+tensorfloat32      3xTF32               TF32 cuBLAS
+float32_x2         2xTF32 (lo*hi+hi*hi) float32
+bfloat16           one bf16 pass        TF32 cuBLAS
+=================  ===================  ==================================
+
+The bf16 tier's forward kernels also compute the pair MLP at the JAX
+package's bf16 rounding points (its ``_pair_mlp``: the inputs, each add and
+each step of silu rounded to bf16; ``ops/egnn_cuda.py``); its backward
+kernels round only the products' operands.  The glue's
+tier is set for each forward and restored after it (the backward's glue
+products run in float32).  ``kernel_bwd_precision`` (None: the forward's)
+takes the same names for the backward kernels alone.  ``compute_dtype:
+bfloat16`` keeps the dense path's pair MLPs in bf16 (sinusoidal features,
+mean aggregation; ``gnn_dynamics`` stays float32 as in JAX), their column
+sums in float32; the kernels ignore it.  ``kernel_block_fuse`` with a tier
+other than 3xTF32 raises (the whole-block kernel's tiers: ROADMAP.md section
+2).  Any other precision name raises, as JAX's ``_PRECISIONS[name]`` does.
 """
 from __future__ import annotations
 
@@ -104,8 +146,52 @@ _DEFAULTS: Dict[str, Any] = {
         # raise when the network's velocities are not all finite (one host
         # sync a forward)
         "nan_check": False,
+        # the precision policies (the table above)
+        "matmul_precision": "float32",
+        "kernel_bwd_precision": None,
+        "compute_dtype": "float32",
     },
 }
+
+# matmul_precision (JAX's names) -> (the split kernels' tier, whether the
+# glue's cuBLAS products run in TF32 on CUDA): the table above
+PRECISIONS = {"float32": ("tf32x3", False), "float32_x3": ("tf32x3", False),
+              "tensorfloat32": ("tf32x3", True), "float32_x2": ("tf32x2", False),
+              "bfloat16": ("bf16", True)}
+COMPUTE_DTYPES = ("float32", "bfloat16")
+IMPLS = ("auto", "pallas")
+
+
+def precision_policy(matmul_precision: str = "float32",
+                     kernel_bwd_precision: Optional[str] = None,
+                     compute_dtype: str = "float32"):
+    """(forward tier, backward tier or None, TF32 glue, compute dtype name) of
+    the JAX package's precision names; raises ``ValueError`` on any other
+    name, as its ``_PRECISIONS[name]`` does."""
+    for key, value, allowed in (("matmul_precision", matmul_precision, PRECISIONS),
+                                ("kernel_bwd_precision", kernel_bwd_precision,
+                                 (None, *PRECISIONS)),
+                                ("compute_dtype", compute_dtype, COMPUTE_DTYPES)):
+        if value not in allowed:
+            raise ValueError(f"tpu.{key} {value!r} not in {tuple(allowed)}")
+    tier, tf32_glue = PRECISIONS[matmul_precision]
+    bwd = None if kernel_bwd_precision is None else PRECISIONS[kernel_bwd_precision][0]
+    return tier, bwd, tf32_glue, compute_dtype
+
+
+def check_tpu(tpu: Dict[str, Any]) -> None:
+    """Raises ``ValueError`` on a ``tpu`` field the port does not honour: an
+    unknown precision name, or an implementation other than auto/pallas."""
+    precision_policy(tpu.get("matmul_precision"), tpu.get("kernel_bwd_precision"),
+                     tpu.get("compute_dtype"))
+    for key in ("egnn_impl", "kernel_bwd"):
+        value = tpu.get(key, "auto")
+        if value == "xla":
+            raise ValueError(
+                f"tpu.{key}: xla (the JAX package's dense path for the kernels' model) "
+                f"is not ported yet (ROADMAP.md section 1); use auto or pallas")
+        if value not in IMPLS:
+            raise ValueError(f"tpu.{key} {value!r} not in {IMPLS}")
 
 
 def _merge(base: Dict[str, Any], override: Dict[str, Any]) -> Dict[str, Any]:
@@ -132,6 +218,7 @@ def load_config(path=None, overrides: Optional[Dict[str, Any]] = None) -> Config
     merged = _merge(_DEFAULTS, _read(path) if path is not None else {})
     if overrides:
         merged = _merge(merged, overrides)
+    check_tpu(merged["tpu"])
     return Config(merged)
 
 

@@ -24,7 +24,8 @@
 // What bounds it on an H100: two per-pair F x F products (coordinate and cross
 // MLPs), 2 * 2*F^2 of the 2 * (2*F^2 + 10*F) operations an active pair.  They
 // run on the tensor cores in 3xTF32 (egnn_mma.cuh), 3 * 2 * 2*F^2 tensor-core
-// operations a pair at 495 TFLOP/s; the f32 CUDA-core body before it ran at
+// operations a pair at 495 TFLOP/s (the library built with -DEGNN_TIER=1 runs
+// them in 2xTF32, with -DEGNN_TIER=2 in one bf16 pass: egnn_mma.cuh's tiers); the f32 CUDA-core body before it ran at
 // 8% of its 67 TFLOP/s bound.  As in gcl_agg.cu, the bytes that compete are
 // L2's and shared memory's: every chunk of P = 64 pairs streams W2 (256 KB at
 // F = 256) from L2 an MLP, and the fill of S reads a 16 x F tile of a_col.
@@ -60,7 +61,7 @@ using namespace egnn;
 template <int F, bool CROSS>
 __global__ void __launch_bounds__(NT) coord_agg_kernel(CoordArgs g, float* partial) {
   extern __shared__ __align__(16) float smem[];
-  coord_update_block<F, CROSS>(g, partial, smem);
+  coord_update_block<F, CROSS, mma::kTier>(g, partial, smem);
 }
 
 template <int F>

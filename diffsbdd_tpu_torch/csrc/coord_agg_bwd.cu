@@ -34,7 +34,8 @@
 // (forward recompute, dW2, dm1), 2 * 6*F^2 operations with the cross branch --
 // bound by operations.  They run on the tensor cores in 3xTF32
 // (egnn_mma_bwd.cuh: mma.sync TF32, each operand split hi + lo), 3 * 6*F^2
-// tensor-core operations a pair and MLP at 495 TFLOP/s.
+// tensor-core operations a pair and MLP at 495 TFLOP/s (-DEGNN_TIER=1:
+// 2xTF32, =2: one bf16 pass; egnn_mma_bwd.cuh's tiers).
 //
 // Design: the MLP part of each chunk is egnn_mma_bwd.cuh's, piece for piece
 // (fill_m1, product_sw, dw2_tc, fill_dsilu, dpre_fragments, dpre_sums, the
@@ -181,7 +182,7 @@ __device__ void coord_bwd_tile_tc(const CoordBwdArgs& g, size_t node0, size_t sl
     }
     mma::fill_m1<F>(w, chunk, a_row, a_col, S);
     float acc[WM][L::NTN][4];
-    mma::product_sw<F>(S, ring, acc);  // z2 - b2 = m1 @ W2
+    mma::product_sw<F, mma::kTier>(S, ring, acc);  // z2 - b2 = m1 @ W2
 
     // ---- epilogue: z2, the head raw = m2 . w3 (a lane-quad shuffle and one
     // exchange of the slices), phi, draw, dz2 -> D
@@ -258,12 +259,12 @@ __device__ void coord_bwd_tile_tc(const CoordBwdArgs& g, size_t node0, size_t sl
         if (gid == 0) st.hvs[rg * F + slice * L::FW + 8 * n + 2 * tig + c] += v;
       }
     __syncthreads();  // D complete
-    mma::dw2_tc<F>(S, D, kmask, dw2);
+    mma::dw2_tc<F, mma::kTier>(S, D, kmask, dw2);
     __syncthreads();  // S is no longer read
     mma::fill_dsilu<F>(w, chunk, a_row, a_col, D, S, st.fa.b2);
     // the next chunk's a_col, or the next tile's first: loaded during product 3
     mma::load_a_col<F>(m, cols, count, c0 + TJ, node0, a_col);
-    mma::product_sw<F>(D, ring, acc);  // dm1 = dz2 @ W2^T
+    mma::product_sw<F, mma::kTier>(D, ring, acc);  // dm1 = dz2 @ W2^T
     mma::dpre_fragments<F>(acc, S, sh.wd2s, sh.wd20s, sh.xpart);
     __syncthreads();  // dpre and the pair dots complete
     if (t < P) {

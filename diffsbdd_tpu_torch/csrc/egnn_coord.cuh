@@ -15,19 +15,19 @@ namespace egnn {
 // One block of the update: row tile blockIdx.x of batch item blockIdx.y, the
 // pair MLP of blockIdx.z, and the block's share of the zeros of the rows past
 // the grid.  g is the kernel's own argument (its out is set to the slab).
-// smem: mma::dynamic_smem<F>(N) bytes.
-template <int F, bool CROSS>
+// smem: mma::dynamic_smem<F>(N) bytes.  TIER: coord_tile_tc's.
+template <int F, bool CROSS, int TIER = mma::TF32X3>
 __device__ __forceinline__ void coord_update_block(CoordArgs& g, float* partial,
                                                    float* smem) {
   const int i0 = blockIdx.x * TI;
   if constexpr (CROSS) {
     g.out = partial + (size_t)blockIdx.z * gridDim.y * g.N * 3;
     if (blockIdx.z == 0)
-      mma::coord_tile_tc<F, false>(g, blockIdx.y, i0, smem);
+      mma::coord_tile_tc<F, false, TIER>(g, blockIdx.y, i0, smem);
     else
-      mma::coord_tile_tc<F, true>(g, blockIdx.y, i0, smem);
+      mma::coord_tile_tc<F, true, TIER>(g, blockIdx.y, i0, smem);
   } else {
-    mma::coord_tile_tc<F, false>(g, blockIdx.y, i0, smem);
+    mma::coord_tile_tc<F, false, TIER>(g, blockIdx.y, i0, smem);
   }
   zero_rows_past_grid(g.out, (size_t)blockIdx.y * g.N, g.N, 3);
 }

@@ -26,6 +26,23 @@
 // so the next chunk's first stage loads during the epilogue and the fill.
 // Row strides are padded (S: F + 4, stages: F + 8 floats) so that the A and B
 // fragment loads are free of bank conflicts.
+//
+// Precision tiers (template parameter TIER of the products and of the
+// forward fill and epilogues; a split kernel's library is built for one tier,
+// -DEGNN_TIER, and block_fused.cu stays at TF32X3):
+//  * TF32X3 (0): the 3xTF32 product above, f32-grade;
+//  * TF32X2 (1): lo*hi + hi*hi, the second operand's low part dropped (W2's
+//    in the forward products), as the JAX package's "float32_x2" drops the
+//    weight's (~1e-3 relative);
+//  * BF16 (2): one pass of mma.sync.m16n8k16 bf16 with f32 accumulation, each
+//    operand rounded to bf16 (nearest even) as its fragment loads from the
+//    f32 tiles; the forward bodies also compute the pair MLP at the JAX
+//    package's "bfloat16" rounding points (_pair_mlp): a_row, a_col and the
+//    edge bias each rounded, pre = (a_row + a_col) + bias in two bf16 adds,
+//    silu as x * (1 / (1 + e^-x)) with every operation's result rounded,
+//    z = acc + b2 rounded, the head (w_att, w3) and b2 rounded.  Each
+//    operation is f32 arithmetic on bf16 inputs, rounded once.  The
+//    elementwise work of the backward bodies stays f32.
 #pragma once
 #include <cstdint>
 #include "egnn_common.cuh"
@@ -65,7 +82,14 @@ struct CoordArgs {
 
 namespace mma {
 
-constexpr int KC = 32;  // W2 rows per stage (4 k-steps of 8)
+enum Tier : int { TF32X3 = 0, TF32X2 = 1, BF16 = 2 };
+#ifndef EGNN_TIER
+#define EGNN_TIER 0
+#endif
+constexpr int kTier = EGNN_TIER;  // the tier a split kernel's library is built for
+static_assert(kTier >= TF32X3 && kTier <= BF16, "EGNN_TIER: 0, 1 or 2");
+
+constexpr int KC = 32;  // W2 rows per stage (4 k-steps of 8, 2 of 16 in bf16)
 constexpr int NS = 2;   // stages in the ring
 constexpr int M_TILES = P / 16;             // one m-tile a row (TJ = 16)
 constexpr int WM = 2;                       // m-tiles (rows) a warp owns
@@ -111,6 +135,38 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
                                          uint32_t b0, uint32_t b1) {
   asm volatile(
       "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// (lo, hi) -> the bf16x2 register of a fragment: lo in the low half, each
+// rounded to nearest even
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  uint32_t d;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(d) : "f"(hi), "f"(lo));
+  return d;
+}
+
+// x rounded to the nearest bf16 (ties to even), as a float; finite x.
+// Integer arithmetic: with cvt.rn.bf16.f32 and a shift instead, gcl_agg's
+// bf16 tier took 1.52 ms at F = 256 against 1.40 (H100, two runs)
+__device__ __forceinline__ float bf16_rne(float x) {
+  const uint32_t u = __float_as_uint(x);
+  return __uint_as_float((u + 0x7FFFu + ((u >> 16) & 1u)) & 0xFFFF0000u);
+}
+
+// x on the BF16 tier's rounding points, unchanged on the others
+template <int TIER>
+__device__ __forceinline__ float tier_round(float x) {
+  if constexpr (TIER == BF16) return bf16_rne(x);
+  return x;
+}
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
@@ -171,9 +227,11 @@ struct W2Ring {
 // warp = slice*RG + rg.  S (rows at stride SS) must be complete before the
 // first acquire's sync.  With PARTIAL only the m-tiles that start below
 // `rows` are computed; the others' accumulators are left as they are.  Ring:
-// W2Ring, or any ring with its acquire().
+// W2Ring, or any ring with its acquire().  TIER: the product's precision tier
+// (the BF16 tier's k-steps of 16 take the A pairs as float2 loads of S, the B
+// pairs as two rows of the stage).
 template <int F, int RG = ROW_GROUPS, bool ZERO = true, bool PARTIAL = false,
-          class Ring>
+          int TIER = TF32X3, class Ring>
 __device__ __forceinline__ void product_tc(
     const float* S, Ring& ring, float (&acc)[Layout<F, RG>::WM][Layout<F, RG>::NTN][4],
     int rows = P) {
@@ -194,6 +252,47 @@ __device__ __forceinline__ void product_tc(
         for (int e = 0; e < 4; ++e) acc[m][n][e] = 0.0f;
   }
 
+  if constexpr (TIER == BF16) {
+    const float* a_base = S + (rg * WM * 16 + gid) * L::SS + 2 * tig;
+    for (int ks = 0; ks < L::KS; ++ks) {
+      const float* stage = ring.acquire();
+      const float* b_base = stage + 2 * tig * L::WS + slice * L::FW + gid;
+#pragma unroll
+      for (int kk = 0; kk < KC; kk += 16) {
+        uint32_t a[WM][4];
+#pragma unroll
+        for (int m = 0; m < WM; ++m) {
+          if (!live[m]) continue;
+          const float* p = a_base + m * 16 * L::SS + ks * KC + kk;
+          const float2 v0 = *reinterpret_cast<const float2*>(p);
+          const float2 v1 = *reinterpret_cast<const float2*>(p + 8 * L::SS);
+          const float2 v2 = *reinterpret_cast<const float2*>(p + 8);
+          const float2 v3 = *reinterpret_cast<const float2*>(p + 8 * L::SS + 8);
+          a[m][0] = pack_bf16(v0.x, v0.y);
+          a[m][1] = pack_bf16(v1.x, v1.y);
+          a[m][2] = pack_bf16(v2.x, v2.y);
+          a[m][3] = pack_bf16(v3.x, v3.y);
+        }
+        const float* b = b_base + kk * L::WS;
+#pragma unroll
+        for (int n0 = 0; n0 < L::NTN; n0 += L::NG) {
+          uint32_t bb[L::NG][2];
+#pragma unroll
+          for (int n = 0; n < L::NG; ++n) {
+            const float* c = b + 8 * (n0 + n);
+            bb[n][0] = pack_bf16(c[0], c[L::WS]);
+            bb[n][1] = pack_bf16(c[8 * L::WS], c[9 * L::WS]);
+          }
+#pragma unroll
+          for (int m = 0; m < WM; ++m)
+#pragma unroll
+            for (int n = 0; n < L::NG; ++n)
+              if (live[m]) mma_bf16(acc[m][n0 + n], a[m], bb[n][0], bb[n][1]);
+        }
+      }
+    }
+    return;
+  }
   const float* a_base = S + (rg * WM * 16 + gid) * L::SS + tig;
   for (int ks = 0; ks < L::KS; ++ks) {
     const float* stage = ring.acquire();
@@ -227,11 +326,13 @@ __device__ __forceinline__ void product_tc(
 #pragma unroll
           for (int n = 0; n < L::NG; ++n)
             if (live[m]) mma_tf32(acc[m][n0 + n], a_lo[m], b_hi[n][0], b_hi[n][1]);
+        if constexpr (TIER == TF32X3) {
 #pragma unroll
-        for (int m = 0; m < WM; ++m)
+          for (int m = 0; m < WM; ++m)
 #pragma unroll
-          for (int n = 0; n < L::NG; ++n)
-            if (live[m]) mma_tf32(acc[m][n0 + n], a_hi[m], b_lo[n][0], b_lo[n][1]);
+            for (int n = 0; n < L::NG; ++n)
+              if (live[m]) mma_tf32(acc[m][n0 + n], a_hi[m], b_lo[n][0], b_lo[n][1]);
+        }
 #pragma unroll
         for (int m = 0; m < WM; ++m)
 #pragma unroll
@@ -256,6 +357,18 @@ __device__ __forceinline__ float sigmoid_fast(float v) {
   return __fdividef(1.0f, 1.0f + exp_neg(v));
 }
 
+// silu at the tier's rounding points: on BF16 the JAX package's bf16 _silu,
+// x * (1 / (1 + e^-x)) with each operation's result rounded to bf16 (x a
+// bf16 value); silu_fast on the others
+template <int TIER>
+__device__ __forceinline__ float tier_silu(float x) {
+  if constexpr (TIER == BF16) {
+    const float s = bf16_rne(__fdividef(1.0f, bf16_rne(1.0f + bf16_rne(exp_neg(x)))));
+    return bf16_rne(x * s);
+  }
+  return silu_fast(x);
+}
+
 // Thread t fills feature t % F of the chunk's columns t / F + u * NT/F: loads
 // the a_col entries of the chunk at compacted column c0 (all issued before any
 // is used; 0 past the last column).
@@ -274,8 +387,10 @@ __device__ __forceinline__ void load_a_col(const PairMlp& m, const int* cols, in
 // S[p][k] = silu(pre_p[k]) of the chunk's P pairs (0 for pairs without an
 // edge), from a_col of load_a_col and a_row in registers: each a_col entry
 // serves the TI rows.  Branch-free (w.delta is 0 without a delta, and a pair
-// without an edge has finite operands), so that the pair loads batch.
-template <int F>
+// without an edge has finite operands), so that the pair loads batch.  The
+// BF16 tier computes pre and its silu at the JAX package's bf16 rounding
+// points (the header).
+template <int F, int TIER = TF32X3>
 __device__ __forceinline__ void fill_s(const PairWeights& w, const Chunk& c,
                                        const float (&a_row)[TI],
                                        const float (&a_col)[Layout<F>::COLS], float* S) {
@@ -286,9 +401,15 @@ __device__ __forceinline__ void fill_s(const PairWeights& w, const Chunk& c,
 #pragma unroll
     for (int r = 0; r < TI; ++r) {
       const int p = r * TJ + q + u * (NT / F);
-      const float pre = fmaf(c.ll[p], w.delta, a_row[r] + a_col[u] + c.d2[p] * w.w_d2
-                                                   + c.d20[p] * w.w_d20);
-      const float v = silu_fast(pre);
+      float pre;
+      if constexpr (TIER == BF16) {
+        const float bias = fmaf(c.ll[p], w.delta, c.d2[p] * w.w_d2 + c.d20[p] * w.w_d20);
+        pre = bf16_rne(bf16_rne(bf16_rne(a_row[r]) + bf16_rne(a_col[u])) + bf16_rne(bias));
+      } else {
+        pre = fmaf(c.ll[p], w.delta, a_row[r] + a_col[u] + c.d2[p] * w.w_d2
+                                         + c.d20[p] * w.w_d20);
+      }
+      const float v = tier_silu<TIER>(pre);
       S[p * Layout<F>::SS + k] = c.j[p] >= 0 ? v : 0.0f;
     }
   }
@@ -297,7 +418,8 @@ __device__ __forceinline__ void fill_s(const PairWeights& w, const Chunk& c,
 // The GCL row-tile body on the tensor cores: the aggregated messages of rows
 // i0 .. i0+TI-1 of the batch item at node0 -> dst[r * DS + n] for r <
 // dst_rows (global or shared memory).  smem: dynamic_smem<F>(N) bytes.
-template <int F, int DS = F>
+// TIER: the precision tier of the product and of the pair MLP's rounding.
+template <int F, int DS = F, int TIER = TF32X3>
 __device__ void gcl_tile_tc(const GclArgs& g, size_t node0, int i0, float* smem,
                             float* dst, int dst_rows) {
   using L = Layout<F>;
@@ -318,8 +440,8 @@ __device__ void gcl_tile_tc(const GclArgs& g, size_t node0, int i0, float* smem,
   for (int s = 0; s < NS - 1; ++s) ring.issue();
   load_rows(rows, g.x, g.x0, g.mask, g.is_lig, node0, i0, g.N, g.update_rows);
   for (int k = t; k < F; k += NT) {
-    b2s[k] = g.mlp.b2[k];
-    watt[k] = attention ? g.mlp.head[k] : 0.0f;
+    b2s[k] = tier_round<TIER>(g.mlp.b2[k]);
+    watt[k] = attention ? tier_round<TIER>(g.mlp.head[k]) : 0.0f;
   }
   const int kS = t % F;  // the feature this thread fills in S
   const PairWeights w = pair_weights(g.mlp, kS);
@@ -348,10 +470,10 @@ __device__ void gcl_tile_tc(const GclArgs& g, size_t node0, int i0, float* smem,
     fill_chunk(chunk, rows, g.x, g.x0, g.col_mask, g.is_lig, node0, cols, count,
                c0, g.cut);
     __syncthreads();
-    fill_s<F>(w, chunk, a_row, a_col, S);
+    fill_s<F, TIER>(w, chunk, a_row, a_col, S);
     load_a_col<F>(g.mlp, cols, count, c0 + TJ, node0, a_col);
     float acc[WM][L::NTN][4];
-    product_tc<F>(S, ring, acc);
+    product_tc<F, ROW_GROUPS, true, false, TIER>(S, ring, acc);
 
     // ---- epilogue: silu, attention gate, gated row sum
     float part[WM][2];  // attention dots of pairs gid, gid + 8 of each m-tile
@@ -363,7 +485,7 @@ __device__ void gcl_tile_tc(const GclArgs& g, size_t node0, int i0, float* smem,
         const int f = slice * L::FW + 8 * n + 2 * tig;
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          acc[m][n][e] = silu_fast(acc[m][n][e] + b2s[f + (e & 1)]);
+          acc[m][n][e] = tier_silu<TIER>(tier_round<TIER>(acc[m][n][e] + b2s[f + (e & 1)]));
           part[m][e >> 1] = fmaf(acc[m][n][e], watt[f + (e & 1)], part[m][e >> 1]);
         }
       }
@@ -434,7 +556,8 @@ __device__ void gcl_tile_tc(const GclArgs& g, size_t node0, int i0, float* smem,
 // The head of a pair MLP on the warp's C fragments: its share of
 // phi_p = sum_f silu(acc_pf + b2_f) * w3_f over its FW features, added over
 // the lane quad and written to part[slice][p]; the reader adds the slices.
-template <int F>
+// The BF16 tier rounds z and computes silu(z) at its rounding points.
+template <int F, int TIER = TF32X3>
 __device__ __forceinline__ void head_parts(float (&acc)[WM][Layout<F>::NTN][4],
                                            const float* b2s, const float* w3s,
                                            float (*part)[P]) {
@@ -450,8 +573,8 @@ __device__ __forceinline__ void head_parts(float (&acc)[WM][Layout<F>::NTN][4],
       const int f = slice * L::FW + 8 * n + 2 * tig;
 #pragma unroll
       for (int e = 0; e < 4; ++e)
-        dot[e >> 1] = fmaf(silu_fast(acc[m][n][e] + b2s[f + (e & 1)]), w3s[f + (e & 1)],
-                           dot[e >> 1]);
+        dot[e >> 1] = fmaf(tier_silu<TIER>(tier_round<TIER>(acc[m][n][e] + b2s[f + (e & 1)])),
+                           w3s[f + (e & 1)], dot[e >> 1]);
     }
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -470,8 +593,8 @@ __device__ __forceinline__ void head_parts(float (&acc)[WM][Layout<F>::NTN][4],
 // projections (a_col loaded a chunk ahead), product_tc and the head; then the
 // per-pair term (tanh, norm, cross product) and the row sums in a fixed
 // order.
-// smem: dynamic_smem<F>(N) bytes.
-template <int F, bool CROSS>
+// smem: dynamic_smem<F>(N) bytes.  TIER: as gcl_tile_tc's.
+template <int F, bool CROSS, int TIER = TF32X3>
 __device__ void coord_tile_tc(const CoordArgs& g, int batch, int i0, float* smem) {
   using L = Layout<F>;
   const PairMlp& mlp = CROSS ? g.cross : g.coord;
@@ -492,8 +615,8 @@ __device__ void coord_tile_tc(const CoordArgs& g, int batch, int i0, float* smem
   load_rows(rows, g.x, g.x0, g.mask, g.is_lig, node0, i0, g.N, g.update_rows);
   if (CROSS && t < 3) mean[t] = g.graph_mean[batch * 3 + t];
   for (int k = t; k < F; k += NT) {
-    b2s[k] = mlp.b2[k];
-    w3s[k] = mlp.head[k];
+    b2s[k] = tier_round<TIER>(mlp.b2[k]);
+    w3s[k] = tier_round<TIER>(mlp.head[k]);
   }
   const int kS = t % F;  // the feature this thread fills in S
   const PairWeights w = pair_weights(mlp, kS);
@@ -514,11 +637,11 @@ __device__ void coord_tile_tc(const CoordArgs& g, int batch, int i0, float* smem
     fill_chunk(chunk, rows, g.x, g.x0, g.col_mask, g.is_lig, node0, cols, count, c0,
                g.cut);
     __syncthreads();
-    fill_s<F>(w, chunk, a_row, a_col, S);
+    fill_s<F, TIER>(w, chunk, a_row, a_col, S);
     load_a_col<F>(mlp, cols, count, c0 + TJ, node0, a_col);
     float acc[WM][L::NTN][4];
-    product_tc<F>(S, ring, acc);
-    head_parts<F>(acc, b2s, w3s, phi_part);
+    product_tc<F, ROW_GROUPS, true, false, TIER>(S, ring, acc);
+    head_parts<F, TIER>(acc, b2s, w3s, phi_part);
     __syncthreads();  // the head dots are complete
 
     if (t < P) {

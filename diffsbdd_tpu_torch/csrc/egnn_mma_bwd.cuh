@@ -65,6 +65,13 @@
 // W2BwdRing and product_sw repeat egnn_mma.cuh's W2Ring and product_tc with
 // a second matrix and the swizzle: changing those would change the forward
 // kernels' code.
+//
+// Precision tiers (egnn_mma.cuh's TIER, one a library): the three products
+// run in 3xTF32 (TF32X3), in 2xTF32 with the second operand's low part
+// dropped (TF32X2: W2's in 1, dz2's in 2, W2^T's in 3, as the JAX package's
+// "float32_x2" _dot and _dotT drop theirs), or in one bf16 pass of
+// m16n8k16 with each operand rounded as its fragment loads (BF16); the fills
+// and epilogues stay f32 on every tier, as the JAX package's _mlp_bwd.
 #pragma once
 #include "egnn_mma.cuh"
 #include "egnn_bwd.cuh"
@@ -147,8 +154,9 @@ struct W2BwdRing {
 
 // acc = A @ M for the warp's C fragments (product_tc's layout), A a swizzled
 // P x F tile, M the ring's next KS stages.  A must be complete before the
-// first acquire's sync.
-template <int F>
+// first acquire's sync.  TIER: the product's precision tier (the swizzle
+// keeps a bf16 fragment's column pair 2tig, 2tig + 1 adjacent: one float2).
+template <int F, int TIER = TF32X3>
 __device__ __forceinline__ void product_sw(const float* A, W2BwdRing<F>& ring,
                                            float (&acc)[WM][Layout<F>::NTN][4]) {
   using L = Layout<F>;
@@ -163,6 +171,46 @@ __device__ __forceinline__ void product_sw(const float* A, W2BwdRing<F>& ring,
       for (int e = 0; e < 4; ++e) acc[m][n][e] = 0.0f;
 
   const int xg = swz(gid);  // rows gid and gid + 8 of every m-tile
+  if constexpr (TIER == BF16) {
+    const float* a_row = A + (rg * WM * 16 + gid) * F;
+    for (int ks = 0; ks < L::KS; ++ks) {
+      const float* stage = ring.acquire();
+      const float* b_base = stage + 2 * tig * L::WS + slice * L::FW + gid;
+#pragma unroll
+      for (int kk = 0; kk < KC; kk += 16) {
+        const int c0 = (ks * KC + kk + 2 * tig) ^ xg, c8 = (ks * KC + kk + 8 + 2 * tig) ^ xg;
+        uint32_t a[WM][4];
+#pragma unroll
+        for (int m = 0; m < WM; ++m) {
+          const float* r = a_row + m * 16 * F;
+          const float2 v0 = *reinterpret_cast<const float2*>(r + c0);
+          const float2 v1 = *reinterpret_cast<const float2*>(r + 8 * F + c0);
+          const float2 v2 = *reinterpret_cast<const float2*>(r + c8);
+          const float2 v3 = *reinterpret_cast<const float2*>(r + 8 * F + c8);
+          a[m][0] = pack_bf16(v0.x, v0.y);
+          a[m][1] = pack_bf16(v1.x, v1.y);
+          a[m][2] = pack_bf16(v2.x, v2.y);
+          a[m][3] = pack_bf16(v3.x, v3.y);
+        }
+        const float* b = b_base + kk * L::WS;
+#pragma unroll
+        for (int n0 = 0; n0 < L::NTN; n0 += L::NG) {
+          uint32_t bb[L::NG][2];
+#pragma unroll
+          for (int n = 0; n < L::NG; ++n) {
+            const float* c = b + 8 * (n0 + n);
+            bb[n][0] = pack_bf16(c[0], c[L::WS]);
+            bb[n][1] = pack_bf16(c[8 * L::WS], c[9 * L::WS]);
+          }
+#pragma unroll
+          for (int m = 0; m < WM; ++m)
+#pragma unroll
+            for (int n = 0; n < L::NG; ++n) mma_bf16(acc[m][n0 + n], a[m], bb[n][0], bb[n][1]);
+        }
+      }
+    }
+    return;
+  }
   const float* a_base = A + (rg * WM * 16 + gid) * F + tig;
   for (int ks = 0; ks < L::KS; ++ks) {
     const float* stage = ring.acquire();
@@ -193,11 +241,13 @@ __device__ __forceinline__ void product_sw(const float* A, W2BwdRing<F>& ring,
 #pragma unroll
           for (int n = 0; n < L::NG; ++n)
             mma_tf32(acc[m][n0 + n], a_lo[m], b_hi[n][0], b_hi[n][1]);
+        if constexpr (TIER == TF32X3) {
 #pragma unroll
-        for (int m = 0; m < WM; ++m)
+          for (int m = 0; m < WM; ++m)
 #pragma unroll
-          for (int n = 0; n < L::NG; ++n)
-            mma_tf32(acc[m][n0 + n], a_hi[m], b_lo[n][0], b_lo[n][1]);
+            for (int n = 0; n < L::NG; ++n)
+              mma_tf32(acc[m][n0 + n], a_hi[m], b_lo[n][0], b_lo[n][1]);
+        }
 #pragma unroll
         for (int m = 0; m < WM; ++m)
 #pragma unroll
@@ -212,8 +262,10 @@ __device__ __forceinline__ void product_sw(const float* A, W2BwdRing<F>& ring,
 // memory.  Bit s of kmask is clear when pairs 8s .. 8s+7 have no edge: their
 // rows of S and D are zero, and their k-step is skipped.  Warp w covers m-tiles (dW2 rows) 2*(w % RG) .. + 1 and n-tiles
 // NN * (w / RG) .. + NN - 1 of each 64-column slab; K = the chunk's P pairs
-// (zero rows for pairs without an edge).  S and D must be complete.
-template <int F>
+// (zero rows for pairs without an edge).  S and D must be complete.  TIER:
+// the product's precision tier (BF16: k-steps of 16 pairs, each fragment
+// element its own load, a step skipped when both its 8-pair bits are clear).
+template <int F, int TIER = TF32X3>
 __device__ __forceinline__ void dw2_tc(const float* S, const float* D, unsigned kmask,
                                        float* dw2) {
   constexpr int WM2 = 2;                 // m-tiles a warp owns
@@ -249,41 +301,68 @@ __device__ __forceinline__ void dw2_tc(const float* S, const float* D, unsigned 
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[m][n][e] = 0.0f;
 
+    if constexpr (TIER == BF16) {
 #pragma unroll 1
-    for (int kp = 0; kp < P; kp += 8) {
-      if (!((kmask >> (kp / 8)) & 1u)) continue;
-      const float* s0r = S + (kp + tig) * F;
-      const float* s4r = S + (kp + tig + 4) * F;
-      const float* d0r = D + (kp + tig) * F;
-      const float* d4r = D + (kp + tig + 4) * F;
-      uint32_t a_hi[WM2][4], a_lo[WM2][4];
+      for (int kp = 0; kp < P; kp += 16) {
+        if (!((kmask >> (kp / 8)) & 3u)) continue;
+        const int k0 = kp + 2 * tig;  // pairs k0, k0 + 1, k0 + 8, k0 + 9
+        uint32_t a[WM2][4];
 #pragma unroll
-      for (int m = 0; m < WM2; ++m) {
-        const int m0 = (rg * WM2 + m) * 16;
-        split(s0r[m0 ^ g0], a_hi[m][0], a_lo[m][0]);  // A[gid][tig]
-        split(s0r[m0 ^ g8], a_hi[m][1], a_lo[m][1]);  // A[gid + 8][tig]
-        split(s4r[m0 ^ h0], a_hi[m][2], a_lo[m][2]);  // A[gid][tig + 4]
-        split(s4r[m0 ^ h8], a_hi[m][3], a_lo[m][3]);  // A[gid + 8][tig + 4]
+        for (int m = 0; m < WM2; ++m) {
+          const int f0 = (rg * WM2 + m) * 16 + gid;  // A[gid][.] = S[.][f0]
+          a[m][0] = pack_bf16(S[at<F>(k0, f0)], S[at<F>(k0 + 1, f0)]);
+          a[m][1] = pack_bf16(S[at<F>(k0, f0 + 8)], S[at<F>(k0 + 1, f0 + 8)]);
+          a[m][2] = pack_bf16(S[at<F>(k0 + 8, f0)], S[at<F>(k0 + 9, f0)]);
+          a[m][3] = pack_bf16(S[at<F>(k0 + 8, f0 + 8)], S[at<F>(k0 + 9, f0 + 8)]);
+        }
+#pragma unroll
+        for (int n = 0; n < NN; ++n) {
+          const int c = s0 + (cg * NN + n) * 8 + gid;  // B[.][gid] = D[.][c]
+          const uint32_t b0 = pack_bf16(D[at<F>(k0, c)], D[at<F>(k0 + 1, c)]);
+          const uint32_t b1 = pack_bf16(D[at<F>(k0 + 8, c)], D[at<F>(k0 + 9, c)]);
+#pragma unroll
+          for (int m = 0; m < WM2; ++m) mma_bf16(acc[m][n], a[m], b0, b1);
+        }
       }
-      uint32_t b_hi[NN][2], b_lo[NN][2];
+    } else {
+#pragma unroll 1
+      for (int kp = 0; kp < P; kp += 8) {
+        if (!((kmask >> (kp / 8)) & 1u)) continue;
+        const float* s0r = S + (kp + tig) * F;
+        const float* s4r = S + (kp + tig + 4) * F;
+        const float* d0r = D + (kp + tig) * F;
+        const float* d4r = D + (kp + tig + 4) * F;
+        uint32_t a_hi[WM2][4], a_lo[WM2][4];
 #pragma unroll
-      for (int n = 0; n < NN; ++n) {
-        const int n0 = s0 + (cg * NN + n) * 8;
-        split(d0r[n0 ^ g0], b_hi[n][0], b_lo[n][0]);  // B[tig][gid]
-        split(d4r[n0 ^ h0], b_hi[n][1], b_lo[n][1]);  // B[tig + 4][gid]
+        for (int m = 0; m < WM2; ++m) {
+          const int m0 = (rg * WM2 + m) * 16;
+          split(s0r[m0 ^ g0], a_hi[m][0], a_lo[m][0]);  // A[gid][tig]
+          split(s0r[m0 ^ g8], a_hi[m][1], a_lo[m][1]);  // A[gid + 8][tig]
+          split(s4r[m0 ^ h0], a_hi[m][2], a_lo[m][2]);  // A[gid][tig + 4]
+          split(s4r[m0 ^ h8], a_hi[m][3], a_lo[m][3]);  // A[gid + 8][tig + 4]
+        }
+        uint32_t b_hi[NN][2], b_lo[NN][2];
+#pragma unroll
+        for (int n = 0; n < NN; ++n) {
+          const int n0 = s0 + (cg * NN + n) * 8;
+          split(d0r[n0 ^ g0], b_hi[n][0], b_lo[n][0]);  // B[tig][gid]
+          split(d4r[n0 ^ h0], b_hi[n][1], b_lo[n][1]);  // B[tig + 4][gid]
+        }
+#pragma unroll
+        for (int m = 0; m < WM2; ++m)
+#pragma unroll
+          for (int n = 0; n < NN; ++n) mma_tf32(acc[m][n], a_lo[m], b_hi[n][0], b_hi[n][1]);
+        if constexpr (TIER == TF32X3) {
+#pragma unroll
+          for (int m = 0; m < WM2; ++m)
+#pragma unroll
+            for (int n = 0; n < NN; ++n) mma_tf32(acc[m][n], a_hi[m], b_lo[n][0], b_lo[n][1]);
+        }
+#pragma unroll
+        for (int m = 0; m < WM2; ++m)
+#pragma unroll
+          for (int n = 0; n < NN; ++n) mma_tf32(acc[m][n], a_hi[m], b_hi[n][0], b_hi[n][1]);
       }
-#pragma unroll
-      for (int m = 0; m < WM2; ++m)
-#pragma unroll
-        for (int n = 0; n < NN; ++n) mma_tf32(acc[m][n], a_lo[m], b_hi[n][0], b_hi[n][1]);
-#pragma unroll
-      for (int m = 0; m < WM2; ++m)
-#pragma unroll
-        for (int n = 0; n < NN; ++n) mma_tf32(acc[m][n], a_hi[m], b_lo[n][0], b_lo[n][1]);
-#pragma unroll
-      for (int m = 0; m < WM2; ++m)
-#pragma unroll
-        for (int n = 0; n < NN; ++n) mma_tf32(acc[m][n], a_hi[m], b_hi[n][0], b_hi[n][1]);
     }
 
 #pragma unroll
@@ -428,7 +507,8 @@ struct GclBwdState {
 // One row tile of the GCL backward: rows i0 .. i0+TI-1 of the batch item at
 // node0, slab `slab` of the per-block scratch.  S, D: swizzled P x F tiles;
 // cols: N ints; all dynamic shared memory.  The ring runs on across tiles.
-template <int F>
+// TIER: the precision tier of the three products.
+template <int F, int TIER = TF32X3>
 __device__ void gcl_bwd_tile_tc(const GclBwdArgs& g, size_t node0, size_t slab, int i0,
                                 float* S, float* D, int* cols, W2BwdRing<F>& ring,
                                 GclBwdState& st) {
@@ -495,7 +575,7 @@ __device__ void gcl_bwd_tile_tc(const GclBwdArgs& g, size_t node0, size_t slab, 
              | (((e1 >> (8 * s)) & 0xffu) ? 1u : 0u) << (s + 4);
     fill_m1<F>(w, chunk, a_row, a_col, S);
     float acc[WM][L::NTN][4];
-    product_sw<F>(S, ring, acc);  // z2 - b2 = m1 @ W2
+    product_sw<F, TIER>(S, ring, acc);  // z2 - b2 = m1 @ W2
 
     // ---- epilogue: m2, the attention gate and its cotangent, dz2 -> D
     float gate[WM][2], dattz[WM][2];
@@ -587,11 +667,11 @@ __device__ void gcl_bwd_tile_tc(const GclBwdArgs& g, size_t node0, size_t slab, 
         }
     }
     __syncthreads();  // D complete
-    dw2_tc<F>(S, D, kmask, dw2);
+    dw2_tc<F, TIER>(S, D, kmask, dw2);
     __syncthreads();  // S is no longer read
     fill_dsilu<F>(w, chunk, a_row, a_col, D, S, st.fa.b2);
     load_a_col<F>(g.mlp, cols, count, c0 + TJ, node0, a_col);  // the next chunk's
-    product_sw<F>(D, ring, acc);  // dm1 = dz2 @ W2^T
+    product_sw<F, TIER>(D, ring, acc);  // dm1 = dz2 @ W2^T
     dpre_fragments<F>(acc, S, wd2s, wd20s, xpart);
     __syncthreads();  // dpre and the pair dots complete
     if (t < P) {

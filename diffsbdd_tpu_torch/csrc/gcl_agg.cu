@@ -31,7 +31,10 @@
 // * silu(pre) @ W2 on the tensor cores, mma.sync.m16n8k8 TF32 with each
 //   operand split into hi + lo TF32 parts (the TPU kernel's bf16_3x tier,
 //   _dot at diffsbdd_tpu/ops/egnn_pallas.py:283, in Hopper's format), so the
-//   result stays f32-grade; W2 is split in registers as its fragments load:
+//   result stays f32-grade (the library built with -DEGNN_TIER=1 drops W2's
+//   low part, 2xTF32; with -DEGNN_TIER=2 it runs one bf16 pass, m16n8k16,
+//   and rounds the pair MLP to bf16 as the TPU kernel's bfloat16 tier does:
+//   egnn_mma.cuh's tiers); W2 is split in registers as its fragments load:
 //   no extra bytes, where a split hoisted into the wrapper (W2_hi, W2_lo)
 //   doubles the L2 stream and the shared-memory loads (measured slower);
 // * W2 through a ring of 2 cp.async stages of 32 rows, the next in flight
@@ -53,8 +56,8 @@ __global__ void __launch_bounds__(NT) gcl_agg_kernel(GclArgs g) {
   const int i0 = blockIdx.x * TI;
   const size_t node0 = (size_t)blockIdx.y * g.N;
   const int left = g.N - i0;
-  mma::gcl_tile_tc<F>(g, node0, i0, smem, g.out + (node0 + i0) * F,
-                      left < TI ? left : TI);
+  mma::gcl_tile_tc<F, F, mma::kTier>(g, node0, i0, smem, g.out + (node0 + i0) * F,
+                                     left < TI ? left : TI);
   zero_rows_past_grid(g.out, node0, g.N, F);
 }
 

@@ -24,7 +24,8 @@
 // recompute, dW2, dm1), 6*F^2 operations against ~1 KB of projections --
 // bound by operations.  They run on the tensor cores in 3xTF32
 // (egnn_mma_bwd.cuh: mma.sync TF32, each operand split hi + lo), 3 * 6*F^2
-// tensor-core operations a pair at 495 TFLOP/s.  Beside them: the fills and
+// tensor-core operations a pair at 495 TFLOP/s (-DEGNN_TIER=1: 2xTF32, =2: one
+// bf16 pass; egnn_mma_bwd.cuh's tiers).  Beside them: the fills and
 // epilogues on the CUDA cores and the SFU, and the block's F x F dW2 slab,
 // read and written through L2 once a chunk.
 //
@@ -60,7 +61,7 @@ __global__ void __launch_bounds__(NT) gcl_agg_bwd_kernel(GclBwdArgs g) {
   mma::GclBwdState st{FeatAcc{0.0f, 0.0f, 0.0f, 0.0f, 0.0f}, hvs, 0.0f};
   for (int s = 0; s < mma::NS - 1; ++s) ring.issue();
   for (int tile = blockIdx.x; tile < g.tiles; tile += gridDim.x)
-    mma::gcl_bwd_tile_tc<F>(g, node0, slab, tile * TI, S, D, cols, ring, st);
+    mma::gcl_bwd_tile_tc<F, mma::kTier>(g, node0, slab, tile * TI, S, D, cols, ring, st);
   mma::cp_async_wait_all();  // the ring's look-ahead stage
   mma::store_gcl_bwd_state<F>(st, g.w_part + slab * weight_slab(F), S);
 }

@@ -14,16 +14,41 @@ The network takes the kernels' path unless its configuration asks for what
 they do not compute -- the sinusoidal distance embedding, mean aggregation
 or ``mode="gnn_dynamics"`` -- and then the dense path, as the JAX package's
 ``_resolve_impl`` chooses its XLA path for exactly these.
+
+Precision, by the JAX package's names (``config.py`` has the mapping):
+``matmul_precision`` picks the split kernels' tier and, on CUDA, whether the
+forward's cuBLAS products outside them (the "glue") run in TF32, set for the
+forward alone and restored after it; ``kernel_bwd_precision`` the backward
+kernels' tier (None: the forward's); ``compute_dtype="bfloat16"`` the dense
+path's pair-MLP type.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
 from torch import nn
 
+from diffsbdd_tpu_torch.config import precision_policy
 from diffsbdd_tpu_torch.models.egnn import EGNN, GNN, GraphContext
+from diffsbdd_tpu_torch.ops.egnn_cuda import DEFAULT_TIER
 from diffsbdd_tpu_torch.ops.masked import masked_mean
+
+
+@contextlib.contextmanager
+def glue_precision(tf32: bool, cuda: bool):
+    """CUDA float32 matrix products in TF32 (or not) inside the block, the
+    previous setting restored after it; nothing on the CPU."""
+    if not cuda:
+        yield
+        return
+    before = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before
 
 
 def build_adjacency(x_lig, x_pkt, mask_lig, mask_pkt, cutoff_ligand=None,
@@ -90,7 +115,9 @@ class EGNNDynamics(nn.Module):
                  update_pocket_coords: bool = False,
                  kernel_block_fuse: bool = False, mode: str = "egnn_dynamics",
                  sin_embedding: bool = False, aggregation_method: str = "sum",
-                 nan_check: bool = False):
+                 nan_check: bool = False, matmul_precision: str = "float32",
+                 kernel_bwd_precision: Optional[str] = None,
+                 compute_dtype: str = "float32"):
         super().__init__()
         if mode not in ("egnn_dynamics", "gnn_dynamics"):
             raise ValueError(mode)
@@ -99,6 +126,15 @@ class EGNNDynamics(nn.Module):
         # its XLA path; otherwise the kernels
         self.dense = sin_embedding or mode != "egnn_dynamics" \
             or aggregation_method != "sum"
+        # the kernels' tiers and the glue's (config.PRECISIONS)
+        self.precision, self.bwd_precision, self.tf32_glue, dtype = precision_policy(
+            matmul_precision, kernel_bwd_precision, compute_dtype)
+        self.compute_dtype = getattr(torch, dtype)
+        if kernel_block_fuse and self.precision != DEFAULT_TIER and not self.dense:
+            raise ValueError(
+                f"kernel_block_fuse: the whole-block kernel has the 3xTF32 tier "
+                f"only, not matmul_precision {matmul_precision!r} (its tiers are "
+                f"queued in ROADMAP.md section 2); set kernel_block_fuse false")
         # the sampling-time check: raise on non-finite velocities (one host
         # sync a forward, so off by default)
         self.nan_check = nan_check
@@ -138,6 +174,15 @@ class EGNNDynamics(nn.Module):
     def forward(self, xh_lig, xh_pkt, t, mask_lig, mask_pkt,
                 shared_pocket: bool = False, zero_nan: bool = False,
                 block_fuse: bool = False, shard=None):
+        """The velocities and type predictions (``_forward``), with the glue
+        products at ``matmul_precision``'s tier."""
+        with glue_precision(self.tf32_glue, xh_lig.is_cuda):
+            return self._forward(xh_lig, xh_pkt, t, mask_lig, mask_pkt,
+                                 shared_pocket, zero_nan, block_fuse, shard)
+
+    def _forward(self, xh_lig, xh_pkt, t, mask_lig, mask_pkt,
+                 shared_pocket: bool = False, zero_nan: bool = False,
+                 block_fuse: bool = False, shard=None):
         """``block_fuse``: run one-GCL blocks as the whole-block kernel (the
         samplers ask for it; it takes effect when ``kernel_block_fuse`` is
         set).  ``shared_pocket``: the batch holds one pocket replicated across
@@ -182,7 +227,8 @@ class EGNNDynamics(nn.Module):
                 update_rows=None if self.update_pocket_coords else NL,
                 block_fuse=bool(block_fuse) and self.kernel_block_fuse
                 and self.inv_sublayers == 1 and shard is None and not self.dense,
-                shard=shard, dense=self.dense)
+                shard=shard, dense=self.dense, precision=self.precision,
+                bwd_precision=self.bwd_precision, compute_dtype=self.compute_dtype)
             if self.dense:
                 ctx.adj, il_cols = _col_adjacency(x, mask, is_lig, self.cutoffs, ctx)
                 if type_table is not None:

@@ -18,6 +18,13 @@ dense path (``GraphContext.dense``), as the JAX package takes its XLA path
 for them: the (B, N, N) adjacency and the (B, N, N, .) edge features and
 messages in memory, plain ``torch`` products, no kernel.
 
+Precision: ``GraphContext.precision`` / ``bwd_precision`` are the split
+kernels' tiers (``ops.egnn_cuda.TIERS``) at every call; on the dense path
+``GraphContext.compute_dtype`` (bfloat16) keeps the EGNN's pair MLPs and
+their (B, N, N, .) messages in that type and sums them over the columns in
+float32, at the JAX package's casts (its ``compute_dtype``).  ``GNN`` stays
+in float32, as the JAX package's does.
+
 Module and parameter names follow the reference PyTorch state_dict
 (``egnn.e_block_0.gcl_0.edge_mlp.0.weight``, ``gnn.gcl_0.edge_mlp.0.weight``
 ...).
@@ -53,6 +60,12 @@ class GraphContext:
     # edge-axis sharding: a parallel.edge_shard.ShardContext (this rank's
     # column block and its group), or None
     shard: Optional[object] = None
+    # the split kernels' precision tiers (ops.egnn_cuda.TIERS): the forward
+    # kernels', and the backward kernels' (None: the forward's)
+    precision: str = kernels.DEFAULT_TIER
+    bwd_precision: Optional[str] = None
+    # the dense path's pair-MLP type (torch.bfloat16 or torch.float32)
+    compute_dtype: torch.dtype = torch.float32
 
     # the dense path: the adjacency (B, N, Nc) and the edge-type features
     # (B, N, Nc, E) or None of the columns this rank owns (all N without a
@@ -65,6 +78,11 @@ class GraphContext:
     @property
     def update_coords_mask(self) -> Optional[torch.Tensor]:
         return None if self.update_rows is None else self.is_lig
+
+    @property
+    def tiers(self) -> dict:
+        """The tier keywords of every split-kernel call."""
+        return dict(precision=self.precision, bwd_precision=self.bwd_precision)
 
     def enter(self, *tensors):
         """Replicated tensors about to feed this rank's share of a column
@@ -143,6 +161,16 @@ def split_pair_dense(weight, bias, h, edge_feat, node_dim: int, ctx=None):
     return pre + bias
 
 
+def pair_sum(m, adj):
+    """sum_j m_ij adj_ij (B, N, F) in float32, of messages m (B, N, Nc, F) in
+    float32 or bfloat16 (adj is 0 or 1: the bf16 products are exact, the sum
+    accumulates in float32, as the JAX package's einsum with
+    ``preferred_element_type=float32``)."""
+    if m.dtype == torch.float32:
+        return torch.einsum("bijf,bij->bif", m, adj)
+    return (m * adj.to(m.dtype)[..., None]).sum(2, dtype=torch.float32)
+
+
 def dense_aggregate(num, adj, method: str, normalization_factor: float, ctx=None):
     """Complete a row sum ``num`` (B, N, D) over the columns (one
     ``all_reduce`` under a shard) and normalize it: by the factor ("sum") or
@@ -214,7 +242,7 @@ class DenseGCL(nn.Module):
         else:
             weights += (None, None)
         kw = dict(cutoffs=ctx.cutoffs, attention=self.attention,
-                  normalization_factor=self.normalization_factor)
+                  normalization_factor=self.normalization_factor, **ctx.tiers)
         mask, is_lig, x0 = ctx.mask, ctx.is_lig, ctx.x0
         if ctx.shard is not None:
             agg = ctx.shard.aggregate(
@@ -250,7 +278,8 @@ class DenseGCL(nn.Module):
         """The dense path: the edge MLP on every (row, column) pair of
         ``adj`` (B, N, Nc) with the edge features ``edge_feat`` (B, N, Nc, .)
         or None, aggregated by ``aggregation_method``; under ``ctx``'s shard
-        the columns are this rank's and the sums complete over its group."""
+        the columns are this rank's and the sums complete over its group.  The
+        edge MLP runs in ``ctx.compute_dtype`` (float32 without a context)."""
         w = [self.edge_mlp[0].weight, self.edge_mlp[0].bias,
              self.edge_mlp[2].weight, self.edge_mlp[2].bias]
         if self.attention:
@@ -259,11 +288,15 @@ class DenseGCL(nn.Module):
             h_in, *w = ctx.enter(h, *w)
         else:
             h_in = h
+        cd = torch.float32 if ctx is None else ctx.compute_dtype
+        if cd != torch.float32:
+            h_in, w = h_in.to(cd), [t.to(cd) for t in w]
+            edge_feat = None if edge_feat is None else edge_feat.to(cd)
         m = F.silu(split_pair_dense(w[0], w[1], h_in, edge_feat, h.shape[-1], ctx))
         m = F.silu(F.linear(m, w[2], w[3]))
         if self.attention:
             m = m * torch.sigmoid(F.linear(m, w[4], w[5]))
-        num = torch.einsum("bijf,bij->bif", m, adj)
+        num = pair_sum(m, adj)
         agg = dense_aggregate(num, adj, self.aggregation_method,
                               self.normalization_factor, ctx)
         return self.node_update(h, agg, mask)
@@ -339,7 +372,7 @@ class DenseEquivariantUpdate(nn.Module):
         kw = dict(cutoffs=ctx.cutoffs, tanh=self.tanh, coords_range=self.coords_range,
                   norm_constant=self.norm_constant,
                   normalization_factor=self.normalization_factor,
-                  graph_mean=graph_mean, update_rows=ctx.update_rows)
+                  graph_mean=graph_mean, update_rows=ctx.update_rows, **ctx.tiers)
         if ctx.shard is not None:
             # the graph mean is of every node: computed before the split and
             # replicated; its cotangent is summed over the blocks with the rest
@@ -352,17 +385,22 @@ class DenseEquivariantUpdate(nn.Module):
     def dense_forward(self, h, x, coord_diff, coord_cross, edge_feat, ctx: GraphContext):
         """The dense path: both pair MLPs on every (row, column) pair, the
         translations summed over the adjacency and normalized by
-        ``aggregation_method``."""
+        ``aggregation_method``.  The pair MLPs run in ``ctx.compute_dtype``,
+        their outputs and everything after them in float32."""
         head = self.coord_mlp[4].weight
         mlps = [self.coord_mlp] + ([] if self.reflection_equiv else [self.cross_product_mlp])
         w = [head] + [t for mlp in mlps for t in (mlp[0].weight, mlp[0].bias,
                                                   mlp[2].weight, mlp[2].bias)]
         h_in, head, *w = ctx.enter(h, *w)
         H = h.shape[-1]
+        cd, feat = ctx.compute_dtype, edge_feat
+        if cd != torch.float32:
+            h_in, head, w = h_in.to(cd), head.to(cd), [t.to(cd) for t in w]
+            feat = edge_feat.to(cd)
 
         def phi(w0, b0, w1, b1):
-            z = F.silu(split_pair_dense(w0, b0, h_in, edge_feat, H, ctx))
-            out = F.linear(F.silu(F.linear(z, w1, b1)), head)  # (B, N, Nc, 1)
+            z = F.silu(split_pair_dense(w0, b0, h_in, feat, H, ctx))
+            out = F.linear(F.silu(F.linear(z, w1, b1)), head).float()  # (B, N, Nc, 1)
             return torch.tanh(out) * self.coords_range if self.tanh else out
 
         trans = coord_diff * phi(*w[:4])

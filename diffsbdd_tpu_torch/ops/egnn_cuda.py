@@ -42,6 +42,21 @@ launches each split kernel once per layer.  Each launch adds one to
 ``launch_counts[name]`` (one for the two phases of ``block_fused``, one for
 the coordinate kernel's two MLPs and the sum of their terms).
 
+Precision tiers.  The four split kernels take ``precision`` (and the
+forward wrappers ``bwd_precision`` for their backward kernels): ``"tf32x3"``
+(the default, 3xTF32: f32-grade), ``"tf32x2"`` (2xTF32: the second operand's
+low part dropped, W2's in the forward) or ``"bf16"`` (one bf16 pass, f32
+accumulation; the forward kernels also compute the pair MLP at the JAX
+package's bf16 rounding points, ``_pair_mlp_bf16``).  ``config.PRECISIONS``
+maps the JAX package's ``matmul_precision`` names onto them.  Each tier of a
+kernel is its own
+library; a tier that does not build or launch raises, and
+``tier_launch_counts["gcl_agg[bf16]"]`` counts the launches of each tier's
+library beside ``launch_counts``.  The plain versions
+emulate each tier (``matmul_3xtf32(passes=2)``, ``matmul_bf16``,
+``bf16_round``), so the CPU path computes what the card does.  The
+whole-block kernel has the 3xTF32 tier only.
+
 The kernels are compiled with ``nvcc`` for ``sm_90a`` into plain-C shared
 libraries under ``csrc/build`` at first use (``build_kernels``) and loaded with
 ctypes.
@@ -72,8 +87,50 @@ SUPPORTED_F = (64, 128, 256)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
+# precision tiers of the split kernels' products (csrc/egnn_mma.cuh, TIER):
+# the value is the library's -DEGNN_TIER
+TIERS = {"tf32x3": 0, "tf32x2": 1, "bf16": 2}
+DEFAULT_TIER = "tf32x3"
+TIERED = KERNELS[:4]  # block_fused has the 3xTF32 tier only
+
+# The card's gates, a tiered kernel against its plain version at the same
+# tier (chip_smoke.py phase 20a, tests/test_torch_gpu.py).  Two parts:
+#  * moved: the error's Frobenius norm within this share of the norm of how
+#    far the tier moves the plain version from float32's (``tier_moved_share``).
+#    A library that ran another tier's arithmetic (2xTF32 at three passes, bf16
+#    without its elementwise rounding points) reads near 1 or above
+#    (tests/test_torch_precision.py); the kernels read up to 0.087 on an H100
+#    (phase 20a: a 2xTF32 coordinate backward at F = 256);
+#  * share / bwd: the largest error within 1e-5 + 1e-4 |ref| + share * max
+#    |ref| (forward), within bwd * max |ref| + 1e-7 (each cotangent).  Kernel
+#    and plain version compute the values a tier rounds (silu, sums) a float32
+#    rounding apart, and a value next to a rounding boundary may round to the
+#    other neighbour: one ulp of that term, 2^-8 in bf16, and 2^-10 in 2xTF32
+#    where the dropped low part no longer makes up for it (the cotangent dz2
+#    in the dW2 product).  With few pairs a sum can be one such term, so the
+#    gate allows about one ulp of a term as large as the largest entry:
+#    2xTF32 backward 4e-3 (measured on an H100 up to 1.45e-3, a cross-MLP dW2
+#    of the card tests at F = 128), bf16 2e-3 forward and 4e-3 backward
+#    (measured up to 1.8e-4 and 4.1e-4); 3xTF32 keeps 1e-4.
+TIER_GATES = {"tf32x3": dict(share=0.0, bwd=1e-4, moved=None),
+              "tf32x2": dict(share=0.0, bwd=4e-3, moved=0.25),
+              "bf16": dict(share=2e-3, bwd=4e-3, moved=0.25)}
+
+
+def tier_moved_share(got: torch.Tensor, ref: torch.Tensor, exact: torch.Tensor) -> float:
+    """||got - ref|| / ||ref - exact|| (Frobenius norms): a tier's kernel
+    output ``got`` against its plain version ``ref``, as a share of how far
+    the tier moves that output from float32's ``exact``."""
+    err = float((got.double() - ref.double()).norm())
+    moved = float((ref.double() - exact.double()).norm())
+    return err / moved if moved > 0 else (0.0 if err == 0 else float("inf"))
+
+
 launch_counts: Dict[str, int] = {name: 0 for name in KERNELS}
-_libs: Dict[str, ctypes.CDLL] = {}
+# launches by kernel and tier, "gcl_agg[bf16]": which library ran
+tier_launch_counts: Dict[str, int] = {f"{name}[{tier}]": 0
+                                      for name in TIERED for tier in TIERS}
+_libs: Dict[tuple, ctypes.CDLL] = {}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -93,8 +150,16 @@ _ARGTYPES = {
 
 
 def reset_launch_counts() -> None:
-    for name in launch_counts:
-        launch_counts[name] = 0
+    for counts in (launch_counts, tier_launch_counts):
+        for name in counts:
+            counts[name] = 0
+
+
+def check_tier(name: str, tier: str) -> str:
+    """``tier`` if the kernel ``name`` has it; raises otherwise."""
+    if tier not in TIERS or (tier != DEFAULT_TIER and name not in TIERED):
+        raise ValueError(f"{name}: no precision tier {tier!r}")
+    return tier
 
 
 # ---------------------------------------------------------------------------
@@ -111,45 +176,53 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def _lib_path(name: str) -> Path:
-    return BUILD_DIR / f"lib{name}.so"
+def _lib_path(name: str, tier: str = DEFAULT_TIER) -> Path:
+    return BUILD_DIR / (f"lib{name}.so" if tier == DEFAULT_TIER else f"lib{name}_{tier}.so")
 
 
-def build_kernels(names: Sequence[str] = KERNELS, force: bool = False) -> Dict[str, str]:
-    """Compile the named kernels, one ``nvcc`` process each, all started
-    together.  Returns the compiler output (register and shared-memory use
-    from ``-Xptxas -v``) by kernel; raises if any build fails."""
+def build_kernels(names: Sequence[str] = KERNELS, force: bool = False,
+                  tiers: Sequence[str] = (DEFAULT_TIER,)) -> Dict[str, str]:
+    """Compile the named kernels at each of ``tiers`` they have, one ``nvcc``
+    process a library, all started together (a tier other than 3xTF32 with
+    ``-DEGNN_TIER``).  Returns the compiler output (register and
+    shared-memory use from ``-Xptxas -v``) by library: the kernel's name for
+    3xTF32, ``name[tier]`` for the others; raises if any build fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name in names:
-        src, lib = CSRC / f"{name}.cu", _lib_path(name)
-        newest = max(p.stat().st_mtime for p in (src, *HEADERS))
-        if not force and lib.exists() and lib.stat().st_mtime >= newest:
-            continue
-        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-        procs[name] = (subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), tmp, lib)
+        for tier in tiers:
+            if tier != DEFAULT_TIER and name not in TIERED:
+                continue
+            src, lib = CSRC / f"{name}.cu", _lib_path(name, tier)
+            newest = max(p.stat().st_mtime for p in (src, *HEADERS))
+            if not force and lib.exists() and lib.stat().st_mtime >= newest:
+                continue
+            tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+            define = [] if tier == DEFAULT_TIER else [f"-DEGNN_TIER={TIERS[tier]}"]
+            key = name if tier == DEFAULT_TIER else f"{name}[{tier}]"
+            procs[key] = (subprocess.Popen(
+                [_nvcc(), *NVCC_FLAGS, *define, "-o", str(tmp), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), tmp, lib)
     logs = {}
-    for name, (proc, tmp, lib) in procs.items():
+    for key, (proc, tmp, lib) in procs.items():
         out, _ = proc.communicate()
-        logs[name] = out
+        logs[key] = out
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}.cu:\n{out}")
+            raise RuntimeError(f"nvcc failed for {key}:\n{out}")
         os.replace(tmp, lib)
     return logs
 
 
-def _lib(name: str) -> ctypes.CDLL:
-    lib = _libs.get(name)
+def _lib(name: str, tier: str = DEFAULT_TIER) -> ctypes.CDLL:
+    lib = _libs.get((name, tier))
     if lib is None:
-        build_kernels([name])
-        lib = ctypes.CDLL(str(_lib_path(name)))
+        build_kernels([name], tiers=(tier,))
+        lib = ctypes.CDLL(str(_lib_path(name, tier)))
         fn_name, argtypes = _ARGTYPES[name]
         fn = getattr(lib, fn_name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-        _libs[name] = lib
+        _libs[(name, tier)] = lib
     return lib
 
 
@@ -178,12 +251,14 @@ def _cut2(c: Optional[float]) -> float:
     return -1.0 if c is None else float(c) * float(c)
 
 
-def _launch(name: str, *args) -> None:
-    fn = getattr(_lib(name), _ARGTYPES[name][0])
+def _launch(name: str, *args, tier: str = DEFAULT_TIER) -> None:
+    fn = getattr(_lib(name, tier), _ARGTYPES[name][0])
     err = fn(*args, torch.cuda.current_stream().cuda_stream)
     if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed with CUDA error {err}")
+        raise RuntimeError(f"{name}[{tier}] kernel launch failed with CUDA error {err}")
     launch_counts[name] += 1
+    if name in TIERED:
+        tier_launch_counts[f"{name}[{tier}]"] += 1
 
 
 # ---------------------------------------------------------------------------
@@ -229,21 +304,66 @@ def _keep_rows(agg, update_rows):
     return agg * keep[None, :, None].to(agg.dtype)
 
 
+def _pair_mlp_plain(row, col, d2, d2_0, is_lig, w_d2, w_d20, type_bias, w2, b2, *,
+                    matmul, precision):
+    """silu(silu(pre) @ w2 + b2) of every pair (B, N, N, F): ``matmul`` the
+    product at 3xTF32, the tier's product at 2xTF32, and on the bf16 tier the
+    JAX package's bf16 ``_pair_mlp`` (``_pair_mlp_bf16``)."""
+    if precision == "bf16":
+        return _pair_mlp_bf16(row, col, d2, d2_0, is_lig, w_d2, w_d20, type_bias, w2, b2)
+    if precision != DEFAULT_TIER:
+        matmul = _tier_product(precision)
+    silu = torch.nn.functional.silu
+    pre = row[:, :, None, :] + col[:, None, :, :] + _edge_bias_dense(
+        d2, d2_0, w_d2, w_d20, is_lig, type_bias)
+    return silu(matmul(silu(pre), w2) + b2)
+
+
+def _silu_bf16(x):
+    """The JAX package's ``_silu`` on a bfloat16 tensor, x * (1 / (1 + e^-x)),
+    each operation's result rounded to bfloat16."""
+    one = torch.ones((), dtype=torch.bfloat16, device=x.device)
+    return x * (one / (one + torch.exp(-x)))
+
+
+def _pair_mlp_bf16(row, col, d2, d2_0, is_lig, w_d2, w_d20, type_bias, w2, b2):
+    """The pair MLP at the JAX package's bf16 rounding points (its
+    ``_pair_mlp`` at ``mxu_precision="bfloat16"``, as the bf16 kernels compute
+    it): the edge-type table folded into row and col, which are rounded, as is
+    the edge bias (computed in float32); pre = (row + col) + bias and both
+    silus in bfloat16 operations; the product's operands rounded, its sum and
+    + b2 (rounded) in float32, z rounded.  Returns float32 holding bf16
+    values."""
+    bf = torch.bfloat16
+    row, col, delta = fold_type_bias(row, col, is_lig, type_bias)
+    bias = d2[..., None] * w_d2 + d2_0[..., None] * w_d20
+    if delta is not None:
+        bias = bias + (is_lig[:, :, None] * is_lig[:, None, :])[..., None] * delta
+    pre = (row.to(bf)[:, :, None, :] + col.to(bf)[:, None, :, :]) + bias.to(bf)
+    z = matmul_bf16(_silu_bf16(pre).float(), w2) + bf16_round(b2)
+    return _silu_bf16(z.to(bf)).float()
+
+
+def _head_weight(w, precision):
+    """A pair MLP's head (w_att, w3) as the tier's kernel reads it."""
+    return bf16_round(w) if precision == "bf16" else w
+
+
 def gcl_message_agg_plain(a_row, a_col, x, x0, mask, is_lig, w_d2, w_d20,
                           type_bias, w2, b2, w_att, b_att, *, cutoffs,
                           attention, normalization_factor, col_mask=None,
-                          update_rows=None, matmul=torch.matmul):
+                          update_rows=None, matmul=torch.matmul, precision=DEFAULT_TIER):
     """Dense twin of the GCL kernel (same math, O(N^2 F) in memory).
     ``matmul`` computes silu(pre) @ w2 (``matmul_3xtf32``: as the kernel's
-    tensor cores do)."""
-    silu = torch.nn.functional.silu
+    tensor cores do); ``precision`` another tier than 3xTF32 emulates that
+    kernel's (its product in place of ``matmul``, and the bf16 tier's
+    rounding points)."""
     d2 = _pair_d2(x)
     d2_0 = _pair_d2(x0)
-    pre = a_row[:, :, None, :] + a_col[:, None, :, :] + _edge_bias_dense(
-        d2, d2_0, w_d2, w_d20, is_lig, type_bias)
-    m = silu(matmul(silu(pre), w2) + b2)
+    m = _pair_mlp_plain(a_row, a_col, d2, d2_0, is_lig, w_d2, w_d20, type_bias, w2, b2,
+                        matmul=matmul, precision=precision)
     if attention:
-        m = m * torch.sigmoid(m @ w_att + b_att)
+        m = m * torch.sigmoid(m @ _head_weight(w_att, precision) + b_att)
     adj = adjacency_dense(d2_0, mask, is_lig, cutoffs, col_mask=col_mask)
     agg = (m * adj[..., None]).sum(2) / normalization_factor
     return _keep_rows(agg, update_rows)
@@ -253,19 +373,18 @@ def coord_update_agg_plain(a_row, a_col, x, x0, mask, is_lig, w_d2, w_d20,
                            type_bias, w2, b2, w3, *, cutoffs, tanh,
                            coords_range, norm_constant, normalization_factor,
                            cross=None, graph_mean=None, col_mask=None,
-                           update_rows=None, matmul=torch.matmul):
+                           update_rows=None, matmul=torch.matmul, precision=DEFAULT_TIER):
     """Dense twin of the coordinate-update kernel.  ``matmul`` computes
     silu(pre) @ w2 of both MLPs (``matmul_3xtf32``: as the kernel's tensor
-    cores do)."""
-    silu = torch.nn.functional.silu
+    cores do); ``precision``: as ``gcl_message_agg_plain``'s."""
     d2 = _pair_d2(x)
     d2_0 = _pair_d2(x0)
     adj = adjacency_dense(d2_0, mask, is_lig, cutoffs, col_mask=col_mask)
 
-    def head(r, c, wd2, wd20, tb, w2_, b2_, w3_):
-        pre = r[:, :, None, :] + c[:, None, :, :] + _edge_bias_dense(
-            d2, d2_0, wd2, wd20, is_lig, tb)
-        phi = (silu(matmul(silu(pre), w2_) + b2_) @ w3_)[..., 0]
+    def head(row, col, wd2, wd20, tb, w2_, b2_, w3_):
+        m = _pair_mlp_plain(row, col, d2, d2_0, is_lig, wd2, wd20, tb, w2_, b2_,
+                            matmul=matmul, precision=precision)
+        phi = (m @ _head_weight(w3_, precision))[..., 0]
         return torch.tanh(phi) * coords_range if tanh else phi
 
     phi = head(a_row, a_col, w_d2, w_d20, type_bias, w2, b2, w3)
@@ -302,12 +421,61 @@ def tf32_round(x: torch.Tensor) -> torch.Tensor:
 def matmul_3xtf32(a: torch.Tensor, b: torch.Tensor, passes: int = 3) -> torch.Tensor:
     """a @ b as ``csrc/egnn_mma.cuh`` computes it: each operand split into
     TF32 parts hi + lo, summed as lo*hi + hi*lo + hi*hi in float32 (lo*lo
-    dropped).  ``passes=1`` is plain TF32 (hi*hi only)."""
+    dropped).  ``passes=2`` is the 2xTF32 tier, lo*hi + hi*hi (b's low part
+    dropped, as the JAX package's "float32_x2" drops the weight's);
+    ``passes=1`` is plain TF32 (hi*hi only)."""
     a_hi, b_hi = tf32_round(a), tf32_round(b)
     if passes == 1:
         return a_hi @ b_hi
-    a_lo, b_lo = tf32_round(a - a_hi), tf32_round(b - b_hi)
+    a_lo = tf32_round(a - a_hi)
+    if passes == 2:
+        return a_lo @ b_hi + a_hi @ b_hi
+    b_lo = tf32_round(b - b_hi)
     return a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi
+
+
+def bf16_round(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to the nearest bfloat16 (ties to even, as ``astype`` and the
+    kernels' ``cvt.rn.bf16x2``), kept in x's type."""
+    return x.to(torch.bfloat16).to(x.dtype)
+
+
+def matmul_bf16(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b as the bf16 tier's ``mma.sync.m16n8k16``: both operands rounded
+    to bfloat16, the exact products summed in float32."""
+    return bf16_round(a) @ bf16_round(b)
+
+
+def _tier_product(precision: str):
+    """The product a tier's tensor cores compute (3xTF32: float32's own)."""
+    return {"tf32x3": torch.matmul, "bf16": matmul_bf16,
+            "tf32x2": lambda a, b: matmul_3xtf32(a, b, passes=2)}[precision]
+
+
+class _TierMatmul(torch.autograd.Function):
+    """a @ b at a tier, and its backward as the backward kernels run it: dA =
+    g @ b^T and dB = a^T g at the same tier (the second operand's low part
+    dropped in 2xTF32), in float32 around them."""
+
+    @staticmethod
+    def forward(ctx, a, b, precision):
+        ctx.save_for_backward(a, b)
+        ctx.precision = precision
+        return _tier_product(precision)(a, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        mm, f = _tier_product(ctx.precision), b.shape[0]
+        return (mm(g, b.t()), mm(a.reshape(-1, f).t(), g.reshape(-1, f)), None)
+
+
+def _bwd_matmul(precision: str, matmul):
+    """The product a plain backward version differentiates through: the
+    caller's at 3xTF32, the tier's (both directions) otherwise."""
+    if precision == DEFAULT_TIER:
+        return matmul
+    return lambda a, b: _TierMatmul.apply(a, b, precision)
 
 
 # ---------------------------------------------------------------------------
@@ -407,10 +575,13 @@ def _grads(out, g, leaves):
 def gcl_agg_bwd_plain(g, a_row, a_col, x, x0, mask, is_lig, w_d2, w_d20, delta,
                       w2, b2, w_att, b_att, *, cutoffs, attention,
                       normalization_factor, col_mask=None, update_rows=None,
-                      matmul=torch.matmul):
+                      matmul=torch.matmul, precision=DEFAULT_TIER):
     """Plain version of ``gcl_agg_bwd``: autograd through the dense twin.
     ``matmul`` computes silu(pre) @ w2, and through its backward the dm1 and
-    dW2 products (tests: the kernel's 3xTF32 products, emulated)."""
+    dW2 products (tests: the kernel's 3xTF32 products, emulated); another
+    ``precision`` runs all three at that tier, the rest in float32, as the
+    backward kernel of that tier does."""
+    matmul = _bwd_matmul(precision, matmul)
     with torch.enable_grad():
         lv = _leaves([a_row, a_col, x, x0, w_d2, w_d20, delta, w2, b2, w_att, b_att])
         out = gcl_message_agg_plain(
@@ -427,11 +598,13 @@ _MLP_KEYS = ("a_row", "a_col", "w_d2", "w_d20", "delta", "w2", "b2", "w3")
 def coord_agg_bwd_plain(g, a_row, a_col, x, x0, mask, is_lig, w_d2, w_d20, delta,
                         w2, b2, w3, *, cutoffs, tanh, coords_range, norm_constant,
                         normalization_factor, cross=None, graph_mean=None,
-                        col_mask=None, update_rows=None, matmul=torch.matmul):
+                        col_mask=None, update_rows=None, matmul=torch.matmul,
+                        precision=DEFAULT_TIER):
     """Plain version of ``coord_agg_bwd``: autograd through the dense twin.
     ``matmul`` computes silu(pre) @ w2 of both MLPs, and through its backward
     their dm1 and dW2 products (tests: the kernel's 3xTF32 products,
-    emulated)."""
+    emulated); ``precision``: as ``gcl_agg_bwd_plain``'s."""
+    matmul = _bwd_matmul(precision, matmul)
     with torch.enable_grad():
         lv = _leaves([a_row, a_col, x, x0, w_d2, w_d20, delta, w2, b2, w3])
         cl, gm, cross_in = [], None, None
@@ -512,7 +685,7 @@ def _split_weight_slab(w_out, F):
 
 
 def _gcl_forward_cuda(a_row, a_col, x, x0, mask, cm, is_lig, w_d2, w_d20, delta,
-                      w2, b2, w_att, b_att, cutoffs, nf, update_rows):
+                      w2, b2, w_att, b_att, cutoffs, nf, update_rows, tier):
     B, N, F = a_row.shape
     watt = None if w_att is None else w_att.reshape(F)
     _check_mlp("gcl_message_agg", "", dict(a_row=a_row, a_col=a_col, w_d2=w_d2,
@@ -530,24 +703,26 @@ def _gcl_forward_cuda(a_row, a_col, x, x0, mask, cm, is_lig, w_d2, w_d20, delta,
             _ptr(is_lig), _ptr(w_d2), _ptr(w_d20), _ptr(delta), _ptr(w2),
             _ptr(b2), _ptr(watt), _ptr(b_att),
             _cut2(cutoffs[0]), _cut2(cutoffs[1]), _cut2(cutoffs[2]),
-            float(nf), B, N, F, _rows(update_rows, N), out.data_ptr())
+            float(nf), B, N, F, _rows(update_rows, N), out.data_ptr(), tier=tier)
     return out
 
 
 def gcl_agg_bwd(g, a_row, a_col, x, x0, mask, is_lig, w_d2, w_d20, delta, w2, b2,
                 w_att, b_att, *, cutoffs, attention, normalization_factor,
-                col_mask=None, update_rows=None):
+                col_mask=None, update_rows=None, precision=DEFAULT_TIER):
     """Cotangents of ``gcl_message_agg`` on folded operands (``delta`` (F,) or
     None in place of the edge-type table) for the output cotangent ``g``
-    (B, N, F); rows of ``g`` past ``update_rows`` are ignored.
+    (B, N, F); rows of ``g`` past ``update_rows`` are ignored.  ``precision``:
+    the tier of the three products.
 
     Returns (da_row, da_col, dx, dx0, dw_d2, dw_d20, ddelta, dw2, db2, dw_att,
     db_att); ddelta is None without delta, dw_att and db_att without attention.
     CPU tensors take the plain version, CUDA tensors the kernel.
     """
+    check_tier("gcl_agg_bwd", precision)
     kw = dict(cutoffs=cutoffs, attention=attention,
               normalization_factor=normalization_factor, col_mask=col_mask,
-              update_rows=update_rows)
+              update_rows=update_rows, precision=precision)
     if a_row.device.type == "cpu":
         return gcl_agg_bwd_plain(g, a_row, a_col, x, x0, mask, is_lig, w_d2, w_d20,
                                  delta, w2, b2, w_att, b_att, **kw)
@@ -584,7 +759,7 @@ def gcl_agg_bwd(g, a_row, a_col, x, x0, mask, is_lig, w_d2, w_d20, delta, w2, b2
             _cut2(cutoffs[0]), _cut2(cutoffs[1]), _cut2(cutoffs[2]),
             float(normalization_factor), B, N, F, rows, Q,
             _ptr(da_row), _ptr(acol_part), _ptr(dx_part), _ptr(w_part),
-            _ptr(da_col), _ptr(dxx0), _ptr(w_out))
+            _ptr(da_col), _ptr(dxx0), _ptr(w_out), tier=precision)
     dw2, vec = _split_weight_slab(w_out, F)
     return (da_row, da_col, dxx0[..., :3], dxx0[..., 3:], vec[0], vec[1],
             None if delta is None else vec[2], dw2, vec[3],
@@ -593,7 +768,7 @@ def gcl_agg_bwd(g, a_row, a_col, x, x0, mask, is_lig, w_d2, w_d20, delta, w2, b2
 
 
 def _coord_forward_cuda(main, c, x, x0, mask, cm, is_lig, gm, cutoffs, tanh,
-                        coords_range, norm_constant, nf, update_rows):
+                        coords_range, norm_constant, nf, update_rows, tier):
     B, N, F = main["a_row"].shape
     dev = main["a_row"].device
     _check_mlp("coord_update_agg", "", main, B, N, F, dev)
@@ -613,7 +788,7 @@ def _coord_forward_cuda(main, c, x, x0, mask, cm, is_lig, gm, cutoffs, tanh,
             _ptr(x), _ptr(x0), _ptr(mask), _ptr(cm), _ptr(is_lig), _ptr(gm),
             int(bool(tanh)), float(coords_range), float(norm_constant), float(nf),
             _cut2(cutoffs[0]), _cut2(cutoffs[1]), _cut2(cutoffs[2]),
-            B, N, F, _rows(update_rows, N), _ptr(partial), out.data_ptr())
+            B, N, F, _rows(update_rows, N), _ptr(partial), out.data_ptr(), tier=tier)
     return out
 
 
@@ -623,10 +798,11 @@ _NO_MLP = dict.fromkeys(_MLP_KEYS)
 def coord_agg_bwd(g, a_row, a_col, x, x0, mask, is_lig, w_d2, w_d20, delta, w2, b2,
                   w3, *, cutoffs, tanh, coords_range, norm_constant,
                   normalization_factor, cross=None, graph_mean=None,
-                  col_mask=None, update_rows=None):
+                  col_mask=None, update_rows=None, precision=DEFAULT_TIER):
     """Cotangents of ``coord_update_agg`` on folded operands for the output
     cotangent ``g`` (B, N, 3); rows of ``g`` past ``update_rows`` are ignored.
     ``cross``: dict(a_row, a_col, w_d2, w_d20, delta, w2, b2, w3) or None.
+    ``precision``: the tier of each MLP's three products.
 
     Returns (main, cross, dmean): main = (da_row, da_col, dx, dx0, dw_d2,
     dw_d20, ddelta, dw2, db2, dw3); cross the same cotangents of the cross MLP
@@ -634,10 +810,12 @@ def coord_agg_bwd(g, a_row, a_col, x, x0, mask, is_lig, w_d2, w_d20, delta, w2, 
     The two w3 cotangents come back separately even where the heads are tied.
     CPU tensors take the plain version, CUDA tensors the kernel.
     """
+    check_tier("coord_agg_bwd", precision)
     kw = dict(cutoffs=cutoffs, tanh=tanh, coords_range=coords_range,
               norm_constant=norm_constant,
               normalization_factor=normalization_factor, cross=cross,
-              graph_mean=graph_mean, col_mask=col_mask, update_rows=update_rows)
+              graph_mean=graph_mean, col_mask=col_mask, update_rows=update_rows,
+              precision=precision)
     if a_row.device.type == "cpu":
         return coord_agg_bwd_plain(g, a_row, a_col, x, x0, mask, is_lig, w_d2,
                                    w_d20, delta, w2, b2, w3, **kw)
@@ -694,7 +872,7 @@ def coord_agg_bwd(g, a_row, a_col, x, x0, mask, is_lig, w_d2, w_d20, delta, w2, 
             _ptr(co["ccol_part"]), _ptr(out["dx_part"]), _ptr(co["mean_part"]),
             _ptr(out["w_part"]), _ptr(co["cw_part"]),
             _ptr(out["da_col"]), _ptr(co["dc_col"]), _ptr(out["dxx0"]),
-            _ptr(co["dmean"]), _ptr(out["w_out"]), _ptr(co["cw_out"]))
+            _ptr(co["dmean"]), _ptr(out["w_out"]), _ptr(co["cw_out"]), tier=precision)
 
     def cotangents(row, col, w_out, has_delta):
         dw2, vec = _split_weight_slab(w_out, F)
@@ -716,43 +894,53 @@ def coord_agg_bwd(g, a_row, a_col, x, x0, mask, is_lig, w_d2, w_d20, delta, w2, 
 # ---------------------------------------------------------------------------
 
 class _GclAggFn(torch.autograd.Function):
-    """``gcl_message_agg`` on CUDA over folded operands.  Forward saves the
-    operands only; backward recomputes the pair MLP inside its kernel."""
+    """``gcl_message_agg`` over folded operands: the forward kernel at the
+    forward tier, the backward kernel at the backward tier.  Forward saves the
+    operands only; backward recomputes the pair MLP inside its kernel.  On
+    the CPU (a tier other than 3xTF32) the plain versions of both, at their
+    tiers."""
 
     @staticmethod
     def forward(ctx, a_row, a_col, x, x0, w_d2, w_d20, delta, w2, b2, w_att, b_att,
                 mask, col_mask, is_lig, cfg):
-        cutoffs, attention, nf, update_rows = cfg
+        cutoffs, attention, nf, update_rows, tier, _ = cfg
         ctx.cfg = cfg
         ctx.save_for_backward(a_row, a_col, x, x0, w_d2, w_d20, delta, w2, b2,
                               w_att, b_att, mask, col_mask, is_lig)
+        if a_row.device.type == "cpu":
+            return gcl_message_agg_plain(
+                a_row, a_col, x, x0, mask, is_lig, w_d2, w_d20, _delta_table(delta),
+                w2, b2, w_att, b_att, cutoffs=cutoffs, attention=attention,
+                normalization_factor=nf, col_mask=col_mask, update_rows=update_rows,
+                precision=tier)
         return _gcl_forward_cuda(
             a_row, a_col, x, x0, mask, mask if col_mask is None else col_mask,
             is_lig, w_d2, w_d20, delta, w2, b2, w_att if attention else None,
-            b_att if attention else None, cutoffs, nf, update_rows)
+            b_att if attention else None, cutoffs, nf, update_rows, tier)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, g):
         (a_row, a_col, x, x0, w_d2, w_d20, delta, w2, b2, w_att, b_att, mask,
          col_mask, is_lig) = ctx.saved_tensors
-        cutoffs, attention, nf, update_rows = ctx.cfg
+        cutoffs, attention, nf, update_rows, _, bwd_tier = ctx.cfg
         grads = gcl_agg_bwd(
             g.contiguous(), a_row, a_col, x, x0, mask, is_lig, w_d2, w_d20, delta,
             w2, b2, w_att, b_att, cutoffs=cutoffs, attention=attention,
-            normalization_factor=nf, col_mask=col_mask, update_rows=update_rows)
+            normalization_factor=nf, col_mask=col_mask, update_rows=update_rows,
+            precision=bwd_tier)
         return (*grads, None, None, None, None)
 
 
 class _CoordAggFn(torch.autograd.Function):
-    """``coord_update_agg`` on CUDA over folded operands: the masks, 10
-    tensors of the coordinate MLP and the coordinates, then (with the cross
+    """``coord_update_agg`` over folded operands, as ``_GclAggFn``: the masks,
+    10 tensors of the coordinate MLP and the coordinates, then (with the cross
     branch) the 8 of the cross MLP and the graph mean."""
 
     @staticmethod
     def forward(ctx, cfg, mask, col_mask, is_lig, a_row, a_col, x, x0, w_d2, w_d20,
                 delta, w2, b2, w3, *cross_ops):
-        cutoffs, tanh, coords_range, norm_constant, nf, update_rows = cfg
+        cutoffs, tanh, coords_range, norm_constant, nf, update_rows, tier, _ = cfg
         ctx.cfg = cfg
         ctx.save_for_backward(mask, col_mask, is_lig, a_row, a_col, x, x0, w_d2,
                               w_d20, delta, w2, b2, w3, *cross_ops)
@@ -761,24 +949,34 @@ class _CoordAggFn(torch.autograd.Function):
         c, gm = _NO_MLP, None
         if cross_ops:
             c, gm = dict(zip(_MLP_KEYS, cross_ops[:-1])), cross_ops[-1]
+        if a_row.device.type == "cpu":
+            cross = None
+            if cross_ops:
+                cross = dict(c, type_bias=_delta_table(c["delta"]))
+            return coord_update_agg_plain(
+                a_row, a_col, x, x0, mask, is_lig, w_d2, w_d20, _delta_table(delta),
+                w2, b2, w3, cutoffs=cutoffs, tanh=tanh, coords_range=coords_range,
+                norm_constant=norm_constant, normalization_factor=nf, cross=cross,
+                graph_mean=gm, col_mask=col_mask, update_rows=update_rows,
+                precision=tier)
         return _coord_forward_cuda(main, c, x, x0, mask,
                                    mask if col_mask is None else col_mask, is_lig, gm,
                                    cutoffs, tanh, coords_range, norm_constant, nf,
-                                   update_rows)
+                                   update_rows, tier)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, g):
         mask, col_mask, is_lig, *ops = ctx.saved_tensors
         main_ops, cross_ops = ops[:10], ops[10:]
-        cutoffs, tanh, coords_range, norm_constant, nf, update_rows = ctx.cfg
+        cutoffs, tanh, coords_range, norm_constant, nf, update_rows, _, bwd_tier = ctx.cfg
         cross = dict(zip(_MLP_KEYS, cross_ops[:-1])) if cross_ops else None
         main_cot, cross_cot, dmean = coord_agg_bwd(
             g.contiguous(), *main_ops[:4], mask, is_lig, *main_ops[4:],
             cutoffs=cutoffs, tanh=tanh, coords_range=coords_range,
             norm_constant=norm_constant, normalization_factor=nf, cross=cross,
             graph_mean=cross_ops[-1] if cross_ops else None, col_mask=col_mask,
-            update_rows=update_rows)
+            update_rows=update_rows, precision=bwd_tier)
         grads = (None, None, None, None) + tuple(main_cot)
         if cross_ops:
             grads += tuple(cross_cot[k] for k in _MLP_KEYS) + (dmean,)
@@ -789,9 +987,17 @@ class _CoordAggFn(torch.autograd.Function):
 # public wrappers: plain twin on the CPU, kernels on CUDA
 # ---------------------------------------------------------------------------
 
+def _tiers(name, precision, bwd_precision):
+    """(forward tier, backward tier): the backward's is the forward's when
+    None."""
+    fwd = check_tier(name, precision)
+    return fwd, check_tier(name, fwd if bwd_precision is None else bwd_precision)
+
+
 def gcl_message_agg(a_row, a_col, x, x0, mask, is_lig, w_d2, w_d20,
                     type_bias, w2, b2, w_att, b_att, *, cutoffs, attention,
-                    normalization_factor, col_mask=None, update_rows=None):
+                    normalization_factor, col_mask=None, update_rows=None,
+                    precision=DEFAULT_TIER, bwd_precision=None):
     """Aggregated attention-gated GCL messages -> (B, N, F).
 
     a_row/a_col: per-node projections of h through the split first-layer
@@ -799,22 +1005,27 @@ def gcl_message_agg(a_row, a_col, x, x0, mask, is_lig, w_d2, w_d20,
     rows of the two distance features; type_bias: optional (2, 2, F)
     projected edge-type table; w2 (F, F) input-major, w_att (F, 1), b_att (1,).
     ``col_mask`` restricts the neighbour side; rows >= ``update_rows`` are
-    exact zeros.  Differentiable on both devices: by plain autograd through
-    the twin on the CPU, through the forward and backward kernels on CUDA
-    (the edge-type fold stays outside them, so autograd chains through it).
+    exact zeros.  ``precision``: the forward kernel's tier, ``bwd_precision``
+    the backward kernel's (None: the forward's).  Differentiable on both
+    devices: by plain autograd through the twin on the CPU at 3xTF32, through
+    the forward and backward kernels on CUDA, and through the plain versions
+    of both at their tiers on the CPU otherwise (the edge-type fold stays
+    outside them, so autograd chains through it).
     """
-    if a_row.device.type == "cpu":
+    tiers = _tiers("gcl_agg", precision, bwd_precision)
+    if a_row.device.type == "cpu" and tiers == (DEFAULT_TIER, DEFAULT_TIER):
         return gcl_message_agg_plain(
             a_row, a_col, x, x0, mask, is_lig, w_d2, w_d20, type_bias, w2, b2,
             w_att, b_att, cutoffs=cutoffs, attention=attention,
             normalization_factor=normalization_factor, col_mask=col_mask,
             update_rows=update_rows)
-    if a_row.device.type != "cuda":
+    if a_row.device.type not in ("cpu", "cuda"):
         raise ValueError(f"gcl_message_agg: unsupported device {a_row.device}")
-    _check_width("gcl_message_agg", a_row.shape[-1])
+    if a_row.device.type == "cuda":
+        _check_width("gcl_message_agg", a_row.shape[-1])
     a_row, a_col, delta = fold_type_bias(a_row, a_col, is_lig, type_bias)
     cfg = (tuple(cutoffs), bool(attention), float(normalization_factor),
-           None if update_rows is None else int(update_rows))
+           None if update_rows is None else int(update_rows), *tiers)
     return _GclAggFn.apply(a_row.contiguous(), a_col.contiguous(), x, x0, w_d2,
                            w_d20, delta, w2, b2, w_att, b_att, mask, col_mask,
                            is_lig, cfg)
@@ -823,7 +1034,8 @@ def gcl_message_agg(a_row, a_col, x, x0, mask, is_lig, w_d2, w_d20,
 def coord_update_agg(a_row, a_col, x, x0, mask, is_lig, w_d2, w_d20,
                      type_bias, w2, b2, w3, *, cutoffs, tanh, coords_range,
                      norm_constant, normalization_factor, cross=None,
-                     graph_mean=None, col_mask=None, update_rows=None):
+                     graph_mean=None, col_mask=None, update_rows=None,
+                     precision=DEFAULT_TIER, bwd_precision=None):
     """Coordinate-update aggregation -> (B, N, 3).
 
     ``cross``: dict(a_row, a_col, w_d2, w_d20, type_bias, w2, b2, w3) of the
@@ -831,19 +1043,22 @@ def coord_update_agg(a_row, a_col, x, x0, mask, is_lig, w_d2, w_d20,
     ``graph_mean`` (B, 3) the masked mean of the current coordinates.  w3
     (F, 1) is the scalar head.  ``col_mask`` restricts the neighbour side (a
     column block under edge-axis sharding; ``mask`` when None).  Rows >=
-    ``update_rows`` are exact zeros.  Differentiable on both devices, as
+    ``update_rows`` are exact zeros.  ``precision``, ``bwd_precision``: as
+    ``gcl_message_agg``'s.  Differentiable on both devices, as
     ``gcl_message_agg`` is.
     """
-    if a_row.device.type == "cpu":
+    tiers = _tiers("coord_agg", precision, bwd_precision)
+    if a_row.device.type == "cpu" and tiers == (DEFAULT_TIER, DEFAULT_TIER):
         return coord_update_agg_plain(
             a_row, a_col, x, x0, mask, is_lig, w_d2, w_d20, type_bias, w2, b2, w3,
             cutoffs=cutoffs, tanh=tanh, coords_range=coords_range,
             norm_constant=norm_constant,
             normalization_factor=normalization_factor, cross=cross,
             graph_mean=graph_mean, col_mask=col_mask, update_rows=update_rows)
-    if a_row.device.type != "cuda":
+    if a_row.device.type not in ("cpu", "cuda"):
         raise ValueError(f"coord_update_agg: unsupported device {a_row.device}")
-    _check_width("coord_update_agg", a_row.shape[-1])
+    if a_row.device.type == "cuda":
+        _check_width("coord_update_agg", a_row.shape[-1])
     a_row, a_col, delta = fold_type_bias(a_row, a_col, is_lig, type_bias)
     cross_ops = ()
     if cross is not None:
@@ -856,7 +1071,7 @@ def coord_update_agg(a_row, a_col, x, x0, mask, is_lig, w_d2, w_d20,
                      cross["w3"], graph_mean)
     cfg = (tuple(cutoffs), bool(tanh), float(coords_range), float(norm_constant),
            float(normalization_factor),
-           None if update_rows is None else int(update_rows))
+           None if update_rows is None else int(update_rows), *tiers)
     return _CoordAggFn.apply(cfg, mask, col_mask, is_lig, a_row.contiguous(),
                              a_col.contiguous(), x, x0, w_d2, w_d20, delta, w2, b2,
                              w3, *cross_ops)

@@ -72,7 +72,10 @@ class LigandPocketDDPM(nn.Module):
                  auxiliary_loss: bool = False, loss_params: Optional[Config] = None,
                  augment_noise: float = 0.0, augment_rotation: bool = False,
                  lig_bucket: int = 8, pocket_bucket: int = 64,
-                 kernel_block_fuse: bool = False, nan_check: bool = False):
+                 kernel_block_fuse: bool = False, nan_check: bool = False,
+                 matmul_precision: str = "float32",
+                 kernel_bwd_precision: Optional[str] = None,
+                 compute_dtype: str = "float32"):
         super().__init__()
         if mode not in DDPM_MODELS:
             raise ValueError(f"mode {mode!r} not in {sorted(DDPM_MODELS)}")
@@ -135,7 +138,9 @@ class LigandPocketDDPM(nn.Module):
             update_pocket_coords=(mode == "joint"),
             kernel_block_fuse=kernel_block_fuse,
             sin_embedding=egnn_params.sin_embedding,
-            aggregation_method=egnn_params.aggregation_method, nan_check=nan_check)
+            aggregation_method=egnn_params.aggregation_method, nan_check=nan_check,
+            matmul_precision=matmul_precision, kernel_bwd_precision=kernel_bwd_precision,
+            compute_dtype=compute_dtype)
         self.ddpm = DDPM_MODELS[mode](
             dynamics=dynamics, atom_nf=self.atom_nf, residue_nf=self.residue_nf,
             n_dims=3, timesteps=diffusion_params.diffusion_steps,
@@ -389,6 +394,8 @@ class LigandPocketDDPM(nn.Module):
 
 
 def build_module_from_config(cfg: Config, node_histogram) -> LigandPocketDDPM:
+    """The module a config describes; the ``tpu`` fields it reads are listed
+    in ``config.py``."""
     return LigandPocketDDPM(
         dataset=cfg.dataset, mode=cfg.mode, egnn_params=cfg.egnn_params,
         diffusion_params=cfg.diffusion_params, node_histogram=node_histogram,
@@ -398,4 +405,7 @@ def build_module_from_config(cfg: Config, node_histogram) -> LigandPocketDDPM:
         augment_noise=cfg.augment_noise, augment_rotation=cfg.augment_rotation,
         lig_bucket=cfg.tpu.lig_bucket, pocket_bucket=cfg.tpu.pocket_bucket,
         kernel_block_fuse=cfg.tpu.get("kernel_block_fuse", False),
-        nan_check=cfg.tpu.get("nan_check", False))
+        nan_check=cfg.tpu.get("nan_check", False),
+        matmul_precision=cfg.tpu.get("matmul_precision", "float32"),
+        kernel_bwd_precision=cfg.tpu.get("kernel_bwd_precision"),
+        compute_dtype=cfg.tpu.get("compute_dtype", "float32"))

@@ -25,7 +25,10 @@ def _needs_card():
         pytest.skip("needs a CUDA card")
 
 
-def _inputs(seed, N=N, F=F):
+def _inputs(seed, N=N, F=F, w_scale=0.3):
+    """Operands on the card; ``w_scale`` the F x F and head weights' (None:
+    fan-in, F ** -0.5, a trained layer's)."""
+    w_scale = F ** -0.5 if w_scale is None else w_scale
     g = torch.Generator().manual_seed(seed)
     r = lambda *s, scale=1.0: (torch.randn(s, generator=g) * scale).cuda()
     x = r(B, N, 3, scale=3.0)
@@ -34,14 +37,14 @@ def _inputs(seed, N=N, F=F):
     main = dict(a_row=r(B, N, F, scale=0.3), a_col=r(B, N, F, scale=0.3),
                 x=x, x0=x + r(B, N, 3, scale=0.1), mask=mask, is_lig=is_lig,
                 w_d2=r(F, scale=0.1), w_d20=r(F, scale=0.1),
-                type_bias=r(2, 2, F, scale=0.2), w2=r(F, F, scale=0.3),
+                type_bias=r(2, 2, F, scale=0.2), w2=r(F, F, scale=w_scale),
                 b2=r(F, scale=0.1))
-    extra = dict(w_att=r(F, 1, scale=0.3), b_att=r(1, scale=0.1),
-                 w3=r(F, 1, scale=0.3),
+    extra = dict(w_att=r(F, 1, scale=w_scale), b_att=r(1, scale=0.1),
+                 w3=r(F, 1, scale=w_scale),
                  cross=dict(a_row=r(B, N, F, scale=0.3), a_col=r(B, N, F, scale=0.3),
                             w_d2=r(F, scale=0.1), w_d20=r(F, scale=0.1),
                             type_bias=r(2, 2, F, scale=0.2),
-                            w2=r(F, F, scale=0.3), b2=r(F, scale=0.1)))
+                            w2=r(F, F, scale=w_scale), b2=r(F, scale=0.1)))
     return main, extra
 
 
@@ -186,11 +189,11 @@ def _folded_cross(cross, is_lig, w3, with_delta=True):
                 delta=c["type_bias"], w2=c["w2"], b2=c["b2"], w3=w3)
 
 
-def _assert_cotangents(got, ref):
-    """Every cotangent within 1e-4 of its plain version, relative to that
-    cotangent's largest entry: float32 on both sides, but the kernel sums
-    thousands of pairs per entry in another order (weights: every pair of the
-    batch), so the error scales with the sum, not with the entry."""
+def _assert_cotangents(got, ref, rel=1e-4):
+    """Every cotangent within ``rel`` (1e-4) of its plain version, relative
+    to that cotangent's largest entry: float32 on both sides, but the kernel
+    sums thousands of pairs per entry in another order (weights: every pair
+    of the batch), so the error scales with the sum, not with the entry."""
     assert got.keys() == ref.keys()
     for name in ref:
         if ref[name] is None:
@@ -199,7 +202,7 @@ def _assert_cotangents(got, ref):
         scale = float(ref[name].abs().max())
         err = float((got[name] - ref[name]).abs().max())
         assert torch.isfinite(got[name]).all(), name
-        assert err <= 1e-4 * scale + 1e-7, (name, err, scale)
+        assert err <= rel * scale + 1e-7, (name, err, scale)
 
 
 @pytest.mark.parametrize("attention", [True, False])
@@ -665,3 +668,105 @@ def test_coord_bwd_kernel_at_flagship_shapes(width, spread, update_rows):
     for name in got:
         assert torch.equal(got[name], again[name]), name
     _assert_cotangents(got, _coord_cot(ec.coord_agg_bwd_plain(g, *ops, **kw)))
+
+
+# ---------------------------------------------------------------------------
+# precision tiers: each split kernel at 2xTF32 and bf16 against its plain
+# version at that tier (ec.TIER_GATES: the largest error, and the error's
+# norm as a share of how far the tier moves the plain version from
+# float32's), launched from that tier's library
+# ---------------------------------------------------------------------------
+
+def _assert_tier_close(got, ref, exact, tier):
+    gate = ec.TIER_GATES[tier]
+    limit = TOL["atol"] + TOL["rtol"] * ref.abs() + gate["share"] * float(ref.abs().max())
+    assert torch.isfinite(got).all()
+    assert bool(((got - ref).abs() <= limit).all()), float((got - ref).abs().max())
+    moved = ec.tier_moved_share(got, ref, exact)
+    assert moved <= gate["moved"], moved
+
+
+def _assert_tier_cotangents(got, ref, exact, tier):
+    _assert_cotangents(got, ref, ec.TIER_GATES[tier]["bwd"])
+    for name in ref:
+        if ref[name] is not None:
+            moved = ec.tier_moved_share(got[name], ref[name], exact[name])
+            assert moved <= ec.TIER_GATES[tier]["moved"], (name, moved)
+
+
+def _only_tier(name, tier, launches=1):
+    """``name`` ran ``launches`` times, all at ``tier``."""
+    for t in ec.TIERS:
+        assert ec.tier_launch_counts[f"{name}[{t}]"] == (launches if t == tier else 0), t
+
+
+@pytest.mark.parametrize("width", [64, 128, 256])
+@pytest.mark.parametrize("tier", ["tf32x2", "bf16"])
+def test_tiered_forward_kernels_match_plain(tier, width):
+    main, extra = _inputs(20, F=width, w_scale=None)
+    kw = dict(cutoffs=CUTOFFS, attention=True, normalization_factor=100.0)
+    att = (extra["w_att"], extra["b_att"])
+    ec.reset_launch_counts()
+    got = ec.gcl_message_agg(*main.values(), *att, **kw, precision=tier)
+    _only_tier("gcl_agg", tier)
+    _assert_tier_close(got, ec.gcl_message_agg_plain(*main.values(), *att, **kw, precision=tier),
+                       ec.gcl_message_agg_plain(*main.values(), *att, **kw), tier)
+    m = main["mask"]
+    ckw = dict(cutoffs=CUTOFFS, tanh=True, coords_range=15.0, norm_constant=1.0,
+               normalization_factor=100.0, update_rows=12,
+               cross=dict(_inputs(21, F=width, w_scale=None)[1]["cross"], w3=extra["w3"]),
+               graph_mean=(main["x"] * m[..., None]).sum(1) / m.sum(1)[:, None])
+    got = ec.coord_update_agg(*main.values(), extra["w3"], **ckw, precision=tier)
+    _only_tier("coord_agg", tier)
+    _assert_tier_close(
+        got, ec.coord_update_agg_plain(*main.values(), extra["w3"], **ckw, precision=tier),
+        ec.coord_update_agg_plain(*main.values(), extra["w3"], **ckw), tier)
+
+
+@pytest.mark.parametrize("width", [64, 128, 256])
+@pytest.mark.parametrize("tier", ["tf32x2", "bf16"])
+def test_tiered_backward_kernels_match_plain(tier, width):
+    main, extra = _inputs(22, F=width, w_scale=None)
+    ops = _folded(main)
+    kw = dict(cutoffs=CUTOFFS, attention=True, normalization_factor=100.0)
+    att = (extra["w_att"], extra["b_att"])
+    g = torch.randn(B, N, width, generator=torch.Generator().manual_seed(23)).cuda()
+    ec.reset_launch_counts()
+    got = ec.gcl_agg_bwd(g, *ops.values(), *att, **kw, precision=tier)
+    _only_tier("gcl_agg_bwd", tier)
+    ref = ec.gcl_agg_bwd_plain(g, *ops.values(), *att, **kw, precision=tier)
+    exact = ec.gcl_agg_bwd_plain(g, *ops.values(), *att, **kw)
+    _assert_tier_cotangents(*(dict(zip(GCL_COT, c)) for c in (got, ref, exact)), tier)
+    m = main["mask"]
+    ckw = dict(cutoffs=CUTOFFS, tanh=True, coords_range=15.0, norm_constant=1.0,
+               normalization_factor=100.0, update_rows=12,
+               cross=_folded_cross(_inputs(24, F=width, w_scale=None)[1]["cross"],
+                                   main["is_lig"], extra["w3"]),
+               graph_mean=(main["x"] * m[..., None]).sum(1) / m.sum(1)[:, None])
+    gc = torch.randn(B, N, 3, generator=torch.Generator().manual_seed(25)).cuda()
+    got = ec.coord_agg_bwd(gc, *ops.values(), extra["w3"], **ckw, precision=tier)
+    _only_tier("coord_agg_bwd", tier)
+    ref = ec.coord_agg_bwd_plain(gc, *ops.values(), extra["w3"], **ckw, precision=tier)
+    exact = ec.coord_agg_bwd_plain(gc, *ops.values(), extra["w3"], **ckw)
+    _assert_tier_cotangents(_coord_cot(got), _coord_cot(ref), _coord_cot(exact), tier)
+
+
+@pytest.mark.parametrize("tier", ["tf32x2", "bf16"])
+def test_autograd_runs_the_backward_tier(tier):
+    """A 3xTF32 forward with a ``bwd_precision`` backward: each kernel at its
+    own tier, and the gradients those of the plain backward at that tier."""
+    main, extra = _inputs(26, w_scale=None)
+    a_row = main["a_row"].clone().requires_grad_(True)
+    kw = dict(cutoffs=CUTOFFS, attention=True, normalization_factor=100.0)
+    ec.reset_launch_counts()
+    out = ec.gcl_message_agg(a_row, *list(main.values())[1:], extra["w_att"],
+                             extra["b_att"], **kw, bwd_precision=tier)
+    out.backward(torch.ones_like(out))
+    _only_tier("gcl_agg", "tf32x3")
+    _only_tier("gcl_agg_bwd", tier)
+    ops = _folded(main)
+    ref, exact = (ec.gcl_agg_bwd_plain(torch.ones_like(out), *ops.values(), extra["w_att"],
+                                       extra["b_att"], **kw, precision=t)
+                  for t in (tier, "tf32x3"))
+    _assert_tier_cotangents({"da_row": a_row.grad}, {"da_row": ref[0]},
+                            {"da_row": exact[0]}, tier)

@@ -58,6 +58,8 @@ EDGE_CASES = ("conditional", "joint", "dense_conditional", "dense_joint")
 # sinusoidal features of such distances take float32 gradients up to 8% of a
 # parameter's largest entry from float64, the split or no split
 DENSE = dict(sin_embedding=True, aggregation_method="mean", head_scale=30.0)
+# the conditional case's network with bf16 kernels forward and backward
+TIER = dict(matmul_precision="bfloat16", kernel_bwd_precision="bfloat16")
 PREFIX = "ddpm.dynamics."
 
 
@@ -205,7 +207,8 @@ def two_rank_run(tmp_path_factory):
     edge = {name: edge_case(upd, seed, **variant)
             for name, upd, seed, variant in (
                 ("conditional", False, 1, {}), ("joint", True, 2, {}),
-                ("dense_conditional", False, 6, DENSE), ("dense_joint", True, 7, DENSE))}
+                ("dense_conditional", False, 6, DENSE), ("dense_joint", True, 7, DENSE),
+                ("tier_conditional", False, 1, TIER))}
     # gnn_dynamics under the split raises, as in JAX
     gnn = dict(edge["conditional"][2], state=None)
     gnn["kwargs"] = dict(gnn["kwargs"], mode="gnn_dynamics")
@@ -289,6 +292,31 @@ def test_edge_sharded_dynamics_matches_jax(two_rank_run, name):
             np.testing.assert_allclose(g.numpy(), np.asarray(w), **value_tol(name))
         for n, g in zip(names, got["grads"]):
             np.testing.assert_allclose(g.numpy(), want_grads[n], **GRAD_TOL, err_msg=n)
+
+
+def test_edge_split_at_a_precision_tier(two_rank_run):
+    """The bf16 tiers under the edge split: each rank's column block through
+    the plain versions at bf16, forward and backward.  A pair's rounding is
+    the same whichever rank computes it, so against one process at the same
+    tier the values and gradients hold the float32 gates; against JAX's
+    float32 split (its XLA path ignores the tier on the CPU) the tier's own
+    deviation shows, within JAX's bf16 gate: 5e-2 of the largest entry
+    (measured 1.5e-3)."""
+    jdyn, variables, spec = two_rank_run["edge"]["tier_conditional"]
+    model = ranks.build_dynamics(spec)
+    assert (model.precision, model.bwd_precision) == ("bf16", "bf16")
+    want = model(*map(torch.as_tensor, spec["inputs"]))
+    want_grads = ranks.sum_sq_grads(model, want)
+    exact = jax.jit(jax_edge_sharded(jdyn, make_edge_mesh(2)))(
+        variables, *map(jnp.asarray, spec["inputs"]))
+    for res in two_rank_run["results"]:
+        got = res["edge"]["tier_conditional"]
+        for g, w, e in zip(got["eps"], want, exact):
+            torch.testing.assert_close(g, w.detach(), **VALUE_TOL)
+            share = float(np.abs(g.numpy() - np.asarray(e)).max() / np.abs(np.asarray(e)).max())
+            assert share <= 5e-2, share
+        for (n, _), g, w in zip(model.named_parameters(), got["grads"], want_grads):
+            torch.testing.assert_close(g, w, **GRAD_TOL, msg=n)
 
 
 def test_edge_split_refuses_gnn_dynamics(two_rank_run):

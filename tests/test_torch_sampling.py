@@ -34,7 +34,7 @@ B, NL = 2, 8
 HIST = np.ones((17, 129))
 
 
-def fixture_config(T=T, egnn_impl="xla"):
+def fixture_config(T=T, egnn_impl="auto"):
     """The fixture's config (``snapshot_config``) at ``T`` steps, for either
     side."""
     return snapshot_config(FIXTURE_NPZ, {"diffusion_params": {"diffusion_steps": T},

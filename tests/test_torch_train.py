@@ -71,7 +71,7 @@ def batches(datadir):
 
 def fixture_overrides(**over):
     cfg = snapshot_config(FIXTURE_NPZ, {"diffusion_params": {"diffusion_steps": T},
-                                        "tpu": {"egnn_impl": "xla"}})
+                                        "tpu": {"egnn_impl": "auto"}})
     for k, v in over.items():
         cfg[k] = {**cfg[k], **v} if isinstance(v, dict) else v
     return cfg
