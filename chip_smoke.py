@@ -5,15 +5,16 @@
 
 Phases (any failure ends the run with a non-zero exit code):
   1. the card's name and power limit (nvidia-smi);
-  2. build the five CUDA kernels from csrc/ and the four split kernels'
-     2xTF32 and bf16 libraries (one nvcc per library, in parallel), and
-     count the tensor-core (HMMA) and cp.async (LDGSTS) instructions in the
-     SASS of each: all five run their products in 3xTF32, the whole-block
-     kernel in both of its phases (block_phase_a, block_phase_b), and each
-     tier's library only its tier's HMMA (TF32 or bf16), as many as its
-     passes: 2xTF32 2/3 of 3xTF32's TF32 HMMA, bf16 1/6 of them in the
-     forward kernels (between 1/6 and 1/3 in the backward ones, whose dW2
-     loop is not unrolled);
+  2. build the five CUDA kernels from csrc/ with their 2xTF32 and bf16
+     libraries (one nvcc per library, in parallel), and count the
+     tensor-core (HMMA) and cp.async (LDGSTS) instructions in the SASS of
+     each: all five run their products in 3xTF32, the whole-block kernel in
+     both of its phases (block_phase_a, block_phase_b), and each tier's
+     library only its tier's HMMA (TF32 or bf16), as many as its passes:
+     2xTF32 2/3 of 3xTF32's TF32 HMMA, bf16 1/6 of them in the forward and
+     whole-block kernels (between 1/6 and 1/3 in the backward ones, whose
+     dW2 loop is not unrolled); the whole-block kernel's 3xTF32 SASS
+     against the digest of the library before its tiers (same nvcc);
   3. each forward kernel against its plain PyTorch twin at the flagship shapes
      (B=16, NL=24, NP=300 padded to 320, F=256, cutoffs None/5/5, attention
      and the cross branch on) and at the shared-pocket variants (col_mask,
@@ -152,9 +153,11 @@ Phases (any failure ends the run with a non-zero exit code):
      top 5 device operations) and a StepTimer.  19e (host only):
      synth_corpus.build_corpus on two seeded synthetic proteins (32 + 8 + 8
      complexes) loaded through LigandPocketDataset and PaddedLoader.
-  20. the precision policies.  20a: the four split kernels at 3xTF32, 2xTF32
-     and bf16, at F=256 and 128, at phases 3 and 3b's main shapes, each
-     against its plain version at that tier (ops.egnn_cuda.TIER_GATES: the
+  20. the precision policies and the implementation choices.  20a: the
+     five kernels at 3xTF32, 2xTF32 and bf16, at F=256 and 128, at phases
+     3, 3b and 3c's main shapes (the whole-block kernel at the joint chain's
+     B=8 launch, clean and collapsed, and at B=16 with 24 rows moving; at
+     F=128 the B=8 launch), each against its plain version at that tier (ops.egnn_cuda.TIER_GATES: the
      largest error, and the error's norm within a quarter of how far the tier
      moves the output from the 3xTF32 kernel's), only that tier's library
      launched, two launches bit for bit, CUDA-event times and the tier's
@@ -172,12 +175,23 @@ Phases (any failure ends the run with a non-zero exit code):
      bfloat16: ms per pass and peak memory, a forward against float32 and
      the CPU (the first GCL's message sums: the card's bf16 within 1e-3 and
      a quarter of float32's distance of the CPU's), and the largest training
-     batch that runs.  20e: block fusing with bfloat16, and egnn_impl or
-     kernel_bwd xla, raise.
+     batch that runs.  20e: what still raises: an unknown precision name,
+     and a width outside SUPPORTED_F on the card (split and whole-block
+     kernel, no launch).  20f: phase 10's joint chain (flagship-joint-b8,
+     8 x 24, T=500, one seed) from phase 10's joint checkpoint, block
+     fusing on at float32, bfloat16 and float32_x2 and off
+     at the reduced tiers: 6(T+1) launches of the tier's whole-block library
+     a chain (or of the tier's split pair), ms a pass, max A and type flips
+     against float32.  20g: egnn_impl xla (the flagship checkpoint on the
+     dense path: cli.generate_ligands 16 x 24 at T=50 with no launch, ms a
+     pass, peak memory, eps against the kernels' path) and kernel_bwd xla
+     (one conditional train step at the largest batch of 16/8/4 that fits:
+     6 + 6 forward launches, no backward kernel, gradients against the
+     backward kernels', ms a step, peak memory).
 
 Prints a {"kernels": [...]} line (the five kernels, then the same five at
-F=128 from phase 19, then the four split kernels at 2xTF32 and bf16 from
-phase 20) and the card line, and as its last line
+F=128 from phase 19, then the five kernels at 2xTF32 and bf16 from phase
+20) and the card line, and as its last line
 {"ok": true, "device": {...}}.  The pocket, the samples and a summary.json go
 to ``--out`` (default chip_smoke_out/ in the repository).  Needs a CUDA card:
 exits non-zero without one, and without the repository around it.
@@ -358,6 +372,29 @@ def sass_counts(ec, name, opcodes, function=None, tier="tf32x3"):
         sections = re.split(r"^\s*Function : ", sass, flags=re.M)[1:]
         sass = "".join(sec for sec in sections if function in sec.split("\n", 1)[0])
     return {op: len(re.findall(rf"\b{re.escape(op)}\b", sass)) for op in opcodes}
+
+
+# the SASS digest (``sass_digest``) of block_fused's 3xTF32 library before
+# the whole-block kernel had tiers, and the nvcc that built it (the card
+# machine's)
+PARENT_SASS = {"nvcc": "Cuda compilation tools, release 12.9, V12.9.86",
+               "block_fused": "1aade11a14d8968fa36a00425def9336bfda8eaaa636cfd7c8817e088e3b785c"}
+FORWARD_KERNELS = ("gcl_agg", "coord_agg", "block_fused")
+
+
+def sass_digest(ec, name, tier="tf32x3"):
+    """(nvcc's release line, sha256 of the library's SASS instructions
+    without addresses' trailing comments): equal digests, the same code
+    instruction for instruction."""
+    import hashlib
+    nvcc = subprocess.run([ec._nvcc(), "--version"], capture_output=True, text=True,
+                          check=True, timeout=60).stdout.strip().splitlines()[-2].strip()
+    cuobjdump = Path(ec._nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "--dump-sass", str(ec._lib_path(name, tier))],
+                          capture_output=True, text=True, check=True, timeout=300).stdout
+    lines = [re.sub(r";.*", "", ln) + "\n" for ln in sass.split("\n")
+             if re.match(r"^\s+/\*[0-9a-f]+\*/", ln)]
+    return nvcc, hashlib.sha256("".join(lines).encode()).hexdigest()
 
 
 def _check(cond: bool, msg: str) -> None:
@@ -640,6 +677,19 @@ def split_pair(ec, torch, ops, **kw):
     return h_new, dx
 
 
+def block_work(B, N, F, pairs_a, pairs_b, n_heads):
+    """Operations and bytes of the whole-block kernel: phase A's pair MLP on
+    its ``pairs_a`` active pairs, the node MLP (3 products) and 2 projections
+    per head on every node, phase B's ``n_heads`` pair MLPs on the
+    ``pairs_b`` pairs of the rows that move; h, a_row, a_col and the node
+    data in, every weight once, h_new and dx out."""
+    flops = pairs_a * (2 * F * F + 10 * F) + B * N * (3 + 2 * n_heads) * 2 * F * F \
+        + pairs_b * n_heads * (2 * F * F + 10 * F)
+    bytes_ = 4 * (3 * B * N * F + B * N * 11 + (4 + 3 * n_heads) * F * F
+                  + (8 + 5 * n_heads) * F + B * N * F + B * N * 3)
+    return flops, bytes_
+
+
 def block_kernel_phase(ec, torch, dev, flagship, main_batch):
     """Phase 3c: the whole-block kernel vs its plain version and the split
     pair; ``main_batch`` is the batch the joint main path launches it at.
@@ -689,14 +739,7 @@ def block_kernel_phase(ec, torch, dev, flagship, main_batch):
         B, N, F = inp["B"], inp["N"], inp["F"]
         pairs_a = active_pairs(ec, inp)
         pairs_b = active_pairs(ec, inp, rows=rows)
-        n_heads = 2 if cross else 1
-        # phase A's pair MLP, the node MLP (3 products) and 2 projections per
-        # head on every node, phase B's pair MLPs on the rows that move
-        flops = pairs_a * (2 * F * F + 10 * F) + B * N * (3 + 2 * n_heads) * 2 * F * F \
-            + pairs_b * n_heads * (2 * F * F + 10 * F)
-        # h, a_row, a_col and the node data in, every weight once, h_new and dx out
-        bytes_ = 4 * (3 * B * N * F + B * N * 11 + (4 + 3 * n_heads) * F * F
-                      + (8 + 5 * n_heads) * F + B * N * F + B * N * 3)
+        flops, bytes_ = block_work(B, N, F, pairs_a, pairs_b, 2 if cross else 1)
         t_f32, t_tc, t_bytes = flops / PEAK_F32_FLOPS, 3 * flops / PEAK_TF32_FLOPS, \
             bytes_ / PEAK_BYTES
         bound_ms, bound_tc_ms = 1e3 * max(t_f32, t_bytes), 1e3 * max(t_tc, t_bytes)
@@ -2858,13 +2901,16 @@ def tier_kernel_phase(ec, torch, dev, flagship, width):
     return results
 
 
-def _captured_generate(torch, ec, args):
+def _captured_generate(torch, ec, args, joint=False):
     """cli.generate_ligands with ``args``: (CLI wall s, sampling s, launches,
-    launches by tier, the sampled ligands (x and h) on the host)."""
+    launches by tier, the sampled ligands (x and h) on the host).  ``joint``:
+    the checkpoint is a joint model, which inpaints with the pocket fixed."""
     from diffsbdd_tpu_torch.cli import generate_ligands as gen_cli
-    from diffsbdd_tpu_torch.diffusion.ddpm import ConditionalDDPM
+    from diffsbdd_tpu_torch.diffusion.ddpm import ConditionalDDPM, JointDDPM
     out = {}
-    sample = ConditionalDDPM.sample_given_pocket
+    cls, method = (JointDDPM, "inpaint") if joint else (ConditionalDDPM,
+                                                         "sample_given_pocket")
+    sample = getattr(cls, method)
 
     def timed(self, *a, **k):
         torch.cuda.synchronize()
@@ -2875,39 +2921,49 @@ def _captured_generate(torch, ec, args):
         out["xh"] = result[0].cpu()
         return result
 
-    ConditionalDDPM.sample_given_pocket = timed
+    setattr(cls, method, timed)
     ec.reset_launch_counts()
     t0 = time.perf_counter()
     try:
         gen_cli.main([str(a) for a in args])
     finally:
-        ConditionalDDPM.sample_given_pocket = sample
+        setattr(cls, method, sample)
     return (time.perf_counter() - t0, out["sample_s"], dict(ec.launch_counts),
             {k: v for k, v in ec.tier_launch_counts.items() if v}, out["xh"])
+
+
+def _configured_checkpoints(torch, ckpt, work, configs):
+    """The weights of checkpoint ``ckpt`` under each entry of ``configs``
+    (label: its ``tpu`` fields), one checkpoint each."""
+    from diffsbdd_tpu_torch.checkpoint import load_model, save_model
+    module, cfg = load_model(ckpt, device="cpu")
+    out = {}
+    for label, tpu in configs.items():
+        for key, value in tpu.items():
+            setattr(cfg.tpu, key, value)
+        out[label] = work / f"{Path(ckpt).name}_{label}"
+        save_model(out[label], module, cfg, name="best")
+    return out
 
 
 def _jittered_checkpoints(torch, work, configs, node_histogram=None, seed=0):
     """The flagship (r05c) weights, each times 1 + u 2^-11 with u uniform in
     [-1, 1) from ``seed``, as one checkpoint for each entry of ``configs``
-    (label: its ``tpu`` fields).  The r05c weights are float16 values, which
-    TF32 holds exactly, so 2xTF32 drops no low part of them; the jitter gives
-    each weight a low part as a float32-trained weight has, and moves the
-    model by less than a bf16 rounding."""
+    (label: its ``tpu`` fields over float32's).  The r05c weights are
+    float16 values, which TF32 holds exactly, so 2xTF32 drops no low part of
+    them; the jitter gives each weight a low part as a float32-trained weight
+    has, and moves the model by less than a bf16 rounding."""
     from diffsbdd_tpu_torch.checkpoint import import_jax_npz, load_model, save_model
-    module, cfg = load_model(import_jax_npz(R05C_NPZ, work / "r05c_jitter",
+    module, cfg = load_model(import_jax_npz(R05C_NPZ, work / "r05c_import",
                                             node_histogram=node_histogram), device="cpu")
     g = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for p in module.parameters():
             p.mul_(1 + (2 * torch.rand(p.shape, generator=g) - 1) * 2 ** -11)
-    out = {}
-    for label, tpu in configs.items():
-        for key, value in {"matmul_precision": "float32", "kernel_bwd_precision": None,
-                           **tpu}.items():
-            setattr(cfg.tpu, key, value)
-        out[label] = work / f"r05c_jitter_{label}"
-        save_model(out[label], module, cfg, name="best")
-    return out
+    save_model(work / "r05c_jitter", module, cfg, name="best")
+    return _configured_checkpoints(torch, work / "r05c_jitter", work, {
+        label: {"matmul_precision": "float32", "kernel_bwd_precision": None, **tpu}
+        for label, tpu in configs.items()})
 
 
 def tier_sampling_phase(torch, ec, dev, work, pdb, ref_lig, base, card):
@@ -3152,36 +3208,328 @@ def dense_bf16_phase(torch, ec, dev, flagship, work, pdb, ref_lig, card):
     return res
 
 
-def refusal_phase(flagship):
-    """Phase 20e: what the port does not run refuses: block fusing with a
-    tier other than 3xTF32 (ROADMAP.md section 2), and egnn_impl / kernel_bwd
-    xla (section 1)."""
-    from diffsbdd_tpu_torch.config import load_config
-    from diffsbdd_tpu_torch.train.module import build_module_from_config
-    cases = {"block_fuse_bfloat16": ({"matmul_precision": "bfloat16", "kernel_block_fuse": True},
-                                     "ROADMAP.md section 2"),
-             "egnn_impl_xla": ({"egnn_impl": "xla"}, "ROADMAP.md section 1"),
-             "kernel_bwd_xla": ({"kernel_bwd": "xla"}, "ROADMAP.md section 1")}
-    res = {}
-    for key, (tpu, names) in cases.items():
+# the whole-block kernel's shapes in phase 20a (phase 3c's): label -> (batch,
+# seed, spread, update_rows); the first is the joint main path's launch
+TIER_BLOCK_SHAPES = {"joint_main_path": (JOINT_SAMPLES, 7, None, None),
+                     "joint_main_path_dense": (JOINT_SAMPLES, 8, 1.0, None),
+                     "conditional_ligand_rows": (16, 4, None, 24)}
+
+
+def tier_block_phase(ec, torch, dev, flagship, width, shapes):
+    """Phase 20a, the whole-block kernel: its library at every tier on
+    phase 3c's ``shapes`` (``TIER_BLOCK_SHAPES``) at width ``width``, against
+    its plain version at that tier (each output within 1e-5 + (1e-4 + the
+    tier's share) of its largest entry, and its error norm within
+    ``BLOCK_TIER_GATES``' share of the tier's move from the 3xTF32 kernel's),
+    only that tier's library launched, two launches bit for bit, dx rows at
+    and above ``update_rows`` exact zeros; CUDA-event times of kernel and
+    plain version, and the tier's bound.  At the reduced tiers also the
+    yardstick of the bf16 gate: how far the plain version moves, by norm as
+    a share of the tier's move, when its inputs h, a_row, a_col move by 1e-6
+    relative.  Returns {shape: {tier: entry}}."""
+    cfg = dict(flagship, egnn_params=dict(flagship["egnn_params"], hidden_nf=width))
+    results = {}
+    for label in shapes:
+        B, seed, spread, rows = TIER_BLOCK_SHAPES[label]
+        inp = kernel_inputs(torch, dev, cfg, B, 24, seed=seed, spread=spread)
+        ops = block_operands(inp)
+        kw = dict(cutoffs=inp["cut"], attention=True, tanh=True, coords_range=15.0,
+                  norm_constant=1.0, normalization_factor=100.0, update_rows=rows)
+        N, F = inp["N"], inp["F"]
+        flops, bytes_ = block_work(B, N, F, active_pairs(ec, inp),
+                                   active_pairs(ec, inp, rows=rows), 2)
+        g = torch.Generator(device=dev).manual_seed(seed)
+        noisy_ops = [o * (1 + (torch.rand(o.shape, generator=g, device=dev) - 0.5) * 2e-6)
+                     for o in ops[:3]] + ops[3:]
+        base = None
+        for tier in ec.TIERS:
+            gate = ec.BLOCK_TIER_GATES[tier]
+            what = f"block_fused[{tier}] {label} F={width}"
+            ec.reset_launch_counts()
+            got = ec.block_fused(*ops, **kw, precision=tier)
+            again = ec.block_fused(*ops, **kw, precision=tier)
+            launched = {k: v for k, v in ec.tier_launch_counts.items() if v}
+            _check(launched == {f"block_fused[{tier}]": 2},
+                   f"{what}: launched {launched}, not its tier's library")
+            ref = ec.block_fused_plain(*ops, **kw, precision=tier)
+            torch.cuda.synchronize()
+            noisy = None if base is None else ec.block_fused_plain(*noisy_ops, **kw,
+                                                                   precision=tier)
+            err = share = moved = moved_share = noise_share = 0.0
+            for i, (name, g, a, r) in enumerate(zip(("h_new", "dx"), got, again, ref)):
+                scale = float(r.abs().max())
+                e = float((g - r).abs().max())
+                _check(bool(torch.isfinite(g).all()) and
+                       e <= 1e-5 + (1e-4 + gate["share"]) * scale,
+                       f"{what} {name}: error {e:.3e}, largest entry {scale:.3e}")
+                _check(torch.equal(g, a), f"{what} {name}: two launches differ")
+                err, share = max(err, e), max(share, e / scale)
+                if base is not None:
+                    b = base[i]
+                    moved = max(moved, float((g - b).abs().max() / b.abs().max()))
+                    moved_share = max(moved_share, ec.tier_moved_share(g, r, b))
+                    noise_share = max(noise_share, ec.tier_moved_share(noisy[i], r, b))
+            _check(not bool(got[1][:, N if rows is None else rows:].any()),
+                   f"{what}: dx rows past update_rows are not zero")
+            if gate["moved"] is not None:
+                _check(moved_share <= gate["moved"],
+                       f"{what}: error norm {moved_share:.3f} of the tier's move, "
+                       f"gate {gate['moved']}")
+            base = got if base is None else base
+            ms = _cuda_ms(lambda: ec.block_fused(*ops, **kw, precision=tier), 20)
+            plain_ms = _cuda_ms(lambda: ec.block_fused_plain(*ops, **kw, precision=tier), 2)
+            bound_ms, bound_by = tier_bound(flops, bytes_, tier)
+            results.setdefault(label, {})[tier] = dict(
+                tier=tier, width=width, batch=B, max_abs_err=err, gate_share=share,
+                moved=moved, moved_share=moved_share, noise_share=noise_share, ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, flops=flops)
+            print(f"  {what}: {ms:.4f} ms (plain {plain_ms:.3f} ms), bound {bound_ms:.4f} "
+                  f"ms ({bound_by}, {100 * bound_ms / ms:.1f}%); error {share:.2e} of the "
+                  f"largest entry, moved {moved:.2e} from 3xTF32"
+                  + ("" if gate["moved"] is None else
+                     f"; error norm {moved_share:.4f} of the move (gate {gate['moved']:g}; "
+                     f"the plain version under 1e-6 input noise {noise_share:.4f})"))
+        del inp, ops, noisy_ops
+    return results
+
+
+def tier_joint_phase(torch, ec, dev, work, pdb, ref_lig, card, joint_ckpt,
+                     n=JOINT_SAMPLES, T=500):
+    """Phase 20f: the joint chain of flagship-joint-b8 (cli.generate_ligands
+    on phase 10's joint checkpoint, ``joint_ckpt``: inpainting with the
+    pocket fixed, ``n`` x 24 atoms, T = 500, one seed: the same noise in
+    every run; its weights are float32 values, from which 2xTF32 drops a low
+    part) with tpu.kernel_block_fuse on at float32, bfloat16 and float32_x2,
+    and off at the two reduced tiers: every block of every pass the
+    whole-block kernel's library at the tier (6 (T + 1) launches) or the
+    split pair at the tier; ms a pass of each; the coordinates' largest
+    deviation (A) and the atom types that flip against the float32 chain.
+    (The r05c weights are a conditional model's: as a joint model, whose
+    pocket rows move inside the network, its chains run away, hundreds of A
+    apart between tiers.)"""
+    from diffsbdd_tpu_torch.diffusion.ddpm import JointDDPM
+    configs = {"float32": {"matmul_precision": "float32", "kernel_block_fuse": True}}
+    for name in TIER_NAME.values():
+        configs[name] = {"matmul_precision": name, "kernel_block_fuse": True}
+        configs[f"{name}_split"] = {"matmul_precision": name, "kernel_block_fuse": False}
+    ckpts = _configured_checkpoints(torch, joint_ckpt, work, configs)
+    passes = len(JointDDPM._repaint_plan(1, 1, T)[0]) + 1
+    res, ref = {}, None
+    for label, tpu in configs.items():
+        tier = ec.DEFAULT_TIER if label == "float32" else \
+            {v: k for k, v in TIER_NAME.items()}[tpu["matmul_precision"]]
+        sdf = work / f"joint20f_{label}.sdf"
+        wall, sample_s, launches, by_tier, xh = _captured_generate(
+            torch, ec, [ckpts[label], "--pdbfile", pdb, "--ref_ligand", ref_lig,
+                        "--outfile", sdf, "--n_samples", n, "--num_nodes_lig", 24,
+                        "--all_frags", "--timesteps", T, "--resamplings", 1,
+                        "--jump_length", 1], joint=True)
+        want = {f"block_fused[{tier}]": 6 * passes} if tpu["kernel_block_fuse"] else \
+            {f"gcl_agg[{tier}]": 6 * passes, f"coord_agg[{tier}]": 6 * passes}
+        _check(by_tier == want, f"joint {label}: launches by tier {by_tier}, expected {want}")
+        _check_molecules(sdf, n, 24)
+        _check(bool(torch.isfinite(xh).all()), f"joint {label}: non-finite samples")
+        r = dict(tier=tier, block_fuse=tpu["kernel_block_fuse"], launches=launches,
+                 launches_by_tier=by_tier, wall_s=wall, sample_s=sample_s,
+                 ms_per_pass=1e3 * sample_s / passes, molecules_per_s=n / wall)
+        if ref is None:
+            ref = xh
+        else:
+            r.update(max_dev_A=float((xh[..., :3] - ref[..., :3]).abs().max()),
+                     type_flips=int((xh[..., 3:].argmax(-1) != ref[..., 3:].argmax(-1)).sum()),
+                     atoms=int(ref.shape[0] * ref.shape[1]))
+        res[label] = r
+        print(f"  {card}: joint {label} ({tier}, block fusing "
+              f"{'on' if r['block_fuse'] else 'off'}): {r['ms_per_pass']:.2f} ms a pass, "
+              f"{r['molecules_per_s']:.3f} molecules/s"
+              + ("" if "max_dev_A" not in r else
+                 f"; against float32 with the same noise {r['max_dev_A']:.3e} A at most, "
+                 f"{r['type_flips']} of {r['atoms']} atom types flipped"))
+    return res
+
+
+IMPL_TRAIN_BATCHES = (16, 8, 4)  # tried in order; the first that fits is kept
+
+
+def impl_phase(torch, ec, dev, flagship, work, pdb, ref_lig, card):
+    """Phase 20g: the two implementation choices.  (a) tpu.egnn_impl xla on
+    the flagship checkpoint: cli.generate_ligands on phase 5's pocket (16 x
+    24, T = DENSE_T) with no kernel launched, ms a pass and peak memory; one
+    dynamics forward (B = 16, 24 + 300 atoms) against the kernels' path on
+    the same weights and inputs, within 1e-4 of the largest entry (float32
+    on both sides: the CPU tests' gate for the dense path against JAX).
+    (b) tpu.kernel_bwd xla: one conditional train step of the flagship
+    weights at the largest of IMPL_TRAIN_BATCHES that fits (synthetic
+    complexes, injected timesteps and noise): 6 + 6 forward launches and no
+    backward kernel; every parameter gradient against the backward kernels'
+    (phase 9's gate: 1e-3 of its largest entry; cosine > 0.99999); ms a
+    train step (median of 3, after 1) and peak memory of both."""
+    from diffsbdd_tpu_torch.checkpoint import import_jax_npz, load_model
+    from diffsbdd_tpu_torch.data.dataset import LigandPocketDataset, PaddedLoader
+    from diffsbdd_tpu_torch.train import loop
+    res = {"card": card}
+    ckpt = import_jax_npz(R05C_NPZ, work / "r05c_xla", overrides={"tpu": {"egnn_impl": "xla"}})
+    kern_ckpt = import_jax_npz(R05C_NPZ, work / "r05c_kernels20g")
+    n, T = 16, DENSE_T
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    wall, sample_s, launches, _, _ = _captured_generate(
+        torch, ec, [ckpt, "--pdbfile", pdb, "--ref_ligand", ref_lig, "--outfile",
+                    work / "xla20g.sdf", "--n_samples", n, "--num_nodes_lig", 24,
+                    "--all_frags", "--timesteps", T])
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    _check(not any(launches.values()), f"egnn_impl xla launched {launches}")
+    _check_molecules(work / "xla20g.sdf", n, 24)
+    dense, _ = load_model(ckpt, device=dev)
+    kern, _ = load_model(kern_ckpt, device=dev)
+    _check(dense.ddpm.dynamics.dense and not kern.ddpm.dynamics.dense,
+           "egnn_impl did not choose the path")
+    batch = dense_inputs(torch, dense, n, 24, 300, 3, dev)
+    with torch.no_grad():
+        ec.reset_launch_counts()
+        got = dense.ddpm.dynamics(*batch)
+        _check(not any(ec.launch_counts.values()), "the dense forward launched a kernel")
+        want = kern.ddpm.dynamics(*batch)
+    dev_share = max(float((g - w).abs().max() / w.abs().max()) for g, w in zip(got, want))
+    _check(dev_share <= 1e-4, f"egnn_impl xla against the kernels: {dev_share:.3e}")
+    res["egnn_impl_xla"] = dict(ms_per_pass=1e3 * sample_s / (T + 1), sample_s=sample_s,
+                                wall_s=wall, peak_gib=peak, launches=launches,
+                                eps_vs_kernels=dev_share)
+    print(f"  {card}: egnn_impl xla {n} x 24, T={T}: "
+          f"{res['egnn_impl_xla']['ms_per_pass']:.2f} ms a pass, peak {peak:.2f} GiB, no "
+          f"launch; eps against the kernels' path {dev_share:.3e} of the largest entry "
+          f"(limit 1e-4)")
+    del dense, kern, got, want, batch
+
+    data = work / "data20g"
+    write_synthetic_dataset(data, max(IMPL_TRAIN_BATCHES), 1, seed=23,
+                            pocket_sizes=(250, 280, 310, 320), n_types=11)
+    hist = np.load(data / "size_distribution.npy")
+    ckpts = {impl: import_jax_npz(R05C_NPZ, work / f"r05c_bwd_{impl}", node_histogram=hist,
+                                  overrides={"tpu": {"kernel_bwd": impl}})
+             for impl in ("auto", "xla")}
+    rng = np.random.default_rng(21)
+    for bs in IMPL_TRAIN_BATCHES:
+        batch = next(iter(PaddedLoader(LigandPocketDataset(data / "train.npz"), bs,
+                                       shuffle=False)))
+        lig = loop.batch_to_device(batch["ligand"], dev)
+        pkt = loop.batch_to_device(batch["pocket"], dev)
+        t_int = torch.as_tensor(rng.integers(0, 501, (bs, 1)).astype(np.float32), device=dev)
+        eps = torch.as_tensor(rng.standard_normal(
+            (bs, lig["x"].shape[1], 3 + 11)).astype(np.float32), device=dev)
+        out = {}
         try:
-            build_module_from_config(load_config(overrides=dict(flagship, tpu=tpu)), None)
+            for impl, path in ckpts.items():
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                module, _ = load_model(path, device=dev)
+                module.train()
+                module.ddpm.sample_timesteps = lambda g, B, lo: t_int
+                module.ddpm.sample_gaussian = lambda g, shape, mask: eps * mask[..., None]
+                ec.reset_launch_counts()
+                loss, _ = module.loss_fn(None, lig, pkt, training=True)
+                names, params = zip(*module.named_parameters())
+                grads = {k: g for k, g in zip(names, torch.autograd.grad(
+                    loss, params, allow_unused=True)) if g is not None}
+                torch.cuda.synchronize()
+                counts = dict(ec.launch_counts)
+                step = loop.make_train_step(loop.create_train_state(module, lr=1e-4))
+                times = []
+                for _ in range(4):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    step(None, lig, pkt)
+                    torch.cuda.synchronize()
+                    times.append(1e3 * (time.perf_counter() - t0))
+                out[impl] = dict(loss=float(loss.detach()), grads=grads, launches=counts,
+                                 ms_per_step=float(np.median(times[1:])),
+                                 peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+                del module, step, loss
+        except torch.cuda.OutOfMemoryError:
+            print(f"  kernel_bwd: batch {bs}: out of memory")
+            out = None
+            torch.cuda.empty_cache()
+            continue
+        break
+    _check(out is not None, f"no batch of {IMPL_TRAIN_BATCHES} trained with kernel_bwd xla")
+    mirror, kernel = out["xla"], out["auto"]
+    _check(mirror["launches"] == {"gcl_agg": 6, "coord_agg": 6, "gcl_agg_bwd": 0,
+                                  "coord_agg_bwd": 0, "block_fused": 0},
+           f"kernel_bwd xla: launches {mirror['launches']}")
+    _check(kernel["launches"]["gcl_agg_bwd"] == 6, "the kernel backward did not run")
+    _check(mirror["grads"].keys() == kernel["grads"].keys(), "different parameters reached")
+    worst = 0.0
+    for k, w in kernel["grads"].items():
+        g = mirror["grads"][k]
+        err, scale = float((g - w).abs().max()), float(w.abs().max())
+        _check(bool(torch.isfinite(g).all()) and err <= 1e-3 * scale + 1e-7,
+               f"kernel_bwd xla: gradient of {k}: error {err:.3e}, scale {scale:.3e}")
+        worst = max(worst, err / (scale + 1e-30))
+    a = torch.cat([mirror["grads"][k].flatten() for k in kernel["grads"]])
+    b = torch.cat([w.flatten() for w in kernel["grads"].values()])
+    cosine = float((a * b).sum() / (a.norm() * b.norm()))
+    _check(cosine > 0.99999, f"kernel_bwd xla: gradients' cosine {cosine}")
+    _check(mirror["loss"] == kernel["loss"], "kernel_bwd xla moved the forward's loss")
+    res["kernel_bwd_xla"] = dict(
+        batch_size=bs, grad_dev_share=worst, grad_cosine=cosine, loss=mirror["loss"],
+        **{f"{k}_{impl}": v[k] for impl, v in (("mirror", mirror), ("kernels", kernel))
+           for k in ("ms_per_step", "peak_gib", "launches")})
+    print(f"  {card}: kernel_bwd xla at batch {bs}: {mirror['ms_per_step']:.2f} ms a train "
+          f"step, peak {mirror['peak_gib']:.2f} GiB (the backward kernels: "
+          f"{kernel['ms_per_step']:.2f} ms, {kernel['peak_gib']:.2f} GiB); gradients "
+          f"against the backward kernels' worst {worst:.3e} of a parameter's largest "
+          f"entry, cosine {cosine:.8f}; launches {mirror['launches']}")
+    return res
+
+
+def refusal_phase(torch, ec, dev, flagship):
+    """Phase 20e: what still raises: an unknown precision name (as JAX's
+    ``_PRECISIONS[name]`` does), and a hidden width outside ``SUPPORTED_F``
+    on the card, before any launch, in a split and the whole-block kernel."""
+    from diffsbdd_tpu_torch.config import load_config
+    res = {}
+
+    def refused(key, call, names):
+        try:
+            call()
             res[key] = ""
         except ValueError as err:
             res[key] = str(err)
         _check(names in res[key], f"{key} did not raise naming {names}")
-        print(f"  {key}: raises '{res[key][:90]}...'")
+        print(f"  {key}: raises '{res[key][:90]}'")
+
+    refused("unknown_precision", lambda: load_config(
+        overrides=dict(flagship, tpu={"matmul_precision": "float16"})), "matmul_precision")
+    cfg = dict(flagship, egnn_params=dict(flagship["egnn_params"], hidden_nf=96))
+    inp = kernel_inputs(torch, dev, cfg, 2, 24)
+    ops = block_operands(inp)
+    ec.reset_launch_counts()
+    refused("width_96_gcl_agg", lambda: ec.gcl_message_agg(
+        *(inp[k] for k in ("a_row", "a_col", "x", "x0", "mask", "is_lig")),
+        *inp["gcl_w"].values(), cutoffs=inp["cut"], attention=True,
+        normalization_factor=100.0, precision="bf16"), "feature width")
+    refused("width_96_block_fused", lambda: ec.block_fused(
+        *ops, cutoffs=inp["cut"], attention=True, tanh=True, coords_range=15.0,
+        norm_constant=1.0, normalization_factor=100.0, precision="bf16"), "feature width")
+    _check(not any(ec.launch_counts.values()), "a refused width launched a kernel")
     return res
 
 
-def phase20(torch, ec, dev, flagship, work, pdb, ref_lig, base, card):
+def phase20(torch, ec, dev, flagship, work, pdb, ref_lig, base, card, joint_ckpt):
     """Phase 20 in order; ``base``: phase 6's float32 run (its samples,
-    ms_per_pass and molecules_per_s)."""
+    ms_per_pass and molecules_per_s); ``joint_ckpt``: phase 10's joint
+    checkpoint."""
     t20 = time.perf_counter()
-    res = {"kernels": {}}
+    res = {"kernels": {}, "block_shapes": {}}
     for width in TIER_WIDTHS:
-        print(f"[20a] the split kernels at each tier, F={width} ({card})")
+        print(f"[20a] the kernels at each tier, F={width} ({card})")
         res["kernels"][width] = tier_kernel_phase(ec, torch, dev, flagship, width)
+        shapes = list(TIER_BLOCK_SHAPES) if width == 256 else ["joint_main_path"]
+        blocks = res["block_shapes"][width] = tier_block_phase(
+            ec, torch, dev, flagship, width, shapes)
+        # the kernels line: the joint main path's launch
+        res["kernels"][width].update({f"block_fused[{tier}]": entry for tier, entry
+                                      in blocks["joint_main_path"].items()})
     print("[20b] the main path at bfloat16 and at float32_x2")
     res["sampling"] = tier_sampling_phase(torch, ec, dev, work, pdb, ref_lig, base, card)
     print("[20c] the train step with kernel_bwd_precision bfloat16, and at float32_x2")
@@ -3189,7 +3537,11 @@ def phase20(torch, ec, dev, flagship, work, pdb, ref_lig, base, card):
     print("[20d] the dense sin/mean model at compute_dtype bfloat16")
     res["dense"] = dense_bf16_phase(torch, ec, dev, flagship, work, pdb, ref_lig, card)
     print("[20e] refusals")
-    res["refusals"] = refusal_phase(flagship)
+    res["refusals"] = refusal_phase(torch, ec, dev, flagship)
+    print("[20f] the joint chain with block fusing at bfloat16 and at float32_x2")
+    res["joint"] = tier_joint_phase(torch, ec, dev, work, pdb, ref_lig, card, joint_ckpt)
+    print("[20g] egnn_impl xla and kernel_bwd xla")
+    res["impl"] = impl_phase(torch, ec, dev, flagship, work, pdb, ref_lig, card)
     res["phase_s"] = time.perf_counter() - t20
     print(f"  phase 20 took {res['phase_s']:.1f} s")
     return res
@@ -3240,10 +3592,21 @@ def main(argv=None) -> int:
         print(f"  {what} SASS: {sass['HMMA']} HMMA, {sass['LDGSTS']} LDGSTS instructions")
         _check(sass["HMMA"] > 0 and sass["LDGSTS"] > 0,
                f"{what} has no tensor-core or cp.async instructions")
+    # the whole-block kernel's 3xTF32 library builds from the same code as
+    # before its tiers: its SASS, instruction for instruction, is the one
+    # recorded from the library before them (with the same nvcc)
+    nvcc_release, digest = sass_digest(ec, "block_fused")
+    if nvcc_release == PARENT_SASS["nvcc"]:
+        _check(digest == PARENT_SASS["block_fused"],
+               f"block_fused 3xTF32 SASS differs from the untiered library's ({digest})")
+        print(f"  block_fused 3xTF32 SASS identical to the untiered library's ({nvcc_release})")
+    else:
+        print(f"  block_fused 3xTF32 SASS not compared: nvcc {nvcc_release}, recorded with "
+              f"{PARENT_SASS['nvcc']}")
     # each tier's library runs its products as that tier's tensor-core
     # instructions only: TF32 HMMA for 3xTF32 and 2xTF32, bf16 HMMA for bf16
     tier_sass = {}
-    for name in ec.TIERED:
+    for name in ec.KERNELS:
         for tier in ec.TIERS:
             sass = tier_sass[f"{name}[{tier}]"] = sass_counts(
                 ec, name, ("HMMA.1688.F32.TF32", "HMMA.16816.F32.BF16", "LDGSTS"), tier=tier)
@@ -3263,7 +3626,7 @@ def main(argv=None) -> int:
         bf16 = tier_sass[f"{name}[bf16]"]["HMMA.16816.F32.BF16"]
         _check(3 * tier_sass[f"{name}[tf32x2]"]["HMMA.1688.F32.TF32"] == 2 * full,
                f"{name}: the 2xTF32 HMMA count is not 2/3 of 3xTF32's {full}")
-        _check(6 * bf16 == full if name.endswith("_agg") else full < 6 * bf16 < 2 * full,
+        _check(6 * bf16 == full if name in FORWARD_KERNELS else full < 6 * bf16 < 2 * full,
                f"{name}: {bf16} bf16 HMMA against 3xTF32's {full}")
 
     print("[3] kernels vs plain twins at the flagship shapes")
@@ -3394,7 +3757,8 @@ def main(argv=None) -> int:
 
         tiers = phase20(torch, ec, dev, flagship, work, pdb, ref_lig,
                         dict(xh=timing["xh"], ms_per_pass=step_ms,
-                             molecules_per_s=n_samples / wall), card)
+                             molecules_per_s=n_samples / wall), card,
+                        joint["training"]["ckpt"])
 
     by_path = {"sampling": sampling_launches, "training": training["launches"],
                "joint_training": joint["training"]["launches"],
@@ -3438,15 +3802,18 @@ def main(argv=None) -> int:
                       width["default"]["sampling_fused"]["launches"]}
     for k in ec.KERNELS:
         _check(width["default"]["launches"][k] > 0, f"no F = 128 path launched {k}")
-    # the four split kernels at the reduced tiers, F = 256: their launches on
-    # phase 20b's main paths (forward) and 20c's train steps (backward)
+    # the five kernels at the reduced tiers, F = 256: their launches on phase
+    # 20b's main paths (forward), 20c's train steps (backward) and 20f's
+    # joint chains (the whole-block kernel)
     by_tier_path = {f"sampling_{n}": tiers["sampling"][n]["launches_by_tier"]
                     for n in TIER_NAME.values()}
     by_tier_path.update({f"training_{n}": r["launches_by_tier"]
                          for n, r in tiers["training"].items()})
+    by_tier_path.update({f"joint_{n}": r["launches_by_tier"]
+                         for n, r in tiers["joint"].items()})
     tier_entries = []
     for tier in TIER_NAME:
-        for name in ec.TIERED:
+        for name in ec.KERNELS:
             key = f"{name}[{tier}]"
             counts = {path: c.get(key, 0) for path, c in by_tier_path.items()}
             _check(max(counts.values()) > 0, f"no main path launched {key}")

@@ -9,12 +9,22 @@ PyYAML is imported only when a ``.yml``/``.yaml`` path is given.
 The JAX package's ``tpu`` fields, as the port reads them:
 
 * read: ``lig_bucket``, ``pocket_bucket`` (padding), ``kernel_block_fuse``
-  (the samplers' whole-block kernel), ``mesh_data``, ``multihost``
-  (``parallel/``), ``nan_check``, and the precision policies below;
-* ``egnn_impl``, ``kernel_bwd``: ``auto`` and ``pallas`` run the kernels
-  (their plain versions on the CPU); ``xla`` (the JAX package's dense path
-  for the kernels' model, at its ambient precision) raises a ``ValueError``:
-  it is not ported yet (ROADMAP.md section 1); any other value raises;
+  (the samplers' whole-block kernel, at every tier below), ``mesh_data``,
+  ``multihost`` (``parallel/``), ``nan_check``, and the precision policies
+  below;
+* ``egnn_impl``: ``auto`` and ``pallas`` run the kernels (their plain
+  versions on the CPU); ``xla`` runs the kernels' model on the dense path
+  (``EGNNDynamics.dense``: the (B, N, N, F) edge features and messages in
+  memory, plain ``torch`` products, no kernel launched, block fusing off), as
+  the JAX package's XLA path does, at the glue's precision below and with
+  ``compute_dtype``; the kernels' tiers do not apply there;
+* ``kernel_bwd``: ``auto`` and ``pallas`` run the backward kernels in
+  training; ``xla`` keeps the forward kernels and takes their gradient by
+  autograd through the float32 dense mirror (``gcl_agg_bwd_plain``,
+  ``coord_agg_bwd_plain`` on the card's tensors; under the edge split on the
+  rank's column block), as the JAX package's dense-mirror backward does, so
+  ``kernel_bwd_precision`` is then read by nothing (JAX reads its backward
+  tier only in the Pallas branch).  Any other value of either raises;
 * accepted without effect: ``n_lig_max``, ``n_pocket_max`` (TPU padding
   ceilings; the port pads to each batch's buckets), ``kernel_tile_i``,
   ``kernel_sub_j``, ``kernel_skip_mode``, ``kernel_bwd_sub_j`` (the Pallas
@@ -26,7 +36,7 @@ Precision policies (JAX's names and defaults; ``PRECISIONS`` below, read by
 ``models/dynamics.py``):
 
 =================  ===================  ==================================
-matmul_precision   split kernels' tier  glue products on CUDA (f32 on CPU)
+matmul_precision   kernels' tier        glue products on CUDA (f32 on CPU)
 =================  ===================  ==================================
 float32 (default)  3xTF32               float32
 float32_x3         3xTF32               float32
@@ -44,9 +54,11 @@ products run in float32).  ``kernel_bwd_precision`` (None: the forward's)
 takes the same names for the backward kernels alone.  ``compute_dtype:
 bfloat16`` keeps the dense path's pair MLPs in bf16 (sinusoidal features,
 mean aggregation; ``gnn_dynamics`` stays float32 as in JAX), their column
-sums in float32; the kernels ignore it.  ``kernel_block_fuse`` with a tier
-other than 3xTF32 raises (the whole-block kernel's tiers: ROADMAP.md section
-2).  Any other precision name raises, as JAX's ``_PRECISIONS[name]`` does.
+sums in float32; the kernels ignore it.  ``kernel_block_fuse`` runs the
+whole-block kernel at the same tier as the split kernels: its pair MLPs
+round as theirs do, its node MLP and projections only their products (the
+tier's library, ``block_fused[bf16]``).  Any other precision name raises, as
+JAX's ``_PRECISIONS[name]`` does.
 """
 from __future__ import annotations
 
@@ -146,6 +158,10 @@ _DEFAULTS: Dict[str, Any] = {
         # raise when the network's velocities are not all finite (one host
         # sync a forward)
         "nan_check": False,
+        # the implementation choices (above): the kernels, or the dense path
+        # (egnn_impl) / the dense mirror's gradient (kernel_bwd) with xla
+        "egnn_impl": "auto",
+        "kernel_bwd": "auto",
         # the precision policies (the table above)
         "matmul_precision": "float32",
         "kernel_bwd_precision": None,
@@ -159,7 +175,7 @@ PRECISIONS = {"float32": ("tf32x3", False), "float32_x3": ("tf32x3", False),
               "tensorfloat32": ("tf32x3", True), "float32_x2": ("tf32x2", False),
               "bfloat16": ("bf16", True)}
 COMPUTE_DTYPES = ("float32", "bfloat16")
-IMPLS = ("auto", "pallas")
+IMPLS = ("auto", "pallas", "xla")
 
 
 def precision_policy(matmul_precision: str = "float32",
@@ -179,19 +195,20 @@ def precision_policy(matmul_precision: str = "float32",
     return tier, bwd, tf32_glue, compute_dtype
 
 
-def check_tpu(tpu: Dict[str, Any]) -> None:
-    """Raises ``ValueError`` on a ``tpu`` field the port does not honour: an
-    unknown precision name, or an implementation other than auto/pallas."""
-    precision_policy(tpu.get("matmul_precision"), tpu.get("kernel_bwd_precision"),
-                     tpu.get("compute_dtype"))
-    for key in ("egnn_impl", "kernel_bwd"):
-        value = tpu.get(key, "auto")
-        if value == "xla":
-            raise ValueError(
-                f"tpu.{key}: xla (the JAX package's dense path for the kernels' model) "
-                f"is not ported yet (ROADMAP.md section 1); use auto or pallas")
+def check_impls(egnn_impl: str = "auto", kernel_bwd: str = "auto") -> None:
+    """Raises ``ValueError`` on an implementation name other than JAX's
+    auto / pallas / xla."""
+    for key, value in (("egnn_impl", egnn_impl), ("kernel_bwd", kernel_bwd)):
         if value not in IMPLS:
             raise ValueError(f"tpu.{key} {value!r} not in {IMPLS}")
+
+
+def check_tpu(tpu: Dict[str, Any]) -> None:
+    """Raises ``ValueError`` on a ``tpu`` field the port does not honour: an
+    unknown precision or implementation name."""
+    precision_policy(tpu.get("matmul_precision"), tpu.get("kernel_bwd_precision"),
+                     tpu.get("compute_dtype"))
+    check_impls(tpu.get("egnn_impl", "auto"), tpu.get("kernel_bwd", "auto"))
 
 
 def _merge(base: Dict[str, Any], override: Dict[str, Any]) -> Dict[str, Any]:

@@ -25,6 +25,16 @@
 // tensor cores in 3xTF32 (egnn_mma.cuh: mma.sync TF32, each operand split
 // hi + lo), with its weights streamed from L2 through cp.async stages.
 //
+// Precision tiers.  The library is built for one tier (-DEGNN_TIER, as the
+// split kernels' are; egnn_mma.cuh): 2xTF32 drops the weight's low part in
+// every product, bf16 runs each as one mma.sync.m16n8k16 pass with both
+// operands rounded as their fragments load (the tiles stay f32, so shared
+// memory does not grow).  The pair MLPs of both phases also round at the
+// JAX package's bf16 points (gcl_tile_tc, coord_tile_tc); the node MLP's
+// and the projections' elementwise work (+ b0, silu, the residual, the
+// mask, the head bias and the type fold) stays f32 on every tier, as the
+// JAX kernel's _dot rounds the product and not its epilogue.
+//
 // The barrier.  Phase B of a batch item reads la_col / lc_col of all its rows,
 // so it may start only when phase A of that item is complete.  A CUDA grid has
 // no order; the barrier here is the stream: one phase-A kernel and one phase-B
@@ -170,7 +180,7 @@ __device__ __forceinline__ void project_head(const Head& hd, const float* A,
                                              const float* is_lig, const int* node_of,
                                              int rows) {
   for (int side = 0; side < 2; ++side) {
-    mma::product_tc<F, RG, true, true>(A, ring, acc, rows);
+    mma::product_tc<F, RG, true, true, mma::kTier>(A, ring, acc, rows);
     float* dst = side == 0 ? hd.row : hd.col;
     for_fragments<F>(acc, rows, [&](int r, int f, float v) {
       const int node = node_of[r];
@@ -223,7 +233,7 @@ __global__ void __launch_bounds__(NT) block_phase_a(PhaseA g) {
   // ---- GCL: aggregates of the block's rows -> AGG
   for (int s = 0; s < slots; ++s) {
     const int tile = blockIdx.x + s * gridDim.x, i0 = tile / g.B * TI;
-    mma::gcl_tile_tc<F, L::SS>(g.gcl, (size_t)(tile % g.B) * N, i0, smem,
+    mma::gcl_tile_tc<F, L::SS, mma::kTier>(g.gcl, (size_t)(tile % g.B) * N, i0, smem,
                                AGG + s * TI * L::SS, N - i0 < TI ? N - i0 : TI);
   }
 
@@ -246,14 +256,14 @@ __global__ void __launch_bounds__(NT) block_phase_a(PhaseA g) {
 
   // ---- node MLP: pre = h @ W_h + agg @ W_a
   Acc<F> acc;
-  mma::product_tc<F, RG, true, true>(S, ring, acc, rows);
-  mma::product_tc<F, RG, false, true>(AGG, ring, acc, rows);
+  mma::product_tc<F, RG, true, true, mma::kTier>(S, ring, acc, rows);
+  mma::product_tc<F, RG, false, true, mma::kTier>(AGG, ring, acc, rows);
   // S <- silu(pre + b0): every warp is done with S, having passed the second
   // product's first sync
   for_fragments<F>(acc, rows, [&](int r, int f, float v) {
     S[r * L::SS + f] = mma::silu_fast(v + g.nb0[f]);
   });
-  mma::product_tc<F, RG, true, true>(S, ring, acc, rows);
+  mma::product_tc<F, RG, true, true, mma::kTier>(S, ring, acc, rows);
   // h' = (h + upd + b2n) * mask -> out_h and AGG, which every warp is done
   // with since the third product's first sync
   for_fragments<F>(acc, rows, [&](int r, int f, float v) {
@@ -275,7 +285,7 @@ __global__ void __launch_bounds__(NT) block_phase_a(PhaseA g) {
 template <int F, bool CROSS>
 __global__ void __launch_bounds__(NT) block_phase_b(CoordArgs g, float* partial) {
   extern __shared__ __align__(16) float smem[];
-  coord_update_block<F, CROSS>(g, partial, smem);
+  coord_update_block<F, CROSS, mma::kTier>(g, partial, smem);
 }
 
 template <int F>

@@ -28,8 +28,8 @@
 // fragment loads are free of bank conflicts.
 //
 // Precision tiers (template parameter TIER of the products and of the
-// forward fill and epilogues; a split kernel's library is built for one tier,
-// -DEGNN_TIER, and block_fused.cu stays at TF32X3):
+// forward fill and epilogues; each kernel's library is built for one tier,
+// -DEGNN_TIER, block_fused.cu's node products included):
 //  * TF32X3 (0): the 3xTF32 product above, f32-grade;
 //  * TF32X2 (1): lo*hi + hi*hi, the second operand's low part dropped (W2's
 //    in the forward products), as the JAX package's "float32_x2" drops the
@@ -86,7 +86,7 @@ enum Tier : int { TF32X3 = 0, TF32X2 = 1, BF16 = 2 };
 #ifndef EGNN_TIER
 #define EGNN_TIER 0
 #endif
-constexpr int kTier = EGNN_TIER;  // the tier a split kernel's library is built for
+constexpr int kTier = EGNN_TIER;  // the tier a kernel's library is built for
 static_assert(kTier >= TF32X3 && kTier <= BF16, "EGNN_TIER: 0, 1 or 2");
 
 constexpr int KC = 32;  // W2 rows per stage (4 k-steps of 8, 2 of 16 in bf16)

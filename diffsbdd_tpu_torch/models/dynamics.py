@@ -12,11 +12,14 @@ Returns (eps_lig, eps_pkt) with the same leading shapes.
 
 The network takes the kernels' path unless its configuration asks for what
 they do not compute -- the sinusoidal distance embedding, mean aggregation
-or ``mode="gnn_dynamics"`` -- and then the dense path, as the JAX package's
-``_resolve_impl`` chooses its XLA path for exactly these.
+or ``mode="gnn_dynamics"`` -- or ``egnn_impl="xla"`` names the dense path,
+and then the dense path, as the JAX package's ``_resolve_impl`` chooses its
+XLA path for exactly these.  ``kernel_bwd="xla"`` keeps the forward kernels
+and takes their gradient through the float32 dense mirror instead of the
+backward kernels, as the JAX package's does.
 
 Precision, by the JAX package's names (``config.py`` has the mapping):
-``matmul_precision`` picks the split kernels' tier and, on CUDA, whether the
+``matmul_precision`` picks the kernels' tier and, on CUDA, whether the
 forward's cuBLAS products outside them (the "glue") run in TF32, set for the
 forward alone and restored after it; ``kernel_bwd_precision`` the backward
 kernels' tier (None: the forward's); ``compute_dtype="bfloat16"`` the dense
@@ -30,9 +33,8 @@ from typing import Optional
 import torch
 from torch import nn
 
-from diffsbdd_tpu_torch.config import precision_policy
+from diffsbdd_tpu_torch.config import check_impls, precision_policy
 from diffsbdd_tpu_torch.models.egnn import EGNN, GNN, GraphContext
-from diffsbdd_tpu_torch.ops.egnn_cuda import DEFAULT_TIER
 from diffsbdd_tpu_torch.ops.masked import masked_mean
 
 
@@ -117,24 +119,23 @@ class EGNNDynamics(nn.Module):
                  sin_embedding: bool = False, aggregation_method: str = "sum",
                  nan_check: bool = False, matmul_precision: str = "float32",
                  kernel_bwd_precision: Optional[str] = None,
-                 compute_dtype: str = "float32"):
+                 compute_dtype: str = "float32", egnn_impl: str = "auto",
+                 kernel_bwd: str = "auto"):
         super().__init__()
         if mode not in ("egnn_dynamics", "gnn_dynamics"):
             raise ValueError(mode)
+        check_impls(egnn_impl, kernel_bwd)
         self.mode = mode
         # the dense path, exactly where the JAX package's _resolve_impl takes
         # its XLA path; otherwise the kernels
         self.dense = sin_embedding or mode != "egnn_dynamics" \
-            or aggregation_method != "sum"
+            or aggregation_method != "sum" or egnn_impl == "xla"
+        # the split kernels' gradient through the dense mirror
+        self.mirror_bwd = kernel_bwd == "xla"
         # the kernels' tiers and the glue's (config.PRECISIONS)
         self.precision, self.bwd_precision, self.tf32_glue, dtype = precision_policy(
             matmul_precision, kernel_bwd_precision, compute_dtype)
         self.compute_dtype = getattr(torch, dtype)
-        if kernel_block_fuse and self.precision != DEFAULT_TIER and not self.dense:
-            raise ValueError(
-                f"kernel_block_fuse: the whole-block kernel has the 3xTF32 tier "
-                f"only, not matmul_precision {matmul_precision!r} (its tiers are "
-                f"queued in ROADMAP.md section 2); set kernel_block_fuse false")
         # the sampling-time check: raise on non-finite velocities (one host
         # sync a forward, so off by default)
         self.nan_check = nan_check
@@ -228,7 +229,8 @@ class EGNNDynamics(nn.Module):
                 block_fuse=bool(block_fuse) and self.kernel_block_fuse
                 and self.inv_sublayers == 1 and shard is None and not self.dense,
                 shard=shard, dense=self.dense, precision=self.precision,
-                bwd_precision=self.bwd_precision, compute_dtype=self.compute_dtype)
+                bwd_precision=self.bwd_precision, mirror_bwd=self.mirror_bwd,
+                compute_dtype=self.compute_dtype)
             if self.dense:
                 ctx.adj, il_cols = _col_adjacency(x, mask, is_lig, self.cutoffs, ctx)
                 if type_table is not None:

@@ -18,8 +18,11 @@ dense path (``GraphContext.dense``), as the JAX package takes its XLA path
 for them: the (B, N, N) adjacency and the (B, N, N, .) edge features and
 messages in memory, plain ``torch`` products, no kernel.
 
-Precision: ``GraphContext.precision`` / ``bwd_precision`` are the split
-kernels' tiers (``ops.egnn_cuda.TIERS``) at every call; on the dense path
+Precision: ``GraphContext.precision`` / ``bwd_precision`` are the kernels'
+tiers (``ops.egnn_cuda.TIERS``) at every call, the whole-block kernel's
+included; ``GraphContext.mirror_bwd`` takes the split kernels' gradient
+through their float32 dense mirror instead of the backward kernels; on the
+dense path
 ``GraphContext.compute_dtype`` (bfloat16) keeps the EGNN's pair MLPs and
 their (B, N, N, .) messages in that type and sums them over the columns in
 float32, at the JAX package's casts (its ``compute_dtype``).  ``GNN`` stays
@@ -60,10 +63,14 @@ class GraphContext:
     # edge-axis sharding: a parallel.edge_shard.ShardContext (this rank's
     # column block and its group), or None
     shard: Optional[object] = None
-    # the split kernels' precision tiers (ops.egnn_cuda.TIERS): the forward
-    # kernels', and the backward kernels' (None: the forward's)
+    # the kernels' precision tiers (ops.egnn_cuda.TIERS): the forward
+    # kernels' (the whole-block kernel's too), and the backward kernels'
+    # (None: the forward's)
     precision: str = kernels.DEFAULT_TIER
     bwd_precision: Optional[str] = None
+    # the split kernels' gradient through the float32 dense mirror instead of
+    # the backward kernels (the JAX package's kernel_bwd: xla)
+    mirror_bwd: bool = False
     # the dense path's pair-MLP type (torch.bfloat16 or torch.float32)
     compute_dtype: torch.dtype = torch.float32
 
@@ -80,9 +87,10 @@ class GraphContext:
         return None if self.update_rows is None else self.is_lig
 
     @property
-    def tiers(self) -> dict:
-        """The tier keywords of every split-kernel call."""
-        return dict(precision=self.precision, bwd_precision=self.bwd_precision)
+    def kernel_opts(self) -> dict:
+        """The precision and backward keywords of every split-kernel call."""
+        return dict(precision=self.precision, bwd_precision=self.bwd_precision,
+                    mirror_bwd=self.mirror_bwd)
 
     def enter(self, *tensors):
         """Replicated tensors about to feed this rank's share of a column
@@ -242,7 +250,7 @@ class DenseGCL(nn.Module):
         else:
             weights += (None, None)
         kw = dict(cutoffs=ctx.cutoffs, attention=self.attention,
-                  normalization_factor=self.normalization_factor, **ctx.tiers)
+                  normalization_factor=self.normalization_factor, **ctx.kernel_opts)
         mask, is_lig, x0 = ctx.mask, ctx.is_lig, ctx.x0
         if ctx.shard is not None:
             agg = ctx.shard.aggregate(
@@ -372,7 +380,7 @@ class DenseEquivariantUpdate(nn.Module):
         kw = dict(cutoffs=ctx.cutoffs, tanh=self.tanh, coords_range=self.coords_range,
                   norm_constant=self.norm_constant,
                   normalization_factor=self.normalization_factor,
-                  graph_mean=graph_mean, update_rows=ctx.update_rows, **ctx.tiers)
+                  graph_mean=graph_mean, update_rows=ctx.update_rows, **ctx.kernel_opts)
         if ctx.shard is not None:
             # the graph mean is of every node: computed before the split and
             # replicated; its cotangent is summed over the blocks with the rest
@@ -505,7 +513,7 @@ class EquivariantBlock(nn.Module):
             tanh=equiv.tanh, coords_range=equiv.coords_range,
             norm_constant=equiv.norm_constant,
             normalization_factor=equiv.normalization_factor,
-            update_rows=ctx.update_rows)
+            update_rows=ctx.update_rows, precision=ctx.precision)
         return h_new * ctx.mask[..., None], equiv.apply_update(x, dx, ctx)
 
 

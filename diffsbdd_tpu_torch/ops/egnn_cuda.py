@@ -31,7 +31,11 @@ One kernel carries a whole EGNN block on the sampling path:
 All of them rebuild the adjacency from the EGNN input coordinates ``x0``, the
 node masks and the per-pair-type distance cutoffs, so the (B, N, N) adjacency
 and the (B, N, N, F) message tensors never exist in memory; the backward
-kernels recompute the pair MLPs instead of reading saved activations.
+kernels recompute the pair MLPs instead of reading saved activations.  A
+caller may ask for the split kernels' gradient through the dense mirror
+instead of the backward kernels (``mirror_bwd``, the JAX package's
+``kernel_bwd: xla``): autograd through the float32 plain version, with the
+forward kernels' outputs kept.
 
 Each wrapper takes its plain PyTorch version (``*_plain``: the dense twins, and
 autograd through them) when its tensors lie on the CPU, and launches its kernel
@@ -42,8 +46,8 @@ launches each split kernel once per layer.  Each launch adds one to
 ``launch_counts[name]`` (one for the two phases of ``block_fused``, one for
 the coordinate kernel's two MLPs and the sum of their terms).
 
-Precision tiers.  The four split kernels take ``precision`` (and the
-forward wrappers ``bwd_precision`` for their backward kernels): ``"tf32x3"``
+Precision tiers.  Every kernel takes ``precision`` (and the split forward
+wrappers ``bwd_precision`` for their backward kernels): ``"tf32x3"``
 (the default, 3xTF32: f32-grade), ``"tf32x2"`` (2xTF32: the second operand's
 low part dropped, W2's in the forward) or ``"bf16"`` (one bf16 pass, f32
 accumulation; the forward kernels also compute the pair MLP at the JAX
@@ -54,8 +58,9 @@ library; a tier that does not build or launch raises, and
 ``tier_launch_counts["gcl_agg[bf16]"]`` counts the launches of each tier's
 library beside ``launch_counts``.  The plain versions
 emulate each tier (``matmul_3xtf32(passes=2)``, ``matmul_bf16``,
-``bf16_round``), so the CPU path computes what the card does.  The
-whole-block kernel has the 3xTF32 tier only.
+``bf16_round``), so the CPU path computes what the card does; the
+whole-block kernel's node MLP and projections round their products alone,
+their elementwise work stays float32.
 
 The kernels are compiled with ``nvcc`` for ``sm_90a`` into plain-C shared
 libraries under ``csrc/build`` at first use (``build_kernels``) and loaded with
@@ -87,11 +92,10 @@ SUPPORTED_F = (64, 128, 256)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-# precision tiers of the split kernels' products (csrc/egnn_mma.cuh, TIER):
+# precision tiers of the kernels' products (csrc/egnn_mma.cuh, TIER):
 # the value is the library's -DEGNN_TIER
 TIERS = {"tf32x3": 0, "tf32x2": 1, "bf16": 2}
 DEFAULT_TIER = "tf32x3"
-TIERED = KERNELS[:4]  # block_fused has the 3xTF32 tier only
 
 # The card's gates, a tiered kernel against its plain version at the same
 # tier (chip_smoke.py phase 20a, tests/test_torch_gpu.py).  Two parts:
@@ -115,6 +119,19 @@ TIERED = KERNELS[:4]  # block_fused has the 3xTF32 tier only
 TIER_GATES = {"tf32x3": dict(share=0.0, bwd=1e-4, moved=None),
               "tf32x2": dict(share=0.0, bwd=4e-3, moved=0.25),
               "bf16": dict(share=2e-3, bwd=4e-3, moved=0.25)}
+# The whole-block kernel's gates (forward only): the split kernels', but at
+# bf16 the block computes phase B's inputs itself -- h' and its projections,
+# a float32 rounding from the plain version's -- and phase B rounds them to
+# bf16 again, so a value next to a rounding boundary rounds to the other
+# neighbour twice over: the plain version itself, its inputs moved by 1e-6
+# relative, moves 0.06-0.11 (h_new) and 0.13-0.24 (dx) of the tier's move
+# at phase 3c's shapes on an H100 (chip_smoke.py 20a), where the kernel
+# reads up to 0.05 and 0.18 (0.27 for dx at B = 2, N = 90,
+# tests/test_torch_gpu.py) and its largest dx error 2.2e-3 of the largest
+# entry.  Allowed: two such roundings of a term as large as the largest
+# entry (4e-3), and half the tier's move by norm; a library of another tier
+# reads 0.82 (h_new) and 46 (dx) (tests/test_torch_block_tiers.py).
+BLOCK_TIER_GATES = dict(TIER_GATES, bf16=dict(share=4e-3, bwd=None, moved=0.5))
 
 
 def tier_moved_share(got: torch.Tensor, ref: torch.Tensor, exact: torch.Tensor) -> float:
@@ -129,7 +146,7 @@ def tier_moved_share(got: torch.Tensor, ref: torch.Tensor, exact: torch.Tensor) 
 launch_counts: Dict[str, int] = {name: 0 for name in KERNELS}
 # launches by kernel and tier, "gcl_agg[bf16]": which library ran
 tier_launch_counts: Dict[str, int] = {f"{name}[{tier}]": 0
-                                      for name in TIERED for tier in TIERS}
+                                      for name in KERNELS for tier in TIERS}
 _libs: Dict[tuple, ctypes.CDLL] = {}
 
 _P = ctypes.c_void_p
@@ -156,8 +173,9 @@ def reset_launch_counts() -> None:
 
 
 def check_tier(name: str, tier: str) -> str:
-    """``tier`` if the kernel ``name`` has it; raises otherwise."""
-    if tier not in TIERS or (tier != DEFAULT_TIER and name not in TIERED):
+    """``tier`` if it is one of ``TIERS``; raises, naming the kernel
+    ``name``, otherwise."""
+    if tier not in TIERS:
         raise ValueError(f"{name}: no precision tier {tier!r}")
     return tier
 
@@ -182,7 +200,7 @@ def _lib_path(name: str, tier: str = DEFAULT_TIER) -> Path:
 
 def build_kernels(names: Sequence[str] = KERNELS, force: bool = False,
                   tiers: Sequence[str] = (DEFAULT_TIER,)) -> Dict[str, str]:
-    """Compile the named kernels at each of ``tiers`` they have, one ``nvcc``
+    """Compile the named kernels at each of ``tiers``, one ``nvcc``
     process a library, all started together (a tier other than 3xTF32 with
     ``-DEGNN_TIER``).  Returns the compiler output (register and
     shared-memory use from ``-Xptxas -v``) by library: the kernel's name for
@@ -191,8 +209,6 @@ def build_kernels(names: Sequence[str] = KERNELS, force: bool = False,
     procs = {}
     for name in names:
         for tier in tiers:
-            if tier != DEFAULT_TIER and name not in TIERED:
-                continue
             src, lib = CSRC / f"{name}.cu", _lib_path(name, tier)
             newest = max(p.stat().st_mtime for p in (src, *HEADERS))
             if not force and lib.exists() and lib.stat().st_mtime >= newest:
@@ -257,8 +273,7 @@ def _launch(name: str, *args, tier: str = DEFAULT_TIER) -> None:
     if err != 0:
         raise RuntimeError(f"{name}[{tier}] kernel launch failed with CUDA error {err}")
     launch_counts[name] += 1
-    if name in TIERED:
-        tier_launch_counts[f"{name}[{tier}]"] += 1
+    tier_launch_counts[f"{name}[{tier}]"] += 1
 
 
 # ---------------------------------------------------------------------------
@@ -511,19 +526,24 @@ _HEAD_KEYS = ("k_i", "k_j", "b0", "w_d2", "w_d20", "type_bias", "w1", "b1", "w3"
 def block_fused_plain(h, a_row, a_col, x, x0, mask, is_lig, gcl, node, coord,
                       cross=None, graph_mean=None, *, cutoffs, attention, tanh,
                       coords_range, norm_constant, normalization_factor,
-                      update_rows=None, matmul=torch.matmul):
+                      update_rows=None, matmul=torch.matmul, precision=DEFAULT_TIER):
     """Plain version of ``block_fused`` (same math, O(N^2 F) in memory): the
     dense GCL twin, the node MLP, the folded head projections of h', the dense
     coordinate twin.  ``matmul`` computes every product the kernel runs on
     its tensor cores: the GCL's and both coordinate MLPs' silu(pre) @ W2, the
     node MLP's three and the heads' projections (``matmul_3xtf32``: as the
-    kernel does)."""
+    kernel does).  Another ``precision`` than 3xTF32 emulates that tier's
+    library: the split plain versions at the tier for the pair MLPs, the
+    tier's product (``matmul_3xtf32(passes=2)``, ``matmul_bf16``) for the
+    node MLP and the projections, whose elementwise work stays float32."""
     silu = torch.nn.functional.silu
+    if precision != DEFAULT_TIER:
+        matmul = _tier_product(precision)
     agg = gcl_message_agg_plain(
         a_row, a_col, x, x0, mask, is_lig, gcl["w_d2"], gcl["w_d20"],
         _delta_table(gcl.get("type_delta")), gcl["w2"], gcl["b2"],
         gcl.get("w_att"), gcl.get("b_att"), cutoffs=cutoffs, attention=attention,
-        normalization_factor=normalization_factor, matmul=matmul)
+        normalization_factor=normalization_factor, matmul=matmul, precision=precision)
     pre_n = matmul(h, node["w_h"]) + matmul(agg, node["w_a"]) + node["b0"]
     h_new = (h + matmul(silu(pre_n), node["w2"]) + node["b2"]) * mask[..., None]
 
@@ -545,7 +565,8 @@ def block_fused_plain(h, a_row, a_col, x, x0, mask, is_lig, gcl, node, coord,
         coord["w1"], coord["b1"], coord["w3"], cutoffs=cutoffs, tanh=tanh,
         coords_range=coords_range, norm_constant=norm_constant,
         normalization_factor=normalization_factor, cross=cross_arg,
-        graph_mean=graph_mean, update_rows=update_rows, matmul=matmul)
+        graph_mean=graph_mean, update_rows=update_rows, matmul=matmul,
+        precision=precision)
     return h_new, dx
 
 
@@ -896,14 +917,15 @@ def coord_agg_bwd(g, a_row, a_col, x, x0, mask, is_lig, w_d2, w_d20, delta, w2, 
 class _GclAggFn(torch.autograd.Function):
     """``gcl_message_agg`` over folded operands: the forward kernel at the
     forward tier, the backward kernel at the backward tier.  Forward saves the
-    operands only; backward recomputes the pair MLP inside its kernel.  On
+    operands only; backward recomputes the pair MLP inside its kernel, or
+    with ``mirror`` differentiates the float32 plain version instead.  On
     the CPU (a tier other than 3xTF32) the plain versions of both, at their
     tiers."""
 
     @staticmethod
     def forward(ctx, a_row, a_col, x, x0, w_d2, w_d20, delta, w2, b2, w_att, b_att,
                 mask, col_mask, is_lig, cfg):
-        cutoffs, attention, nf, update_rows, tier, _ = cfg
+        cutoffs, attention, nf, update_rows, tier, _, _ = cfg
         ctx.cfg = cfg
         ctx.save_for_backward(a_row, a_col, x, x0, w_d2, w_d20, delta, w2, b2,
                               w_att, b_att, mask, col_mask, is_lig)
@@ -923,12 +945,13 @@ class _GclAggFn(torch.autograd.Function):
     def backward(ctx, g):
         (a_row, a_col, x, x0, w_d2, w_d20, delta, w2, b2, w_att, b_att, mask,
          col_mask, is_lig) = ctx.saved_tensors
-        cutoffs, attention, nf, update_rows, _, bwd_tier = ctx.cfg
-        grads = gcl_agg_bwd(
+        cutoffs, attention, nf, update_rows, _, bwd_tier, mirror = ctx.cfg
+        bwd = gcl_agg_bwd_plain if mirror else gcl_agg_bwd
+        grads = bwd(
             g.contiguous(), a_row, a_col, x, x0, mask, is_lig, w_d2, w_d20, delta,
             w2, b2, w_att, b_att, cutoffs=cutoffs, attention=attention,
             normalization_factor=nf, col_mask=col_mask, update_rows=update_rows,
-            precision=bwd_tier)
+            precision=DEFAULT_TIER if mirror else bwd_tier)
         return (*grads, None, None, None, None)
 
 
@@ -940,7 +963,7 @@ class _CoordAggFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, cfg, mask, col_mask, is_lig, a_row, a_col, x, x0, w_d2, w_d20,
                 delta, w2, b2, w3, *cross_ops):
-        cutoffs, tanh, coords_range, norm_constant, nf, update_rows, tier, _ = cfg
+        cutoffs, tanh, coords_range, norm_constant, nf, update_rows, tier, _, _ = cfg
         ctx.cfg = cfg
         ctx.save_for_backward(mask, col_mask, is_lig, a_row, a_col, x, x0, w_d2,
                               w_d20, delta, w2, b2, w3, *cross_ops)
@@ -969,14 +992,16 @@ class _CoordAggFn(torch.autograd.Function):
     def backward(ctx, g):
         mask, col_mask, is_lig, *ops = ctx.saved_tensors
         main_ops, cross_ops = ops[:10], ops[10:]
-        cutoffs, tanh, coords_range, norm_constant, nf, update_rows, _, bwd_tier = ctx.cfg
+        (cutoffs, tanh, coords_range, norm_constant, nf, update_rows, _, bwd_tier,
+         mirror) = ctx.cfg
         cross = dict(zip(_MLP_KEYS, cross_ops[:-1])) if cross_ops else None
-        main_cot, cross_cot, dmean = coord_agg_bwd(
+        bwd = coord_agg_bwd_plain if mirror else coord_agg_bwd
+        main_cot, cross_cot, dmean = bwd(
             g.contiguous(), *main_ops[:4], mask, is_lig, *main_ops[4:],
             cutoffs=cutoffs, tanh=tanh, coords_range=coords_range,
             norm_constant=norm_constant, normalization_factor=nf, cross=cross,
             graph_mean=cross_ops[-1] if cross_ops else None, col_mask=col_mask,
-            update_rows=update_rows, precision=bwd_tier)
+            update_rows=update_rows, precision=DEFAULT_TIER if mirror else bwd_tier)
         grads = (None, None, None, None) + tuple(main_cot)
         if cross_ops:
             grads += tuple(cross_cot[k] for k in _MLP_KEYS) + (dmean,)
@@ -997,7 +1022,7 @@ def _tiers(name, precision, bwd_precision):
 def gcl_message_agg(a_row, a_col, x, x0, mask, is_lig, w_d2, w_d20,
                     type_bias, w2, b2, w_att, b_att, *, cutoffs, attention,
                     normalization_factor, col_mask=None, update_rows=None,
-                    precision=DEFAULT_TIER, bwd_precision=None):
+                    precision=DEFAULT_TIER, bwd_precision=None, mirror_bwd=False):
     """Aggregated attention-gated GCL messages -> (B, N, F).
 
     a_row/a_col: per-node projections of h through the split first-layer
@@ -1010,7 +1035,9 @@ def gcl_message_agg(a_row, a_col, x, x0, mask, is_lig, w_d2, w_d20,
     devices: by plain autograd through the twin on the CPU at 3xTF32, through
     the forward and backward kernels on CUDA, and through the plain versions
     of both at their tiers on the CPU otherwise (the edge-type fold stays
-    outside them, so autograd chains through it).
+    outside them, so autograd chains through it).  ``mirror_bwd``: the
+    backward is autograd through the float32 twin (no backward kernel, no
+    ``bwd_precision``), the forward's output the kernel's.
     """
     tiers = _tiers("gcl_agg", precision, bwd_precision)
     if a_row.device.type == "cpu" and tiers == (DEFAULT_TIER, DEFAULT_TIER):
@@ -1025,7 +1052,7 @@ def gcl_message_agg(a_row, a_col, x, x0, mask, is_lig, w_d2, w_d20,
         _check_width("gcl_message_agg", a_row.shape[-1])
     a_row, a_col, delta = fold_type_bias(a_row, a_col, is_lig, type_bias)
     cfg = (tuple(cutoffs), bool(attention), float(normalization_factor),
-           None if update_rows is None else int(update_rows), *tiers)
+           None if update_rows is None else int(update_rows), *tiers, bool(mirror_bwd))
     return _GclAggFn.apply(a_row.contiguous(), a_col.contiguous(), x, x0, w_d2,
                            w_d20, delta, w2, b2, w_att, b_att, mask, col_mask,
                            is_lig, cfg)
@@ -1035,7 +1062,7 @@ def coord_update_agg(a_row, a_col, x, x0, mask, is_lig, w_d2, w_d20,
                      type_bias, w2, b2, w3, *, cutoffs, tanh, coords_range,
                      norm_constant, normalization_factor, cross=None,
                      graph_mean=None, col_mask=None, update_rows=None,
-                     precision=DEFAULT_TIER, bwd_precision=None):
+                     precision=DEFAULT_TIER, bwd_precision=None, mirror_bwd=False):
     """Coordinate-update aggregation -> (B, N, 3).
 
     ``cross``: dict(a_row, a_col, w_d2, w_d20, type_bias, w2, b2, w3) of the
@@ -1043,8 +1070,8 @@ def coord_update_agg(a_row, a_col, x, x0, mask, is_lig, w_d2, w_d20,
     ``graph_mean`` (B, 3) the masked mean of the current coordinates.  w3
     (F, 1) is the scalar head.  ``col_mask`` restricts the neighbour side (a
     column block under edge-axis sharding; ``mask`` when None).  Rows >=
-    ``update_rows`` are exact zeros.  ``precision``, ``bwd_precision``: as
-    ``gcl_message_agg``'s.  Differentiable on both devices, as
+    ``update_rows`` are exact zeros.  ``precision``, ``bwd_precision``,
+    ``mirror_bwd``: as ``gcl_message_agg``'s.  Differentiable on both devices, as
     ``gcl_message_agg`` is.
     """
     tiers = _tiers("coord_agg", precision, bwd_precision)
@@ -1071,7 +1098,7 @@ def coord_update_agg(a_row, a_col, x, x0, mask, is_lig, w_d2, w_d20,
                      cross["w3"], graph_mean)
     cfg = (tuple(cutoffs), bool(tanh), float(coords_range), float(norm_constant),
            float(normalization_factor),
-           None if update_rows is None else int(update_rows), *tiers)
+           None if update_rows is None else int(update_rows), *tiers, bool(mirror_bwd))
     return _CoordAggFn.apply(cfg, mask, col_mask, is_lig, a_row.contiguous(),
                              a_col.contiguous(), x, x0, w_d2, w_d20, delta, w2, b2,
                              w3, *cross_ops)
@@ -1120,7 +1147,7 @@ def block_fused_bwd_plain(g_h, g_dx, h, a_row, a_col, x, x0, mask, is_lig, gcl, 
 
 def _block_forward_cuda(h, a_row, a_col, x, x0, mask, is_lig, gcl, node, coord,
                         cross, graph_mean, cutoffs, attention, tanh, coords_range,
-                        norm_constant, nf, update_rows):
+                        norm_constant, nf, update_rows, tier):
     B, N, F = a_row.shape
     dev = a_row.device
     name = "block_fused"
@@ -1168,41 +1195,41 @@ def _block_forward_cuda(h, a_row, a_col, x, x0, mask, is_lig, gcl, node, coord,
             int(bool(tanh)), float(coords_range), float(norm_constant), float(nf),
             _cut2(cutoffs[0]), _cut2(cutoffs[1]), _cut2(cutoffs[2]),
             B, N, F, _rows(update_rows, N), _block_grid(B, N, dev), _ptr(out_h),
-            _ptr(out_dx))
+            _ptr(out_dx), tier=tier)
     return out_h, out_dx
 
 
 class _BlockFusedFn(torch.autograd.Function):
-    """``block_fused`` on CUDA: the kernel forward; backward is autograd
-    through the plain version (sampling runs under ``no_grad`` and never
-    reaches it)."""
+    """``block_fused`` on CUDA: the kernel forward at its tier; backward is
+    autograd through the plain version at that tier (sampling runs under
+    ``no_grad`` and never reaches it)."""
 
     @staticmethod
     def forward(ctx, cfg, mask, is_lig, *ops):
         ctx.cfg = cfg
         ctx.save_for_backward(mask, is_lig, *ops)
-        cutoffs, attention, tanh, coords_range, norm_constant, nf, update_rows = cfg
         gcl, node, coord, cross, graph_mean = _unpack_block(ops[5:])
         return _block_forward_cuda(*ops[:5], mask, is_lig, gcl, node, coord, cross,
-                                   graph_mean, cutoffs, attention, tanh,
-                                   coords_range, norm_constant, nf, update_rows)
+                                   graph_mean, *cfg)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, g_h, g_dx):
         mask, is_lig, *ops = ctx.saved_tensors
-        cutoffs, attention, tanh, coords_range, norm_constant, nf, update_rows = ctx.cfg
+        (cutoffs, attention, tanh, coords_range, norm_constant, nf, update_rows,
+         tier) = ctx.cfg
         grads = block_fused_bwd_plain(
             g_h, g_dx, *ops[:5], mask, is_lig, *_unpack_block(ops[5:]),
             cutoffs=cutoffs, attention=attention, tanh=tanh,
             coords_range=coords_range, norm_constant=norm_constant,
-            normalization_factor=nf, update_rows=update_rows)
+            normalization_factor=nf, update_rows=update_rows, precision=tier)
         return (None, None, None, *grads)
 
 
 def block_fused(h, a_row, a_col, x, x0, mask, is_lig, gcl, node, coord, cross=None,
                 graph_mean=None, *, cutoffs, attention, tanh, coords_range,
-                norm_constant, normalization_factor, update_rows=None):
+                norm_constant, normalization_factor, update_rows=None,
+                precision=DEFAULT_TIER):
     """One EGNN block with one GCL -> (h_new (B, N, H), dx (B, N, 3)).
 
     h: block-entry node features; a_row/a_col: the GCL's first-layer
@@ -1215,21 +1242,23 @@ def block_fused(h, a_row, a_col, x, x0, mask, is_lig, gcl, node, coord, cross=No
                type_bias (2, 2, F)|None, w1 (F, F), b1 (F,), w3 (F, 1)}
       cross = the same fields as coord (needs graph_mean (B, 3)), or None
 
-    dx rows >= ``update_rows`` are exact zeros.  CPU tensors take the plain
-    version, CUDA tensors the kernel (H == F there); differentiable on both,
-    on CUDA by autograd through the plain version.
+    dx rows >= ``update_rows`` are exact zeros.  ``precision``: the tier of
+    every product, that tier's library on CUDA and its emulation on the CPU.
+    CPU tensors take the plain version, CUDA tensors the kernel (H == F
+    there); differentiable on both, on CUDA by autograd through the plain
+    version.
     """
     kw = dict(cutoffs=tuple(cutoffs), attention=bool(attention), tanh=bool(tanh),
               coords_range=float(coords_range), norm_constant=float(norm_constant),
               normalization_factor=float(normalization_factor),
-              update_rows=None if update_rows is None else int(update_rows))
+              update_rows=None if update_rows is None else int(update_rows),
+              precision=check_tier("block_fused", precision))
     if a_row.device.type == "cpu":
         return block_fused_plain(h, a_row, a_col, x, x0, mask, is_lig, gcl, node,
                                  coord, cross, graph_mean, **kw)
     if a_row.device.type != "cuda":
         raise ValueError(f"block_fused: unsupported device {a_row.device}")
     _check_width("block_fused", a_row.shape[-1])
-    cfg = (kw["cutoffs"], kw["attention"], kw["tanh"], kw["coords_range"],
-           kw["norm_constant"], kw["normalization_factor"], kw["update_rows"])
+    cfg = tuple(kw.values())
     return _BlockFusedFn.apply(cfg, mask, is_lig, h, a_row, a_col, x, x0,
                                *_pack_block(gcl, node, coord, cross, graph_mean))

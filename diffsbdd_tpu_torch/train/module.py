@@ -75,7 +75,8 @@ class LigandPocketDDPM(nn.Module):
                  kernel_block_fuse: bool = False, nan_check: bool = False,
                  matmul_precision: str = "float32",
                  kernel_bwd_precision: Optional[str] = None,
-                 compute_dtype: str = "float32"):
+                 compute_dtype: str = "float32", egnn_impl: str = "auto",
+                 kernel_bwd: str = "auto"):
         super().__init__()
         if mode not in DDPM_MODELS:
             raise ValueError(f"mode {mode!r} not in {sorted(DDPM_MODELS)}")
@@ -140,7 +141,7 @@ class LigandPocketDDPM(nn.Module):
             sin_embedding=egnn_params.sin_embedding,
             aggregation_method=egnn_params.aggregation_method, nan_check=nan_check,
             matmul_precision=matmul_precision, kernel_bwd_precision=kernel_bwd_precision,
-            compute_dtype=compute_dtype)
+            compute_dtype=compute_dtype, egnn_impl=egnn_impl, kernel_bwd=kernel_bwd)
         self.ddpm = DDPM_MODELS[mode](
             dynamics=dynamics, atom_nf=self.atom_nf, residue_nf=self.residue_nf,
             n_dims=3, timesteps=diffusion_params.diffusion_steps,
@@ -408,4 +409,6 @@ def build_module_from_config(cfg: Config, node_histogram) -> LigandPocketDDPM:
         nan_check=cfg.tpu.get("nan_check", False),
         matmul_precision=cfg.tpu.get("matmul_precision", "float32"),
         kernel_bwd_precision=cfg.tpu.get("kernel_bwd_precision"),
-        compute_dtype=cfg.tpu.get("compute_dtype", "float32"))
+        compute_dtype=cfg.tpu.get("compute_dtype", "float32"),
+        egnn_impl=cfg.tpu.get("egnn_impl", "auto"),
+        kernel_bwd=cfg.tpu.get("kernel_bwd", "auto"))

@@ -677,8 +677,8 @@ def test_coord_bwd_kernel_at_flagship_shapes(width, spread, update_rows):
 # float32's), launched from that tier's library
 # ---------------------------------------------------------------------------
 
-def _assert_tier_close(got, ref, exact, tier):
-    gate = ec.TIER_GATES[tier]
+def _assert_tier_close(got, ref, exact, tier, gates=ec.TIER_GATES):
+    gate = gates[tier]
     limit = TOL["atol"] + TOL["rtol"] * ref.abs() + gate["share"] * float(ref.abs().max())
     assert torch.isfinite(got).all()
     assert bool(((got - ref).abs() <= limit).all()), float((got - ref).abs().max())
@@ -770,3 +770,81 @@ def test_autograd_runs_the_backward_tier(tier):
                   for t in (tier, "tf32x3"))
     _assert_tier_cotangents({"da_row": a_row.grad}, {"da_row": ref[0]},
                             {"da_row": exact[0]}, tier)
+
+
+@pytest.mark.parametrize("width", [64, 128, 256])
+@pytest.mark.parametrize("tier", ["tf32x2", "bf16"])
+def test_tiered_block_kernel_matches_plain(tier, width):
+    """The whole-block kernel's library at each reduced tier against the
+    plain version at that tier (``BLOCK_TIER_GATES``), both outputs; dx rows
+    at and above ``update_rows`` exact zeros; only that tier's library
+    launched."""
+    ins = block_inputs(40, N=90, F=width, n_lig=10, spread=4.0)
+    kw = dict(BLOCK_KW, update_rows=10)
+    ec.reset_launch_counts()
+    got = ec.block_fused(*ins, **kw, precision=tier)
+    _only_tier("block_fused", tier)
+    ref = ec.block_fused_plain(*ins, **kw, precision=tier)
+    exact = ec.block_fused_plain(*ins, **kw)
+    for g, r, e in zip(got, ref, exact):
+        _assert_tier_close(g, r, e, tier, ec.BLOCK_TIER_GATES)
+    assert not got[1][:, 10:].any()
+
+
+def _dynamics_case(device, **knobs):
+    """A two-layer flagship-style network (cross branch, attention, tanh,
+    cutoffs) with seeded weights, and a batch, on ``device``."""
+    from diffsbdd_tpu_torch.models.dynamics import EGNNDynamics
+    torch.manual_seed(0)
+    model = EGNNDynamics(atom_nf=5, residue_nf=7, joint_nf=16, hidden_nf=64, n_layers=2,
+                         attention=True, tanh=True, norm_constant=1.0, inv_sublayers=1,
+                         reflection_equivariant=False, edge_cutoff_pocket=5.0,
+                         edge_cutoff_interaction=5.0, **knobs).to(device)
+    g = torch.Generator().manual_seed(1)
+    NL, NP = 12, 40
+    xh_l = torch.cat([torch.randn(B, NL, 3, generator=g),
+                      torch.eye(5)[torch.randint(0, 5, (B, NL), generator=g)]], -1)
+    xh_p = torch.cat([torch.randn(B, NP, 3, generator=g) * 3,
+                      torch.eye(7)[torch.randint(0, 7, (B, NP), generator=g)]], -1)
+    batch = [t.to(device) for t in (xh_l, xh_p, torch.full((B, 1), 0.4),
+                                    torch.ones(B, NL), torch.ones(B, NP))]
+    return model, batch
+
+
+def _sum_sq_grads(model, batch):
+    loss = sum(e.pow(2).sum() for e in model(*batch))
+    return {n: g.cpu() for n, g in zip(
+        [n for n, _ in model.named_parameters()],
+        torch.autograd.grad(loss, list(model.parameters()), allow_unused=True))
+        if g is not None}
+
+
+def test_egnn_impl_xla_launches_no_kernel():
+    """``egnn_impl: xla`` on the card: the dense path, forward and backward,
+    with no kernel launched, block fusing asked for or not; its values those
+    of the CPU's dense path."""
+    model, batch = _dynamics_case("cuda", egnn_impl="xla", kernel_block_fuse=True)
+    ec.reset_launch_counts()
+    with torch.no_grad():
+        got = model(*batch, block_fuse=True)
+    grads = _sum_sq_grads(model, batch)
+    assert not any(ec.launch_counts.values()), ec.launch_counts
+    cpu, cpu_batch = _dynamics_case("cpu", egnn_impl="xla")
+    with torch.no_grad():
+        want = cpu(*cpu_batch)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.cpu(), w, atol=1e-4, rtol=1e-4)
+    assert grads
+
+
+def test_kernel_bwd_xla_launches_no_backward_kernel():
+    """``kernel_bwd: xla`` on the card: the forward kernels run (one of each
+    split kernel a layer), no backward kernel, and the gradients are the
+    CPU's plain autograd (the mirror) within the backward kernels' gate."""
+    model, batch = _dynamics_case("cuda", kernel_bwd="xla")
+    ec.reset_launch_counts()
+    got = _sum_sq_grads(model, batch)
+    assert ec.launch_counts == {"gcl_agg": 2, "coord_agg": 2, "gcl_agg_bwd": 0,
+                                "coord_agg_bwd": 0, "block_fused": 0}, ec.launch_counts
+    cpu, cpu_batch = _dynamics_case("cpu", kernel_bwd="xla")
+    _assert_cotangents(got, _sum_sq_grads(cpu, cpu_batch))

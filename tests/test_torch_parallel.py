@@ -60,6 +60,9 @@ EDGE_CASES = ("conditional", "joint", "dense_conditional", "dense_joint")
 DENSE = dict(sin_embedding=True, aggregation_method="mean", head_scale=30.0)
 # the conditional case's network with bf16 kernels forward and backward
 TIER = dict(matmul_precision="bfloat16", kernel_bwd_precision="bfloat16")
+# its network with a 2xTF32 forward (which takes the CPU through the
+# kernels' autograd Functions) and the dense mirror's backward
+MIRROR = dict(matmul_precision="float32_x2", kernel_bwd="xla")
 PREFIX = "ddpm.dynamics."
 
 
@@ -208,7 +211,8 @@ def two_rank_run(tmp_path_factory):
             for name, upd, seed, variant in (
                 ("conditional", False, 1, {}), ("joint", True, 2, {}),
                 ("dense_conditional", False, 6, DENSE), ("dense_joint", True, 7, DENSE),
-                ("tier_conditional", False, 1, TIER))}
+                ("tier_conditional", False, 1, TIER),
+                ("mirror_conditional", False, 1, MIRROR))}
     # gnn_dynamics under the split raises, as in JAX
     gnn = dict(edge["conditional"][2], state=None)
     gnn["kwargs"] = dict(gnn["kwargs"], mode="gnn_dynamics")
@@ -317,6 +321,34 @@ def test_edge_split_at_a_precision_tier(two_rank_run):
             assert share <= 5e-2, share
         for (n, _), g, w in zip(model.named_parameters(), got["grads"], want_grads):
             torch.testing.assert_close(g, w, **GRAD_TOL, msg=n)
+
+
+def test_edge_split_with_the_mirror_backward(two_rank_run):
+    """``kernel_bwd: xla`` under the edge split: each rank differentiates
+    the float32 mirror on its column block.  Against one process of the same
+    network, values and gradients within the float32 gates; the gradients
+    also within GRAD_TOL of JAX's float32 split (the forward's 2xTF32
+    rounding moves them little), and not those of the 2xTF32 backward."""
+    jdyn, variables, spec = two_rank_run["edge"]["mirror_conditional"]
+    model = ranks.build_dynamics(spec)
+    assert model.mirror_bwd and model.precision == "tf32x2"
+    want = model(*map(torch.as_tensor, spec["inputs"]))
+    want_grads = ranks.sum_sq_grads(model, want)
+    jax_grads = jax_sum_sq_grads(jax_edge_sharded(jdyn, make_edge_mesh(2)), variables,
+                                 spec["inputs"])
+    kernel_bwd = ranks.build_dynamics(dict(spec, kwargs=dict(spec["kwargs"],
+                                                            kernel_bwd="auto")))
+    tier_grads = ranks.sum_sq_grads(kernel_bwd, kernel_bwd(*map(torch.as_tensor,
+                                                                spec["inputs"])))
+    names = [n for n, _ in model.named_parameters()]
+    for res in two_rank_run["results"]:
+        got = res["edge"]["mirror_conditional"]
+        for g, w in zip(got["eps"], want):
+            torch.testing.assert_close(g, w.detach(), **VALUE_TOL)
+        for n, g, w in zip(names, got["grads"], want_grads):
+            torch.testing.assert_close(g, w, **GRAD_TOL, msg=n)
+            np.testing.assert_allclose(g.numpy(), jax_grads[n], **GRAD_TOL, err_msg=n)
+        assert any(not torch.equal(g, t) for g, t in zip(got["grads"], tier_grads))
 
 
 def test_edge_split_refuses_gnn_dynamics(two_rank_run):

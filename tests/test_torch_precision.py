@@ -125,27 +125,35 @@ def test_each_name_reaches_the_network(name):
 
 
 def test_block_fusing_with_a_reduced_tier_raises():
-    for name in ("float32_x2", "bfloat16"):
+    """Block fusing at every precision name builds, and the whole-block
+    function runs at the name's tier (it raised before the whole-block
+    kernel had the reduced tiers); only an unknown name raises."""
+    for name in sorted(_PRECISIONS):
         cfg = load_config(overrides=tiny_overrides(
             tpu={"matmul_precision": name, "kernel_block_fuse": True}))
-        with pytest.raises(ValueError, match="ROADMAP.md section 2"):
-            build_module_from_config(cfg, HIST)
-    for name in ("float32", "float32_x3", "tensorfloat32"):
-        cfg = load_config(overrides=tiny_overrides(
-            tpu={"matmul_precision": name, "kernel_block_fuse": True}))
-        assert build_module_from_config(cfg, HIST).ddpm.dynamics.kernel_block_fuse
+        dyn = build_module_from_config(cfg, HIST).ddpm.dynamics
+        assert dyn.kernel_block_fuse and dyn.precision == TIER_OF[name]
+    with pytest.raises(ValueError, match="matmul_precision"):
+        load_config(overrides=tiny_overrides(
+            tpu={"matmul_precision": "bf16", "kernel_block_fuse": True}))
 
 
 @pytest.mark.parametrize("key", ["egnn_impl", "kernel_bwd"])
 def test_implementation_knobs(key):
-    """``egnn_impl`` / ``kernel_bwd``: auto and pallas run the kernels; xla,
-    not yet ported, raises naming ROADMAP.md section 1; others raise."""
-    for impl in ("auto", "pallas"):
-        assert getattr(load_config(overrides={"tpu": {key: impl}}).tpu, key) == impl
-    with pytest.raises(ValueError, match="ROADMAP.md section 1"):
-        load_config(overrides={"tpu": {key: "xla"}})
+    """``egnn_impl`` / ``kernel_bwd``: auto and pallas run the kernels; xla
+    builds the dense path (``egnn_impl``) or the kernels with the dense
+    mirror's backward (``kernel_bwd``), as JAX's xla does; others raise."""
+    for impl in ("auto", "pallas", "xla"):
+        cfg = load_config(overrides=tiny_overrides(tpu={key: impl}))
+        assert getattr(cfg.tpu, key) == impl
+        dyn = build_module_from_config(cfg, HIST).ddpm.dynamics
+        xla = impl == "xla"
+        assert (dyn.dense, dyn.mirror_bwd) == ((xla, False) if key == "egnn_impl"
+                                               else (False, xla))
     with pytest.raises(ValueError, match=key):
         load_config(overrides={"tpu": {key: "triton"}})
+    with pytest.raises(ValueError, match=key):
+        EGNNDynamics(**KWARGS, **{key: "triton"})
 
 
 def test_checkpoints_carry_the_tiers(tmp_path, datadir):  # noqa: F811
