@@ -13,8 +13,8 @@ Phases (any failure ends the run with a non-zero exit code):
      library only its tier's HMMA (TF32 or bf16), as many as its passes:
      2xTF32 2/3 of 3xTF32's TF32 HMMA, bf16 1/6 of them in the forward and
      whole-block kernels (between 1/6 and 1/3 in the backward ones, whose
-     dW2 loop is not unrolled); the whole-block kernel's 3xTF32 SASS
-     against the digest of the library before its tiers (same nvcc);
+     dW2 loop is not unrolled); the five 3xTF32 libraries' SASS against
+     the recorded digests (``PARENT_SASS``, same nvcc);
   3. each forward kernel against its plain PyTorch twin at the flagship shapes
      (B=16, NL=24, NP=300 padded to 320, F=256, cutoffs None/5/5, attention
      and the cross branch on) and at the shared-pocket variants (col_mask,
@@ -175,9 +175,14 @@ Phases (any failure ends the run with a non-zero exit code):
      bfloat16: ms per pass and peak memory, a forward against float32 and
      the CPU (the first GCL's message sums: the card's bf16 within 1e-3 and
      a quarter of float32's distance of the CPU's), and the largest training
-     batch that runs.  20e: what still raises: an unknown precision name,
-     and a width outside SUPPORTED_F on the card (split and whole-block
-     kernel, no launch).  20f: phase 10's joint chain (flagship-joint-b8,
+     batch that runs.  20e: hidden widths 96 and 192, which the kernels run
+     zero-padded to 128 and 256: the five wrappers at 3xTF32 and bf16
+     against their plain versions at the true width (the tier gates, one
+     launch each), gcl_agg's time at width 192 beside 256, and a hidden-192
+     flagship-shaped model sampled through cli.generate_ligands (16 x 24,
+     T=50, 8T + 6 / 6T + 6 launches, ms a pass); the package root's
+     load_model on the card; what still raises with no launch: an unknown
+     precision name and width 320.  20f: phase 10's joint chain (flagship-joint-b8,
      8 x 24, T=500, one seed) from phase 10's joint checkpoint, block
      fusing on at float32, bfloat16 and float32_x2 and off
      at the reduced tiers: 6(T+1) launches of the tier's whole-block library
@@ -374,10 +379,15 @@ def sass_counts(ec, name, opcodes, function=None, tier="tf32x3"):
     return {op: len(re.findall(rf"\b{re.escape(op)}\b", sass)) for op in opcodes}
 
 
-# the SASS digest (``sass_digest``) of block_fused's 3xTF32 library before
-# the whole-block kernel had tiers, and the nvcc that built it (the card
-# machine's)
+# the SASS digests (``sass_digest``) of the five 3xTF32 libraries as
+# recorded from the sources before the wrappers padded hidden widths (the
+# same as before the whole-block kernel had tiers), and the nvcc that built
+# them (the card machine's)
 PARENT_SASS = {"nvcc": "Cuda compilation tools, release 12.9, V12.9.86",
+               "gcl_agg": "6c8d13f1059e8a502a6f8fc4034ae86f159336ba2a511405e2d0ca802b955a2e",
+               "coord_agg": "eb150784b23f98bc70da266a97f5bf76a14f95e0da7e04bc89a7db46d90039c8",
+               "gcl_agg_bwd": "0771edc9ae1a153c90c858ba8400d2ddd9e7667ecc2e91c1412e9399e310a984",
+               "coord_agg_bwd": "1507e98e27f7501351006c0b563b62834d6f8bbe796d6bb0c342b72a972c1d3b",
                "block_fused": "1aade11a14d8968fa36a00425def9336bfda8eaaa636cfd7c8817e088e3b785c"}
 FORWARD_KERNELS = ("gcl_agg", "coord_agg", "block_fused")
 
@@ -3482,12 +3492,166 @@ def impl_phase(torch, ec, dev, flagship, work, pdb, ref_lig, card):
     return res
 
 
-def refusal_phase(torch, ec, dev, flagship):
-    """Phase 20e: what still raises: an unknown precision name (as JAX's
-    ``_PRECISIONS[name]`` does), and a hidden width outside ``SUPPORTED_F``
-    on the card, before any launch, in a split and the whole-block kernel."""
+PADDED_WIDTHS = (96, 192)  # run at 128 and 256 (ec.padded_width)
+PADDED_TIERS = ("tf32x3", "bf16")
+PADDED_CHAIN = dict(n=16, T=50)  # a hidden-192 chain beside a hidden-256 one
+
+
+def padded_kernel_phase(ec, torch, dev, flagship, width):
+    """Phase 20e, the kernels at a hidden width they are not built for: the
+    five wrappers at ``width`` (zero-padded to ``ec.padded_width(width)``)
+    at 3xTF32 and bf16 on a phase-3 complex of B = 2 (24 + 300 atoms, cross
+    branch, attention, the edge-type deltas), each against its plain version
+    at ``width`` and that tier: the split kernels on ``ec.TIER_GATES``, the
+    whole block on ``ec.BLOCK_TIER_GATES`` (as in 20a; at bf16 the norm gate
+    against float32's plain version at ``width``); one launch of that tier's
+    library each, outputs and cotangents at ``width``."""
+    cfg = dict(flagship, egnn_params=dict(flagship["egnn_params"], hidden_nf=width))
+    inp = kernel_inputs(torch, dev, cfg, 2, 24, with_delta=True, seed=5)
+    B, N, F, NL = inp["B"], inp["N"], inp["F"], inp["NL"]
+    node = ("a_row", "a_col", "x", "x0", "mask", "is_lig")
+    g_gcl, g_coord = inp["r"](B, N, F), inp["r"](B, N, 3)
+    cross_b = {k: v for k, v in inp["cross"].items() if k != "type_bias"}
+    cross_b["delta"] = inp["cross_delta"]
+    ops = block_operands(inp, table=True)
+    w = inp["gcl_w"]
+    block_kw = dict(cutoffs=inp["cut"], attention=True, tanh=True, coords_range=15.0,
+                    norm_constant=1.0, normalization_factor=100.0, update_rows=NL)
+    calls = {  # kernel: fn(wrapper or plain version, tier) -> {output: tensor}
+        "gcl_agg": lambda fn, tier: {"agg": fn(
+            *(inp[k] for k in node), *w.values(), cutoffs=inp["cut"], attention=True,
+            normalization_factor=100.0, precision=tier)},
+        "coord_agg": lambda fn, tier: {"dx": fn(
+            *(inp[k] for k in node), *inp["coord_w"], cutoffs=inp["cut"], tanh=True,
+            coords_range=15.0, norm_constant=1.0, normalization_factor=100.0,
+            update_rows=NL, cross=inp["cross"], graph_mean=inp["graph_mean"],
+            precision=tier)},
+        "gcl_agg_bwd": lambda fn, tier: _name_cotangents(fn(
+            g_gcl, *(inp[k] for k in node), w["w_d2"], w["w_d20"], inp["gcl_delta"],
+            w["w2"], w["b2"], w["w_att"], w["b_att"], cutoffs=inp["cut"], attention=True,
+            normalization_factor=100.0, precision=tier), GCL_COT),
+        "coord_agg_bwd": lambda fn, tier: _name_cotangents(fn(
+            g_coord, *(inp[k] for k in node), *inp["coord_w"][:2], inp["coord_delta"],
+            *inp["coord_w"][3:], cutoffs=inp["cut"], tanh=True, coords_range=15.0,
+            norm_constant=1.0, normalization_factor=100.0, cross=cross_b,
+            graph_mean=inp["graph_mean"], update_rows=NL, precision=tier), COORD_COT),
+        "block_fused": lambda fn, tier: dict(zip(("h_new", "dx"), fn(
+            *ops, **block_kw, precision=tier)))}
+    plains = {"gcl_agg": ec.gcl_message_agg_plain, "coord_agg": ec.coord_update_agg_plain,
+              "gcl_agg_bwd": ec.gcl_agg_bwd_plain, "coord_agg_bwd": ec.coord_agg_bwd_plain,
+              "block_fused": ec.block_fused_plain}
+    wrappers = {"gcl_agg": ec.gcl_message_agg, "coord_agg": ec.coord_update_agg,
+                "gcl_agg_bwd": ec.gcl_agg_bwd, "coord_agg_bwd": ec.coord_agg_bwd,
+                "block_fused": ec.block_fused}
+    results = {}
+    for name, call in calls.items():
+        exact = call(plains[name], "tf32x3")
+        for tier in PADDED_TIERS:
+            gate = (ec.BLOCK_TIER_GATES if name == "block_fused" else ec.TIER_GATES)[tier]
+            what = f"{name}[{tier}] F={width} (at {ec.padded_width(width)})"
+            ec.reset_launch_counts()
+            got = call(wrappers[name], tier)
+            launched = {k: v for k, v in ec.tier_launch_counts.items() if v}
+            _check(launched == {f"{name}[{tier}]": 1},
+                   f"{what}: launched {launched}, not one launch of its tier's library")
+            ref = exact if tier == "tf32x3" else call(plains[name], tier)
+            torch.cuda.synchronize()
+            share = moved_share = 0.0
+            for out, r in ref.items():
+                if r is None:
+                    _check(got[out] is None, f"{what} {out}: a cotangent where none is due")
+                    continue
+                g = got[out]
+                _check(g.shape == r.shape, f"{what} {out}: shape {tuple(g.shape)}, "
+                                           f"expected {tuple(r.shape)}")
+                scale = float(r.abs().max())
+                e = float((g - r).abs().max())
+                if name.endswith("_bwd"):
+                    ok = e <= gate["bwd"] * scale + 1e-7
+                elif name == "block_fused":
+                    ok = e <= 1e-5 + (1e-4 + gate["share"]) * scale
+                else:
+                    ok = bool(((g - r).abs() <= 1e-5 + 1e-4 * r.abs()
+                               + gate["share"] * scale).all())
+                _check(bool(torch.isfinite(g).all()) and ok,
+                       f"{what} {out}: error {e:.3e}, largest entry {scale:.3e}")
+                share = max(share, e / (scale + 1e-30))
+                if gate["moved"] is not None:
+                    moved_share = max(moved_share, ec.tier_moved_share(g, r, exact[out]))
+            if gate["moved"] is not None:
+                _check(moved_share <= gate["moved"],
+                       f"{what}: error norm {moved_share:.3f} of the tier's move, "
+                       f"gate {gate['moved']}")
+            results[f"{name}[{tier}]"] = dict(width=width, run_at=ec.padded_width(width),
+                                              gate_share=share, moved_share=moved_share)
+            print(f"  {what}: 1 launch of {name}[{tier}]; error {share:.2e} of the largest "
+                  f"entry" + ("" if gate["moved"] is None else
+                              f", error norm {moved_share:.4f} of the tier's move "
+                              f"(gate {gate['moved']:g})"))
+    del inp, ops
+    return results
+
+
+def padded_width_phase(torch, ec, dev, flagship, work, pdb, ref_lig, card):
+    """Phase 20e: hidden widths the kernels are not built for, and what
+    still raises.  (a) ``padded_kernel_phase`` at 96 and 192.  (b) the
+    padding's cost: ``gcl_agg`` at phase 3's main shapes (B = 16) at width
+    192 (run at 256) beside width 256, CUDA-event times.  (c) a hidden-192
+    model of the flagship's shape (random weights from seed 0) through
+    cli.generate_ligands on phase 5's pocket, 16 x 24, T = 50, and the same
+    model at hidden 256 as its yardstick, in turns 192, 256, 192, 256: 8T +
+    6 ``gcl_agg`` and 6T + 6 ``coord_agg`` launches each, ms a pass.  (d) the
+    package root's ``load_model`` at its default device: the module on the
+    card, the checkpoint's only name ``best`` loaded for ``last``.  (e) what
+    still raises before any launch: an unknown precision name (as JAX's
+    ``_PRECISIONS[name]`` does) and width 320, above every kernel's."""
+    import diffsbdd_tpu_torch
     from diffsbdd_tpu_torch.config import load_config
-    res = {}
+    res = {"card": card, "kernels": {}}
+    for width in PADDED_WIDTHS:
+        res["kernels"][width] = padded_kernel_phase(ec, torch, dev, flagship, width)
+
+    timing = {}
+    for width in (192, 256):
+        cfg = dict(flagship, egnn_params=dict(flagship["egnn_params"], hidden_nf=width))
+        inp = kernel_inputs(torch, dev, cfg, 16, 24)
+        args = [inp[k] for k in ("a_row", "a_col", "x", "x0", "mask", "is_lig")]
+        timing[width] = _cuda_ms(lambda: ec.gcl_message_agg(
+            *args, *inp["gcl_w"].values(), cutoffs=inp["cut"], attention=True,
+            normalization_factor=100.0), 20)
+        del inp, args
+    res["gcl_agg_ms"] = {"F192_at_256": timing[192], "F256": timing[256]}
+    print(f"  {card}: gcl_agg at B = 16, 24 + 300 atoms: width 192 padded "
+          f"{timing[192]:.4f} ms, width 256 {timing[256]:.4f} ms")
+
+    chain, res["chain"] = PADDED_CHAIN, {192: [], 256: []}
+    ckpts = {width: _random_checkpoint(torch, dict(flagship, egnn_params=dict(
+        flagship["egnn_params"], hidden_nf=width)), None, work / f"h{width}")[0]
+        for width in (192, 256)}
+    want = chain_launches(ec, 6, chain["T"])
+    for width in (192, 256, 192, 256):
+        sdf = work / f"h{width}.sdf"
+        wall, sample_s, launches, by_tier, xh = _captured_generate(
+            torch, ec, [ckpts[width], "--pdbfile", pdb, "--ref_ligand", ref_lig, "--outfile",
+                        sdf, "--n_samples", chain["n"], "--num_nodes_lig", 24,
+                        "--all_frags", "--timesteps", chain["T"]])
+        _check(launches == want, f"the hidden-{width} chain launched {launches}, not {want}")
+        _check(bool(torch.isfinite(xh).all()), f"the hidden-{width} chain's samples")
+        mols = _sdf_molecules(sdf)
+        _check(0 < len(mols) <= chain["n"], f"the hidden-{width} chain wrote {len(mols)}")
+        res["chain"][width].append(dict(
+            chain, ms_per_pass=1e3 * sample_s / (chain["T"] + 1), sample_s=sample_s,
+            wall_s=wall, launches=launches, launches_by_tier=by_tier, molecules=len(mols)))
+        print(f"  {card}: hidden {width}" + (" (run at 256)" if width == 192 else "")
+              + f", {chain['n']} x 24 atoms, T={chain['T']}: "
+              f"{res['chain'][width][-1]['ms_per_pass']:.2f} ms a pass, CLI wall {wall:.2f} s, "
+              f"launches {launches}, {len(mols)} molecules")
+    module, _ = diffsbdd_tpu_torch.load_model(ckpts[192], name="last")
+    on = {p.device.type for p in module.parameters()}
+    _check(on == {"cuda"}, f"diffsbdd_tpu_torch.load_model put the module on {on}")
+    res["root_load_model"] = sorted(on)
+    print(f"  diffsbdd_tpu_torch.load_model(ckpt, name='last'): best loaded, on {on}")
+    del module
 
     def refused(key, call, names):
         try:
@@ -3496,22 +3660,22 @@ def refusal_phase(torch, ec, dev, flagship):
         except ValueError as err:
             res[key] = str(err)
         _check(names in res[key], f"{key} did not raise naming {names}")
-        print(f"  {key}: raises '{res[key][:90]}'")
+        print(f"  {key}: raises '{res[key][:100]}'")
 
+    ec.reset_launch_counts()
     refused("unknown_precision", lambda: load_config(
         overrides=dict(flagship, tpu={"matmul_precision": "float16"})), "matmul_precision")
-    cfg = dict(flagship, egnn_params=dict(flagship["egnn_params"], hidden_nf=96))
+    cfg = dict(flagship, egnn_params=dict(flagship["egnn_params"], hidden_nf=320))
     inp = kernel_inputs(torch, dev, cfg, 2, 24)
-    ops = block_operands(inp)
-    ec.reset_launch_counts()
-    refused("width_96_gcl_agg", lambda: ec.gcl_message_agg(
+    refused("width_320_gcl_agg", lambda: ec.gcl_message_agg(
         *(inp[k] for k in ("a_row", "a_col", "x", "x0", "mask", "is_lig")),
         *inp["gcl_w"].values(), cutoffs=inp["cut"], attention=True,
-        normalization_factor=100.0, precision="bf16"), "feature width")
-    refused("width_96_block_fused", lambda: ec.block_fused(
-        *ops, cutoffs=inp["cut"], attention=True, tanh=True, coords_range=15.0,
-        norm_constant=1.0, normalization_factor=100.0, precision="bf16"), "feature width")
-    _check(not any(ec.launch_counts.values()), "a refused width launched a kernel")
+        normalization_factor=100.0, precision="bf16"), "ROADMAP")
+    refused("width_320_block_fused", lambda: ec.block_fused(
+        *block_operands(inp), cutoffs=inp["cut"], attention=True, tanh=True,
+        coords_range=15.0, norm_constant=1.0, normalization_factor=100.0,
+        precision="bf16"), "ROADMAP")
+    _check(not any(ec.launch_counts.values()), "a refused call launched a kernel")
     return res
 
 
@@ -3536,8 +3700,8 @@ def phase20(torch, ec, dev, flagship, work, pdb, ref_lig, base, card, joint_ckpt
     res["training"] = tier_training_phase(torch, ec, dev, work, card)
     print("[20d] the dense sin/mean model at compute_dtype bfloat16")
     res["dense"] = dense_bf16_phase(torch, ec, dev, flagship, work, pdb, ref_lig, card)
-    print("[20e] refusals")
-    res["refusals"] = refusal_phase(torch, ec, dev, flagship)
+    print("[20e] hidden widths 96 and 192 zero-padded, the root's load_model, refusals")
+    res["widths"] = padded_width_phase(torch, ec, dev, flagship, work, pdb, ref_lig, card)
     print("[20f] the joint chain with block fusing at bfloat16 and at float32_x2")
     res["joint"] = tier_joint_phase(torch, ec, dev, work, pdb, ref_lig, card, joint_ckpt)
     print("[20g] egnn_impl xla and kernel_bwd xla")
@@ -3592,17 +3756,17 @@ def main(argv=None) -> int:
         print(f"  {what} SASS: {sass['HMMA']} HMMA, {sass['LDGSTS']} LDGSTS instructions")
         _check(sass["HMMA"] > 0 and sass["LDGSTS"] > 0,
                f"{what} has no tensor-core or cp.async instructions")
-    # the whole-block kernel's 3xTF32 library builds from the same code as
-    # before its tiers: its SASS, instruction for instruction, is the one
-    # recorded from the library before them (with the same nvcc)
-    nvcc_release, digest = sass_digest(ec, "block_fused")
-    if nvcc_release == PARENT_SASS["nvcc"]:
-        _check(digest == PARENT_SASS["block_fused"],
-               f"block_fused 3xTF32 SASS differs from the untiered library's ({digest})")
-        print(f"  block_fused 3xTF32 SASS identical to the untiered library's ({nvcc_release})")
-    else:
-        print(f"  block_fused 3xTF32 SASS not compared: nvcc {nvcc_release}, recorded with "
-              f"{PARENT_SASS['nvcc']}")
+    # the five 3xTF32 libraries build from the same code as recorded: their
+    # SASS, instruction for instruction, is the recorded one (same nvcc)
+    for name in ec.KERNELS:
+        nvcc_release, digest = sass_digest(ec, name)
+        if nvcc_release == PARENT_SASS["nvcc"]:
+            _check(digest == PARENT_SASS[name],
+                   f"{name} 3xTF32 SASS differs from the recorded library's ({digest})")
+            print(f"  {name} 3xTF32 SASS identical to the recorded library's ({nvcc_release})")
+        else:
+            print(f"  {name} 3xTF32 SASS not compared: nvcc {nvcc_release}, recorded with "
+                  f"{PARENT_SASS['nvcc']}")
     # each tier's library runs its products as that tier's tensor-core
     # instructions only: TF32 HMMA for 3xTF32 and 2xTF32, bf16 HMMA for bf16
     tier_sass = {}

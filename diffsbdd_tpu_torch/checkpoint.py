@@ -44,12 +44,18 @@ def save_model(ckpt_dir, module: LigandPocketDDPM, cfg: Config,
 def load_model(ckpt_dir, name: str = "best", device="cuda"
                ) -> Tuple[LigandPocketDDPM, Config]:
     """Rebuild (module in eval mode, config) from a checkpoint, on CUDA
-    unless ``device="cpu"``; raises without a card (``resolve_device``)."""
+    unless ``device="cpu"``; raises without a card (``resolve_device``).
+    Where ``name`` is missing, loads ``last`` (``best`` when ``last`` was
+    asked for), as the JAX package does: the trainer writes ``last`` at
+    every validation but ``best`` only when the loss improves."""
     device = resolve_device(device)
     ckpt_dir = Path(ckpt_dir)
     cfg_file = ckpt_dir / f"{name}.config.json"
     if not cfg_file.exists():
-        raise FileNotFoundError(f"no checkpoint {name!r} under {ckpt_dir}")
+        name = "best" if name == "last" else "last"
+        cfg_file = ckpt_dir / f"{name}.config.json"
+        if not cfg_file.exists():
+            raise FileNotFoundError(f"no checkpoint config under {ckpt_dir}")
     cfg_dict = json.loads(cfg_file.read_text())
     histogram = cfg_dict.pop("node_histogram")
     cfg = load_config(overrides=cfg_dict)

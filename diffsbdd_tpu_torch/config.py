@@ -59,6 +59,12 @@ whole-block kernel at the same tier as the split kernels: its pair MLPs
 round as theirs do, its node MLP and projections only their products (the
 tier's library, ``block_fused[bf16]``).  Any other precision name raises, as
 JAX's ``_PRECISIONS[name]`` does.
+
+The defaults are the JAX package's, key for key and value for value, less
+the ``tpu`` fields accepted without effect above and four keys that no
+module of either package reads (``gpus``, ``enable_progress_bar``,
+``num_sanity_val_steps``, ``egnn_params.device``); a preset or sidecar
+that sets them passes them through.
 """
 from __future__ import annotations
 
@@ -96,7 +102,7 @@ _DEFAULTS: Dict[str, Any] = {
     "seed": 42,
     "batch_size": 16,
     "lr": 1.0e-3,
-    "n_epochs": 1,
+    "n_epochs": 1000,
     "clip_grad": True,
     "accumulate_grad_batches": 1,
     # > 0: the training batches are assembled in a background thread, this

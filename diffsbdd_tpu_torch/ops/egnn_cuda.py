@@ -62,6 +62,15 @@ emulate each tier (``matmul_3xtf32(passes=2)``, ``matmul_bf16``,
 whole-block kernel's node MLP and projections round their products alone,
 their elementwise work stays float32.
 
+Hidden widths.  The kernels are instantiated at F = 64, 128 and 256
+(``SUPPORTED_F``).  On CUDA the public wrappers run any other width up to 256
+at the next of those (``padded_width``: 32 at 64, 96 at 128, 192 at 256):
+every operand's width axes zero-padded (``pad_operands``), the outputs'
+cut back.  The padded channels stay exact zeros through every MLP, so the
+result is the unpadded one up to summation order, at every tier; gradients
+reach the true width through autograd of the padding.  Wider than 256
+raises before any launch.
+
 The kernels are compiled with ``nvcc`` for ``sm_90a`` into plain-C shared
 libraries under ``csrc/build`` at first use (``build_kernels``) and loaded with
 ctypes.
@@ -87,7 +96,9 @@ ROW_TILE = 4  # rows per tile, TI in csrc/egnn_common.cuh
 # hidden widths the kernels are built for: the fixture checkpoint's, the
 # config default's and the flagship's.  The layouts need F to divide the
 # block's 256 threads and the dW2 warp layout F >= 64 (csrc/egnn_mma.cuh,
-# egnn_mma_bwd.cuh): 64, 128 and 256 are all the widths they admit.
+# egnn_mma_bwd.cuh): 64, 128 and 256 are all the widths they admit up to
+# 256.  The wrappers run every other width up to 256 zero-padded to the next
+# of them (``padded_width``, ``pad_operands``).
 SUPPORTED_F = (64, 128, 256)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -614,6 +625,10 @@ def gcl_agg_bwd_plain(g, a_row, a_col, x, x0, mask, is_lig, w_d2, w_d20, delta,
 
 
 _MLP_KEYS = ("a_row", "a_col", "w_d2", "w_d20", "delta", "w2", "b2", "w3")
+# the backward wrappers' cotangents in order, each named as its operand
+_GCL_COT = ("a_row", "a_col", "x", "x0", "w_d2", "w_d20", "delta", "w2", "b2", "w_att",
+            "b_att")
+_COORD_COT = _GCL_COT[:9] + ("w3",)
 
 
 def coord_agg_bwd_plain(g, a_row, a_col, x, x0, mask, is_lig, w_d2, w_d20, delta,
@@ -656,9 +671,63 @@ def _rows(update_rows, N):
     return N if update_rows is None else int(update_rows)
 
 
-def _check_width(name, F):
-    if F not in SUPPORTED_F:
-        raise ValueError(f"{name}: feature width {F} not in {SUPPORTED_F}")
+def padded_width(F: int, name: str = "egnn kernels") -> int:
+    """The width the kernels run hidden width ``F`` at: the least of
+    ``SUPPORTED_F`` that is >= F.  Wider than 256 raises: the layouts need a
+    kernel design of their own there (ROADMAP.md §2, widths above 256)."""
+    for width in SUPPORTED_F:
+        if width >= F:
+            return width
+    raise ValueError(f"{name}: feature width {F} above {SUPPORTED_F[-1]}, the widest "
+                     f"the kernels are built for (ROADMAP.md §2: widths above 256)")
+
+
+# the axes of an operand that run along the hidden width, by the operand's
+# name in the wrappers' signatures and parameter dicts; other operands have none
+_WIDTH_AXES = {**dict.fromkeys(("h", "a_row", "a_col", "w_d2", "w_d20", "delta",
+                                "type_delta", "type_bias", "b0", "b1", "b2"), (-1,)),
+               **dict.fromkeys(("w1", "w2", "w_h", "w_a", "k_i", "k_j"), (0, 1)),
+               **dict.fromkeys(("w_att", "w3"), (0,))}
+
+
+def _pad_axes(t: torch.Tensor, F: int, width: int, axes, key: str) -> torch.Tensor:
+    pad = [0] * (2 * t.dim())
+    for axis in axes:
+        if t.shape[axis] != F:
+            raise ValueError(f"{key} has shape {tuple(t.shape)}, expected width {F} "
+                             f"on axis {axis}")
+        pad[2 * (t.dim() - 1 - axis % t.dim()) + 1] = width - F
+    return torch.nn.functional.pad(t, pad)
+
+
+def pad_operands(ops: Dict, F: int, width: int) -> Dict:
+    """``ops`` (operands by name, parameter dicts nested) with every
+    hidden-width axis zero-padded from ``F`` to ``width``.  The added channels
+    of every kernel stay exact zeros -- silu(0) = 0, and the padded rows and
+    columns of every matrix are zero -- so a kernel at ``width`` computes the
+    width-``F`` result up to summation order.  The padding is differentiable:
+    autograd slices the gradients back to ``F``."""
+    return {key: pad_operands(t, F, width) if isinstance(t, dict)
+            else t if t is None or key not in _WIDTH_AXES
+            else _pad_axes(t, F, width, _WIDTH_AXES[key], key)
+            for key, t in ops.items()}
+
+
+def unpad_operands(ops: Dict, F: int) -> Dict:
+    """``pad_operands``' inverse: every hidden-width axis cut back to ``F``
+    (cotangents named as the operands they belong to)."""
+    out = {}
+    for key, t in ops.items():
+        if isinstance(t, dict):
+            out[key] = unpad_operands(t, F)
+        elif t is None or key not in _WIDTH_AXES:
+            out[key] = t
+        else:
+            index = [slice(None)] * t.dim()
+            for axis in _WIDTH_AXES[key]:
+                index[axis] = slice(0, F)
+            out[key] = t[tuple(index)]
+    return out
 
 
 def _mlp_shapes(B, N, F):
@@ -751,7 +820,14 @@ def gcl_agg_bwd(g, a_row, a_col, x, x0, mask, is_lig, w_d2, w_d20, delta, w2, b2
         raise ValueError(f"gcl_agg_bwd: unsupported device {a_row.device}")
     B, N, F = a_row.shape
     dev = a_row.device
-    _check_width("gcl_agg_bwd", F)
+    width = padded_width(F, "gcl_agg_bwd")
+    if width != F:
+        ops = pad_operands(dict(a_row=a_row, a_col=a_col, w_d2=w_d2, w_d20=w_d20,
+                                delta=delta, w2=w2, b2=b2, w_att=w_att), F, width)
+        grads = gcl_agg_bwd(_pad_axes(g, F, width, (-1,), "g"), ops["a_row"],
+                            ops["a_col"], x, x0, mask, is_lig, ops["w_d2"], ops["w_d20"],
+                            ops["delta"], ops["w2"], ops["b2"], ops["w_att"], b_att, **kw)
+        return tuple(unpad_operands(dict(zip(_GCL_COT, grads)), F).values())
     cm = mask if col_mask is None else col_mask
     watt = w_att.reshape(F) if attention else None
     batt = b_att.reshape(1) if attention else None
@@ -844,9 +920,17 @@ def coord_agg_bwd(g, a_row, a_col, x, x0, mask, is_lig, w_d2, w_d20, delta, w2, 
         raise ValueError(f"coord_agg_bwd: unsupported device {a_row.device}")
     B, N, F = a_row.shape
     dev = a_row.device
-    _check_width("coord_agg_bwd", F)
     main = dict(a_row=a_row, a_col=a_col, w_d2=w_d2, w_d20=w_d20, delta=delta,
                 w2=w2, b2=b2, w3=w3)
+    width = padded_width(F, "coord_agg_bwd")
+    if width != F:
+        ops = pad_operands(dict(main, cross=cross), F, width)
+        kw["cross"] = ops.pop("cross")
+        main_cot, cross_cot, dmean = coord_agg_bwd(
+            g, ops["a_row"], ops["a_col"], x, x0, mask, is_lig, ops["w_d2"], ops["w_d20"],
+            ops["delta"], ops["w2"], ops["b2"], ops["w3"], **kw)
+        return (tuple(unpad_operands(dict(zip(_COORD_COT, main_cot)), F).values()),
+                None if cross_cot is None else unpad_operands(cross_cot, F), dmean)
     c = _NO_MLP if cross is None else {k: cross[k] for k in _MLP_KEYS}
     if cross is not None and graph_mean is None:
         raise ValueError("coord_agg_bwd: the cross branch needs graph_mean")
@@ -1048,8 +1132,18 @@ def gcl_message_agg(a_row, a_col, x, x0, mask, is_lig, w_d2, w_d20,
             update_rows=update_rows)
     if a_row.device.type not in ("cpu", "cuda"):
         raise ValueError(f"gcl_message_agg: unsupported device {a_row.device}")
-    if a_row.device.type == "cuda":
-        _check_width("gcl_message_agg", a_row.shape[-1])
+    F = a_row.shape[-1]
+    width = padded_width(F, "gcl_message_agg") if a_row.device.type == "cuda" else F
+    if width != F:
+        ops = pad_operands(dict(a_row=a_row, a_col=a_col, w_d2=w_d2, w_d20=w_d20,
+                                type_bias=type_bias, w2=w2, b2=b2, w_att=w_att),
+                           F, width)
+        return gcl_message_agg(
+            ops["a_row"], ops["a_col"], x, x0, mask, is_lig, ops["w_d2"], ops["w_d20"],
+            ops["type_bias"], ops["w2"], ops["b2"], ops["w_att"], b_att, cutoffs=cutoffs,
+            attention=attention, normalization_factor=normalization_factor,
+            col_mask=col_mask, update_rows=update_rows, precision=precision,
+            bwd_precision=bwd_precision, mirror_bwd=mirror_bwd)[..., :F]
     a_row, a_col, delta = fold_type_bias(a_row, a_col, is_lig, type_bias)
     cfg = (tuple(cutoffs), bool(attention), float(normalization_factor),
            None if update_rows is None else int(update_rows), *tiers, bool(mirror_bwd))
@@ -1084,8 +1178,19 @@ def coord_update_agg(a_row, a_col, x, x0, mask, is_lig, w_d2, w_d20,
             graph_mean=graph_mean, col_mask=col_mask, update_rows=update_rows)
     if a_row.device.type not in ("cpu", "cuda"):
         raise ValueError(f"coord_update_agg: unsupported device {a_row.device}")
-    if a_row.device.type == "cuda":
-        _check_width("coord_update_agg", a_row.shape[-1])
+    F = a_row.shape[-1]
+    width = padded_width(F, "coord_update_agg") if a_row.device.type == "cuda" else F
+    if width != F:
+        ops = pad_operands(dict(a_row=a_row, a_col=a_col, w_d2=w_d2, w_d20=w_d20,
+                                type_bias=type_bias, w2=w2, b2=b2, w3=w3, cross=cross),
+                           F, width)
+        return coord_update_agg(
+            ops["a_row"], ops["a_col"], x, x0, mask, is_lig, ops["w_d2"], ops["w_d20"],
+            ops["type_bias"], ops["w2"], ops["b2"], ops["w3"], cutoffs=cutoffs, tanh=tanh,
+            coords_range=coords_range, norm_constant=norm_constant,
+            normalization_factor=normalization_factor, cross=ops["cross"],
+            graph_mean=graph_mean, col_mask=col_mask, update_rows=update_rows,
+            precision=precision, bwd_precision=bwd_precision, mirror_bwd=mirror_bwd)
     a_row, a_col, delta = fold_type_bias(a_row, a_col, is_lig, type_bias)
     cross_ops = ()
     if cross is not None:
@@ -1151,8 +1256,6 @@ def _block_forward_cuda(h, a_row, a_col, x, x0, mask, is_lig, gcl, node, coord,
     B, N, F = a_row.shape
     dev = a_row.device
     name = "block_fused"
-    if h.shape[-1] != F:
-        raise ValueError(f"{name}: node width {h.shape[-1]} != message width {F}")
     watt = gcl["w_att"].reshape(F) if attention else None
     batt = gcl["b_att"].reshape(1) if attention else None
     _check(name, dict(h=h, a_row=a_row, a_col=a_col, x=x, x0=x0, mask=mask,
@@ -1258,7 +1361,17 @@ def block_fused(h, a_row, a_col, x, x0, mask, is_lig, gcl, node, coord, cross=No
                                  coord, cross, graph_mean, **kw)
     if a_row.device.type != "cuda":
         raise ValueError(f"block_fused: unsupported device {a_row.device}")
-    _check_width("block_fused", a_row.shape[-1])
+    F = a_row.shape[-1]
+    if h.shape[-1] != F:
+        raise ValueError(f"block_fused: node width {h.shape[-1]} != message width {F}")
+    width = padded_width(F, "block_fused")
+    if width != F:
+        ops = pad_operands(dict(h=h, a_row=a_row, a_col=a_col, gcl=gcl, node=node,
+                                coord=coord, cross=cross), F, width)
+        h_new, dx = block_fused(ops["h"], ops["a_row"], ops["a_col"], x, x0, mask, is_lig,
+                                ops["gcl"], ops["node"], ops["coord"], ops["cross"],
+                                graph_mean, **kw)
+        return h_new[..., :F], dx
     cfg = tuple(kw.values())
     return _BlockFusedFn.apply(cfg, mask, is_lig, h, a_row, a_col, x, x0,
                                *_pack_block(gcl, node, coord, cross, graph_mean))

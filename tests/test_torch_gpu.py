@@ -791,12 +791,12 @@ def test_tiered_block_kernel_matches_plain(tier, width):
     assert not got[1][:, 10:].any()
 
 
-def _dynamics_case(device, **knobs):
+def _dynamics_case(device, hidden_nf=64, **knobs):
     """A two-layer flagship-style network (cross branch, attention, tanh,
     cutoffs) with seeded weights, and a batch, on ``device``."""
     from diffsbdd_tpu_torch.models.dynamics import EGNNDynamics
     torch.manual_seed(0)
-    model = EGNNDynamics(atom_nf=5, residue_nf=7, joint_nf=16, hidden_nf=64, n_layers=2,
+    model = EGNNDynamics(atom_nf=5, residue_nf=7, joint_nf=16, hidden_nf=hidden_nf, n_layers=2,
                          attention=True, tanh=True, norm_constant=1.0, inv_sublayers=1,
                          reflection_equivariant=False, edge_cutoff_pocket=5.0,
                          edge_cutoff_interaction=5.0, **knobs).to(device)
@@ -848,3 +848,76 @@ def test_kernel_bwd_xla_launches_no_backward_kernel():
                                 "coord_agg_bwd": 0, "block_fused": 0}, ec.launch_counts
     cpu, cpu_batch = _dynamics_case("cpu", kernel_bwd="xla")
     _assert_cotangents(got, _sum_sq_grads(cpu, cpu_batch))
+
+
+# ---------------------------------------------------------------------------
+# hidden widths the kernels are not built for: zero-padded to the next one
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("width", [96, 192])
+def test_padded_widths_match_plain(width):
+    """96 runs at 128 and 192 at 256 (``ec.padded_width``): each of the five
+    wrappers against its plain version at the true width, one launch each,
+    every output and cotangent at the true width."""
+    main, extra = _inputs(50, F=width, w_scale=None)
+    att = (extra["w_att"], extra["b_att"])
+    kw = dict(cutoffs=CUTOFFS, attention=True, normalization_factor=100.0)
+    m = main["mask"]
+    ckw = dict(COORD_KW, update_rows=12, cross=dict(extra["cross"], w3=extra["w3"]),
+               graph_mean=(main["x"] * m[..., None]).sum(1) / m.sum(1)[:, None])
+    ec.reset_launch_counts()
+    got = ec.gcl_message_agg(*main.values(), *att, **kw)
+    assert got.shape == (B, N, width)
+    torch.testing.assert_close(got, ec.gcl_message_agg_plain(*main.values(), *att, **kw),
+                               **TOL)
+    torch.testing.assert_close(ec.coord_update_agg(*main.values(), extra["w3"], **ckw),
+                               ec.coord_update_agg_plain(*main.values(), extra["w3"], **ckw),
+                               **TOL)
+    ops = _folded(main)
+    gen = torch.Generator().manual_seed(51)
+    g = torch.randn(B, N, width, generator=gen).cuda()
+    _assert_cotangents(dict(zip(GCL_COT, ec.gcl_agg_bwd(g, *ops.values(), *att, **kw))),
+                       dict(zip(GCL_COT, ec.gcl_agg_bwd_plain(g, *ops.values(), *att, **kw))))
+    ckw["cross"] = _folded_cross(extra["cross"], main["is_lig"], extra["w3"])
+    gc = torch.randn(B, N, 3, generator=gen).cuda()
+    _assert_cotangents(
+        _coord_cot(ec.coord_agg_bwd(gc, *ops.values(), extra["w3"], **ckw)),
+        _coord_cot(ec.coord_agg_bwd_plain(gc, *ops.values(), extra["w3"], **ckw)))
+    ins = block_inputs(52, F=width)
+    got = ec.block_fused(*ins, **BLOCK_KW, update_rows=12)
+    assert got[0].shape == (B, N, width)
+    assert_block_close(got, ec.block_fused_plain(*ins, **BLOCK_KW, update_rows=12), 12)
+    assert ec.launch_counts == dict.fromkeys(ec.KERNELS, 1), ec.launch_counts
+
+
+def test_padded_width_network_matches_cpu():
+    """A hidden-96 network on the card, the split kernels forward and
+    backward (one launch of each a layer) and the whole-block kernel,
+    against its plain versions on the CPU."""
+    model, batch = _dynamics_case("cuda", hidden_nf=96, kernel_block_fuse=True)
+    cpu, cpu_batch = _dynamics_case("cpu", hidden_nf=96)
+    ec.reset_launch_counts()
+    got = _sum_sq_grads(model, batch)
+    assert ec.launch_counts == {"gcl_agg": 2, "coord_agg": 2, "gcl_agg_bwd": 2,
+                                "coord_agg_bwd": 2, "block_fused": 0}, ec.launch_counts
+    _assert_cotangents(got, _sum_sq_grads(cpu, cpu_batch))
+    with torch.no_grad():
+        fused = model(*batch, block_fuse=True)
+        want = cpu(*cpu_batch)
+    assert ec.launch_counts["block_fused"] == 2
+    for f, w in zip(fused, want):
+        torch.testing.assert_close(f.cpu(), w, atol=1e-4, rtol=1e-4)
+
+
+def test_width_above_256_is_refused():
+    """320 is wider than any kernel: a ValueError naming the ROADMAP item,
+    before any launch."""
+    main, extra = _inputs(53, F=320)
+    ins = block_inputs(54, F=320)
+    ec.reset_launch_counts()
+    with pytest.raises(ValueError, match="above 256.*ROADMAP"):
+        ec.gcl_message_agg(*main.values(), extra["w_att"], extra["b_att"], cutoffs=CUTOFFS,
+                           attention=True, normalization_factor=100.0)
+    with pytest.raises(ValueError, match="above 256.*ROADMAP"):
+        ec.block_fused(*ins, **BLOCK_KW)
+    assert not any(ec.launch_counts.values())

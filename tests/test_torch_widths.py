@@ -1,0 +1,236 @@
+"""Hidden widths the kernels are not built for, zero-padded to the next one
+they are (``ec.padded_width``: 32 -> 64, 96 -> 128, 192 -> 256), on the CPU.
+
+On the card the wrappers pad every operand's width axes
+(``ec.pad_operands``), run the kernel at the padded width and cut the
+outputs back.  Here the same padding goes through the plain versions, which
+compute what the kernels do:
+
+* the padded GCL, coordinate update (cross branch on) and whole block,
+  cut back to F, against the JAX package's dense twins at F
+  (``gcl_message_agg_xla``, ``coord_update_agg_xla``, ``block_fused_xla``):
+  atol 1e-5 + rtol 1e-4 (float32 on both sides, the pairs summed in
+  another order), and the padded channels exact zeros: the GCL sum, the
+  pair MLPs' messages and the block's h_new;
+* gradients through the padding (autograd slices them back to F) against
+  the unpadded plain versions': atol 1e-5 + rtol 1e-4;
+* the 2xTF32 and bf16 tiers' emulations at the padded width against the
+  same tier at F, within the card's gates (``ec.TIER_GATES``, the whole
+  block's ``ec.BLOCK_TIER_GATES``), the backward plain versions included.
+
+B = 2, N = 20 (8 ligand nodes), one numpy seed a width.
+"""
+import functools
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+import diffsbdd_tpu.ops.egnn_pallas as ep
+from diffsbdd_tpu.ops.egnn_block_fused import block_fused_xla
+from diffsbdd_tpu_torch.ops import egnn_cuda as ec
+
+B, N, NL = 2, 20, 8
+WIDTHS = (32, 96, 192)
+TOL = dict(atol=1e-5, rtol=1e-4)
+CUTOFFS = (None, 5.0, 5.0)
+GCL_KW = dict(cutoffs=CUTOFFS, attention=True, normalization_factor=100.0)
+COORD_KW = dict(cutoffs=CUTOFFS, tanh=True, coords_range=15.0, norm_constant=1.0,
+                normalization_factor=100.0)
+BLOCK_KW = dict(COORD_KW, attention=True)
+GCL_KEYS = ("a_row", "a_col", "x", "x0", "mask", "is_lig", "w_d2", "w_d20", "type_bias",
+            "w2", "b2", "w_att", "b_att")
+COORD_KEYS = GCL_KEYS[:11] + ("w3",)
+BLOCK_KEYS = ("h", "a_row", "a_col", "x", "x0", "mask", "is_lig", "gcl", "node", "coord",
+              "cross", "graph_mean")
+
+
+def make_ops(F, seed=0):
+    """Every operand of the three functions at width F, as numpy arrays."""
+    rng = np.random.default_rng(seed)
+    nrm = lambda *s, scale=1.0: (rng.standard_normal(s) * scale).astype(np.float32)
+    s = F ** -0.5
+    x = nrm(B, N, 3, scale=3.0)
+    mask = (rng.uniform(size=(B, N)) > 0.15).astype(np.float32)
+    mask[:, 0] = 1.0
+    w3 = nrm(F, 1, scale=s)
+
+    def mlp():
+        return dict(a_row=nrm(B, N, F, scale=0.5), a_col=nrm(B, N, F, scale=0.5),
+                    w_d2=nrm(F, scale=0.05), w_d20=nrm(F, scale=0.05),
+                    type_bias=nrm(2, 2, F, scale=0.2), w2=nrm(F, F, scale=s),
+                    b2=nrm(F, scale=0.1), w3=w3)
+
+    def head():
+        return dict(k_i=nrm(F, F, scale=s), k_j=nrm(F, F, scale=s), b0=nrm(F, scale=0.1),
+                    w_d2=nrm(F, scale=0.05), w_d20=nrm(F, scale=0.05),
+                    type_bias=nrm(2, 2, F, scale=0.2), w1=nrm(F, F, scale=s),
+                    b1=nrm(F, scale=0.1), w3=w3)
+
+    ops = dict(mlp(), x=x, x0=x + nrm(B, N, 3, scale=0.1), mask=mask,
+               is_lig=np.broadcast_to((np.arange(N) < NL).astype(np.float32), (B, N)).copy(),
+               w_att=nrm(F, 1, scale=s), b_att=nrm(1, scale=0.1), h=nrm(B, N, F, scale=0.5),
+               delta=nrm(F, scale=0.2), cross=mlp(), coord=head(), block_cross=head())
+    ops["graph_mean"] = ((x * mask[..., None]).sum(1) / mask.sum(1)[:, None]).astype(np.float32)
+    ops["gcl"] = dict(w_d2=ops["w_d2"], w_d20=ops["w_d20"], type_delta=ops["delta"],
+                      w2=ops["w2"], b2=ops["b2"], w_att=ops["w_att"], b_att=ops["b_att"])
+    ops["node"] = dict(w_h=nrm(F, F, scale=s), w_a=nrm(F, F, scale=s), b0=nrm(F, scale=0.1),
+                       w2=nrm(F, F, scale=s), b2=nrm(F, scale=0.1))
+    return ops
+
+
+def convert(tree, fn):
+    if isinstance(tree, dict):
+        return {k: convert(v, fn) for k, v in tree.items()}
+    return None if tree is None else fn(tree)
+
+
+def gcl(ops, **kw):
+    return ec.gcl_message_agg_plain(*(ops[k] for k in GCL_KEYS), **GCL_KW, **kw)
+
+
+def coord(ops, **kw):
+    return ec.coord_update_agg_plain(*(ops[k] for k in COORD_KEYS), **COORD_KW,
+                                     cross=ops["cross"], graph_mean=ops["graph_mean"], **kw)
+
+
+def block(ops, **kw):
+    return ec.block_fused_plain(*(dict(ops, cross=ops["block_cross"])[k] for k in BLOCK_KEYS),
+                                **BLOCK_KW, **kw)
+
+
+def padded(fn, ops, F, **kw):
+    """``fn`` on ``ops`` zero-padded to ``ec.padded_width(F)``: (the outputs
+    cut back to F, the padded outputs)."""
+    out = fn(ec.pad_operands(ops, F, ec.padded_width(F)), **kw)
+    full = out if isinstance(out, tuple) else (out,)
+    cut = tuple(o if o.shape[-1] == 3 else o[..., :F] for o in full)  # dx is (B, N, 3)
+    return (cut if isinstance(out, tuple) else cut[0]), full
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_fns():
+    return dict(
+        gcl=jax.jit(lambda o: ep.gcl_message_agg_xla(*(o[k] for k in GCL_KEYS), **GCL_KW)),
+        coord=jax.jit(lambda o: ep.coord_update_agg_xla(
+            *(o[k] for k in COORD_KEYS), **COORD_KW, cross=o["cross"],
+            graph_mean=o["graph_mean"])),
+        block=jax.jit(lambda o: block_fused_xla(
+            *(dict(o, cross=o["block_cross"])[k] for k in BLOCK_KEYS), **BLOCK_KW)))
+
+
+PORT = dict(gcl=gcl, coord=coord, block=block)
+
+
+@pytest.mark.parametrize("F", WIDTHS)
+@pytest.mark.parametrize("name", ["gcl", "coord", "block"])
+def test_padded_plain_matches_jax(name, F):
+    ops = make_ops(F)
+    got, full = padded(PORT[name], convert(ops, torch.as_tensor), F)
+    ref = _jax_fns()[name](convert(ops, jax.numpy.asarray))
+    for g, r in zip(*((got, ref) if name == "block" else ((got,), (ref,)))):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), **TOL)
+    # the padded channels: exact zeros in the GCL sum and in h_new
+    if name != "coord":
+        assert full[0].shape[-1] == ec.padded_width(F) and not full[0][..., F:].any()
+
+
+@pytest.mark.parametrize("F", WIDTHS)
+def test_padded_pair_messages_are_exact_zeros(F):
+    """Both pair MLPs' messages in their padded channels, at every tier."""
+    width = ec.padded_width(F)
+    ops = ec.pad_operands(convert(make_ops(F), torch.as_tensor), F, width)
+    d2, d2_0 = ec._pair_d2(ops["x"]), ec._pair_d2(ops["x0"])
+    for tier in ec.TIERS:
+        for m in (ops, ops["cross"]):
+            msg = ec._pair_mlp_plain(m["a_row"], m["a_col"], d2, d2_0, ops["is_lig"],
+                                     m["w_d2"], m["w_d20"], m["type_bias"], m["w2"], m["b2"],
+                                     matmul=torch.matmul, precision=tier)
+            assert msg.shape[-1] == width and not msg[..., F:].any(), tier
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _leaves(v)]
+    return [] if tree is None or not tree.is_floating_point() else [tree]
+
+
+@pytest.mark.parametrize("F", WIDTHS)
+@pytest.mark.parametrize("name", ["gcl", "coord", "block"])
+def test_gradients_through_the_padding(name, F):
+    """d(sum(out * g)) for every operand, through pad -> plain version at the
+    padded width -> cut, against the plain version at F."""
+    ops = convert(make_ops(F), lambda a: torch.as_tensor(a).requires_grad_(True))
+    leaves = _leaves(ops)
+    got, _ = padded(PORT[name], ops, F)
+    want = PORT[name](ops)
+    got, want = ((got, want) if name == "block" else ((got,), (want,)))
+    gen = torch.Generator().manual_seed(F)
+    cots = [torch.randn(w.shape, generator=gen) for w in want]
+
+    def grads(outs):
+        loss = sum((o * c).sum() for o, c in zip(outs, cots))
+        return torch.autograd.grad(loss, leaves, allow_unused=True)
+
+    for g, w in zip(grads(got), grads(want)):
+        assert (g is None) == (w is None)
+        if w is not None:
+            assert g.shape == w.shape
+            np.testing.assert_allclose(g.numpy(), w.numpy(), **TOL)
+
+
+def _assert_within_gate(got, ref, exact, gate):
+    limit = TOL["atol"] + TOL["rtol"] * ref.abs() + gate["share"] * float(ref.abs().max())
+    assert bool(((got - ref).abs() <= limit).all()), float((got - ref).abs().max())
+    assert ec.tier_moved_share(got, ref, exact) <= gate["moved"]
+
+
+@pytest.mark.parametrize("F", WIDTHS)
+@pytest.mark.parametrize("tier", ["tf32x2", "bf16"])
+def test_padded_tiers_within_their_gates(tier, F):
+    """Each function's tier emulation on the padded operands against the same
+    tier at F (the norm gate against float32's move at F), and both backward
+    plain versions' cotangents at the tier against theirs at F."""
+    ops = convert(make_ops(F), torch.as_tensor)
+    for name, gates in (("gcl", ec.TIER_GATES), ("coord", ec.TIER_GATES),
+                        ("block", ec.BLOCK_TIER_GATES)):
+        got, _ = padded(PORT[name], ops, F, precision=tier)
+        ref, exact = PORT[name](ops, precision=tier), PORT[name](ops)
+        for g, r, e in zip(*((got, ref, exact) if name == "block"
+                             else ((got,), (ref,), (exact,)))):
+            _assert_within_gate(g, r, e, gates[tier])
+
+    gcl_bwd = lambda o, **kw: ec.gcl_agg_bwd_plain(
+        o["g"], *(o[k] for k in GCL_KEYS[:8]), o["delta"], *(o[k] for k in GCL_KEYS[9:]),
+        **GCL_KW, **kw)
+    cross = {k: ops["cross"].get(k, ops["delta"]) for k in ec._MLP_KEYS}
+    coord_bwd = lambda o, **kw: ec.coord_agg_bwd_plain(
+        o["g3"], *(o[k] for k in COORD_KEYS[:8]), o["delta"], *(o[k] for k in COORD_KEYS[9:]),
+        **COORD_KW, cross=o["cross"], graph_mean=o["graph_mean"], **kw)
+    gen = torch.Generator().manual_seed(F)
+    bwd_ops = dict(ops, cross=cross, g=torch.randn(B, N, F, generator=gen),
+                   g3=torch.randn(B, N, 3, generator=gen))
+    width = ec.padded_width(F)
+    for fn, names in ((gcl_bwd, ec._GCL_COT), (coord_bwd, ec._COORD_COT)):
+        padded_ops = dict(ec.pad_operands(bwd_ops, F, width),
+                          g=ec._pad_axes(bwd_ops["g"], F, width, (-1,), "g"))
+        outs = [fn(o, precision=t) for o, t in ((padded_ops, tier), (bwd_ops, tier),
+                                                 (bwd_ops, "tf32x3"))]
+        if fn is coord_bwd:  # (main, cross, dmean) -> one dict
+            outs = [dict(zip(names, m), **{f"cross.{k}": v for k, v in c.items()}, dmean=d)
+                    for m, c, d in outs]
+        else:
+            outs = [dict(zip(names, o)) for o in outs]
+        # cut back to F by the name of the operand each cotangent belongs to
+        got = {key: ec.unpad_operands({key.split(".")[-1]: value}, F)[key.split(".")[-1]]
+               for key, value in outs[0].items()}
+        for key, ref in outs[1].items():
+            if ref is None:
+                assert got[key] is None, key
+                continue
+            assert got[key].shape == ref.shape, key
+            err = float((got[key] - ref).abs().max())
+            assert err <= ec.TIER_GATES[tier]["bwd"] * float(ref.abs().max()) + 1e-7, key
+            assert ec.tier_moved_share(got[key], ref, outs[2][key]) <= \
+                ec.TIER_GATES[tier]["moved"], key
