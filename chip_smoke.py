@@ -13,8 +13,9 @@ Phases (any failure ends the run with a non-zero exit code):
      library only its tier's HMMA (TF32 or bf16), as many as its passes:
      2xTF32 2/3 of 3xTF32's TF32 HMMA, bf16 1/6 of them in the forward and
      whole-block kernels (between 1/6 and 1/3 in the backward ones, whose
-     dW2 loop is not unrolled); the five 3xTF32 libraries' SASS against
-     the recorded digests (``PARENT_SASS``, same nvcc);
+     dW2 loop is not unrolled); every F = 64, 128 and 256 function of the
+     five 3xTF32 libraries' SASS against its recorded digest
+     (``PARENT_SASS``, same nvcc);
   3. each forward kernel against its plain PyTorch twin at the flagship shapes
      (B=16, NL=24, NP=300 padded to 320, F=256, cutoffs None/5/5, attention
      and the cross branch on) and at the shared-pocket variants (col_mask,
@@ -192,11 +193,22 @@ Phases (any failure ends the run with a non-zero exit code):
      pass, peak memory, eps against the kernels' path) and kernel_bwd xla
      (one conditional train step at the largest batch of 16/8/4 that fits:
      6 + 6 forward launches, no backward kernel, gradients against the
-     backward kernels', ms a step, peak memory).
+     backward kernels', ms a step, peak memory).  20h: hidden widths
+     257-512 on the F = 512 instantiations (tiles of two rows): the five
+     kernels at F = 512 and every tier at phases 3, 3b and 3c's main shapes
+     against their plain versions (the tier gates; the 3xTF32 error beside
+     a 5e-6 target; ms, bound, registers and spills), widths
+     384 and 448 run padded at 3xTF32 and bf16 (one launch each), the
+     flagship's shape at hidden 512 from seeded random weights sampled (16 x
+     24, T = 50: 406 / 306 launches), trained a step at batch 16 (6
+     launches of each split kernel) and sampled as a joint model with block
+     fusing (8 x 24, T = 50: 306 launches), hidden 384 sampled, and width
+     640 refused before any launch.
 
 Prints a {"kernels": [...]} line (the five kernels, then the same five at
 F=128 from phase 19, then the five kernels at 2xTF32 and bf16 from phase
-20) and the card line, and as its last line
+20, then the five at F=512 from phase 20h) and the card line, and as its
+last line
 {"ok": true, "device": {...}}.  The pocket, the samples and a summary.json go
 to ``--out`` (default chip_smoke_out/ in the repository).  Needs a CUDA card:
 exits non-zero without one, and without the repository around it.
@@ -379,32 +391,108 @@ def sass_counts(ec, name, opcodes, function=None, tier="tf32x3"):
     return {op: len(re.findall(rf"\b{re.escape(op)}\b", sass)) for op in opcodes}
 
 
-# the SASS digests (``sass_digest``) of the five 3xTF32 libraries as
-# recorded from the sources before the wrappers padded hidden widths (the
-# same as before the whole-block kernel had tiers), and the nvcc that built
-# them (the card machine's)
+# the SASS digests (``sass_functions``) of every function the five 3xTF32
+# libraries had before the F = 512 instantiations (the kernels at F = 64, 128
+# and 256 and the width-free summing kernels): recorded on the card from a
+# build whose SASS equals, instruction for instruction, that of the parent
+# commit's sources; and the nvcc that built them (the card machine's)
+PARENT_SASS_FUNCTIONS = {
+    "gcl_agg": {
+        "_ZN43_GLOBAL__N_14gcl_agg_kernelILi128EEEvN4egnn7GclArgsE":
+            "730d534b55a3f772a8b79f2756f60d13dca8afab46533419648f59967a7608f6",
+        "_ZN43_GLOBAL__N_14gcl_agg_kernelILi256EEEvN4egnn7GclArgsE":
+            "c3a0194f773ad3b6bff8d37164125e0134ea4d1641bfe726e4268d45eee4bda4",
+        "_ZN43_GLOBAL__N_14gcl_agg_kernelILi64EEEvN4egnn7GclArgsE":
+            "70d7888e930840cfda5361f4df9caaef1a91bfc470f45d178456b773ca6e30ac",
+    },
+    "coord_agg": {
+        "_ZN45_GLOBAL__N_16coord_agg_kernelILi128ELb0EEEvN4egnn9CoordArgsEPf":
+            "d852b1e615740ab6c21a4e8044840d8d11365410a4640bcee5d5cb780d9ab4e7",
+        "_ZN45_GLOBAL__N_16coord_agg_kernelILi128ELb1EEEvN4egnn9CoordArgsEPf":
+            "d9e1fa98bb98740d3ecfeb03638ec7b434796e7d41227d14e8fe3bd482bdbc0b",
+        "_ZN45_GLOBAL__N_16coord_agg_kernelILi256ELb0EEEvN4egnn9CoordArgsEPf":
+            "c9facc3e8512d624da9c1ae27a0e3aed80dfd6bce72e80d61dbad7484db35628",
+        "_ZN45_GLOBAL__N_16coord_agg_kernelILi256ELb1EEEvN4egnn9CoordArgsEPf":
+            "e6e3ab6fc86b490f81fd1ab69a3eb1fb1cb1a18684214ed4cb061543f1b7b54d",
+        "_ZN45_GLOBAL__N_16coord_agg_kernelILi64ELb0EEEvN4egnn9CoordArgsEPf":
+            "efa26ab59dcfd0a717735b6c278cd426e8362f0c0864510227ce197b8a9eab85",
+        "_ZN45_GLOBAL__N_16coord_agg_kernelILi64ELb1EEEvN4egnn9CoordArgsEPf":
+            "3b3d41de8d6cd1ad5a75d1a03b02b8ee405204db40bb284ea998e8de0766489b",
+        "_ZN4egnn12add_partialsEPKfmPf":
+            "436cfdd5b3bf1ed3c806bb8323e361d20e910bc5f4dd0ee3d728a7f1ade8dd62",
+    },
+    "gcl_agg_bwd": {
+        "_ZN47_GLOBAL__N_18gcl_agg_bwd_kernelILi128EEEvN4egnn10GclBwdArgsE":
+            "f9a2194647a8972ad2427c4ccf8a1ec4f6203e55f93e70e367855bce874f9c92",
+        "_ZN47_GLOBAL__N_18gcl_agg_bwd_kernelILi256EEEvN4egnn10GclBwdArgsE":
+            "0b16989468a9d9541d0ed60965fb1ed22bc7c8a821f65b7e0a6e7a0a7045c066",
+        "_ZN47_GLOBAL__N_18gcl_agg_bwd_kernelILi64EEEvN4egnn10GclBwdArgsE":
+            "b14f432d39dd8818152f32969cf833c3845745f743095238ad5954cae35d6c84",
+        "_ZN4egnn22reduce_partials_kernelEPKfPfim":
+            "9efdeac766b91eb4db11842e9aa1cef231b9e8b2cd5fb3ae8ade646d929c8a23",
+    },
+    "coord_agg_bwd": {
+        "_ZN49_GLOBAL__N_20coord_agg_bwd_kernelILi128EEEvNS_12CoordBwdArgsE":
+            "8dd38a40dc446c71001ffb83fe325f38d6a9f5ddcf6e9dd8ed9aaa3f6f0b0383",
+        "_ZN49_GLOBAL__N_20coord_agg_bwd_kernelILi256EEEvNS_12CoordBwdArgsE":
+            "345ca50863463b762d6eb481453803ebc73f62eabcdce891bc41f53290852375",
+        "_ZN49_GLOBAL__N_20coord_agg_bwd_kernelILi64EEEvNS_12CoordBwdArgsE":
+            "abb72bf6ebf6bcee3c10b1d8ae9ddd29b39c863b757827fd0f453b961aa1f31e",
+        "_ZN4egnn22reduce_partials_kernelEPKfPfim":
+            "9efdeac766b91eb4db11842e9aa1cef231b9e8b2cd5fb3ae8ade646d929c8a23",
+    },
+    "block_fused": {
+        "_ZN47_GLOBAL__N_13block_phase_aILi128EEEvNS_6PhaseAE":
+            "073b3a56f5e7e5434ede0fbd4b56d0531a55034b43534a344c3056304bcc9972",
+        "_ZN47_GLOBAL__N_13block_phase_aILi256EEEvNS_6PhaseAE":
+            "c26aa44eda620c01d1da921951e7947704aa4a2124306662908c29e7eae8dcc3",
+        "_ZN47_GLOBAL__N_13block_phase_aILi64EEEvNS_6PhaseAE":
+            "05cfe8a7a9b6250ecb7f9a379a7333e2c3bd3f5c6a1ff74fe46c2c69e967ca9a",
+        "_ZN47_GLOBAL__N_13block_phase_bILi128ELb0EEEvN4egnn9CoordArgsEPf":
+            "d852b1e615740ab6c21a4e8044840d8d11365410a4640bcee5d5cb780d9ab4e7",
+        "_ZN47_GLOBAL__N_13block_phase_bILi128ELb1EEEvN4egnn9CoordArgsEPf":
+            "d9e1fa98bb98740d3ecfeb03638ec7b434796e7d41227d14e8fe3bd482bdbc0b",
+        "_ZN47_GLOBAL__N_13block_phase_bILi256ELb0EEEvN4egnn9CoordArgsEPf":
+            "c9facc3e8512d624da9c1ae27a0e3aed80dfd6bce72e80d61dbad7484db35628",
+        "_ZN47_GLOBAL__N_13block_phase_bILi256ELb1EEEvN4egnn9CoordArgsEPf":
+            "e6e3ab6fc86b490f81fd1ab69a3eb1fb1cb1a18684214ed4cb061543f1b7b54d",
+        "_ZN47_GLOBAL__N_13block_phase_bILi64ELb0EEEvN4egnn9CoordArgsEPf":
+            "efa26ab59dcfd0a717735b6c278cd426e8362f0c0864510227ce197b8a9eab85",
+        "_ZN47_GLOBAL__N_13block_phase_bILi64ELb1EEEvN4egnn9CoordArgsEPf":
+            "3b3d41de8d6cd1ad5a75d1a03b02b8ee405204db40bb284ea998e8de0766489b",
+        "_ZN4egnn12add_partialsEPKfmPf":
+            "436cfdd5b3bf1ed3c806bb8323e361d20e910bc5f4dd0ee3d728a7f1ade8dd62",
+    },
+}
 PARENT_SASS = {"nvcc": "Cuda compilation tools, release 12.9, V12.9.86",
-               "gcl_agg": "6c8d13f1059e8a502a6f8fc4034ae86f159336ba2a511405e2d0ca802b955a2e",
-               "coord_agg": "eb150784b23f98bc70da266a97f5bf76a14f95e0da7e04bc89a7db46d90039c8",
-               "gcl_agg_bwd": "0771edc9ae1a153c90c858ba8400d2ddd9e7667ecc2e91c1412e9399e310a984",
-               "coord_agg_bwd": "1507e98e27f7501351006c0b563b62834d6f8bbe796d6bb0c342b72a972c1d3b",
-               "block_fused": "1aade11a14d8968fa36a00425def9336bfda8eaaa636cfd7c8817e088e3b785c"}
+               "functions": PARENT_SASS_FUNCTIONS}
 FORWARD_KERNELS = ("gcl_agg", "coord_agg", "block_fused")
 
 
-def sass_digest(ec, name, tier="tf32x3"):
-    """(nvcc's release line, sha256 of the library's SASS instructions
-    without addresses' trailing comments): equal digests, the same code
-    instruction for instruction."""
-    import hashlib
-    nvcc = subprocess.run([ec._nvcc(), "--version"], capture_output=True, text=True,
+def nvcc_release(ec):
+    return subprocess.run([ec._nvcc(), "--version"], capture_output=True, text=True,
                           check=True, timeout=60).stdout.strip().splitlines()[-2].strip()
+
+
+def sass_functions(ec, name, tier="tf32x3"):
+    """{function: sha256 of its SASS instructions} of the library of kernel
+    ``name`` at ``tier`` (addresses' trailing comments dropped): equal
+    digests, the same code instruction for instruction.  A function is its
+    mangled name with the anonymous namespace's per-build hash taken out, so
+    that one source built in two directories names its functions alike."""
+    import hashlib
     cuobjdump = Path(ec._nvcc()).parent / "cuobjdump"
     sass = subprocess.run([str(cuobjdump), "--dump-sass", str(ec._lib_path(name, tier))],
                           capture_output=True, text=True, check=True, timeout=300).stdout
-    lines = [re.sub(r";.*", "", ln) + "\n" for ln in sass.split("\n")
-             if re.match(r"^\s+/\*[0-9a-f]+\*/", ln)]
-    return nvcc, hashlib.sha256("".join(lines).encode()).hexdigest()
+    out = {}
+    for section in re.split(r"^\s*Function : ", sass, flags=re.M)[1:]:
+        head, body = section.split("\n", 1)
+        fn = re.sub(r"_GLOBAL__N__[0-9a-f]+_\d+_\w+?_cu_[0-9a-f]{8}", "_GLOBAL__N_",
+                    head.strip())
+        lines = [re.sub(r";.*", "", ln) + "\n" for ln in body.split("\n")
+                 if re.match(r"^\s+/\*[0-9a-f]+\*/", ln)]
+        out[fn] = hashlib.sha256("".join(lines).encode()).hexdigest()
+    return out
 
 
 def _check(cond: bool, msg: str) -> None:
@@ -3604,7 +3692,7 @@ def padded_width_phase(torch, ec, dev, flagship, work, pdb, ref_lig, card):
     package root's ``load_model`` at its default device: the module on the
     card, the checkpoint's only name ``best`` loaded for ``last``.  (e) what
     still raises before any launch: an unknown precision name (as JAX's
-    ``_PRECISIONS[name]`` does) and width 320, above every kernel's."""
+    ``_PRECISIONS[name]`` does); widths above 512 are phase 20h's."""
     import diffsbdd_tpu_torch
     from diffsbdd_tpu_torch.config import load_config
     res = {"card": card, "kernels": {}}
@@ -3665,24 +3753,282 @@ def padded_width_phase(torch, ec, dev, flagship, work, pdb, ref_lig, card):
     ec.reset_launch_counts()
     refused("unknown_precision", lambda: load_config(
         overrides=dict(flagship, tpu={"matmul_precision": "float16"})), "matmul_precision")
-    cfg = dict(flagship, egnn_params=dict(flagship["egnn_params"], hidden_nf=320))
-    inp = kernel_inputs(torch, dev, cfg, 2, 24)
-    refused("width_320_gcl_agg", lambda: ec.gcl_message_agg(
-        *(inp[k] for k in ("a_row", "a_col", "x", "x0", "mask", "is_lig")),
-        *inp["gcl_w"].values(), cutoffs=inp["cut"], attention=True,
-        normalization_factor=100.0, precision="bf16"), "ROADMAP")
-    refused("width_320_block_fused", lambda: ec.block_fused(
-        *block_operands(inp), cutoffs=inp["cut"], attention=True, tanh=True,
-        coords_range=15.0, norm_constant=1.0, normalization_factor=100.0,
-        precision="bf16"), "ROADMAP")
     _check(not any(ec.launch_counts.values()), "a refused call launched a kernel")
     return res
 
 
-def phase20(torch, ec, dev, flagship, work, pdb, ref_lig, base, card, joint_ckpt):
-    """Phase 20 in order; ``base``: phase 6's float32 run (its samples,
-    ms_per_pass and molecules_per_s); ``joint_ckpt``: phase 10's joint
-    checkpoint."""
+WIDE = 512  # the widest built width (ec.SUPPORTED_F), on tiles of two rows
+WIDE_PADDED = (384, 448)  # run on the F = 512 kernels (ec.padded_width)
+WIDE_CHAIN = dict(n=16, T=50)
+# the F = 512 kernels' 3xTF32 target: error within this share of the plain
+# version's largest entry (reported beside the binding gates, TIER_GATES)
+WIDE_3XTF32_SHARE = 5e-6
+
+
+def _float64(tree):
+    """Every floating tensor of ``tree`` (dicts, lists, tuples) in float64."""
+    if isinstance(tree, dict):
+        return {k: _float64(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_float64(v) for v in tree)
+    return tree.double() if hasattr(tree, "is_floating_point") and tree.is_floating_point() \
+        else tree
+
+
+def float64_shares(ec, torch, dev, flagship, width):
+    """The five 3xTF32 kernels at ``width`` on 20a's inputs (phases 3, 3b and
+    3c's main shapes; the block at B = 8): each output's largest error over
+    its largest entry against the plain version in float64 (the exact
+    result), beside the float32 plain version's own: {kernel: (kernel's,
+    float32 plain version's)}, the largest over the outputs."""
+    cfg = dict(flagship, egnn_params=dict(flagship["egnn_params"], hidden_nf=width))
+    node = ("a_row", "a_col", "x", "x0", "mask", "is_lig")
+    fwd = {k: v for k, v in kernel_inputs(torch, dev, cfg, 16, 24).items() if k != "r"}
+    sizes = np.random.default_rng(0).integers(24, 33, 16)
+    bwd = kernel_inputs(torch, dev, cfg, 16, 32, lig_sizes=sizes, seed=1)
+    g_gcl, g_coord = bwd["r"](16, bwd["N"], width), bwd["r"](16, bwd["N"], 3)
+    bwd = {k: v for k, v in bwd.items() if k != "r"}
+    cross_b = {k: v for k, v in bwd["cross"].items() if k != "type_bias"}
+    cross_b["delta"] = bwd["cross_delta"]
+    blk = kernel_inputs(torch, dev, cfg, JOINT_SAMPLES, 24, seed=7)
+    bkw = dict(cutoffs=blk["cut"], attention=True, tanh=True, coords_range=15.0,
+               norm_constant=1.0, normalization_factor=100.0)
+
+    def gcl_fwd(fn, i, sl=slice(None)):
+        return {"agg": fn(*(i[k][sl] for k in node), *i["gcl_w"].values(), cutoffs=i["cut"],
+                          attention=True, normalization_factor=100.0)}
+
+    def coord_fwd(fn, i, sl=slice(None)):
+        c = {k: (v[sl] if k in ("a_row", "a_col") else v) for k, v in i["cross"].items()}
+        return {"dx": fn(*(i[k][sl] for k in node), *i["coord_w"], cutoffs=i["cut"], tanh=True,
+                         coords_range=15.0, norm_constant=1.0, normalization_factor=100.0,
+                         update_rows=i["NL"], cross=c, graph_mean=i["graph_mean"][sl])}
+
+    def gcl_bwd(fn, i, g, sl=slice(None)):
+        w = i["gcl_w"]
+        return _name_cotangents(fn(
+            g[sl], *(i[k][sl] for k in node), w["w_d2"], w["w_d20"], i["gcl_delta"], w["w2"],
+            w["b2"], w["w_att"], w["b_att"], cutoffs=i["cut"], attention=True,
+            normalization_factor=100.0), GCL_COT)
+
+    def coord_bwd(fn, i, g, cr, sl=slice(None)):
+        w_d2, w_d20, _, w2, b2, w3 = i["coord_w"]
+        c = {k: (v[sl] if k in ("a_row", "a_col") else v) for k, v in cr.items()}
+        return _name_cotangents(fn(
+            g[sl], *(i[k][sl] for k in node), w_d2, w_d20, i["coord_delta"], w2, b2, w3,
+            cutoffs=i["cut"], tanh=True, coords_range=15.0, norm_constant=1.0,
+            normalization_factor=100.0, cross=c, graph_mean=i["graph_mean"][sl],
+            update_rows=32), COORD_COT)
+
+    def block(fn, ops, sl=slice(None)):
+        per_graph = (0, 1, 2, 3, 4, 5, 6, 11)  # h .. is_lig, graph_mean
+        return dict(zip(("h_new", "dx"), fn(*(o[sl] if n in per_graph else o
+                                               for n, o in enumerate(ops)), **bkw)))
+
+    def sliced(call, B, step):
+        """A forward plain version over batch slices of ``step`` graphs,
+        concatenated (its (B, N, N, F) tensors in float64 at F = 512 would
+        not fit at once)."""
+        parts = [call(slice(b, min(b + step, B))) for b in range(0, B, step)]
+        return {out: torch.cat([p[out] for p in parts], 0) for out in parts[0]}
+
+    bops = block_operands(blk)
+    f64, g64, c64, b64 = _float64(fwd), _float64(g_gcl), _float64(g_coord), _float64(bops)
+    bwd64, cross64 = _float64(bwd), _float64(cross_b)
+    B = JOINT_SAMPLES
+    cases = {  # kernel: (kernel's outputs, float32 plain's, float64 plain's)
+        "gcl_agg": lambda: (
+            gcl_fwd(ec.gcl_message_agg, fwd),
+            sliced(lambda sl: gcl_fwd(ec.gcl_message_agg_plain, fwd, sl), 16, 8),
+            sliced(lambda sl: gcl_fwd(ec.gcl_message_agg_plain, f64, sl), 16, 2)),
+        "coord_agg": lambda: (
+            coord_fwd(ec.coord_update_agg, fwd),
+            sliced(lambda sl: coord_fwd(ec.coord_update_agg_plain, fwd, sl), 16, 8),
+            sliced(lambda sl: coord_fwd(ec.coord_update_agg_plain, f64, sl), 16, 2)),
+        "gcl_agg_bwd": lambda: (
+            gcl_bwd(ec.gcl_agg_bwd, bwd, g_gcl),
+            _plain_in_slices(torch, lambda sl: gcl_bwd(ec.gcl_agg_bwd_plain, bwd, g_gcl, sl),
+                             16, 4),
+            _plain_in_slices(torch, lambda sl: gcl_bwd(ec.gcl_agg_bwd_plain, bwd64, g64, sl),
+                             16, 2)),
+        "coord_agg_bwd": lambda: (
+            coord_bwd(ec.coord_agg_bwd, bwd, g_coord, cross_b),
+            _plain_in_slices(torch, lambda sl: coord_bwd(ec.coord_agg_bwd_plain, bwd, g_coord,
+                                                         cross_b, sl), 16, 2),
+            _plain_in_slices(torch, lambda sl: coord_bwd(ec.coord_agg_bwd_plain, bwd64, c64,
+                                                         cross64, sl), 16, 1)),
+        "block_fused": lambda: (
+            block(ec.block_fused, bops),
+            sliced(lambda sl: block(ec.block_fused_plain, bops, sl), B, 4),
+            sliced(lambda sl: block(ec.block_fused_plain, b64, sl), B, 1))}
+    shares = {}
+    for name, run in cases.items():
+        got, ref, exact = run()
+        kernel = plain = 0.0
+        for out, e in exact.items():
+            if e is None:
+                continue
+            scale = float(e.abs().max()) + 1e-30
+            kernel = max(kernel, float((got[out].double() - e).abs().max()) / scale)
+            plain = max(plain, float((ref[out].double() - e).abs().max()) / scale)
+        shares[name] = (kernel, plain)
+        del got, ref, exact
+    return shares
+
+
+def wide_width_phase(torch, ec, dev, flagship, logs, work, pdb, ref_lig, card):
+    """Phase 20h, hidden widths 257-512 on the F = 512 kernels.  (a) the
+    five kernels at F = 512 and every tier on phases 3, 3b and 3c's main
+    shapes (``tier_kernel_phase``, ``tier_block_phase`` at the joint chain's
+    B = 8) within the tier gates, the 3xTF32 error beside the
+    ``WIDE_3XTF32_SHARE`` target and, against the float64 plain version
+    (``float64_shares``), beside the float32 plain version's own, and the
+    F = 512 instantiations' registers and spills.  (b)
+    ``padded_kernel_phase`` at 384 and 448: one launch of each wrapper's
+    library at 3xTF32 and bf16.  (c) the flagship's shape at hidden 512 from
+    seeded random weights: cli.generate_ligands (16 x 24 atoms on phase 5's
+    pocket, T = 50: 8T + 6 and 6T + 6 launches), one conditional train step
+    at batch 16 (6 launches of each split kernel, forward and backward; ms a
+    step), the joint model's chain with block fusing on (8 x 24, T = 50: 6T
+    + 6 whole-block launches), and the chain again at hidden 384.  (d) width
+    640 refused before any launch."""
+    from diffsbdd_tpu_torch.checkpoint import load_model
+    from diffsbdd_tpu_torch.data.dataset import LigandPocketDataset, PaddedLoader
+    from diffsbdd_tpu_torch.diffusion.ddpm import JointDDPM
+    from diffsbdd_tpu_torch.train import loop
+    t0 = time.perf_counter()
+    res = {"card": card}
+    kernels = tier_kernel_phase(ec, torch, dev, flagship, WIDE)
+    blocks = tier_block_phase(ec, torch, dev, flagship, WIDE, ["joint_main_path"])
+    kernels.update({f"block_fused[{tier}]": entry
+                    for tier, entry in blocks["joint_main_path"].items()})
+    usage = ptxas_usage(logs, WIDE)
+    exact = float64_shares(ec, torch, dev, flagship, WIDE)
+    for name in ec.KERNELS:
+        _check(name in usage, f"{name} has no instantiation at F = {WIDE}")
+        entry = kernels[f"{name}[tf32x3]"]
+        entry["within_3xtf32_target"] = entry["gate_share"] <= WIDE_3XTF32_SHARE
+        entry["f64_share"], entry["plain_f64_share"] = exact[name]
+        print(f"  {name}[tf32x3] F={WIDE}: error {entry['gate_share']:.2e} of the largest "
+              f"entry, the {WIDE_3XTF32_SHARE:g} target "
+              + ("met" if entry["within_3xtf32_target"] else "missed")
+              + f"; against float64 the kernel {entry['f64_share']:.2e}, the float32 plain "
+              f"version {entry['plain_f64_share']:.2e}")
+        for u in usage[name]:
+            print(f"  {name} F={WIDE} {u['function'][:60]}: {u['registers']} registers, "
+                  f"spill stores {u['spill_stores']} B, loads {u['spill_loads']} B")
+        for tier in ec.TIERS:
+            kernels[f"{name}[{tier}]"]["ptxas"] = usage[name]
+    res["kernels"] = kernels
+    res["padded"] = {w: padded_kernel_phase(ec, torch, dev, flagship, w) for w in WIDE_PADDED}
+
+    def model(width, **over):
+        return dict(flagship, **over, egnn_params=dict(flagship["egnn_params"],
+                                                       hidden_nf=width))
+
+    chain, want = WIDE_CHAIN, chain_launches(ec, 6, WIDE_CHAIN["T"])
+    res["chain"] = {}
+    for width in (WIDE, WIDE_PADDED[0]):
+        ckpt = _random_checkpoint(torch, model(width), None, work / f"wide{width}")[0]
+        sdf = work / f"wide{width}.sdf"
+        wall, sample_s, launches, by_tier, xh = _captured_generate(
+            torch, ec, [ckpt, "--pdbfile", pdb, "--ref_ligand", ref_lig, "--outfile", sdf,
+                        "--n_samples", chain["n"], "--num_nodes_lig", 24, "--all_frags",
+                        "--timesteps", chain["T"]])
+        _check(launches == want, f"the hidden-{width} chain launched {launches}, not {want}")
+        _check(bool(torch.isfinite(xh).all()), f"the hidden-{width} chain's samples")
+        mols = _sdf_molecules(sdf)
+        _check(0 < len(mols) <= chain["n"], f"the hidden-{width} chain wrote {len(mols)}")
+        res["chain"][width] = dict(chain, run_at=ec.padded_width(width), launches=launches,
+                                   ms_per_pass=1e3 * sample_s / (chain["T"] + 1),
+                                   sample_s=sample_s, wall_s=wall, molecules=len(mols))
+        print(f"  {card}: hidden {width} (kernels at {ec.padded_width(width)}), "
+              f"{chain['n']} x 24 atoms, T={chain['T']}: "
+              f"{res['chain'][width]['ms_per_pass']:.2f} ms a pass, CLI wall {wall:.2f} s, "
+              f"launches {launches}, {len(mols)} molecules")
+
+    data = work / "data20h"
+    write_synthetic_dataset(data, 16, 1, seed=22, pocket_sizes=(250, 280, 310, 320),
+                            n_types=11)
+    batch = next(iter(PaddedLoader(LigandPocketDataset(data / "train.npz"), 16,
+                                   shuffle=False)))
+    lig = loop.batch_to_device(batch["ligand"], dev)
+    pkt = loop.batch_to_device(batch["pocket"], dev)
+    ckpt = _random_checkpoint(torch, model(WIDE), np.load(data / "size_distribution.npy"),
+                              work / "wide_train")[0]
+    module, _ = load_model(ckpt, device=dev)
+    module.train()
+    ec.reset_launch_counts()
+    loss, _ = module.loss_fn(None, lig, pkt, training=True)
+    grads = torch.autograd.grad(loss, [p for p in module.parameters()], allow_unused=True)
+    torch.cuda.synchronize()
+    step_launches = dict(ec.launch_counts)
+    _check(step_launches == {**dict.fromkeys(ec.KERNELS, 6), "block_fused": 0},
+           f"the hidden-{WIDE} train step launched {step_launches}")
+    _check(bool(torch.isfinite(loss)) and all(bool(torch.isfinite(g).all())
+                                              for g in grads if g is not None),
+           f"the hidden-{WIDE} train step: non-finite loss or gradients")
+    step = loop.make_train_step(loop.create_train_state(module, lr=1e-4))
+    times = []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        step(None, lig, pkt)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t1))
+    res["train_step"] = dict(batch=16, launches=step_launches, loss=float(loss.detach()),
+                             ms_per_step=float(np.median(times[1:])))
+    print(f"  {card}: hidden {WIDE} train step at batch 16: "
+          f"{res['train_step']['ms_per_step']:.2f} ms (median of 3), launches {step_launches}")
+    del module, grads, step
+
+    T = chain["T"]
+    ckpt = _random_checkpoint(torch, model(WIDE, mode="joint",
+                                           tpu={"kernel_block_fuse": True}),
+                              None, work / "wide_joint")[0]
+    passes = len(JointDDPM._repaint_plan(1, 1, T)[0]) + 1
+    sdf = work / "wide_joint.sdf"
+    wall, sample_s, launches, by_tier, xh = _captured_generate(
+        torch, ec, [ckpt, "--pdbfile", pdb, "--ref_ligand", ref_lig, "--outfile", sdf,
+                    "--n_samples", JOINT_SAMPLES, "--num_nodes_lig", 24, "--all_frags",
+                    "--timesteps", T, "--resamplings", 1, "--jump_length", 1], joint=True)
+    want = {**dict.fromkeys(ec.KERNELS, 0), "block_fused": 6 * passes}
+    _check(launches == want, f"the hidden-{WIDE} joint chain launched {launches}, not {want}")
+    _check(bool(torch.isfinite(xh).all()), f"the hidden-{WIDE} joint chain's samples")
+    res["joint"] = dict(n=JOINT_SAMPLES, T=T, launches=launches, sample_s=sample_s,
+                        wall_s=wall, ms_per_pass=1e3 * sample_s / passes)
+    print(f"  {card}: hidden {WIDE} joint chain, {JOINT_SAMPLES} x 24 atoms, T={T}, block "
+          f"fusing on: {res['joint']['ms_per_pass']:.2f} ms a pass, launches {launches}")
+
+    ec.reset_launch_counts()
+    inp = kernel_inputs(torch, dev, model(640), 2, 24)
+    for name, call in (("gcl_agg", lambda: ec.gcl_message_agg(
+            *(inp[k] for k in ("a_row", "a_col", "x", "x0", "mask", "is_lig")),
+            *inp["gcl_w"].values(), cutoffs=inp["cut"], attention=True,
+            normalization_factor=100.0)),
+            ("block_fused", lambda: ec.block_fused(
+                *block_operands(inp), cutoffs=inp["cut"], attention=True, tanh=True,
+                coords_range=15.0, norm_constant=1.0, normalization_factor=100.0))):
+        try:
+            call()
+            msg = ""
+        except ValueError as err:
+            msg = str(err)
+        _check("above 512" in msg and "ROADMAP" in msg,
+               f"width 640 {name} did not raise naming the ROADMAP item: {msg!r}")
+        res[f"width_640_{name}"] = msg
+        print(f"  width 640 {name}: raises '{msg[:100]}'")
+    _check(not any(ec.launch_counts.values()), "a refused call launched a kernel")
+    del inp
+    res["phase_s"] = time.perf_counter() - t0
+    print(f"  phase 20h took {res['phase_s']:.1f} s")
+    return res
+
+
+def phase20(torch, ec, dev, flagship, logs, work, pdb, ref_lig, base, card, joint_ckpt):
+    """Phase 20 in order; ``logs``: phase 2's compiler output; ``base``:
+    phase 6's float32 run (its samples, ms_per_pass and molecules_per_s);
+    ``joint_ckpt``: phase 10's joint checkpoint."""
     t20 = time.perf_counter()
     res = {"kernels": {}, "block_shapes": {}}
     for width in TIER_WIDTHS:
@@ -3706,6 +4052,8 @@ def phase20(torch, ec, dev, flagship, work, pdb, ref_lig, base, card, joint_ckpt
     res["joint"] = tier_joint_phase(torch, ec, dev, work, pdb, ref_lig, card, joint_ckpt)
     print("[20g] egnn_impl xla and kernel_bwd xla")
     res["impl"] = impl_phase(torch, ec, dev, flagship, work, pdb, ref_lig, card)
+    print(f"[20h] hidden widths 257-512 on the F = {WIDE} kernels ({card})")
+    res["wide"] = wide_width_phase(torch, ec, dev, flagship, logs, work, pdb, ref_lig, card)
     res["phase_s"] = time.perf_counter() - t20
     print(f"  phase 20 took {res['phase_s']:.1f} s")
     return res
@@ -3756,17 +4104,21 @@ def main(argv=None) -> int:
         print(f"  {what} SASS: {sass['HMMA']} HMMA, {sass['LDGSTS']} LDGSTS instructions")
         _check(sass["HMMA"] > 0 and sass["LDGSTS"] > 0,
                f"{what} has no tensor-core or cp.async instructions")
-    # the five 3xTF32 libraries build from the same code as recorded: their
-    # SASS, instruction for instruction, is the recorded one (same nvcc)
+    # every recorded function of the five 3xTF32 libraries (the kernels at
+    # F = 64, 128 and 256) builds to the recorded SASS, instruction for
+    # instruction (same nvcc); the F = 512 functions are new
+    release = nvcc_release(ec)
     for name in ec.KERNELS:
-        nvcc_release, digest = sass_digest(ec, name)
-        if nvcc_release == PARENT_SASS["nvcc"]:
-            _check(digest == PARENT_SASS[name],
-                   f"{name} 3xTF32 SASS differs from the recorded library's ({digest})")
-            print(f"  {name} 3xTF32 SASS identical to the recorded library's ({nvcc_release})")
-        else:
-            print(f"  {name} 3xTF32 SASS not compared: nvcc {nvcc_release}, recorded with "
+        if release != PARENT_SASS["nvcc"]:
+            print(f"  {name} 3xTF32 SASS not compared: nvcc {release}, recorded with "
                   f"{PARENT_SASS['nvcc']}")
+            continue
+        got = sass_functions(ec, name)
+        want = PARENT_SASS["functions"][name]
+        differ = sorted(fn for fn, digest in want.items() if got.get(fn) != digest)
+        _check(not differ, f"{name} 3xTF32 SASS differs from the recorded in {differ}")
+        print(f"  {name} 3xTF32 SASS: {len(want)} recorded functions identical, "
+              f"{len(got) - len(want)} new ({release})")
     # each tier's library runs its products as that tier's tensor-core
     # instructions only: TF32 HMMA for 3xTF32 and 2xTF32, bf16 HMMA for bf16
     tier_sass = {}
@@ -3919,7 +4271,7 @@ def main(argv=None) -> int:
 
         width = phase19(torch, ec, dev, flagship, logs, work, out, pdb, ref_lig, ckpt, card)
 
-        tiers = phase20(torch, ec, dev, flagship, work, pdb, ref_lig,
+        tiers = phase20(torch, ec, dev, flagship, logs, work, pdb, ref_lig,
                         dict(xh=timing["xh"], ms_per_pass=step_ms,
                              molecules_per_s=n_samples / wall), card,
                         joint["training"]["ckpt"])
@@ -3986,6 +4338,22 @@ def main(argv=None) -> int:
                  "replaces": sources[name][1], "launches": max(counts.values()),
                  "launches_by_path": counts, **tiers["kernels"][256][key],
                  "library_ms": None})
+    # the five kernels at F = 512 (3xTF32), their launches on phase 20h's
+    # hidden-512 paths (the reduced tiers' F = 512 figures are in summary.json)
+    wide = tiers["wide"]
+    by_wide_path = {"wide_sampling": wide["chain"][WIDE]["launches"],
+                    "wide_training_step": wide["train_step"]["launches"],
+                    "wide_joint_sampling": wide["joint"]["launches"],
+                    "wide_padded_384_sampling": wide["chain"][WIDE_PADDED[0]]["launches"]}
+    wide_entries = []
+    for name in ec.KERNELS:
+        counts = {path: c[name] for path, c in by_wide_path.items()}
+        _check(max(counts.values()) > 0, f"no hidden-{WIDE} path launched {name}")
+        entry = {k: v for k, v in wide["kernels"][f"{name}[tf32x3]"].items() if k != "ptxas"}
+        wide_entries.append(
+            {"name": f"{name}[F={WIDE}]", "route": "cuda", "source": sources[name][0],
+             "replaces": sources[name][1], "launches": max(counts.values()),
+             "launches_by_path": counts, **entry, "library_ms": None})
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": sources[name][0],
          "replaces": sources[name][1], "launches": launches[name],
@@ -3994,8 +4362,8 @@ def main(argv=None) -> int:
         {"name": f"{name}[F={DEFAULT_WIDTH}]", "route": "cuda", "source": sources[name][0],
          "replaces": sources[name][1], "launches": width["default"]["launches"][name],
          "launches_by_path": {path: counts[name] for path, counts in by_path128.items()},
-         **width["kernels"][name], "library_ms": None} for name in ec.KERNELS] + tier_entries},
-        default=str))
+         **width["kernels"][name], "library_ms": None} for name in ec.KERNELS]
+        + tier_entries + wide_entries}, default=str))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

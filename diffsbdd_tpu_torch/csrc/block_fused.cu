@@ -77,10 +77,14 @@ namespace {
 
 using namespace egnn;
 
-constexpr int RB = P;  // most rows a phase-A block owns: 4 m-tiles of 16
-constexpr int RB_TILES = RB / TI;
 constexpr int RG = 1;  // row groups of the node products' warp layout
 template <int F> using NodeLayout = mma::Layout<F, RG>;
+// most rows a phase-A block owns: a chunk's P, 4 m-tiles of 16 (2 at F = 512),
+// in RB_TILES row tiles
+template <int F> constexpr int block_rows = NodeLayout<F>::P;
+constexpr int RB_TILES = 16;
+static_assert(block_rows<256> / tile_rows<256>() == RB_TILES &&
+              block_rows<512> / tile_rows<512>() == RB_TILES, "row tiles a phase-A block owns");
 template <int F>
 using Acc = float[NodeLayout<F>::WM][NodeLayout<F>::NTN][4];
 
@@ -132,8 +136,8 @@ struct WeightChain {
     constexpr int V = F / 4;  // 16-byte vectors per row
     if (next / L::KS < count) {
       float* dst = buf + (next % mma::NS) * L::STAGE;
-      const float* src = mats[next / L::KS] + (size_t)(next % L::KS) * mma::KC * F;
-      for (int e = threadIdx.x; e < mma::KC * V; e += NT) {
+      const float* src = mats[next / L::KS] + (size_t)(next % L::KS) * L::KC * F;
+      for (int e = threadIdx.x; e < L::KC * V; e += NT) {
         const int r = e / V, v = e % V;
         mma::cp_async16(dst + r * L::WS + 4 * v, src + (size_t)r * F + 4 * v);
       }
@@ -200,6 +204,7 @@ __device__ __forceinline__ void project_head(const Head& hd, const float* A,
 template <int F>
 __global__ void __launch_bounds__(NT) block_phase_a(PhaseA g) {
   using L = NodeLayout<F>;
+  constexpr int TI = L::TI, P = L::P, RB = block_rows<F>;
   extern __shared__ __align__(16) float smem[];
   __shared__ const float* mats[7];
   __shared__ int node_of[RB];  // node b*N + i of each block row, -1: none
@@ -228,6 +233,17 @@ __global__ void __launch_bounds__(NT) block_phase_a(PhaseA g) {
     if (g.cross.k_i && g.cross.tb)
       g.cross.delta[t] = g.cross.tb[3 * F + t] - g.cross.tb[2 * F + t]
                        - g.cross.tb[F + t] + g.cross.tb[t];
+  }
+  if constexpr (L::FE > 1) {  // F = 512: features t + NT too
+    const int f = t + NT;
+    if (blockIdx.x == 0 && f < F) {
+      if (g.coord.tb)
+        g.coord.delta[f] = g.coord.tb[3 * F + f] - g.coord.tb[2 * F + f]
+                         - g.coord.tb[F + f] + g.coord.tb[f];
+      if (g.cross.k_i && g.cross.tb)
+        g.cross.delta[f] = g.cross.tb[3 * F + f] - g.cross.tb[2 * F + f]
+                         - g.cross.tb[F + f] + g.cross.tb[f];
+    }
   }
 
   // ---- GCL: aggregates of the block's rows -> AGG
@@ -291,11 +307,13 @@ __global__ void __launch_bounds__(NT) block_phase_b(CoordArgs g, float* partial)
 template <int F>
 int launch(const PhaseA& a, const CoordArgs& b, int blocks, float* partial,
            cudaStream_t stream) {
+  constexpr int TI = tile_rows<F>();
   const int N = a.gcl.N, B = a.B;
   const int tiles = B * ((N + TI - 1) / TI);
   if (blocks <= 0 || blocks > tiles || (tiles + blocks - 1) / blocks > RB_TILES)
     return (int)cudaErrorInvalidValue;
-  const size_t smem_a = sizeof(float) * (second_tile<F>(N) + (size_t)RB * NodeLayout<F>::SS);
+  const size_t smem_a =
+      sizeof(float) * (second_tile<F>(N) + (size_t)block_rows<F> * NodeLayout<F>::SS);
   cudaError_t err = cudaFuncSetAttribute(
       block_phase_a<F>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_a);
   if (err != cudaSuccess) return (int)err;
@@ -365,6 +383,7 @@ extern "C" int block_fused_forward(
     case 64: return launch<64>(a, b, blocks, partial, s);
     case 128: return launch<128>(a, b, blocks, partial, s);
     case 256: return launch<256>(a, b, blocks, partial, s);
+    case 512: return launch<512>(a, b, blocks, partial, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

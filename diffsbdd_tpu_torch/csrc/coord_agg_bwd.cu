@@ -84,14 +84,15 @@ struct CoordBwdArgs {
 // The row tile's and the chunk's shared state, one copy for both passes.
 template <int F>
 struct CoordBwdShared {
-  Chunk chunk;
-  Rows rows;
-  PairD2 dd;
+  static constexpr int TI = tile_rows<F>(), P = mma::Layout<F>::P;
+  Chunk<TI> chunk;
+  Rows<TI> rows;
+  PairD2<P> dd;
   float q[P], dw[P];      // adj / norm, g_i . (x_i - x_j); cross: adj / cnorm, g_i . c
   float phi[P];           // the pair's head output
   float rowc[P][6], colc[P][6], meanc[P][3];
   float b2s[F], w3s[F], wd2s[F], wd20s[F];
-  float xpart[2][mma::SLICES][P];  // the slices' shares of the pair dots
+  float xpart[2][mma::Layout<F>::SLICES][P];  // the slices' shares of the pair dots
   float grow[TI][3], mean[3];      // g / nf of the tile's rows, 0 past update_rows
 };
 
@@ -101,18 +102,20 @@ struct CoordBwdShared {
 template <int F, bool CROSS>
 __device__ void coord_bwd_tile_tc(const CoordBwdArgs& g, size_t node0, size_t slab, int i0,
                                   float* S, float* D, int* cols, mma::W2BwdRing<F>& ring,
-                                  mma::GclBwdState& st, CoordBwdShared<F>& sh,
+                                  mma::GclBwdState<F>& st, CoordBwdShared<F>& sh,
                                   float& dmean) {
   using L = mma::Layout<F>;
   using mma::WM;
+  constexpr int TI = L::TI, P = L::P, ROW_GROUPS = mma::row_groups<F>(),
+                SLICES = L::SLICES;
   const PairMlp& m = CROSS ? g.cross : g.coord;
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
   const int gid = lane >> 2, tig = lane & 3;
-  const int rg = warp % mma::ROW_GROUPS, slice = warp / mma::ROW_GROUPS;
+  const int rg = warp % ROW_GROUPS, slice = warp / ROW_GROUPS;
   const int k = t % F, q = t / F;  // the fill layout's feature and column group
   const float nc = g.norm_constant;
-  const Chunk& chunk = sh.chunk;
-  const Rows& rows = sh.rows;
+  const Chunk<TI>& chunk = sh.chunk;
+  const Rows<TI>& rows = sh.rows;
   float* acol_part = (CROSS ? g.ccol_part : g.acol_part) + slab * (size_t)g.N * F;
   float* dx_part = g.dx_part + slab * (size_t)g.N * 6;
   float* dw2 = (CROSS ? g.cw_part : g.w_part) + slab * weight_slab(F);
@@ -138,11 +141,21 @@ __device__ void coord_bwd_tile_tc(const CoordBwdArgs& g, size_t node0, size_t sl
     a_row[r] = i0 + r < g.N ? m.a_row[(node0 + i0 + r) * F + k] : 0.0f;
     arow[r] = 0.0f;
   }
+  [[maybe_unused]] mma::UpperHalf<F> up;  // F = 512: feature k + NT
+  if constexpr (L::FE > 1) {
+    mma::load_half_rows<F>(m, node0, i0, g.N, k + NT, up);
+    for (int r = 0; r < TI; ++r) up.arow[r] = 0.0f;
+  }
   __syncthreads();
   const int count = compact_columns(rows, g.x0, g.col_mask, g.is_lig, node0, g.N, g.cut,
                                     cols);
   float a_col[L::COLS];
-  mma::load_a_col<F>(m, cols, count, 0, node0, a_col);
+  if constexpr (L::FE == 1) {
+    mma::load_a_col<F>(m, cols, count, 0, node0, a_col);
+  } else {
+    mma::load_a_col_half<F>(m, cols, count, 0, node0, k, a_col);
+    mma::load_a_col_half<F>(m, cols, count, 0, node0, k + NT, up.a_col);
+  }
   const int ce = (2 * tig) ^ mma::swz(gid);  // C-fragment columns in rows gid, gid + 8
 
   for (int c0 = 0; c0 < count; c0 += TJ) {
@@ -150,14 +163,17 @@ __device__ void coord_bwd_tile_tc(const CoordBwdArgs& g, size_t node0, size_t sl
                g.cut);
     __syncthreads();
     // the chunk's k-steps of 8 pairs that hold an edge
-    static_assert(P == 64, "two ballots cover the chunk");
-    const unsigned e0 = __ballot_sync(0xffffffffu, chunk.j[lane] >= 0),
-                   e1 = __ballot_sync(0xffffffffu, chunk.j[lane + 32] >= 0);
     unsigned kmask = 0;
+    if constexpr (P == 64) {
+      const unsigned e0 = __ballot_sync(0xffffffffu, chunk.j[lane] >= 0),
+                     e1 = __ballot_sync(0xffffffffu, chunk.j[lane + 32] >= 0);
 #pragma unroll
-    for (int s = 0; s < 4; ++s)
-      kmask |= (((e0 >> (8 * s)) & 0xffu) ? 1u : 0u) << s
-             | (((e1 >> (8 * s)) & 0xffu) ? 1u : 0u) << (s + 4);
+      for (int s = 0; s < 4; ++s)
+        kmask |= (((e0 >> (8 * s)) & 0xffu) ? 1u : 0u) << s
+               | (((e1 >> (8 * s)) & 0xffu) ? 1u : 0u) << (s + 4);
+    } else {
+      kmask = mma::edge_ksteps32(chunk.j, lane);
+    }
     // ---- pair geometry (read after product 1's first sync)
     if (t < P) {
       const int j = chunk.j[t], r = t / TJ;
@@ -180,7 +196,12 @@ __device__ void coord_bwd_tile_tc(const CoordBwdArgs& g, size_t node0, size_t sl
       sh.q[t] = qv;
       sh.dw[t] = dw;
     }
-    mma::fill_m1<F>(w, chunk, a_row, a_col, S);
+    if constexpr (L::FE == 1) {
+      mma::fill_m1<F>(w, chunk, a_row, a_col, S);
+    } else {
+      mma::fill_m1_half<F>(w, chunk, a_row, a_col, k, S);
+      mma::fill_m1_half<F>(up.w, chunk, up.a_row, up.a_col, k + NT, S);
+    }
     float acc[WM][L::NTN][4];
     mma::product_sw<F, mma::kTier>(S, ring, acc);  // z2 - b2 = m1 @ W2
 
@@ -215,7 +236,7 @@ __device__ void coord_bwd_tile_tc(const CoordBwdArgs& g, size_t node0, size_t sl
         const int p = (rg * WM + m_) * 16 + gid + 8 * h;
         float raw = 0.0f;
 #pragma unroll
-        for (int sl = 0; sl < mma::SLICES; ++sl) raw += sh.xpart[0][sl][p];
+        for (int sl = 0; sl < SLICES; ++sl) raw += sh.xpart[0][sl][p];
         float phi = raw, d = sh.dw[p] * sh.q[p];  // dphi
         if (g.use_tanh) {
           const float th = tanhf(raw);
@@ -261,23 +282,35 @@ __device__ void coord_bwd_tile_tc(const CoordBwdArgs& g, size_t node0, size_t sl
     __syncthreads();  // D complete
     mma::dw2_tc<F, mma::kTier>(S, D, kmask, dw2);
     __syncthreads();  // S is no longer read
-    mma::fill_dsilu<F>(w, chunk, a_row, a_col, D, S, st.fa.b2);
     // the next chunk's a_col, or the next tile's first: loaded during product 3
-    mma::load_a_col<F>(m, cols, count, c0 + TJ, node0, a_col);
+    if constexpr (L::FE == 1) {
+      mma::fill_dsilu<F>(w, chunk, a_row, a_col, D, S, st.fa.b2);
+      mma::load_a_col<F>(m, cols, count, c0 + TJ, node0, a_col);
+    } else {
+      mma::fill_dsilu_half<F>(w, chunk, a_row, a_col, k, D, S, st.fa.b2);
+      mma::fill_dsilu_half<F>(up.w, chunk, up.a_row, up.a_col, k + NT, D, S, st.fa_hi.b2);
+      mma::load_a_col_half<F>(m, cols, count, c0 + TJ, node0, k, a_col);
+      mma::load_a_col_half<F>(m, cols, count, c0 + TJ, node0, k + NT, up.a_col);
+    }
     mma::product_sw<F, mma::kTier>(D, ring, acc);  // dm1 = dz2 @ W2^T
     mma::dpre_fragments<F>(acc, S, sh.wd2s, sh.wd20s, sh.xpart);
     __syncthreads();  // dpre and the pair dots complete
     if (t < P) {
       float a = 0.0f, b = 0.0f;
 #pragma unroll
-      for (int sl = 0; sl < mma::SLICES; ++sl) {
+      for (int sl = 0; sl < SLICES; ++sl) {
         a += sh.xpart[0][sl][t];
         b += sh.xpart[1][sl][t];
       }
       sh.dd.dd2[t] = a;
       sh.dd.dd20[t] = b;
     }
-    mma::dpre_sums<F>(S, chunk, cols, count, c0, arow, st.fa, acol_part);
+    if constexpr (L::FE == 1) {
+      mma::dpre_sums<F>(S, chunk, cols, count, c0, arow, st.fa, acol_part);
+    } else {
+      mma::dpre_sums_half<F>(S, chunk, cols, count, c0, k, arow, st.fa, acol_part);
+      mma::dpre_sums_half<F>(S, chunk, cols, count, c0, k + NT, up.arow, st.fa_hi, acol_part);
+    }
     __syncthreads();  // dd complete
 
     // ---- this MLP's share of the per-pair coordinate cotangents
@@ -327,10 +360,15 @@ __device__ void coord_bwd_tile_tc(const CoordBwdArgs& g, size_t node0, size_t sl
     __syncthreads();
     if (CROSS && t < 3)
       for (int p = 0; p < P; ++p) dmean += sh.meanc[p][t];
-    scatter_dx(sh.rowc, sh.colc, cols, count, c0, i0, g.N, dx_part);  // ends with a sync
+    scatter_dx<TI>(sh.rowc, sh.colc, cols, count, c0, i0, g.N, dx_part);  // ends with a sync
   }
 
   // ---- da_row of the tile's rows: the column groups' row sums, in order
+  if constexpr (L::FE > 1) {  // F = 512: one column group, the sums complete
+    mma::store_rows_half<F>(arow, up.arow, k, node0, i0, g.N, g.update_rows,
+                            CROSS ? g.dc_row : g.da_row);
+    return;
+  }
   float* red = S;  // free: the last chunk ended with a sync
 #pragma unroll
   for (int r = 0; r < TI; ++r) red[(q * TI + r) * F + k] = arow[r];
@@ -356,13 +394,14 @@ __device__ void coord_bwd_pass(const CoordBwdArgs& g, float* S, float* D, float*
   const size_t node0 = (size_t)blockIdx.y * g.N;
   const size_t slab = (size_t)blockIdx.y * gridDim.x + blockIdx.x;
   __syncthreads();  // the previous pass has stored its sums
-  for (int e = threadIdx.x; e < mma::ROW_GROUPS * F; e += NT) hvs[e] = 0.0f;
-  mma::GclBwdState st{FeatAcc{0.0f, 0.0f, 0.0f, 0.0f, 0.0f}, hvs, 0.0f};
+  for (int e = threadIdx.x; e < mma::row_groups<F>() * F; e += NT) hvs[e] = 0.0f;
+  mma::GclBwdState<F> st{FeatAcc{0.0f, 0.0f, 0.0f, 0.0f, 0.0f}, hvs, 0.0f};
   mma::W2BwdRing<F> ring{m.w2, CROSS ? g.cw2t : g.w2t, ring_buf, 0};
   for (int s = 0; s < mma::NS - 1; ++s) ring.issue();
   float dmean = 0.0f;  // thread t < 3: component t
   for (int tile = blockIdx.x; tile < g.tiles; tile += gridDim.x)
-    coord_bwd_tile_tc<F, CROSS>(g, node0, slab, tile * TI, S, D, cols, ring, st, sh, dmean);
+    coord_bwd_tile_tc<F, CROSS>(g, node0, slab, tile * tile_rows<F>(), S, D, cols, ring, st,
+                                sh, dmean);
   mma::cp_async_wait_all();  // the ring's look-ahead stage
   // [dW2][w_d2][w_d20][delta][b2][w3][0]: the GCL's slab layout, no head bias
   mma::store_gcl_bwd_state<F>(st, (CROSS ? g.cw_part : g.w_part) + slab * weight_slab(F), S);
@@ -373,19 +412,24 @@ template <int F>
 __global__ void __launch_bounds__(NT) coord_agg_bwd_kernel(CoordBwdArgs g) {
   using L = mma::Layout<F>;
   extern __shared__ __align__(16) float smem[];
+  constexpr int P = L::P;
   float* S = smem;                     // P * F
   float* D = S + P * F;                // P * F
   float* ring_buf = D + P * F;         // NS * STAGE
   int* cols = reinterpret_cast<int*>(ring_buf + mma::NS * L::STAGE);  // N
   __shared__ __align__(16) CoordBwdShared<F> sh;  // 16 B: the fill passes' loads vectorise
-  __shared__ float hvs[mma::ROW_GROUPS * F];
+  __shared__ float hvs[mma::row_groups<F>() * F];
   coord_bwd_pass<F, false>(g, S, D, ring_buf, cols, sh, hvs);
   if (g.cross.a_row != nullptr) coord_bwd_pass<F, true>(g, S, D, ring_buf, cols, sh, hvs);
 }
 
 template <int F>
-int launch(const CoordBwdArgs& g, int B, int Q, float* da_col, float* dc_col,
+int launch(CoordBwdArgs g, int B, int Q, float* da_col, float* dc_col,
            float* dxx0, float* dmean, float* w_out, float* cw_out, cudaStream_t stream) {
+  constexpr int TI = tile_rows<F>();
+  const int rows = g.update_rows < g.N ? g.update_rows : g.N;
+  g.tiles = (rows + TI - 1) / TI;
+  if (Q < 1 || Q > (g.tiles > 0 ? g.tiles : 1)) return (int)cudaErrorInvalidValue;
   const size_t smem = mma::dynamic_smem_bwd_tc<F>(g.N);
   cudaError_t err = cudaFuncSetAttribute(
       coord_agg_bwd_kernel<F>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -429,9 +473,6 @@ extern "C" int coord_agg_backward(
     float* mean_part, float* w_part, float* cw_part,
     float* da_col, float* dc_col, float* dxx0, float* dmean, float* w_out,
     float* cw_out, void* stream) {
-  const int rows = update_rows < N ? update_rows : N;
-  const int tiles = (rows + TI - 1) / TI;
-  if (Q < 1 || Q > (tiles > 0 ? tiles : 1)) return (int)cudaErrorInvalidValue;
   CoordBwdArgs g;
   g.coord = PairMlp{a_row, a_col, w_d2, w_d20, delta, w2, b2, w3};
   g.cross = PairMlp{c_row, c_col, cw_d2, cw_d20, c_delta, cw2, cb2, cw3};
@@ -441,7 +482,7 @@ extern "C" int coord_agg_backward(
   g.use_tanh = use_tanh; g.coords_range = coords_range;
   g.norm_constant = norm_constant; g.inv_nf = 1.0f / nf;
   g.cut = Cutoffs{cut_ll, cut_pp, cut_lp};
-  g.N = N; g.update_rows = update_rows; g.tiles = tiles;
+  g.N = N; g.update_rows = update_rows;  // g.tiles: set by launch<F> (TI depends on F)
   g.da_row = da_row; g.dc_row = dc_row; g.acol_part = acol_part;
   g.ccol_part = ccol_part; g.dx_part = dx_part; g.mean_part = mean_part;
   g.w_part = w_part; g.cw_part = cw_part;
@@ -450,6 +491,7 @@ extern "C" int coord_agg_backward(
     case 64: return launch<64>(g, B, Q, da_col, dc_col, dxx0, dmean, w_out, cw_out, s);
     case 128: return launch<128>(g, B, Q, da_col, dc_col, dxx0, dmean, w_out, cw_out, s);
     case 256: return launch<256>(g, B, Q, da_col, dc_col, dxx0, dmean, w_out, cw_out, s);
+    case 512: return launch<512>(g, B, Q, da_col, dc_col, dxx0, dmean, w_out, cw_out, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -29,7 +29,9 @@ __host__ __device__ constexpr size_t weight_slab(int F) { return (size_t)F * F +
 // head is unused (the head's cotangent is summed in shared memory).
 struct FeatAcc { float w_d2, w_d20, delta, b2, head; };
 
-// Per-pair cotangents of the two squared distances from one MLP's chunk.
+// Per-pair cotangents of the two squared distances from one MLP's chunk of P
+// pairs.
+template <int P>
 struct PairD2 { float dd2[P], dd20[P]; };
 
 // Adds the chunk's per-pair coordinate cotangents into the block's (N, 6) slab
@@ -37,6 +39,7 @@ struct PairD2 { float dd2[P], dd20[P]; };
 // node; both are zero for pairs without an edge.  Rows first, then columns: a
 // node can be both in one chunk.  Must be called by every thread, after a sync
 // that completes rowc and colc.
+template <int TI>
 __device__ __forceinline__ void scatter_dx(const float (*rowc)[6], const float (*colc)[6],
                                            const int* cols, int count, int c0, int i0,
                                            int N, float* dx_part) {

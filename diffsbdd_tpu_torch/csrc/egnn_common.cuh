@@ -3,10 +3,12 @@
 // through egnn_bwd.cuh; for sm_90a.
 //
 // All kernels tile the same way: a block works on one tile of TI rows (below
-// update_rows) of one batch item at a time.  It first compacts the columns
-// adjacent to any of its rows (cutoffs on the EGNN input coordinates x0,
-// ascending j), then walks them in chunks of TJ columns = P pairs.  For each chunk it computes the pair geometry and the
-// first two layers of a pair MLP:
+// update_rows) of one batch item at a time, TI = 4, or 2 at F = 512
+// (tile_rows), where a chunk of 64 pairs and its stages would not fit a
+// block's shared memory.  It first compacts the columns adjacent to any of
+// its rows (cutoffs on the EGNN input coordinates x0, ascending j), then
+// walks them in chunks of TJ columns = P = TI * TJ pairs.  For each chunk it
+// computes the pair geometry and the first two layers of a pair MLP:
 //
 //   pre_ij = a_row_i + a_col_j + d2_ij*w_d2 + d20_ij*w_d20 [+ lig_i*lig_j*delta]
 //   acc_ij = silu(pre_ij) @ W2
@@ -20,10 +22,12 @@
 
 namespace egnn {
 
-constexpr int TI = 4;               // rows per block
 constexpr int TJ = 16;              // compacted columns per chunk
-constexpr int P = TI * TJ;          // pairs per chunk
 constexpr int NT = 256;             // threads per block (8 warps)
+
+// Rows per tile at hidden width F; a chunk has TI * TJ pairs.
+template <int F>
+__host__ __device__ constexpr int tile_rows() { return F > 256 ? 2 : 4; }
 
 struct Cutoffs { float ll, pp, lp; };  // squared distance cutoffs, < 0 for none
 
@@ -54,18 +58,22 @@ struct PairMlp {
                        // or the coordinate head
 };
 
+template <int TI>
 struct Rows {  // the block's TI rows
   float x[TI][3], x0[TI][3], mask[TI], lig[TI];
 };
 
+template <int TI>
 struct Chunk {  // pair p: row p / TJ, compacted column p % TJ
+  static constexpr int P = TI * TJ;
   float d2[P], d20[P], adj[P], ll[P];
   int j[P];  // -1: no edge (past the last column, or adjacency 0)
 };
 
 // Threads t < TI load row i0 + t.  Rows >= min(N, update_rows) get mask 0 and
 // so no edges; their output is zero.
-__device__ __forceinline__ void load_rows(Rows& r, const float* x, const float* x0,
+template <int TI>
+__device__ __forceinline__ void load_rows(Rows<TI>& r, const float* x, const float* x0,
                                           const float* mask, const float* is_lig,
                                           size_t node0, int i0, int N,
                                           int update_rows) {
@@ -84,7 +92,8 @@ __device__ __forceinline__ void load_rows(Rows& r, const float* x, const float* 
 // Writes every column adjacent to any of the block's rows to cols, in
 // ascending order (a ballot and a prefix count per warp), and returns their
 // number.  The rows must be loaded and synced.
-__device__ __forceinline__ int compact_columns(const Rows& r, const float* x0,
+template <int TI>
+__device__ __forceinline__ int compact_columns(const Rows<TI>& r, const float* x0,
                                                const float* col_mask,
                                                const float* is_lig, size_t node0,
                                                int N, const Cutoffs& cut, int* cols) {
@@ -125,13 +134,14 @@ __device__ __forceinline__ int compact_columns(const Rows& r, const float* x0,
 
 // Threads t < P fill pair t of the chunk that starts at compacted column c0:
 // d2 from the current coordinates x, d20 and the adjacency from x0.
-__device__ __forceinline__ void fill_chunk(Chunk& c, const Rows& r, const float* x,
+template <int TI>
+__device__ __forceinline__ void fill_chunk(Chunk<TI>& c, const Rows<TI>& r, const float* x,
                                            const float* x0, const float* col_mask,
                                            const float* is_lig, size_t node0,
                                            const int* cols, int count, int c0,
                                            const Cutoffs& cut) {
   const int t = threadIdx.x;
-  if (t >= P) return;
+  if (t >= Chunk<TI>::P) return;
   const int k = t / TJ, idx = c0 + t % TJ;
   int j = idx < count ? cols[idx] : -1;
   float d2 = 0.0f, d20 = 0.0f, adj = 0.0f, ll = 0.0f;
@@ -162,12 +172,13 @@ __device__ __forceinline__ PairWeights pair_weights(const PairMlp& m, int k) {
 // Rows >= update_rows have no edges, so the grid covers only the row tiles
 // below update_rows (dead blocks would crowd the live ones onto fewer SMs);
 // the blocks share the zeroing of the rows past their tiles, W floats a row.
-inline dim3 row_tile_grid(int N, int update_rows, int B) {
+inline dim3 row_tile_grid(int N, int update_rows, int B, int TI) {
   const int rows = update_rows < N ? update_rows : N;
   const int tiles = (rows + TI - 1) / TI;
   return dim3(tiles > 0 ? tiles : 1, B);
 }
 
+template <int TI>
 __device__ __forceinline__ void zero_rows_past_grid(float* out, size_t node0, int N,
                                                     int W) {
   const int tail0 = gridDim.x * TI;

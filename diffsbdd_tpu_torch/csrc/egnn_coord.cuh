@@ -19,6 +19,7 @@ namespace egnn {
 template <int F, bool CROSS, int TIER = mma::TF32X3>
 __device__ __forceinline__ void coord_update_block(CoordArgs& g, float* partial,
                                                    float* smem) {
+  constexpr int TI = tile_rows<F>();
   const int i0 = blockIdx.x * TI;
   if constexpr (CROSS) {
     g.out = partial + (size_t)blockIdx.z * gridDim.y * g.N * 3;
@@ -29,7 +30,7 @@ __device__ __forceinline__ void coord_update_block(CoordArgs& g, float* partial,
   } else {
     mma::coord_tile_tc<F, false, TIER>(g, blockIdx.y, i0, smem);
   }
-  zero_rows_past_grid(g.out, (size_t)blockIdx.y * g.N, g.N, 3);
+  zero_rows_past_grid<TI>(g.out, (size_t)blockIdx.y * g.N, g.N, 3);
 }
 
 // out = partial[0] + partial[1], n floats each
@@ -49,7 +50,7 @@ int launch_coord_update(void (*kernel)(CoordArgs, float*), const CoordArgs& g, i
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid = row_tile_grid(g.N, g.update_rows, B);
+  dim3 grid = row_tile_grid(g.N, g.update_rows, B, tile_rows<F>());
   grid.z = CROSS ? 2 : 1;
   kernel<<<grid, NT, smem, stream>>>(g, partial);
   if constexpr (CROSS) {

@@ -19,6 +19,14 @@
 // row group x 8 slices (every warp all rows, F/8 features), and skip the
 // m-tiles past the rows a block owns.
 //
+// F = 512 (Layout): 64 pairs a chunk would need the backward's S and D at
+// 128 KB each and stages of 32 rows at 65 KB each, over the 227 KB a block
+// may have; so a tile there has TI = 2 rows (P = 32 pairs, two m-tiles),
+// stages KC = 16 W2 rows (two TF32 k-steps, one bf16), and the
+// pair MLPs take the one-row-group layout: every warp both rows and F/8 = 64
+// features, 8 n-tiles, the registers of F = 256's 2 x 64.  The fill layout
+// gives each thread F / 256 = 2 features (t and t + 256).
+//
 // W2 streams through a ring of NS shared-memory stages of KC rows filled with
 // cp.async (16 B, commit/wait groups): the copy of the next stage is in
 // flight while the tensor cores work on this one, one block sync a stage.
@@ -45,6 +53,7 @@
 //    elementwise work of the backward bodies stays f32.
 #pragma once
 #include <cstdint>
+#include <type_traits>
 #include "egnn_common.cuh"
 
 namespace egnn {
@@ -89,33 +98,44 @@ enum Tier : int { TF32X3 = 0, TF32X2 = 1, BF16 = 2 };
 constexpr int kTier = EGNN_TIER;  // the tier a kernel's library is built for
 static_assert(kTier >= TF32X3 && kTier <= BF16, "EGNN_TIER: 0, 1 or 2");
 
-constexpr int KC = 32;  // W2 rows per stage (4 k-steps of 8, 2 of 16 in bf16)
 constexpr int NS = 2;   // stages in the ring
-constexpr int M_TILES = P / 16;             // one m-tile a row (TJ = 16)
-constexpr int WM = 2;                       // m-tiles (rows) a warp owns
-constexpr int ROW_GROUPS = M_TILES / WM;
-constexpr int SLICES = (NT / 32) / ROW_GROUPS;  // feature slices
-static_assert(TJ == 16 && M_TILES % WM == 0 && (NT / 32) % ROW_GROUPS == 0,
-              "warps = row groups x feature slices");
+constexpr int WM = 2;   // m-tiles (rows) a warp owns in the pair MLPs' layout
 
-// RG: row groups of the products' warp layout (the pair MLPs' 2 above, or 1
-// for block_fused.cu's node products: every warp all rows, F/8 features).
-template <int F, int RG = ROW_GROUPS> struct Layout {
+// Row groups of the pair MLPs' warp layout at width F: 2, or 1 at F = 512.
+template <int F>
+__host__ __device__ constexpr int row_groups() { return tile_rows<F>() * TJ / 16 / WM; }
+
+// The tiling at width F, in the warp layout of RG row groups (the pair MLPs'
+// row_groups<F>(), or 1 for block_fused.cu's node products: every warp all
+// rows, F/8 features).
+template <int F, int RG = row_groups<F>()> struct Layout {
+  static constexpr int TI = tile_rows<F>();  // rows per tile
+  static constexpr int P = TI * TJ;      // pairs per chunk
+  static constexpr int M_TILES = P / 16;  // one m-tile a row (TJ = 16)
+  static constexpr int SLICES = (NT / 32) / RG;  // feature slices
+  static constexpr int KC = F > 256 ? 16 : 32;  // W2 rows per stage (k-steps of 8)
   static constexpr int SS = F + 4;       // S row stride (floats)
   static constexpr int WS = F + 8;       // stage row stride (floats)
   static constexpr int KS = F / KC;      // stages per chunk
   static constexpr int WM = M_TILES / RG;          // m-tiles a warp owns
-  static constexpr int FW = F / ((NT / 32) / RG);  // features a warp owns
+  static constexpr int FW = F / SLICES;  // features a warp owns
   static constexpr int NTN = FW / 8;     // its n-tiles of 8
   static constexpr int NG = NTN < 8 ? NTN : 8;  // n-tiles split at a time
-  static constexpr int COLS = TJ * F / NT;  // a_col entries a thread fills
+  // the fill layout: thread t fills features t % F + e * NT (e < FE) of the
+  // chunk's columns t / F + u * NQ (u < COLS)
+  static constexpr int FE = F > NT ? F / NT : 1;
+  static constexpr int NQ = F < NT ? NT / F : 1;
+  static constexpr int COLS = TJ / NQ;
   static constexpr int STAGE = KC * WS;  // floats per stage
+  static_assert(TJ == 16 && M_TILES % RG == 0 && (NT / 32) % RG == 0 &&
+                (F < NT ? NT % F : F % NT) == 0, "warps = row groups x feature slices");
 };
 
 // Dynamic shared memory of gcl_tile_tc: S, the W2 ring, the column list.
 template <int F>
 __host__ __device__ constexpr size_t dynamic_smem(int N) {
-  return sizeof(float) * ((size_t)P * Layout<F>::SS + (size_t)NS * Layout<F>::STAGE)
+  return sizeof(float) * ((size_t)Layout<F>::P * Layout<F>::SS
+                          + (size_t)NS * Layout<F>::STAGE)
        + sizeof(int) * (size_t)N;
 }
 
@@ -201,8 +221,8 @@ struct W2Ring {
   __device__ __forceinline__ void issue() {
     constexpr int V = F / 4;  // 16-byte vectors per row
     float* dst = buf + (next % NS) * L::STAGE;
-    const float* src = w2 + (size_t)(next % L::KS) * KC * F;
-    for (int e = threadIdx.x; e < KC * V; e += NT) {
+    const float* src = w2 + (size_t)(next % L::KS) * L::KC * F;
+    for (int e = threadIdx.x; e < L::KC * V; e += NT) {
       const int r = e / V, v = e % V;
       cp_async16(dst + r * L::WS + 4 * v, src + (size_t)r * F + 4 * v);
     }
@@ -230,13 +250,13 @@ struct W2Ring {
 // W2Ring, or any ring with its acquire().  TIER: the product's precision tier
 // (the BF16 tier's k-steps of 16 take the A pairs as float2 loads of S, the B
 // pairs as two rows of the stage).
-template <int F, int RG = ROW_GROUPS, bool ZERO = true, bool PARTIAL = false,
+template <int F, int RG = row_groups<F>(), bool ZERO = true, bool PARTIAL = false,
           int TIER = TF32X3, class Ring>
 __device__ __forceinline__ void product_tc(
     const float* S, Ring& ring, float (&acc)[Layout<F, RG>::WM][Layout<F, RG>::NTN][4],
-    int rows = P) {
+    int rows = Layout<F, RG>::P) {
   using L = Layout<F, RG>;
-  constexpr int WM = L::WM;
+  constexpr int WM = L::WM, KC = L::KC;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int gid = lane >> 2, tig = lane & 3;
   const int rg = warp % RG, slice = warp / RG;
@@ -371,7 +391,7 @@ __device__ __forceinline__ float tier_silu(float x) {
 
 // Thread t fills feature t % F of the chunk's columns t / F + u * NT/F: loads
 // the a_col entries of the chunk at compacted column c0 (all issued before any
-// is used; 0 past the last column).
+// is used; 0 past the last column).  F <= 256; F = 512 takes load_a_col_half.
 template <int F>
 __device__ __forceinline__ void load_a_col(const PairMlp& m, const int* cols, int count,
                                            int c0, size_t node0,
@@ -389,11 +409,12 @@ __device__ __forceinline__ void load_a_col(const PairMlp& m, const int* cols, in
 // serves the TI rows.  Branch-free (w.delta is 0 without a delta, and a pair
 // without an edge has finite operands), so that the pair loads batch.  The
 // BF16 tier computes pre and its silu at the JAX package's bf16 rounding
-// points (the header).
+// points (the header).  F <= 256; F = 512 takes fill_s_half.
 template <int F, int TIER = TF32X3>
-__device__ __forceinline__ void fill_s(const PairWeights& w, const Chunk& c,
-                                       const float (&a_row)[TI],
+__device__ __forceinline__ void fill_s(const PairWeights& w, const Chunk<Layout<F>::TI>& c,
+                                       const float (&a_row)[Layout<F>::TI],
                                        const float (&a_col)[Layout<F>::COLS], float* S) {
+  constexpr int TI = Layout<F>::TI;
   static_assert(NT % F == 0 && TJ % (NT / F) == 0, "column groups");
   const int k = threadIdx.x % F, q = threadIdx.x / F;
 #pragma unroll
@@ -401,6 +422,72 @@ __device__ __forceinline__ void fill_s(const PairWeights& w, const Chunk& c,
 #pragma unroll
     for (int r = 0; r < TI; ++r) {
       const int p = r * TJ + q + u * (NT / F);
+      float pre;
+      if constexpr (TIER == BF16) {
+        const float bias = fmaf(c.ll[p], w.delta, c.d2[p] * w.w_d2 + c.d20[p] * w.w_d20);
+        pre = bf16_rne(bf16_rne(bf16_rne(a_row[r]) + bf16_rne(a_col[u])) + bf16_rne(bias));
+      } else {
+        pre = fmaf(c.ll[p], w.delta, a_row[r] + a_col[u] + c.d2[p] * w.w_d2
+                                         + c.d20[p] * w.w_d20);
+      }
+      const float v = tier_silu<TIER>(pre);
+      S[p * Layout<F>::SS + k] = c.j[p] >= 0 ? v : 0.0f;
+    }
+  }
+}
+
+// F = 512's fill layout (Layout::FE = 2): every thread fills all TJ columns
+// of a chunk for two features, t (the narrow functions' state w, a_row,
+// a_col, at F = 512 of the lower half) and t + NT (an UpperHalf).  Below 512
+// UpperHalf is empty.
+struct NoHalf {};
+template <int F>
+struct FillHalf {
+  PairWeights w;
+  float a_row[Layout<F>::TI];
+  float a_col[Layout<F>::COLS];
+  float arow[Layout<F>::TI];  // the backward's row sums of dpre
+};
+template <int F>
+using UpperHalf = std::conditional_t<(Layout<F>::FE > 1), FillHalf<F>, NoHalf>;
+
+// The first-layer weights of feature k and a_row of the tile's rows (0 past
+// N): the tile bodies' prologue, for F = 512's upper half.
+template <int F>
+__device__ __forceinline__ void load_half_rows(const PairMlp& m, size_t node0, int i0, int N,
+                                               int k, FillHalf<F>& h) {
+  h.w = pair_weights(m, k);
+#pragma unroll
+  for (int r = 0; r < Layout<F>::TI; ++r)
+    h.a_row[r] = i0 + r < N ? m.a_row[(node0 + i0 + r) * F + k] : 0.0f;
+}
+
+// load_a_col at F = 512 for one half: feature k of every column of the chunk.
+template <int F>
+__device__ __forceinline__ void load_a_col_half(const PairMlp& m, const int* cols, int count,
+                                                int c0, size_t node0, int k,
+                                                float (&a_col)[Layout<F>::COLS]) {
+  static_assert(Layout<F>::NQ == 1 && Layout<F>::COLS == TJ, "one column group");
+#pragma unroll
+  for (int u = 0; u < TJ; ++u) {
+    const int idx = c0 + u;
+    a_col[u] = idx < count ? __ldg(m.a_col + (node0 + cols[idx]) * F + k) : 0.0f;
+  }
+}
+
+// fill_s at F = 512 for one half: S[p][k] of every pair of the chunk.
+template <int F, int TIER = TF32X3>
+__device__ __forceinline__ void fill_s_half(const PairWeights& w,
+                                            const Chunk<Layout<F>::TI>& c,
+                                            const float (&a_row)[Layout<F>::TI],
+                                            const float (&a_col)[Layout<F>::COLS], int k,
+                                            float* S) {
+  static_assert(Layout<F>::NQ == 1 && Layout<F>::COLS == TJ, "one column group");
+#pragma unroll
+  for (int u = 0; u < TJ; ++u) {
+#pragma unroll
+    for (int r = 0; r < Layout<F>::TI; ++r) {
+      const int p = r * TJ + u;
       float pre;
       if constexpr (TIER == BF16) {
         const float bias = fmaf(c.ll[p], w.delta, c.d2[p] * w.w_d2 + c.d20[p] * w.w_d20);
@@ -423,8 +510,9 @@ template <int F, int DS = F, int TIER = TF32X3>
 __device__ void gcl_tile_tc(const GclArgs& g, size_t node0, int i0, float* smem,
                             float* dst, int dst_rows) {
   using L = Layout<F>;
-  __shared__ Rows rows;
-  __shared__ Chunk chunk;
+  constexpr int TI = L::TI, P = L::P, ROW_GROUPS = row_groups<F>(), SLICES = L::SLICES;
+  __shared__ Rows<TI> rows;
+  __shared__ Chunk<TI> chunk;
   __shared__ float b2s[F], watt[F];
   __shared__ float att_part[SLICES][P];  // the slices' attention dots
   float* S = smem;
@@ -449,6 +537,8 @@ __device__ void gcl_tile_tc(const GclArgs& g, size_t node0, int i0, float* smem,
 #pragma unroll
   for (int r = 0; r < TI; ++r)
     a_row[r] = i0 + r < g.N ? g.mlp.a_row[(node0 + i0 + r) * F + kS] : 0.0f;
+  [[maybe_unused]] UpperHalf<F> up;  // F = 512: feature kS + NT
+  if constexpr (L::FE > 1) load_half_rows<F>(g.mlp, node0, i0, g.N, kS + NT, up);
   __syncthreads();
   const int count = compact_columns(rows, g.x0, g.col_mask, g.is_lig, node0, g.N,
                                     g.cut, cols);
@@ -465,13 +555,25 @@ __device__ void gcl_tile_tc(const GclArgs& g, size_t node0, int i0, float* smem,
   // a_col of the chunk to fill: loaded one chunk ahead, so that the loads
   // are in flight during the product
   float a_col[L::COLS];
-  load_a_col<F>(g.mlp, cols, count, 0, node0, a_col);
+  if constexpr (L::FE == 1) {
+    load_a_col<F>(g.mlp, cols, count, 0, node0, a_col);
+  } else {
+    load_a_col_half<F>(g.mlp, cols, count, 0, node0, kS, a_col);
+    load_a_col_half<F>(g.mlp, cols, count, 0, node0, kS + NT, up.a_col);
+  }
   for (int c0 = 0; c0 < count; c0 += TJ) {
     fill_chunk(chunk, rows, g.x, g.x0, g.col_mask, g.is_lig, node0, cols, count,
                c0, g.cut);
     __syncthreads();
-    fill_s<F, TIER>(w, chunk, a_row, a_col, S);
-    load_a_col<F>(g.mlp, cols, count, c0 + TJ, node0, a_col);
+    if constexpr (L::FE == 1) {
+      fill_s<F, TIER>(w, chunk, a_row, a_col, S);
+      load_a_col<F>(g.mlp, cols, count, c0 + TJ, node0, a_col);
+    } else {
+      fill_s_half<F, TIER>(w, chunk, a_row, a_col, kS, S);
+      fill_s_half<F, TIER>(up.w, chunk, up.a_row, up.a_col, kS + NT, S);
+      load_a_col_half<F>(g.mlp, cols, count, c0 + TJ, node0, kS, a_col);
+      load_a_col_half<F>(g.mlp, cols, count, c0 + TJ, node0, kS + NT, up.a_col);
+    }
     float acc[WM][L::NTN][4];
     product_tc<F, ROW_GROUPS, true, false, TIER>(S, ring, acc);
 
@@ -560,8 +662,9 @@ __device__ void gcl_tile_tc(const GclArgs& g, size_t node0, int i0, float* smem,
 template <int F, int TIER = TF32X3>
 __device__ __forceinline__ void head_parts(float (&acc)[WM][Layout<F>::NTN][4],
                                            const float* b2s, const float* w3s,
-                                           float (*part)[P]) {
+                                           float (*part)[Layout<F>::P]) {
   using L = Layout<F>;
+  constexpr int ROW_GROUPS = row_groups<F>();
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int gid = lane >> 2, tig = lane & 3;
   const int rg = warp % ROW_GROUPS, slice = warp / ROW_GROUPS;
@@ -597,9 +700,10 @@ __device__ __forceinline__ void head_parts(float (&acc)[WM][Layout<F>::NTN][4],
 template <int F, bool CROSS, int TIER = TF32X3>
 __device__ void coord_tile_tc(const CoordArgs& g, int batch, int i0, float* smem) {
   using L = Layout<F>;
+  constexpr int TI = L::TI, P = L::P, ROW_GROUPS = row_groups<F>(), SLICES = L::SLICES;
   const PairMlp& mlp = CROSS ? g.cross : g.coord;
-  __shared__ Rows rows;
-  __shared__ Chunk chunk;
+  __shared__ Rows<TI> rows;
+  __shared__ Chunk<TI> chunk;
   __shared__ float b2s[F], w3s[F];
   __shared__ float phi_part[SLICES][P];  // the slices' head dots
   __shared__ float trans[P][3], mean[3];
@@ -624,6 +728,8 @@ __device__ void coord_tile_tc(const CoordArgs& g, int batch, int i0, float* smem
 #pragma unroll
   for (int r = 0; r < TI; ++r)
     a_row[r] = i0 + r < g.N ? mlp.a_row[(node0 + i0 + r) * F + kS] : 0.0f;
+  [[maybe_unused]] UpperHalf<F> up;  // F = 512: feature kS + NT
+  if constexpr (L::FE > 1) load_half_rows<F>(mlp, node0, i0, g.N, kS + NT, up);
   __syncthreads();
   const int count = compact_columns(rows, g.x0, g.col_mask, g.is_lig, node0, g.N,
                                     g.cut, cols);
@@ -631,14 +737,26 @@ __device__ void coord_tile_tc(const CoordArgs& g, int batch, int i0, float* smem
   // a_col of the chunk to fill: loaded one chunk ahead, so that the loads
   // are in flight during the product
   float a_col[L::COLS];
-  load_a_col<F>(mlp, cols, count, 0, node0, a_col);
+  if constexpr (L::FE == 1) {
+    load_a_col<F>(mlp, cols, count, 0, node0, a_col);
+  } else {
+    load_a_col_half<F>(mlp, cols, count, 0, node0, kS, a_col);
+    load_a_col_half<F>(mlp, cols, count, 0, node0, kS + NT, up.a_col);
+  }
   float racc = 0.0f;  // row sum of component (t % 3) of row t / 3, t < 3*TI
   for (int c0 = 0; c0 < count; c0 += TJ) {
     fill_chunk(chunk, rows, g.x, g.x0, g.col_mask, g.is_lig, node0, cols, count, c0,
                g.cut);
     __syncthreads();
-    fill_s<F, TIER>(w, chunk, a_row, a_col, S);
-    load_a_col<F>(mlp, cols, count, c0 + TJ, node0, a_col);
+    if constexpr (L::FE == 1) {
+      fill_s<F, TIER>(w, chunk, a_row, a_col, S);
+      load_a_col<F>(mlp, cols, count, c0 + TJ, node0, a_col);
+    } else {
+      fill_s_half<F, TIER>(w, chunk, a_row, a_col, kS, S);
+      fill_s_half<F, TIER>(up.w, chunk, up.a_row, up.a_col, kS + NT, S);
+      load_a_col_half<F>(mlp, cols, count, c0 + TJ, node0, kS, a_col);
+      load_a_col_half<F>(mlp, cols, count, c0 + TJ, node0, kS + NT, up.a_col);
+    }
     float acc[WM][L::NTN][4];
     product_tc<F, ROW_GROUPS, true, false, TIER>(S, ring, acc);
     head_parts<F, TIER>(acc, b2s, w3s, phi_part);

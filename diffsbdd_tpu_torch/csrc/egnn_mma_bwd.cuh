@@ -16,7 +16,8 @@
 // tensor cores work on this one; the next chunk's first W2 stage loads during
 // the dpre sums).  Product 2 has both operands in shared memory and K = P:
 // the warps cover dW2 in column slabs of 32 (at F = 256, 2 m-tiles x 4
-// n-tiles a warp), and each slab is added into the block's F x F slab in
+// n-tiles a warp; at F = 512 slabs of 16, 4 m-tiles x 2 n-tiles), and each
+// slab is added into the block's F x F slab in
 // global scratch, one read and one write a chunk, no atomics; a slab's
 // entries are loaded before its products, so that the loads are in flight
 // while the tensor cores work (with slabs of 64 the read's latency stood
@@ -42,11 +43,14 @@
 //
 // Shared memory at F = 256, N = 352: S and D 64 KB each, the ring 66 KB, the
 // column list 1.4 KB (200,064 B dynamic) and 17,328 B static, 217,392 B of
-// the 232,448 a block may have: one block (8 warps) an SM.  Empty 8-pair
+// the 232,448 a block may have: one block (8 warps) an SM.  At F = 512
+// (egnn_mma.cuh's Layout: P = 32 pairs, stages of 16 rows) S and D stay 64
+// KB each and the ring 65 KB (199,040 B dynamic at N = 352).  Empty 8-pair
 // k-steps of product 2 are skipped (about a fifth on the training batch).
 //
 // Around the products, per chunk:
-//  * fill passes (thread t owns feature t % F of pairs t / F + NT/F * u):
+//  * fill passes (thread t owns feature t % F of pairs t / F + NT/F * u;
+//    at F = 512 features t and t + 256 of every pair):
 //    S = silu(pre) before product 1 and S = silu'(pre) before product 3,
 //    pre recomputed branch-free from a_row in registers and a_col loaded a
 //    chunk ahead, as egnn_mma.cuh's fill_s;
@@ -114,8 +118,19 @@ __device__ __forceinline__ int at(int p, int k) {
 // Dynamic shared memory of the backward body: S, D, the ring, the columns.
 template <int F>
 constexpr size_t dynamic_smem_bwd_tc(int N) {
-  return sizeof(float) * (2 * (size_t)P * F + (size_t)NS * Layout<F>::STAGE)
+  return sizeof(float) * (2 * (size_t)Layout<F>::P * F + (size_t)NS * Layout<F>::STAGE)
        + sizeof(int) * (size_t)N;
+}
+
+// Bit s set: pairs 8s .. 8s+7 of a chunk of 32 pairs (F = 512's) hold an
+// edge, from each pair's column (-1: none); every lane of the warp calls it.
+// Chunks of 64 take two ballots in the tile bodies.
+__device__ __forceinline__ unsigned edge_ksteps32(const int* j, int lane) {
+  const unsigned e0 = __ballot_sync(0xffffffffu, j[lane] >= 0);
+  unsigned kmask = 0;
+#pragma unroll
+  for (int s = 0; s < 4; ++s) kmask |= (((e0 >> (8 * s)) & 0xffu) ? 1u : 0u) << s;
+  return kmask;
 }
 
 // The ring of a chunk's two streamed matrices: stage g holds rows
@@ -132,8 +147,9 @@ struct W2BwdRing {
   __device__ __forceinline__ void issue() {
     constexpr int V = F / 4;  // 16-byte vectors per row
     float* dst = buf + (next % NS) * L::STAGE;
-    const float* src = ((next / L::KS) & 1 ? w2t : w2) + (size_t)(next % L::KS) * KC * F;
-    for (int e = threadIdx.x; e < KC * V; e += NT) {
+    const float* src =
+        ((next / L::KS) & 1 ? w2t : w2) + (size_t)(next % L::KS) * L::KC * F;
+    for (int e = threadIdx.x; e < L::KC * V; e += NT) {
       const int r = e / V, v = e % V;
       cp_async16(dst + r * L::WS + 4 * v, src + (size_t)r * F + 4 * v);
     }
@@ -160,6 +176,7 @@ template <int F, int TIER = TF32X3>
 __device__ __forceinline__ void product_sw(const float* A, W2BwdRing<F>& ring,
                                            float (&acc)[WM][Layout<F>::NTN][4]) {
   using L = Layout<F>;
+  constexpr int KC = L::KC, ROW_GROUPS = row_groups<F>();
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int gid = lane >> 2, tig = lane & 3;
   const int rg = warp % ROW_GROUPS, slice = warp / ROW_GROUPS;
@@ -260,18 +277,22 @@ __device__ __forceinline__ void product_sw(const float* A, W2BwdRing<F>& ring,
 
 // dw2[k][n] += sum_p S[p][k] * D[p][n]: this block's F x F slab in global
 // memory.  Bit s of kmask is clear when pairs 8s .. 8s+7 have no edge: their
-// rows of S and D are zero, and their k-step is skipped.  Warp w covers m-tiles (dW2 rows) 2*(w % RG) .. + 1 and n-tiles
-// NN * (w / RG) .. + NN - 1 of each 64-column slab; K = the chunk's P pairs
-// (zero rows for pairs without an edge).  S and D must be complete.  TIER:
-// the product's precision tier (BF16: k-steps of 16 pairs, each fragment
-// element its own load, a step skipped when both its 8-pair bits are clear).
+// rows of S and D are zero, and their k-step is skipped.  Warp w covers
+// m-tiles (dW2 rows) WM2*(w % RG) .. + WM2 - 1 and n-tiles NN * (w / RG) ..
+// + NN - 1 of each SW-column slab (WM2 = 2 and SW = 32, at F = 512 WM2 = 4
+// and SW = 16: the accumulators and the slab's loaded entries stay at 32
+// registers each); K = the chunk's P pairs (zero rows for pairs without an
+// edge).  S and D must be complete.  TIER: the product's precision tier
+// (BF16: k-steps of 16 pairs, each fragment element its own load, a step
+// skipped when both its 8-pair bits are clear).
 template <int F, int TIER = TF32X3>
 __device__ __forceinline__ void dw2_tc(const float* S, const float* D, unsigned kmask,
                                        float* dw2) {
-  constexpr int WM2 = 2;                 // m-tiles a warp owns
+  constexpr int P = Layout<F>::P;
+  constexpr int WM2 = F > 256 ? 4 : 2;   // m-tiles a warp owns
   constexpr int RG = F / 16 / WM2;       // warp row groups
   constexpr int CG = (NT / 32) / RG;     // warp column groups
-  constexpr int SW = 32;                 // columns a slab
+  constexpr int SW = F > 256 ? 16 : 32;  // columns a slab
   constexpr int NN = SW / 8 / CG;        // n-tiles a warp owns in a slab
   static_assert(RG * CG == NT / 32 && NN >= 1 && F % SW == 0, "dW2 warp layout");
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -380,16 +401,19 @@ __device__ __forceinline__ void dw2_tc(const float* S, const float* D, unsigned 
 }
 
 // pre of the fill layout's pair p, feature t % F: fill_s's expression.
-__device__ __forceinline__ float pre_fill(const PairWeights& w, const Chunk& c, int p,
+template <int TI>
+__device__ __forceinline__ float pre_fill(const PairWeights& w, const Chunk<TI>& c, int p,
                                           float a_row, float a_col) {
   return fmaf(c.ll[p], w.delta, a_row + a_col + c.d2[p] * w.w_d2 + c.d20[p] * w.w_d20);
 }
 
-// S = silu(pre) of the chunk's pairs (0 without an edge), swizzled.
+// S = silu(pre) of the chunk's pairs (0 without an edge), swizzled.  F <= 256
+// (F = 512: fill_m1_half).
 template <int F>
-__device__ __forceinline__ void fill_m1(const PairWeights& w, const Chunk& c,
-                                        const float (&a_row)[TI],
+__device__ __forceinline__ void fill_m1(const PairWeights& w, const Chunk<Layout<F>::TI>& c,
+                                        const float (&a_row)[Layout<F>::TI],
                                         const float (&a_col)[Layout<F>::COLS], float* S) {
+  constexpr int TI = Layout<F>::TI;
   static_assert(NT % F == 0 && TJ % (NT / F) == 0, "column groups");
   const int k = threadIdx.x % F, q = threadIdx.x / F;
 #pragma unroll
@@ -403,12 +427,14 @@ __device__ __forceinline__ void fill_m1(const PairWeights& w, const Chunk& c,
 }
 
 // S = silu'(pre) (any finite value without an edge: dm1 is 0 there), and
-// db2 += the thread's sum of dz2 (D) over the chunk.
+// db2 += the thread's sum of dz2 (D) over the chunk.  F <= 256 (F = 512:
+// fill_dsilu_half).
 template <int F>
-__device__ __forceinline__ void fill_dsilu(const PairWeights& w, const Chunk& c,
-                                           const float (&a_row)[TI],
+__device__ __forceinline__ void fill_dsilu(const PairWeights& w, const Chunk<Layout<F>::TI>& c,
+                                           const float (&a_row)[Layout<F>::TI],
                                            const float (&a_col)[Layout<F>::COLS],
                                            const float* D, float* S, float& db2) {
+  constexpr int TI = Layout<F>::TI;
   const int k = threadIdx.x % F, q = threadIdx.x / F;
 #pragma unroll
   for (int u = 0; u < Layout<F>::COLS; ++u)
@@ -425,11 +451,11 @@ __device__ __forceinline__ void fill_dsilu(const PairWeights& w, const Chunk& c,
 // S = dpre = dm1 * S on the warp's C fragments (acc = dm1, S = silu'(pre)),
 // and part[0 / 1][slice][p] = the warp's share of dpre_p . w_d2 / . w_d20.
 template <int F>
-__device__ __forceinline__ void dpre_fragments(const float (&acc)[WM][Layout<F>::NTN][4],
-                                               float* S, const float* wd2s,
-                                               const float* wd20s,
-                                               float (&part)[2][SLICES][P]) {
+__device__ __forceinline__ void dpre_fragments(
+    const float (&acc)[WM][Layout<F>::NTN][4], float* S, const float* wd2s,
+    const float* wd20s, float (&part)[2][Layout<F>::SLICES][Layout<F>::P]) {
   using L = Layout<F>;
+  constexpr int ROW_GROUPS = row_groups<F>();
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int gid = lane >> 2, tig = lane & 3;
   const int rg = warp % ROW_GROUPS, slice = warp / ROW_GROUPS;
@@ -463,12 +489,14 @@ __device__ __forceinline__ void dpre_fragments(const float (&acc)[WM][Layout<F>:
 
 // The fill layout's sums of dpre (S): the row sums into arow, the weight
 // sums into fa, and the column sums added into the block's da_col slab (its
-// entries loaded first, so that the loads are in flight together).
+// entries loaded first, so that the loads are in flight together).  F <= 256
+// (F = 512: dpre_sums_half).
 template <int F>
-__device__ __forceinline__ void dpre_sums(const float* S, const Chunk& c, const int* cols,
-                                          int count, int c0, float (&arow)[TI],
-                                          FeatAcc& fa, float* acol_part) {
-  constexpr int COLS = Layout<F>::COLS;
+__device__ __forceinline__ void dpre_sums(const float* S, const Chunk<Layout<F>::TI>& c,
+                                          const int* cols, int count, int c0,
+                                          float (&arow)[Layout<F>::TI], FeatAcc& fa,
+                                          float* acol_part) {
+  constexpr int COLS = Layout<F>::COLS, TI = Layout<F>::TI;
   const int k = threadIdx.x % F, q = threadIdx.x / F;
   float cs[COLS];
 #pragma unroll
@@ -497,12 +525,95 @@ __device__ __forceinline__ void dpre_sums(const float* S, const Chunk& c, const 
   }
 }
 
+// fill_m1, fill_dsilu and dpre_sums at F = 512 for one half of the fill
+// layout (egnn_mma.cuh's UpperHalf): feature k of every pair of the chunk.
+template <int F>
+__device__ __forceinline__ void fill_m1_half(const PairWeights& w,
+                                             const Chunk<Layout<F>::TI>& c,
+                                             const float (&a_row)[Layout<F>::TI],
+                                             const float (&a_col)[Layout<F>::COLS], int k,
+                                             float* S) {
+  static_assert(Layout<F>::NQ == 1 && Layout<F>::COLS == TJ, "one column group");
+#pragma unroll
+  for (int u = 0; u < TJ; ++u)
+#pragma unroll
+    for (int r = 0; r < Layout<F>::TI; ++r) {
+      const int p = r * TJ + u;
+      const float v = silu_fast(pre_fill(w, c, p, a_row[r], a_col[u]));
+      S[at<F>(p, k)] = c.j[p] >= 0 ? v : 0.0f;
+    }
+}
+
+template <int F>
+__device__ __forceinline__ void fill_dsilu_half(const PairWeights& w,
+                                                const Chunk<Layout<F>::TI>& c,
+                                                const float (&a_row)[Layout<F>::TI],
+                                                const float (&a_col)[Layout<F>::COLS],
+                                                int k, const float* D, float* S,
+                                                float& db2) {
+#pragma unroll
+  for (int u = 0; u < TJ; ++u)
+#pragma unroll
+    for (int r = 0; r < Layout<F>::TI; ++r) {
+      const int p = r * TJ + u;
+      const float pre = pre_fill(w, c, p, a_row[r], a_col[u]);
+      const float s = sigmoid_fast(pre);
+      S[at<F>(p, k)] = s * fmaf(pre, 1.0f - s, 1.0f);
+      db2 += D[at<F>(p, k)];
+    }
+}
+
+template <int F>
+__device__ __forceinline__ void dpre_sums_half(const float* S, const Chunk<Layout<F>::TI>& c,
+                                               const int* cols, int count, int c0, int k,
+                                               float (&arow)[Layout<F>::TI], FeatAcc& fa,
+                                               float* acol_part) {
+  float cs[TJ];
+#pragma unroll
+  for (int u = 0; u < TJ; ++u)
+    cs[u] = c0 + u < count ? acol_part[(size_t)cols[c0 + u] * F + k] : 0.0f;
+#pragma unroll
+  for (int u = 0; u < TJ; ++u)
+#pragma unroll
+    for (int r = 0; r < Layout<F>::TI; ++r) {
+      const int p = r * TJ + u;
+      const float v = S[at<F>(p, k)];
+      cs[u] += v;
+      arow[r] += v;
+      fa.w_d2 = fmaf(v, c.d2[p], fa.w_d2);
+      fa.w_d20 = fmaf(v, c.d20[p], fa.w_d20);
+      fa.delta = fmaf(v, c.ll[p], fa.delta);
+    }
+#pragma unroll
+  for (int u = 0; u < TJ; ++u)
+    if (c0 + u < count) acol_part[(size_t)cols[c0 + u] * F + k] = cs[u];
+}
+
 // A block's sums over its row tiles.
+template <int F>
 struct GclBwdState {
   FeatAcc fa;   // fill layout; head unused
-  float* hvs;   // shared [ROW_GROUPS][F], zero at the start: dw_att by warp row group
+  float* hvs;   // shared [row_groups<F>()][F], zero at the start: dw_att by warp row group
   float dbatt;
+  // F = 512: the sums of feature t + NT (fa holds feature t's)
+  std::conditional_t<(Layout<F>::FE > 1), FeatAcc, NoHalf> fa_hi;
 };
+
+// F = 512's da_row of the tile's rows: arow (feature k) and arow_hi (feature
+// k + NT) hold whole row sums, one column group filling every column.
+template <int F>
+__device__ __forceinline__ void store_rows_half(const float (&arow)[Layout<F>::TI],
+                                                const float (&arow_hi)[Layout<F>::TI], int k,
+                                                size_t node0, int i0, int N, int update_rows,
+                                                float* da_row) {
+#pragma unroll
+  for (int r = 0; r < Layout<F>::TI; ++r) {
+    const int i = i0 + r;
+    if (i >= N || i >= update_rows) continue;
+    da_row[(node0 + i) * F + k] = arow[r];
+    da_row[(node0 + i) * F + k + NT] = arow_hi[r];
+  }
+}
 
 // One row tile of the GCL backward: rows i0 .. i0+TI-1 of the batch item at
 // node0, slab `slab` of the per-block scratch.  S, D: swizzled P x F tiles;
@@ -511,11 +622,12 @@ struct GclBwdState {
 template <int F, int TIER = TF32X3>
 __device__ void gcl_bwd_tile_tc(const GclBwdArgs& g, size_t node0, size_t slab, int i0,
                                 float* S, float* D, int* cols, W2BwdRing<F>& ring,
-                                GclBwdState& st) {
+                                GclBwdState<F>& st) {
   using L = Layout<F>;
-  __shared__ Rows rows;
-  __shared__ __align__(16) Chunk chunk;  // 16 B: the fill passes' loads vectorise
-  __shared__ PairD2 dd;
+  constexpr int TI = L::TI, P = L::P, ROW_GROUPS = row_groups<F>(), SLICES = L::SLICES;
+  __shared__ Rows<TI> rows;
+  __shared__ __align__(16) Chunk<TI> chunk;  // 16 B: the fill passes' loads vectorise
+  __shared__ PairD2<P> dd;
   __shared__ float rowc[P][6], colc[P][6];
   __shared__ float b2s[F], watt[F], wd2s[F], wd20s[F];
   __shared__ float xpart[2][SLICES][P];  // the slices' shares of two pair dots
@@ -546,6 +658,11 @@ __device__ void gcl_bwd_tile_tc(const GclBwdArgs& g, size_t node0, size_t slab, 
     a_row[r] = i0 + r < g.N ? g.mlp.a_row[(node0 + i0 + r) * F + k] : 0.0f;
     arow[r] = 0.0f;
   }
+  [[maybe_unused]] UpperHalf<F> up;  // F = 512: feature k + NT
+  if constexpr (L::FE > 1) {
+    load_half_rows<F>(g.mlp, node0, i0, g.N, k + NT, up);
+    for (int r = 0; r < TI; ++r) up.arow[r] = 0.0f;
+  }
   // g of the tile's rows, loaded once a tile (in shared memory: held in
   // registers, its 32 a thread at F = 256 spill)
   for (int e = t; e < TI * F; e += NT) {
@@ -557,7 +674,12 @@ __device__ void gcl_bwd_tile_tc(const GclBwdArgs& g, size_t node0, size_t slab, 
   const int count = compact_columns(rows, g.x0, g.col_mask, g.is_lig, node0, g.N,
                                     g.cut, cols);
   float a_col[L::COLS];
-  load_a_col<F>(g.mlp, cols, count, 0, node0, a_col);
+  if constexpr (L::FE == 1) {
+    load_a_col<F>(g.mlp, cols, count, 0, node0, a_col);
+  } else {
+    load_a_col_half<F>(g.mlp, cols, count, 0, node0, k, a_col);
+    load_a_col_half<F>(g.mlp, cols, count, 0, node0, k + NT, up.a_col);
+  }
   const int ce = (2 * tig) ^ swz(gid);  // C-fragment columns in rows gid, gid + 8
 
   for (int c0 = 0; c0 < count; c0 += TJ) {
@@ -565,15 +687,23 @@ __device__ void gcl_bwd_tile_tc(const GclBwdArgs& g, size_t node0, size_t slab, 
                c0, g.cut);
     __syncthreads();
     // the chunk's k-steps of 8 pairs that hold an edge
-    static_assert(P == 64, "two ballots cover the chunk");
-    const unsigned e0 = __ballot_sync(0xffffffffu, chunk.j[lane] >= 0),
-                   e1 = __ballot_sync(0xffffffffu, chunk.j[lane + 32] >= 0);
     unsigned kmask = 0;
+    if constexpr (P == 64) {
+      const unsigned e0 = __ballot_sync(0xffffffffu, chunk.j[lane] >= 0),
+                     e1 = __ballot_sync(0xffffffffu, chunk.j[lane + 32] >= 0);
 #pragma unroll
-    for (int s = 0; s < 4; ++s)
-      kmask |= (((e0 >> (8 * s)) & 0xffu) ? 1u : 0u) << s
-             | (((e1 >> (8 * s)) & 0xffu) ? 1u : 0u) << (s + 4);
-    fill_m1<F>(w, chunk, a_row, a_col, S);
+      for (int s = 0; s < 4; ++s)
+        kmask |= (((e0 >> (8 * s)) & 0xffu) ? 1u : 0u) << s
+               | (((e1 >> (8 * s)) & 0xffu) ? 1u : 0u) << (s + 4);
+    } else {
+      kmask = edge_ksteps32(chunk.j, lane);
+    }
+    if constexpr (L::FE == 1) {
+      fill_m1<F>(w, chunk, a_row, a_col, S);
+    } else {
+      fill_m1_half<F>(w, chunk, a_row, a_col, k, S);
+      fill_m1_half<F>(up.w, chunk, up.a_row, up.a_col, k + NT, S);
+    }
     float acc[WM][L::NTN][4];
     product_sw<F, TIER>(S, ring, acc);  // z2 - b2 = m1 @ W2
 
@@ -669,8 +799,15 @@ __device__ void gcl_bwd_tile_tc(const GclBwdArgs& g, size_t node0, size_t slab, 
     __syncthreads();  // D complete
     dw2_tc<F, TIER>(S, D, kmask, dw2);
     __syncthreads();  // S is no longer read
-    fill_dsilu<F>(w, chunk, a_row, a_col, D, S, st.fa.b2);
-    load_a_col<F>(g.mlp, cols, count, c0 + TJ, node0, a_col);  // the next chunk's
+    if constexpr (L::FE == 1) {
+      fill_dsilu<F>(w, chunk, a_row, a_col, D, S, st.fa.b2);
+      load_a_col<F>(g.mlp, cols, count, c0 + TJ, node0, a_col);  // the next chunk's
+    } else {
+      fill_dsilu_half<F>(w, chunk, a_row, a_col, k, D, S, st.fa.b2);
+      fill_dsilu_half<F>(up.w, chunk, up.a_row, up.a_col, k + NT, D, S, st.fa_hi.b2);
+      load_a_col_half<F>(g.mlp, cols, count, c0 + TJ, node0, k, a_col);
+      load_a_col_half<F>(g.mlp, cols, count, c0 + TJ, node0, k + NT, up.a_col);
+    }
     product_sw<F, TIER>(D, ring, acc);  // dm1 = dz2 @ W2^T
     dpre_fragments<F>(acc, S, wd2s, wd20s, xpart);
     __syncthreads();  // dpre and the pair dots complete
@@ -684,7 +821,12 @@ __device__ void gcl_bwd_tile_tc(const GclBwdArgs& g, size_t node0, size_t slab, 
       dd.dd2[t] = a;
       dd.dd20[t] = b;
     }
-    dpre_sums<F>(S, chunk, cols, count, c0, arow, st.fa, acol_part);
+    if constexpr (L::FE == 1) {
+      dpre_sums<F>(S, chunk, cols, count, c0, arow, st.fa, acol_part);
+    } else {
+      dpre_sums_half<F>(S, chunk, cols, count, c0, k, arow, st.fa, acol_part);
+      dpre_sums_half<F>(S, chunk, cols, count, c0, k + NT, up.arow, st.fa_hi, acol_part);
+    }
     __syncthreads();  // dd complete
 
     // ---- squared-distance cotangents -> coordinates
@@ -703,10 +845,14 @@ __device__ void gcl_bwd_tile_tc(const GclBwdArgs& g, size_t node0, size_t slab, 
       }
     }
     __syncthreads();
-    scatter_dx(rowc, colc, cols, count, c0, i0, g.N, dx_part);  // ends with a sync
+    scatter_dx<TI>(rowc, colc, cols, count, c0, i0, g.N, dx_part);  // ends with a sync
   }
 
   // ---- da_row of the tile's rows: the column groups' row sums, in order
+  if constexpr (L::FE > 1) {  // F = 512: one column group, the sums complete
+    store_rows_half<F>(arow, up.arow, k, node0, i0, g.N, g.update_rows, g.da_row);
+    return;
+  }
   float* red = S;  // free: the last chunk ended with a sync
 #pragma unroll
   for (int r = 0; r < TI; ++r) red[(q * TI + r) * F + k] = arow[r];
@@ -722,13 +868,43 @@ __device__ void gcl_bwd_tile_tc(const GclBwdArgs& g, size_t node0, size_t slab, 
   }
 }
 
+// store_gcl_bwd_state at F = 512: one column group, so every thread's sums
+// (features t and t + NT) are whole; only db_att is summed over the block.
+template <int F>
+__device__ void store_gcl_bwd_state_half(const GclBwdState<F>& st, float* w_part, float* S) {
+  static_assert(row_groups<F>() == 1, "one warp row group");
+  const int t = threadIdx.x;
+  float* bred = S;  // [NT]
+  __syncthreads();  // S is no longer read, hvs complete
+  bred[t] = st.dbatt;
+  __syncthreads();
+  float* v = w_part + (size_t)F * F;
+  const float lo[5] = {st.fa.w_d2, st.fa.w_d20, st.fa.delta, st.fa.b2, st.hvs[t]};
+  const float hi[5] = {st.fa_hi.w_d2, st.fa_hi.w_d20, st.fa_hi.delta, st.fa_hi.b2,
+                       st.hvs[t + NT]};
+#pragma unroll
+  for (int j = 0; j < 5; ++j) {
+    v[j * F + t] = lo[j];
+    v[j * F + t + NT] = hi[j];
+  }
+  if (t == 0) {
+    float s = 0.0f;
+    for (int e = 0; e < NT; ++e) s += bred[e];
+    v[5 * F] = s;
+  }
+}
+
 // Writes the block's vector cotangents into its weight slab (weight_slab:
 // [dW2][w_d2][w_d20][delta][b2][w_att][b_att]), each summed in a fixed
 // order.  S (P x F floats) is scratch.
 template <int F>
-__device__ void store_gcl_bwd_state(const GclBwdState& st, float* w_part, float* S) {
+__device__ void store_gcl_bwd_state(const GclBwdState<F>& st, float* w_part, float* S) {
+  if constexpr (Layout<F>::FE > 1) {
+    store_gcl_bwd_state_half<F>(st, w_part, S);
+    return;
+  }
   const int t = threadIdx.x, k = t % F, q = t / F;
-  static_assert(4 * NT + NT <= P * F, "scratch");
+  static_assert(4 * NT + NT <= Layout<F>::P * F, "scratch");
   float* fred = S;           // [4][NT / F][F]
   float* bred = S + 4 * NT;  // [NT]
   __syncthreads();  // S is no longer read, hvs complete
@@ -745,7 +921,7 @@ __device__ void store_gcl_bwd_state(const GclBwdState& st, float* w_part, float*
       v[j * F + t] = s;
     }
     float h = 0.0f;
-    for (int r = 0; r < ROW_GROUPS; ++r) h += st.hvs[r * F + t];
+    for (int r = 0; r < row_groups<F>(); ++r) h += st.hvs[r * F + t];
     v[4 * F + t] = h;
   }
   if (t == 0) {

@@ -19,7 +19,8 @@
 // operations a pair at 495 TFLOP/s (mma.sync reaches about half of that rate;
 // wgmma the rest).  The bytes that compete with them are not HBM's but L2's
 // and shared memory's: every chunk of P = 64 pairs streams all of W2 (256 KB
-// at F = 256, 4 KB a pair) from L2, every warp loads its A and B fragments
+// at F = 256, 4 KB a pair; at F = 512 1 MB a chunk of 32 pairs, 32 KB a pair:
+// egnn_mma.cuh's Layout) from L2, every warp loads its A and B fragments
 // from shared memory, and the fill of S reads a 16 x F tile of a_col a chunk.
 //
 // Design, on the tiling of egnn_common.cuh:
@@ -52,13 +53,14 @@ using namespace egnn;
 // The row-tile body (gcl_tile_tc) is in egnn_mma.cuh.
 template <int F>
 __global__ void __launch_bounds__(NT) gcl_agg_kernel(GclArgs g) {
+  constexpr int TI = tile_rows<F>();
   extern __shared__ __align__(16) float smem[];
   const int i0 = blockIdx.x * TI;
   const size_t node0 = (size_t)blockIdx.y * g.N;
   const int left = g.N - i0;
   mma::gcl_tile_tc<F, F, mma::kTier>(g, node0, i0, smem, g.out + (node0 + i0) * F,
                                      left < TI ? left : TI);
-  zero_rows_past_grid(g.out, node0, g.N, F);
+  zero_rows_past_grid<TI>(g.out, node0, g.N, F);
 }
 
 template <int F>
@@ -67,7 +69,8 @@ int launch(const GclArgs& g, int B, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       gcl_agg_kernel<F>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  gcl_agg_kernel<F><<<row_tile_grid(g.N, g.update_rows, B), NT, smem, stream>>>(g);
+  gcl_agg_kernel<F><<<row_tile_grid(g.N, g.update_rows, B, tile_rows<F>()), NT, smem,
+                      stream>>>(g);
   return (int)cudaGetLastError();
 }
 
@@ -88,6 +91,7 @@ extern "C" int gcl_agg_forward(
     case 64: return launch<64>(g, B, s);
     case 128: return launch<128>(g, B, s);
     case 256: return launch<256>(g, B, s);
+    case 512: return launch<512>(g, B, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -49,6 +49,7 @@ template <int F>
 __global__ void __launch_bounds__(NT) gcl_agg_bwd_kernel(GclBwdArgs g) {
   using L = mma::Layout<F>;
   extern __shared__ __align__(16) float smem[];
+  constexpr int P = L::P;
   float* S = smem;         // P * F
   float* D = S + P * F;    // P * F
   mma::W2BwdRing<F> ring{g.mlp.w2, g.w2t, D + P * F, 0};
@@ -56,19 +57,23 @@ __global__ void __launch_bounds__(NT) gcl_agg_bwd_kernel(GclBwdArgs g) {
   const size_t node0 = (size_t)blockIdx.y * g.N;
   const size_t slab = (size_t)blockIdx.y * gridDim.x + blockIdx.x;
 
-  __shared__ float hvs[mma::ROW_GROUPS * F];
-  for (int e = threadIdx.x; e < mma::ROW_GROUPS * F; e += NT) hvs[e] = 0.0f;
-  mma::GclBwdState st{FeatAcc{0.0f, 0.0f, 0.0f, 0.0f, 0.0f}, hvs, 0.0f};
+  __shared__ float hvs[mma::row_groups<F>() * F];
+  for (int e = threadIdx.x; e < mma::row_groups<F>() * F; e += NT) hvs[e] = 0.0f;
+  mma::GclBwdState<F> st{FeatAcc{0.0f, 0.0f, 0.0f, 0.0f, 0.0f}, hvs, 0.0f};
   for (int s = 0; s < mma::NS - 1; ++s) ring.issue();
   for (int tile = blockIdx.x; tile < g.tiles; tile += gridDim.x)
-    mma::gcl_bwd_tile_tc<F, mma::kTier>(g, node0, slab, tile * TI, S, D, cols, ring, st);
+    mma::gcl_bwd_tile_tc<F, mma::kTier>(g, node0, slab, tile * L::TI, S, D, cols, ring, st);
   mma::cp_async_wait_all();  // the ring's look-ahead stage
   mma::store_gcl_bwd_state<F>(st, g.w_part + slab * weight_slab(F), S);
 }
 
 template <int F>
-int launch(const GclBwdArgs& g, int B, int Q, float* da_col, float* dxx0, float* w_out,
+int launch(GclBwdArgs g, int B, int Q, float* da_col, float* dxx0, float* w_out,
            cudaStream_t stream) {
+  constexpr int TI = tile_rows<F>();
+  const int rows = g.update_rows < g.N ? g.update_rows : g.N;
+  g.tiles = (rows + TI - 1) / TI;
+  if (Q < 1 || Q > (g.tiles > 0 ? g.tiles : 1)) return (int)cudaErrorInvalidValue;
   const size_t smem = mma::dynamic_smem_bwd_tc<F>(g.N);
   cudaError_t err = cudaFuncSetAttribute(
       gcl_agg_bwd_kernel<F>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -96,17 +101,16 @@ extern "C" int gcl_agg_backward(
     int B, int N, int F, int update_rows, int Q,
     float* da_row, float* acol_part, float* dx_part, float* w_part,
     float* da_col, float* dxx0, float* w_out, void* stream) {
-  const int rows = update_rows < N ? update_rows : N;
-  const int tiles = (rows + TI - 1) / TI;
-  if (Q < 1 || Q > (tiles > 0 ? tiles : 1)) return (int)cudaErrorInvalidValue;
+  // tiles: set by launch<F>, whose row tile TI depends on F
   GclBwdArgs g{PairMlp{a_row, a_col, w_d2, w_d20, delta, w2, b2, w_att}, b_att, w2t,
                g_out, x, x0, mask, col_mask, is_lig, Cutoffs{cut_ll, cut_pp, cut_lp},
-               1.0f / nf, N, update_rows, tiles, da_row, acol_part, dx_part, w_part};
+               1.0f / nf, N, update_rows, 0, da_row, acol_part, dx_part, w_part};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (F) {
     case 64: return launch<64>(g, B, Q, da_col, dxx0, w_out, s);
     case 128: return launch<128>(g, B, Q, da_col, dxx0, w_out, s);
     case 256: return launch<256>(g, B, Q, da_col, dxx0, w_out, s);
+    case 512: return launch<512>(g, B, Q, da_col, dxx0, w_out, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

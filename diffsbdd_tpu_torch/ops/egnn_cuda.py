@@ -62,14 +62,15 @@ emulate each tier (``matmul_3xtf32(passes=2)``, ``matmul_bf16``,
 whole-block kernel's node MLP and projections round their products alone,
 their elementwise work stays float32.
 
-Hidden widths.  The kernels are instantiated at F = 64, 128 and 256
-(``SUPPORTED_F``).  On CUDA the public wrappers run any other width up to 256
-at the next of those (``padded_width``: 32 at 64, 96 at 128, 192 at 256):
-every operand's width axes zero-padded (``pad_operands``), the outputs'
-cut back.  The padded channels stay exact zeros through every MLP, so the
-result is the unpadded one up to summation order, at every tier; gradients
-reach the true width through autograd of the padding.  Wider than 256
-raises before any launch.
+Hidden widths.  The kernels are instantiated at F = 64, 128, 256 and 512
+(``SUPPORTED_F``; at 512 on tiles of 2 rows, ``row_tile``).  On CUDA the
+public wrappers run any other width up to 512 at the next of those
+(``padded_width``: 32 at 64, 96 at 128, 192 at 256, 384 at 512): every
+operand's width axes zero-padded (``pad_operands``), the outputs' cut back.
+The padded channels stay exact zeros through every MLP, so the result is
+the unpadded one up to summation order, at every tier; gradients reach the
+true width through autograd of the padding.  Wider than 512 raises before
+any launch.
 
 The kernels are compiled with ``nvcc`` for ``sm_90a`` into plain-C shared
 libraries under ``csrc/build`` at first use (``build_kernels``) and loaded with
@@ -92,14 +93,23 @@ KERNELS = ("gcl_agg", "coord_agg", "gcl_agg_bwd", "coord_agg_bwd", "block_fused"
 HEADERS = (CSRC / "egnn_common.cuh", CSRC / "egnn_mma.cuh",
            CSRC / "egnn_coord.cuh", CSRC / "egnn_bwd.cuh",
            CSRC / "egnn_mma_bwd.cuh")  # shared device code
-ROW_TILE = 4  # rows per tile, TI in csrc/egnn_common.cuh
 # hidden widths the kernels are built for: the fixture checkpoint's, the
-# config default's and the flagship's.  The layouts need F to divide the
-# block's 256 threads and the dW2 warp layout F >= 64 (csrc/egnn_mma.cuh,
-# egnn_mma_bwd.cuh): 64, 128 and 256 are all the widths they admit up to
-# 256.  The wrappers run every other width up to 256 zero-padded to the next
-# of them (``padded_width``, ``pad_operands``).
-SUPPORTED_F = (64, 128, 256)
+# config default's, the flagship's and twice the flagship's.  The layouts need
+# F to divide the block's 256 threads or be a multiple of them, and the dW2
+# warp layout F >= 64 (csrc/egnn_mma.cuh, egnn_mma_bwd.cuh): 64, 128 and 256
+# are all the widths they admit up to 256; 512 takes a tiling of its own
+# (two rows a tile, ``row_tile``).  The wrappers run every other width up to
+# 512 zero-padded to the next of them (``padded_width``, ``pad_operands``).
+SUPPORTED_F = (64, 128, 256, 512)
+
+
+def row_tile(F: int) -> int:
+    """Rows per tile of the kernels at built width F: tile_rows<F>() in
+    csrc/egnn_common.cuh (4, and 2 at 512, where a tile of 4 rows does not
+    fit a block's shared memory)."""
+    return 2 if F > 256 else 4
+
+
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -673,13 +683,13 @@ def _rows(update_rows, N):
 
 def padded_width(F: int, name: str = "egnn kernels") -> int:
     """The width the kernels run hidden width ``F`` at: the least of
-    ``SUPPORTED_F`` that is >= F.  Wider than 256 raises: the layouts need a
-    kernel design of their own there (ROADMAP.md §2, widths above 256)."""
+    ``SUPPORTED_F`` that is >= F.  Wider than 512 raises: the layouts need a
+    kernel design of their own there (ROADMAP.md §2, widths above 512)."""
     for width in SUPPORTED_F:
         if width >= F:
             return width
     raise ValueError(f"{name}: feature width {F} above {SUPPORTED_F[-1]}, the widest "
-                     f"the kernels are built for (ROADMAP.md §2: widths above 256)")
+                     f"the kernels are built for (ROADMAP.md §2: widths above 512)")
 
 
 # the axes of an operand that run along the hidden width, by the operand's
@@ -745,10 +755,11 @@ def _check_mlp(name, prefix, mlp, B, N, F, device):
            {prefix + k: v for k, v in _mlp_shapes(B, N, F).items()}, device)
 
 
-def _blocks_per_batch(B: int, rows: int, device) -> int:
-    """Blocks a backward kernel runs per batch element: enough to fill the
-    card's SMs (one block fits an SM), at most one per row tile."""
-    tiles = max(1, -(-rows // ROW_TILE))
+def _blocks_per_batch(B: int, rows: int, device, F: int) -> int:
+    """Blocks a backward kernel at built width F runs per batch element:
+    enough to fill the card's SMs (one block fits an SM), at most one per row
+    tile."""
+    tiles = max(1, -(-rows // row_tile(F)))
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     return max(1, min(tiles, sms // B))
 
@@ -756,15 +767,15 @@ def _blocks_per_batch(B: int, rows: int, device) -> int:
 BLOCK_TILES_MAX = 16  # RB_TILES in csrc/block_fused.cu
 
 
-def _block_grid(B: int, N: int, device) -> int:
-    """Blocks of the whole-block kernel's phase A: one an SM (one fits an SM),
-    so that the B * ceil(N / 4) row tiles, dealt round-robin, spread as
-    thinly as one wave allows; more only where a block would own more than
-    ``BLOCK_TILES_MAX`` tiles, fewer where there are fewer tiles.  A block's
-    time is its tiles' GCL work plus its node products (one pass over the
-    weights, growing with its m-tiles of 16 rows), and under one wave the
-    longest block sets the time."""
-    tiles = B * -(-N // ROW_TILE)
+def _block_grid(B: int, N: int, device, F: int) -> int:
+    """Blocks of the whole-block kernel's phase A at built width F: one an SM
+    (one fits an SM), so that the B * ceil(N / row_tile(F)) row tiles, dealt
+    round-robin, spread as thinly as one wave allows; more only where a
+    block would own more than ``BLOCK_TILES_MAX`` tiles, fewer where there
+    are fewer tiles.  A block's time is its tiles' GCL work plus its node
+    products (one pass over the weights, growing with its m-tiles of 16
+    rows), and under one wave the longest block sets the time."""
+    tiles = B * -(-N // row_tile(F))
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     return max(min(sms, tiles), -(-tiles // BLOCK_TILES_MAX))
 
@@ -841,7 +852,7 @@ def gcl_agg_bwd(g, a_row, a_col, x, x0, mask, is_lig, w_d2, w_d20, delta, w2, b2
     if w2.data_ptr() % 16:
         raise ValueError("gcl_agg_bwd: w2 must be 16-byte aligned (cp.async)")
     rows = _rows(update_rows, N)
-    Q = _blocks_per_batch(B, min(rows, N), dev)
+    Q = _blocks_per_batch(B, min(rows, N), dev, F)
     slab = F * F + 6 * F
     zeros = lambda *shape: torch.zeros(shape, device=dev, dtype=torch.float32)
     empty = lambda *shape: torch.empty(shape, device=dev, dtype=torch.float32)
@@ -945,7 +956,7 @@ def coord_agg_bwd(g, a_row, a_col, x, x0, mask, is_lig, w_d2, w_d20, delta, w2, 
         if w is not None and w.data_ptr() % 16:
             raise ValueError(f"coord_agg_bwd: {key} must be 16-byte aligned (cp.async)")
     rows = _rows(update_rows, N)
-    Q = _blocks_per_batch(B, min(rows, N), dev)
+    Q = _blocks_per_batch(B, min(rows, N), dev, F)
     slab = F * F + 6 * F
     zeros = lambda *shape: torch.zeros(shape, device=dev, dtype=torch.float32)
     empty = lambda *shape: torch.empty(shape, device=dev, dtype=torch.float32)
@@ -1297,7 +1308,7 @@ def _block_forward_cuda(h, a_row, a_col, x, x0, mask, is_lig, gcl, node, coord,
             _ptr(None if cross is None else graph_mean), _ptr(scratch),
             int(bool(tanh)), float(coords_range), float(norm_constant), float(nf),
             _cut2(cutoffs[0]), _cut2(cutoffs[1]), _cut2(cutoffs[2]),
-            B, N, F, _rows(update_rows, N), _block_grid(B, N, dev), _ptr(out_h),
+            B, N, F, _rows(update_rows, N), _block_grid(B, N, dev, F), _ptr(out_h),
             _ptr(out_dx), tier=tier)
     return out_h, out_dx
 

@@ -189,22 +189,26 @@ def test_wrapper_counts_no_launch_on_cpu():
                                 "coord_agg_bwd": 0, "block_fused": 0}
 
 
-@pytest.mark.parametrize("width", [32, 64, 96, 128, 160, 192, 224, 256, 512])
+@pytest.mark.parametrize("width", [32, 64, 96, 128, 160, 192, 224, 256, 320, 384, 448,
+                                   512, 640, 1024])
 def test_kernel_widths(width):
-    """The kernels are built for hidden widths 64, 128 (the config default)
-    and 256; every other width up to 256 runs zero-padded to the next of
-    them, and a wider one is refused before a launch, never run by the plain
-    version on the card."""
-    assert ec.SUPPORTED_F == (64, 128, 256)
+    """The kernels are built for hidden widths 64, 128 (the config default),
+    256 and 512 (on tiles of two rows, ``ec.row_tile``); every other width up
+    to 512 runs zero-padded to the next of them, and a wider one is refused
+    before a launch, naming the ROADMAP item, never run by the plain version
+    on the card."""
+    assert ec.SUPPORTED_F == (64, 128, 256, 512)
+    assert [ec.row_tile(f) for f in ec.SUPPORTED_F] == [4, 4, 4, 2]
     for name in ec.KERNELS:
         text = (ec.CSRC / f"{name}.cu").read_text()
         assert all(f"case {f}: return launch<{f}>(" in text for f in ec.SUPPORTED_F), name
-    if width <= 256:
+    if width <= 512:
         want = min(f for f in ec.SUPPORTED_F if f >= width)
         assert ec.padded_width(width, "gcl_message_agg") == want
         w2 = torch.ones(width, width)
         padded = ec.pad_operands(dict(w2=w2), width, want)["w2"]
         assert padded.shape == (want, want) and padded.sum() == width * width
     else:
-        with pytest.raises(ValueError, match=f"feature width {width} above 256"):
+        with pytest.raises(ValueError,
+                           match=f"feature width {width} above 512.*widths above 512"):
             ec.padded_width(width, "gcl_message_agg")
