@@ -200,15 +200,27 @@ Phases (any failure ends the run with a non-zero exit code):
      a 5e-6 target; ms, bound, registers and spills), widths
      384 and 448 run padded at 3xTF32 and bf16 (one launch each), the
      flagship's shape at hidden 512 from seeded random weights sampled (16 x
-     24, T = 50: 406 / 306 launches), trained a step at batch 16 (6
+     24, T = 20: 166 / 126 launches), trained a step at batch 16 (6
      launches of each split kernel) and sampled as a joint model with block
-     fusing (8 x 24, T = 50: 306 launches), hidden 384 sampled, and width
-     640 refused before any launch.
+     fusing (8 x 24, T = 20: 126 launches), and hidden 384 sampled.  20i:
+     hidden widths 513-1024 on the F = 1024 instantiations (tiles of one
+     row), as 20h: the five kernels at F = 1024 and every tier at phases 3,
+     3b and 3c's main shapes (the forward plain versions in batch slices of
+     4), width 768 run padded, the flagship's shape at hidden 1024 sampled
+     (16 x 24, T = 20: 166 / 126 launches), trained a step at batch 16 (6
+     launches of each split kernel) and sampled as a joint model with block
+     fusing (8 x 24, T = 20: 126 launches), hidden 768 sampled, width 1088
+     refused before any launch; the dW2 step's share of gcl_agg_bwd at
+     F = 512 and 1024 (a build of it with -DEGNN_SKIP_DW2, timed through
+     the same wrapper); and how the 3xTF32 error grows with K: the five
+     kernels against their float64 plain versions at F = 256, 512 and
+     1024, and gcl_agg at 1024 from a build without the step sums
+     (-DEGNN_NO_STEP_SUMS).
 
 Prints a {"kernels": [...]} line (the five kernels, then the same five at
 F=128 from phase 19, then the five kernels at 2xTF32 and bf16 from phase
-20, then the five at F=512 from phase 20h) and the card line, and as its
-last line
+20, then the five at F=512 from phase 20h and at F=1024 from phase 20i)
+and the card line, and as its last line
 {"ok": true, "device": {...}}.  The pocket, the samples and a summary.json go
 to ``--out`` (default chip_smoke_out/ in the repository).  Needs a CUDA card:
 exits non-zero without one, and without the repository around it.
@@ -392,16 +404,18 @@ def sass_counts(ec, name, opcodes, function=None, tier="tf32x3"):
 
 
 # the SASS digests (``sass_functions``) of every function the five 3xTF32
-# libraries had before the F = 512 instantiations (the kernels at F = 64, 128
-# and 256 and the width-free summing kernels): recorded on the card from a
-# build whose SASS equals, instruction for instruction, that of the parent
-# commit's sources; and the nvcc that built them (the card machine's)
+# libraries had before the F = 1024 instantiations (the kernels at F = 64,
+# 128, 256 and 512 and the width-free summing kernels): recorded on the card
+# from a build of the sources as they stood before them (commit b7b3254);
+# and the nvcc that built them (the card machine's)
 PARENT_SASS_FUNCTIONS = {
     "gcl_agg": {
         "_ZN43_GLOBAL__N_14gcl_agg_kernelILi128EEEvN4egnn7GclArgsE":
             "730d534b55a3f772a8b79f2756f60d13dca8afab46533419648f59967a7608f6",
         "_ZN43_GLOBAL__N_14gcl_agg_kernelILi256EEEvN4egnn7GclArgsE":
             "c3a0194f773ad3b6bff8d37164125e0134ea4d1641bfe726e4268d45eee4bda4",
+        "_ZN43_GLOBAL__N_14gcl_agg_kernelILi512EEEvN4egnn7GclArgsE":
+            "a68fb2d6abf4bb91848c7eaef4110f67127155f91b6b0278473e2d10dca720c2",
         "_ZN43_GLOBAL__N_14gcl_agg_kernelILi64EEEvN4egnn7GclArgsE":
             "70d7888e930840cfda5361f4df9caaef1a91bfc470f45d178456b773ca6e30ac",
     },
@@ -414,6 +428,10 @@ PARENT_SASS_FUNCTIONS = {
             "c9facc3e8512d624da9c1ae27a0e3aed80dfd6bce72e80d61dbad7484db35628",
         "_ZN45_GLOBAL__N_16coord_agg_kernelILi256ELb1EEEvN4egnn9CoordArgsEPf":
             "e6e3ab6fc86b490f81fd1ab69a3eb1fb1cb1a18684214ed4cb061543f1b7b54d",
+        "_ZN45_GLOBAL__N_16coord_agg_kernelILi512ELb0EEEvN4egnn9CoordArgsEPf":
+            "cf1245fb4cdbc2674222242d57e94bda896b638ea5d7b47e7cd98f0a5fca79f0",
+        "_ZN45_GLOBAL__N_16coord_agg_kernelILi512ELb1EEEvN4egnn9CoordArgsEPf":
+            "4ba5b6750f6397e4b6ebc2ff88ee0a83bf9fee14c8f2860795dbef79036e833e",
         "_ZN45_GLOBAL__N_16coord_agg_kernelILi64ELb0EEEvN4egnn9CoordArgsEPf":
             "efa26ab59dcfd0a717735b6c278cd426e8362f0c0864510227ce197b8a9eab85",
         "_ZN45_GLOBAL__N_16coord_agg_kernelILi64ELb1EEEvN4egnn9CoordArgsEPf":
@@ -426,6 +444,8 @@ PARENT_SASS_FUNCTIONS = {
             "f9a2194647a8972ad2427c4ccf8a1ec4f6203e55f93e70e367855bce874f9c92",
         "_ZN47_GLOBAL__N_18gcl_agg_bwd_kernelILi256EEEvN4egnn10GclBwdArgsE":
             "0b16989468a9d9541d0ed60965fb1ed22bc7c8a821f65b7e0a6e7a0a7045c066",
+        "_ZN47_GLOBAL__N_18gcl_agg_bwd_kernelILi512EEEvN4egnn10GclBwdArgsE":
+            "96ba8f5dca35ef424d06534f5165e796ae3c769f89dbbffef8e94f79360a424e",
         "_ZN47_GLOBAL__N_18gcl_agg_bwd_kernelILi64EEEvN4egnn10GclBwdArgsE":
             "b14f432d39dd8818152f32969cf833c3845745f743095238ad5954cae35d6c84",
         "_ZN4egnn22reduce_partials_kernelEPKfPfim":
@@ -436,6 +456,8 @@ PARENT_SASS_FUNCTIONS = {
             "8dd38a40dc446c71001ffb83fe325f38d6a9f5ddcf6e9dd8ed9aaa3f6f0b0383",
         "_ZN49_GLOBAL__N_20coord_agg_bwd_kernelILi256EEEvNS_12CoordBwdArgsE":
             "345ca50863463b762d6eb481453803ebc73f62eabcdce891bc41f53290852375",
+        "_ZN49_GLOBAL__N_20coord_agg_bwd_kernelILi512EEEvNS_12CoordBwdArgsE":
+            "fc440d308499cb5320cfc34cabd7d0f579b11ebaea916d667dafe52944e742eb",
         "_ZN49_GLOBAL__N_20coord_agg_bwd_kernelILi64EEEvNS_12CoordBwdArgsE":
             "abb72bf6ebf6bcee3c10b1d8ae9ddd29b39c863b757827fd0f453b961aa1f31e",
         "_ZN4egnn22reduce_partials_kernelEPKfPfim":
@@ -446,6 +468,8 @@ PARENT_SASS_FUNCTIONS = {
             "073b3a56f5e7e5434ede0fbd4b56d0531a55034b43534a344c3056304bcc9972",
         "_ZN47_GLOBAL__N_13block_phase_aILi256EEEvNS_6PhaseAE":
             "c26aa44eda620c01d1da921951e7947704aa4a2124306662908c29e7eae8dcc3",
+        "_ZN47_GLOBAL__N_13block_phase_aILi512EEEvNS_6PhaseAE":
+            "075a07bd8966b4e628706ffa1d6906e0e5ef1d1ce442a4dea8e5976591895d80",
         "_ZN47_GLOBAL__N_13block_phase_aILi64EEEvNS_6PhaseAE":
             "05cfe8a7a9b6250ecb7f9a379a7333e2c3bd3f5c6a1ff74fe46c2c69e967ca9a",
         "_ZN47_GLOBAL__N_13block_phase_bILi128ELb0EEEvN4egnn9CoordArgsEPf":
@@ -456,6 +480,10 @@ PARENT_SASS_FUNCTIONS = {
             "c9facc3e8512d624da9c1ae27a0e3aed80dfd6bce72e80d61dbad7484db35628",
         "_ZN47_GLOBAL__N_13block_phase_bILi256ELb1EEEvN4egnn9CoordArgsEPf":
             "e6e3ab6fc86b490f81fd1ab69a3eb1fb1cb1a18684214ed4cb061543f1b7b54d",
+        "_ZN47_GLOBAL__N_13block_phase_bILi512ELb0EEEvN4egnn9CoordArgsEPf":
+            "cf1245fb4cdbc2674222242d57e94bda896b638ea5d7b47e7cd98f0a5fca79f0",
+        "_ZN47_GLOBAL__N_13block_phase_bILi512ELb1EEEvN4egnn9CoordArgsEPf":
+            "4ba5b6750f6397e4b6ebc2ff88ee0a83bf9fee14c8f2860795dbef79036e833e",
         "_ZN47_GLOBAL__N_13block_phase_bILi64ELb0EEEvN4egnn9CoordArgsEPf":
             "efa26ab59dcfd0a717735b6c278cd426e8362f0c0864510227ce197b8a9eab85",
         "_ZN47_GLOBAL__N_13block_phase_bILi64ELb1EEEvN4egnn9CoordArgsEPf":
@@ -2893,14 +2921,27 @@ def tier_kernel_phase(ec, torch, dev, flagship, width):
     node = ("a_row", "a_col", "x", "x0", "mask", "is_lig")
 
     def gcl_fwd(fn, tier, sl=slice(None)):
-        return fn(*(fwd[k] for k in node), *fwd["gcl_w"].values(), cutoffs=fwd["cut"],
+        return fn(*(fwd[k][sl] for k in node), *fwd["gcl_w"].values(), cutoffs=fwd["cut"],
                   attention=True, normalization_factor=100.0, precision=tier)
 
     def coord_fwd(fn, tier, sl=slice(None)):
-        return fn(*(fwd[k] for k in node), *fwd["coord_w"], cutoffs=fwd["cut"], tanh=True,
+        c = {k: (v[sl] if k in ("a_row", "a_col") else v) for k, v in fwd["cross"].items()}
+        return fn(*(fwd[k][sl] for k in node), *fwd["coord_w"], cutoffs=fwd["cut"], tanh=True,
                   coords_range=15.0, norm_constant=1.0, normalization_factor=100.0,
-                  update_rows=NL, cross=fwd["cross"], graph_mean=fwd["graph_mean"],
+                  update_rows=NL, cross=c, graph_mean=fwd["graph_mean"][sl],
                   precision=tier)
+
+    # the forward plain versions above F = 512 in batch slices of 4 graphs:
+    # at F = 1024 one (16, 344, 344, F) float32 tensor takes 7.8 GB; there
+    # the kernels (up to ~140 ms a launch) are timed over 5 launches, not 20
+    fwd_step = 4 if width > WIDE else None
+    reps = 5 if width > WIDE else 20
+
+    def fwd_plain(call, plain, tier):
+        if fwd_step is None:
+            return call(plain, tier)
+        return torch.cat([call(plain, tier, slice(b, b + fwd_step))
+                          for b in range(0, B, fwd_step)], 0)
 
     def gcl_bwd(fn, tier, sl=slice(None)):
         w = bwd["gcl_w"]
@@ -2941,7 +2982,7 @@ def tier_kernel_phase(ec, torch, dev, flagship, width):
             # 3xTF32 kernel's output (base: the first tier's, itself held to
             # float32's plain version)
             if step is None:
-                ref = call(plain, tier)
+                ref = fwd_plain(call, plain, tier)
                 limit = 1e-5 + 1e-4 * ref.abs() + gate["share"] * float(ref.abs().max())
                 torch.cuda.synchronize()
                 err = float((got - ref).abs().max())
@@ -2978,9 +3019,9 @@ def tier_kernel_phase(ec, torch, dev, flagship, width):
                 _check(moved_share <= gate["moved"],
                        f"{name}[{tier}] F={width}: error norm {moved_share:.3f} of the "
                        f"tier's move, gate {gate['moved']}")
-            ms = _cuda_ms(lambda: call(kern, tier), 20)
+            ms = _cuda_ms(lambda: call(kern, tier), reps)
             if step is None:
-                plain_ms = _cuda_ms(lambda: call(plain, tier), 2)
+                plain_ms = _cuda_ms(lambda: fwd_plain(call, plain, tier), 2 if reps > 5 else 1)
             else:
                 plain_ms = _cuda_ms(lambda: _plain_in_slices(
                     torch, lambda sl: call(plain, tier, sl), B, step), 1)
@@ -3326,6 +3367,7 @@ def tier_block_phase(ec, torch, dev, flagship, width, shapes):
     a share of the tier's move, when its inputs h, a_row, a_col move by 1e-6
     relative.  Returns {shape: {tier: entry}}."""
     cfg = dict(flagship, egnn_params=dict(flagship["egnn_params"], hidden_nf=width))
+    reps = 5 if width > WIDE else 20  # launches timed (~40 ms each at F = 1024)
     results = {}
     for label in shapes:
         B, seed, spread, rows = TIER_BLOCK_SHAPES[label]
@@ -3374,8 +3416,9 @@ def tier_block_phase(ec, torch, dev, flagship, width, shapes):
                        f"{what}: error norm {moved_share:.3f} of the tier's move, "
                        f"gate {gate['moved']}")
             base = got if base is None else base
-            ms = _cuda_ms(lambda: ec.block_fused(*ops, **kw, precision=tier), 20)
-            plain_ms = _cuda_ms(lambda: ec.block_fused_plain(*ops, **kw, precision=tier), 2)
+            ms = _cuda_ms(lambda: ec.block_fused(*ops, **kw, precision=tier), reps)
+            plain_ms = _cuda_ms(lambda: ec.block_fused_plain(*ops, **kw, precision=tier),
+                                2 if reps > 5 else 1)
             bound_ms, bound_by = tier_bound(flops, bytes_, tier)
             results.setdefault(label, {})[tier] = dict(
                 tier=tier, width=width, batch=B, max_abs_err=err, gate_share=share,
@@ -3692,7 +3735,7 @@ def padded_width_phase(torch, ec, dev, flagship, work, pdb, ref_lig, card):
     package root's ``load_model`` at its default device: the module on the
     card, the checkpoint's only name ``best`` loaded for ``last``.  (e) what
     still raises before any launch: an unknown precision name (as JAX's
-    ``_PRECISIONS[name]`` does); widths above 512 are phase 20h's."""
+    ``_PRECISIONS[name]`` does); widths above 1024 are phase 20i's."""
     import diffsbdd_tpu_torch
     from diffsbdd_tpu_torch.config import load_config
     res = {"card": card, "kernels": {}}
@@ -3757,12 +3800,23 @@ def padded_width_phase(torch, ec, dev, flagship, work, pdb, ref_lig, card):
     return res
 
 
-WIDE = 512  # the widest built width (ec.SUPPORTED_F), on tiles of two rows
+WIDE = 512  # built on tiles of two rows
 WIDE_PADDED = (384, 448)  # run on the F = 512 kernels (ec.padded_width)
-WIDE_CHAIN = dict(n=16, T=50)
+WIDE_CHAIN = dict(n=16, T=20)
 # the F = 512 kernels' 3xTF32 target: error within this share of the plain
 # version's largest entry (reported beside the binding gates, TIER_GATES)
 WIDE_3XTF32_SHARE = 5e-6
+WIDEST = 1024  # the widest built width (ec.SUPPORTED_F), on tiles of one row
+WIDEST_PADDED = (768,)  # run on the F = 1024 kernels
+WIDEST_CHAIN = dict(n=16, T=20)
+REFUSED_WIDTH = 1088  # wider than any kernel: refused before a launch
+# phase 20i's measurement builds, started after phase 2: (kernel, define,
+# library) -- the GCL backward without its dW2 step (its output's dW2 stays
+# zero), and the GCL forward at F = 1024 without the step sums
+MEASUREMENT_BUILDS = {"skip_dw2": ("gcl_agg_bwd", "-DEGNN_SKIP_DW2",
+                                   "libgcl_agg_bwd_skip_dw2.so"),
+                      "no_step_sums": ("gcl_agg", "-DEGNN_NO_STEP_SUMS",
+                                       "libgcl_agg_no_step_sums.so")}
 
 
 def _float64(tree):
@@ -3775,12 +3829,13 @@ def _float64(tree):
         else tree
 
 
-def float64_shares(ec, torch, dev, flagship, width):
-    """The five 3xTF32 kernels at ``width`` on 20a's inputs (phases 3, 3b and
-    3c's main shapes; the block at B = 8): each output's largest error over
-    its largest entry against the plain version in float64 (the exact
-    result), beside the float32 plain version's own: {kernel: (kernel's,
-    float32 plain version's)}, the largest over the outputs."""
+def float64_shares(ec, torch, dev, flagship, width, names=None):
+    """The five 3xTF32 kernels (or ``names`` of them) at ``width`` on 20a's
+    inputs (phases 3, 3b and 3c's main shapes; the block at B = 8): each
+    output's largest error over its largest entry against the plain version
+    in float64 (the exact result), beside the float32 plain version's own:
+    {kernel: (kernel's, float32 plain version's)}, the largest over the
+    outputs."""
     cfg = dict(flagship, egnn_params=dict(flagship["egnn_params"], hidden_nf=width))
     node = ("a_row", "a_col", "x", "x0", "mask", "is_lig")
     fwd = {k: v for k, v in kernel_inputs(torch, dev, cfg, 16, 24).items() if k != "r"}
@@ -3863,6 +3918,8 @@ def float64_shares(ec, torch, dev, flagship, width):
             sliced(lambda sl: block(ec.block_fused_plain, b64, sl), B, 1))}
     shares = {}
     for name, run in cases.items():
+        if names is not None and name not in names:
+            continue
         got, ref, exact = run()
         kernel = plain = 0.0
         for out, e in exact.items():
@@ -3876,86 +3933,89 @@ def float64_shares(ec, torch, dev, flagship, width):
     return shares
 
 
-def wide_width_phase(torch, ec, dev, flagship, logs, work, pdb, ref_lig, card):
-    """Phase 20h, hidden widths 257-512 on the F = 512 kernels.  (a) the
-    five kernels at F = 512 and every tier on phases 3, 3b and 3c's main
-    shapes (``tier_kernel_phase``, ``tier_block_phase`` at the joint chain's
-    B = 8) within the tier gates, the 3xTF32 error beside the
+def wide_width_phase(torch, ec, dev, flagship, logs, work, pdb, ref_lig, card,
+                     width=WIDE, padded=WIDE_PADDED, chain=WIDE_CHAIN, label="20h",
+                     refused=None):
+    """Phases 20h and 20i, the widths above 256 on the F = ``width``
+    kernels (512: tiles of two rows; 1024: of one).  (a) the five kernels
+    at F = ``width`` and every tier on phases 3, 3b and 3c's main shapes
+    (``tier_kernel_phase``, ``tier_block_phase`` at the joint chain's B =
+    8) within the tier gates, the 3xTF32 error beside the
     ``WIDE_3XTF32_SHARE`` target and, against the float64 plain version
     (``float64_shares``), beside the float32 plain version's own, and the
-    F = 512 instantiations' registers and spills.  (b)
-    ``padded_kernel_phase`` at 384 and 448: one launch of each wrapper's
-    library at 3xTF32 and bf16.  (c) the flagship's shape at hidden 512 from
-    seeded random weights: cli.generate_ligands (16 x 24 atoms on phase 5's
-    pocket, T = 50: 8T + 6 and 6T + 6 launches), one conditional train step
+    instantiations' registers and spills.  (b) ``padded_kernel_phase`` at
+    each of ``padded``: one launch of each wrapper's library at 3xTF32 and
+    bf16.  (c) the flagship's shape at hidden ``width`` from seeded random
+    weights: cli.generate_ligands (``chain``'s n x 24 atoms on phase 5's
+    pocket, its T: 8T + 6 and 6T + 6 launches), one conditional train step
     at batch 16 (6 launches of each split kernel, forward and backward; ms a
-    step), the joint model's chain with block fusing on (8 x 24, T = 50: 6T
-    + 6 whole-block launches), and the chain again at hidden 384.  (d) width
-    640 refused before any launch."""
+    step), the joint model's chain with block fusing on (8 x 24, the same T:
+    6T + 6 whole-block launches), and the chain again at hidden
+    ``padded[0]``.  (d) width ``refused`` refused before any launch."""
     from diffsbdd_tpu_torch.checkpoint import load_model
     from diffsbdd_tpu_torch.data.dataset import LigandPocketDataset, PaddedLoader
     from diffsbdd_tpu_torch.diffusion.ddpm import JointDDPM
     from diffsbdd_tpu_torch.train import loop
     t0 = time.perf_counter()
     res = {"card": card}
-    kernels = tier_kernel_phase(ec, torch, dev, flagship, WIDE)
-    blocks = tier_block_phase(ec, torch, dev, flagship, WIDE, ["joint_main_path"])
+    kernels = tier_kernel_phase(ec, torch, dev, flagship, width)
+    blocks = tier_block_phase(ec, torch, dev, flagship, width, ["joint_main_path"])
     kernels.update({f"block_fused[{tier}]": entry
                     for tier, entry in blocks["joint_main_path"].items()})
-    usage = ptxas_usage(logs, WIDE)
-    exact = float64_shares(ec, torch, dev, flagship, WIDE)
+    usage = ptxas_usage(logs, width)
+    exact = res["float64_shares"] = float64_shares(ec, torch, dev, flagship, width)
     for name in ec.KERNELS:
-        _check(name in usage, f"{name} has no instantiation at F = {WIDE}")
+        _check(name in usage, f"{name} has no instantiation at F = {width}")
         entry = kernels[f"{name}[tf32x3]"]
         entry["within_3xtf32_target"] = entry["gate_share"] <= WIDE_3XTF32_SHARE
         entry["f64_share"], entry["plain_f64_share"] = exact[name]
-        print(f"  {name}[tf32x3] F={WIDE}: error {entry['gate_share']:.2e} of the largest "
+        print(f"  {name}[tf32x3] F={width}: error {entry['gate_share']:.2e} of the largest "
               f"entry, the {WIDE_3XTF32_SHARE:g} target "
               + ("met" if entry["within_3xtf32_target"] else "missed")
               + f"; against float64 the kernel {entry['f64_share']:.2e}, the float32 plain "
               f"version {entry['plain_f64_share']:.2e}")
         for u in usage[name]:
-            print(f"  {name} F={WIDE} {u['function'][:60]}: {u['registers']} registers, "
+            print(f"  {name} F={width} {u['function'][:60]}: {u['registers']} registers, "
                   f"spill stores {u['spill_stores']} B, loads {u['spill_loads']} B")
         for tier in ec.TIERS:
             kernels[f"{name}[{tier}]"]["ptxas"] = usage[name]
     res["kernels"] = kernels
-    res["padded"] = {w: padded_kernel_phase(ec, torch, dev, flagship, w) for w in WIDE_PADDED}
+    res["padded"] = {w: padded_kernel_phase(ec, torch, dev, flagship, w) for w in padded}
 
     def model(width, **over):
         return dict(flagship, **over, egnn_params=dict(flagship["egnn_params"],
                                                        hidden_nf=width))
 
-    chain, want = WIDE_CHAIN, chain_launches(ec, 6, WIDE_CHAIN["T"])
+    want = chain_launches(ec, 6, chain["T"])
     res["chain"] = {}
-    for width in (WIDE, WIDE_PADDED[0]):
-        ckpt = _random_checkpoint(torch, model(width), None, work / f"wide{width}")[0]
-        sdf = work / f"wide{width}.sdf"
+    for hidden in (width, padded[0]):
+        ckpt = _random_checkpoint(torch, model(hidden), None, work / f"wide{hidden}")[0]
+        sdf = work / f"wide{hidden}.sdf"
         wall, sample_s, launches, by_tier, xh = _captured_generate(
             torch, ec, [ckpt, "--pdbfile", pdb, "--ref_ligand", ref_lig, "--outfile", sdf,
                         "--n_samples", chain["n"], "--num_nodes_lig", 24, "--all_frags",
                         "--timesteps", chain["T"]])
-        _check(launches == want, f"the hidden-{width} chain launched {launches}, not {want}")
-        _check(bool(torch.isfinite(xh).all()), f"the hidden-{width} chain's samples")
+        _check(launches == want, f"the hidden-{hidden} chain launched {launches}, not {want}")
+        _check(bool(torch.isfinite(xh).all()), f"the hidden-{hidden} chain's samples")
         mols = _sdf_molecules(sdf)
-        _check(0 < len(mols) <= chain["n"], f"the hidden-{width} chain wrote {len(mols)}")
-        res["chain"][width] = dict(chain, run_at=ec.padded_width(width), launches=launches,
-                                   ms_per_pass=1e3 * sample_s / (chain["T"] + 1),
-                                   sample_s=sample_s, wall_s=wall, molecules=len(mols))
-        print(f"  {card}: hidden {width} (kernels at {ec.padded_width(width)}), "
+        _check(0 < len(mols) <= chain["n"], f"the hidden-{hidden} chain wrote {len(mols)}")
+        res["chain"][hidden] = dict(chain, run_at=ec.padded_width(hidden), launches=launches,
+                                    ms_per_pass=1e3 * sample_s / (chain["T"] + 1),
+                                    sample_s=sample_s, wall_s=wall, molecules=len(mols))
+        print(f"  {card}: hidden {hidden} (kernels at {ec.padded_width(hidden)}), "
               f"{chain['n']} x 24 atoms, T={chain['T']}: "
-              f"{res['chain'][width]['ms_per_pass']:.2f} ms a pass, CLI wall {wall:.2f} s, "
+              f"{res['chain'][hidden]['ms_per_pass']:.2f} ms a pass, CLI wall {wall:.2f} s, "
               f"launches {launches}, {len(mols)} molecules")
 
-    data = work / "data20h"
+    data = work / f"data{label}"
     write_synthetic_dataset(data, 16, 1, seed=22, pocket_sizes=(250, 280, 310, 320),
                             n_types=11)
     batch = next(iter(PaddedLoader(LigandPocketDataset(data / "train.npz"), 16,
                                    shuffle=False)))
     lig = loop.batch_to_device(batch["ligand"], dev)
     pkt = loop.batch_to_device(batch["pocket"], dev)
-    ckpt = _random_checkpoint(torch, model(WIDE), np.load(data / "size_distribution.npy"),
-                              work / "wide_train")[0]
+    ckpt = _random_checkpoint(torch, model(width), np.load(data / "size_distribution.npy"),
+                              work / f"wide{width}_train")[0]
     module, _ = load_model(ckpt, device=dev)
     module.train()
     ec.reset_launch_counts()
@@ -3964,10 +4024,10 @@ def wide_width_phase(torch, ec, dev, flagship, logs, work, pdb, ref_lig, card):
     torch.cuda.synchronize()
     step_launches = dict(ec.launch_counts)
     _check(step_launches == {**dict.fromkeys(ec.KERNELS, 6), "block_fused": 0},
-           f"the hidden-{WIDE} train step launched {step_launches}")
+           f"the hidden-{width} train step launched {step_launches}")
     _check(bool(torch.isfinite(loss)) and all(bool(torch.isfinite(g).all())
                                               for g in grads if g is not None),
-           f"the hidden-{WIDE} train step: non-finite loss or gradients")
+           f"the hidden-{width} train step: non-finite loss or gradients")
     step = loop.make_train_step(loop.create_train_state(module, lr=1e-4))
     times = []
     for _ in range(4):
@@ -3978,57 +4038,149 @@ def wide_width_phase(torch, ec, dev, flagship, logs, work, pdb, ref_lig, card):
         times.append(1e3 * (time.perf_counter() - t1))
     res["train_step"] = dict(batch=16, launches=step_launches, loss=float(loss.detach()),
                              ms_per_step=float(np.median(times[1:])))
-    print(f"  {card}: hidden {WIDE} train step at batch 16: "
+    print(f"  {card}: hidden {width} train step at batch 16: "
           f"{res['train_step']['ms_per_step']:.2f} ms (median of 3), launches {step_launches}")
     del module, grads, step
 
     T = chain["T"]
-    ckpt = _random_checkpoint(torch, model(WIDE, mode="joint",
+    ckpt = _random_checkpoint(torch, model(width, mode="joint",
                                            tpu={"kernel_block_fuse": True}),
-                              None, work / "wide_joint")[0]
+                              None, work / f"wide{width}_joint")[0]
     passes = len(JointDDPM._repaint_plan(1, 1, T)[0]) + 1
-    sdf = work / "wide_joint.sdf"
+    sdf = work / f"wide{width}_joint.sdf"
     wall, sample_s, launches, by_tier, xh = _captured_generate(
         torch, ec, [ckpt, "--pdbfile", pdb, "--ref_ligand", ref_lig, "--outfile", sdf,
                     "--n_samples", JOINT_SAMPLES, "--num_nodes_lig", 24, "--all_frags",
                     "--timesteps", T, "--resamplings", 1, "--jump_length", 1], joint=True)
     want = {**dict.fromkeys(ec.KERNELS, 0), "block_fused": 6 * passes}
-    _check(launches == want, f"the hidden-{WIDE} joint chain launched {launches}, not {want}")
-    _check(bool(torch.isfinite(xh).all()), f"the hidden-{WIDE} joint chain's samples")
+    _check(launches == want, f"the hidden-{width} joint chain launched {launches}, not {want}")
+    _check(bool(torch.isfinite(xh).all()), f"the hidden-{width} joint chain's samples")
     res["joint"] = dict(n=JOINT_SAMPLES, T=T, launches=launches, sample_s=sample_s,
                         wall_s=wall, ms_per_pass=1e3 * sample_s / passes)
-    print(f"  {card}: hidden {WIDE} joint chain, {JOINT_SAMPLES} x 24 atoms, T={T}, block "
+    print(f"  {card}: hidden {width} joint chain, {JOINT_SAMPLES} x 24 atoms, T={T}, block "
           f"fusing on: {res['joint']['ms_per_pass']:.2f} ms a pass, launches {launches}")
 
-    ec.reset_launch_counts()
-    inp = kernel_inputs(torch, dev, model(640), 2, 24)
-    for name, call in (("gcl_agg", lambda: ec.gcl_message_agg(
-            *(inp[k] for k in ("a_row", "a_col", "x", "x0", "mask", "is_lig")),
-            *inp["gcl_w"].values(), cutoffs=inp["cut"], attention=True,
-            normalization_factor=100.0)),
-            ("block_fused", lambda: ec.block_fused(
-                *block_operands(inp), cutoffs=inp["cut"], attention=True, tanh=True,
-                coords_range=15.0, norm_constant=1.0, normalization_factor=100.0))):
-        try:
-            call()
-            msg = ""
-        except ValueError as err:
-            msg = str(err)
-        _check("above 512" in msg and "ROADMAP" in msg,
-               f"width 640 {name} did not raise naming the ROADMAP item: {msg!r}")
-        res[f"width_640_{name}"] = msg
-        print(f"  width 640 {name}: raises '{msg[:100]}'")
-    _check(not any(ec.launch_counts.values()), "a refused call launched a kernel")
-    del inp
+    if refused is not None:
+        ec.reset_launch_counts()
+        inp = kernel_inputs(torch, dev, model(refused), 2, 24)
+        for name, call in (("gcl_agg", lambda: ec.gcl_message_agg(
+                *(inp[k] for k in ("a_row", "a_col", "x", "x0", "mask", "is_lig")),
+                *inp["gcl_w"].values(), cutoffs=inp["cut"], attention=True,
+                normalization_factor=100.0)),
+                ("block_fused", lambda: ec.block_fused(
+                    *block_operands(inp), cutoffs=inp["cut"], attention=True, tanh=True,
+                    coords_range=15.0, norm_constant=1.0, normalization_factor=100.0))):
+            try:
+                call()
+                msg = ""
+            except ValueError as err:
+                msg = str(err)
+            _check(f"above {WIDEST}" in msg and "ROADMAP" in msg,
+                   f"width {refused} {name} did not raise naming the ROADMAP item: {msg!r}")
+            res[f"width_{refused}_{name}"] = msg
+            print(f"  width {refused} {name}: raises '{msg[:100]}'")
+        _check(not any(ec.launch_counts.values()), "a refused call launched a kernel")
+        del inp
     res["phase_s"] = time.perf_counter() - t0
-    print(f"  phase 20h took {res['phase_s']:.1f} s")
+    print(f"  phase {label} took {res['phase_s']:.1f} s")
     return res
 
 
-def phase20(torch, ec, dev, flagship, logs, work, pdb, ref_lig, base, card, joint_ckpt):
+def start_measurement_builds(ec):
+    """Starts nvcc on each of ``MEASUREMENT_BUILDS`` (3xTF32).  Returns
+    {build: (the process, the kernel, the library's path)}."""
+    builds = {}
+    for key, (name, define, lib) in MEASUREMENT_BUILDS.items():
+        path = ec.BUILD_DIR / lib
+        builds[key] = (subprocess.Popen(
+            [ec._nvcc(), *ec.NVCC_FLAGS, define, "-o", str(path), str(ec.CSRC / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), name, path)
+    return builds
+
+
+def _measurement_library(ec, build):
+    """The library of one of ``start_measurement_builds``' builds, loaded
+    with its kernel's C signature: (kernel, the ``ec._libs`` key of its
+    3xTF32 library, the loaded variant)."""
+    import ctypes
+    proc, name, path = build
+    log, _ = proc.communicate()
+    _check(proc.returncode == 0, f"the measurement build of {path.name} failed:\n{log}")
+    variant = ctypes.CDLL(str(path))
+    fn_name, argtypes = ec._ARGTYPES[name]
+    fn = getattr(variant, fn_name)
+    fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    return name, (name, ec.DEFAULT_TIER), variant
+
+
+def _with_library(ec, key, variant, fn):
+    """fn() with the wrappers' 3xTF32 library ``key`` swapped for ``variant``."""
+    library = ec._lib(*key)
+    ec._libs[key] = variant
+    try:
+        return fn()
+    finally:
+        ec._libs[key] = library
+
+
+def dw2_share_phase(ec, torch, dev, flagship, build, widths):
+    """Phase 20i, the dW2 step's share of ``gcl_agg_bwd`` (3xTF32) at each of
+    ``widths`` on phase 3b's main shapes (B = 16, N = 32 + 320): the
+    kernel's CUDA-event time, and the timing build's (``build``, the
+    skip_dw2 of ``start_measurement_builds``) launched through the same
+    wrapper; the difference is the step's time."""
+    _, key, variant = _measurement_library(ec, build)
+    node = ("a_row", "a_col", "x", "x0", "mask", "is_lig")
+    res = {}
+    for width in widths:
+        cfg = dict(flagship, egnn_params=dict(flagship["egnn_params"], hidden_nf=width))
+        sizes = np.random.default_rng(0).integers(24, 33, 16)
+        bwd = kernel_inputs(torch, dev, cfg, 16, 32, lig_sizes=sizes, seed=1)
+        g, w = bwd["r"](16, bwd["N"], width), bwd["gcl_w"]
+
+        def call():
+            return ec.gcl_agg_bwd(g, *(bwd[k] for k in node), w["w_d2"], w["w_d20"],
+                                  bwd["gcl_delta"], w["w2"], w["b2"], w["w_att"], w["b_att"],
+                                  cutoffs=bwd["cut"], attention=True,
+                                  normalization_factor=100.0)
+
+        ms = _cuda_ms(call, 5)
+        skip_ms = _with_library(ec, key, variant, lambda: _cuda_ms(call, 5))
+        res[width] = dict(ms=ms, without_dw2_ms=skip_ms, dw2_ms=ms - skip_ms,
+                          dw2_share=(ms - skip_ms) / ms)
+        print(f"  gcl_agg_bwd[tf32x3] F={width}: {ms:.4f} ms, {skip_ms:.4f} ms without the "
+              f"dW2 step: the step {ms - skip_ms:.4f} ms, {100 * (ms - skip_ms) / ms:.1f}%")
+        del bwd, g
+    return res
+
+
+def error_growth_phase(ec, torch, dev, flagship, build, shares):
+    """Phase 20i, how the 3xTF32 error grows with K: the five kernels'
+    ``float64_shares`` at F = 256, beside ``shares`` ({width: float64_shares}
+    of 20h and 20i), and gcl_agg's at F = 1024 from the build without the
+    step sums (``build``, the no_step_sums of ``start_measurement_builds``):
+    mma.sync accumulates each k-step's three passes into the accumulators,
+    and that build shows what it does at K = 1024."""
+    name, key, variant = _measurement_library(ec, build)
+    shares = {**shares, 256: float64_shares(ec, torch, dev, flagship, 256)}
+    unsummed = _with_library(ec, key, variant, lambda: float64_shares(
+        ec, torch, dev, flagship, WIDEST, names=(name,)))[name]
+    for kernel in ec.KERNELS:
+        print(f"  {kernel}[tf32x3] against float64, the kernel's error over the largest "
+              f"entry (the float32 plain version's): "
+              + ", ".join(f"F={w} {shares[w][kernel][0]:.2e} ({shares[w][kernel][1]:.2e})"
+                          for w in sorted(shares))
+              + (f"; F={WIDEST} without the step sums {unsummed[0]:.2e}" if kernel == name
+                 else ""))
+    return {"shares": shares, f"{name}_{WIDEST}_without_step_sums": unsummed}
+
+
+def phase20(torch, ec, dev, flagship, logs, work, pdb, ref_lig, base, card, joint_ckpt,
+            builds):
     """Phase 20 in order; ``logs``: phase 2's compiler output; ``base``:
     phase 6's float32 run (its samples, ms_per_pass and molecules_per_s);
-    ``joint_ckpt``: phase 10's joint checkpoint."""
+    ``joint_ckpt``: phase 10's joint checkpoint; ``builds``:
+    ``start_measurement_builds``'."""
     t20 = time.perf_counter()
     res = {"kernels": {}, "block_shapes": {}}
     for width in TIER_WIDTHS:
@@ -4054,6 +4206,15 @@ def phase20(torch, ec, dev, flagship, logs, work, pdb, ref_lig, base, card, join
     res["impl"] = impl_phase(torch, ec, dev, flagship, work, pdb, ref_lig, card)
     print(f"[20h] hidden widths 257-512 on the F = {WIDE} kernels ({card})")
     res["wide"] = wide_width_phase(torch, ec, dev, flagship, logs, work, pdb, ref_lig, card)
+    print(f"[20i] hidden widths 513-1024 on the F = {WIDEST} kernels ({card})")
+    res["widest"] = wide_width_phase(torch, ec, dev, flagship, logs, work, pdb, ref_lig, card,
+                                     width=WIDEST, padded=WIDEST_PADDED, chain=WIDEST_CHAIN,
+                                     label="20i", refused=REFUSED_WIDTH)
+    res["widest"]["dw2"] = dw2_share_phase(ec, torch, dev, flagship, builds["skip_dw2"],
+                                           (WIDE, WIDEST))
+    res["widest"]["error_growth"] = error_growth_phase(
+        ec, torch, dev, flagship, builds["no_step_sums"],
+        {WIDE: res["wide"]["float64_shares"], WIDEST: res["widest"]["float64_shares"]})
     res["phase_s"] = time.perf_counter() - t20
     print(f"  phase 20 took {res['phase_s']:.1f} s")
     return res
@@ -4068,10 +4229,6 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    from diffsbdd_tpu_torch.cli import generate_ligands as cli
-    from diffsbdd_tpu_torch.checkpoint import import_jax_npz, load_model
-    from diffsbdd_tpu_torch.config import snapshot_config
-    from diffsbdd_tpu_torch.diffusion.ddpm import ConditionalDDPM
     from diffsbdd_tpu_torch.ops import egnn_cuda as ec
     from diffsbdd_tpu_torch.utils.device import resolve_device
 
@@ -4090,6 +4247,22 @@ def main(argv=None) -> int:
     logs = ec.build_kernels(force=True, tiers=tuple(ec.TIERS))
     build_s = time.perf_counter() - t0
     print(f"  built {', '.join(logs)} in {build_s:.1f} s")
+    builds = start_measurement_builds(ec)  # phase 20i's, built while phases 3-19 run
+    try:
+        return _phases(torch, ec, dev, out, card, logs, build_s, builds, t_start)
+    finally:
+        for proc, _, _ in builds.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def _phases(torch, ec, dev, out, card, logs, build_s, builds, t_start) -> int:
+    """Phases 2 (after the build) to 20, the summary and the last lines."""
+    from diffsbdd_tpu_torch.cli import generate_ligands as cli
+    from diffsbdd_tpu_torch.checkpoint import import_jax_npz, load_model
+    from diffsbdd_tpu_torch.config import snapshot_config
+    from diffsbdd_tpu_torch.diffusion.ddpm import ConditionalDDPM
     for name, log in logs.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
@@ -4105,8 +4278,8 @@ def main(argv=None) -> int:
         _check(sass["HMMA"] > 0 and sass["LDGSTS"] > 0,
                f"{what} has no tensor-core or cp.async instructions")
     # every recorded function of the five 3xTF32 libraries (the kernels at
-    # F = 64, 128 and 256) builds to the recorded SASS, instruction for
-    # instruction (same nvcc); the F = 512 functions are new
+    # F = 64, 128, 256 and 512) builds to the recorded SASS, instruction for
+    # instruction (same nvcc); the F = 1024 functions are new
     release = nvcc_release(ec)
     for name in ec.KERNELS:
         if release != PARENT_SASS["nvcc"]:
@@ -4121,25 +4294,32 @@ def main(argv=None) -> int:
               f"{len(got) - len(want)} new ({release})")
     # each tier's library runs its products as that tier's tensor-core
     # instructions only: TF32 HMMA for 3xTF32 and 2xTF32, bf16 HMMA for bf16
+    # (m16n8k16, and m16n8k8 at F = 1024's stages of 8 rows); every HMMA is
+    # one of those three kinds
+    hmma = ("HMMA.1688.F32.TF32", "HMMA.16816.F32.BF16", "HMMA.1688.F32.BF16")
     tier_sass = {}
     for name in ec.KERNELS:
         for tier in ec.TIERS:
             sass = tier_sass[f"{name}[{tier}]"] = sass_counts(
-                ec, name, ("HMMA.1688.F32.TF32", "HMMA.16816.F32.BF16", "LDGSTS"), tier=tier)
-            tf32, bf16 = sass["HMMA.1688.F32.TF32"], sass["HMMA.16816.F32.BF16"]
-            print(f"  {name}[{tier}] SASS: {tf32} TF32 HMMA, {bf16} bf16 HMMA, "
-                  f"{sass['LDGSTS']} LDGSTS")
-            _check(sass["LDGSTS"] > 0 and (bf16 > 0 and tf32 == 0 if tier == "bf16"
-                                           else tf32 > 0 and bf16 == 0),
+                ec, name, ("HMMA", *hmma, "LDGSTS"), tier=tier)
+            tf32, k16, k8 = (sass[op] for op in hmma)
+            print(f"  {name}[{tier}] SASS: {tf32} TF32 HMMA, {k16} + {k8} bf16 HMMA "
+                  f"(m16n8k16 + m16n8k8), {sass['LDGSTS']} LDGSTS")
+            _check(sass["HMMA"] == tf32 + k16 + k8,
+                   f"{name}[{tier}] runs HMMA of another kind than the tiers'")
+            _check(sass["LDGSTS"] > 0 and (k16 + k8 > 0 and tf32 == 0 if tier == "bf16"
+                                           else tf32 > 0 and k16 + k8 == 0),
                    f"{name}[{tier}] runs other tensor-core instructions than its tier's")
         # as many products as the tier's passes: 2xTF32 two of 3xTF32's three
         # m16n8k8 passes, exactly 2/3 of its HMMA; bf16 one m16n8k16 (twice
-        # the k) where 3xTF32 runs two k-steps of three, 1/6 of its HMMA in
-        # the forward kernels; in the backward kernels more than 1/6 and
-        # less than 1/3, as their dW2 loop (not unrolled) holds one k-step in
-        # either tier (measured 126 of 714 and 252 of 1428)
+        # the k) where 3xTF32 runs two k-steps of three, or one m16n8k8
+        # where it runs three: k16 + k8 / 2 is 1/6 of its HMMA in the forward
+        # kernels; in the backward kernels more than 1/6 and less than 1/3,
+        # as their dW2 loop (not unrolled) holds one k-step in either tier
+        # (measured 126 of 714 and 252 of 1428 before F = 1024)
         full = tier_sass[f"{name}[tf32x3]"]["HMMA.1688.F32.TF32"]
-        bf16 = tier_sass[f"{name}[bf16]"]["HMMA.16816.F32.BF16"]
+        k16, k8 = (tier_sass[f"{name}[bf16]"][op] for op in hmma[1:])
+        bf16 = k16 + k8 / 2
         _check(3 * tier_sass[f"{name}[tf32x2]"]["HMMA.1688.F32.TF32"] == 2 * full,
                f"{name}: the 2xTF32 HMMA count is not 2/3 of 3xTF32's {full}")
         _check(6 * bf16 == full if name in FORWARD_KERNELS else full < 6 * bf16 < 2 * full,
@@ -4274,7 +4454,7 @@ def main(argv=None) -> int:
         tiers = phase20(torch, ec, dev, flagship, logs, work, pdb, ref_lig,
                         dict(xh=timing["xh"], ms_per_pass=step_ms,
                              molecules_per_s=n_samples / wall), card,
-                        joint["training"]["ckpt"])
+                        joint["training"]["ckpt"], builds)
 
     by_path = {"sampling": sampling_launches, "training": training["launches"],
                "joint_training": joint["training"]["launches"],
@@ -4338,22 +4518,25 @@ def main(argv=None) -> int:
                  "replaces": sources[name][1], "launches": max(counts.values()),
                  "launches_by_path": counts, **tiers["kernels"][256][key],
                  "library_ms": None})
-    # the five kernels at F = 512 (3xTF32), their launches on phase 20h's
-    # hidden-512 paths (the reduced tiers' F = 512 figures are in summary.json)
-    wide = tiers["wide"]
-    by_wide_path = {"wide_sampling": wide["chain"][WIDE]["launches"],
-                    "wide_training_step": wide["train_step"]["launches"],
-                    "wide_joint_sampling": wide["joint"]["launches"],
-                    "wide_padded_384_sampling": wide["chain"][WIDE_PADDED[0]]["launches"]}
+    # the five kernels at F = 512 and 1024 (3xTF32), their launches on
+    # phases 20h's and 20i's paths at those widths (the reduced tiers'
+    # figures are in summary.json)
     wide_entries = []
-    for name in ec.KERNELS:
-        counts = {path: c[name] for path, c in by_wide_path.items()}
-        _check(max(counts.values()) > 0, f"no hidden-{WIDE} path launched {name}")
-        entry = {k: v for k, v in wide["kernels"][f"{name}[tf32x3]"].items() if k != "ptxas"}
-        wide_entries.append(
-            {"name": f"{name}[F={WIDE}]", "route": "cuda", "source": sources[name][0],
-             "replaces": sources[name][1], "launches": max(counts.values()),
-             "launches_by_path": counts, **entry, "library_ms": None})
+    for built, padded, res in ((WIDE, WIDE_PADDED[0], tiers["wide"]),
+                               (WIDEST, WIDEST_PADDED[0], tiers["widest"])):
+        by_wide_path = {"wide_sampling": res["chain"][built]["launches"],
+                        "wide_training_step": res["train_step"]["launches"],
+                        "wide_joint_sampling": res["joint"]["launches"],
+                        f"wide_padded_{padded}_sampling": res["chain"][padded]["launches"]}
+        for name in ec.KERNELS:
+            counts = {path: c[name] for path, c in by_wide_path.items()}
+            _check(max(counts.values()) > 0, f"no hidden-{built} path launched {name}")
+            entry = {k: v for k, v in res["kernels"][f"{name}[tf32x3]"].items()
+                     if k != "ptxas"}
+            wide_entries.append(
+                {"name": f"{name}[F={built}]", "route": "cuda", "source": sources[name][0],
+                 "replaces": sources[name][1], "launches": max(counts.values()),
+                 "launches_by_path": counts, **entry, "library_ms": None})
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": sources[name][0],
          "replaces": sources[name][1], "launches": launches[name],

@@ -46,7 +46,8 @@
 // what fills the SMs when only the ligand rows move.
 //
 // Phase A.  A 1-D grid of G blocks (one an SM, ~207 KB of shared memory
-// each) over the B*T row tiles of TI rows, taken in tile-major order (tile u
+// each; at F = 1024 S, the 8-row weight stages and AGG take 64 KB each) over
+// the B*T row tiles of TI rows, taken in tile-major order (tile u
 // of batch item b is tile u*B + b): block k owns tiles k, k + G, k + 2G, ...,
 // at most RB/TI = 16 of them.  Dealt so, a block's tiles lie far apart in
 // their graphs, and the costly ones (the ligand's rows, which see every
@@ -79,12 +80,14 @@ using namespace egnn;
 
 constexpr int RG = 1;  // row groups of the node products' warp layout
 template <int F> using NodeLayout = mma::Layout<F, RG>;
-// most rows a phase-A block owns: a chunk's P, 4 m-tiles of 16 (2 at F = 512),
-// in RB_TILES row tiles
+// most rows a phase-A block owns: a chunk's P, 4 m-tiles of 16 (2 at F = 512,
+// 1 at F = 1024), in RB_TILES row tiles
 template <int F> constexpr int block_rows = NodeLayout<F>::P;
 constexpr int RB_TILES = 16;
 static_assert(block_rows<256> / tile_rows<256>() == RB_TILES &&
-              block_rows<512> / tile_rows<512>() == RB_TILES, "row tiles a phase-A block owns");
+              block_rows<512> / tile_rows<512>() == RB_TILES &&
+              block_rows<1024> / tile_rows<1024>() == RB_TILES,
+              "row tiles a phase-A block owns");
 template <int F>
 using Acc = float[NodeLayout<F>::WM][NodeLayout<F>::NTN][4];
 
@@ -245,6 +248,16 @@ __global__ void __launch_bounds__(NT) block_phase_a(PhaseA g) {
                          - g.cross.tb[F + f] + g.cross.tb[f];
     }
   }
+  if constexpr (L::FE > 2) {  // F = 1024: features t + 2 NT, t + 3 NT too
+    for (int f = t + 2 * NT; blockIdx.x == 0 && f < F; f += NT) {
+      if (g.coord.tb)
+        g.coord.delta[f] = g.coord.tb[3 * F + f] - g.coord.tb[2 * F + f]
+                         - g.coord.tb[F + f] + g.coord.tb[f];
+      if (g.cross.k_i && g.cross.tb)
+        g.cross.delta[f] = g.cross.tb[3 * F + f] - g.cross.tb[2 * F + f]
+                         - g.cross.tb[F + f] + g.cross.tb[f];
+    }
+  }
 
   // ---- GCL: aggregates of the block's rows -> AGG
   for (int s = 0; s < slots; ++s) {
@@ -384,6 +397,7 @@ extern "C" int block_fused_forward(
     case 128: return launch<128>(a, b, blocks, partial, s);
     case 256: return launch<256>(a, b, blocks, partial, s);
     case 512: return launch<512>(a, b, blocks, partial, s);
+    case 1024: return launch<1024>(a, b, blocks, partial, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -28,8 +28,8 @@
 // them in 2xTF32, with -DEGNN_TIER=2 in one bf16 pass: egnn_mma.cuh's tiers); the f32 CUDA-core body before it ran at
 // 8% of its 67 TFLOP/s bound.  As in gcl_agg.cu, the bytes that compete are
 // L2's and shared memory's: every chunk of P = 64 pairs streams W2 (256 KB at
-// F = 256; 1 MB a chunk of 32 pairs at F = 512) from L2 an MLP, and the fill
-// of S reads a 16 x F tile of a_col.
+// F = 256; 1 MB a chunk of 32 pairs at F = 512, 4 MB a chunk of 16 at
+// F = 1024) from L2 an MLP, and the fill of S reads a 16 x F tile of a_col.
 //
 // Design (mma::coord_tile_tc, on the tiling of egnn_common.cuh):
 // * one block per (batch, tile of TI rows below update_rows, pair MLP): the
@@ -99,6 +99,7 @@ extern "C" int coord_agg_forward(
     case 128: return launch<128>(g, B, partial, s);
     case 256: return launch<256>(g, B, partial, s);
     case 512: return launch<512>(g, B, partial, s);
+    case 1024: return launch<1024>(g, B, partial, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -105,9 +105,8 @@ __device__ void coord_bwd_tile_tc(const CoordBwdArgs& g, size_t node0, size_t sl
                                   mma::GclBwdState<F>& st, CoordBwdShared<F>& sh,
                                   float& dmean) {
   using L = mma::Layout<F>;
-  using mma::WM;
   constexpr int TI = L::TI, P = L::P, ROW_GROUPS = mma::row_groups<F>(),
-                SLICES = L::SLICES;
+                SLICES = L::SLICES, WM = L::WM;
   const PairMlp& m = CROSS ? g.cross : g.coord;
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
   const int gid = lane >> 2, tig = lane & 3;
@@ -141,10 +140,14 @@ __device__ void coord_bwd_tile_tc(const CoordBwdArgs& g, size_t node0, size_t sl
     a_row[r] = i0 + r < g.N ? m.a_row[(node0 + i0 + r) * F + k] : 0.0f;
     arow[r] = 0.0f;
   }
-  [[maybe_unused]] mma::UpperHalf<F> up;  // F = 512: feature k + NT
-  if constexpr (L::FE > 1) {
+  [[maybe_unused]] mma::UpperHalf<F> up;  // F = 512: feature k + NT; 1024: three more
+  if constexpr (L::FE == 2) {
     mma::load_half_rows<F>(m, node0, i0, g.N, k + NT, up);
     for (int r = 0; r < TI; ++r) up.arow[r] = 0.0f;
+  } else if constexpr (L::FE > 2) {
+    mma::load_quarter_rows<F>(m, node0, i0, g.N, k, up);
+    for (int e = 0; e < L::FE - 1; ++e)
+      for (int r = 0; r < TI; ++r) up.h[e].arow[r] = 0.0f;
   }
   __syncthreads();
   const int count = compact_columns(rows, g.x0, g.col_mask, g.is_lig, node0, g.N, g.cut,
@@ -152,9 +155,12 @@ __device__ void coord_bwd_tile_tc(const CoordBwdArgs& g, size_t node0, size_t sl
   float a_col[L::COLS];
   if constexpr (L::FE == 1) {
     mma::load_a_col<F>(m, cols, count, 0, node0, a_col);
-  } else {
+  } else if constexpr (L::FE == 2) {
     mma::load_a_col_half<F>(m, cols, count, 0, node0, k, a_col);
     mma::load_a_col_half<F>(m, cols, count, 0, node0, k + NT, up.a_col);
+  } else {
+    mma::load_a_col_half<F>(m, cols, count, 0, node0, k, a_col);
+    mma::load_a_col_quarters<F>(m, cols, count, 0, node0, k, up);
   }
   const int ce = (2 * tig) ^ mma::swz(gid);  // C-fragment columns in rows gid, gid + 8
 
@@ -171,8 +177,10 @@ __device__ void coord_bwd_tile_tc(const CoordBwdArgs& g, size_t node0, size_t sl
       for (int s = 0; s < 4; ++s)
         kmask |= (((e0 >> (8 * s)) & 0xffu) ? 1u : 0u) << s
                | (((e1 >> (8 * s)) & 0xffu) ? 1u : 0u) << (s + 4);
-    } else {
+    } else if constexpr (P == 32) {
       kmask = mma::edge_ksteps32(chunk.j, lane);
+    } else {
+      kmask = mma::edge_ksteps16(chunk.j, lane);
     }
     // ---- pair geometry (read after product 1's first sync)
     if (t < P) {
@@ -198,9 +206,12 @@ __device__ void coord_bwd_tile_tc(const CoordBwdArgs& g, size_t node0, size_t sl
     }
     if constexpr (L::FE == 1) {
       mma::fill_m1<F>(w, chunk, a_row, a_col, S);
-    } else {
+    } else if constexpr (L::FE == 2) {
       mma::fill_m1_half<F>(w, chunk, a_row, a_col, k, S);
       mma::fill_m1_half<F>(up.w, chunk, up.a_row, up.a_col, k + NT, S);
+    } else {
+      mma::fill_m1_half<F>(w, chunk, a_row, a_col, k, S);
+      mma::fill_m1_quarters<F>(chunk, k, up, S);
     }
     float acc[WM][L::NTN][4];
     mma::product_sw<F, mma::kTier>(S, ring, acc);  // z2 - b2 = m1 @ W2
@@ -286,11 +297,16 @@ __device__ void coord_bwd_tile_tc(const CoordBwdArgs& g, size_t node0, size_t sl
     if constexpr (L::FE == 1) {
       mma::fill_dsilu<F>(w, chunk, a_row, a_col, D, S, st.fa.b2);
       mma::load_a_col<F>(m, cols, count, c0 + TJ, node0, a_col);
-    } else {
+    } else if constexpr (L::FE == 2) {
       mma::fill_dsilu_half<F>(w, chunk, a_row, a_col, k, D, S, st.fa.b2);
       mma::fill_dsilu_half<F>(up.w, chunk, up.a_row, up.a_col, k + NT, D, S, st.fa_hi.b2);
       mma::load_a_col_half<F>(m, cols, count, c0 + TJ, node0, k, a_col);
       mma::load_a_col_half<F>(m, cols, count, c0 + TJ, node0, k + NT, up.a_col);
+    } else {
+      mma::fill_dsilu_half<F>(w, chunk, a_row, a_col, k, D, S, st.fa.b2);
+      mma::fill_dsilu_quarters<F>(chunk, k, up, D, S, st.fa_hi);
+      mma::load_a_col_half<F>(m, cols, count, c0 + TJ, node0, k, a_col);
+      mma::load_a_col_quarters<F>(m, cols, count, c0 + TJ, node0, k, up);
     }
     mma::product_sw<F, mma::kTier>(D, ring, acc);  // dm1 = dz2 @ W2^T
     mma::dpre_fragments<F>(acc, S, sh.wd2s, sh.wd20s, sh.xpart);
@@ -307,9 +323,12 @@ __device__ void coord_bwd_tile_tc(const CoordBwdArgs& g, size_t node0, size_t sl
     }
     if constexpr (L::FE == 1) {
       mma::dpre_sums<F>(S, chunk, cols, count, c0, arow, st.fa, acol_part);
-    } else {
+    } else if constexpr (L::FE == 2) {
       mma::dpre_sums_half<F>(S, chunk, cols, count, c0, k, arow, st.fa, acol_part);
       mma::dpre_sums_half<F>(S, chunk, cols, count, c0, k + NT, up.arow, st.fa_hi, acol_part);
+    } else {
+      mma::dpre_sums_half<F>(S, chunk, cols, count, c0, k, arow, st.fa, acol_part);
+      mma::dpre_sums_quarters<F>(S, chunk, cols, count, c0, k, up, st.fa_hi, acol_part);
     }
     __syncthreads();  // dd complete
 
@@ -364,9 +383,13 @@ __device__ void coord_bwd_tile_tc(const CoordBwdArgs& g, size_t node0, size_t sl
   }
 
   // ---- da_row of the tile's rows: the column groups' row sums, in order
-  if constexpr (L::FE > 1) {  // F = 512: one column group, the sums complete
+  if constexpr (L::FE == 2) {  // F = 512: one column group, the sums complete
     mma::store_rows_half<F>(arow, up.arow, k, node0, i0, g.N, g.update_rows,
                             CROSS ? g.dc_row : g.da_row);
+    return;
+  } else if constexpr (L::FE > 2) {  // F = 1024 likewise
+    mma::store_rows_quarters<F>(arow, up, k, node0, i0, g.N, g.update_rows,
+                                CROSS ? g.dc_row : g.da_row);
     return;
   }
   float* red = S;  // free: the last chunk ended with a sync
@@ -492,6 +515,7 @@ extern "C" int coord_agg_backward(
     case 128: return launch<128>(g, B, Q, da_col, dc_col, dxx0, dmean, w_out, cw_out, s);
     case 256: return launch<256>(g, B, Q, da_col, dc_col, dxx0, dmean, w_out, cw_out, s);
     case 512: return launch<512>(g, B, Q, da_col, dc_col, dxx0, dmean, w_out, cw_out, s);
+    case 1024: return launch<1024>(g, B, Q, da_col, dc_col, dxx0, dmean, w_out, cw_out, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

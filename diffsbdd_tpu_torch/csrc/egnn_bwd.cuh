@@ -28,6 +28,8 @@ __host__ __device__ constexpr size_t weight_slab(int F) { return (size_t)F * F +
 // (egnn_mma_bwd.cuh's fill layout), summed over every chunk the block visits;
 // head is unused (the head's cotangent is summed in shared memory).
 struct FeatAcc { float w_d2, w_d20, delta, b2, head; };
+template <int E>
+struct FeatAccs { FeatAcc a[E]; };  // F = 1024's upper features' sums
 
 // Per-pair cotangents of the two squared distances from one MLP's chunk of P
 // pairs.

@@ -3,9 +3,9 @@
 // through egnn_bwd.cuh; for sm_90a.
 //
 // All kernels tile the same way: a block works on one tile of TI rows (below
-// update_rows) of one batch item at a time, TI = 4, or 2 at F = 512
-// (tile_rows), where a chunk of 64 pairs and its stages would not fit a
-// block's shared memory.  It first compacts the columns adjacent to any of
+// update_rows) of one batch item at a time, TI = 4, 2 at F = 512 and 1 at
+// F = 1024 (tile_rows), where a chunk of 64 (32) pairs and its stages would
+// not fit a block's shared memory.  It first compacts the columns adjacent to any of
 // its rows (cutoffs on the EGNN input coordinates x0, ascending j), then
 // walks them in chunks of TJ columns = P = TI * TJ pairs.  For each chunk it
 // computes the pair geometry and the first two layers of a pair MLP:
@@ -27,7 +27,7 @@ constexpr int NT = 256;             // threads per block (8 warps)
 
 // Rows per tile at hidden width F; a chunk has TI * TJ pairs.
 template <int F>
-__host__ __device__ constexpr int tile_rows() { return F > 256 ? 2 : 4; }
+__host__ __device__ constexpr int tile_rows() { return F > 512 ? 1 : F > 256 ? 2 : 4; }
 
 struct Cutoffs { float ll, pp, lp; };  // squared distance cutoffs, < 0 for none
 

@@ -27,6 +27,20 @@
 // features, 8 n-tiles, the registers of F = 256's 2 x 64.  The fill layout
 // gives each thread F / 256 = 2 features (t and t + 256).
 //
+// F = 1024: S and D of one m-tile (16 pairs) take 64 KB each, so a tile
+// has TI = 1 row (P = 16 pairs, one m-tile), W2 stages take KC = 8 rows
+// (one TF32 k-step; the bf16 tier's k-steps of 8 run m16n8k8), every warp
+// owns the one m-tile and F/8 = 128 features (16 n-tiles: the registers of
+// F = 512's 2 x 8), and each thread fills four features (t + e * 256,
+// FillQuarters).  Its products also sum each k-step's passes into a zeroed
+// fragment and add that to the accumulators with f32 adds (Layout's
+// STEP_SUMS): mma.sync's accumulation truncates, so a product that adds all
+// 3 x K/8 passes into its accumulators drifts with K -- gcl_agg's error
+// against float64 is 1.2e-6 of the largest output at F = 256, 3.8e-6 at
+// 512 and 8.9e-6 at 1024 without the step sums, 1.2e-7 with them (the
+// float32 plain version's: 1.9e-7; H100, chip_smoke.py 20i).  F = 2048
+// would need 256 KB for one m-tile's S and D.
+//
 // W2 streams through a ring of NS shared-memory stages of KC rows filled with
 // cp.async (16 B, commit/wait groups): the copy of the next stage is in
 // flight while the tensor cores work on this one, one block sync a stage.
@@ -101,9 +115,12 @@ static_assert(kTier >= TF32X3 && kTier <= BF16, "EGNN_TIER: 0, 1 or 2");
 constexpr int NS = 2;   // stages in the ring
 constexpr int WM = 2;   // m-tiles (rows) a warp owns in the pair MLPs' layout
 
-// Row groups of the pair MLPs' warp layout at width F: 2, or 1 at F = 512.
+// Row groups of the pair MLPs' warp layout at width F: 2, or 1 at F = 512
+// (two m-tiles a warp) and at F = 1024 (one).
 template <int F>
-__host__ __device__ constexpr int row_groups() { return tile_rows<F>() * TJ / 16 / WM; }
+__host__ __device__ constexpr int row_groups() {
+  return F > 512 ? 1 : tile_rows<F>() * TJ / 16 / WM;
+}
 
 // The tiling at width F, in the warp layout of RG row groups (the pair MLPs'
 // row_groups<F>(), or 1 for block_fused.cu's node products: every warp all
@@ -113,7 +130,7 @@ template <int F, int RG = row_groups<F>()> struct Layout {
   static constexpr int P = TI * TJ;      // pairs per chunk
   static constexpr int M_TILES = P / 16;  // one m-tile a row (TJ = 16)
   static constexpr int SLICES = (NT / 32) / RG;  // feature slices
-  static constexpr int KC = F > 256 ? 16 : 32;  // W2 rows per stage (k-steps of 8)
+  static constexpr int KC = F > 512 ? 8 : F > 256 ? 16 : 32;  // W2 rows per stage
   static constexpr int SS = F + 4;       // S row stride (floats)
   static constexpr int WS = F + 8;       // stage row stride (floats)
   static constexpr int KS = F / KC;      // stages per chunk
@@ -127,6 +144,16 @@ template <int F, int RG = row_groups<F>()> struct Layout {
   static constexpr int NQ = F < NT ? NT / F : 1;
   static constexpr int COLS = TJ / NQ;
   static constexpr int STAGE = KC * WS;  // floats per stage
+  // F = 1024: each k-step's products summed apart, into a zeroed fragment,
+  // and added to the accumulators on the CUDA cores, NGS n-tiles at a time
+  // (the header; -DEGNN_NO_STEP_SUMS only in a measurement build,
+  // chip_smoke.py 20i)
+#ifndef EGNN_NO_STEP_SUMS
+  static constexpr bool STEP_SUMS = F > 512;
+#else
+  static constexpr bool STEP_SUMS = false;
+#endif
+  static constexpr int NGS = 4;
   static_assert(TJ == 16 && M_TILES % RG == 0 && (NT / 32) % RG == 0 &&
                 (F < NT ? NT % F : F % NT) == 0, "warps = row groups x feature slices");
 };
@@ -192,6 +219,16 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// m16n8k8 bf16: the first k-half of mma_bf16's fragments (a[0], a[1]; b0)
+__device__ __forceinline__ void mma_bf16_k8(float (&d)[4], uint32_t a0, uint32_t a1,
+                                            uint32_t b0) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(b0));
+}
+
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src)
@@ -249,7 +286,7 @@ struct W2Ring {
 // `rows` are computed; the others' accumulators are left as they are.  Ring:
 // W2Ring, or any ring with its acquire().  TIER: the product's precision tier
 // (the BF16 tier's k-steps of 16 take the A pairs as float2 loads of S, the B
-// pairs as two rows of the stage).
+// pairs as two rows of the stage; stages of 8 rows take k-steps of 8).
 template <int F, int RG = row_groups<F>(), bool ZERO = true, bool PARTIAL = false,
           int TIER = TF32X3, class Ring>
 __device__ __forceinline__ void product_tc(
@@ -272,7 +309,46 @@ __device__ __forceinline__ void product_tc(
         for (int e = 0; e < 4; ++e) acc[m][n][e] = 0.0f;
   }
 
-  if constexpr (TIER == BF16) {
+  if constexpr (TIER == BF16 && KC < 16) {
+    const float* a_base = S + (rg * WM * 16 + gid) * L::SS + 2 * tig;
+    for (int ks = 0; ks < L::KS; ++ks) {
+      const float* stage = ring.acquire();
+      const float* b = stage + 2 * tig * L::WS + slice * L::FW + gid;
+#pragma unroll
+      for (int kk = 0; kk < KC; kk += 8) {
+        uint32_t a[WM][2];
+#pragma unroll
+        for (int m = 0; m < WM; ++m) {
+          if (!live[m]) continue;
+          const float* p = a_base + m * 16 * L::SS + ks * KC + kk;
+          const float2 v0 = *reinterpret_cast<const float2*>(p);
+          const float2 v1 = *reinterpret_cast<const float2*>(p + 8 * L::SS);
+          a[m][0] = pack_bf16(v0.x, v0.y);
+          a[m][1] = pack_bf16(v1.x, v1.y);
+        }
+#pragma unroll
+        for (int n0 = 0; n0 < L::NTN; n0 += L::NG) {
+          uint32_t bb[L::NG];
+#pragma unroll
+          for (int n = 0; n < L::NG; ++n) {
+            const float* c = b + kk * L::WS + 8 * (n0 + n);
+            bb[n] = pack_bf16(c[0], c[L::WS]);
+          }
+#pragma unroll
+          for (int m = 0; m < WM; ++m)
+#pragma unroll
+            for (int n = 0; n < L::NG; ++n)
+              if (live[m]) {
+                float t[4] = {0.0f, 0.0f, 0.0f, 0.0f};  // the step's sum apart
+                mma_bf16_k8(t, a[m][0], a[m][1], bb[n]);
+#pragma unroll
+                for (int e = 0; e < 4; ++e) acc[m][n0 + n][e] += t[e];
+              }
+        }
+      }
+    }
+    return;
+  } else if constexpr (TIER == BF16) {
     const float* a_base = S + (rg * WM * 16 + gid) * L::SS + 2 * tig;
     for (int ks = 0; ks < L::KS; ++ks) {
       const float* stage = ring.acquire();
@@ -314,6 +390,62 @@ __device__ __forceinline__ void product_tc(
     return;
   }
   const float* a_base = S + (rg * WM * 16 + gid) * L::SS + tig;
+  if constexpr (L::STEP_SUMS) {
+    for (int ks = 0; ks < L::KS; ++ks) {
+      const float* stage = ring.acquire();
+      const float* b_base = stage + tig * L::WS + slice * L::FW + gid;
+#pragma unroll
+      for (int kk = 0; kk < KC; kk += 8) {
+        uint32_t a_hi[WM][4], a_lo[WM][4];
+#pragma unroll
+        for (int m = 0; m < WM; ++m) {
+          if (!live[m]) continue;
+          const float* a = a_base + m * 16 * L::SS + ks * KC + kk;
+          split(a[0], a_hi[m][0], a_lo[m][0]);
+          split(a[8 * L::SS], a_hi[m][1], a_lo[m][1]);
+          split(a[4], a_hi[m][2], a_lo[m][2]);
+          split(a[8 * L::SS + 4], a_hi[m][3], a_lo[m][3]);
+        }
+        const float* b = b_base + kk * L::WS;
+#pragma unroll
+        for (int n0 = 0; n0 < L::NTN; n0 += L::NGS) {
+          uint32_t b_hi[L::NGS][2], b_lo[L::NGS][2];
+          float t[WM][L::NGS][4];
+#pragma unroll
+          for (int n = 0; n < L::NGS; ++n) {
+            split(b[8 * (n0 + n)], b_hi[n][0], b_lo[n][0]);
+            split(b[4 * L::WS + 8 * (n0 + n)], b_hi[n][1], b_lo[n][1]);
+#pragma unroll
+            for (int m = 0; m < WM; ++m)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) t[m][n][e] = 0.0f;
+          }
+#pragma unroll
+          for (int m = 0; m < WM; ++m)
+#pragma unroll
+            for (int n = 0; n < L::NGS; ++n)
+              if (live[m]) mma_tf32(t[m][n], a_lo[m], b_hi[n][0], b_hi[n][1]);
+          if constexpr (TIER == TF32X3) {
+#pragma unroll
+            for (int m = 0; m < WM; ++m)
+#pragma unroll
+              for (int n = 0; n < L::NGS; ++n)
+                if (live[m]) mma_tf32(t[m][n], a_hi[m], b_lo[n][0], b_lo[n][1]);
+          }
+#pragma unroll
+          for (int m = 0; m < WM; ++m)
+#pragma unroll
+            for (int n = 0; n < L::NGS; ++n)
+              if (live[m]) {
+                mma_tf32(t[m][n], a_hi[m], b_hi[n][0], b_hi[n][1]);
+#pragma unroll
+                for (int e = 0; e < 4; ++e) acc[m][n0 + n][e] += t[m][n][e];
+              }
+        }
+      }
+    }
+    return;
+  }
   for (int ks = 0; ks < L::KS; ++ks) {
     const float* stage = ring.acquire();
     const float* b_base = stage + tig * L::WS + slice * L::FW + gid;
@@ -391,7 +523,7 @@ __device__ __forceinline__ float tier_silu(float x) {
 
 // Thread t fills feature t % F of the chunk's columns t / F + u * NT/F: loads
 // the a_col entries of the chunk at compacted column c0 (all issued before any
-// is used; 0 past the last column).  F <= 256; F = 512 takes load_a_col_half.
+// is used; 0 past the last column).  F <= 256; wider takes load_a_col_half.
 template <int F>
 __device__ __forceinline__ void load_a_col(const PairMlp& m, const int* cols, int count,
                                            int c0, size_t node0,
@@ -409,7 +541,7 @@ __device__ __forceinline__ void load_a_col(const PairMlp& m, const int* cols, in
 // serves the TI rows.  Branch-free (w.delta is 0 without a delta, and a pair
 // without an edge has finite operands), so that the pair loads batch.  The
 // BF16 tier computes pre and its silu at the JAX package's bf16 rounding
-// points (the header).  F <= 256; F = 512 takes fill_s_half.
+// points (the header).  F <= 256; wider takes fill_s_half.
 template <int F, int TIER = TF32X3>
 __device__ __forceinline__ void fill_s(const PairWeights& w, const Chunk<Layout<F>::TI>& c,
                                        const float (&a_row)[Layout<F>::TI],
@@ -448,8 +580,15 @@ struct FillHalf {
   float a_col[Layout<F>::COLS];
   float arow[Layout<F>::TI];  // the backward's row sums of dpre
 };
+// F = 1024's (FE = 4): features t + e * NT, e = 1 .. 3, in h[e - 1].
 template <int F>
-using UpperHalf = std::conditional_t<(Layout<F>::FE > 1), FillHalf<F>, NoHalf>;
+struct FillQuarters {
+  FillHalf<F> h[Layout<F>::FE - 1];
+};
+template <int F>
+using UpperHalf = std::conditional_t<
+    (Layout<F>::FE == 2), FillHalf<F>,
+    std::conditional_t<(Layout<F>::FE > 2), FillQuarters<F>, NoHalf>>;
 
 // The first-layer weights of feature k and a_row of the tile's rows (0 past
 // N): the tile bodies' prologue, for F = 512's upper half.
@@ -502,6 +641,33 @@ __device__ __forceinline__ void fill_s_half(const PairWeights& w,
   }
 }
 
+// load_half_rows, load_a_col_half and fill_s_half for F = 1024's upper
+// three features of thread feature k (q.h[e]: feature k + (e + 1) * NT).
+template <int F>
+__device__ __forceinline__ void load_quarter_rows(const PairMlp& m, size_t node0, int i0,
+                                                  int N, int k, FillQuarters<F>& q) {
+#pragma unroll
+  for (int e = 0; e < Layout<F>::FE - 1; ++e)
+    load_half_rows<F>(m, node0, i0, N, k + (e + 1) * NT, q.h[e]);
+}
+
+template <int F>
+__device__ __forceinline__ void load_a_col_quarters(const PairMlp& m, const int* cols,
+                                                    int count, int c0, size_t node0, int k,
+                                                    FillQuarters<F>& q) {
+#pragma unroll
+  for (int e = 0; e < Layout<F>::FE - 1; ++e)
+    load_a_col_half<F>(m, cols, count, c0, node0, k + (e + 1) * NT, q.h[e].a_col);
+}
+
+template <int F, int TIER = TF32X3>
+__device__ __forceinline__ void fill_s_quarters(const Chunk<Layout<F>::TI>& c, int k,
+                                                const FillQuarters<F>& q, float* S) {
+#pragma unroll
+  for (int e = 0; e < Layout<F>::FE - 1; ++e)
+    fill_s_half<F, TIER>(q.h[e].w, c, q.h[e].a_row, q.h[e].a_col, k + (e + 1) * NT, S);
+}
+
 // The GCL row-tile body on the tensor cores: the aggregated messages of rows
 // i0 .. i0+TI-1 of the batch item at node0 -> dst[r * DS + n] for r <
 // dst_rows (global or shared memory).  smem: dynamic_smem<F>(N) bytes.
@@ -511,6 +677,7 @@ __device__ void gcl_tile_tc(const GclArgs& g, size_t node0, int i0, float* smem,
                             float* dst, int dst_rows) {
   using L = Layout<F>;
   constexpr int TI = L::TI, P = L::P, ROW_GROUPS = row_groups<F>(), SLICES = L::SLICES;
+  constexpr int WM = L::WM;
   __shared__ Rows<TI> rows;
   __shared__ Chunk<TI> chunk;
   __shared__ float b2s[F], watt[F];
@@ -537,8 +704,9 @@ __device__ void gcl_tile_tc(const GclArgs& g, size_t node0, int i0, float* smem,
 #pragma unroll
   for (int r = 0; r < TI; ++r)
     a_row[r] = i0 + r < g.N ? g.mlp.a_row[(node0 + i0 + r) * F + kS] : 0.0f;
-  [[maybe_unused]] UpperHalf<F> up;  // F = 512: feature kS + NT
-  if constexpr (L::FE > 1) load_half_rows<F>(g.mlp, node0, i0, g.N, kS + NT, up);
+  [[maybe_unused]] UpperHalf<F> up;  // F = 512: feature kS + NT; 1024: three more
+  if constexpr (L::FE == 2) load_half_rows<F>(g.mlp, node0, i0, g.N, kS + NT, up);
+  else if constexpr (L::FE > 2) load_quarter_rows<F>(g.mlp, node0, i0, g.N, kS, up);
   __syncthreads();
   const int count = compact_columns(rows, g.x0, g.col_mask, g.is_lig, node0, g.N,
                                     g.cut, cols);
@@ -557,9 +725,12 @@ __device__ void gcl_tile_tc(const GclArgs& g, size_t node0, int i0, float* smem,
   float a_col[L::COLS];
   if constexpr (L::FE == 1) {
     load_a_col<F>(g.mlp, cols, count, 0, node0, a_col);
-  } else {
+  } else if constexpr (L::FE == 2) {
     load_a_col_half<F>(g.mlp, cols, count, 0, node0, kS, a_col);
     load_a_col_half<F>(g.mlp, cols, count, 0, node0, kS + NT, up.a_col);
+  } else {
+    load_a_col_half<F>(g.mlp, cols, count, 0, node0, kS, a_col);
+    load_a_col_quarters<F>(g.mlp, cols, count, 0, node0, kS, up);
   }
   for (int c0 = 0; c0 < count; c0 += TJ) {
     fill_chunk(chunk, rows, g.x, g.x0, g.col_mask, g.is_lig, node0, cols, count,
@@ -568,11 +739,16 @@ __device__ void gcl_tile_tc(const GclArgs& g, size_t node0, int i0, float* smem,
     if constexpr (L::FE == 1) {
       fill_s<F, TIER>(w, chunk, a_row, a_col, S);
       load_a_col<F>(g.mlp, cols, count, c0 + TJ, node0, a_col);
-    } else {
+    } else if constexpr (L::FE == 2) {
       fill_s_half<F, TIER>(w, chunk, a_row, a_col, kS, S);
       fill_s_half<F, TIER>(up.w, chunk, up.a_row, up.a_col, kS + NT, S);
       load_a_col_half<F>(g.mlp, cols, count, c0 + TJ, node0, kS, a_col);
       load_a_col_half<F>(g.mlp, cols, count, c0 + TJ, node0, kS + NT, up.a_col);
+    } else {
+      fill_s_half<F, TIER>(w, chunk, a_row, a_col, kS, S);
+      fill_s_quarters<F, TIER>(chunk, kS, up, S);
+      load_a_col_half<F>(g.mlp, cols, count, c0 + TJ, node0, kS, a_col);
+      load_a_col_quarters<F>(g.mlp, cols, count, c0 + TJ, node0, kS, up);
     }
     float acc[WM][L::NTN][4];
     product_tc<F, ROW_GROUPS, true, false, TIER>(S, ring, acc);
@@ -660,11 +836,11 @@ __device__ void gcl_tile_tc(const GclArgs& g, size_t node0, int i0, float* smem,
 // the lane quad and written to part[slice][p]; the reader adds the slices.
 // The BF16 tier rounds z and computes silu(z) at its rounding points.
 template <int F, int TIER = TF32X3>
-__device__ __forceinline__ void head_parts(float (&acc)[WM][Layout<F>::NTN][4],
+__device__ __forceinline__ void head_parts(float (&acc)[Layout<F>::WM][Layout<F>::NTN][4],
                                            const float* b2s, const float* w3s,
                                            float (*part)[Layout<F>::P]) {
   using L = Layout<F>;
-  constexpr int ROW_GROUPS = row_groups<F>();
+  constexpr int ROW_GROUPS = row_groups<F>(), WM = L::WM;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int gid = lane >> 2, tig = lane & 3;
   const int rg = warp % ROW_GROUPS, slice = warp / ROW_GROUPS;
@@ -701,6 +877,7 @@ template <int F, bool CROSS, int TIER = TF32X3>
 __device__ void coord_tile_tc(const CoordArgs& g, int batch, int i0, float* smem) {
   using L = Layout<F>;
   constexpr int TI = L::TI, P = L::P, ROW_GROUPS = row_groups<F>(), SLICES = L::SLICES;
+  constexpr int WM = L::WM;
   const PairMlp& mlp = CROSS ? g.cross : g.coord;
   __shared__ Rows<TI> rows;
   __shared__ Chunk<TI> chunk;
@@ -728,8 +905,9 @@ __device__ void coord_tile_tc(const CoordArgs& g, int batch, int i0, float* smem
 #pragma unroll
   for (int r = 0; r < TI; ++r)
     a_row[r] = i0 + r < g.N ? mlp.a_row[(node0 + i0 + r) * F + kS] : 0.0f;
-  [[maybe_unused]] UpperHalf<F> up;  // F = 512: feature kS + NT
-  if constexpr (L::FE > 1) load_half_rows<F>(mlp, node0, i0, g.N, kS + NT, up);
+  [[maybe_unused]] UpperHalf<F> up;  // F = 512: feature kS + NT; 1024: three more
+  if constexpr (L::FE == 2) load_half_rows<F>(mlp, node0, i0, g.N, kS + NT, up);
+  else if constexpr (L::FE > 2) load_quarter_rows<F>(mlp, node0, i0, g.N, kS, up);
   __syncthreads();
   const int count = compact_columns(rows, g.x0, g.col_mask, g.is_lig, node0, g.N,
                                     g.cut, cols);
@@ -739,9 +917,12 @@ __device__ void coord_tile_tc(const CoordArgs& g, int batch, int i0, float* smem
   float a_col[L::COLS];
   if constexpr (L::FE == 1) {
     load_a_col<F>(mlp, cols, count, 0, node0, a_col);
-  } else {
+  } else if constexpr (L::FE == 2) {
     load_a_col_half<F>(mlp, cols, count, 0, node0, kS, a_col);
     load_a_col_half<F>(mlp, cols, count, 0, node0, kS + NT, up.a_col);
+  } else {
+    load_a_col_half<F>(mlp, cols, count, 0, node0, kS, a_col);
+    load_a_col_quarters<F>(mlp, cols, count, 0, node0, kS, up);
   }
   float racc = 0.0f;  // row sum of component (t % 3) of row t / 3, t < 3*TI
   for (int c0 = 0; c0 < count; c0 += TJ) {
@@ -751,11 +932,16 @@ __device__ void coord_tile_tc(const CoordArgs& g, int batch, int i0, float* smem
     if constexpr (L::FE == 1) {
       fill_s<F, TIER>(w, chunk, a_row, a_col, S);
       load_a_col<F>(mlp, cols, count, c0 + TJ, node0, a_col);
-    } else {
+    } else if constexpr (L::FE == 2) {
       fill_s_half<F, TIER>(w, chunk, a_row, a_col, kS, S);
       fill_s_half<F, TIER>(up.w, chunk, up.a_row, up.a_col, kS + NT, S);
       load_a_col_half<F>(mlp, cols, count, c0 + TJ, node0, kS, a_col);
       load_a_col_half<F>(mlp, cols, count, c0 + TJ, node0, kS + NT, up.a_col);
+    } else {
+      fill_s_half<F, TIER>(w, chunk, a_row, a_col, kS, S);
+      fill_s_quarters<F, TIER>(chunk, kS, up, S);
+      load_a_col_half<F>(mlp, cols, count, c0 + TJ, node0, kS, a_col);
+      load_a_col_quarters<F>(mlp, cols, count, c0 + TJ, node0, kS, up);
     }
     float acc[WM][L::NTN][4];
     product_tc<F, ROW_GROUPS, true, false, TIER>(S, ring, acc);

@@ -45,15 +45,19 @@
 // column list 1.4 KB (200,064 B dynamic) and 17,328 B static, 217,392 B of
 // the 232,448 a block may have: one block (8 warps) an SM.  At F = 512
 // (egnn_mma.cuh's Layout: P = 32 pairs, stages of 16 rows) S and D stay 64
-// KB each and the ring 65 KB (199,040 B dynamic at N = 352).  Empty 8-pair
-// k-steps of product 2 are skipped (about a fifth on the training batch).
+// KB each and the ring 65 KB (199,040 B dynamic at N = 352).  At F = 1024
+// (P = 16 pairs, one m-tile; stages of 8 rows) S and D take 64 KB each and
+// the ring 64.5 KB: 197,120 B + 4N dynamic and ~25 KB static, so N up to
+// about 2,000.  Empty 8-pair k-steps of product 2 are skipped (about a fifth
+// on the training batch).
 //
 // Around the products, per chunk:
 //  * fill passes (thread t owns feature t % F of pairs t / F + NT/F * u;
 //    at F = 512 features t and t + 256 of every pair):
 //    S = silu(pre) before product 1 and S = silu'(pre) before product 3,
 //    pre recomputed branch-free from a_row in registers and a_col loaded a
-//    chunk ahead, as egnn_mma.cuh's fill_s;
+//    chunk ahead, as egnn_mma.cuh's fill_s (F = 1024: four features a
+//    thread, the *_quarters fills);
 //  * the epilogue of 1 in the C-fragment layout (the GCL's in
 //    gcl_bwd_tile_tc): per pair two dots over the features, each a lane-quad
 //    shuffle plus one exchange of the four slices through shared memory; g of
@@ -133,6 +137,12 @@ __device__ __forceinline__ unsigned edge_ksteps32(const int* j, int lane) {
   return kmask;
 }
 
+// edge_ksteps32 for F = 1024's chunks of 16 pairs: bits 0 and 1.
+__device__ __forceinline__ unsigned edge_ksteps16(const int* j, int lane) {
+  const unsigned e0 = __ballot_sync(0xffffffffu, lane < 16 && j[lane] >= 0);
+  return ((e0 & 0xffu) ? 1u : 0u) | ((e0 & 0xff00u) ? 2u : 0u);
+}
+
 // The ring of a chunk's two streamed matrices: stage g holds rows
 // (g % KS) * KC .. + KC of W2 (g / KS even) or of W2^T (odd), in buffer
 // g % NS.  Both must be 16-byte aligned.
@@ -171,12 +181,13 @@ struct W2BwdRing {
 // acc = A @ M for the warp's C fragments (product_tc's layout), A a swizzled
 // P x F tile, M the ring's next KS stages.  A must be complete before the
 // first acquire's sync.  TIER: the product's precision tier (the swizzle
-// keeps a bf16 fragment's column pair 2tig, 2tig + 1 adjacent: one float2).
+// keeps a bf16 fragment's column pair 2tig, 2tig + 1 adjacent: one float2;
+// stages of 8 rows take k-steps of 8).
 template <int F, int TIER = TF32X3>
 __device__ __forceinline__ void product_sw(const float* A, W2BwdRing<F>& ring,
-                                           float (&acc)[WM][Layout<F>::NTN][4]) {
+                                           float (&acc)[Layout<F>::WM][Layout<F>::NTN][4]) {
   using L = Layout<F>;
-  constexpr int KC = L::KC, ROW_GROUPS = row_groups<F>();
+  constexpr int KC = L::KC, ROW_GROUPS = row_groups<F>(), WM = L::WM;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int gid = lane >> 2, tig = lane & 3;
   const int rg = warp % ROW_GROUPS, slice = warp / ROW_GROUPS;
@@ -188,7 +199,45 @@ __device__ __forceinline__ void product_sw(const float* A, W2BwdRing<F>& ring,
       for (int e = 0; e < 4; ++e) acc[m][n][e] = 0.0f;
 
   const int xg = swz(gid);  // rows gid and gid + 8 of every m-tile
-  if constexpr (TIER == BF16) {
+  if constexpr (TIER == BF16 && KC < 16) {
+    const float* a_row = A + (rg * WM * 16 + gid) * F;
+    for (int ks = 0; ks < L::KS; ++ks) {
+      const float* stage = ring.acquire();
+      const float* b = stage + 2 * tig * L::WS + slice * L::FW + gid;
+#pragma unroll
+      for (int kk = 0; kk < KC; kk += 8) {
+        const int c0 = (ks * KC + kk + 2 * tig) ^ xg;
+        uint32_t a[WM][2];
+#pragma unroll
+        for (int m = 0; m < WM; ++m) {
+          const float* r = a_row + m * 16 * F;
+          const float2 v0 = *reinterpret_cast<const float2*>(r + c0);
+          const float2 v1 = *reinterpret_cast<const float2*>(r + 8 * F + c0);
+          a[m][0] = pack_bf16(v0.x, v0.y);
+          a[m][1] = pack_bf16(v1.x, v1.y);
+        }
+#pragma unroll
+        for (int n0 = 0; n0 < L::NTN; n0 += L::NG) {
+          uint32_t bb[L::NG];
+#pragma unroll
+          for (int n = 0; n < L::NG; ++n) {
+            const float* c = b + kk * L::WS + 8 * (n0 + n);
+            bb[n] = pack_bf16(c[0], c[L::WS]);
+          }
+#pragma unroll
+          for (int m = 0; m < WM; ++m)
+#pragma unroll
+            for (int n = 0; n < L::NG; ++n) {
+              float t[4] = {0.0f, 0.0f, 0.0f, 0.0f};  // the step's sum apart
+              mma_bf16_k8(t, a[m][0], a[m][1], bb[n]);
+#pragma unroll
+              for (int e = 0; e < 4; ++e) acc[m][n0 + n][e] += t[e];
+            }
+        }
+      }
+    }
+    return;
+  } else if constexpr (TIER == BF16) {
     const float* a_row = A + (rg * WM * 16 + gid) * F;
     for (int ks = 0; ks < L::KS; ++ks) {
       const float* stage = ring.acquire();
@@ -229,6 +278,60 @@ __device__ __forceinline__ void product_sw(const float* A, W2BwdRing<F>& ring,
     return;
   }
   const float* a_base = A + (rg * WM * 16 + gid) * F + tig;
+  if constexpr (L::STEP_SUMS) {  // egnn_mma.cuh's Layout
+    for (int ks = 0; ks < L::KS; ++ks) {
+      const float* stage = ring.acquire();
+      const float* b_base = stage + tig * L::WS + slice * L::FW + gid;
+#pragma unroll
+      for (int kk = 0; kk < KC; kk += 8) {
+        const int c0 = (ks * KC + kk) ^ xg, c4 = (ks * KC + kk + 4) ^ xg;
+        uint32_t a_hi[WM][4], a_lo[WM][4];
+#pragma unroll
+        for (int m = 0; m < WM; ++m) {
+          const float* a = a_base + m * 16 * F;
+          split(a[c0], a_hi[m][0], a_lo[m][0]);
+          split(a[8 * F + c0], a_hi[m][1], a_lo[m][1]);
+          split(a[c4], a_hi[m][2], a_lo[m][2]);
+          split(a[8 * F + c4], a_hi[m][3], a_lo[m][3]);
+        }
+        const float* b = b_base + kk * L::WS;
+#pragma unroll
+        for (int n0 = 0; n0 < L::NTN; n0 += L::NGS) {
+          uint32_t b_hi[L::NGS][2], b_lo[L::NGS][2];
+          float t[WM][L::NGS][4];
+#pragma unroll
+          for (int n = 0; n < L::NGS; ++n) {
+            split(b[8 * (n0 + n)], b_hi[n][0], b_lo[n][0]);
+            split(b[4 * L::WS + 8 * (n0 + n)], b_hi[n][1], b_lo[n][1]);
+#pragma unroll
+            for (int m = 0; m < WM; ++m)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) t[m][n][e] = 0.0f;
+          }
+#pragma unroll
+          for (int m = 0; m < WM; ++m)
+#pragma unroll
+            for (int n = 0; n < L::NGS; ++n) mma_tf32(t[m][n], a_lo[m], b_hi[n][0], b_hi[n][1]);
+          if constexpr (TIER == TF32X3) {
+#pragma unroll
+            for (int m = 0; m < WM; ++m)
+#pragma unroll
+              for (int n = 0; n < L::NGS; ++n)
+                mma_tf32(t[m][n], a_hi[m], b_lo[n][0], b_lo[n][1]);
+          }
+#pragma unroll
+          for (int m = 0; m < WM; ++m)
+#pragma unroll
+            for (int n = 0; n < L::NGS; ++n) {
+              mma_tf32(t[m][n], a_hi[m], b_hi[n][0], b_hi[n][1]);
+#pragma unroll
+              for (int e = 0; e < 4; ++e) acc[m][n0 + n][e] += t[m][n][e];
+            }
+        }
+      }
+    }
+    return;
+  }
   for (int ks = 0; ks < L::KS; ++ks) {
     const float* stage = ring.acquire();
     const float* b_base = stage + tig * L::WS + slice * L::FW + gid;
@@ -280,8 +383,10 @@ __device__ __forceinline__ void product_sw(const float* A, W2BwdRing<F>& ring,
 // rows of S and D are zero, and their k-step is skipped.  Warp w covers
 // m-tiles (dW2 rows) WM2*(w % RG) .. + WM2 - 1 and n-tiles NN * (w / RG) ..
 // + NN - 1 of each SW-column slab (WM2 = 2 and SW = 32, at F = 512 WM2 = 4
-// and SW = 16: the accumulators and the slab's loaded entries stay at 32
-// registers each); K = the chunk's P pairs (zero rows for pairs without an
+// and SW = 16, at F = 1024 WM2 = 8 and SW = 8: the accumulators and the
+// slab's loaded entries stay at 32 registers each; at 1024 the 8 warps are
+// 8 row groups of 128 dW2 rows, one n-tile a slab); K = the chunk's P pairs
+// (zero rows for pairs without an
 // edge).  S and D must be complete.  TIER: the product's precision tier
 // (BF16: k-steps of 16 pairs, each fragment element its own load, a step
 // skipped when both its 8-pair bits are clear).
@@ -289,10 +394,10 @@ template <int F, int TIER = TF32X3>
 __device__ __forceinline__ void dw2_tc(const float* S, const float* D, unsigned kmask,
                                        float* dw2) {
   constexpr int P = Layout<F>::P;
-  constexpr int WM2 = F > 256 ? 4 : 2;   // m-tiles a warp owns
+  constexpr int WM2 = F > 512 ? 8 : F > 256 ? 4 : 2;   // m-tiles a warp owns
   constexpr int RG = F / 16 / WM2;       // warp row groups
   constexpr int CG = (NT / 32) / RG;     // warp column groups
-  constexpr int SW = F > 256 ? 16 : 32;  // columns a slab
+  constexpr int SW = F > 512 ? 8 : F > 256 ? 16 : 32;  // columns a slab
   constexpr int NN = SW / 8 / CG;        // n-tiles a warp owns in a slab
   static_assert(RG * CG == NT / 32 && NN >= 1 && F % SW == 0, "dW2 warp layout");
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -408,7 +513,7 @@ __device__ __forceinline__ float pre_fill(const PairWeights& w, const Chunk<TI>&
 }
 
 // S = silu(pre) of the chunk's pairs (0 without an edge), swizzled.  F <= 256
-// (F = 512: fill_m1_half).
+// (wider: fill_m1_half).
 template <int F>
 __device__ __forceinline__ void fill_m1(const PairWeights& w, const Chunk<Layout<F>::TI>& c,
                                         const float (&a_row)[Layout<F>::TI],
@@ -427,7 +532,7 @@ __device__ __forceinline__ void fill_m1(const PairWeights& w, const Chunk<Layout
 }
 
 // S = silu'(pre) (any finite value without an edge: dm1 is 0 there), and
-// db2 += the thread's sum of dz2 (D) over the chunk.  F <= 256 (F = 512:
+// db2 += the thread's sum of dz2 (D) over the chunk.  F <= 256 (wider:
 // fill_dsilu_half).
 template <int F>
 __device__ __forceinline__ void fill_dsilu(const PairWeights& w, const Chunk<Layout<F>::TI>& c,
@@ -452,10 +557,10 @@ __device__ __forceinline__ void fill_dsilu(const PairWeights& w, const Chunk<Lay
 // and part[0 / 1][slice][p] = the warp's share of dpre_p . w_d2 / . w_d20.
 template <int F>
 __device__ __forceinline__ void dpre_fragments(
-    const float (&acc)[WM][Layout<F>::NTN][4], float* S, const float* wd2s,
+    const float (&acc)[Layout<F>::WM][Layout<F>::NTN][4], float* S, const float* wd2s,
     const float* wd20s, float (&part)[2][Layout<F>::SLICES][Layout<F>::P]) {
   using L = Layout<F>;
-  constexpr int ROW_GROUPS = row_groups<F>();
+  constexpr int ROW_GROUPS = row_groups<F>(), WM = L::WM;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int gid = lane >> 2, tig = lane & 3;
   const int rg = warp % ROW_GROUPS, slice = warp / ROW_GROUPS;
@@ -490,7 +595,7 @@ __device__ __forceinline__ void dpre_fragments(
 // The fill layout's sums of dpre (S): the row sums into arow, the weight
 // sums into fa, and the column sums added into the block's da_col slab (its
 // entries loaded first, so that the loads are in flight together).  F <= 256
-// (F = 512: dpre_sums_half).
+// (wider: dpre_sums_half).
 template <int F>
 __device__ __forceinline__ void dpre_sums(const float* S, const Chunk<Layout<F>::TI>& c,
                                           const int* cols, int count, int c0,
@@ -589,14 +694,51 @@ __device__ __forceinline__ void dpre_sums_half(const float* S, const Chunk<Layou
     if (c0 + u < count) acol_part[(size_t)cols[c0 + u] * F + k] = cs[u];
 }
 
+// fill_m1_half, fill_dsilu_half and dpre_sums_half for F = 1024's upper
+// three features of thread feature k (q.h[e], fa.a[e]: feature k + (e + 1) * NT).
+template <int F>
+__device__ __forceinline__ void fill_m1_quarters(const Chunk<Layout<F>::TI>& c, int k,
+                                                 const FillQuarters<F>& q, float* S) {
+#pragma unroll
+  for (int e = 0; e < Layout<F>::FE - 1; ++e)
+    fill_m1_half<F>(q.h[e].w, c, q.h[e].a_row, q.h[e].a_col, k + (e + 1) * NT, S);
+}
+
+template <int F>
+__device__ __forceinline__ void fill_dsilu_quarters(const Chunk<Layout<F>::TI>& c, int k,
+                                                    const FillQuarters<F>& q, const float* D,
+                                                    float* S,
+                                                    FeatAccs<Layout<F>::FE - 1>& fa) {
+#pragma unroll
+  for (int e = 0; e < Layout<F>::FE - 1; ++e)
+    fill_dsilu_half<F>(q.h[e].w, c, q.h[e].a_row, q.h[e].a_col, k + (e + 1) * NT, D, S,
+                       fa.a[e].b2);
+}
+
+template <int F>
+__device__ __forceinline__ void dpre_sums_quarters(const float* S,
+                                                   const Chunk<Layout<F>::TI>& c,
+                                                   const int* cols, int count, int c0, int k,
+                                                   FillQuarters<F>& q,
+                                                   FeatAccs<Layout<F>::FE - 1>& fa,
+                                                   float* acol_part) {
+#pragma unroll
+  for (int e = 0; e < Layout<F>::FE - 1; ++e)
+    dpre_sums_half<F>(S, c, cols, count, c0, k + (e + 1) * NT, q.h[e].arow, fa.a[e],
+                      acol_part);
+}
+
 // A block's sums over its row tiles.
 template <int F>
 struct GclBwdState {
   FeatAcc fa;   // fill layout; head unused
   float* hvs;   // shared [row_groups<F>()][F], zero at the start: dw_att by warp row group
   float dbatt;
-  // F = 512: the sums of feature t + NT (fa holds feature t's)
-  std::conditional_t<(Layout<F>::FE > 1), FeatAcc, NoHalf> fa_hi;
+  // F = 512: the sums of feature t + NT (fa holds feature t's); F = 1024:
+  // of features t + e * NT in fa_hi.a[e - 1]
+  std::conditional_t<(Layout<F>::FE == 2), FeatAcc,
+                     std::conditional_t<(Layout<F>::FE > 2), FeatAccs<Layout<F>::FE - 1>,
+                                        NoHalf>> fa_hi;
 };
 
 // F = 512's da_row of the tile's rows: arow (feature k) and arow_hi (feature
@@ -615,6 +757,23 @@ __device__ __forceinline__ void store_rows_half(const float (&arow)[Layout<F>::T
   }
 }
 
+// store_rows_half at F = 1024: features k and k + e * NT (q.h[e - 1].arow).
+template <int F>
+__device__ __forceinline__ void store_rows_quarters(const float (&arow)[Layout<F>::TI],
+                                                    const FillQuarters<F>& q, int k,
+                                                    size_t node0, int i0, int N,
+                                                    int update_rows, float* da_row) {
+#pragma unroll
+  for (int r = 0; r < Layout<F>::TI; ++r) {
+    const int i = i0 + r;
+    if (i >= N || i >= update_rows) continue;
+    da_row[(node0 + i) * F + k] = arow[r];
+#pragma unroll
+    for (int e = 0; e < Layout<F>::FE - 1; ++e)
+      da_row[(node0 + i) * F + k + (e + 1) * NT] = q.h[e].arow[r];
+  }
+}
+
 // One row tile of the GCL backward: rows i0 .. i0+TI-1 of the batch item at
 // node0, slab `slab` of the per-block scratch.  S, D: swizzled P x F tiles;
 // cols: N ints; all dynamic shared memory.  The ring runs on across tiles.
@@ -625,6 +784,7 @@ __device__ void gcl_bwd_tile_tc(const GclBwdArgs& g, size_t node0, size_t slab, 
                                 GclBwdState<F>& st) {
   using L = Layout<F>;
   constexpr int TI = L::TI, P = L::P, ROW_GROUPS = row_groups<F>(), SLICES = L::SLICES;
+  constexpr int WM = L::WM;
   __shared__ Rows<TI> rows;
   __shared__ __align__(16) Chunk<TI> chunk;  // 16 B: the fill passes' loads vectorise
   __shared__ PairD2<P> dd;
@@ -658,10 +818,14 @@ __device__ void gcl_bwd_tile_tc(const GclBwdArgs& g, size_t node0, size_t slab, 
     a_row[r] = i0 + r < g.N ? g.mlp.a_row[(node0 + i0 + r) * F + k] : 0.0f;
     arow[r] = 0.0f;
   }
-  [[maybe_unused]] UpperHalf<F> up;  // F = 512: feature k + NT
-  if constexpr (L::FE > 1) {
+  [[maybe_unused]] UpperHalf<F> up;  // F = 512: feature k + NT; 1024: three more
+  if constexpr (L::FE == 2) {
     load_half_rows<F>(g.mlp, node0, i0, g.N, k + NT, up);
     for (int r = 0; r < TI; ++r) up.arow[r] = 0.0f;
+  } else if constexpr (L::FE > 2) {
+    load_quarter_rows<F>(g.mlp, node0, i0, g.N, k, up);
+    for (int e = 0; e < L::FE - 1; ++e)
+      for (int r = 0; r < TI; ++r) up.h[e].arow[r] = 0.0f;
   }
   // g of the tile's rows, loaded once a tile (in shared memory: held in
   // registers, its 32 a thread at F = 256 spill)
@@ -676,9 +840,12 @@ __device__ void gcl_bwd_tile_tc(const GclBwdArgs& g, size_t node0, size_t slab, 
   float a_col[L::COLS];
   if constexpr (L::FE == 1) {
     load_a_col<F>(g.mlp, cols, count, 0, node0, a_col);
-  } else {
+  } else if constexpr (L::FE == 2) {
     load_a_col_half<F>(g.mlp, cols, count, 0, node0, k, a_col);
     load_a_col_half<F>(g.mlp, cols, count, 0, node0, k + NT, up.a_col);
+  } else {
+    load_a_col_half<F>(g.mlp, cols, count, 0, node0, k, a_col);
+    load_a_col_quarters<F>(g.mlp, cols, count, 0, node0, k, up);
   }
   const int ce = (2 * tig) ^ swz(gid);  // C-fragment columns in rows gid, gid + 8
 
@@ -695,14 +862,19 @@ __device__ void gcl_bwd_tile_tc(const GclBwdArgs& g, size_t node0, size_t slab, 
       for (int s = 0; s < 4; ++s)
         kmask |= (((e0 >> (8 * s)) & 0xffu) ? 1u : 0u) << s
                | (((e1 >> (8 * s)) & 0xffu) ? 1u : 0u) << (s + 4);
-    } else {
+    } else if constexpr (P == 32) {
       kmask = edge_ksteps32(chunk.j, lane);
+    } else {
+      kmask = edge_ksteps16(chunk.j, lane);
     }
     if constexpr (L::FE == 1) {
       fill_m1<F>(w, chunk, a_row, a_col, S);
-    } else {
+    } else if constexpr (L::FE == 2) {
       fill_m1_half<F>(w, chunk, a_row, a_col, k, S);
       fill_m1_half<F>(up.w, chunk, up.a_row, up.a_col, k + NT, S);
+    } else {
+      fill_m1_half<F>(w, chunk, a_row, a_col, k, S);
+      fill_m1_quarters<F>(chunk, k, up, S);
     }
     float acc[WM][L::NTN][4];
     product_sw<F, TIER>(S, ring, acc);  // z2 - b2 = m1 @ W2
@@ -797,16 +969,23 @@ __device__ void gcl_bwd_tile_tc(const GclBwdArgs& g, size_t node0, size_t slab, 
         }
     }
     __syncthreads();  // D complete
+#ifndef EGNN_SKIP_DW2  // defined only in a timing build (chip_smoke.py 20i): dW2 stays 0
     dw2_tc<F, TIER>(S, D, kmask, dw2);
+#endif
     __syncthreads();  // S is no longer read
     if constexpr (L::FE == 1) {
       fill_dsilu<F>(w, chunk, a_row, a_col, D, S, st.fa.b2);
       load_a_col<F>(g.mlp, cols, count, c0 + TJ, node0, a_col);  // the next chunk's
-    } else {
+    } else if constexpr (L::FE == 2) {
       fill_dsilu_half<F>(w, chunk, a_row, a_col, k, D, S, st.fa.b2);
       fill_dsilu_half<F>(up.w, chunk, up.a_row, up.a_col, k + NT, D, S, st.fa_hi.b2);
       load_a_col_half<F>(g.mlp, cols, count, c0 + TJ, node0, k, a_col);
       load_a_col_half<F>(g.mlp, cols, count, c0 + TJ, node0, k + NT, up.a_col);
+    } else {
+      fill_dsilu_half<F>(w, chunk, a_row, a_col, k, D, S, st.fa.b2);
+      fill_dsilu_quarters<F>(chunk, k, up, D, S, st.fa_hi);
+      load_a_col_half<F>(g.mlp, cols, count, c0 + TJ, node0, k, a_col);
+      load_a_col_quarters<F>(g.mlp, cols, count, c0 + TJ, node0, k, up);
     }
     product_sw<F, TIER>(D, ring, acc);  // dm1 = dz2 @ W2^T
     dpre_fragments<F>(acc, S, wd2s, wd20s, xpart);
@@ -823,9 +1002,12 @@ __device__ void gcl_bwd_tile_tc(const GclBwdArgs& g, size_t node0, size_t slab, 
     }
     if constexpr (L::FE == 1) {
       dpre_sums<F>(S, chunk, cols, count, c0, arow, st.fa, acol_part);
-    } else {
+    } else if constexpr (L::FE == 2) {
       dpre_sums_half<F>(S, chunk, cols, count, c0, k, arow, st.fa, acol_part);
       dpre_sums_half<F>(S, chunk, cols, count, c0, k + NT, up.arow, st.fa_hi, acol_part);
+    } else {
+      dpre_sums_half<F>(S, chunk, cols, count, c0, k, arow, st.fa, acol_part);
+      dpre_sums_quarters<F>(S, chunk, cols, count, c0, k, up, st.fa_hi, acol_part);
     }
     __syncthreads();  // dd complete
 
@@ -849,8 +1031,11 @@ __device__ void gcl_bwd_tile_tc(const GclBwdArgs& g, size_t node0, size_t slab, 
   }
 
   // ---- da_row of the tile's rows: the column groups' row sums, in order
-  if constexpr (L::FE > 1) {  // F = 512: one column group, the sums complete
+  if constexpr (L::FE == 2) {  // F = 512: one column group, the sums complete
     store_rows_half<F>(arow, up.arow, k, node0, i0, g.N, g.update_rows, g.da_row);
+    return;
+  } else if constexpr (L::FE > 2) {  // F = 1024 likewise
+    store_rows_quarters<F>(arow, up, k, node0, i0, g.N, g.update_rows, g.da_row);
     return;
   }
   float* red = S;  // free: the last chunk ended with a sync
@@ -894,13 +1079,45 @@ __device__ void store_gcl_bwd_state_half(const GclBwdState<F>& st, float* w_part
   }
 }
 
+// store_gcl_bwd_state_half at F = 1024: features t + e * NT, e < 4.
+template <int F>
+__device__ void store_gcl_bwd_state_quarters(const GclBwdState<F>& st, float* w_part,
+                                             float* S) {
+  static_assert(row_groups<F>() == 1, "one warp row group");
+  const int t = threadIdx.x;
+  float* bred = S;  // [NT]
+  __syncthreads();  // S is no longer read, hvs complete
+  bred[t] = st.dbatt;
+  __syncthreads();
+  float* v = w_part + (size_t)F * F;
+  const float lo[5] = {st.fa.w_d2, st.fa.w_d20, st.fa.delta, st.fa.b2, st.hvs[t]};
+#pragma unroll
+  for (int j = 0; j < 5; ++j) v[j * F + t] = lo[j];
+#pragma unroll
+  for (int e = 0; e < Layout<F>::FE - 1; ++e) {
+    const FeatAcc& a = st.fa_hi.a[e];
+    const int f = t + (e + 1) * NT;
+    const float hi[5] = {a.w_d2, a.w_d20, a.delta, a.b2, st.hvs[f]};
+#pragma unroll
+    for (int j = 0; j < 5; ++j) v[j * F + f] = hi[j];
+  }
+  if (t == 0) {
+    float s = 0.0f;
+    for (int e = 0; e < NT; ++e) s += bred[e];
+    v[5 * F] = s;
+  }
+}
+
 // Writes the block's vector cotangents into its weight slab (weight_slab:
 // [dW2][w_d2][w_d20][delta][b2][w_att][b_att]), each summed in a fixed
 // order.  S (P x F floats) is scratch.
 template <int F>
 __device__ void store_gcl_bwd_state(const GclBwdState<F>& st, float* w_part, float* S) {
-  if constexpr (Layout<F>::FE > 1) {
+  if constexpr (Layout<F>::FE == 2) {
     store_gcl_bwd_state_half<F>(st, w_part, S);
+    return;
+  } else if constexpr (Layout<F>::FE > 2) {
+    store_gcl_bwd_state_quarters<F>(st, w_part, S);
     return;
   }
   const int t = threadIdx.x, k = t % F, q = t / F;

@@ -19,8 +19,9 @@
 // operations a pair at 495 TFLOP/s (mma.sync reaches about half of that rate;
 // wgmma the rest).  The bytes that compete with them are not HBM's but L2's
 // and shared memory's: every chunk of P = 64 pairs streams all of W2 (256 KB
-// at F = 256, 4 KB a pair; at F = 512 1 MB a chunk of 32 pairs, 32 KB a pair:
-// egnn_mma.cuh's Layout) from L2, every warp loads its A and B fragments
+// at F = 256, 4 KB a pair; at F = 512 1 MB a chunk of 32 pairs, 32 KB a pair;
+// at F = 1024 4 MB a chunk of 16 pairs, 256 KB a pair: egnn_mma.cuh's
+// Layout) from L2, every warp loads its A and B fragments
 // from shared memory, and the fill of S reads a 16 x F tile of a_col a chunk.
 //
 // Design, on the tiling of egnn_common.cuh:
@@ -92,6 +93,7 @@ extern "C" int gcl_agg_forward(
     case 128: return launch<128>(g, B, s);
     case 256: return launch<256>(g, B, s);
     case 512: return launch<512>(g, B, s);
+    case 1024: return launch<1024>(g, B, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

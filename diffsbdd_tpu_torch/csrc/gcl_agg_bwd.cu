@@ -111,6 +111,7 @@ extern "C" int gcl_agg_backward(
     case 128: return launch<128>(g, B, Q, da_col, dxx0, w_out, s);
     case 256: return launch<256>(g, B, Q, da_col, dxx0, w_out, s);
     case 512: return launch<512>(g, B, Q, da_col, dxx0, w_out, s);
+    case 1024: return launch<1024>(g, B, Q, da_col, dxx0, w_out, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -62,15 +62,15 @@ emulate each tier (``matmul_3xtf32(passes=2)``, ``matmul_bf16``,
 whole-block kernel's node MLP and projections round their products alone,
 their elementwise work stays float32.
 
-Hidden widths.  The kernels are instantiated at F = 64, 128, 256 and 512
-(``SUPPORTED_F``; at 512 on tiles of 2 rows, ``row_tile``).  On CUDA the
-public wrappers run any other width up to 512 at the next of those
-(``padded_width``: 32 at 64, 96 at 128, 192 at 256, 384 at 512): every
-operand's width axes zero-padded (``pad_operands``), the outputs' cut back.
-The padded channels stay exact zeros through every MLP, so the result is
-the unpadded one up to summation order, at every tier; gradients reach the
-true width through autograd of the padding.  Wider than 512 raises before
-any launch.
+Hidden widths.  The kernels are instantiated at F = 64, 128, 256, 512 and
+1024 (``SUPPORTED_F``; at 512 on tiles of 2 rows, at 1024 of 1 row,
+``row_tile``).  On CUDA the public wrappers run any other width up to 1024
+at the next of those (``padded_width``: 32 at 64, 96 at 128, 192 at 256,
+384 at 512, 768 at 1024): every operand's width axes zero-padded
+(``pad_operands``), the outputs' cut back.  The padded channels stay exact
+zeros through every MLP, so the result is the unpadded one up to summation
+order, at every tier; gradients reach the true width through autograd of the
+padding.  Wider than 1024 raises before any launch.
 
 The kernels are compiled with ``nvcc`` for ``sm_90a`` into plain-C shared
 libraries under ``csrc/build`` at first use (``build_kernels``) and loaded with
@@ -94,20 +94,21 @@ HEADERS = (CSRC / "egnn_common.cuh", CSRC / "egnn_mma.cuh",
            CSRC / "egnn_coord.cuh", CSRC / "egnn_bwd.cuh",
            CSRC / "egnn_mma_bwd.cuh")  # shared device code
 # hidden widths the kernels are built for: the fixture checkpoint's, the
-# config default's, the flagship's and twice the flagship's.  The layouts need
-# F to divide the block's 256 threads or be a multiple of them, and the dW2
-# warp layout F >= 64 (csrc/egnn_mma.cuh, egnn_mma_bwd.cuh): 64, 128 and 256
-# are all the widths they admit up to 256; 512 takes a tiling of its own
-# (two rows a tile, ``row_tile``).  The wrappers run every other width up to
-# 512 zero-padded to the next of them (``padded_width``, ``pad_operands``).
-SUPPORTED_F = (64, 128, 256, 512)
+# config default's, the flagship's, and twice and four times the flagship's.
+# The layouts need F to divide the block's 256 threads or be a multiple of
+# them, and the dW2 warp layout F >= 64 (csrc/egnn_mma.cuh,
+# egnn_mma_bwd.cuh): 64, 128 and 256 are all the widths they admit up to 256;
+# 512 and 1024 take tilings of their own (two rows a tile and one,
+# ``row_tile``).  The wrappers run every other width up to 1024 zero-padded to
+# the next of them (``padded_width``, ``pad_operands``).
+SUPPORTED_F = (64, 128, 256, 512, 1024)
 
 
 def row_tile(F: int) -> int:
     """Rows per tile of the kernels at built width F: tile_rows<F>() in
-    csrc/egnn_common.cuh (4, and 2 at 512, where a tile of 4 rows does not
-    fit a block's shared memory)."""
-    return 2 if F > 256 else 4
+    csrc/egnn_common.cuh (4; 2 at 512 and 1 at 1024, where a taller tile's
+    pair tiles do not fit a block's shared memory)."""
+    return 1 if F > 512 else 2 if F > 256 else 4
 
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -683,13 +684,14 @@ def _rows(update_rows, N):
 
 def padded_width(F: int, name: str = "egnn kernels") -> int:
     """The width the kernels run hidden width ``F`` at: the least of
-    ``SUPPORTED_F`` that is >= F.  Wider than 512 raises: the layouts need a
-    kernel design of their own there (ROADMAP.md §2, widths above 512)."""
+    ``SUPPORTED_F`` that is >= F.  Wider than 1024 raises: one m-tile's pair
+    tiles no longer fit a block's shared memory, and the layouts need a
+    kernel design of their own there (ROADMAP.md §2, widths above 1024)."""
     for width in SUPPORTED_F:
         if width >= F:
             return width
     raise ValueError(f"{name}: feature width {F} above {SUPPORTED_F[-1]}, the widest "
-                     f"the kernels are built for (ROADMAP.md §2: widths above 512)")
+                     f"the kernels are built for (ROADMAP.md §2: widths above 1024)")
 
 
 # the axes of an operand that run along the hidden width, by the operand's

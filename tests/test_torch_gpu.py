@@ -294,15 +294,15 @@ def test_coord_kernels_on_a_column_block(block, update_rows):
     _coord_bwd_case(7, N, True, True, update_rows, block=block)
 
 
-@pytest.mark.parametrize("width", [64, 128, 256, 512])
+@pytest.mark.parametrize("width", [64, 128, 256, 512, 1024])
 @pytest.mark.parametrize("update_rows", [None, 11])
 def test_bwd_kernels_on_a_partial_row_tile(update_rows, width):
-    """At F = 512 the weights take the fan-in scale (``_inputs``' w_scale
-    None): the default 0.3 puts the attention logits at a spread of
+    """At F = 512 and 1024 the weights take the fan-in scale (``_inputs``'
+    w_scale None): the default 0.3 puts the attention logits at a spread of
     sqrt(512) * 0.5 * 0.3 ~ 3.4, where db_att sums saturated gates'
     derivatives att * (1 - att) that cancel, and 1 - att near 1 keeps too few
     digits in float32, the plain version's as the kernel's, for the gate."""
-    main, extra = _inputs(8, N=45, F=width, w_scale=None if width == 512 else 0.3)
+    main, extra = _inputs(8, N=45, F=width, w_scale=None if width >= 512 else 0.3)
     ops = _folded(main)
     kw = dict(cutoffs=CUTOFFS, attention=True, normalization_factor=100.0,
               update_rows=update_rows)
@@ -312,10 +312,10 @@ def test_bwd_kernels_on_a_partial_row_tile(update_rows, width):
     ref = ec.gcl_agg_bwd_plain(g, *ops.values(), *att, **kw)
     _assert_cotangents(dict(zip(GCL_COT, got)), dict(zip(GCL_COT, ref)))
     _coord_bwd_case(8, 45, True, True, update_rows, with_delta=False, F=width,
-                    w_scale=None if width == 512 else 0.3)
+                    w_scale=None if width >= 512 else 0.3)
 
 
-@pytest.mark.parametrize("width", [64, 128, 256, 512])
+@pytest.mark.parametrize("width", [64, 128, 256, 512, 1024])
 def test_bwd_kernel_is_deterministic(width):
     """No atomics: two launches on the same inputs give the same bits."""
     main, extra = _inputs(10, F=width)
@@ -334,6 +334,7 @@ def test_autograd_through_kernels_matches_twins():
     main, extra = _inputs(12)
     m = main["mask"]
     names = ("a_row", "a_col", "x", "x0", "w_d2", "w_d20", "type_bias", "w2", "b2")
+    digests = {}  # the card run's outputs, kept for an intermittent failure
 
     def run(device):
         mv = {k: v.to(device) for k, v in main.items()}
@@ -357,13 +358,19 @@ def test_autograd_through_kernels_matches_twins():
                                   graph_mean=mean, update_rows=12)
         loss = (agg ** 2).sum() + (upd ** 2).sum()
         grads = torch.autograd.grad(loss, list(leaves.values()))
+        if device == "cuda":
+            digests.update(gcl_agg=_digest([agg]), coord_agg=_digest([upd]),
+                           **{f"grad.{k}": _digest([g]) for k, g in zip(leaves, grads)})
         return {k: g.cpu() for k, g in zip(leaves, grads)}
 
     ec.reset_launch_counts()
     got = run("cuda")
     assert ec.launch_counts == {"gcl_agg": 1, "coord_agg": 1, "gcl_agg_bwd": 1,
                                 "coord_agg_bwd": 1, "block_fused": 0}
-    _assert_cotangents(got, run("cpu"))
+    try:
+        _assert_cotangents(got, run("cpu"))
+    except AssertionError as err:
+        raise AssertionError(f"{err}; the card run's digests: {digests}") from err
 
 
 def _digest(tensors):
@@ -507,7 +514,7 @@ def test_block_kernel_at_joint_shapes(B, spread):
                        ec.block_fused_plain(*ins, **BLOCK_KW))
 
 
-@pytest.mark.parametrize("width", [64, 128, 256, 512])
+@pytest.mark.parametrize("width", [64, 128, 256, 512, 1024])
 @pytest.mark.parametrize("cross", [True, False], ids=["cross", "no_cross"])
 @pytest.mark.parametrize("N,blocks", [(130, 132), (130, 22), (130, 12), (130, 9),
                                       (128, 8)],
@@ -521,9 +528,10 @@ def test_block_kernel_at_each_block_size(N, blocks, cross, width, monkeypatch):
     in every graph, and blocks with fewer tiles than others; phase B (the
     pair MLPs over blockIdx.z and the sum of their slabs, or the coordinate
     MLP alone) with the cross head on and off; every row moves.  At F = 512
-    the tiles have 2 rows (``ec.row_tile``): twice the tiles, the block
-    counts past 16 tiles a block refused by the wrapper's own grid, so
-    those cases take the fewest blocks that hold them."""
+    the tiles have 2 rows and at 1024 one (``ec.row_tile``): twice or four
+    times the tiles, the block counts past 16 tiles a block refused by the
+    wrapper's own grid, so those cases take the fewest blocks that hold
+    them."""
     tiles = 4 * -(-N // ec.row_tile(width))
     blocks = max(blocks, -(-tiles // ec.BLOCK_TILES_MAX))
     monkeypatch.setattr(ec, "_block_grid", lambda B, N, device, F: blocks)
@@ -593,7 +601,7 @@ def _gcl_ops(ins):
 GCL_KW = dict(cutoffs=CUTOFFS, attention=True, normalization_factor=100.0)
 
 
-@pytest.mark.parametrize("width", [64, 128, 256, 512])
+@pytest.mark.parametrize("width", [64, 128, 256, 512, 1024])
 @pytest.mark.parametrize("spread", [4.0, 1.0], ids=["clean", "collapsed"])
 def test_gcl_kernel_at_flagship_shapes(width, spread):
     """B = 16, N = 344 (24 ligand atoms): 1376 row tiles on 132 SMs; at
@@ -613,7 +621,7 @@ def test_gcl_kernel_is_deterministic():
                        ec.gcl_message_agg(*ops, **GCL_KW))
 
 
-@pytest.mark.parametrize("width", [64, 128, 256, 512])
+@pytest.mark.parametrize("width", [64, 128, 256, 512, 1024])
 @pytest.mark.parametrize("spread", [4.0, 1.0], ids=["clean", "collapsed"])
 def test_gcl_bwd_kernel_at_flagship_shapes(width, spread):
     """The GCL backward kernel (3xTF32 on the tensor cores) at N = 344 (24
@@ -684,14 +692,15 @@ def _coord_case(seed, B, width, spread, update_rows, cross, share=None):
         assert not got[:, update_rows:].any()
 
 
-@pytest.mark.parametrize("width", [64, 128, 256])
+@pytest.mark.parametrize("width", [64, 128, 256, 1024])
 @pytest.mark.parametrize("spread", [4.0, 1.0], ids=["clean", "collapsed"])
 @pytest.mark.parametrize("update_rows", [24, None], ids=["ligand_rows", "all_rows"])
 @pytest.mark.parametrize("cross", [True, False], ids=["cross", "no_cross"])
 def test_coord_kernel_at_flagship_shapes(width, spread, update_rows, cross):
     """B = 16, N = 344 (24 ligand atoms): the main path's 96 row tiles of
-    ligand rows, or all 1376; at ``spread`` 1 every pair passes the cutoffs,
-    so every chunk is full.  Two launches agree bit for bit."""
+    ligand rows, or all 1376 (at F = 1024 one row a tile: 384 or 5504);
+    at ``spread`` 1 every pair passes the cutoffs, so every chunk is full.
+    Two launches agree bit for bit."""
     _coord_case(28, 16, width, spread, update_rows, cross)
 
 
@@ -716,7 +725,7 @@ def test_coord_kernel_at_the_joint_chain_batch(spread):
     _coord_case(29, 8, 256, spread, None, True)
 
 
-@pytest.mark.parametrize("width", [64, 128, 256, 512])
+@pytest.mark.parametrize("width", [64, 128, 256, 512, 1024])
 @pytest.mark.parametrize("spread", [4.0, 1.0], ids=["clean", "collapsed"])
 @pytest.mark.parametrize("update_rows", [24, None], ids=["ligand_rows", "all_rows"])
 def test_coord_bwd_kernel_at_flagship_shapes(width, spread, update_rows):
@@ -774,7 +783,7 @@ def _only_tier(name, tier, launches=1):
         assert ec.tier_launch_counts[f"{name}[{t}]"] == (launches if t == tier else 0), t
 
 
-@pytest.mark.parametrize("width", [64, 128, 256, 512])
+@pytest.mark.parametrize("width", [64, 128, 256, 512, 1024])
 @pytest.mark.parametrize("tier", ["tf32x2", "bf16"])
 def test_tiered_forward_kernels_match_plain(tier, width):
     main, extra = _inputs(20, F=width, w_scale=None)
@@ -797,7 +806,7 @@ def test_tiered_forward_kernels_match_plain(tier, width):
         ec.coord_update_agg_plain(*main.values(), extra["w3"], **ckw), tier)
 
 
-@pytest.mark.parametrize("width", [64, 128, 256, 512])
+@pytest.mark.parametrize("width", [64, 128, 256, 512, 1024])
 @pytest.mark.parametrize("tier", ["tf32x2", "bf16"])
 def test_tiered_backward_kernels_match_plain(tier, width):
     main, extra = _inputs(22, F=width, w_scale=None)
@@ -846,7 +855,7 @@ def test_autograd_runs_the_backward_tier(tier):
                             {"da_row": exact[0]}, tier)
 
 
-@pytest.mark.parametrize("width", [64, 128, 256, 512])
+@pytest.mark.parametrize("width", [64, 128, 256, 512, 1024])
 @pytest.mark.parametrize("tier", ["tf32x2", "bf16"])
 def test_tiered_block_kernel_matches_plain(tier, width):
     """The whole-block kernel's library at each reduced tier against the
@@ -928,9 +937,10 @@ def test_kernel_bwd_xla_launches_no_backward_kernel():
 # hidden widths the kernels are not built for: zero-padded to the next one
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("width", [96, 192, 384, 448])
+@pytest.mark.parametrize("width", [96, 192, 384, 448, 640, 896])
 def test_padded_widths_match_plain(width):
-    """96 runs at 128, 192 at 256, 384 and 448 at 512 (``ec.padded_width``):
+    """96 runs at 128, 192 at 256, 384 and 448 at 512, 640 and 896 at 1024
+    (``ec.padded_width``):
     each of the five wrappers against its plain version at the true width,
     one launch each, every output and cotangent at the true width."""
     main, extra = _inputs(50, F=width, w_scale=None)
@@ -984,15 +994,15 @@ def test_padded_width_network_matches_cpu():
 
 
 def test_width_above_256_is_refused():
-    """Widths above 256 run on the F = 512 kernels up to 512; 640 is wider
-    than any kernel: a ValueError naming the ROADMAP item, before any
-    launch."""
-    main, extra = _inputs(53, F=640)
-    ins = block_inputs(54, F=640)
+    """Widths above 256 run on the F = 512 and 1024 kernels up to 1024; 1088
+    is wider than any kernel: a ValueError naming the ROADMAP item, before
+    any launch."""
+    main, extra = _inputs(53, F=1088)
+    ins = block_inputs(54, F=1088)
     ec.reset_launch_counts()
-    with pytest.raises(ValueError, match="above 512.*ROADMAP"):
+    with pytest.raises(ValueError, match="above 1024.*ROADMAP"):
         ec.gcl_message_agg(*main.values(), extra["w_att"], extra["b_att"], cutoffs=CUTOFFS,
                            attention=True, normalization_factor=100.0)
-    with pytest.raises(ValueError, match="above 512.*ROADMAP"):
+    with pytest.raises(ValueError, match="above 1024.*ROADMAP"):
         ec.block_fused(*ins, **BLOCK_KW)
     assert not any(ec.launch_counts.values())

@@ -190,19 +190,19 @@ def test_wrapper_counts_no_launch_on_cpu():
 
 
 @pytest.mark.parametrize("width", [32, 64, 96, 128, 160, 192, 224, 256, 320, 384, 448,
-                                   512, 640, 1024])
+                                   512, 640, 768, 896, 1024, 1088, 2048])
 def test_kernel_widths(width):
     """The kernels are built for hidden widths 64, 128 (the config default),
-    256 and 512 (on tiles of two rows, ``ec.row_tile``); every other width up
-    to 512 runs zero-padded to the next of them, and a wider one is refused
-    before a launch, naming the ROADMAP item, never run by the plain version
-    on the card."""
-    assert ec.SUPPORTED_F == (64, 128, 256, 512)
-    assert [ec.row_tile(f) for f in ec.SUPPORTED_F] == [4, 4, 4, 2]
+    256, 512 and 1024 (on tiles of two rows and one, ``ec.row_tile``); every
+    other width up to 1024 runs zero-padded to the next of them, and a wider
+    one is refused before a launch, naming the ROADMAP item, never run by the
+    plain version on the card."""
+    assert ec.SUPPORTED_F == (64, 128, 256, 512, 1024)
+    assert [ec.row_tile(f) for f in ec.SUPPORTED_F] == [4, 4, 4, 2, 1]
     for name in ec.KERNELS:
         text = (ec.CSRC / f"{name}.cu").read_text()
         assert all(f"case {f}: return launch<{f}>(" in text for f in ec.SUPPORTED_F), name
-    if width <= 512:
+    if width <= 1024:
         want = min(f for f in ec.SUPPORTED_F if f >= width)
         assert ec.padded_width(width, "gcl_message_agg") == want
         w2 = torch.ones(width, width)
@@ -210,5 +210,5 @@ def test_kernel_widths(width):
         assert padded.shape == (want, want) and padded.sum() == width * width
     else:
         with pytest.raises(ValueError,
-                           match=f"feature width {width} above 512.*widths above 512"):
+                           match=f"feature width {width} above 1024.*widths above 1024"):
             ec.padded_width(width, "gcl_message_agg")

@@ -1,6 +1,7 @@
 """Hidden widths the kernels are not built for, zero-padded to the next one
 they are (``ec.padded_width``: 32 -> 64, 96 -> 128, 192 -> 256, 320 and 384
--> 512), and the widest built width, 512, unpadded, on the CPU.
+-> 512, 640 -> 1024), and the two widest built widths, 512 and 1024,
+unpadded, on the CPU.
 
 On the card the wrappers pad every operand's width axes
 (``ec.pad_operands``), run the kernel at the padded width and cut the
@@ -20,8 +21,9 @@ compute what the kernels do:
   block's ``ec.BLOCK_TIER_GATES``), the backward plain versions included.
 
 B = 2, N = 20 (8 ligand nodes), one numpy seed a width.  Widths 320 to 512
-are the F = 512 kernels' (on tiles of two rows on the card), which the
-plain versions compute at any width.
+are the F = 512 kernels' (on tiles of two rows on the card), 640 and 1024
+the F = 1024 kernels' (tiles of one row), which the plain versions compute
+at any width.
 """
 import functools
 
@@ -35,7 +37,7 @@ from diffsbdd_tpu.ops.egnn_block_fused import block_fused_xla
 from diffsbdd_tpu_torch.ops import egnn_cuda as ec
 
 B, N, NL = 2, 20, 8
-WIDTHS = (32, 96, 192, 320, 384, 512)
+WIDTHS = (32, 96, 192, 320, 384, 512, 640, 1024)
 TOL = dict(atol=1e-5, rtol=1e-4)
 CUTOFFS = (None, 5.0, 5.0)
 GCL_KW = dict(cutoffs=CUTOFFS, attention=True, normalization_factor=100.0)
