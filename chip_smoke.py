@@ -13,7 +13,7 @@ Phases (any failure ends the run with a non-zero exit code):
      library only its tier's HMMA (TF32 or bf16), as many as its passes:
      2xTF32 2/3 of 3xTF32's TF32 HMMA, bf16 1/6 of them in the forward and
      whole-block kernels (between 1/6 and 1/3 in the backward ones, whose
-     dW2 loop is not unrolled); every F = 64, 128 and 256 function of the
+     dW2 loop is not unrolled); every F = 64 to 1024 function of the
      five 3xTF32 libraries' SASS against its recorded digest
      (``PARENT_SASS``, same nvcc);
   3. each forward kernel against its plain PyTorch twin at the flagship shapes
@@ -207,19 +207,32 @@ Phases (any failure ends the run with a non-zero exit code):
      row), as 20h: the five kernels at F = 1024 and every tier at phases 3,
      3b and 3c's main shapes (the forward plain versions in batch slices of
      4), width 768 run padded, the flagship's shape at hidden 1024 sampled
-     (16 x 24, T = 20: 166 / 126 launches), trained a step at batch 16 (6
+     (16 x 24, T = 10: 86 / 66 launches), trained a step at batch 16 (6
      launches of each split kernel) and sampled as a joint model with block
-     fusing (8 x 24, T = 20: 126 launches), hidden 768 sampled, width 1088
-     refused before any launch; the dW2 step's share of gcl_agg_bwd at
+     fusing (8 x 24, T = 10: 66 launches), hidden 768 sampled; the dW2
+     step's share of gcl_agg_bwd at
      F = 512 and 1024 (a build of it with -DEGNN_SKIP_DW2, timed through
      the same wrapper); and how the 3xTF32 error grows with K: the five
      kernels against their float64 plain versions at F = 256, 512 and
      1024, and gcl_agg at 1024 from a build without the step sums
-     (-DEGNN_NO_STEP_SUMS).
+     (-DEGNN_NO_STEP_SUMS).  20j: hidden widths 1025-2048 on the two
+     forward split kernels at F = 2048, each row tile on a cluster of two
+     blocks: gcl_agg (full graph, collapsed) and coord_agg (ligand rows
+     with the cross branch on and off, every row at B = 8) at every tier at
+     phase 3's shapes against their plain versions (batch slices of 2; the
+     tier gates; the cluster dimension each launch used; ms, bound,
+     registers, spills, shared memory), widths 1088 and 1536 run padded
+     (one launch each), the flagship's shape at hidden 2048 and 1536 from
+     seeded random weights sampled (16 x 24, T = 10: 86 / 66 launches), the
+     joint model at hidden 2048 sampled with block fusing off (8 x 24,
+     T = 5), and the refusals before any launch: width 2112 in both forward
+     wrappers, 1088 in both backward wrappers and in block_fused, and a
+     hidden-1088 train step with the backward kernels.
 
 Prints a {"kernels": [...]} line (the five kernels, then the same five at
 F=128 from phase 19, then the five kernels at 2xTF32 and bf16 from phase
-20, then the five at F=512 from phase 20h and at F=1024 from phase 20i)
+20, then the five at F=512 from phase 20h and at F=1024 from phase 20i,
+then gcl_agg and coord_agg at F=2048 from phase 20j)
 and the card line, and as its last line
 {"ok": true, "device": {...}}.  The pocket, the samples and a summary.json go
 to ``--out`` (default chip_smoke_out/ in the repository).  Needs a CUDA card:
@@ -231,6 +244,7 @@ import argparse
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -404,12 +418,15 @@ def sass_counts(ec, name, opcodes, function=None, tier="tf32x3"):
 
 
 # the SASS digests (``sass_functions``) of every function the five 3xTF32
-# libraries had before the F = 1024 instantiations (the kernels at F = 64,
-# 128, 256 and 512 and the width-free summing kernels): recorded on the card
-# from a build of the sources as they stood before them (commit b7b3254);
-# and the nvcc that built them (the card machine's)
+# libraries had before the F = 2048 instantiations (the kernels at F = 64,
+# 128, 256, 512 and 1024 and the width-free summing kernels): recorded on
+# the card from builds of the sources as they stood before the F = 1024
+# instantiations (commit b7b3254) and, for F = 1024's, before the F = 2048
+# ones (commit 3ac0e94); and the nvcc that built them (the card machine's)
 PARENT_SASS_FUNCTIONS = {
     "gcl_agg": {
+        "_ZN43_GLOBAL__N_14gcl_agg_kernelILi1024EEEvN4egnn7GclArgsE":
+            "262c284a9e7a0d49910d2dcc2c29224a27b3b57894f76fe8434eca460b876d1c",
         "_ZN43_GLOBAL__N_14gcl_agg_kernelILi128EEEvN4egnn7GclArgsE":
             "730d534b55a3f772a8b79f2756f60d13dca8afab46533419648f59967a7608f6",
         "_ZN43_GLOBAL__N_14gcl_agg_kernelILi256EEEvN4egnn7GclArgsE":
@@ -420,6 +437,10 @@ PARENT_SASS_FUNCTIONS = {
             "70d7888e930840cfda5361f4df9caaef1a91bfc470f45d178456b773ca6e30ac",
     },
     "coord_agg": {
+        "_ZN45_GLOBAL__N_16coord_agg_kernelILi1024ELb0EEEvN4egnn9CoordArgsEPf":
+            "d47f9245ce1be58f8979e0d4f42346be5e39553d802283b19aa787d4442643c1",
+        "_ZN45_GLOBAL__N_16coord_agg_kernelILi1024ELb1EEEvN4egnn9CoordArgsEPf":
+            "6c3690d742ee0e99f16da461c857ccb55854afcb411f37775afbc41840f6e885",
         "_ZN45_GLOBAL__N_16coord_agg_kernelILi128ELb0EEEvN4egnn9CoordArgsEPf":
             "d852b1e615740ab6c21a4e8044840d8d11365410a4640bcee5d5cb780d9ab4e7",
         "_ZN45_GLOBAL__N_16coord_agg_kernelILi128ELb1EEEvN4egnn9CoordArgsEPf":
@@ -440,6 +461,8 @@ PARENT_SASS_FUNCTIONS = {
             "436cfdd5b3bf1ed3c806bb8323e361d20e910bc5f4dd0ee3d728a7f1ade8dd62",
     },
     "gcl_agg_bwd": {
+        "_ZN47_GLOBAL__N_18gcl_agg_bwd_kernelILi1024EEEvN4egnn10GclBwdArgsE":
+            "5833331ae612127554bf368cecea3d65e865ccf66f45d004392b56194b0979bb",
         "_ZN47_GLOBAL__N_18gcl_agg_bwd_kernelILi128EEEvN4egnn10GclBwdArgsE":
             "f9a2194647a8972ad2427c4ccf8a1ec4f6203e55f93e70e367855bce874f9c92",
         "_ZN47_GLOBAL__N_18gcl_agg_bwd_kernelILi256EEEvN4egnn10GclBwdArgsE":
@@ -452,6 +475,8 @@ PARENT_SASS_FUNCTIONS = {
             "9efdeac766b91eb4db11842e9aa1cef231b9e8b2cd5fb3ae8ade646d929c8a23",
     },
     "coord_agg_bwd": {
+        "_ZN49_GLOBAL__N_20coord_agg_bwd_kernelILi1024EEEvNS_12CoordBwdArgsE":
+            "ad14a6baa9412a818234010db6080f1c8103a8f54dfcc5792bc21712f460ce18",
         "_ZN49_GLOBAL__N_20coord_agg_bwd_kernelILi128EEEvNS_12CoordBwdArgsE":
             "8dd38a40dc446c71001ffb83fe325f38d6a9f5ddcf6e9dd8ed9aaa3f6f0b0383",
         "_ZN49_GLOBAL__N_20coord_agg_bwd_kernelILi256EEEvNS_12CoordBwdArgsE":
@@ -464,6 +489,12 @@ PARENT_SASS_FUNCTIONS = {
             "9efdeac766b91eb4db11842e9aa1cef231b9e8b2cd5fb3ae8ade646d929c8a23",
     },
     "block_fused": {
+        "_ZN47_GLOBAL__N_13block_phase_aILi1024EEEvNS_6PhaseAE":
+            "fd249cd938f63c9dd3765860c190c547a07f54df7a504e62c540524c577f6c53",
+        "_ZN47_GLOBAL__N_13block_phase_bILi1024ELb0EEEvN4egnn9CoordArgsEPf":
+            "d47f9245ce1be58f8979e0d4f42346be5e39553d802283b19aa787d4442643c1",
+        "_ZN47_GLOBAL__N_13block_phase_bILi1024ELb1EEEvN4egnn9CoordArgsEPf":
+            "6c3690d742ee0e99f16da461c857ccb55854afcb411f37775afbc41840f6e885",
         "_ZN47_GLOBAL__N_13block_phase_aILi128EEEvNS_6PhaseAE":
             "073b3a56f5e7e5434ede0fbd4b56d0531a55034b43534a344c3056304bcc9972",
         "_ZN47_GLOBAL__N_13block_phase_aILi256EEEvNS_6PhaseAE":
@@ -2419,9 +2450,9 @@ DENSE_TRAIN_BATCH = 4
 
 
 def ptxas_usage(logs, width):
-    """Registers and spills of every entry function instantiated at
-    ``width``, from nvcc's ``-Xptxas -v`` output: {kernel: [{function,
-    registers, spill_stores, spill_loads}]}."""
+    """Registers, spills and static shared memory of every entry function
+    instantiated at ``width``, from nvcc's ``-Xptxas -v`` output: {kernel:
+    [{function, registers, spill_stores, spill_loads, static_smem}]}."""
     usage = {}
     for name, log in logs.items():
         funcs = re.split(r"Compiling entry function '", log)[1:]
@@ -2431,10 +2462,12 @@ def ptxas_usage(logs, width):
                 continue
             regs = re.search(r"Used (\d+) registers", body)
             spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", body)
+            smem = re.search(r"(\d+) bytes smem", body)
             short = re.sub(r"^_ZN\d+_GLOBAL__N__\w+?_cu_[0-9a-f]+\d+", "", fn)
             usage.setdefault(name, []).append(dict(
                 function=short, registers=int(regs.group(1)),
-                spill_stores=int(spill.group(1)), spill_loads=int(spill.group(2))))
+                spill_stores=int(spill.group(1)), spill_loads=int(spill.group(2)),
+                static_smem=int(smem.group(1)) if smem else 0))
     return usage
 
 
@@ -3628,7 +3661,7 @@ PADDED_TIERS = ("tf32x3", "bf16")
 PADDED_CHAIN = dict(n=16, T=50)  # a hidden-192 chain beside a hidden-256 one
 
 
-def padded_kernel_phase(ec, torch, dev, flagship, width):
+def padded_kernel_phase(ec, torch, dev, flagship, width, names=None):
     """Phase 20e, the kernels at a hidden width they are not built for: the
     five wrappers at ``width`` (zero-padded to ``ec.padded_width(width)``)
     at 3xTF32 and bf16 on a phase-3 complex of B = 2 (24 + 300 atoms, cross
@@ -3636,7 +3669,8 @@ def padded_kernel_phase(ec, torch, dev, flagship, width):
     at ``width`` and that tier: the split kernels on ``ec.TIER_GATES``, the
     whole block on ``ec.BLOCK_TIER_GATES`` (as in 20a; at bf16 the norm gate
     against float32's plain version at ``width``); one launch of that tier's
-    library each, outputs and cotangents at ``width``."""
+    library each, outputs and cotangents at ``width``.  ``names``: only these
+    kernels (all five when None)."""
     cfg = dict(flagship, egnn_params=dict(flagship["egnn_params"], hidden_nf=width))
     inp = kernel_inputs(torch, dev, cfg, 2, 24, with_delta=True, seed=5)
     B, N, F, NL = inp["B"], inp["N"], inp["F"], inp["NL"]
@@ -3676,6 +3710,8 @@ def padded_kernel_phase(ec, torch, dev, flagship, width):
                 "block_fused": ec.block_fused}
     results = {}
     for name, call in calls.items():
+        if names is not None and name not in names:
+            continue
         exact = call(plains[name], "tf32x3")
         for tier in PADDED_TIERS:
             gate = (ec.BLOCK_TIER_GATES if name == "block_fused" else ec.TIER_GATES)[tier]
@@ -3715,6 +3751,8 @@ def padded_kernel_phase(ec, torch, dev, flagship, width):
                        f"gate {gate['moved']}")
             results[f"{name}[{tier}]"] = dict(width=width, run_at=ec.padded_width(width),
                                               gate_share=share, moved_share=moved_share)
+            if name in ("gcl_agg", "coord_agg"):
+                results[f"{name}[{tier}]"]["cluster_dim"] = ec.last_cluster_dim(name, tier)
             print(f"  {what}: 1 launch of {name}[{tier}]; error {share:.2e} of the largest "
                   f"entry" + ("" if gate["moved"] is None else
                               f", error norm {moved_share:.4f} of the tier's move "
@@ -3806,10 +3844,9 @@ WIDE_CHAIN = dict(n=16, T=20)
 # the F = 512 kernels' 3xTF32 target: error within this share of the plain
 # version's largest entry (reported beside the binding gates, TIER_GATES)
 WIDE_3XTF32_SHARE = 5e-6
-WIDEST = 1024  # the widest built width (ec.SUPPORTED_F), on tiles of one row
+WIDEST = 1024  # the widest width all five kernels are built for, tiles of one row
 WIDEST_PADDED = (768,)  # run on the F = 1024 kernels
-WIDEST_CHAIN = dict(n=16, T=20)
-REFUSED_WIDTH = 1088  # wider than any kernel: refused before a launch
+WIDEST_CHAIN = dict(n=16, T=10)  # shorter than 20h's: phase 20j shares the time limit
 # phase 20i's measurement builds, started after phase 2: (kernel, define,
 # library) -- the GCL backward without its dW2 step (its output's dW2 stays
 # zero), and the GCL forward at F = 1024 without the step sums
@@ -3934,8 +3971,7 @@ def float64_shares(ec, torch, dev, flagship, width, names=None):
 
 
 def wide_width_phase(torch, ec, dev, flagship, logs, work, pdb, ref_lig, card,
-                     width=WIDE, padded=WIDE_PADDED, chain=WIDE_CHAIN, label="20h",
-                     refused=None):
+                     width=WIDE, padded=WIDE_PADDED, chain=WIDE_CHAIN, label="20h"):
     """Phases 20h and 20i, the widths above 256 on the F = ``width``
     kernels (512: tiles of two rows; 1024: of one).  (a) the five kernels
     at F = ``width`` and every tier on phases 3, 3b and 3c's main shapes
@@ -3951,7 +3987,7 @@ def wide_width_phase(torch, ec, dev, flagship, logs, work, pdb, ref_lig, card,
     at batch 16 (6 launches of each split kernel, forward and backward; ms a
     step), the joint model's chain with block fusing on (8 x 24, the same T:
     6T + 6 whole-block launches), and the chain again at hidden
-    ``padded[0]``.  (d) width ``refused`` refused before any launch."""
+    ``padded[0]``."""
     from diffsbdd_tpu_torch.checkpoint import load_model
     from diffsbdd_tpu_torch.data.dataset import LigandPocketDataset, PaddedLoader
     from diffsbdd_tpu_torch.diffusion.ddpm import JointDDPM
@@ -4060,29 +4096,270 @@ def wide_width_phase(torch, ec, dev, flagship, logs, work, pdb, ref_lig, card,
     print(f"  {card}: hidden {width} joint chain, {JOINT_SAMPLES} x 24 atoms, T={T}, block "
           f"fusing on: {res['joint']['ms_per_pass']:.2f} ms a pass, launches {launches}")
 
-    if refused is not None:
-        ec.reset_launch_counts()
-        inp = kernel_inputs(torch, dev, model(refused), 2, 24)
-        for name, call in (("gcl_agg", lambda: ec.gcl_message_agg(
-                *(inp[k] for k in ("a_row", "a_col", "x", "x0", "mask", "is_lig")),
-                *inp["gcl_w"].values(), cutoffs=inp["cut"], attention=True,
-                normalization_factor=100.0)),
-                ("block_fused", lambda: ec.block_fused(
-                    *block_operands(inp), cutoffs=inp["cut"], attention=True, tanh=True,
-                    coords_range=15.0, norm_constant=1.0, normalization_factor=100.0))):
-            try:
-                call()
-                msg = ""
-            except ValueError as err:
-                msg = str(err)
-            _check(f"above {WIDEST}" in msg and "ROADMAP" in msg,
-                   f"width {refused} {name} did not raise naming the ROADMAP item: {msg!r}")
-            res[f"width_{refused}_{name}"] = msg
-            print(f"  width {refused} {name}: raises '{msg[:100]}'")
-        _check(not any(ec.launch_counts.values()), "a refused call launched a kernel")
-        del inp
     res["phase_s"] = time.perf_counter() - t0
     print(f"  phase {label} took {res['phase_s']:.1f} s")
+    return res
+
+
+CLUSTER_WIDTH = 2048  # the forward split kernels' widest: a row tile on two blocks
+CLUSTER_KERNELS = ("gcl_agg", "coord_agg")
+CLUSTER_PADDED = (1088, 1536)  # run on the F = 2048 kernels (ec.padded_width)
+CLUSTER_CHAIN = dict(n=16, T=10)
+CLUSTER_JOINT = dict(n=JOINT_SAMPLES, T=5)
+CLUSTER_PLAIN_STEP = 2  # graphs a slice of the plain versions: 1.9 GB a (2, 344, 344, 2048) tensor
+REFUSED_FORWARD = 2112  # wider than the forward kernels
+REFUSED_BACKWARD = 1088  # wider than the backward kernels and block_fused
+
+
+def cluster_kernel_phase(ec, torch, dev, flagship, logs):
+    """Phase 20j (a): ``gcl_agg`` and ``coord_agg`` at F = 2048 (each row
+    tile on a cluster of two blocks) at every tier, at phase 3's shapes:
+    ``gcl_agg`` on the full graph and the collapsed complex (B = 16, 24 +
+    320 atoms), ``coord_agg`` on ligand rows with the cross branch on and
+    off and on every row of the joint chain's batch (B = 8).  Each variant
+    against its plain version at the tier (batch slices of
+    ``CLUSTER_PLAIN_STEP`` graphs) within ``ec.TIER_GATES``, the reduced
+    tiers' error norm against their move from the 3xTF32 kernel's output;
+    two launches bit for bit; the cluster dimension each launch used;
+    CUDA-event ms of kernel and plain version, the tier's bound; the
+    instantiations' registers, spills and shared memory a block."""
+    cfg = dict(flagship, egnn_params=dict(flagship["egnn_params"], hidden_nf=CLUSTER_WIDTH))
+    NL = 24
+    inputs = {"full": kernel_inputs(torch, dev, cfg, 16, NL),
+              "collapsed": kernel_inputs(torch, dev, cfg, 16, NL, seed=9, spread=1.0),
+              "b8": kernel_inputs(torch, dev, cfg, JOINT_SAMPLES, NL, seed=10)}
+    node = ("a_row", "a_col", "x", "x0", "mask", "is_lig")
+
+    def gcl(i):
+        def call(fn, tier, sl=slice(None)):
+            return fn(*(i[k][sl] for k in node), *i["gcl_w"].values(), cutoffs=i["cut"],
+                      attention=True, normalization_factor=100.0, precision=tier)
+        return call
+
+    def coord(i, cross, rows):
+        def call(fn, tier, sl=slice(None)):
+            kw = {}
+            if cross:
+                kw = dict(cross={k: (v[sl] if k in ("a_row", "a_col") else v)
+                                 for k, v in i["cross"].items()},
+                          graph_mean=i["graph_mean"][sl])
+            return fn(*(i[k][sl] for k in node), *i["coord_w"], cutoffs=i["cut"], tanh=True,
+                      coords_range=15.0, norm_constant=1.0, normalization_factor=100.0,
+                      update_rows=rows, precision=tier, **kw)
+        return call
+
+    full, dense, b8 = inputs["full"], inputs["collapsed"], inputs["b8"]
+    N, F = full["N"], CLUSTER_WIDTH
+    variants = {  # (kernel, call, batch, work)
+        "full": ("gcl_agg", gcl(full), 16,
+                 work_bounds(active_pairs(ec, full), 16, N, F, 1, N, F)),
+        "full_collapsed": ("gcl_agg", gcl(dense), 16,
+                           work_bounds(active_pairs(ec, dense), 16, N, F, 1, N, F)),
+        "ligand_rows_cross": ("coord_agg", coord(full, True, NL), 16,
+                              work_bounds(active_pairs(ec, full, rows=NL), 16, N, F, 2, NL, 3)),
+        "ligand_rows_nocross": ("coord_agg", coord(full, False, NL), 16,
+                                work_bounds(active_pairs(ec, full, rows=NL), 16, N, F, 1, NL,
+                                            3)),
+        "all_rows_cross_b8": ("coord_agg", coord(b8, True, None), JOINT_SAMPLES,
+                              work_bounds(active_pairs(ec, b8), JOINT_SAMPLES, N, F, 2, N, 3))}
+    wrappers = {"gcl_agg": ec.gcl_message_agg, "coord_agg": ec.coord_update_agg}
+    plains = {"gcl_agg": ec.gcl_message_agg_plain, "coord_agg": ec.coord_update_agg_plain}
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    res = {}
+    for v, (name, call, B, work) in variants.items():
+        base = None
+        for tier in ec.TIERS:
+            gate = ec.TIER_GATES[tier]
+            what = f"{name}[{tier}] F={F} {v}"
+            ec.reset_launch_counts()
+            got, again = call(wrappers[name], tier), call(wrappers[name], tier)
+            cluster = ec.last_cluster_dim(name, tier)
+            launched = {k: n for k, n in ec.tier_launch_counts.items() if n}
+            _check(launched == {f"{name}[{tier}]": 2},
+                   f"{what}: launched {launched}, not its tier's library")
+            _check(cluster == 2, f"{what}: cluster dimension {cluster}, not 2")
+            start.record()
+            ref = torch.cat([call(plains[name], tier, slice(b, b + CLUSTER_PLAIN_STEP))
+                             for b in range(0, B, CLUSTER_PLAIN_STEP)], 0)
+            end.record()
+            torch.cuda.synchronize()
+            plain_ms = start.elapsed_time(end)
+            err = float((got - ref).abs().max())
+            scale = float(ref.abs().max())
+            limit = 1e-5 + 1e-4 * ref.abs() + gate["share"] * scale
+            _check(bool(torch.isfinite(got).all()) and bool(((got - ref).abs() <= limit).all()),
+                   f"{what}: error {err:.3e} over its gate (largest entry {scale:.3e})")
+            _check(torch.equal(got, again), f"{what}: two launches differ")
+            moved_share = 0.0 if base is None else ec.tier_moved_share(got, ref, base)
+            if gate["moved"] is not None:
+                _check(moved_share <= gate["moved"],
+                       f"{what}: error norm {moved_share:.3f} of the tier's move, "
+                       f"gate {gate['moved']}")
+            base = got if base is None else base
+            ms = _cuda_ms(lambda: call(wrappers[name], tier), 3)
+            bound_ms, bound_by = tier_bound(work["flops"], work["bytes"], tier)
+            res[f"{name}[{tier}]:{v}"] = dict(
+                kernel=name, tier=tier, variant=v, width=F, batch=B, cluster_dim=cluster,
+                max_abs_err=err, gate_share=err / (scale + 1e-30), moved_share=moved_share,
+                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                pairs=work["pairs"], flops=work["flops"])
+            print(f"  {what}: cluster of {cluster}, {ms:.3f} ms (plain {plain_ms:.1f} ms), "
+                  f"bound {bound_ms:.4f} ms ({bound_by}, {100 * bound_ms / ms:.1f}%); error "
+                  f"{err / (scale + 1e-30):.2e} of the largest entry"
+                  + ("" if gate["moved"] is None else
+                     f", error norm {moved_share:.4f} of the tier's move"))
+            del got, again, ref
+        if base is not None:
+            del base
+    usage = ptxas_usage(logs, F)
+    smem = {"dynamic": 4 * (16 * (F + 4) + 2 * 8 * (F // 2 + 8)) + 4 * N}
+    for name in CLUSTER_KERNELS:
+        _check(name in usage, f"{name} has no instantiation at F = {F}")
+        for u in usage[name]:
+            print(f"  {name} F={F} {u['function'][:60]}: {u['registers']} registers, spill "
+                  f"stores {u['spill_stores']} B, loads {u['spill_loads']} B; shared memory "
+                  f"{smem['dynamic']} B dynamic (N = {N}) + {u['static_smem']} B static")
+    for name in ("gcl_agg_bwd", "coord_agg_bwd", "block_fused"):
+        _check(name not in usage, f"{name} is instantiated at F = {F}")
+    del inputs, full, dense, b8
+    torch.cuda.empty_cache()
+    return {"variants": res, "ptxas": {k: usage[k] for k in CLUSTER_KERNELS},
+            "smem_dynamic": smem["dynamic"]}
+
+
+def cluster_width_phase(torch, ec, dev, flagship, logs, work, pdb, ref_lig, card):
+    """Phase 20j, hidden widths 1025-2048 on the forward split kernels at
+    F = 2048 (a row tile on a cluster of two blocks; the backward kernels
+    and ``block_fused`` stay at 1024).  (a) ``cluster_kernel_phase``.  (b)
+    ``padded_kernel_phase`` of the two forward kernels at each of
+    ``CLUSTER_PADDED``: one launch of each wrapper's library at 3xTF32 and
+    bf16, on a cluster of two.  (c) the flagship's shape from seeded random
+    weights: cli.generate_ligands at hidden 2048 and 1536 (16 x 24 on phase
+    5's pocket, ``CLUSTER_CHAIN``'s T: 8T + 6 and 6T + 6 launches), and the
+    joint model at hidden 2048 with block fusing off (``CLUSTER_JOINT``: 6
+    launches of each split kernel a pass).  (d) refusals, each before any
+    launch: width ``REFUSED_FORWARD`` in both forward wrappers,
+    ``REFUSED_BACKWARD`` in both backward wrappers and in ``block_fused``,
+    and a hidden-``REFUSED_BACKWARD`` train step with the backward
+    kernels."""
+    from diffsbdd_tpu_torch.config import load_config
+    from diffsbdd_tpu_torch.data.dataset import LigandPocketDataset, PaddedLoader
+    from diffsbdd_tpu_torch.diffusion.ddpm import JointDDPM
+    from diffsbdd_tpu_torch.train import loop
+    from diffsbdd_tpu_torch.train.module import build_module_from_config
+    t0 = time.perf_counter()
+    res = {"card": card, "kernels": cluster_kernel_phase(ec, torch, dev, flagship, logs)}
+    res["padded"] = {w: padded_kernel_phase(ec, torch, dev, flagship, w, names=CLUSTER_KERNELS)
+                     for w in CLUSTER_PADDED}
+    for w, r in res["padded"].items():
+        for key, entry in r.items():
+            _check(entry["cluster_dim"] == 2, f"width {w} {key}: cluster {entry['cluster_dim']}")
+
+    def model(width, **over):
+        return dict(flagship, **over, egnn_params=dict(flagship["egnn_params"],
+                                                       hidden_nf=width))
+
+    chain = CLUSTER_CHAIN
+    want = chain_launches(ec, 6, chain["T"])
+    res["chain"] = {}
+    for hidden in (CLUSTER_WIDTH, CLUSTER_PADDED[-1]):
+        ckpt = _random_checkpoint(torch, model(hidden), None, work / f"cluster{hidden}")[0]
+        sdf = work / f"cluster{hidden}.sdf"
+        wall, sample_s, launches, by_tier, xh = _captured_generate(
+            torch, ec, [ckpt, "--pdbfile", pdb, "--ref_ligand", ref_lig, "--outfile", sdf,
+                        "--n_samples", chain["n"], "--num_nodes_lig", 24, "--all_frags",
+                        "--timesteps", chain["T"]])
+        _check(launches == want, f"the hidden-{hidden} chain launched {launches}, not {want}")
+        _check(bool(torch.isfinite(xh).all()), f"the hidden-{hidden} chain's samples")
+        mols = _sdf_molecules(sdf)
+        _check(0 < len(mols) <= chain["n"], f"the hidden-{hidden} chain wrote {len(mols)}")
+        res["chain"][hidden] = dict(chain, run_at=ec.padded_width(hidden), launches=launches,
+                                    ms_per_pass=1e3 * sample_s / (chain["T"] + 1),
+                                    sample_s=sample_s, wall_s=wall, molecules=len(mols))
+        print(f"  {card}: hidden {hidden} (kernels at {ec.padded_width(hidden)}), "
+              f"{chain['n']} x 24 atoms, T={chain['T']}: "
+              f"{res['chain'][hidden]['ms_per_pass']:.2f} ms a pass, CLI wall {wall:.2f} s, "
+              f"launches {launches}, {len(mols)} molecules")
+        shutil.rmtree(work / f"cluster{hidden}", ignore_errors=True)
+
+    T = CLUSTER_JOINT["T"]
+    ckpt = _random_checkpoint(torch, model(CLUSTER_WIDTH, mode="joint",
+                                           tpu={"kernel_block_fuse": False}),
+                              None, work / "cluster_joint")[0]
+    passes = len(JointDDPM._repaint_plan(1, 1, T)[0]) + 1
+    sdf = work / "cluster_joint.sdf"
+    wall, sample_s, launches, by_tier, xh = _captured_generate(
+        torch, ec, [ckpt, "--pdbfile", pdb, "--ref_ligand", ref_lig, "--outfile", sdf,
+                    "--n_samples", CLUSTER_JOINT["n"], "--num_nodes_lig", 24, "--all_frags",
+                    "--timesteps", T, "--resamplings", 1, "--jump_length", 1], joint=True)
+    want = {**dict.fromkeys(ec.KERNELS, 0), "gcl_agg": 6 * passes, "coord_agg": 6 * passes}
+    _check(launches == want,
+           f"the hidden-{CLUSTER_WIDTH} joint chain launched {launches}, not {want}")
+    _check(bool(torch.isfinite(xh).all()), f"the hidden-{CLUSTER_WIDTH} joint chain's samples")
+    res["joint"] = dict(CLUSTER_JOINT, launches=launches, sample_s=sample_s, wall_s=wall,
+                        ms_per_pass=1e3 * sample_s / passes)
+    print(f"  {card}: hidden {CLUSTER_WIDTH} joint chain, {CLUSTER_JOINT['n']} x 24 atoms, "
+          f"T={T}, block fusing off: {res['joint']['ms_per_pass']:.2f} ms a pass, "
+          f"launches {launches}")
+    shutil.rmtree(work / "cluster_joint", ignore_errors=True)
+
+    res["refusals"] = {}
+
+    def refused(key, call, names):
+        ec.reset_launch_counts()
+        try:
+            call()
+            msg = ""
+        except ValueError as err:
+            msg = str(err)
+        _check(all(n in msg for n in names), f"{key} did not raise naming {names}: {msg!r}")
+        _check(not any(ec.launch_counts.values()), f"{key} launched {ec.launch_counts}")
+        res["refusals"][key] = msg
+        print(f"  {key}: raises before any launch: '{msg[:110]}'")
+
+    node = ("a_row", "a_col", "x", "x0", "mask", "is_lig")
+    wide = kernel_inputs(torch, dev, model(REFUSED_FORWARD), 2, 24)
+    refused(f"gcl_agg_width_{REFUSED_FORWARD}", lambda: ec.gcl_message_agg(
+        *(wide[k] for k in node), *wide["gcl_w"].values(), cutoffs=wide["cut"],
+        attention=True, normalization_factor=100.0), ("above 2048", "ROADMAP"))
+    refused(f"coord_agg_width_{REFUSED_FORWARD}", lambda: ec.coord_update_agg(
+        *(wide[k] for k in node), *wide["coord_w"], cutoffs=wide["cut"], tanh=True,
+        coords_range=15.0, norm_constant=1.0, normalization_factor=100.0, update_rows=24,
+        cross=wide["cross"], graph_mean=wide["graph_mean"]), ("above 2048", "ROADMAP"))
+    del wide
+    inp = kernel_inputs(torch, dev, model(REFUSED_BACKWARD), 2, 24, with_delta=True)
+    w, B, N = inp["gcl_w"], inp["B"], inp["N"]
+    cross_b = {k: v for k, v in inp["cross"].items() if k != "type_bias"}
+    cross_b["delta"] = inp["cross_delta"]
+    refused(f"gcl_agg_bwd_width_{REFUSED_BACKWARD}", lambda: ec.gcl_agg_bwd(
+        inp["r"](B, N, REFUSED_BACKWARD), *(inp[k] for k in node), w["w_d2"], w["w_d20"],
+        inp["gcl_delta"], w["w2"], w["b2"], w["w_att"], w["b_att"], cutoffs=inp["cut"],
+        attention=True, normalization_factor=100.0), ("above 1024", "ROADMAP"))
+    refused(f"coord_agg_bwd_width_{REFUSED_BACKWARD}", lambda: ec.coord_agg_bwd(
+        inp["r"](B, N, 3), *(inp[k] for k in node), *inp["coord_w"][:2], inp["coord_delta"],
+        *inp["coord_w"][3:], cutoffs=inp["cut"], tanh=True, coords_range=15.0,
+        norm_constant=1.0, normalization_factor=100.0, cross=cross_b,
+        graph_mean=inp["graph_mean"], update_rows=24), ("above 1024", "ROADMAP"))
+    refused(f"block_fused_width_{REFUSED_BACKWARD}", lambda: ec.block_fused(
+        *block_operands(inp), cutoffs=inp["cut"], attention=True, tanh=True,
+        coords_range=15.0, norm_constant=1.0, normalization_factor=100.0),
+        ("above 1024", "ROADMAP"))
+    del inp
+    data = work / "data20j"
+    write_synthetic_dataset(data, 2, 1, seed=23, pocket_sizes=(250, 280), n_types=11)
+    batch = next(iter(PaddedLoader(LigandPocketDataset(data / "train.npz"), 2, shuffle=False)))
+    cfg = load_config(overrides=model(REFUSED_BACKWARD))
+    torch.manual_seed(0)
+    module = build_module_from_config(cfg, np.load(data / "size_distribution.npy")).to(dev)
+    module.train()
+    refused(f"train_step_hidden_{REFUSED_BACKWARD}", lambda: module.loss_fn(
+        None, loop.batch_to_device(batch["ligand"], dev),
+        loop.batch_to_device(batch["pocket"], dev), training=True),
+        ("above 1024", "the backward kernels"))
+    del module
+    torch.cuda.empty_cache()
+    res["phase_s"] = time.perf_counter() - t0
+    print(f"  phase 20j took {res['phase_s']:.1f} s")
     return res
 
 
@@ -4209,12 +4486,16 @@ def phase20(torch, ec, dev, flagship, logs, work, pdb, ref_lig, base, card, join
     print(f"[20i] hidden widths 513-1024 on the F = {WIDEST} kernels ({card})")
     res["widest"] = wide_width_phase(torch, ec, dev, flagship, logs, work, pdb, ref_lig, card,
                                      width=WIDEST, padded=WIDEST_PADDED, chain=WIDEST_CHAIN,
-                                     label="20i", refused=REFUSED_WIDTH)
+                                     label="20i")
     res["widest"]["dw2"] = dw2_share_phase(ec, torch, dev, flagship, builds["skip_dw2"],
                                            (WIDE, WIDEST))
     res["widest"]["error_growth"] = error_growth_phase(
         ec, torch, dev, flagship, builds["no_step_sums"],
         {WIDE: res["wide"]["float64_shares"], WIDEST: res["widest"]["float64_shares"]})
+    print(f"[20j] hidden widths 1025-2048 on the F = {CLUSTER_WIDTH} forward kernels, "
+          f"clusters of two blocks ({card})")
+    res["cluster"] = cluster_width_phase(torch, ec, dev, flagship, logs, work, pdb, ref_lig,
+                                         card)
     res["phase_s"] = time.perf_counter() - t20
     print(f"  phase 20 took {res['phase_s']:.1f} s")
     return res
@@ -4278,8 +4559,8 @@ def _phases(torch, ec, dev, out, card, logs, build_s, builds, t_start) -> int:
         _check(sass["HMMA"] > 0 and sass["LDGSTS"] > 0,
                f"{what} has no tensor-core or cp.async instructions")
     # every recorded function of the five 3xTF32 libraries (the kernels at
-    # F = 64, 128, 256 and 512) builds to the recorded SASS, instruction for
-    # instruction (same nvcc); the F = 1024 functions are new
+    # F = 64 to 1024) builds to the recorded SASS, instruction for
+    # instruction (same nvcc); the F = 2048 cluster functions are new
     release = nvcc_release(ec)
     for name in ec.KERNELS:
         if release != PARENT_SASS["nvcc"]:
@@ -4537,6 +4818,27 @@ def _phases(torch, ec, dev, out, card, logs, build_s, builds, t_start) -> int:
                 {"name": f"{name}[F={built}]", "route": "cuda", "source": sources[name][0],
                  "replaces": sources[name][1], "launches": max(counts.values()),
                  "launches_by_path": counts, **entry, "library_ms": None})
+    # gcl_agg and coord_agg at F = 2048 (3xTF32, a row tile on a cluster of
+    # two blocks), their launches on phase 20j's paths at hidden 1025-2048
+    cl = tiers["cluster"]
+    by_cluster_path = {
+        "cluster_sampling": cl["chain"][CLUSTER_WIDTH]["launches"],
+        f"cluster_padded_{CLUSTER_PADDED[-1]}_sampling": cl["chain"][CLUSTER_PADDED[-1]]["launches"],
+        "cluster_joint_sampling_unfused": cl["joint"]["launches"]}
+    cluster_entries = []
+    for name, main_variant in (("gcl_agg", "full"), ("coord_agg", "ligand_rows_cross")):
+        counts = {path: c[name] for path, c in by_cluster_path.items()}
+        _check(max(counts.values()) > 0, f"no hidden-{CLUSTER_WIDTH} path launched {name}")
+        runs = [e for e in cl["kernels"]["variants"].values()
+                if e["kernel"] == name and e["tier"] == ec.DEFAULT_TIER]
+        entry = cl["kernels"]["variants"][f"{name}[{ec.DEFAULT_TIER}]:{main_variant}"]
+        cluster_entries.append(
+            {"name": f"{name}[F={CLUSTER_WIDTH}]", "route": "cuda", "source": sources[name][0],
+             "replaces": sources[name][1], "launches": max(counts.values()),
+             "launches_by_path": counts,
+             "max_abs_err": max(e["max_abs_err"] for e in runs),
+             **{k: entry[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "cluster_dim",
+                                      "variant")}, "library_ms": None})
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": sources[name][0],
          "replaces": sources[name][1], "launches": launches[name],
@@ -4546,7 +4848,7 @@ def _phases(torch, ec, dev, out, card, logs, build_s, builds, t_start) -> int:
          "replaces": sources[name][1], "launches": width["default"]["launches"][name],
          "launches_by_path": {path: counts[name] for path, counts in by_path128.items()},
          **width["kernels"][name], "library_ms": None} for name in ec.KERNELS]
-        + tier_entries + wide_entries}, default=str))
+        + tier_entries + wide_entries + cluster_entries}, default=str))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

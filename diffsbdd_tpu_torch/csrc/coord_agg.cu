@@ -51,6 +51,10 @@
 //   fixed order close each chunk.
 // Rows >= update_rows are written as zeros (the conditional model updates
 // ligand rows only, and nodes are ligand-first).
+// F = 2048 runs each row tile and pair MLP on a cluster of two blocks, each
+// owning half of the MLP's features (egnn_cluster.cuh: the head summed over
+// the two blocks, the per-pair terms and row sums on rank 0).
+#include "egnn_cluster.cuh"
 #include "egnn_coord.cuh"
 
 namespace {
@@ -65,12 +69,51 @@ __global__ void __launch_bounds__(NT) coord_agg_kernel(CoordArgs g, float* parti
   coord_update_block<F, CROSS, mma::kTier>(g, partial, smem);
 }
 
+// F = 2048: row tile cluster_tile<F>() of batch item blockIdx.y on a cluster
+// of two blocks, the pair MLP of blockIdx.z as in coord_update_block.
+template <int F, bool CROSS>
+__global__ void __launch_bounds__(NT) coord_agg_cluster_kernel(CoordArgs g, float* partial) {
+  extern __shared__ __align__(16) float smem[];
+  const int i0 = cluster_tile<F>() * tile_rows<F>();
+  if constexpr (CROSS) {
+    g.out = partial + (size_t)blockIdx.z * gridDim.y * g.N * 3;
+    if (blockIdx.z == 0)
+      mma::coord_tile_cluster<F, false, mma::kTier>(g, blockIdx.y, i0, smem);
+    else
+      mma::coord_tile_cluster<F, true, mma::kTier>(g, blockIdx.y, i0, smem);
+  } else {
+    mma::coord_tile_cluster<F, false, mma::kTier>(g, blockIdx.y, i0, smem);
+  }
+  zero_rows_past_clusters<F>(g.out, (size_t)blockIdx.y * g.N, g.N, 3);
+}
+
+// launch_coord_update on clusters: the row tiles (times the 2 pair MLPs with
+// CROSS) in clusters of cluster_size<F>() blocks, then with CROSS the sum of
+// the two slabs into g.out.
+template <int F, bool CROSS>
+int launch_cluster_update(const CoordArgs& g, int B, float* partial, cudaStream_t stream) {
+  dim3 grid = row_tile_grid(g.N, g.update_rows, B, tile_rows<F>());
+  grid.x *= cluster_size<F>();
+  grid.z = CROSS ? 2 : 1;
+  const int err = launch_clusters<cluster_size<F>()>(
+      coord_agg_cluster_kernel<F, CROSS>, grid, mma::dynamic_smem<F>(g.N), stream, g, partial);
+  if (err != 0) return err;
+  if constexpr (CROSS) launch_add_partials(partial, (size_t)B * g.N * 3, g.out, stream);
+  return (int)cudaGetLastError();
+}
+
 template <int F>
 int launch(const CoordArgs& g, int B, float* partial, cudaStream_t stream) {
-  if (g.cross.a_row == nullptr)
-    return launch_coord_update<F, false>(coord_agg_kernel<F, false>, g, B, partial, stream);
-  if (partial == nullptr) return (int)cudaErrorInvalidValue;
-  return launch_coord_update<F, true>(coord_agg_kernel<F, true>, g, B, partial, stream);
+  if (g.cross.a_row != nullptr && partial == nullptr) return (int)cudaErrorInvalidValue;
+  if constexpr (cluster_size<F>() > 1) {
+    if (g.cross.a_row == nullptr) return launch_cluster_update<F, false>(g, B, partial, stream);
+    return launch_cluster_update<F, true>(g, B, partial, stream);
+  } else {
+    last_cluster_dim() = 1;
+    if (g.cross.a_row == nullptr)
+      return launch_coord_update<F, false>(coord_agg_kernel<F, false>, g, B, partial, stream);
+    return launch_coord_update<F, true>(coord_agg_kernel<F, true>, g, B, partial, stream);
+  }
 }
 
 }  // namespace
@@ -100,6 +143,7 @@ extern "C" int coord_agg_forward(
     case 256: return launch<256>(g, B, partial, s);
     case 512: return launch<512>(g, B, partial, s);
     case 1024: return launch<1024>(g, B, partial, s);
+    case 2048: return launch<2048>(g, B, partial, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

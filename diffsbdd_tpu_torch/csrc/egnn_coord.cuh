@@ -40,6 +40,13 @@ __global__ void add_partials(const float* partial, size_t n, float* out) {
     out[e] = partial[e] + partial[n + e];
 }
 
+// add_partials on `stream`: out = partial[0] + partial[1], n floats each.
+inline void launch_add_partials(const float* partial, size_t n, float* out,
+                                cudaStream_t stream) {
+  const int blocks = (int)((n + NT - 1) / NT < 1024 ? (n + NT - 1) / NT : 1024);
+  add_partials<<<blocks, NT, 0, stream>>>(partial, n, out);
+}
+
 // Launches `kernel`, whose blocks are coord_update_block<F, CROSS>, on the row
 // tiles below update_rows (times the 2 pair MLPs with CROSS), then with CROSS
 // the sum of the two slabs into g.out.  Returns the CUDA error code.
@@ -53,11 +60,7 @@ int launch_coord_update(void (*kernel)(CoordArgs, float*), const CoordArgs& g, i
   dim3 grid = row_tile_grid(g.N, g.update_rows, B, tile_rows<F>());
   grid.z = CROSS ? 2 : 1;
   kernel<<<grid, NT, smem, stream>>>(g, partial);
-  if constexpr (CROSS) {
-    const size_t n = (size_t)B * g.N * 3;
-    const int blocks = (int)((n + NT - 1) / NT < 1024 ? (n + NT - 1) / NT : 1024);
-    add_partials<<<blocks, NT, 0, stream>>>(partial, n, g.out);
-  }
+  if constexpr (CROSS) launch_add_partials(partial, (size_t)B * g.N * 3, g.out, stream);
   return (int)cudaGetLastError();
 }
 

@@ -44,8 +44,11 @@
 // * a warp owns two rows' 32 pairs and a quarter of the features: the gated
 //   row sums stay in registers across chunks;
 // * the fill of S is branch-free, takes a_row from registers and a_col
-//   loaded a chunk ahead, and silu and sigmoid run on the SFU (ex2, rcp).
-#include "egnn_mma.cuh"
+//   loaded a chunk ahead, and silu and sigmoid run on the SFU (ex2, rcp);
+// * F = 2048 runs each row tile on a cluster of two blocks, each owning half
+//   of the output features (egnn_cluster.cuh: W2 at 16 MB, 8 MB a chunk a
+//   block; the attention dot summed over the two blocks).
+#include "egnn_cluster.cuh"
 
 namespace {
 
@@ -64,15 +67,37 @@ __global__ void __launch_bounds__(NT) gcl_agg_kernel(GclArgs g) {
   zero_rows_past_grid<TI>(g.out, node0, g.N, F);
 }
 
+// F = 2048: a cluster of two blocks a row tile (egnn_cluster.cuh), block r
+// of the cluster writing features [1024 r, 1024 r + 1024) of the row.
+template <int F>
+__global__ void __launch_bounds__(NT) gcl_agg_cluster_kernel(GclArgs g) {
+  constexpr int TI = tile_rows<F>();
+  extern __shared__ __align__(16) float smem[];
+  const int i0 = cluster_tile<F>() * TI;
+  const size_t node0 = (size_t)blockIdx.y * g.N;
+  const int left = g.N - i0;
+  mma::gcl_tile_cluster<F, mma::kTier>(g, node0, i0, smem, g.out + (node0 + i0) * F,
+                                       left < TI ? left : TI);
+  zero_rows_past_clusters<F>(g.out, node0, g.N, F);
+}
+
 template <int F>
 int launch(const GclArgs& g, int B, cudaStream_t stream) {
   const size_t smem = mma::dynamic_smem<F>(g.N);
-  cudaError_t err = cudaFuncSetAttribute(
-      gcl_agg_kernel<F>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  gcl_agg_kernel<F><<<row_tile_grid(g.N, g.update_rows, B, tile_rows<F>()), NT, smem,
-                      stream>>>(g);
-  return (int)cudaGetLastError();
+  if constexpr (cluster_size<F>() > 1) {
+    dim3 grid = row_tile_grid(g.N, g.update_rows, B, tile_rows<F>());
+    grid.x *= cluster_size<F>();
+    return launch_clusters<cluster_size<F>()>(gcl_agg_cluster_kernel<F>, grid, smem,
+                                              stream, g);
+  } else {
+    last_cluster_dim() = 1;
+    cudaError_t err = cudaFuncSetAttribute(
+        gcl_agg_kernel<F>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    gcl_agg_kernel<F><<<row_tile_grid(g.N, g.update_rows, B, tile_rows<F>()), NT, smem,
+                        stream>>>(g);
+    return (int)cudaGetLastError();
+  }
 }
 
 }  // namespace
@@ -94,6 +119,7 @@ extern "C" int gcl_agg_forward(
     case 256: return launch<256>(g, B, s);
     case 512: return launch<512>(g, B, s);
     case 1024: return launch<1024>(g, B, s);
+    case 2048: return launch<2048>(g, B, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

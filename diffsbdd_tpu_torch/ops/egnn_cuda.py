@@ -63,14 +63,19 @@ whole-block kernel's node MLP and projections round their products alone,
 their elementwise work stays float32.
 
 Hidden widths.  The kernels are instantiated at F = 64, 128, 256, 512 and
-1024 (``SUPPORTED_F``; at 512 on tiles of 2 rows, at 1024 of 1 row,
-``row_tile``).  On CUDA the public wrappers run any other width up to 1024
-at the next of those (``padded_width``: 32 at 64, 96 at 128, 192 at 256,
-384 at 512, 768 at 1024): every operand's width axes zero-padded
+1024 (at 512 on tiles of 2 rows, at 1024 of 1 row, ``row_tile``), and the
+two forward split kernels also at 2048, each row tile on a cluster of two
+blocks (``cluster_size``, ``csrc/egnn_cluster.cuh``): ``KERNEL_WIDTHS``.  On
+CUDA the public wrappers run any other width up to a kernel's widest at the
+next of its widths (``padded_width``: 32 at 64, 96 at 128, 192 at 256, 384
+at 512, 768 at 1024, 1088 at 2048): every operand's width axes zero-padded
 (``pad_operands``), the outputs' cut back.  The padded channels stay exact
 zeros through every MLP, so the result is the unpadded one up to summation
 order, at every tier; gradients reach the true width through autograd of the
-padding.  Wider than 1024 raises before any launch.
+padding.  Wider than a kernel's widest raises before any launch (above 2048
+the forward kernels, above 1024 the backward and whole-block kernels), and
+so does a forward wrapper whose gradient is due at a width its backward
+kernel is not built for.
 
 The kernels are compiled with ``nvcc`` for ``sm_90a`` into plain-C shared
 libraries under ``csrc/build`` at first use (``build_kernels``) and loaded with
@@ -92,16 +97,27 @@ BUILD_DIR = CSRC / "build"
 KERNELS = ("gcl_agg", "coord_agg", "gcl_agg_bwd", "coord_agg_bwd", "block_fused")
 HEADERS = (CSRC / "egnn_common.cuh", CSRC / "egnn_mma.cuh",
            CSRC / "egnn_coord.cuh", CSRC / "egnn_bwd.cuh",
-           CSRC / "egnn_mma_bwd.cuh")  # shared device code
+           CSRC / "egnn_mma_bwd.cuh", CSRC / "egnn_cluster.cuh")  # shared device code
 # hidden widths the kernels are built for: the fixture checkpoint's, the
-# config default's, the flagship's, and twice and four times the flagship's.
-# The layouts need F to divide the block's 256 threads or be a multiple of
-# them, and the dW2 warp layout F >= 64 (csrc/egnn_mma.cuh,
+# config default's, the flagship's, and twice, four and eight times the
+# flagship's.  The layouts need F to divide the block's 256 threads or be a
+# multiple of them, and the dW2 warp layout F >= 64 (csrc/egnn_mma.cuh,
 # egnn_mma_bwd.cuh): 64, 128 and 256 are all the widths they admit up to 256;
 # 512 and 1024 take tilings of their own (two rows a tile and one,
-# ``row_tile``).  The wrappers run every other width up to 1024 zero-padded to
-# the next of them (``padded_width``, ``pad_operands``).
-SUPPORTED_F = (64, 128, 256, 512, 1024)
+# ``row_tile``), 2048 a cluster of two blocks a row tile (``cluster_size``).
+# The wrappers run every other width up to a kernel's widest zero-padded to
+# the next of its widths (``padded_width``, ``pad_operands``).
+SUPPORTED_F = (64, 128, 256, 512, 1024, 2048)
+# the widths each kernel is built for: the two forward split kernels (the
+# sampling path) at all of them, the backward kernels and the whole-block
+# kernel up to 1024
+KERNEL_WIDTHS = {name: SUPPORTED_F if name in ("gcl_agg", "coord_agg") else SUPPORTED_F[:-1]
+                 for name in KERNELS}
+# the ROADMAP.md §2 item that would run each kernel above its widest width
+WIDER_ITEM = {"gcl_agg": "widths above 2048", "coord_agg": "widths above 2048",
+              "gcl_agg_bwd": "the backward kernels at F = 2048",
+              "coord_agg_bwd": "the backward kernels at F = 2048",
+              "block_fused": "block_fused at F = 2048"}
 
 
 def row_tile(F: int) -> int:
@@ -109,6 +125,14 @@ def row_tile(F: int) -> int:
     csrc/egnn_common.cuh (4; 2 at 512 and 1 at 1024, where a taller tile's
     pair tiles do not fit a block's shared memory)."""
     return 1 if F > 512 else 2 if F > 256 else 4
+
+
+def cluster_size(F: int) -> int:
+    """Blocks a row tile of the kernels at built width F: cluster_size<F>()
+    in csrc/egnn_cluster.cuh (2 at 2048, whose S and W2 stages do not fit
+    one block's shared memory, nor its accumulators one thread's registers;
+    1, no cluster, below)."""
+    return 2 if F > 1024 else 1
 
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -287,6 +311,15 @@ def _ptr(t: Optional[torch.Tensor]):
 def _cut2(c: Optional[float]) -> float:
     """Squared cutoff for the kernels; -1 encodes "no cutoff"."""
     return -1.0 if c is None else float(c) * float(c)
+
+
+def last_cluster_dim(name: str, tier: str = DEFAULT_TIER) -> int:
+    """The cluster dimension (blocks a cluster along x) that the last launch
+    of forward kernel ``name``'s library at ``tier`` used: 2 at F = 2048, 1
+    below (``egnn_last_cluster_dim`` in ``gcl_agg`` and ``coord_agg``)."""
+    fn = _lib(name, tier).egnn_last_cluster_dim
+    fn.argtypes, fn.restype = [], ctypes.c_int
+    return int(fn())
 
 
 def _launch(name: str, *args, tier: str = DEFAULT_TIER) -> None:
@@ -682,16 +715,27 @@ def _rows(update_rows, N):
     return N if update_rows is None else int(update_rows)
 
 
-def padded_width(F: int, name: str = "egnn kernels") -> int:
-    """The width the kernels run hidden width ``F`` at: the least of
-    ``SUPPORTED_F`` that is >= F.  Wider than 1024 raises: one m-tile's pair
-    tiles no longer fit a block's shared memory, and the layouts need a
-    kernel design of their own there (ROADMAP.md §2, widths above 1024)."""
-    for width in SUPPORTED_F:
+def padded_width(F: int, name: str = "egnn kernels", kernel: str = "gcl_agg") -> int:
+    """The width ``kernel`` runs hidden width ``F`` at: the least of its
+    ``KERNEL_WIDTHS`` that is >= F.  Wider than its widest raises, naming the
+    ROADMAP.md §2 item that would build it (``WIDER_ITEM``): above 2048 the
+    forward kernels need clusters of four blocks, above 1024 the backward and
+    whole-block kernels a cluster design of their own."""
+    widths = KERNEL_WIDTHS[kernel]
+    for width in widths:
         if width >= F:
             return width
-    raise ValueError(f"{name}: feature width {F} above {SUPPORTED_F[-1]}, the widest "
-                     f"the kernels are built for (ROADMAP.md §2: widths above 1024)")
+    raise ValueError(f"{name}: feature width {F} above {widths[-1]}, the widest {kernel} "
+                     f"is built for (ROADMAP.md §2: {WIDER_ITEM[kernel]})")
+
+
+def _refuse_untrainable_width(name: str, bwd_kernel: str, F: int, tensors) -> None:
+    """Raises before any launch when a gradient of a forward wrapper's output
+    will be due (grad mode on, an operand that requires it) at a width
+    ``bwd_kernel`` is not built for: a train step at such a width fails at
+    its first layer, not after a forward pass."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        padded_width(F, name, bwd_kernel)
 
 
 # the axes of an operand that run along the hidden width, by the operand's
@@ -833,7 +877,7 @@ def gcl_agg_bwd(g, a_row, a_col, x, x0, mask, is_lig, w_d2, w_d20, delta, w2, b2
         raise ValueError(f"gcl_agg_bwd: unsupported device {a_row.device}")
     B, N, F = a_row.shape
     dev = a_row.device
-    width = padded_width(F, "gcl_agg_bwd")
+    width = padded_width(F, "gcl_agg_bwd", "gcl_agg_bwd")
     if width != F:
         ops = pad_operands(dict(a_row=a_row, a_col=a_col, w_d2=w_d2, w_d20=w_d20,
                                 delta=delta, w2=w2, b2=b2, w_att=w_att), F, width)
@@ -935,7 +979,7 @@ def coord_agg_bwd(g, a_row, a_col, x, x0, mask, is_lig, w_d2, w_d20, delta, w2, 
     dev = a_row.device
     main = dict(a_row=a_row, a_col=a_col, w_d2=w_d2, w_d20=w_d20, delta=delta,
                 w2=w2, b2=b2, w3=w3)
-    width = padded_width(F, "coord_agg_bwd")
+    width = padded_width(F, "coord_agg_bwd", "coord_agg_bwd")
     if width != F:
         ops = pad_operands(dict(main, cross=cross), F, width)
         kw["cross"] = ops.pop("cross")
@@ -1134,7 +1178,9 @@ def gcl_message_agg(a_row, a_col, x, x0, mask, is_lig, w_d2, w_d20,
     of both at their tiers on the CPU otherwise (the edge-type fold stays
     outside them, so autograd chains through it).  ``mirror_bwd``: the
     backward is autograd through the float32 twin (no backward kernel, no
-    ``bwd_precision``), the forward's output the kernel's.
+    ``bwd_precision``), the forward's output the kernel's.  On CUDA a width
+    above 2048 raises before any launch, and so does one above 1024 where a
+    gradient through the backward kernel is due (``padded_width``).
     """
     tiers = _tiers("gcl_agg", precision, bwd_precision)
     if a_row.device.type == "cpu" and tiers == (DEFAULT_TIER, DEFAULT_TIER):
@@ -1146,7 +1192,12 @@ def gcl_message_agg(a_row, a_col, x, x0, mask, is_lig, w_d2, w_d20,
     if a_row.device.type not in ("cpu", "cuda"):
         raise ValueError(f"gcl_message_agg: unsupported device {a_row.device}")
     F = a_row.shape[-1]
-    width = padded_width(F, "gcl_message_agg") if a_row.device.type == "cuda" else F
+    width = F
+    if a_row.device.type == "cuda":
+        width = padded_width(F, "gcl_message_agg", "gcl_agg")
+        if not mirror_bwd:
+            _refuse_untrainable_width("gcl_message_agg", "gcl_agg_bwd", F, (
+                a_row, a_col, x, x0, w_d2, w_d20, type_bias, w2, b2, w_att, b_att))
     if width != F:
         ops = pad_operands(dict(a_row=a_row, a_col=a_col, w_d2=w_d2, w_d20=w_d20,
                                 type_bias=type_bias, w2=w2, b2=b2, w_att=w_att),
@@ -1179,7 +1230,7 @@ def coord_update_agg(a_row, a_col, x, x0, mask, is_lig, w_d2, w_d20,
     column block under edge-axis sharding; ``mask`` when None).  Rows >=
     ``update_rows`` are exact zeros.  ``precision``, ``bwd_precision``,
     ``mirror_bwd``: as ``gcl_message_agg``'s.  Differentiable on both devices, as
-    ``gcl_message_agg`` is.
+    ``gcl_message_agg`` is; its widths as ``gcl_message_agg``'s.
     """
     tiers = _tiers("coord_agg", precision, bwd_precision)
     if a_row.device.type == "cpu" and tiers == (DEFAULT_TIER, DEFAULT_TIER):
@@ -1192,7 +1243,13 @@ def coord_update_agg(a_row, a_col, x, x0, mask, is_lig, w_d2, w_d20,
     if a_row.device.type not in ("cpu", "cuda"):
         raise ValueError(f"coord_update_agg: unsupported device {a_row.device}")
     F = a_row.shape[-1]
-    width = padded_width(F, "coord_update_agg") if a_row.device.type == "cuda" else F
+    width = F
+    if a_row.device.type == "cuda":
+        width = padded_width(F, "coord_update_agg", "coord_agg")
+        if not mirror_bwd:
+            _refuse_untrainable_width("coord_update_agg", "coord_agg_bwd", F, (
+                a_row, a_col, x, x0, w_d2, w_d20, type_bias, w2, b2, w3, graph_mean,
+                *(cross or {}).values()))
     if width != F:
         ops = pad_operands(dict(a_row=a_row, a_col=a_col, w_d2=w_d2, w_d20=w_d20,
                                 type_bias=type_bias, w2=w2, b2=b2, w3=w3, cross=cross),
@@ -1377,7 +1434,7 @@ def block_fused(h, a_row, a_col, x, x0, mask, is_lig, gcl, node, coord, cross=No
     F = a_row.shape[-1]
     if h.shape[-1] != F:
         raise ValueError(f"block_fused: node width {h.shape[-1]} != message width {F}")
-    width = padded_width(F, "block_fused")
+    width = padded_width(F, "block_fused", "block_fused")
     if width != F:
         ops = pad_operands(dict(h=h, a_row=a_row, a_col=a_col, gcl=gcl, node=node,
                                 coord=coord, cross=cross), F, width)

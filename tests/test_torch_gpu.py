@@ -294,6 +294,64 @@ def test_coord_kernels_on_a_column_block(block, update_rows):
     _coord_bwd_case(7, N, True, True, update_rows, block=block)
 
 
+@pytest.mark.parametrize("update_rows", [None, 11])
+def test_forward_kernels_at_2048_on_a_partial_row_tile(update_rows):
+    """``test_kernels_on_a_partial_row_tile`` on the F = 2048 cluster kernels
+    (fan-in weights): N = 45 and rows past ``update_rows`` written as zeros
+    by the blocks of a grid of clusters, every tier within its gate."""
+    main, extra = _inputs(3, N=45, F=2048, w_scale=None)
+    m = main["mask"]
+    att = (extra["w_att"], extra["b_att"])
+    gcl_kw = dict(cutoffs=CUTOFFS, attention=True, normalization_factor=100.0,
+                  col_mask=m, update_rows=update_rows)
+    graph_mean = (main["x"] * m[..., None]).sum(1) / m.sum(1)[:, None]
+    coord_kw = dict(cutoffs=CUTOFFS, tanh=True, coords_range=15.0,
+                    norm_constant=1.0, normalization_factor=100.0,
+                    cross=dict(extra["cross"], w3=extra["w3"]),
+                    graph_mean=graph_mean, update_rows=update_rows)
+    for tier in ec.TIERS:
+        for wrapper, plain, args, kw in (
+                (ec.gcl_message_agg, ec.gcl_message_agg_plain, (*main.values(), *att), gcl_kw),
+                (ec.coord_update_agg, ec.coord_update_agg_plain,
+                 (*main.values(), extra["w3"]), coord_kw)):
+            got = wrapper(*args, **kw, precision=tier)
+            if tier == ec.DEFAULT_TIER:
+                torch.testing.assert_close(got, plain(*args, **kw), **TOL)
+            else:
+                _assert_tier_close(got, plain(*args, **kw, precision=tier), plain(*args, **kw),
+                                   tier)
+            if update_rows is not None:
+                assert not got[:, update_rows:].any()
+
+
+@pytest.mark.parametrize("block", [0, 1])
+@pytest.mark.parametrize("update_rows", [None, 12])
+def test_coord_kernels_at_2048_on_a_column_block(block, update_rows):
+    """The forward half of ``test_coord_kernels_on_a_column_block`` on the
+    F = 2048 cluster kernels: a column block of a two-rank edge split as
+    ``col_mask`` against the plain version, the two blocks adding up to the
+    whole graph; the GCL kernel on the same column block."""
+    main, extra = _inputs(1, F=2048, w_scale=None)
+    cross = dict(extra["cross"], w3=extra["w3"])
+    m = main["mask"]
+    kw = dict(cutoffs=CUTOFFS, tanh=True, coords_range=15.0, norm_constant=1.0,
+              normalization_factor=100.0, cross=cross,
+              graph_mean=(main["x"] * m[..., None]).sum(1) / m.sum(1)[:, None],
+              update_rows=update_rows)
+    parts = [ec.coord_update_agg(*main.values(), extra["w3"],
+                                 col_mask=_column_block(m, b), **kw) for b in (0, 1)]
+    ref = ec.coord_update_agg_plain(*main.values(), extra["w3"],
+                                    col_mask=_column_block(m, block), **kw)
+    torch.testing.assert_close(parts[block], ref, **TOL)
+    torch.testing.assert_close(parts[0] + parts[1],
+                               ec.coord_update_agg(*main.values(), extra["w3"], **kw), **TOL)
+    gkw = dict(cutoffs=CUTOFFS, attention=True, normalization_factor=100.0,
+               col_mask=_column_block(m, block), update_rows=update_rows)
+    att = (extra["w_att"], extra["b_att"])
+    torch.testing.assert_close(ec.gcl_message_agg(*main.values(), *att, **gkw),
+                               ec.gcl_message_agg_plain(*main.values(), *att, **gkw), **TOL)
+
+
 @pytest.mark.parametrize("width", [64, 128, 256, 512, 1024])
 @pytest.mark.parametrize("update_rows", [None, 11])
 def test_bwd_kernels_on_a_partial_row_tile(update_rows, width):
@@ -601,16 +659,43 @@ def _gcl_ops(ins):
 GCL_KW = dict(cutoffs=CUTOFFS, attention=True, normalization_factor=100.0)
 
 
-@pytest.mark.parametrize("width", [64, 128, 256, 512, 1024])
+def _plain_in_slices(plain, ops, kw, step):
+    """``plain(*ops, **kw)`` of a forward plain version over batch slices of
+    ``step`` graphs, concatenated: the per-graph operands are the first six
+    (a_row .. is_lig), the cross head's projections and the graph mean.  At
+    F = 2048 one (16, 344, 344, F) float32 tensor takes 15.5 GB."""
+    def part(sl):
+        k = dict(kw)
+        if k.get("cross") is not None:
+            k["cross"] = {n: (v[sl] if n in ("a_row", "a_col") else v)
+                          for n, v in k["cross"].items()}
+        for n in ("graph_mean", "col_mask"):
+            if k.get(n) is not None:
+                k[n] = k[n][sl]
+        return plain(*(t[sl] if i < 6 else t for i, t in enumerate(ops)), **k)
+
+    return torch.cat([part(slice(b, b + step)) for b in range(0, ops[0].shape[0], step)], 0)
+
+
+def _plain_step(width):
+    """Graphs a slice of the forward plain versions at the main path's shapes
+    (all 16 up to F = 1024)."""
+    return 4 if width > 1024 else 16
+
+
+@pytest.mark.parametrize("width", [64, 128, 256, 512, 1024, 2048])
 @pytest.mark.parametrize("spread", [4.0, 1.0], ids=["clean", "collapsed"])
 def test_gcl_kernel_at_flagship_shapes(width, spread):
-    """B = 16, N = 344 (24 ligand atoms): 1376 row tiles on 132 SMs; at
-    ``spread`` 1 every pair passes the cutoffs, so every chunk is full."""
+    """B = 16, N = 344 (24 ligand atoms): 1376 row tiles on 132 SMs (at
+    F = 2048 each on a cluster of two blocks); at ``spread`` 1 every pair
+    passes the cutoffs, so every chunk is full."""
     ops = _gcl_ops(block_inputs(26, B=16, N=344, F=width, n_lig=24, spread=spread))
     ec.reset_launch_counts()
     got = ec.gcl_message_agg(*ops, **GCL_KW)
     assert ec.launch_counts["gcl_agg"] == 1
-    torch.testing.assert_close(got, ec.gcl_message_agg_plain(*ops, **GCL_KW), **TOL)
+    assert ec.last_cluster_dim("gcl_agg") == ec.cluster_size(width)
+    torch.testing.assert_close(
+        got, _plain_in_slices(ec.gcl_message_agg_plain, ops, GCL_KW, _plain_step(width)), **TOL)
 
 
 def test_gcl_kernel_is_deterministic():
@@ -619,6 +704,17 @@ def test_gcl_kernel_is_deterministic():
     ops = _gcl_ops(block_inputs(27, B=4, N=344, F=256, n_lig=24, spread=1.0))
     assert torch.equal(ec.gcl_message_agg(*ops, **GCL_KW),
                        ec.gcl_message_agg(*ops, **GCL_KW))
+
+
+@pytest.mark.parametrize("tier", ["tf32x3", "tf32x2", "bf16"])
+def test_gcl_kernel_at_2048_is_deterministic(tier):
+    """At F = 2048 a row's two feature halves come from the two blocks of a
+    cluster, which add the attention dot's two shares in one fixed order:
+    two launches give the same bits, on the collapsed complex."""
+    ops = _gcl_ops(block_inputs(27, B=2, N=344, F=2048, n_lig=24, spread=1.0))
+    got = ec.gcl_message_agg(*ops, **GCL_KW, precision=tier)
+    assert torch.isfinite(got).all() and got.abs().max() > 0
+    assert torch.equal(got, ec.gcl_message_agg(*ops, **GCL_KW, precision=tier))
 
 
 @pytest.mark.parametrize("width", [64, 128, 256, 512, 1024])
@@ -680,8 +776,10 @@ def _coord_case(seed, B, width, spread, update_rows, cross, share=None):
     got = ec.coord_update_agg(*main, **kw)
     again = ec.coord_update_agg(*main, **kw)
     assert ec.launch_counts["coord_agg"] == 2
+    assert ec.last_cluster_dim("coord_agg") == ec.cluster_size(width)
     assert torch.equal(got, again)  # fixed-order row sums: the same bits
-    ref = ec.coord_update_agg_plain(*main, **kw)
+    ref = _plain_in_slices(ec.coord_update_agg_plain, main, kw,
+                           _plain_step(width) if B == 16 else B)
     if share is None:
         torch.testing.assert_close(got, ref, **TOL)
     else:
@@ -692,15 +790,16 @@ def _coord_case(seed, B, width, spread, update_rows, cross, share=None):
         assert not got[:, update_rows:].any()
 
 
-@pytest.mark.parametrize("width", [64, 128, 256, 1024])
+@pytest.mark.parametrize("width", [64, 128, 256, 1024, 2048])
 @pytest.mark.parametrize("spread", [4.0, 1.0], ids=["clean", "collapsed"])
 @pytest.mark.parametrize("update_rows", [24, None], ids=["ligand_rows", "all_rows"])
 @pytest.mark.parametrize("cross", [True, False], ids=["cross", "no_cross"])
 def test_coord_kernel_at_flagship_shapes(width, spread, update_rows, cross):
     """B = 16, N = 344 (24 ligand atoms): the main path's 96 row tiles of
-    ligand rows, or all 1376 (at F = 1024 one row a tile: 384 or 5504);
-    at ``spread`` 1 every pair passes the cutoffs, so every chunk is full.
-    Two launches agree bit for bit."""
+    ligand rows, or all 1376 (at F = 1024 one row a tile: 384 or 5504; at
+    2048 each on a cluster of two blocks, the head's two shares summed on
+    rank 0); at ``spread`` 1 every pair passes the cutoffs, so every chunk is
+    full.  Two launches agree bit for bit."""
     _coord_case(28, 16, width, spread, update_rows, cross)
 
 
@@ -783,7 +882,7 @@ def _only_tier(name, tier, launches=1):
         assert ec.tier_launch_counts[f"{name}[{t}]"] == (launches if t == tier else 0), t
 
 
-@pytest.mark.parametrize("width", [64, 128, 256, 512, 1024])
+@pytest.mark.parametrize("width", [64, 128, 256, 512, 1024, 2048])
 @pytest.mark.parametrize("tier", ["tf32x2", "bf16"])
 def test_tiered_forward_kernels_match_plain(tier, width):
     main, extra = _inputs(20, F=width, w_scale=None)
@@ -937,12 +1036,14 @@ def test_kernel_bwd_xla_launches_no_backward_kernel():
 # hidden widths the kernels are not built for: zero-padded to the next one
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("width", [96, 192, 384, 448, 640, 896])
+@pytest.mark.parametrize("width", [96, 192, 384, 448, 640, 896, 1088, 1536])
 def test_padded_widths_match_plain(width):
-    """96 runs at 128, 192 at 256, 384 and 448 at 512, 640 and 896 at 1024
-    (``ec.padded_width``):
+    """96 runs at 128, 192 at 256, 384 and 448 at 512, 640 and 896 at 1024,
+    1088 and 1536 at 2048 (``ec.padded_width``):
     each of the five wrappers against its plain version at the true width,
-    one launch each, every output and cotangent at the true width."""
+    one launch each, every output and cotangent at the true width; above
+    1024 the two forward wrappers (the backward kernels and the whole block
+    are built up to 1024)."""
     main, extra = _inputs(50, F=width, w_scale=None)
     att = (extra["w_att"], extra["b_att"])
     kw = dict(cutoffs=CUTOFFS, attention=True, normalization_factor=100.0)
@@ -957,6 +1058,11 @@ def test_padded_widths_match_plain(width):
     torch.testing.assert_close(ec.coord_update_agg(*main.values(), extra["w3"], **ckw),
                                ec.coord_update_agg_plain(*main.values(), extra["w3"], **ckw),
                                **TOL)
+    if width > 1024:
+        assert ec.launch_counts == {**dict.fromkeys(ec.KERNELS, 0), "gcl_agg": 1,
+                                    "coord_agg": 1}, ec.launch_counts
+        assert ec.last_cluster_dim("gcl_agg") == ec.last_cluster_dim("coord_agg") == 2
+        return
     ops = _folded(main)
     gen = torch.Generator().manual_seed(51)
     g = torch.randn(B, N, width, generator=gen).cuda()
@@ -993,16 +1099,65 @@ def test_padded_width_network_matches_cpu():
         torch.testing.assert_close(f.cpu(), w, atol=1e-4, rtol=1e-4)
 
 
-def test_width_above_256_is_refused():
-    """Widths above 256 run on the F = 512 and 1024 kernels up to 1024; 1088
-    is wider than any kernel: a ValueError naming the ROADMAP item, before
+def test_padded_width_1088_network_matches_cpu():
+    """A hidden-1088 network on the card: its forward on the F = 2048 split
+    kernels (one launch of each a layer) against the plain versions on the
+    CPU; its gradient refused before any launch with the backward kernels
+    (built up to 1024), and taken with ``kernel_bwd: xla`` (autograd through
+    the plain versions) against the CPU's."""
+    model, batch = _dynamics_case("cuda", hidden_nf=1088)
+    cpu, cpu_batch = _dynamics_case("cpu", hidden_nf=1088)
+    ec.reset_launch_counts()
+    with torch.no_grad():
+        got = model(*batch)
+        want = cpu(*cpu_batch)
+    assert ec.launch_counts == {**dict.fromkeys(ec.KERNELS, 0), "gcl_agg": 2,
+                                "coord_agg": 2}, ec.launch_counts
+    for f, w in zip(got, want):
+        torch.testing.assert_close(f.cpu(), w, atol=1e-4, rtol=1e-4)
+    ec.reset_launch_counts()
+    with pytest.raises(ValueError, match="feature width 1088 above 1024.*the backward kernels"):
+        _sum_sq_grads(model, batch)
+    assert not any(ec.launch_counts.values()), ec.launch_counts
+    mirror, m_batch = _dynamics_case("cuda", hidden_nf=1088, kernel_bwd="xla")
+    _assert_cotangents(_sum_sq_grads(mirror, m_batch), _sum_sq_grads(cpu, cpu_batch))
+    assert ec.launch_counts["gcl_agg_bwd"] == ec.launch_counts["coord_agg_bwd"] == 0
+
+
+def test_forward_width_above_2048_is_refused():
+    """The forward split kernels run every width up to 2048; 2112 is wider: a
+    ValueError naming the ROADMAP item, before any launch."""
+    main, extra = _inputs(53, F=2112)
+    m = main["mask"]
+    ec.reset_launch_counts()
+    with pytest.raises(ValueError, match="above 2048.*ROADMAP.*widths above 2048"):
+        ec.gcl_message_agg(*main.values(), extra["w_att"], extra["b_att"], cutoffs=CUTOFFS,
+                           attention=True, normalization_factor=100.0)
+    with pytest.raises(ValueError, match="above 2048.*ROADMAP.*widths above 2048"):
+        ec.coord_update_agg(*main.values(), extra["w3"], **COORD_KW, update_rows=12,
+                            cross=dict(extra["cross"], w3=extra["w3"]),
+                            graph_mean=(main["x"] * m[..., None]).sum(1) / m.sum(1)[:, None])
+    assert not any(ec.launch_counts.values())
+
+
+def test_backward_and_block_width_above_1024_are_refused():
+    """The backward kernels and the whole-block kernel run every width up to
+    1024; 1088 is wider: a ValueError naming each one's ROADMAP item, before
     any launch."""
     main, extra = _inputs(53, F=1088)
     ins = block_inputs(54, F=1088)
+    att = (extra["w_att"], extra["b_att"])
+    kw = dict(cutoffs=CUTOFFS, attention=True, normalization_factor=100.0)
+    ops = _folded(main)
+    m = main["mask"]
+    ckw = dict(COORD_KW, update_rows=12,
+               cross=_folded_cross(extra["cross"], main["is_lig"], extra["w3"]),
+               graph_mean=(main["x"] * m[..., None]).sum(1) / m.sum(1)[:, None])
     ec.reset_launch_counts()
-    with pytest.raises(ValueError, match="above 1024.*ROADMAP"):
-        ec.gcl_message_agg(*main.values(), extra["w_att"], extra["b_att"], cutoffs=CUTOFFS,
-                           attention=True, normalization_factor=100.0)
-    with pytest.raises(ValueError, match="above 1024.*ROADMAP"):
+    with pytest.raises(ValueError, match="above 1024.*ROADMAP.*the backward kernels"):
+        ec.gcl_agg_bwd(torch.ones(B, N, 1088, device="cuda"), *ops.values(), *att, **kw)
+    with pytest.raises(ValueError, match="above 1024.*ROADMAP.*the backward kernels"):
+        ec.coord_agg_bwd(torch.ones(B, N, 3, device="cuda"), *ops.values(), extra["w3"], **ckw)
+    with pytest.raises(ValueError, match="above 1024.*ROADMAP.*block_fused at F = 2048"):
         ec.block_fused(*ins, **BLOCK_KW)
     assert not any(ec.launch_counts.values())

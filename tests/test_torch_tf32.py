@@ -74,6 +74,44 @@ def test_3xtf32_product_is_float32_grade():
     assert e1 >= 100 * e3, (e1, e3)
 
 
+@pytest.mark.parametrize("K", [1024, 2048])
+def test_3xtf32_product_stays_float32_grade_at_wide_k(K):
+    """The widest kernels' products run over K = 1024 and, on the F = 2048
+    cluster, K = 2048 rows of W2 (each block all of them, for its half of
+    the columns): against float64 the emulated 3xTF32 product stays within
+    4x float32's own error, the one-pass TF32 product some hundred times
+    above it; and a GCL at that width with the product emulated stays
+    within a tenth of the card's gate against the float32 plain version."""
+    rng = np.random.default_rng(K)
+    a = rng.standard_normal((32, K)).astype(np.float32)
+    b = (rng.standard_normal((K, K)) * K ** -0.5).astype(np.float32)
+    exact = a.astype(np.float64) @ b.astype(np.float64)
+    at, bt = torch.as_tensor(a), torch.as_tensor(b)
+    err = lambda got: float(np.abs(got.numpy() - exact).max())
+    e32, e3, e1 = err(at @ bt), err(ec.matmul_3xtf32(at, bt)), err(
+        ec.matmul_3xtf32(at, bt, passes=1))
+    print(f"\nK={K} against float64: float32 {e32:.2e}, 3xTF32 {e3:.2e}, TF32 {e1:.2e}")
+    assert e3 <= 4 * e32 + 1e-7, (e3, e32)
+    assert e1 >= 100 * e3, (e1, e3)
+
+    B, NL, N = 2, 6, 20
+    f = lambda *s, scale=1.0: torch.as_tensor((rng.standard_normal(s) * scale)
+                                              .astype(np.float32))
+    x0 = f(B, N, 3, scale=2.0)
+    ops = dict(a_row=f(B, N, K, scale=0.5), a_col=f(B, N, K, scale=0.5),
+               x=x0 + f(B, N, 3, scale=0.2), x0=x0, mask=torch.ones(B, N),
+               is_lig=(torch.arange(N) < NL).float().expand(B, N).contiguous(),
+               w_d2=f(K, scale=0.05), w_d20=f(K, scale=0.05),
+               type_bias=f(2, 2, K, scale=0.2), w2=torch.as_tensor(b), b2=f(K, scale=0.1),
+               w_att=f(K, 1, scale=K ** -0.5), b_att=f(1, scale=0.1))
+    kw = dict(cutoffs=CUTOFFS, attention=True, normalization_factor=100.0)
+    ref = ec.gcl_message_agg_plain(**ops, **kw)
+    got = ec.gcl_message_agg_plain(**ops, **kw, matmul=ec.matmul_3xtf32)
+    share = gate_share(got, ref)
+    print(f"K={K} GCL: 3xTF32 at {share:.4f} of the gate")
+    assert share <= 0.1, share
+
+
 def gcl_operands(seed, spread):
     """A complex of 8 ligand and 40 pocket atoms at the flagship width with
     fan-in-scaled weights; atoms from N(0, spread^2): at spread 1 every pair

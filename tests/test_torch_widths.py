@@ -1,6 +1,7 @@
 """Hidden widths the kernels are not built for, zero-padded to the next one
 they are (``ec.padded_width``: 32 -> 64, 96 -> 128, 192 -> 256, 320 and 384
--> 512, 640 -> 1024), and the two widest built widths, 512 and 1024,
+-> 512, 640 -> 1024, 1088 -> 2048), and the widest built widths, 512, 1024
+and (the two forward split kernels only, ``ec.KERNEL_WIDTHS``) 2048,
 unpadded, on the CPU.
 
 On the card the wrappers pad every operand's width axes
@@ -22,8 +23,10 @@ compute what the kernels do:
 
 B = 2, N = 20 (8 ligand nodes), one numpy seed a width.  Widths 320 to 512
 are the F = 512 kernels' (on tiles of two rows on the card), 640 and 1024
-the F = 1024 kernels' (tiles of one row), which the plain versions compute
-at any width.
+the F = 1024 kernels' (tiles of one row), 1088 and 2048 the F = 2048
+forward kernels' (a row tile on a cluster of two blocks), which the plain
+versions compute at any width.  The whole block and the backward kernels
+are built up to 1024, so their cases stop there.
 """
 import functools
 
@@ -37,7 +40,20 @@ from diffsbdd_tpu.ops.egnn_block_fused import block_fused_xla
 from diffsbdd_tpu_torch.ops import egnn_cuda as ec
 
 B, N, NL = 2, 20, 8
-WIDTHS = (32, 96, 192, 320, 384, 512, 640, 1024)
+WIDTHS = (32, 96, 192, 320, 384, 512, 640, 1024, 1088, 2048)
+NAMES = ("gcl", "coord", "block")
+# the kernel behind each function, whose widths bound its cases
+KERNEL = dict(gcl="gcl_agg", coord="coord_agg", block="block_fused")
+
+
+def built(kernel, F):
+    """Whether ``kernel`` runs width F on the card (padded or not)."""
+    return F <= ec.KERNEL_WIDTHS[kernel][-1]
+
+
+# (name, F): every function at every width its kernel runs
+CASES = [pytest.param(name, F, id=f"{name}-{F}") for F in WIDTHS for name in NAMES
+         if built(KERNEL[name], F)]
 TOL = dict(atol=1e-5, rtol=1e-4)
 CUTOFFS = (None, 5.0, 5.0)
 GCL_KW = dict(cutoffs=CUTOFFS, attention=True, normalization_factor=100.0)
@@ -108,7 +124,7 @@ def block(ops, **kw):
 def padded(fn, ops, F, **kw):
     """``fn`` on ``ops`` zero-padded to ``ec.padded_width(F)``: (the outputs
     cut back to F, the padded outputs)."""
-    out = fn(ec.pad_operands(ops, F, ec.padded_width(F)), **kw)
+    out = fn(ec.pad_operands(ops, F, ec.padded_width(F, kernel=KERNEL[fn.__name__])), **kw)
     full = out if isinstance(out, tuple) else (out,)
     cut = tuple(o if o.shape[-1] == 3 else o[..., :F] for o in full)  # dx is (B, N, 3)
     return (cut if isinstance(out, tuple) else cut[0]), full
@@ -128,8 +144,7 @@ def _jax_fns():
 PORT = dict(gcl=gcl, coord=coord, block=block)
 
 
-@pytest.mark.parametrize("F", WIDTHS)
-@pytest.mark.parametrize("name", ["gcl", "coord", "block"])
+@pytest.mark.parametrize("name,F", CASES)
 def test_padded_plain_matches_jax(name, F):
     ops = make_ops(F)
     got, full = padded(PORT[name], convert(ops, torch.as_tensor), F)
@@ -138,7 +153,8 @@ def test_padded_plain_matches_jax(name, F):
         np.testing.assert_allclose(g.numpy(), np.asarray(r), **TOL)
     # the padded channels: exact zeros in the GCL sum and in h_new
     if name != "coord":
-        assert full[0].shape[-1] == ec.padded_width(F) and not full[0][..., F:].any()
+        assert full[0].shape[-1] == ec.padded_width(F, kernel=KERNEL[name])
+        assert not full[0][..., F:].any()
 
 
 @pytest.mark.parametrize("F", WIDTHS)
@@ -161,8 +177,7 @@ def _leaves(tree):
     return [] if tree is None or not tree.is_floating_point() else [tree]
 
 
-@pytest.mark.parametrize("F", WIDTHS)
-@pytest.mark.parametrize("name", ["gcl", "coord", "block"])
+@pytest.mark.parametrize("name,F", CASES)
 def test_gradients_through_the_padding(name, F):
     """d(sum(out * g)) for every operand, through pad -> plain version at the
     padded width -> cut, against the plain version at F."""
@@ -196,16 +211,21 @@ def _assert_within_gate(got, ref, exact, gate):
 def test_padded_tiers_within_their_gates(tier, F):
     """Each function's tier emulation on the padded operands against the same
     tier at F (the norm gate against float32's move at F), and both backward
-    plain versions' cotangents at the tier against theirs at F."""
+    plain versions' cotangents at the tier against theirs at F; each where
+    its kernel runs width F."""
     ops = convert(make_ops(F), torch.as_tensor)
     for name, gates in (("gcl", ec.TIER_GATES), ("coord", ec.TIER_GATES),
                         ("block", ec.BLOCK_TIER_GATES)):
+        if not built(KERNEL[name], F):
+            continue
         got, _ = padded(PORT[name], ops, F, precision=tier)
         ref, exact = PORT[name](ops, precision=tier), PORT[name](ops)
         for g, r, e in zip(*((got, ref, exact) if name == "block"
                              else ((got,), (ref,), (exact,)))):
             _assert_within_gate(g, r, e, gates[tier])
 
+    if not built("gcl_agg_bwd", F):
+        return
     gcl_bwd = lambda o, **kw: ec.gcl_agg_bwd_plain(
         o["g"], *(o[k] for k in GCL_KEYS[:8]), o["delta"], *(o[k] for k in GCL_KEYS[9:]),
         **GCL_KW, **kw)
@@ -216,7 +236,7 @@ def test_padded_tiers_within_their_gates(tier, F):
     gen = torch.Generator().manual_seed(F)
     bwd_ops = dict(ops, cross=cross, g=torch.randn(B, N, F, generator=gen),
                    g3=torch.randn(B, N, 3, generator=gen))
-    width = ec.padded_width(F)
+    width = ec.padded_width(F, kernel="gcl_agg_bwd")
     for fn, names in ((gcl_bwd, ec._GCL_COT), (coord_bwd, ec._COORD_COT)):
         padded_ops = dict(ec.pad_operands(bwd_ops, F, width),
                           g=ec._pad_axes(bwd_ops["g"], F, width, (-1,), "g"))
