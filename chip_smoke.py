@@ -14,8 +14,8 @@ Phases (any failure ends the run with a non-zero exit code):
      2xTF32 2/3 of 3xTF32's TF32 HMMA, bf16 1/6 of them in the forward and
      whole-block kernels (between 1/6 and 1/3 in the backward ones, whose
      dW2 loop is not unrolled); every F = 64 to 1024 function of the
-     five 3xTF32 libraries' SASS against its recorded digest
-     (``PARENT_SASS``, same nvcc);
+     five 3xTF32 libraries, and the forward split kernels' F = 2048 ones,
+     against its recorded SASS digest (``PARENT_SASS``, same nvcc);
   3. each forward kernel against its plain PyTorch twin at the flagship shapes
      (B=16, NL=24, NP=300 padded to 320, F=256, cutoffs None/5/5, attention
      and the cross branch on) and at the shared-pocket variants (col_mask,
@@ -225,14 +225,23 @@ Phases (any failure ends the run with a non-zero exit code):
      (one launch each), the flagship's shape at hidden 2048 and 1536 from
      seeded random weights sampled (16 x 24, T = 10: 86 / 66 launches), the
      joint model at hidden 2048 sampled with block fusing off (8 x 24,
-     T = 5), and the refusals before any launch: width 2112 in both forward
-     wrappers, 1088 in both backward wrappers and in block_fused, and a
-     hidden-1088 train step with the backward kernels.
+     T = 5), and the refusals before any launch: width 2112 in the four
+     split wrappers and in a hidden-2112 train step, 1088 in block_fused.
+     20k: training at hidden widths 1025-2048 on the two backward kernels
+     at F = 2048, each row tile on a cluster of two blocks: gcl_agg_bwd and
+     coord_agg_bwd at every tier at phase 3b's main shapes against their
+     plain versions (batch slices of 2 and 1; the tier gates; the cluster
+     dimension; ms, bound, registers, spills, shared memory; the dW2
+     step's share from 20i's timing build), and one conditional train step
+     at batch 16 at hidden 2048 and at 1536 from seeded random weights
+     (6 launches of each split kernel, forward and backward, at F = 2048;
+     ms a step, peak memory, a finite loss and gradient norm).
 
 Prints a {"kernels": [...]} line (the five kernels, then the same five at
 F=128 from phase 19, then the five kernels at 2xTF32 and bf16 from phase
 20, then the five at F=512 from phase 20h and at F=1024 from phase 20i,
-then gcl_agg and coord_agg at F=2048 from phase 20j)
+then gcl_agg and coord_agg at F=2048 from phase 20j and gcl_agg_bwd and
+coord_agg_bwd at F=2048 from phase 20k)
 and the card line, and as its last line
 {"ok": true, "device": {...}}.  The pocket, the samples and a summary.json go
 to ``--out`` (default chip_smoke_out/ in the repository).  Needs a CUDA card:
@@ -418,13 +427,18 @@ def sass_counts(ec, name, opcodes, function=None, tier="tf32x3"):
 
 
 # the SASS digests (``sass_functions``) of every function the five 3xTF32
-# libraries had before the F = 2048 instantiations (the kernels at F = 64,
-# 128, 256, 512 and 1024 and the width-free summing kernels): recorded on
-# the card from builds of the sources as they stood before the F = 1024
-# instantiations (commit b7b3254) and, for F = 1024's, before the F = 2048
-# ones (commit 3ac0e94); and the nvcc that built them (the card machine's)
+# libraries had before the backward kernels' F = 2048 instantiations (the
+# kernels at F = 64, 128, 256, 512 and 1024, the width-free summing
+# kernels, and the forward split kernels at F = 2048): recorded on the card
+# from builds of the sources as they stood before the F = 1024
+# instantiations (commit b7b3254), for F = 1024's before the F = 2048 ones
+# (commit 3ac0e94), and for the F = 2048 forward ones before the F = 2048
+# backward ones (commit 0695e1d); and the nvcc that built them (the card
+# machine's)
 PARENT_SASS_FUNCTIONS = {
     "gcl_agg": {
+        "_ZN43_GLOBAL__N_22gcl_agg_cluster_kernelILi2048EEEvN4egnn7GclArgsE":
+            "ad274632bea97ed04dbd2d691b9ccec8205a24280e855d5f1c28a01f3b2f91f4",
         "_ZN43_GLOBAL__N_14gcl_agg_kernelILi1024EEEvN4egnn7GclArgsE":
             "262c284a9e7a0d49910d2dcc2c29224a27b3b57894f76fe8434eca460b876d1c",
         "_ZN43_GLOBAL__N_14gcl_agg_kernelILi128EEEvN4egnn7GclArgsE":
@@ -437,6 +451,10 @@ PARENT_SASS_FUNCTIONS = {
             "70d7888e930840cfda5361f4df9caaef1a91bfc470f45d178456b773ca6e30ac",
     },
     "coord_agg": {
+        "_ZN45_GLOBAL__N_24coord_agg_cluster_kernelILi2048ELb0EEEvN4egnn9CoordArgsEPf":
+            "6542948e98d277a6821b12d26484c7ce201b60a3fe89710f4739f2f5762bc0ab",
+        "_ZN45_GLOBAL__N_24coord_agg_cluster_kernelILi2048ELb1EEEvN4egnn9CoordArgsEPf":
+            "fbe918284c03e6277c03b04854259eb839aa94d558ec1c7b68f4675628fff31f",
         "_ZN45_GLOBAL__N_16coord_agg_kernelILi1024ELb0EEEvN4egnn9CoordArgsEPf":
             "d47f9245ce1be58f8979e0d4f42346be5e39553d802283b19aa787d4442643c1",
         "_ZN45_GLOBAL__N_16coord_agg_kernelILi1024ELb1EEEvN4egnn9CoordArgsEPf":
@@ -2936,13 +2954,18 @@ def tier_bound(flops, bytes_, tier):
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
-def tier_kernel_phase(ec, torch, dev, flagship, width):
+def tier_kernel_phase(ec, torch, dev, flagship, width, names=None):
     """Phase 20a: the four split kernels at every tier (3xTF32 beside the two
     reduced ones, in the same run) at phases 3 and 3b's main shapes and width
     ``width``: each against its plain version at that tier within
     ``ec.TIER_GATES``, only that tier's library launched, two launches bit for
     bit, CUDA-event times of kernel and plain version, the tier's bound, and
-    how far the tier moves the output from the 3xTF32 kernel's."""
+    how far the tier moves the output from the 3xTF32 kernel's.  ``names``:
+    only these kernels (all four when None).  Above F = 1024 (the backward
+    kernels at 2048, 20k) the backward plain versions run in batch slices of
+    2 and 1 graphs, the plain time is that of the reference run itself (a
+    second run would take seconds a tier), and the kernels are timed over 2
+    launches."""
     cfg = dict(flagship, egnn_params=dict(flagship["egnn_params"], hidden_nf=width))
     fwd = kernel_inputs(torch, dev, cfg, 16, 24)
     sizes = np.random.default_rng(0).integers(24, 33, 16)
@@ -2968,7 +2991,8 @@ def tier_kernel_phase(ec, torch, dev, flagship, width):
     # at F = 1024 one (16, 344, 344, F) float32 tensor takes 7.8 GB; there
     # the kernels (up to ~140 ms a launch) are timed over 5 launches, not 20
     fwd_step = 4 if width > WIDE else None
-    reps = 5 if width > WIDE else 20
+    reps = 2 if width > WIDEST else 5 if width > WIDE else 20
+    bwd_steps = (2, 1) if width > WIDEST else (4, 2)  # the GCL's, the coordinate's
 
     def fwd_plain(call, plain, tier):
         if fwd_step is None:
@@ -2997,10 +3021,13 @@ def tier_kernel_phase(ec, torch, dev, flagship, width):
                     work_bounds(active_pairs(ec, fwd), B, fwd["N"], F, 1, fwd["N"], F)),
         "coord_agg": (coord_fwd, ec.coord_update_agg, ec.coord_update_agg_plain, None,
                       work_bounds(active_pairs(ec, fwd, rows=NL), B, fwd["N"], F, 2, NL, 3)),
-        "gcl_agg_bwd": (gcl_bwd, ec.gcl_agg_bwd, ec.gcl_agg_bwd_plain, 4,
+        "gcl_agg_bwd": (gcl_bwd, ec.gcl_agg_bwd, ec.gcl_agg_bwd_plain, bwd_steps[0],
                         bwd_work(active_pairs(ec, bwd), B, bwd["N"], F, 1, F)),
-        "coord_agg_bwd": (coord_bwd, ec.coord_agg_bwd, ec.coord_agg_bwd_plain, 2,
+        "coord_agg_bwd": (coord_bwd, ec.coord_agg_bwd, ec.coord_agg_bwd_plain, bwd_steps[1],
                           bwd_work(active_pairs(ec, bwd, rows=32), B, bwd["N"], F, 2, 3))}
+    if names is not None:
+        cases = {k: v for k, v in cases.items() if k in names}
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     results = {}
     for name, (call, kern, plain, step, work) in cases.items():
         base = None
@@ -3028,8 +3055,11 @@ def tier_kernel_phase(ec, torch, dev, flagship, width):
                     ec.tier_moved_share(got, ref, base))
                 base = got if base is None else base
             else:
+                start.record()
                 ref = _plain_in_slices(torch, lambda sl: call(plain, tier, sl), B, step)
+                end.record()
                 torch.cuda.synchronize()
+                ref_ms = start.elapsed_time(end)
                 err, share, moved, moved_share = 0.0, 0.0, 0.0, 0.0
                 for cname, r in ref.items():
                     if r is None:
@@ -3055,6 +3085,8 @@ def tier_kernel_phase(ec, torch, dev, flagship, width):
             ms = _cuda_ms(lambda: call(kern, tier), reps)
             if step is None:
                 plain_ms = _cuda_ms(lambda: fwd_plain(call, plain, tier), 2 if reps > 5 else 1)
+            elif width > WIDEST:
+                plain_ms = ref_ms
             else:
                 plain_ms = _cuda_ms(lambda: _plain_in_slices(
                     torch, lambda sl: call(plain, tier, sl), B, step), 1)
@@ -4101,14 +4133,14 @@ def wide_width_phase(torch, ec, dev, flagship, logs, work, pdb, ref_lig, card,
     return res
 
 
-CLUSTER_WIDTH = 2048  # the forward split kernels' widest: a row tile on two blocks
-CLUSTER_KERNELS = ("gcl_agg", "coord_agg")
+CLUSTER_WIDTH = 2048  # the split kernels' widest: a row tile on two blocks
+CLUSTER_KERNELS = ("gcl_agg", "coord_agg")  # phase 20j's; 20k's the backward two
 CLUSTER_PADDED = (1088, 1536)  # run on the F = 2048 kernels (ec.padded_width)
 CLUSTER_CHAIN = dict(n=16, T=10)
 CLUSTER_JOINT = dict(n=JOINT_SAMPLES, T=5)
 CLUSTER_PLAIN_STEP = 2  # graphs a slice of the plain versions: 1.9 GB a (2, 344, 344, 2048) tensor
-REFUSED_FORWARD = 2112  # wider than the forward kernels
-REFUSED_BACKWARD = 1088  # wider than the backward kernels and block_fused
+REFUSED_WIDTH = 2112  # wider than the split kernels
+REFUSED_BLOCK = 1088  # wider than block_fused
 
 
 def cluster_kernel_phase(ec, torch, dev, flagship, logs):
@@ -4219,8 +4251,7 @@ def cluster_kernel_phase(ec, torch, dev, flagship, logs):
             print(f"  {name} F={F} {u['function'][:60]}: {u['registers']} registers, spill "
                   f"stores {u['spill_stores']} B, loads {u['spill_loads']} B; shared memory "
                   f"{smem['dynamic']} B dynamic (N = {N}) + {u['static_smem']} B static")
-    for name in ("gcl_agg_bwd", "coord_agg_bwd", "block_fused"):
-        _check(name not in usage, f"{name} is instantiated at F = {F}")
+    _check("block_fused" not in usage, f"block_fused is instantiated at F = {F}")
     del inputs, full, dense, b8
     torch.cuda.empty_cache()
     return {"variants": res, "ptxas": {k: usage[k] for k in CLUSTER_KERNELS},
@@ -4229,8 +4260,8 @@ def cluster_kernel_phase(ec, torch, dev, flagship, logs):
 
 def cluster_width_phase(torch, ec, dev, flagship, logs, work, pdb, ref_lig, card):
     """Phase 20j, hidden widths 1025-2048 on the forward split kernels at
-    F = 2048 (a row tile on a cluster of two blocks; the backward kernels
-    and ``block_fused`` stay at 1024).  (a) ``cluster_kernel_phase``.  (b)
+    F = 2048 (a row tile on a cluster of two blocks; the backward kernels'
+    are 20k's, ``block_fused`` stays at 1024).  (a) ``cluster_kernel_phase``.  (b)
     ``padded_kernel_phase`` of the two forward kernels at each of
     ``CLUSTER_PADDED``: one launch of each wrapper's library at 3xTF32 and
     bf16, on a cluster of two.  (c) the flagship's shape from seeded random
@@ -4238,10 +4269,9 @@ def cluster_width_phase(torch, ec, dev, flagship, logs, work, pdb, ref_lig, card
     5's pocket, ``CLUSTER_CHAIN``'s T: 8T + 6 and 6T + 6 launches), and the
     joint model at hidden 2048 with block fusing off (``CLUSTER_JOINT``: 6
     launches of each split kernel a pass).  (d) refusals, each before any
-    launch: width ``REFUSED_FORWARD`` in both forward wrappers,
-    ``REFUSED_BACKWARD`` in both backward wrappers and in ``block_fused``,
-    and a hidden-``REFUSED_BACKWARD`` train step with the backward
-    kernels."""
+    launch: width ``REFUSED_WIDTH`` in the four split wrappers and in a
+    hidden-``REFUSED_WIDTH`` train step, ``REFUSED_BLOCK`` in
+    ``block_fused``."""
     from diffsbdd_tpu_torch.config import load_config
     from diffsbdd_tpu_torch.data.dataset import LigandPocketDataset, PaddedLoader
     from diffsbdd_tpu_torch.diffusion.ddpm import JointDDPM
@@ -4318,48 +4348,148 @@ def cluster_width_phase(torch, ec, dev, flagship, logs, work, pdb, ref_lig, card
         print(f"  {key}: raises before any launch: '{msg[:110]}'")
 
     node = ("a_row", "a_col", "x", "x0", "mask", "is_lig")
-    wide = kernel_inputs(torch, dev, model(REFUSED_FORWARD), 2, 24)
-    refused(f"gcl_agg_width_{REFUSED_FORWARD}", lambda: ec.gcl_message_agg(
-        *(wide[k] for k in node), *wide["gcl_w"].values(), cutoffs=wide["cut"],
-        attention=True, normalization_factor=100.0), ("above 2048", "ROADMAP"))
-    refused(f"coord_agg_width_{REFUSED_FORWARD}", lambda: ec.coord_update_agg(
-        *(wide[k] for k in node), *wide["coord_w"], cutoffs=wide["cut"], tanh=True,
-        coords_range=15.0, norm_constant=1.0, normalization_factor=100.0, update_rows=24,
-        cross=wide["cross"], graph_mean=wide["graph_mean"]), ("above 2048", "ROADMAP"))
-    del wide
-    inp = kernel_inputs(torch, dev, model(REFUSED_BACKWARD), 2, 24, with_delta=True)
+    inp = kernel_inputs(torch, dev, model(REFUSED_WIDTH), 2, 24, with_delta=True)
     w, B, N = inp["gcl_w"], inp["B"], inp["N"]
     cross_b = {k: v for k, v in inp["cross"].items() if k != "type_bias"}
     cross_b["delta"] = inp["cross_delta"]
-    refused(f"gcl_agg_bwd_width_{REFUSED_BACKWARD}", lambda: ec.gcl_agg_bwd(
-        inp["r"](B, N, REFUSED_BACKWARD), *(inp[k] for k in node), w["w_d2"], w["w_d20"],
+    above = ("above 2048", "ROADMAP")
+    refused(f"gcl_agg_width_{REFUSED_WIDTH}", lambda: ec.gcl_message_agg(
+        *(inp[k] for k in node), *w.values(), cutoffs=inp["cut"],
+        attention=True, normalization_factor=100.0), above)
+    refused(f"coord_agg_width_{REFUSED_WIDTH}", lambda: ec.coord_update_agg(
+        *(inp[k] for k in node), *inp["coord_w"], cutoffs=inp["cut"], tanh=True,
+        coords_range=15.0, norm_constant=1.0, normalization_factor=100.0, update_rows=24,
+        cross=inp["cross"], graph_mean=inp["graph_mean"]), above)
+    refused(f"gcl_agg_bwd_width_{REFUSED_WIDTH}", lambda: ec.gcl_agg_bwd(
+        inp["r"](B, N, REFUSED_WIDTH), *(inp[k] for k in node), w["w_d2"], w["w_d20"],
         inp["gcl_delta"], w["w2"], w["b2"], w["w_att"], w["b_att"], cutoffs=inp["cut"],
-        attention=True, normalization_factor=100.0), ("above 1024", "ROADMAP"))
-    refused(f"coord_agg_bwd_width_{REFUSED_BACKWARD}", lambda: ec.coord_agg_bwd(
+        attention=True, normalization_factor=100.0), above)
+    refused(f"coord_agg_bwd_width_{REFUSED_WIDTH}", lambda: ec.coord_agg_bwd(
         inp["r"](B, N, 3), *(inp[k] for k in node), *inp["coord_w"][:2], inp["coord_delta"],
         *inp["coord_w"][3:], cutoffs=inp["cut"], tanh=True, coords_range=15.0,
         norm_constant=1.0, normalization_factor=100.0, cross=cross_b,
-        graph_mean=inp["graph_mean"], update_rows=24), ("above 1024", "ROADMAP"))
-    refused(f"block_fused_width_{REFUSED_BACKWARD}", lambda: ec.block_fused(
-        *block_operands(inp), cutoffs=inp["cut"], attention=True, tanh=True,
+        graph_mean=inp["graph_mean"], update_rows=24), above)
+    del inp
+    blk = kernel_inputs(torch, dev, model(REFUSED_BLOCK), 2, 24, with_delta=True)
+    refused(f"block_fused_width_{REFUSED_BLOCK}", lambda: ec.block_fused(
+        *block_operands(blk), cutoffs=blk["cut"], attention=True, tanh=True,
         coords_range=15.0, norm_constant=1.0, normalization_factor=100.0),
         ("above 1024", "ROADMAP"))
-    del inp
+    del blk
     data = work / "data20j"
     write_synthetic_dataset(data, 2, 1, seed=23, pocket_sizes=(250, 280), n_types=11)
     batch = next(iter(PaddedLoader(LigandPocketDataset(data / "train.npz"), 2, shuffle=False)))
-    cfg = load_config(overrides=model(REFUSED_BACKWARD))
+    cfg = load_config(overrides=model(REFUSED_WIDTH))
     torch.manual_seed(0)
     module = build_module_from_config(cfg, np.load(data / "size_distribution.npy")).to(dev)
     module.train()
-    refused(f"train_step_hidden_{REFUSED_BACKWARD}", lambda: module.loss_fn(
+    refused(f"train_step_hidden_{REFUSED_WIDTH}", lambda: module.loss_fn(
         None, loop.batch_to_device(batch["ligand"], dev),
-        loop.batch_to_device(batch["pocket"], dev), training=True),
-        ("above 1024", "the backward kernels"))
+        loop.batch_to_device(batch["pocket"], dev), training=True), above)
     del module
     torch.cuda.empty_cache()
     res["phase_s"] = time.perf_counter() - t0
     print(f"  phase 20j took {res['phase_s']:.1f} s")
+    return res
+
+
+CLUSTER_BWD_KERNELS = ("gcl_agg_bwd", "coord_agg_bwd")
+CLUSTER_TRAIN = (CLUSTER_WIDTH, CLUSTER_PADDED[-1])  # hidden widths of 20k's train steps
+
+
+def cluster_train_step(torch, ec, dev, flagship, hidden, lig, pkt, histogram):
+    """Two conditional train steps (``loop.make_train_step``: forward,
+    backward, clipping, the optimizer) at batch 16 of the flagship's shape
+    at ``hidden`` from seeded random weights: the first's launches (6 of
+    each split kernel, the backward ones on clusters of two at F = 2048),
+    its peak device memory, its loss and gradient norm finite; the second's
+    ms."""
+    from diffsbdd_tpu_torch.config import load_config
+    from diffsbdd_tpu_torch.train import loop
+    from diffsbdd_tpu_torch.train.module import build_module_from_config
+    cfg = load_config(overrides=dict(flagship, egnn_params=dict(flagship["egnn_params"],
+                                                                hidden_nf=hidden)))
+    torch.manual_seed(0)
+    module = build_module_from_config(cfg, histogram).to(dev)
+    module.train()
+    step = loop.make_train_step(loop.create_train_state(module, lr=1e-4))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ec.reset_launch_counts()
+    info = step(None, lig, pkt)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    launches = dict(ec.launch_counts)
+    want = {**dict.fromkeys(ec.KERNELS, 6), "block_fused": 0}
+    _check(launches == want, f"the hidden-{hidden} train step launched {launches}, not {want}")
+    clusters = {k: ec.last_cluster_dim(k) for k in ec.KERNELS if k != "block_fused"}
+    _check(set(clusters.values()) == {2}, f"the hidden-{hidden} train step's clusters {clusters}")
+    loss, gnorm = float(info["loss"]), float(info["grad_norm"])
+    _check(np.isfinite(loss) and np.isfinite(gnorm),
+           f"the hidden-{hidden} train step: loss {loss}, gradient norm {gnorm}")
+    t = time.perf_counter()
+    step(None, lig, pkt)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t)
+    del module, step
+    torch.cuda.empty_cache()
+    return dict(batch=16, run_at=ec.padded_width(hidden), launches=launches,
+                cluster_dims=clusters, loss=loss, grad_norm=gnorm, ms_per_step=ms,
+                peak_gib=peak)
+
+
+def cluster_bwd_phase(torch, ec, dev, flagship, logs, work, card, dw2):
+    """Phase 20k, training at hidden widths 1025-2048 on the backward
+    kernels at F = 2048 (a row tile on a cluster of two blocks).  (a)
+    ``tier_kernel_phase`` of gcl_agg_bwd and coord_agg_bwd at F = 2048 at
+    every tier on phase 3b's main shapes (B = 16, ligands of 24-32 padded to
+    32 + 320 pocket atoms; the plain versions in batch slices of 2 and 1):
+    the tier gates, two launches bit for bit, the cluster dimension of each
+    tier's last launch, ms, plain ms, bound; the instantiations' registers,
+    spills and shared memory; beside them ``dw2`` (20i's dW2 share at F =
+    2048).  (b) ``cluster_train_step`` at hidden 2048 and 1536 on a seeded
+    synthetic batch of 16 (ligands of 16-32 atoms, pockets of 250-320)."""
+    from diffsbdd_tpu_torch.data.dataset import LigandPocketDataset, PaddedLoader
+    from diffsbdd_tpu_torch.train import loop
+    t0 = time.perf_counter()
+    F = CLUSTER_WIDTH
+    kernels = tier_kernel_phase(ec, torch, dev, flagship, F, names=CLUSTER_BWD_KERNELS)
+    for name in CLUSTER_BWD_KERNELS:
+        for tier in ec.TIERS:
+            dim = kernels[f"{name}[{tier}]"]["cluster_dim"] = ec.last_cluster_dim(name, tier)
+            _check(dim == 2, f"{name}[{tier}] F={F}: cluster dimension {dim}, not 2")
+    usage = ptxas_usage(logs, F)
+    smem = 4 * (16 * F + 2 * 8 * (F // 2 + 8)) + 4 * 352  # A, B and the columns at N = 352
+    for name in CLUSTER_BWD_KERNELS:
+        _check(name in usage, f"{name} has no instantiation at F = {F}")
+        for u in usage[name]:
+            print(f"  {name} F={F} {u['function'][:60]}: {u['registers']} registers, spill "
+                  f"stores {u['spill_stores']} B, loads {u['spill_loads']} B; shared memory "
+                  f"{smem} B dynamic (N = 352) + {u['static_smem']} B static")
+        for tier in ec.TIERS:
+            kernels[f"{name}[{tier}]"]["ptxas"] = usage[name]
+    print(f"  gcl_agg_bwd[tf32x3] F={F}: the dW2 step {dw2['dw2_ms']:.2f} of "
+          f"{dw2['ms']:.2f} ms, {100 * dw2['dw2_share']:.1f}% (20i's timing build)")
+    res = {"card": card, "kernels": kernels, "dw2": dw2, "smem_dynamic": smem,
+           "train_step": {}}
+    data = work / "data20k"
+    write_synthetic_dataset(data, 16, 1, seed=24, pocket_sizes=(250, 280, 310, 320),
+                            n_types=11)
+    batch = next(iter(PaddedLoader(LigandPocketDataset(data / "train.npz"), 16,
+                                   shuffle=False)))
+    lig = loop.batch_to_device(batch["ligand"], dev)
+    pkt = loop.batch_to_device(batch["pocket"], dev)
+    histogram = np.load(data / "size_distribution.npy")
+    for hidden in CLUSTER_TRAIN:
+        r = res["train_step"][hidden] = cluster_train_step(
+            torch, ec, dev, flagship, hidden, lig, pkt, histogram)
+        print(f"  {card}: hidden {hidden} (kernels at {r['run_at']}) train step at batch 16: "
+              f"{r['ms_per_step']:.1f} ms, peak {r['peak_gib']:.2f} GiB, loss "
+              f"{r['loss']:.4f}, gradient norm {r['grad_norm']:.4f}, launches "
+              f"{r['launches']}, clusters {r['cluster_dims']}")
+    res["phase_s"] = time.perf_counter() - t0
+    print(f"  phase 20k took {res['phase_s']:.1f} s")
     return res
 
 
@@ -4488,7 +4618,7 @@ def phase20(torch, ec, dev, flagship, logs, work, pdb, ref_lig, base, card, join
                                      width=WIDEST, padded=WIDEST_PADDED, chain=WIDEST_CHAIN,
                                      label="20i")
     res["widest"]["dw2"] = dw2_share_phase(ec, torch, dev, flagship, builds["skip_dw2"],
-                                           (WIDE, WIDEST))
+                                           (WIDE, WIDEST, CLUSTER_WIDTH))
     res["widest"]["error_growth"] = error_growth_phase(
         ec, torch, dev, flagship, builds["no_step_sums"],
         {WIDE: res["wide"]["float64_shares"], WIDEST: res["widest"]["float64_shares"]})
@@ -4496,6 +4626,10 @@ def phase20(torch, ec, dev, flagship, logs, work, pdb, ref_lig, base, card, join
           f"clusters of two blocks ({card})")
     res["cluster"] = cluster_width_phase(torch, ec, dev, flagship, logs, work, pdb, ref_lig,
                                          card)
+    print(f"[20k] training at hidden widths 1025-2048 on the F = {CLUSTER_WIDTH} backward "
+          f"kernels, clusters of two blocks ({card})")
+    res["cluster_bwd"] = cluster_bwd_phase(torch, ec, dev, flagship, logs, work, card,
+                                           res["widest"]["dw2"][CLUSTER_WIDTH])
     res["phase_s"] = time.perf_counter() - t20
     print(f"  phase 20 took {res['phase_s']:.1f} s")
     return res
@@ -4559,8 +4693,9 @@ def _phases(torch, ec, dev, out, card, logs, build_s, builds, t_start) -> int:
         _check(sass["HMMA"] > 0 and sass["LDGSTS"] > 0,
                f"{what} has no tensor-core or cp.async instructions")
     # every recorded function of the five 3xTF32 libraries (the kernels at
-    # F = 64 to 1024) builds to the recorded SASS, instruction for
-    # instruction (same nvcc); the F = 2048 cluster functions are new
+    # F = 64 to 1024, the forward split kernels at 2048) builds to the
+    # recorded SASS, instruction for instruction (same nvcc); the backward
+    # kernels' F = 2048 cluster functions are new
     release = nvcc_release(ec)
     for name in ec.KERNELS:
         if release != PARENT_SASS["nvcc"]:
@@ -4819,12 +4954,15 @@ def _phases(torch, ec, dev, out, card, logs, build_s, builds, t_start) -> int:
                  "replaces": sources[name][1], "launches": max(counts.values()),
                  "launches_by_path": counts, **entry, "library_ms": None})
     # gcl_agg and coord_agg at F = 2048 (3xTF32, a row tile on a cluster of
-    # two blocks), their launches on phase 20j's paths at hidden 1025-2048
+    # two blocks), their launches on phase 20j's paths at hidden 1025-2048 and
+    # on 20k's train steps
     cl = tiers["cluster"]
+    cb = tiers["cluster_bwd"]
     by_cluster_path = {
         "cluster_sampling": cl["chain"][CLUSTER_WIDTH]["launches"],
         f"cluster_padded_{CLUSTER_PADDED[-1]}_sampling": cl["chain"][CLUSTER_PADDED[-1]]["launches"],
-        "cluster_joint_sampling_unfused": cl["joint"]["launches"]}
+        "cluster_joint_sampling_unfused": cl["joint"]["launches"],
+        **{f"cluster_train_step_{h}": r["launches"] for h, r in cb["train_step"].items()}}
     cluster_entries = []
     for name, main_variant in (("gcl_agg", "full"), ("coord_agg", "ligand_rows_cross")):
         counts = {path: c[name] for path, c in by_cluster_path.items()}
@@ -4839,6 +4977,18 @@ def _phases(torch, ec, dev, out, card, logs, build_s, builds, t_start) -> int:
              "max_abs_err": max(e["max_abs_err"] for e in runs),
              **{k: entry[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "cluster_dim",
                                       "variant")}, "library_ms": None})
+    # gcl_agg_bwd and coord_agg_bwd at F = 2048 (3xTF32, clusters of two
+    # blocks), their launches on phase 20k's train steps at hidden 1025-2048
+    for name in CLUSTER_BWD_KERNELS:
+        counts = {f"cluster_train_step_{h}": r["launches"][name]
+                  for h, r in cb["train_step"].items()}
+        _check(max(counts.values()) > 0, f"no hidden-{CLUSTER_WIDTH} path launched {name}")
+        entry = {k: v for k, v in cb["kernels"][f"{name}[{ec.DEFAULT_TIER}]"].items()
+                 if k != "ptxas"}
+        cluster_entries.append(
+            {"name": f"{name}[F={CLUSTER_WIDTH}]", "route": "cuda", "source": sources[name][0],
+             "replaces": sources[name][1], "launches": max(counts.values()),
+             "launches_by_path": counts, **entry, "library_ms": None})
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": sources[name][0],
          "replaces": sources[name][1], "launches": launches[name],

@@ -49,8 +49,12 @@
 // product's terms and dmean in the cross pass.  Everything that crosses row
 // tiles (da_col of both MLPs, dx/dx0, dmean, the weight cotangents) goes
 // through per-block slabs and the summing kernel, without atomics, so the
-// result is deterministic.
-#include "egnn_mma_bwd.cuh"
+// result is deterministic.  F = 2048 runs each row tile and MLP on a cluster
+// of two blocks, each owning half of the MLP's features
+// (egnn_cluster_bwd.cuh's pieces: the head and the distance cotangents
+// summed over the two blocks, the per-pair coordinate terms, dmean and the
+// scatter on rank 0; one slab a cluster).
+#include "egnn_cluster_bwd.cuh"
 
 namespace {
 
@@ -431,6 +435,276 @@ __device__ void coord_bwd_pass(const CoordBwdArgs& g, float* S, float* D, float*
   if (CROSS && threadIdx.x < 3) g.mean_part[slab * 3 + threadIdx.x] = dmean;
 }
 
+// The row tile's and the chunk's shared state at F = 2048 (one cluster
+// block), one copy for both passes: the block's halves of the vectors.
+struct ClusterCoordShared {
+  static constexpr int P = mma::Layout<2048>::P, FB = mma::Layout<2048>::FB;
+  Chunk<1> chunk;
+  Rows<1> rows;
+  float q[P], dw[P];      // adj / norm, g_i . (x_i - x_j); cross: adj / cnorm, g_i . c
+  float phi[P];           // the pair's head output
+  float rowc[P][6], colc[P][6], meanc[P][3];
+  float b2s[FB], w3s[FB], wd2s[FB], wd20s[FB];
+  float xpart[mma::Layout<2048>::SLICES][P];  // the slices' shares of the head
+  float share[2][P];      // the block's shares of two pair sums, read by the peer
+  float grow[3], mean[3]; // g / nf of the row, 0 past update_rows
+};
+
+// One row tile of one MLP at F = 2048, one block of a cluster of two: the
+// body of coord_bwd_tile_tc on egnn_cluster_bwd.cuh's pieces (as
+// gcl_bwd_tile_cluster), with the coordinate head's epilogue; rank 0 alone
+// computes and scatters the per-pair coordinate terms and sums dmean.
+template <bool CROSS>
+__device__ void coord_bwd_tile_cluster(const CoordBwdArgs& g, size_t node0, size_t slab,
+                                       int i0, float* A, float* Bt, int* cols,
+                                       mma::W2BwdRing<2048>& ring, mma::ClusterBwdState& st,
+                                       ClusterCoordShared& sh, float& dmean) {
+  using L = mma::Layout<2048>;
+  constexpr int F = 2048, P = L::P, FB = L::FB, SLICES = L::SLICES;
+  const PairMlp& m = CROSS ? g.cross : g.coord;
+  const unsigned rank = cluster_rank(), peer = rank ^ 1u;
+  const int col0 = (int)rank * FB;
+  const int t = threadIdx.x, lane = t & 31, slice = t >> 5;
+  const int gid = lane >> 2, tig = lane & 3;
+  const float nc = g.norm_constant;
+  const Chunk<1>& chunk = sh.chunk;
+  const Rows<1>& rows = sh.rows;
+  float* acol_part = (CROSS ? g.ccol_part : g.acol_part) + slab * (size_t)g.N * F;
+  float* dx_part = g.dx_part + slab * (size_t)g.N * 6;
+  float* dw2 = (CROSS ? g.cw_part : g.w_part) + slab * weight_slab(F) + col0;
+
+  __syncthreads();  // the previous tile is no longer read
+  load_rows(sh.rows, g.x, g.x0, g.mask, g.is_lig, node0, i0, g.N, g.update_rows);
+  if (t < 3)
+    sh.grow[t] = i0 < g.N && i0 < g.update_rows ? g.g[(node0 + i0) * 3 + t] * g.inv_nf : 0.0f;
+  if (CROSS && t < 3) sh.mean[t] = g.graph_mean[blockIdx.y * 3 + t];
+  for (int e = t; e < FB; e += NT) {
+    sh.b2s[e] = m.b2[col0 + e];
+    sh.w3s[e] = m.head[col0 + e];
+    sh.wd2s[e] = m.w_d2[col0 + e];
+    sh.wd20s[e] = m.w_d20[col0 + e];
+  }
+  mma::ClusterFill<F> fill;
+  mma::load_fill_cluster(fill, m, node0, i0, g.N, col0);
+  __syncthreads();
+  const int count = compact_columns(rows, g.x0, g.col_mask, g.is_lig, node0, g.N, g.cut,
+                                    cols);
+  fill.load_cols(m, cols, count, 0, node0);
+  const uint32_t peer_share = peer_address(sh.share, peer);
+  const int ce = (2 * tig) ^ mma::swz(gid);  // C-fragment columns in rows gid, gid + 8
+
+  for (int c0 = 0; c0 < count; c0 += TJ) {
+    fill_chunk(sh.chunk, rows, g.x, g.x0, g.col_mask, g.is_lig, node0, cols, count, c0,
+               g.cut);
+    __syncthreads();
+    const unsigned kmask = mma::edge_ksteps16(chunk.j, lane);
+    // ---- pair geometry (read after the barrier below)
+    if (t < P) {
+      const int j = chunk.j[t];
+      float qv = 0.0f, dw = 0.0f;
+      if (j >= 0) {
+        const float* xj = g.x + (node0 + j) * 3;
+        if (CROSS) {
+          const float u0 = rows.x[0][0] - sh.mean[0], u1 = rows.x[0][1] - sh.mean[1],
+                      u2 = rows.x[0][2] - sh.mean[2];
+          const float v0 = xj[0] - sh.mean[0], v1 = xj[1] - sh.mean[1],
+                      v2 = xj[2] - sh.mean[2];
+          const float cx = u1 * v2 - u2 * v1, cy = u2 * v0 - u0 * v2, cz = u0 * v1 - u1 * v0;
+          qv = chunk.adj[t] / (sqrtf(cx * cx + cy * cy + cz * cz + 1e-8f) + nc);
+          dw = sh.grow[0] * cx + sh.grow[1] * cy + sh.grow[2] * cz;
+        } else {
+          qv = chunk.adj[t] / (sqrtf(chunk.d2[t] + 1e-8f) + nc);
+          for (int a = 0; a < 3; ++a) dw = fmaf(sh.grow[a], rows.x[0][a] - xj[a], dw);
+        }
+      }
+      sh.q[t] = qv;
+      sh.dw[t] = dw;
+    }
+    mma::fill_m1_cluster(fill, chunk, A);
+    cluster_sync();  // X1: both halves of S are filled
+    ring.start(false);
+    mma::copy_peer_cols(A, peer);
+    float acc[1][L::NTN][4];
+    mma::product_sw<F, mma::kTier>(A, ring, acc);  // z2 - b2 = m1 @ W2[:, O_r]
+
+    // ---- epilogue: z2, the block's share of the head raw = m2 . w3, the
+    // sum over both blocks, phi, draw, dz2 -> B
+    float pr[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int n = 0; n < L::NTN; ++n) {
+      const int f = slice * L::FW + 8 * n + 2 * tig;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float z = acc[0][n][e] + sh.b2s[f + (e & 1)];
+        acc[0][n][e] = z;
+        pr[e >> 1] = fmaf(mma::silu_fast(z), sh.w3s[f + (e & 1)], pr[e >> 1]);
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      pr[h] += __shfl_xor_sync(0xffffffffu, pr[h], 1);
+      pr[h] += __shfl_xor_sync(0xffffffffu, pr[h], 2);
+      if (tig == 0) sh.xpart[slice][gid + 8 * h] = pr[h];
+    }
+    __syncthreads();  // the slices' dots are complete
+    if (t < P) {
+      float raw = 0.0f;
+#pragma unroll
+      for (int sl = 0; sl < SLICES; ++sl) raw += sh.xpart[sl][t];
+      sh.share[0][t] = raw;
+    }
+    cluster_sync();  // X2: the shares are written, product 1's stages read
+    float draw[2];  // dL/d(raw) of pairs gid, gid + 8
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int p = gid + 8 * h;
+      const float raw =
+          mma::cluster_sum(sh.share[0][p], load_peer(peer_share + 4u * p), rank);
+      float phi = raw, d = sh.dw[p] * sh.q[p];  // dphi
+      if (g.use_tanh) {
+        const float th = tanhf(raw);
+        phi = th * g.coords_range;
+        d *= (1.0f - th * th) * g.coords_range;
+      }
+      draw[h] = d;
+      if (slice == 0 && tig == 0) sh.phi[p] = phi;
+    }
+    float hv[L::NTN][2];  // the lane's share of dw3 over the chunk
+#pragma unroll
+    for (int n = 0; n < L::NTN; ++n) hv[n][0] = hv[n][1] = 0.0f;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int p = gid + 8 * h;
+#pragma unroll
+      for (int n = 0; n < L::NTN; ++n) {
+        const int f = slice * L::FW + 8 * n + 2 * tig;
+        float dz2[2];
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const float z = acc[0][n][2 * h + c];
+          const float s = mma::sigmoid_fast(z);
+          dz2[c] = draw[h] * sh.w3s[f + c] * s * fmaf(z, 1.0f - s, 1.0f);
+          hv[n][c] = fmaf(z * s, draw[h], hv[n][c]);
+        }
+        *reinterpret_cast<float2*>(Bt + p * FB + ((slice * L::FW + 8 * n) ^ ce)) =
+            make_float2(dz2[0], dz2[1]);
+      }
+    }
+    mma::add_head_cotangent(hv, st.hvs);
+    __syncthreads();  // dz2 complete
+    mma::dw2_cluster<mma::kTier>(A, Bt, kmask, dw2);
+    __syncthreads();  // A and B no longer read
+    mma::place_dz2_half(Bt, A, col0, st.fa);
+    cluster_sync();  // X3: both halves of dz2 are placed
+    ring.start(true);
+    mma::copy_peer_cols(A, peer);
+    mma::product_sw<F, mma::kTier>(A, ring, acc);  // dm1[:, I_r] = dz2 @ W2^T[:, I_r]
+    __syncthreads();  // the last stage is read
+    mma::store_fragments(acc, Bt);
+    __syncthreads();  // dm1 complete
+    mma::dpre_cluster(fill, chunk, Bt, cols, count, c0, st.fa, acol_part);
+    fill.load_cols(m, cols, count, c0 + TJ, node0);  // the next chunk's
+    __syncthreads();  // dpre complete
+    mma::pair_dots(Bt, sh.wd2s, sh.wd20s, sh.share);
+    cluster_sync();  // X4: the pair sums' shares are written
+
+    // ---- this MLP's share of the per-pair coordinate cotangents: rank 0
+    if (rank != 0) continue;
+    if (t < P) {
+      const int j = chunk.j[t];
+      for (int a = 0; a < 6; ++a) { sh.rowc[t][a] = 0.0f; sh.colc[t][a] = 0.0f; }
+      if (CROSS)
+        for (int a = 0; a < 3; ++a) sh.meanc[t][a] = 0.0f;
+      if (j >= 0) {
+        const float* xj = g.x + (node0 + j) * 3;
+        const float* x0j = g.x0 + (node0 + j) * 3;
+        float dd2 = mma::cluster_sum(sh.share[0][t], load_peer(peer_share + 4u * t), rank);
+        const float dd20 =
+            mma::cluster_sum(sh.share[1][t], load_peer(peer_share + 4u * (P + t)), rank);
+        const float w_ = sh.phi[t] * sh.q[t];
+        if (!CROSS) {
+          const float sq = sqrtf(chunk.d2[t] + 1e-8f), norm = sq + nc;
+          dd2 -= (w_ / norm) * sh.dw[t] * (0.5f / sq);
+        }
+        for (int a = 0; a < 3; ++a) {
+          float v = 2.0f * dd2 * (rows.x[0][a] - xj[a]);
+          if (!CROSS) v = fmaf(sh.grow[a], w_, v);
+          const float v0 = 2.0f * dd20 * (rows.x0[0][a] - x0j[a]);
+          sh.rowc[t][a] = v; sh.colc[t][a] = -v;
+          sh.rowc[t][3 + a] = v0; sh.colc[t][3 + a] = -v0;
+        }
+        if (CROSS) {
+          const float u[3] = {rows.x[0][0] - sh.mean[0], rows.x[0][1] - sh.mean[1],
+                              rows.x[0][2] - sh.mean[2]};
+          const float v[3] = {xj[0] - sh.mean[0], xj[1] - sh.mean[1], xj[2] - sh.mean[2]};
+          const float c[3] = {u[1] * v[2] - u[2] * v[1], u[2] * v[0] - u[0] * v[2],
+                              u[0] * v[1] - u[1] * v[0]};
+          const float cn = sqrtf(c[0] * c[0] + c[1] * c[1] + c[2] * c[2] + 1e-8f);
+          const float dcnorm = -(w_ / (cn + nc)) * sh.dw[t];
+          float dc[3];
+          for (int a = 0; a < 3; ++a) dc[a] = w_ * sh.grow[a] + dcnorm * c[a] / cn;
+          const float du[3] = {v[1] * dc[2] - v[2] * dc[1], v[2] * dc[0] - v[0] * dc[2],
+                               v[0] * dc[1] - v[1] * dc[0]};
+          const float dv[3] = {dc[1] * u[2] - dc[2] * u[1], dc[2] * u[0] - dc[0] * u[2],
+                               dc[0] * u[1] - dc[1] * u[0]};
+          for (int a = 0; a < 3; ++a) {
+            sh.rowc[t][a] += du[a];
+            sh.colc[t][a] += dv[a];
+            sh.meanc[t][a] = -(du[a] + dv[a]);
+          }
+        }
+      }
+    }
+    __syncthreads();
+    if (CROSS && t < 3)
+      for (int p = 0; p < P; ++p) dmean += sh.meanc[p][t];
+    scatter_dx<1>(sh.rowc, sh.colc, cols, count, c0, i0, g.N, dx_part);  // ends with a sync
+  }
+  mma::store_row_cluster(fill, node0, i0, g.N, g.update_rows, CROSS ? g.dc_row : g.da_row);
+}
+
+// One MLP over every row tile of cluster q (blockIdx.x / 2) of batch b: as
+// coord_bwd_pass, with the cluster's slab.
+template <bool CROSS>
+__device__ void coord_bwd_pass_cluster(const CoordBwdArgs& g, float* A, float* Bt, int* cols,
+                                       ClusterCoordShared& sh, float* hvs) {
+  using L = mma::Layout<2048>;
+  const PairMlp& m = CROSS ? g.cross : g.coord;
+  const unsigned rank = cluster_rank();
+  const int col0 = (int)rank * L::FB;
+  const int Q = gridDim.x / cluster_size<2048>();
+  const size_t node0 = (size_t)blockIdx.y * g.N;
+  const size_t slab = (size_t)blockIdx.y * Q + cluster_tile<2048>();
+  __syncthreads();  // the previous pass has stored its sums
+  for (int e = threadIdx.x; e < L::FB; e += NT) hvs[e] = 0.0f;
+  mma::ClusterBwdState st{};
+  st.hvs = hvs;
+  mma::W2BwdRing<2048> ring{m.w2 + col0, (CROSS ? g.cw2t : g.w2t) + col0, Bt, 0};
+  float dmean = 0.0f;  // rank 0's thread t < 3: component t
+  for (int tile = cluster_tile<2048>(); tile < g.tiles; tile += Q)
+    coord_bwd_tile_cluster<CROSS>(g, node0, slab, tile, A, Bt, cols, ring, st, sh, dmean);
+  // [dW2][w_d2][w_d20][delta][b2][w3][0]: the GCL's slab layout, no head bias
+  mma::store_cluster_bwd_state(st, (CROSS ? g.cw_part : g.w_part) + slab * weight_slab(2048),
+                               A, rank);
+  if (CROSS && rank == 0 && threadIdx.x < 3) g.mean_part[slab * 3 + threadIdx.x] = dmean;
+}
+
+// F = 2048: the two passes on cluster q's blocks; the last cluster barrier
+// keeps each block's shared memory alive until the peer has read it.
+template <int F>
+__global__ void __launch_bounds__(NT) coord_agg_bwd_cluster_kernel(CoordBwdArgs g) {
+  using L = mma::Layout<F>;
+  extern __shared__ __align__(16) float smem[];
+  float* A = smem;                // P * F
+  float* Bt = A + L::P * F;       // the ring, or a P x FB tile
+  int* cols = reinterpret_cast<int*>(Bt + mma::NS * L::STAGE);  // N
+  __shared__ __align__(16) ClusterCoordShared sh;  // 16 B: the fill passes' loads vectorise
+  __shared__ float hvs[L::FB];
+  coord_bwd_pass_cluster<false>(g, A, Bt, cols, sh, hvs);
+  if (g.cross.a_row != nullptr) coord_bwd_pass_cluster<true>(g, A, Bt, cols, sh, hvs);
+  cluster_sync();  // the peer has read this block's last shares
+}
+
 template <int F>
 __global__ void __launch_bounds__(NT) coord_agg_bwd_kernel(CoordBwdArgs g) {
   using L = mma::Layout<F>;
@@ -453,13 +727,22 @@ int launch(CoordBwdArgs g, int B, int Q, float* da_col, float* dc_col,
   const int rows = g.update_rows < g.N ? g.update_rows : g.N;
   g.tiles = (rows + TI - 1) / TI;
   if (Q < 1 || Q > (g.tiles > 0 ? g.tiles : 1)) return (int)cudaErrorInvalidValue;
-  const size_t smem = mma::dynamic_smem_bwd_tc<F>(g.N);
-  cudaError_t err = cudaFuncSetAttribute(
-      coord_agg_bwd_kernel<F>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  coord_agg_bwd_kernel<F><<<dim3(Q, B), NT, smem, stream>>>(g);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  cudaError_t err;
+  if constexpr (cluster_size<F>() > 1) {
+    err = (cudaError_t)launch_clusters<cluster_size<F>()>(
+        coord_agg_bwd_cluster_kernel<F>, dim3(Q * cluster_size<F>(), B),
+        mma::dynamic_smem_bwd_cluster(g.N), stream, g);
+    if (err != cudaSuccess) return (int)err;
+  } else {
+    last_cluster_dim() = 1;
+    const size_t smem = mma::dynamic_smem_bwd_tc<F>(g.N);
+    err = cudaFuncSetAttribute(
+        coord_agg_bwd_kernel<F>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    coord_agg_bwd_kernel<F><<<dim3(Q, B), NT, smem, stream>>>(g);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
   reduce_partials(g.acol_part, da_col, B, Q, (size_t)g.N * F, stream);
   reduce_partials(g.dx_part, dxx0, B, Q, (size_t)g.N * 6, stream);
   reduce_partials(g.w_part, w_out, 1, B * Q, weight_slab(F), stream);
@@ -473,12 +756,12 @@ int launch(CoordBwdArgs g, int B, int Q, float* da_col, float* dc_col,
 
 }  // namespace
 
-// Q: blocks per batch element (1 <= Q <= row tiles below update_rows).  The
-// *_part buffers, da_row and dc_row must be zero on entry; da_col, dc_col
-// (B, N, F), dxx0 (B, N, 6), dmean (B, 3), w_out and cw_out (weight_slab) are
-// written in full.  Without the cross branch every cross pointer is null.
-// w2 and cw2 (and their transposes) must be 16-byte aligned: they stream
-// through cp.async.
+// Q: blocks per batch element, clusters of two at F = 2048 (1 <= Q <= row
+// tiles below update_rows).  The *_part buffers, da_row and dc_row must be
+// zero on entry; da_col, dc_col (B, N, F), dxx0 (B, N, 6), dmean (B, 3),
+// w_out and cw_out (weight_slab) are written in full.  Without the cross
+// branch every cross pointer is null.  w2 and cw2 (and their transposes)
+// must be 16-byte aligned: they stream through cp.async.
 extern "C" int coord_agg_backward(
     const float* g_out,
     const float* a_row, const float* a_col, const float* w_d2, const float* w_d20,
@@ -516,6 +799,7 @@ extern "C" int coord_agg_backward(
     case 256: return launch<256>(g, B, Q, da_col, dc_col, dxx0, dmean, w_out, cw_out, s);
     case 512: return launch<512>(g, B, Q, da_col, dc_col, dxx0, dmean, w_out, cw_out, s);
     case 1024: return launch<1024>(g, B, Q, da_col, dc_col, dxx0, dmean, w_out, cw_out, s);
+    case 2048: return launch<2048>(g, B, Q, da_col, dc_col, dxx0, dmean, w_out, cw_out, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -9,7 +9,11 @@
 // batch, dmean, and every weight cotangent.  It adds into its slab without
 // atomics (one thread per address between two block syncs), and a second
 // kernel (reduce_partials) sums the slabs in index order.  The result is
-// deterministic: no atomics anywhere.
+// deterministic: no atomics anywhere.  At F = 2048 a row tile runs on a
+// cluster of two blocks (egnn_cluster_bwd.cuh) and a slab is the
+// cluster's: q counts clusters, and each block writes only its own
+// features' parts (its columns of dW2 and da_col, its halves of the
+// vectors), rank 0 what both hold alike (dx/dx0, dmean, the head bias).
 //
 // Held here: the slab layout of a pair MLP's weight cotangents (weight_slab),
 // the per-thread and per-pair sums (FeatAcc, PairD2), the scatter of the

@@ -35,8 +35,11 @@
 // global scratch plus a second summing kernel for everything that crosses row
 // tiles (da_col, column-side dx/dx0, all weight cotangents), no atomics, so
 // the result is deterministic.  da_row is written by the block that owns the
-// rows.
-#include "egnn_mma_bwd.cuh"
+// rows.  F = 2048 runs each row tile on a cluster of two blocks, each owning
+// half of the features (egnn_cluster_bwd.cuh: W2 at 16 MB, 8 MB a chunk a
+// block and product; the pair sums over all features added over the two
+// blocks; one slab a cluster).
+#include "egnn_cluster_bwd.cuh"
 
 namespace {
 
@@ -67,6 +70,33 @@ __global__ void __launch_bounds__(NT) gcl_agg_bwd_kernel(GclBwdArgs g) {
   mma::store_gcl_bwd_state<F>(st, g.w_part + slab * weight_slab(F), S);
 }
 
+// F = 2048: cluster q (blockIdx.x / 2) walks the row tiles q, q + Q, ... of
+// batch b = blockIdx.y, each on both of its blocks (egnn_cluster_bwd.cuh),
+// with slab q of its batch; the last cluster barrier keeps each block's
+// shared memory alive until the peer has read it.
+template <int F>
+__global__ void __launch_bounds__(NT) gcl_agg_bwd_cluster_kernel(GclBwdArgs g) {
+  using L = mma::Layout<F>;
+  extern __shared__ __align__(16) float smem[];
+  float* A = smem;                // P * F
+  float* Bt = A + L::P * F;       // the ring, or a P x FB tile
+  int* cols = reinterpret_cast<int*>(Bt + mma::NS * L::STAGE);  // N
+  const int col0 = (int)cluster_rank() * L::FB;
+  const int Q = gridDim.x / cluster_size<F>();
+  const size_t node0 = (size_t)blockIdx.y * g.N;
+  const size_t slab = (size_t)blockIdx.y * Q + cluster_tile<F>();
+
+  __shared__ float hvs[L::FB];
+  for (int e = threadIdx.x; e < L::FB; e += NT) hvs[e] = 0.0f;
+  mma::ClusterBwdState st{};
+  st.hvs = hvs;
+  mma::W2BwdRing<F> ring{g.mlp.w2 + col0, g.w2t + col0, Bt, 0};
+  for (int tile = cluster_tile<F>(); tile < g.tiles; tile += Q)
+    mma::gcl_bwd_tile_cluster<mma::kTier>(g, node0, slab, tile, A, Bt, cols, ring, st);
+  mma::store_cluster_bwd_state(st, g.w_part + slab * weight_slab(F), A, cluster_rank());
+  cluster_sync();  // the peer has read this block's last shares
+}
+
 template <int F>
 int launch(GclBwdArgs g, int B, int Q, float* da_col, float* dxx0, float* w_out,
            cudaStream_t stream) {
@@ -74,13 +104,22 @@ int launch(GclBwdArgs g, int B, int Q, float* da_col, float* dxx0, float* w_out,
   const int rows = g.update_rows < g.N ? g.update_rows : g.N;
   g.tiles = (rows + TI - 1) / TI;
   if (Q < 1 || Q > (g.tiles > 0 ? g.tiles : 1)) return (int)cudaErrorInvalidValue;
-  const size_t smem = mma::dynamic_smem_bwd_tc<F>(g.N);
-  cudaError_t err = cudaFuncSetAttribute(
-      gcl_agg_bwd_kernel<F>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  gcl_agg_bwd_kernel<F><<<dim3(Q, B), NT, smem, stream>>>(g);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  cudaError_t err;
+  if constexpr (cluster_size<F>() > 1) {
+    err = (cudaError_t)launch_clusters<cluster_size<F>()>(
+        gcl_agg_bwd_cluster_kernel<F>, dim3(Q * cluster_size<F>(), B),
+        mma::dynamic_smem_bwd_cluster(g.N), stream, g);
+    if (err != cudaSuccess) return (int)err;
+  } else {
+    last_cluster_dim() = 1;
+    const size_t smem = mma::dynamic_smem_bwd_tc<F>(g.N);
+    err = cudaFuncSetAttribute(
+        gcl_agg_bwd_kernel<F>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    gcl_agg_bwd_kernel<F><<<dim3(Q, B), NT, smem, stream>>>(g);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
   reduce_partials(g.acol_part, da_col, B, Q, (size_t)g.N * F, stream);
   reduce_partials(g.dx_part, dxx0, B, Q, (size_t)g.N * 6, stream);
   reduce_partials(g.w_part, w_out, 1, B * Q, weight_slab(F), stream);
@@ -89,9 +128,10 @@ int launch(GclBwdArgs g, int B, int Q, float* da_col, float* dxx0, float* w_out,
 
 }  // namespace
 
-// Q: blocks per batch element (1 <= Q <= row tiles below update_rows).  The
-// *_part buffers and da_row must be zero on entry; da_col (B, N, F), dxx0
-// (B, N, 6) and w_out (weight_slab) are written in full.
+// Q: blocks per batch element, clusters of two at F = 2048 (1 <= Q <= row
+// tiles below update_rows).  The *_part buffers and da_row must be zero on
+// entry; da_col (B, N, F), dxx0 (B, N, 6) and w_out (weight_slab) are
+// written in full.
 extern "C" int gcl_agg_backward(
     const float* g_out, const float* a_row, const float* a_col, const float* x,
     const float* x0, const float* mask, const float* col_mask, const float* is_lig,
@@ -112,6 +152,7 @@ extern "C" int gcl_agg_backward(
     case 256: return launch<256>(g, B, Q, da_col, dxx0, w_out, s);
     case 512: return launch<512>(g, B, Q, da_col, dxx0, w_out, s);
     case 1024: return launch<1024>(g, B, Q, da_col, dxx0, w_out, s);
+    case 2048: return launch<2048>(g, B, Q, da_col, dxx0, w_out, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

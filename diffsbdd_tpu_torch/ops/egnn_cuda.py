@@ -64,8 +64,9 @@ their elementwise work stays float32.
 
 Hidden widths.  The kernels are instantiated at F = 64, 128, 256, 512 and
 1024 (at 512 on tiles of 2 rows, at 1024 of 1 row, ``row_tile``), and the
-two forward split kernels also at 2048, each row tile on a cluster of two
-blocks (``cluster_size``, ``csrc/egnn_cluster.cuh``): ``KERNEL_WIDTHS``.  On
+four split kernels also at 2048, each row tile on a cluster of two blocks
+(``cluster_size``; ``csrc/egnn_cluster.cuh`` the forward kernels',
+``csrc/egnn_cluster_bwd.cuh`` the backward kernels'): ``KERNEL_WIDTHS``.  On
 CUDA the public wrappers run any other width up to a kernel's widest at the
 next of its widths (``padded_width``: 32 at 64, 96 at 128, 192 at 256, 384
 at 512, 768 at 1024, 1088 at 2048): every operand's width axes zero-padded
@@ -73,9 +74,9 @@ at 512, 768 at 1024, 1088 at 2048): every operand's width axes zero-padded
 zeros through every MLP, so the result is the unpadded one up to summation
 order, at every tier; gradients reach the true width through autograd of the
 padding.  Wider than a kernel's widest raises before any launch (above 2048
-the forward kernels, above 1024 the backward and whole-block kernels), and
-so does a forward wrapper whose gradient is due at a width its backward
-kernel is not built for.
+the split kernels, above 1024 the whole-block kernel), and so does a
+forward wrapper whose gradient is due at a width its backward kernel is not
+built for.
 
 The kernels are compiled with ``nvcc`` for ``sm_90a`` into plain-C shared
 libraries under ``csrc/build`` at first use (``build_kernels``) and loaded with
@@ -97,7 +98,8 @@ BUILD_DIR = CSRC / "build"
 KERNELS = ("gcl_agg", "coord_agg", "gcl_agg_bwd", "coord_agg_bwd", "block_fused")
 HEADERS = (CSRC / "egnn_common.cuh", CSRC / "egnn_mma.cuh",
            CSRC / "egnn_coord.cuh", CSRC / "egnn_bwd.cuh",
-           CSRC / "egnn_mma_bwd.cuh", CSRC / "egnn_cluster.cuh")  # shared device code
+           CSRC / "egnn_mma_bwd.cuh", CSRC / "egnn_cluster.cuh",
+           CSRC / "egnn_cluster_bwd.cuh")  # shared device code
 # hidden widths the kernels are built for: the fixture checkpoint's, the
 # config default's, the flagship's, and twice, four and eight times the
 # flagship's.  The layouts need F to divide the block's 256 threads or be a
@@ -108,16 +110,13 @@ HEADERS = (CSRC / "egnn_common.cuh", CSRC / "egnn_mma.cuh",
 # The wrappers run every other width up to a kernel's widest zero-padded to
 # the next of its widths (``padded_width``, ``pad_operands``).
 SUPPORTED_F = (64, 128, 256, 512, 1024, 2048)
-# the widths each kernel is built for: the two forward split kernels (the
-# sampling path) at all of them, the backward kernels and the whole-block
-# kernel up to 1024
-KERNEL_WIDTHS = {name: SUPPORTED_F if name in ("gcl_agg", "coord_agg") else SUPPORTED_F[:-1]
+# the widths each kernel is built for: the four split kernels (sampling and
+# training) at all of them, the whole-block kernel up to 1024
+KERNEL_WIDTHS = {name: SUPPORTED_F[:-1] if name == "block_fused" else SUPPORTED_F
                  for name in KERNELS}
 # the ROADMAP.md §2 item that would run each kernel above its widest width
-WIDER_ITEM = {"gcl_agg": "widths above 2048", "coord_agg": "widths above 2048",
-              "gcl_agg_bwd": "the backward kernels at F = 2048",
-              "coord_agg_bwd": "the backward kernels at F = 2048",
-              "block_fused": "block_fused at F = 2048"}
+WIDER_ITEM = {name: "block_fused at F = 2048" if name == "block_fused"
+              else "widths above 2048" for name in KERNELS}
 
 
 def row_tile(F: int) -> int:
@@ -315,8 +314,9 @@ def _cut2(c: Optional[float]) -> float:
 
 def last_cluster_dim(name: str, tier: str = DEFAULT_TIER) -> int:
     """The cluster dimension (blocks a cluster along x) that the last launch
-    of forward kernel ``name``'s library at ``tier`` used: 2 at F = 2048, 1
-    below (``egnn_last_cluster_dim`` in ``gcl_agg`` and ``coord_agg``)."""
+    of split kernel ``name``'s library at ``tier`` used: 2 at F = 2048, 1
+    below (``egnn_last_cluster_dim`` in ``gcl_agg``, ``coord_agg``,
+    ``gcl_agg_bwd`` and ``coord_agg_bwd``)."""
     fn = _lib(name, tier).egnn_last_cluster_dim
     fn.argtypes, fn.restype = [], ctypes.c_int
     return int(fn())
@@ -719,8 +719,8 @@ def padded_width(F: int, name: str = "egnn kernels", kernel: str = "gcl_agg") ->
     """The width ``kernel`` runs hidden width ``F`` at: the least of its
     ``KERNEL_WIDTHS`` that is >= F.  Wider than its widest raises, naming the
     ROADMAP.md §2 item that would build it (``WIDER_ITEM``): above 2048 the
-    forward kernels need clusters of four blocks, above 1024 the backward and
-    whole-block kernels a cluster design of their own."""
+    split kernels need clusters of four blocks, above 1024 the whole-block
+    kernel a cluster design of its own."""
     widths = KERNEL_WIDTHS[kernel]
     for width in widths:
         if width >= F:
@@ -802,12 +802,13 @@ def _check_mlp(name, prefix, mlp, B, N, F, device):
 
 
 def _blocks_per_batch(B: int, rows: int, device, F: int) -> int:
-    """Blocks a backward kernel at built width F runs per batch element:
-    enough to fill the card's SMs (one block fits an SM), at most one per row
-    tile."""
+    """Blocks a backward kernel at built width F runs per batch element,
+    counted in clusters at F = 2048 (``cluster_size``): enough to fill the
+    card's SMs (one block fits an SM), at most one per row tile.  Each owns
+    one slab of the scratch."""
     tiles = max(1, -(-rows // row_tile(F)))
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, min(tiles, sms // B))
+    return max(1, min(tiles, sms // (B * cluster_size(F))))
 
 
 BLOCK_TILES_MAX = 16  # RB_TILES in csrc/block_fused.cu
@@ -1179,8 +1180,7 @@ def gcl_message_agg(a_row, a_col, x, x0, mask, is_lig, w_d2, w_d20,
     outside them, so autograd chains through it).  ``mirror_bwd``: the
     backward is autograd through the float32 twin (no backward kernel, no
     ``bwd_precision``), the forward's output the kernel's.  On CUDA a width
-    above 2048 raises before any launch, and so does one above 1024 where a
-    gradient through the backward kernel is due (``padded_width``).
+    above 2048 raises before any launch (``padded_width``).
     """
     tiers = _tiers("gcl_agg", precision, bwd_precision)
     if a_row.device.type == "cpu" and tiers == (DEFAULT_TIER, DEFAULT_TIER):

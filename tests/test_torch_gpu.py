@@ -352,14 +352,15 @@ def test_coord_kernels_at_2048_on_a_column_block(block, update_rows):
                                ec.gcl_message_agg_plain(*main.values(), *att, **gkw), **TOL)
 
 
-@pytest.mark.parametrize("width", [64, 128, 256, 512, 1024])
+@pytest.mark.parametrize("width", [64, 128, 256, 512, 1024, 2048])
 @pytest.mark.parametrize("update_rows", [None, 11])
 def test_bwd_kernels_on_a_partial_row_tile(update_rows, width):
-    """At F = 512 and 1024 the weights take the fan-in scale (``_inputs``'
+    """From F = 512 on the weights take the fan-in scale (``_inputs``'
     w_scale None): the default 0.3 puts the attention logits at a spread of
     sqrt(512) * 0.5 * 0.3 ~ 3.4, where db_att sums saturated gates'
     derivatives att * (1 - att) that cancel, and 1 - att near 1 keeps too few
-    digits in float32, the plain version's as the kernel's, for the gate."""
+    digits in float32, the plain version's as the kernel's, for the gate.
+    F = 2048 runs each row tile on a cluster of two blocks."""
     main, extra = _inputs(8, N=45, F=width, w_scale=None if width >= 512 else 0.3)
     ops = _folded(main)
     kw = dict(cutoffs=CUTOFFS, attention=True, normalization_factor=100.0,
@@ -373,7 +374,7 @@ def test_bwd_kernels_on_a_partial_row_tile(update_rows, width):
                     w_scale=None if width >= 512 else 0.3)
 
 
-@pytest.mark.parametrize("width", [64, 128, 256, 512, 1024])
+@pytest.mark.parametrize("width", [64, 128, 256, 512, 1024, 2048])
 def test_bwd_kernel_is_deterministic(width):
     """No atomics: two launches on the same inputs give the same bits."""
     main, extra = _inputs(10, F=width)
@@ -384,6 +385,90 @@ def test_bwd_kernel_is_deterministic(width):
     b = ec.gcl_agg_bwd(g, *ops.values(), extra["w_att"], extra["b_att"], **kw)
     for u, v in zip(a, b):
         assert torch.equal(u, v)
+
+
+def _bwd_2048_cases(seed, update_rows=None, block=None):
+    """Both backward kernels at F = 2048 (fan-in weights, N = 45, attention,
+    cross branch, tanh, edge-type deltas) at every tier against their plain
+    versions at that tier (3xTF32: ``_assert_cotangents``; the reduced tiers:
+    ``ec.TIER_GATES``), each launch on a cluster of two blocks of that tier's
+    library; ``block``: the columns of that block of a two-rank edge split
+    (``col_mask``).  Returns {tier: (GCL cotangents, coordinate ones)}."""
+    main, extra = _inputs(seed, N=45, F=2048, w_scale=None)
+    ops = _folded(main)
+    m = main["mask"]
+    col_mask = None if block is None else _column_block(m, block)
+    kw = dict(cutoffs=CUTOFFS, attention=True, normalization_factor=100.0,
+              update_rows=update_rows, col_mask=col_mask)
+    ckw = dict(COORD_KW, update_rows=update_rows, col_mask=col_mask,
+               cross=_folded_cross(extra["cross"], main["is_lig"], extra["w3"]),
+               graph_mean=(m[..., None] * main["x"]).sum(1) / m.sum(1)[:, None])
+    att = (extra["w_att"], extra["b_att"])
+    gen = torch.Generator().manual_seed(seed + 1)
+    g = torch.randn(B, 45, 2048, generator=gen).cuda()
+    gc = torch.randn(B, 45, 3, generator=gen).cuda()
+    exact = (dict(zip(GCL_COT, ec.gcl_agg_bwd_plain(g, *ops.values(), *att, **kw))),
+             _coord_cot(ec.coord_agg_bwd_plain(gc, *ops.values(), extra["w3"], **ckw)))
+    out = {}
+    for tier in ec.TIERS:
+        ec.reset_launch_counts()
+        got = (dict(zip(GCL_COT, ec.gcl_agg_bwd(g, *ops.values(), *att, **kw, precision=tier))),)
+        assert ec.last_cluster_dim("gcl_agg_bwd", tier) == 2
+        got += (_coord_cot(ec.coord_agg_bwd(gc, *ops.values(), extra["w3"], **ckw,
+                                            precision=tier)),)
+        assert ec.last_cluster_dim("coord_agg_bwd", tier) == 2
+        _only_tier("gcl_agg_bwd", tier)
+        _only_tier("coord_agg_bwd", tier)
+        if tier == ec.DEFAULT_TIER:
+            for c, e in zip(got, exact):
+                _assert_cotangents(c, e)
+        else:
+            ref = (dict(zip(GCL_COT, ec.gcl_agg_bwd_plain(g, *ops.values(), *att, **kw,
+                                                            precision=tier))),
+                   _coord_cot(ec.coord_agg_bwd_plain(gc, *ops.values(), extra["w3"], **ckw,
+                                                     precision=tier)))
+            for c, r, e in zip(got, ref, exact):
+                _assert_tier_cotangents(c, r, e, tier)
+        if update_rows is not None:
+            assert not got[0]["da_row"][:, update_rows:].any()
+        out[tier] = got
+    return out
+
+
+@pytest.mark.parametrize("update_rows", [None, 11])
+def test_bwd_kernels_at_2048_on_a_partial_row_tile(update_rows):
+    """``_bwd_2048_cases`` on N = 45 rows, the rows past ``update_rows``
+    not visited (da_row zero there)."""
+    _bwd_2048_cases(40, update_rows)
+
+
+@pytest.mark.parametrize("block", [0, 1])
+def test_bwd_kernels_at_2048_on_a_column_block(block):
+    """``_bwd_2048_cases`` on each column block of a two-rank edge split at
+    the conditional step's rows (the first 12 move)."""
+    _bwd_2048_cases(42, 12, block)
+
+
+def test_bwd_kernels_at_2048_are_deterministic():
+    """No atomics, and the two blocks of a cluster add each pair sum's two
+    shares in one fixed order: three launches of each backward kernel at
+    every tier give one digest of all their cotangents."""
+    main, extra = _inputs(44, N=45, F=2048, w_scale=None)
+    ops = _folded(main)
+    m = main["mask"]
+    ckw = dict(COORD_KW, update_rows=12,
+               cross=_folded_cross(extra["cross"], main["is_lig"], extra["w3"]),
+               graph_mean=(m[..., None] * main["x"]).sum(1) / m.sum(1)[:, None])
+    gen = torch.Generator().manual_seed(45)
+    g = torch.randn(B, 45, 2048, generator=gen).cuda()
+    gc = torch.randn(B, 45, 3, generator=gen).cuda()
+    for tier in ec.TIERS:
+        digests = {_digest([*ec.gcl_agg_bwd(g, *ops.values(), extra["w_att"], extra["b_att"],
+                                           **GCL_KW, precision=tier),
+                            *_coord_cot(ec.coord_agg_bwd(gc, *ops.values(), extra["w3"], **ckw,
+                                                         precision=tier)).values()])
+                   for _ in range(3)}
+        assert len(digests) == 1, tier
 
 
 def test_autograd_through_kernels_matches_twins():
@@ -905,7 +990,7 @@ def test_tiered_forward_kernels_match_plain(tier, width):
         ec.coord_update_agg_plain(*main.values(), extra["w3"], **ckw), tier)
 
 
-@pytest.mark.parametrize("width", [64, 128, 256, 512, 1024])
+@pytest.mark.parametrize("width", [64, 128, 256, 512, 1024, 2048])
 @pytest.mark.parametrize("tier", ["tf32x2", "bf16"])
 def test_tiered_backward_kernels_match_plain(tier, width):
     main, extra = _inputs(22, F=width, w_scale=None)
@@ -1042,8 +1127,8 @@ def test_padded_widths_match_plain(width):
     1088 and 1536 at 2048 (``ec.padded_width``):
     each of the five wrappers against its plain version at the true width,
     one launch each, every output and cotangent at the true width; above
-    1024 the two forward wrappers (the backward kernels and the whole block
-    are built up to 1024)."""
+    1024 the four split wrappers (the whole block is built up to 1024), each
+    launch on a cluster of two."""
     main, extra = _inputs(50, F=width, w_scale=None)
     att = (extra["w_att"], extra["b_att"])
     kw = dict(cutoffs=CUTOFFS, attention=True, normalization_factor=100.0)
@@ -1058,11 +1143,6 @@ def test_padded_widths_match_plain(width):
     torch.testing.assert_close(ec.coord_update_agg(*main.values(), extra["w3"], **ckw),
                                ec.coord_update_agg_plain(*main.values(), extra["w3"], **ckw),
                                **TOL)
-    if width > 1024:
-        assert ec.launch_counts == {**dict.fromkeys(ec.KERNELS, 0), "gcl_agg": 1,
-                                    "coord_agg": 1}, ec.launch_counts
-        assert ec.last_cluster_dim("gcl_agg") == ec.last_cluster_dim("coord_agg") == 2
-        return
     ops = _folded(main)
     gen = torch.Generator().manual_seed(51)
     g = torch.randn(B, N, width, generator=gen).cuda()
@@ -1073,6 +1153,11 @@ def test_padded_widths_match_plain(width):
     _assert_cotangents(
         _coord_cot(ec.coord_agg_bwd(gc, *ops.values(), extra["w3"], **ckw)),
         _coord_cot(ec.coord_agg_bwd_plain(gc, *ops.values(), extra["w3"], **ckw)))
+    if width > 1024:
+        assert ec.launch_counts == {**dict.fromkeys(ec.KERNELS, 1), "block_fused": 0}, \
+            ec.launch_counts
+        assert all(ec.last_cluster_dim(k) == 2 for k in ec.KERNELS if k != "block_fused")
+        return
     ins = block_inputs(52, F=width)
     got = ec.block_fused(*ins, **BLOCK_KW, update_rows=12)
     assert got[0].shape == (B, N, width)
@@ -1099,14 +1184,13 @@ def test_padded_width_network_matches_cpu():
         torch.testing.assert_close(f.cpu(), w, atol=1e-4, rtol=1e-4)
 
 
-def test_padded_width_1088_network_matches_cpu():
-    """A hidden-1088 network on the card: its forward on the F = 2048 split
-    kernels (one launch of each a layer) against the plain versions on the
-    CPU; its gradient refused before any launch with the backward kernels
-    (built up to 1024), and taken with ``kernel_bwd: xla`` (autograd through
-    the plain versions) against the CPU's."""
-    model, batch = _dynamics_case("cuda", hidden_nf=1088)
-    cpu, cpu_batch = _dynamics_case("cpu", hidden_nf=1088)
+def _wide_network_matches_cpu(hidden):
+    """A hidden-``hidden`` network on the card (above 1024: the split kernels
+    at F = 2048, each row tile on a cluster of two blocks): its forward and
+    its gradient on the split kernels and their backward kernels (one launch
+    of each a layer) against the plain versions on the CPU."""
+    model, batch = _dynamics_case("cuda", hidden_nf=hidden)
+    cpu, cpu_batch = _dynamics_case("cpu", hidden_nf=hidden)
     ec.reset_launch_counts()
     with torch.no_grad():
         got = model(*batch)
@@ -1116,12 +1200,23 @@ def test_padded_width_1088_network_matches_cpu():
     for f, w in zip(got, want):
         torch.testing.assert_close(f.cpu(), w, atol=1e-4, rtol=1e-4)
     ec.reset_launch_counts()
-    with pytest.raises(ValueError, match="feature width 1088 above 1024.*the backward kernels"):
-        _sum_sq_grads(model, batch)
-    assert not any(ec.launch_counts.values()), ec.launch_counts
-    mirror, m_batch = _dynamics_case("cuda", hidden_nf=1088, kernel_bwd="xla")
-    _assert_cotangents(_sum_sq_grads(mirror, m_batch), _sum_sq_grads(cpu, cpu_batch))
-    assert ec.launch_counts["gcl_agg_bwd"] == ec.launch_counts["coord_agg_bwd"] == 0
+    grads = _sum_sq_grads(model, batch)
+    assert ec.launch_counts == {**dict.fromkeys(ec.KERNELS, 2), "block_fused": 0}, \
+        ec.launch_counts
+    assert ec.last_cluster_dim("gcl_agg_bwd") == ec.last_cluster_dim("coord_agg_bwd") == 2
+    _assert_cotangents(grads, _sum_sq_grads(cpu, cpu_batch))
+
+
+def test_padded_width_1088_network_matches_cpu():
+    """Hidden 1088, zero-padded onto the F = 2048 kernels: the forward and
+    (since the backward kernels are built at 2048) the gradient on the
+    kernels, against the CPU."""
+    _wide_network_matches_cpu(1088)
+
+
+def test_width_2048_network_matches_cpu():
+    """Hidden 2048, the kernels' own width: as the hidden-1088 network."""
+    _wide_network_matches_cpu(2048)
 
 
 def test_forward_width_above_2048_is_refused():
@@ -1140,12 +1235,10 @@ def test_forward_width_above_2048_is_refused():
     assert not any(ec.launch_counts.values())
 
 
-def test_backward_and_block_width_above_1024_are_refused():
-    """The backward kernels and the whole-block kernel run every width up to
-    1024; 1088 is wider: a ValueError naming each one's ROADMAP item, before
-    any launch."""
-    main, extra = _inputs(53, F=1088)
-    ins = block_inputs(54, F=1088)
+def test_backward_width_above_2048_is_refused():
+    """The backward kernels run every width up to 2048; 2112 is wider: a
+    ValueError naming the ROADMAP item, before any launch."""
+    main, extra = _inputs(53, F=2112)
     att = (extra["w_att"], extra["b_att"])
     kw = dict(cutoffs=CUTOFFS, attention=True, normalization_factor=100.0)
     ops = _folded(main)
@@ -1154,10 +1247,18 @@ def test_backward_and_block_width_above_1024_are_refused():
                cross=_folded_cross(extra["cross"], main["is_lig"], extra["w3"]),
                graph_mean=(main["x"] * m[..., None]).sum(1) / m.sum(1)[:, None])
     ec.reset_launch_counts()
-    with pytest.raises(ValueError, match="above 1024.*ROADMAP.*the backward kernels"):
-        ec.gcl_agg_bwd(torch.ones(B, N, 1088, device="cuda"), *ops.values(), *att, **kw)
-    with pytest.raises(ValueError, match="above 1024.*ROADMAP.*the backward kernels"):
+    with pytest.raises(ValueError, match="above 2048.*ROADMAP.*widths above 2048"):
+        ec.gcl_agg_bwd(torch.ones(B, N, 2112, device="cuda"), *ops.values(), *att, **kw)
+    with pytest.raises(ValueError, match="above 2048.*ROADMAP.*widths above 2048"):
         ec.coord_agg_bwd(torch.ones(B, N, 3, device="cuda"), *ops.values(), extra["w3"], **ckw)
+    assert not any(ec.launch_counts.values())
+
+
+def test_block_width_above_1024_is_refused():
+    """The whole-block kernel runs every width up to 1024; 1088 is wider: a
+    ValueError naming its ROADMAP item, before any launch."""
+    ins = block_inputs(54, F=1088)
+    ec.reset_launch_counts()
     with pytest.raises(ValueError, match="above 1024.*ROADMAP.*block_fused at F = 2048"):
         ec.block_fused(*ins, **BLOCK_KW)
     assert not any(ec.launch_counts.values())

@@ -194,23 +194,23 @@ def test_wrapper_counts_no_launch_on_cpu():
 def test_kernel_widths(width):
     """The kernels are built for hidden widths 64, 128 (the config default),
     256, 512 and 1024 (on tiles of two rows and one, ``ec.row_tile``), and
-    the two forward split kernels also for 2048 (a row tile on a cluster of
-    two blocks, ``ec.cluster_size``); every other width up to a kernel's
-    widest runs zero-padded to the next of its widths, and a wider one is
-    refused before a launch, naming the ROADMAP item, never run by the plain
-    version on the card: 1088 and 2048 run on the forward kernels and are
-    refused by the backward kernels and ``block_fused``, 2112 and 4096 by
-    every kernel."""
+    the four split kernels, forward and backward, also for 2048 (a row tile
+    on a cluster of two blocks, ``ec.cluster_size``); every other width up
+    to a kernel's widest runs zero-padded to the next of its widths, and a
+    wider one is refused before a launch, naming the ROADMAP item, never run
+    by the plain version on the card: 1088 and 2048 run on the split
+    kernels and are refused by ``block_fused``, 2112 and 4096 by every
+    kernel."""
     assert ec.SUPPORTED_F == (64, 128, 256, 512, 1024, 2048)
     assert [ec.row_tile(f) for f in ec.SUPPORTED_F] == [4, 4, 4, 2, 1, 1]
     assert [ec.cluster_size(f) for f in ec.SUPPORTED_F] == [1, 1, 1, 1, 1, 2]
-    forward = ("gcl_agg", "coord_agg")
     for name in ec.KERNELS:
         widths = ec.KERNEL_WIDTHS[name]
-        assert widths == (ec.SUPPORTED_F if name in forward else ec.SUPPORTED_F[:-1]), name
+        assert widths == (ec.SUPPORTED_F[:-1] if name == "block_fused" else ec.SUPPORTED_F), \
+            name
         text = (ec.CSRC / f"{name}.cu").read_text()
         assert all(f"case {f}: return launch<{f}>(" in text for f in widths), name
-        assert "case 2048:" not in text or name in forward, name
+        assert ("case 2048:" in text) == (name != "block_fused"), name
         if width <= widths[-1]:
             want = min(f for f in widths if f >= width)
             assert ec.padded_width(width, name, name) == want
@@ -221,17 +221,21 @@ def test_kernel_widths(width):
             with pytest.raises(ValueError, match=f"{name}: feature width {width} above "
                                f"{widths[-1]}.*ROADMAP.*{ec.WIDER_ITEM[name]}"):
                 ec.padded_width(width, name, name)
-    assert ec.WIDER_ITEM["gcl_agg"] == "widths above 2048"
+    assert ec.WIDER_ITEM == {**dict.fromkeys(ec.KERNELS, "widths above 2048"),
+                             "block_fused": "block_fused at F = 2048"}
 
 
-@pytest.mark.parametrize("width,refused", [(1024, False), (1088, True), (2048, True)])
+@pytest.mark.parametrize("width,refused", [(1024, False), (1088, False), (2048, False),
+                                           (2112, True)])
 def test_forward_wrappers_refuse_an_untrainable_width(width, refused):
     """A forward wrapper whose output will need a gradient through a backward
     kernel (grad mode on, an operand that requires it) at a width that
     kernel is not built for raises before any launch, naming the backward
     kernel and its ROADMAP item; without a gradient due (no_grad, or no
-    operand that requires one) the width runs.  The wrappers call this on
-    CUDA tensors, unless ``mirror_bwd`` takes the plain backward."""
+    operand that requires one) the width passes this check.  The backward
+    kernels are built up to 2048: 1088 (padded) and 2048 train, 2112 is
+    refused.  The wrappers call this on CUDA tensors, unless ``mirror_bwd``
+    takes the plain backward."""
     w = torch.ones(width, width)
     ec._refuse_untrainable_width("gcl_message_agg", "gcl_agg_bwd", width, (w, None))
     w.requires_grad_(True)
@@ -240,8 +244,8 @@ def test_forward_wrappers_refuse_an_untrainable_width(width, refused):
     for name, kernel in (("gcl_message_agg", "gcl_agg_bwd"),
                          ("coord_update_agg", "coord_agg_bwd")):
         if refused:
-            with pytest.raises(ValueError, match=f"{name}: feature width {width} above 1024, "
-                               f"the widest {kernel} .*the backward kernels at F = 2048"):
+            with pytest.raises(ValueError, match=f"{name}: feature width {width} above 2048, "
+                               f"the widest {kernel} .*widths above 2048"):
                 ec._refuse_untrainable_width(name, kernel, width, (None, w))
         else:
             ec._refuse_untrainable_width(name, kernel, width, (None, w))

@@ -19,14 +19,19 @@ compute what the kernels do:
   the unpadded plain versions': atol 1e-5 + rtol 1e-4;
 * the 2xTF32 and bf16 tiers' emulations at the padded width against the
   same tier at F, within the card's gates (``ec.TIER_GATES``, the whole
-  block's ``ec.BLOCK_TIER_GATES``), the backward plain versions included.
+  block's ``ec.BLOCK_TIER_GATES``), the backward plain versions included;
+* at 1088 and 2048, the backward plain versions as the card's backward
+  wrappers run them (padded onto 2048, cut back) against ``jax.vjp`` of
+  the JAX package's dense twins at F: atol 1e-4, rtol 1e-3, as
+  test_torch_kernels_bwd.py (each cotangent sums up to B*N*N pair terms in
+  another order); the padded channels' cotangents exact zeros.
 
 B = 2, N = 20 (8 ligand nodes), one numpy seed a width.  Widths 320 to 512
 are the F = 512 kernels' (on tiles of two rows on the card), 640 and 1024
 the F = 1024 kernels' (tiles of one row), 1088 and 2048 the F = 2048
-forward kernels' (a row tile on a cluster of two blocks), which the plain
-versions compute at any width.  The whole block and the backward kernels
-are built up to 1024, so their cases stop there.
+split kernels' (a row tile on a cluster of two blocks, forward and
+backward), which the plain versions compute at any width.  The whole block
+is built up to 1024, so its cases stop there.
 """
 import functools
 
@@ -44,6 +49,8 @@ WIDTHS = (32, 96, 192, 320, 384, 512, 640, 1024, 1088, 2048)
 NAMES = ("gcl", "coord", "block")
 # the kernel behind each function, whose widths bound its cases
 KERNEL = dict(gcl="gcl_agg", coord="coord_agg", block="block_fused")
+# the widths of the backward kernels' F = 2048 instantiation: 1088 padded, 2048
+CLUSTER_WIDTHS = (1088, 2048)
 
 
 def built(kernel, F):
@@ -259,3 +266,115 @@ def test_padded_tiers_within_their_gates(tier, F):
             assert err <= ec.TIER_GATES[tier]["bwd"] * float(ref.abs().max()) + 1e-7, key
             assert ec.tier_moved_share(got[key], ref, outs[2][key]) <= \
                 ec.TIER_GATES[tier]["moved"], key
+
+
+BWD_TOL = dict(atol=1e-4, rtol=1e-3)
+UPDATE_ROWS = 12
+
+
+def _delta_tables(ops):
+    """``ops`` with every edge-type table (0, 0; 0, delta): its fold leaves
+    the projections as they are and gives delta, so the backward wrappers'
+    folded operands are the operands, and JAX's table cotangent at [1, 1]
+    is the port's ddelta."""
+    def delta_table(tb):
+        out = np.zeros_like(tb)
+        out[1, 1] = tb[1, 1]
+        return out
+
+    out = dict(ops, type_bias=delta_table(ops["type_bias"]))
+    out["cross"] = dict(ops["cross"], type_bias=delta_table(ops["cross"]["type_bias"]))
+    return out
+
+
+def _cut(cot, F):
+    """Cotangents named as their operands cut back to F, each padded part
+    (its width axes past F) asserted exact zeros."""
+    for key, t in cot.items():
+        if isinstance(t, dict):
+            _cut(t, F)
+        elif t is not None and key in ec._WIDTH_AXES:
+            for axis in ec._WIDTH_AXES[key]:
+                assert not t.narrow(axis % t.dim(), F, t.shape[axis] - F).any(), key
+    return ec.unpad_operands(cot, F)
+
+
+def _port_bwd(name, ops, g, F):
+    """The backward plain version of ``name`` as the card's wrapper runs it
+    at F: operands and ``g`` zero-padded to the backward kernel's width,
+    the cotangents (named as their operands, the cross MLP's a dict, dmean)
+    cut back to F."""
+    width = ec.padded_width(F, kernel=f"{KERNEL[name]}_bwd")
+    assert width == 2048
+    t = convert(ops, torch.as_tensor)
+    folded = {k: t[k] for k in GCL_KEYS}
+    folded["type_bias"] = t["type_bias"][1, 1]  # delta
+    pad = ec.pad_operands(dict(folded, delta=folded.pop("type_bias")), F, width)
+    if name == "gcl":
+        g_pad = ec._pad_axes(torch.as_tensor(g), F, width, (-1,), "g")
+        args = [pad[k] for k in GCL_KEYS[:8]] + [pad["delta"]] + [pad[k] for k in GCL_KEYS[9:]]
+        cot = ec.gcl_agg_bwd_plain(g_pad, *args, **GCL_KW, update_rows=UPDATE_ROWS,
+                                   col_mask=torch.as_tensor(ops["col_mask"]))
+        return _cut(dict(zip(ec._GCL_COT, cot)), F)
+    cross = {k: t["cross"][k] for k in ec._MLP_KEYS if k != "delta"}
+    cross["delta"] = t["cross"]["type_bias"][1, 1]
+    cross = ec.pad_operands(cross, F, width)
+    w3 = ec.pad_operands(dict(w3=t["w3"]), F, width)["w3"]
+    args = [pad[k] for k in GCL_KEYS[:8]] + [pad["delta"], pad["w2"], pad["b2"], w3]
+    main, cross_cot, dmean = ec.coord_agg_bwd_plain(
+        torch.as_tensor(g), *args, **COORD_KW, update_rows=UPDATE_ROWS, cross=cross,
+        graph_mean=t["graph_mean"])
+    return dict(_cut(dict(zip(ec._COORD_COT, main)), F), cross=_cut(cross_cot, F), dmean=dmean)
+
+
+def _jax_vjp(name, ops, g):
+    """jax.vjp of the JAX package's dense twin at F: {operand: cotangent}
+    (the cross MLP's a dict, the graph mean's as dmean), each table's
+    cotangent at [1, 1] as delta."""
+    j = convert(ops, jax.numpy.asarray)
+    keys = GCL_KEYS if name == "gcl" else COORD_KEYS
+    diff = [k for k in keys if k not in ("mask", "is_lig") and j[k] is not None]
+
+    def fn(d, cross, graph_mean):
+        args = [d.get(k, j[k]) for k in keys]
+        if name == "gcl":
+            return ep.gcl_message_agg_xla(*args, **GCL_KW, col_mask=j["col_mask"],
+                                          update_rows=UPDATE_ROWS, tile_i=1)
+        return ep.coord_update_agg_xla(*args, **COORD_KW, cross=cross, graph_mean=graph_mean,
+                                       update_rows=UPDATE_ROWS, tile_i=1)
+
+    _, vjp = jax.vjp(fn, {k: j[k] for k in diff}, j["cross"], j["graph_mean"])
+    main, cross, dmean = vjp(jax.numpy.asarray(g))
+    out = {k: np.asarray(v) for k, v in main.items()}
+    out["delta"] = out.pop("type_bias")[1, 1]
+    if name == "coord":
+        cross = {k: np.asarray(v) for k, v in cross.items()}
+        cross["delta"] = cross.pop("type_bias")[1, 1]
+        out.update(cross=cross, dmean=np.asarray(dmean))
+    return out
+
+
+@pytest.mark.parametrize("F", CLUSTER_WIDTHS)
+@pytest.mark.parametrize("name", ["gcl", "coord"])
+def test_backward_plain_at_2048_matches_jax_vjp(name, F):
+    """The backward plain versions at the backward kernels' F = 2048 (1088
+    padded onto it) against ``jax.vjp`` of JAX's dense twins at F: the GCL
+    with attention, an edge-type delta, a column mask (the columns of a
+    two-rank edge split's first block) and update_rows; the coordinate
+    update with the cross branch, tanh, the deltas and update_rows (JAX's
+    coordinate twin takes no column mask).  Every cotangent within atol
+    1e-4, rtol 1e-3; the padded channels' exact zeros."""
+    ops = _delta_tables(make_ops(F))
+    ops["col_mask"] = ops["mask"] * (np.arange(N) < N // 2)
+    rng = np.random.default_rng(F + 1)
+    g = rng.standard_normal((B, N, F if name == "gcl" else 3)).astype(np.float32)
+    g[:, UPDATE_ROWS:] = 0.0  # rows past update_rows carry no cotangent
+    got, want = _port_bwd(name, ops, g, F), _jax_vjp(name, ops, g)
+    pairs = [(k, got[k], want.get(k)) for k in got if k not in ("cross", "dmean")]
+    if name == "coord":
+        pairs += [(f"cross.{k}", got["cross"][k], want["cross"][k]) for k in ec._MLP_KEYS]
+        pairs.append(("dmean", got["dmean"], want["dmean"]))
+    for key, port, ref in pairs:
+        assert ref is not None and port is not None, key
+        np.testing.assert_allclose(port.numpy(), np.asarray(ref).reshape(port.shape),
+                                   err_msg=key, **BWD_TOL)
