@@ -13,9 +13,10 @@ Phases (any failure ends the run with a non-zero exit code):
      library only its tier's HMMA (TF32 or bf16), as many as its passes:
      2xTF32 2/3 of 3xTF32's TF32 HMMA, bf16 1/6 of them in the forward and
      whole-block kernels (between 1/6 and 1/3 in the backward ones, whose
-     dW2 loop is not unrolled); every F = 64 to 1024 function of the
-     five 3xTF32 libraries, and the forward split kernels' F = 2048 ones,
-     against its recorded SASS digest (``PARENT_SASS``, same nvcc);
+     dW2 loop is not unrolled); every F = 64 to 2048 function of the
+     five 3xTF32 libraries against its recorded SASS digest
+     (``PARENT_SASS``, same nvcc), and the digests of the functions not
+     yet recorded printed;
   3. each forward kernel against its plain PyTorch twin at the flagship shapes
      (B=16, NL=24, NP=300 padded to 320, F=256, cutoffs None/5/5, attention
      and the cross branch on) and at the shared-pocket variants (col_mask,
@@ -225,8 +226,8 @@ Phases (any failure ends the run with a non-zero exit code):
      (one launch each), the flagship's shape at hidden 2048 and 1536 from
      seeded random weights sampled (16 x 24, T = 10: 86 / 66 launches), the
      joint model at hidden 2048 sampled with block fusing off (8 x 24,
-     T = 5), and the refusals before any launch: width 2112 in the four
-     split wrappers and in a hidden-2112 train step, 1088 in block_fused.
+     T = 5), and the refusals before any launch: width 2112 in the five
+     wrappers and in a hidden-2112 train step.
      20k: training at hidden widths 1025-2048 on the two backward kernels
      at F = 2048, each row tile on a cluster of two blocks: gcl_agg_bwd and
      coord_agg_bwd at every tier at phase 3b's main shapes against their
@@ -235,13 +236,23 @@ Phases (any failure ends the run with a non-zero exit code):
      step's share from 20i's timing build), and one conditional train step
      at batch 16 at hidden 2048 and at 1536 from seeded random weights
      (6 launches of each split kernel, forward and backward, at F = 2048;
-     ms a step, peak memory, a finite loss and gradient norm).
+     ms a step, peak memory, a finite loss and gradient norm).  20l: the
+     whole-block kernel at F = 2048, both phases on clusters of two
+     blocks, at every tier at phase 3c's joint shapes (B = 8, clean and
+     collapsed) against its plain version (batch slices of 2; the block
+     gates; two launches bit for bit; the cluster dimension; ms, bounds,
+     registers, spills, shared memory), the bf16 library at F = 1024 and
+     2048 and its plain version each against that plain version with its
+     products summed in float64, width 1536 padded onto it, and the joint
+     model at hidden 2048 sampled with block fusing on (8 x 24, T = 5: 36
+     whole-block launches, no split-kernel launch).
 
 Prints a {"kernels": [...]} line (the five kernels, then the same five at
 F=128 from phase 19, then the five kernels at 2xTF32 and bf16 from phase
 20, then the five at F=512 from phase 20h and at F=1024 from phase 20i,
-then gcl_agg and coord_agg at F=2048 from phase 20j and gcl_agg_bwd and
-coord_agg_bwd at F=2048 from phase 20k)
+then gcl_agg and coord_agg at F=2048 from phase 20j, gcl_agg_bwd and
+coord_agg_bwd at F=2048 from phase 20k and block_fused at F=2048 from
+phase 20l)
 and the card line, and as its last line
 {"ok": true, "device": {...}}.  The pocket, the samples and a summary.json go
 to ``--out`` (default chip_smoke_out/ in the repository).  Needs a CUDA card:
@@ -433,8 +444,12 @@ def sass_counts(ec, name, opcodes, function=None, tier="tf32x3"):
 # from builds of the sources as they stood before the F = 1024
 # instantiations (commit b7b3254), for F = 1024's before the F = 2048 ones
 # (commit 3ac0e94), and for the F = 2048 forward ones before the F = 2048
-# backward ones (commit 0695e1d); and the nvcc that built them (the card
-# machine's)
+# backward ones (commit 0695e1d); then the backward kernels' and the
+# whole-block kernel's F = 2048 functions, recorded from the build that
+# added the latter (the backward ones as commit 134fe18 left them; the
+# whole block's phase B at F = 2048 is coord_agg's cluster kernel, one
+# source in egnn_coord.cuh, so both libraries hold the same SASS); and the
+# nvcc that built them (the card machine's)
 PARENT_SASS_FUNCTIONS = {
     "gcl_agg": {
         "_ZN43_GLOBAL__N_22gcl_agg_cluster_kernelILi2048EEEvN4egnn7GclArgsE":
@@ -479,6 +494,8 @@ PARENT_SASS_FUNCTIONS = {
             "436cfdd5b3bf1ed3c806bb8323e361d20e910bc5f4dd0ee3d728a7f1ade8dd62",
     },
     "gcl_agg_bwd": {
+        "_ZN47_GLOBAL__N_26gcl_agg_bwd_cluster_kernelILi2048EEEvN4egnn10GclBwdArgsE":
+            "01284c1c864b894fe639dd9f6f19e7b928060d049c8f1452c65333c4f7e1a680",
         "_ZN47_GLOBAL__N_18gcl_agg_bwd_kernelILi1024EEEvN4egnn10GclBwdArgsE":
             "5833331ae612127554bf368cecea3d65e865ccf66f45d004392b56194b0979bb",
         "_ZN47_GLOBAL__N_18gcl_agg_bwd_kernelILi128EEEvN4egnn10GclBwdArgsE":
@@ -493,6 +510,8 @@ PARENT_SASS_FUNCTIONS = {
             "9efdeac766b91eb4db11842e9aa1cef231b9e8b2cd5fb3ae8ade646d929c8a23",
     },
     "coord_agg_bwd": {
+        "_ZN49_GLOBAL__N_28coord_agg_bwd_cluster_kernelILi2048EEEvNS_12CoordBwdArgsE":
+            "d81573c99be242b978e5619c645fbf595c96c67fc2872035ef0f0f2e0464d8b1",
         "_ZN49_GLOBAL__N_20coord_agg_bwd_kernelILi1024EEEvNS_12CoordBwdArgsE":
             "ad14a6baa9412a818234010db6080f1c8103a8f54dfcc5792bc21712f460ce18",
         "_ZN49_GLOBAL__N_20coord_agg_bwd_kernelILi128EEEvNS_12CoordBwdArgsE":
@@ -507,6 +526,12 @@ PARENT_SASS_FUNCTIONS = {
             "9efdeac766b91eb4db11842e9aa1cef231b9e8b2cd5fb3ae8ade646d929c8a23",
     },
     "block_fused": {
+        "_ZN47_GLOBAL__N_21block_phase_a_clusterILi2048EEEvNS_6PhaseAEPf":
+            "b1604414919928f345bd8ce6ad77301dac2195aa89075b65686868edb055e48c",
+        "_ZN47_GLOBAL__N_24coord_agg_cluster_kernelILi2048ELb0EEEvN4egnn9CoordArgsEPf":
+            "6542948e98d277a6821b12d26484c7ce201b60a3fe89710f4739f2f5762bc0ab",
+        "_ZN47_GLOBAL__N_24coord_agg_cluster_kernelILi2048ELb1EEEvN4egnn9CoordArgsEPf":
+            "fbe918284c03e6277c03b04854259eb839aa94d558ec1c7b68f4675628fff31f",
         "_ZN47_GLOBAL__N_13block_phase_aILi1024EEEvNS_6PhaseAE":
             "fd249cd938f63c9dd3765860c190c547a07f54df7a504e62c540524c577f6c53",
         "_ZN47_GLOBAL__N_13block_phase_bILi1024ELb0EEEvN4egnn9CoordArgsEPf":
@@ -2751,7 +2776,8 @@ def dense_phase(torch, ec, dev, flagship, work, pdb, ref_lig, card):
         normalization_factor=e.normalization_factor,
         edge_cutoff_ligand=e.edge_cutoff_ligand, edge_cutoff_pocket=e.edge_cutoff_pocket,
         edge_cutoff_interaction=e.edge_cutoff_interaction,
-        edge_embedding_dim=e.get("edge_embedding_dim"), mode="gnn_dynamics").eval()
+        edge_embedding_dim=e.get("edge_embedding_dim"), mode="gnn_dynamics",
+        update_pocket_coords=False, kernel_block_fuse=False).eval()
     res["forward"] = {}
     for name, card_dyn, cpu_dyn in (
             ("sin_mean", module.ddpm.dynamics, cpu_module.ddpm.dynamics),
@@ -4140,7 +4166,7 @@ CLUSTER_CHAIN = dict(n=16, T=10)
 CLUSTER_JOINT = dict(n=JOINT_SAMPLES, T=5)
 CLUSTER_PLAIN_STEP = 2  # graphs a slice of the plain versions: 1.9 GB a (2, 344, 344, 2048) tensor
 REFUSED_WIDTH = 2112  # wider than the split kernels
-REFUSED_BLOCK = 1088  # wider than block_fused
+REFUSED_BLOCK = 2112  # wider than block_fused
 
 
 def cluster_kernel_phase(ec, torch, dev, flagship, logs):
@@ -4251,7 +4277,6 @@ def cluster_kernel_phase(ec, torch, dev, flagship, logs):
             print(f"  {name} F={F} {u['function'][:60]}: {u['registers']} registers, spill "
                   f"stores {u['spill_stores']} B, loads {u['spill_loads']} B; shared memory "
                   f"{smem['dynamic']} B dynamic (N = {N}) + {u['static_smem']} B static")
-    _check("block_fused" not in usage, f"block_fused is instantiated at F = {F}")
     del inputs, full, dense, b8
     torch.cuda.empty_cache()
     return {"variants": res, "ptxas": {k: usage[k] for k in CLUSTER_KERNELS},
@@ -4261,7 +4286,7 @@ def cluster_kernel_phase(ec, torch, dev, flagship, logs):
 def cluster_width_phase(torch, ec, dev, flagship, logs, work, pdb, ref_lig, card):
     """Phase 20j, hidden widths 1025-2048 on the forward split kernels at
     F = 2048 (a row tile on a cluster of two blocks; the backward kernels'
-    are 20k's, ``block_fused`` stays at 1024).  (a) ``cluster_kernel_phase``.  (b)
+    are 20k's, ``block_fused``'s 20l's).  (a) ``cluster_kernel_phase``.  (b)
     ``padded_kernel_phase`` of the two forward kernels at each of
     ``CLUSTER_PADDED``: one launch of each wrapper's library at 3xTF32 and
     bf16, on a cluster of two.  (c) the flagship's shape from seeded random
@@ -4271,7 +4296,7 @@ def cluster_width_phase(torch, ec, dev, flagship, logs, work, pdb, ref_lig, card
     launches of each split kernel a pass).  (d) refusals, each before any
     launch: width ``REFUSED_WIDTH`` in the four split wrappers and in a
     hidden-``REFUSED_WIDTH`` train step, ``REFUSED_BLOCK`` in
-    ``block_fused``."""
+    ``block_fused`` (built up to 2048 since 20l's kernel)."""
     from diffsbdd_tpu_torch.config import load_config
     from diffsbdd_tpu_torch.data.dataset import LigandPocketDataset, PaddedLoader
     from diffsbdd_tpu_torch.diffusion.ddpm import JointDDPM
@@ -4373,8 +4398,7 @@ def cluster_width_phase(torch, ec, dev, flagship, logs, work, pdb, ref_lig, card
     blk = kernel_inputs(torch, dev, model(REFUSED_BLOCK), 2, 24, with_delta=True)
     refused(f"block_fused_width_{REFUSED_BLOCK}", lambda: ec.block_fused(
         *block_operands(blk), cutoffs=blk["cut"], attention=True, tanh=True,
-        coords_range=15.0, norm_constant=1.0, normalization_factor=100.0),
-        ("above 1024", "ROADMAP"))
+        coords_range=15.0, norm_constant=1.0, normalization_factor=100.0), above)
     del blk
     data = work / "data20j"
     write_synthetic_dataset(data, 2, 1, seed=23, pocket_sizes=(250, 280), n_types=11)
@@ -4490,6 +4514,219 @@ def cluster_bwd_phase(torch, ec, dev, flagship, logs, work, card, dw2):
               f"{r['launches']}, clusters {r['cluster_dims']}")
     res["phase_s"] = time.perf_counter() - t0
     print(f"  phase 20k took {res['phase_s']:.1f} s")
+    return res
+
+
+CLUSTER_BLOCK_SHAPES = ("joint_main_path", "joint_main_path_dense")  # 3c's, B = 8
+CLUSTER_BLOCK_PADDED = CLUSTER_PADDED[-1]  # run on the F = 2048 whole-block kernel
+BF16_WITNESS_SEEDS = (7, 17, 27)  # B = CLUSTER_PLAIN_STEP graphs each, a width
+
+
+def bf16_order_witness(ec, torch, dev, flagship):
+    """Phase 20l, where the whole-block kernel's bf16 error comes from, at
+    F = 1024 (a row tile on one block) and 2048 (on clusters of two): on
+    ``BF16_WITNESS_SEEDS`` complexes of CLUSTER_PLAIN_STEP graphs at phase
+    3c's joint shapes, the bf16 library and its bf16 plain version (float32
+    sums) each against that plain version with its bf16 products summed in
+    float64 (the tier's roundings, exact sums rounded once).  Per width and
+    output, the largest over the seeds of: the kernel's error against the
+    plain version (the card tests' bf16 gate), the kernel's and the plain
+    version's against the float64 sums, each as an error norm over the
+    norm of the tier's move from the float32 plain version
+    (``ec.tier_moved_share``) and as the largest error over the float64
+    sums' largest entry.  Two orders of the same float32 sums read alike
+    against the exact ones; a fault of the kernel's reads more."""
+    def exact_sums(a, b):
+        return (ec.bf16_round(a).double() @ ec.bf16_round(b).double()).float()
+
+    res = {}
+    for F in (WIDEST, CLUSTER_WIDTH):
+        cfg = dict(flagship, egnn_params=dict(flagship["egnn_params"], hidden_nf=F))
+        worst = {}
+        for seed in BF16_WITNESS_SEEDS:
+            inp = kernel_inputs(torch, dev, cfg, CLUSTER_PLAIN_STEP, 24, seed=seed)
+            ops = block_operands(inp)
+            kw = dict(cutoffs=inp["cut"], attention=True, tanh=True, coords_range=15.0,
+                      norm_constant=1.0, normalization_factor=100.0)
+            got = ec.block_fused(*ops, **kw, precision="bf16")
+            ref = ec.block_fused_plain(*ops, **kw, precision="bf16")
+            f32 = ec.block_fused_plain(*ops, **kw)
+            float32_sums, ec.matmul_bf16 = ec.matmul_bf16, exact_sums
+            try:
+                f64 = ec.block_fused_plain(*ops, **kw, precision="bf16")
+            finally:
+                ec.matmul_bf16 = float32_sums
+            for name, g, r, e, x in zip(("h_new", "dx"), got, ref, f64, f32):
+                _check(bool(torch.isfinite(g).all() and torch.isfinite(e).all()),
+                       f"block_fused[bf16] F={F} {name}: not finite")
+                scale = float(e.abs().max())
+                now = dict(kernel_vs_plain=ec.tier_moved_share(g, r, x),
+                           kernel_vs_f64=ec.tier_moved_share(g, e, x),
+                           plain_vs_f64=ec.tier_moved_share(r, e, x),
+                           kernel_vs_plain_max=float((g - r).abs().max()) / scale,
+                           kernel_vs_f64_max=float((g - e).abs().max()) / scale,
+                           plain_vs_f64_max=float((r - e).abs().max()) / scale)
+                was = worst.setdefault(name, dict.fromkeys(now, 0.0))
+                for k, v in now.items():
+                    was[k] = max(was[k], v)
+            del inp, ops, got, ref, f32, f64
+            torch.cuda.empty_cache()
+        res[F] = worst
+        for name, w in worst.items():
+            print(f"  block_fused[bf16] F={F} {name}, error norm over the tier's move, the "
+                  f"largest of {len(BF16_WITNESS_SEEDS)} complexes of {CLUSTER_PLAIN_STEP}: "
+                  f"kernel against plain {w['kernel_vs_plain']:.3f}; against the float64 "
+                  f"sums the kernel {w['kernel_vs_f64']:.3f}, the plain version "
+                  f"{w['plain_vs_f64']:.3f}; largest error over the largest entry "
+                  f"{w['kernel_vs_plain_max']:.2e}, {w['kernel_vs_f64_max']:.2e}, "
+                  f"{w['plain_vs_f64_max']:.2e}")
+    return res
+
+
+def _block_plain_in_slices(ec, torch, ops, kw, step):
+    """``ec.block_fused_plain(*ops, **kw)`` over batch slices of ``step``
+    graphs, concatenated (the per-graph operands: h .. is_lig and the graph
+    mean)."""
+    B = ops[0].shape[0]
+    parts = [ec.block_fused_plain(*(t[b:b + step] for t in ops[:7]), *ops[7:11],
+                                  None if ops[11] is None else ops[11][b:b + step], **kw)
+             for b in range(0, B, step)]
+    return tuple(torch.cat(outs, 0) for outs in zip(*parts))
+
+
+def cluster_block_phase(torch, ec, dev, flagship, logs, work, pdb, ref_lig, card):
+    """Phase 20l, the whole-block kernel at F = 2048 (both phases on clusters
+    of two blocks; sampling at hidden 1025-2048 with block fusing on).  (a)
+    its library at every tier on phase 3c's joint shapes (B = 8, 24 + 320
+    atoms, every row moving, on the clean and the collapsed complex: the
+    ``CLUSTER_BLOCK_SHAPES`` of ``TIER_BLOCK_SHAPES``) against its plain
+    version at the tier in batch slices of ``CLUSTER_PLAIN_STEP`` graphs:
+    each output within 1e-5 + (1e-4 + the tier's share) of its largest
+    entry, the error norm within ``ec.BLOCK_TIER_GATES``' share of the
+    tier's move from the 3xTF32 kernel's output, that tier's library alone
+    launched, two launches bit for bit, each on clusters of two; CUDA-event
+    ms of kernel and plain version, the tier's bound and the 3xTF32 one;
+    the instantiations' registers, spills and shared memory; at bf16 also
+    ``bf16_order_witness`` at F = 1024 and 2048.  (b)
+    ``padded_kernel_phase`` of the whole block at ``CLUSTER_BLOCK_PADDED``.
+    (c) the joint model at hidden 2048 from 20j's seeded random weights
+    sampled with block fusing on (``CLUSTER_JOINT``: 6 whole-block launches
+    a pass and no split-kernel launch), beside 20j's unfused chain."""
+    from diffsbdd_tpu_torch.diffusion.ddpm import JointDDPM
+    t0 = time.perf_counter()
+    F = CLUSTER_WIDTH
+    cfg = dict(flagship, egnn_params=dict(flagship["egnn_params"], hidden_nf=F))
+    kernels = {}
+    for label in CLUSTER_BLOCK_SHAPES:
+        B, seed, spread, rows = TIER_BLOCK_SHAPES[label]
+        inp = kernel_inputs(torch, dev, cfg, B, 24, seed=seed, spread=spread)
+        ops = block_operands(inp)
+        kw = dict(cutoffs=inp["cut"], attention=True, tanh=True, coords_range=15.0,
+                  norm_constant=1.0, normalization_factor=100.0, update_rows=rows)
+        N = inp["N"]
+        flops, bytes_ = block_work(B, N, F, active_pairs(ec, inp),
+                                   active_pairs(ec, inp, rows=rows), 2)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        base = None
+        for tier in ec.TIERS:
+            gate = ec.BLOCK_TIER_GATES[tier]
+            what = f"block_fused[{tier}] {label} F={F}"
+            ec.reset_launch_counts()
+            got = ec.block_fused(*ops, **kw, precision=tier)
+            again = ec.block_fused(*ops, **kw, precision=tier)
+            cluster = ec.last_cluster_dim("block_fused", tier)
+            launched = {k: v for k, v in ec.tier_launch_counts.items() if v}
+            _check(launched == {f"block_fused[{tier}]": 2},
+                   f"{what}: launched {launched}, not its tier's library")
+            _check(cluster == 2, f"{what}: cluster dimension {cluster}, not 2")
+            start.record()
+            ref = _block_plain_in_slices(ec, torch, ops, dict(kw, precision=tier),
+                                         CLUSTER_PLAIN_STEP)
+            end.record()
+            torch.cuda.synchronize()
+            plain_ms = start.elapsed_time(end)
+            err = share = moved_share = 0.0
+            for i, (name, g, a, r) in enumerate(zip(("h_new", "dx"), got, again, ref)):
+                scale = float(r.abs().max())
+                e = float((g - r).abs().max())
+                _check(bool(torch.isfinite(g).all()) and
+                       e <= 1e-5 + (1e-4 + gate["share"]) * scale,
+                       f"{what} {name}: error {e:.3e}, largest entry {scale:.3e}")
+                _check(torch.equal(g, a), f"{what} {name}: two launches differ")
+                err, share = max(err, e), max(share, e / scale)
+                if base is not None:
+                    moved_share = max(moved_share, ec.tier_moved_share(g, r, base[i]))
+            _check(not bool(got[1][:, N if rows is None else rows:].any()),
+                   f"{what}: dx rows past update_rows are not zero")
+            if gate["moved"] is not None:
+                _check(moved_share <= gate["moved"],
+                       f"{what}: error norm {moved_share:.3f} of the tier's move, "
+                       f"gate {gate['moved']}")
+            base = got if base is None else base
+            del again, ref
+            ms = _cuda_ms(lambda: ec.block_fused(*ops, **kw, precision=tier), 3)
+            bound_ms, bound_by = tier_bound(flops, bytes_, tier)
+            bound_tc_ms, bound_tc_by = tier_bound(flops, bytes_, "tf32x3")
+            kernels[f"block_fused[{tier}]:{label}"] = dict(
+                kernel="block_fused", tier=tier, variant=label, width=F, batch=B,
+                cluster_dim=cluster, max_abs_err=err, gate_share=share,
+                moved_share=moved_share, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, bound_tc_ms=bound_tc_ms, bound_tc_by=bound_tc_by,
+                flops=flops)
+            print(f"  {what}: cluster of {cluster}, {ms:.3f} ms (plain {plain_ms:.1f} ms), "
+                  f"bound {bound_ms:.4f} ms ({bound_by}, {100 * bound_ms / ms:.1f}%; 3xTF32 "
+                  f"{bound_tc_ms:.4f} ms); error {share:.2e} of the largest entry"
+                  + ("" if gate["moved"] is None else
+                     f", error norm {moved_share:.4f} of the tier's move "
+                     f"(gate {gate['moved']:g})"))
+            del got
+        del inp, ops, base
+        torch.cuda.empty_cache()
+    bf16_witness = bf16_order_witness(ec, torch, dev, flagship)
+    usage = ptxas_usage(logs, F)
+    _check("block_fused" in usage, f"block_fused has no instantiation at F = {F}")
+    N = 344
+    smem = 4 * (16 * (F + 4) + 2 * 8 * (F // 2 + 8)) + 4 * N
+    for u in usage["block_fused"]:
+        print(f"  block_fused F={F} {u['function'][:60]}: {u['registers']} registers, spill "
+              f"stores {u['spill_stores']} B, loads {u['spill_loads']} B; shared memory "
+              f"{smem} B dynamic (N = {N}) + {u['static_smem']} B static")
+    res = {"card": card, "kernels": kernels, "ptxas": usage["block_fused"],
+           "smem_dynamic": smem, "bf16_witness": bf16_witness}
+    res["padded"] = padded_kernel_phase(ec, torch, dev, flagship, CLUSTER_BLOCK_PADDED,
+                                        names=("block_fused",))
+    for tier in PADDED_TIERS:
+        dim = ec.last_cluster_dim("block_fused", tier)
+        _check(dim == 2, f"block_fused[{tier}] width {CLUSTER_BLOCK_PADDED}: cluster {dim}")
+
+    T = CLUSTER_JOINT["T"]
+    ckpt = _random_checkpoint(torch, dict(flagship, mode="joint",
+                                          tpu={"kernel_block_fuse": True},
+                                          egnn_params=dict(flagship["egnn_params"],
+                                                           hidden_nf=F)),
+                              None, work / "cluster_joint_fused")[0]
+    passes = len(JointDDPM._repaint_plan(1, 1, T)[0]) + 1
+    sdf = work / "cluster_joint_fused.sdf"
+    wall, sample_s, launches, by_tier, xh = _captured_generate(
+        torch, ec, [ckpt, "--pdbfile", pdb, "--ref_ligand", ref_lig, "--outfile", sdf,
+                    "--n_samples", CLUSTER_JOINT["n"], "--num_nodes_lig", 24, "--all_frags",
+                    "--timesteps", T, "--resamplings", 1, "--jump_length", 1], joint=True)
+    want = {**dict.fromkeys(ec.KERNELS, 0), "block_fused": 6 * passes}
+    _check(launches == want, f"the hidden-{F} fused joint chain launched {launches}, "
+                             f"not {want}")
+    _check(ec.last_cluster_dim("block_fused") == 2, "the fused joint chain's clusters")
+    _check(bool(torch.isfinite(xh).all()), f"the hidden-{F} fused joint chain's samples")
+    mols = _sdf_molecules(sdf)
+    _check(0 < len(mols) <= CLUSTER_JOINT["n"],
+           f"the hidden-{F} fused joint chain wrote {len(mols)}")
+    res["joint"] = dict(CLUSTER_JOINT, launches=launches, sample_s=sample_s, wall_s=wall,
+                        ms_per_pass=1e3 * sample_s / passes, molecules=len(mols))
+    print(f"  {card}: hidden {F} joint chain, {CLUSTER_JOINT['n']} x 24 atoms, T={T}, block "
+          f"fusing on: {res['joint']['ms_per_pass']:.2f} ms a pass, launches {launches}, "
+          f"{len(mols)} molecules")
+    shutil.rmtree(work / "cluster_joint_fused", ignore_errors=True)
+    res["phase_s"] = time.perf_counter() - t0
+    print(f"  phase 20l took {res['phase_s']:.1f} s")
     return res
 
 
@@ -4630,6 +4867,10 @@ def phase20(torch, ec, dev, flagship, logs, work, pdb, ref_lig, base, card, join
           f"kernels, clusters of two blocks ({card})")
     res["cluster_bwd"] = cluster_bwd_phase(torch, ec, dev, flagship, logs, work, card,
                                            res["widest"]["dw2"][CLUSTER_WIDTH])
+    print(f"[20l] the whole-block kernel at F = {CLUSTER_WIDTH}, clusters of two blocks; "
+          f"the hidden-{CLUSTER_WIDTH} joint chain with block fusing on ({card})")
+    res["cluster_block"] = cluster_block_phase(torch, ec, dev, flagship, logs, work, pdb,
+                                               ref_lig, card)
     res["phase_s"] = time.perf_counter() - t20
     print(f"  phase 20 took {res['phase_s']:.1f} s")
     return res
@@ -4693,9 +4934,8 @@ def _phases(torch, ec, dev, out, card, logs, build_s, builds, t_start) -> int:
         _check(sass["HMMA"] > 0 and sass["LDGSTS"] > 0,
                f"{what} has no tensor-core or cp.async instructions")
     # every recorded function of the five 3xTF32 libraries (the kernels at
-    # F = 64 to 1024, the forward split kernels at 2048) builds to the
-    # recorded SASS, instruction for instruction (same nvcc); the backward
-    # kernels' F = 2048 cluster functions are new
+    # F = 64 to 2048) builds to the recorded SASS, instruction for
+    # instruction (same nvcc); a function not yet recorded is printed
     release = nvcc_release(ec)
     for name in ec.KERNELS:
         if release != PARENT_SASS["nvcc"]:
@@ -4708,6 +4948,8 @@ def _phases(torch, ec, dev, out, card, logs, build_s, builds, t_start) -> int:
         _check(not differ, f"{name} 3xTF32 SASS differs from the recorded in {differ}")
         print(f"  {name} 3xTF32 SASS: {len(want)} recorded functions identical, "
               f"{len(got) - len(want)} new ({release})")
+        for fn in sorted(set(got) - set(want)):  # for the next record
+            print(f"  {name} new SASS function {fn}: {got[fn]}")
     # each tier's library runs its products as that tier's tensor-core
     # instructions only: TF32 HMMA for 3xTF32 and 2xTF32, bf16 HMMA for bf16
     # (m16n8k16, and m16n8k8 at F = 1024's stages of 8 rows); every HMMA is
@@ -4989,6 +5231,25 @@ def _phases(torch, ec, dev, out, card, logs, build_s, builds, t_start) -> int:
             {"name": f"{name}[F={CLUSTER_WIDTH}]", "route": "cuda", "source": sources[name][0],
              "replaces": sources[name][1], "launches": max(counts.values()),
              "launches_by_path": counts, **entry, "library_ms": None})
+    # block_fused at F = 2048 (3xTF32, both phases on clusters of two
+    # blocks), its launches on phase 20l's fused joint chain at hidden 2048;
+    # the joint shapes on the clean complex, the collapsed one's beside them
+    cbl = tiers["cluster_block"]
+    counts = {"cluster_joint_sampling_fused": cbl["joint"]["launches"]["block_fused"]}
+    _check(counts["cluster_joint_sampling_fused"] > 0,
+           f"no hidden-{CLUSTER_WIDTH} path launched block_fused")
+    runs = [e for e in cbl["kernels"].values() if e["tier"] == ec.DEFAULT_TIER]
+    clean = cbl["kernels"][f"block_fused[{ec.DEFAULT_TIER}]:joint_main_path"]
+    dense = cbl["kernels"][f"block_fused[{ec.DEFAULT_TIER}]:joint_main_path_dense"]
+    cluster_entries.append(
+        {"name": f"block_fused[F={CLUSTER_WIDTH}]", "route": "cuda",
+         "source": sources["block_fused"][0], "replaces": sources["block_fused"][1],
+         "launches": counts["cluster_joint_sampling_fused"], "launches_by_path": counts,
+         "max_abs_err": max(e["max_abs_err"] for e in runs),
+         **{k: clean[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "cluster_dim",
+                                  "variant", "batch")},
+         "dense_ms": dense["ms"], "dense_plain_ms": dense["plain_ms"],
+         "dense_bound_ms": dense["bound_ms"], "library_ms": None})
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": sources[name][0],
          "replaces": sources[name][1], "launches": launches[name],

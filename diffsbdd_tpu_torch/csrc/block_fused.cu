@@ -14,9 +14,10 @@
 //             below update_rows only; the rank-1 term delta = t11 - t10 - t01
 //             + t00 of a type table stays pairwise.
 //
-// The node MLP and the head projections run in this file's device code: the
-// (B, N, F) aggregate never leaves the chip's shared memory, and h' is read
-// back only as the projections phase B needs.
+// The node MLP and the head projections run in this file's device code: up
+// to F = 1024 the (B, N, F) aggregate never leaves the chip's shared memory
+// (at 2048 it passes through a scratch plane, below), and h' is read back
+// only as the projections phase B needs.
 //
 // What bounds it on an H100: the per-pair F x F products, phase A's GCL MLP
 // on every active pair and phase B's coordinate and cross MLPs on the pairs
@@ -72,6 +73,35 @@
 // row tiles below update_rows, with the cross head times its 2 pair MLPs, each
 // writing its own partial slab, and a third launch that adds the slabs.  dx
 // rows at and above update_rows are written as zeros.
+//
+// F = 2048, on thread-block clusters of two blocks (egnn_cluster.cuh).  The
+// GCL row-tile body alone (gcl_tile_cluster) takes 197 KB of dynamic and
+// 9 KB of static shared memory a block at N = 344, so the 16 rows of
+// aggregates (66 KB for a block's half, 131 KB whole) cannot stay on the chip
+// beside it.  Phase A therefore runs on clusters (block_phase_a_cluster):
+// * both blocks of cluster k of G walk the same row tiles k, k + G, ... (at
+//   most RB_TILES of one row), and each runs gcl_tile_cluster on them, which
+//   writes the block's 1024 features of a row's aggregate to a global
+//   scratch plane (B*N*F floats; it stays in L2 until the node MLP reads it);
+// * the node products then run over K = 2048 in the freed S region (16 x
+//   2052 floats), each block computing its FB = 1024 output features from
+//   those columns of each weight matrix (WeightChain<2048>, as
+//   W2ClusterRing streams W2's).  The A operands: h, read whole from global
+//   memory; agg, read whole from the scratch after a cluster barrier has
+//   made the peer's half visible; silu(pre) and h', each block writing its
+//   half into its own S and copying the peer's through distributed shared
+//   memory (copy_peer_half) after a cluster barrier;
+// * cluster barriers order every overwrite of S after the peer's last read
+//   of it, and the block's exit after the peer's copy of its h';
+// * no projection reduces over features, so each block writes only its own
+//   features of out_h, la_row / la_col and lc_row / lc_col (project_head on
+//   the head's pointers shifted by the block's first feature), and the
+//   rank-1 type deltas are split likewise: nothing needs atomics.
+// Phase B is coord_agg.cu's cluster kernel and launch on the projections
+// (coord_agg_cluster_kernel, launch_cluster_update: egnn_coord.cuh; rank 0
+// writes the coordinates).  Both phases launch through launch_clusters,
+// which refuses when not one cluster fits the card.
+#include "egnn_cluster.cuh"
 #include "egnn_coord.cuh"
 
 namespace {
@@ -86,8 +116,9 @@ template <int F> constexpr int block_rows = NodeLayout<F>::P;
 constexpr int RB_TILES = 16;
 static_assert(block_rows<256> / tile_rows<256>() == RB_TILES &&
               block_rows<512> / tile_rows<512>() == RB_TILES &&
-              block_rows<1024> / tile_rows<1024>() == RB_TILES,
-              "row tiles a phase-A block owns");
+              block_rows<1024> / tile_rows<1024>() == RB_TILES &&
+              block_rows<2048> / tile_rows<2048>() == RB_TILES,
+              "row tiles a phase-A block (a cluster at F = 2048) owns");
 template <int F>
 using Acc = float[NodeLayout<F>::WM][NodeLayout<F>::NTN][4];
 
@@ -146,6 +177,43 @@ struct WeightChain {
       }
     }
     mma::cp_async_commit();  // an empty group past the last matrix
+    ++next;
+  }
+
+  __device__ __forceinline__ const float* acquire() {
+    mma::cp_async_wait<mma::NS - 2>();
+    __syncthreads();
+    const float* stage = buf + ((next - (mma::NS - 1)) % mma::NS) * L::STAGE;
+    issue();
+    return stage;
+  }
+};
+
+// F = 2048: the ring of one block of a cluster, which streams the FB columns
+// [col0, col0 + FB) of each matrix (all K = F rows), as W2ClusterRing does
+// W2's.  As WeightChain otherwise.
+template <>
+struct WeightChain<2048> {
+  static constexpr int F = 2048;
+  using L = NodeLayout<F>;
+  const float* const* mats;
+  int count;
+  float* buf;
+  int next;
+  int col0;  // the block's first column
+
+  __device__ __forceinline__ void issue() {
+    constexpr int V = L::FB / 4;  // 16-byte vectors per stage row
+    if (next / L::KS < count) {
+      float* dst = buf + (next % mma::NS) * L::STAGE;
+      const float* src =
+          mats[next / L::KS] + (size_t)(next % L::KS) * L::KC * F + col0;
+      for (int e = threadIdx.x; e < L::KC * V; e += NT) {
+        const int r = e / V, v = e % V;
+        mma::cp_async16(dst + r * L::WS + 4 * v, src + (size_t)r * F + 4 * v);
+      }
+    }
+    mma::cp_async_commit();
     ++next;
   }
 
@@ -310,6 +378,130 @@ __global__ void __launch_bounds__(NT) block_phase_a(PhaseA g) {
   mma::cp_async_wait_all();  // the ring's empty look-ahead group
 }
 
+// S[r] <- src[node_of[r]] (all F features; zeros for rows of no node) for
+// the RB rows of a cluster block's node products.
+template <int F>
+__device__ __forceinline__ void load_node_rows(float* S, const float* src,
+                                               const int* node_of) {
+  using L = NodeLayout<F>;
+  constexpr int V = F / 4;  // 16-byte vectors a row
+  for (int e = threadIdx.x; e < block_rows<F> * V; e += NT) {
+    const int r = e / V, v = e % V, node = node_of[r];
+    *reinterpret_cast<float4*>(S + r * L::SS + 4 * v) =
+        node >= 0 ? *reinterpret_cast<const float4*>(src + (size_t)node * F + 4 * v)
+                  : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  }
+}
+
+// Phase A at F = 2048 on clusters of two blocks (the file's head): block
+// rank r of cluster k computes features [FB r, FB r + FB) of every output of
+// the cluster's row tiles k + s*G (G = gridDim.x / 2 clusters); the GCL
+// aggregates go through `agg` (B*N*F floats).
+template <int F>
+__global__ void __launch_bounds__(NT) block_phase_a_cluster(PhaseA g, float* agg) {
+  using L = NodeLayout<F>;
+  constexpr int RB = block_rows<F>, FB = L::FB;
+  static_assert(L::TI == 1 && L::P == RB && L::WM == 1, "one m-tile of one-row tiles");
+  extern __shared__ __align__(16) float smem[];
+  __shared__ const float* mats[7];
+  __shared__ int node_of[RB];  // node b*N + i of each block row, -1: none
+  const int N = g.gcl.N;
+  const unsigned rank = cluster_rank(), peer = rank ^ 1u;
+  const int col0 = (int)rank * FB;
+  float* S = smem;                  // gcl_tile_cluster's S, then RB x SS: h, agg,
+                                    // silu(pre), h'
+  float* ring_buf = S + L::P * L::SS;  // gcl_tile_cluster's ring, then the chain's
+
+  // the cluster's row tiles: global tile k + s*G for slot s < slots is row
+  // (k + s*G) / B of batch item (k + s*G) % B
+  const int t = threadIdx.x;
+  const int G = (int)gridDim.x / cluster_size<F>(), k = cluster_tile<F>();
+  const int slots = (g.B * N - k + G - 1) / G;
+  const int rows = slots;
+  if (t < RB) {
+    const int tile = k + t * G;
+    node_of[t] = t < slots ? tile % g.B * N + tile / g.B : -1;
+  }
+
+  // the rank-1 terms of the heads' type tables (the block's features), for
+  // phase B
+  for (int f = col0 + t; k == 0 && f < col0 + FB; f += NT) {
+    if (g.coord.tb)
+      g.coord.delta[f] = g.coord.tb[3 * F + f] - g.coord.tb[2 * F + f]
+                       - g.coord.tb[F + f] + g.coord.tb[f];
+    if (g.cross.k_i && g.cross.tb)
+      g.cross.delta[f] = g.cross.tb[3 * F + f] - g.cross.tb[2 * F + f]
+                       - g.cross.tb[F + f] + g.cross.tb[f];
+  }
+
+  // ---- GCL: the block's half of the aggregates of the cluster's rows -> agg
+  for (int s = 0; s < slots; ++s) {
+    const int tile = k + s * G, b = tile % g.B, i = tile / g.B;
+    mma::gcl_tile_cluster<F, mma::kTier>(g.gcl, (size_t)b * N, i, smem,
+                                         agg + ((size_t)b * N + i) * F, 1);
+  }
+  // the peer's aggregate writes are visible to this block after the barrier
+  __threadfence();
+  cluster_sync();
+
+  // ---- pre = h @ W_h + agg @ W_a, the block's features
+  load_node_rows<F>(S, g.h, node_of);
+  if (t == 0) {
+    mats[0] = g.w_h; mats[1] = g.w_a; mats[2] = g.nw2;
+    mats[3] = g.coord.k_i; mats[4] = g.coord.k_j;
+    mats[5] = g.cross.k_i; mats[6] = g.cross.k_j;
+  }
+  __syncthreads();  // mats; node_of
+  WeightChain<F> ring{mats, g.cross.k_i ? 7 : 5, ring_buf, 0, col0};
+  for (int s = 0; s < mma::NS - 1; ++s) ring.issue();
+  Acc<F> acc;
+  mma::product_tc<F, RG, true, true, mma::kTier>(S, ring, acc, rows);
+  __syncthreads();  // every warp is done with h
+  load_node_rows<F>(S, agg, node_of);
+  mma::product_tc<F, RG, false, true, mma::kTier>(S, ring, acc, rows);
+  __syncthreads();  // every warp is done with agg
+
+  // ---- S <- silu(pre + b0): the block's half, then the peer's
+  for_fragments<F>(acc, rows, [&](int r, int f, float v) {
+    S[r * L::SS + col0 + f] = mma::silu_fast(v + g.nb0[col0 + f]);
+  });
+  cluster_sync();  // both halves are written
+  mma::copy_peer_half<F>(S, peer);
+  mma::product_tc<F, RG, true, true, mma::kTier>(S, ring, acc, rows);
+  // every warp of this block is done with silu(pre), and the peer has
+  // copied this block's half of it
+  cluster_sync();
+
+  // ---- h' = (h + upd + b2n) * mask -> out_h and S: the block's half, then
+  // the peer's
+  for_fragments<F>(acc, rows, [&](int r, int f, float v) {
+    const int node = node_of[r];
+    if (node < 0) return;
+    const size_t i = node;
+    const int c = col0 + f;
+    v = (g.h[i * F + c] + v + g.nb2[c]) * g.gcl.mask[i];
+    g.out_h[i * F + c] = v;
+    S[r * L::SS + c] = v;
+  });
+  cluster_sync();  // both halves are written
+  mma::copy_peer_half<F>(S, peer);
+
+  // ---- first-layer projections of the heads: the block's features (the
+  // product's features are the block's own, from the ring's columns)
+  auto own = [&](Head hd) {
+    hd.b0 += col0;
+    if (hd.tb) hd.tb += col0;
+    hd.row += col0;
+    hd.col += col0;
+    return hd;
+  };
+  project_head<F>(own(g.coord), S, ring, acc, g.gcl.is_lig, node_of, rows);
+  if (g.cross.k_i)
+    project_head<F>(own(g.cross), S, ring, acc, g.gcl.is_lig, node_of, rows);
+  mma::cp_async_wait_all();  // the ring's empty look-ahead group
+  cluster_sync();  // the peer has copied this block's h'
+}
+
 // The body (coord_update_block) is coord_agg.cu's, in egnn_coord.cuh.
 template <int F, bool CROSS>
 __global__ void __launch_bounds__(NT) block_phase_b(CoordArgs g, float* partial) {
@@ -317,32 +509,56 @@ __global__ void __launch_bounds__(NT) block_phase_b(CoordArgs g, float* partial)
   coord_update_block<F, CROSS, mma::kTier>(g, partial, smem);
 }
 
+// Both phases at F = 2048 on clusters of two blocks: `blocks` = 2 x the
+// phase-A clusters; phase B is coord_agg.cu's launch (egnn_coord.cuh).
 template <int F>
-int launch(const PhaseA& a, const CoordArgs& b, int blocks, float* partial,
-           cudaStream_t stream) {
-  constexpr int TI = tile_rows<F>();
-  const int N = a.gcl.N, B = a.B;
-  const int tiles = B * ((N + TI - 1) / TI);
-  if (blocks <= 0 || blocks > tiles || (tiles + blocks - 1) / blocks > RB_TILES)
+int launch_cluster_phases(const PhaseA& a, const CoordArgs& b, int blocks, float* partial,
+                          float* agg, cudaStream_t stream) {
+  constexpr int C = cluster_size<F>();
+  const int N = a.gcl.N, B = a.B, tiles = B * N, clusters = blocks / C;
+  if (blocks % C || clusters <= 0 || clusters > tiles ||
+      (tiles + clusters - 1) / clusters > RB_TILES)
     return (int)cudaErrorInvalidValue;
-  const size_t smem_a =
-      sizeof(float) * (second_tile<F>(N) + (size_t)block_rows<F> * NodeLayout<F>::SS);
-  cudaError_t err = cudaFuncSetAttribute(
-      block_phase_a<F>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_a);
-  if (err != cudaSuccess) return (int)err;
-  block_phase_a<F><<<blocks, NT, smem_a, stream>>>(a);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  // same stream: phase B starts when every block of phase A has finished
-  if (b.cross.a_row == nullptr)
-    return launch_coord_update<F, false>(block_phase_b<F, false>, b, B, partial, stream);
-  return launch_coord_update<F, true>(block_phase_b<F, true>, b, B, partial, stream);
+  const int err = launch_clusters<C>(block_phase_a_cluster<F>, dim3(blocks),
+                                     mma::dynamic_smem<F>(N), stream, a, agg);
+  if (err != 0) return err;
+  // same stream: phase B starts when every cluster of phase A has finished
+  if (b.cross.a_row == nullptr) return launch_cluster_update<F, false>(b, B, partial, stream);
+  return launch_cluster_update<F, true>(b, B, partial, stream);
+}
+
+template <int F>
+int launch(const PhaseA& a, const CoordArgs& b, int blocks, float* partial, float* agg,
+           cudaStream_t stream) {
+  if constexpr (cluster_size<F>() > 1) {
+    return launch_cluster_phases<F>(a, b, blocks, partial, agg, stream);
+  } else {
+    last_cluster_dim() = 1;
+    constexpr int TI = tile_rows<F>();
+    const int N = a.gcl.N, B = a.B;
+    const int tiles = B * ((N + TI - 1) / TI);
+    if (blocks <= 0 || blocks > tiles || (tiles + blocks - 1) / blocks > RB_TILES)
+      return (int)cudaErrorInvalidValue;
+    const size_t smem_a =
+        sizeof(float) * (second_tile<F>(N) + (size_t)block_rows<F> * NodeLayout<F>::SS);
+    cudaError_t err = cudaFuncSetAttribute(
+        block_phase_a<F>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_a);
+    if (err != cudaSuccess) return (int)err;
+    block_phase_a<F><<<blocks, NT, smem_a, stream>>>(a);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    // same stream: phase B starts when every block of phase A has finished
+    if (b.cross.a_row == nullptr)
+      return launch_coord_update<F, false>(block_phase_b<F, false>, b, B, partial, stream);
+    return launch_coord_update<F, true>(block_phase_b<F, true>, b, B, partial, stream);
+  }
 }
 
 }  // namespace
 
 // scratch: 4*B*N*F + 2*F + 2*B*N*3 floats (la_row, la_col, lc_row, lc_col, the
-// two deltas, phase B's two partial slabs).
+// two deltas, phase B's two partial slabs); at F = 2048 B*N*F more, the
+// aggregates' plane, after the projections'.
 extern "C" int block_fused_forward(
     const float* h, const float* a_row, const float* a_col, const float* x,
     const float* x0, const float* mask, const float* is_lig,
@@ -366,7 +582,8 @@ extern "C" int block_fused_forward(
   float* la_col = scratch + plane;
   float* lc_row = scratch + 2 * plane;
   float* lc_col = scratch + 3 * plane;
-  float* l_delta = scratch + 4 * plane;
+  float* agg = F > 1024 ? scratch + 4 * plane : nullptr;
+  float* l_delta = scratch + (F > 1024 ? 5 : 4) * plane;
   float* c_delta = l_delta + F;
   float* partial = c_delta + F;
   const Cutoffs cut{cut_ll, cut_pp, cut_lp};
@@ -393,11 +610,12 @@ extern "C" int block_fused_forward(
 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (F) {
-    case 64: return launch<64>(a, b, blocks, partial, s);
-    case 128: return launch<128>(a, b, blocks, partial, s);
-    case 256: return launch<256>(a, b, blocks, partial, s);
-    case 512: return launch<512>(a, b, blocks, partial, s);
-    case 1024: return launch<1024>(a, b, blocks, partial, s);
+    case 64: return launch<64>(a, b, blocks, partial, agg, s);
+    case 128: return launch<128>(a, b, blocks, partial, agg, s);
+    case 256: return launch<256>(a, b, blocks, partial, agg, s);
+    case 512: return launch<512>(a, b, blocks, partial, agg, s);
+    case 1024: return launch<1024>(a, b, blocks, partial, agg, s);
+    case 2048: return launch<2048>(a, b, blocks, partial, agg, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

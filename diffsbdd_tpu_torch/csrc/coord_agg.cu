@@ -62,44 +62,12 @@ namespace {
 using namespace egnn;
 
 // The block body (coord_update_block, on mma::coord_tile_tc), the launch and
-// the sum of the partial slabs are in egnn_coord.cuh.
+// the sum of the partial slabs are in egnn_coord.cuh, and so are F = 2048's
+// cluster kernel and its launch (launch_cluster_update).
 template <int F, bool CROSS>
 __global__ void __launch_bounds__(NT) coord_agg_kernel(CoordArgs g, float* partial) {
   extern __shared__ __align__(16) float smem[];
   coord_update_block<F, CROSS, mma::kTier>(g, partial, smem);
-}
-
-// F = 2048: row tile cluster_tile<F>() of batch item blockIdx.y on a cluster
-// of two blocks, the pair MLP of blockIdx.z as in coord_update_block.
-template <int F, bool CROSS>
-__global__ void __launch_bounds__(NT) coord_agg_cluster_kernel(CoordArgs g, float* partial) {
-  extern __shared__ __align__(16) float smem[];
-  const int i0 = cluster_tile<F>() * tile_rows<F>();
-  if constexpr (CROSS) {
-    g.out = partial + (size_t)blockIdx.z * gridDim.y * g.N * 3;
-    if (blockIdx.z == 0)
-      mma::coord_tile_cluster<F, false, mma::kTier>(g, blockIdx.y, i0, smem);
-    else
-      mma::coord_tile_cluster<F, true, mma::kTier>(g, blockIdx.y, i0, smem);
-  } else {
-    mma::coord_tile_cluster<F, false, mma::kTier>(g, blockIdx.y, i0, smem);
-  }
-  zero_rows_past_clusters<F>(g.out, (size_t)blockIdx.y * g.N, g.N, 3);
-}
-
-// launch_coord_update on clusters: the row tiles (times the 2 pair MLPs with
-// CROSS) in clusters of cluster_size<F>() blocks, then with CROSS the sum of
-// the two slabs into g.out.
-template <int F, bool CROSS>
-int launch_cluster_update(const CoordArgs& g, int B, float* partial, cudaStream_t stream) {
-  dim3 grid = row_tile_grid(g.N, g.update_rows, B, tile_rows<F>());
-  grid.x *= cluster_size<F>();
-  grid.z = CROSS ? 2 : 1;
-  const int err = launch_clusters<cluster_size<F>()>(
-      coord_agg_cluster_kernel<F, CROSS>, grid, mma::dynamic_smem<F>(g.N), stream, g, partial);
-  if (err != 0) return err;
-  if constexpr (CROSS) launch_add_partials(partial, (size_t)B * g.N * 3, g.out, stream);
-  return (int)cudaGetLastError();
 }
 
 template <int F>

@@ -6,8 +6,11 @@
 // sums of its term to slab z of `partial` (2 x (B, N, 3) floats), and a
 // second kernel adds the two slabs in a fixed order.  Without it the grid has
 // one z and writes the output directly.  A block owns its rows, so nothing
-// needs atomics and the result is deterministic.
+// needs atomics and the result is deterministic.  At F = 2048 each row tile
+// and pair MLP runs on a cluster of two blocks (mma::coord_tile_cluster), and
+// the kernel and its launch are shared whole (coord_agg_cluster_kernel).
 #pragma once
+#include "egnn_cluster.cuh"
 #include "egnn_mma.cuh"
 
 namespace egnn {
@@ -65,3 +68,47 @@ int launch_coord_update(void (*kernel)(CoordArgs, float*), const CoordArgs& g, i
 }
 
 }  // namespace egnn
+
+// F = 2048: the update on clusters of two blocks, one kernel for both
+// libraries.  It lives in the including file's anonymous namespace, as that
+// file's own kernels do, so each library names it as its own.
+namespace {
+
+// Row tile cluster_tile<F>() of batch item blockIdx.y on a cluster of two
+// blocks, the pair MLP of blockIdx.z as in coord_update_block.
+template <int F, bool CROSS>
+__global__ void __launch_bounds__(egnn::NT)
+    coord_agg_cluster_kernel(egnn::CoordArgs g, float* partial) {
+  using namespace egnn;
+  extern __shared__ __align__(16) float smem[];
+  const int i0 = cluster_tile<F>() * tile_rows<F>();
+  if constexpr (CROSS) {
+    g.out = partial + (size_t)blockIdx.z * gridDim.y * g.N * 3;
+    if (blockIdx.z == 0)
+      mma::coord_tile_cluster<F, false, mma::kTier>(g, blockIdx.y, i0, smem);
+    else
+      mma::coord_tile_cluster<F, true, mma::kTier>(g, blockIdx.y, i0, smem);
+  } else {
+    mma::coord_tile_cluster<F, false, mma::kTier>(g, blockIdx.y, i0, smem);
+  }
+  zero_rows_past_clusters<F>(g.out, (size_t)blockIdx.y * g.N, g.N, 3);
+}
+
+// launch_coord_update on clusters: the row tiles (times the 2 pair MLPs with
+// CROSS) in clusters of cluster_size<F>() blocks, then with CROSS the sum of
+// the two slabs into g.out.  Returns the CUDA error code.
+template <int F, bool CROSS>
+int launch_cluster_update(const egnn::CoordArgs& g, int B, float* partial,
+                          cudaStream_t stream) {
+  using namespace egnn;
+  dim3 grid = row_tile_grid(g.N, g.update_rows, B, tile_rows<F>());
+  grid.x *= cluster_size<F>();
+  grid.z = CROSS ? 2 : 1;
+  const int err = launch_clusters<cluster_size<F>()>(
+      coord_agg_cluster_kernel<F, CROSS>, grid, mma::dynamic_smem<F>(g.N), stream, g, partial);
+  if (err != 0) return err;
+  if constexpr (CROSS) launch_add_partials(partial, (size_t)B * g.N * 3, g.out, stream);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace

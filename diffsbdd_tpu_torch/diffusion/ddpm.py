@@ -71,8 +71,8 @@ class DDPMBase(nn.Module):
 
     def __init__(self, dynamics: nn.Module, atom_nf: int, residue_nf: int,
                  n_dims: int, size_distribution: Optional[SizeDistribution],
-                 timesteps: int = 1000, noise_schedule: str = "polynomial_2",
-                 noise_precision: float = 1e-4, loss_type: str = "l2",
+                 timesteps: int = 1000, noise_schedule: str = "learned",
+                 noise_precision: float = 1e-4, loss_type: str = "vlb",
                  norm_values: Tuple[float, float] = (1.0, 1.0),
                  norm_biases: Tuple[Optional[float], float] = (None, 0.0),
                  virtual_node_idx: Optional[int] = None):

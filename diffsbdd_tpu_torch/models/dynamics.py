@@ -114,8 +114,8 @@ class EGNNDynamics(nn.Module):
                  edge_cutoff_interaction: Optional[float] = None,
                  reflection_equivariant: bool = True,
                  edge_embedding_dim: Optional[int] = None,
-                 update_pocket_coords: bool = False,
-                 kernel_block_fuse: bool = False, mode: str = "egnn_dynamics",
+                 update_pocket_coords: bool = True,
+                 kernel_block_fuse: bool = True, mode: str = "egnn_dynamics",
                  sin_embedding: bool = False, aggregation_method: str = "sum",
                  nan_check: bool = False, matmul_precision: str = "float32",
                  kernel_bwd_precision: Optional[str] = None,

@@ -62,21 +62,19 @@ emulate each tier (``matmul_3xtf32(passes=2)``, ``matmul_bf16``,
 whole-block kernel's node MLP and projections round their products alone,
 their elementwise work stays float32.
 
-Hidden widths.  The kernels are instantiated at F = 64, 128, 256, 512 and
-1024 (at 512 on tiles of 2 rows, at 1024 of 1 row, ``row_tile``), and the
-four split kernels also at 2048, each row tile on a cluster of two blocks
-(``cluster_size``; ``csrc/egnn_cluster.cuh`` the forward kernels',
-``csrc/egnn_cluster_bwd.cuh`` the backward kernels'): ``KERNEL_WIDTHS``.  On
-CUDA the public wrappers run any other width up to a kernel's widest at the
-next of its widths (``padded_width``: 32 at 64, 96 at 128, 192 at 256, 384
-at 512, 768 at 1024, 1088 at 2048): every operand's width axes zero-padded
-(``pad_operands``), the outputs' cut back.  The padded channels stay exact
-zeros through every MLP, so the result is the unpadded one up to summation
-order, at every tier; gradients reach the true width through autograd of the
-padding.  Wider than a kernel's widest raises before any launch (above 2048
-the split kernels, above 1024 the whole-block kernel), and so does a
-forward wrapper whose gradient is due at a width its backward kernel is not
-built for.
+Hidden widths.  The five kernels are instantiated at F = 64, 128, 256,
+512, 1024 and 2048 (at 512 on tiles of 2 rows, at 1024 of 1 row,
+``row_tile``; at 2048 each row tile on a cluster of two blocks,
+``cluster_size``: ``csrc/egnn_cluster.cuh`` the forward kernels' and the
+whole-block kernel's, ``csrc/egnn_cluster_bwd.cuh`` the backward kernels'):
+``KERNEL_WIDTHS``.  On CUDA the public wrappers run any other width up to
+2048 at the next of those widths (``padded_width``: 32 at 64, 96 at 128, 192
+at 256, 384 at 512, 768 at 1024, 1088 at 2048): every operand's width axes
+zero-padded (``pad_operands``), the outputs' cut back.  The padded channels
+stay exact zeros through every MLP, so the result is the unpadded one up to
+summation order, at every tier; gradients reach the true width through
+autograd of the padding.  Wider than 2048 raises before any launch, in every
+wrapper.
 
 The kernels are compiled with ``nvcc`` for ``sm_90a`` into plain-C shared
 libraries under ``csrc/build`` at first use (``build_kernels``) and loaded with
@@ -110,13 +108,10 @@ HEADERS = (CSRC / "egnn_common.cuh", CSRC / "egnn_mma.cuh",
 # The wrappers run every other width up to a kernel's widest zero-padded to
 # the next of its widths (``padded_width``, ``pad_operands``).
 SUPPORTED_F = (64, 128, 256, 512, 1024, 2048)
-# the widths each kernel is built for: the four split kernels (sampling and
-# training) at all of them, the whole-block kernel up to 1024
-KERNEL_WIDTHS = {name: SUPPORTED_F[:-1] if name == "block_fused" else SUPPORTED_F
-                 for name in KERNELS}
+# the widths each kernel is built for: all of them, every kernel
+KERNEL_WIDTHS = {name: SUPPORTED_F for name in KERNELS}
 # the ROADMAP.md §2 item that would run each kernel above its widest width
-WIDER_ITEM = {name: "block_fused at F = 2048" if name == "block_fused"
-              else "widths above 2048" for name in KERNELS}
+WIDER_ITEM = dict.fromkeys(KERNELS, "widths above 2048")
 
 
 def row_tile(F: int) -> int:
@@ -314,9 +309,8 @@ def _cut2(c: Optional[float]) -> float:
 
 def last_cluster_dim(name: str, tier: str = DEFAULT_TIER) -> int:
     """The cluster dimension (blocks a cluster along x) that the last launch
-    of split kernel ``name``'s library at ``tier`` used: 2 at F = 2048, 1
-    below (``egnn_last_cluster_dim`` in ``gcl_agg``, ``coord_agg``,
-    ``gcl_agg_bwd`` and ``coord_agg_bwd``)."""
+    of kernel ``name``'s library at ``tier`` used: 2 at F = 2048, 1 below
+    (``egnn_last_cluster_dim`` in each of the five libraries)."""
     fn = _lib(name, tier).egnn_last_cluster_dim
     fn.argtypes, fn.restype = [], ctypes.c_int
     return int(fn())
@@ -718,9 +712,8 @@ def _rows(update_rows, N):
 def padded_width(F: int, name: str = "egnn kernels", kernel: str = "gcl_agg") -> int:
     """The width ``kernel`` runs hidden width ``F`` at: the least of its
     ``KERNEL_WIDTHS`` that is >= F.  Wider than its widest raises, naming the
-    ROADMAP.md §2 item that would build it (``WIDER_ITEM``): above 2048 the
-    split kernels need clusters of four blocks, above 1024 the whole-block
-    kernel a cluster design of its own."""
+    ROADMAP.md §2 item that would build it (``WIDER_ITEM``): above 2048 every
+    kernel needs clusters of four blocks."""
     widths = KERNEL_WIDTHS[kernel]
     for width in widths:
         if width >= F:
@@ -821,10 +814,13 @@ def _block_grid(B: int, N: int, device, F: int) -> int:
     block would own more than ``BLOCK_TILES_MAX`` tiles, fewer where there
     are fewer tiles.  A block's time is its tiles' GCL work plus its node
     products (one pass over the weights, growing with its m-tiles of 16
-    rows), and under one wave the longest block sets the time."""
+    rows), and under one wave the longest block sets the time.  At F = 2048
+    the tiles are dealt to clusters of ``cluster_size(F)`` blocks, one wave
+    holding ``sms // cluster_size(F)`` of them."""
     tiles = B * -(-N // row_tile(F))
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(min(sms, tiles), -(-tiles // BLOCK_TILES_MAX))
+    C = cluster_size(F)
+    return C * max(min(sms // C, tiles), -(-tiles // BLOCK_TILES_MAX))
 
 
 def _split_weight_slab(w_out, F):
@@ -1348,13 +1344,18 @@ def _block_forward_cuda(h, a_row, a_col, x, x0, mask, is_lig, gcl, node, coord,
     mats = {"gcl.w2": gcl["w2"], **{f"node.{k}": node[k] for k in ("w_h", "w_a", "w2")},
             **{f"{p}.{k}": hd.get(k) for p, hd in (("coord", coord), ("cross", c))
                for k in ("k_i", "k_j", "w1")}}
+    if cluster_size(F) > 1:
+        mats["h"] = h  # phase A reads its rows in 16-byte vectors at 2048
     for key, w in mats.items():
         if w is not None and w.data_ptr() % 16:
-            raise ValueError(f"{name}: {key} must be 16-byte aligned (cp.async)")
+            raise ValueError(f"{name}: {key} must be 16-byte aligned (16-byte copies)")
     out_h = torch.empty((B, N, F), device=dev, dtype=torch.float32)
     out_dx = torch.empty((B, N, 3), device=dev, dtype=torch.float32)
-    # the heads' projections, their type deltas and phase B's two partial slabs
-    scratch = torch.empty(4 * B * N * F + 2 * F + 2 * B * N * 3, device=dev,
+    # the heads' projections (and at F = 2048 the GCL aggregates, which
+    # pass through device memory there), their type deltas and phase B's two
+    # partial slabs
+    planes = 4 + (cluster_size(F) > 1)
+    scratch = torch.empty(planes * B * N * F + 2 * F + 2 * B * N * 3, device=dev,
                           dtype=torch.float32)
     _launch(name,
             _ptr(h), _ptr(a_row), _ptr(a_col), _ptr(x), _ptr(x0), _ptr(mask),

@@ -12,6 +12,8 @@ rtol 1e-4.  The network with block fusing on is held against the JAX network
 with its Pallas kernels in interpret mode, for the conditional model, the
 joint model and the shared pocket: atol 1e-4.
 """
+import inspect
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -21,6 +23,7 @@ import torch
 from diffsbdd_tpu.models.dynamics import EGNNDynamics as JaxDynamics
 from diffsbdd_tpu.ops.egnn_block_fused import (block_fused_pallas,
                                                block_fused_xla, egnn_block_step)
+from diffsbdd_tpu_torch.models.dynamics import EGNNDynamics
 from diffsbdd_tpu_torch.ops import egnn_cuda as kernels
 from test_torch_dynamics import COMMON, make_batch, port_dynamics
 
@@ -185,10 +188,14 @@ def test_dynamics_block_fuse_matches_jax(fixture_params, update_pocket, shared):
 
 
 def test_block_fuse_needs_the_switch(fixture_params):
-    """``kernel_block_fuse`` defaults to False: the samplers' request alone
-    does not reach the whole-block function."""
+    """``kernel_block_fuse=False`` keeps the samplers' request from reaching
+    the whole-block function.  The switch defaults to True, as the JAX
+    package's ``kernel_block_fuse`` field does."""
+    default = inspect.signature(EGNNDynamics).parameters["kernel_block_fuse"].default
+    assert default is True
+    assert default == JaxDynamics.__dataclass_fields__["kernel_block_fuse"].default
     batch = [torch.as_tensor(a) for a in make_batch(0)]
-    port = port_dynamics(fixture_params)
+    port = port_dynamics(fixture_params, kernel_block_fuse=False)
     assert port.kernel_block_fuse is False
     plain = kernels.block_fused
     try:

@@ -93,7 +93,7 @@ def case(variant, joint, seed=0):
     batch = inputs(seed)
     jdyn = JaxDynamics(**kw, impl="xla")
     variables = scaled(jdyn.init(jax.random.PRNGKey(seed), *map(jnp.asarray, batch)), seed)
-    model = EGNNDynamics(**kw)
+    model = EGNNDynamics(**kw, kernel_block_fuse=False)
     state = state_dict_from_jax({"dynamics": variables})
     model.load_state_dict({k[len(PREFIX):]: torch.tensor(v) for k, v in state.items()},
                           strict=True)
@@ -164,7 +164,8 @@ def _count_kernel_calls(monkeypatch):
 def test_only_the_sum_nosin_model_calls_the_kernels(monkeypatch, variant):
     """The dense variants call no kernel wrapper; the sum, no-sin model
     (the kernels' model) calls them, block fusing on or off."""
-    kw = dict(KWARGS, **VARIANTS.get(variant, {}), kernel_block_fuse=True)
+    kw = dict(KWARGS, **VARIANTS.get(variant, {}), kernel_block_fuse=True,
+              update_pocket_coords=False)
     model = EGNNDynamics(**kw)
     calls = _count_kernel_calls(monkeypatch)
     with torch.no_grad():
@@ -316,7 +317,7 @@ def test_fresh_coordinate_head_starts_as_in_jax():
     zero.  The port's head took nn.Linear's default before (found while
     porting the dense path)."""
     torch.manual_seed(0)
-    model = EGNNDynamics(**KWARGS)
+    model = EGNNDynamics(**KWARGS, update_pocket_coords=False, kernel_block_fuse=False)
     jdyn = JaxDynamics(**KWARGS, update_pocket_coords=False, impl="xla")
     variables = jdyn.init(jax.random.PRNGKey(0), *map(jnp.asarray, inputs(0)))
     H = KWARGS["hidden_nf"]

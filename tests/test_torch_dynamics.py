@@ -29,6 +29,10 @@ COMMON = dict(atom_nf=ATOM_NF, residue_nf=RESIDUE_NF, joint_nf=32,
               edge_cutoff_interaction=5.0)
 # the port's network is the pocket-conditional one (pocket coordinates fixed)
 JAX_ONLY = dict(update_pocket_coords=False)
+# what ``port_dynamics`` builds unless told otherwise: the pocket-conditional
+# network on the split path (both packages default to the joint network's
+# moving pocket and to block fusing)
+PORT_DEFAULTS = dict(update_pocket_coords=False, kernel_block_fuse=False)
 
 
 def make_batch(seed, B=2, NL=8, NP=40, shared=True):
@@ -52,7 +56,7 @@ def make_batch(seed, B=2, NL=8, NP=40, shared=True):
 
 
 def port_dynamics(params, **overrides):
-    model = EGNNDynamics(**{**COMMON, **overrides})
+    model = EGNNDynamics(**{**COMMON, **PORT_DEFAULTS, **overrides})
     sd = state_dict_from_jax(params)
     prefix = "ddpm.dynamics."
     model.load_state_dict({k[len(prefix):]: torch.tensor(v)

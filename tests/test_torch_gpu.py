@@ -729,6 +729,105 @@ def test_block_kernel_gradient_is_plain_autograd():
 
 
 # ---------------------------------------------------------------------------
+# the whole-block kernel at F = 2048, on clusters of two blocks
+# ---------------------------------------------------------------------------
+
+# case: (cross, attention, edge-type tables, N, update_rows), on B = 2
+# graphs of 45 nodes, 12 of them ligand rows.  At bf16 the gate charges the
+# kernel with two float32 orders of the same sums, its own and the plain
+# version's, each rounded to bf16 at the tier's points: against the sums in
+# float64 the plain version alone reads 0.35 of the tier's move (dx, by
+# norm) at F = 2048 and the kernel 0.39 (H100, chip_smoke.py 20l)
+BLOCK_CLUSTER_CASES = {"cross_table": (True, True, True, 45, 12),
+                       "no_cross": (False, True, True, 45, 12),
+                       "no_attention": (True, False, False, 45, None),
+                       "odd_n_odd_rows": (True, True, True, 45, 11)}
+
+
+def _assert_block_tier(got, ref, exact, tier, update_rows):
+    """``assert_block_close`` at 3xTF32; at the reduced tiers each output
+    within ``ec.BLOCK_TIER_GATES`` of the plain version at the tier (its
+    error norm against the tier's move from ``exact``, float32's)."""
+    if tier == "tf32x3":
+        assert_block_close(got, ref, update_rows)
+        return
+    for g, r, e in zip(got, ref, exact):
+        _assert_tier_close(g, r, e, tier, ec.BLOCK_TIER_GATES)
+    if update_rows is not None:
+        assert not got[1][:, update_rows:].any()
+
+
+@pytest.mark.parametrize("width", [2048, 1536])
+@pytest.mark.parametrize("tier", ["tf32x3", "tf32x2", "bf16"])
+@pytest.mark.parametrize("case", list(BLOCK_CLUSTER_CASES))
+def test_block_kernel_at_2048(case, tier, width):
+    """The whole-block kernel at F = 2048 (1536 zero-padded onto it) at each
+    tier against its plain version at the tier: the cross head on and off,
+    attention off, edge-type tables, odd N with odd ``update_rows``; both
+    outputs, dx rows past ``update_rows`` exact zeros, two launches bit for
+    bit, each on clusters of two blocks."""
+    cross, attention, table, n, rows = BLOCK_CLUSTER_CASES[case]
+    ins = block_inputs(60, N=n, F=width, cross=cross, attention=attention, table=table,
+                       spread=4.0)
+    kw = dict(BLOCK_KW, attention=attention, update_rows=rows)
+    ec.reset_launch_counts()
+    got = ec.block_fused(*ins, **kw, precision=tier)
+    again = ec.block_fused(*ins, **kw, precision=tier)
+    _only_tier("block_fused", tier, launches=2)
+    assert ec.last_cluster_dim("block_fused", tier) == 2
+    assert got[0].shape == (B, n, width)
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+    ref = ec.block_fused_plain(*ins, **kw, precision=tier)
+    exact = ec.block_fused_plain(*ins, **kw) if tier != "tf32x3" else ref
+    _assert_block_tier(got, ref, exact, tier, rows)
+
+
+@pytest.mark.parametrize("clusters", [None, 17], ids=["one_wave", "16_tiles"])
+def test_block_kernel_at_2048_on_many_tiles(clusters, monkeypatch):
+    """Phase A at F = 2048 deals B * N one-row tiles to the clusters: the
+    wrapper's grid (one cluster of two blocks an SM pair, 4 tiles a cluster
+    here), and the fewest clusters that hold them (16 tiles a cluster, the
+    most, 15 in the last), on the collapsed complex, every row moving."""
+    if clusters is not None:
+        monkeypatch.setattr(ec, "_block_grid", lambda B, N, device, F: 2 * clusters)
+    ins = block_inputs(61, N=131, F=2048, n_lig=20, spread=1.0)
+    ec.reset_launch_counts()
+    got = ec.block_fused(*ins, **BLOCK_KW)
+    assert ec.launch_counts["block_fused"] == 1
+    assert_block_close(got, ec.block_fused_plain(*ins, **BLOCK_KW))
+
+
+def test_block_wrapper_at_2048_rejects_a_misaligned_h():
+    """At F = 2048 phase A reads h in 16-byte vectors: an h that starts 4
+    bytes past an aligned address is refused before any launch."""
+    ins = block_inputs(62, N=45, F=2048)
+    h = ins[0]
+    ins[0] = torch.empty(h.numel() + 1, device=h.device)[1:].copy_(h.reshape(-1)).view_as(h)
+    ec.reset_launch_counts()
+    with pytest.raises(ValueError, match="h must be 16-byte aligned"):
+        ec.block_fused(*ins, **BLOCK_KW)
+    assert ec.launch_counts["block_fused"] == 0
+
+
+def test_width_2048_fused_network_matches_cpu():
+    """A hidden-2048 joint network (every node moves) with block fusing on:
+    one whole-block launch a layer on the card, against the plain versions
+    on the CPU."""
+    model, batch = _dynamics_case("cuda", hidden_nf=2048, kernel_block_fuse=True,
+                                  update_pocket_coords=True)
+    cpu, cpu_batch = _dynamics_case("cpu", hidden_nf=2048, update_pocket_coords=True)
+    ec.reset_launch_counts()
+    with torch.no_grad():
+        fused = model(*batch, block_fuse=True)
+        want = cpu(*cpu_batch)
+    assert ec.launch_counts == {**dict.fromkeys(ec.KERNELS, 0), "block_fused": 2}, \
+        ec.launch_counts
+    assert ec.last_cluster_dim("block_fused") == 2
+    for f, w in zip(fused, want):
+        torch.testing.assert_close(f.cpu(), w, atol=1e-4, rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------
 # the GCL kernel (3xTF32 on the tensor cores) at the main path's shapes
 # ---------------------------------------------------------------------------
 
@@ -1063,6 +1162,7 @@ def _dynamics_case(device, hidden_nf=64, **knobs):
     cutoffs) with seeded weights, and a batch, on ``device``."""
     from diffsbdd_tpu_torch.models.dynamics import EGNNDynamics
     torch.manual_seed(0)
+    knobs = {"update_pocket_coords": False, "kernel_block_fuse": False, **knobs}
     model = EGNNDynamics(atom_nf=5, residue_nf=7, joint_nf=16, hidden_nf=hidden_nf, n_layers=2,
                          attention=True, tanh=True, norm_constant=1.0, inv_sublayers=1,
                          reflection_equivariant=False, edge_cutoff_pocket=5.0,
@@ -1127,8 +1227,7 @@ def test_padded_widths_match_plain(width):
     1088 and 1536 at 2048 (``ec.padded_width``):
     each of the five wrappers against its plain version at the true width,
     one launch each, every output and cotangent at the true width; above
-    1024 the four split wrappers (the whole block is built up to 1024), each
-    launch on a cluster of two."""
+    1024 each launch on a cluster of two."""
     main, extra = _inputs(50, F=width, w_scale=None)
     att = (extra["w_att"], extra["b_att"])
     kw = dict(cutoffs=CUTOFFS, attention=True, normalization_factor=100.0)
@@ -1153,16 +1252,13 @@ def test_padded_widths_match_plain(width):
     _assert_cotangents(
         _coord_cot(ec.coord_agg_bwd(gc, *ops.values(), extra["w3"], **ckw)),
         _coord_cot(ec.coord_agg_bwd_plain(gc, *ops.values(), extra["w3"], **ckw)))
-    if width > 1024:
-        assert ec.launch_counts == {**dict.fromkeys(ec.KERNELS, 1), "block_fused": 0}, \
-            ec.launch_counts
-        assert all(ec.last_cluster_dim(k) == 2 for k in ec.KERNELS if k != "block_fused")
-        return
     ins = block_inputs(52, F=width)
     got = ec.block_fused(*ins, **BLOCK_KW, update_rows=12)
     assert got[0].shape == (B, N, width)
     assert_block_close(got, ec.block_fused_plain(*ins, **BLOCK_KW, update_rows=12), 12)
     assert ec.launch_counts == dict.fromkeys(ec.KERNELS, 1), ec.launch_counts
+    if width > 1024:
+        assert all(ec.last_cluster_dim(k) == 2 for k in ec.KERNELS)
 
 
 def test_padded_width_network_matches_cpu():
@@ -1255,10 +1351,10 @@ def test_backward_width_above_2048_is_refused():
 
 
 def test_block_width_above_1024_is_refused():
-    """The whole-block kernel runs every width up to 1024; 1088 is wider: a
+    """The whole-block kernel runs every width up to 2048; 2112 is wider: a
     ValueError naming its ROADMAP item, before any launch."""
-    ins = block_inputs(54, F=1088)
+    ins = block_inputs(54, F=2112)
     ec.reset_launch_counts()
-    with pytest.raises(ValueError, match="above 1024.*ROADMAP.*block_fused at F = 2048"):
+    with pytest.raises(ValueError, match="above 2048.*ROADMAP.*widths above 2048"):
         ec.block_fused(*ins, **BLOCK_KW)
     assert not any(ec.launch_counts.values())

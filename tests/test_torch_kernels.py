@@ -192,25 +192,21 @@ def test_wrapper_counts_no_launch_on_cpu():
 @pytest.mark.parametrize("width", [32, 64, 96, 128, 160, 192, 224, 256, 320, 384, 448,
                                    512, 640, 768, 896, 1024, 1088, 2048, 2112, 4096])
 def test_kernel_widths(width):
-    """The kernels are built for hidden widths 64, 128 (the config default),
-    256, 512 and 1024 (on tiles of two rows and one, ``ec.row_tile``), and
-    the four split kernels, forward and backward, also for 2048 (a row tile
-    on a cluster of two blocks, ``ec.cluster_size``); every other width up
-    to a kernel's widest runs zero-padded to the next of its widths, and a
+    """The five kernels are built for hidden widths 64, 128 (the config
+    default), 256, 512, 1024 (on tiles of two rows and one, ``ec.row_tile``)
+    and 2048 (a row tile on a cluster of two blocks, ``ec.cluster_size``);
+    every other width up to 2048 runs zero-padded to the next of them, and a
     wider one is refused before a launch, naming the ROADMAP item, never run
-    by the plain version on the card: 1088 and 2048 run on the split
-    kernels and are refused by ``block_fused``, 2112 and 4096 by every
-    kernel."""
+    by the plain version on the card: 1088 and 2048 run on every kernel,
+    2112 and 4096 are refused by every kernel."""
     assert ec.SUPPORTED_F == (64, 128, 256, 512, 1024, 2048)
     assert [ec.row_tile(f) for f in ec.SUPPORTED_F] == [4, 4, 4, 2, 1, 1]
     assert [ec.cluster_size(f) for f in ec.SUPPORTED_F] == [1, 1, 1, 1, 1, 2]
     for name in ec.KERNELS:
         widths = ec.KERNEL_WIDTHS[name]
-        assert widths == (ec.SUPPORTED_F[:-1] if name == "block_fused" else ec.SUPPORTED_F), \
-            name
+        assert widths == ec.SUPPORTED_F, name
         text = (ec.CSRC / f"{name}.cu").read_text()
         assert all(f"case {f}: return launch<{f}>(" in text for f in widths), name
-        assert ("case 2048:" in text) == (name != "block_fused"), name
         if width <= widths[-1]:
             want = min(f for f in widths if f >= width)
             assert ec.padded_width(width, name, name) == want
@@ -221,8 +217,7 @@ def test_kernel_widths(width):
             with pytest.raises(ValueError, match=f"{name}: feature width {width} above "
                                f"{widths[-1]}.*ROADMAP.*{ec.WIDER_ITEM[name]}"):
                 ec.padded_width(width, name, name)
-    assert ec.WIDER_ITEM == {**dict.fromkeys(ec.KERNELS, "widths above 2048"),
-                             "block_fused": "block_fused at F = 2048"}
+    assert ec.WIDER_ITEM == dict.fromkeys(ec.KERNELS, "widths above 2048")
 
 
 @pytest.mark.parametrize("width,refused", [(1024, False), (1088, False), (2048, False),

@@ -408,7 +408,7 @@ def _kernels_case(seed=0, **knobs):
     """JAX's exact XLA network and the port's (kernels' path, plain versions
     on the CPU) with the same weights and ``knobs``."""
     base = dict(KWARGS, update_pocket_coords=False)
-    kw = dict(base, **knobs)
+    kw = {**base, "kernel_block_fuse": False, **knobs}
     batch = inputs(seed)
     jdyn = JaxDynamics(**base, impl="xla")
     variables = scaled(jdyn.init(jax.random.PRNGKey(seed), *map(jnp.asarray, batch)), seed)
@@ -454,7 +454,7 @@ def _dense_case(seed=0):
     batch = inputs(seed)
     jdyn = JaxDynamics(**kw, impl="xla", compute_dtype=jnp.bfloat16)
     variables = scaled(jdyn.init(jax.random.PRNGKey(seed), *map(jnp.asarray, batch)), seed)
-    model = EGNNDynamics(**kw, compute_dtype="bfloat16")
+    model = EGNNDynamics(**kw, compute_dtype="bfloat16", kernel_block_fuse=False)
     state = state_dict_from_jax({"dynamics": variables})
     model.load_state_dict({k[len(PREFIX):]: torch.tensor(v) for k, v in state.items()},
                           strict=True)

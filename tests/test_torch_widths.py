@@ -1,8 +1,7 @@
 """Hidden widths the kernels are not built for, zero-padded to the next one
 they are (``ec.padded_width``: 32 -> 64, 96 -> 128, 192 -> 256, 320 and 384
 -> 512, 640 -> 1024, 1088 -> 2048), and the widest built widths, 512, 1024
-and (the two forward split kernels only, ``ec.KERNEL_WIDTHS``) 2048,
-unpadded, on the CPU.
+and 2048, unpadded, on the CPU.
 
 On the card the wrappers pad every operand's width axes
 (``ec.pad_operands``), run the kernel at the padded width and cut the
@@ -26,12 +25,15 @@ compute what the kernels do:
   test_torch_kernels_bwd.py (each cotangent sums up to B*N*N pair terms in
   another order); the padded channels' cotangents exact zeros.
 
+* at 1088 (padded onto 2048) and 2048, the whole block on one graph of 15
+  nodes with odd ``update_rows`` against ``block_fused_xla``: both
+  outputs, atol 1e-5 + rtol 1e-4.
+
 B = 2, N = 20 (8 ligand nodes), one numpy seed a width.  Widths 320 to 512
 are the F = 512 kernels' (on tiles of two rows on the card), 640 and 1024
 the F = 1024 kernels' (tiles of one row), 1088 and 2048 the F = 2048
-split kernels' (a row tile on a cluster of two blocks, forward and
-backward), which the plain versions compute at any width.  The whole block
-is built up to 1024, so its cases stop there.
+kernels' (a row tile on a cluster of two blocks), which the plain versions
+compute at any width.
 """
 import functools
 
@@ -74,8 +76,9 @@ BLOCK_KEYS = ("h", "a_row", "a_col", "x", "x0", "mask", "is_lig", "gcl", "node",
               "cross", "graph_mean")
 
 
-def make_ops(F, seed=0):
-    """Every operand of the three functions at width F, as numpy arrays."""
+def make_ops(F, seed=0, B=B, N=N):
+    """Every operand of the three functions at width F (B graphs of N
+    nodes), as numpy arrays."""
     rng = np.random.default_rng(seed)
     nrm = lambda *s, scale=1.0: (rng.standard_normal(s) * scale).astype(np.float32)
     s = F ** -0.5
@@ -144,8 +147,9 @@ def _jax_fns():
         coord=jax.jit(lambda o: ep.coord_update_agg_xla(
             *(o[k] for k in COORD_KEYS), **COORD_KW, cross=o["cross"],
             graph_mean=o["graph_mean"])),
-        block=jax.jit(lambda o: block_fused_xla(
-            *(dict(o, cross=o["block_cross"])[k] for k in BLOCK_KEYS), **BLOCK_KW)))
+        block=jax.jit(lambda o, update_rows=None: block_fused_xla(
+            *(dict(o, cross=o["block_cross"])[k] for k in BLOCK_KEYS), **BLOCK_KW,
+            update_rows=update_rows), static_argnames="update_rows"))
 
 
 PORT = dict(gcl=gcl, coord=coord, block=block)
@@ -162,6 +166,23 @@ def test_padded_plain_matches_jax(name, F):
     if name != "coord":
         assert full[0].shape[-1] == ec.padded_width(F, kernel=KERNEL[name])
         assert not full[0][..., F:].any()
+
+
+@pytest.mark.parametrize("F", CLUSTER_WIDTHS)
+def test_block_at_2048_matches_jax(F):
+    """The whole block as the card's wrapper runs it at F = 2048 (1088
+    zero-padded onto it, the outputs cut back) on one graph of 15 nodes,
+    the cross branch on and ``update_rows`` 7, against the JAX package's
+    ``block_fused_xla`` at F (the dx rows below ``update_rows``: JAX keeps
+    whole row tiles), the port's dx rows at and above it exact zeros."""
+    ops = make_ops(F, seed=F, B=1, N=15)
+    width = ec.padded_width(F, kernel="block_fused")
+    assert width == 2048
+    (h_new, dx), _ = padded(block, convert(ops, torch.as_tensor), F, update_rows=7)
+    ref_h, ref_dx = _jax_fns()["block"](convert(ops, jax.numpy.asarray), update_rows=7)
+    np.testing.assert_allclose(h_new.numpy(), np.asarray(ref_h), **TOL)
+    np.testing.assert_allclose(dx.numpy()[:, :7], np.asarray(ref_dx)[:, :7], **TOL)
+    assert not dx[:, 7:].any()
 
 
 @pytest.mark.parametrize("F", WIDTHS)
