@@ -208,9 +208,9 @@ Phases (any failure ends the run with a non-zero exit code):
      row), as 20h: the five kernels at F = 1024 and every tier at phases 3,
      3b and 3c's main shapes (the forward plain versions in batch slices of
      4), width 768 run padded, the flagship's shape at hidden 1024 sampled
-     (16 x 24, T = 10: 86 / 66 launches), trained a step at batch 16 (6
+     (16 x 24, T = 5 since 20m: 46 / 36 launches), trained a step at batch 16 (6
      launches of each split kernel) and sampled as a joint model with block
-     fusing (8 x 24, T = 10: 66 launches), hidden 768 sampled; the dW2
+     fusing (8 x 24, T = 5: 36 launches), hidden 768 sampled; the dW2
      step's share of gcl_agg_bwd at
      F = 512 and 1024 (a build of it with -DEGNN_SKIP_DW2, timed through
      the same wrapper); and how the 3xTF32 error grows with K: the five
@@ -224,10 +224,10 @@ Phases (any failure ends the run with a non-zero exit code):
      tier gates; the cluster dimension each launch used; ms, bound,
      registers, spills, shared memory), widths 1088 and 1536 run padded
      (one launch each), the flagship's shape at hidden 2048 and 1536 from
-     seeded random weights sampled (16 x 24, T = 10: 86 / 66 launches), the
+     seeded random weights sampled (16 x 24, T = 5: 46 / 36 launches), the
      joint model at hidden 2048 sampled with block fusing off (8 x 24,
-     T = 5), and the refusals before any launch: width 2112 in the five
-     wrappers and in a hidden-2112 train step.
+     T = 5), and the refusals before any launch: width 2112 in the
+     backward wrappers, block_fused and a hidden-2112 train step.
      20k: training at hidden widths 1025-2048 on the two backward kernels
      at F = 2048, each row tile on a cluster of two blocks: gcl_agg_bwd and
      coord_agg_bwd at every tier at phase 3b's main shapes against their
@@ -245,14 +245,25 @@ Phases (any failure ends the run with a non-zero exit code):
      2048 and its plain version each against that plain version with its
      products summed in float64, width 1536 padded onto it, and the joint
      model at hidden 2048 sampled with block fusing on (8 x 24, T = 5: 36
-     whole-block launches, no split-kernel launch).
+     whole-block launches, no split-kernel launch); the bf16 whole-block
+     gate (20a, 20e, 20l and the card tests) holds the kernel against its
+     plain version with the bf16 products summed in float64, within twice
+     the float32 plain version's own distance.  20m: hidden widths
+     2049-4096 on the two forward split kernels at F = 4096, each row tile
+     on a cluster of four blocks: gcl_agg (full graph) and coord_agg
+     (ligand rows, the cross branch on and off) at every tier at phase 3's
+     shapes against their plain versions (batch slices of 1), width 3072
+     padded, the flagship's shape at hidden 4096 from seeded random weights
+     sampled (16 x 24, T = 2: 22 / 18 launches at F = 4096), and the
+     refusals before any launch: width 4160 in the forward wrappers, a
+     hidden-3072 train step and block_fused at 3072.
 
 Prints a {"kernels": [...]} line (the five kernels, then the same five at
 F=128 from phase 19, then the five kernels at 2xTF32 and bf16 from phase
 20, then the five at F=512 from phase 20h and at F=1024 from phase 20i,
 then gcl_agg and coord_agg at F=2048 from phase 20j, gcl_agg_bwd and
-coord_agg_bwd at F=2048 from phase 20k and block_fused at F=2048 from
-phase 20l)
+coord_agg_bwd at F=2048 from phase 20k, block_fused at F=2048 from
+phase 20l, and gcl_agg and coord_agg at F=4096 from phase 20m)
 and the card line, and as its last line
 {"ok": true, "device": {...}}.  The pocket, the samples and a summary.json go
 to ``--out`` (default chip_smoke_out/ in the repository).  Needs a CUDA card:
@@ -448,10 +459,14 @@ def sass_counts(ec, name, opcodes, function=None, tier="tf32x3"):
 # whole-block kernel's F = 2048 functions, recorded from the build that
 # added the latter (the backward ones as commit 134fe18 left them; the
 # whole block's phase B at F = 2048 is coord_agg's cluster kernel, one
-# source in egnn_coord.cuh, so both libraries hold the same SASS); and the
-# nvcc that built them (the card machine's)
+# source in egnn_coord.cuh, so both libraries hold the same SASS); then the
+# forward split kernels' F = 4096 functions (clusters of four), recorded
+# from the build that added them; and the nvcc that built them (the card
+# machine's)
 PARENT_SASS_FUNCTIONS = {
     "gcl_agg": {
+        "_ZN43_GLOBAL__N_22gcl_agg_cluster_kernelILi4096EEEvN4egnn7GclArgsE":
+            "ec185106b77d6a03eeae96f7bdb9d084cd31b285872025c18823a274a7a1e71b",
         "_ZN43_GLOBAL__N_22gcl_agg_cluster_kernelILi2048EEEvN4egnn7GclArgsE":
             "ad274632bea97ed04dbd2d691b9ccec8205a24280e855d5f1c28a01f3b2f91f4",
         "_ZN43_GLOBAL__N_14gcl_agg_kernelILi1024EEEvN4egnn7GclArgsE":
@@ -466,6 +481,10 @@ PARENT_SASS_FUNCTIONS = {
             "70d7888e930840cfda5361f4df9caaef1a91bfc470f45d178456b773ca6e30ac",
     },
     "coord_agg": {
+        "_ZN45_GLOBAL__N_24coord_agg_cluster_kernelILi4096ELb0EEEvN4egnn9CoordArgsEPf":
+            "5332f2dcaaf99ae8e748ce5ce8755edbd38887d6bd3a03bad8f9a34112cbe029",
+        "_ZN45_GLOBAL__N_24coord_agg_cluster_kernelILi4096ELb1EEEvN4egnn9CoordArgsEPf":
+            "9c215048eb2c18b73727a583bafc6ef6a950d9460325a3970efa329f4511f814",
         "_ZN45_GLOBAL__N_24coord_agg_cluster_kernelILi2048ELb0EEEvN4egnn9CoordArgsEPf":
             "6542948e98d277a6821b12d26484c7ce201b60a3fe89710f4739f2f5762bc0ab",
         "_ZN45_GLOBAL__N_24coord_agg_cluster_kernelILi2048ELb1EEEvN4egnn9CoordArgsEPf":
@@ -3445,13 +3464,34 @@ TIER_BLOCK_SHAPES = {"joint_main_path": (JOINT_SAMPLES, 7, None, None),
                      "conditional_ligand_rows": (16, 4, None, 24)}
 
 
+def block_bf16_check(ec, what, got, ref, sums, f32):
+    """``ec.block_bf16_gate`` on both outputs of a bf16 whole-block launch
+    ``got`` (h_new, dx): ``ref`` the bf16 plain version's, ``sums``
+    ``ec.block_fused_bf16_exact``'s, ``f32`` the float32 plain version's.
+    Fails the phase if either output is over the gate; returns the worst
+    figures over the two (``norm``, ``plain_norm``, ``max``, ``ratio``)."""
+    worst = dict(norm=0.0, plain_norm=0.0, max=0.0, ratio=0.0)
+    for name, g, r, s, e in zip(("h_new", "dx"), got, ref, sums, f32):
+        res = ec.block_bf16_gate(g, r, s, e)
+        _check(res["ok"], f"{what} {name}: over the bf16 gate: error norm {res['norm']:.4f} "
+                          f"of the tier's move against the float64 sums (limit "
+                          f"{res['norm_limit']:.4f}; the plain version {res['plain_norm']:.4f}), "
+                          f"largest error {res['max']:.3e} (the plain version "
+                          f"{res['plain_max']:.3e})")
+        for k in worst:
+            worst[k] = max(worst[k], res[k])
+    return worst
+
+
 def tier_block_phase(ec, torch, dev, flagship, width, shapes):
     """Phase 20a, the whole-block kernel: its library at every tier on
     phase 3c's ``shapes`` (``TIER_BLOCK_SHAPES``) at width ``width``, against
     its plain version at that tier (each output within 1e-5 + (1e-4 + the
     tier's share) of its largest entry, and its error norm within
-    ``BLOCK_TIER_GATES``' share of the tier's move from the 3xTF32 kernel's),
-    only that tier's library launched, two launches bit for bit, dx rows at
+    ``BLOCK_TIER_GATES``' share of the tier's move from the 3xTF32 kernel's;
+    at bf16 ``block_bf16_check``: against the bf16 sums in float64, within
+    twice the plain version's own distance), only that tier's library
+    launched, two launches bit for bit, dx rows at
     and above ``update_rows`` exact zeros; CUDA-event times of kernel and
     plain version, and the tier's bound.  At the reduced tiers also the
     yardstick of the bf16 gate: how far the plain version moves, by norm as
@@ -3483,15 +3523,20 @@ def tier_block_phase(ec, torch, dev, flagship, width, shapes):
             _check(launched == {f"block_fused[{tier}]": 2},
                    f"{what}: launched {launched}, not its tier's library")
             ref = ec.block_fused_plain(*ops, **kw, precision=tier)
+            f32 = ref if base is None else f32
             torch.cuda.synchronize()
             noisy = None if base is None else ec.block_fused_plain(*noisy_ops, **kw,
                                                                    precision=tier)
             err = share = moved = moved_share = noise_share = 0.0
+            bf16 = None
+            if tier == "bf16":
+                bf16 = block_bf16_check(ec, what, got, ref,
+                                        ec.block_fused_bf16_exact(*ops, **kw), f32)
             for i, (name, g, a, r) in enumerate(zip(("h_new", "dx"), got, again, ref)):
                 scale = float(r.abs().max())
                 e = float((g - r).abs().max())
                 _check(bool(torch.isfinite(g).all()) and
-                       e <= 1e-5 + (1e-4 + gate["share"]) * scale,
+                       (bf16 is not None or e <= 1e-5 + (1e-4 + gate["share"]) * scale),
                        f"{what} {name}: error {e:.3e}, largest entry {scale:.3e}")
                 _check(torch.equal(g, a), f"{what} {name}: two launches differ")
                 err, share = max(err, e), max(share, e / scale)
@@ -3502,7 +3547,7 @@ def tier_block_phase(ec, torch, dev, flagship, width, shapes):
                     noise_share = max(noise_share, ec.tier_moved_share(noisy[i], r, b))
             _check(not bool(got[1][:, N if rows is None else rows:].any()),
                    f"{what}: dx rows past update_rows are not zero")
-            if gate["moved"] is not None:
+            if gate.get("moved") is not None:
                 _check(moved_share <= gate["moved"],
                        f"{what}: error norm {moved_share:.3f} of the tier's move, "
                        f"gate {gate['moved']}")
@@ -3514,13 +3559,18 @@ def tier_block_phase(ec, torch, dev, flagship, width, shapes):
             results.setdefault(label, {})[tier] = dict(
                 tier=tier, width=width, batch=B, max_abs_err=err, gate_share=share,
                 moved=moved, moved_share=moved_share, noise_share=noise_share, ms=ms,
-                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, flops=flops)
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, flops=flops,
+                bf16_gate=bf16)
             print(f"  {what}: {ms:.4f} ms (plain {plain_ms:.3f} ms), bound {bound_ms:.4f} "
                   f"ms ({bound_by}, {100 * bound_ms / ms:.1f}%); error {share:.2e} of the "
                   f"largest entry, moved {moved:.2e} from 3xTF32"
-                  + ("" if gate["moved"] is None else
-                     f"; error norm {moved_share:.4f} of the move (gate {gate['moved']:g}; "
-                     f"the plain version under 1e-6 input noise {noise_share:.4f})"))
+                  + ("" if base is got else
+                     f"; error norm {moved_share:.4f} of the move (the plain version under "
+                     f"1e-6 input noise {noise_share:.4f})")
+                  + ("" if bf16 is None else
+                     f"; bf16 gate: against the float64 sums {bf16['norm']:.4f} of the move "
+                     f"(the plain version {bf16['plain_norm']:.4f}), ratio {bf16['ratio']:.3f}"
+                     f" (gate {ec.BLOCK_TIER_GATES['bf16']['k']:g})"))
         del inp, ops, noisy_ops
     return results
 
@@ -3725,8 +3775,9 @@ def padded_kernel_phase(ec, torch, dev, flagship, width, names=None):
     at 3xTF32 and bf16 on a phase-3 complex of B = 2 (24 + 300 atoms, cross
     branch, attention, the edge-type deltas), each against its plain version
     at ``width`` and that tier: the split kernels on ``ec.TIER_GATES``, the
-    whole block on ``ec.BLOCK_TIER_GATES`` (as in 20a; at bf16 the norm gate
-    against float32's plain version at ``width``); one launch of that tier's
+    whole block on ``ec.BLOCK_TIER_GATES`` (as in 20a; at bf16
+    ``ec.block_bf16_gate`` against the bf16 sums in float64 at ``width``,
+    float32's plain version giving the tier's move); one launch of that tier's
     library each, outputs and cotangents at ``width``.  ``names``: only these
     kernels (all five when None)."""
     cfg = dict(flagship, egnn_params=dict(flagship["egnn_params"], hidden_nf=width))
@@ -3780,6 +3831,9 @@ def padded_kernel_phase(ec, torch, dev, flagship, width, names=None):
             _check(launched == {f"{name}[{tier}]": 1},
                    f"{what}: launched {launched}, not one launch of its tier's library")
             ref = exact if tier == "tf32x3" else call(plains[name], tier)
+            sums = None
+            if name == "block_fused" and tier == "bf16":
+                sums = dict(zip(("h_new", "dx"), ec.block_fused_bf16_exact(*ops, **block_kw)))
             torch.cuda.synchronize()
             share = moved_share = 0.0
             for out, r in ref.items():
@@ -3793,6 +3847,9 @@ def padded_kernel_phase(ec, torch, dev, flagship, width, names=None):
                 e = float((g - r).abs().max())
                 if name.endswith("_bwd"):
                     ok = e <= gate["bwd"] * scale + 1e-7
+                elif sums is not None:
+                    res = ec.block_bf16_gate(g, r, sums[out], exact[out])
+                    ok, moved_share = res["ok"], max(moved_share, res["norm"])
                 elif name == "block_fused":
                     ok = e <= 1e-5 + (1e-4 + gate["share"]) * scale
                 else:
@@ -3801,9 +3858,9 @@ def padded_kernel_phase(ec, torch, dev, flagship, width, names=None):
                 _check(bool(torch.isfinite(g).all()) and ok,
                        f"{what} {out}: error {e:.3e}, largest entry {scale:.3e}")
                 share = max(share, e / (scale + 1e-30))
-                if gate["moved"] is not None:
+                if gate.get("moved") is not None:
                     moved_share = max(moved_share, ec.tier_moved_share(g, r, exact[out]))
-            if gate["moved"] is not None:
+            if gate.get("moved") is not None:
                 _check(moved_share <= gate["moved"],
                        f"{what}: error norm {moved_share:.3f} of the tier's move, "
                        f"gate {gate['moved']}")
@@ -3812,9 +3869,11 @@ def padded_kernel_phase(ec, torch, dev, flagship, width, names=None):
             if name in ("gcl_agg", "coord_agg"):
                 results[f"{name}[{tier}]"]["cluster_dim"] = ec.last_cluster_dim(name, tier)
             print(f"  {what}: 1 launch of {name}[{tier}]; error {share:.2e} of the largest "
-                  f"entry" + ("" if gate["moved"] is None else
+                  f"entry" + ("" if gate.get("moved") is None else
                               f", error norm {moved_share:.4f} of the tier's move "
-                              f"(gate {gate['moved']:g})"))
+                              f"(gate {gate['moved']:g})")
+                  + ("" if sums is None else f", error norm {moved_share:.4f} of the "
+                                             f"tier's move against the float64 sums"))
     del inp, ops
     return results
 
@@ -3902,9 +3961,9 @@ WIDE_CHAIN = dict(n=16, T=20)
 # the F = 512 kernels' 3xTF32 target: error within this share of the plain
 # version's largest entry (reported beside the binding gates, TIER_GATES)
 WIDE_3XTF32_SHARE = 5e-6
-WIDEST = 1024  # the widest width all five kernels are built for, tiles of one row
+WIDEST = 1024  # the widest width on tiles of one row without a cluster
 WIDEST_PADDED = (768,)  # run on the F = 1024 kernels
-WIDEST_CHAIN = dict(n=16, T=10)  # shorter than 20h's: phase 20j shares the time limit
+WIDEST_CHAIN = dict(n=16, T=5)  # shorter than 20h's: phases 20j-20m share the time limit
 # phase 20i's measurement builds, started after phase 2: (kernel, define,
 # library) -- the GCL backward without its dW2 step (its output's dW2 stays
 # zero), and the GCL forward at F = 1024 without the step sums
@@ -4162,26 +4221,39 @@ def wide_width_phase(torch, ec, dev, flagship, logs, work, pdb, ref_lig, card,
 CLUSTER_WIDTH = 2048  # the split kernels' widest: a row tile on two blocks
 CLUSTER_KERNELS = ("gcl_agg", "coord_agg")  # phase 20j's; 20k's the backward two
 CLUSTER_PADDED = (1088, 1536)  # run on the F = 2048 kernels (ec.padded_width)
-CLUSTER_CHAIN = dict(n=16, T=10)
+CLUSTER_CHAIN = dict(n=16, T=5)  # phases 20j-20m share the time limit
 CLUSTER_JOINT = dict(n=JOINT_SAMPLES, T=5)
 CLUSTER_PLAIN_STEP = 2  # graphs a slice of the plain versions: 1.9 GB a (2, 344, 344, 2048) tensor
 REFUSED_WIDTH = 2112  # wider than the split kernels
 REFUSED_BLOCK = 2112  # wider than block_fused
 
 
-def cluster_kernel_phase(ec, torch, dev, flagship, logs):
+def forward_dynamic_smem(ec, F, N):
+    """Bytes of dynamic shared memory of a forward cluster kernel's block at
+    built width F (csrc/egnn_mma.cuh's dynamic_smem): S (all F features at
+    2048; the block's own part and the staging of a peer's above), the two
+    8-row W2 stages of the block's F / C columns, the column list."""
+    C = ec.cluster_size(F)
+    s_floats = 2 * 16 * (F // C + 4) if C > 2 else 16 * (F + 4)
+    return 4 * (s_floats + 2 * 8 * (F // C + 8)) + 4 * N
+
+
+def cluster_kernel_phase(ec, torch, dev, flagship, logs, width=CLUSTER_WIDTH,
+                         variants=None, step=CLUSTER_PLAIN_STEP, reps=3):
     """Phase 20j (a): ``gcl_agg`` and ``coord_agg`` at F = 2048 (each row
     tile on a cluster of two blocks) at every tier, at phase 3's shapes:
     ``gcl_agg`` on the full graph and the collapsed complex (B = 16, 24 +
     320 atoms), ``coord_agg`` on ligand rows with the cross branch on and
     off and on every row of the joint chain's batch (B = 8).  Each variant
-    against its plain version at the tier (batch slices of
-    ``CLUSTER_PLAIN_STEP`` graphs) within ``ec.TIER_GATES``, the reduced
-    tiers' error norm against their move from the 3xTF32 kernel's output;
-    two launches bit for bit; the cluster dimension each launch used;
-    CUDA-event ms of kernel and plain version, the tier's bound; the
-    instantiations' registers, spills and shared memory a block."""
-    cfg = dict(flagship, egnn_params=dict(flagship["egnn_params"], hidden_nf=CLUSTER_WIDTH))
+    against its plain version at the tier (batch slices of ``step``
+    graphs) within ``ec.TIER_GATES``, the reduced tiers' error norm against
+    their move from the 3xTF32 kernel's output; two launches bit for bit;
+    the cluster dimension each launch used (``ec.cluster_size``); CUDA-event
+    ms of kernel (``reps`` launches) and plain version, the tier's bound;
+    the instantiations' registers, spills and shared memory a block.
+    ``width``, ``variants`` (their names, all when None): phase 20m's F =
+    4096 (clusters of four) on a subset."""
+    cfg = dict(flagship, egnn_params=dict(flagship["egnn_params"], hidden_nf=width))
     NL = 24
     inputs = {"full": kernel_inputs(torch, dev, cfg, 16, NL),
               "collapsed": kernel_inputs(torch, dev, cfg, 16, NL, seed=9, spread=1.0),
@@ -4207,7 +4279,8 @@ def cluster_kernel_phase(ec, torch, dev, flagship, logs):
         return call
 
     full, dense, b8 = inputs["full"], inputs["collapsed"], inputs["b8"]
-    N, F = full["N"], CLUSTER_WIDTH
+    N, F, want_cluster = full["N"], width, ec.cluster_size(width)
+    names = variants
     variants = {  # (kernel, call, batch, work)
         "full": ("gcl_agg", gcl(full), 16,
                  work_bounds(active_pairs(ec, full), 16, N, F, 1, N, F)),
@@ -4225,6 +4298,8 @@ def cluster_kernel_phase(ec, torch, dev, flagship, logs):
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     res = {}
     for v, (name, call, B, work) in variants.items():
+        if names is not None and v not in names:
+            continue
         base = None
         for tier in ec.TIERS:
             gate = ec.TIER_GATES[tier]
@@ -4235,10 +4310,11 @@ def cluster_kernel_phase(ec, torch, dev, flagship, logs):
             launched = {k: n for k, n in ec.tier_launch_counts.items() if n}
             _check(launched == {f"{name}[{tier}]": 2},
                    f"{what}: launched {launched}, not its tier's library")
-            _check(cluster == 2, f"{what}: cluster dimension {cluster}, not 2")
+            _check(cluster == want_cluster,
+                   f"{what}: cluster dimension {cluster}, not {want_cluster}")
             start.record()
-            ref = torch.cat([call(plains[name], tier, slice(b, b + CLUSTER_PLAIN_STEP))
-                             for b in range(0, B, CLUSTER_PLAIN_STEP)], 0)
+            ref = torch.cat([call(plains[name], tier, slice(b, b + step))
+                             for b in range(0, B, step)], 0)
             end.record()
             torch.cuda.synchronize()
             plain_ms = start.elapsed_time(end)
@@ -4254,7 +4330,7 @@ def cluster_kernel_phase(ec, torch, dev, flagship, logs):
                        f"{what}: error norm {moved_share:.3f} of the tier's move, "
                        f"gate {gate['moved']}")
             base = got if base is None else base
-            ms = _cuda_ms(lambda: call(wrappers[name], tier), 3)
+            ms = _cuda_ms(lambda: call(wrappers[name], tier), reps)
             bound_ms, bound_by = tier_bound(work["flops"], work["bytes"], tier)
             res[f"{name}[{tier}]:{v}"] = dict(
                 kernel=name, tier=tier, variant=v, width=F, batch=B, cluster_dim=cluster,
@@ -4270,7 +4346,7 @@ def cluster_kernel_phase(ec, torch, dev, flagship, logs):
         if base is not None:
             del base
     usage = ptxas_usage(logs, F)
-    smem = {"dynamic": 4 * (16 * (F + 4) + 2 * 8 * (F // 2 + 8)) + 4 * N}
+    smem = {"dynamic": forward_dynamic_smem(ec, F, N)}
     for name in CLUSTER_KERNELS:
         _check(name in usage, f"{name} has no instantiation at F = {F}")
         for u in usage[name]:
@@ -4294,9 +4370,10 @@ def cluster_width_phase(torch, ec, dev, flagship, logs, work, pdb, ref_lig, card
     5's pocket, ``CLUSTER_CHAIN``'s T: 8T + 6 and 6T + 6 launches), and the
     joint model at hidden 2048 with block fusing off (``CLUSTER_JOINT``: 6
     launches of each split kernel a pass).  (d) refusals, each before any
-    launch: width ``REFUSED_WIDTH`` in the four split wrappers and in a
+    launch: width ``REFUSED_WIDTH`` in the two backward wrappers and in a
     hidden-``REFUSED_WIDTH`` train step, ``REFUSED_BLOCK`` in
-    ``block_fused`` (built up to 2048 since 20l's kernel)."""
+    ``block_fused`` (built up to 2048 since 20l's kernel); the forward
+    wrappers run it on their F = 4096 kernels since 20m's."""
     from diffsbdd_tpu_torch.config import load_config
     from diffsbdd_tpu_torch.data.dataset import LigandPocketDataset, PaddedLoader
     from diffsbdd_tpu_torch.diffusion.ddpm import JointDDPM
@@ -4378,13 +4455,6 @@ def cluster_width_phase(torch, ec, dev, flagship, logs, work, pdb, ref_lig, card
     cross_b = {k: v for k, v in inp["cross"].items() if k != "type_bias"}
     cross_b["delta"] = inp["cross_delta"]
     above = ("above 2048", "ROADMAP")
-    refused(f"gcl_agg_width_{REFUSED_WIDTH}", lambda: ec.gcl_message_agg(
-        *(inp[k] for k in node), *w.values(), cutoffs=inp["cut"],
-        attention=True, normalization_factor=100.0), above)
-    refused(f"coord_agg_width_{REFUSED_WIDTH}", lambda: ec.coord_update_agg(
-        *(inp[k] for k in node), *inp["coord_w"], cutoffs=inp["cut"], tanh=True,
-        coords_range=15.0, norm_constant=1.0, normalization_factor=100.0, update_rows=24,
-        cross=inp["cross"], graph_mean=inp["graph_mean"]), above)
     refused(f"gcl_agg_bwd_width_{REFUSED_WIDTH}", lambda: ec.gcl_agg_bwd(
         inp["r"](B, N, REFUSED_WIDTH), *(inp[k] for k in node), w["w_d2"], w["w_d20"],
         inp["gcl_delta"], w["w2"], w["b2"], w["w_att"], w["b_att"], cutoffs=inp["cut"],
@@ -4528,18 +4598,21 @@ def bf16_order_witness(ec, torch, dev, flagship):
     ``BF16_WITNESS_SEEDS`` complexes of CLUSTER_PLAIN_STEP graphs at phase
     3c's joint shapes, the bf16 library and its bf16 plain version (float32
     sums) each against that plain version with its bf16 products summed in
-    float64 (the tier's roundings, exact sums rounded once).  Per width and
-    output, the largest over the seeds of: the kernel's error against the
-    plain version (the card tests' bf16 gate), the kernel's and the plain
-    version's against the float64 sums, each as an error norm over the
-    norm of the tier's move from the float32 plain version
+    float64 (``ec.block_fused_bf16_exact``: the tier's roundings, exact sums
+    rounded once).  Per width and output, the largest over the seeds of: the
+    kernel's error against the plain version, the kernel's and the plain
+    version's against the float64 sums, each as an error norm over the norm
+    of the tier's move from the float32 plain version
     (``ec.tier_moved_share``) and as the largest error over the float64
-    sums' largest entry.  Two orders of the same float32 sums read alike
-    against the exact ones; a fault of the kernel's reads more."""
-    def exact_sums(a, b):
-        return (ec.bf16_round(a).double() @ ec.bf16_round(b).double()).float()
-
+    sums' largest entry; and under the bf16 gate (``ec.block_bf16_gate``)
+    the kernel's ratio to the plain version and the ratio that a 3xTF32
+    library in the bf16 slot reads.  Two orders of the same float32 sums
+    read alike against the exact ones; a fault of the kernel's reads more.
+    Fails if the kernel is over the gate, or if a 3xTF32 library is not
+    (one output over it refuses a library) with a ratio above the gate's k,
+    on any complex at either width."""
     res = {}
+    k = ec.BLOCK_TIER_GATES["bf16"]["k"]
     for F in (WIDEST, CLUSTER_WIDTH):
         cfg = dict(flagship, egnn_params=dict(flagship["egnn_params"], hidden_nf=F))
         worst = {}
@@ -4551,24 +4624,35 @@ def bf16_order_witness(ec, torch, dev, flagship):
             got = ec.block_fused(*ops, **kw, precision="bf16")
             ref = ec.block_fused_plain(*ops, **kw, precision="bf16")
             f32 = ec.block_fused_plain(*ops, **kw)
-            float32_sums, ec.matmul_bf16 = ec.matmul_bf16, exact_sums
-            try:
-                f64 = ec.block_fused_plain(*ops, **kw, precision="bf16")
-            finally:
-                ec.matmul_bf16 = float32_sums
+            f64 = ec.block_fused_bf16_exact(*ops, **kw)
+            tf32x3 = [ec.block_bf16_gate(x, r, e, x) for r, e, x in zip(ref, f64, f32)]
+            # a library fails the gate when one output does
+            _check(not all(t["ok"] for t in tf32x3) and max(t["ratio"] for t in tf32x3) > k,
+                   f"block_fused[bf16] F={F} seed {seed}: a 3xTF32 library in the bf16 slot "
+                   f"passes the gate, {tf32x3}")
             for name, g, r, e, x in zip(("h_new", "dx"), got, ref, f64, f32):
                 _check(bool(torch.isfinite(g).all() and torch.isfinite(e).all()),
                        f"block_fused[bf16] F={F} {name}: not finite")
                 scale = float(e.abs().max())
+                kernel = ec.block_bf16_gate(g, r, e, x)
+                _check(kernel["ok"], f"block_fused[bf16] F={F} {name} seed {seed}: over the "
+                                     f"bf16 gate, {kernel}")
                 now = dict(kernel_vs_plain=ec.tier_moved_share(g, r, x),
                            kernel_vs_f64=ec.tier_moved_share(g, e, x),
                            plain_vs_f64=ec.tier_moved_share(r, e, x),
                            kernel_vs_plain_max=float((g - r).abs().max()) / scale,
                            kernel_vs_f64_max=float((g - e).abs().max()) / scale,
-                           plain_vs_f64_max=float((r - e).abs().max()) / scale)
-                was = worst.setdefault(name, dict.fromkeys(now, 0.0))
-                for k, v in now.items():
-                    was[k] = max(was[k], v)
+                           plain_vs_f64_max=float((r - e).abs().max()) / scale,
+                           kernel_ratio=kernel["ratio"])
+                was = worst.setdefault(name, dict(dict.fromkeys(now, 0.0),
+                                                  tf32x3_ratio=float("inf"),
+                                                  tf32x3_fails=0))
+                for key, v in now.items():
+                    was[key] = max(was[key], v)
+                # the least over the seeds: the gate must refuse 3xTF32 on every one
+                t = tf32x3[0 if name == "h_new" else 1]
+                was["tf32x3_ratio"] = min(was["tf32x3_ratio"], t["ratio"])
+                was["tf32x3_fails"] += not t["ok"]
             del inp, ops, got, ref, f32, f64
             torch.cuda.empty_cache()
         res[F] = worst
@@ -4579,7 +4663,10 @@ def bf16_order_witness(ec, torch, dev, flagship):
                   f"sums the kernel {w['kernel_vs_f64']:.3f}, the plain version "
                   f"{w['plain_vs_f64']:.3f}; largest error over the largest entry "
                   f"{w['kernel_vs_plain_max']:.2e}, {w['kernel_vs_f64_max']:.2e}, "
-                  f"{w['plain_vs_f64_max']:.2e}")
+                  f"{w['plain_vs_f64_max']:.2e}; under the gate (k = {k:g}) the kernel's "
+                  f"ratio {w['kernel_ratio']:.3f}, a 3xTF32 library's {w['tf32x3_ratio']:.3f} "
+                  f"(the least over the complexes; over the gate on {w['tf32x3_fails']} of "
+                  f"{len(BF16_WITNESS_SEEDS)})")
     return res
 
 
@@ -4603,7 +4690,9 @@ def cluster_block_phase(torch, ec, dev, flagship, logs, work, pdb, ref_lig, card
     version at the tier in batch slices of ``CLUSTER_PLAIN_STEP`` graphs:
     each output within 1e-5 + (1e-4 + the tier's share) of its largest
     entry, the error norm within ``ec.BLOCK_TIER_GATES``' share of the
-    tier's move from the 3xTF32 kernel's output, that tier's library alone
+    tier's move from the 3xTF32 kernel's output (at bf16
+    ``block_bf16_check``: against the bf16 sums in float64, within twice
+    the plain version's own distance), that tier's library alone
     launched, two launches bit for bit, each on clusters of two; CUDA-event
     ms of kernel and plain version, the tier's bound and the 3xTF32 one;
     the instantiations' registers, spills and shared memory; at bf16 also
@@ -4645,12 +4734,19 @@ def cluster_block_phase(torch, ec, dev, flagship, logs, work, pdb, ref_lig, card
             end.record()
             torch.cuda.synchronize()
             plain_ms = start.elapsed_time(end)
+            f32 = ref if base is None else f32
+            bf16 = None
+            if tier == "bf16":
+                sums = _block_plain_in_slices(ec, torch, ops, dict(kw, precision=ec.BF16_EXACT),
+                                              CLUSTER_PLAIN_STEP)
+                bf16 = block_bf16_check(ec, what, got, ref, sums, f32)
+                del sums
             err = share = moved_share = 0.0
             for i, (name, g, a, r) in enumerate(zip(("h_new", "dx"), got, again, ref)):
                 scale = float(r.abs().max())
                 e = float((g - r).abs().max())
                 _check(bool(torch.isfinite(g).all()) and
-                       e <= 1e-5 + (1e-4 + gate["share"]) * scale,
+                       (bf16 is not None or e <= 1e-5 + (1e-4 + gate["share"]) * scale),
                        f"{what} {name}: error {e:.3e}, largest entry {scale:.3e}")
                 _check(torch.equal(g, a), f"{what} {name}: two launches differ")
                 err, share = max(err, e), max(share, e / scale)
@@ -4658,7 +4754,7 @@ def cluster_block_phase(torch, ec, dev, flagship, logs, work, pdb, ref_lig, card
                     moved_share = max(moved_share, ec.tier_moved_share(g, r, base[i]))
             _check(not bool(got[1][:, N if rows is None else rows:].any()),
                    f"{what}: dx rows past update_rows are not zero")
-            if gate["moved"] is not None:
+            if gate.get("moved") is not None:
                 _check(moved_share <= gate["moved"],
                        f"{what}: error norm {moved_share:.3f} of the tier's move, "
                        f"gate {gate['moved']}")
@@ -4672,15 +4768,19 @@ def cluster_block_phase(torch, ec, dev, flagship, logs, work, pdb, ref_lig, card
                 cluster_dim=cluster, max_abs_err=err, gate_share=share,
                 moved_share=moved_share, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, bound_tc_ms=bound_tc_ms, bound_tc_by=bound_tc_by,
-                flops=flops)
+                flops=flops, bf16_gate=bf16)
             print(f"  {what}: cluster of {cluster}, {ms:.3f} ms (plain {plain_ms:.1f} ms), "
                   f"bound {bound_ms:.4f} ms ({bound_by}, {100 * bound_ms / ms:.1f}%; 3xTF32 "
                   f"{bound_tc_ms:.4f} ms); error {share:.2e} of the largest entry"
-                  + ("" if gate["moved"] is None else
+                  + ("" if gate.get("moved") is None else
                      f", error norm {moved_share:.4f} of the tier's move "
-                     f"(gate {gate['moved']:g})"))
+                     f"(gate {gate['moved']:g})")
+                  + ("" if bf16 is None else
+                     f"; bf16 gate: against the float64 sums {bf16['norm']:.4f} of the move "
+                     f"(the plain version {bf16['plain_norm']:.4f}), ratio {bf16['ratio']:.3f}"
+                     f" (gate {ec.BLOCK_TIER_GATES['bf16']['k']:g})"))
             del got
-        del inp, ops, base
+        del inp, ops, base, f32
         torch.cuda.empty_cache()
     bf16_witness = bf16_order_witness(ec, torch, dev, flagship)
     usage = ptxas_usage(logs, F)
@@ -4727,6 +4827,126 @@ def cluster_block_phase(torch, ec, dev, flagship, logs, work, pdb, ref_lig, card
     shutil.rmtree(work / "cluster_joint_fused", ignore_errors=True)
     res["phase_s"] = time.perf_counter() - t0
     print(f"  phase 20l took {res['phase_s']:.1f} s")
+    return res
+
+
+QUAD_WIDTH = 4096  # the forward split kernels' widest: a row tile on four blocks
+QUAD_VARIANTS = ("full", "ligand_rows_cross", "ligand_rows_nocross")  # phase 3's shapes
+QUAD_PADDED = 3072  # run on the F = 4096 kernels (ec.padded_width)
+QUAD_CHAIN = dict(n=16, T=2)
+QUAD_PLAIN_STEP = 1  # graphs a slice of the plain versions: 1.9 GB a (1, 344, 344, 4096) tensor
+REFUSED_QUAD = 4160  # wider than the forward split kernels
+REFUSED_QUAD_TRAIN = QUAD_PADDED  # a train step wider than the backward kernels
+
+
+def quad_width_phase(torch, ec, dev, flagship, logs, work, pdb, ref_lig, card):
+    """Phase 20m, hidden widths 2049-4096 on the forward split kernels at
+    F = 4096 (a row tile on a cluster of four blocks; the samplers' two
+    kernels, the backward ones and ``block_fused`` stay at 2048).  (a)
+    ``cluster_kernel_phase`` at F = 4096 on ``QUAD_VARIANTS`` (phase 3's
+    shapes: ``gcl_agg`` on the full graph, ``coord_agg`` on ligand rows with
+    the cross branch on and off) at every tier, the plain versions in batch
+    slices of ``QUAD_PLAIN_STEP``; each launch on clusters of 4.  (b)
+    ``padded_kernel_phase`` of the two kernels at ``QUAD_PADDED``.  (c) the
+    main path: cli.generate_ligands at hidden 4096 from seeded random
+    weights (16 x 24 on phase 5's pocket, ``QUAD_CHAIN``'s T: 8T + 6 and
+    6T + 6 launches, all at F = 4096 on clusters of four), finite samples
+    and an SDF.  (d) refusals, each before any launch: width
+    ``REFUSED_QUAD`` in the two forward wrappers, a hidden-
+    ``REFUSED_QUAD_TRAIN`` train step (the backward kernels' width) and
+    ``block_fused`` at ``REFUSED_QUAD_TRAIN``."""
+    from diffsbdd_tpu_torch.config import load_config
+    from diffsbdd_tpu_torch.data.dataset import LigandPocketDataset, PaddedLoader
+    from diffsbdd_tpu_torch.train import loop
+    from diffsbdd_tpu_torch.train.module import build_module_from_config
+    t0 = time.perf_counter()
+    res = {"card": card, "kernels": cluster_kernel_phase(
+        ec, torch, dev, flagship, logs, width=QUAD_WIDTH, variants=QUAD_VARIANTS,
+        step=QUAD_PLAIN_STEP, reps=2)}
+    print(f"  20m (a) took {time.perf_counter() - t0:.1f} s")
+    res["padded"] = padded_kernel_phase(ec, torch, dev, flagship, QUAD_PADDED,
+                                        names=CLUSTER_KERNELS)
+    for key, entry in res["padded"].items():
+        _check(entry["cluster_dim"] == 4, f"width {QUAD_PADDED} {key}: cluster "
+                                          f"{entry['cluster_dim']}, not 4")
+
+    def model(width):
+        return dict(flagship, egnn_params=dict(flagship["egnn_params"], hidden_nf=width))
+
+    chain = QUAD_CHAIN
+    want = chain_launches(ec, 6, chain["T"])
+    t1 = time.perf_counter()
+    ckpt = _random_checkpoint(torch, model(QUAD_WIDTH), None, work / "quad")[0]
+    ckpt_s = time.perf_counter() - t1
+    sdf = work / "quad.sdf"
+    wall, sample_s, launches, by_tier, xh = _captured_generate(
+        torch, ec, [ckpt, "--pdbfile", pdb, "--ref_ligand", ref_lig, "--outfile", sdf,
+                    "--n_samples", chain["n"], "--num_nodes_lig", 24, "--all_frags",
+                    "--timesteps", chain["T"]])
+    _check(launches == want, f"the hidden-{QUAD_WIDTH} chain launched {launches}, not {want}")
+    _check(by_tier == {f"{k}[{ec.DEFAULT_TIER}]": n for k, n in want.items() if n},
+           f"the hidden-{QUAD_WIDTH} chain's libraries: {by_tier}")
+    for name in CLUSTER_KERNELS:
+        dim = ec.last_cluster_dim(name)
+        _check(dim == 4, f"the hidden-{QUAD_WIDTH} chain's {name}: cluster {dim}, not 4")
+    _check(bool(torch.isfinite(xh).all()), f"the hidden-{QUAD_WIDTH} chain's samples")
+    mols = _sdf_molecules(sdf)
+    _check(0 < len(mols) <= chain["n"], f"the hidden-{QUAD_WIDTH} chain wrote {len(mols)}")
+    res["chain"] = dict(chain, launches=launches, ms_per_pass=1e3 * sample_s / (chain["T"] + 1),
+                        sample_s=sample_s, wall_s=wall, checkpoint_s=ckpt_s,
+                        molecules=len(mols))
+    print(f"  {card}: hidden {QUAD_WIDTH}, {chain['n']} x 24 atoms, T={chain['T']}: "
+          f"{res['chain']['ms_per_pass']:.2f} ms a pass, CLI wall {wall:.2f} s (the random "
+          f"checkpoint written in {ckpt_s:.1f} s), launches {launches}, {len(mols)} molecules")
+    shutil.rmtree(work / "quad", ignore_errors=True)
+
+    res["refusals"] = {}
+
+    def refused(key, call, names):
+        ec.reset_launch_counts()
+        try:
+            call()
+            msg = ""
+        except ValueError as err:
+            msg = str(err)
+        _check(all(n in msg for n in names), f"{key} did not raise naming {names}: {msg!r}")
+        _check(not any(ec.launch_counts.values()), f"{key} launched {ec.launch_counts}")
+        res["refusals"][key] = msg
+        print(f"  {key}: raises before any launch: '{msg[:110]}'")
+
+    node = ("a_row", "a_col", "x", "x0", "mask", "is_lig")
+    inp = kernel_inputs(torch, dev, model(REFUSED_QUAD), 2, 24)
+    above = ("above 4096", "ROADMAP", "widths above 4096")
+    refused(f"gcl_agg_width_{REFUSED_QUAD}", lambda: ec.gcl_message_agg(
+        *(inp[k] for k in node), *inp["gcl_w"].values(), cutoffs=inp["cut"],
+        attention=True, normalization_factor=100.0), above)
+    refused(f"coord_agg_width_{REFUSED_QUAD}", lambda: ec.coord_update_agg(
+        *(inp[k] for k in node), *inp["coord_w"], cutoffs=inp["cut"], tanh=True,
+        coords_range=15.0, norm_constant=1.0, normalization_factor=100.0, update_rows=24,
+        cross=inp["cross"], graph_mean=inp["graph_mean"]), above)
+    del inp
+    narrower = ("above 2048", "ROADMAP", "widths above 2048")
+    blk = kernel_inputs(torch, dev, model(REFUSED_QUAD_TRAIN), 2, 24, with_delta=True)
+    refused(f"block_fused_width_{REFUSED_QUAD_TRAIN}", lambda: ec.block_fused(
+        *block_operands(blk), cutoffs=blk["cut"], attention=True, tanh=True,
+        coords_range=15.0, norm_constant=1.0, normalization_factor=100.0),
+        ("block_fused",) + narrower)
+    del blk
+    data = work / "data20m"
+    write_synthetic_dataset(data, 2, 1, seed=23, pocket_sizes=(250, 280), n_types=11)
+    batch = next(iter(PaddedLoader(LigandPocketDataset(data / "train.npz"), 2, shuffle=False)))
+    cfg = load_config(overrides=model(REFUSED_QUAD_TRAIN))
+    torch.manual_seed(0)
+    module = build_module_from_config(cfg, np.load(data / "size_distribution.npy")).to(dev)
+    module.train()
+    refused(f"train_step_hidden_{REFUSED_QUAD_TRAIN}", lambda: module.loss_fn(
+        None, loop.batch_to_device(batch["ligand"], dev),
+        loop.batch_to_device(batch["pocket"], dev), training=True),
+        ("gcl_agg_bwd",) + narrower)
+    del module
+    torch.cuda.empty_cache()
+    res["phase_s"] = time.perf_counter() - t0
+    print(f"  phase 20m took {res['phase_s']:.1f} s")
     return res
 
 
@@ -4871,6 +5091,9 @@ def phase20(torch, ec, dev, flagship, logs, work, pdb, ref_lig, base, card, join
           f"the hidden-{CLUSTER_WIDTH} joint chain with block fusing on ({card})")
     res["cluster_block"] = cluster_block_phase(torch, ec, dev, flagship, logs, work, pdb,
                                                ref_lig, card)
+    print(f"[20m] hidden widths 2049-4096 on the F = {QUAD_WIDTH} forward kernels, clusters "
+          f"of four blocks ({card})")
+    res["quad"] = quad_width_phase(torch, ec, dev, flagship, logs, work, pdb, ref_lig, card)
     res["phase_s"] = time.perf_counter() - t20
     print(f"  phase 20 took {res['phase_s']:.1f} s")
     return res
@@ -5250,6 +5473,21 @@ def _phases(torch, ec, dev, out, card, logs, build_s, builds, t_start) -> int:
                                   "variant", "batch")},
          "dense_ms": dense["ms"], "dense_plain_ms": dense["plain_ms"],
          "dense_bound_ms": dense["bound_ms"], "library_ms": None})
+    # gcl_agg and coord_agg at F = 4096 (3xTF32, a row tile on a cluster of
+    # four blocks), their launches on phase 20m's hidden-4096 main path
+    quad = tiers["quad"]
+    for name, main_variant in (("gcl_agg", "full"), ("coord_agg", "ligand_rows_cross")):
+        counts = {"quad_sampling": quad["chain"]["launches"][name]}
+        _check(counts["quad_sampling"] > 0, f"no hidden-{QUAD_WIDTH} path launched {name}")
+        runs = [e for e in quad["kernels"]["variants"].values()
+                if e["kernel"] == name and e["tier"] == ec.DEFAULT_TIER]
+        entry = quad["kernels"]["variants"][f"{name}[{ec.DEFAULT_TIER}]:{main_variant}"]
+        cluster_entries.append(
+            {"name": f"{name}[F={QUAD_WIDTH}]", "route": "cuda", "source": sources[name][0],
+             "replaces": sources[name][1], "launches": counts["quad_sampling"],
+             "launches_by_path": counts, "max_abs_err": max(e["max_abs_err"] for e in runs),
+             **{k: entry[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "cluster_dim",
+                                      "variant")}, "library_ms": None})
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": sources[name][0],
          "replaces": sources[name][1], "launches": launches[name],

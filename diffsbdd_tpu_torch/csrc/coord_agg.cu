@@ -51,9 +51,10 @@
 //   fixed order close each chunk.
 // Rows >= update_rows are written as zeros (the conditional model updates
 // ligand rows only, and nodes are ligand-first).
-// F = 2048 runs each row tile and pair MLP on a cluster of two blocks, each
-// owning half of the MLP's features (egnn_cluster.cuh: the head summed over
-// the two blocks, the per-pair terms and row sums on rank 0).
+// F = 2048 (4096) runs each row tile and pair MLP on a cluster of two (four)
+// blocks, each owning half (a quarter) of the MLP's features
+// (egnn_cluster.cuh: the head summed over the blocks, the per-pair terms and
+// row sums on rank 0).
 #include "egnn_cluster.cuh"
 #include "egnn_coord.cuh"
 
@@ -112,6 +113,7 @@ extern "C" int coord_agg_forward(
     case 512: return launch<512>(g, B, partial, s);
     case 1024: return launch<1024>(g, B, partial, s);
     case 2048: return launch<2048>(g, B, partial, s);
+    case 4096: return launch<4096>(g, B, partial, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -1,6 +1,6 @@
-// Hidden width F = 2048 on a thread-block cluster: the forward kernels'
-// row-tile bodies (gcl_agg.cu, coord_agg.cu) with the output features split
-// over the C = 2 blocks of a cluster; for sm_90a.
+// Hidden widths F = 2048 and 4096 on a thread-block cluster: the forward
+// kernels' row-tile bodies (gcl_agg.cu, coord_agg.cu) with the output
+// features split over the C = F / 1024 blocks of a cluster; for sm_90a.
 //
 // Why a cluster: at F = 2048 one block of the F = 1024 design would need S
 // of its one m-tile (16 x 2052 floats, 131 KB) and a W2 ring of two 8-row
@@ -36,14 +36,37 @@
 // * each block writes only its own feature slice of the output (the GCL) or
 //   rank 0 alone the row's three coordinates (the coordinate update), so
 //   nothing needs atomics and the result is deterministic.
+//
+// F = 4096 (WideLayout, gcl_tile_wide, coord_tile_wide; written for any C =
+// F / 1024 > 2): S of all K rows no longer fits a block (16 x 4100 floats,
+// 262 KB), so
+// * block r of a cluster of C = 4 owns output features [1024 r, 1024 r +
+//   1024) in F = 1024's warp layout as at 2048, and fills only its own 1024
+//   features of S (its C-th of K) into its own buffer, four a thread;
+// * the product walks K in C parts of 1024 rows, in rank order: part q from
+//   the block's own buffer (q = r) or from peer q's, copied into a second,
+//   staging buffer through DSMEM, each part's product accumulating onto the
+//   last (the k-steps in the order of one K = 4096 product); the W2 ring
+//   streams rows [1024 q, 1024 q + 1024) of the block's 1024 columns, its
+//   look-ahead running on across the parts.  Shared memory: own part 66 KB +
+//   staging 66 KB + the ring's two 8-row stages 66 KB, as at 2048;
+// * the attention dot and the coordinate head are C partial sums a pair:
+//   each block writes its 16, a cluster barrier follows, and the sum is
+//   taken from DSMEM in rank order 0 + 1 + ... + C-1 (every block of the GCL
+//   the same sum, so a row's C feature slices are gated alike; rank 0 alone
+//   in the coordinate update);
+// * that barrier also orders the next chunk's refill of each own buffer
+//   after the last peer's copy of it, and a last barrier keeps a block's
+//   shared memory alive until its peers are done.
 #pragma once
 #include "egnn_mma.cuh"
 
 namespace egnn {
 
-// Blocks a cluster at width F: 2 above 1024, else 1 (no cluster).
+// Blocks a cluster at width F: F / 1024 above 1024 (2 at 2048, 4 at 4096),
+// else 1 (no cluster).
 template <int F>
-__host__ __device__ constexpr int cluster_size() { return F > 1024 ? 2 : 1; }
+__host__ __device__ constexpr int cluster_size() { return F > 1024 ? F / 1024 : 1; }
 
 // ---- cluster primitives (PTX, sm_90)
 
@@ -110,6 +133,7 @@ template <> struct Layout<2048, 1> {
   static constexpr int NQ = 1;
   static constexpr int COLS = TJ;
   static constexpr int STAGE = KC * WS;
+  static constexpr int S_BUFS = 1;
 #ifndef EGNN_NO_STEP_SUMS
   static constexpr bool STEP_SUMS = true;
 #else
@@ -119,8 +143,48 @@ template <> struct Layout<2048, 1> {
   static_assert(TI == 1 && FE == 4 && NTN == 16, "F = 1024's layout on the block's half");
 };
 
-// The ring of W2 stages of a cluster block: stage g holds rows (g % KS) * KC
-// .. + KC of W2's columns [col0, col0 + FB) in buffer g % NS.  W2 and the
+// The tiling of one block of a cluster of C = F / 1024 > 2 blocks: the
+// block's FB = 1024 output features in F = 1024's layout, as Layout<2048>,
+// but S a C-th of K at a time: its buffers hold FB features (SS), a product
+// call runs FB / KC stages (KS, one part of K), the ring walks all F / KC
+// stages of a chunk, and S has two buffers, the block's own part and the
+// staging of a peer's.
+template <int F>
+struct WideLayout {
+  static constexpr int CLUSTER = cluster_size<F>();
+  static constexpr int FB = F / CLUSTER;  // output features a block owns
+  static constexpr int TI = tile_rows<F>();
+  static constexpr int P = TI * TJ;
+  static constexpr int M_TILES = P / 16;
+  static constexpr int SLICES = NT / 32;
+  static constexpr int KC = 8;           // W2 rows per stage
+  static constexpr int SS = FB + 4;      // S row stride: one part's features
+  static constexpr int WS = FB + 8;      // stage row stride: the block's columns
+  static constexpr int KS = FB / KC;     // stages a product call: one part of K
+  static constexpr int WM = M_TILES;
+  static constexpr int FW = FB / SLICES;
+  static constexpr int NTN = FW / 8;
+  static constexpr int NG = 8;
+  static constexpr int FE = FB / NT;     // fill features a thread (of the block's)
+  static constexpr int NQ = 1;
+  static constexpr int COLS = TJ;
+  static constexpr int STAGE = KC * WS;
+  static constexpr int S_BUFS = 2;       // the own part and the staging
+#ifndef EGNN_NO_STEP_SUMS
+  static constexpr bool STEP_SUMS = true;
+#else
+  static constexpr bool STEP_SUMS = false;
+#endif
+  static constexpr int NGS = 4;
+  static_assert(CLUSTER > 2 && CLUSTER <= 8 && FB == 1024,
+                "3 to 8 blocks a cluster (the portable maximum)");
+  static_assert(TI == 1 && FE == 4 && NTN == 16, "F = 1024's layout on the block's part");
+};
+
+template <> struct Layout<4096, 1> : WideLayout<4096> {};
+
+// The ring of W2 stages of a cluster block: stage g holds rows (g % (F / KC))
+// * KC .. + KC of W2's columns [col0, col0 + FB) in buffer g % NS.  W2 and the
 // column offset must keep 16-byte alignment.  As W2Ring otherwise.
 template <int F>
 struct W2ClusterRing {
@@ -132,7 +196,7 @@ struct W2ClusterRing {
   __device__ __forceinline__ void issue() {
     constexpr int V = L::FB / 4;  // 16-byte vectors per stage row
     float* dst = buf + (next % NS) * L::STAGE;
-    const float* src = w2 + (size_t)(next % L::KS) * L::KC * F;
+    const float* src = w2 + (size_t)(next % (F / L::KC)) * L::KC * F;
     for (int e = threadIdx.x; e < L::KC * V; e += NT) {
       const int r = e / V, v = e % V;
       cp_async16(dst + r * L::WS + 4 * v, src + (size_t)r * F + 4 * v);
@@ -173,6 +237,14 @@ struct ClusterFill {
 #pragma unroll
     for (int e = 0; e < Layout<F>::FE; ++e)
       fill_s_half<F, TIER>(h[e].w, c, h[e].a_row, h[e].a_col, k0 + e * NT, S);
+  }
+  // fill() into a buffer of the block's FB features only (WideLayout):
+  // feature k0 + e * NT at column threadIdx.x + e * NT
+  template <int TIER>
+  __device__ __forceinline__ void fill_own(const Chunk<Layout<F>::TI>& c, float* S) const {
+#pragma unroll
+    for (int e = 0; e < Layout<F>::FE; ++e)
+      fill_s_half<F, TIER>(h[e].w, c, h[e].a_row, h[e].a_col, threadIdx.x + e * NT, S);
   }
 };
 
@@ -424,6 +496,284 @@ __device__ void coord_tile_cluster(const CoordArgs& g, int batch, int i0, float*
     if (i < g.N) g.out[(node0 + i) * 3 + t % 3] = racc / g.nf;
   }
   cluster_sync();  // rank 0 has read rank 1's last shares
+}
+
+// ---- F = 4096: clusters of C = F / 1024 > 2 blocks (WideLayout)
+
+// Peer `peer`'s own part of S (P rows of FB features at stride SS) into
+// `dst`, through distributed shared memory.  The peer's fill must be
+// complete (a cluster barrier before).
+template <int F>
+__device__ __forceinline__ void copy_peer_part(float* dst, const float* own, unsigned peer) {
+  using L = Layout<F>;
+  constexpr int V = L::FB / 4;  // 16-byte vectors a row
+  const uint32_t remote = peer_address(own, peer);
+#pragma unroll 4
+  for (int e = threadIdx.x; e < L::P * V; e += NT) {
+    const int off = (e / V) * L::SS + 4 * (e % V);
+    *reinterpret_cast<float4*>(dst + off) = load_peer4(remote + 4u * (unsigned)off);
+  }
+}
+
+// acc = S @ W2 of the block's FB columns over all K = F rows, one part of FB
+// rows at a time in rank order: part q from the block's own buffer (q ==
+// rank) or from peer q's, copied into `staging`; each part's k-steps
+// accumulate onto the last's, in the order of one K = F product.  Every
+// block's fill of its own part must be complete (a cluster barrier before);
+// the peers read `own` until they pass the next cluster barrier.
+template <int F, int TIER>
+__device__ __forceinline__ void product_wide(const float* own, float* staging, unsigned rank,
+                                             W2ClusterRing<F>& ring,
+                                             float (&acc)[1][Layout<F>::NTN][4]) {
+  using L = Layout<F>;
+#pragma unroll
+  for (int n = 0; n < L::NTN; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[0][n][e] = 0.0f;
+#pragma unroll 1
+  for (int q = 0; q < L::CLUSTER; ++q) {
+    const float* part = own;
+    if (q != (int)rank) {
+      __syncthreads();  // every warp is done with the staging's last part
+      copy_peer_part<F>(staging, own, (unsigned)q);
+      part = staging;   // complete at the product's first acquire sync
+    }
+    product_tc<F, 1, false, false, TIER>(part, ring, acc);
+  }
+}
+
+// The sum over the cluster's blocks of `v[p]` (each block's share of pair
+// p's scalar), in rank order from `init`: the same bits in every block.
+template <int F>
+__device__ __forceinline__ float cluster_sum(const float* v, int p, float init) {
+  float sum = init;
+#pragma unroll
+  for (int r = 0; r < cluster_size<F>(); ++r)
+    sum += load_peer(peer_address(v, (unsigned)r) + 4u * (unsigned)p);
+  return sum;
+}
+
+// gcl_tile_cluster at F = 4096, one block of a cluster of C = F / 1024: the
+// block's features [rank * FB, rank * FB + FB) of row i0's aggregated
+// messages -> dst[f].  smem: dynamic_smem<F>(N) bytes.  Every block of the
+// cluster must call it on the same row.
+template <int F, int TIER = TF32X3>
+__device__ void gcl_tile_wide(const GclArgs& g, size_t node0, int i0, float* smem,
+                              float* dst, int dst_rows) {
+  using L = Layout<F>;
+  constexpr int TI = L::TI, P = L::P, SLICES = L::SLICES, FB = L::FB;
+  static_assert(L::WM == 1 && row_groups<F>() == 1, "one m-tile, one row group");
+  __shared__ Rows<TI> rows;
+  __shared__ Chunk<TI> chunk;
+  __shared__ float b2s[FB], watt[FB];    // the block's slice
+  __shared__ float att_part[SLICES][P];  // the slices' attention dots
+  __shared__ float att_blk[P];           // the block's share, read by every block
+  const unsigned rank = cluster_rank();
+  const int col0 = (int)rank * FB;
+  float* own = smem;
+  float* staging = own + P * L::SS;
+  W2ClusterRing<F> ring{g.mlp.w2 + col0, staging + P * L::SS, 0};
+  int* cols = reinterpret_cast<int*>(ring.buf + NS * L::STAGE);
+
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int slice = warp;
+  const bool attention = g.mlp.head != nullptr;
+
+  for (int s = 0; s < NS - 1; ++s) ring.issue();
+  load_rows(rows, g.x, g.x0, g.mask, g.is_lig, node0, i0, g.N, g.update_rows);
+  for (int k = t; k < FB; k += NT) {
+    b2s[k] = tier_round<TIER>(g.mlp.b2[col0 + k]);
+    watt[k] = attention ? tier_round<TIER>(g.mlp.head[col0 + k]) : 0.0f;
+  }
+  ClusterFill<F> fill;
+  fill.k0 = col0 + t;
+  fill.load_weights(g.mlp, node0, i0, g.N);
+  __syncthreads();
+  const int count = compact_columns(rows, g.x0, g.col_mask, g.is_lig, node0, g.N,
+                                    g.cut, cols);
+  const float b_att = attention ? g.b_att[0] : 0.0f;
+
+  float msum[L::NTN][2];  // this lane's share of the row sum (pairs gid, gid + 8)
+#pragma unroll
+  for (int n = 0; n < L::NTN; ++n) msum[n][0] = msum[n][1] = 0.0f;
+
+  fill.load_cols(g.mlp, cols, count, 0, node0);
+  for (int c0 = 0; c0 < count; c0 += TJ) {
+    fill_chunk(chunk, rows, g.x, g.x0, g.col_mask, g.is_lig, node0, cols, count,
+               c0, g.cut);
+    __syncthreads();
+    fill.template fill_own<TIER>(chunk, own);
+    cluster_sync();  // every block's part of S is filled
+    fill.load_cols(g.mlp, cols, count, c0 + TJ, node0);
+    float acc[1][L::NTN][4];
+    product_wide<F, TIER>(own, staging, rank, ring, acc);
+
+    // ---- epilogue: silu, attention gate (a sum over the blocks), row sum
+    float part[2] = {0.0f, 0.0f};  // attention dots of pairs gid, gid + 8
+#pragma unroll
+    for (int n = 0; n < L::NTN; ++n) {
+      const int f = slice * L::FW + 8 * n + 2 * tig;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        acc[0][n][e] = tier_silu<TIER>(tier_round<TIER>(acc[0][n][e] + b2s[f + (e & 1)]));
+        part[e >> 1] = fmaf(acc[0][n][e], watt[f + (e & 1)], part[e >> 1]);
+      }
+    }
+    float gate[2] = {chunk.adj[gid], chunk.adj[gid + 8]};
+    if (attention) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        part[h] += __shfl_xor_sync(0xffffffffu, part[h], 1);
+        part[h] += __shfl_xor_sync(0xffffffffu, part[h], 2);
+        if (tig == 0) att_part[slice][gid + 8 * h] = part[h];
+      }
+      __syncthreads();
+      if (t < P) {
+        float dot = 0.0f;
+#pragma unroll
+        for (int sl = 0; sl < SLICES; ++sl) dot += att_part[sl][t];
+        att_blk[t] = dot;
+      }
+    }
+    // the partials are written, and every peer's copy of this block's part
+    // is done: the next chunk may refill it (the next att_blk write follows
+    // the next chunk's first cluster barrier)
+    cluster_sync();
+    if (attention) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        gate[h] *= sigmoid_fast(cluster_sum<F>(att_blk, gid + 8 * h, b_att));
+    }
+#pragma unroll
+    for (int n = 0; n < L::NTN; ++n)
+#pragma unroll
+      for (int c = 0; c < 2; ++c)
+        msum[n][c] = fmaf(gate[1], acc[0][n][2 + c], fmaf(gate[0], acc[0][n][c], msum[n][c]));
+  }
+  cp_async_wait_all();  // the ring's look-ahead stages
+
+#pragma unroll
+  for (int n = 0; n < L::NTN; ++n)
+#pragma unroll
+    for (int c = 0; c < 2; ++c)
+#pragma unroll
+      for (int o = 4; o < 32; o <<= 1)
+        msum[n][c] += __shfl_xor_sync(0xffffffffu, msum[n][c], o);
+  if (gid == 0 && dst_rows > 0) {
+#pragma unroll
+    for (int n = 0; n < L::NTN; ++n) {
+      const int f = col0 + slice * L::FW + 8 * n + 2 * tig;
+      dst[f] = msum[n][0] / g.nf;
+      dst[f + 1] = msum[n][1] / g.nf;
+    }
+  }
+  cluster_sync();  // every peer has read this block's last partials
+}
+
+// coord_tile_cluster at F = 4096, one block of a cluster of C = F / 1024,
+// one pair MLP a call: the block's share of the head over its features, the
+// sum of the C shares on rank 0 in rank order, and rank 0 alone computes the
+// per-pair terms and writes the row's three coordinates to g.out.  smem:
+// dynamic_smem<F>(N) bytes.
+template <int F, bool CROSS, int TIER = TF32X3>
+__device__ void coord_tile_wide(const CoordArgs& g, int batch, int i0, float* smem) {
+  using L = Layout<F>;
+  constexpr int TI = L::TI, P = L::P, SLICES = L::SLICES, FB = L::FB;
+  const PairMlp& mlp = CROSS ? g.cross : g.coord;
+  __shared__ Rows<TI> rows;
+  __shared__ Chunk<TI> chunk;
+  __shared__ float b2s[FB], w3s[FB];     // the block's slice
+  __shared__ float phi_part[SLICES][P];  // the slices' head dots
+  __shared__ float phi_blk[P];           // the block's share, read by rank 0
+  __shared__ float trans[P][3], mean[3];
+  const unsigned rank = cluster_rank();
+  const int col0 = (int)rank * FB;
+  float* own = smem;
+  float* staging = own + P * L::SS;
+  W2ClusterRing<F> ring{mlp.w2 + col0, staging + P * L::SS, 0};
+  int* cols = reinterpret_cast<int*>(ring.buf + NS * L::STAGE);
+
+  const int t = threadIdx.x;
+  const size_t node0 = (size_t)batch * g.N;
+
+  for (int s = 0; s < NS - 1; ++s) ring.issue();
+  load_rows(rows, g.x, g.x0, g.mask, g.is_lig, node0, i0, g.N, g.update_rows);
+  if (CROSS && t < 3) mean[t] = g.graph_mean[batch * 3 + t];
+  for (int k = t; k < FB; k += NT) {
+    b2s[k] = tier_round<TIER>(mlp.b2[col0 + k]);
+    w3s[k] = tier_round<TIER>(mlp.head[col0 + k]);
+  }
+  ClusterFill<F> fill;
+  fill.k0 = col0 + t;
+  fill.load_weights(mlp, node0, i0, g.N);
+  __syncthreads();
+  const int count = compact_columns(rows, g.x0, g.col_mask, g.is_lig, node0, g.N,
+                                    g.cut, cols);
+
+  fill.load_cols(mlp, cols, count, 0, node0);
+  float racc = 0.0f;  // rank 0: row sum of component t % 3 of row t / 3, t < 3*TI
+  for (int c0 = 0; c0 < count; c0 += TJ) {
+    fill_chunk(chunk, rows, g.x, g.x0, g.col_mask, g.is_lig, node0, cols, count, c0,
+               g.cut);
+    __syncthreads();
+    fill.template fill_own<TIER>(chunk, own);
+    cluster_sync();  // every block's part of S is filled
+    fill.load_cols(mlp, cols, count, c0 + TJ, node0);
+    float acc[1][L::NTN][4];
+    product_wide<F, TIER>(own, staging, rank, ring, acc);
+    head_parts<F, TIER>(acc, b2s, w3s, phi_part);
+    __syncthreads();  // the slices' head dots are complete
+    if (t < P) {
+      float dot = 0.0f;
+#pragma unroll
+      for (int sl = 0; sl < SLICES; ++sl) dot += phi_part[sl][t];
+      phi_blk[t] = dot;
+    }
+    // the shares are written, and every peer's copy of this block's part is done
+    cluster_sync();
+    if (rank != 0) continue;  // the other ranks' shares are read by rank 0
+
+    if (t < P) {
+      const int k = t / TJ, j = chunk.j[t];
+      float tr[3] = {0.0f, 0.0f, 0.0f};
+      if (j >= 0) {
+        const float* xj = g.x + (node0 + j) * 3;
+        float phi = cluster_sum<F>(phi_blk, t, 0.0f);
+        if (g.use_tanh) phi = tanhf(phi) * g.coords_range;
+        if constexpr (CROSS) {
+          const float xi0 = rows.x[k][0] - mean[0], xi1 = rows.x[k][1] - mean[1],
+                      xi2 = rows.x[k][2] - mean[2];
+          const float xj0 = xj[0] - mean[0], xj1 = xj[1] - mean[1],
+                      xj2 = xj[2] - mean[2];
+          tr[0] = xi1 * xj2 - xi2 * xj1;
+          tr[1] = xi2 * xj0 - xi0 * xj2;
+          tr[2] = xi0 * xj1 - xi1 * xj0;
+          const float cnorm =
+              sqrtf(tr[0] * tr[0] + tr[1] * tr[1] + tr[2] * tr[2] + 1e-8f) + g.norm_constant;
+          const float wt = phi / cnorm * chunk.adj[t];
+          for (int a = 0; a < 3; ++a) tr[a] *= wt;
+        } else {
+          const float norm = sqrtf(chunk.d2[t] + 1e-8f) + g.norm_constant;
+          const float wt = phi / norm * chunk.adj[t];
+          for (int a = 0; a < 3; ++a) tr[a] = wt * (rows.x[k][a] - xj[a]);
+        }
+      }
+      for (int a = 0; a < 3; ++a) trans[t][a] = tr[a];
+    }
+    __syncthreads();
+    if (t < 3 * TI) {
+      const int k = t / 3, a = t % 3;
+      for (int jj = 0; jj < TJ; ++jj) racc += trans[k * TJ + jj][a];
+    }
+  }
+  cp_async_wait_all();  // the ring's look-ahead stages
+
+  if (rank == 0 && t < 3 * TI) {
+    const int i = i0 + t / 3;
+    if (i < g.N) g.out[(node0 + i) * 3 + t % 3] = racc / g.nf;
+  }
+  cluster_sync();  // rank 0 has read the other ranks' last shares
 }
 
 }  // namespace mma

@@ -6,9 +6,10 @@
 // sums of its term to slab z of `partial` (2 x (B, N, 3) floats), and a
 // second kernel adds the two slabs in a fixed order.  Without it the grid has
 // one z and writes the output directly.  A block owns its rows, so nothing
-// needs atomics and the result is deterministic.  At F = 2048 each row tile
-// and pair MLP runs on a cluster of two blocks (mma::coord_tile_cluster), and
-// the kernel and its launch are shared whole (coord_agg_cluster_kernel).
+// needs atomics and the result is deterministic.  At F = 2048 (4096) each row
+// tile and pair MLP runs on a cluster of two (four) blocks
+// (mma::coord_tile_cluster, coord_tile_wide), and the kernel and its launch
+// are shared whole (coord_agg_cluster_kernel).
 #pragma once
 #include "egnn_cluster.cuh"
 #include "egnn_mma.cuh"
@@ -75,14 +76,25 @@ int launch_coord_update(void (*kernel)(CoordArgs, float*), const CoordArgs& g, i
 namespace {
 
 // Row tile cluster_tile<F>() of batch item blockIdx.y on a cluster of two
-// blocks, the pair MLP of blockIdx.z as in coord_update_block.
+// blocks (four at F = 4096), the pair MLP of blockIdx.z as in
+// coord_update_block.
 template <int F, bool CROSS>
 __global__ void __launch_bounds__(egnn::NT)
     coord_agg_cluster_kernel(egnn::CoordArgs g, float* partial) {
   using namespace egnn;
   extern __shared__ __align__(16) float smem[];
   const int i0 = cluster_tile<F>() * tile_rows<F>();
-  if constexpr (CROSS) {
+  if constexpr (cluster_size<F>() > 2) {
+    if constexpr (CROSS) {
+      g.out = partial + (size_t)blockIdx.z * gridDim.y * g.N * 3;
+      if (blockIdx.z == 0)
+        mma::coord_tile_wide<F, false, mma::kTier>(g, blockIdx.y, i0, smem);
+      else
+        mma::coord_tile_wide<F, true, mma::kTier>(g, blockIdx.y, i0, smem);
+    } else {
+      mma::coord_tile_wide<F, false, mma::kTier>(g, blockIdx.y, i0, smem);
+    }
+  } else if constexpr (CROSS) {
     g.out = partial + (size_t)blockIdx.z * gridDim.y * g.N * 3;
     if (blockIdx.z == 0)
       mma::coord_tile_cluster<F, false, mma::kTier>(g, blockIdx.y, i0, smem);

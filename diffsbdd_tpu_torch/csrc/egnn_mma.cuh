@@ -144,6 +144,7 @@ template <int F, int RG = row_groups<F>()> struct Layout {
   static constexpr int NQ = F < NT ? NT / F : 1;
   static constexpr int COLS = TJ / NQ;
   static constexpr int STAGE = KC * WS;  // floats per stage
+  static constexpr int S_BUFS = 1;       // P x SS buffers of S (2 above 2048)
   // F = 1024: each k-step's products summed apart, into a zeroed fragment,
   // and added to the accumulators on the CUDA cores, NGS n-tiles at a time
   // (the header; -DEGNN_NO_STEP_SUMS only in a measurement build,
@@ -158,10 +159,11 @@ template <int F, int RG = row_groups<F>()> struct Layout {
                 (F < NT ? NT % F : F % NT) == 0, "warps = row groups x feature slices");
 };
 
-// Dynamic shared memory of gcl_tile_tc: S, the W2 ring, the column list.
+// Dynamic shared memory of gcl_tile_tc: S, the W2 ring, the column list
+// (above F = 2048 two buffers of S: egnn_cluster.cuh's WideLayout).
 template <int F>
 __host__ __device__ constexpr size_t dynamic_smem(int N) {
-  return sizeof(float) * ((size_t)Layout<F>::P * Layout<F>::SS
+  return sizeof(float) * ((size_t)Layout<F>::S_BUFS * Layout<F>::P * Layout<F>::SS
                           + (size_t)NS * Layout<F>::STAGE)
        + sizeof(int) * (size_t)N;
 }

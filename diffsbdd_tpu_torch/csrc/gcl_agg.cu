@@ -47,7 +47,10 @@
 //   loaded a chunk ahead, and silu and sigmoid run on the SFU (ex2, rcp);
 // * F = 2048 runs each row tile on a cluster of two blocks, each owning half
 //   of the output features (egnn_cluster.cuh: W2 at 16 MB, 8 MB a chunk a
-//   block; the attention dot summed over the two blocks).
+//   block; the attention dot summed over the two blocks); F = 4096 on a
+//   cluster of four, each owning a quarter and filling a quarter of S, the
+//   product walking K through the peers' quarters (W2 at 64 MB, over the
+//   50 MB L2, 16 MB a chunk a block).
 #include "egnn_cluster.cuh"
 
 namespace {
@@ -67,8 +70,9 @@ __global__ void __launch_bounds__(NT) gcl_agg_kernel(GclArgs g) {
   zero_rows_past_grid<TI>(g.out, node0, g.N, F);
 }
 
-// F = 2048: a cluster of two blocks a row tile (egnn_cluster.cuh), block r
-// of the cluster writing features [1024 r, 1024 r + 1024) of the row.
+// F = 2048 (4096): a cluster of two (four) blocks a row tile
+// (egnn_cluster.cuh), block r of the cluster writing features [1024 r,
+// 1024 r + 1024) of the row.
 template <int F>
 __global__ void __launch_bounds__(NT) gcl_agg_cluster_kernel(GclArgs g) {
   constexpr int TI = tile_rows<F>();
@@ -76,8 +80,12 @@ __global__ void __launch_bounds__(NT) gcl_agg_cluster_kernel(GclArgs g) {
   const int i0 = cluster_tile<F>() * TI;
   const size_t node0 = (size_t)blockIdx.y * g.N;
   const int left = g.N - i0;
-  mma::gcl_tile_cluster<F, mma::kTier>(g, node0, i0, smem, g.out + (node0 + i0) * F,
-                                       left < TI ? left : TI);
+  if constexpr (cluster_size<F>() > 2)
+    mma::gcl_tile_wide<F, mma::kTier>(g, node0, i0, smem, g.out + (node0 + i0) * F,
+                                      left < TI ? left : TI);
+  else
+    mma::gcl_tile_cluster<F, mma::kTier>(g, node0, i0, smem, g.out + (node0 + i0) * F,
+                                         left < TI ? left : TI);
   zero_rows_past_clusters<F>(g.out, node0, g.N, F);
 }
 
@@ -120,6 +128,7 @@ extern "C" int gcl_agg_forward(
     case 512: return launch<512>(g, B, s);
     case 1024: return launch<1024>(g, B, s);
     case 2048: return launch<2048>(g, B, s);
+    case 4096: return launch<4096>(g, B, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

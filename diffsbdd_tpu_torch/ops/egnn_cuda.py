@@ -66,15 +66,21 @@ Hidden widths.  The five kernels are instantiated at F = 64, 128, 256,
 512, 1024 and 2048 (at 512 on tiles of 2 rows, at 1024 of 1 row,
 ``row_tile``; at 2048 each row tile on a cluster of two blocks,
 ``cluster_size``: ``csrc/egnn_cluster.cuh`` the forward kernels' and the
-whole-block kernel's, ``csrc/egnn_cluster_bwd.cuh`` the backward kernels'):
-``KERNEL_WIDTHS``.  On CUDA the public wrappers run any other width up to
-2048 at the next of those widths (``padded_width``: 32 at 64, 96 at 128, 192
-at 256, 384 at 512, 768 at 1024, 1088 at 2048): every operand's width axes
-zero-padded (``pad_operands``), the outputs' cut back.  The padded channels
-stay exact zeros through every MLP, so the result is the unpadded one up to
-summation order, at every tier; gradients reach the true width through
-autograd of the padding.  Wider than 2048 raises before any launch, in every
-wrapper.
+whole-block kernel's, ``csrc/egnn_cluster_bwd.cuh`` the backward kernels'),
+and the two forward split kernels, the samplers', also at 4096 (each row
+tile on a cluster of four blocks, ``csrc/egnn_cluster.cuh``'s
+``WideLayout``): ``KERNEL_WIDTHS``.  On CUDA the public wrappers run any
+other width up to their kernel's widest at the next of its widths
+(``padded_width``: 32 at 64, 96 at 128, 192 at 256, 384 at 512, 768 at 1024,
+1088 at 2048, 3072 at 4096): every operand's width axes zero-padded
+(``pad_operands``), the outputs' cut back.  The padded channels stay exact
+zeros through every MLP, so the result is the unpadded one up to summation
+order, at every tier; gradients reach the true width through autograd of
+the padding.  Wider than a kernel's widest raises before any launch: above
+4096 in the forward split wrappers, above 2048 in the backward ones and in
+``block_fused``, and a forward wrapper at 2049-4096 whose gradient will be
+due raises too, naming the backward kernel (a train step at such a width
+fails at its first layer).
 
 The kernels are compiled with ``nvcc`` for ``sm_90a`` into plain-C shared
 libraries under ``csrc/build`` at first use (``build_kernels``) and loaded with
@@ -99,19 +105,25 @@ HEADERS = (CSRC / "egnn_common.cuh", CSRC / "egnn_mma.cuh",
            CSRC / "egnn_mma_bwd.cuh", CSRC / "egnn_cluster.cuh",
            CSRC / "egnn_cluster_bwd.cuh")  # shared device code
 # hidden widths the kernels are built for: the fixture checkpoint's, the
-# config default's, the flagship's, and twice, four and eight times the
-# flagship's.  The layouts need F to divide the block's 256 threads or be a
-# multiple of them, and the dW2 warp layout F >= 64 (csrc/egnn_mma.cuh,
+# config default's, the flagship's, and twice, four, eight and (the forward
+# split kernels) sixteen times the flagship's.  The layouts need F to divide
+# the block's 256 threads or be a multiple of them, and the dW2 warp layout
+# F >= 64 (csrc/egnn_mma.cuh,
 # egnn_mma_bwd.cuh): 64, 128 and 256 are all the widths they admit up to 256;
 # 512 and 1024 take tilings of their own (two rows a tile and one,
-# ``row_tile``), 2048 a cluster of two blocks a row tile (``cluster_size``).
-# The wrappers run every other width up to a kernel's widest zero-padded to
-# the next of its widths (``padded_width``, ``pad_operands``).
-SUPPORTED_F = (64, 128, 256, 512, 1024, 2048)
-# the widths each kernel is built for: all of them, every kernel
-KERNEL_WIDTHS = {name: SUPPORTED_F for name in KERNELS}
+# ``row_tile``), 2048 a cluster of two blocks a row tile and 4096 of four
+# (``cluster_size``).  The wrappers run every other width up to a kernel's
+# widest zero-padded to the next of its widths (``padded_width``,
+# ``pad_operands``).
+SUPPORTED_F = (64, 128, 256, 512, 1024, 2048, 4096)
+# the kernels built at 4096: the two the samplers launch
+WIDEST_KERNELS = ("gcl_agg", "coord_agg")
+# the widths each kernel is built for: all of them for the two forward split
+# kernels, up to 2048 for the backward kernels and the whole block
+KERNEL_WIDTHS = {name: SUPPORTED_F if name in WIDEST_KERNELS else SUPPORTED_F[:-1]
+                 for name in KERNELS}
 # the ROADMAP.md §2 item that would run each kernel above its widest width
-WIDER_ITEM = dict.fromkeys(KERNELS, "widths above 2048")
+WIDER_ITEM = {name: f"widths above {KERNEL_WIDTHS[name][-1]}" for name in KERNELS}
 
 
 def row_tile(F: int) -> int:
@@ -125,8 +137,9 @@ def cluster_size(F: int) -> int:
     """Blocks a row tile of the kernels at built width F: cluster_size<F>()
     in csrc/egnn_cluster.cuh (2 at 2048, whose S and W2 stages do not fit
     one block's shared memory, nor its accumulators one thread's registers;
-    1, no cluster, below)."""
-    return 2 if F > 1024 else 1
+    4 at 4096, each block owning a quarter of the features; 1, no cluster,
+    below)."""
+    return 4 if F > 2048 else 2 if F > 1024 else 1
 
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -159,19 +172,38 @@ DEFAULT_TIER = "tf32x3"
 TIER_GATES = {"tf32x3": dict(share=0.0, bwd=1e-4, moved=None),
               "tf32x2": dict(share=0.0, bwd=4e-3, moved=0.25),
               "bf16": dict(share=2e-3, bwd=4e-3, moved=0.25)}
-# The whole-block kernel's gates (forward only): the split kernels', but at
-# bf16 the block computes phase B's inputs itself -- h' and its projections,
-# a float32 rounding from the plain version's -- and phase B rounds them to
-# bf16 again, so a value next to a rounding boundary rounds to the other
-# neighbour twice over: the plain version itself, its inputs moved by 1e-6
-# relative, moves 0.06-0.11 (h_new) and 0.13-0.24 (dx) of the tier's move
-# at phase 3c's shapes on an H100 (chip_smoke.py 20a), where the kernel
-# reads up to 0.05 and 0.18 (0.27 for dx at B = 2, N = 90,
-# tests/test_torch_gpu.py) and its largest dx error 2.2e-3 of the largest
-# entry.  Allowed: two such roundings of a term as large as the largest
-# entry (4e-3), and half the tier's move by norm; a library of another tier
-# reads 0.82 (h_new) and 46 (dx) (tests/test_torch_block_tiers.py).
-BLOCK_TIER_GATES = dict(TIER_GATES, bf16=dict(share=4e-3, bwd=None, moved=0.5))
+# The whole-block kernel's gates (forward only): the split kernels' at
+# 3xTF32 and 2xTF32.  At bf16 the gate measures the kernel's own error
+# (``block_bf16_gate``): its reference is the bf16 plain version with its
+# bf16-rounded products summed in float64 (``block_fused_bf16_exact``), not
+# the bf16 plain version, whose float32 sums are another order of the same
+# bf16-rounded terms.  The block computes phase B's inputs itself, h' and its
+# projections, and rounds them to bf16 again, so two float32 orders part by
+# whole bf16 roundings: against the float64 sums the plain version alone
+# reads 0.242 (F = 1024) and 0.351 (2048) of the tier's move by norm (dx, at
+# phase 3c's shapes on an H100, chip_smoke.py 20l), the kernel 0.282 and
+# 0.391; 1.11-1.40x the plain version by norm and 1.10-1.22x by largest
+# error.  Held against the plain version, the kernel would be charged with
+# both orders.  Allowed, for each output: the kernel's distance from the
+# reference at most k = 2 times the plain version's own, by error norm and by
+# largest error, each with a floor of atol + rtol |reference|, so that a case
+# whose plain version is nearly exact does not gate at zero, and
+# * by norm ``floor`` (0.25) of the tier's move: about what a float32
+#   rounding of the inputs alone moves the plain version (inputs moved by
+#   1e-6 relative: 0.13-0.24 of the move for dx at phase 3c's shapes on an
+#   H100, chip_smoke.py 20a; a padded width's other float32 order of the
+#   node products, 0.077 at 384 on the CPU, where the plain version is 0.001
+#   from the float64 sums, tests/test_torch_widths.py);
+# * by largest error ``share`` (4e-3) of the reference's largest entry: a
+#   bf16 rounding that one order takes to the other neighbour moves a term by
+#   an ulp, so two such roundings of a term as large as the largest entry
+#   (0.25 of the move's largest entry allowed 1.0e-3 where the kernel read
+#   1.2e-3, dx at F = 256, B = 2, N = 90 on an H100, tests/test_torch_gpu.py).
+# 3xTF32 in the bf16 slot reads 1.0 by norm, against limits of 0.36 (h_new)
+# and 0.95 (dx) at 2048 from the figures above; bf16 products without the
+# pair MLPs' rounding points 0.82 and 46 (tests/test_torch_block_tiers.py).
+BLOCK_TIER_GATES = dict(TIER_GATES, bf16=dict(k=2.0, floor=0.25, share=4e-3, atol=1e-5,
+                                              rtol=1e-4))
 
 
 def tier_moved_share(got: torch.Tensor, ref: torch.Tensor, exact: torch.Tensor) -> float:
@@ -181,6 +213,36 @@ def tier_moved_share(got: torch.Tensor, ref: torch.Tensor, exact: torch.Tensor) 
     err = float((got.double() - ref.double()).norm())
     moved = float((ref.double() - exact.double()).norm())
     return err / moved if moved > 0 else (0.0 if err == 0 else float("inf"))
+
+
+def block_bf16_gate(got: torch.Tensor, plain: torch.Tensor, exact: torch.Tensor,
+                    f32: torch.Tensor) -> dict:
+    """``BLOCK_TIER_GATES["bf16"]`` on one output of the whole block: ``got``
+    the kernel's (or a stand-in's), ``plain`` the bf16 plain version's,
+    ``exact`` ``block_fused_bf16_exact``'s, ``f32`` the float32 plain
+    version's.  Returns ``ok`` and the figures: the kernel's and the plain
+    version's error norms against ``exact`` as shares of the tier's move
+    (``tier_moved_share`` against ``f32``) with the norm limit, their largest
+    errors with the limit's part that does not vary by entry, and ``ratio``:
+    the larger of the kernel's two measures over the plain version's."""
+    gate = BLOCK_TIER_GATES["bf16"]
+    got, plain, exact, f32 = (t.detach().double() for t in (got, plain, exact, f32))
+    tol = gate["atol"] + gate["rtol"] * exact.abs()
+    err, own = (got - exact).abs(), (plain - exact).abs()
+    move = exact - f32
+    norm_limit = (gate["k"] * float(own.norm()) + gate["floor"] * float(move.norm())
+                  + float(tol.norm()))
+    max_limit = gate["k"] * float(own.max()) + gate["share"] * float(exact.abs().max())
+    ok = (bool(torch.isfinite(got).all()) and float(err.norm()) <= norm_limit
+          and bool((err <= max_limit + tol).all()))
+    share = lambda t: tier_moved_share(t, exact, f32)
+    ratio = max(float(err.norm()) / max(float(own.norm()), 1e-300),
+                float(err.max()) / max(float(own.max()), 1e-300))
+    moved = float(move.norm())
+    return dict(ok=ok, norm=share(got), plain_norm=share(plain),
+                norm_limit=norm_limit / moved if moved > 0 else float("inf"),
+                max=float(err.max()), plain_max=float(own.max()), max_limit=max_limit,
+                ratio=ratio)
 
 
 launch_counts: Dict[str, int] = {name: 0 for name in KERNELS}
@@ -309,8 +371,8 @@ def _cut2(c: Optional[float]) -> float:
 
 def last_cluster_dim(name: str, tier: str = DEFAULT_TIER) -> int:
     """The cluster dimension (blocks a cluster along x) that the last launch
-    of kernel ``name``'s library at ``tier`` used: 2 at F = 2048, 1 below
-    (``egnn_last_cluster_dim`` in each of the five libraries)."""
+    of kernel ``name``'s library at ``tier`` used: 4 at F = 4096, 2 at 2048,
+    1 below (``egnn_last_cluster_dim`` in each of the five libraries)."""
     fn = _lib(name, tier).egnn_last_cluster_dim
     fn.argtypes, fn.restype = [], ctypes.c_int
     return int(fn())
@@ -372,9 +434,11 @@ def _pair_mlp_plain(row, col, d2, d2_0, is_lig, w_d2, w_d20, type_bias, w2, b2, 
                     matmul, precision):
     """silu(silu(pre) @ w2 + b2) of every pair (B, N, N, F): ``matmul`` the
     product at 3xTF32, the tier's product at 2xTF32, and on the bf16 tier the
-    JAX package's bf16 ``_pair_mlp`` (``_pair_mlp_bf16``)."""
-    if precision == "bf16":
-        return _pair_mlp_bf16(row, col, d2, d2_0, is_lig, w_d2, w_d20, type_bias, w2, b2)
+    JAX package's bf16 ``_pair_mlp`` (``_pair_mlp_bf16``; ``BF16_EXACT``: its
+    products summed in float64)."""
+    if precision in _BF16:
+        return _pair_mlp_bf16(row, col, d2, d2_0, is_lig, w_d2, w_d20, type_bias, w2, b2,
+                              matmul=_tier_product(precision))
     if precision != DEFAULT_TIER:
         matmul = _tier_product(precision)
     silu = torch.nn.functional.silu
@@ -390,27 +454,28 @@ def _silu_bf16(x):
     return x * (one / (one + torch.exp(-x)))
 
 
-def _pair_mlp_bf16(row, col, d2, d2_0, is_lig, w_d2, w_d20, type_bias, w2, b2):
+def _pair_mlp_bf16(row, col, d2, d2_0, is_lig, w_d2, w_d20, type_bias, w2, b2,
+                   matmul=None):
     """The pair MLP at the JAX package's bf16 rounding points (its
     ``_pair_mlp`` at ``mxu_precision="bfloat16"``, as the bf16 kernels compute
     it): the edge-type table folded into row and col, which are rounded, as is
     the edge bias (computed in float32); pre = (row + col) + bias and both
     silus in bfloat16 operations; the product's operands rounded, its sum and
-    + b2 (rounded) in float32, z rounded.  Returns float32 holding bf16
-    values."""
+    + b2 (rounded) in float32, z rounded (``matmul``: the product,
+    ``matmul_bf16`` when None).  Returns float32 holding bf16 values."""
     bf = torch.bfloat16
     row, col, delta = fold_type_bias(row, col, is_lig, type_bias)
     bias = d2[..., None] * w_d2 + d2_0[..., None] * w_d20
     if delta is not None:
         bias = bias + (is_lig[:, :, None] * is_lig[:, None, :])[..., None] * delta
     pre = (row.to(bf)[:, :, None, :] + col.to(bf)[:, None, :, :]) + bias.to(bf)
-    z = matmul_bf16(_silu_bf16(pre).float(), w2) + bf16_round(b2)
+    z = (matmul or matmul_bf16)(_silu_bf16(pre).float(), w2) + bf16_round(b2)
     return _silu_bf16(z.to(bf)).float()
 
 
 def _head_weight(w, precision):
     """A pair MLP's head (w_att, w3) as the tier's kernel reads it."""
-    return bf16_round(w) if precision == "bf16" else w
+    return bf16_round(w) if precision in _BF16 else w
 
 
 def gcl_message_agg_plain(a_row, a_col, x, x0, mask, is_lig, w_d2, w_d20,
@@ -510,9 +575,22 @@ def matmul_bf16(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return bf16_round(a) @ bf16_round(b)
 
 
+def matmul_bf16_exact(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b with both operands rounded to bfloat16 as ``matmul_bf16``'s,
+    their products summed in float64 and the sum rounded once to float32:
+    the bf16 tier's product without the order of a float32 sum."""
+    return (bf16_round(a).double() @ bf16_round(b).double()).to(a.dtype)
+
+
+# A precision of the plain versions only: the bf16 tier with its products
+# summed in float64 (``block_fused_bf16_exact``); no kernel runs it
+BF16_EXACT = "bf16_exact_sums"
+_BF16 = ("bf16", BF16_EXACT)
+
+
 def _tier_product(precision: str):
     """The product a tier's tensor cores compute (3xTF32: float32's own)."""
-    return {"tf32x3": torch.matmul, "bf16": matmul_bf16,
+    return {"tf32x3": torch.matmul, "bf16": matmul_bf16, BF16_EXACT: matmul_bf16_exact,
             "tf32x2": lambda a, b: matmul_3xtf32(a, b, passes=2)}[precision]
 
 
@@ -619,6 +697,15 @@ def block_fused_plain(h, a_row, a_col, x, x0, mask, is_lig, gcl, node, coord,
     return h_new, dx
 
 
+def block_fused_bf16_exact(*args, **kw):
+    """The bf16 plain version of ``block_fused`` (``block_fused_plain`` at
+    ``precision="bf16"``, the same arguments) with every bf16-rounded
+    product summed in float64 and rounded once: the reference of the bf16
+    whole-block gate (``block_bf16_gate``), against which the kernel's and
+    the plain version's float32 orders of the same sums read alike."""
+    return block_fused_plain(*args, **kw, precision=BF16_EXACT)
+
+
 # ---------------------------------------------------------------------------
 # plain backward versions: autograd through the plain twins
 # ---------------------------------------------------------------------------
@@ -712,8 +799,9 @@ def _rows(update_rows, N):
 def padded_width(F: int, name: str = "egnn kernels", kernel: str = "gcl_agg") -> int:
     """The width ``kernel`` runs hidden width ``F`` at: the least of its
     ``KERNEL_WIDTHS`` that is >= F.  Wider than its widest raises, naming the
-    ROADMAP.md §2 item that would build it (``WIDER_ITEM``): above 2048 every
-    kernel needs clusters of four blocks."""
+    ROADMAP.md §2 item that would build it (``WIDER_ITEM``): above 4096 the
+    two forward split kernels (clusters of eight blocks), above 2048 the
+    backward kernels and ``block_fused`` (clusters of four)."""
     widths = KERNEL_WIDTHS[kernel]
     for width in widths:
         if width >= F:
@@ -1176,7 +1264,9 @@ def gcl_message_agg(a_row, a_col, x, x0, mask, is_lig, w_d2, w_d20,
     outside them, so autograd chains through it).  ``mirror_bwd``: the
     backward is autograd through the float32 twin (no backward kernel, no
     ``bwd_precision``), the forward's output the kernel's.  On CUDA a width
-    above 2048 raises before any launch (``padded_width``).
+    above 4096 raises before any launch (``padded_width``), and so does one
+    above 2048 whose gradient will be due, unless ``mirror_bwd``
+    (``_refuse_untrainable_width``).
     """
     tiers = _tiers("gcl_agg", precision, bwd_precision)
     if a_row.device.type == "cpu" and tiers == (DEFAULT_TIER, DEFAULT_TIER):

@@ -177,25 +177,40 @@ def test_block_default_tier_is_bitwise_the_untiered_plain_version(block_case):
 
 @pytest.mark.parametrize("tier", ["tf32x2", "bf16"])
 def test_block_tier_gate_refuses_other_arithmetic(block_case, tier):
-    """``tier_moved_share`` of what a faulty library would compute: 3xTF32 in
-    the tier's slot reads 1.0; on the bf16 tier also bf16 products without
-    the pair MLPs' elementwise rounding points, measured 0.82 (h_new) and 46
-    (dx); the gate (``BLOCK_TIER_GATES``) is 0.25 (2xTF32) and 0.5 (bf16)."""
-    gate = ec.BLOCK_TIER_GATES[tier]["moved"]
+    """The whole-block gates on what a faulty library would compute.  2xTF32
+    (``tier_moved_share`` within ``BLOCK_TIER_GATES``' 0.25): 3xTF32 in the
+    tier's slot reads 1.0.  bf16 (``block_bf16_gate``: against the bf16
+    plain version with its products summed in float64, at most k = 2 times
+    the plain version's own distance by norm and by largest error, with
+    floors): the plain version itself passes (ratio 1), and 3xTF32 in the
+    bf16 slot fails (it reads 1.0 of the tier's move by norm, against a
+    limit of 0.28 / 0.33 for h_new / dx: at F = 32 the plain version is
+    1.2e-5 / 6.9e-5 of the move from the float64 sums, so the floors set
+    the limit), as do bf16 products without the pair MLPs' elementwise
+    rounding points (0.82 / 46)."""
     tins = convert(block_case[0], torch.as_tensor)
     exact = ec.block_fused_plain(*tins, update_rows=NL, **KW)
     ref = ec.block_fused_plain(*tins, update_rows=NL, **KW, precision=tier)
-    for e, r in zip(exact, ref):
-        assert ec.tier_moved_share(r, r, e) == 0.0
-        assert ec.tier_moved_share(e, r, e) == 1.0 > gate
-    if tier == "bf16":
-        gcl = dict(tins[7], w_att=ec.bf16_round(tins[7]["w_att"]))
-        coord = dict(tins[9], w3=ec.bf16_round(tins[9]["w3"]))
-        cross = dict(tins[10], w3=coord["w3"])
-        faulty = ec.block_fused_plain(*tins[:7], gcl, tins[8], coord, cross, tins[11],
-                                      update_rows=NL, **KW, matmul=ec.matmul_bf16)
-        assert max(ec.tier_moved_share(f, r, e)
-                   for f, r, e in zip(faulty, ref, exact)) > 2 * gate
+    if tier == "tf32x2":
+        gate = ec.BLOCK_TIER_GATES[tier]["moved"]
+        for e, r in zip(exact, ref):
+            assert ec.tier_moved_share(r, r, e) == 0.0
+            assert ec.tier_moved_share(e, r, e) == 1.0 > gate
+        return
+    sums = ec.block_fused_bf16_exact(*tins, update_rows=NL, **KW)
+    gcl = dict(tins[7], w_att=ec.bf16_round(tins[7]["w_att"]))
+    coord = dict(tins[9], w3=ec.bf16_round(tins[9]["w3"]))
+    cross = dict(tins[10], w3=coord["w3"])
+    faulty = ec.block_fused_plain(*tins[:7], gcl, tins[8], coord, cross, tins[11],
+                                  update_rows=NL, **KW, matmul=ec.matmul_bf16)
+    for name, r, s, e, f in zip(("h_new", "dx"), ref, sums, exact, faulty):
+        assert not torch.equal(r, s), name  # the float32 order moves the sums
+        right = ec.block_bf16_gate(r, r, s, e)
+        assert right["ok"] and right["ratio"] == 1.0, (name, right)
+        for what, got in (("3xTF32", e), ("no rounding points", f)):
+            res = ec.block_bf16_gate(got, r, s, e)
+            assert not res["ok"] and res["ratio"] > ec.BLOCK_TIER_GATES["bf16"]["k"], (
+                name, what, res)
 
 
 def test_block_gradient_runs_the_tier(block_case):

@@ -18,6 +18,7 @@ from diffsbdd_tpu.models.dynamics import EGNNDynamics as JaxDynamics
 from diffsbdd_tpu.utils.params_io import load_params_npz
 from diffsbdd_tpu_torch.convert.jax_params import state_dict_from_jax
 from diffsbdd_tpu_torch.models.dynamics import EGNNDynamics
+import test_torch_threads  # noqa: F401  (PyTorch threads a worker under xdist)
 
 REPO = Path(__file__).resolve().parent.parent
 FIXTURE = REPO / "checkpoints" / "overfit_chem_fixture_best.npz"

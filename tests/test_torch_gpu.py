@@ -733,26 +733,33 @@ def test_block_kernel_gradient_is_plain_autograd():
 # ---------------------------------------------------------------------------
 
 # case: (cross, attention, edge-type tables, N, update_rows), on B = 2
-# graphs of 45 nodes, 12 of them ligand rows.  At bf16 the gate charges the
-# kernel with two float32 orders of the same sums, its own and the plain
-# version's, each rounded to bf16 at the tier's points: against the sums in
-# float64 the plain version alone reads 0.35 of the tier's move (dx, by
-# norm) at F = 2048 and the kernel 0.39 (H100, chip_smoke.py 20l)
+# graphs of 45 nodes, 12 of them ligand rows.  At bf16 the gate
+# (``ec.block_bf16_gate``) holds the kernel against the bf16 plain version
+# with its products summed in float64, within twice the float32 plain
+# version's own distance from it: two float32 orders of the same bf16 sums
+# read alike there (dx by norm at F = 2048: the plain version 0.35 of the
+# tier's move, the kernel 0.39; H100, chip_smoke.py 20l)
 BLOCK_CLUSTER_CASES = {"cross_table": (True, True, True, 45, 12),
                        "no_cross": (False, True, True, 45, 12),
                        "no_attention": (True, False, False, 45, None),
                        "odd_n_odd_rows": (True, True, True, 45, 11)}
 
 
-def _assert_block_tier(got, ref, exact, tier, update_rows):
+def _assert_block_tier(got, ref, exact, tier, update_rows, sums=None):
     """``assert_block_close`` at 3xTF32; at the reduced tiers each output
-    within ``ec.BLOCK_TIER_GATES`` of the plain version at the tier (its
-    error norm against the tier's move from ``exact``, float32's)."""
+    within ``ec.BLOCK_TIER_GATES`` of the plain version at the tier: at
+    2xTF32 its error norm against the tier's move from ``exact``,
+    float32's; at bf16 ``ec.block_bf16_gate`` against ``sums``, the bf16
+    products summed in float64 (``ec.block_fused_bf16_exact``)."""
     if tier == "tf32x3":
         assert_block_close(got, ref, update_rows)
         return
-    for g, r, e in zip(got, ref, exact):
-        _assert_tier_close(g, r, e, tier, ec.BLOCK_TIER_GATES)
+    for g, r, e, s in zip(got, ref, exact, sums if tier == "bf16" else ref):
+        if tier == "bf16":
+            res = ec.block_bf16_gate(g, r, s, e)
+            assert res["ok"], res
+        else:
+            _assert_tier_close(g, r, e, tier, ec.BLOCK_TIER_GATES)
     if update_rows is not None:
         assert not got[1][:, update_rows:].any()
 
@@ -779,7 +786,8 @@ def test_block_kernel_at_2048(case, tier, width):
     assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
     ref = ec.block_fused_plain(*ins, **kw, precision=tier)
     exact = ec.block_fused_plain(*ins, **kw) if tier != "tf32x3" else ref
-    _assert_block_tier(got, ref, exact, tier, rows)
+    sums = ec.block_fused_bf16_exact(*ins, **kw) if tier == "bf16" else None
+    _assert_block_tier(got, ref, exact, tier, rows, sums)
 
 
 @pytest.mark.parametrize("clusters", [None, 17], ids=["one_wave", "16_tiles"])
@@ -1142,9 +1150,9 @@ def test_autograd_runs_the_backward_tier(tier):
 @pytest.mark.parametrize("tier", ["tf32x2", "bf16"])
 def test_tiered_block_kernel_matches_plain(tier, width):
     """The whole-block kernel's library at each reduced tier against the
-    plain version at that tier (``BLOCK_TIER_GATES``), both outputs; dx rows
-    at and above ``update_rows`` exact zeros; only that tier's library
-    launched."""
+    plain version at that tier (``BLOCK_TIER_GATES``; at bf16
+    ``ec.block_bf16_gate``), both outputs; dx rows at and above
+    ``update_rows`` exact zeros; only that tier's library launched."""
     ins = block_inputs(40, N=90, F=width, n_lig=10, spread=4.0)
     kw = dict(BLOCK_KW, update_rows=10)
     ec.reset_launch_counts()
@@ -1152,9 +1160,8 @@ def test_tiered_block_kernel_matches_plain(tier, width):
     _only_tier("block_fused", tier)
     ref = ec.block_fused_plain(*ins, **kw, precision=tier)
     exact = ec.block_fused_plain(*ins, **kw)
-    for g, r, e in zip(got, ref, exact):
-        _assert_tier_close(g, r, e, tier, ec.BLOCK_TIER_GATES)
-    assert not got[1][:, 10:].any()
+    sums = ec.block_fused_bf16_exact(*ins, **kw) if tier == "bf16" else None
+    _assert_block_tier(got, ref, exact, tier, 10, sums)
 
 
 def _dynamics_case(device, hidden_nf=64, **knobs):
@@ -1316,18 +1323,123 @@ def test_width_2048_network_matches_cpu():
 
 
 def test_forward_width_above_2048_is_refused():
-    """The forward split kernels run every width up to 2048; 2112 is wider: a
-    ValueError naming the ROADMAP item, before any launch."""
-    main, extra = _inputs(53, F=2112)
+    """The forward split kernels run every width up to 4096 (2049-4096 on
+    the F = 4096 kernels, clusters of four blocks); 4160 is wider: a
+    ValueError naming the ROADMAP item, before any launch.  At 2112 a
+    forward whose gradient will be due is refused too, naming the backward
+    kernel (built up to 2048), before any launch."""
+    for width, kernel, widest in ((4160, "", 4096), (2112, "_bwd", 2048)):
+        main, extra = _inputs(53, F=width)
+        m = main["mask"]
+        if kernel:
+            main["w2"].requires_grad_(True)
+            extra["w3"].requires_grad_(True)
+        above = f"above {widest}.*the widest (gcl|coord)_agg{kernel} .*widths above {widest}"
+        ec.reset_launch_counts()
+        with pytest.raises(ValueError, match=above):
+            ec.gcl_message_agg(*main.values(), extra["w_att"], extra["b_att"],
+                               cutoffs=CUTOFFS, attention=True, normalization_factor=100.0)
+        with pytest.raises(ValueError, match=above):
+            ec.coord_update_agg(*main.values(), extra["w3"], **COORD_KW, update_rows=12,
+                                cross=dict(extra["cross"], w3=extra["w3"]),
+                                graph_mean=(main["x"] * m[..., None]).sum(1)
+                                / m.sum(1)[:, None])
+        assert not any(ec.launch_counts.values())
+
+
+# ---------------------------------------------------------------------------
+# the forward split kernels at F = 4096, each row tile on a cluster of four
+# ---------------------------------------------------------------------------
+
+# case: (cross, attention, update_rows), on B = 2 graphs of 45 nodes, 12 of
+# them ligand rows, fan-in weights
+WIDE_CASES = {"cross": (True, True, 11), "no_cross": (False, True, 12),
+              "no_attention": (True, False, None)}
+
+
+@pytest.mark.parametrize("width", [4096, 3072])
+@pytest.mark.parametrize("tier", ["tf32x3", "tf32x2", "bf16"])
+@pytest.mark.parametrize("case", list(WIDE_CASES))
+def test_forward_kernels_at_4096(case, tier, width):
+    """``gcl_agg`` and ``coord_agg`` at F = 4096 (3072 zero-padded onto it)
+    at each tier against their plain versions at the tier (3xTF32 within
+    ``TOL``, the others ``ec.TIER_GATES``): the cross branch on and off,
+    attention off, odd ``update_rows`` with the rows past it exact zeros;
+    two launches bit for bit, each on clusters of four blocks."""
+    cross, attention, rows = WIDE_CASES[case]
+    main, extra = _inputs(70, N=45, F=width, w_scale=None)
     m = main["mask"]
+    att = (extra["w_att"], extra["b_att"]) if attention else (None, None)
+    gcl_kw = dict(cutoffs=CUTOFFS, attention=attention, normalization_factor=100.0,
+                  update_rows=rows)
+    coord_kw = dict(COORD_KW, update_rows=rows)
+    if cross:
+        coord_kw.update(cross=dict(extra["cross"], w3=extra["w3"]),
+                        graph_mean=(main["x"] * m[..., None]).sum(1) / m.sum(1)[:, None])
+    for name, wrapper, plain, args, kw in (
+            ("gcl_agg", ec.gcl_message_agg, ec.gcl_message_agg_plain,
+             (*main.values(), *att), gcl_kw),
+            ("coord_agg", ec.coord_update_agg, ec.coord_update_agg_plain,
+             (*main.values(), extra["w3"]), coord_kw)):
+        ec.reset_launch_counts()
+        got = wrapper(*args, **kw, precision=tier)
+        again = wrapper(*args, **kw, precision=tier)
+        _only_tier(name, tier, launches=2)
+        assert ec.last_cluster_dim(name, tier) == 4
+        assert torch.equal(got, again)
+        if tier == ec.DEFAULT_TIER:
+            torch.testing.assert_close(got, plain(*args, **kw), **TOL)
+        else:
+            _assert_tier_close(got, plain(*args, **kw, precision=tier), plain(*args, **kw),
+                               tier)
+        if rows is not None:
+            assert not got[:, rows:].any()
+
+
+@pytest.mark.parametrize("spread", [4.0, 1.0], ids=["clean", "collapsed"])
+def test_forward_kernels_at_4096_on_many_clusters(spread):
+    """A grid of many clusters of four: B = 4 graphs of 344 nodes (24 ligand
+    atoms), every row moving (1376 row tiles, 5504 blocks, over 40 waves of
+    the card's clusters); at ``spread`` 1 every pair passes the cutoffs.
+    The GCL and the coordinate update (cross branch on) against their plain
+    versions (batch slices of one graph: 1.9 GB a (1, 344, 344, 4096)
+    float32 tensor)."""
+    ops = _gcl_ops(block_inputs(71, B=4, N=344, F=4096, n_lig=24, spread=spread))
     ec.reset_launch_counts()
-    with pytest.raises(ValueError, match="above 2048.*ROADMAP.*widths above 2048"):
-        ec.gcl_message_agg(*main.values(), extra["w_att"], extra["b_att"], cutoffs=CUTOFFS,
-                           attention=True, normalization_factor=100.0)
-    with pytest.raises(ValueError, match="above 2048.*ROADMAP.*widths above 2048"):
-        ec.coord_update_agg(*main.values(), extra["w3"], **COORD_KW, update_rows=12,
-                            cross=dict(extra["cross"], w3=extra["w3"]),
-                            graph_mean=(main["x"] * m[..., None]).sum(1) / m.sum(1)[:, None])
+    got = ec.gcl_message_agg(*ops, **GCL_KW)
+    assert ec.launch_counts["gcl_agg"] == 1 and ec.last_cluster_dim("gcl_agg") == 4
+    torch.testing.assert_close(got, _plain_in_slices(ec.gcl_message_agg_plain, ops, GCL_KW, 1),
+                               **TOL)
+    del got
+    main, cross_d, graph_mean = coord_inputs(72, 4, F=4096, spread=spread)
+    kw = dict(COORD_KW, cross=cross_d, graph_mean=graph_mean)
+    got = ec.coord_update_agg(*main, **kw)
+    assert ec.launch_counts["coord_agg"] == 1 and ec.last_cluster_dim("coord_agg") == 4
+    torch.testing.assert_close(got, _plain_in_slices(ec.coord_update_agg_plain, main, kw, 1),
+                               **TOL)
+
+
+@pytest.mark.parametrize("hidden", [4096, 3072])
+def test_width_4096_network_matches_cpu(hidden):
+    """A hidden-4096 (and 3072, zero-padded onto 4096) conditional network on
+    the card: its forward on the split kernels at F = 4096 (one launch of
+    each a layer, clusters of four) against the plain versions on the CPU.
+    Its gradient is refused before any launch, naming the backward kernel,
+    built up to 2048: a train step at this width fails at its first layer."""
+    model, batch = _dynamics_case("cuda", hidden_nf=hidden)
+    cpu, cpu_batch = _dynamics_case("cpu", hidden_nf=hidden)
+    ec.reset_launch_counts()
+    with torch.no_grad():
+        got = model(*batch)
+        want = cpu(*cpu_batch)
+    assert ec.launch_counts == {**dict.fromkeys(ec.KERNELS, 0), "gcl_agg": 2,
+                                "coord_agg": 2}, ec.launch_counts
+    assert ec.last_cluster_dim("gcl_agg") == ec.last_cluster_dim("coord_agg") == 4
+    for f, w in zip(got, want):
+        torch.testing.assert_close(f.cpu(), w, atol=1e-4, rtol=1e-4)
+    ec.reset_launch_counts()
+    with pytest.raises(ValueError, match="the widest gcl_agg_bwd .*widths above 2048"):
+        _sum_sq_grads(model, batch)
     assert not any(ec.launch_counts.values())
 
 

@@ -92,46 +92,6 @@ def one_pocket(pkt):
     return {k: np.repeat(v[:1], len(v), axis=0) for k, v in pkt.items()}
 
 
-def test_inpaint_shared_pocket_matches_jax(fixture_params):
-    """One pocket replicated over the batch, ``shared_pocket=True`` on both
-    sides: the pocket is translated per sample on the way, and the shared
-    pocket-pocket block of the first GCL still holds, since it reads
-    distances only.  The fixed atoms come back where they were put, up to the
-    common translation of the frame."""
-    jm, params, pm = modules(fixture_params)
-    lig, pkt, lig_fixed = inpaint_case(12)
-    pkt = one_pocket(pkt)
-    R = 3
-    noise = lig_noise(13, 1 + T * (2 * R + (R - 1)) + 1)
-    jm.ddpm.set_queue(list(noise))
-    with jax.disable_jit():
-        want = jm.ddpm.inpaint_segmented(
-            params, jax.random.PRNGKey(0), jnp_batch(lig), jnp_batch(pkt),
-            jnp.asarray(lig_fixed), resamplings=R, timesteps=T, shared_pocket=True)
-    assert not jm.ddpm._noise_queue
-    outs = {}
-    for shared in (True, False):
-        queue = list(noise)
-        queue_port(pm, queue)
-        outs[shared] = pm.ddpm.inpaint(
-            None, torch_batch(lig), torch_batch(pkt), torch.as_tensor(lig_fixed),
-            resamplings=R, timesteps=T, shared_pocket=shared)
-        assert not queue
-    report("inpaint shared pocket, ligand", outs[True][0], want[0], lig["mask"])
-    report("inpaint shared pocket, pocket", outs[True][1], want[1], pkt["mask"])
-    report("inpaint shared against unshared", outs[True][0], outs[False][0],
-           lig["mask"], limit=1e-4)
-    # the fixed atoms keep their shape and their place relative to the pocket
-    got_l, got_p = outs[True][0].numpy(), outs[True][1].numpy()
-    shift = (got_p[..., :3] - pkt["x"]) * pkt["mask"][..., None]
-    shift = shift.sum(1) / pkt["mask"].sum(1)[:, None]
-    moved = got_l[:, :3, :3] - shift[:, None, :]
-    print("fixed atoms off by", float(np.abs(moved - lig["x"][:, :3]).max()), "A")
-    np.testing.assert_allclose(
-        moved - moved.mean(1, keepdims=True),
-        lig["x"][:, :3] - lig["x"][:, :3].mean(1, keepdims=True), atol=0.5)
-
-
 @pytest.mark.parametrize("mode", ["pocket_conditioning", "pocket_conditioning_simple"])
 def test_diversify_matches_jax(fixture_params, mode):
     jm, params, pm = modules(fixture_params, mode)

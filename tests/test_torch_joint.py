@@ -204,37 +204,6 @@ def inpaint_case(seed, B=2, NL=8, NP=40):
     return part(m_l, NL, 1.5), part(m_p, NP, 4.0), lig_fixed
 
 
-def test_joint_inpaint_matches_jax(fixture_params):
-    """RePaint with resamplings = 2 and jump_length = 2 at T = 10: every
-    iteration draws for the re-noised known part, the denoise step and, on a
-    jump, the jump; the pocket is fixed, three ligand atoms too."""
-    jm, params, pm = both_modules(joint_overrides(), fixture_params)
-    queued(jm)
-    lig, pkt, lig_fixed = inpaint_case(3)
-    s_arr, jumps = jm.ddpm._repaint_plan(2, 2, T)
-    n_draws = 1 + 2 * len(s_arr) + int((jumps > 0).sum()) + 1
-    noise = joint_noise(4, n_draws, 2, 8, 40)
-    jm.ddpm.set_queue(list(noise))
-    with jax.disable_jit():
-        want = jm.ddpm.inpaint(params, jax.random.PRNGKey(0), jnp_batch(lig),
-                               jnp_batch(pkt), jnp.asarray(lig_fixed),
-                               jnp.asarray(pkt["mask"]), resamplings=2,
-                               jump_length=2, timesteps=T)
-    assert not jm.ddpm._noise_queue
-    queue = list(noise)
-    queue_port(pm, queue)
-    got = pm.ddpm.inpaint(None, torch_batch(lig), torch_batch(pkt),
-                          torch.as_tensor(lig_fixed), torch.as_tensor(pkt["mask"]),
-                          resamplings=2, jump_length=2, timesteps=T)
-    assert not queue
-    for name, g, w, m in (("ligand", got[0], want[0], lig["mask"]),
-                          ("pocket", got[1], want[1], pkt["mask"])):
-        dx, flips = deviation(g.numpy()[m > 0], np.asarray(w)[m > 0])
-        print(f"joint inpaint ({len(s_arr)} passes), {name}: max coordinate "
-              f"deviation {dx:.2e} A, {flips} type flips")
-        assert dx <= 1e-3 and flips == 0
-
-
 @pytest.mark.parametrize("resamplings", [1, 2, 5])
 @pytest.mark.parametrize("jump_length", [1, 2, 3, 7])
 @pytest.mark.parametrize("timesteps", [1, 6, 10, 25])

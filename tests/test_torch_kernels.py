@@ -12,6 +12,7 @@ import torch
 
 import diffsbdd_tpu.ops.egnn_pallas as ep
 from diffsbdd_tpu_torch.ops import egnn_cuda as ec
+import test_torch_threads  # noqa: F401  (PyTorch threads a worker under xdist)
 
 B, N, F = 2, 48, 64
 CUTOFFS = (None, 5.0, 5.0)
@@ -190,23 +191,31 @@ def test_wrapper_counts_no_launch_on_cpu():
 
 
 @pytest.mark.parametrize("width", [32, 64, 96, 128, 160, 192, 224, 256, 320, 384, 448,
-                                   512, 640, 768, 896, 1024, 1088, 2048, 2112, 4096])
+                                   512, 640, 768, 896, 1024, 1088, 2048, 2112, 3072, 4096,
+                                   4160])
 def test_kernel_widths(width):
     """The five kernels are built for hidden widths 64, 128 (the config
     default), 256, 512, 1024 (on tiles of two rows and one, ``ec.row_tile``)
-    and 2048 (a row tile on a cluster of two blocks, ``ec.cluster_size``);
-    every other width up to 2048 runs zero-padded to the next of them, and a
-    wider one is refused before a launch, naming the ROADMAP item, never run
-    by the plain version on the card: 1088 and 2048 run on every kernel,
-    2112 and 4096 are refused by every kernel."""
-    assert ec.SUPPORTED_F == (64, 128, 256, 512, 1024, 2048)
-    assert [ec.row_tile(f) for f in ec.SUPPORTED_F] == [4, 4, 4, 2, 1, 1]
-    assert [ec.cluster_size(f) for f in ec.SUPPORTED_F] == [1, 1, 1, 1, 1, 2]
+    and 2048 (a row tile on a cluster of two blocks, ``ec.cluster_size``),
+    the two forward split kernels also for 4096 (a cluster of four); every
+    other width up to a kernel's widest runs zero-padded to the next of its
+    widths, and a wider one is refused before a launch, naming the ROADMAP
+    item, never run by the plain version on the card: 1088 and 2048 run on
+    every kernel; 2112, 3072 and 4096 on the forward split kernels (at
+    4096) and are refused by the other three, naming "widths above 2048";
+    4160 is refused by every kernel, the forward split kernels naming
+    "widths above 4096"."""
+    assert ec.SUPPORTED_F == (64, 128, 256, 512, 1024, 2048, 4096)
+    assert [ec.row_tile(f) for f in ec.SUPPORTED_F] == [4, 4, 4, 2, 1, 1, 1]
+    assert [ec.cluster_size(f) for f in ec.SUPPORTED_F] == [1, 1, 1, 1, 1, 2, 4]
     for name in ec.KERNELS:
         widths = ec.KERNEL_WIDTHS[name]
-        assert widths == ec.SUPPORTED_F, name
+        widest = 4096 if name in ("gcl_agg", "coord_agg") else 2048
+        assert widths == tuple(f for f in ec.SUPPORTED_F if f <= widest), name
+        assert ec.WIDER_ITEM[name] == f"widths above {widest}", name
         text = (ec.CSRC / f"{name}.cu").read_text()
         assert all(f"case {f}: return launch<{f}>(" in text for f in widths), name
+        assert ("case 4096:" in text) == (widest == 4096), name
         if width <= widths[-1]:
             want = min(f for f in widths if f >= width)
             assert ec.padded_width(width, name, name) == want
@@ -217,20 +226,19 @@ def test_kernel_widths(width):
             with pytest.raises(ValueError, match=f"{name}: feature width {width} above "
                                f"{widths[-1]}.*ROADMAP.*{ec.WIDER_ITEM[name]}"):
                 ec.padded_width(width, name, name)
-    assert ec.WIDER_ITEM == dict.fromkeys(ec.KERNELS, "widths above 2048")
 
 
 @pytest.mark.parametrize("width,refused", [(1024, False), (1088, False), (2048, False),
-                                           (2112, True)])
+                                           (2112, True), (4096, True)])
 def test_forward_wrappers_refuse_an_untrainable_width(width, refused):
     """A forward wrapper whose output will need a gradient through a backward
     kernel (grad mode on, an operand that requires it) at a width that
     kernel is not built for raises before any launch, naming the backward
     kernel and its ROADMAP item; without a gradient due (no_grad, or no
     operand that requires one) the width passes this check.  The backward
-    kernels are built up to 2048: 1088 (padded) and 2048 train, 2112 is
-    refused.  The wrappers call this on CUDA tensors, unless ``mirror_bwd``
-    takes the plain backward."""
+    kernels are built up to 2048: 1088 (padded) and 2048 train, 2112 and
+    4096 (which the forward kernels run) are refused.  The wrappers call
+    this on CUDA tensors, unless ``mirror_bwd`` takes the plain backward."""
     w = torch.ones(width, width)
     ec._refuse_untrainable_width("gcl_message_agg", "gcl_agg_bwd", width, (w, None))
     w.requires_grad_(True)

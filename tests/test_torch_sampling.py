@@ -26,6 +26,7 @@ from diffsbdd_tpu_torch.config import load_config, snapshot_config
 from diffsbdd_tpu_torch.convert.jax_params import state_dict_from_npz
 from diffsbdd_tpu_torch.train.module import build_module_from_config
 from reference_bridge import make_queued_ddpm
+import test_torch_threads  # noqa: F401  (PyTorch threads a worker under xdist)
 
 REPO = Path(__file__).resolve().parent.parent
 FIXTURE_NPZ = REPO / "checkpoints" / "overfit_chem_fixture_best.npz"

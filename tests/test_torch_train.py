@@ -42,6 +42,7 @@ from diffsbdd_tpu_torch.train import augment as port_augment
 from diffsbdd_tpu_torch.train import lj as port_lj
 from diffsbdd_tpu_torch.train import loop as port_loop
 from diffsbdd_tpu_torch.train.module import build_module_from_config
+import test_torch_threads  # noqa: F401  (PyTorch threads a worker under xdist)
 
 REPO = Path(__file__).resolve().parent.parent
 FIXTURE_NPZ = REPO / "checkpoints" / "overfit_chem_fixture_best.npz"

@@ -18,7 +18,8 @@ compute what the kernels do:
   the unpadded plain versions': atol 1e-5 + rtol 1e-4;
 * the 2xTF32 and bf16 tiers' emulations at the padded width against the
   same tier at F, within the card's gates (``ec.TIER_GATES``, the whole
-  block's ``ec.BLOCK_TIER_GATES``), the backward plain versions included;
+  block's ``ec.BLOCK_TIER_GATES``: at bf16 ``ec.block_bf16_gate`` against
+  the bf16 sums in float64), the backward plain versions included;
 * at 1088 and 2048, the backward plain versions as the card's backward
   wrappers run them (padded onto 2048, cut back) against ``jax.vjp`` of
   the JAX package's dense twins at F: atol 1e-4, rtol 1e-3, as
@@ -45,6 +46,7 @@ import torch
 import diffsbdd_tpu.ops.egnn_pallas as ep
 from diffsbdd_tpu.ops.egnn_block_fused import block_fused_xla
 from diffsbdd_tpu_torch.ops import egnn_cuda as ec
+import test_torch_threads  # noqa: F401  (PyTorch threads a worker under xdist)
 
 B, N, NL = 2, 20, 8
 WIDTHS = (32, 96, 192, 320, 384, 512, 640, 1024, 1088, 2048)
@@ -248,6 +250,11 @@ def test_padded_tiers_within_their_gates(tier, F):
             continue
         got, _ = padded(PORT[name], ops, F, precision=tier)
         ref, exact = PORT[name](ops, precision=tier), PORT[name](ops)
+        if name == "block" and tier == "bf16":  # the gate's own reference
+            for g, r, s, e in zip(got, ref, PORT[name](ops, precision=ec.BF16_EXACT),
+                                  exact):
+                assert ec.block_bf16_gate(g, r, s, e)["ok"]
+            continue
         for g, r, e in zip(*((got, ref, exact) if name == "block"
                              else ((got,), (ref,), (exact,)))):
             _assert_within_gate(g, r, e, gates[tier])
