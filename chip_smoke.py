@@ -208,9 +208,9 @@ Phases (any failure ends the run with a non-zero exit code):
      row), as 20h: the five kernels at F = 1024 and every tier at phases 3,
      3b and 3c's main shapes (the forward plain versions in batch slices of
      4), width 768 run padded, the flagship's shape at hidden 1024 sampled
-     (16 x 24, T = 5 since 20m: 46 / 36 launches), trained a step at batch 16 (6
-     launches of each split kernel) and sampled as a joint model with block
-     fusing (8 x 24, T = 5: 36 launches), hidden 768 sampled; the dW2
+     (16 x 24, T = 2 since 20n: 22 / 18 launches), trained a step at batch
+     16 (6 launches of each split kernel) and sampled as a joint model with
+     block fusing (8 x 24, T = 2: 18 launches), hidden 768 sampled; the dW2
      step's share of gcl_agg_bwd at
      F = 512 and 1024 (a build of it with -DEGNN_SKIP_DW2, timed through
      the same wrapper); and how the 3xTF32 error grows with K: the five
@@ -221,22 +221,24 @@ Phases (any failure ends the run with a non-zero exit code):
      blocks: gcl_agg (full graph, collapsed) and coord_agg (ligand rows
      with the cross branch on and off, every row at B = 8) at every tier at
      phase 3's shapes against their plain versions (batch slices of 2; the
-     tier gates; the cluster dimension each launch used; ms, bound,
-     registers, spills, shared memory), widths 1088 and 1536 run padded
-     (one launch each), the flagship's shape at hidden 2048 and 1536 from
-     seeded random weights sampled (16 x 24, T = 5: 46 / 36 launches), the
-     joint model at hidden 2048 sampled with block fusing off (8 x 24,
-     T = 5), and the refusals before any launch: width 2112 in the
-     backward wrappers, block_fused and a hidden-2112 train step.
+     tier gates, the reduced tiers' on the first 4 graphs; the cluster
+     dimension each launch used; ms, bound, registers, spills, shared
+     memory), widths 1088 and 1536 run padded (one launch each), the
+     flagship's shape at hidden 2048 and 1536 from seeded random weights
+     sampled (16 x 24, T = 2: 22 / 18 launches), the joint model at hidden
+     2048 sampled with block fusing off (8 x 24, T = 2), and the refusal
+     before any launch of width 2112 in block_fused.
      20k: training at hidden widths 1025-2048 on the two backward kernels
      at F = 2048, each row tile on a cluster of two blocks: gcl_agg_bwd and
      coord_agg_bwd at every tier at phase 3b's main shapes against their
-     plain versions (batch slices of 2 and 1; the tier gates; the cluster
-     dimension; ms, bound, registers, spills, shared memory; the dW2
+     plain versions (batch slices of 2 and 1; the tier gates, the reduced
+     tiers' on the first 4 graphs; the cluster dimension; ms, bound,
+     registers, spills, shared memory; the dW2
      step's share from 20i's timing build), and one conditional train step
-     at batch 16 at hidden 2048 and at 1536 from seeded random weights
-     (6 launches of each split kernel, forward and backward, at F = 2048;
-     ms a step, peak memory, a finite loss and gradient norm).  20l: the
+     at batch 16 at hidden 2048 and at 1536 from seeded random weights,
+     two layers (one launch of each split kernel a layer, forward and
+     backward, at F = 2048; ms a step, peak memory, a finite loss and
+     gradient norm).  20l: the
      whole-block kernel at F = 2048, both phases on clusters of two
      blocks, at every tier at phase 3c's joint shapes (B = 8, clean and
      collapsed) against its plain version (batch slices of 2; the block
@@ -244,7 +246,7 @@ Phases (any failure ends the run with a non-zero exit code):
      registers, spills, shared memory), the bf16 library at F = 1024 and
      2048 and its plain version each against that plain version with its
      products summed in float64, width 1536 padded onto it, and the joint
-     model at hidden 2048 sampled with block fusing on (8 x 24, T = 5: 36
+     model at hidden 2048 sampled with block fusing on (8 x 24, T = 2: 18
      whole-block launches, no split-kernel launch); the bf16 whole-block
      gate (20a, 20e, 20l and the card tests) holds the kernel against its
      plain version with the bf16 products summed in float64, within twice
@@ -252,18 +254,32 @@ Phases (any failure ends the run with a non-zero exit code):
      2049-4096 on the two forward split kernels at F = 4096, each row tile
      on a cluster of four blocks: gcl_agg (full graph) and coord_agg
      (ligand rows, the cross branch on and off) at every tier at phase 3's
-     shapes against their plain versions (batch slices of 1), width 3072
-     padded, the flagship's shape at hidden 4096 from seeded random weights
-     sampled (16 x 24, T = 2: 22 / 18 launches at F = 4096), and the
-     refusals before any launch: width 4160 in the forward wrappers, a
-     hidden-3072 train step and block_fused at 3072.
+     shapes against their plain versions (batch slices of 1; the reduced
+     tiers on the first 4 graphs), width 3072 padded, the flagship's shape
+     at hidden 4096 with two layers from seeded random weights sampled (16
+     x 24, T = 2: 10 / 6 launches at F = 4096), and the refusals before any
+     launch of
+     width 4160 in the forward wrappers.  20n: training at hidden widths
+     2049-4096 on the two backward kernels at F = 4096, each row tile on a
+     cluster of four blocks: gcl_agg_bwd and coord_agg_bwd at every tier at
+     phase 3b's main shapes against their plain versions (batch slices of
+     1; the reduced tiers on the first 4 graphs; the cluster dimension; ms,
+     bound, registers, spills, shared memory), width 3072 padded,
+     cli.train at hidden 4096 and two layers from phase 8's config (batch
+     4, one epoch of two steps and its validation pass, one launch of each
+     split kernel a layer and step at F = 4096 on clusters of four, a
+     finite loss and gradient norm, the checkpoints written), a two-layer
+     hidden-3072 train step at batch 4 (padded onto 4096; ms, peak
+     memory), and the refusals before any launch:
+     width 4160 in the backward wrappers, block_fused at 3072.
 
 Prints a {"kernels": [...]} line (the five kernels, then the same five at
 F=128 from phase 19, then the five kernels at 2xTF32 and bf16 from phase
 20, then the five at F=512 from phase 20h and at F=1024 from phase 20i,
 then gcl_agg and coord_agg at F=2048 from phase 20j, gcl_agg_bwd and
 coord_agg_bwd at F=2048 from phase 20k, block_fused at F=2048 from
-phase 20l, and gcl_agg and coord_agg at F=4096 from phase 20m)
+phase 20l, gcl_agg and coord_agg at F=4096 from phase 20m, and
+gcl_agg_bwd and coord_agg_bwd at F=4096 from phase 20n)
 and the card line, and as its last line
 {"ok": true, "device": {...}}.  The pocket, the samples and a summary.json go
 to ``--out`` (default chip_smoke_out/ in the repository).  Needs a CUDA card:
@@ -513,6 +529,8 @@ PARENT_SASS_FUNCTIONS = {
             "436cfdd5b3bf1ed3c806bb8323e361d20e910bc5f4dd0ee3d728a7f1ade8dd62",
     },
     "gcl_agg_bwd": {
+        "_ZN47_GLOBAL__N_26gcl_agg_bwd_cluster_kernelILi4096EEEvN4egnn10GclBwdArgsE":
+            "99f0c826a8dcb18c54068fb1382a6eabebe298590dbc63f100f92813214f137f",
         "_ZN47_GLOBAL__N_26gcl_agg_bwd_cluster_kernelILi2048EEEvN4egnn10GclBwdArgsE":
             "01284c1c864b894fe639dd9f6f19e7b928060d049c8f1452c65333c4f7e1a680",
         "_ZN47_GLOBAL__N_18gcl_agg_bwd_kernelILi1024EEEvN4egnn10GclBwdArgsE":
@@ -529,6 +547,8 @@ PARENT_SASS_FUNCTIONS = {
             "9efdeac766b91eb4db11842e9aa1cef231b9e8b2cd5fb3ae8ade646d929c8a23",
     },
     "coord_agg_bwd": {
+        "_ZN49_GLOBAL__N_28coord_agg_bwd_cluster_kernelILi4096EEEvNS_12CoordBwdArgsE":
+            "c96fcb5571b4f01f3c7a8a425c1ec2822f7de82d90794c770b476a5f402f9df5",
         "_ZN49_GLOBAL__N_28coord_agg_bwd_cluster_kernelILi2048EEEvNS_12CoordBwdArgsE":
             "d81573c99be242b978e5619c645fbf595c96c67fc2872035ef0f0f2e0464d8b1",
         "_ZN49_GLOBAL__N_20coord_agg_bwd_kernelILi1024EEEvNS_12CoordBwdArgsE":
@@ -3009,8 +3029,13 @@ def tier_kernel_phase(ec, torch, dev, flagship, width, names=None):
     only these kernels (all four when None).  Above F = 1024 (the backward
     kernels at 2048, 20k) the backward plain versions run in batch slices of
     2 and 1 graphs, the plain time is that of the reference run itself (a
-    second run would take seconds a tier), and the kernels are timed over 2
-    launches."""
+    second run would take seconds a tier), the kernels are timed over 2
+    launches, and the reduced tiers are checked on the batch's first
+    ``REDUCED_CHECK_BATCH`` graphs (kernel, plain version, and the 3xTF32
+    kernel their move is measured from), their time taken at the full
+    batch; above 2048 (20n) the plain versions in slices of 1, and each
+    kernel's time is one launch at the full batch (the 3xTF32 one's the
+    second of its two checked launches)."""
     cfg = dict(flagship, egnn_params=dict(flagship["egnn_params"], hidden_nf=width))
     fwd = kernel_inputs(torch, dev, cfg, 16, 24)
     sizes = np.random.default_rng(0).integers(24, 33, 16)
@@ -3037,7 +3062,8 @@ def tier_kernel_phase(ec, torch, dev, flagship, width, names=None):
     # the kernels (up to ~140 ms a launch) are timed over 5 launches, not 20
     fwd_step = 4 if width > WIDE else None
     reps = 2 if width > WIDEST else 5 if width > WIDE else 20
-    bwd_steps = (2, 1) if width > WIDEST else (4, 2)  # the GCL's, the coordinate's
+    # the GCL's, the coordinate's: at F = 4096 a (1, 352, 352, F) float32 tensor is 2 GB
+    bwd_steps = (1, 1) if width > CLUSTER_WIDTH else (2, 1) if width > WIDEST else (4, 2)
 
     def fwd_plain(call, plain, tier):
         if fwd_step is None:
@@ -3078,11 +3104,21 @@ def tier_kernel_phase(ec, torch, dev, flagship, width, names=None):
         base = None
         for tier in ec.TIERS:
             gate = ec.TIER_GATES[tier]
+            # above F = 1024 the reduced tiers' checks on the first graphs
+            sub = slice(0, REDUCED_CHECK_BATCH) if (
+                step is not None and width > WIDEST and tier != ec.DEFAULT_TIER) else slice(None)
             ec.reset_launch_counts()
-            got, again = call(kern, tier), call(kern, tier)
+            got = call(kern, tier, sub)
+            start.record()
+            again = call(kern, tier, sub)
+            end.record()
+            torch.cuda.synchronize()
+            again_ms = start.elapsed_time(end)
             launched = {k: v for k, v in ec.tier_launch_counts.items() if v}
             _check(launched == {f"{name}[{tier}]": 2},
                    f"{name}[{tier}]: launched {launched}, not its tier's library")
+            if sub.stop is not None and base is not None and sub_base is None:
+                sub_base = call(kern, ec.DEFAULT_TIER, sub)  # the 3xTF32 kernel's, on the slice
             # the reduced tiers' norm gate reads the tier's move from the
             # 3xTF32 kernel's output (base: the first tier's, itself held to
             # float32's plain version)
@@ -3100,8 +3136,9 @@ def tier_kernel_phase(ec, torch, dev, flagship, width, names=None):
                     ec.tier_moved_share(got, ref, base))
                 base = got if base is None else base
             else:
+                rows = B if sub.stop is None else sub.stop
                 start.record()
-                ref = _plain_in_slices(torch, lambda sl: call(plain, tier, sl), B, step)
+                ref = _plain_in_slices(torch, lambda sl: call(plain, tier, sl), rows, step)
                 end.record()
                 torch.cuda.synchronize()
                 ref_ms = start.elapsed_time(end)
@@ -3117,17 +3154,28 @@ def tier_kernel_phase(ec, torch, dev, flagship, width, names=None):
                     _check(torch.equal(got[cname], again[cname]),
                            f"{name}[{tier}] {cname}: two launches differ")
                     err, share = max(err, e), max(share, e / (scale + 1e-30))
-                    if base is not None:
-                        moved = max(moved, float((got[cname] - base[cname]).abs().max()) /
-                                    float(base[cname].abs().max() + 1e-30))
+                    ref_base = base if sub.stop is None else sub_base
+                    if ref_base is not None:
+                        moved = max(moved, float((got[cname] - ref_base[cname]).abs().max()) /
+                                    float(ref_base[cname].abs().max() + 1e-30))
                         moved_share = max(moved_share, ec.tier_moved_share(
-                            got[cname], r, base[cname]))
-                base = got if base is None else base
+                            got[cname], r, ref_base[cname]))
+                if base is None:
+                    base, sub_base = got, None
             if gate["moved"] is not None:
                 _check(moved_share <= gate["moved"],
                        f"{name}[{tier}] F={width}: error norm {moved_share:.3f} of the "
                        f"tier's move, gate {gate['moved']}")
-            ms = _cuda_ms(lambda: call(kern, tier), reps)
+            if sub.stop is None and width > CLUSTER_WIDTH:
+                ms = again_ms
+            elif width > CLUSTER_WIDTH:  # one launch at the full batch
+                start.record()
+                call(kern, tier)
+                end.record()
+                torch.cuda.synchronize()
+                ms = start.elapsed_time(end)
+            else:
+                ms = _cuda_ms(lambda: call(kern, tier), reps)
             if step is None:
                 plain_ms = _cuda_ms(lambda: fwd_plain(call, plain, tier), 2 if reps > 5 else 1)
             elif width > WIDEST:
@@ -3137,7 +3185,8 @@ def tier_kernel_phase(ec, torch, dev, flagship, width, names=None):
                     torch, lambda sl: call(plain, tier, sl), B, step), 1)
             bound_ms, bound_by = tier_bound(work["flops"], work["bytes"], tier)
             results[f"{name}[{tier}]"] = dict(
-                tier=tier, width=width, max_abs_err=err, gate_share=share, moved=moved,
+                tier=tier, width=width, checked_batch=B if sub.stop is None else sub.stop,
+                max_abs_err=err, gate_share=share, moved=moved,
                 moved_share=moved_share, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                 pairs=work["pairs"], flops=work["flops"])
             print(f"  {name}[{tier}] F={width}: {ms:.4f} ms (plain {plain_ms:.3f} ms), "
@@ -3146,7 +3195,8 @@ def tier_kernel_phase(ec, torch, dev, flagship, width, names=None):
                   + (f"1e-5 + 1e-4 |ref| + {gate['share']:g} of it" if step is None
                      else f"{gate['bwd']:g} of it") + f"), moved {moved:.2e} from 3xTF32"
                   + ("" if gate["moved"] is None else
-                     f"; error norm {moved_share:.4f} of the move (gate {gate['moved']:g})"))
+                     f"; error norm {moved_share:.4f} of the move (gate {gate['moved']:g})")
+                  + ("" if sub.stop is None else f"; checked on the first {sub.stop} graphs"))
     return results
 
 
@@ -3866,7 +3916,7 @@ def padded_kernel_phase(ec, torch, dev, flagship, width, names=None):
                        f"gate {gate['moved']}")
             results[f"{name}[{tier}]"] = dict(width=width, run_at=ec.padded_width(width),
                                               gate_share=share, moved_share=moved_share)
-            if name in ("gcl_agg", "coord_agg"):
+            if name != "block_fused":
                 results[f"{name}[{tier}]"]["cluster_dim"] = ec.last_cluster_dim(name, tier)
             print(f"  {what}: 1 launch of {name}[{tier}]; error {share:.2e} of the largest "
                   f"entry" + ("" if gate.get("moved") is None else
@@ -3963,8 +4013,8 @@ WIDE_CHAIN = dict(n=16, T=20)
 WIDE_3XTF32_SHARE = 5e-6
 WIDEST = 1024  # the widest width on tiles of one row without a cluster
 WIDEST_PADDED = (768,)  # run on the F = 1024 kernels
-WIDEST_CHAIN = dict(n=16, T=5)  # shorter than 20h's: phases 20j-20m share the time limit
-# phase 20i's measurement builds, started after phase 2: (kernel, define,
+WIDEST_CHAIN = dict(n=16, T=2)  # shorter than 20h's: phases 20j-20n share the time limit
+# phase 20i's measurement builds, started with phase 2's: (kernel, define,
 # library) -- the GCL backward without its dW2 step (its output's dW2 stays
 # zero), and the GCL forward at F = 1024 without the step sums
 MEASUREMENT_BUILDS = {"skip_dw2": ("gcl_agg_bwd", "-DEGNN_SKIP_DW2",
@@ -4221,10 +4271,9 @@ def wide_width_phase(torch, ec, dev, flagship, logs, work, pdb, ref_lig, card,
 CLUSTER_WIDTH = 2048  # the split kernels' widest: a row tile on two blocks
 CLUSTER_KERNELS = ("gcl_agg", "coord_agg")  # phase 20j's; 20k's the backward two
 CLUSTER_PADDED = (1088, 1536)  # run on the F = 2048 kernels (ec.padded_width)
-CLUSTER_CHAIN = dict(n=16, T=5)  # phases 20j-20m share the time limit
-CLUSTER_JOINT = dict(n=JOINT_SAMPLES, T=5)
+CLUSTER_CHAIN = dict(n=16, T=2)  # phases 20j-20n share the time limit
+CLUSTER_JOINT = dict(n=JOINT_SAMPLES, T=2)  # 20j's and 20l's joint chains
 CLUSTER_PLAIN_STEP = 2  # graphs a slice of the plain versions: 1.9 GB a (2, 344, 344, 2048) tensor
-REFUSED_WIDTH = 2112  # wider than the split kernels
 REFUSED_BLOCK = 2112  # wider than block_fused
 
 
@@ -4250,9 +4299,12 @@ def cluster_kernel_phase(ec, torch, dev, flagship, logs, width=CLUSTER_WIDTH,
     their move from the 3xTF32 kernel's output; two launches bit for bit;
     the cluster dimension each launch used (``ec.cluster_size``); CUDA-event
     ms of kernel (``reps`` launches) and plain version, the tier's bound;
-    the instantiations' registers, spills and shared memory a block.
-    ``width``, ``variants`` (their names, all when None): phase 20m's F =
-    4096 (clusters of four) on a subset."""
+    the instantiations' registers, spills and shared memory a block.  The
+    reduced tiers are checked on the first ``REDUCED_CHECK_BATCH`` graphs
+    (kernel, plain version and the 3xTF32 output their move is read from),
+    their kernel timed at the full batch.  ``width``, ``variants`` (their
+    names, all when None): phase 20m's F = 4096 (clusters of four) on a
+    subset."""
     cfg = dict(flagship, egnn_params=dict(flagship["egnn_params"], hidden_nf=width))
     NL = 24
     inputs = {"full": kernel_inputs(torch, dev, cfg, 16, NL),
@@ -4304,8 +4356,10 @@ def cluster_kernel_phase(ec, torch, dev, flagship, logs, width=CLUSTER_WIDTH,
         for tier in ec.TIERS:
             gate = ec.TIER_GATES[tier]
             what = f"{name}[{tier}] F={F} {v}"
+            rows = B if tier == ec.DEFAULT_TIER else REDUCED_CHECK_BATCH
+            sub = slice(0, rows)
             ec.reset_launch_counts()
-            got, again = call(wrappers[name], tier), call(wrappers[name], tier)
+            got, again = call(wrappers[name], tier, sub), call(wrappers[name], tier, sub)
             cluster = ec.last_cluster_dim(name, tier)
             launched = {k: n for k, n in ec.tier_launch_counts.items() if n}
             _check(launched == {f"{name}[{tier}]": 2},
@@ -4314,7 +4368,7 @@ def cluster_kernel_phase(ec, torch, dev, flagship, logs, width=CLUSTER_WIDTH,
                    f"{what}: cluster dimension {cluster}, not {want_cluster}")
             start.record()
             ref = torch.cat([call(plains[name], tier, slice(b, b + step))
-                             for b in range(0, B, step)], 0)
+                             for b in range(0, rows, step)], 0)
             end.record()
             torch.cuda.synchronize()
             plain_ms = start.elapsed_time(end)
@@ -4324,7 +4378,7 @@ def cluster_kernel_phase(ec, torch, dev, flagship, logs, width=CLUSTER_WIDTH,
             _check(bool(torch.isfinite(got).all()) and bool(((got - ref).abs() <= limit).all()),
                    f"{what}: error {err:.3e} over its gate (largest entry {scale:.3e})")
             _check(torch.equal(got, again), f"{what}: two launches differ")
-            moved_share = 0.0 if base is None else ec.tier_moved_share(got, ref, base)
+            moved_share = 0.0 if base is None else ec.tier_moved_share(got, ref, base[sub])
             if gate["moved"] is not None:
                 _check(moved_share <= gate["moved"],
                        f"{what}: error norm {moved_share:.3f} of the tier's move, "
@@ -4333,7 +4387,8 @@ def cluster_kernel_phase(ec, torch, dev, flagship, logs, width=CLUSTER_WIDTH,
             ms = _cuda_ms(lambda: call(wrappers[name], tier), reps)
             bound_ms, bound_by = tier_bound(work["flops"], work["bytes"], tier)
             res[f"{name}[{tier}]:{v}"] = dict(
-                kernel=name, tier=tier, variant=v, width=F, batch=B, cluster_dim=cluster,
+                kernel=name, tier=tier, variant=v, width=F, batch=B, checked_batch=rows,
+                cluster_dim=cluster,
                 max_abs_err=err, gate_share=err / (scale + 1e-30), moved_share=moved_share,
                 ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                 pairs=work["pairs"], flops=work["flops"])
@@ -4341,7 +4396,8 @@ def cluster_kernel_phase(ec, torch, dev, flagship, logs, width=CLUSTER_WIDTH,
                   f"bound {bound_ms:.4f} ms ({bound_by}, {100 * bound_ms / ms:.1f}%); error "
                   f"{err / (scale + 1e-30):.2e} of the largest entry"
                   + ("" if gate["moved"] is None else
-                     f", error norm {moved_share:.4f} of the tier's move"))
+                     f", error norm {moved_share:.4f} of the tier's move")
+                  + ("" if rows == B else f"; checked on the first {rows} graphs"))
             del got, again, ref
         if base is not None:
             del base
@@ -4369,16 +4425,12 @@ def cluster_width_phase(torch, ec, dev, flagship, logs, work, pdb, ref_lig, card
     weights: cli.generate_ligands at hidden 2048 and 1536 (16 x 24 on phase
     5's pocket, ``CLUSTER_CHAIN``'s T: 8T + 6 and 6T + 6 launches), and the
     joint model at hidden 2048 with block fusing off (``CLUSTER_JOINT``: 6
-    launches of each split kernel a pass).  (d) refusals, each before any
-    launch: width ``REFUSED_WIDTH`` in the two backward wrappers and in a
-    hidden-``REFUSED_WIDTH`` train step, ``REFUSED_BLOCK`` in
-    ``block_fused`` (built up to 2048 since 20l's kernel); the forward
-    wrappers run it on their F = 4096 kernels since 20m's."""
-    from diffsbdd_tpu_torch.config import load_config
-    from diffsbdd_tpu_torch.data.dataset import LigandPocketDataset, PaddedLoader
+    launches of each split kernel a pass).  (d) the refusal before any
+    launch of width ``REFUSED_BLOCK`` in ``block_fused`` (built up to 2048
+    since 20l's kernel); the split wrappers run it on their F = 4096 kernels
+    (the forward ones since 20m's, the backward ones and a train step since
+    20n's)."""
     from diffsbdd_tpu_torch.diffusion.ddpm import JointDDPM
-    from diffsbdd_tpu_torch.train import loop
-    from diffsbdd_tpu_torch.train.module import build_module_from_config
     t0 = time.perf_counter()
     res = {"card": card, "kernels": cluster_kernel_phase(ec, torch, dev, flagship, logs)}
     res["padded"] = {w: padded_kernel_phase(ec, torch, dev, flagship, w, names=CLUSTER_KERNELS)
@@ -4435,52 +4487,13 @@ def cluster_width_phase(torch, ec, dev, flagship, logs, work, pdb, ref_lig, card
           f"launches {launches}")
     shutil.rmtree(work / "cluster_joint", ignore_errors=True)
 
-    res["refusals"] = {}
-
-    def refused(key, call, names):
-        ec.reset_launch_counts()
-        try:
-            call()
-            msg = ""
-        except ValueError as err:
-            msg = str(err)
-        _check(all(n in msg for n in names), f"{key} did not raise naming {names}: {msg!r}")
-        _check(not any(ec.launch_counts.values()), f"{key} launched {ec.launch_counts}")
-        res["refusals"][key] = msg
-        print(f"  {key}: raises before any launch: '{msg[:110]}'")
-
-    node = ("a_row", "a_col", "x", "x0", "mask", "is_lig")
-    inp = kernel_inputs(torch, dev, model(REFUSED_WIDTH), 2, 24, with_delta=True)
-    w, B, N = inp["gcl_w"], inp["B"], inp["N"]
-    cross_b = {k: v for k, v in inp["cross"].items() if k != "type_bias"}
-    cross_b["delta"] = inp["cross_delta"]
-    above = ("above 2048", "ROADMAP")
-    refused(f"gcl_agg_bwd_width_{REFUSED_WIDTH}", lambda: ec.gcl_agg_bwd(
-        inp["r"](B, N, REFUSED_WIDTH), *(inp[k] for k in node), w["w_d2"], w["w_d20"],
-        inp["gcl_delta"], w["w2"], w["b2"], w["w_att"], w["b_att"], cutoffs=inp["cut"],
-        attention=True, normalization_factor=100.0), above)
-    refused(f"coord_agg_bwd_width_{REFUSED_WIDTH}", lambda: ec.coord_agg_bwd(
-        inp["r"](B, N, 3), *(inp[k] for k in node), *inp["coord_w"][:2], inp["coord_delta"],
-        *inp["coord_w"][3:], cutoffs=inp["cut"], tanh=True, coords_range=15.0,
-        norm_constant=1.0, normalization_factor=100.0, cross=cross_b,
-        graph_mean=inp["graph_mean"], update_rows=24), above)
-    del inp
     blk = kernel_inputs(torch, dev, model(REFUSED_BLOCK), 2, 24, with_delta=True)
-    refused(f"block_fused_width_{REFUSED_BLOCK}", lambda: ec.block_fused(
-        *block_operands(blk), cutoffs=blk["cut"], attention=True, tanh=True,
-        coords_range=15.0, norm_constant=1.0, normalization_factor=100.0), above)
+    res["refusals"] = {f"block_fused_width_{REFUSED_BLOCK}": refused_before_launch(
+        ec, f"block_fused_width_{REFUSED_BLOCK}", lambda: ec.block_fused(
+            *block_operands(blk), cutoffs=blk["cut"], attention=True, tanh=True,
+            coords_range=15.0, norm_constant=1.0, normalization_factor=100.0),
+        ("above 2048", "ROADMAP"))}
     del blk
-    data = work / "data20j"
-    write_synthetic_dataset(data, 2, 1, seed=23, pocket_sizes=(250, 280), n_types=11)
-    batch = next(iter(PaddedLoader(LigandPocketDataset(data / "train.npz"), 2, shuffle=False)))
-    cfg = load_config(overrides=model(REFUSED_WIDTH))
-    torch.manual_seed(0)
-    module = build_module_from_config(cfg, np.load(data / "size_distribution.npy")).to(dev)
-    module.train()
-    refused(f"train_step_hidden_{REFUSED_WIDTH}", lambda: module.loss_fn(
-        None, loop.batch_to_device(batch["ligand"], dev),
-        loop.batch_to_device(batch["pocket"], dev), training=True), above)
-    del module
     torch.cuda.empty_cache()
     res["phase_s"] = time.perf_counter() - t0
     print(f"  phase 20j took {res['phase_s']:.1f} s")
@@ -4489,20 +4502,30 @@ def cluster_width_phase(torch, ec, dev, flagship, logs, work, pdb, ref_lig, card
 
 CLUSTER_BWD_KERNELS = ("gcl_agg_bwd", "coord_agg_bwd")
 CLUSTER_TRAIN = (CLUSTER_WIDTH, CLUSTER_PADDED[-1])  # hidden widths of 20k's train steps
+# depth of 20k's train steps and 20m-20n's models (the flagship's 6 layers
+# cut for the time limit: at hidden 4096 six layers are 1.21 G parameters,
+# and cli.train writes 38.7 GB of checkpoints for them)
+WIDE_LAYERS = 2
+
+
+def wide_model(flagship, hidden, **over):
+    """The flagship's config at ``hidden`` with ``WIDE_LAYERS`` layers."""
+    return dict(flagship, **over, egnn_params=dict(flagship["egnn_params"], hidden_nf=hidden,
+                                                   n_layers=WIDE_LAYERS))
 
 
 def cluster_train_step(torch, ec, dev, flagship, hidden, lig, pkt, histogram):
     """Two conditional train steps (``loop.make_train_step``: forward,
-    backward, clipping, the optimizer) at batch 16 of the flagship's shape
-    at ``hidden`` from seeded random weights: the first's launches (6 of
-    each split kernel, the backward ones on clusters of two at F = 2048),
-    its peak device memory, its loss and gradient norm finite; the second's
-    ms."""
+    backward, clipping, the optimizer) on the batch ``lig``, ``pkt`` of
+    ``wide_model(flagship, hidden)`` from seeded random weights: the first's
+    launches (one of each split kernel a layer, each split kernel's last on
+    clusters of ``ec.cluster_size`` blocks at the width it runs: two at
+    2048, four at 4096), its peak device memory, its loss and gradient norm
+    finite; the second's ms."""
     from diffsbdd_tpu_torch.config import load_config
     from diffsbdd_tpu_torch.train import loop
     from diffsbdd_tpu_torch.train.module import build_module_from_config
-    cfg = load_config(overrides=dict(flagship, egnn_params=dict(flagship["egnn_params"],
-                                                                hidden_nf=hidden)))
+    cfg = load_config(overrides=wide_model(flagship, hidden))
     torch.manual_seed(0)
     module = build_module_from_config(cfg, histogram).to(dev)
     module.train()
@@ -4515,10 +4538,12 @@ def cluster_train_step(torch, ec, dev, flagship, hidden, lig, pkt, histogram):
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     launches = dict(ec.launch_counts)
-    want = {**dict.fromkeys(ec.KERNELS, 6), "block_fused": 0}
+    want = {**dict.fromkeys(ec.KERNELS, WIDE_LAYERS), "block_fused": 0}
     _check(launches == want, f"the hidden-{hidden} train step launched {launches}, not {want}")
     clusters = {k: ec.last_cluster_dim(k) for k in ec.KERNELS if k != "block_fused"}
-    _check(set(clusters.values()) == {2}, f"the hidden-{hidden} train step's clusters {clusters}")
+    want_dim = ec.cluster_size(ec.padded_width(hidden))
+    _check(set(clusters.values()) == {want_dim},
+           f"the hidden-{hidden} train step's clusters {clusters}, not {want_dim}")
     loss, gnorm = float(info["loss"]), float(info["grad_norm"])
     _check(np.isfinite(loss) and np.isfinite(gnorm),
            f"the hidden-{hidden} train step: loss {loss}, gradient norm {gnorm}")
@@ -4528,7 +4553,8 @@ def cluster_train_step(torch, ec, dev, flagship, hidden, lig, pkt, histogram):
     ms = 1e3 * (time.perf_counter() - t)
     del module, step
     torch.cuda.empty_cache()
-    return dict(batch=16, run_at=ec.padded_width(hidden), launches=launches,
+    return dict(batch=int(lig["x"].shape[0]), layers=WIDE_LAYERS,
+                run_at=ec.padded_width(hidden), launches=launches,
                 cluster_dims=clusters, loss=loss, grad_norm=gnorm, ms_per_step=ms,
                 peak_gib=peak)
 
@@ -4543,7 +4569,8 @@ def cluster_bwd_phase(torch, ec, dev, flagship, logs, work, card, dw2):
     tier's last launch, ms, plain ms, bound; the instantiations' registers,
     spills and shared memory; beside them ``dw2`` (20i's dW2 share at F =
     2048).  (b) ``cluster_train_step`` at hidden 2048 and 1536 on a seeded
-    synthetic batch of 16 (ligands of 16-32 atoms, pockets of 250-320)."""
+    synthetic batch of 16 (ligands of 16-32 atoms, pockets of 250-320;
+    ``WIDE_LAYERS`` layers)."""
     from diffsbdd_tpu_torch.data.dataset import LigandPocketDataset, PaddedLoader
     from diffsbdd_tpu_torch.train import loop
     t0 = time.perf_counter()
@@ -4578,7 +4605,8 @@ def cluster_bwd_phase(torch, ec, dev, flagship, logs, work, card, dw2):
     for hidden in CLUSTER_TRAIN:
         r = res["train_step"][hidden] = cluster_train_step(
             torch, ec, dev, flagship, hidden, lig, pkt, histogram)
-        print(f"  {card}: hidden {hidden} (kernels at {r['run_at']}) train step at batch 16: "
+        print(f"  {card}: hidden {hidden} (kernels at {r['run_at']}), {r['layers']} layers, "
+              f"train step at batch {r['batch']}: "
               f"{r['ms_per_step']:.1f} ms, peak {r['peak_gib']:.2f} GiB, loss "
               f"{r['loss']:.4f}, gradient norm {r['grad_norm']:.4f}, launches "
               f"{r['launches']}, clusters {r['cluster_dims']}")
@@ -4830,35 +4858,33 @@ def cluster_block_phase(torch, ec, dev, flagship, logs, work, pdb, ref_lig, card
     return res
 
 
-QUAD_WIDTH = 4096  # the forward split kernels' widest: a row tile on four blocks
+QUAD_WIDTH = 4096  # the split kernels' widest: a row tile on four blocks
 QUAD_VARIANTS = ("full", "ligand_rows_cross", "ligand_rows_nocross")  # phase 3's shapes
 QUAD_PADDED = 3072  # run on the F = 4096 kernels (ec.padded_width)
 QUAD_CHAIN = dict(n=16, T=2)
 QUAD_PLAIN_STEP = 1  # graphs a slice of the plain versions: 1.9 GB a (1, 344, 344, 4096) tensor
-REFUSED_QUAD = 4160  # wider than the forward split kernels
-REFUSED_QUAD_TRAIN = QUAD_PADDED  # a train step wider than the backward kernels
+REFUSED_QUAD = 4160  # wider than the split kernels
+QUAD_TRAIN = dict(batch=4, steps=2)  # 20n's cli.train epoch
+# graphs on which 20j-20n check the reduced tiers (their plain versions take
+# seconds a tier at the full batch); the times stay the full batch's
+REDUCED_CHECK_BATCH = 4
 
 
 def quad_width_phase(torch, ec, dev, flagship, logs, work, pdb, ref_lig, card):
     """Phase 20m, hidden widths 2049-4096 on the forward split kernels at
     F = 4096 (a row tile on a cluster of four blocks; the samplers' two
-    kernels, the backward ones and ``block_fused`` stay at 2048).  (a)
+    kernels; the backward ones at 4096 are 20n's, ``block_fused`` stays at
+    2048).  (a)
     ``cluster_kernel_phase`` at F = 4096 on ``QUAD_VARIANTS`` (phase 3's
     shapes: ``gcl_agg`` on the full graph, ``coord_agg`` on ligand rows with
     the cross branch on and off) at every tier, the plain versions in batch
     slices of ``QUAD_PLAIN_STEP``; each launch on clusters of 4.  (b)
     ``padded_kernel_phase`` of the two kernels at ``QUAD_PADDED``.  (c) the
     main path: cli.generate_ligands at hidden 4096 from seeded random
-    weights (16 x 24 on phase 5's pocket, ``QUAD_CHAIN``'s T: 8T + 6 and
-    6T + 6 launches, all at F = 4096 on clusters of four), finite samples
-    and an SDF.  (d) refusals, each before any launch: width
-    ``REFUSED_QUAD`` in the two forward wrappers, a hidden-
-    ``REFUSED_QUAD_TRAIN`` train step (the backward kernels' width) and
-    ``block_fused`` at ``REFUSED_QUAD_TRAIN``."""
-    from diffsbdd_tpu_torch.config import load_config
-    from diffsbdd_tpu_torch.data.dataset import LigandPocketDataset, PaddedLoader
-    from diffsbdd_tpu_torch.train import loop
-    from diffsbdd_tpu_torch.train.module import build_module_from_config
+    weights (``WIDE_LAYERS`` layers; 16 x 24 on phase 5's pocket,
+    ``QUAD_CHAIN``'s T, ``chain_launches``, all at F = 4096 on clusters of
+    four), finite samples and an SDF.  (d) refusals, each before any launch: width
+    ``REFUSED_QUAD`` in the two forward wrappers."""
     t0 = time.perf_counter()
     res = {"card": card, "kernels": cluster_kernel_phase(
         ec, torch, dev, flagship, logs, width=QUAD_WIDTH, variants=QUAD_VARIANTS,
@@ -4874,9 +4900,9 @@ def quad_width_phase(torch, ec, dev, flagship, logs, work, pdb, ref_lig, card):
         return dict(flagship, egnn_params=dict(flagship["egnn_params"], hidden_nf=width))
 
     chain = QUAD_CHAIN
-    want = chain_launches(ec, 6, chain["T"])
+    want = chain_launches(ec, WIDE_LAYERS, chain["T"])
     t1 = time.perf_counter()
-    ckpt = _random_checkpoint(torch, model(QUAD_WIDTH), None, work / "quad")[0]
+    ckpt = _random_checkpoint(torch, wide_model(flagship, QUAD_WIDTH), None, work / "quad")[0]
     ckpt_s = time.perf_counter() - t1
     sdf = work / "quad.sdf"
     wall, sample_s, launches, by_tier, xh = _captured_generate(
@@ -4892,61 +4918,226 @@ def quad_width_phase(torch, ec, dev, flagship, logs, work, pdb, ref_lig, card):
     _check(bool(torch.isfinite(xh).all()), f"the hidden-{QUAD_WIDTH} chain's samples")
     mols = _sdf_molecules(sdf)
     _check(0 < len(mols) <= chain["n"], f"the hidden-{QUAD_WIDTH} chain wrote {len(mols)}")
-    res["chain"] = dict(chain, launches=launches, ms_per_pass=1e3 * sample_s / (chain["T"] + 1),
+    res["chain"] = dict(chain, layers=WIDE_LAYERS, launches=launches,
+                        ms_per_pass=1e3 * sample_s / (chain["T"] + 1),
                         sample_s=sample_s, wall_s=wall, checkpoint_s=ckpt_s,
                         molecules=len(mols))
-    print(f"  {card}: hidden {QUAD_WIDTH}, {chain['n']} x 24 atoms, T={chain['T']}: "
+    print(f"  {card}: hidden {QUAD_WIDTH}, {WIDE_LAYERS} layers, {chain['n']} x 24 atoms, "
+          f"T={chain['T']}: "
           f"{res['chain']['ms_per_pass']:.2f} ms a pass, CLI wall {wall:.2f} s (the random "
           f"checkpoint written in {ckpt_s:.1f} s), launches {launches}, {len(mols)} molecules")
     shutil.rmtree(work / "quad", ignore_errors=True)
 
-    res["refusals"] = {}
-
-    def refused(key, call, names):
-        ec.reset_launch_counts()
-        try:
-            call()
-            msg = ""
-        except ValueError as err:
-            msg = str(err)
-        _check(all(n in msg for n in names), f"{key} did not raise naming {names}: {msg!r}")
-        _check(not any(ec.launch_counts.values()), f"{key} launched {ec.launch_counts}")
-        res["refusals"][key] = msg
-        print(f"  {key}: raises before any launch: '{msg[:110]}'")
-
     node = ("a_row", "a_col", "x", "x0", "mask", "is_lig")
     inp = kernel_inputs(torch, dev, model(REFUSED_QUAD), 2, 24)
     above = ("above 4096", "ROADMAP", "widths above 4096")
-    refused(f"gcl_agg_width_{REFUSED_QUAD}", lambda: ec.gcl_message_agg(
-        *(inp[k] for k in node), *inp["gcl_w"].values(), cutoffs=inp["cut"],
-        attention=True, normalization_factor=100.0), above)
-    refused(f"coord_agg_width_{REFUSED_QUAD}", lambda: ec.coord_update_agg(
-        *(inp[k] for k in node), *inp["coord_w"], cutoffs=inp["cut"], tanh=True,
-        coords_range=15.0, norm_constant=1.0, normalization_factor=100.0, update_rows=24,
-        cross=inp["cross"], graph_mean=inp["graph_mean"]), above)
+    res["refusals"] = {
+        f"gcl_agg_width_{REFUSED_QUAD}": refused_before_launch(
+            ec, f"gcl_agg_width_{REFUSED_QUAD}", lambda: ec.gcl_message_agg(
+                *(inp[k] for k in node), *inp["gcl_w"].values(), cutoffs=inp["cut"],
+                attention=True, normalization_factor=100.0), above),
+        f"coord_agg_width_{REFUSED_QUAD}": refused_before_launch(
+            ec, f"coord_agg_width_{REFUSED_QUAD}", lambda: ec.coord_update_agg(
+                *(inp[k] for k in node), *inp["coord_w"], cutoffs=inp["cut"], tanh=True,
+                coords_range=15.0, norm_constant=1.0, normalization_factor=100.0,
+                update_rows=24, cross=inp["cross"], graph_mean=inp["graph_mean"]), above)}
     del inp
-    narrower = ("above 2048", "ROADMAP", "widths above 2048")
-    blk = kernel_inputs(torch, dev, model(REFUSED_QUAD_TRAIN), 2, 24, with_delta=True)
-    refused(f"block_fused_width_{REFUSED_QUAD_TRAIN}", lambda: ec.block_fused(
-        *block_operands(blk), cutoffs=blk["cut"], attention=True, tanh=True,
-        coords_range=15.0, norm_constant=1.0, normalization_factor=100.0),
-        ("block_fused",) + narrower)
-    del blk
-    data = work / "data20m"
-    write_synthetic_dataset(data, 2, 1, seed=23, pocket_sizes=(250, 280), n_types=11)
-    batch = next(iter(PaddedLoader(LigandPocketDataset(data / "train.npz"), 2, shuffle=False)))
-    cfg = load_config(overrides=model(REFUSED_QUAD_TRAIN))
-    torch.manual_seed(0)
-    module = build_module_from_config(cfg, np.load(data / "size_distribution.npy")).to(dev)
-    module.train()
-    refused(f"train_step_hidden_{REFUSED_QUAD_TRAIN}", lambda: module.loss_fn(
-        None, loop.batch_to_device(batch["ligand"], dev),
-        loop.batch_to_device(batch["pocket"], dev), training=True),
-        ("gcl_agg_bwd",) + narrower)
-    del module
     torch.cuda.empty_cache()
     res["phase_s"] = time.perf_counter() - t0
     print(f"  phase 20m took {res['phase_s']:.1f} s")
+    return res
+
+
+def refused_before_launch(ec, key, call, names):
+    """``call()`` raises a ValueError whose message names each of ``names``,
+    and launches no kernel.  Returns the message."""
+    ec.reset_launch_counts()
+    try:
+        call()
+        msg = ""
+    except ValueError as err:
+        msg = str(err)
+    _check(all(n in msg for n in names), f"{key} did not raise naming {names}: {msg!r}")
+    _check(not any(ec.launch_counts.values()), f"{key} launched {ec.launch_counts}")
+    print(f"  {key}: raises before any launch: '{msg[:110]}'")
+    return msg
+
+
+def quad_train_phase(torch, ec, dev, flagship, work, card):
+    """Phase 20n (c), the training main path at hidden 4096: cli.train from
+    the config phase 8 writes (``flagship_train_config``) at hidden
+    ``QUAD_WIDTH``, ``WIDE_LAYERS`` layers and batch ``QUAD_TRAIN["batch"]``,
+    on a seeded synthetic dataset of ``QUAD_TRAIN["steps"]`` batches and one
+    validation batch: one epoch, its validation pass, its checkpoints.  Each
+    step launches one of each split kernel a layer, each on clusters of four
+    (F = 4096), with a finite loss and gradient norm; validation only the
+    two forward kernels; the checkpoints are written (then removed: 12.9 GB
+    with the optimizer's moments)."""
+    from diffsbdd_tpu_torch.cli import train as train_cli
+    from diffsbdd_tpu_torch.train import loop
+    batch, steps = QUAD_TRAIN["batch"], QUAD_TRAIN["steps"]
+    data = work / "data20n"
+    write_synthetic_dataset(data, batch * steps, batch, seed=26,
+                            pocket_sizes=(250, 280, 310, 320))
+    run_name = f"chip_smoke_train_{QUAD_WIDTH}"
+    cfg = flagship_train_config(flagship, data, work / "runs20n", run_name=run_name)
+    cfg.update(batch_size=batch, egnn_params=dict(cfg["egnn_params"], hidden_nf=QUAD_WIDTH,
+                                                  n_layers=WIDE_LAYERS))
+    cfg_path = work / f"train_config_{QUAD_WIDTH}.json"
+    cfg_path.write_text(json.dumps(cfg))
+    split = [k for k in ec.KERNELS if k != "block_fused"]
+    records = []
+    trainer_log = loop.Trainer.log
+
+    def log(self, metrics, split_name, step):
+        torch.cuda.synchronize()
+        records.append(dict(split=split_name, step=step, t=time.perf_counter(),
+                            launches=dict(ec.launch_counts),
+                            clusters={k: ec.last_cluster_dim(k) for k in split},
+                            **{k: float(v) for k, v in metrics.items()}))
+
+    loop.Trainer.log = log
+    try:
+        ec.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        train_cli.main(["--config", str(cfg_path)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        loop.Trainer.log = trainer_log
+    launches = dict(ec.launch_counts)
+    train = [r for r in records if r["split"] == "train"]
+    val = [r for r in records if r["split"] == "val"]
+    _check(len(train) == steps and len(val) == 1,
+           f"hidden {QUAD_WIDTH}: {len(train)} train and {len(val)} val records")
+    n_layers = WIDE_LAYERS
+    want_step = {k: 0 if k == "block_fused" else n_layers for k in ec.KERNELS}
+    prev = dict.fromkeys(ec.KERNELS, 0)
+    for r in train:
+        per_step = {k: r["launches"][k] - prev[k] for k in ec.KERNELS}
+        _check(per_step == want_step, f"hidden {QUAD_WIDTH} step {r['step']}: launches "
+                                      f"{per_step}, expected {want_step}")
+        _check(set(r["clusters"].values()) == {4},
+               f"hidden {QUAD_WIDTH} step {r['step']}: clusters {r['clusters']}, not 4")
+        _check(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"]),
+               f"hidden {QUAD_WIDTH} step {r['step']}: loss {r['loss']}, "
+               f"grad_norm {r['grad_norm']}")
+        prev = r["launches"]
+    in_val = {k: val[0]["launches"][k] - prev[k] for k in ec.KERNELS}
+    want_val = {**dict.fromkeys(ec.KERNELS, 0), "gcl_agg": 2 * n_layers, "coord_agg": 2 * n_layers}
+    _check(in_val == want_val, f"hidden {QUAD_WIDTH} validation launches {in_val}, "
+                               f"expected {want_val}")
+    _check(np.isfinite(val[0]["loss"]), f"hidden {QUAD_WIDTH} validation loss {val[0]['loss']}")
+    ckpt = work / "runs20n" / run_name / "checkpoints"
+    written = {f.name: f.stat().st_size for f in ckpt.iterdir()}
+    for name in ("last.pt", "last.train.pt", "last.config.json", "best.pt"):
+        _check(written.get(name, 0) > 0, f"hidden {QUAD_WIDTH}: no {name} written")
+    shutil.rmtree(work / "runs20n", ignore_errors=True)
+    step_ms = 1e3 * (train[1]["t"] - train[0]["t"])
+    res = dict(batch=batch, steps=steps, layers=n_layers, launches=launches, per_step=want_step,
+               validation=in_val, losses=[r["loss"] for r in train], val_loss=val[0]["loss"],
+               grad_norms=[r["grad_norm"] for r in train], step_ms=step_ms, cli_wall_s=wall,
+               checkpoint_gb=sum(written.values()) / 1e9)
+    print(f"  {card}: cli.train at hidden {QUAD_WIDTH}, {n_layers} layers, batch {batch}: "
+          f"{steps} steps "
+          f"(launches a step {want_step}, clusters of 4), loss "
+          + " ".join(f"{r['loss']:.4f}" for r in train)
+          + f", gradient norm " + " ".join(f"{r['grad_norm']:.4f}" for r in train)
+          + f", val {val[0]['loss']:.4f}; the second step {step_ms:.1f} ms; CLI wall "
+          f"{wall:.1f} s ({res['checkpoint_gb']:.1f} GB of checkpoints)")
+    return res
+
+
+def quad_bwd_phase(torch, ec, dev, flagship, logs, work, card):
+    """Phase 20n, training at hidden widths 2049-4096 on the backward kernels
+    at F = 4096 (a row tile on a cluster of four blocks).  (a)
+    ``tier_kernel_phase`` of gcl_agg_bwd and coord_agg_bwd at F = 4096 at
+    every tier on phase 3b's main shapes (the plain versions in batch
+    slices of 1): the tier gates, two launches bit for bit, each tier's
+    cluster dimension, ms, plain ms, bound; registers, spills and shared
+    memory.  (b) ``padded_kernel_phase`` of the two at ``QUAD_PADDED``.  (c)
+    ``quad_train_phase``: cli.train at hidden 4096.  (d)
+    ``cluster_train_step`` at hidden ``QUAD_PADDED`` (padded onto 4096),
+    batch ``QUAD_TRAIN["batch"]``.  (c) and (d) at ``WIDE_LAYERS`` layers.
+    (e) refusals, each before any launch:
+    width ``REFUSED_QUAD`` in the two backward wrappers, ``block_fused`` at
+    ``QUAD_PADDED``."""
+    from diffsbdd_tpu_torch.data.dataset import LigandPocketDataset, PaddedLoader
+    from diffsbdd_tpu_torch.train import loop
+    t0 = time.perf_counter()
+    F = QUAD_WIDTH
+    kernels = tier_kernel_phase(ec, torch, dev, flagship, F, names=CLUSTER_BWD_KERNELS)
+    for name in CLUSTER_BWD_KERNELS:
+        for tier in ec.TIERS:
+            dim = kernels[f"{name}[{tier}]"]["cluster_dim"] = ec.last_cluster_dim(name, tier)
+            _check(dim == 4, f"{name}[{tier}] F={F}: cluster dimension {dim}, not 4")
+    usage = ptxas_usage(logs, F)
+    smem = 4 * (16 * 2048 + 2 * 8 * (1024 + 8)) + 4 * 352  # OWN, STG, B, the columns (N = 352)
+    for name in CLUSTER_BWD_KERNELS:
+        _check(name in usage, f"{name} has no instantiation at F = {F}")
+        for u in usage[name]:
+            print(f"  {name} F={F} {u['function'][:60]}: {u['registers']} registers, spill "
+                  f"stores {u['spill_stores']} B, loads {u['spill_loads']} B; shared memory "
+                  f"{smem} B dynamic (N = 352) + {u['static_smem']} B static")
+        for tier in ec.TIERS:
+            kernels[f"{name}[{tier}]"]["ptxas"] = usage[name]
+    res = {"card": card, "kernels": kernels, "smem_dynamic": smem}
+    print(f"  20n (a) took {time.perf_counter() - t0:.1f} s")
+    res["padded"] = padded_kernel_phase(ec, torch, dev, flagship, QUAD_PADDED,
+                                        names=CLUSTER_BWD_KERNELS)
+    for key, entry in res["padded"].items():
+        _check(entry["cluster_dim"] == 4, f"width {QUAD_PADDED} {key}: cluster "
+                                          f"{entry['cluster_dim']}, not 4")
+    res["training"] = quad_train_phase(torch, ec, dev, flagship, work, card)
+    data = work / "data20n_step"
+    write_synthetic_dataset(data, QUAD_TRAIN["batch"], 1, seed=27,
+                            pocket_sizes=(250, 280, 310, 320), n_types=11)
+    batch = next(iter(PaddedLoader(LigandPocketDataset(data / "train.npz"),
+                                   QUAD_TRAIN["batch"], shuffle=False)))
+    r = res["train_step"] = cluster_train_step(
+        torch, ec, dev, flagship, QUAD_PADDED, loop.batch_to_device(batch["ligand"], dev),
+        loop.batch_to_device(batch["pocket"], dev), np.load(data / "size_distribution.npy"))
+    print(f"  {card}: hidden {QUAD_PADDED} (kernels at {r['run_at']}), {r['layers']} layers, "
+          f"train step at batch {r['batch']}: {r['ms_per_step']:.1f} ms, peak "
+          f"{r['peak_gib']:.2f} GiB, loss "
+          f"{r['loss']:.4f}, gradient norm {r['grad_norm']:.4f}, launches {r['launches']}, "
+          f"clusters {r['cluster_dims']}")
+
+    def model(width):
+        return dict(flagship, egnn_params=dict(flagship["egnn_params"], hidden_nf=width))
+
+    node = ("a_row", "a_col", "x", "x0", "mask", "is_lig")
+    inp = kernel_inputs(torch, dev, model(REFUSED_QUAD), 2, 24, with_delta=True)
+    w, (w_d2, w_d20, _, w2, b2, w3) = inp["gcl_w"], inp["coord_w"]
+    cross = {k: v for k, v in inp["cross"].items() if k != "type_bias"}
+    cross["delta"] = inp["cross_delta"]
+    above = ("above 4096", "ROADMAP", "widths above 4096")
+    res["refusals"] = {
+        f"gcl_agg_bwd_width_{REFUSED_QUAD}": refused_before_launch(
+            ec, f"gcl_agg_bwd_width_{REFUSED_QUAD}", lambda: ec.gcl_agg_bwd(
+                inp["r"](2, inp["N"], REFUSED_QUAD), *(inp[k] for k in node), w["w_d2"],
+                w["w_d20"], inp["gcl_delta"], w["w2"], w["b2"], w["w_att"], w["b_att"],
+                cutoffs=inp["cut"], attention=True, normalization_factor=100.0),
+            ("gcl_agg_bwd",) + above),
+        f"coord_agg_bwd_width_{REFUSED_QUAD}": refused_before_launch(
+            ec, f"coord_agg_bwd_width_{REFUSED_QUAD}", lambda: ec.coord_agg_bwd(
+                inp["r"](2, inp["N"], 3), *(inp[k] for k in node), w_d2, w_d20,
+                inp["coord_delta"], w2, b2, w3, cutoffs=inp["cut"], tanh=True,
+                coords_range=15.0, norm_constant=1.0, normalization_factor=100.0,
+                cross=cross, graph_mean=inp["graph_mean"], update_rows=24),
+            ("coord_agg_bwd",) + above)}
+    del inp
+    blk = kernel_inputs(torch, dev, model(QUAD_PADDED), 2, 24, with_delta=True)
+    res["refusals"][f"block_fused_width_{QUAD_PADDED}"] = refused_before_launch(
+        ec, f"block_fused_width_{QUAD_PADDED}", lambda: ec.block_fused(
+            *block_operands(blk), cutoffs=blk["cut"], attention=True, tanh=True,
+            coords_range=15.0, norm_constant=1.0, normalization_factor=100.0),
+        ("block_fused", "above 2048", "ROADMAP", "widths above 2048"))
+    del blk
+    torch.cuda.empty_cache()
+    res["phase_s"] = time.perf_counter() - t0
+    print(f"  phase 20n took {res['phase_s']:.1f} s")
     return res
 
 
@@ -4954,6 +5145,7 @@ def start_measurement_builds(ec):
     """Starts nvcc on each of ``MEASUREMENT_BUILDS`` (3xTF32).  Returns
     {build: (the process, the kernel, the library's path)}."""
     builds = {}
+    ec.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     for key, (name, define, lib) in MEASUREMENT_BUILDS.items():
         path = ec.BUILD_DIR / lib
         builds[key] = (subprocess.Popen(
@@ -5094,6 +5286,9 @@ def phase20(torch, ec, dev, flagship, logs, work, pdb, ref_lig, base, card, join
     print(f"[20m] hidden widths 2049-4096 on the F = {QUAD_WIDTH} forward kernels, clusters "
           f"of four blocks ({card})")
     res["quad"] = quad_width_phase(torch, ec, dev, flagship, logs, work, pdb, ref_lig, card)
+    print(f"[20n] training at hidden widths 2049-4096 on the F = {QUAD_WIDTH} backward "
+          f"kernels, clusters of four blocks ({card})")
+    res["quad_bwd"] = quad_bwd_phase(torch, ec, dev, flagship, logs, work, card)
     res["phase_s"] = time.perf_counter() - t20
     print(f"  phase 20 took {res['phase_s']:.1f} s")
     return res
@@ -5123,11 +5318,13 @@ def main(argv=None) -> int:
 
     print("[2] build")
     t0 = time.perf_counter()
-    logs = ec.build_kernels(force=True, tiers=tuple(ec.TIERS))
-    build_s = time.perf_counter() - t0
-    print(f"  built {', '.join(logs)} in {build_s:.1f} s")
-    builds = start_measurement_builds(ec)  # phase 20i's, built while phases 3-19 run
+    # phase 20i's measurement builds, compiled beside the libraries so that
+    # no host-bound phase shares the cores with them
+    builds = start_measurement_builds(ec)
     try:
+        logs = ec.build_kernels(force=True, tiers=tuple(ec.TIERS))
+        build_s = time.perf_counter() - t0
+        print(f"  built {', '.join(logs)} in {build_s:.1f} s")
         return _phases(torch, ec, dev, out, card, logs, build_s, builds, t_start)
     finally:
         for proc, _, _ in builds.values():
@@ -5474,20 +5671,35 @@ def _phases(torch, ec, dev, out, card, logs, build_s, builds, t_start) -> int:
          "dense_ms": dense["ms"], "dense_plain_ms": dense["plain_ms"],
          "dense_bound_ms": dense["bound_ms"], "library_ms": None})
     # gcl_agg and coord_agg at F = 4096 (3xTF32, a row tile on a cluster of
-    # four blocks), their launches on phase 20m's hidden-4096 main path
-    quad = tiers["quad"]
+    # four blocks), their launches on phase 20m's hidden-4096 main path and
+    # 20n's cli.train run at hidden 4096
+    quad, qb = tiers["quad"], tiers["quad_bwd"]
     for name, main_variant in (("gcl_agg", "full"), ("coord_agg", "ligand_rows_cross")):
-        counts = {"quad_sampling": quad["chain"]["launches"][name]}
-        _check(counts["quad_sampling"] > 0, f"no hidden-{QUAD_WIDTH} path launched {name}")
+        counts = {"quad_sampling": quad["chain"]["launches"][name],
+                  "quad_training": qb["training"]["launches"][name]}
+        _check(min(counts.values()) > 0, f"no hidden-{QUAD_WIDTH} path launched {name}")
         runs = [e for e in quad["kernels"]["variants"].values()
                 if e["kernel"] == name and e["tier"] == ec.DEFAULT_TIER]
         entry = quad["kernels"]["variants"][f"{name}[{ec.DEFAULT_TIER}]:{main_variant}"]
         cluster_entries.append(
             {"name": f"{name}[F={QUAD_WIDTH}]", "route": "cuda", "source": sources[name][0],
-             "replaces": sources[name][1], "launches": counts["quad_sampling"],
+             "replaces": sources[name][1], "launches": max(counts.values()),
              "launches_by_path": counts, "max_abs_err": max(e["max_abs_err"] for e in runs),
              **{k: entry[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "cluster_dim",
                                       "variant")}, "library_ms": None})
+    # gcl_agg_bwd and coord_agg_bwd at F = 4096 (3xTF32, clusters of four
+    # blocks), their launches on 20n's cli.train run at hidden 4096 and its
+    # hidden-3072 train step
+    for name in CLUSTER_BWD_KERNELS:
+        counts = {"quad_training": qb["training"]["launches"][name],
+                  f"quad_train_step_{QUAD_PADDED}": qb["train_step"]["launches"][name]}
+        _check(min(counts.values()) > 0, f"no hidden-{QUAD_WIDTH} path launched {name}")
+        entry = {k: v for k, v in qb["kernels"][f"{name}[{ec.DEFAULT_TIER}]"].items()
+                 if k != "ptxas"}
+        cluster_entries.append(
+            {"name": f"{name}[F={QUAD_WIDTH}]", "route": "cuda", "source": sources[name][0],
+             "replaces": sources[name][1], "launches": counts["quad_training"],
+             "launches_by_path": counts, **entry, "library_ms": None})
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": sources[name][0],
          "replaces": sources[name][1], "launches": launches[name],

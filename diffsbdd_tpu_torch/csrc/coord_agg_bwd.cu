@@ -50,10 +50,11 @@
 // tiles (da_col of both MLPs, dx/dx0, dmean, the weight cotangents) goes
 // through per-block slabs and the summing kernel, without atomics, so the
 // result is deterministic.  F = 2048 runs each row tile and MLP on a cluster
-// of two blocks, each owning half of the MLP's features
-// (egnn_cluster_bwd.cuh's pieces: the head and the distance cotangents
-// summed over the two blocks, the per-pair coordinate terms, dmean and the
-// scatter on rank 0; one slab a cluster).
+// of two blocks, each owning half of the MLP's features, F = 4096 on a
+// cluster of four, each a quarter (egnn_cluster_bwd.cuh's pieces: the head
+// and the distance cotangents summed over the blocks in rank order, the
+// per-pair coordinate terms, dmean and the scatter on rank 0; one slab a
+// cluster).
 #include "egnn_cluster_bwd.cuh"
 
 namespace {
@@ -435,8 +436,9 @@ __device__ void coord_bwd_pass(const CoordBwdArgs& g, float* S, float* D, float*
   if (CROSS && threadIdx.x < 3) g.mean_part[slab * 3 + threadIdx.x] = dmean;
 }
 
-// The row tile's and the chunk's shared state at F = 2048 (one cluster
-// block), one copy for both passes: the block's halves of the vectors.
+// The row tile's and the chunk's shared state of one cluster block (F =
+// 2048, 4096: the same sizes), one copy for both passes: the block's parts
+// of the vectors.
 struct ClusterCoordShared {
   static constexpr int P = mma::Layout<2048>::P, FB = mma::Layout<2048>::FB;
   Chunk<1> chunk;
@@ -446,21 +448,23 @@ struct ClusterCoordShared {
   float rowc[P][6], colc[P][6], meanc[P][3];
   float b2s[FB], w3s[FB], wd2s[FB], wd20s[FB];
   float xpart[mma::Layout<2048>::SLICES][P];  // the slices' shares of the head
-  float share[2][P];      // the block's shares of two pair sums, read by the peer
+  float share[2][P];      // the block's shares of two pair sums, read by the peers
   float grow[3], mean[3]; // g / nf of the row, 0 past update_rows
 };
 
-// One row tile of one MLP at F = 2048, one block of a cluster of two: the
-// body of coord_bwd_tile_tc on egnn_cluster_bwd.cuh's pieces (as
-// gcl_bwd_tile_cluster), with the coordinate head's epilogue; rank 0 alone
-// computes and scatters the per-pair coordinate terms and sums dmean.
-template <bool CROSS>
+// One row tile of one MLP at F = 2048 or 4096, one block of a cluster of
+// C = F / 1024: the body of coord_bwd_tile_tc on egnn_cluster_bwd.cuh's
+// pieces (as gcl_bwd_tile_cluster), with the coordinate head's epilogue;
+// rank 0 alone computes and scatters the per-pair coordinate terms and sums
+// dmean.
+template <int F, bool CROSS>
 __device__ void coord_bwd_tile_cluster(const CoordBwdArgs& g, size_t node0, size_t slab,
                                        int i0, float* A, float* Bt, int* cols,
-                                       mma::W2BwdRing<2048>& ring, mma::ClusterBwdState& st,
+                                       mma::W2BwdClusterRing<F>& ring, mma::ClusterBwdState& st,
                                        ClusterCoordShared& sh, float& dmean) {
-  using L = mma::Layout<2048>;
-  constexpr int F = 2048, P = L::P, FB = L::FB, SLICES = L::SLICES;
+  using L = mma::Layout<F>;
+  constexpr int P = L::P, FB = L::FB, SLICES = L::SLICES;
+  constexpr bool WIDE = L::CLUSTER > 2;
   const PairMlp& m = CROSS ? g.cross : g.coord;
   const unsigned rank = cluster_rank(), peer = rank ^ 1u;
   const int col0 = (int)rank * FB;
@@ -472,6 +476,7 @@ __device__ void coord_bwd_tile_cluster(const CoordBwdArgs& g, size_t node0, size
   float* acol_part = (CROSS ? g.ccol_part : g.acol_part) + slab * (size_t)g.N * F;
   float* dx_part = g.dx_part + slab * (size_t)g.N * 6;
   float* dw2 = (CROSS ? g.cw_part : g.w_part) + slab * weight_slab(F) + col0;
+  float* D = WIDE ? A + P * FB : Bt;  // the block's dz2: STG, or B at 2048
 
   __syncthreads();  // the previous tile is no longer read
   load_rows(sh.rows, g.x, g.x0, g.mask, g.is_lig, node0, i0, g.N, g.update_rows);
@@ -520,15 +525,22 @@ __device__ void coord_bwd_tile_cluster(const CoordBwdArgs& g, size_t node0, size
       sh.q[t] = qv;
       sh.dw[t] = dw;
     }
-    mma::fill_m1_cluster(fill, chunk, A);
-    cluster_sync();  // X1: both halves of S are filled
-    ring.start(false);
-    mma::copy_peer_cols(A, peer);
     float acc[1][L::NTN][4];
-    mma::product_sw<F, mma::kTier>(A, ring, acc);  // z2 - b2 = m1 @ W2[:, O_r]
+    if constexpr (WIDE) {
+      mma::fill_m1_own(fill, chunk, A);
+      cluster_sync();  // X1: every block's part of S is filled
+      ring.start(false);
+      mma::product_parts<F, mma::kTier>(A, A + P * FB, rank, ring, acc);  // z2 - b2 = m1 @ W2[:, O_r]
+    } else {
+      mma::fill_m1_cluster(fill, chunk, A);
+      cluster_sync();  // X1: both halves of S are filled
+      ring.start(false);
+      mma::copy_peer_cols(A, peer);
+      mma::product_sw<F, mma::kTier>(A, ring, acc);  // z2 - b2 = m1 @ W2[:, O_r]
+    }
 
     // ---- epilogue: z2, the block's share of the head raw = m2 . w3, the
-    // sum over both blocks, phi, draw, dz2 -> B
+    // sum over the blocks, phi, draw, dz2 -> D
     float pr[2] = {0.0f, 0.0f};
 #pragma unroll
     for (int n = 0; n < L::NTN; ++n) {
@@ -558,8 +570,11 @@ __device__ void coord_bwd_tile_cluster(const CoordBwdArgs& g, size_t node0, size
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int p = gid + 8 * h;
-      const float raw =
-          mma::cluster_sum(sh.share[0][p], load_peer(peer_share + 4u * p), rank);
+      float raw;
+      if constexpr (WIDE)
+        raw = mma::cluster_sum<F>(sh.share[0], p, 0.0f);
+      else
+        raw = mma::cluster_sum(sh.share[0][p], load_peer(peer_share + 4u * p), rank);
       float phi = raw, d = sh.dw[p] * sh.q[p];  // dphi
       if (g.use_tanh) {
         const float th = tanhf(raw);
@@ -586,19 +601,27 @@ __device__ void coord_bwd_tile_cluster(const CoordBwdArgs& g, size_t node0, size
           dz2[c] = draw[h] * sh.w3s[f + c] * s * fmaf(z, 1.0f - s, 1.0f);
           hv[n][c] = fmaf(z * s, draw[h], hv[n][c]);
         }
-        *reinterpret_cast<float2*>(Bt + p * FB + ((slice * L::FW + 8 * n) ^ ce)) =
+        *reinterpret_cast<float2*>(D + p * FB + ((slice * L::FW + 8 * n) ^ ce)) =
             make_float2(dz2[0], dz2[1]);
       }
     }
     mma::add_head_cotangent(hv, st.hvs);
     __syncthreads();  // dz2 complete
-    mma::dw2_cluster<mma::kTier>(A, Bt, kmask, dw2);
-    __syncthreads();  // A and B no longer read
-    mma::place_dz2_half(Bt, A, col0, st.fa);
-    cluster_sync();  // X3: both halves of dz2 are placed
-    ring.start(true);
-    mma::copy_peer_cols(A, peer);
-    mma::product_sw<F, mma::kTier>(A, ring, acc);  // dm1[:, I_r] = dz2 @ W2^T[:, I_r]
+    if constexpr (WIDE) {
+      mma::add_db2(D, st.fa);
+      mma::dw2_parts<F, mma::kTier>(A, D, Bt, rank, kmask, dw2);
+      cluster_sync();  // X3: every dz2 part is in place, no block reads another's S
+      ring.start(true);
+      mma::product_parts<F, mma::kTier>(D, A, rank, ring, acc);  // dm1[:, I_r] = dz2 @ W2^T[:, I_r]
+    } else {
+      mma::dw2_cluster<mma::kTier>(A, Bt, kmask, dw2);
+      __syncthreads();  // A and B no longer read
+      mma::place_dz2_half(Bt, A, col0, st.fa);
+      cluster_sync();  // X3: both halves of dz2 are placed
+      ring.start(true);
+      mma::copy_peer_cols(A, peer);
+      mma::product_sw<F, mma::kTier>(A, ring, acc);  // dm1[:, I_r] = dz2 @ W2^T[:, I_r]
+    }
     __syncthreads();  // the last stage is read
     mma::store_fragments(acc, Bt);
     __syncthreads();  // dm1 complete
@@ -618,9 +641,14 @@ __device__ void coord_bwd_tile_cluster(const CoordBwdArgs& g, size_t node0, size
       if (j >= 0) {
         const float* xj = g.x + (node0 + j) * 3;
         const float* x0j = g.x0 + (node0 + j) * 3;
-        float dd2 = mma::cluster_sum(sh.share[0][t], load_peer(peer_share + 4u * t), rank);
-        const float dd20 =
-            mma::cluster_sum(sh.share[1][t], load_peer(peer_share + 4u * (P + t)), rank);
+        float dd2, dd20;
+        if constexpr (WIDE) {
+          dd2 = mma::cluster_sum<F>(sh.share[0], t, 0.0f);
+          dd20 = mma::cluster_sum<F>(sh.share[1], t, 0.0f);
+        } else {
+          dd2 = mma::cluster_sum(sh.share[0][t], load_peer(peer_share + 4u * t), rank);
+          dd20 = mma::cluster_sum(sh.share[1][t], load_peer(peer_share + 4u * (P + t)), rank);
+        }
         const float w_ = sh.phi[t] * sh.q[t];
         if (!CROSS) {
           const float sq = sqrtf(chunk.d2[t] + 1e-8f), norm = sq + nc;
@@ -663,46 +691,47 @@ __device__ void coord_bwd_tile_cluster(const CoordBwdArgs& g, size_t node0, size
   mma::store_row_cluster(fill, node0, i0, g.N, g.update_rows, CROSS ? g.dc_row : g.da_row);
 }
 
-// One MLP over every row tile of cluster q (blockIdx.x / 2) of batch b: as
+// One MLP over every row tile of cluster q (blockIdx.x / C) of batch b: as
 // coord_bwd_pass, with the cluster's slab.
-template <bool CROSS>
+template <int F, bool CROSS>
 __device__ void coord_bwd_pass_cluster(const CoordBwdArgs& g, float* A, float* Bt, int* cols,
                                        ClusterCoordShared& sh, float* hvs) {
-  using L = mma::Layout<2048>;
+  using L = mma::Layout<F>;
   const PairMlp& m = CROSS ? g.cross : g.coord;
   const unsigned rank = cluster_rank();
   const int col0 = (int)rank * L::FB;
-  const int Q = gridDim.x / cluster_size<2048>();
+  const int Q = gridDim.x / cluster_size<F>();
   const size_t node0 = (size_t)blockIdx.y * g.N;
-  const size_t slab = (size_t)blockIdx.y * Q + cluster_tile<2048>();
+  const size_t slab = (size_t)blockIdx.y * Q + cluster_tile<F>();
   __syncthreads();  // the previous pass has stored its sums
   for (int e = threadIdx.x; e < L::FB; e += NT) hvs[e] = 0.0f;
   mma::ClusterBwdState st{};
   st.hvs = hvs;
-  mma::W2BwdRing<2048> ring{m.w2 + col0, (CROSS ? g.cw2t : g.w2t) + col0, Bt, 0};
+  mma::W2BwdClusterRing<F> ring{m.w2 + col0, (CROSS ? g.cw2t : g.w2t) + col0, Bt, 0};
   float dmean = 0.0f;  // rank 0's thread t < 3: component t
-  for (int tile = cluster_tile<2048>(); tile < g.tiles; tile += Q)
-    coord_bwd_tile_cluster<CROSS>(g, node0, slab, tile, A, Bt, cols, ring, st, sh, dmean);
+  for (int tile = cluster_tile<F>(); tile < g.tiles; tile += Q)
+    coord_bwd_tile_cluster<F, CROSS>(g, node0, slab, tile, A, Bt, cols, ring, st, sh, dmean);
   // [dW2][w_d2][w_d20][delta][b2][w3][0]: the GCL's slab layout, no head bias
-  mma::store_cluster_bwd_state(st, (CROSS ? g.cw_part : g.w_part) + slab * weight_slab(2048),
-                               A, rank);
+  mma::store_cluster_bwd_state<F>(st, (CROSS ? g.cw_part : g.w_part) + slab * weight_slab(F),
+                                  A, rank);
   if (CROSS && rank == 0 && threadIdx.x < 3) g.mean_part[slab * 3 + threadIdx.x] = dmean;
 }
 
-// F = 2048: the two passes on cluster q's blocks; the last cluster barrier
-// keeps each block's shared memory alive until the peer has read it.
+// F = 2048, 4096: the two passes on cluster q's blocks; the last cluster
+// barrier keeps each block's shared memory alive until the peers have read
+// it.
 template <int F>
 __global__ void __launch_bounds__(NT) coord_agg_bwd_cluster_kernel(CoordBwdArgs g) {
   using L = mma::Layout<F>;
   extern __shared__ __align__(16) float smem[];
-  float* A = smem;                // P * F
-  float* Bt = A + L::P * F;       // the ring, or a P x FB tile
+  float* A = smem;                // kRegionA floats
+  float* Bt = A + mma::kRegionA;  // the ring, or a P x FB tile
   int* cols = reinterpret_cast<int*>(Bt + mma::NS * L::STAGE);  // N
   __shared__ __align__(16) ClusterCoordShared sh;  // 16 B: the fill passes' loads vectorise
   __shared__ float hvs[L::FB];
-  coord_bwd_pass_cluster<false>(g, A, Bt, cols, sh, hvs);
-  if (g.cross.a_row != nullptr) coord_bwd_pass_cluster<true>(g, A, Bt, cols, sh, hvs);
-  cluster_sync();  // the peer has read this block's last shares
+  coord_bwd_pass_cluster<F, false>(g, A, Bt, cols, sh, hvs);
+  if (g.cross.a_row != nullptr) coord_bwd_pass_cluster<F, true>(g, A, Bt, cols, sh, hvs);
+  cluster_sync();  // the peers have read this block's last shares
 }
 
 template <int F>
@@ -756,8 +785,8 @@ int launch(CoordBwdArgs g, int B, int Q, float* da_col, float* dc_col,
 
 }  // namespace
 
-// Q: blocks per batch element, clusters of two at F = 2048 (1 <= Q <= row
-// tiles below update_rows).  The *_part buffers, da_row and dc_row must be
+// Q: blocks per batch element, clusters of two at F = 2048 and of four at
+// 4096 (1 <= Q <= row tiles below update_rows).  The *_part buffers, da_row and dc_row must be
 // zero on entry; da_col, dc_col (B, N, F), dxx0 (B, N, 6), dmean (B, 3),
 // w_out and cw_out (weight_slab) are written in full.  Without the cross
 // branch every cross pointer is null.  w2 and cw2 (and their transposes)
@@ -800,6 +829,7 @@ extern "C" int coord_agg_backward(
     case 512: return launch<512>(g, B, Q, da_col, dc_col, dxx0, dmean, w_out, cw_out, s);
     case 1024: return launch<1024>(g, B, Q, da_col, dc_col, dxx0, dmean, w_out, cw_out, s);
     case 2048: return launch<2048>(g, B, Q, da_col, dc_col, dxx0, dmean, w_out, cw_out, s);
+    case 4096: return launch<4096>(g, B, Q, da_col, dc_col, dxx0, dmean, w_out, cw_out, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

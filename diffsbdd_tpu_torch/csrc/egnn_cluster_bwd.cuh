@@ -1,7 +1,7 @@
-// Hidden width F = 2048 for the two backward kernels (gcl_agg_bwd.cu,
-// coord_agg_bwd.cu): a row tile's pair MLP backward on a thread-block
-// cluster of C = 2 blocks, as egnn_cluster.cuh does the forward; for
-// sm_90a.
+// Hidden widths F = 2048 and 4096 for the two backward kernels
+// (gcl_agg_bwd.cu, coord_agg_bwd.cu): a row tile's pair MLP backward on a
+// thread-block cluster of C = F / 1024 blocks, as egnn_cluster.cuh does the
+// forward; for sm_90a.
 //
 // Why a cluster: one block of F = 1024's backward design would hold S and
 // D of its one m-tile over 2048 features (2 x 131 KB) and a W2 ring of 8-row
@@ -61,6 +61,39 @@
 // blocks compact the same columns and so walk the same chunks: the barrier
 // counts match.
 //
+// F = 4096 (written for any C = F / 1024 > 2, as egnn_cluster.cuh's
+// WideLayout).  Region A would be 16 x 4096 floats, 262 KB, over a block's
+// 227 KB, so a block holds a C-th of K at a time: A becomes two P x FB
+// buffers, OWN and STG (swizzled at row stride FB; A's 128 KB as at 2048), B
+// stays.  Block r owns O_r = I_r = [1024 r, +1024) in F = 1024's warp
+// layout; every product over K = F walks the C parts of FB rows in rank
+// order, part q from this block (q = r) or from peer q through DSMEM, the
+// parts' k-steps accumulating in the order of one K = F product
+// (product_sw<1024> of each part onto the last, the ring streaming all F
+// rows of the block's columns).  Per chunk:
+//   1. each block fills its quarter of S into OWN; X1; product 1: z = S @
+//      W2[:, O_r], the peers' parts copied into STG;
+//   2. the pair sums over all features (m2 . w_att, m2 . g, m2 . w3) add the
+//      C shares in rank order, rank 0's first, from DSMEM: every block the
+//      same bits; X2 before; dz2[:, O_r] goes to STG (D);
+//   3. product 2: dW2[:, O_r] += S^T dz2[:, O_r], rows [1024 q, +1024) from
+//      part q of S: the own part from OWN, a peer's copied into B (free
+//      between the products) from the peer's OWN a second time (recomputing
+//      S_q from a_row, a_col and the distances would load a C-th of the
+//      fill's projections again for each peer part; a copy is 64 KB of DSMEM
+//      against the 32 MB of W2 and W2^T a block streams a chunk);
+//   4. X3 (every block's dz2 is in its STG, and no block reads another's
+//      OWN any more); product 3: dm1[:, I_r] = dz2 @ W2^T[:, I_r], the own
+//      part from STG, peer q's copied from its STG into OWN (OWN is free
+//      after X3);
+//   5. dm1 -> B, dpre as at 2048; the distance cotangents' C shares added in
+//      rank order; X4 (every peer's reads of this block's STG are done, so
+//      that the next chunk's product 1 may stage into it); rank 0 scatters.
+// The roles of OWN and STG swap between products 1-2 and 3 so that a
+// block's own part of S stays put until X3 and no fifth barrier is needed.
+// Shared memory: 198,528 B dynamic at N = 352 (A, B, the columns), as at
+// 2048.
+//
 // Who writes what.  Each block writes only its own features' cotangents:
 // its columns of dW2 and of the da_col slab, da_row, and its halves of
 // db2, the head's cotangent (w_att, w3) and the first layer's (w_d2,
@@ -75,14 +108,16 @@
 namespace egnn {
 namespace mma {
 
-// The backward ring of a cluster block at F = 2048: stage g holds rows
-// (g % KS) * KC .. + KC of the block's columns [col0, col0 + FB) of W2 (g /
-// KS even) or of W2^T (odd); w2 and w2t point at column col0.  A product
-// starts it (start) and its acquires issue no stage past the product's
-// last, so B holds nothing of the ring between the products.
-template <>
-struct W2BwdRing<2048> {
-  using L = Layout<2048>;
+// The backward ring of a cluster block: stage g holds rows (g % KS) * KC ..
+// + KC of the block's columns [col0, col0 + FB) of W2 (g / KS even) or of
+// W2^T (odd), KS = F / KC the stages of one product over all K = F rows; w2
+// and w2t point at column col0.  A product starts it (start) and its
+// acquires issue no stage past the product's last, so B holds nothing of the
+// ring between the products.
+template <int F>
+struct W2BwdClusterRing {
+  using L = Layout<F>;
+  static constexpr int KS = F / L::KC;  // stages a product
   const float* w2;   // W2 + col0
   const float* w2t;  // W2^T + col0
   float* buf;        // NS * STAGE floats
@@ -92,10 +127,10 @@ struct W2BwdRing<2048> {
     constexpr int V = L::FB / 4;  // 16-byte vectors per stage row
     float* dst = buf + (next % NS) * L::STAGE;
     const float* src =
-        ((next / L::KS) & 1 ? w2t : w2) + (size_t)(next % L::KS) * L::KC * 2048;
+        ((next / KS) & 1 ? w2t : w2) + (size_t)(next % KS) * L::KC * F;
     for (int e = threadIdx.x; e < L::KC * V; e += NT) {
       const int r = e / V, v = e % V;
-      cp_async16(dst + r * L::WS + 4 * v, src + (size_t)r * 2048 + 4 * v);
+      cp_async16(dst + r * L::WS + 4 * v, src + (size_t)r * F + 4 * v);
     }
     cp_async_commit();
     ++next;
@@ -104,7 +139,7 @@ struct W2BwdRing<2048> {
   // The first stage of W2 (transpose false) or of W2^T: a product's
   // prologue.  The buffers must be free.
   __device__ __forceinline__ void start(bool transpose) {
-    next = transpose ? L::KS : 0;
+    next = transpose ? KS : 0;
     issue();
   }
 
@@ -113,19 +148,30 @@ struct W2BwdRing<2048> {
     cp_async_wait<NS - 2>();
     __syncthreads();
     const float* stage = buf + ((next - (NS - 1)) % NS) * L::STAGE;
-    if (next % L::KS != 0) issue();
+    if (next % KS != 0) issue();
     return stage;
   }
 };
 
+// Floats of region A at either width: P x 2048 (S, then dz2, of all
+// features at F = 2048; OWN and STG, P x FB each, wider).
+inline constexpr int kRegionA = Layout<2048>::P * 2048;
+
 // Dynamic shared memory of the cluster backward bodies: A, B, the columns.
 inline constexpr size_t dynamic_smem_bwd_cluster(int N) {
-  return sizeof(float) * ((size_t)Layout<2048>::P * 2048 + (size_t)NS * Layout<2048>::STAGE)
+  return sizeof(float) * ((size_t)kRegionA + (size_t)NS * Layout<2048>::STAGE)
        + sizeof(int) * (size_t)N;
 }
 static_assert(NS * Layout<2048>::STAGE >= Layout<2048>::P * Layout<2048>::FB,
               "B holds a P x FB tile");
 static_assert(Layout<2048>::P == 2 * (NT / 32), "pair_dots: two pairs a warp");
+static_assert(2 * Layout<4096>::P * Layout<4096>::FB == kRegionA &&
+              Layout<4096>::STAGE == Layout<2048>::STAGE &&
+              Layout<4096>::FE == Layout<2048>::FE && Layout<4096>::NTN == Layout<2048>::NTN &&
+              Layout<4096>::FB == Layout<2048>::FB && Layout<4096>::P == Layout<2048>::P &&
+              Layout<4096>::FW == Layout<2048>::FW && Layout<1024>::STAGE == Layout<4096>::STAGE,
+              "F = 4096's block: F = 2048's regions and block layout (the pieces below "
+              "that name Layout<2048> serve both), F = 1024's stages");
 
 // A block's sums over its row tiles: features col0 + t + e * NT of the fill
 // layout (head unused), the head's cotangent of the block's features (hvs:
@@ -151,6 +197,19 @@ __device__ __forceinline__ void copy_peer_cols(float* A, unsigned peer) {
   }
 }
 
+// Above 2048: peer `peer`'s P x FB part at `src` (this block's address of
+// the same buffer: OWN or STG, row stride FB) into `dst`, through
+// distributed shared memory.  The peer's writes must be complete (a cluster
+// barrier before).
+template <int F>
+__device__ __forceinline__ void copy_peer_quarter(float* dst, const float* src, unsigned peer) {
+  constexpr int V = Layout<F>::P * Layout<F>::FB / 4;  // 16-byte vectors
+  const uint32_t remote = peer_address(src, peer);
+#pragma unroll 4
+  for (int e = threadIdx.x; e < V; e += NT)
+    *reinterpret_cast<float4*>(dst + 4 * e) = load_peer4(remote + 16u * (unsigned)e);
+}
+
 // S[p][k] = silu(pre) of the block's features k = fill.k0 + e * NT into A
 // (swizzled at row stride 2048; 0 without an edge).
 __device__ __forceinline__ void fill_m1_cluster(const ClusterFill<2048>& fill,
@@ -160,19 +219,30 @@ __device__ __forceinline__ void fill_m1_cluster(const ClusterFill<2048>& fill,
     fill_m1_half<2048>(fill.h[e].w, c, fill.h[e].a_row, fill.h[e].a_col, fill.k0 + e * NT, A);
 }
 
-// dw2[k][n] += sum_p S[p][k] * D[p][n] for k < 2048 and the block's n < FB:
-// S all of A (row stride 2048), D the block's dz2 tile in B (row stride
-// FB), dw2 the cluster's slab at column col0 (row stride 2048).  Bit s of
-// kmask is clear when pairs 8s .. 8s+7 have no edge (their rows of S and D
-// are zero): that k-step is skipped.  F = 1024's warp layout of dw2_tc over
-// each half of the 2048 rows: warp w owns dW2 rows 128 w .. + 127 (8
-// m-tiles), one n-tile of every slab of 8 columns.  S and D must be
-// complete.  TIER: as dw2_tc's.
-template <int TIER>
+// fill_m1_cluster above 2048: the block's features into OWN (row stride FB,
+// feature fill.k0 + e * NT at column threadIdx.x + e * NT), F = 1024's fill.
+template <int F>
+__device__ __forceinline__ void fill_m1_own(const ClusterFill<F>& fill, const Chunk<1>& c,
+                                            float* own) {
+#pragma unroll
+  for (int e = 0; e < Layout<F>::FE; ++e)
+    fill_m1_half<Layout<F>::FB>(fill.h[e].w, c, fill.h[e].a_row, fill.h[e].a_col,
+                                threadIdx.x + e * NT, own);
+}
+
+// dw2[k][n] += sum_p S[p][k] * D[p][n] for k < K and the block's n < FB:
+// S a P x K tile (row stride K: all of A at F = 2048, one part of K wider),
+// D the block's dz2 tile (row stride FB), dw2 the cluster's slab at column
+// col0 and at S's first feature's row (row stride F).  Bit s of kmask is
+// clear when pairs 8s .. 8s+7 have no edge (their rows of S and D are zero):
+// that k-step is skipped.  F = 1024's warp layout of dw2_tc over each 1024
+// rows: warp w owns dW2 rows 128 w .. + 127 (8 m-tiles), one n-tile of
+// every slab of 8 columns.  S and D must be complete.  TIER: as dw2_tc's.
+template <int TIER, int F = 2048, int K = F>
 __device__ __forceinline__ void dw2_cluster(const float* S, const float* D, unsigned kmask,
                                             float* dw2) {
-  using L = Layout<2048>;
-  constexpr int F = 2048, FB = L::FB, P = L::P;
+  using L = Layout<F>;
+  constexpr int FB = L::FB, P = L::P;
   constexpr int WM2 = 8, RG = NT / 32, SW = 8;  // m-tiles a warp, warps, columns a slab
   const int lane = threadIdx.x & 31, rg = threadIdx.x >> 5;
   const int gid = lane >> 2, tig = lane & 3;
@@ -181,7 +251,7 @@ __device__ __forceinline__ void dw2_cluster(const float* S, const float* D, unsi
   const int g0 = gid ^ x0, g8 = (gid + 8) ^ x0, h0 = gid ^ x4, h8 = (gid + 8) ^ x4;
 
 #pragma unroll 1
-  for (int r0 = 0; r0 < F; r0 += RG * WM2 * 16) {
+  for (int r0 = 0; r0 < K; r0 += RG * WM2 * 16) {
 #pragma unroll 1
     for (int s0 = 0; s0 < FB; s0 += SW) {
       float2 old[WM2][2];
@@ -206,10 +276,10 @@ __device__ __forceinline__ void dw2_cluster(const float* S, const float* D, unsi
 #pragma unroll
           for (int m = 0; m < WM2; ++m) {
             const int f0 = r0 + (rg * WM2 + m) * 16 + gid;  // A[gid][.] = S[.][f0]
-            a[m][0] = pack_bf16(S[at<F>(k0, f0)], S[at<F>(k0 + 1, f0)]);
-            a[m][1] = pack_bf16(S[at<F>(k0, f0 + 8)], S[at<F>(k0 + 1, f0 + 8)]);
-            a[m][2] = pack_bf16(S[at<F>(k0 + 8, f0)], S[at<F>(k0 + 9, f0)]);
-            a[m][3] = pack_bf16(S[at<F>(k0 + 8, f0 + 8)], S[at<F>(k0 + 9, f0 + 8)]);
+            a[m][0] = pack_bf16(S[at<K>(k0, f0)], S[at<K>(k0 + 1, f0)]);
+            a[m][1] = pack_bf16(S[at<K>(k0, f0 + 8)], S[at<K>(k0 + 1, f0 + 8)]);
+            a[m][2] = pack_bf16(S[at<K>(k0 + 8, f0)], S[at<K>(k0 + 9, f0)]);
+            a[m][3] = pack_bf16(S[at<K>(k0 + 8, f0 + 8)], S[at<K>(k0 + 9, f0 + 8)]);
           }
           const int c = s0 + gid;  // B[.][gid] = D[.][c]
           const uint32_t b0 = pack_bf16(D[at<FB>(k0, c)], D[at<FB>(k0 + 1, c)]);
@@ -221,8 +291,8 @@ __device__ __forceinline__ void dw2_cluster(const float* S, const float* D, unsi
 #pragma unroll 1
         for (int kp = 0; kp < P; kp += 8) {
           if (!((kmask >> (kp / 8)) & 1u)) continue;
-          const float* s0r = S + (kp + tig) * F;
-          const float* s4r = S + (kp + tig + 4) * F;
+          const float* s0r = S + (kp + tig) * K;
+          const float* s4r = S + (kp + tig + 4) * K;
           const float* d0r = D + (kp + tig) * FB;
           const float* d4r = D + (kp + tig + 4) * FB;
           uint32_t a_hi[WM2][4], a_lo[WM2][4];
@@ -260,10 +330,21 @@ __device__ __forceinline__ void dw2_cluster(const float* S, const float* D, unsi
   }
 }
 
+// The fill layout's db2 sums of the block's features over the chunk: D its
+// dz2 tile (row stride FB), complete.
+__device__ __forceinline__ void add_db2(const float* D, FeatAcc (&fa)[Layout<2048>::FE]) {
+  using L = Layout<2048>;
+#pragma unroll
+  for (int e = 0; e < L::FE; ++e) {
+    const int k = threadIdx.x + e * NT;
+#pragma unroll
+    for (int p = 0; p < L::P; ++p) fa[e].b2 += D[at<L::FB>(p, k)];
+  }
+}
+
 // The block's dz2 tile (B, row stride FB) into its columns [col0, col0 +
 // FB) of A (row stride 2048: the same positions within each row, as the
-// swizzle stays within 32-float groups), and the fill layout's db2 sums of
-// the block's features over the chunk.  B must be complete.
+// swizzle stays within 32-float groups), and add_db2.  B must be complete.
 __device__ __forceinline__ void place_dz2_half(const float* Bt, float* A, int col0,
                                                FeatAcc (&fa)[Layout<2048>::FE]) {
   using L = Layout<2048>;
@@ -273,11 +354,54 @@ __device__ __forceinline__ void place_dz2_half(const float* Bt, float* A, int co
     *reinterpret_cast<float4*>(A + p * 2048 + col0 + 4 * v) =
         *reinterpret_cast<const float4*>(Bt + p * L::FB + 4 * v);
   }
+  add_db2(Bt, fa);
+}
+
+// Product 2 above 2048: dw2 += S^T D over all F rows of dW2, rows [q FB,
+// q FB + FB) from part q of S: OWN (q == rank) or peer q's OWN, copied into
+// `staging` (B, free between the products).  D: the block's dz2 (row stride
+// FB), complete; the peers keep their OWN until the next cluster barrier.
+template <int F, int TIER>
+__device__ __forceinline__ void dw2_parts(const float* own, const float* D, float* staging,
+                                          unsigned rank, unsigned kmask, float* dw2) {
+  using L = Layout<F>;
+#pragma unroll 1
+  for (int q = 0; q < L::CLUSTER; ++q) {
+    const float* part = own;
+    if (q != (int)rank) {
+      __syncthreads();  // the staging's last part is no longer read
+      copy_peer_quarter<F>(staging, own, (unsigned)q);
+      __syncthreads();  // the part is complete
+      part = staging;
+    }
+    dw2_cluster<TIER, F, L::FB>(part, D, kmask, dw2 + (size_t)q * L::FB * F);
+  }
+}
+
+// Products 1 and 3 above 2048: acc = X @ M[:, the block's columns] over
+// K = F in C parts of FB rows, in rank order (the k-steps of one K = F
+// product): part q from `own` (q == rank) or from peer q's `own`, copied
+// into `staging` through DSMEM; M streams through the ring (started).
+// Every block's `own` must be complete (a cluster barrier before); the
+// peers read it until the next cluster barrier.
+template <int F, int TIER>
+__device__ __forceinline__ void product_parts(const float* own, float* staging, unsigned rank,
+                                              W2BwdClusterRing<F>& ring,
+                                              float (&acc)[1][Layout<F>::NTN][4]) {
+  using L = Layout<F>;
 #pragma unroll
-  for (int e = 0; e < L::FE; ++e) {
-    const int k = threadIdx.x + e * NT;
+  for (int n = 0; n < L::NTN; ++n)
 #pragma unroll
-    for (int p = 0; p < L::P; ++p) fa[e].b2 += Bt[at<L::FB>(p, k)];
+    for (int e = 0; e < 4; ++e) acc[0][n][e] = 0.0f;
+#pragma unroll 1
+  for (int q = 0; q < L::CLUSTER; ++q) {
+    const float* part = own;
+    if (q != (int)rank) {
+      __syncthreads();  // every warp is done with the staging's last part
+      copy_peer_quarter<F>(staging, own, (unsigned)q);
+      part = staging;   // complete at the product's first acquire sync
+    }
+    product_sw<L::FB, TIER, false>(part, ring, acc);
   }
 }
 
@@ -303,19 +427,20 @@ __device__ __forceinline__ void store_fragments(
 // h[e].arow, the first-layer weights' into fa, the column sums added into
 // the cluster's da_col slab (columns fill.k0 + e * NT; the entries loaded
 // first, so that the loads are in flight together).  Bt must be complete.
-__device__ __forceinline__ void dpre_cluster(ClusterFill<2048>& fill, const Chunk<1>& c,
+template <int F>
+__device__ __forceinline__ void dpre_cluster(ClusterFill<F>& fill, const Chunk<1>& c,
                                              float* Bt, const int* cols, int count, int c0,
-                                             FeatAcc (&fa)[Layout<2048>::FE],
+                                             FeatAcc (&fa)[Layout<F>::FE],
                                              float* acol_part) {
-  using L = Layout<2048>;
+  using L = Layout<F>;
 #pragma unroll
   for (int e = 0; e < L::FE; ++e) {
-    FillHalf<2048>& h = fill.h[e];
+    FillHalf<F>& h = fill.h[e];
     const int k = threadIdx.x + e * NT, kg = fill.k0 + e * NT;
     float cs[TJ];
 #pragma unroll
     for (int u = 0; u < TJ; ++u)
-      cs[u] = c0 + u < count ? acol_part[(size_t)cols[c0 + u] * 2048 + kg] : 0.0f;
+      cs[u] = c0 + u < count ? acol_part[(size_t)cols[c0 + u] * F + kg] : 0.0f;
 #pragma unroll
     for (int u = 0; u < TJ; ++u) {  // pair u: TI = 1 row
       const float pre = pre_fill(h.w, c, u, h.a_row[0], h.a_col[u]);
@@ -330,12 +455,12 @@ __device__ __forceinline__ void dpre_cluster(ClusterFill<2048>& fill, const Chun
     }
 #pragma unroll
     for (int u = 0; u < TJ; ++u)
-      if (c0 + u < count) acol_part[(size_t)cols[c0 + u] * 2048 + kg] = cs[u];
+      if (c0 + u < count) acol_part[(size_t)cols[c0 + u] * F + kg] = cs[u];
   }
 }
 
 // The block's shares of the pair sums dpre_p . w_d2 and dpre_p . w_d20 over
-// its features (Bt: dpre; wd2s, wd20s: the block's halves) into share[0 /
+// its features (Bt: dpre; wd2s, wd20s: the block's parts) into share[0 /
 // 1][p]: warp w sums pairs 2w and 2w + 1, each lane 32 features, then the
 // lanes in a fixed order.  Bt must be complete.
 __device__ __forceinline__ void pair_dots(const float* Bt, const float* wd2s,
@@ -366,7 +491,8 @@ __device__ __forceinline__ void pair_dots(const float* Bt, const float* wd2s,
 }
 
 // The two blocks' shares of a pair sum added in a fixed order, rank 0's
-// first: the same value in both blocks.
+// first: the same value in both blocks (wider: egnn_cluster.cuh's
+// cluster_sum<F>, the C shares in rank order).
 __device__ __forceinline__ float cluster_sum(float own, float other, unsigned rank) {
   return (rank == 0 ? own : other) + (rank == 0 ? other : own);
 }
@@ -392,42 +518,46 @@ __device__ __forceinline__ void add_head_cotangent(const float (&hv)[Layout<2048
 
 // The prologue of a row tile shared by the two bodies: the fill registers
 // of the block's features (first-layer weights, a_row, zeroed row sums).
-__device__ __forceinline__ void load_fill_cluster(ClusterFill<2048>& fill, const PairMlp& m,
+template <int F>
+__device__ __forceinline__ void load_fill_cluster(ClusterFill<F>& fill, const PairMlp& m,
                                                   size_t node0, int i0, int N, int col0) {
   fill.k0 = col0 + threadIdx.x;
   fill.load_weights(m, node0, i0, N);
 #pragma unroll
-  for (int e = 0; e < Layout<2048>::FE; ++e) fill.h[e].arow[0] = 0.0f;
+  for (int e = 0; e < Layout<F>::FE; ++e) fill.h[e].arow[0] = 0.0f;
 }
 
 // The block's da_row of row i0 (its features), when the row is live.
-__device__ __forceinline__ void store_row_cluster(const ClusterFill<2048>& fill, size_t node0,
+template <int F>
+__device__ __forceinline__ void store_row_cluster(const ClusterFill<F>& fill, size_t node0,
                                                   int i0, int N, int update_rows,
                                                   float* da_row) {
   if (i0 >= N || i0 >= update_rows) return;
 #pragma unroll
-  for (int e = 0; e < Layout<2048>::FE; ++e)
-    da_row[(node0 + i0) * 2048 + fill.k0 + e * NT] = fill.h[e].arow[0];
+  for (int e = 0; e < Layout<F>::FE; ++e)
+    da_row[(node0 + i0) * F + fill.k0 + e * NT] = fill.h[e].arow[0];
 }
 
-// One row tile of the GCL backward at F = 2048, one block of a cluster of
-// two (the header): row i0 of the batch item at node0, slab `slab` of the
-// per-cluster scratch.  A, Bt: the regions of dynamic shared memory;
-// cols: N ints.  Both blocks of the cluster must call it on the same row.
-// TIER: the precision tier of the three products.
-template <int TIER = TF32X3>
+// One row tile of the GCL backward at F = 2048 or 4096, one block of a
+// cluster of C = F / 1024 (the header): row i0 of the batch item at node0,
+// slab `slab` of the per-cluster scratch.  A, Bt: the regions of dynamic
+// shared memory (A: OWN, then STG, above 2048); cols: N ints.  Every block
+// of the cluster must call it on the same row.  TIER: the precision tier of
+// the three products.
+template <int F, int TIER = TF32X3>
 __device__ void gcl_bwd_tile_cluster(const GclBwdArgs& g, size_t node0, size_t slab, int i0,
-                                     float* A, float* Bt, int* cols, W2BwdRing<2048>& ring,
+                                     float* A, float* Bt, int* cols, W2BwdClusterRing<F>& ring,
                                      ClusterBwdState& st) {
-  using L = Layout<2048>;
-  constexpr int F = 2048, P = L::P, FB = L::FB, SLICES = L::SLICES;
+  using L = Layout<F>;
+  constexpr int P = L::P, FB = L::FB, SLICES = L::SLICES;
+  constexpr bool WIDE = L::CLUSTER > 2;
   __shared__ Rows<1> rows;
   __shared__ __align__(16) Chunk<1> chunk;
   __shared__ float rowc[P][6], colc[P][6];
-  __shared__ float b2s[FB], watt[FB], wd2s[FB], wd20s[FB];  // the block's halves
+  __shared__ float b2s[FB], watt[FB], wd2s[FB], wd20s[FB];  // the block's parts
   __shared__ float gs[FB];                 // g / nf of the row's block features
   __shared__ float xpart[2][SLICES][P];    // the slices' shares of two pair sums
-  __shared__ float share[2][P];            // the block's shares, read by the peer
+  __shared__ float share[2][P];            // the block's shares, read by the peers
 
   const unsigned rank = cluster_rank(), peer = rank ^ 1u;
   const int col0 = (int)rank * FB;
@@ -439,6 +569,7 @@ __device__ void gcl_bwd_tile_cluster(const GclBwdArgs& g, size_t node0, size_t s
   float* acol_part = g.acol_part + slab * (size_t)g.N * F;
   float* dx_part = g.dx_part + slab * (size_t)g.N * 6;
   float* dw2 = g.w_part + slab * weight_slab(F) + col0;
+  float* D = WIDE ? A + P * FB : Bt;  // the block's dz2: STG, or B at 2048
 
   __syncthreads();  // the previous tile is no longer read
   load_rows(rows, g.x, g.x0, g.mask, g.is_lig, node0, i0, g.N, g.update_rows);
@@ -463,12 +594,19 @@ __device__ void gcl_bwd_tile_cluster(const GclBwdArgs& g, size_t node0, size_t s
                c0, g.cut);
     __syncthreads();
     const unsigned kmask = edge_ksteps16(chunk.j, lane);
-    fill_m1_cluster(fill, chunk, A);
-    cluster_sync();  // X1: both halves of S are filled
-    ring.start(false);
-    copy_peer_cols(A, peer);
     float acc[1][L::NTN][4];
-    product_sw<F, TIER>(A, ring, acc);  // z2 - b2 = m1 @ W2[:, O_r]
+    if constexpr (WIDE) {
+      fill_m1_own(fill, chunk, A);
+      cluster_sync();  // X1: every block's part of S is filled
+      ring.start(false);
+      product_parts<F, TIER>(A, A + P * FB, rank, ring, acc);  // z2 - b2 = m1 @ W2[:, O_r]
+    } else {
+      fill_m1_cluster(fill, chunk, A);
+      cluster_sync();  // X1: both halves of S are filled
+      ring.start(false);
+      copy_peer_cols(A, peer);
+      product_sw<F, TIER>(A, ring, acc);  // z2 - b2 = m1 @ W2[:, O_r]
+    }
 
     // ---- epilogue: m2, the attention gate and its cotangent, dz2 -> B
     float pa[2] = {0.0f, 0.0f}, pg[2] = {0.0f, 0.0f};  // m2 . w_att, m2 . g
@@ -515,8 +653,14 @@ __device__ void gcl_bwd_tile_cluster(const GclBwdArgs& g, size_t node0, size_t s
       const int p = gid + 8 * h;
       gate[h] = chunk.adj[p];
       if (attention) {
-        const float dot = b_att + cluster_sum(share[0][p], load_peer(peer_share + 4u * p), rank);
-        const float pgs = cluster_sum(share[1][p], load_peer(peer_share + 4u * (P + p)), rank);
+        float dot, pgs;
+        if constexpr (WIDE) {
+          dot = cluster_sum<F>(share[0], p, b_att);
+          pgs = cluster_sum<F>(share[1], p, 0.0f);
+        } else {
+          dot = b_att + cluster_sum(share[0][p], load_peer(peer_share + 4u * p), rank);
+          pgs = cluster_sum(share[1][p], load_peer(peer_share + 4u * (P + p)), rank);
+        }
         const float att = sigmoid_fast(dot), adj = gate[h];
         dattz[h] = pgs * adj * att * (1.0f - att);
         gate[h] = adj * att;
@@ -541,21 +685,31 @@ __device__ void gcl_bwd_tile_cluster(const GclBwdArgs& g, size_t node0, size_t s
           dz2[c] = dm2 * s * fmaf(z, 1.0f - s, 1.0f);
           hv[n][c] = fmaf(z * s, dattz[h], hv[n][c]);
         }
-        *reinterpret_cast<float2*>(Bt + p * FB + ((slice * L::FW + 8 * n) ^ ce)) =
+        *reinterpret_cast<float2*>(D + p * FB + ((slice * L::FW + 8 * n) ^ ce)) =
             make_float2(dz2[0], dz2[1]);
       }
     }
     if (attention) add_head_cotangent(hv, st.hvs);
     __syncthreads();  // dz2 complete
+    if constexpr (WIDE) {
+      add_db2(D, st.fa);
 #ifndef EGNN_SKIP_DW2  // defined only in a timing build (chip_smoke.py 20i): dW2 stays 0
-    dw2_cluster<TIER>(A, Bt, kmask, dw2);
+      dw2_parts<F, TIER>(A, D, Bt, rank, kmask, dw2);
 #endif
-    __syncthreads();  // A and B no longer read
-    place_dz2_half(Bt, A, col0, st.fa);
-    cluster_sync();  // X3: both halves of dz2 are placed
-    ring.start(true);
-    copy_peer_cols(A, peer);
-    product_sw<F, TIER>(A, ring, acc);  // dm1[:, I_r] = dz2 @ W2^T[:, I_r]
+      cluster_sync();  // X3: every dz2 part is in place, no block reads another's S
+      ring.start(true);
+      product_parts<F, TIER>(D, A, rank, ring, acc);  // dm1[:, I_r] = dz2 @ W2^T[:, I_r]
+    } else {
+#ifndef EGNN_SKIP_DW2  // defined only in a timing build (chip_smoke.py 20i): dW2 stays 0
+      dw2_cluster<TIER>(A, Bt, kmask, dw2);
+#endif
+      __syncthreads();  // A and B no longer read
+      place_dz2_half(Bt, A, col0, st.fa);
+      cluster_sync();  // X3: both halves of dz2 are placed
+      ring.start(true);
+      copy_peer_cols(A, peer);
+      product_sw<F, TIER>(A, ring, acc);  // dm1[:, I_r] = dz2 @ W2^T[:, I_r]
+    }
     __syncthreads();  // the last stage is read
     store_fragments(acc, Bt);
     __syncthreads();  // dm1 complete
@@ -571,8 +725,14 @@ __device__ void gcl_bwd_tile_cluster(const GclBwdArgs& g, size_t node0, size_t s
       const int j = chunk.j[t];
       for (int a = 0; a < 6; ++a) { rowc[t][a] = 0.0f; colc[t][a] = 0.0f; }
       if (j >= 0) {
-        const float dd2 = cluster_sum(share[0][t], load_peer(peer_share + 4u * t), rank);
-        const float dd20 = cluster_sum(share[1][t], load_peer(peer_share + 4u * (P + t)), rank);
+        float dd2, dd20;
+        if constexpr (WIDE) {
+          dd2 = cluster_sum<F>(share[0], t, 0.0f);
+          dd20 = cluster_sum<F>(share[1], t, 0.0f);
+        } else {
+          dd2 = cluster_sum(share[0][t], load_peer(peer_share + 4u * t), rank);
+          dd20 = cluster_sum(share[1][t], load_peer(peer_share + 4u * (P + t)), rank);
+        }
         const float* xj = g.x + (node0 + j) * 3;
         const float* x0j = g.x0 + (node0 + j) * 3;
         for (int a = 0; a < 3; ++a) {
@@ -591,14 +751,14 @@ __device__ void gcl_bwd_tile_cluster(const GclBwdArgs& g, size_t node0, size_t s
 
 // Writes the block's vector cotangents into its cluster's weight slab
 // (weight_slab: [dW2][w_d2][w_d20][delta][b2][head][head bias]): its
-// features' halves, and rank 0 the head bias (the attention bias's
+// features' parts, and rank 0 the head bias (the attention bias's
 // cotangent, summed over the block in a fixed order).  scratch: NT floats
-// of shared memory the peer no longer reads.
+// of shared memory the peers no longer read.
+template <int F>
 __device__ __forceinline__ void store_cluster_bwd_state(const ClusterBwdState& st,
                                                         float* w_part, float* scratch,
                                                         unsigned rank) {
-  using L = Layout<2048>;
-  constexpr int F = 2048;
+  using L = Layout<F>;
   const int t = threadIdx.x, col0 = (int)rank * L::FB;
   __syncthreads();  // scratch is no longer read, hvs complete
   scratch[t] = st.dbatt;

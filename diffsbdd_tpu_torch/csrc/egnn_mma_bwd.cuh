@@ -182,21 +182,26 @@ struct W2BwdRing {
 // P x F tile, M the ring's next KS stages.  A must be complete before the
 // first acquire's sync.  TIER: the product's precision tier (the swizzle
 // keeps a bf16 fragment's column pair 2tig, 2tig + 1 adjacent: one float2;
-// stages of 8 rows take k-steps of 8).
-template <int F, int TIER = TF32X3>
-__device__ __forceinline__ void product_sw(const float* A, W2BwdRing<F>& ring,
+// stages of 8 rows take k-steps of 8).  ZERO false: the products add onto
+// acc as it is, and Ring is any ring whose stages are Layout<F>'s
+// (egnn_cluster_bwd.cuh above F = 2048: each C-th of K a product_sw<1024>
+// onto the last, from the cluster ring).
+template <int F, int TIER = TF32X3, bool ZERO = true, class Ring = W2BwdRing<F>>
+__device__ __forceinline__ void product_sw(const float* A, Ring& ring,
                                            float (&acc)[Layout<F>::WM][Layout<F>::NTN][4]) {
   using L = Layout<F>;
   constexpr int KC = L::KC, ROW_GROUPS = row_groups<F>(), WM = L::WM;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int gid = lane >> 2, tig = lane & 3;
   const int rg = warp % ROW_GROUPS, slice = warp / ROW_GROUPS;
+  if constexpr (ZERO) {
 #pragma unroll
-  for (int m = 0; m < WM; ++m)
+    for (int m = 0; m < WM; ++m)
 #pragma unroll
-    for (int n = 0; n < L::NTN; ++n)
+      for (int n = 0; n < L::NTN; ++n)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[m][n][e] = 0.0f;
+        for (int e = 0; e < 4; ++e) acc[m][n][e] = 0.0f;
+  }
 
   const int xg = swz(gid);  // rows gid and gid + 8 of every m-tile
   if constexpr (TIER == BF16 && KC < 16) {

@@ -38,7 +38,9 @@
 // rows.  F = 2048 runs each row tile on a cluster of two blocks, each owning
 // half of the features (egnn_cluster_bwd.cuh: W2 at 16 MB, 8 MB a chunk a
 // block and product; the pair sums over all features added over the two
-// blocks; one slab a cluster).
+// blocks; one slab a cluster), F = 4096 on a cluster of four, each owning a
+// quarter and holding a quarter of K at a time (W2 at 64 MB, 16 MB a chunk
+// a block and product; the peers' parts of S and dz2 through DSMEM).
 #include "egnn_cluster_bwd.cuh"
 
 namespace {
@@ -70,16 +72,17 @@ __global__ void __launch_bounds__(NT) gcl_agg_bwd_kernel(GclBwdArgs g) {
   mma::store_gcl_bwd_state<F>(st, g.w_part + slab * weight_slab(F), S);
 }
 
-// F = 2048: cluster q (blockIdx.x / 2) walks the row tiles q, q + Q, ... of
-// batch b = blockIdx.y, each on both of its blocks (egnn_cluster_bwd.cuh),
-// with slab q of its batch; the last cluster barrier keeps each block's
-// shared memory alive until the peer has read it.
+// F = 2048, 4096: cluster q (blockIdx.x / C) walks the row tiles q, q + Q,
+// ... of batch b = blockIdx.y, each on all C of its blocks
+// (egnn_cluster_bwd.cuh), with slab q of its batch; the last cluster
+// barrier keeps each block's shared memory alive until the peers have read
+// it.
 template <int F>
 __global__ void __launch_bounds__(NT) gcl_agg_bwd_cluster_kernel(GclBwdArgs g) {
   using L = mma::Layout<F>;
   extern __shared__ __align__(16) float smem[];
-  float* A = smem;                // P * F
-  float* Bt = A + L::P * F;       // the ring, or a P x FB tile
+  float* A = smem;                // kRegionA floats
+  float* Bt = A + mma::kRegionA;  // the ring, or a P x FB tile
   int* cols = reinterpret_cast<int*>(Bt + mma::NS * L::STAGE);  // N
   const int col0 = (int)cluster_rank() * L::FB;
   const int Q = gridDim.x / cluster_size<F>();
@@ -90,11 +93,11 @@ __global__ void __launch_bounds__(NT) gcl_agg_bwd_cluster_kernel(GclBwdArgs g) {
   for (int e = threadIdx.x; e < L::FB; e += NT) hvs[e] = 0.0f;
   mma::ClusterBwdState st{};
   st.hvs = hvs;
-  mma::W2BwdRing<F> ring{g.mlp.w2 + col0, g.w2t + col0, Bt, 0};
+  mma::W2BwdClusterRing<F> ring{g.mlp.w2 + col0, g.w2t + col0, Bt, 0};
   for (int tile = cluster_tile<F>(); tile < g.tiles; tile += Q)
-    mma::gcl_bwd_tile_cluster<mma::kTier>(g, node0, slab, tile, A, Bt, cols, ring, st);
-  mma::store_cluster_bwd_state(st, g.w_part + slab * weight_slab(F), A, cluster_rank());
-  cluster_sync();  // the peer has read this block's last shares
+    mma::gcl_bwd_tile_cluster<F, mma::kTier>(g, node0, slab, tile, A, Bt, cols, ring, st);
+  mma::store_cluster_bwd_state<F>(st, g.w_part + slab * weight_slab(F), A, cluster_rank());
+  cluster_sync();  // the peers have read this block's last shares
 }
 
 template <int F>
@@ -128,8 +131,8 @@ int launch(GclBwdArgs g, int B, int Q, float* da_col, float* dxx0, float* w_out,
 
 }  // namespace
 
-// Q: blocks per batch element, clusters of two at F = 2048 (1 <= Q <= row
-// tiles below update_rows).  The *_part buffers and da_row must be zero on
+// Q: blocks per batch element, clusters of two at F = 2048 and of four at
+// 4096 (1 <= Q <= row tiles below update_rows).  The *_part buffers and da_row must be zero on
 // entry; da_col (B, N, F), dxx0 (B, N, 6) and w_out (weight_slab) are
 // written in full.
 extern "C" int gcl_agg_backward(
@@ -153,6 +156,7 @@ extern "C" int gcl_agg_backward(
     case 512: return launch<512>(g, B, Q, da_col, dxx0, w_out, s);
     case 1024: return launch<1024>(g, B, Q, da_col, dxx0, w_out, s);
     case 2048: return launch<2048>(g, B, Q, da_col, dxx0, w_out, s);
+    case 4096: return launch<4096>(g, B, Q, da_col, dxx0, w_out, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -67,20 +67,19 @@ Hidden widths.  The five kernels are instantiated at F = 64, 128, 256,
 ``row_tile``; at 2048 each row tile on a cluster of two blocks,
 ``cluster_size``: ``csrc/egnn_cluster.cuh`` the forward kernels' and the
 whole-block kernel's, ``csrc/egnn_cluster_bwd.cuh`` the backward kernels'),
-and the two forward split kernels, the samplers', also at 4096 (each row
-tile on a cluster of four blocks, ``csrc/egnn_cluster.cuh``'s
-``WideLayout``): ``KERNEL_WIDTHS``.  On CUDA the public wrappers run any
-other width up to their kernel's widest at the next of its widths
-(``padded_width``: 32 at 64, 96 at 128, 192 at 256, 384 at 512, 768 at 1024,
-1088 at 2048, 3072 at 4096): every operand's width axes zero-padded
-(``pad_operands``), the outputs' cut back.  The padded channels stay exact
-zeros through every MLP, so the result is the unpadded one up to summation
-order, at every tier; gradients reach the true width through autograd of
-the padding.  Wider than a kernel's widest raises before any launch: above
-4096 in the forward split wrappers, above 2048 in the backward ones and in
-``block_fused``, and a forward wrapper at 2049-4096 whose gradient will be
-due raises too, naming the backward kernel (a train step at such a width
-fails at its first layer).
+and the four split kernels, the samplers' and the train step's, also at
+4096 (each row tile on a cluster of four blocks holding a quarter of K
+each: ``csrc/egnn_cluster.cuh``'s ``WideLayout``, and
+``csrc/egnn_cluster_bwd.cuh``'s wide branches): ``KERNEL_WIDTHS``.  On
+CUDA the public wrappers run any other width up to their kernel's widest
+at the next of its widths (``padded_width``: 32 at 64, 96 at 128, 192 at
+256, 384 at 512, 768 at 1024, 1088 at 2048, 3072 at 4096): every
+operand's width axes zero-padded (``pad_operands``), the outputs' cut back.
+The padded channels stay exact zeros through every MLP, so the result is
+the unpadded one up to summation order, at every tier; gradients reach the
+true width through autograd of the padding.  Wider than a kernel's widest
+raises before any launch: above 4096 in the four split wrappers, above
+2048 in ``block_fused``.
 
 The kernels are compiled with ``nvcc`` for ``sm_90a`` into plain-C shared
 libraries under ``csrc/build`` at first use (``build_kernels``) and loaded with
@@ -105,8 +104,8 @@ HEADERS = (CSRC / "egnn_common.cuh", CSRC / "egnn_mma.cuh",
            CSRC / "egnn_mma_bwd.cuh", CSRC / "egnn_cluster.cuh",
            CSRC / "egnn_cluster_bwd.cuh")  # shared device code
 # hidden widths the kernels are built for: the fixture checkpoint's, the
-# config default's, the flagship's, and twice, four, eight and (the forward
-# split kernels) sixteen times the flagship's.  The layouts need F to divide
+# config default's, the flagship's, and twice, four, eight and (the split
+# kernels) sixteen times the flagship's.  The layouts need F to divide
 # the block's 256 threads or be a multiple of them, and the dW2 warp layout
 # F >= 64 (csrc/egnn_mma.cuh,
 # egnn_mma_bwd.cuh): 64, 128 and 256 are all the widths they admit up to 256;
@@ -116,10 +115,11 @@ HEADERS = (CSRC / "egnn_common.cuh", CSRC / "egnn_mma.cuh",
 # widest zero-padded to the next of its widths (``padded_width``,
 # ``pad_operands``).
 SUPPORTED_F = (64, 128, 256, 512, 1024, 2048, 4096)
-# the kernels built at 4096: the two the samplers launch
-WIDEST_KERNELS = ("gcl_agg", "coord_agg")
-# the widths each kernel is built for: all of them for the two forward split
-# kernels, up to 2048 for the backward kernels and the whole block
+# the kernels built at 4096: the four split kernels, the samplers' and the
+# train step's
+WIDEST_KERNELS = ("gcl_agg", "coord_agg", "gcl_agg_bwd", "coord_agg_bwd")
+# the widths each kernel is built for: all of them for the split kernels, up
+# to 2048 for the whole block
 KERNEL_WIDTHS = {name: SUPPORTED_F if name in WIDEST_KERNELS else SUPPORTED_F[:-1]
                  for name in KERNELS}
 # the ROADMAP.md §2 item that would run each kernel above its widest width
@@ -800,8 +800,8 @@ def padded_width(F: int, name: str = "egnn kernels", kernel: str = "gcl_agg") ->
     """The width ``kernel`` runs hidden width ``F`` at: the least of its
     ``KERNEL_WIDTHS`` that is >= F.  Wider than its widest raises, naming the
     ROADMAP.md §2 item that would build it (``WIDER_ITEM``): above 4096 the
-    two forward split kernels (clusters of eight blocks), above 2048 the
-    backward kernels and ``block_fused`` (clusters of four)."""
+    four split kernels (clusters of eight blocks), above 2048
+    ``block_fused`` (clusters of four)."""
     widths = KERNEL_WIDTHS[kernel]
     for width in widths:
         if width >= F:
@@ -814,7 +814,10 @@ def _refuse_untrainable_width(name: str, bwd_kernel: str, F: int, tensors) -> No
     """Raises before any launch when a gradient of a forward wrapper's output
     will be due (grad mode on, an operand that requires it) at a width
     ``bwd_kernel`` is not built for: a train step at such a width fails at
-    its first layer, not after a forward pass."""
+    its first layer, not after a forward pass.  Each backward kernel is built
+    at every width of its forward kernel, so this fires today only where
+    ``padded_width`` refuses the forward too; it is the guard for a forward
+    kernel built wider than its backward (ROADMAP.md §2: 8192)."""
     if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
         padded_width(F, name, bwd_kernel)
 
@@ -884,9 +887,10 @@ def _check_mlp(name, prefix, mlp, B, N, F, device):
 
 def _blocks_per_batch(B: int, rows: int, device, F: int) -> int:
     """Blocks a backward kernel at built width F runs per batch element,
-    counted in clusters at F = 2048 (``cluster_size``): enough to fill the
-    card's SMs (one block fits an SM), at most one per row tile.  Each owns
-    one slab of the scratch."""
+    counted in clusters at F = 2048 and 4096 (``cluster_size``): enough to
+    fill the card's SMs (one block fits an SM), at most one per row tile.
+    Each owns one slab of the scratch (at 4096 a cluster's dW2 slab is 67 MB:
+    2.15 GB for B = 16, 2 clusters a graph)."""
     tiles = max(1, -(-rows // row_tile(F)))
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     return max(1, min(tiles, sms // (B * cluster_size(F))))
@@ -1264,9 +1268,9 @@ def gcl_message_agg(a_row, a_col, x, x0, mask, is_lig, w_d2, w_d20,
     outside them, so autograd chains through it).  ``mirror_bwd``: the
     backward is autograd through the float32 twin (no backward kernel, no
     ``bwd_precision``), the forward's output the kernel's.  On CUDA a width
-    above 4096 raises before any launch (``padded_width``), and so does one
-    above 2048 whose gradient will be due, unless ``mirror_bwd``
-    (``_refuse_untrainable_width``).
+    above 4096 raises before any launch (``padded_width``), and so would one
+    whose gradient will be due at a width the backward kernel is not built
+    for, unless ``mirror_bwd`` (``_refuse_untrainable_width``).
     """
     tiers = _tiers("gcl_agg", precision, bwd_precision)
     if a_row.device.type == "cpu" and tiers == (DEFAULT_TIER, DEFAULT_TIER):

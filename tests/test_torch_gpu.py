@@ -1289,9 +1289,11 @@ def test_padded_width_network_matches_cpu():
 
 def _wide_network_matches_cpu(hidden):
     """A hidden-``hidden`` network on the card (above 1024: the split kernels
-    at F = 2048, each row tile on a cluster of two blocks): its forward and
-    its gradient on the split kernels and their backward kernels (one launch
-    of each a layer) against the plain versions on the CPU."""
+    at F = 2048 or 4096, each row tile on a cluster of two or four blocks):
+    its forward and its gradient on the split kernels and their backward
+    kernels (one launch of each a layer) against the plain versions on the
+    CPU."""
+    clusters = ec.cluster_size(ec.padded_width(hidden))
     model, batch = _dynamics_case("cuda", hidden_nf=hidden)
     cpu, cpu_batch = _dynamics_case("cpu", hidden_nf=hidden)
     ec.reset_launch_counts()
@@ -1300,13 +1302,14 @@ def _wide_network_matches_cpu(hidden):
         want = cpu(*cpu_batch)
     assert ec.launch_counts == {**dict.fromkeys(ec.KERNELS, 0), "gcl_agg": 2,
                                 "coord_agg": 2}, ec.launch_counts
+    assert ec.last_cluster_dim("gcl_agg") == ec.last_cluster_dim("coord_agg") == clusters
     for f, w in zip(got, want):
         torch.testing.assert_close(f.cpu(), w, atol=1e-4, rtol=1e-4)
     ec.reset_launch_counts()
     grads = _sum_sq_grads(model, batch)
     assert ec.launch_counts == {**dict.fromkeys(ec.KERNELS, 2), "block_fused": 0}, \
         ec.launch_counts
-    assert ec.last_cluster_dim("gcl_agg_bwd") == ec.last_cluster_dim("coord_agg_bwd") == 2
+    assert all(ec.last_cluster_dim(k) == clusters for k in ec.KERNELS if k != "block_fused")
     _assert_cotangents(grads, _sum_sq_grads(cpu, cpu_batch))
 
 
@@ -1323,18 +1326,34 @@ def test_width_2048_network_matches_cpu():
 
 
 def test_forward_width_above_2048_is_refused():
-    """The forward split kernels run every width up to 4096 (2049-4096 on
-    the F = 4096 kernels, clusters of four blocks); 4160 is wider: a
-    ValueError naming the ROADMAP item, before any launch.  At 2112 a
-    forward whose gradient will be due is refused too, naming the backward
-    kernel (built up to 2048), before any launch."""
-    for width, kernel, widest in ((4160, "", 4096), (2112, "_bwd", 2048)):
-        main, extra = _inputs(53, F=width)
+    """The split kernels run every width up to 4096 (2049-4096 on the F =
+    4096 kernels, clusters of four blocks), the backward ones too: at 2112
+    a forward whose gradient is due runs, and so does its gradient, padded
+    onto 4096 (each wrapper once, on clusters of four).  4160 is wider: a
+    ValueError naming the ROADMAP item, before any launch, with a gradient
+    due or not."""
+    main, extra = _inputs(53, F=2112, w_scale=None)
+    m = main["mask"]
+    main["w2"].requires_grad_(True)
+    extra["w3"].requires_grad_(True)
+    ec.reset_launch_counts()
+    out = ec.gcl_message_agg(*main.values(), extra["w_att"], extra["b_att"], cutoffs=CUTOFFS,
+                             attention=True, normalization_factor=100.0)
+    dx = ec.coord_update_agg(*main.values(), extra["w3"], **COORD_KW, update_rows=12,
+                             cross=dict(extra["cross"], w3=extra["w3"]),
+                             graph_mean=(main["x"] * m[..., None]).sum(1) / m.sum(1)[:, None])
+    assert out.shape == (B, N, 2112) and dx.shape == (B, N, 3)
+    dw2, dw3 = torch.autograd.grad(out.square().sum() + dx.square().sum(),
+                                   (main["w2"], extra["w3"]))
+    assert dw2.shape == (2112, 2112) and dw3.shape == (2112, 1)
+    assert torch.isfinite(dw2).all() and torch.isfinite(dw3).all()
+    assert ec.launch_counts == {**dict.fromkeys(ec.KERNELS, 1), "block_fused": 0}
+    assert all(ec.last_cluster_dim(k) == 4 for k in ec.KERNELS if k != "block_fused")
+    for grad_due in (False, True):
+        main, extra = _inputs(53, F=4160)
         m = main["mask"]
-        if kernel:
-            main["w2"].requires_grad_(True)
-            extra["w3"].requires_grad_(True)
-        above = f"above {widest}.*the widest (gcl|coord)_agg{kernel} .*widths above {widest}"
+        main["w2"].requires_grad_(grad_due)
+        above = "above 4096.*the widest (gcl|coord)_agg .*widths above 4096"
         ec.reset_launch_counts()
         with pytest.raises(ValueError, match=above):
             ec.gcl_message_agg(*main.values(), extra["w_att"], extra["b_att"],
@@ -1422,31 +1441,132 @@ def test_forward_kernels_at_4096_on_many_clusters(spread):
 @pytest.mark.parametrize("hidden", [4096, 3072])
 def test_width_4096_network_matches_cpu(hidden):
     """A hidden-4096 (and 3072, zero-padded onto 4096) conditional network on
-    the card: its forward on the split kernels at F = 4096 (one launch of
-    each a layer, clusters of four) against the plain versions on the CPU.
-    Its gradient is refused before any launch, naming the backward kernel,
-    built up to 2048: a train step at this width fails at its first layer."""
-    model, batch = _dynamics_case("cuda", hidden_nf=hidden)
-    cpu, cpu_batch = _dynamics_case("cpu", hidden_nf=hidden)
+    the card: its forward on the split kernels at F = 4096 and its gradient
+    on their backward kernels at F = 4096 (one launch of each a layer,
+    clusters of four) against the plain versions on the CPU."""
+    _wide_network_matches_cpu(hidden)
+
+
+# ---------------------------------------------------------------------------
+# the backward kernels at F = 4096, each row tile on a cluster of four
+# ---------------------------------------------------------------------------
+
+# case: (cross, attention, update_rows, column block of a two-rank edge
+# split), on B = 2 graphs of 45 nodes, 12 of them ligand rows, fan-in weights
+WIDE_BWD_CASES = {"cross": (True, True, 11, None), "no_cross_block": (False, True, 12, 1),
+                  "no_attention_block": (True, False, None, 0)}
+
+
+def _equal_cotangents(got, again):
+    for name in got:
+        assert (got[name] is None and again[name] is None) or torch.equal(got[name],
+                                                                        again[name]), name
+
+
+@pytest.mark.parametrize("width", [4096, 3072])
+@pytest.mark.parametrize("tier", ["tf32x3", "tf32x2", "bf16"])
+@pytest.mark.parametrize("case", list(WIDE_BWD_CASES))
+def test_bwd_kernels_at_4096(case, tier, width):
+    """``gcl_agg_bwd`` and ``coord_agg_bwd`` at F = 4096 (3072 zero-padded
+    onto it) at each tier against their plain versions at the tier (3xTF32:
+    ``_assert_cotangents``; the others ``ec.TIER_GATES``): the cross branch
+    on and off, attention on and off, an odd ``update_rows`` (da_row zero
+    past it), a column block; two launches bit for bit, each on clusters of
+    four blocks of the tier's library."""
+    cross, attention, rows, block = WIDE_BWD_CASES[case]
+    main, extra = _inputs(80, N=45, F=width, w_scale=None)
+    ops = _folded(main)
+    m = main["mask"]
+    col_mask = None if block is None else _column_block(m, block)
+    kw = dict(cutoffs=CUTOFFS, attention=attention, normalization_factor=100.0,
+              update_rows=rows, col_mask=col_mask)
+    ckw = dict(COORD_KW, update_rows=rows, col_mask=col_mask)
+    if cross:
+        ckw.update(cross=_folded_cross(extra["cross"], main["is_lig"], extra["w3"]),
+                   graph_mean=(m[..., None] * main["x"]).sum(1) / m.sum(1)[:, None])
+    att = (extra["w_att"], extra["b_att"]) if attention else (None, None)
+    gen = torch.Generator().manual_seed(81)
+    g = torch.randn(B, 45, width, generator=gen).cuda()
+    gc = torch.randn(B, 45, 3, generator=gen).cuda()
+    calls = {"gcl_agg_bwd": lambda fn, **t: dict(zip(GCL_COT, fn(g, *ops.values(), *att, **kw,
+                                                                 **t))),
+             "coord_agg_bwd": lambda fn, **t: _coord_cot(fn(gc, *ops.values(), extra["w3"],
+                                                            **ckw, **t))}
+    for name, call in calls.items():
+        kernel, plain = getattr(ec, name), getattr(ec, f"{name}_plain")
+        ec.reset_launch_counts()
+        got, again = call(kernel, precision=tier), call(kernel, precision=tier)
+        _only_tier(name, tier, launches=2)
+        assert ec.last_cluster_dim(name, tier) == 4
+        _equal_cotangents(got, again)
+        exact = call(plain)
+        if tier == ec.DEFAULT_TIER:
+            _assert_cotangents(got, exact)
+        else:
+            _assert_tier_cotangents(got, call(plain, precision=tier), exact, tier)
+        if rows is not None:
+            assert not got["da_row"][:, rows:].any()
+
+
+PER_GRAPH = ("da_row", "da_col", "dx", "dx0", "cross.a_row", "cross.a_col", "dmean")
+
+
+def _bwd_plain_in_slices(call, batch, step=1):
+    """``call(sl)`` (a backward plain version's named cotangents on the batch
+    slice ``sl``) over slices of ``step`` graphs: the per-graph cotangents
+    concatenated, the weights' summed."""
+    parts = [call(slice(b, b + step)) for b in range(0, batch, step)]
+    return {k: None if parts[0][k] is None
+            else torch.cat([p[k] for p in parts]) if k in PER_GRAPH
+            else torch.stack([p[k] for p in parts]).sum(0) for k in parts[0]}
+
+
+@pytest.mark.parametrize("spread", [4.0, 1.0], ids=["clean", "collapsed"])
+def test_bwd_kernels_at_4096_on_many_clusters(spread):
+    """A grid of many clusters of four: B = 4 graphs of 344 nodes (24 ligand
+    atoms), attention and edge-type deltas on; the GCL's every row, the
+    coordinate update's ligand rows (cross branch and tanh on); at
+    ``spread`` 1 every pair passes the cutoffs.  Both backward kernels
+    against their plain versions (batch slices of one graph: a (1, 344,
+    344, 4096) float32 tensor is 1.9 GB)."""
+    ins = block_inputs(75, B=4, N=344, F=4096, n_lig=24, spread=spread)
+    _, a_row, a_col, x, x0, mask, is_lig, gcl = ins[:8]
+    nodes = (a_row, a_col, x, x0, mask, is_lig)
+    rest = (gcl["w_d2"], gcl["w_d20"], gcl["type_delta"], gcl["w2"], gcl["b2"],
+            gcl["w_att"], gcl["b_att"])
+    gen = torch.Generator().manual_seed(76)
+    g = torch.randn(4, 344, 4096, generator=gen).cuda()
     ec.reset_launch_counts()
-    with torch.no_grad():
-        got = model(*batch)
-        want = cpu(*cpu_batch)
-    assert ec.launch_counts == {**dict.fromkeys(ec.KERNELS, 0), "gcl_agg": 2,
-                                "coord_agg": 2}, ec.launch_counts
-    assert ec.last_cluster_dim("gcl_agg") == ec.last_cluster_dim("coord_agg") == 4
-    for f, w in zip(got, want):
-        torch.testing.assert_close(f.cpu(), w, atol=1e-4, rtol=1e-4)
-    ec.reset_launch_counts()
-    with pytest.raises(ValueError, match="the widest gcl_agg_bwd .*widths above 2048"):
-        _sum_sq_grads(model, batch)
-    assert not any(ec.launch_counts.values())
+    got = dict(zip(GCL_COT, ec.gcl_agg_bwd(g, *nodes, *rest, **GCL_KW)))
+    assert ec.launch_counts["gcl_agg_bwd"] == 1 and ec.last_cluster_dim("gcl_agg_bwd") == 4
+    ref = _bwd_plain_in_slices(lambda sl: dict(zip(GCL_COT, ec.gcl_agg_bwd_plain(
+        g[sl], *(t[sl] for t in nodes), *rest, **GCL_KW))), 4)
+    _assert_cotangents(got, ref)
+    del got, ref, g
+    main, cross_d, graph_mean = coord_inputs(77, 4, F=4096, spread=spread)
+    a_row, a_col, x, x0, mask, is_lig, w_d2, w_d20, table, w2, b2, w3 = main
+    a_row, a_col, delta = ec.fold_type_bias(a_row, a_col, is_lig, table)
+    nodes = (a_row.contiguous(), a_col.contiguous(), x, x0, mask, is_lig)
+    rest = (w_d2, w_d20, delta, w2, b2, w3)
+    cross = _folded_cross(cross_d, is_lig, cross_d["w3"])
+    kw = dict(COORD_KW, update_rows=24)
+    gc = torch.randn(4, 344, 3, generator=gen).cuda()
+    got = _coord_cot(ec.coord_agg_bwd(gc, *nodes, *rest, **kw, cross=cross,
+                                      graph_mean=graph_mean))
+    assert ec.launch_counts["coord_agg_bwd"] == 1 and ec.last_cluster_dim("coord_agg_bwd") == 4
+
+    def plain(sl):
+        c = {k: (v[sl] if k in ("a_row", "a_col") else v) for k, v in cross.items()}
+        return _coord_cot(ec.coord_agg_bwd_plain(gc[sl], *(t[sl] for t in nodes), *rest, **kw,
+                                                 cross=c, graph_mean=graph_mean[sl]))
+
+    _assert_cotangents(got, _bwd_plain_in_slices(plain, 4))
 
 
 def test_backward_width_above_2048_is_refused():
-    """The backward kernels run every width up to 2048; 2112 is wider: a
+    """The backward kernels run every width up to 4096; 4160 is wider: a
     ValueError naming the ROADMAP item, before any launch."""
-    main, extra = _inputs(53, F=2112)
+    main, extra = _inputs(53, F=4160)
     att = (extra["w_att"], extra["b_att"])
     kw = dict(cutoffs=CUTOFFS, attention=True, normalization_factor=100.0)
     ops = _folded(main)
@@ -1455,9 +1575,9 @@ def test_backward_width_above_2048_is_refused():
                cross=_folded_cross(extra["cross"], main["is_lig"], extra["w3"]),
                graph_mean=(main["x"] * m[..., None]).sum(1) / m.sum(1)[:, None])
     ec.reset_launch_counts()
-    with pytest.raises(ValueError, match="above 2048.*ROADMAP.*widths above 2048"):
-        ec.gcl_agg_bwd(torch.ones(B, N, 2112, device="cuda"), *ops.values(), *att, **kw)
-    with pytest.raises(ValueError, match="above 2048.*ROADMAP.*widths above 2048"):
+    with pytest.raises(ValueError, match="above 4096.*ROADMAP.*widths above 4096"):
+        ec.gcl_agg_bwd(torch.ones(B, N, 4160, device="cuda"), *ops.values(), *att, **kw)
+    with pytest.raises(ValueError, match="above 4096.*ROADMAP.*widths above 4096"):
         ec.coord_agg_bwd(torch.ones(B, N, 3, device="cuda"), *ops.values(), extra["w3"], **ckw)
     assert not any(ec.launch_counts.values())
 

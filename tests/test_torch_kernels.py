@@ -197,20 +197,20 @@ def test_kernel_widths(width):
     """The five kernels are built for hidden widths 64, 128 (the config
     default), 256, 512, 1024 (on tiles of two rows and one, ``ec.row_tile``)
     and 2048 (a row tile on a cluster of two blocks, ``ec.cluster_size``),
-    the two forward split kernels also for 4096 (a cluster of four); every
-    other width up to a kernel's widest runs zero-padded to the next of its
+    the four split kernels also for 4096 (a cluster of four); every other
+    width up to a kernel's widest runs zero-padded to the next of its
     widths, and a wider one is refused before a launch, naming the ROADMAP
     item, never run by the plain version on the card: 1088 and 2048 run on
-    every kernel; 2112, 3072 and 4096 on the forward split kernels (at
-    4096) and are refused by the other three, naming "widths above 2048";
-    4160 is refused by every kernel, the forward split kernels naming
-    "widths above 4096"."""
+    every kernel; 2112, 3072 and 4096 on the four split kernels (at 4096)
+    and are refused by ``block_fused``, naming "widths above 2048"; 4160 is
+    refused by every kernel, the split kernels naming "widths above
+    4096"."""
     assert ec.SUPPORTED_F == (64, 128, 256, 512, 1024, 2048, 4096)
     assert [ec.row_tile(f) for f in ec.SUPPORTED_F] == [4, 4, 4, 2, 1, 1, 1]
     assert [ec.cluster_size(f) for f in ec.SUPPORTED_F] == [1, 1, 1, 1, 1, 2, 4]
     for name in ec.KERNELS:
         widths = ec.KERNEL_WIDTHS[name]
-        widest = 4096 if name in ("gcl_agg", "coord_agg") else 2048
+        widest = 2048 if name == "block_fused" else 4096
         assert widths == tuple(f for f in ec.SUPPORTED_F if f <= widest), name
         assert ec.WIDER_ITEM[name] == f"widths above {widest}", name
         text = (ec.CSRC / f"{name}.cu").read_text()
@@ -228,16 +228,16 @@ def test_kernel_widths(width):
                 ec.padded_width(width, name, name)
 
 
-@pytest.mark.parametrize("width,refused", [(1024, False), (1088, False), (2048, False),
-                                           (2112, True), (4096, True)])
+@pytest.mark.parametrize("width,refused", [(1088, False), (2112, False), (3072, False),
+                                           (4096, False), (4160, True)])
 def test_forward_wrappers_refuse_an_untrainable_width(width, refused):
     """A forward wrapper whose output will need a gradient through a backward
     kernel (grad mode on, an operand that requires it) at a width that
     kernel is not built for raises before any launch, naming the backward
     kernel and its ROADMAP item; without a gradient due (no_grad, or no
     operand that requires one) the width passes this check.  The backward
-    kernels are built up to 2048: 1088 (padded) and 2048 train, 2112 and
-    4096 (which the forward kernels run) are refused.  The wrappers call
+    kernels are built up to 4096: 1088 (padded onto 2048), 2112 and 3072
+    (padded onto 4096) and 4096 train, 4160 is refused.  The wrappers call
     this on CUDA tensors, unless ``mirror_bwd`` takes the plain backward."""
     w = torch.ones(width, width)
     ec._refuse_untrainable_width("gcl_message_agg", "gcl_agg_bwd", width, (w, None))
@@ -247,8 +247,8 @@ def test_forward_wrappers_refuse_an_untrainable_width(width, refused):
     for name, kernel in (("gcl_message_agg", "gcl_agg_bwd"),
                          ("coord_update_agg", "coord_agg_bwd")):
         if refused:
-            with pytest.raises(ValueError, match=f"{name}: feature width {width} above 2048, "
-                               f"the widest {kernel} .*widths above 2048"):
+            with pytest.raises(ValueError, match=f"{name}: feature width {width} above 4096, "
+                               f"the widest {kernel} .*widths above 4096"):
                 ec._refuse_untrainable_width(name, kernel, width, (None, w))
         else:
             ec._refuse_untrainable_width(name, kernel, width, (None, w))

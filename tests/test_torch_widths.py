@@ -327,13 +327,12 @@ def _cut(cot, F):
     return ec.unpad_operands(cot, F)
 
 
-def _port_bwd(name, ops, g, F):
+def _port_bwd(name, ops, g, F, width, update_rows=UPDATE_ROWS):
     """The backward plain version of ``name`` as the card's wrapper runs it
-    at F: operands and ``g`` zero-padded to the backward kernel's width,
-    the cotangents (named as their operands, the cross MLP's a dict, dmean)
-    cut back to F."""
-    width = ec.padded_width(F, kernel=f"{KERNEL[name]}_bwd")
-    assert width == 2048
+    at F: operands and ``g`` zero-padded to the backward kernel's width
+    (asserted to be ``width``), the cotangents (named as their operands, the
+    cross MLP's a dict, dmean) cut back to F."""
+    assert ec.padded_width(F, kernel=f"{KERNEL[name]}_bwd") == width
     t = convert(ops, torch.as_tensor)
     folded = {k: t[k] for k in GCL_KEYS}
     folded["type_bias"] = t["type_bias"][1, 1]  # delta
@@ -341,7 +340,7 @@ def _port_bwd(name, ops, g, F):
     if name == "gcl":
         g_pad = ec._pad_axes(torch.as_tensor(g), F, width, (-1,), "g")
         args = [pad[k] for k in GCL_KEYS[:8]] + [pad["delta"]] + [pad[k] for k in GCL_KEYS[9:]]
-        cot = ec.gcl_agg_bwd_plain(g_pad, *args, **GCL_KW, update_rows=UPDATE_ROWS,
+        cot = ec.gcl_agg_bwd_plain(g_pad, *args, **GCL_KW, update_rows=update_rows,
                                    col_mask=torch.as_tensor(ops["col_mask"]))
         return _cut(dict(zip(ec._GCL_COT, cot)), F)
     cross = {k: t["cross"][k] for k in ec._MLP_KEYS if k != "delta"}
@@ -350,12 +349,12 @@ def _port_bwd(name, ops, g, F):
     w3 = ec.pad_operands(dict(w3=t["w3"]), F, width)["w3"]
     args = [pad[k] for k in GCL_KEYS[:8]] + [pad["delta"], pad["w2"], pad["b2"], w3]
     main, cross_cot, dmean = ec.coord_agg_bwd_plain(
-        torch.as_tensor(g), *args, **COORD_KW, update_rows=UPDATE_ROWS, cross=cross,
+        torch.as_tensor(g), *args, **COORD_KW, update_rows=update_rows, cross=cross,
         graph_mean=t["graph_mean"])
     return dict(_cut(dict(zip(ec._COORD_COT, main)), F), cross=_cut(cross_cot, F), dmean=dmean)
 
 
-def _jax_vjp(name, ops, g):
+def _jax_vjp(name, ops, g, update_rows=UPDATE_ROWS):
     """jax.vjp of the JAX package's dense twin at F: {operand: cotangent}
     (the cross MLP's a dict, the graph mean's as dmean), each table's
     cotangent at [1, 1] as delta."""
@@ -367,9 +366,9 @@ def _jax_vjp(name, ops, g):
         args = [d.get(k, j[k]) for k in keys]
         if name == "gcl":
             return ep.gcl_message_agg_xla(*args, **GCL_KW, col_mask=j["col_mask"],
-                                          update_rows=UPDATE_ROWS, tile_i=1)
+                                          update_rows=update_rows, tile_i=1)
         return ep.coord_update_agg_xla(*args, **COORD_KW, cross=cross, graph_mean=graph_mean,
-                                       update_rows=UPDATE_ROWS, tile_i=1)
+                                       update_rows=update_rows, tile_i=1)
 
     _, vjp = jax.vjp(fn, {k: j[k] for k in diff}, j["cross"], j["graph_mean"])
     main, cross, dmean = vjp(jax.numpy.asarray(g))
@@ -397,7 +396,12 @@ def test_backward_plain_at_2048_matches_jax_vjp(name, F):
     rng = np.random.default_rng(F + 1)
     g = rng.standard_normal((B, N, F if name == "gcl" else 3)).astype(np.float32)
     g[:, UPDATE_ROWS:] = 0.0  # rows past update_rows carry no cotangent
-    got, want = _port_bwd(name, ops, g, F), _jax_vjp(name, ops, g)
+    assert_cotangents_close(name, _port_bwd(name, ops, g, F, 2048), _jax_vjp(name, ops, g))
+
+
+def assert_cotangents_close(name, got, want):
+    """Every cotangent of ``_port_bwd`` against ``_jax_vjp``'s, within
+    ``BWD_TOL``."""
     pairs = [(k, got[k], want.get(k)) for k in got if k not in ("cross", "dmean")]
     if name == "coord":
         pairs += [(f"cross.{k}", got["cross"][k], want["cross"][k]) for k in ec._MLP_KEYS]

@@ -1,20 +1,29 @@
-"""Hidden widths 2049-4096 on the two forward split kernels, on the CPU.
+"""Hidden widths 2049-4096 on the four split kernels, on the CPU.
 
-On the card ``gcl_agg`` and ``coord_agg`` are built at F = 4096 (each row
-tile on a cluster of four blocks), and the wrappers run every width from
-2049 up zero-padded onto 4096; the backward kernels and ``block_fused`` stop
-at 2048.  Here the same padding goes through the plain versions, which
-compute what the kernels do:
+On the card ``gcl_agg``, ``coord_agg`` and their backward kernels are
+built at F = 4096 (each row tile on a cluster of four blocks), and the
+wrappers run every width from 2049 up zero-padded onto 4096;
+``block_fused`` stops at 2048.  Here the same padding goes through the
+plain versions, which compute what the kernels do:
 
 * the GCL and the coordinate update (cross branch on) at 3072 (padded onto
   4096, cut back) and at 4096 against the JAX package's dense twins at F
   (``gcl_message_agg_xla``, ``coord_update_agg_xla``): atol 1e-5 + rtol
   1e-4 (float32 on both sides, the pairs summed in another order); the
   padded channels of the GCL sum and of both pair MLPs' messages (every
-  tier) exact zeros.
+  tier) exact zeros;
+* the backward plain versions at 3072 (padded onto 4096, cut back) and at
+  4096 against ``jax.vjp`` of the same twins: atol 1e-4, rtol 1e-3, as
+  ``test_torch_widths.py``'s 2048 case (each cotangent sums up to B*N*N
+  pair terms in another order); the padded channels' cotangents exact
+  zeros;
+* the slice as a whole: the conditional model's loss gradients at hidden
+  4096 (one EGNN layer, one complex) against JAX's, within 1e-3 of each
+  gradient's largest entry, as ``test_torch_train.py``'s
+  ``test_loss_gradients_match_jax``.
 
-Which kernel runs which width (3072 at 4096 on the two, refused by the
-other three; 4160 refused by all) is ``test_torch_kernels.py``'s
+Which kernel runs which width (3072 at 4096 on the four, refused by
+``block_fused``; 4160 refused by all) is ``test_torch_kernels.py``'s
 ``test_kernel_widths``.
 
 B = 1, N = 12 (5 ligand nodes), one numpy seed a width, operands drawn as
@@ -28,11 +37,16 @@ import pytest
 import torch
 
 import diffsbdd_tpu.ops.egnn_pallas as ep
+from diffsbdd_tpu_torch.convert.jax_params import state_dict_from_jax
 from diffsbdd_tpu_torch.ops import egnn_cuda as ec
-from test_torch_widths import COORD_KEYS, GCL_KEYS, GCL_KW, COORD_KW, TOL, convert, padded
+import test_torch_train as tt
+from test_torch_train import batches, datadir  # noqa: F401  (fixtures)
+from test_torch_widths import (COORD_KEYS, GCL_KEYS, GCL_KW, COORD_KW, TOL, _delta_tables,
+                               _jax_vjp, _port_bwd, assert_cotangents_close, convert, padded)
 
 B, N, NL = 1, 12, 5
 WIDTHS = (3072, 4096)
+UPDATE_ROWS = 9  # odd, below N
 KERNEL = dict(gcl="gcl_agg", coord="coord_agg")
 
 
@@ -109,3 +123,82 @@ def test_padded_pair_messages_at_3072_are_exact_zeros():
                                      m["w_d2"], m["w_d20"], m["type_bias"], m["w2"], m["b2"],
                                      matmul=torch.matmul, precision=tier)
             assert msg.shape[-1] == 4096 and not msg[..., F:].any(), tier
+
+
+@pytest.mark.parametrize("F", WIDTHS)
+@pytest.mark.parametrize("name", ["gcl", "coord"])
+def test_backward_plain_at_4096_matches_jax_vjp(name, F):
+    """The backward plain versions as the card's backward wrappers run them
+    at F = 4096 (3072 padded onto it, the cotangents cut back) against
+    ``jax.vjp`` of JAX's dense twins at F: the GCL with attention, an
+    edge-type delta, a column mask (the first half of the columns) and
+    update_rows; the coordinate update with the cross branch, tanh, the
+    deltas and update_rows.  Every cotangent within atol 1e-4, rtol 1e-3;
+    the padded channels' exact zeros."""
+    ops = _delta_tables(_ops(F))
+    ops["col_mask"] = ops["mask"] * (np.arange(N) < N // 2)
+    rng = np.random.default_rng(F + 1)
+    g = rng.standard_normal((B, N, F if name == "gcl" else 3)).astype(np.float32)
+    g[:, UPDATE_ROWS:] = 0.0  # rows past update_rows carry no cotangent
+    assert_cotangents_close(name, _port_bwd(name, ops, g, F, 4096, UPDATE_ROWS),
+                            _jax_vjp(name, ops, g, UPDATE_ROWS))
+
+
+def seeded_params(overrides, seed=0):
+    """Random weights of the JAX model of ``overrides``, drawn with numpy
+    into its parameter tree (the shapes from ``jax.eval_shape`` of its init:
+    at hidden 4096 the init's own draws and forward pass take most of a
+    test's time): kernels N(0, 1 / fan_in), the coordinate heads' last ones
+    1e-3 of that (as JAX's init scales them down), biases N(0, 0.1^2)."""
+    jm = tt.jax_build(tt.jax_load_config(overrides=overrides), tt.HIST)
+    rng = np.random.default_rng(seed)
+
+    def draw(path, leaf):
+        name = jax.tree_util.keystr(path)
+        scale = (leaf.shape[0] ** -0.5 * (1e-3 if "gcl_equiv" in name and "lin2" in name else 1.0)
+                 if name.endswith("kernel']") else 0.1)
+        return (rng.standard_normal(leaf.shape) * scale).astype(np.float32)
+
+    shapes = jax.eval_shape(lambda: jm.init_params(jax.random.PRNGKey(0), batch_size=2))
+    return jax.tree_util.tree_map_with_path(draw, shapes)
+
+
+def one_complex(part):
+    """The first complex of a padded batch part, its padding cut to its size
+    (the masks hold its nodes first)."""
+    n = int(part["mask"][0].sum())
+    return {k: v[:1, :n] if v.ndim > 1 else v[:1] for k, v in part.items()}
+
+
+def test_hidden_4096_loss_gradients_match_jax(batches):  # noqa: F811
+    """The slice as a whole: the gradient of the conditional model's
+    training loss at hidden 4096 (one EGNN layer; seeded random weights,
+    ``seeded_params``, carried across by ``state_dict_from_jax``), on the
+    first complex of the training batches (its padding cut), against JAX's,
+    parameter by parameter: within 1e-3 of each gradient's largest entry, as
+    ``test_loss_gradients_match_jax`` (float32 forward and backward, sums in
+    another order).  On the card the same step runs every split kernel at
+    F = 4096."""
+    over = tt.tiny_overrides(egnn_params=dict(hidden_nf=4096))
+    jm, params, pm = tt.both_modules(over, seeded_params(over))
+    lig, pkt = (one_complex(batches[0][part]) for part in ("ligand", "pocket"))
+    rng = jax.random.PRNGKey(11)
+    grads = jax.jit(jax.grad(lambda p: jm.loss_fn(
+        p, rng, tt.jnp_batch(lig), tt.jnp_batch(pkt), True)[0]))(params)
+    want = state_dict_from_jax(grads)
+    t_int, noise = tt.jax_draws(rng, lig, tt.A, True)
+    tt.feed(pm, [t_int], noise)
+    loss, _ = pm.loss_fn(None, tt.torch_batch(lig), tt.torch_batch(pkt), True)
+    names, tensors = zip(*pm.named_parameters())
+    assert any(4096 in t.shape for t in tensors)
+    got = torch.autograd.grad(loss, tensors, allow_unused=True)
+    reached = 0
+    for name, g in zip(names, got):
+        if g is None:  # the pocket decoder: the conditional loss never reads it
+            assert not want[name].any(), name
+            continue
+        reached += 1
+        scale = np.abs(want[name]).max()
+        np.testing.assert_allclose(g.numpy(), want[name], atol=1e-3 * scale + 1e-7,
+                                   rtol=0, err_msg=name)
+    assert reached > 20, reached
