@@ -13,8 +13,8 @@ Phases (any failure ends the run with a non-zero exit code):
      library only its tier's HMMA (TF32 or bf16), as many as its passes:
      2xTF32 2/3 of 3xTF32's TF32 HMMA, bf16 1/6 of them in the forward and
      whole-block kernels (between 1/6 and 1/3 in the backward ones, whose
-     dW2 loop is not unrolled); every F = 64 to 2048 function of the
-     five 3xTF32 libraries against its recorded SASS digest
+     dW2 loop is not unrolled); every recorded function (F = 64 to 4096)
+     of the five 3xTF32 libraries against its recorded SASS digest
      (``PARENT_SASS``, same nvcc), and the digests of the functions not
      yet recorded printed;
   3. each forward kernel against its plain PyTorch twin at the flagship shapes
@@ -226,8 +226,7 @@ Phases (any failure ends the run with a non-zero exit code):
      memory), widths 1088 and 1536 run padded (one launch each), the
      flagship's shape at hidden 2048 and 1536 from seeded random weights
      sampled (16 x 24, T = 2: 22 / 18 launches), the joint model at hidden
-     2048 sampled with block fusing off (8 x 24, T = 2), and the refusal
-     before any launch of width 2112 in block_fused.
+     2048 sampled with block fusing off (8 x 24, T = 2).
      20k: training at hidden widths 1025-2048 on the two backward kernels
      at F = 2048, each row tile on a cluster of two blocks: gcl_agg_bwd and
      coord_agg_bwd at every tier at phase 3b's main shapes against their
@@ -240,8 +239,9 @@ Phases (any failure ends the run with a non-zero exit code):
      backward, at F = 2048; ms a step, peak memory, a finite loss and
      gradient norm).  20l: the
      whole-block kernel at F = 2048, both phases on clusters of two
-     blocks, at every tier at phase 3c's joint shapes (B = 8, clean and
-     collapsed) against its plain version (batch slices of 2; the block
+     blocks, at phase 3c's joint shapes (B = 8; the clean complex at every
+     tier, the reduced tiers checked on its first 4 graphs, the collapsed
+     one at 3xTF32) against its plain version (batch slices of 2; the block
      gates; two launches bit for bit; the cluster dimension; ms, bounds,
      registers, spills, shared memory), the bf16 library at F = 1024 and
      2048 and its plain version each against that plain version with its
@@ -270,16 +270,24 @@ Phases (any failure ends the run with a non-zero exit code):
      split kernel a layer and step at F = 4096 on clusters of four, a
      finite loss and gradient norm, the checkpoints written), a two-layer
      hidden-3072 train step at batch 4 (padded onto 4096; ms, peak
-     memory), and the refusals before any launch:
-     width 4160 in the backward wrappers, block_fused at 3072.
+     memory), and the refusals before any launch of width 4160 in the
+     backward wrappers.  20o: the whole-block kernel at F = 4096, both
+     phases on clusters of four blocks, as 20l: at every tier on phase 3c's
+     clean complex (B = 8; plain version in batch slices of 1, the reduced
+     tiers checked on the first 4 graphs), width 3072 padded onto it, the
+     joint model at hidden 4096 with two layers from seeded random weights
+     sampled with block fusing on (8 x 24, T = 2: 2 whole-block launches a
+     pass, no split-kernel launch), and the refusal before any launch of
+     width 4160 in block_fused.
 
 Prints a {"kernels": [...]} line (the five kernels, then the same five at
 F=128 from phase 19, then the five kernels at 2xTF32 and bf16 from phase
 20, then the five at F=512 from phase 20h and at F=1024 from phase 20i,
 then gcl_agg and coord_agg at F=2048 from phase 20j, gcl_agg_bwd and
 coord_agg_bwd at F=2048 from phase 20k, block_fused at F=2048 from
-phase 20l, gcl_agg and coord_agg at F=4096 from phase 20m, and
-gcl_agg_bwd and coord_agg_bwd at F=4096 from phase 20n)
+phase 20l, gcl_agg and coord_agg at F=4096 from phase 20m,
+gcl_agg_bwd and coord_agg_bwd at F=4096 from phase 20n, and block_fused
+at F=4096 from phase 20o)
 and the card line, and as its last line
 {"ok": true, "device": {...}}.  The pocket, the samples and a summary.json go
 to ``--out`` (default chip_smoke_out/ in the repository).  Needs a CUDA card:
@@ -477,8 +485,10 @@ def sass_counts(ec, name, opcodes, function=None, tier="tf32x3"):
 # whole block's phase B at F = 2048 is coord_agg's cluster kernel, one
 # source in egnn_coord.cuh, so both libraries hold the same SASS); then the
 # forward split kernels' F = 4096 functions (clusters of four), recorded
-# from the build that added them; and the nvcc that built them (the card
-# machine's)
+# from the build that added them; then the whole-block kernel's F = 4096
+# functions, recorded from the build that added them (its phase B is
+# coord_agg's F = 4096 cluster kernel, the same SASS in both libraries);
+# and the nvcc that built them (the card machine's)
 PARENT_SASS_FUNCTIONS = {
     "gcl_agg": {
         "_ZN43_GLOBAL__N_22gcl_agg_cluster_kernelILi4096EEEvN4egnn7GclArgsE":
@@ -603,6 +613,12 @@ PARENT_SASS_FUNCTIONS = {
             "3b3d41de8d6cd1ad5a75d1a03b02b8ee405204db40bb284ea998e8de0766489b",
         "_ZN4egnn12add_partialsEPKfmPf":
             "436cfdd5b3bf1ed3c806bb8323e361d20e910bc5f4dd0ee3d728a7f1ade8dd62",
+        "_ZN47_GLOBAL__N_18block_phase_a_wideILi4096EEEvNS_6PhaseAEPf":
+            "94aebb1d0ea6701299274ad60732ff1e17168f24b6cff5d5fec4f34bd91d7a1d",
+        "_ZN47_GLOBAL__N_24coord_agg_cluster_kernelILi4096ELb0EEEvN4egnn9CoordArgsEPf":
+            "5332f2dcaaf99ae8e748ce5ce8755edbd38887d6bd3a03bad8f9a34112cbe029",
+        "_ZN47_GLOBAL__N_24coord_agg_cluster_kernelILi4096ELb1EEEvN4egnn9CoordArgsEPf":
+            "9c215048eb2c18b73727a583bafc6ef6a950d9460325a3970efa329f4511f814",
     },
 }
 PARENT_SASS = {"nvcc": "Cuda compilation tools, release 12.9, V12.9.86",
@@ -4274,7 +4290,6 @@ CLUSTER_PADDED = (1088, 1536)  # run on the F = 2048 kernels (ec.padded_width)
 CLUSTER_CHAIN = dict(n=16, T=2)  # phases 20j-20n share the time limit
 CLUSTER_JOINT = dict(n=JOINT_SAMPLES, T=2)  # 20j's and 20l's joint chains
 CLUSTER_PLAIN_STEP = 2  # graphs a slice of the plain versions: 1.9 GB a (2, 344, 344, 2048) tensor
-REFUSED_BLOCK = 2112  # wider than block_fused
 
 
 def forward_dynamic_smem(ec, F, N):
@@ -4426,10 +4441,9 @@ def cluster_width_phase(torch, ec, dev, flagship, logs, work, pdb, ref_lig, card
     5's pocket, ``CLUSTER_CHAIN``'s T: 8T + 6 and 6T + 6 launches), and the
     joint model at hidden 2048 with block fusing off (``CLUSTER_JOINT``: 6
     launches of each split kernel a pass).  (d) the refusal before any
-    launch of width ``REFUSED_BLOCK`` in ``block_fused`` (built up to 2048
-    since 20l's kernel); the split wrappers run it on their F = 4096 kernels
-    (the forward ones since 20m's, the backward ones and a train step since
-    20n's)."""
+    launch of wider widths is 20m's (the forward wrappers), 20n's (the
+    backward ones) and 20o's (``block_fused``): every kernel runs 2049-4096
+    on its F = 4096 instantiation."""
     from diffsbdd_tpu_torch.diffusion.ddpm import JointDDPM
     t0 = time.perf_counter()
     res = {"card": card, "kernels": cluster_kernel_phase(ec, torch, dev, flagship, logs)}
@@ -4486,14 +4500,6 @@ def cluster_width_phase(torch, ec, dev, flagship, logs, work, pdb, ref_lig, card
           f"T={T}, block fusing off: {res['joint']['ms_per_pass']:.2f} ms a pass, "
           f"launches {launches}")
     shutil.rmtree(work / "cluster_joint", ignore_errors=True)
-
-    blk = kernel_inputs(torch, dev, model(REFUSED_BLOCK), 2, 24, with_delta=True)
-    res["refusals"] = {f"block_fused_width_{REFUSED_BLOCK}": refused_before_launch(
-        ec, f"block_fused_width_{REFUSED_BLOCK}", lambda: ec.block_fused(
-            *block_operands(blk), cutoffs=blk["cut"], attention=True, tanh=True,
-            coords_range=15.0, norm_constant=1.0, normalization_factor=100.0),
-        ("above 2048", "ROADMAP"))}
-    del blk
     torch.cuda.empty_cache()
     res["phase_s"] = time.perf_counter() - t0
     print(f"  phase 20j took {res['phase_s']:.1f} s")
@@ -4502,7 +4508,7 @@ def cluster_width_phase(torch, ec, dev, flagship, logs, work, pdb, ref_lig, card
 
 CLUSTER_BWD_KERNELS = ("gcl_agg_bwd", "coord_agg_bwd")
 CLUSTER_TRAIN = (CLUSTER_WIDTH, CLUSTER_PADDED[-1])  # hidden widths of 20k's train steps
-# depth of 20k's train steps and 20m-20n's models (the flagship's 6 layers
+# depth of 20k's train steps and 20m-20o's models (the flagship's 6 layers
 # cut for the time limit: at hidden 4096 six layers are 1.21 G parameters,
 # and cli.train writes 38.7 GB of checkpoints for them)
 WIDE_LAYERS = 2
@@ -4698,44 +4704,57 @@ def bf16_order_witness(ec, torch, dev, flagship):
     return res
 
 
+def _block_batch(ops, sl):
+    """``block_operands``' operands of the graphs ``sl`` (the per-graph ones:
+    h .. is_lig and the graph mean)."""
+    return (*(t[sl] for t in ops[:7]), *ops[7:11], None if ops[11] is None else ops[11][sl])
+
+
 def _block_plain_in_slices(ec, torch, ops, kw, step):
     """``ec.block_fused_plain(*ops, **kw)`` over batch slices of ``step``
-    graphs, concatenated (the per-graph operands: h .. is_lig and the graph
-    mean)."""
+    graphs, concatenated."""
     B = ops[0].shape[0]
-    parts = [ec.block_fused_plain(*(t[b:b + step] for t in ops[:7]), *ops[7:11],
-                                  None if ops[11] is None else ops[11][b:b + step], **kw)
+    parts = [ec.block_fused_plain(*_block_batch(ops, slice(b, b + step)), **kw)
              for b in range(0, B, step)]
     return tuple(torch.cat(outs, 0) for outs in zip(*parts))
 
 
-def cluster_block_phase(torch, ec, dev, flagship, logs, work, pdb, ref_lig, card):
+def cluster_block_phase(torch, ec, dev, flagship, logs, work, pdb, ref_lig, card,
+                        width=CLUSTER_WIDTH, shapes=CLUSTER_BLOCK_SHAPES,
+                        step=CLUSTER_PLAIN_STEP, padded=CLUSTER_BLOCK_PADDED, layers=6,
+                        witness=True, label="20l"):
     """Phase 20l, the whole-block kernel at F = 2048 (both phases on clusters
     of two blocks; sampling at hidden 1025-2048 with block fusing on).  (a)
-    its library at every tier on phase 3c's joint shapes (B = 8, 24 + 320
-    atoms, every row moving, on the clean and the collapsed complex: the
-    ``CLUSTER_BLOCK_SHAPES`` of ``TIER_BLOCK_SHAPES``) against its plain
-    version at the tier in batch slices of ``CLUSTER_PLAIN_STEP`` graphs:
-    each output within 1e-5 + (1e-4 + the tier's share) of its largest
-    entry, the error norm within ``ec.BLOCK_TIER_GATES``' share of the
-    tier's move from the 3xTF32 kernel's output (at bf16
-    ``block_bf16_check``: against the bf16 sums in float64, within twice
-    the plain version's own distance), that tier's library alone
-    launched, two launches bit for bit, each on clusters of two; CUDA-event
-    ms of kernel and plain version, the tier's bound and the 3xTF32 one;
-    the instantiations' registers, spills and shared memory; at bf16 also
-    ``bf16_order_witness`` at F = 1024 and 2048.  (b)
-    ``padded_kernel_phase`` of the whole block at ``CLUSTER_BLOCK_PADDED``.
-    (c) the joint model at hidden 2048 from 20j's seeded random weights
-    sampled with block fusing on (``CLUSTER_JOINT``: 6 whole-block launches
-    a pass and no split-kernel launch), beside 20j's unfused chain."""
+    its library on phase 3c's joint shapes (B = 8, 24 + 320 atoms, every
+    row moving: ``shapes`` of ``TIER_BLOCK_SHAPES``, the clean complex at
+    every tier, the collapsed one at 3xTF32) against its plain version at
+    the tier in batch slices of ``step`` graphs: each output within 1e-5 +
+    (1e-4 + the tier's share) of its largest entry, the error norm within
+    ``ec.BLOCK_TIER_GATES``' share of the tier's move from the 3xTF32
+    kernel's output (at bf16 ``block_bf16_check``: against the bf16 sums in
+    float64, within twice the plain version's own distance), that tier's
+    library alone launched, two launches bit for bit, each on clusters of
+    ``ec.cluster_size(width)``; the reduced tiers checked on the first
+    ``REDUCED_CHECK_BATCH`` graphs; CUDA-event ms of kernel (the full
+    batch) and plain version, the tier's bound and the 3xTF32 one; the
+    instantiations' registers, spills and shared memory; with ``witness``
+    also ``bf16_order_witness`` at F = 1024 and 2048.  (b)
+    ``padded_kernel_phase`` of the whole block at ``padded``.  (c) the joint
+    model at hidden ``width`` (``layers`` layers) from seeded random weights
+    sampled with block fusing on (``CLUSTER_JOINT``: ``layers`` whole-block
+    launches a pass and no split-kernel launch).  Phase 20o is the same at
+    F = 4096 (clusters of four): ``width``, ``shapes``, ``step``,
+    ``padded``, ``layers``, ``witness`` and ``label`` its; it also checks
+    the refusal before any launch of width ``REFUSED_QUAD`` in
+    ``block_fused``."""
     from diffsbdd_tpu_torch.diffusion.ddpm import JointDDPM
     t0 = time.perf_counter()
-    F = CLUSTER_WIDTH
+    F = width
+    want_cluster = ec.cluster_size(F)
     cfg = dict(flagship, egnn_params=dict(flagship["egnn_params"], hidden_nf=F))
     kernels = {}
-    for label in CLUSTER_BLOCK_SHAPES:
-        B, seed, spread, rows = TIER_BLOCK_SHAPES[label]
+    for shape in shapes:
+        B, seed, spread, rows = TIER_BLOCK_SHAPES[shape]
         inp = kernel_inputs(torch, dev, cfg, B, 24, seed=seed, spread=spread)
         ops = block_operands(inp)
         kw = dict(cutoffs=inp["cut"], attention=True, tanh=True, coords_range=15.0,
@@ -4745,29 +4764,31 @@ def cluster_block_phase(torch, ec, dev, flagship, logs, work, pdb, ref_lig, card
                                    active_pairs(ec, inp, rows=rows), 2)
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         base = None
-        for tier in ec.TIERS:
+        for tier in ec.TIERS if shape == shapes[0] else (ec.DEFAULT_TIER,):
             gate = ec.BLOCK_TIER_GATES[tier]
-            what = f"block_fused[{tier}] {label} F={F}"
+            what = f"block_fused[{tier}] {shape} F={F}"
+            n = B if tier == ec.DEFAULT_TIER else min(B, REDUCED_CHECK_BATCH)
+            sub = _block_batch(ops, slice(0, n))
             ec.reset_launch_counts()
-            got = ec.block_fused(*ops, **kw, precision=tier)
-            again = ec.block_fused(*ops, **kw, precision=tier)
+            got = ec.block_fused(*sub, **kw, precision=tier)
+            again = ec.block_fused(*sub, **kw, precision=tier)
             cluster = ec.last_cluster_dim("block_fused", tier)
             launched = {k: v for k, v in ec.tier_launch_counts.items() if v}
             _check(launched == {f"block_fused[{tier}]": 2},
                    f"{what}: launched {launched}, not its tier's library")
-            _check(cluster == 2, f"{what}: cluster dimension {cluster}, not 2")
+            _check(cluster == want_cluster,
+                   f"{what}: cluster dimension {cluster}, not {want_cluster}")
             start.record()
-            ref = _block_plain_in_slices(ec, torch, ops, dict(kw, precision=tier),
-                                         CLUSTER_PLAIN_STEP)
+            ref = _block_plain_in_slices(ec, torch, sub, dict(kw, precision=tier), step)
             end.record()
             torch.cuda.synchronize()
             plain_ms = start.elapsed_time(end)
             f32 = ref if base is None else f32
             bf16 = None
             if tier == "bf16":
-                sums = _block_plain_in_slices(ec, torch, ops, dict(kw, precision=ec.BF16_EXACT),
-                                              CLUSTER_PLAIN_STEP)
-                bf16 = block_bf16_check(ec, what, got, ref, sums, f32)
+                sums = _block_plain_in_slices(ec, torch, sub, dict(kw, precision=ec.BF16_EXACT),
+                                              step)
+                bf16 = block_bf16_check(ec, what, got, ref, sums, tuple(t[:n] for t in f32))
                 del sums
             err = share = moved_share = 0.0
             for i, (name, g, a, r) in enumerate(zip(("h_new", "dx"), got, again, ref)):
@@ -4779,7 +4800,7 @@ def cluster_block_phase(torch, ec, dev, flagship, logs, work, pdb, ref_lig, card
                 _check(torch.equal(g, a), f"{what} {name}: two launches differ")
                 err, share = max(err, e), max(share, e / scale)
                 if base is not None:
-                    moved_share = max(moved_share, ec.tier_moved_share(g, r, base[i]))
+                    moved_share = max(moved_share, ec.tier_moved_share(g, r, base[i][:n]))
             _check(not bool(got[1][:, N if rows is None else rows:].any()),
                    f"{what}: dx rows past update_rows are not zero")
             if gate.get("moved") is not None:
@@ -4791,9 +4812,9 @@ def cluster_block_phase(torch, ec, dev, flagship, logs, work, pdb, ref_lig, card
             ms = _cuda_ms(lambda: ec.block_fused(*ops, **kw, precision=tier), 3)
             bound_ms, bound_by = tier_bound(flops, bytes_, tier)
             bound_tc_ms, bound_tc_by = tier_bound(flops, bytes_, "tf32x3")
-            kernels[f"block_fused[{tier}]:{label}"] = dict(
-                kernel="block_fused", tier=tier, variant=label, width=F, batch=B,
-                cluster_dim=cluster, max_abs_err=err, gate_share=share,
+            kernels[f"block_fused[{tier}]:{shape}"] = dict(
+                kernel="block_fused", tier=tier, variant=shape, width=F, batch=B,
+                checked_batch=n, cluster_dim=cluster, max_abs_err=err, gate_share=share,
                 moved_share=moved_share, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, bound_tc_ms=bound_tc_ms, bound_tc_by=bound_tc_by,
                 flops=flops, bf16_gate=bf16)
@@ -4806,64 +4827,79 @@ def cluster_block_phase(torch, ec, dev, flagship, logs, work, pdb, ref_lig, card
                   + ("" if bf16 is None else
                      f"; bf16 gate: against the float64 sums {bf16['norm']:.4f} of the move "
                      f"(the plain version {bf16['plain_norm']:.4f}), ratio {bf16['ratio']:.3f}"
-                     f" (gate {ec.BLOCK_TIER_GATES['bf16']['k']:g})"))
+                     f" (gate {ec.BLOCK_TIER_GATES['bf16']['k']:g})")
+                  + ("" if n == B else f"; checked on the first {n} graphs"))
             del got
         del inp, ops, base, f32
         torch.cuda.empty_cache()
-    bf16_witness = bf16_order_witness(ec, torch, dev, flagship)
+    print(f"  {label} (a) took {time.perf_counter() - t0:.1f} s")
     usage = ptxas_usage(logs, F)
     _check("block_fused" in usage, f"block_fused has no instantiation at F = {F}")
     N = 344
-    smem = 4 * (16 * (F + 4) + 2 * 8 * (F // 2 + 8)) + 4 * N
+    smem = forward_dynamic_smem(ec, F, N)
     for u in usage["block_fused"]:
         print(f"  block_fused F={F} {u['function'][:60]}: {u['registers']} registers, spill "
               f"stores {u['spill_stores']} B, loads {u['spill_loads']} B; shared memory "
               f"{smem} B dynamic (N = {N}) + {u['static_smem']} B static")
     res = {"card": card, "kernels": kernels, "ptxas": usage["block_fused"],
-           "smem_dynamic": smem, "bf16_witness": bf16_witness}
-    res["padded"] = padded_kernel_phase(ec, torch, dev, flagship, CLUSTER_BLOCK_PADDED,
+           "smem_dynamic": smem}
+    if witness:
+        res["bf16_witness"] = bf16_order_witness(ec, torch, dev, flagship)
+    res["padded"] = padded_kernel_phase(ec, torch, dev, flagship, padded,
                                         names=("block_fused",))
     for tier in PADDED_TIERS:
         dim = ec.last_cluster_dim("block_fused", tier)
-        _check(dim == 2, f"block_fused[{tier}] width {CLUSTER_BLOCK_PADDED}: cluster {dim}")
+        _check(dim == want_cluster, f"block_fused[{tier}] width {padded}: cluster {dim}")
 
     T = CLUSTER_JOINT["T"]
     ckpt = _random_checkpoint(torch, dict(flagship, mode="joint",
                                           tpu={"kernel_block_fuse": True},
                                           egnn_params=dict(flagship["egnn_params"],
-                                                           hidden_nf=F)),
-                              None, work / "cluster_joint_fused")[0]
+                                                           hidden_nf=F, n_layers=layers)),
+                              None, work / f"joint_fused_{F}")[0]
     passes = len(JointDDPM._repaint_plan(1, 1, T)[0]) + 1
-    sdf = work / "cluster_joint_fused.sdf"
+    sdf = work / f"joint_fused_{F}.sdf"
     wall, sample_s, launches, by_tier, xh = _captured_generate(
         torch, ec, [ckpt, "--pdbfile", pdb, "--ref_ligand", ref_lig, "--outfile", sdf,
                     "--n_samples", CLUSTER_JOINT["n"], "--num_nodes_lig", 24, "--all_frags",
                     "--timesteps", T, "--resamplings", 1, "--jump_length", 1], joint=True)
-    want = {**dict.fromkeys(ec.KERNELS, 0), "block_fused": 6 * passes}
+    want = {**dict.fromkeys(ec.KERNELS, 0), "block_fused": layers * passes}
     _check(launches == want, f"the hidden-{F} fused joint chain launched {launches}, "
                              f"not {want}")
-    _check(ec.last_cluster_dim("block_fused") == 2, "the fused joint chain's clusters")
+    dim = ec.last_cluster_dim("block_fused")
+    _check(dim == want_cluster, f"the hidden-{F} fused joint chain's clusters: {dim}")
     _check(bool(torch.isfinite(xh).all()), f"the hidden-{F} fused joint chain's samples")
     mols = _sdf_molecules(sdf)
     _check(0 < len(mols) <= CLUSTER_JOINT["n"],
            f"the hidden-{F} fused joint chain wrote {len(mols)}")
-    res["joint"] = dict(CLUSTER_JOINT, launches=launches, sample_s=sample_s, wall_s=wall,
-                        ms_per_pass=1e3 * sample_s / passes, molecules=len(mols))
-    print(f"  {card}: hidden {F} joint chain, {CLUSTER_JOINT['n']} x 24 atoms, T={T}, block "
-          f"fusing on: {res['joint']['ms_per_pass']:.2f} ms a pass, launches {launches}, "
-          f"{len(mols)} molecules")
-    shutil.rmtree(work / "cluster_joint_fused", ignore_errors=True)
+    res["joint"] = dict(CLUSTER_JOINT, layers=layers, launches=launches, sample_s=sample_s,
+                        wall_s=wall, ms_per_pass=1e3 * sample_s / passes, molecules=len(mols))
+    print(f"  {card}: hidden {F} joint chain, {layers} layers, {CLUSTER_JOINT['n']} x 24 "
+          f"atoms, T={T}, block fusing on: {res['joint']['ms_per_pass']:.2f} ms a pass, "
+          f"launches {launches}, {len(mols)} molecules")
+    shutil.rmtree(work / f"joint_fused_{F}", ignore_errors=True)
+    if F == QUAD_WIDTH:
+        blk = kernel_inputs(torch, dev, dict(cfg, egnn_params=dict(
+            cfg["egnn_params"], hidden_nf=REFUSED_QUAD)), 2, 24, with_delta=True)
+        res["refusals"] = {f"block_fused_width_{REFUSED_QUAD}": refused_before_launch(
+            ec, f"block_fused_width_{REFUSED_QUAD}", lambda: ec.block_fused(
+                *block_operands(blk), cutoffs=blk["cut"], attention=True, tanh=True,
+                coords_range=15.0, norm_constant=1.0, normalization_factor=100.0),
+            ("block_fused", "above 4096", "ROADMAP", "widths above 4096"))}
+        del blk
+        torch.cuda.empty_cache()
     res["phase_s"] = time.perf_counter() - t0
-    print(f"  phase 20l took {res['phase_s']:.1f} s")
+    print(f"  phase {label} took {res['phase_s']:.1f} s")
     return res
 
 
-QUAD_WIDTH = 4096  # the split kernels' widest: a row tile on four blocks
+QUAD_WIDTH = 4096  # the widest: a row tile on four blocks
 QUAD_VARIANTS = ("full", "ligand_rows_cross", "ligand_rows_nocross")  # phase 3's shapes
 QUAD_PADDED = 3072  # run on the F = 4096 kernels (ec.padded_width)
 QUAD_CHAIN = dict(n=16, T=2)
 QUAD_PLAIN_STEP = 1  # graphs a slice of the plain versions: 1.9 GB a (1, 344, 344, 4096) tensor
-REFUSED_QUAD = 4160  # wider than the split kernels
+REFUSED_QUAD = 4160  # wider than every kernel
+QUAD_BLOCK_SHAPES = ("joint_main_path",)  # 20o's: phase 3c's clean complex, B = 8
 QUAD_TRAIN = dict(batch=4, steps=2)  # 20n's cli.train epoch
 # graphs on which 20j-20n check the reduced tiers (their plain versions take
 # seconds a tier at the full batch); the times stay the full batch's
@@ -5060,9 +5096,8 @@ def quad_bwd_phase(torch, ec, dev, flagship, logs, work, card):
     ``quad_train_phase``: cli.train at hidden 4096.  (d)
     ``cluster_train_step`` at hidden ``QUAD_PADDED`` (padded onto 4096),
     batch ``QUAD_TRAIN["batch"]``.  (c) and (d) at ``WIDE_LAYERS`` layers.
-    (e) refusals, each before any launch:
-    width ``REFUSED_QUAD`` in the two backward wrappers, ``block_fused`` at
-    ``QUAD_PADDED``."""
+    (e) refusals, each before any launch: width ``REFUSED_QUAD`` in the two
+    backward wrappers."""
     from diffsbdd_tpu_torch.data.dataset import LigandPocketDataset, PaddedLoader
     from diffsbdd_tpu_torch.train import loop
     t0 = time.perf_counter()
@@ -5128,13 +5163,6 @@ def quad_bwd_phase(torch, ec, dev, flagship, logs, work, card):
                 cross=cross, graph_mean=inp["graph_mean"], update_rows=24),
             ("coord_agg_bwd",) + above)}
     del inp
-    blk = kernel_inputs(torch, dev, model(QUAD_PADDED), 2, 24, with_delta=True)
-    res["refusals"][f"block_fused_width_{QUAD_PADDED}"] = refused_before_launch(
-        ec, f"block_fused_width_{QUAD_PADDED}", lambda: ec.block_fused(
-            *block_operands(blk), cutoffs=blk["cut"], attention=True, tanh=True,
-            coords_range=15.0, norm_constant=1.0, normalization_factor=100.0),
-        ("block_fused", "above 2048", "ROADMAP", "widths above 2048"))
-    del blk
     torch.cuda.empty_cache()
     res["phase_s"] = time.perf_counter() - t0
     print(f"  phase 20n took {res['phase_s']:.1f} s")
@@ -5289,6 +5317,12 @@ def phase20(torch, ec, dev, flagship, logs, work, pdb, ref_lig, base, card, join
     print(f"[20n] training at hidden widths 2049-4096 on the F = {QUAD_WIDTH} backward "
           f"kernels, clusters of four blocks ({card})")
     res["quad_bwd"] = quad_bwd_phase(torch, ec, dev, flagship, logs, work, card)
+    print(f"[20o] the whole-block kernel at F = {QUAD_WIDTH}, clusters of four blocks; the "
+          f"hidden-{QUAD_WIDTH} joint chain with block fusing on ({card})")
+    res["quad_block"] = cluster_block_phase(
+        torch, ec, dev, flagship, logs, work, pdb, ref_lig, card, width=QUAD_WIDTH,
+        shapes=QUAD_BLOCK_SHAPES, step=QUAD_PLAIN_STEP, padded=QUAD_PADDED,
+        layers=WIDE_LAYERS, witness=False, label="20o")
     res["phase_s"] = time.perf_counter() - t20
     print(f"  phase 20 took {res['phase_s']:.1f} s")
     return res
@@ -5354,7 +5388,7 @@ def _phases(torch, ec, dev, out, card, logs, build_s, builds, t_start) -> int:
         _check(sass["HMMA"] > 0 and sass["LDGSTS"] > 0,
                f"{what} has no tensor-core or cp.async instructions")
     # every recorded function of the five 3xTF32 libraries (the kernels at
-    # F = 64 to 2048) builds to the recorded SASS, instruction for
+    # F = 64 to 4096) builds to the recorded SASS, instruction for
     # instruction (same nvcc); a function not yet recorded is printed
     release = nvcc_release(ec)
     for name in ec.KERNELS:
@@ -5700,6 +5734,20 @@ def _phases(torch, ec, dev, out, card, logs, build_s, builds, t_start) -> int:
             {"name": f"{name}[F={QUAD_WIDTH}]", "route": "cuda", "source": sources[name][0],
              "replaces": sources[name][1], "launches": counts["quad_training"],
              "launches_by_path": counts, **entry, "library_ms": None})
+    # block_fused at F = 4096 (3xTF32, both phases on clusters of four
+    # blocks), its launches on phase 20o's fused joint chain at hidden 4096;
+    # phase 3c's joint shapes on the clean complex
+    qbl = tiers["quad_block"]
+    counts = {"quad_joint_sampling_fused": qbl["joint"]["launches"]["block_fused"]}
+    _check(counts["quad_joint_sampling_fused"] > 0,
+           f"no hidden-{QUAD_WIDTH} path launched block_fused")
+    clean = qbl["kernels"][f"block_fused[{ec.DEFAULT_TIER}]:joint_main_path"]
+    cluster_entries.append(
+        {"name": f"block_fused[F={QUAD_WIDTH}]", "route": "cuda",
+         "source": sources["block_fused"][0], "replaces": sources["block_fused"][1],
+         "launches": counts["quad_joint_sampling_fused"], "launches_by_path": counts,
+         **{k: clean[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                  "cluster_dim", "variant", "batch")}, "library_ms": None})
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": sources[name][0],
          "replaces": sources[name][1], "launches": launches[name],

@@ -16,7 +16,7 @@
 //
 // The node MLP and the head projections run in this file's device code: up
 // to F = 1024 the (B, N, F) aggregate never leaves the chip's shared memory
-// (at 2048 it passes through a scratch plane, below), and h' is read back
+// (above it passes through a scratch plane, below), and h' is read back
 // only as the projections phase B needs.
 //
 // What bounds it on an H100: the per-pair F x F products, phase A's GCL MLP
@@ -101,6 +101,29 @@
 // (coord_agg_cluster_kernel, launch_cluster_update: egnn_coord.cuh; rank 0
 // writes the coordinates).  Both phases launch through launch_clusters,
 // which refuses when not one cluster fits the card.
+//
+// F = 4096, on clusters of four blocks (block_phase_a_wide; WideLayout in
+// egnn_cluster.cuh, written for any C = F / 1024 > 2).  S of all K rows
+// (16 x 4100 floats, 262 KB) no longer fits a block, so every node product
+// walks K in C parts of 1024 rows in order, each part's k-steps
+// accumulating onto the last's (mma::product_walk), in the shared memory of
+// gcl_tile_wide: the block's own part buffer, a staging buffer and the
+// ring's two stages (66 KB each):
+// * the GCL is gcl_tile_wide on the cluster's one-row tiles, each block
+//   writing its 1024 features of a row's aggregate to the scratch plane;
+// * h, agg and h' lie in global memory (h' in out_h), so each part of them
+//   is loaded straight into the staging buffer (load_part_rows), after a
+//   fence and a cluster barrier for agg and h';
+// * silu(pre) exists only as each block's quarter: each block writes its
+//   own into its own buffer, and after a cluster barrier a product reads it
+//   there (its part) and the peers' through DSMEM (copy_peer_part into the
+//   staging buffer); the barrier after h' orders the blocks' exit after the
+//   peers' copies;
+// * the weight ring streams the block's 1024 columns of each matrix over
+//   all F rows (WeightChain<F, true>: F / KC stages a matrix, a product
+//   call taking one part's FB / KC);
+// * the projections and the type deltas are split by feature as at 2048.
+// Phase B is coord_agg.cu's cluster kernel at F = 4096.
 #include "egnn_cluster.cuh"
 #include "egnn_coord.cuh"
 
@@ -117,8 +140,9 @@ constexpr int RB_TILES = 16;
 static_assert(block_rows<256> / tile_rows<256>() == RB_TILES &&
               block_rows<512> / tile_rows<512>() == RB_TILES &&
               block_rows<1024> / tile_rows<1024>() == RB_TILES &&
-              block_rows<2048> / tile_rows<2048>() == RB_TILES,
-              "row tiles a phase-A block (a cluster at F = 2048) owns");
+              block_rows<2048> / tile_rows<2048>() == RB_TILES &&
+              block_rows<4096> / tile_rows<4096>() == RB_TILES,
+              "row tiles a phase-A block (a cluster above F = 1024) owns");
 template <int F>
 using Acc = float[NodeLayout<F>::WM][NodeLayout<F>::NTN][4];
 
@@ -157,8 +181,8 @@ __host__ __device__ constexpr size_t second_tile(int N) {
 // the order the products run: stage g holds rows (g % KS) * KC .. + KC of
 // matrix g / KS, so each product's look-ahead stage is the next product's
 // first.  Issue and acquire as mma::W2Ring's; the matrices must be 16-byte
-// aligned.
-template <int F>
+// aligned.  (Above F = 1024, the partial specialization below.)
+template <int F, bool CLUSTER = (cluster_size<F>() > 1)>
 struct WeightChain {
   using L = NodeLayout<F>;
   const float* const* mats;  // shared memory: the matrices in product order
@@ -189,13 +213,16 @@ struct WeightChain {
   }
 };
 
-// F = 2048: the ring of one block of a cluster, which streams the FB columns
-// [col0, col0 + FB) of each matrix (all K = F rows), as W2ClusterRing does
-// W2's.  As WeightChain otherwise.
-template <>
-struct WeightChain<2048> {
-  static constexpr int F = 2048;
+// Above F = 1024: the ring of one block of a cluster, which streams the FB
+// columns [col0, col0 + FB) of each matrix (all K = F rows), as
+// W2ClusterRing does W2's: stage g holds rows (g % MS) * KC .. + KC of
+// matrix g / MS, MS = F / KC stages a matrix (at 2048 one product call's
+// KS; at 4096 a product call takes one part of K, KS = FB / KC, and
+// product_walk four of them).  As WeightChain otherwise.
+template <int F>
+struct WeightChain<F, true> {
   using L = NodeLayout<F>;
+  static constexpr int MS = F / L::KC;  // stages a matrix
   const float* const* mats;
   int count;
   float* buf;
@@ -204,10 +231,10 @@ struct WeightChain<2048> {
 
   __device__ __forceinline__ void issue() {
     constexpr int V = L::FB / 4;  // 16-byte vectors per stage row
-    if (next / L::KS < count) {
+    if (next / MS < count) {
       float* dst = buf + (next % mma::NS) * L::STAGE;
       const float* src =
-          mats[next / L::KS] + (size_t)(next % L::KS) * L::KC * F + col0;
+          mats[next / MS] + (size_t)(next % MS) * L::KC * F + col0;
       for (int e = threadIdx.x; e < L::KC * V; e += NT) {
         const int r = e / V, v = e % V;
         mma::cp_async16(dst + r * L::WS + 4 * v, src + (size_t)r * F + 4 * v);
@@ -246,9 +273,31 @@ __device__ __forceinline__ void for_fragments(const Acc<F>& acc, int rows, Fn fn
   }
 }
 
+// acc = h' @ k_i (side 0) or h' @ k_j (side 1) of a head: (acc + b0 [+ type
+// fold]) -> head.row, (acc [+ type fold]) -> head.col for the block's rows
+// (row r is node node_of[r], none if < 0).
+template <int F>
+__device__ __forceinline__ void store_projection(const Head& hd, int side, const Acc<F>& acc,
+                                                 const float* is_lig, const int* node_of,
+                                                 int rows) {
+  float* dst = side == 0 ? hd.row : hd.col;
+  for_fragments<F>(acc, rows, [&](int r, int f, float v) {
+    const int node = node_of[r];
+    if (node < 0) return;
+    const float lig = is_lig[node];
+    if (side == 0) {
+      v += hd.b0[f];
+      if (hd.tb) v += hd.tb[f] + lig * (hd.tb[2 * F + f] - hd.tb[f]);
+    } else if (hd.tb) {
+      v += lig * (hd.tb[F + f] - hd.tb[f]);
+    }
+    dst[(size_t)node * F + f] = v;
+  });
+}
+
 // (A @ k_i + b0 [+ type fold]) -> head.row, (A @ k_j [+ type fold]) -> head.col
-// for the block's rows (row r is node node_of[r], none if < 0); A holds h',
-// the ring's next two matrices are k_i, k_j.
+// for the block's rows; A holds h', the ring's next two matrices are k_i,
+// k_j.
 template <int F>
 __device__ __forceinline__ void project_head(const Head& hd, const float* A,
                                              WeightChain<F>& ring, Acc<F>& acc,
@@ -256,19 +305,7 @@ __device__ __forceinline__ void project_head(const Head& hd, const float* A,
                                              int rows) {
   for (int side = 0; side < 2; ++side) {
     mma::product_tc<F, RG, true, true, mma::kTier>(A, ring, acc, rows);
-    float* dst = side == 0 ? hd.row : hd.col;
-    for_fragments<F>(acc, rows, [&](int r, int f, float v) {
-      const int node = node_of[r];
-      if (node < 0) return;
-      const float lig = is_lig[node];
-      if (side == 0) {
-        v += hd.b0[f];
-        if (hd.tb) v += hd.tb[f] + lig * (hd.tb[2 * F + f] - hd.tb[f]);
-      } else if (hd.tb) {
-        v += lig * (hd.tb[F + f] - hd.tb[f]);
-      }
-      dst[(size_t)node * F + f] = v;
-    });
+    store_projection<F>(hd, side, acc, is_lig, node_of, rows);
   }
 }
 
@@ -502,6 +539,129 @@ __global__ void __launch_bounds__(NT) block_phase_a_cluster(PhaseA g, float* agg
   cluster_sync();  // the peer has copied this block's h'
 }
 
+// acc (ZERO: =, else +=) rows node_of[r] of `src` (nodes x F, global
+// memory) @ the ring's next matrix, the block's columns over K = F, each
+// part of src loaded into `buf` (WideLayout).
+template <int F, bool ZERO>
+__device__ __forceinline__ void product_rows(const float* src, const int* node_of, float* buf,
+                                             WeightChain<F>& ring, Acc<F>& acc) {
+  mma::product_walk<F, mma::kTier, ZERO>(ring, acc, [&](int q) -> const float* {
+    __syncthreads();  // every warp is done with buf's last part
+    mma::load_part_rows<F>(buf, src, node_of, q);
+    return buf;
+  });
+}
+
+// Phase A at F = 4096 on clusters of C = F / 1024 blocks (the file's head):
+// as block_phase_a_cluster, block rank r computing features [FB r, FB r +
+// FB) of every output of the cluster's row tiles k + s*G, but each node
+// product walking K in C parts; the GCL aggregates go through `agg`
+// (B*N*F floats).
+template <int F>
+__global__ void __launch_bounds__(NT) block_phase_a_wide(PhaseA g, float* agg) {
+  using L = NodeLayout<F>;
+  constexpr int RB = block_rows<F>, FB = L::FB;
+  static_assert(L::TI == 1 && L::P == RB && L::WM == 1 && L::S_BUFS == 2,
+                "one m-tile of one-row tiles, the own part and the staging");
+  extern __shared__ __align__(16) float smem[];
+  __shared__ const float* mats[7];
+  __shared__ int node_of[RB];  // node b*N + i of each block row, -1: none
+  const int N = g.gcl.N;
+  const unsigned rank = cluster_rank();
+  const int col0 = (int)rank * FB;
+  float* own = smem;                       // gcl_tile_wide's, then silu(pre)'s part
+  float* staging = own + L::P * L::SS;     // gcl_tile_wide's, then every other A part
+  float* ring_buf = staging + L::P * L::SS;  // gcl_tile_wide's ring, then the chain's
+
+  // the cluster's row tiles: global tile k + s*G for slot s < slots is row
+  // (k + s*G) / B of batch item (k + s*G) % B
+  const int t = threadIdx.x;
+  const int G = (int)gridDim.x / cluster_size<F>(), k = cluster_tile<F>();
+  const int slots = (g.B * N - k + G - 1) / G;
+  const int rows = slots;
+  if (t < RB) {
+    const int tile = k + t * G;
+    node_of[t] = t < slots ? tile % g.B * N + tile / g.B : -1;
+  }
+
+  // the rank-1 terms of the heads' type tables (the block's features), for
+  // phase B
+  for (int f = col0 + t; k == 0 && f < col0 + FB; f += NT) {
+    if (g.coord.tb)
+      g.coord.delta[f] = g.coord.tb[3 * F + f] - g.coord.tb[2 * F + f]
+                       - g.coord.tb[F + f] + g.coord.tb[f];
+    if (g.cross.k_i && g.cross.tb)
+      g.cross.delta[f] = g.cross.tb[3 * F + f] - g.cross.tb[2 * F + f]
+                       - g.cross.tb[F + f] + g.cross.tb[f];
+  }
+
+  // ---- GCL: the block's part of the aggregates of the cluster's rows -> agg
+  for (int s = 0; s < slots; ++s) {
+    const int tile = k + s * G, b = tile % g.B, i = tile / g.B;
+    mma::gcl_tile_wide<F, mma::kTier>(g.gcl, (size_t)b * N, i, smem,
+                                      agg + ((size_t)b * N + i) * F, 1);
+  }
+  // the peers' aggregate writes are visible to this block after the barrier
+  __threadfence();
+  cluster_sync();
+
+  // ---- pre = h @ W_h + agg @ W_a, the block's features
+  if (t == 0) {
+    mats[0] = g.w_h; mats[1] = g.w_a; mats[2] = g.nw2;
+    mats[3] = g.coord.k_i; mats[4] = g.coord.k_j;
+    mats[5] = g.cross.k_i; mats[6] = g.cross.k_j;
+  }
+  __syncthreads();  // mats; node_of
+  WeightChain<F> ring{mats, g.cross.k_i ? 7 : 5, ring_buf, 0, col0};
+  for (int s = 0; s < mma::NS - 1; ++s) ring.issue();
+  Acc<F> acc;
+  product_rows<F, true>(g.h, node_of, staging, ring, acc);
+  product_rows<F, false>(agg, node_of, staging, ring, acc);
+
+  // ---- own <- silu(pre + b0), the block's part; then the product over
+  // every block's part (the peers' through DSMEM)
+  for_fragments<F>(acc, rows, [&](int r, int f, float v) {
+    own[r * L::SS + f] = mma::silu_fast(v + g.nb0[col0 + f]);
+  });
+  cluster_sync();  // every block's part is written
+  mma::product_walk<F, mma::kTier, true>(ring, acc, [&](int q) -> const float* {
+    if (q == (int)rank) return own;
+    __syncthreads();  // every warp is done with the staging's last part
+    mma::copy_peer_part<F>(staging, own, (unsigned)q);
+    return staging;
+  });
+
+  // ---- h' = (h + upd + b2n) * mask -> out_h, the block's features
+  for_fragments<F>(acc, rows, [&](int r, int f, float v) {
+    const int node = node_of[r];
+    if (node < 0) return;
+    const size_t i = node;
+    const int c = col0 + f;
+    g.out_h[i * F + c] = (g.h[i * F + c] + v + g.nb2[c]) * g.gcl.mask[i];
+  });
+  // the peers' h' writes are visible to this block after the barrier, and
+  // every peer has copied this block's part of silu(pre): no block reads
+  // another's shared memory past it
+  __threadfence();
+  cluster_sync();
+
+  // ---- first-layer projections of the heads: the block's features, h'
+  // read back from out_h
+  auto project = [&](Head hd) {
+    hd.b0 += col0;
+    if (hd.tb) hd.tb += col0;
+    hd.row += col0;
+    hd.col += col0;
+    for (int side = 0; side < 2; ++side) {
+      product_rows<F, true>(g.out_h, node_of, staging, ring, acc);
+      store_projection<F>(hd, side, acc, g.gcl.is_lig, node_of, rows);
+    }
+  };
+  project(g.coord);
+  if (g.cross.k_i) project(g.cross);
+  mma::cp_async_wait_all();  // the ring's empty look-ahead group
+}
+
 // The body (coord_update_block) is coord_agg.cu's, in egnn_coord.cuh.
 template <int F, bool CROSS>
 __global__ void __launch_bounds__(NT) block_phase_b(CoordArgs g, float* partial) {
@@ -509,8 +669,9 @@ __global__ void __launch_bounds__(NT) block_phase_b(CoordArgs g, float* partial)
   coord_update_block<F, CROSS, mma::kTier>(g, partial, smem);
 }
 
-// Both phases at F = 2048 on clusters of two blocks: `blocks` = 2 x the
-// phase-A clusters; phase B is coord_agg.cu's launch (egnn_coord.cuh).
+// Both phases above F = 1024 on clusters of C = F / 1024 blocks: `blocks` =
+// C x the phase-A clusters; phase B is coord_agg.cu's launch
+// (egnn_coord.cuh).
 template <int F>
 int launch_cluster_phases(const PhaseA& a, const CoordArgs& b, int blocks, float* partial,
                           float* agg, cudaStream_t stream) {
@@ -519,8 +680,13 @@ int launch_cluster_phases(const PhaseA& a, const CoordArgs& b, int blocks, float
   if (blocks % C || clusters <= 0 || clusters > tiles ||
       (tiles + clusters - 1) / clusters > RB_TILES)
     return (int)cudaErrorInvalidValue;
-  const int err = launch_clusters<C>(block_phase_a_cluster<F>, dim3(blocks),
-                                     mma::dynamic_smem<F>(N), stream, a, agg);
+  int err;
+  if constexpr (C > 2)
+    err = launch_clusters<C>(block_phase_a_wide<F>, dim3(blocks), mma::dynamic_smem<F>(N),
+                             stream, a, agg);
+  else
+    err = launch_clusters<C>(block_phase_a_cluster<F>, dim3(blocks), mma::dynamic_smem<F>(N),
+                             stream, a, agg);
   if (err != 0) return err;
   // same stream: phase B starts when every cluster of phase A has finished
   if (b.cross.a_row == nullptr) return launch_cluster_update<F, false>(b, B, partial, stream);
@@ -557,7 +723,7 @@ int launch(const PhaseA& a, const CoordArgs& b, int blocks, float* partial, floa
 }  // namespace
 
 // scratch: 4*B*N*F + 2*F + 2*B*N*3 floats (la_row, la_col, lc_row, lc_col, the
-// two deltas, phase B's two partial slabs); at F = 2048 B*N*F more, the
+// two deltas, phase B's two partial slabs); above F = 1024 B*N*F more, the
 // aggregates' plane, after the projections'.
 extern "C" int block_fused_forward(
     const float* h, const float* a_row, const float* a_col, const float* x,
@@ -616,6 +782,7 @@ extern "C" int block_fused_forward(
     case 512: return launch<512>(a, b, blocks, partial, agg, s);
     case 1024: return launch<1024>(a, b, blocks, partial, agg, s);
     case 2048: return launch<2048>(a, b, blocks, partial, agg, s);
+    case 4096: return launch<4096>(a, b, blocks, partial, agg, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -58,6 +58,9 @@
 // * that barrier also orders the next chunk's refill of each own buffer
 //   after the last peer's copy of it, and a last barrier keeps a block's
 //   shared memory alive until its peers are done.
+// block_fused.cu's node products at F = 4096 walk K alike (product_walk),
+// each part's A tile loaded from global memory (load_part_rows) or copied
+// from a peer's own buffer (copy_peer_part).
 #pragma once
 #include "egnn_mma.cuh"
 
@@ -774,6 +777,46 @@ __device__ void coord_tile_wide(const CoordArgs& g, int batch, int i0, float* sm
     if (i < g.N) g.out[(node0 + i) * 3 + t % 3] = racc / g.nf;
   }
   cluster_sync();  // rank 0 has read the other ranks' last shares
+}
+
+// ---- block_fused.cu's node products at F = 4096 (WideLayout)
+
+// Part q (features [q * FB, q * FB + FB)) of rows node_of[r] of `src`
+// (nodes x F, global memory, 16-byte aligned) -> dst (P rows at stride SS);
+// zeros for the rows of no node (node_of[r] < 0).
+template <int F>
+__device__ __forceinline__ void load_part_rows(float* dst, const float* src,
+                                               const int* node_of, int q) {
+  using L = Layout<F>;
+  constexpr int V = L::FB / 4;  // 16-byte vectors a row's part
+  for (int e = threadIdx.x; e < L::P * V; e += NT) {
+    const int r = e / V, v = e % V, node = node_of[r];
+    *reinterpret_cast<float4*>(dst + r * L::SS + 4 * v) =
+        node >= 0
+            ? *reinterpret_cast<const float4*>(src + (size_t)node * F + q * L::FB + 4 * v)
+            : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  }
+}
+
+// acc (ZERO: =, else +=) A @ the ring's next matrix, the block's FB columns
+// over all K = F rows: the C parts of FB rows in order q = 0 .. C-1, part
+// q's A tile (P rows at stride SS) being part(q), each part's k-steps
+// accumulating onto the last's (the order of one K = F product, as
+// product_wide).  part(q) may refill a buffer after a block sync (every warp
+// done with the last part); its writes are complete at the product's first
+// acquire sync.
+template <int F, int TIER, bool ZERO, class Ring, class Part>
+__device__ __forceinline__ void product_walk(Ring& ring, float (&acc)[1][Layout<F>::NTN][4],
+                                             Part part) {
+  using L = Layout<F>;
+  if constexpr (ZERO) {
+#pragma unroll
+    for (int n = 0; n < L::NTN; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[0][n][e] = 0.0f;
+  }
+#pragma unroll 1
+  for (int q = 0; q < L::CLUSTER; ++q) product_tc<F, 1, false, false, TIER>(part(q), ring, acc);
 }
 
 }  // namespace mma

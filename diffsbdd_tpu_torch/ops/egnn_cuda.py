@@ -63,23 +63,19 @@ whole-block kernel's node MLP and projections round their products alone,
 their elementwise work stays float32.
 
 Hidden widths.  The five kernels are instantiated at F = 64, 128, 256,
-512, 1024 and 2048 (at 512 on tiles of 2 rows, at 1024 of 1 row,
-``row_tile``; at 2048 each row tile on a cluster of two blocks,
-``cluster_size``: ``csrc/egnn_cluster.cuh`` the forward kernels' and the
-whole-block kernel's, ``csrc/egnn_cluster_bwd.cuh`` the backward kernels'),
-and the four split kernels, the samplers' and the train step's, also at
-4096 (each row tile on a cluster of four blocks holding a quarter of K
-each: ``csrc/egnn_cluster.cuh``'s ``WideLayout``, and
-``csrc/egnn_cluster_bwd.cuh``'s wide branches): ``KERNEL_WIDTHS``.  On
-CUDA the public wrappers run any other width up to their kernel's widest
-at the next of its widths (``padded_width``: 32 at 64, 96 at 128, 192 at
-256, 384 at 512, 768 at 1024, 1088 at 2048, 3072 at 4096): every
-operand's width axes zero-padded (``pad_operands``), the outputs' cut back.
-The padded channels stay exact zeros through every MLP, so the result is
-the unpadded one up to summation order, at every tier; gradients reach the
-true width through autograd of the padding.  Wider than a kernel's widest
-raises before any launch: above 4096 in the four split wrappers, above
-2048 in ``block_fused``.
+512, 1024, 2048 and 4096 (at 512 on tiles of 2 rows, at 1024 of 1 row,
+``row_tile``; at 2048 each row tile on a cluster of two blocks and at
+4096 on a cluster of four holding a quarter of K each, ``cluster_size``:
+``csrc/egnn_cluster.cuh`` the forward kernels' and the whole-block
+kernel's, with its ``WideLayout`` at 4096, ``csrc/egnn_cluster_bwd.cuh``
+the backward kernels'): ``KERNEL_WIDTHS``.  On CUDA the public wrappers
+run any other width up to 4096 at the next of the widths
+(``padded_width``: 32 at 64, 96 at 128, 192 at 256, 384 at 512, 768 at
+1024, 1088 at 2048, 3072 at 4096): every operand's width axes zero-padded
+(``pad_operands``), the outputs' cut back.  The padded channels stay exact
+zeros through every MLP, so the result is the unpadded one up to
+summation order, at every tier; gradients reach the true width through
+autograd of the padding.  Wider than 4096 raises before any launch.
 
 The kernels are compiled with ``nvcc`` for ``sm_90a`` into plain-C shared
 libraries under ``csrc/build`` at first use (``build_kernels``) and loaded with
@@ -104,24 +100,19 @@ HEADERS = (CSRC / "egnn_common.cuh", CSRC / "egnn_mma.cuh",
            CSRC / "egnn_mma_bwd.cuh", CSRC / "egnn_cluster.cuh",
            CSRC / "egnn_cluster_bwd.cuh")  # shared device code
 # hidden widths the kernels are built for: the fixture checkpoint's, the
-# config default's, the flagship's, and twice, four, eight and (the split
-# kernels) sixteen times the flagship's.  The layouts need F to divide
+# config default's, the flagship's, and twice, four, eight and sixteen
+# times the flagship's.  The layouts need F to divide
 # the block's 256 threads or be a multiple of them, and the dW2 warp layout
 # F >= 64 (csrc/egnn_mma.cuh,
 # egnn_mma_bwd.cuh): 64, 128 and 256 are all the widths they admit up to 256;
 # 512 and 1024 take tilings of their own (two rows a tile and one,
 # ``row_tile``), 2048 a cluster of two blocks a row tile and 4096 of four
-# (``cluster_size``).  The wrappers run every other width up to a kernel's
-# widest zero-padded to the next of its widths (``padded_width``,
+# (``cluster_size``).  The wrappers run every other width up to 4096
+# zero-padded to the next of the widths (``padded_width``,
 # ``pad_operands``).
 SUPPORTED_F = (64, 128, 256, 512, 1024, 2048, 4096)
-# the kernels built at 4096: the four split kernels, the samplers' and the
-# train step's
-WIDEST_KERNELS = ("gcl_agg", "coord_agg", "gcl_agg_bwd", "coord_agg_bwd")
-# the widths each kernel is built for: all of them for the split kernels, up
-# to 2048 for the whole block
-KERNEL_WIDTHS = {name: SUPPORTED_F if name in WIDEST_KERNELS else SUPPORTED_F[:-1]
-                 for name in KERNELS}
+# the widths each kernel is built for: all of them, for every kernel
+KERNEL_WIDTHS = {name: SUPPORTED_F for name in KERNELS}
 # the ROADMAP.md §2 item that would run each kernel above its widest width
 WIDER_ITEM = {name: f"widths above {KERNEL_WIDTHS[name][-1]}" for name in KERNELS}
 
@@ -799,9 +790,8 @@ def _rows(update_rows, N):
 def padded_width(F: int, name: str = "egnn kernels", kernel: str = "gcl_agg") -> int:
     """The width ``kernel`` runs hidden width ``F`` at: the least of its
     ``KERNEL_WIDTHS`` that is >= F.  Wider than its widest raises, naming the
-    ROADMAP.md §2 item that would build it (``WIDER_ITEM``): above 4096 the
-    four split kernels (clusters of eight blocks), above 2048
-    ``block_fused`` (clusters of four)."""
+    ROADMAP.md §2 item that would build it (``WIDER_ITEM``): above 4096,
+    clusters of eight blocks."""
     widths = KERNEL_WIDTHS[kernel]
     for width in widths:
         if width >= F:
@@ -906,9 +896,10 @@ def _block_grid(B: int, N: int, device, F: int) -> int:
     block would own more than ``BLOCK_TILES_MAX`` tiles, fewer where there
     are fewer tiles.  A block's time is its tiles' GCL work plus its node
     products (one pass over the weights, growing with its m-tiles of 16
-    rows), and under one wave the longest block sets the time.  At F = 2048
-    the tiles are dealt to clusters of ``cluster_size(F)`` blocks, one wave
-    holding ``sms // cluster_size(F)`` of them."""
+    rows), and under one wave the longest block sets the time.  Above
+    F = 1024 the tiles are dealt to clusters of ``cluster_size(F)`` blocks
+    (two at 2048, four at 4096), one wave holding ``sms // cluster_size(F)``
+    of them."""
     tiles = B * -(-N // row_tile(F))
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     C = cluster_size(F)
@@ -1439,13 +1430,13 @@ def _block_forward_cuda(h, a_row, a_col, x, x0, mask, is_lig, gcl, node, coord,
             **{f"{p}.{k}": hd.get(k) for p, hd in (("coord", coord), ("cross", c))
                for k in ("k_i", "k_j", "w1")}}
     if cluster_size(F) > 1:
-        mats["h"] = h  # phase A reads its rows in 16-byte vectors at 2048
+        mats["h"] = h  # phase A reads its rows in 16-byte vectors above 1024
     for key, w in mats.items():
         if w is not None and w.data_ptr() % 16:
             raise ValueError(f"{name}: {key} must be 16-byte aligned (16-byte copies)")
     out_h = torch.empty((B, N, F), device=dev, dtype=torch.float32)
     out_dx = torch.empty((B, N, 3), device=dev, dtype=torch.float32)
-    # the heads' projections (and at F = 2048 the GCL aggregates, which
+    # the heads' projections (and above F = 1024 the GCL aggregates, which
     # pass through device memory there), their type deltas and phase B's two
     # partial slabs
     planes = 4 + (cluster_size(F) > 1)

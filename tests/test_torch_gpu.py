@@ -817,22 +817,91 @@ def test_block_wrapper_at_2048_rejects_a_misaligned_h():
     assert ec.launch_counts["block_fused"] == 0
 
 
-def test_width_2048_fused_network_matches_cpu():
-    """A hidden-2048 joint network (every node moves) with block fusing on:
-    one whole-block launch a layer on the card, against the plain versions
-    on the CPU."""
-    model, batch = _dynamics_case("cuda", hidden_nf=2048, kernel_block_fuse=True,
+def _fused_network_matches_cpu(hidden):
+    """A hidden-``hidden`` joint network (every node moves) with block
+    fusing on: one whole-block launch a layer on the card, on clusters of
+    ``ec.cluster_size``, against the plain versions on the CPU."""
+    model, batch = _dynamics_case("cuda", hidden_nf=hidden, kernel_block_fuse=True,
                                   update_pocket_coords=True)
-    cpu, cpu_batch = _dynamics_case("cpu", hidden_nf=2048, update_pocket_coords=True)
+    cpu, cpu_batch = _dynamics_case("cpu", hidden_nf=hidden, update_pocket_coords=True)
     ec.reset_launch_counts()
     with torch.no_grad():
         fused = model(*batch, block_fuse=True)
         want = cpu(*cpu_batch)
     assert ec.launch_counts == {**dict.fromkeys(ec.KERNELS, 0), "block_fused": 2}, \
         ec.launch_counts
-    assert ec.last_cluster_dim("block_fused") == 2
+    assert ec.last_cluster_dim("block_fused") == ec.cluster_size(hidden)
     for f, w in zip(fused, want):
         torch.testing.assert_close(f.cpu(), w, atol=1e-4, rtol=1e-4)
+
+
+def test_width_2048_fused_network_matches_cpu():
+    _fused_network_matches_cpu(2048)
+
+
+# ---------------------------------------------------------------------------
+# the whole-block kernel at F = 4096, on clusters of four blocks
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("width", [4096, 3072])
+@pytest.mark.parametrize("tier", ["tf32x3", "tf32x2", "bf16"])
+@pytest.mark.parametrize("case", list(BLOCK_CLUSTER_CASES))
+def test_block_kernel_at_4096(case, tier, width):
+    """The whole-block kernel at F = 4096 (3072 zero-padded onto it) at each
+    tier against its plain version at the tier, the cases of
+    ``test_block_kernel_at_2048``: both outputs within the tier's gate, dx
+    rows past ``update_rows`` exact zeros, two launches bit for bit, each on
+    clusters of four blocks."""
+    cross, attention, table, n, rows = BLOCK_CLUSTER_CASES[case]
+    ins = block_inputs(63, N=n, F=width, cross=cross, attention=attention, table=table,
+                       spread=4.0)
+    kw = dict(BLOCK_KW, attention=attention, update_rows=rows)
+    ec.reset_launch_counts()
+    got = ec.block_fused(*ins, **kw, precision=tier)
+    again = ec.block_fused(*ins, **kw, precision=tier)
+    _only_tier("block_fused", tier, launches=2)
+    assert ec.last_cluster_dim("block_fused", tier) == 4
+    assert got[0].shape == (B, n, width)
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+    ref = ec.block_fused_plain(*ins, **kw, precision=tier)
+    exact = ec.block_fused_plain(*ins, **kw) if tier != "tf32x3" else ref
+    sums = ec.block_fused_bf16_exact(*ins, **kw) if tier == "bf16" else None
+    _assert_block_tier(got, ref, exact, tier, rows, sums)
+
+
+@pytest.mark.parametrize("clusters", [None, 17], ids=["one_wave", "16_tiles"])
+def test_block_kernel_at_4096_on_many_tiles(clusters, monkeypatch):
+    """Phase A at F = 4096 deals B * N one-row tiles to clusters of four
+    blocks: the wrapper's grid (one wave of 33 clusters on 132 SMs, at
+    most 8 tiles a cluster here), and the fewest clusters that hold them
+    (16 tiles a cluster, the most, 15 in the last), on the collapsed
+    complex, every row moving."""
+    if clusters is not None:
+        monkeypatch.setattr(ec, "_block_grid", lambda B, N, device, F: 4 * clusters)
+    ins = block_inputs(64, N=131, F=4096, n_lig=20, spread=1.0)
+    ec.reset_launch_counts()
+    got = ec.block_fused(*ins, **BLOCK_KW)
+    assert ec.launch_counts["block_fused"] == 1 and ec.last_cluster_dim("block_fused") == 4
+    assert_block_close(got, ec.block_fused_plain(*ins, **BLOCK_KW))
+
+
+def test_block_wrapper_at_4096_rejects_a_misaligned_h():
+    """At F = 4096 phase A reads h in 16-byte vectors: an h that starts 4
+    bytes past an aligned address is refused before any launch."""
+    ins = block_inputs(65, N=45, F=4096)
+    h = ins[0]
+    ins[0] = torch.empty(h.numel() + 1, device=h.device)[1:].copy_(h.reshape(-1)).view_as(h)
+    ec.reset_launch_counts()
+    with pytest.raises(ValueError, match="h must be 16-byte aligned"):
+        ec.block_fused(*ins, **BLOCK_KW)
+    assert ec.launch_counts["block_fused"] == 0
+
+
+def test_width_4096_fused_network_matches_cpu():
+    """A hidden-4096 joint network with block fusing on: one whole-block
+    launch a layer on clusters of four, no split-kernel launch, against the
+    plain versions on the CPU."""
+    _fused_network_matches_cpu(4096)
 
 
 # ---------------------------------------------------------------------------
@@ -1582,11 +1651,11 @@ def test_backward_width_above_2048_is_refused():
     assert not any(ec.launch_counts.values())
 
 
-def test_block_width_above_1024_is_refused():
-    """The whole-block kernel runs every width up to 2048; 2112 is wider: a
+def test_block_width_above_4096_is_refused():
+    """The whole-block kernel runs every width up to 4096; 4160 is wider: a
     ValueError naming its ROADMAP item, before any launch."""
-    ins = block_inputs(54, F=2112)
+    ins = block_inputs(54, F=4160)
     ec.reset_launch_counts()
-    with pytest.raises(ValueError, match="above 2048.*ROADMAP.*widths above 2048"):
+    with pytest.raises(ValueError, match="above 4096.*ROADMAP.*widths above 4096"):
         ec.block_fused(*ins, **BLOCK_KW)
     assert not any(ec.launch_counts.values())

@@ -195,27 +195,23 @@ def test_wrapper_counts_no_launch_on_cpu():
                                    4160])
 def test_kernel_widths(width):
     """The five kernels are built for hidden widths 64, 128 (the config
-    default), 256, 512, 1024 (on tiles of two rows and one, ``ec.row_tile``)
-    and 2048 (a row tile on a cluster of two blocks, ``ec.cluster_size``),
-    the four split kernels also for 4096 (a cluster of four); every other
-    width up to a kernel's widest runs zero-padded to the next of its
-    widths, and a wider one is refused before a launch, naming the ROADMAP
-    item, never run by the plain version on the card: 1088 and 2048 run on
-    every kernel; 2112, 3072 and 4096 on the four split kernels (at 4096)
-    and are refused by ``block_fused``, naming "widths above 2048"; 4160 is
-    refused by every kernel, the split kernels naming "widths above
+    default), 256, 512, 1024 (on tiles of two rows and one, ``ec.row_tile``),
+    2048 (a row tile on a cluster of two blocks, ``ec.cluster_size``) and
+    4096 (a cluster of four); every other width up to 4096 runs zero-padded
+    to the next of the widths, and a wider one is refused before a launch,
+    naming the ROADMAP item, never run by the plain version on the card:
+    1088 and 2048 run on every kernel at 2048, 2112, 3072 and 4096 on every
+    kernel at 4096; 4160 is refused by every kernel, naming "widths above
     4096"."""
     assert ec.SUPPORTED_F == (64, 128, 256, 512, 1024, 2048, 4096)
     assert [ec.row_tile(f) for f in ec.SUPPORTED_F] == [4, 4, 4, 2, 1, 1, 1]
     assert [ec.cluster_size(f) for f in ec.SUPPORTED_F] == [1, 1, 1, 1, 1, 2, 4]
     for name in ec.KERNELS:
         widths = ec.KERNEL_WIDTHS[name]
-        widest = 2048 if name == "block_fused" else 4096
-        assert widths == tuple(f for f in ec.SUPPORTED_F if f <= widest), name
-        assert ec.WIDER_ITEM[name] == f"widths above {widest}", name
+        assert widths == ec.SUPPORTED_F, name
+        assert ec.WIDER_ITEM[name] == "widths above 4096", name
         text = (ec.CSRC / f"{name}.cu").read_text()
         assert all(f"case {f}: return launch<{f}>(" in text for f in widths), name
-        assert ("case 4096:" in text) == (widest == 4096), name
         if width <= widths[-1]:
             want = min(f for f in widths if f >= width)
             assert ec.padded_width(width, name, name) == want

@@ -1,10 +1,10 @@
-"""Hidden widths 2049-4096 on the four split kernels, on the CPU.
+"""Hidden widths 2049-4096 on the five kernels, on the CPU.
 
-On the card ``gcl_agg``, ``coord_agg`` and their backward kernels are
-built at F = 4096 (each row tile on a cluster of four blocks), and the
-wrappers run every width from 2049 up zero-padded onto 4096;
-``block_fused`` stops at 2048.  Here the same padding goes through the
-plain versions, which compute what the kernels do:
+On the card ``gcl_agg``, ``coord_agg``, their backward kernels and
+``block_fused`` are built at F = 4096 (each row tile on a cluster of four
+blocks), and the wrappers run every width from 2049 up zero-padded onto
+4096.  Here the same padding goes through the plain versions, which
+compute what the kernels do:
 
 * the GCL and the coordinate update (cross branch on) at 3072 (padded onto
   4096, cut back) and at 4096 against the JAX package's dense twins at F
@@ -12,6 +12,11 @@ plain versions, which compute what the kernels do:
   1e-4 (float32 on both sides, the pairs summed in another order); the
   padded channels of the GCL sum and of both pair MLPs' messages (every
   tier) exact zeros;
+* the whole block (cross head on, odd ``update_rows``) at 3072 (padded onto
+  4096, cut back) and at 4096 against ``block_fused_xla`` at F, as
+  ``test_torch_widths.py``'s 2048 case: atol 1e-5 + rtol 1e-4, the dx rows
+  below ``update_rows`` (JAX keeps whole row tiles); the padded channels of
+  h_new and the port's dx rows at and above ``update_rows`` exact zeros;
 * the backward plain versions at 3072 (padded onto 4096, cut back) and at
   4096 against ``jax.vjp`` of the same twins: atol 1e-4, rtol 1e-3, as
   ``test_torch_widths.py``'s 2048 case (each cotangent sums up to B*N*N
@@ -22,12 +27,12 @@ plain versions, which compute what the kernels do:
   gradient's largest entry, as ``test_torch_train.py``'s
   ``test_loss_gradients_match_jax``.
 
-Which kernel runs which width (3072 at 4096 on the four, refused by
-``block_fused``; 4160 refused by all) is ``test_torch_kernels.py``'s
-``test_kernel_widths``.
+Which kernel runs which width (2112, 3072 and 4096 at 4096 on all five;
+4160 refused by all) is ``test_torch_kernels.py``'s ``test_kernel_widths``.
 
 B = 1, N = 12 (5 ligand nodes), one numpy seed a width, operands drawn as
-``test_torch_widths.make_ops`` draws them (only the two functions' own).
+``test_torch_widths.make_ops`` draws them (the split functions' own; the
+whole block's others from a second seed, ``block_ops``).
 """
 import functools
 
@@ -42,7 +47,8 @@ from diffsbdd_tpu_torch.ops import egnn_cuda as ec
 import test_torch_train as tt
 from test_torch_train import batches, datadir  # noqa: F401  (fixtures)
 from test_torch_widths import (COORD_KEYS, GCL_KEYS, GCL_KW, COORD_KW, TOL, _delta_tables,
-                               _jax_vjp, _port_bwd, assert_cotangents_close, convert, padded)
+                               _jax_fns, _jax_vjp, _port_bwd, assert_cotangents_close,
+                               block, convert, padded)
 
 B, N, NL = 1, 12, 5
 WIDTHS = (3072, 4096)
@@ -109,6 +115,53 @@ def test_plain_at_4096_matches_jax(name, F):
     if name == "gcl":
         assert full[0].shape[-1] == 4096
         assert not full[0][..., F:].any()
+
+
+@functools.lru_cache(maxsize=None)
+def block_ops(F):
+    """The whole block's operands at width F, keyed as
+    ``test_torch_widths.make_ops``' (``block`` reads them): the GCL's and the
+    graph mean from ``_ops(F)``; h, the edge-type delta, the node MLP and
+    both heads (the coordinate head's w1 the cross MLP's W2) drawn from a
+    second seed."""
+    ops = _ops(F)
+    rng = np.random.default_rng(F + 2)
+    nrm = lambda *s, scale=1.0: (rng.standard_normal(s) * scale).astype(np.float32)
+    s = F ** -0.5
+
+    def head(w1):
+        return dict(k_i=nrm(F, F, scale=s), k_j=nrm(F, F, scale=s), b0=nrm(F, scale=0.1),
+                    w_d2=nrm(F, scale=0.05), w_d20=nrm(F, scale=0.05),
+                    type_bias=nrm(2, 2, F, scale=0.2), w1=w1, b1=nrm(F, scale=0.1),
+                    w3=ops["w3"])
+
+    gcl = dict(w_d2=ops["w_d2"], w_d20=ops["w_d20"], type_delta=nrm(F, scale=0.2),
+               w2=ops["w2"], b2=ops["b2"], w_att=ops["w_att"], b_att=ops["b_att"])
+    node = dict(w_h=nrm(F, F, scale=s), w_a=nrm(F, F, scale=s), b0=nrm(F, scale=0.1),
+                w2=nrm(F, F, scale=s), b2=nrm(F, scale=0.1))
+    return dict(ops, h=nrm(B, N, F, scale=0.5), gcl=gcl, node=node,
+                coord=head(ops["cross"]["w2"]), block_cross=head(nrm(F, F, scale=s)))
+
+
+@pytest.mark.parametrize("F", WIDTHS)
+def test_block_plain_at_4096_matches_jax(F):
+    """The whole block as the card's wrapper runs it at F = 4096 (3072
+    zero-padded onto it, the outputs cut back), the cross head on and
+    ``update_rows`` odd, against the JAX package's ``block_fused_xla`` at F
+    (the dx rows below ``update_rows``: JAX keeps whole row tiles); the
+    padded channels of h_new and the port's dx rows at and above
+    ``update_rows`` exact zeros."""
+    ops = block_ops(F)
+    assert ec.padded_width(F, kernel="block_fused") == 4096
+    (h_new, dx), (full_h, _) = padded(block, convert(ops, torch.as_tensor), F,
+                                      update_rows=UPDATE_ROWS)
+    ref_h, ref_dx = _jax_fns()["block"](convert(ops, jax.numpy.asarray),
+                                       update_rows=UPDATE_ROWS)
+    np.testing.assert_allclose(h_new.numpy(), np.asarray(ref_h), **TOL)
+    np.testing.assert_allclose(dx.numpy()[:, :UPDATE_ROWS],
+                               np.asarray(ref_dx)[:, :UPDATE_ROWS], **TOL)
+    assert full_h.shape[-1] == 4096 and not full_h[..., F:].any()
+    assert not dx[:, UPDATE_ROWS:].any()
 
 
 def test_padded_pair_messages_at_3072_are_exact_zeros():
