@@ -724,7 +724,8 @@ int launch(const PhaseA& a, const CoordArgs& b, int blocks, float* partial, floa
 
 // scratch: 4*B*N*F + 2*F + 2*B*N*3 floats (la_row, la_col, lc_row, lc_col, the
 // two deltas, phase B's two partial slabs); above F = 1024 B*N*F more, the
-// aggregates' plane, after the projections'.
+// aggregates' plane, after the projections'.  pairs: null, or two counters to
+// which both phases add their pairs (launch_count_pairs: egnn_common.cuh).
 extern "C" int block_fused_forward(
     const float* h, const float* a_row, const float* a_col, const float* x,
     const float* x0, const float* mask, const float* is_lig,
@@ -742,7 +743,7 @@ extern "C" int block_fused_forward(
     int use_tanh, float coords_range, float norm_constant, float nf,
     float cut_ll, float cut_pp, float cut_lp,
     int B, int N, int F, int update_rows, int blocks, float* out_h,
-    float* out_dx, void* stream) {
+    float* out_dx, unsigned long long* pairs, void* stream) {
   const size_t plane = (size_t)B * N * F;
   float* la_row = scratch;
   float* la_col = scratch + plane;
@@ -775,6 +776,12 @@ extern "C" int block_fused_forward(
   b.N = N; b.update_rows = update_rows; b.out = out_dx;
 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (pairs != nullptr) {  // phase A's tiles of every row, then phase B's
+    int err = launch_count_pairs(F, x0, mask, mask, is_lig, cut, B, N, N, pairs, s);
+    if (err == 0)
+      err = launch_count_pairs(F, x0, mask, mask, is_lig, cut, B, N, update_rows, pairs, s);
+    if (err != 0) return err;
+  }
   switch (F) {
     case 64: return launch<64>(a, b, blocks, partial, agg, s);
     case 128: return launch<128>(a, b, blocks, partial, agg, s);

@@ -19,7 +19,9 @@
 // unsharded launch passes mask as col_mask.
 //
 // The C entry point takes `partial`, 2 * B * N * 3 floats of scratch that the
-// caller allocates (null without the cross branch).
+// caller allocates (null without the cross branch), and `pairs`, null or two
+// counters to which the launch adds its pairs (launch_count_pairs:
+// egnn_common.cuh; the two MLPs walk the same chunks, counted once).
 //
 // What bounds it on an H100: two per-pair F x F products (coordinate and cross
 // MLPs), 2 * 2*F^2 of the 2 * (2*F^2 + 10*F) operations an active pair.  They
@@ -95,7 +97,8 @@ extern "C" int coord_agg_forward(
     const float* x, const float* x0, const float* mask, const float* col_mask,
     const float* is_lig, const float* graph_mean, int use_tanh, float coords_range,
     float norm_constant, float nf, float cut_ll, float cut_pp, float cut_lp,
-    int B, int N, int F, int update_rows, float* partial, float* out, void* stream) {
+    int B, int N, int F, int update_rows, float* partial, float* out,
+    unsigned long long* pairs, void* stream) {
   CoordArgs g;
   g.coord = PairMlp{a_row, a_col, w_d2, w_d20, delta, w2, b2, w3};
   g.cross = PairMlp{c_row, c_col, cw_d2, cw_d20, c_delta, cw2, cb2, cw3};
@@ -106,6 +109,11 @@ extern "C" int coord_agg_forward(
   g.cut = Cutoffs{cut_ll, cut_pp, cut_lp};
   g.N = N; g.update_rows = update_rows; g.out = out;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (pairs != nullptr) {  // on the stream before the kernel, which reads the same inputs
+    const int err = launch_count_pairs(F, x0, mask, col_mask, is_lig, g.cut, B, N,
+                                       update_rows, pairs, s);
+    if (err != 0) return err;
+  }
   switch (F) {
     case 64: return launch<64>(g, B, partial, s);
     case 128: return launch<128>(g, B, partial, s);

@@ -790,7 +790,9 @@ int launch(CoordBwdArgs g, int B, int Q, float* da_col, float* dc_col,
 // zero on entry; da_col, dc_col (B, N, F), dxx0 (B, N, 6), dmean (B, 3),
 // w_out and cw_out (weight_slab) are written in full.  Without the cross
 // branch every cross pointer is null.  w2 and cw2 (and their transposes)
-// must be 16-byte aligned: they stream through cp.async.
+// must be 16-byte aligned: they stream through cp.async.  pairs: null, or two
+// counters to which the launch adds its pairs (launch_count_pairs:
+// egnn_common.cuh; the two MLPs' passes walk the same chunks, counted once).
 extern "C" int coord_agg_backward(
     const float* g_out,
     const float* a_row, const float* a_col, const float* w_d2, const float* w_d20,
@@ -807,7 +809,7 @@ extern "C" int coord_agg_backward(
     float* da_row, float* dc_row, float* acol_part, float* ccol_part, float* dx_part,
     float* mean_part, float* w_part, float* cw_part,
     float* da_col, float* dc_col, float* dxx0, float* dmean, float* w_out,
-    float* cw_out, void* stream) {
+    float* cw_out, unsigned long long* pairs, void* stream) {
   CoordBwdArgs g;
   g.coord = PairMlp{a_row, a_col, w_d2, w_d20, delta, w2, b2, w3};
   g.cross = PairMlp{c_row, c_col, cw_d2, cw_d20, c_delta, cw2, cb2, cw3};
@@ -822,6 +824,11 @@ extern "C" int coord_agg_backward(
   g.ccol_part = ccol_part; g.dx_part = dx_part; g.mean_part = mean_part;
   g.w_part = w_part; g.cw_part = cw_part;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (pairs != nullptr) {  // on the stream before the kernel, which reads the same inputs
+    const int err = launch_count_pairs(F, x0, mask, col_mask, is_lig, g.cut, B, N,
+                                       update_rows, pairs, s);
+    if (err != 0) return err;
+  }
   switch (F) {
     case 64: return launch<64>(g, B, Q, da_col, dc_col, dxx0, dmean, w_out, cw_out, s);
     case 128: return launch<128>(g, B, Q, da_col, dc_col, dxx0, dmean, w_out, cw_out, s);

@@ -91,17 +91,23 @@ __device__ __forceinline__ void load_rows(Rows<TI>& r, const float* x, const flo
 
 // Writes every column adjacent to any of the block's rows to cols, in
 // ascending order (a ballot and a prefix count per warp), and returns their
-// number.  The rows must be loaded and synced.
+// number.  The rows must be loaded and synced.  With `pairs` (count_pairs_kernel
+// alone passes it; in the kernels it is a constant null, and the counting
+// compiles away), it adds the tile's pairs inside the cutoffs (both ends
+// valid, rows below update_rows) to pairs[0] and the pairs its chunks hold,
+// TI rows x TJ columns a chunk, to pairs[1]: one atomic each a tile.
 template <int TI>
 __device__ __forceinline__ int compact_columns(const Rows<TI>& r, const float* x0,
                                                const float* col_mask,
                                                const float* is_lig, size_t node0,
-                                               int N, const Cutoffs& cut, int* cols) {
+                                               int N, const Cutoffs& cut, int* cols,
+                                               unsigned long long* pairs = nullptr) {
   __shared__ int warp_tot[NT / 32];
   __shared__ int n_active;
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
   if (t == 0) n_active = 0;
   __syncthreads();
+  int inside = 0;  // this thread's pairs inside the cutoffs
   for (int base = 0; base < N; base += NT) {
     const int j = base + t;
     bool act = false;
@@ -111,8 +117,10 @@ __device__ __forceinline__ int compact_columns(const Rows<TI>& r, const float* x
             xj2 = x0[(node0 + j) * 3 + 2];
       for (int k = 0; k < TI; ++k) {
         float d0 = r.x0[k][0] - xj0, d1 = r.x0[k][1] - xj1, d2 = r.x0[k][2] - xj2;
-        act |= pair_adj(r.mask[k], mj, r.lig[k], lj, d0 * d0 + d1 * d1 + d2 * d2,
-                        cut) != 0.0f;
+        const bool adj = pair_adj(r.mask[k], mj, r.lig[k], lj,
+                                  d0 * d0 + d1 * d1 + d2 * d2, cut) != 0.0f;
+        act |= adj;
+        inside += adj;
       }
     }
     unsigned ballot = __ballot_sync(0xffffffffu, act);
@@ -128,6 +136,17 @@ __device__ __forceinline__ int compact_columns(const Rows<TI>& r, const float* x
       n_active += tot;
     }
     __syncthreads();
+  }
+  if (pairs != nullptr) {  // uniform over the block
+    inside = __reduce_add_sync(0xffffffffu, inside);
+    if (lane == 0) warp_tot[warp] = inside;
+    __syncthreads();
+    if (t == 0) {
+      unsigned long long tot = 0;
+      for (int w = 0; w < NT / 32; ++w) tot += (unsigned long long)warp_tot[w];
+      atomicAdd(pairs, tot);
+      atomicAdd(pairs + 1, (unsigned long long)TI * TJ * ((n_active + TJ - 1) / TJ));
+    }
   }
   return n_active;
 }
@@ -176,6 +195,57 @@ inline dim3 row_tile_grid(int N, int update_rows, int B, int TI) {
   const int rows = update_rows < N ? update_rows : N;
   const int tiles = (rows + TI - 1) / TI;
   return dim3(tiles > 0 ? tiles : 1, B);
+}
+
+// The pair counts of a launch: one block per row tile below update_rows of
+// one batch item (blockIdx.x, blockIdx.y: the kernels' tiles, row_tile_grid)
+// runs compact_columns, the compaction that sets the chunks every kernel
+// walks, with its counting on.  A tile is counted once whatever the kernel
+// does with it (a cluster of blocks, two pair MLPs, two passes).  The
+// kernels themselves are not touched: their code is the same with a counter
+// or without.  Dynamic shared memory: N ints.
+template <int TI>
+__global__ void __launch_bounds__(NT)
+    count_pairs_kernel(const float* x0, const float* mask, const float* col_mask,
+                       const float* is_lig, Cutoffs cut, int N, int update_rows,
+                       unsigned long long* pairs) {
+  extern __shared__ int count_cols[];
+  __shared__ Rows<TI> rows;
+  const size_t node0 = (size_t)blockIdx.y * N;
+  load_rows(rows, x0, x0, mask, is_lig, node0, blockIdx.x * TI, N, update_rows);
+  __syncthreads();
+  compact_columns(rows, x0, col_mask, is_lig, node0, N, cut, count_cols, pairs);
+}
+
+template <int TI>
+int launch_count_pairs(const float* x0, const float* mask, const float* col_mask,
+                       const float* is_lig, Cutoffs cut, int B, int N, int update_rows,
+                       unsigned long long* pairs, cudaStream_t stream) {
+  const size_t smem = (size_t)N * sizeof(int);
+  cudaError_t err = cudaFuncSetAttribute(
+      count_pairs_kernel<TI>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  count_pairs_kernel<TI><<<row_tile_grid(N, update_rows, B, TI), NT, smem, stream>>>(
+      x0, mask, col_mask, is_lig, cut, N, update_rows, pairs);
+  return (int)cudaGetLastError();
+}
+
+// Adds the pairs of a launch at hidden width F (64, 128, ..., 4096) to
+// pairs[0] (inside the cutoffs) and pairs[1] (held by its chunks), on
+// `stream`.  Returns the CUDA error code.
+inline int launch_count_pairs(int F, const float* x0, const float* mask,
+                              const float* col_mask, const float* is_lig, Cutoffs cut,
+                              int B, int N, int update_rows, unsigned long long* pairs,
+                              cudaStream_t stream) {
+  if (F < 64 || F > 4096 || (F & (F - 1)) != 0) return (int)cudaErrorInvalidValue;
+  if (F > 512)
+    return launch_count_pairs<tile_rows<1024>()>(x0, mask, col_mask, is_lig, cut, B, N,
+                                                 update_rows, pairs, stream);
+  if (F > 256)
+    return launch_count_pairs<tile_rows<512>()>(x0, mask, col_mask, is_lig, cut, B, N,
+                                                update_rows, pairs, stream);
+  return launch_count_pairs<tile_rows<256>()>(x0, mask, col_mask, is_lig, cut, B, N,
+                                              update_rows, pairs, stream);
 }
 
 template <int TI>

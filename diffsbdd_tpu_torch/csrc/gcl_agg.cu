@@ -110,17 +110,25 @@ int launch(const GclArgs& g, int B, cudaStream_t stream) {
 
 }  // namespace
 
+// pairs: null, or two counters to which the launch adds its pairs
+// (launch_count_pairs: egnn_common.cuh).
 extern "C" int gcl_agg_forward(
     const float* a_row, const float* a_col, const float* x, const float* x0,
     const float* mask, const float* col_mask, const float* is_lig,
     const float* w_d2, const float* w_d20, const float* delta,
     const float* w2, const float* b2, const float* w_att, const float* b_att,
     float cut_ll, float cut_pp, float cut_lp, float nf,
-    int B, int N, int F, int update_rows, float* out, void* stream) {
+    int B, int N, int F, int update_rows, float* out, unsigned long long* pairs,
+    void* stream) {
   GclArgs g{PairMlp{a_row, a_col, w_d2, w_d20, delta, w2, b2, w_att}, b_att,
             x, x0, mask, col_mask, is_lig, Cutoffs{cut_ll, cut_pp, cut_lp}, nf,
             N, update_rows, out};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (pairs != nullptr) {  // on the stream before the kernel, which reads the same inputs
+    const int err = launch_count_pairs(F, x0, mask, col_mask, is_lig, g.cut, B, N,
+                                       update_rows, pairs, s);
+    if (err != 0) return err;
+  }
   switch (F) {
     case 64: return launch<64>(g, B, s);
     case 128: return launch<128>(g, B, s);

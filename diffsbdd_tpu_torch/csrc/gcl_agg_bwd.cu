@@ -134,7 +134,8 @@ int launch(GclBwdArgs g, int B, int Q, float* da_col, float* dxx0, float* w_out,
 // Q: blocks per batch element, clusters of two at F = 2048 and of four at
 // 4096 (1 <= Q <= row tiles below update_rows).  The *_part buffers and da_row must be zero on
 // entry; da_col (B, N, F), dxx0 (B, N, 6) and w_out (weight_slab) are
-// written in full.
+// written in full.  pairs: null, or two counters to which the launch adds its
+// pairs (launch_count_pairs: egnn_common.cuh).
 extern "C" int gcl_agg_backward(
     const float* g_out, const float* a_row, const float* a_col, const float* x,
     const float* x0, const float* mask, const float* col_mask, const float* is_lig,
@@ -143,12 +144,17 @@ extern "C" int gcl_agg_backward(
     float cut_ll, float cut_pp, float cut_lp, float nf,
     int B, int N, int F, int update_rows, int Q,
     float* da_row, float* acol_part, float* dx_part, float* w_part,
-    float* da_col, float* dxx0, float* w_out, void* stream) {
+    float* da_col, float* dxx0, float* w_out, unsigned long long* pairs, void* stream) {
   // tiles: set by launch<F>, whose row tile TI depends on F
   GclBwdArgs g{PairMlp{a_row, a_col, w_d2, w_d20, delta, w2, b2, w_att}, b_att, w2t,
                g_out, x, x0, mask, col_mask, is_lig, Cutoffs{cut_ll, cut_pp, cut_lp},
                1.0f / nf, N, update_rows, 0, da_row, acol_part, dx_part, w_part};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (pairs != nullptr) {  // on the stream before the kernel, which reads the same inputs
+    const int err = launch_count_pairs(F, x0, mask, col_mask, is_lig, g.cut, B, N,
+                                       update_rows, pairs, s);
+    if (err != 0) return err;
+  }
   switch (F) {
     case 64: return launch<64>(g, B, Q, da_col, dxx0, w_out, s);
     case 128: return launch<128>(g, B, Q, da_col, dxx0, w_out, s);

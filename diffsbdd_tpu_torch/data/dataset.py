@@ -2,7 +2,9 @@
 
 Reads the ``{train,val,test}.npz`` format of the processing scripts (flat
 per-node arrays plus graph-id masks) and pads to size-bucketed static shapes.
-Batches are numpy; the trainer moves them to its device.
+Batches are numpy; the trainer moves them to its device.  Assembling and
+padding one batch of ``PaddedLoader`` is a ``data.batch`` span
+(``utils.profiling.span``), on whichever thread pads it.
 """
 from __future__ import annotations
 
@@ -13,6 +15,8 @@ from pathlib import Path
 from typing import Callable, Dict, Iterator, List, Optional
 
 import numpy as np
+
+from diffsbdd_tpu_torch.utils.profiling import span
 
 
 def round_to_bucket(n: int, bucket: int, minimum: int = 0) -> int:
@@ -193,30 +197,37 @@ class PaddedLoader:
         transform = self.dataset.transform
         for start in range(0, len(order), self.batch_size):
             idx = order[start:start + self.batch_size]
-            if len(idx) < self.batch_size:
-                if self.drop_last:
-                    continue
-                # np.resize tiles `order` as often as needed, so this holds
-                # even when batch_size > 2 * len(dataset)
-                idx = np.concatenate(
-                    [idx, np.resize(order, self.batch_size - len(idx))])
-            if self.process_count > 1:
-                # this rank's slice; the bucket shapes below come from the
-                # slice when fixed_shape is False
-                local = self.batch_size // self.process_count
-                idx = idx[self.process_index * local:(self.process_index + 1) * local]
-            if self.fixed_shape:
-                n_lig, n_pocket = self.n_lig_max, self.n_pocket_max
-            else:
-                raw_max = max(len(self.dataset.data["lig_coords"][int(i)])
-                              for i in idx)
-                if isinstance(transform, AppendVirtualNodes):
-                    raw_max = max(raw_max, transform.max_ligand_size)
-                n_lig = round_to_bucket(raw_max, self.lig_bucket)
-                n_pocket = round_to_bucket(
-                    max(len(self.dataset.data["pocket_coords"][int(i)])
-                        for i in idx), self.pocket_bucket)
-            yield pad_batch([self.dataset[int(i)] for i in idx], n_lig, n_pocket)
+            if len(idx) < self.batch_size and self.drop_last:
+                continue
+            with span("data.batch"):
+                batch = self._batch(order, idx, transform)
+            yield batch
+
+    def _batch(self, order, idx, transform) -> Dict[str, dict]:
+        """The padded batch of the items ``idx`` of the shuffled ``order``
+        (a short last one filled from ``order``)."""
+        if len(idx) < self.batch_size:
+            # np.resize tiles `order` as often as needed, so this holds
+            # even when batch_size > 2 * len(dataset)
+            idx = np.concatenate(
+                [idx, np.resize(order, self.batch_size - len(idx))])
+        if self.process_count > 1:
+            # this rank's slice; the bucket shapes below come from the
+            # slice when fixed_shape is False
+            local = self.batch_size // self.process_count
+            idx = idx[self.process_index * local:(self.process_index + 1) * local]
+        if self.fixed_shape:
+            n_lig, n_pocket = self.n_lig_max, self.n_pocket_max
+        else:
+            raw_max = max(len(self.dataset.data["lig_coords"][int(i)])
+                          for i in idx)
+            if isinstance(transform, AppendVirtualNodes):
+                raw_max = max(raw_max, transform.max_ligand_size)
+            n_lig = round_to_bucket(raw_max, self.lig_bucket)
+            n_pocket = round_to_bucket(
+                max(len(self.dataset.data["pocket_coords"][int(i)])
+                    for i in idx), self.pocket_bucket)
+        return pad_batch([self.dataset[int(i)] for i in idx], n_lig, n_pocket)
 
 
 def load_size_histogram(datadir) -> np.ndarray:

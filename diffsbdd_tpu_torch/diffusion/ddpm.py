@@ -17,7 +17,10 @@ arrays at a time (``sample_combined_noise``: ligand coordinates, pocket
 coordinates, ligand features, pocket features).  Every sampling loop is a
 Python loop over single steps, so one method serves where the JAX package
 keeps a scanned and a segmented twin.  The samplers ask the network for the
-whole-block kernel (``block_fuse=True``); the losses never do.
+whole-block kernel (``block_fuse=True``); the losses never do.  Each network
+pass of a sampler, with the sampler's own work around it, and each decode is
+a ``sampler.pass`` span (``utils.profiling.span``: recorded while a profiler
+records).
 """
 from __future__ import annotations
 
@@ -32,6 +35,7 @@ from diffsbdd_tpu_torch.diffusion import schedule as sched
 from diffsbdd_tpu_torch.diffusion.size_prior import SizeDistribution
 from diffsbdd_tpu_torch.geom import com
 from diffsbdd_tpu_torch.ops.masked import masked_mean, masked_sum, sum_except_batch
+from diffsbdd_tpu_torch.utils.profiling import span
 
 Batch = Dict[str, torch.Tensor]
 
@@ -422,10 +426,12 @@ class JointDDPM(DDPMBase):
         B, dev = m_l.shape[0], m_l.device
         z_lig, z_pkt = self.sample_combined_noise(generator, m_l, m_p)
         for s in range(timesteps - 1, -1, -1):
-            z_lig, z_pkt = self._denoise_step(
-                generator, z_lig, z_pkt, m_l, m_p, _full(B, s, dev, timesteps),
-                _full(B, s + 1, dev, timesteps))
-        return self._decode(generator, z_lig, z_pkt, m_l, m_p)
+            with span("sampler.pass"):
+                z_lig, z_pkt = self._denoise_step(
+                    generator, z_lig, z_pkt, m_l, m_p, _full(B, s, dev, timesteps),
+                    _full(B, s + 1, dev, timesteps))
+        with span("sampler.pass"):
+            return self._decode(generator, z_lig, z_pkt, m_l, m_p)
 
     @torch.no_grad()
     def sample_chain(self, generator: torch.Generator, masks,
@@ -441,14 +447,16 @@ class JointDDPM(DDPMBase):
         z_lig, z_pkt = self.sample_combined_noise(generator, m_l, m_p)
         frames_lig, frames_pkt = [], []
         for i, s in enumerate(range(timesteps - 1, -1, -1)):
-            z_lig, z_pkt = self._denoise_step(
-                generator, z_lig, z_pkt, m_l, m_p, _full(B, s, dev, timesteps),
-                _full(B, s + 1, dev, timesteps))
-            if (i + 1) % stride == 0:
-                frames_lig.append(self.unnormalize_z(z_lig))
-                frames_pkt.append(self.unnormalize_z(z_pkt))
-        frames_lig[-1], frames_pkt[-1] = self._decode(generator, z_lig, z_pkt,
-                                                      m_l, m_p)
+            with span("sampler.pass"):
+                z_lig, z_pkt = self._denoise_step(
+                    generator, z_lig, z_pkt, m_l, m_p, _full(B, s, dev, timesteps),
+                    _full(B, s + 1, dev, timesteps))
+                if (i + 1) % stride == 0:
+                    frames_lig.append(self.unnormalize_z(z_lig))
+                    frames_pkt.append(self.unnormalize_z(z_pkt))
+        with span("sampler.pass"):
+            frames_lig[-1], frames_pkt[-1] = self._decode(generator, z_lig, z_pkt,
+                                                          m_l, m_p)
         return torch.stack(frames_lig), torch.stack(frames_pkt)
 
     # ------------------------------------------------------------- inpainting
@@ -562,10 +570,12 @@ class JointDDPM(DDPMBase):
         ctx, z_lig, z_pkt = self._joint_inpaint_prep(generator, ligand, pocket,
                                                      lig_fixed, pocket_fixed)
         for s, jump in zip(*self._repaint_plan(resamplings, jump_length, timesteps)):
-            z_lig, z_pkt = self._joint_repaint_body(
-                generator, ctx, timesteps, z_lig, z_pkt, int(s), int(jump))
-        return self._decode(generator, z_lig, z_pkt, ctx["ligand"]["mask"],
-                            ctx["pocket"]["mask"])
+            with span("sampler.pass"):
+                z_lig, z_pkt = self._joint_repaint_body(
+                    generator, ctx, timesteps, z_lig, z_pkt, int(s), int(jump))
+        with span("sampler.pass"):
+            return self._decode(generator, z_lig, z_pkt, ctx["ligand"]["mask"],
+                                ctx["pocket"]["mask"])
 
 
 class ConditionalDDPM(DDPMBase):
@@ -767,15 +777,17 @@ class ConditionalDDPM(DDPMBase):
         m_p = pocket["mask"]
         z_lig, xh_pkt = self._prior_sample(generator, pocket, lig_mask)
         for s in range(timesteps - 1, -1, -1):
-            z_lig, xh_pkt = self._denoise_step(
-                generator, z_lig, xh_pkt, lig_mask, m_p,
-                _full(B, s, dev, timesteps), _full(B, s + 1, dev, timesteps),
-                shared_pocket=shared_pocket)
-        x_lig, h_lig, x_pkt, h_pkt = self.sample_p_xh_given_z0(
-            generator, z_lig, xh_pkt, lig_mask, m_p)
-        # final CoG re-projection
-        x_lig, x_pkt = self.remove_mean(x_lig, x_pkt, lig_mask, m_p)
-        x_lig = x_lig * lig_mask[..., None]
+            with span("sampler.pass"):
+                z_lig, xh_pkt = self._denoise_step(
+                    generator, z_lig, xh_pkt, lig_mask, m_p,
+                    _full(B, s, dev, timesteps), _full(B, s + 1, dev, timesteps),
+                    shared_pocket=shared_pocket)
+        with span("sampler.pass"):
+            x_lig, h_lig, x_pkt, h_pkt = self.sample_p_xh_given_z0(
+                generator, z_lig, xh_pkt, lig_mask, m_p)
+            # final CoG re-projection
+            x_lig, x_pkt = self.remove_mean(x_lig, x_pkt, lig_mask, m_p)
+            x_lig = x_lig * lig_mask[..., None]
         return torch.cat([x_lig, h_lig], -1), torch.cat([x_pkt, h_pkt], -1)
 
     @torch.no_grad()
@@ -794,14 +806,16 @@ class ConditionalDDPM(DDPMBase):
         z_lig, xh_pkt = self._prior_sample(generator, pocket, lig_mask)
         frames_lig, frames_pkt = [], []
         for i, s in enumerate(range(timesteps - 1, -1, -1)):
-            z_lig, xh_pkt = self._denoise_step(
-                generator, z_lig, xh_pkt, lig_mask, m_p,
-                _full(B, s, dev, timesteps), _full(B, s + 1, dev, timesteps))
-            if (i + 1) % stride == 0:
-                frames_lig.append(self.unnormalize_z(z_lig))
-                frames_pkt.append(self.unnormalize_z(xh_pkt))
-        x_lig, h_lig, x_pkt, h_pkt = self.sample_p_xh_given_z0(
-            generator, z_lig, xh_pkt, lig_mask, m_p)
+            with span("sampler.pass"):
+                z_lig, xh_pkt = self._denoise_step(
+                    generator, z_lig, xh_pkt, lig_mask, m_p,
+                    _full(B, s, dev, timesteps), _full(B, s + 1, dev, timesteps))
+                if (i + 1) % stride == 0:
+                    frames_lig.append(self.unnormalize_z(z_lig))
+                    frames_pkt.append(self.unnormalize_z(xh_pkt))
+        with span("sampler.pass"):
+            x_lig, h_lig, x_pkt, h_pkt = self.sample_p_xh_given_z0(
+                generator, z_lig, xh_pkt, lig_mask, m_p)
         frames_lig[-1] = torch.cat([x_lig, h_lig], -1)
         frames_pkt[-1] = torch.cat([x_pkt, h_pkt], -1)
         return torch.stack(frames_lig), torch.stack(frames_pkt)
@@ -824,11 +838,13 @@ class ConditionalDDPM(DDPMBase):
         z_lig, xh_pkt, _ = self.noised_representation(
             generator, xh0_lig, xh0_pkt, m_l, m_p, gamma_t)
         for s in range(noising_steps - 1, -1, -1):
-            z_lig, xh_pkt = self._denoise_step(
-                generator, z_lig, xh_pkt, m_l, m_p, _full(B, s, dev, self.T),
-                _full(B, s + 1, dev, self.T), shared_pocket=shared_pocket)
-        x_lig, h_lig, x_pkt, h_pkt = self.sample_p_xh_given_z0(
-            generator, z_lig, xh_pkt, m_l, m_p)
+            with span("sampler.pass"):
+                z_lig, xh_pkt = self._denoise_step(
+                    generator, z_lig, xh_pkt, m_l, m_p, _full(B, s, dev, self.T),
+                    _full(B, s + 1, dev, self.T), shared_pocket=shared_pocket)
+        with span("sampler.pass"):
+            x_lig, h_lig, x_pkt, h_pkt = self.sample_p_xh_given_z0(
+                generator, z_lig, xh_pkt, m_l, m_p)
         return torch.cat([x_lig, h_lig], -1), torch.cat([x_pkt, h_pkt], -1)
 
     # ------------------------------------------------------------- inpainting
@@ -925,14 +941,16 @@ class ConditionalDDPM(DDPMBase):
         frames_lig, frames_pkt = [], []
         for i, s in enumerate(range(timesteps - 1, -1, -1)):
             for u in range(resamplings):
-                (z_lig, xh_pkt), pre = self._cond_repaint_body(
-                    generator, ctx, timesteps, z_lig, xh_pkt, s,
-                    renoise=u < resamplings - 1, shared_pocket=shared_pocket)
+                with span("sampler.pass"):
+                    (z_lig, xh_pkt), pre = self._cond_repaint_body(
+                        generator, ctx, timesteps, z_lig, xh_pkt, s,
+                        renoise=u < resamplings - 1, shared_pocket=shared_pocket)
             if return_frames > 1 and (i + 1) % stride == 0:
                 frames_lig.append(self.unnormalize_z(pre[0]))
                 frames_pkt.append(self.unnormalize_z(pre[1]))
-        x_lig, h_lig, x_pkt, h_pkt = self.sample_p_xh_given_z0(
-            generator, z_lig, xh_pkt, m_l, m_p)
+        with span("sampler.pass"):
+            x_lig, h_lig, x_pkt, h_pkt = self.sample_p_xh_given_z0(
+                generator, z_lig, xh_pkt, m_l, m_p)
         final_lig = torch.cat([x_lig, h_lig], -1)
         final_pkt = torch.cat([x_pkt, h_pkt], -1)
         if return_frames > 1:

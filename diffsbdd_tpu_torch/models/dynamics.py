@@ -36,6 +36,7 @@ from torch import nn
 from diffsbdd_tpu_torch.config import check_impls, precision_policy
 from diffsbdd_tpu_torch.models.egnn import EGNN, GNN, GraphContext
 from diffsbdd_tpu_torch.ops.masked import masked_mean
+from diffsbdd_tpu_torch.utils.profiling import span
 
 
 @contextlib.contextmanager
@@ -176,8 +177,9 @@ class EGNNDynamics(nn.Module):
                 shared_pocket: bool = False, zero_nan: bool = False,
                 block_fuse: bool = False, shard=None):
         """The velocities and type predictions (``_forward``), with the glue
-        products at ``matmul_precision``'s tier."""
-        with glue_precision(self.tf32_glue, xh_lig.is_cuda):
+        products at ``matmul_precision``'s tier; a ``network.forward`` span
+        (``utils.profiling.span``)."""
+        with span("network.forward"), glue_precision(self.tf32_glue, xh_lig.is_cuda):
             return self._forward(xh_lig, xh_pkt, t, mask_lig, mask_pkt,
                                  shared_pocket, zero_nan, block_fuse, shard)
 

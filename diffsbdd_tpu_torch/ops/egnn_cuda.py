@@ -44,7 +44,18 @@ The plain versions are the CPU path and the kernels' test oracle.  On CUDA the
 public wrappers go through ``torch.autograd.Function``s, so a training step
 launches each split kernel once per layer.  Each launch adds one to
 ``launch_counts[name]`` (one for the two phases of ``block_fused``, one for
-the coordinate kernel's two MLPs and the sum of their terms).
+the coordinate kernel's two MLPs and the sum of their terms).  While a
+profiler records, each launch also counts its pairs: ``pair_counts()[name]``
+is (active, computed), the pairs inside the cutoffs on rows below
+``update_rows`` and the pairs the kernel's chunks hold (each tile's rows
+times 16 columns a chunk, a tile counted once whatever its cluster or pair
+MLP; the two phases of ``block_fused`` both add), so that active / computed
+is the share of the pair-MLP work spent inside the cutoffs.  Given a
+counter, the library counts them on the device ahead of the kernel, with
+the compaction the kernel's tiles run (``csrc/egnn_common.cuh``'s
+``count_pairs_kernel``); the kernel itself is the same either way.
+The plain path counts the adjacency's pairs and the dense (B, N, N) it
+computes.
 
 Precision tiers.  Every kernel takes ``precision`` (and the split forward
 wrappers ``bwd_precision`` for their backward kernels): ``"tf32x3"``
@@ -245,24 +256,80 @@ _libs: Dict[tuple, ctypes.CDLL] = {}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+# each entry point's parameters; the last two are the pair counter and the stream
 _ARGTYPES = {
     "gcl_agg": ("gcl_agg_forward",
-                [_P] * 14 + [_F] * 4 + [_I] * 4 + [_P, _P]),
+                [_P] * 14 + [_F] * 4 + [_I] * 4 + [_P] + [_P, _P]),
     "coord_agg": ("coord_agg_forward",
-                  [_P] * 22 + [_I] + [_F] * 6 + [_I] * 4 + [_P] * 3),
+                  [_P] * 22 + [_I] + [_F] * 6 + [_I] * 4 + [_P] * 2 + [_P, _P]),
     "gcl_agg_bwd": ("gcl_agg_backward",
-                    [_P] * 16 + [_F] * 4 + [_I] * 5 + [_P] * 7 + [_P]),
+                    [_P] * 16 + [_F] * 4 + [_I] * 5 + [_P] * 7 + [_P, _P]),
     "coord_agg_bwd": ("coord_agg_backward",
-                      [_P] * 25 + [_I] + [_F] * 6 + [_I] * 5 + [_P] * 14 + [_P]),
+                      [_P] * 25 + [_I] + [_F] * 6 + [_I] * 5 + [_P] * 14 + [_P, _P]),
     "block_fused": ("block_fused_forward",
-                    [_P] * 39 + [_I] + [_F] * 6 + [_I] * 5 + [_P, _P] + [_P]),
+                    [_P] * 39 + [_I] + [_F] * 6 + [_I] * 5 + [_P, _P] + [_P, _P]),
 }
+
+# Pair counters: while a profiler records, each launch adds to its kernel's
+# (active, computed) pairs -- the pairs inside the cutoffs (both ends valid,
+# rows below update_rows) and the pairs its chunks hold -- in a per-device
+# int64 buffer, a row a kernel (csrc/egnn_common.cuh's launch_count_pairs);
+# the plain path adds its own in Python.  Otherwise every launch passes a
+# null counter.
+_pair_buffers: Dict[int, torch.Tensor] = {}
+_plain_pairs: Dict[str, list] = {name: [0, 0] for name in KERNELS}
+
+
+def _recording() -> bool:
+    return torch.autograd.profiler._is_profiler_enabled
+
+
+def _pair_counter(name: str) -> Optional[int]:
+    """The device address of kernel ``name``'s two counters on the current
+    device while a profiler records; None (a null pointer) otherwise."""
+    if not _recording():
+        return None
+    device = torch.cuda.current_device()
+    buf = _pair_buffers.get(device)
+    if buf is None:
+        buf = _pair_buffers[device] = torch.zeros(
+            (len(KERNELS), 2), dtype=torch.int64, device=torch.device("cuda", device))
+    return buf.data_ptr() + buf.stride(0) * buf.element_size() * KERNELS.index(name)
+
+
+def _count_plain(name: str, x0, mask, col_mask, is_lig, cutoffs, update_rows) -> None:
+    """A plain-path launch of kernel ``name`` while a profiler records: the
+    adjacency's pairs on rows below ``update_rows``, and every pair of the
+    (B, N, N) it computes."""
+    if not _recording():
+        return
+    B, N = mask.shape
+    adj = adjacency_dense(_pair_d2(x0), mask, is_lig, cutoffs, col_mask=col_mask)
+    _plain_pairs[name][0] += int(torch.count_nonzero(adj[:, :_rows(update_rows, N)]))
+    _plain_pairs[name][1] += B * N * N
+
+
+def pair_counts() -> Dict[str, tuple]:
+    """(active, computed) pairs of each kernel's launches while a profiler
+    recorded, since the last ``reset_launch_counts``: the device counters
+    (read with one synchronize) and the plain path's."""
+    out = {name: list(v) for name, v in _plain_pairs.items()}
+    for buf in _pair_buffers.values():
+        for name, (active, computed) in zip(KERNELS, buf.tolist()):
+            out[name][0] += active
+            out[name][1] += computed
+    return {name: (int(a), int(c)) for name, (a, c) in out.items()}
 
 
 def reset_launch_counts() -> None:
+    """Zero ``launch_counts``, ``tier_launch_counts`` and the pair counters."""
     for counts in (launch_counts, tier_launch_counts):
         for name in counts:
             counts[name] = 0
+    for v in _plain_pairs.values():
+        v[:] = [0, 0]
+    for buf in _pair_buffers.values():
+        buf.zero_()
 
 
 def check_tier(name: str, tier: str) -> str:
@@ -371,7 +438,7 @@ def last_cluster_dim(name: str, tier: str = DEFAULT_TIER) -> int:
 
 def _launch(name: str, *args, tier: str = DEFAULT_TIER) -> None:
     fn = getattr(_lib(name, tier), _ARGTYPES[name][0])
-    err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    err = fn(*args, _pair_counter(name), torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name}[{tier}] kernel launch failed with CUDA error {err}")
     launch_counts[name] += 1
@@ -951,6 +1018,7 @@ def gcl_agg_bwd(g, a_row, a_col, x, x0, mask, is_lig, w_d2, w_d20, delta, w2, b2
               normalization_factor=normalization_factor, col_mask=col_mask,
               update_rows=update_rows, precision=precision)
     if a_row.device.type == "cpu":
+        _count_plain("gcl_agg_bwd", x0, mask, col_mask, is_lig, cutoffs, update_rows)
         return gcl_agg_bwd_plain(g, a_row, a_col, x, x0, mask, is_lig, w_d2, w_d20,
                                  delta, w2, b2, w_att, b_att, **kw)
     if a_row.device.type != "cuda":
@@ -1051,6 +1119,7 @@ def coord_agg_bwd(g, a_row, a_col, x, x0, mask, is_lig, w_d2, w_d20, delta, w2, 
               graph_mean=graph_mean, col_mask=col_mask, update_rows=update_rows,
               precision=precision)
     if a_row.device.type == "cpu":
+        _count_plain("coord_agg_bwd", x0, mask, col_mask, is_lig, cutoffs, update_rows)
         return coord_agg_bwd_plain(g, a_row, a_col, x, x0, mask, is_lig, w_d2,
                                    w_d20, delta, w2, b2, w3, **kw)
     if a_row.device.type != "cuda":
@@ -1151,6 +1220,7 @@ class _GclAggFn(torch.autograd.Function):
         ctx.save_for_backward(a_row, a_col, x, x0, w_d2, w_d20, delta, w2, b2,
                               w_att, b_att, mask, col_mask, is_lig)
         if a_row.device.type == "cpu":
+            _count_plain("gcl_agg", x0, mask, col_mask, is_lig, cutoffs, update_rows)
             return gcl_message_agg_plain(
                 a_row, a_col, x, x0, mask, is_lig, w_d2, w_d20, _delta_table(delta),
                 w2, b2, w_att, b_att, cutoffs=cutoffs, attention=attention,
@@ -1197,6 +1267,7 @@ class _CoordAggFn(torch.autograd.Function):
             cross = None
             if cross_ops:
                 cross = dict(c, type_bias=_delta_table(c["delta"]))
+            _count_plain("coord_agg", x0, mask, col_mask, is_lig, cutoffs, update_rows)
             return coord_update_agg_plain(
                 a_row, a_col, x, x0, mask, is_lig, w_d2, w_d20, _delta_table(delta),
                 w2, b2, w3, cutoffs=cutoffs, tanh=tanh, coords_range=coords_range,
@@ -1265,6 +1336,7 @@ def gcl_message_agg(a_row, a_col, x, x0, mask, is_lig, w_d2, w_d20,
     """
     tiers = _tiers("gcl_agg", precision, bwd_precision)
     if a_row.device.type == "cpu" and tiers == (DEFAULT_TIER, DEFAULT_TIER):
+        _count_plain("gcl_agg", x0, mask, col_mask, is_lig, cutoffs, update_rows)
         return gcl_message_agg_plain(
             a_row, a_col, x, x0, mask, is_lig, w_d2, w_d20, type_bias, w2, b2,
             w_att, b_att, cutoffs=cutoffs, attention=attention,
@@ -1315,6 +1387,7 @@ def coord_update_agg(a_row, a_col, x, x0, mask, is_lig, w_d2, w_d20,
     """
     tiers = _tiers("coord_agg", precision, bwd_precision)
     if a_row.device.type == "cpu" and tiers == (DEFAULT_TIER, DEFAULT_TIER):
+        _count_plain("coord_agg", x0, mask, col_mask, is_lig, cutoffs, update_rows)
         return coord_update_agg_plain(
             a_row, a_col, x, x0, mask, is_lig, w_d2, w_d20, type_bias, w2, b2, w3,
             cutoffs=cutoffs, tanh=tanh, coords_range=coords_range,
@@ -1513,6 +1586,10 @@ def block_fused(h, a_row, a_col, x, x0, mask, is_lig, gcl, node, coord, cross=No
               update_rows=None if update_rows is None else int(update_rows),
               precision=check_tier("block_fused", precision))
     if a_row.device.type == "cpu":
+        # its two phases: the GCL on every row, the coordinate update below
+        # update_rows
+        _count_plain("block_fused", x0, mask, None, is_lig, cutoffs, None)
+        _count_plain("block_fused", x0, mask, None, is_lig, cutoffs, update_rows)
         return block_fused_plain(h, a_row, a_col, x, x0, mask, is_lig, gcl, node,
                                  coord, cross, graph_mean, **kw)
     if a_row.device.type != "cuda":

@@ -41,6 +41,7 @@ import torch.distributed as dist
 from diffsbdd_tpu_torch.data.dataset import PrefetchLoader
 from diffsbdd_tpu_torch.parallel.mesh import all_reduce_mean, group_rank_size
 from diffsbdd_tpu_torch.utils.device import resolve_device
+from diffsbdd_tpu_torch.utils.profiling import span
 
 QUEUE_LEN = 50
 
@@ -163,57 +164,61 @@ def make_train_step(state: TrainState, clip_grad: bool = True,
     micro-batches and averages their gradients, losses and metrics.  With a
     data ``group`` of more than one rank the batch is this rank's slice, and
     the (accumulated) gradients, the loss and the metrics are averaged over
-    the group before the clipping (``generator`` is then the rank's own)."""
+    the group before the clipping (``generator`` is then the rank's own).
+    The call is a ``train.step`` span and each micro-batch's loss and
+    gradients a ``train.micro_batch`` span (``utils.profiling.span``)."""
     module, k_acc = state.module, accumulate_grad_batches
     params = list(module.parameters())
     n_ranks = group_rank_size(group)[1]
 
     def loss_and_grads(generator, ligand, pocket):
-        loss, info = module.loss_fn(generator, ligand, pocket, training=True)
-        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        with span("train.micro_batch"):
+            loss, info = module.loss_fn(generator, ligand, pocket, training=True)
+            grads = torch.autograd.grad(loss, params, allow_unused=True)
         # a parameter the loss does not reach (the pocket decoder of the
         # conditional model) has a zero gradient, not none
         return [torch.zeros_like(p) if g is None else g
                 for p, g in zip(params, grads)], info
 
     def step(generator, ligand, pocket):
-        if k_acc <= 1:
-            grads, info = loss_and_grads(generator, ligand, pocket)
-        else:
-            B = ligand["x"].shape[0]
-            if B % k_acc != 0:
-                # with several ranks B is the rank's slice: the global batch
-                # must be divisible by ranks * k_acc
-                raise ValueError(
-                    f"accumulate_grad_batches={k_acc} must divide the "
-                    f"{'per-shard ' if n_ranks > 1 else ''}batch size {B}"
-                    + (f" (= global batch / {n_ranks} devices)" if n_ranks > 1 else ""))
-            grads, infos = None, []
-            for lig, pkt in zip(_split_batch(ligand, k_acc), _split_batch(pocket, k_acc)):
-                g, info = loss_and_grads(generator, lig, pkt)
-                grads = g if grads is None else torch._foreach_add(grads, g)
-                infos.append(info)
-            grads = torch._foreach_div(grads, k_acc)
-            info = {k: torch.stack([i[k] for i in infos]).mean(0) for k in infos[0]}
+        with span("train.step"):
+            if k_acc <= 1:
+                grads, info = loss_and_grads(generator, ligand, pocket)
+            else:
+                B = ligand["x"].shape[0]
+                if B % k_acc != 0:
+                    # with several ranks B is the rank's slice: the global batch
+                    # must be divisible by ranks * k_acc
+                    raise ValueError(
+                        f"accumulate_grad_batches={k_acc} must divide the "
+                        f"{'per-shard ' if n_ranks > 1 else ''}batch size {B}"
+                        + (f" (= global batch / {n_ranks} devices)" if n_ranks > 1 else ""))
+                grads, infos = None, []
+                for lig, pkt in zip(_split_batch(ligand, k_acc), _split_batch(pocket, k_acc)):
+                    g, info = loss_and_grads(generator, lig, pkt)
+                    grads = g if grads is None else torch._foreach_add(grads, g)
+                    infos.append(info)
+                grads = torch._foreach_div(grads, k_acc)
+                info = {k: torch.stack([i[k] for i in infos]).mean(0) for k in infos[0]}
 
-        info = {k: v.detach() for k, v in info.items()}
-        if n_ranks > 1:
-            reduced = all_reduce_mean([*grads, *info.values()], group)
-            grads = reduced[:len(grads)]
-            info = dict(zip(info, reduced[len(grads):]))
-        if clip_grad:
-            # allow 150% + 2 standard deviations of the recent history
-            mean, std = state.queue.stats()
-            max_norm = 1.5 * mean + 2.0 * std
-            gnorm = torch.sqrt(sum((g.float() ** 2).sum() for g in grads))
-            scale = torch.clamp(max_norm / (gnorm + 1e-12), max=1.0)
-            grads = [g * scale for g in grads]
-            state.queue.push(torch.minimum(gnorm, max_norm))
-            info["grad_norm"] = gnorm
-            info["max_grad_norm"] = max_norm
-        state.optimizer.step(grads)
-        state.step += 1
-        return info
+            info = {k: v.detach() for k, v in info.items()}
+            if n_ranks > 1:
+                reduced = all_reduce_mean([*grads, *info.values()], group)
+                grads = reduced[:len(grads)]
+                info = dict(zip(info, reduced[len(grads):]))
+            if clip_grad:
+                # allow 150% + 2 standard deviations of the recent history
+                mean, std = state.queue.stats()
+                max_norm = 1.5 * mean + 2.0 * std
+                gnorm = torch.sqrt(sum((g.float() ** 2).sum() for g in grads))
+                scale = torch.clamp(max_norm / (gnorm + 1e-12), max=1.0)
+                grads = [g * scale for g in grads]
+                state.queue.push(torch.minimum(gnorm, max_norm))
+                info["grad_norm"] = gnorm
+                info["max_grad_norm"] = max_norm
+            state.optimizer.step(grads)
+            state.step += 1
+            return info
 
     return step
 

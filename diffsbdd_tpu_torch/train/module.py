@@ -36,6 +36,7 @@ from diffsbdd_tpu_torch.ops.masked import masked_mean
 from diffsbdd_tpu_torch.train.augment import augment_batch
 from diffsbdd_tpu_torch.train.lj import WeightSchedule, lj_potential
 from diffsbdd_tpu_torch.utils.misc import shift_to_pocket_frame
+from diffsbdd_tpu_torch.utils.profiling import span
 
 
 def molecules_from_samples(xh_lig: np.ndarray, lig_mask: np.ndarray, dataset_info,
@@ -287,18 +288,21 @@ class LigandPocketDDPM(nn.Module):
         ligand sizes, drawn or given, get ``n_nodes_bias`` added and are
         clipped below at ``n_nodes_min``.  Returns the molecules that pass
         the filters, and with ``return_raw`` also every built molecule:
-        (molecules, raw)."""
+        (molecules, raw).  Reading the pocket and building the molecules are
+        the ``module.prepare_pocket`` and ``module.build_molecules`` spans
+        (``utils.profiling.span``)."""
         if (pocket_ids is None) == (ref_ligand is None):
             raise ValueError("give exactly one of pocket_ids and ref_ligand")
-        struct = pdbmod.parse_pdb(pdb_file)
-        if pocket_ids is not None:
-            residues = [struct.residue(pid.split(":")[0], int(pid.split(":")[1]))
-                        for pid in pocket_ids]
-        else:
-            residues = pdbmod.get_pocket_from_ligand(struct, ref_ligand)
+        with span("module.prepare_pocket"):
+            struct = pdbmod.parse_pdb(pdb_file)
+            if pocket_ids is not None:
+                residues = [struct.residue(pid.split(":")[0], int(pid.split(":")[1]))
+                            for pid in pocket_ids]
+            else:
+                residues = pdbmod.get_pocket_from_ligand(struct, ref_ligand)
 
-        pocket = self.prepare_pocket(residues, repeats=n_samples)
-        pocket_com_before = masked_mean(pocket["x"], pocket["mask"]).cpu().numpy()
+            pocket = self.prepare_pocket(residues, repeats=n_samples)
+            pocket_com_before = masked_mean(pocket["x"], pocket["mask"]).cpu().numpy()
 
         if num_nodes_lig is None:
             if self.virtual_nodes:
@@ -336,15 +340,16 @@ class LigandPocketDDPM(nn.Module):
                 generator, pocket, lig_mask, timesteps=timesteps,
                 shared_pocket=True)
 
-        lig_m = lig_mask.cpu().numpy()
-        xh_lig, xh_pocket = shift_to_pocket_frame(
-            xh_lig.cpu().numpy(), xh_pocket.cpu().numpy(), lig_m,
-            pocket["mask"].cpu().numpy(), pocket_com_before)
+        with span("module.build_molecules"):
+            lig_m = lig_mask.cpu().numpy()
+            xh_lig, xh_pocket = shift_to_pocket_frame(
+                xh_lig.cpu().numpy(), xh_pocket.cpu().numpy(), lig_m,
+                pocket["mask"].cpu().numpy(), pocket_com_before)
 
-        return molecules_from_samples(xh_lig, lig_m, self.dataset_info,
-                                      sanitize=sanitize, relax_iter=relax_iter,
-                                      largest_frag=largest_frag,
-                                      return_raw=return_raw)
+            return molecules_from_samples(xh_lig, lig_m, self.dataset_info,
+                                          sanitize=sanitize, relax_iter=relax_iter,
+                                          largest_frag=largest_frag,
+                                          return_raw=return_raw)
 
     # ------------------------------------------------------------------ eval
     def analyze_samples(self, molecules: List[SimpleMol], atom_types, aa_types,

@@ -1659,3 +1659,97 @@ def test_block_width_above_4096_is_refused():
     with pytest.raises(ValueError, match="above 4096.*ROADMAP.*widths above 4096"):
         ec.block_fused(*ins, **BLOCK_KW)
     assert not any(ec.launch_counts.values())
+
+
+# ---------------------------------------------------------------------------
+# the kernels' pair counters
+# ---------------------------------------------------------------------------
+
+def _outputs(out):
+    """Every tensor of a wrapper's result, in order."""
+    if torch.is_tensor(out):
+        return [out]
+    items = out.values() if isinstance(out, dict) else out if isinstance(out, (list, tuple)) \
+        else ()
+    return [t for v in items for t in _outputs(v)]
+
+
+def _pair_case(kernel, width, update_rows, seed=90):
+    """(one launch of ``kernel`` at ``width``, x0, mask, is_lig, the rows
+    below which each of its phases counts)."""
+    if kernel == "block_fused":
+        ins = block_inputs(seed, F=width)
+        kw = dict(BLOCK_KW, update_rows=update_rows)
+        return (lambda: ec.block_fused(*ins, **kw)), ins[4], ins[5], ins[6], \
+            [None, update_rows]
+    main, extra = _inputs(seed, F=width, w_scale=None)
+    m = main["mask"]
+    att = (extra["w_att"], extra["b_att"])
+    gkw = dict(cutoffs=CUTOFFS, attention=True, normalization_factor=100.0,
+               update_rows=update_rows)
+    ckw = dict(COORD_KW, update_rows=update_rows,
+               graph_mean=(main["x"] * m[..., None]).sum(1) / m.sum(1)[:, None])
+    gen = torch.Generator().manual_seed(seed + 1)
+    ops = _folded(main)
+    if kernel == "gcl_agg":
+        run = lambda: ec.gcl_message_agg(*main.values(), *att, **gkw)
+    elif kernel == "coord_agg":
+        cross = dict(extra["cross"], w3=extra["w3"])
+        run = lambda: ec.coord_update_agg(*main.values(), extra["w3"], cross=cross, **ckw)
+    elif kernel == "gcl_agg_bwd":
+        g = torch.randn(B, N, width, generator=gen).cuda()
+        run = lambda: ec.gcl_agg_bwd(g, *ops.values(), *att, **gkw)
+    else:
+        g = torch.randn(B, N, 3, generator=gen).cuda()
+        cross = _folded_cross(extra["cross"], main["is_lig"], extra["w3"])
+        run = lambda: ec.coord_agg_bwd(g, *ops.values(), extra["w3"], cross=cross, **ckw)
+    return run, main["x0"], m, main["is_lig"], [update_rows]
+
+
+def _dense_pair_counts(x0, mask, is_lig, phases, width):
+    """(active, computed) as the kernels count them, from the dense
+    adjacency: the pairs inside the cutoffs on each phase's rows, and for
+    each tile of ``row_tile(width)`` rows its columns adjacent to any of its
+    rows, in chunks of 16, times the tile's rows.  Refuses inputs with a
+    pair within float32 rounding of its cutoff, which either side may
+    count."""
+    d2 = ec._pair_d2(x0.double())
+    for c in CUTOFFS:
+        if c is not None:
+            assert not ((d2 - c * c).abs() <= 1e-4 * c * c).any(), "a borderline pair"
+    adj = ec.adjacency_dense(d2, mask.double(), is_lig.double(), CUTOFFS) != 0
+    TI, n = ec.row_tile(width), x0.shape[1]
+    active = computed = 0
+    for rows in phases:
+        r = n if rows is None else min(rows, n)
+        tiles = -(-r // TI)
+        a = torch.nn.functional.pad(adj[:, :r], (0, 0, 0, tiles * TI - r))
+        active += int(a.sum())
+        cols = a.view(B, tiles, TI, n).any(2).sum(-1)
+        computed += int((TI * 16 * ((cols + 15) // 16)).sum())
+    return active, computed
+
+
+@pytest.mark.parametrize("width", [256, 4096])
+@pytest.mark.parametrize("update_rows", [None, 12], ids=["all_rows", "ligand_rows"])
+@pytest.mark.parametrize("kernel", ["gcl_agg", "coord_agg", "gcl_agg_bwd", "coord_agg_bwd",
+                                    "block_fused"])
+def test_kernels_count_their_pairs(kernel, update_rows, width):
+    """While a profiler records, a launch counts the pairs inside the
+    cutoffs exactly as the dense adjacency has them and the pairs its chunks
+    hold (each tile once, whatever its cluster of four blocks at 4096 or its
+    pair MLP); its outputs are bit for bit those of a launch with a null
+    counter, which counts nothing."""
+    run, x0, mask, is_lig, phases = _pair_case(kernel, width, update_rows)
+    ec.reset_launch_counts()
+    off = _outputs(run())
+    torch.cuda.synchronize()
+    assert ec.pair_counts()[kernel] == (0, 0) and ec.launch_counts[kernel] == 1
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        on = _outputs(run())
+    assert ec.last_cluster_dim(kernel) == ec.cluster_size(width)
+    want = _dense_pair_counts(x0, mask, is_lig, phases, width)
+    got = ec.pair_counts()
+    assert got[kernel] == want and want[1] >= want[0] > 0
+    assert all(v == (0, 0) for k, v in got.items() if k != kernel)
+    assert len(on) == len(off) and all(torch.equal(a, b) for a, b in zip(on, off))
